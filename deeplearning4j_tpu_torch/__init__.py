@@ -1,0 +1,16 @@
+"""deeplearning4j_tpu_torch — the PyTorch/CUDA port of deeplearning4j_tpu
+for an NVIDIA H100.
+
+Module paths mirror the JAX package, so each part of the port sits where
+its counterpart does. The port imports torch and never jax, nor any module
+of `deeplearning4j_tpu`. Every kernel that the JAX package wrote in
+Pallas is a kernel written by hand for Hopper (`kernels/csrc/`), built at
+first use.
+
+Slices ported so far: BERT inference (`models/bert.py`), the flash
+attention forward and decode kernels (`kernels/`), and KV-cache serving
+through `generation.GenerationServer` over `generation.BertDecoder`.
+"""
+from deeplearning4j_tpu_torch.device import resolve
+
+__all__ = ["resolve"]

@@ -1,0 +1,87 @@
+"""The port stands alone: `deeplearning4j_tpu_torch` and `chip_smoke.py`
+import neither jax nor any module of the JAX package, and the port's
+entry points run on the card unless the caller asks for the CPU."""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from deeplearning4j_tpu_torch import resolve
+from deeplearning4j_tpu_torch.models import bert_tiny, init_bert_params
+from deeplearning4j_tpu_torch.models.convert import (param_shapes,
+                                                     params_from_numpy)
+
+REPO = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((REPO / "deeplearning4j_tpu_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py"]
+
+
+def _forbidden(name):
+    return any(name == root or name.startswith(root + ".")
+               for root in ("jax", "jaxlib", "deeplearning4j_tpu"))
+
+
+def test_port_sources_import_nothing_of_jax():
+    assert len(PORT_FILES) > 10
+    bad = []
+    for path in PORT_FILES:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{path.relative_to(REPO)}:{node.lineno} {n}"
+                    for n in names if _forbidden(n)]
+    assert not bad, bad
+
+
+def test_importing_the_port_loads_no_jax_module():
+    """A fresh interpreter (isolated: no PYTHONPATH, no user site) imports
+    every module of the port and chip_smoke.py."""
+    modules = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts)
+        for p in PORT_FILES if p.name != "__init__.py")
+    code = (
+        "import importlib, sys\n"
+        f"sys.path.insert(0, {str(REPO)!r})\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', "
+        "'deeplearning4j_tpu') or m.startswith(('jax.', 'jaxlib.', "
+        "'deeplearning4j_tpu.'))]\n"
+        "print(len(sys.modules), bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-I", "-c", code],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=str(REPO))
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_entry_points_default_to_the_card():
+    cfg = bert_tiny()
+    if torch.cuda.is_available():
+        assert resolve().type == "cuda"
+        p = init_bert_params(cfg, seed=0)
+        assert p["embeddings"]["word"].is_cuda
+        return
+    for call in (resolve, lambda: init_bert_params(cfg, seed=0),
+                 lambda: params_from_numpy(cfg, _zeros(param_shapes(cfg)))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert resolve("cpu").type == "cpu"
+    cpu = params_from_numpy(cfg, _zeros(param_shapes(cfg)), device="cpu")
+    assert cpu["layers"][1]["ffn"]["down_W"].device.type == "cpu"
+
+
+def _zeros(spec):
+    if isinstance(spec, dict):
+        return {k: _zeros(v) for k, v in spec.items()}
+    if isinstance(spec, list):
+        return [_zeros(v) for v in spec]
+    return np.zeros(spec, np.float32)
