@@ -44,11 +44,11 @@ def _nvcc():
     return path
 
 
-def _target(name, extra):
+def _target(name):
     src = CSRC / f"{name}.cu"
     if not src.exists():
         raise ValueError(f"no kernel source {src}")
-    h = hashlib.sha256(repr((NVCC_FLAGS, extra)).encode())
+    h = hashlib.sha256(repr(NVCC_FLAGS).encode())
     for p in sorted(CSRC.glob("*.cuh")) + [src]:
         h.update(p.read_bytes())
     return src, BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
@@ -56,8 +56,9 @@ def _target(name, extra):
 
 def _start(name, extra):
     """Spawn nvcc for one source unless its library exists; returns
-    (target, process or None)."""
-    src, out = _target(name, extra)
+    (target, process or None). `extra` only adds compiler reports, which
+    leave the library as it is, so it is not part of the library's key."""
+    src, out = _target(name)
     if out.exists():
         return out, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -85,7 +86,8 @@ def _finish(name, out, job):
 def build_all(verbose=False):
     """Compile every `csrc/*.cu` in parallel (one nvcc each) and load the
     libraries. `verbose` adds `-Xptxas -v` (registers, shared memory and
-    spills per kernel). Returns {"seconds": wall time, "logs": {name:
+    spills per kernel) to the sources it compiles; a library already
+    built loads with no report. Returns {"seconds": wall time, "logs": {name:
     compiler output}}."""
     extra = ("-Xptxas", "-v") if verbose else ()
     t0 = time.perf_counter()

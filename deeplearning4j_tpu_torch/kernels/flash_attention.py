@@ -1,20 +1,28 @@
-"""Flash attention, forward only: the port of
+"""Flash attention, forward and backward: the port of
 `deeplearning4j_tpu/kernels/flash_attention.py`.
 
-Two hand-written Hopper kernels carry it on the card:
+Four hand-written Hopper kernels carry it on the card:
 
 - `flash_fwd` (csrc/flash_fwd.cu): tiled online-softmax attention over
   (B, H, Tq, D) × (B, H, Tk, D) with an optional causal mask and an
   optional (B, Tk) key mask; it emits O and the per-row logsumexp. BERT
   encode (`attn_impl="flash"`) and decoder prefill run it.
+- `flash_bwd_dq` (csrc/flash_bwd_dq.cu) and `flash_bwd_dkv`
+  (csrc/flash_bwd_dkv.cu): the backward pair. Both recompute
+  P = exp(S − lse) from the forward's saved logsumexp; one block owns a
+  query tile (dQ) or a key tile (dK, dV), so each gradient row is written
+  by one block and two runs agree bit for bit. `flash_attention` is a
+  `torch.autograd.Function` whose backward runs them, so BERT fine-tuning
+  trains through the kernels.
 - `flash_decode` (csrc/flash_decode.cu): one query per (b, h) against a
   (B, H, C, D) cache under a (B, C) cache mask; the decode step runs it.
 
 Each wrapper launches its kernel for a CUDA tensor, counts the launch on
 its `launches` attribute, and raises on what the kernel does not take. For
 a CPU tensor it runs the kernel's plain PyTorch version beside it
-(`_flash_forward_reference`, `_decode_reference`), which is what the CPU
-tests compare with the JAX package.
+(`_flash_forward_reference`, `_dq_reference`, `_dkv_reference`,
+`_decode_reference`), which is what the CPU tests compare with the JAX
+package. Nothing falls back from a kernel to its plain version on the card.
 
 Layout (B, H, T, D) as in the JAX package. Scores that a mask removes take
 -1e30, as in the JAX kernel; rows with no valid key come back as zeros.
@@ -28,7 +36,8 @@ import torch
 from deeplearning4j_tpu_torch.kernels import _build
 
 __all__ = ["flash_attention", "flash_attention_decode",
-           "flash_attention_decode_mq", "flash_fwd", "flash_decode"]
+           "flash_attention_decode_mq", "flash_fwd", "flash_bwd_dq",
+           "flash_bwd_dkv", "flash_decode"]
 
 _NEG_INF = -1e30
 
@@ -43,6 +52,14 @@ _ENTRIES = {
     # device, stream
     "flash_fwd": ("dl4j_flash_fwd",
                   [_P] * 6 + [_I] * 7 + [_F, _I, _P]),
+    # q, k, v, dO, lse, delta, kv_mask, dq, dtype, BH, H, Tq, Tk, D,
+    # causal, scale, device, stream
+    "flash_bwd_dq": ("dl4j_flash_bwd_dq",
+                     [_P] * 8 + [_I] * 7 + [_F, _I, _P]),
+    # q, k, v, dO, lse, delta, kv_mask, dk, dv, dtype, BH, H, Tq, Tk, D,
+    # causal, scale, device, stream
+    "flash_bwd_dkv": ("dl4j_flash_bwd_dkv",
+                      [_P] * 9 + [_I] * 7 + [_F, _I, _P]),
     # q, k, v, mask, o, dtype, BH, H, C, D, scale, device, stream
     "flash_decode": ("dl4j_flash_decode",
                      [_P] * 5 + [_I] * 5 + [_F, _I, _P]),
@@ -101,24 +118,36 @@ def _stream(device):
 # ---------------------------------------------------------------------------
 # kernel 1: flash forward
 # ---------------------------------------------------------------------------
-def _flash_forward_reference(q, k, v, kv_mask, causal):
-    """Plain version of `flash_fwd`: the same masked online-softmax result
-    computed densely in f32. Returns (out (B, H, Tq, D) in q.dtype,
-    lse (B*H, Tq) f32)."""
-    b, h, tq, d = q.shape
-    tk = k.shape[2]
-    scale = 1.0 / d ** 0.5
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float() * scale, k.float())
+def _wide(t):
+    """The plain versions compute in f32, or in f64 for f64 inputs (which
+    no kernel takes; gradcheck uses them)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
+def _masked_scores(q, k, kv_mask, causal):
+    """(q·scale)·kᵀ in f32, (B, H, Tq, Tk), with -1e30 where the key mask
+    or causality removes a key (the JAX kernels' `where(mask, s, -1e30)`)."""
+    tq, tk, d = q.shape[2], k.shape[2], q.shape[3]
+    s = torch.einsum("bhqd,bhkd->bhqk", _wide(q) * (1.0 / d ** 0.5),
+                     _wide(k))
     valid = torch.ones((1, 1, tq, tk), dtype=torch.bool, device=q.device)
     if causal:
         valid = torch.tril(valid)
     if kv_mask is not None:
         valid = valid & kv_mask.to(torch.bool)[:, None, None, :]
-    s = torch.where(valid, s, _NEG_INF)
+    return torch.where(valid, s, _NEG_INF)
+
+
+def _flash_forward_reference(q, k, v, kv_mask, causal):
+    """Plain version of `flash_fwd`: the same masked online-softmax result
+    computed densely in f32. Returns (out (B, H, Tq, D) in q.dtype,
+    lse (B*H, Tq) f32)."""
+    b, h, tq, d = q.shape
+    s = _masked_scores(q, k, kv_mask, causal)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float()) / l
+    out = torch.einsum("bhqk,bhkd->bhqd", p, _wide(v)) / l
     lse = (m + torch.log(l))[..., 0].reshape(b * h, tq)
     return out.to(q.dtype), lse
 
@@ -177,14 +206,174 @@ def _flash_forward(q, k, v, q_mask, kv_mask, causal):
     return out, lse
 
 
+# ---------------------------------------------------------------------------
+# backward kernels: dQ and dK/dV
+# ---------------------------------------------------------------------------
+def _bwd_tiles(q, k, v, g, lse, delta, kv_mask, causal):
+    """P = exp(where(mask, S, -1e30) - lse) and dS = P∘(dO·Vᵀ - Δ), f32
+    (B, H, Tq, Tk), as `_recompute_p` and the TPU backward kernels form
+    them. There is no query-side mask: invalid query rows carry
+    lse = +1e30 (`_flash_forward`), so their P is exactly 0."""
+    b, h, tq, _ = q.shape
+    s = _masked_scores(q, k, kv_mask, causal)
+    p = torch.exp(s - lse.reshape(b, h, tq, 1))
+    dp = torch.einsum("bhqd,bhkd->bhqk", _wide(g), _wide(v))
+    ds = p * (dp - delta.reshape(b, h, tq, 1))
+    return p, ds
+
+
+def _dq_reference(q, k, v, g, lse, delta, kv_mask, causal):
+    """Plain version of `flash_bwd_dq`: dQ = scale·dS·K in q.dtype."""
+    _, ds = _bwd_tiles(q, k, v, g, lse, delta, kv_mask, causal)
+    scale = 1.0 / q.shape[-1] ** 0.5
+    return (scale * torch.einsum("bhqk,bhkd->bhqd", ds, _wide(k))).to(
+        q.dtype)
+
+
+def _dkv_reference(q, k, v, g, lse, delta, kv_mask, causal):
+    """Plain version of `flash_bwd_dkv`: dK = scale·dSᵀ·Q and dV = Pᵀ·dO,
+    in k.dtype and v.dtype."""
+    p, ds = _bwd_tiles(q, k, v, g, lse, delta, kv_mask, causal)
+    scale = 1.0 / q.shape[-1] ** 0.5
+    dk = scale * torch.einsum("bhqk,bhqd->bhkd", ds, _wide(q))
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, _wide(g))
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _delta(g, o):
+    """Δ = rowsum(dO∘O) in f32, (B*H, Tq): one PyTorch reduction, as the
+    JAX package computes it outside its kernels (`_flash_backward`)."""
+    b, h, tq, _ = o.shape
+    return (_wide(g) * _wide(o)).sum(dim=-1).reshape(b * h, tq)
+
+
+def _flash_backward_reference(q, k, v, o, lse, g, kv_mask, causal):
+    """Plain version of both backward kernels, the counterpart of the JAX
+    `_flash_backward`: (dq, dk, dv) from the forward's out `o` and
+    lse (B*H, Tq) and the output cotangent `g`."""
+    delta = _delta(g, o)
+    dq = _dq_reference(q, k, v, g, lse, delta, kv_mask, causal)
+    return (dq, *_dkv_reference(q, k, v, g, lse, delta, kv_mask, causal))
+
+
+def _bwd_operands(name, q, k, v, g, lse, delta, kv_mask):
+    """Check what a backward kernel takes; returns its operands ready for
+    the C entry: (q, k, v, g, lse, delta, mask bytes or None)."""
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    if (k.shape != (b, h, tk, d) or v.shape != k.shape
+            or g.shape != q.shape):
+        raise ValueError(
+            f"{name}: q {tuple(q.shape)} / dO {tuple(g.shape)} do not match "
+            f"k {tuple(k.shape)} / v {tuple(v.shape)}")
+    q, k, v, g = _operands(name, (q, k, v, g), _FWD_HEAD_DIMS)
+    rows = []
+    for what, t in (("lse", lse), ("delta", delta)):
+        if (t.dtype != torch.float32 or t.device != q.device
+                or t.shape != (b * h, tq)):
+            raise ValueError(
+                f"{name}: {what} must be float32 (B*H, Tq) = {(b * h, tq)} "
+                f"on {q.device}, got {t.dtype} {tuple(t.shape)} on "
+                f"{t.device}")
+        rows.append(_aligned(t))
+    mask = None
+    if kv_mask is not None:
+        mask = _mask_bytes(kv_mask, q.device, "kv_mask")
+        if mask.shape != (b, tk):
+            raise ValueError(f"{name}: kv_mask must be (B, Tk) = {(b, tk)}, "
+                             f"got {tuple(mask.shape)}")
+    return q, k, v, g, rows[0], rows[1], mask
+
+
+def _bwd_args(q, k, v, g, lse, delta, mask):
+    b, h, tq, d = q.shape
+    return ([q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(),
+             None if mask is None else mask.data_ptr()],
+            [_DTYPE_CODES[q.dtype], b * h, h, tq, k.shape[2], d])
+
+
+def flash_bwd_dq(q, k, v, g, lse, delta, kv_mask=None, causal=False):
+    """Kernel csrc/flash_bwd_dq.cu on a CUDA tensor, its plain version on a
+    CPU one. q/g (B, H, Tq, D), k/v (B, H, Tk, D), lse and delta (B*H, Tq)
+    f32 (lse with the +1e30 sentinel of `_flash_forward`), kv_mask (B, Tk)
+    truthy or None. Returns dq (B, H, Tq, D) in q.dtype."""
+    if not q.is_cuda:
+        return _dq_reference(q, k, v, g, lse, delta, kv_mask, causal)
+    q, k, v, g, lse, delta, mask = _bwd_operands(
+        "flash_bwd_dq", q, k, v, g, lse, delta, kv_mask)
+    dq = torch.empty_like(q)
+    d = q.shape[-1]
+    ptrs, ints = _bwd_args(q, k, v, g, lse, delta, mask)
+    code = _entry("flash_bwd_dq")(
+        *ptrs, dq.data_ptr(), *ints, int(causal), 1.0 / d ** 0.5,
+        q.device.index or 0, _stream(q.device))
+    _build.check(code, "flash_bwd_dq")
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv(q, k, v, g, lse, delta, kv_mask=None, causal=False):
+    """Kernel csrc/flash_bwd_dkv.cu on a CUDA tensor, its plain version on a
+    CPU one. Takes what `flash_bwd_dq` takes; returns (dk, dv), each
+    (B, H, Tk, D) in k's dtype."""
+    if not q.is_cuda:
+        return _dkv_reference(q, k, v, g, lse, delta, kv_mask, causal)
+    q, k, v, g, lse, delta, mask = _bwd_operands(
+        "flash_bwd_dkv", q, k, v, g, lse, delta, kv_mask)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    d = q.shape[-1]
+    ptrs, ints = _bwd_args(q, k, v, g, lse, delta, mask)
+    code = _entry("flash_bwd_dkv")(
+        *ptrs, dk.data_ptr(), dv.data_ptr(), *ints, int(causal),
+        1.0 / d ** 0.5, q.device.index or 0, _stream(q.device))
+    _build.check(code, "flash_bwd_dkv")
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The counterpart of the JAX `_flash_attention_vjp` with its
+    `_flash_fwd_rule` / `_flash_bwd_rule`: the forward saves q, k, v, the
+    output, the lse and the key mask; the backward runs the two backward
+    kernels (their plain versions on the CPU). The masks get no gradient,
+    as `_zero_mask_cotangent` gives them zeros."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_mask, kv_mask, causal):
+        out, lse = _flash_forward(q, k, v, q_mask, kv_mask, causal)
+        ctx.save_for_backward(q, k, v, out, lse, kv_mask)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, o, lse, kv_mask = ctx.saved_tensors
+        delta = _delta(g, o)
+        dq = flash_bwd_dq(q, k, v, g, lse, delta, kv_mask, ctx.causal)
+        dk, dv = flash_bwd_dkv(q, k, v, g, lse, delta, kv_mask, ctx.causal)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, causal=False, mask=None, kv_mask=None):
-    """Fused attention softmax(QKᵀ/√d)·V, forward only.
+    """Fused attention softmax(QKᵀ/√d)·V, differentiable in q, k and v:
+    the forward runs `flash_fwd`, the backward `flash_bwd_dq` and
+    `flash_bwd_dkv` (their plain versions on the CPU). Cross-attention
+    (Tq ≠ Tk) runs the same kernels.
 
     Masks for padded batches, as in the JAX package:
     - self-attention: pass `mask` (B, T); a False position is invalid as
       both key and query; its output rows come back as zeros.
     - cross-attention: pass `kv_mask` (B, Tk) for key padding and
       optionally `mask` (B, Tq) for query-row padding.
+    Gradients flow to q/k/v only at valid positions; the masks get none.
     """
     tq, tk = q.shape[2], k.shape[2]
     if causal and tq != tk:
@@ -207,14 +396,7 @@ def flash_attention(q, k, v, causal=False, mask=None, kv_mask=None):
     if kv_mask is not None and kv_mask.shape[1] != tk:
         raise ValueError(
             f"kv_mask length {kv_mask.shape[1]} != Tk {tk}")
-    if q.is_cuda and torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention has no backward on the card yet: the dQ and "
-            "dK/dV kernels (_flash_bwd_dq_kernel, _flash_bwd_dkv_kernel) "
-            "come with the training slice of the port")
-    out, _ = _flash_forward(q, k, v, mask, kv_mask, causal)
-    return out
+    return _FlashAttention.apply(q, k, v, mask, kv_mask, causal)
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,7 @@ from deeplearning4j_tpu_torch.device import resolve
 from deeplearning4j_tpu_torch.models.bert import check_supported
 
 __all__ = ["param_shapes", "params_from_numpy", "params_to_numpy",
-           "init_bert_params"]
+           "named_param_leaves", "param_leaves", "init_bert_params"]
 
 #: leaves initialised as N(0, 0.02²); the rest are LayerNorm scales (ones)
 #: or biases (zeros), as in the JAX package
@@ -90,6 +90,26 @@ def params_to_numpy(params):
     if isinstance(params, list):
         return [params_to_numpy(v) for v in params]
     return params.detach().float().cpu().numpy()
+
+
+def named_param_leaves(params, path="params"):
+    """(path, leaf) for every leaf of a parameter tree in the JAX package's
+    tree order (dict keys sorted, lists in order), as
+    `jax.tree_util.tree_leaves` lists them."""
+    if isinstance(params, dict):
+        return [x for k in sorted(params)
+                for x in named_param_leaves(params[k], f"{path}.{k}")]
+    if isinstance(params, (list, tuple)):
+        return [x for i, v in enumerate(params)
+                for x in named_param_leaves(v, f"{path}[{i}]")]
+    return [(path, params)]
+
+
+def param_leaves(params):
+    """The leaves of a parameter tree in the JAX package's tree order: what
+    an optimizer takes, and what lines the port's gradients up with
+    `jax.grad`'s tree."""
+    return [leaf for _, leaf in named_param_leaves(params)]
 
 
 def init_bert_params(cfg, seed=0, device=None, dtype=torch.float32):

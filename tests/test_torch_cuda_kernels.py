@@ -6,7 +6,8 @@ runs on a machine that has only PyTorch and the CUDA toolkit:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda_kernels.py
 
 Tolerances: f32 2e-5 (the kernel sums in another order than the plain
-version), bf16 2e-2 (the output is rounded to 8 mantissa bits)."""
+version), bf16 2e-2 (the output is rounded to 8 mantissa bits); gradients
+are held to the same tolerances scaled by max(1, max |plain|)."""
 import importlib
 
 import pytest
@@ -49,9 +50,28 @@ def test_cuda_kernels_match_plain_versions(card, dtype, atol):
     ref = tfa._decode_reference(q[:, :, :1], k, v, mask)
     assert (out.float() - ref.float()).abs().max() <= atol
     assert out[2].abs().max() == 0
-    q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tfa.flash_attention(q, k, v)
+    # the backward pair, self-attention with a fully padded example, causal,
+    # and cross-attention with a key mask
+    g = rnd(3, 4, 70, 64)
+    kc, vc = rnd(3, 4, 45, 64), rnd(3, 4, 45, 64)
+    kvm = torch.arange(45, device=card)[None] < torch.tensor(
+        [45, 20, 1], device=card)[:, None]
+    for qm, km, causal, kk, vv in ((mask, mask, False, k, v),
+                                   (None, None, True, k, v),
+                                   (None, kvm, False, kc, vc)):
+        o, lse = tfa._flash_forward(q, kk, vv, qm, km, causal)
+        delta = tfa._delta(g, o)
+        args = (q, kk, vv, g, lse, delta, km, causal)
+        got = (tfa.flash_bwd_dq(*args), *tfa.flash_bwd_dkv(*args))
+        want = (tfa._dq_reference(*args), *tfa._dkv_reference(*args))
+        again = (tfa.flash_bwd_dq(*args), *tfa.flash_bwd_dkv(*args))
+        for a, b, c in zip(got, want, again):
+            assert a.dtype == dtype and a.shape == b.shape
+            scale = max(1.0, b.float().abs().max().item())
+            assert (a.float() - b.float()).abs().max() <= atol * scale
+            assert torch.equal(a, c)          # no atomics: bit-identical
+        if qm is not None:
+            assert all(t[2].abs().max() == 0 for t in got)
 
 
 def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(card):
@@ -88,3 +108,26 @@ def test_cuda_decoder_kernel_path_matches_dense(card):
     assert (outs[0] - outs[1]).abs().max() <= 1e-4
     assert tfa.flash_fwd.launches - fwd0 == cfg.num_layers
     assert tfa.flash_decode.launches - dec0 == 3 * cfg.num_layers
+
+
+def test_cuda_flash_attention_trains_through_the_kernels(card):
+    """A CUDA tensor that requires grad runs the forward kernel and both
+    backward kernels, once each, with the plain backward's gradients."""
+    gen = torch.Generator(device=card).manual_seed(1)
+    q, k, v = (torch.randn((2, 3, 50, 32), generator=gen, device=card)
+               .requires_grad_() for _ in range(3))
+    mask = torch.arange(50, device=card)[None] < torch.tensor(
+        [50, 17], device=card)[:, None]
+    counts = (tfa.flash_fwd.launches, tfa.flash_bwd_dq.launches,
+              tfa.flash_bwd_dkv.launches)
+    out = tfa.flash_attention(q, k, v, mask=mask)
+    g = torch.randn(out.shape, generator=gen, device=card)
+    dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
+    assert (tfa.flash_fwd.launches, tfa.flash_bwd_dq.launches,
+            tfa.flash_bwd_dkv.launches) == tuple(n + 1 for n in counts)
+    o, lse = tfa._flash_forward(q.detach(), k.detach(), v.detach(), mask,
+                                mask, False)
+    want = tfa._flash_backward_reference(q.detach(), k.detach(), v.detach(),
+                                         o, lse, g, mask, False)
+    for a, b in zip((dq, dk, dv), want):
+        assert (a - b).abs().max() <= 2e-5
