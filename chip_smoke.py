@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py            # every phase, as the check runs it
     python3 chip_smoke.py --only kernels
-    python3 chip_smoke.py --profile  # and phase 7
+    python3 chip_smoke.py --only resnet   # card, build, kernels, resnet
+    python3 chip_smoke.py --profile  # and phase 8
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -13,7 +14,8 @@ Phases, in order; any failure exits non-zero and prints no result:
             plain version's time, one PyTorch library call's time (a
             yardstick only; the port never calls it) and the least time
             the card could take for the same work. The backward pair is
-            also re-run and must agree bit for bit.
+            also re-run and must agree bit for bit; the int8 epilogue's
+            int32 sums must be exact.
 4. encoder: `bert_classify` at `bert_base()` width through the kernels,
             against `attn_impl="dense"` on the card.
 5. serving: `GenerationServer(BertDecoder(bert_base(), params))` answers
@@ -26,22 +28,36 @@ Phases, in order; any failure exits non-zero and prints no result:
             step's gradients through the kernels against
             `attn_impl="dense"`; and 10 steps on one batch whose loss
             must fall.
-7. profile (only with --profile): the serving workload and three
-            fine-tune steps once more under torch.profiler: the card's
-            busy and idle share of the wall time, and device time by
-            kernel group.
+7. resnet:  `ResNet50()` at 224×224×3, 1000 classes, f32, built once
+            with the conv1x1+BN fusion on and once with it off, from one
+            seed, with BN statistics and γ/β drawn from a seeded
+            generator. ≥ 96 images, as requests of 1–8 rows from 8
+            threads, through `ParallelInference(BATCHED, batchLimit=32)`
+            over the fused net: every answer must equal the unfused net's
+            output for the same rows, each forward must launch
+            matmul_epilogue exactly 36 times; the avgpool features of the
+            two nets must agree; one B=32 forward timed fused and unfused;
+            and `bottleneck_block`, on res4_1's folded weights and the
+            fused net's res4_0_relu activation, must give its res4_1_relu.
+8. profile (only with --profile): the serving workload, three
+            fine-tune steps and one fused B=32 ResNet-50 forward once more
+            under torch.profiler: the card's busy and idle share of the
+            wall time, and device time by kernel group.
 
 The kernels' launch counters are set to 0 just before each main path (the
-encoder, serving and the timed training steps) and read just after. Every
-number is measured in this run; the last lines are the kernel JSON object
-and the `{"ok": true, "device": ...}` line. Imports nothing of JAX.
+encoder, serving, the timed training steps and ResNet serving) and read
+just after. Every number is measured in this run; the last lines are the
+kernel JSON object and the `{"ok": true, "device": ...}` line. Imports
+nothing of JAX.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -58,7 +74,14 @@ from deeplearning4j_tpu_torch.kernels.flash_attention import (
 from deeplearning4j_tpu_torch.models import (bert_base, bert_classify,
                                              classification_loss,
                                              init_bert_params, param_leaves)
+from deeplearning4j_tpu_torch.kernels.pointwise_conv import (
+    _epilogue_reference, int8_matmul_epilogue, matmul_epilogue)
+from deeplearning4j_tpu_torch.kernels.residual_block import (
+    bottleneck_block, bottleneck_block_xla)
 from deeplearning4j_tpu_torch.models.convert import named_param_leaves
+from deeplearning4j_tpu_torch.models.zoo import ResNet50
+from deeplearning4j_tpu_torch.parallel.inference import (InferenceMode,
+                                                         ParallelInference)
 
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 #: the card; a rehearsal of a phase on the CPU sets "cpu" (the kernel
@@ -68,12 +91,17 @@ DEV = "cuda"
 #: published H100 SXM peaks (NVIDIA data sheet; dense, 700 W)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12,      # f32 outside the tensor cores
-              torch.bfloat16: 989e12}    # bf16 tensor cores
+              torch.bfloat16: 989e12,    # bf16 tensor cores
+              torch.int8: 1979e12}       # int8 tensor cores (TOP/s)
 #: kernel vs plain version: f32 sums run in another order; bf16 rounds
-#: its output to 8 mantissa bits. Gradients are held to the same atol
-#: scaled by max(1, max |plain|): their size grows with the sums they take
+#: its output to 8 mantissa bits. Gradients, the epilogue GEMM and the
+#: bottleneck block are held to the same atol scaled by
+#: max(1, max |plain|): their size grows with the sums they take. int8:
+#: the int32 sums must be bit-exact, the f32 epilogue within INT8_RTOL
 ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+INT8_RTOL = 1e-5
+DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16",
+               torch.int8: "int8"}
 
 #: the encoder phase's padding: ragged, every example non-empty
 ENCODE_LENS = [128, 100, 64, 17, 128, 1, 90, 128]
@@ -82,7 +110,10 @@ ENCODE_LENS = [128, 100, 64, 17, 128, 1, 90, 128]
 REPRESENTATIVE = {"flash_fwd": ("prefill P=128", "f32"),
                   "flash_decode": ("decode C=512", "f32"),
                   "flash_bwd_dq": ("train B=32 T=128", "f32"),
-                  "flash_bwd_dkv": ("train B=32 T=128", "f32")}
+                  "flash_bwd_dkv": ("train B=32 T=128", "f32"),
+                  "matmul_epilogue": ("res2_c B=32", "f32"),
+                  "int8_matmul_epilogue": ("res4_a B=32", "int8"),
+                  "bottleneck_block": ("res4 B=32", "f32")}
 
 SOURCES = {
     "flash_fwd": ("deeplearning4j_tpu_torch/kernels/csrc/flash_fwd.cu",
@@ -94,6 +125,15 @@ SOURCES = {
     "flash_bwd_dkv": (
         "deeplearning4j_tpu_torch/kernels/csrc/flash_bwd_dkv.cu",
         "deeplearning4j_tpu/kernels/flash_attention.py:272"),
+    "matmul_epilogue": (
+        "deeplearning4j_tpu_torch/kernels/csrc/matmul_epilogue.cu",
+        "deeplearning4j_tpu/kernels/pointwise_conv.py:116"),
+    "int8_matmul_epilogue": (
+        "deeplearning4j_tpu_torch/kernels/csrc/matmul_epilogue.cu",
+        "deeplearning4j_tpu/kernels/pointwise_conv.py:116"),
+    "bottleneck_block": (
+        "deeplearning4j_tpu_torch/kernels/csrc/bottleneck_block.cu",
+        "deeplearning4j_tpu/kernels/residual_block.py:38"),
 }
 #: flops per valid (query, key) pair: the forward's two products, the dQ
 #: kernel's three (S, dO·Vᵀ, dS·K), the dK/dV kernel's four
@@ -321,9 +361,163 @@ def _bwd_cases(label, b, h, tq, tk, d, causal, lengths, dtype, gen):
     return rows
 
 
+#: the 1×1 convs whose shapes the epilogue GEMM is checked at, ResNet-50
+#: at 224×224 and B=32: (M = B·H·W, K, N), and one ragged M (and K) with
+#: a residual and relu
+EPILOGUE_SHAPES = {"res2_c B=32": (32 * 56 * 56, 64, 256),
+                   "res4_a B=32": (32 * 14 * 14, 1024, 256),
+                   "res5_c B=32": (32 * 7 * 7, 512, 2048),
+                   "ragged+res+relu": (4999, 1000, 256)}
+#: ResNet-50's identity blocks at B=32: (B, H, W, C, M)
+BOTTLENECK_SHAPES = {"res2 B=32": (32, 56, 56, 256, 64),
+                     "res3 B=32": (32, 28, 28, 512, 128),
+                     "res4 B=32": (32, 14, 14, 1024, 256),
+                     "res5 B=32": (32, 7, 7, 2048, 512)}
+
+
+def _scaled_err(got, want):
+    """max |got − want| and max(1, max |want|)."""
+    err = (got.float() - want.float()).abs().max().item()
+    return err, max(1.0, want.float().abs().max().item())
+
+
+def _epilogue_case(label, m, k, n, with_res, act, dtype, gen):
+    """matmul_epilogue against its plain version, timed beside it, beside
+    cuBLAS's product with the same epilogue in PyTorch, and its bound."""
+    x = _randn(gen, dtype, m, k)
+    w = (torch.randn((k, n), generator=gen, device=DEV) / k ** 0.5).to(
+        dtype)
+    scale = torch.rand(n, generator=gen, device=DEV) + 0.5
+    shift = torch.randn(n, generator=gen, device=DEV) * 0.1
+    res = _randn(gen, dtype, m, n) if with_res else None
+    out = matmul_epilogue(x, w, scale, shift, residual=res, act=act)
+    ref = _epilogue_reference(x, w, scale, shift, res, act, dtype)
+    torch.cuda.synchronize()
+    err, scl = _scaled_err(out, ref)
+    esz = x.element_size()
+    nbytes = (m * k + k * n + m * n * (2 if with_res else 1)) * esz + 8 * n
+    bms, by = bound(2.0 * m * k * n, nbytes, dtype)
+
+    def library():
+        y = torch.matmul(x, w) * scale + shift
+        if res is not None:
+            y = y + res
+        return torch.relu(y) if act == "relu" else y
+
+    return dict(
+        name="matmul_epilogue", case=label, shape=[m, k, n],
+        dtype=DTYPE_NAMES[dtype], max_abs_err=err, atol=ATOL[dtype] * scl,
+        ms=time_ms(lambda: matmul_epilogue(x, w, scale, shift, residual=res,
+                                           act=act)),
+        plain_ms=time_ms(lambda: _epilogue_reference(x, w, scale, shift, res,
+                                                     act, dtype)),
+        library_ms=time_ms(library), bound_ms=bms, bound_by=by)
+
+
+def _int8_case(label, m, k, n, gen):
+    """int8_matmul_epilogue: the int32 sums bit-exact (scale 1, shift 0
+    against the exact product), then the f32 epilogue within INT8_RTOL of
+    the largest output (one rounding of acc·scale + shift apart).
+    The yardstick is torch._int_mm (cuBLAS int8) with the same epilogue."""
+    def ints(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=DEV,
+                             dtype=torch.int32).to(torch.int8)
+
+    xq, wq = ints(m, k), ints(k, n)
+    scale = (torch.rand(n, generator=gen, device=DEV) + 0.5) * 1e-3
+    shift = torch.randn(n, generator=gen, device=DEV)
+    ones = torch.ones(n, device=DEV)
+    acc = int8_matmul_epilogue(xq, wq, ones, torch.zeros_like(ones))
+    exact = (xq.double() @ wq.double()).float()
+    out = int8_matmul_epilogue(xq, wq, scale, shift, act="relu")
+    ref = _epilogue_reference(xq, wq, scale, shift, None, "relu",
+                              torch.float32)
+    torch.cuda.synchronize()
+    acc_exact = bool(torch.equal(acc, exact))
+    err = (out - ref).abs().max().item()
+    nbytes = m * k + k * n + 4 * m * n + 8 * n
+    bms, by = bound(2.0 * m * k * n, nbytes, torch.int8)
+    try:
+        torch._int_mm(xq, wq)
+        lib = time_ms(lambda: torch.relu(torch._int_mm(xq, wq).float()
+                                         * scale + shift))
+    except RuntimeError as e:      # the yardstick only; not the port
+        log(f"[kernels] torch._int_mm unavailable at {[m, k, n]}: {e}")
+        lib = None
+    return dict(
+        name="int8_matmul_epilogue", case=label, shape=[m, k, n],
+        dtype="int8", max_abs_err=err, acc_exact=acc_exact,
+        atol=INT8_RTOL * ref.abs().max().item(),
+        ms=time_ms(lambda: int8_matmul_epilogue(xq, wq, scale, shift,
+                                                act="relu")),
+        plain_ms=time_ms(lambda: _epilogue_reference(
+            xq, wq, scale, shift, None, "relu", torch.float32)),
+        library_ms=lib, bound_ms=bms, bound_by=by)
+
+
+def _bottleneck_library(x, w1, b1, w2, b2, w3, b3):
+    """The block as three cuDNN convolutions in the activation dtype
+    (channels-last; bf16 on the tensor cores): the yardstick."""
+    cl = torch.channels_last
+    xc = x.permute(0, 3, 1, 2)
+
+    def conv(t, w, pad):
+        return F.conv2d(t, w.permute(3, 2, 0, 1).contiguous(
+            memory_format=cl), padding=pad)
+
+    h1 = torch.relu(conv(xc, w1[None, None], 0)
+                    + b1.to(x.dtype)[None, :, None, None])
+    h2 = torch.relu(conv(h1, w2, 1) + b2.to(x.dtype)[None, :, None, None])
+    y = conv(h2, w3[None, None], 0) + b3.to(x.dtype)[None, :, None, None]
+    return torch.relu(y + xc).permute(0, 2, 3, 1)
+
+
+def _bottleneck_weights(c, m, dtype, gen):
+    """Folded-BN weights of one identity block, scaled so the activations
+    stay O(1) through it."""
+    def rnd(*shape, std):
+        return (torch.randn(shape, generator=gen, device=DEV) * std).to(dtype)
+
+    return (rnd(c, m, std=(2 / c) ** 0.5),
+            torch.randn(m, generator=gen, device=DEV) * 0.1,
+            rnd(3, 3, m, m, std=(2 / (9 * m)) ** 0.5),
+            torch.randn(m, generator=gen, device=DEV) * 0.1,
+            rnd(m, c, std=0.5 / m ** 0.5),
+            torch.randn(c, generator=gen, device=DEV) * 0.1)
+
+
+def _bottleneck_work(b, h, w, c, m, esz):
+    flops = 2.0 * b * h * w * (c * m + 9 * m * m + m * c)
+    nbytes = 2 * b * h * w * c * esz + (2 * c * m + 9 * m * m) * esz \
+        + (2 * m + c) * 4
+    return flops, nbytes
+
+
+def _bottleneck_case(label, b, h, w, c, m, dtype, gen):
+    x = torch.relu(_randn(gen, dtype, b, h, w, c))
+    wts = _bottleneck_weights(c, m, dtype, gen)
+    args = (x, wts[0], wts[1], wts[2], wts[3], wts[4], wts[5])
+    out = bottleneck_block(*args, block_b=1)
+    ref = bottleneck_block_xla(*args)
+    torch.cuda.synchronize()
+    err, scl = _scaled_err(out, ref)
+    bms, by = bound(*_bottleneck_work(b, h, w, c, m, x.element_size()),
+                    dtype)
+    return dict(
+        name="bottleneck_block", case=label, shape=[b, h, w, c, m],
+        dtype=DTYPE_NAMES[dtype], max_abs_err=err, atol=ATOL[dtype] * scl,
+        ms=time_ms(lambda: bottleneck_block(*args, block_b=1), iters=10),
+        plain_ms=time_ms(lambda: bottleneck_block_xla(*args), iters=10),
+        library_ms=time_ms(lambda: _bottleneck_library(*args), iters=10),
+        bound_ms=bms, bound_by=by)
+
+
 def phase_kernels():
+    """Every kernel against its plain version; returns (rows, launches of
+    each kernel in this phase)."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(0)
+    _reset_counts()
     enc_lens = [512, 300, 128, 1, 0, 77, 450, 511]   # one fully padded
     train_lens = _train_lengths(TRAIN["batch"], TRAIN["seq"])
     cases = []
@@ -349,6 +543,13 @@ def phase_kernels():
                       None, dtype))
         cases.append((_bwd_cases, "cross Tq!=Tk", 2, 12, 100, 300, 64, False,
                       [300, 171], dtype))
+        for label, (m, k, n) in EPILOGUE_SHAPES.items():
+            ragged = label.startswith("ragged")
+            cases.append((_epilogue_case, label, m, k, n, ragged,
+                          "relu" if ragged else "identity", dtype))
+        for label, shape in BOTTLENECK_SHAPES.items():
+            cases.append((_bottleneck_case, label, *shape, dtype))
+    cases.append((_int8_case, "res4_a B=32", *EPILOGUE_SHAPES["res4_a B=32"]))
     rows = []
     for fn, *a in cases:
         t = time.perf_counter()
@@ -359,28 +560,33 @@ def phase_kernels():
     bad = []
     for r in rows:
         ok = (r["max_abs_err"] <= r["atol"] and r.get("bit_identical", True)
-              and r.get("padded_example_zero", True))
+              and r.get("padded_example_zero", True)
+              and r.get("acc_exact", True))
         lib = r["library_ms"]
         log(f"[kernels] {r['name']:<12} {r['case']:<14} "
             f"shape={r['shape']} {r['dtype']:<4} "
             f"max_abs_err={r['max_abs_err']:.3e} (atol {r['atol']:.2e}) "
             f"{'ok' if ok else 'FAIL'}  ms={r['ms']:.4f} "
-            f"plain_ms={r['plain_ms']:.4f} library_ms={lib:.4f} "
-            f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}) "
+            f"plain_ms={r['plain_ms']:.4f} library_ms="
+            + ("none" if lib is None else f"{lib:.4f}")
+            + f" bound_ms={r['bound_ms']:.5f} ({r['bound_by']}) "
             f"case_s={r['wall_s']:.2f}"
             + ("" if "bit_identical" not in r else
                f" bit_identical={r['bit_identical']}"
-               f" f64_err={r['f64_err']:.3e}"))
+               f" f64_err={r['f64_err']:.3e}")
+            + ("" if "acc_exact" not in r else
+               f" int32_sums_exact={r['acc_exact']}"))
         if not ok:
             bad.append(f"{r['name']} {r['case']} {r['dtype']}")
     if bad:
         raise AssertionError(f"kernels disagree with their plain "
                              f"versions: {bad}")
-    return rows
+    return rows, _counts()
 
 
 # -- phase 4 ------------------------------------------------------------------
-KERNELS = (flash_fwd, flash_decode, flash_bwd_dq, flash_bwd_dkv)
+KERNELS = (flash_fwd, flash_decode, flash_bwd_dq, flash_bwd_dkv,
+           matmul_epilogue, int8_matmul_epilogue, bottleneck_block)
 
 
 def _reset_counts():
@@ -629,12 +835,247 @@ def phase_train(cfg, params):
             "grad_worst_rel": worst, "fixed_batch_losses": fixed}
 
 
-# -- phase 7 (--profile) ------------------------------------------------------
+# -- phase 7 ------------------------------------------------------------------
+#: the ResNet serving workload: at least 96 images of 224×224×3 as
+#: requests of 1-8 rows from 8 client threads, coalesced up to 32 rows
+RESNET = dict(batch=32, images=96, threads=8, seed=0, timed=5)
+#: fused vs unfused on the card, answers and features: f32 sums in
+#: another order through 53 layers, held to RESNET_RTOL of the largest
+#: unfused value
+RESNET_RTOL = 1e-4
+#: conv1x1+BN pairs the fusion marks in ResNet-50: the _a and _c convs of
+#: 16 blocks and 4 shortcuts
+EPILOGUE_PAIRS = 36
+
+
+def _perturb_bn(net, seed):
+    """Draw every BN's running statistics and γ/β from a seeded generator,
+    so the fold is not the identity. The last BN of each residual branch
+    (_c, _sc) gets γ in [0.2, 0.5], which keeps the activations O(1)
+    through the 16 blocks (at γ ~ 1 they grow to tens by res5 and the
+    softmax saturates)."""
+    rng = np.random.default_rng(seed)
+    for name in sorted(net._state):
+        st, p = net._state[name], net._params[name]
+        n = st["mean"].shape[0]
+        lo, hi = (0.2, 0.5) if name.endswith(("_c_bn", "_sc_bn")) \
+            else (0.5, 1.0)
+        for t, v in ((st["mean"], rng.normal(0, 0.1, n)),
+                     (st["var"], rng.uniform(0.5, 1.5, n)),
+                     (p["gamma"], rng.uniform(lo, hi, n)),
+                     (p["beta"], rng.normal(0, 0.1, n))):
+            t.copy_(torch.as_tensor(v, dtype=torch.float32))
+
+
+def _resnet_nets():
+    """(fused, unfused) ResNet-50 at 224×224×3, 1000 classes, f32, both
+    from the zoo's seed with the same BN draws."""
+    before = os.environ.get("DL4J_TPU_FUSE_CONV_BN")
+    nets = []
+    try:
+        for fuse in ("1", "0"):
+            os.environ["DL4J_TPU_FUSE_CONV_BN"] = fuse
+            net = ResNet50().init(DEV)
+            _perturb_bn(net, RESNET["seed"])
+            nets.append(net)
+    finally:
+        if before is None:
+            os.environ.pop("DL4J_TPU_FUSE_CONV_BN", None)
+        else:
+            os.environ["DL4J_TPU_FUSE_CONV_BN"] = before
+    fused, plain = nets
+    if len(fused._fused_pairs) != EPILOGUE_PAIRS or plain._fused_pairs:
+        raise AssertionError(f"resnet: {len(fused._fused_pairs)} fused pairs"
+                             f" (expected {EPILOGUE_PAIRS}), "
+                             f"{len(plain._fused_pairs)} in the unfused net")
+    return fused, plain
+
+
+def _serve_resnet(net, images, sizes):
+    """The requests through ParallelInference(BATCHED, batchLimit=32) from
+    RESNET["threads"] client threads. Returns (answers, per-request
+    latencies s, wall s, kernel launches, forwards)."""
+    off = np.concatenate([[0], np.cumsum(sizes)])
+    answers, lat, errs = [None] * len(sizes), [None] * len(sizes), []
+    nxt, lock = [0], threading.Lock()
+    pi = (ParallelInference.Builder(net)
+          .inferenceMode(InferenceMode.BATCHED)
+          .batchLimit(RESNET["batch"]).build())
+
+    def client():
+        while True:
+            with lock:
+                i = nxt[0]
+                nxt[0] += 1
+            if i >= len(sizes):
+                return
+            t = time.perf_counter()
+            try:
+                answers[i] = pi.output(images[off[i]:off[i + 1]])
+            except Exception as e:  # noqa: BLE001 — re-raised below
+                errs.append(e)
+                return
+            lat[i] = time.perf_counter() - t
+
+    try:
+        # warm: the allocator grows to the padded batch sizes the
+        # collector forms (32 rows, and 64 when a batch runs past 32)
+        for rows in (1, RESNET["batch"], 2 * RESNET["batch"]):
+            pi.output(np.resize(images, (rows,) + images.shape[1:]))
+        torch.cuda.synchronize()
+        _reset_counts()
+        calls = pi.model_calls
+        threads = [threading.Thread(target=client)
+                   for _ in range(RESNET["threads"])]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counts()
+        calls = pi.model_calls - calls
+    finally:
+        pi.shutdown()
+    if errs or any(t.is_alive() for t in threads):
+        raise AssertionError(f"resnet: serving failed: {errs}")
+    return answers, lat, wall, launches, calls
+
+
+def _forward_ms(net, x):
+    """Mean host-clock ms of one forward ending in a synchronize, after two
+    warm-up forwards."""
+    for _ in range(2):
+        net.output(x)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(RESNET["timed"]):
+        t = time.perf_counter()
+        net.output(x)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(np.mean(times)), float(np.min(times))
+
+
+def _fold(net, bn):
+    """The (scale, shift) of a BN node's inference affine."""
+    st, p = net._state[bn], net._params[bn]
+    inv = torch.rsqrt(st["var"] + net.getLayer(bn).eps)
+    return p["gamma"] * inv, p["beta"] - p["gamma"] * st["mean"] * inv
+
+
+def _res4_block_check(net, acts):
+    """bottleneck_block on res4_1's three convs with their BNs folded in,
+    from the fused net's res4_0_relu activation, against its
+    res4_1_relu."""
+    (a1, c1), (a2, c2), (a3, c3) = (_fold(net, f"res4_1_{k}_bn")
+                                    for k in "abc")
+    w = {k: net._params[f"res4_1_{k}_conv"]["W"] for k in "abc"}
+    before = bottleneck_block.launches
+    y = bottleneck_block(acts["res4_0_relu"], w["a"][0, 0] * a1, c1,
+                         w["b"] * a2, c2, w["c"][0, 0] * a3, c3,
+                         block_b=RESNET["batch"] // 4)
+    want = acts["res4_1_relu"]
+    torch.cuda.synchronize()
+    err = (y - want).abs().max().item()
+    tol = RESNET_RTOL * want.abs().max().item()
+    return {"max_abs_err": err, "tol": tol,
+            "launches": bottleneck_block.launches - before,
+            "shape": list(y.shape)}
+
+
+def phase_resnet():
+    fused, plain = _resnet_nets()
+    rng = np.random.default_rng(5)
+    sizes = []
+    while sum(sizes) < RESNET["images"]:
+        sizes.append(int(rng.integers(1, 9)))
+    images = rng.standard_normal((sum(sizes), 224, 224, 3)).astype(
+        np.float32)
+    answers, lat, wall, launches, calls = _serve_resnet(fused, images, sizes)
+    n_img = int(sum(sizes))
+    # the unfused net's answers for the same rows, on the card
+    want = np.concatenate([plain.output(images[i:i + RESNET["batch"]])
+                           .cpu().numpy()
+                           for i in range(0, n_img, RESNET["batch"])])
+    got = np.concatenate(answers)
+    scale = float(np.abs(want).max())
+    err = float(np.abs(got - want).max())
+    lat_ms = np.asarray(lat) * 1e3
+    per_forward = launches["matmul_epilogue"] / max(calls, 1)
+    log(f"[resnet] ResNet-50 224x224x3 f32, fusion on: {n_img} images in "
+        f"{len(sizes)} requests of 1-8 rows from {RESNET['threads']} "
+        f"threads, {calls} coalesced forwards, {wall:.3f} s = "
+        f"{n_img / wall:.1f} images/s; per-request p50 "
+        f"{np.percentile(lat_ms, 50):.2f} ms p99 "
+        f"{np.percentile(lat_ms, 99):.2f} ms; matmul_epilogue launches "
+        f"{launches['matmul_epilogue']} ({per_forward:.1f} per forward); "
+        f"max |fused - unfused| = {err:.3e} of max {scale:.3e} "
+        f"(rtol {RESNET_RTOL:.0e})")
+    if launches["matmul_epilogue"] != EPILOGUE_PAIRS * calls or calls == 0:
+        raise AssertionError(f"resnet: {launches['matmul_epilogue']} "
+                             f"matmul_epilogue launches over {calls} "
+                             f"forwards, expected {EPILOGUE_PAIRS} each")
+    if got.shape != (n_img, 1000) or not np.isfinite(got).all():
+        raise AssertionError(f"resnet: bad answers {got.shape}")
+    if not err <= RESNET_RTOL * scale:
+        raise AssertionError(f"resnet: fused answers differ from the "
+                             f"unfused net's by {err}")
+    x = torch.as_tensor(images[:RESNET["batch"]], device=DEV)
+    fa = fused.feedForward(x)
+    fb = plain.feedForward(x)
+    feat_err = (fa["avgpool"] - fb["avgpool"]).abs().max().item()
+    feat_scale = fb["avgpool"].abs().max().item()
+    del fb
+    block = _res4_block_check(fused, fa)
+    del fa
+    log(f"[resnet] avgpool features B={RESNET['batch']}: max |fused - "
+        f"unfused| = {feat_err:.3e} of max {feat_scale:.3e}; "
+        f"bottleneck_block on res4_1 (folded BNs) from res4_0_relu "
+        f"{block['shape']}: max |kernel - res4_1_relu| = "
+        f"{block['max_abs_err']:.3e} (tol {block['tol']:.3e})")
+    if not feat_err <= RESNET_RTOL * feat_scale:
+        raise AssertionError(f"resnet: avgpool features differ by "
+                             f"{feat_err}")
+    if not block["max_abs_err"] <= block["tol"] or block["launches"] != 1:
+        raise AssertionError(f"resnet: bottleneck_block does not give "
+                             f"res4_1_relu: {block}")
+    fused_ms, fused_min = _forward_ms(fused, x)
+    plain_ms, plain_min = _forward_ms(plain, x)
+    log(f"[resnet] one B={RESNET['batch']} forward: fused {fused_ms:.3f} ms "
+        f"(min {fused_min:.3f}), unfused {plain_ms:.3f} ms (min "
+        f"{plain_min:.3f}); {RESNET['batch'] / fused_ms * 1e3:.1f} vs "
+        f"{RESNET['batch'] / plain_ms * 1e3:.1f} images/s")
+    del plain
+    stats = {"images": n_img, "requests": len(sizes), "forwards": calls,
+             "wall_s": wall, "images_per_s": n_img / wall,
+             "p50_ms": float(np.percentile(lat_ms, 50)),
+             "p99_ms": float(np.percentile(lat_ms, 99)),
+             "launches": launches, "epilogue_per_forward": per_forward,
+             "max_abs_err": err, "answer_scale": scale,
+             "avgpool_err": feat_err, "avgpool_scale": feat_scale,
+             "res4_block": block, "forward_ms": fused_ms,
+             "forward_min_ms": fused_min, "unfused_forward_ms": plain_ms,
+             "unfused_forward_min_ms": plain_min}
+    return stats, fused, x
+
+
+# -- phase 8 (--profile) ------------------------------------------------------
 #: kernel-name substrings -> the part of a step they belong to
 KERNEL_GROUPS = (("flash_fwd_kernel", "flash_fwd"),
                  ("flash_decode_kernel", "flash_decode"),
                  ("flash_bwd_dq_kernel", "flash_bwd_dq"),
                  ("flash_bwd_dkv_kernel", "flash_bwd_dkv"),
+                 ("matmul_epilogue_kernel", "matmul_epilogue"),
+                 ("bottleneck_block_kernel", "bottleneck_block"),
+                 ("nchwtonhwc", "layout (NHWC<->NCHW)"),
+                 ("nhwctonchw", "layout (NHWC<->NCHW)"),
+                 ("fprop", "conv (cuDNN)"), ("convolve", "conv (cuDNN)"),
+                 ("conv2d", "conv (cuDNN)"), ("cudnn", "conv (cuDNN)"),
+                 ("implicit_gemm", "conv (cuDNN)"), ("fft", "conv (cuDNN)"),
+                 ("pointwise_mult_and_sum", "conv (cuDNN)"),
+                 ("pool", "pooling"),
                  ("gemm", "matmul"), ("gemv", "matmul"),
                  ("cutlass", "matmul"), ("multi_tensor", "optimizer (Adam)"),
                  ("sort", "sort (top-k)"), ("reduce", "reductions"),
@@ -651,6 +1092,14 @@ def _busy_us(spans):
     return busy
 
 
+#: cycles of the two spin kernels that open a traced window: a long one
+#: (~10 ms) while the profiler settles, then a short marker; only events
+#: after the marker are read, since launches in a trace's first
+#: milliseconds went unrecorded (a traced ResNet-50 forward showed 32 of
+#: its 36 epilogue launches)
+SETTLE_CYCLES, MARKER_CYCLES = 20_000_000, 1000
+
+
 def _profiled(what, run):
     """Run `run()` under torch.profiler: the card's busy and idle share of
     the wall time, and device time by kernel group and by kernel name.
@@ -663,6 +1112,9 @@ def _profiled(what, run):
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for cycles in (SETTLE_CYCLES, MARKER_CYCLES):
+            torch.cuda._sleep(cycles)
+            torch.cuda.synchronize()
         t0 = time.perf_counter()
         ret = run()
         torch.cuda.synchronize()
@@ -672,6 +1124,12 @@ def _profiled(what, run):
     kern = [(e.name(), e.start_ns() / 1e3, e.duration_ns() / 1e3)
             for e in prof.profiler.kineto_results.events()
             if e.device_type() == DeviceType.CUDA]
+    marks = [s + dur for name, s, dur in kern if "spin_kernel" in name]
+    if marks:
+        kern = [k for k in kern if k[1] >= max(marks)]
+    else:
+        log(f"[profile] {what}: the marker kernel was not recorded; every "
+            "event is kept")
     log(f"[profile] {what}: {len(kern)} device events collected in "
         f"{time.perf_counter() - t1:.1f} s")
     if not kern:
@@ -704,9 +1162,9 @@ def _profiled(what, run):
     return out, ret
 
 
-def phase_profile(cfg, params):
-    """The serving phase's workload, and three fine-tune steps, once more
-    under torch.profiler."""
+def phase_profile(cfg, params, resnet_net, resnet_x):
+    """The serving phase's workload, three fine-tune steps and one fused
+    B=32 ResNet-50 forward once more under torch.profiler."""
     reqs = _requests(cfg)
     srv = GenerationServer(BertDecoder(cfg, params), **SERVER)
     try:
@@ -733,14 +1191,19 @@ def phase_profile(cfg, params):
                          lambda: [step() for _ in range(3)])
     if train is not None:
         train["steps"] = 3
-    return {"serving": serving, "train": train}
+    del step
+    resnet_net.output(resnet_x)
+    torch.cuda.synchronize()
+    resnet, _ = _profiled("resnet fused forward B=32",
+                          lambda: resnet_net.output(resnet_x))
+    return {"serving": serving, "train": train, "resnet": resnet}
 
 
-def kernel_line(rows, launches):
+def kernel_line(rows, launches, launches_from):
     """The per-kernel JSON object: each kernel's numbers at its
-    representative case, its launches from the main path's run, and its
-    error in the checked case of the same dtype that came nearest its
-    atol."""
+    representative case, its launches (from the main path's run where it
+    has one; `launches_from` names the run), and its error in the checked
+    case of the same dtype that came nearest its atol."""
     out = []
     for name, (case, dt) in REPRESENTATIVE.items():
         r = next(x for x in rows
@@ -757,19 +1220,22 @@ def kernel_line(rows, launches):
                     "bound_by": r["bound_by"],
                     "library_ms": r["library_ms"], "case": case,
                     "shape": r["shape"], "dtype": dt,
-                    "atol": worst["atol"], "err_case": worst["case"]})
+                    "atol": worst["atol"], "err_case": worst["case"],
+                    "launches_from": launches_from[name]})
     return {"kernels": out}
 
 
 # -- main ---------------------------------------------------------------------
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["kernels"], default=None,
-                    help="stop after the kernel checks (bring-up runs)")
+    ap.add_argument("--only", choices=["kernels", "resnet"], default=None,
+                    help="stop after the kernel checks, or run the resnet "
+                         "phase right after them (bring-up runs)")
     ap.add_argument("--profile", action="store_true",
-                    help="after the train phase, profile the serving "
-                         "workload and three fine-tune steps (card "
-                         "busy/idle share, device time by kernel group)")
+                    help="after the resnet phase, profile the serving "
+                         "workload, three fine-tune steps and one ResNet-50"
+                         " forward (card busy/idle share, device time by "
+                         "kernel group)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -786,31 +1252,55 @@ def main(argv=None):
 
     card = timed("card", phase_card)
     build_s = timed("build", phase_build)
-    rows = timed("kernels", phase_kernels)
+    rows, kernel_launches = timed("kernels", phase_kernels)
     OUT_DIR.mkdir(exist_ok=True)
     if args.only == "kernels":
         (OUT_DIR / "smoke_kernels.json").write_text(json.dumps(rows,
                                                                indent=1))
+        return 0
+    if args.only == "resnet":
+        resnet, _, _ = timed("resnet", phase_resnet)
+        (OUT_DIR / "smoke_resnet.json").write_text(json.dumps(
+            {"card": card, "kernels": rows, "resnet": resnet,
+             "phase_seconds": seconds}, indent=1))
         return 0
     cfg = bert_base()
     params = timed("params", init_bert_params, cfg, 0)
     encoder = timed("encoder", phase_encoder, cfg, params)
     serving = timed("serving", phase_serving, cfg, params)
     train = timed("train", phase_train, cfg, params)
-    prof = (timed("profile", phase_profile, cfg, params) if args.profile
-            else None)
+    resnet, resnet_net, resnet_x = timed("resnet", phase_resnet)
+    prof = (timed("profile", phase_profile, cfg, params, resnet_net,
+                  resnet_x) if args.profile else None)
     # each kernel's launches from the path that carries it: the forward and
-    # decode kernels from serving, the backward pair from training
+    # decode kernels from serving, the backward pair from training, the
+    # epilogue GEMM from ResNet serving; the int8 epilogue and the
+    # bottleneck block are entry points no served model calls, so theirs
+    # come from the kernel phase and from the res4 check
     launches = {k: serving["launches"][k]
                 for k in ("flash_fwd", "flash_decode")}
     launches.update({k: train["launches"][k]
                      for k in ("flash_bwd_dq", "flash_bwd_dkv")})
-    line = kernel_line(rows, launches)
+    launches["matmul_epilogue"] = resnet["launches"]["matmul_epilogue"]
+    launches["int8_matmul_epilogue"] = \
+        kernel_launches["int8_matmul_epilogue"]
+    launches["bottleneck_block"] = resnet["res4_block"]["launches"]
+    launches_from = {"flash_fwd": "bert serving", "flash_decode":
+                     "bert serving", "flash_bwd_dq": "bert training (10 "
+                     "timed steps)", "flash_bwd_dkv": "bert training (10 "
+                     "timed steps)", "matmul_epilogue": "resnet serving "
+                     f"({resnet['forwards']} forwards)",
+                     "int8_matmul_epilogue": "kernel phase (checks and "
+                     "timing; no served model calls it)",
+                     "bottleneck_block": "resnet res4_1 check (no served "
+                     "model calls it)"}
+    line = kernel_line(rows, launches, launches_from)
     (OUT_DIR / "smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "kernels": rows,
          "encoder": encoder, "serving": serving, "train": train,
-         "profile": prof, "line": line, "phase_seconds": seconds,
-         "seconds": time.perf_counter() - t0}, indent=1))
+         "resnet": resnet, "profile": prof, "line": line,
+         "phase_seconds": seconds, "seconds": time.perf_counter() - t0},
+        indent=1))
     log(f"[smoke] {time.perf_counter() - t0:.1f} s; by phase "
         + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     print(card, flush=True)

@@ -7,9 +7,12 @@ of `deeplearning4j_tpu`. Every kernel that the JAX package wrote in
 Pallas is a kernel written by hand for Hopper (`kernels/csrc/`), built at
 first use.
 
-Slices ported so far: BERT inference (`models/bert.py`), the flash
-attention forward and decode kernels (`kernels/`), and KV-cache serving
-through `generation.GenerationServer` over `generation.BertDecoder`.
+Slices ported so far: BERT inference and fine-tuning (`models/bert.py`)
+with the flash attention kernels (`kernels/`), KV-cache serving through
+`generation.GenerationServer` over `generation.BertDecoder`, and
+ResNet-50 inference through the `nn/` builder DSL, `ComputationGraph`
+and `parallel.inference.ParallelInference`, with the conv1x1+BN epilogue
+GEMM and the fused bottleneck block.
 """
 from deeplearning4j_tpu_torch.device import resolve
 

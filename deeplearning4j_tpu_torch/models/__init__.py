@@ -1,4 +1,5 @@
-"""Models of the port: BERT inference and fine-tuning so far."""
+"""Models of the port: BERT inference and fine-tuning; the zoo's
+ResNet-50 is in `models.zoo`."""
 from deeplearning4j_tpu_torch.models.bert import (BertConfig, bert_base,
                                                   bert_classify,
                                                   bert_encode,

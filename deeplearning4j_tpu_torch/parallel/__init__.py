@@ -1,1 +1,2 @@
-"""Parallel building blocks of the port (single-device parts so far)."""
+"""Parallel building blocks of the port: ParallelInference and the
+single-device parts of ring attention so far."""

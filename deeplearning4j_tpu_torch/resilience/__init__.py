@@ -1,1 +1,2 @@
-"""Resilience types of the port (typed errors so far)."""
+"""Resilience types of the port: typed errors and the circuit breaker so
+far."""

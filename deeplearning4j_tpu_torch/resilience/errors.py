@@ -3,12 +3,17 @@
 raises so far). Dependency-free, as there."""
 from __future__ import annotations
 
-__all__ = ["ResilienceError", "InferenceTimeoutError",
+__all__ = ["ResilienceError", "CircuitOpenError", "InferenceTimeoutError",
            "InferenceOverloadedError", "ServerDeadError"]
 
 
 class ResilienceError(RuntimeError):
     """Base class for every typed resilience error."""
+
+
+class CircuitOpenError(ResilienceError):
+    """The circuit breaker is OPEN: calls are shed without being tried
+    until the cooldown elapses (then one half-open probe is allowed)."""
 
 
 class InferenceTimeoutError(ResilienceError):

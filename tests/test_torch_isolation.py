@@ -14,6 +14,10 @@ from deeplearning4j_tpu_torch import resolve
 from deeplearning4j_tpu_torch.models import bert_tiny, init_bert_params
 from deeplearning4j_tpu_torch.models.convert import (param_shapes,
                                                      params_from_numpy)
+from deeplearning4j_tpu_torch.models.zoo import ResNet50
+from deeplearning4j_tpu_torch.nn import (ComputationGraph,
+                                         graph_params_from_numpy,
+                                         graph_params_to_numpy)
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "deeplearning4j_tpu_torch").rglob("*.py")) + [
@@ -65,18 +69,32 @@ def test_importing_the_port_loads_no_jax_module():
 
 def test_entry_points_default_to_the_card():
     cfg = bert_tiny()
+    small = dict(numClasses=4, inputShape=(32, 32, 3))
+    conf = ResNet50(**small).conf()
     if torch.cuda.is_available():
         assert resolve().type == "cuda"
         p = init_bert_params(cfg, seed=0)
         assert p["embeddings"]["word"].is_cuda
+        assert ComputationGraph(conf).init()._params["fc"]["W"].is_cuda
+        assert ResNet50(**small).init()._device.type == "cuda"
         return
+    cpu_net = ResNet50(**small).init(device="cpu")
+    params, state = graph_params_to_numpy(cpu_net)
     for call in (resolve, lambda: init_bert_params(cfg, seed=0),
-                 lambda: params_from_numpy(cfg, _zeros(param_shapes(cfg)))):
+                 lambda: params_from_numpy(cfg, _zeros(param_shapes(cfg))),
+                 lambda: ComputationGraph(conf).init(),
+                 lambda: ResNet50(**small).init(),
+                 lambda: graph_params_from_numpy(ComputationGraph(conf),
+                                                 params, state)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert resolve("cpu").type == "cpu"
     cpu = params_from_numpy(cfg, _zeros(param_shapes(cfg)), device="cpu")
     assert cpu["layers"][1]["ffn"]["down_W"].device.type == "cpu"
+    assert cpu_net._params["fc"]["W"].device.type == "cpu"
+    net = graph_params_from_numpy(ComputationGraph(conf), params, state,
+                                  device="cpu")
+    assert net.output(np.zeros((1, 32, 32, 3), np.float32)).shape == (1, 4)
 
 
 def _zeros(spec):
