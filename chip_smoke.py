@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py            # every phase, as the check runs it
     python3 chip_smoke.py --only kernels
-    python3 chip_smoke.py --only resnet   # card, build, kernels, resnet
-    python3 chip_smoke.py --profile  # and phase 8
+    python3 chip_smoke.py --only resnet   # card, build, kernels, resnet,
+                                          # resnet_train
+    python3 chip_smoke.py --profile  # and phase 9
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -39,14 +40,25 @@ Phases, in order; any failure exits non-zero and prints no result:
             two nets must agree; one B=32 forward timed fused and unfused;
             and `bottleneck_block`, on res4_1's folded weights and the
             fused net's res4_0_relu activation, must give its res4_1_relu.
-8. profile (only with --profile): the serving workload, three
-            fine-tune steps and one fused B=32 ResNet-50 forward once more
-            under torch.profiler: the card's busy and idle share of the
-            wall time, and device time by kernel group.
+8. resnet_train: `ResNet50()` at 224×224×3, 1000 classes, f32, fused and
+            unfused from one seed, trained through `ComputationGraph.fit`
+            with the zoo's Nesterovs at a rate of 0.01. One step on one
+            seeded batch of 32 in both nets and in the unfused net in f64:
+            each gradient of the fused net must be as close to the f64
+            one as the unfused f32 net's (RESNET_GRAD_FACTOR), and the new
+            BN running statistics must equal the unfused net's. Then 2
+            warm-up and 10 timed fused steps on that
+            batch, each launching matmul_stats, bn_grad_stats and
+            bn_conv_grads 36 times; the loss must fall.
+9. profile (only with --profile): the serving workload, three
+            fine-tune steps, one fused B=32 ResNet-50 forward and one fused
+            ResNet-50 training step once more under torch.profiler: the
+            card's busy and idle share of the wall time, and device time by
+            kernel group.
 
 The kernels' launch counters are set to 0 just before each main path (the
-encoder, serving, the timed training steps and ResNet serving) and read
-just after. Every number is measured in this run; the last lines are the
+encoder, serving, the timed training steps, ResNet serving and the timed
+ResNet training steps) and read just after. Every number is measured in this run; the last lines are the
 kernel JSON object and the `{"ok": true, "device": ...}` line. Imports
 nothing of JAX.
 """
@@ -65,6 +77,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from deeplearning4j_tpu_torch.datasets import DataSet
 from deeplearning4j_tpu_torch.generation import BertDecoder, GenerationServer
 from deeplearning4j_tpu_torch.kernels import _build
 from deeplearning4j_tpu_torch.kernels.flash_attention import (
@@ -74,12 +87,17 @@ from deeplearning4j_tpu_torch.kernels.flash_attention import (
 from deeplearning4j_tpu_torch.models import (bert_base, bert_classify,
                                              classification_loss,
                                              init_bert_params, param_leaves)
+from deeplearning4j_tpu_torch.kernels.layernorm import (
+    _layernorm_reference, fused_layernorm)
 from deeplearning4j_tpu_torch.kernels.pointwise_conv import (
-    _epilogue_reference, int8_matmul_epilogue, matmul_epilogue)
+    _bn_conv_grads_reference, _bn_dy, _bn_grad_stats_reference,
+    _epilogue_reference, _matmul_stats_reference, bn_conv_grads,
+    bn_grad_stats, int8_matmul_epilogue, matmul_epilogue, matmul_stats)
 from deeplearning4j_tpu_torch.kernels.residual_block import (
     bottleneck_block, bottleneck_block_xla)
 from deeplearning4j_tpu_torch.models.convert import named_param_leaves
 from deeplearning4j_tpu_torch.models.zoo import ResNet50
+from deeplearning4j_tpu_torch.nn import Nesterovs
 from deeplearning4j_tpu_torch.parallel.inference import (InferenceMode,
                                                          ParallelInference)
 
@@ -113,7 +131,11 @@ REPRESENTATIVE = {"flash_fwd": ("prefill P=128", "f32"),
                   "flash_bwd_dkv": ("train B=32 T=128", "f32"),
                   "matmul_epilogue": ("res2_c B=32", "f32"),
                   "int8_matmul_epilogue": ("res4_a B=32", "int8"),
-                  "bottleneck_block": ("res4 B=32", "f32")}
+                  "bottleneck_block": ("res4 B=32", "f32"),
+                  "matmul_stats": ("res2_c B=32", "f32"),
+                  "bn_grad_stats": ("res2_c B=32", "f32"),
+                  "bn_conv_grads": ("res2_c B=32", "f32"),
+                  "fused_layernorm": ("bert_base 4096x768", "f32")}
 
 SOURCES = {
     "flash_fwd": ("deeplearning4j_tpu_torch/kernels/csrc/flash_fwd.cu",
@@ -134,6 +156,16 @@ SOURCES = {
     "bottleneck_block": (
         "deeplearning4j_tpu_torch/kernels/csrc/bottleneck_block.cu",
         "deeplearning4j_tpu/kernels/residual_block.py:38"),
+    "matmul_stats": ("deeplearning4j_tpu_torch/kernels/csrc/matmul_stats.cu",
+                     "deeplearning4j_tpu/kernels/pointwise_conv.py:47"),
+    "bn_grad_stats": (
+        "deeplearning4j_tpu_torch/kernels/csrc/bn_grad_stats.cu",
+        "deeplearning4j_tpu/kernels/pointwise_conv.py:206"),
+    "bn_conv_grads": (
+        "deeplearning4j_tpu_torch/kernels/csrc/bn_conv_grads.cu",
+        "deeplearning4j_tpu/kernels/pointwise_conv.py:262"),
+    "fused_layernorm": ("deeplearning4j_tpu_torch/kernels/csrc/layernorm.cu",
+                        "deeplearning4j_tpu/kernels/layernorm.py:21"),
 }
 #: flops per valid (query, key) pair: the forward's two products, the dQ
 #: kernel's three (S, dO·Vᵀ, dS·K), the dK/dV kernel's four
@@ -512,6 +544,175 @@ def _bottleneck_case(label, b, h, w, c, m, dtype, gen):
         bound_ms=bms, bound_by=by)
 
 
+#: the shapes the training path gives the three BN-training kernels
+#: (ResNet-50 at 224×224 and B=32, (M, K, N)) and one ragged case
+BN_TRAIN_SHAPES = {"res2_c B=32": (32 * 56 * 56, 64, 256),
+                   "res4_a B=32": (32 * 14 * 14, 1024, 256),
+                   "res5_c B=32": (32 * 7 * 7, 512, 2048),
+                   "ragged": (4999, 200, 1000)}
+#: fused_layernorm at BERT-base's rows (B=32 × T=128, D=768) and a ragged
+#: (rows, D)
+LAYERNORM_SHAPES = {"bert_base 4096x768": (4096, 768),
+                    "ragged 4999x1000": (4999, 1000)}
+
+
+def _worst(got, want, atol):
+    """Over pairs of outputs: (max |got − want| of the output nearest its
+    tolerance, that output's tolerance atol × max(1, max |want|), all
+    within)."""
+    best = None
+    for a, b in zip(got, want):
+        err, scl = _scaled_err(a, b)
+        if best is None or err / scl > best[0] / best[1]:
+            best = (err, scl)
+    return best[0], atol * best[1]
+
+
+def _kernel_row(name, label, shape, dtype, kernel, plain, library, work,
+                iters=20):
+    """Run a kernel and its plain version on the same inputs: the largest
+    error against the tolerance, a re-run for bit identity, and the times
+    of the kernel, the plain version and the library yardstick beside the
+    bound."""
+    got, again, want = kernel(), kernel(), plain()
+    torch.cuda.synchronize()
+    err, atol = _worst(got, want, ATOL[dtype])
+    identical = all(torch.equal(a, b) for a, b in zip(got, again))
+    bms, by = bound(*work, dtype)
+    return dict(name=name, case=label, shape=list(shape),
+                dtype=DTYPE_NAMES[dtype], max_abs_err=err, atol=atol,
+                bit_identical=identical, ms=time_ms(kernel, iters),
+                plain_ms=time_ms(plain, iters),
+                library_ms=time_ms(library, iters), bound_ms=bms,
+                bound_by=by)
+
+
+def _stats_case(label, m, k, n, dtype, gen):
+    """matmul_stats (row 5); the yardstick is cuBLAS's product and two
+    PyTorch sums over it."""
+    x = _randn(gen, dtype, m, k)
+    w = (torch.randn((k, n), generator=gen, device=DEV) / k ** 0.5).to(dtype)
+
+    def library():
+        yf = torch.matmul(x, w).float()
+        return yf.sum(0), (yf * yf).sum(0)
+
+    esz = x.element_size()
+    return _kernel_row(
+        "matmul_stats", label, (m, k, n), dtype, lambda: matmul_stats(x, w),
+        lambda: _matmul_stats_reference(x, w), library,
+        (2.0 * m * k * n + 3.0 * m * n, (m * k + k * n + m * n) * esz + 8 * n))
+
+
+def _bn_vectors(n, gen):
+    """μ, and r = 1/√(var + ε), of a batch of BN inputs."""
+    return (torch.randn(n, generator=gen, device=DEV) * 0.1,
+            torch.rand(n, generator=gen, device=DEV) + 0.5)
+
+
+def _grad_stats_case(label, m, k, n, dtype, gen):
+    """bn_grad_stats (row 7); the yardstick is the two PyTorch sums."""
+    y, dz = _randn(gen, dtype, m, n), _randn(gen, dtype, m, n)
+    mu, r = _bn_vectors(n, gen)
+
+    def library():
+        dzf = dz.float()
+        return (dzf * ((y.float() - mu) * r)).sum(0), dzf.sum(0)
+
+    return _kernel_row(
+        "bn_grad_stats", label, (m, n), dtype,
+        lambda: bn_grad_stats(y, dz, mu, r),
+        lambda: _bn_grad_stats_reference(y, dz, mu, r), library,
+        (4.0 * m * n, 2 * m * n * y.element_size() + 16 * n))
+
+
+def _conv_grads_case(label, m, k, n, dtype, gen):
+    """bn_conv_grads (row 8); the yardstick is the dy pass in PyTorch and
+    cuBLAS's two products."""
+    x = _randn(gen, dtype, m, k)
+    y, dz = _randn(gen, dtype, m, n), _randn(gen, dtype, m, n)
+    w = (torch.randn((k, n), generator=gen, device=DEV) / n ** 0.5).to(dtype)
+    mu, r = _bn_vectors(n, gen)
+    k1 = torch.rand(n, generator=gen, device=DEV) + 0.5
+    k2 = k1 * r * torch.randn(n, generator=gen, device=DEV) * 1e-3
+    c = k1 * torch.randn(n, generator=gen, device=DEV) * 1e-3
+    args = (x, y, dz, w, k1, k2, c, mu)
+
+    def library():
+        dy = _bn_dy(y, dz, k1, k2, c, mu, dtype).to(dtype)
+        return dy @ w.T, x.T @ dy
+
+    esz = x.element_size()
+    return _kernel_row(
+        "bn_conv_grads", label, (m, k, n), dtype,
+        lambda: bn_conv_grads(*args),
+        lambda: _bn_conv_grads_reference(*args), library,
+        (4.0 * m * k * n + 5.0 * m * n,
+         (2 * m * k + 2 * m * n + k * n) * esz + 4 * k * n + 16 * n))
+
+
+def _layernorm_case(label, rows, d, dtype, gen):
+    """fused_layernorm's kernel (row 4); the yardstick is F.layer_norm."""
+    x = _randn(gen, dtype, rows, d) * 2 + 0.5
+    g = torch.rand(d, generator=gen, device=DEV) + 0.5
+    b = torch.randn(d, generator=gen, device=DEV) * 0.1
+    gd, bd = g.to(dtype), b.to(dtype)
+    return _kernel_row(
+        "fused_layernorm", label, (rows, d), dtype,
+        lambda: (fused_layernorm(x, g, b),),
+        lambda: _layernorm_reference(x, g, b, 1e-5)[:1],
+        lambda: F.layer_norm(x, (d,), gd, bd, 1e-5),
+        (8.0 * rows * d, 2 * rows * d * x.element_size() + 8 * d + 8 * rows))
+
+
+def training_kernel_cases(dtype):
+    """The cases of the four kernels of the ResNet-50 training slice."""
+    cases = []
+    for label, (m, k, n) in BN_TRAIN_SHAPES.items():
+        for fn in (_stats_case, _grad_stats_case, _conv_grads_case):
+            cases.append((fn, label, m, k, n, dtype))
+    for label, (rows, d) in LAYERNORM_SHAPES.items():
+        cases.append((_layernorm_case, label, rows, d, dtype))
+    return cases
+
+
+def run_kernel_cases(cases, gen):
+    """Run each case and log its row; raises if any kernel disagrees with
+    its plain version (or re-runs other bits). Returns the rows."""
+    rows = []
+    for fn, *a in cases:
+        t = time.perf_counter()
+        got = fn(*a, gen)
+        for r in got if isinstance(got, list) else [got]:
+            r["wall_s"] = time.perf_counter() - t   # the whole case's
+            rows.append(r)
+    bad = []
+    for r in rows:
+        ok = (r["max_abs_err"] <= r["atol"] and r.get("bit_identical", True)
+              and r.get("padded_example_zero", True)
+              and r.get("acc_exact", True))
+        lib = r["library_ms"]
+        log(f"[kernels] {r['name']:<12} {r['case']:<14} "
+            f"shape={r['shape']} {r['dtype']:<4} "
+            f"max_abs_err={r['max_abs_err']:.3e} (atol {r['atol']:.2e}) "
+            f"{'ok' if ok else 'FAIL'}  ms={r['ms']:.4f} "
+            f"plain_ms={r['plain_ms']:.4f} library_ms="
+            + ("none" if lib is None else f"{lib:.4f}")
+            + f" bound_ms={r['bound_ms']:.5f} ({r['bound_by']}) "
+            f"case_s={r['wall_s']:.2f}"
+            + ("" if "bit_identical" not in r else
+               f" bit_identical={r['bit_identical']}")
+            + ("" if "f64_err" not in r else f" f64_err={r['f64_err']:.3e}")
+            + ("" if "acc_exact" not in r else
+               f" int32_sums_exact={r['acc_exact']}"))
+        if not ok:
+            bad.append(f"{r['name']} {r['case']} {r['dtype']}")
+    if bad:
+        raise AssertionError(f"kernels disagree with their plain "
+                             f"versions: {bad}")
+    return rows
+
+
 def phase_kernels():
     """Every kernel against its plain version; returns (rows, launches of
     each kernel in this phase)."""
@@ -549,44 +750,15 @@ def phase_kernels():
                           "relu" if ragged else "identity", dtype))
         for label, shape in BOTTLENECK_SHAPES.items():
             cases.append((_bottleneck_case, label, *shape, dtype))
+        cases += training_kernel_cases(dtype)
     cases.append((_int8_case, "res4_a B=32", *EPILOGUE_SHAPES["res4_a B=32"]))
-    rows = []
-    for fn, *a in cases:
-        t = time.perf_counter()
-        got = fn(*a, gen)
-        for r in got if isinstance(got, list) else [got]:
-            r["wall_s"] = time.perf_counter() - t   # the whole case's
-            rows.append(r)
-    bad = []
-    for r in rows:
-        ok = (r["max_abs_err"] <= r["atol"] and r.get("bit_identical", True)
-              and r.get("padded_example_zero", True)
-              and r.get("acc_exact", True))
-        lib = r["library_ms"]
-        log(f"[kernels] {r['name']:<12} {r['case']:<14} "
-            f"shape={r['shape']} {r['dtype']:<4} "
-            f"max_abs_err={r['max_abs_err']:.3e} (atol {r['atol']:.2e}) "
-            f"{'ok' if ok else 'FAIL'}  ms={r['ms']:.4f} "
-            f"plain_ms={r['plain_ms']:.4f} library_ms="
-            + ("none" if lib is None else f"{lib:.4f}")
-            + f" bound_ms={r['bound_ms']:.5f} ({r['bound_by']}) "
-            f"case_s={r['wall_s']:.2f}"
-            + ("" if "bit_identical" not in r else
-               f" bit_identical={r['bit_identical']}"
-               f" f64_err={r['f64_err']:.3e}")
-            + ("" if "acc_exact" not in r else
-               f" int32_sums_exact={r['acc_exact']}"))
-        if not ok:
-            bad.append(f"{r['name']} {r['case']} {r['dtype']}")
-    if bad:
-        raise AssertionError(f"kernels disagree with their plain "
-                             f"versions: {bad}")
-    return rows, _counts()
+    return run_kernel_cases(cases, gen), _counts()
 
 
 # -- phase 4 ------------------------------------------------------------------
 KERNELS = (flash_fwd, flash_decode, flash_bwd_dq, flash_bwd_dkv,
-           matmul_epilogue, int8_matmul_epilogue, bottleneck_block)
+           matmul_epilogue, int8_matmul_epilogue, bottleneck_block,
+           matmul_stats, bn_grad_stats, bn_conv_grads, fused_layernorm)
 
 
 def _reset_counts():
@@ -867,15 +1039,15 @@ def _perturb_bn(net, seed):
             t.copy_(torch.as_tensor(v, dtype=torch.float32))
 
 
-def _resnet_nets():
+def _resnet_nets(**zoo):
     """(fused, unfused) ResNet-50 at 224×224×3, 1000 classes, f32, both
-    from the zoo's seed with the same BN draws."""
+    from the zoo's seed with the same BN draws; `zoo` goes to ResNet50."""
     before = os.environ.get("DL4J_TPU_FUSE_CONV_BN")
     nets = []
     try:
         for fuse in ("1", "0"):
             os.environ["DL4J_TPU_FUSE_CONV_BN"] = fuse
-            net = ResNet50().init(DEV)
+            net = ResNet50(**zoo).init(DEV)
             _perturb_bn(net, RESNET["seed"])
             nets.append(net)
     finally:
@@ -1061,7 +1233,147 @@ def phase_resnet():
     return stats, fused, x
 
 
-# -- phase 8 (--profile) ------------------------------------------------------
+# -- phase 8 ------------------------------------------------------------------
+#: ResNet-50 training: one seeded batch of 32 images and labels, 2 warm-up
+#: and 10 timed steps, the zoo's Nesterovs at momentum 0.9 and a rate of
+#: 0.01: at the zoo's 0.1 the loss on one fixed batch rises from this init
+#: (10.7 -> 26.1 in 12 steps at 64×64, B=8, on the CPU, where 0.01 takes it
+#: to 3.0)
+RESNET_TRAIN = dict(batch=32, size=224, warmup=2, steps=10, seed=7, lr=0.01)
+#: One step's gradients are held to the unfused net's run in f64. At this
+#: random init they are ill-conditioned in f32: a relu input within f32
+#: noise of 0 takes the other branch, BN's backward spreads that over its
+#: channel, and both f32 nets land ~2 % (median leaf, max |err| over max
+#: |f64|) from the f64 answer, each leaf by its own luck; fused and unfused
+#: f32 differ from each other by as much (up to 14 % of a leaf's largest
+#: on the card). So the fusion may add no error beyond f32's own: each
+#: fused leaf within max(RESNET_GRAD_RTOL, RESNET_GRAD_FACTOR × its unfused
+#: distance, the unfused net's worst leaf), and the fused median within
+#: RESNET_GRAD_FACTOR × the unfused median. A wrong term in the fused
+#: backward moves every leaf it reaches by O(1).
+RESNET_GRAD_RTOL = 1e-3
+RESNET_GRAD_FACTOR = 2.0
+#: the kernels of the training fusion, launched once per pair and step
+TRAIN_KERNELS = ("matmul_stats", "bn_grad_stats", "bn_conv_grads")
+
+
+def _train_batch_resnet():
+    rng = np.random.default_rng(RESNET_TRAIN["seed"])
+    b = RESNET_TRAIN["batch"]
+    hw = RESNET_TRAIN["size"]
+    x = rng.standard_normal((b, hw, hw, 3)).astype(np.float32)
+    y = np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, b)]
+    return DataSet(x, y)
+
+
+def _leaf_errors(got, want):
+    """{(node, key): max |got − want| / max |want|} over two {node: {key:
+    tensor}} trees, in f64."""
+    out = {}
+    for n in sorted(want):
+        for k in sorted(want[n]):
+            a, w = got[n][k].double(), want[n][k].double()
+            out[n, k] = ((a - w).abs().max()
+                         / w.abs().max().clamp_min(1e-300)).item()
+    return out
+
+
+def _in_f64(net):
+    """A copy of `net` whose forward and backward run in f64."""
+    m = net.clone()
+    m._compute_dtype = torch.float64
+    m._params = {n: {k: v.double() for k, v in d.items()}
+                 for n, d in m._params.items()}
+    m._state = {n: {k: v.double() for k, v in d.items()}
+                for n, d in m._state.items()}
+    return m
+
+
+def phase_resnet_train():
+    """ResNet-50 trained with the fusion on; returns (stats, the fused net,
+    the batch) for the profile phase."""
+    fused, plain = _resnet_nets(updater=Nesterovs(RESNET_TRAIN["lr"], 0.9))
+    ds = _train_batch_resnet()
+    ins, labels, _ = fused._unpack(ds)
+    # one step's gradients and BN statistics: fused, unfused, unfused in f64
+    lf, gf, sf = fused._value_and_grad(ins, labels)
+    lp, gp, sp = plain._value_and_grad(ins, labels)
+    exact = _in_f64(plain)
+    del plain
+    le, ge, _ = exact._value_and_grad(ins, labels)
+    del exact
+    ef, eu, direct = (_leaf_errors(gf, ge), _leaf_errors(gp, ge),
+                      _leaf_errors(gf, gp))
+    state = _leaf_errors(sf, sp)
+    del gf, gp, ge, sf, sp
+    eu_worst, eu_median = max(eu.values()), float(np.median(list(
+        eu.values())))
+    bad = [f"{n}/{k} ({ef[n, k]:.2e} vs unfused {eu[n, k]:.2e})"
+           for n, k in ef if not ef[n, k] <= max(
+               RESNET_GRAD_RTOL, RESNET_GRAD_FACTOR * eu[n, k], eu_worst)]
+    if not np.median(list(ef.values())) <= RESNET_GRAD_FACTOR * eu_median:
+        bad.append(f"median {np.median(list(ef.values())):.2e} vs unfused "
+                   f"{eu_median:.2e}")
+    s_bad = [f"{n}/{k}" for (n, k), e in state.items() if not e <= RESNET_RTOL]
+    ratio = max(ef[key] / max(eu[key], RESNET_GRAD_RTOL) for key in ef)
+    log(f"[resnet_train] one step B={RESNET_TRAIN['batch']}: loss fused "
+        f"{lf.item():.6f} unfused {lp.item():.6f} f64 {le.item():.6f}; "
+        f"gradients against the unfused net in f64, per leaf max|err|/"
+        f"max|f64|: fused worst {max(ef.values()):.3e} median "
+        f"{np.median(list(ef.values())):.3e}, unfused f32 worst "
+        f"{max(eu.values()):.3e} median {np.median(list(eu.values())):.3e};"
+        f" worst per-leaf fused/unfused ratio {ratio:.3f}; fused vs "
+        f"unfused directly worst {max(direct.values()):.3e} median "
+        f"{np.median(list(direct.values())):.3e}; BN running statistics, "
+        f"worst {max(state.values()):.3e} (rtol {RESNET_RTOL:.0e})")
+    if bad or s_bad or not torch.isfinite(lf):
+        raise AssertionError(f"resnet_train: the fused gradients or BN "
+                             f"state are off: gradients {bad}, BN state "
+                             f"{s_bad}")
+    # the timed steps, through fit, as a user trains
+    losses = []
+    for _ in range(RESNET_TRAIN["warmup"]):
+        fused.fit(ds)
+        losses.append(fused._score)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(RESNET_TRAIN["steps"]):
+        fused.fit(ds)
+        losses.append(fused._score)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    steps, b = RESNET_TRAIN["steps"], RESNET_TRAIN["batch"]
+    losses = [float(v) for v in losses]
+    per_step = {k: launches[k] / steps for k in TRAIN_KERNELS}
+    upd = fused.getLayer("fc").updater
+    hw = RESNET_TRAIN["size"]
+    log(f"[resnet_train] ResNet-50 {hw}x{hw}x3 f32 B={b}, fusion on, "
+        f"{type(upd).__name__}({upd.learningRate}, {upd.momentum}) (the "
+        f"zoo's rate is 0.1): "
+        f"{wall * 1e3 / steps:.2f} ms/step, {b * steps / wall:.1f} images/s; "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f} over "
+        f"{len(losses)} steps on one batch; launches per step {per_step}")
+    wrong = {k: n for k, n in per_step.items() if n != EPILOGUE_PAIRS}
+    if wrong:
+        raise AssertionError(f"resnet_train: launches per step {wrong}, "
+                             f"expected {EPILOGUE_PAIRS} of each")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"resnet_train: loss did not fall: {losses}")
+    return ({"ms_per_step": wall * 1e3 / steps, "images_per_s": b * steps
+             / wall, "losses": losses, "launches": launches,
+             "launches_per_step": per_step,
+             "grad_fused_vs_f64_worst": max(ef.values()),
+             "grad_unfused_vs_f64_worst": max(eu.values()),
+             "grad_fused_unfused_ratio_worst": ratio,
+             "grad_fused_vs_unfused_worst": max(direct.values()),
+             "state_worst_rel": max(state.values()),
+             "loss_fused": lf.item(), "loss_unfused": lp.item(),
+             "loss_f64": le.item()}, fused, ds)
+
+
+# -- phase 9 (--profile) ------------------------------------------------------
 #: kernel-name substrings -> the part of a step they belong to
 KERNEL_GROUPS = (("flash_fwd_kernel", "flash_fwd"),
                  ("flash_decode_kernel", "flash_decode"),
@@ -1069,6 +1381,12 @@ KERNEL_GROUPS = (("flash_fwd_kernel", "flash_fwd"),
                  ("flash_bwd_dkv_kernel", "flash_bwd_dkv"),
                  ("matmul_epilogue_kernel", "matmul_epilogue"),
                  ("bottleneck_block_kernel", "bottleneck_block"),
+                 ("matmul_stats_kernel", "matmul_stats"),
+                 ("bn_grad_stats_kernel", "bn_grad_stats"),
+                 ("bn_dx_kernel", "bn_conv_grads"),
+                 ("bn_dw_kernel", "bn_conv_grads"),
+                 ("sum_partials_kernel", "BN partial sums (rows 5/7/8)"),
+                 ("layernorm_kernel", "fused_layernorm"),
                  ("nchwtonhwc", "layout (NHWC<->NCHW)"),
                  ("nhwctonchw", "layout (NHWC<->NCHW)"),
                  ("fprop", "conv (cuDNN)"), ("convolve", "conv (cuDNN)"),
@@ -1162,9 +1480,10 @@ def _profiled(what, run):
     return out, ret
 
 
-def phase_profile(cfg, params, resnet_net, resnet_x):
-    """The serving phase's workload, three fine-tune steps and one fused
-    B=32 ResNet-50 forward once more under torch.profiler."""
+def phase_profile(cfg, params, resnet_net, resnet_x, train_net, train_ds):
+    """The serving phase's workload, three fine-tune steps, one fused B=32
+    ResNet-50 forward and one fused ResNet-50 training step once more
+    under torch.profiler."""
     reqs = _requests(cfg)
     srv = GenerationServer(BertDecoder(cfg, params), **SERVER)
     try:
@@ -1196,7 +1515,12 @@ def phase_profile(cfg, params, resnet_net, resnet_x):
     torch.cuda.synchronize()
     resnet, _ = _profiled("resnet fused forward B=32",
                           lambda: resnet_net.output(resnet_x))
-    return {"serving": serving, "train": train, "resnet": resnet}
+    train_net.fit(train_ds)
+    torch.cuda.synchronize()
+    resnet_train, _ = _profiled("resnet fused training step B=32",
+                                lambda: train_net.fit(train_ds))
+    return {"serving": serving, "train": train, "resnet": resnet,
+            "resnet_train": resnet_train}
 
 
 def kernel_line(rows, launches, launches_from):
@@ -1230,12 +1554,13 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", choices=["kernels", "resnet"], default=None,
                     help="stop after the kernel checks, or run the resnet "
-                         "phase right after them (bring-up runs)")
+                         "serving and training phases right after them "
+                         "(bring-up runs)")
     ap.add_argument("--profile", action="store_true",
-                    help="after the resnet phase, profile the serving "
-                         "workload, three fine-tune steps and one ResNet-50"
-                         " forward (card busy/idle share, device time by "
-                         "kernel group)")
+                    help="after the resnet phases, profile the serving "
+                         "workload, three fine-tune steps, one ResNet-50 "
+                         "forward and one ResNet-50 training step (card "
+                         "busy/idle share, device time by kernel group)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1260,9 +1585,11 @@ def main(argv=None):
         return 0
     if args.only == "resnet":
         resnet, _, _ = timed("resnet", phase_resnet)
+        resnet_train, _, _ = timed("resnet_train", phase_resnet_train)
         (OUT_DIR / "smoke_resnet.json").write_text(json.dumps(
             {"card": card, "kernels": rows, "resnet": resnet,
-             "phase_seconds": seconds}, indent=1))
+             "resnet_train": resnet_train, "phase_seconds": seconds},
+            indent=1))
         return 0
     cfg = bert_base()
     params = timed("params", init_bert_params, cfg, 0)
@@ -1270,8 +1597,10 @@ def main(argv=None):
     serving = timed("serving", phase_serving, cfg, params)
     train = timed("train", phase_train, cfg, params)
     resnet, resnet_net, resnet_x = timed("resnet", phase_resnet)
+    resnet_train, train_net, train_ds = timed("resnet_train",
+                                              phase_resnet_train)
     prof = (timed("profile", phase_profile, cfg, params, resnet_net,
-                  resnet_x) if args.profile else None)
+                  resnet_x, train_net, train_ds) if args.profile else None)
     # each kernel's launches from the path that carries it: the forward and
     # decode kernels from serving, the backward pair from training, the
     # epilogue GEMM from ResNet serving; the int8 epilogue and the
@@ -1285,6 +1614,8 @@ def main(argv=None):
     launches["int8_matmul_epilogue"] = \
         kernel_launches["int8_matmul_epilogue"]
     launches["bottleneck_block"] = resnet["res4_block"]["launches"]
+    launches.update({k: resnet_train["launches"][k] for k in TRAIN_KERNELS})
+    launches["fused_layernorm"] = kernel_launches["fused_layernorm"]
     launches_from = {"flash_fwd": "bert serving", "flash_decode":
                      "bert serving", "flash_bwd_dq": "bert training (10 "
                      "timed steps)", "flash_bwd_dkv": "bert training (10 "
@@ -1293,12 +1624,17 @@ def main(argv=None):
                      "int8_matmul_epilogue": "kernel phase (checks and "
                      "timing; no served model calls it)",
                      "bottleneck_block": "resnet res4_1 check (no served "
-                     "model calls it)"}
+                     "model calls it)",
+                     "fused_layernorm": "kernel phase (checks and timing; "
+                     "no model calls it)"}
+    launches_from.update({k: f"resnet training ({RESNET_TRAIN['steps']} "
+                          "timed steps)" for k in TRAIN_KERNELS})
     line = kernel_line(rows, launches, launches_from)
     (OUT_DIR / "smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "kernels": rows,
          "encoder": encoder, "serving": serving, "train": train,
-         "resnet": resnet, "profile": prof, "line": line,
+         "resnet": resnet, "resnet_train": resnet_train, "profile": prof,
+         "line": line,
          "phase_seconds": seconds, "seconds": time.perf_counter() - t0},
         indent=1))
     log(f"[smoke] {time.perf_counter() - t0:.1f} s; by phase "

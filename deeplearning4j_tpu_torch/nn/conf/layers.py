@@ -176,6 +176,11 @@ class Layer:
         return x, state
 
     # -- helpers ---------------------------------------------------------
+    def regularization_terms(self):
+        """(l1, l2) of the score's weight penalty (≡ the reference's
+        per-layer regularization)."""
+        return (self.l1 or 0.0), (self.l2 or 0.0)
+
     def _dropout_in(self, x, train, generator):
         """Inverted dropout on the input at train time, drawn from
         `generator` (on x's device); None means no dropout, as a None rng
@@ -413,19 +418,55 @@ class SubsamplingLayer(Layer):
 
 def _bn_stats(x):
     """Per-channel batch mean and variance (E[x²] − E[x]², clipped at 0)
-    over every axis but the last, in f32."""
+    over every axis but the last, in f32 (f64 for f64 inputs)."""
     axes = tuple(range(x.ndim - 1))
-    xf = x.float()
+    xf = x.to(torch.float64 if x.dtype == torch.float64 else torch.float32)
     s1 = xf.mean(dim=axes)
     s2 = (xf * xf).mean(dim=axes)
     return s1, torch.clamp_min(s2 - s1 * s1, 0.0)
 
 
+class _BNTrain(torch.autograd.Function):
+    """Training BatchNorm y = x·a + b with the batch statistics, and the
+    closed-form backward of the JAX `_bn_train` custom VJP
+    (deeplearning4j_tpu/nn/conf/layers.py:792-829):
+      dβ = Σdy, dγ = Σdy·x̂, dx = k1·dy − (x − μ)·k2 − c
+    with k1 = γr, k2 = γr²·dγ/n, c = γr·dβ/n cast to x.dtype, instead of
+    autograd's passes through the mean/var chain. Returns (y, μ, var); μ
+    and var feed only the running averages and get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps):
+        mu, var = _bn_stats(x)
+        r = torch.rsqrt(var + eps)
+        a = (gamma * r).to(x.dtype)
+        b = (beta - gamma * mu * r).to(x.dtype)
+        ctx.save_for_backward(x, mu, r, gamma)
+        ctx.mark_non_differentiable(mu, var)
+        return x * a + b, mu, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmu, _dvar):
+        x, mu, r, gamma = ctx.saved_tensors
+        axes = tuple(range(x.ndim - 1))
+        n = x.numel() // x.shape[-1]
+        xhat = (x.to(mu.dtype) - mu) * r
+        dyf = dy.to(mu.dtype)
+        dbeta = dyf.sum(dim=axes)
+        dgamma = (dyf * xhat).sum(dim=axes)
+        k1 = (gamma * r).to(x.dtype)
+        k2 = (gamma * r * r * dgamma / n).to(x.dtype)
+        c = (gamma * r * (dbeta / n)).to(x.dtype)
+        dx = k1 * dy - (x - mu.to(x.dtype)) * k2 - c
+        return dx, dgamma, dbeta, None
+
+
 class BatchNormalization(Layer):
     """≡ conf.layers.BatchNormalization — channel-last batch norm. Train
-    mode normalizes with the batch statistics and updates the running
-    ones (`decay` follows the reference default); autograd differentiates
-    it. Inference folds the running statistics into one affine pass."""
+    mode normalizes with the batch statistics through `_BNTrain` (the
+    JAX package's closed-form backward) and updates the running ones
+    (`decay` follows the reference default). Inference folds the running
+    statistics into one affine pass."""
 
     def __init__(self, nOut=None, decay=0.9, eps=1e-5, gamma=1.0, beta=0.0,
                  lockGammaBeta=False, **kw):
@@ -462,17 +503,15 @@ class BatchNormalization(Layer):
     def apply(self, params, state, x, train=False, generator=None):
         gamma, beta = self.gamma_beta(params, state["mean"])
         if train:
-            mean, var = _bn_stats(x)
+            y, mean, var = _BNTrain.apply(x, gamma, beta, self.eps)
             new_state = {
                 "mean": self.decay * state["mean"] + (1 - self.decay) * mean,
                 "var": self.decay * state["var"] + (1 - self.decay) * var}
-        else:
-            mean, var = state["mean"], state["var"]
-            new_state = state
-        inv = torch.rsqrt(var + self.eps)
+            return get_activation(self.activation)(y), new_state
+        inv = torch.rsqrt(state["var"] + self.eps)
         a = (gamma * inv).to(x.dtype)
-        b = (beta - gamma * mean * inv).to(x.dtype)
-        return get_activation(self.activation)(x * a + b), new_state
+        b = (beta - gamma * state["mean"] * inv).to(x.dtype)
+        return get_activation(self.activation)(x * a + b), state
 
 
 class ActivationLayer(Layer):

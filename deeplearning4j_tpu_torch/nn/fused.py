@@ -2,14 +2,17 @@
 `deeplearning4j_tpu/nn/fused.py`.
 
 A 1×1 convolution that feeds only a BatchNormalization is executed with
-the BN: at inference the BN's running statistics fold into a per-channel
+the BN. At inference the BN's running statistics fold into a per-channel
 affine (scale = γ·rsqrt(var+ε), shift = β − γ·μ·rsqrt(var+ε)), which
 `kernels.pointwise_conv.matmul_epilogue` applies, with the BN's relu, in
 the epilogue of the conv's GEMM — one hand-written kernel on the card, no
-standalone BN pass. The rewrite is execution-only: node names, parameter
-and state trees are unchanged; `find_conv1x1_bn_fusions` only names the
-pairs, and `ComputationGraph` routes each marked pair through
-`fused_apply`.
+standalone BN pass. In training the pair runs `fused_conv1x1_bn`: the
+batch statistics come out of the conv's GEMM (`matmul_stats`), and BN's
+closed-form backward is formed inside the conv-gradient kernel
+(`bn_grad_stats`, then `bn_conv_grads`). The rewrite is execution-only:
+node names, parameter and state trees are unchanged;
+`find_conv1x1_bn_fusions` only names the pairs, and `ComputationGraph`
+routes each marked pair through `fused_apply`.
 
 OFF by default, opt in with DL4J_TPU_FUSE_CONV_BN=1, read when a graph is
 initialised (the same switch as the JAX package). On the card a marked
@@ -18,12 +21,9 @@ pair always launches the kernel; a build or launch failure raises.
 Differences from the JAX module, by design:
 - The JAX eager path ran one GEMM plus a BN pass, because nothing there
   removes the reporting-only conv output; its traced path ran the kernel
-  and let XLA drop that output. Here every inference forward runs the
-  kernel, and the conv output is computed only when the caller asks for
-  it (`report_conv`, which `feedForward` sets).
-- The train-mode fusion (`fused_conv1x1_bn`: batch statistics in the GEMM,
-  BN's backward inside the conv-gradient GEMMs) comes with the training
-  slice, ROADMAP B5, B7 and B8; `train=True` raises until then.
+  and let XLA drop that output. Here every forward, inference or
+  training, runs the kernels, and the conv output is computed only when
+  the caller asks for it (`report_conv`, which `feedForward` sets).
 """
 from __future__ import annotations
 
@@ -31,7 +31,8 @@ import os
 
 import torch
 
-from deeplearning4j_tpu_torch.kernels.pointwise_conv import matmul_epilogue
+from deeplearning4j_tpu_torch.kernels.pointwise_conv import (
+    fused_conv1x1_bn, matmul_epilogue)
 
 
 class _EvalEpilogue(torch.autograd.Function):
@@ -136,23 +137,20 @@ def find_conv1x1_bn_fusions(conf):
 
 def fused_apply(conv_layer, bn_layer, p_conv, p_bn, s_bn, x, train,
                 report_conv=False):
-    """Execute act(batchnorm(conv1x1(x))) fused, in inference mode.
-    x: (B, H, W, C) NHWC.
+    """Execute act(batchnorm(conv1x1(x))) fused. x: (B, H, W, C) NHWC.
 
     Returns (z, bn_state, y_conv) with the semantics of running
-    conv_layer.apply then bn_layer.apply; y_conv is the conv's own output
-    when `report_conv` (feedForward reports the conv node's activation),
-    else None — nothing computes it otherwise."""
-    if train:
-        raise NotImplementedError(
-            "train-mode conv1x1+BN fusion (fused_conv1x1_bn: the kernels of "
-            "kernel-table rows 5, 7 and 8) comes with the training slice, "
-            "ROADMAP B5/B7/B8; run this graph with the fusion off "
-            "(DL4J_TPU_FUSE_CONV_BN=0) to train")
+    conv_layer.apply then bn_layer.apply in train or inference mode. In
+    training z normalises with the batch statistics (`fused_conv1x1_bn`)
+    and the state is the running average d·old + (1−d)·batch; at inference
+    the running statistics fold into the epilogue GEMM. y_conv is the
+    conv's own output when `report_conv` (feedForward reports the conv
+    node's activation), else None — nothing computes it otherwise."""
     s = conv_layer.stride[0]
     if s > 1:
         # a 1x1 conv with stride s touches exactly the (::s, ::s) pixels;
-        # the strided view is made contiguous once, for the GEMM
+        # the strided view is made contiguous once, for the GEMM (the copy
+        # is differentiable)
         x = x[:, ::s, ::s, :]
     x = x.contiguous()
     b, h, w_, cin = x.shape
@@ -161,10 +159,17 @@ def fused_apply(conv_layer, bn_layer, p_conv, p_bn, s_bn, x, train,
     xf = x.reshape(b * h * w_, cin)
     mean, var = s_bn["mean"], s_bn["var"]
     gamma, beta = bn_layer.gamma_beta(p_bn, mean)
-    inv = torch.rsqrt(var + bn_layer.eps)
     act = str(bn_layer.activation).lower()
     act = "identity" if act in ("identity", "linear") else act
-    z = _EvalEpilogue.apply(xf, w, gamma * inv, beta - gamma * mean * inv,
-                            act)
+    if train:
+        z, mu, bvar = fused_conv1x1_bn(xf, w, gamma, beta, bn_layer.eps, act)
+        d = bn_layer.decay
+        new_state = {"mean": d * mean + (1 - d) * mu,
+                     "var": d * var + (1 - d) * bvar}
+    else:
+        inv = torch.rsqrt(var + bn_layer.eps)
+        z = _EvalEpilogue.apply(xf, w, gamma * inv,
+                                beta - gamma * mean * inv, act)
+        new_state = s_bn
     y = (xf @ w).reshape(b, h, w_, n) if report_conv else None
-    return z.reshape(b, h, w_, n), s_bn, y
+    return z.reshape(b, h, w_, n), new_state, y

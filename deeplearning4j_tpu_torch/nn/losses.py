@@ -2,9 +2,10 @@
 zoo heads name (≡ nd4j-api :: lossfunctions.LossFunctions.LossFunction).
 
 `get_loss` resolves a name at build time, as `Layer.validate` needs it.
-Only `mcxent` and its alias `negativeloglikelihood` are ported so far;
-every other name of the JAX catalog raises `NotImplementedError`, naming
-the training slice that brings it (ROADMAP A10).
+Only `mcxent` and its alias `negativeloglikelihood` are ported so far (the
+loss of the zoo heads and of ResNet-50 training); every other name of the
+JAX catalog raises `NotImplementedError`, naming the losses slice that
+brings it (ROADMAP A10).
 
 Each loss takes (labels, preact, activation, mask) where `preact` is the
 layer pre-activation; softmax+MCXENT lowers to a stable log-softmax. The
@@ -16,7 +17,7 @@ import torch
 
 from deeplearning4j_tpu_torch.nn.activations import get_activation
 
-#: the JAX catalog's names that the training slice still has to port
+#: the JAX catalog's names that the losses slice still has to port
 _LATER = ("xent", "mse", "squared_loss", "l2", "mae", "l1", "hinge",
           "squared_hinge", "kl_divergence", "reconstruction_crossentropy",
           "poisson", "cosine_proximity", "mean_absolute_percentage_error",
@@ -69,8 +70,8 @@ def get_loss(name):
     key = str(name).lower()
     if key in _LATER:
         raise NotImplementedError(
-            f"loss '{name}' is not ported yet: it comes with the training "
-            "slice (ROADMAP A10)")
+            f"loss '{name}' is not ported yet: it comes with the losses "
+            "slice of the port (ROADMAP A10)")
     if key not in LOSSES:
         raise ValueError(
             f"Unknown loss '{name}'. Available: "

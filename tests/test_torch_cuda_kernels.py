@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from deeplearning4j_tpu_torch.generation.decode import BertDecoder
+from deeplearning4j_tpu_torch.kernels import layernorm as tln
 from deeplearning4j_tpu_torch.kernels import pointwise_conv as tpc
 from deeplearning4j_tpu_torch.kernels import residual_block as trb
 from deeplearning4j_tpu_torch.models import bert_tiny, init_bert_params
@@ -242,3 +243,75 @@ def test_cuda_fused_resnet_launches_the_epilogue_kernel(card, monkeypatch):
     b = plain.feedForward(x)
     for node in ("res2_0_a_bn", "res4_5_relu", "avgpool", "fc"):
         assert _scaled_err(a[node], b[node]) <= 1e-4, node
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2)])
+def test_cuda_bn_training_kernels_match_plain(card, dtype, atol):
+    """matmul_stats, bn_grad_stats and bn_conv_grads at ragged M, K and N
+    (tails of every tile and split), one launch counted per call, and a
+    re-run with the same bits (per-block partials, no atomics)."""
+    gen = torch.Generator(device=card).manual_seed(5)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=card)
+                * scale).to(dtype)
+
+    for m, k, n in ((70, 12, 9), (300, 64, 32), (1000, 200, 130)):
+        x, y, dz = rnd(m, k), rnd(m, n), rnd(m, n)
+        w = rnd(k, n, scale=k ** -0.5)
+        mu = torch.randn(n, generator=gen, device=card) * 0.1
+        r = torch.rand(n, generator=gen, device=card) + 0.5
+        k1, k2, c = r, r * 1e-2, mu * 1e-2
+        calls = ((tpc.matmul_stats, tpc._matmul_stats_reference, (x, w)),
+                 (tpc.bn_grad_stats, tpc._bn_grad_stats_reference,
+                  (y, dz, mu, r)),
+                 (tpc.bn_conv_grads, tpc._bn_conv_grads_reference,
+                  (x, y, dz, w, k1, k2, c, mu)))
+        for kernel, plain, args in calls:
+            before = kernel.launches
+            got, again = kernel(*args), kernel(*args)
+            assert kernel.launches == before + 2
+            for a, b, c_ in zip(got, plain(*args), again):
+                assert a.shape == b.shape and a.dtype == b.dtype
+                assert _scaled_err(a, b) <= atol, (kernel.__name__, m, k, n)
+                assert torch.equal(a, c_)
+
+
+def test_cuda_fused_conv1x1_bn_trains_through_the_kernels(card):
+    """fused_conv1x1_bn forward and backward on the card: one launch of
+    each kernel, z and every gradient as the plain versions on the CPU."""
+    gen = torch.Generator(device=card).manual_seed(6)
+    x = torch.randn((250, 40), generator=gen, device=card)
+    w = torch.randn((40, 24), generator=gen, device=card) * 0.2
+    g = torch.rand(24, generator=gen, device=card) + 0.5
+    b = torch.randn(24, generator=gen, device=card) * 0.1
+    t = torch.randn((250, 24), generator=gen, device=card)
+    kernels = (tpc.matmul_stats, tpc.bn_grad_stats, tpc.bn_conv_grads)
+    before = [kern.launches for kern in kernels]
+    results = []
+    for dev in (card, "cpu"):
+        leaves = [a.to(dev).requires_grad_() for a in (x, w, g, b)]
+        z, _, _ = tpc.fused_conv1x1_bn(*leaves, 1e-5, "relu")
+        grads = torch.autograd.grad((z * t.to(dev)).sum(), leaves)
+        results.append([z.detach().cpu()] + [a.cpu() for a in grads])
+    assert [kern.launches for kern in kernels] == [n + 1 for n in before]
+    for a, b_ in zip(*results):
+        assert _scaled_err(a, b_) <= 2e-5
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2)])
+def test_cuda_layernorm_matches_plain(card, dtype, atol):
+    gen = torch.Generator(device=card).manual_seed(7)
+    for rows, d in ((9, 24), (130, 1000), (64, 768)):
+        x = (torch.randn((rows, d), generator=gen, device=card) * 2
+             + 0.5).to(dtype)
+        g = torch.rand(d, generator=gen, device=card) + 0.5
+        b = torch.randn(d, generator=gen, device=card) * 0.1
+        before = tln.fused_layernorm.launches
+        got = tln.fused_layernorm(x, g, b)
+        assert tln.fused_layernorm.launches == before + 1
+        want = tln._layernorm_reference(x, g, b, 1e-5)[0]
+        assert got.dtype == dtype and _scaled_err(got, want) <= atol
+        assert torch.equal(got, tln.fused_layernorm(x, g, b))

@@ -156,9 +156,18 @@ def test_fused_apply_eval_matches_jax_kernel_branch(stride, act):
                               {"gamma": t["gamma"], "beta": t["beta"]},
                               {"mean": t["mean"], "var": t["var"]}, t["x"],
                               train=False)[2] is None
-    with pytest.raises(NotImplementedError, match="B5/B7/B8"):
-        tfused.fused_apply(tconv, tbn, {"W": t["W"]}, {}, ts, t["x"],
-                           train=True)
+    # train mode: batch statistics through fused_conv1x1_bn in both
+    # packages (the JAX side's Pallas training kernels in interpret mode)
+    jz, js, _ = jfused.fused_apply(
+        jconv, jbn, {"W": jnp.asarray(d["W"])},
+        {"gamma": jnp.asarray(d["gamma"]), "beta": jnp.asarray(d["beta"])},
+        sb, jnp.asarray(d["x"]), train=True, interpret=True)
+    tz, ts, _ = tfused.fused_apply(
+        tconv, tbn, {"W": t["W"]}, {"gamma": t["gamma"], "beta": t["beta"]},
+        {"mean": t["mean"], "var": t["var"]}, t["x"], train=True)
+    _close(tz.numpy(), jz)
+    for k in ("mean", "var"):
+        _close(ts[k].numpy(), js[k])
 
 
 @pytest.mark.parametrize("stride,act", [(1, "relu"), (2, "identity")])

@@ -133,17 +133,13 @@ def test_fused_and_unfused_agree_within_the_port(monkeypatch):
 
 
 def test_train_mode_forward_matches_jax(monkeypatch):
-    """Batch-statistics BN (no dropout in this graph) on the unfused
-    graph; the fused graph's train mode waits for the training slice."""
-    jnet, tnet = _pair_of_nets(monkeypatch, False)
+    """Batch-statistics BN (no dropout in this graph), on the unfused graph
+    and on the fused one (its pairs through fused_conv1x1_bn)."""
     x = _data()
-    want = jnet.output(x, train=True).numpy()
-    _close(tnet.output(x, train=True).numpy(), want, rel=1e-4)
-    _, fused = _pair_of_nets(monkeypatch, True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        fused.output(x, train=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        fused.fit(x, np.zeros((16, 3), np.float32))
+    for fuse in (False, True):
+        jnet, tnet = _pair_of_nets(monkeypatch, fuse)
+        want = jnet.output(x, train=True).numpy()
+        _close(tnet.output(x, train=True).numpy(), want, rel=1e-4)
 
 
 def test_marking_picks_exactly_the_fusable_pairs(monkeypatch):
@@ -294,7 +290,7 @@ def test_structural_errors_match_the_jax_package():
             g.setOutputs(edges[0][0])
             got.append(_error(g.build))
         assert got[0] == got[1] and got[1][0] is ValueError
-    # a loss the training slice ports: typed, and named
+    # a loss the losses slice ports: typed, and named
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         tl.OutputLayer(lossFunction="mse", nOut=2).apply_defaults({})
 

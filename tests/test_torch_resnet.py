@@ -104,3 +104,45 @@ def test_init_pretrained_keeps_its_no_egress_error(monkeypatch):
     with pytest.raises(RuntimeError, match="no network egress"):
         ResNet50(**SHAPE).initPretrained()
     assert not ResNet50(**SHAPE).pretrainedAvailable()
+
+
+def test_one_training_step_matches_jax_value_and_grad(nets):
+    """The fused ResNet-50 at batch 8: the training loss (mcxent plus the
+    zoo's L2), the new BN statistics and every leaf's gradient against
+    `jax.value_and_grad` of the JAX net's `_loss` (its 36 pairs through
+    the interpret-mode Pallas training kernels)."""
+    jnet, tnet, _, _, _ = nets
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((8, 32, 32, 3)).astype(np.float32)
+    y = np.eye(4, dtype=np.float32)[rng.integers(0, 4, 8)]
+    vg = jax.jit(jax.value_and_grad(
+        lambda p: jnet._loss(p, jnet._state, {"input": jnp.asarray(x)},
+                             [jnp.asarray(y)], None, None, None),
+        has_aux=True))
+    (jloss, jstate), jgrads = vg(jnet._params)
+    loss, grads, state = tnet._value_and_grad(
+        {"input": torch.from_numpy(x)}, [torch.from_numpy(y)])
+    _close(loss.numpy(), np.asarray(jloss), "loss")
+    for name in jstate:
+        for k in jstate[name]:
+            _close(state[name][k].numpy(), np.asarray(jstate[name][k]),
+                   f"state {name}/{k}")
+    assert set(grads) == set(jgrads)
+    for k in ("W", "b"):       # the head: no relu or BN between it and the loss
+        want = np.asarray(jgrads["fc"][k])
+        err = float(np.abs(grads["fc"][k].numpy() - want).max())
+        assert err <= 1e-3 * float(np.abs(want).max()), ("fc", k, err)
+    # Every other leaf's gradient passes through res5, whose BNs see 8 rows
+    # at this size: a relu input within f32 noise of 0 there (one at
+    # 1.3e-5 of a largest 9.5 in res5_2_add on a like fixture) takes a
+    # different mask in either package, and the flipped element's gradient
+    # reaches every leaf below it. So no two f32 implementations agree
+    # element by element (the port's f32 is as far from its own f64), and
+    # each leaf is held in L2: on this fixture the port and JAX differ by
+    # 3.4 % (median) and 4.7 % (worst leaf); the bound is 10 %.
+    for name in jgrads:
+        for k in jgrads[name]:
+            want = np.asarray(jgrads[name][k], np.float64)
+            got = grads[name][k].numpy().astype(np.float64)
+            rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+            assert rel <= 0.1, (name, k, rel)
