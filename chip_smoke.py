@@ -16,7 +16,10 @@ Phases, in order; any failure exits non-zero and prints no result:
             yardstick only; the port never calls it) and the least time
             the card could take for the same work. The backward pair is
             also re-run and must agree bit for bit; the int8 epilogue's
-            int32 sums must be exact.
+            int32 sums must be exact. bn_conv_grads also runs the 15
+            shapes of a ResNet-50 training step's 36 conv1x1+BN pairs
+            (`step36`): kernel and library ms summed over the pairs
+            beside the step's bound.
 4. encoder: `bert_classify` at `bert_base()` width through the kernels,
             against `attn_impl="dense"` on the card.
 5. serving: `GenerationServer(BertDecoder(bert_base(), params))` answers
@@ -65,6 +68,7 @@ nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -111,6 +115,9 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12,      # f32 outside the tensor cores
               torch.bfloat16: 989e12,    # bf16 tensor cores
               torch.int8: 1979e12}       # int8 tensor cores (TOP/s)
+#: TF32 tensor cores: bn_conv_grads takes f32 through them as 3×TF32, three
+#: TF32 products for each f32 product
+PEAK_TF32 = 495e12
 #: kernel vs plain version: f32 sums run in another order; bf16 rounds
 #: its output to 8 mantissa bits. Gradients, the epilogue GEMM and the
 #: bottleneck block are held to the same atol scaled by
@@ -195,11 +202,12 @@ def time_ms(fn, iters=20):
     return start.elapsed_time(end) / iters
 
 
-def bound(flops, nbytes, dtype):
+def bound(flops, nbytes, dtype, peak=None):
     """The least time (ms) the card could take: the larger of the bytes
-    over the memory rate and the operations over the dtype's peak."""
+    over the memory rate and the operations over the dtype's peak (or
+    `peak`, for a kernel whose route runs at another rate)."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flops / (peak or PEAK_FLOPS[dtype]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -569,7 +577,7 @@ def _worst(got, want, atol):
 
 
 def _kernel_row(name, label, shape, dtype, kernel, plain, library, work,
-                iters=20):
+                iters=20, peak=None):
     """Run a kernel and its plain version on the same inputs: the largest
     error against the tolerance, a re-run for bit identity, and the times
     of the kernel, the plain version and the library yardstick beside the
@@ -578,7 +586,7 @@ def _kernel_row(name, label, shape, dtype, kernel, plain, library, work,
     torch.cuda.synchronize()
     err, atol = _worst(got, want, ATOL[dtype])
     identical = all(torch.equal(a, b) for a, b in zip(got, again))
-    bms, by = bound(*work, dtype)
+    bms, by = bound(*work, dtype, peak)
     return dict(name=name, case=label, shape=list(shape),
                 dtype=DTYPE_NAMES[dtype], max_abs_err=err, atol=atol,
                 bit_identical=identical, ms=time_ms(kernel, iters),
@@ -626,7 +634,16 @@ def _grad_stats_case(label, m, k, n, dtype, gen):
         (4.0 * m * n, 2 * m * n * y.element_size() + 16 * n))
 
 
-def _conv_grads_case(label, m, k, n, dtype, gen):
+def _conv_grads_work(m, k, n, esz):
+    """(operations, bytes, peak) of bn_conv_grads on its route: f32 as
+    3×TF32 (three TF32 products of 4·M·K·N each) on the TF32 tensor cores,
+    bf16 on the bf16 ones; x, y, dz, w read once, dX and dW written once."""
+    flops = 4.0 * m * k * n * (3 if esz == 4 else 1) + 5.0 * m * n
+    nbytes = (2 * m * k + 2 * m * n + k * n) * esz + 4 * k * n + 16 * n
+    return flops, nbytes, (PEAK_TF32 if esz == 4 else None)
+
+
+def _conv_grads_case(label, m, k, n, dtype, gen, iters=20):
     """bn_conv_grads (row 8); the yardstick is the dy pass in PyTorch and
     cuBLAS's two products."""
     x = _randn(gen, dtype, m, k)
@@ -642,13 +659,62 @@ def _conv_grads_case(label, m, k, n, dtype, gen):
         dy = _bn_dy(y, dz, k1, k2, c, mu, dtype).to(dtype)
         return dy @ w.T, x.T @ dy
 
-    esz = x.element_size()
+    *work, peak = _conv_grads_work(m, k, n, x.element_size())
     return _kernel_row(
         "bn_conv_grads", label, (m, k, n), dtype,
         lambda: bn_conv_grads(*args),
-        lambda: _bn_conv_grads_reference(*args), library,
-        (4.0 * m * k * n + 5.0 * m * n,
-         (2 * m * k + 2 * m * n + k * n) * esz + 4 * k * n + 16 * n))
+        lambda: _bn_conv_grads_reference(*args), library, work, iters, peak)
+
+
+#: the 36 conv1x1+BN pairs of one ResNet-50 training step at B=32, 224×224:
+#: (M, K, N) -> pairs of that shape (M = 32·H·W; res2 56², res3 28², res4
+#: 14², res5 7²)
+STEP36 = {(100352, 64, 256): 4, (100352, 256, 64): 2, (100352, 64, 64): 1,
+          (25088, 128, 512): 4, (25088, 512, 128): 3, (25088, 256, 128): 1,
+          (25088, 256, 512): 1,
+          (6272, 256, 1024): 6, (6272, 1024, 256): 5, (6272, 512, 256): 1,
+          (6272, 512, 1024): 1,
+          (1568, 512, 2048): 3, (1568, 2048, 512): 2, (1568, 1024, 512): 1,
+          (1568, 1024, 2048): 1}
+
+
+def step36_cases():
+    """bn_conv_grads at each of the step's 15 shapes, f32, each checked
+    against its plain version (10 timed calls each)."""
+    case = functools.partial(_conv_grads_case, iters=10)
+    return [(case, f"step36 {m}x{k}x{n}", m, k, n, torch.float32)
+            for (m, k, n) in STEP36]
+
+
+def step36_summary(rows):
+    """The step's bn_conv_grads: kernel and library ms summed over the 36
+    pairs (each shape's time × its count), beside the step's bound: the
+    larger of its bytes over the memory rate and its 3×TF32 operations over
+    the TF32 rate, each summed over the pairs."""
+    got = {tuple(r["shape"]): r for r in rows
+           if r["name"] == "bn_conv_grads" and r["case"].startswith("step36")}
+    flops = nbytes = 0.0
+    for (m, k, n), count in STEP36.items():
+        f, b, _ = _conv_grads_work(m, k, n, 4)
+        flops, nbytes = flops + count * f, nbytes + count * b
+    out = {"pairs": sum(STEP36.values()), "shapes": len(got),
+           "kernel_ms": sum(c * got[s]["ms"] for s, c in STEP36.items()),
+           "library_ms": sum(c * got[s]["library_ms"]
+                             for s, c in STEP36.items()),
+           "plain_ms": sum(c * got[s]["plain_ms"] for s, c in STEP36.items()),
+           "bound_ms": max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_TF32) * 1e3,
+           "bound_by": ("bytes" if nbytes / PEAK_BYTES_PER_S
+                        >= flops / PEAK_TF32 else "operations"),
+           "worst_err_over_atol": max(got[s]["max_abs_err"] / got[s]["atol"]
+                                      for s in STEP36),
+           "bit_identical": all(got[s]["bit_identical"] for s in STEP36)}
+    log(f"[kernels] bn_conv_grads step36 ({out['pairs']} pairs, "
+        f"{out['shapes']} shapes, f32): kernel_ms={out['kernel_ms']:.4f} "
+        f"library_ms={out['library_ms']:.4f} plain_ms={out['plain_ms']:.4f} "
+        f"bound_ms={out['bound_ms']:.4f} ({out['bound_by']}) "
+        f"worst err/atol={out['worst_err_over_atol']:.3f} "
+        f"bit_identical={out['bit_identical']}")
+    return out
 
 
 def _layernorm_case(label, rows, d, dtype, gen):
@@ -752,6 +818,7 @@ def phase_kernels():
             cases.append((_bottleneck_case, label, *shape, dtype))
         cases += training_kernel_cases(dtype)
     cases.append((_int8_case, "res4_a B=32", *EPILOGUE_SHAPES["res4_a B=32"]))
+    cases += step36_cases()
     return run_kernel_cases(cases, gen), _counts()
 
 
@@ -1383,8 +1450,8 @@ KERNEL_GROUPS = (("flash_fwd_kernel", "flash_fwd"),
                  ("bottleneck_block_kernel", "bottleneck_block"),
                  ("matmul_stats_kernel", "matmul_stats"),
                  ("bn_grad_stats_kernel", "bn_grad_stats"),
-                 ("bn_dx_kernel", "bn_conv_grads"),
-                 ("bn_dw_kernel", "bn_conv_grads"),
+                 ("bn_conv_grads_kernel", "bn_conv_grads"),
+                 ("bn_conv_grads_sum_kernel", "BN partial sums (rows 5/7/8)"),
                  ("sum_partials_kernel", "BN partial sums (rows 5/7/8)"),
                  ("layernorm_kernel", "fused_layernorm"),
                  ("nchwtonhwc", "layout (NHWC<->NCHW)"),
@@ -1578,18 +1645,19 @@ def main(argv=None):
     card = timed("card", phase_card)
     build_s = timed("build", phase_build)
     rows, kernel_launches = timed("kernels", phase_kernels)
+    step36 = step36_summary(rows)
     OUT_DIR.mkdir(exist_ok=True)
     if args.only == "kernels":
-        (OUT_DIR / "smoke_kernels.json").write_text(json.dumps(rows,
-                                                               indent=1))
+        (OUT_DIR / "smoke_kernels.json").write_text(json.dumps(
+            {"card": card, "kernels": rows, "step36": step36}, indent=1))
         return 0
     if args.only == "resnet":
         resnet, _, _ = timed("resnet", phase_resnet)
         resnet_train, _, _ = timed("resnet_train", phase_resnet_train)
         (OUT_DIR / "smoke_resnet.json").write_text(json.dumps(
-            {"card": card, "kernels": rows, "resnet": resnet,
-             "resnet_train": resnet_train, "phase_seconds": seconds},
-            indent=1))
+            {"card": card, "kernels": rows, "step36": step36,
+             "resnet": resnet, "resnet_train": resnet_train,
+             "phase_seconds": seconds}, indent=1))
         return 0
     cfg = bert_base()
     params = timed("params", init_bert_params, cfg, 0)
@@ -1632,7 +1700,7 @@ def main(argv=None):
     line = kernel_line(rows, launches, launches_from)
     (OUT_DIR / "smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "kernels": rows,
-         "encoder": encoder, "serving": serving, "train": train,
+         "step36": step36, "encoder": encoder, "serving": serving, "train": train,
          "resnet": resnet, "resnet_train": resnet_train, "profile": prof,
          "line": line,
          "phase_seconds": seconds, "seconds": time.perf_counter() - t0},

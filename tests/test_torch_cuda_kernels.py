@@ -249,15 +249,23 @@ def test_cuda_fused_resnet_launches_the_epilogue_kernel(card, monkeypatch):
                                         (torch.bfloat16, 2e-2)])
 def test_cuda_bn_training_kernels_match_plain(card, dtype, atol):
     """matmul_stats, bn_grad_stats and bn_conv_grads at ragged M, K and N
-    (tails of every tile and split), one launch counted per call, and a
-    re-run with the same bits (per-block partials, no atomics)."""
+    (tails of every tile and split; rows of 9 and 130 values, and of 12
+    in bf16, take no 16-byte copies), one launch counted per call, and a
+    re-run with
+    the same bits (per-block partials, no atomics). bn_conv_grads also at
+    K = 64 (the dW tile oriented by K), at a small M whose dX splits N
+    (200 × 512 × 2048), and at a shape with more than two waves of dX
+    tiles (each block walks several items)."""
     gen = torch.Generator(device=card).manual_seed(5)
 
     def rnd(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device=card)
                 * scale).to(dtype)
 
-    for m, k, n in ((70, 12, 9), (300, 64, 32), (1000, 200, 130)):
+    shapes = [(70, 12, 9, True), (300, 64, 32, True), (1000, 200, 130, True),
+              (4096, 64, 256, False), (200, 512, 2048, False),
+              (40000, 256, 256, False)]
+    for m, k, n, every_kernel in shapes:
         x, y, dz = rnd(m, k), rnd(m, n), rnd(m, n)
         w = rnd(k, n, scale=k ** -0.5)
         mu = torch.randn(n, generator=gen, device=card) * 0.1
@@ -268,7 +276,7 @@ def test_cuda_bn_training_kernels_match_plain(card, dtype, atol):
                   (y, dz, mu, r)),
                  (tpc.bn_conv_grads, tpc._bn_conv_grads_reference,
                   (x, y, dz, w, k1, k2, c, mu)))
-        for kernel, plain, args in calls:
+        for kernel, plain, args in calls[0 if every_kernel else 2:]:
             before = kernel.launches
             got, again = kernel(*args), kernel(*args)
             assert kernel.launches == before + 2
