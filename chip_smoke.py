@@ -19,7 +19,9 @@ Phases, in order; any failure exits non-zero and prints no result:
             int32 sums must be exact. bn_conv_grads also runs the 15
             shapes of a ResNet-50 training step's 36 conv1x1+BN pairs
             (`step36`): kernel and library ms summed over the pairs
-            beside the step's bound.
+            beside the step's bound. `bert_step12` sums the BERT
+            fine-tune step's 12 layers of flash_fwd, flash_bwd_dq and
+            flash_bwd_dkv against 12 SDPA forwards and backwards.
 4. encoder: `bert_classify` at `bert_base()` width through the kernels,
             against `attn_impl="dense"` on the card.
 5. serving: `GenerationServer(BertDecoder(bert_base(), params))` answers
@@ -115,9 +117,12 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12,      # f32 outside the tensor cores
               torch.bfloat16: 989e12,    # bf16 tensor cores
               torch.int8: 1979e12}       # int8 tensor cores (TOP/s)
-#: TF32 tensor cores: bn_conv_grads takes f32 through them as 3×TF32, three
-#: TF32 products for each f32 product
+#: TF32 tensor cores: bn_conv_grads, flash_fwd and flash_bwd_dq take f32
+#: through them as 3×TF32, three TF32 products for each f32 product
 PEAK_TF32 = 495e12
+#: the flash kernels whose f32 route is 3×TF32 on the tensor cores
+#: (flash_bwd_dkv and flash_decode run f32 FMA)
+TF32_FLASH = ("flash_fwd", "flash_bwd_dq")
 #: kernel vs plain version: f32 sums run in another order; bf16 rounds
 #: its output to 8 mantissa bits. Gradients, the epilogue GEMM and the
 #: bottleneck block are held to the same atol scaled by
@@ -280,6 +285,17 @@ def _work(name, b, h, tq, tk, d, causal, mask, esz):
     return flops, nbytes
 
 
+def _flash_bound(name, b, h, tq, tk, d, causal, mask, dtype):
+    """The least time of a flash kernel on its route: f32 through 3×TF32
+    (three TF32 operations per f32 operation at the TF32 rate) where the
+    kernel takes that route, else the dtype's own rate."""
+    flops, nbytes = _work(name, b, h, tq, tk, d, causal, mask,
+                          torch.finfo(dtype).bits // 8)
+    if dtype == torch.float32 and name in TF32_FLASH:
+        return bound(3 * flops, nbytes, dtype, PEAK_TF32)
+    return bound(flops, nbytes, dtype)
+
+
 def _fwd_case(label, b, h, tq, tk, d, causal, lengths, dtype, gen):
     dev = torch.device(DEV)
     q = _randn(gen, dtype, b, h, tq, d)
@@ -287,12 +303,13 @@ def _fwd_case(label, b, h, tq, tk, d, causal, lengths, dtype, gen):
     v = _randn(gen, dtype, b, h, tk, d)
     mask = None if lengths is None else _ragged_mask(lengths, tk, dev)
     out, lse = flash_fwd(q, k, v, mask, causal)
+    again = flash_fwd(q, k, v, mask, causal)
     ref, ref_lse = _flash_forward_reference(q, k, v, mask, causal)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     lse_err = (lse - ref_lse).abs().max().item()
-    bms, by = bound(*_work("flash_fwd", b, h, tq, tk, d, causal, mask,
-                           q.element_size()), dtype)
+    identical = torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    bms, by = _flash_bound("flash_fwd", b, h, tq, tk, d, causal, mask, dtype)
     ms = time_ms(lambda: flash_fwd(q, k, v, mask, causal))
     plain = time_ms(lambda: _flash_forward_reference(q, k, v, mask,
                                                         causal))
@@ -302,7 +319,8 @@ def _fwd_case(label, b, h, tq, tk, d, causal, lengths, dtype, gen):
     return dict(name="flash_fwd", case=label, shape=[b, h, tq, tk, d],
                 dtype=DTYPE_NAMES[dtype], causal=causal,
                 max_abs_err=max(err, lse_err), out_err=err,
-                lse_err=lse_err, atol=ATOL[dtype], ms=ms, plain_ms=plain,
+                lse_err=lse_err, atol=ATOL[dtype], bit_identical=identical,
+                ms=ms, plain_ms=plain,
                 library_ms=lib, bound_ms=bms, bound_by=by)
 
 
@@ -388,8 +406,7 @@ def _bwd_cases(label, b, h, tq, tk, d, causal, lengths, dtype, gen):
         identical = all(torch.equal(a, c) for a, c in zip(got, again))
         padded = [i for i, n in enumerate(lengths or []) if n == 0]
         leak = any(a[i].abs().max().item() != 0 for a in got for i in padded)
-        bms, by = bound(*_work(name, b, h, tq, tk, d, causal, mask,
-                               q.element_size()), dtype)
+        bms, by = _flash_bound(name, b, h, tq, tk, d, causal, mask, dtype)
         rows.append(dict(
             name=name, case=label, shape=[b, h, tq, tk, d],
             dtype=DTYPE_NAMES[dtype], causal=causal, max_abs_err=err,
@@ -717,6 +734,37 @@ def step36_summary(rows):
     return out
 
 
+#: the fine-tune step's attention: each of its 12 layers launches flash_fwd,
+#: flash_bwd_dq and flash_bwd_dkv once at this kernel-phase case
+STEP12_CASE = "train B=32 T=128"
+
+
+def bert_step12_summary(rows):
+    """The fine-tune step's three attention kernels per dtype: 12 × (fwd +
+    dQ + dK/dV) kernel ms at the step's shape, against 12 × (SDPA forward +
+    SDPA backward), beside 12 × the three bounds."""
+    out = {}
+    for dt in ("f32", "bf16"):
+        got = {r["name"]: r for r in rows
+               if r["case"] == STEP12_CASE and r["dtype"] == dt}
+        names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+        s = {"layers": 12,
+             "kernel_ms": 12 * sum(got[n]["ms"] for n in names),
+             "library_ms": 12 * (got["flash_fwd"]["library_ms"]
+                                 + got["flash_bwd_dq"]["library_ms"]),
+             "bound_ms": 12 * sum(got[n]["bound_ms"] for n in names),
+             "by_kernel_ms": {n: 12 * got[n]["ms"] for n in names}}
+        out[dt] = s
+        log(f"[kernels] bert_step12 ({dt}, 12 layers at {STEP12_CASE}): "
+            f"kernel_ms={s['kernel_ms']:.4f} (fwd "
+            f"{s['by_kernel_ms']['flash_fwd']:.4f} + dQ "
+            f"{s['by_kernel_ms']['flash_bwd_dq']:.4f} + dK/dV "
+            f"{s['by_kernel_ms']['flash_bwd_dkv']:.4f}) "
+            f"library_ms={s['library_ms']:.4f} (SDPA forward + backward) "
+            f"bound_ms={s['bound_ms']:.5f}")
+    return out
+
+
 def _layernorm_case(label, rows, d, dtype, gen):
     """fused_layernorm's kernel (row 4); the yardstick is F.layer_norm."""
     x = _randn(gen, dtype, rows, d) * 2 + 0.5
@@ -798,6 +846,8 @@ def phase_kernels():
                           None, dtype))
         cases.append((_fwd_case, "cross Tq!=Tk", 2, 12, 100, 300, 64, False,
                       [300, 171], dtype))
+        cases.append((_fwd_case, "train B=32 T=128", 32, 12, 128, 128, 64,
+                      False, train_lens, dtype))
         for c in (128, 512):
             lens = [c, c // 2, 1, 0, 37, c - 1, 64, 100]  # one empty row
             cases.append((_decode_case, f"decode C={c}", 8, 12, c, 64, lens,
@@ -1462,7 +1512,7 @@ KERNEL_GROUPS = (("flash_fwd_kernel", "flash_fwd"),
                  ("pointwise_mult_and_sum", "conv (cuDNN)"),
                  ("pool", "pooling"),
                  ("gemm", "matmul"), ("gemv", "matmul"),
-                 ("cutlass", "matmul"), ("multi_tensor", "optimizer (Adam)"),
+                 ("cutlass", "matmul"), ("multi_tensor", "optimizer"),
                  ("sort", "sort (top-k)"), ("reduce", "reductions"),
                  ("index", "gather/scatter"), ("elementwise", "elementwise"))
 
@@ -1646,16 +1696,19 @@ def main(argv=None):
     build_s = timed("build", phase_build)
     rows, kernel_launches = timed("kernels", phase_kernels)
     step36 = step36_summary(rows)
+    step12 = bert_step12_summary(rows)
     OUT_DIR.mkdir(exist_ok=True)
     if args.only == "kernels":
         (OUT_DIR / "smoke_kernels.json").write_text(json.dumps(
-            {"card": card, "kernels": rows, "step36": step36}, indent=1))
+            {"card": card, "kernels": rows, "step36": step36,
+             "bert_step12": step12}, indent=1))
         return 0
     if args.only == "resnet":
         resnet, _, _ = timed("resnet", phase_resnet)
         resnet_train, _, _ = timed("resnet_train", phase_resnet_train)
         (OUT_DIR / "smoke_resnet.json").write_text(json.dumps(
             {"card": card, "kernels": rows, "step36": step36,
+             "bert_step12": step12,
              "resnet": resnet, "resnet_train": resnet_train,
              "phase_seconds": seconds}, indent=1))
         return 0
@@ -1700,7 +1753,8 @@ def main(argv=None):
     line = kernel_line(rows, launches, launches_from)
     (OUT_DIR / "smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "kernels": rows,
-         "step36": step36, "encoder": encoder, "serving": serving, "train": train,
+         "step36": step36, "bert_step12": step12, "encoder": encoder,
+         "serving": serving, "train": train,
          "resnet": resnet, "resnet_train": resnet_train, "profile": prof,
          "line": line,
          "phase_seconds": seconds, "seconds": time.perf_counter() - t0},

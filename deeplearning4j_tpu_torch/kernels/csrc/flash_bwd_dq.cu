@@ -1,4 +1,4 @@
-// Flash-attention backward, dQ on Hopper:
+// Flash-attention backward, dQ on Hopper's tensor cores:
 //   dQ = scale · Σ_k dS·K,  dS = P∘(dO·Vᵀ − Δ),  P = exp(S − L)
 // over (B·H, T, D), recomputing P from the forward's saved logsumexp L, with
 // Δ = rowsum(dO∘O) computed beforehand by the wrapper. dQ is written once,
@@ -9,115 +9,152 @@
 // :355).
 //
 // What bounds it on the H100: per valid (query, key) pair it does 6·D
-// flops (S, dO·Vᵀ and dS·K) and it reads Q, dO, K and V once each, so at
-// the fine-tune shape (B=32, H=12, T=128, D=64) it is bound by operations
-// (~2 GFLOP against ~25 MB). This first kernel does its math in f32 FMA
-// (67 TFLOP/s peak) out of shared memory, not on the tensor cores; mma/wgmma
-// are later work.
+// flops (S, dO·Vᵀ and dS·K) and it reads Q, dO, K and V once each. f32 runs
+// as 3×TF32, 18·D TF32 flops a pair at 495 TFLOP/s: bytes bound it at the
+// fine-tune shape (B=32, H=12, T=128, D=64 with its padding: 0.0148 ms)
+// and those operations at the encode shape (8×12×512²: 0.0234 ms). bf16
+// (989 TFLOP/s) is bound by bytes at both (chip_smoke.py's bounds).
 //
-// Design: the TPU kernel walks K/V tiles along a sequential grid axis and
-// carries dQ in VMEM scratch. Blocks on Hopper run in no order, so one block
-// owns one (b·h, 64-row query tile) and loops over the K/V tiles itself:
-// Q (pre-scaled) and dO are staged once, each K/V tile is staged into
-// shared memory, every thread recomputes a 4 × 4 patch of P and dS in
-// registers, dS goes through shared memory, and each thread accumulates
-// its 4 × D/16 patch of dQ in registers. No atomics: each dQ row is owned by
-// one block, so two runs give bit-identical results. Causal key tiles
-// wholly above the query tile's diagonal are skipped, as the TPU kernel
-// skips them (:262-265).
-#include "flash_bwd.cuh"
+// Design: the tile of flash_fwd.cu (attn_tile.cuh), against what held the
+// first version (f32 FMA out of shared memory, dS through shared memory,
+// scalar staging) back:
+// - The three products on the tensor cores: S = Q·Kᵀ and dP = dO·Vᵀ with K
+//   and V row-major as B operands, then dQ += dS·K with dS as the A
+//   operand straight from dP's accumulator fragments (bf16: packed pairs;
+//   f32: the contraction relabelled as in the forward's P·V) and K read
+//   transposed (ldmatrix.trans in bf16). P and dS never leave registers.
+//   f32 runs as 3×TF32; each key tile's dS·K is summed apart and added to
+//   dQ in f32.
+// - Registers: Q (scaled) stays split into TF32 hi and lo for the walk;
+//   dO stays as raw f32 fragments and is split at each use (both split
+//   would take 32 more registers). At D = 64 the f32 thread fits in 255
+//   registers with no spill at 4 warps a block, the fine-tune and encode
+//   shapes' choice; 1 and 2 warps spill 136 and 8 bytes (-Xptxas -v).
+//   lse and Δ of the thread's two rows stay in registers.
+// - K/V through the forward's 3-stage cp.async ring, with its padded
+//   strides and its choice of 4, 2 or 1 warps per block.
+// - Tiles the key mask empties are skipped: a warp skips a tile none of
+//   whose keys is valid for its rows unless one of its rows has lse ≤
+//   −1e29 (a degenerate row, all of whose visible keys are masked, for
+//   which P = 1 on masked keys); for every other row P = exp(−1e30 − L)
+//   is exactly 0 on those keys, the +1e30 sentinel of invalid rows
+//   included, so the skip leaves dQ's bits as they were.
+// Each dQ row has one owner, with no atomics and no split of the key walk,
+// so two runs give bit-identical results. Causal key tiles wholly above
+// the query tile's diagonal are skipped, as the TPU kernel skips them
+// (:262-265).
+#include "attn_tile.cuh"
 
 namespace dl4j {
 namespace {
 
-using namespace bwd;
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int D, int NW>
+__global__ void __launch_bounds__(32 * NW)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
                     const uint8_t* __restrict__ kv_mask, T* __restrict__ dq,
                     int H, int Tq, int Tk, int causal, float scale) {
-  static_assert(D % kSide == 0, "head dim must be a multiple of 16");
-  constexpr int S = D + 1;
-  constexpr int kCols = D / kSide;
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* dos = qs + kTile * S;
-  float* ks = dos + kTile * S;
-  float* vs = ks + kTile * S;
-  float* dss = vs + kTile * S;
-  float* lse_s = dss + kTile * kPStride;
-  float* delta_s = lse_s + kTile;
-  uint8_t* valid = reinterpret_cast<uint8_t*>(delta_s + kTile);
+  using C = attn::Tile<T, D>;
+  constexpr int BK = C::BK, NJ = BK / 8, ND = D / 8;
+  constexpr bool kF32 = sizeof(T) == 4;
+  extern __shared__ __align__(16) unsigned char smem[];
 
   const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int q0 = blockIdx.x * kTile;
-  const int nq = min(kTile, Tq - q0);
-  const int ty = threadIdx.x / kSide;
-  const int tx = threadIdx.x % kSide;
+  const int q0 = blockIdx.x * 16 * NW;
+  const int r0 = q0 + threadIdx.x / 32 * 16;  // the warp's first row
+  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+  const int rows[2] = {r0 + g, r0 + g + 8};
+  const bool warp_live = r0 < Tq;
+  const T* kb = k + (size_t)bh * Tk * D;
+  const T* vb = v + (size_t)bh * Tk * D;
+  const uint8_t* mrow =
+      kv_mask == nullptr ? nullptr : kv_mask + (size_t)(bh / H) * Tk;
+  const size_t qoff = (size_t)bh * Tq * D;
 
-  const size_t qoff = ((size_t)bh * Tq + q0) * D;
-  stage<T, D>(qs, q + qoff, nq, scale);
-  stage<T, D>(dos, dout + qoff, nq, 1.f);
-  stage_rows(lse_s, delta_s, lse + (size_t)bh * Tq + q0,
-             delta + (size_t)bh * Tq + q0, nq);
-
-  float acc[kPatch][kCols];
+  typename attn::Kept<T, D>::type qa;  // Q·scale in f32; bf16 scales S
+  qa.load(q + qoff, r0, Tq, scale);
+  attn::Rows<T, D> da;  // dO
+  da.load(dout + qoff, r0, Tq, 1.f);
+  float L[2], dl[2];
 #pragma unroll
-  for (int i = 0; i < kPatch; ++i) {
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
+  for (int h = 0; h < 2; ++h) {
+    const bool in = rows[h] < Tq;
+    L[h] = in ? lse[(size_t)bh * Tq + rows[h]] : 0.f;
+    dl[h] = in ? delta[(size_t)bh * Tq + rows[h]] : 0.f;
   }
+  const bool degenerate =
+      __any_sync(attn::kFull, L[0] <= -1e29f || L[1] <= -1e29f);
+  float acc[ND][4] = {};
+  attn::Keys<BK> keys;
+  keys.load(mrow, Tk, 0);
 
-  const int k_end = causal ? min(Tk, q0 + kTile) : Tk;
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    const int nk = min(kTile, Tk - k0);
-    __syncthreads();  // the previous K/V and dS tiles are fully consumed
-    const size_t koff = ((size_t)bh * Tk + k0) * D;
-    stage<T, D>(ks, k + koff, nk, 1.f);
-    stage<T, D>(vs, v + koff, nk, 1.f);
-    stage_keys(valid, kv_mask, b, Tk, k0, nk);
-    __syncthreads();
+  const int k_end = causal ? min(Tk, q0 + 16 * NW) : Tk;
+  struct Item {
+    int slices;
+  };
+  auto stage = [&](int slot) {
+    return reinterpret_cast<T*>(smem + slot * C::kStage);
+  };
+  mma::walk(
+      1, [&](int) { return Item{(k_end + BK - 1) / BK}; },
+      [&](int slot, const Item&, int i) {
+        attn::stage_kv<T, D, 32 * NW>(stage(slot), kb, vb, i * BK, Tk);
+      },
+      [&](int slot, const Item&, int i) {
+        if (!warp_live) return;
+        const int k0 = i * BK;
+        const uint64_t bits = keys.bits();
+        keys.load(mrow, Tk, k0 + BK);
+        if ((bits == 0 || (causal && k0 > r0 + 15)) && !degenerate) return;
 
-    float p[kPatch][kPatch];
-    float ds[kPatch][kPatch];
-    probs<D>(qs, dos, ks, vs, lse_s, delta_s, valid, nq, nk, q0, k0, causal,
-             p, ds);
+        const T* ks = stage(slot);
+        const T* vs = ks + BK * C::S;
+        float s[NJ][4], dp[NJ][4];
+        attn::scores<D>(qa, ks, s);
+        if constexpr (!kF32) {
 #pragma unroll
-    for (int i = 0; i < kPatch; ++i) {
+          for (int j = 0; j < NJ; ++j) {
 #pragma unroll
-      for (int j = 0; j < kPatch; ++j)
-        dss[(ty + kSide * i) * kPStride + tx + kSide * j] = ds[i][j];
-    }
-    __syncthreads();
+            for (int e = 0; e < 4; ++e) s[j][e] *= scale;
+          }
+        }
+        attn::mask_scores(s, bits, k0, Tk, causal, rows);
+        attn::scores<D>(da, vs, dp);
+        // P = exp(S − L) (0 for absent keys, whose score is −inf), then
+        // dS = P∘(dP − Δ) in place
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int h = e >> 1;
+            s[j][e] = expf(s[j][e] - L[h]) * (dp[j][e] - dl[h]);
+          }
+        }
+        if constexpr (kF32) {
+          float part[ND][4] = {};
+          attn::accumulate<D>(s, ks, part);
+#pragma unroll
+          for (int n = 0; n < ND; ++n) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
+          }
+        } else {
+          attn::accumulate<D>(s, ks, acc);
+        }
+      },
+      [&](const Item&) {});
 
-    // dQ patch += dS (rows) · K (columns); keys past nk have dS == 0
-#pragma unroll 4
-    for (int c = 0; c < kTile; ++c) {
-      float kr[kCols];
+  if (!warp_live) return;
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) kr[j] = ks[c * S + tx + kSide * j];
+  for (int h = 0; h < 2; ++h) {
+    if (rows[h] >= Tq) continue;
+    T* row = dq + qoff + (size_t)rows[h] * D + 2 * t;
 #pragma unroll
-      for (int i = 0; i < kPatch; ++i) {
-        const float a = dss[(ty + kSide * i) * kPStride + c];
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) acc[i][j] = fmaf(a, kr[j], acc[i][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kPatch; ++i) {
-    const int r = ty + kSide * i;
-    if (r >= nq) continue;
-    T* row = dq + qoff + (size_t)r * D;
-#pragma unroll
-    for (int j = 0; j < kCols; ++j)
-      row[tx + kSide * j] = from_f32<T>(scale * acc[i][j]);
+    for (int n = 0; n < ND; ++n)
+      attn::store2(row + 8 * n, scale * acc[n][2 * h],
+                   scale * acc[n][2 * h + 1]);
   }
 }
 
@@ -125,36 +162,47 @@ template <typename T, int D>
 cudaError_t launch_d(const void* q, const void* k, const void* v,
                      const void* dout, const float* lse, const float* delta,
                      const uint8_t* kv_mask, void* dq, int BH, int H, int Tq,
-                     int Tk, int causal, float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>(4, 1);
-  auto kernel = flash_bwd_dq_kernel<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Tq + kTile - 1) / kTile, BH);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      kv_mask, static_cast<T*>(dq), H, Tq, Tk, causal, scale);
-  return cudaGetLastError();
+                     int Tk, int causal, float scale, int device,
+                     cudaStream_t stream) {
+  const int nw = attn::warps_per_block(BH, Tq, device);
+  constexpr size_t smem = attn::smem_bytes<T, D>();
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* gt = static_cast<const T*>(dout);
+  T* dqt = static_cast<T*>(dq);
+  switch (nw) {
+    case 4:
+      return attn::launch(flash_bwd_dq_kernel<T, D, 4>, 4, BH, Tq, smem,
+                          stream, qt, kt, vt, gt, lse, delta, kv_mask, dqt, H,
+                          Tq, Tk, causal, scale);
+    case 2:
+      return attn::launch(flash_bwd_dq_kernel<T, D, 2>, 2, BH, Tq, smem,
+                          stream, qt, kt, vt, gt, lse, delta, kv_mask, dqt, H,
+                          Tq, Tk, causal, scale);
+    default:
+      return attn::launch(flash_bwd_dq_kernel<T, D, 1>, 1, BH, Tq, smem,
+                          stream, qt, kt, vt, gt, lse, delta, kv_mask, dqt, H,
+                          Tq, Tk, causal, scale);
+  }
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    const uint8_t* kv_mask, void* dq, int BH, int H, int Tq,
-                   int Tk, int D, int causal, float scale,
+                   int Tk, int D, int causal, float scale, int device,
                    cudaStream_t stream) {
   switch (D) {
     case 16:
       return launch_d<T, 16>(q, k, v, dout, lse, delta, kv_mask, dq, BH, H,
-                             Tq, Tk, causal, scale, stream);
+                             Tq, Tk, causal, scale, device, stream);
     case 32:
       return launch_d<T, 32>(q, k, v, dout, lse, delta, kv_mask, dq, BH, H,
-                             Tq, Tk, causal, scale, stream);
+                             Tq, Tk, causal, scale, device, stream);
     case 64:
       return launch_d<T, 64>(q, k, v, dout, lse, delta, kv_mask, dq, BH, H,
-                             Tq, Tk, causal, scale, stream);
+                             Tq, Tk, causal, scale, device, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -180,9 +228,9 @@ extern "C" int dl4j_flash_bwd_dq(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == dl4j::kFloat32)
     return dl4j::launch<float>(q, k, v, dout, l, dl, mask, dq, BH, H, Tq, Tk,
-                               D, causal, scale, s);
+                               D, causal, scale, device, s);
   if (dtype == dl4j::kBFloat16)
     return dl4j::launch<__nv_bfloat16>(q, k, v, dout, l, dl, mask, dq, BH, H,
-                                       Tq, Tk, D, causal, scale, s);
+                                       Tq, Tk, D, causal, scale, device, s);
   return cudaErrorInvalidValue;
 }

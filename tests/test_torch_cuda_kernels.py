@@ -53,6 +53,8 @@ def test_cuda_kernels_match_plain_versions(card, dtype, atol):
         ref, ref_lse = tfa._flash_forward_reference(q, k, v, km, causal)
         assert (out.float() - ref.float()).abs().max() <= atol
         assert (lse - ref_lse).abs().max() <= atol
+        again = tfa.flash_fwd(q, k, v, km, causal)
+        assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
     out = tfa.flash_decode(q[:, :, :1], k, v, mask)
     ref = tfa._decode_reference(q[:, :, :1], k, v, mask)
     assert (out.float() - ref.float()).abs().max() <= atol
@@ -79,6 +81,39 @@ def test_cuda_kernels_match_plain_versions(card, dtype, atol):
             assert torch.equal(a, c)          # no atomics: bit-identical
         if qm is not None:
             assert all(t[2].abs().max() == 0 for t in got)
+    # the tensor-core tile's other paths, for flash_fwd and flash_bwd_dq:
+    # head dims 16 and 32, ragged Tq and Tk, a prefill-shaped causal grid
+    # (1×12×128: one warp per block) and right padding that empties whole
+    # key tiles (Tk = 200, lengths 200, 70 and 0: the empty example walks
+    # every tile and comes out as the mean of V)
+    for (b, h, tq, tk, d), lens, causal in (
+            ((3, 4, 70, 70, 16), [70, 33, 0], False),
+            ((3, 4, 70, 45, 32), [45, 20, 1], False),
+            ((2, 3, 45, 45, 32), None, True),
+            ((1, 12, 128, 128, 64), None, True),
+            ((3, 2, 200, 200, 64), [200, 70, 0], False)):
+        q2, g2 = rnd(b, h, tq, d), rnd(b, h, tq, d)
+        k2, v2 = rnd(b, h, tk, d), rnd(b, h, tk, d)
+        km = None if lens is None else (
+            torch.arange(tk, device=card)[None]
+            < torch.tensor(lens, device=card)[:, None])
+        out, lse = tfa.flash_fwd(q2, k2, v2, km, causal)
+        ref, ref_lse = tfa._flash_forward_reference(q2, k2, v2, km, causal)
+        assert (out.float() - ref.float()).abs().max() <= atol
+        assert (lse - ref_lse).abs().max() <= atol
+        again = tfa.flash_fwd(q2, k2, v2, km, causal)
+        assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+        qm = km if tq == tk else None
+        o, lse = tfa._flash_forward(q2, k2, v2, qm, km, causal)
+        args = (q2, k2, v2, g2, lse, tfa._delta(g2, o), km, causal)
+        dq, dq_again = tfa.flash_bwd_dq(*args), tfa.flash_bwd_dq(*args)
+        want = tfa._dq_reference(*args)
+        scale = max(1.0, want.float().abs().max().item())
+        assert dq.dtype == dtype and dq.shape == want.shape
+        assert (dq.float() - want.float()).abs().max() <= atol * scale
+        assert torch.equal(dq, dq_again)
+        if qm is not None and 0 in lens:
+            assert dq[lens.index(0)].abs().max() == 0
 
 
 def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(card):

@@ -1,6 +1,7 @@
-"""The f32 route of csrc/bn_conv_grads.cu, emulated on the CPU.
+"""The f32 route of csrc/bn_conv_grads.cu, csrc/flash_fwd.cu and
+csrc/flash_bwd_dq.cu, emulated on the CPU.
 
-The kernel multiplies f32 operands on the tensor cores as 3×TF32: each
+The kernels multiply f32 operands on the tensor cores as 3×TF32: each
 operand x is split into hi (x rounded to TF32's 10 mantissa bits, to
 nearest with ties away from zero) and lo (the remainder x − hi, truncated
 to TF32), and a·b accumulates as a_lo·b_hi + a_hi·b_lo + a_hi·b_hi in f32.
@@ -9,6 +10,9 @@ it, and holds the emulated products against an f64 product at the step's
 longest contractions (N = 2,048 for dX, M = 100,352 for dW) within the
 kernel's f32 gate, 2e-5 × max(1, max |plain|). One TF32 pass (a_hi·b_hi
 alone) must miss the same gate: that is why the kernel takes three.
+The attention kernels' walk (key tiles of 32, online softmax, each tile's
+second product summed apart) is emulated the same way at 2×4×512×64: O,
+lse and dQ within the gate of f64 with three passes, outside it with one.
 """
 import numpy as np
 import pytest
@@ -75,3 +79,93 @@ def test_one_tf32_product_misses_the_f32_gate(case):
     a, b = _operands(*CONTRACTIONS[case], seed=3)
     got = split(a)[0] @ split(b)[0]
     assert _scaled_err(got, a.double() @ b.double()) > ATOL
+
+
+# -- attention: csrc/flash_fwd.cu and csrc/flash_bwd_dq.cu ---------------------
+#: (B, H, T, D) of the attention case, and the f32 kernels' key tile
+ATTN_SHAPE, ATTN_TILE = (2, 4, 512, 64), 32
+
+
+def _tf32_product(a, b, passes):
+    """a @ b as the kernels form it on the tensor cores: three TF32
+    products (lo·hi + hi·lo + hi·hi) or one (hi·hi), each summed in f32."""
+    (ah, al), (bh, bl) = split(a.contiguous()), split(b.contiguous())
+    if passes == 1:
+        return ah @ bh
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _attention_operands(seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(ATTN_SHAPE).astype(
+        np.float32)) for _ in range(4)]                  # q, k, v, dO
+
+
+def _attention_f64(q, k, v, g):
+    """O, lse and dQ of unmasked attention in f64."""
+    q, k, v, g = (x.double() for x in (q, k, v, g))
+    s = q @ k.transpose(-1, -2) / q.shape[-1] ** 0.5
+    lse = torch.logsumexp(s, -1)
+    p = torch.exp(s - lse[..., None])
+    o = p @ v
+    ds = p * (g @ v.transpose(-1, -2) - (g * o).sum(-1, keepdim=True))
+    return o, lse, ds @ k / q.shape[-1] ** 0.5
+
+
+def _forward_emulated(q, k, v, passes):
+    """The f32 forward kernel's walk: key tiles of ATTN_TILE, Q carrying
+    the scale, online softmax in f32, each tile's P·V summed apart and
+    added as acc·alpha + pv."""
+    qs = q * (1.0 / q.shape[-1] ** 0.5)
+    m = torch.full(q.shape[:-1] + (1,), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(q)
+    for k0 in range(0, k.shape[2], ATTN_TILE):
+        kt, vt = k[:, :, k0:k0 + ATTN_TILE], v[:, :, k0:k0 + ATTN_TILE]
+        s = _tf32_product(qs, kt.transpose(-1, -2), passes)
+        mx = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - mx)
+        p = torch.exp(s - mx)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + _tf32_product(p, vt, passes)
+        m = mx
+    return acc / l, (m + torch.log(l))[..., 0]
+
+
+def _dq_emulated(q, k, v, g, lse, delta, passes):
+    """The f32 dQ kernel's walk: S = Q·scale·Kᵀ, dP = dO·Vᵀ and each key
+    tile's dS·K summed apart and added to dQ in f32."""
+    scale = 1.0 / q.shape[-1] ** 0.5
+    qs = q * scale
+    dq = torch.zeros_like(q)
+    for k0 in range(0, k.shape[2], ATTN_TILE):
+        kt, vt = k[:, :, k0:k0 + ATTN_TILE], v[:, :, k0:k0 + ATTN_TILE]
+        p = torch.exp(_tf32_product(qs, kt.transpose(-1, -2), passes)
+                      - lse[..., None])
+        dp = _tf32_product(g, vt.transpose(-1, -2), passes)
+        dq = dq + _tf32_product(p * (dp - delta[..., None]), kt, passes)
+    return scale * dq
+
+
+def _attention_errors(passes, seed):
+    """(|ΔO|, |Δlse|, |ΔdQ| / max(1, max |dQ|)) of the emulated kernels
+    against f64; dQ from the f64 lse and Δ rounded to f32, as the forward
+    and the wrapper hand them over."""
+    q, k, v, g = _attention_operands(seed)
+    o64, lse64, dq64 = _attention_f64(q, k, v, g)
+    o, lse = _forward_emulated(q, k, v, passes)
+    delta = (g.double() * o64).sum(-1).float()
+    dq = _dq_emulated(q, k, v, g, lse64.float(), delta, passes)
+    return ((o.double() - o64).abs().max().item(),
+            (lse.double() - lse64).abs().max().item(),
+            _scaled_err(dq, dq64))
+
+
+def test_three_tf32_products_hold_the_attention_gate():
+    o_err, lse_err, dq_err = _attention_errors(passes=3, seed=4)
+    assert o_err <= ATOL and lse_err <= ATOL and dq_err <= ATOL
+
+
+def test_one_tf32_product_misses_the_attention_gate():
+    o_err, lse_err, dq_err = _attention_errors(passes=1, seed=5)
+    assert o_err > ATOL and dq_err > ATOL
