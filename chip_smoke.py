@@ -19,7 +19,10 @@ Phases, in order; any failure exits non-zero and prints no result:
             int32 sums must be exact. bn_conv_grads also runs the 15
             shapes of a ResNet-50 training step's 36 conv1x1+BN pairs
             (`step36`): kernel and library ms summed over the pairs
-            beside the step's bound. `bert_step12` sums the BERT
+            beside the step's bound. matmul_epilogue and matmul_stats run
+            the same 15 shapes (the 36 pairs of one ResNet-50 forward,
+            `fwd36`) in f32 and bf16, summed the same way beside the sum of
+            their bounds on the tensor-core route. `bert_step12` sums the BERT
             fine-tune step's 12 layers of flash_fwd, flash_bwd_dq and
             flash_bwd_dkv against 12 SDPA forwards and backwards.
 4. encoder: `bert_classify` at `bert_base()` width through the kernels,
@@ -73,6 +76,8 @@ import argparse
 import functools
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -97,7 +102,7 @@ from deeplearning4j_tpu_torch.kernels.layernorm import (
     _layernorm_reference, fused_layernorm)
 from deeplearning4j_tpu_torch.kernels.pointwise_conv import (
     _bn_conv_grads_reference, _bn_dy, _bn_grad_stats_reference,
-    _epilogue_reference, _matmul_stats_reference, bn_conv_grads,
+    _epilogue_reference, _fwd_tile, _matmul_stats_reference, bn_conv_grads,
     bn_grad_stats, int8_matmul_epilogue, matmul_epilogue, matmul_stats)
 from deeplearning4j_tpu_torch.kernels.residual_block import (
     bottleneck_block, bottleneck_block_xla)
@@ -238,10 +243,32 @@ def phase_build():
     (OUT_DIR / "build_log.txt").write_text(
         "\n".join(f"== {n}\n{t}" for n, t in res["logs"].items()))
     for name, text in res["logs"].items():
-        for ln in text.splitlines():
-            if "registers" in ln or "spill" in ln:
-                log(f"[build] {name}: {ln.strip()}")
+        for fn, regs, spills in _ptxas_report(text):
+            log(f"[build] {name}: {fn}: {regs}; {spills}")
     return res["seconds"]
+
+
+def _ptxas_report(text):
+    """(kernel, registers line, spill line) per instantiation in nvcc's
+    `-Xptxas -v` output, the kernel's name demangled where c++filt exists
+    and cut to the name and its template arguments."""
+    out, fn, spills = [], "?", ""
+    for ln in text.splitlines():
+        ln = ln.strip()
+        if "Compiling entry function" in ln:
+            fn = ln.split("'")[1]
+        elif "spill" in ln:
+            spills = ln
+        elif "registers" in ln:
+            out.append([fn, ln.split(":", 1)[-1].strip(), spills])
+    if out and shutil.which("c++filt"):
+        names = subprocess.run(
+            ["c++filt"], input="\n".join(r[0] for r in out),
+            capture_output=True, text=True, timeout=60).stdout.splitlines()
+        for r, full in zip(out, names):
+            m = re.search(r"(\w+(?:<[^()]*>)?)\(", full)
+            r[0] = m.group(1) if m else full
+    return out
 
 
 # -- phase 3 ------------------------------------------------------------------
@@ -438,7 +465,21 @@ def _scaled_err(got, want):
     return err, max(1.0, want.float().abs().max().item())
 
 
-def _epilogue_case(label, m, k, n, with_res, act, dtype, gen):
+def _fwd_work(m, k, n, dtype, nbytes, extra_flops=0.0):
+    """(operations, bytes, peak) of a forward GEMM (matmul_epilogue,
+    matmul_stats) on its tensor-core route: f32 as 3×TF32 (three TF32
+    products of 2·M·K·N each) at the TF32 rate, bf16 at the bf16 rate."""
+    if dtype == torch.float32:
+        return 6.0 * m * k * n + extra_flops, nbytes, PEAK_TF32
+    return 2.0 * m * k * n + extra_flops, nbytes, None
+
+
+def _tile(m, k, n):
+    """The tile the forward GEMMs' launch picks on the card, "BMxBN"."""
+    return "x".join(map(str, _fwd_tile(m, k, n))) if DEV == "cuda" else None
+
+
+def _epilogue_case(label, m, k, n, with_res, act, dtype, gen, iters=20):
     """matmul_epilogue against its plain version, timed beside it, beside
     cuBLAS's product with the same epilogue in PyTorch, and its bound."""
     x = _randn(gen, dtype, m, k)
@@ -453,7 +494,8 @@ def _epilogue_case(label, m, k, n, with_res, act, dtype, gen):
     err, scl = _scaled_err(out, ref)
     esz = x.element_size()
     nbytes = (m * k + k * n + m * n * (2 if with_res else 1)) * esz + 8 * n
-    bms, by = bound(2.0 * m * k * n, nbytes, dtype)
+    flops, nbytes, peak = _fwd_work(m, k, n, dtype, nbytes)
+    bms, by = bound(flops, nbytes, dtype, peak)
 
     def library():
         y = torch.matmul(x, w) * scale + shift
@@ -463,12 +505,13 @@ def _epilogue_case(label, m, k, n, with_res, act, dtype, gen):
 
     return dict(
         name="matmul_epilogue", case=label, shape=[m, k, n],
-        dtype=DTYPE_NAMES[dtype], max_abs_err=err, atol=ATOL[dtype] * scl,
+        dtype=DTYPE_NAMES[dtype], act=act, tile=_tile(m, k, n),
+        max_abs_err=err, atol=ATOL[dtype] * scl,
         ms=time_ms(lambda: matmul_epilogue(x, w, scale, shift, residual=res,
-                                           act=act)),
+                                           act=act), iters),
         plain_ms=time_ms(lambda: _epilogue_reference(x, w, scale, shift, res,
-                                                     act, dtype)),
-        library_ms=time_ms(library), bound_ms=bms, bound_by=by)
+                                                     act, dtype), iters),
+        library_ms=time_ms(library, iters), bound_ms=bms, bound_by=by)
 
 
 def _int8_case(label, m, k, n, gen):
@@ -612,9 +655,9 @@ def _kernel_row(name, label, shape, dtype, kernel, plain, library, work,
                 bound_by=by)
 
 
-def _stats_case(label, m, k, n, dtype, gen):
+def _stats_case(label, m, k, n, dtype, gen, iters=20):
     """matmul_stats (row 5); the yardstick is cuBLAS's product and two
-    PyTorch sums over it."""
+    PyTorch sums over it. The bound is the route's (_fwd_work)."""
     x = _randn(gen, dtype, m, k)
     w = (torch.randn((k, n), generator=gen, device=DEV) / k ** 0.5).to(dtype)
 
@@ -623,10 +666,14 @@ def _stats_case(label, m, k, n, dtype, gen):
         return yf.sum(0), (yf * yf).sum(0)
 
     esz = x.element_size()
-    return _kernel_row(
+    *work, peak = _fwd_work(m, k, n, dtype,
+                            (m * k + k * n + m * n) * esz + 8 * n,
+                            3.0 * m * n)
+    row = _kernel_row(
         "matmul_stats", label, (m, k, n), dtype, lambda: matmul_stats(x, w),
-        lambda: _matmul_stats_reference(x, w), library,
-        (2.0 * m * k * n + 3.0 * m * n, (m * k + k * n + m * n) * esz + 8 * n))
+        lambda: _matmul_stats_reference(x, w), library, work, iters, peak)
+    row["tile"] = _tile(m, k, n)
+    return row
 
 
 def _bn_vectors(n, gen):
@@ -731,6 +778,74 @@ def step36_summary(rows):
         f"bound_ms={out['bound_ms']:.4f} ({out['bound_by']}) "
         f"worst err/atol={out['worst_err_over_atol']:.3f} "
         f"bit_identical={out['bit_identical']}")
+    return out
+
+
+#: the forward kernels' kernel-phase cases over STEP36: f32, the dtype of
+#: both main paths, and bf16
+FWD36_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def fwd36_cases():
+    """matmul_epilogue and matmul_stats at each of STEP36's 15 shapes (the
+    36 conv1x1+BN pairs of one ResNet-50 forward), in f32 and bf16, each
+    checked against its plain version (10 timed calls each). The epilogue
+    takes relu where the pair's BN does: the 16 `_a` convs, which narrow
+    the channels (N ≤ K); the `_c` and shortcut convs are identity."""
+    cases = []
+    for dtype in FWD36_DTYPES:
+        for (m, k, n) in STEP36:
+            label = f"fwd36 {m}x{k}x{n}"
+            cases.append((functools.partial(_epilogue_case, iters=10), label,
+                          m, k, n, False, "relu" if n <= k else "identity",
+                          dtype))
+            cases.append((functools.partial(_stats_case, iters=10), label,
+                          m, k, n, dtype))
+    return cases
+
+
+def fwd36_summary(rows):
+    """Each forward kernel over one ResNet-50 forward's 36 pairs, per
+    dtype: kernel, library and plain ms summed over the pairs (each shape's
+    time × its count), beside the bound summed the same way (each shape's
+    larger of bytes at the memory rate and operations at its route's
+    rate)."""
+    out = {}
+    for name in ("matmul_epilogue", "matmul_stats"):
+        for dtype in FWD36_DTYPES:
+            dt = DTYPE_NAMES[dtype]
+            got = {tuple(r["shape"]): r for r in rows
+                   if r["name"] == name and r["dtype"] == dt
+                   and r["case"].startswith("fwd36")}
+
+            def total(key):
+                return sum(c * got[s][key] for s, c in STEP36.items())
+
+            s = {"pairs": sum(STEP36.values()), "shapes": len(got),
+                 "kernel_ms": total("ms"), "library_ms": total("library_ms"),
+                 "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+                 "worst_err_over_atol": max(
+                     got[sh]["max_abs_err"] / got[sh]["atol"]
+                     for sh in STEP36),
+                 "shapes_slower_than_library": [
+                     list(sh) for sh in STEP36
+                     if got[sh]["ms"] > got[sh]["library_ms"]],
+                 "tiles": {"x".join(map(str, sh)): got[sh]["tile"]
+                           for sh in STEP36}}
+            if name == "matmul_stats":
+                s["bit_identical"] = all(got[sh]["bit_identical"]
+                                         for sh in STEP36)
+            out[f"{name} {dt}"] = s
+            log(f"[kernels] {name} fwd36 ({s['pairs']} pairs, "
+                f"{s['shapes']} shapes, {dt}): "
+                f"kernel_ms={s['kernel_ms']:.4f} "
+                f"library_ms={s['library_ms']:.4f} "
+                f"plain_ms={s['plain_ms']:.4f} bound_ms={s['bound_ms']:.4f} "
+                f"worst err/atol={s['worst_err_over_atol']:.3f} "
+                f"slower than library at "
+                f"{len(s['shapes_slower_than_library'])} shapes"
+                + (f" bit_identical={s['bit_identical']}"
+                   if "bit_identical" in s else ""))
     return out
 
 
@@ -869,6 +984,7 @@ def phase_kernels():
         cases += training_kernel_cases(dtype)
     cases.append((_int8_case, "res4_a B=32", *EPILOGUE_SHAPES["res4_a B=32"]))
     cases += step36_cases()
+    cases += fwd36_cases()
     return run_kernel_cases(cases, gen), _counts()
 
 
@@ -1497,6 +1613,7 @@ KERNEL_GROUPS = (("flash_fwd_kernel", "flash_fwd"),
                  ("flash_bwd_dq_kernel", "flash_bwd_dq"),
                  ("flash_bwd_dkv_kernel", "flash_bwd_dkv"),
                  ("matmul_epilogue_kernel", "matmul_epilogue"),
+                 ("matmul_epilogue_int8_kernel", "int8_matmul_epilogue"),
                  ("bottleneck_block_kernel", "bottleneck_block"),
                  ("matmul_stats_kernel", "matmul_stats"),
                  ("bn_grad_stats_kernel", "bn_grad_stats"),
@@ -1696,19 +1813,20 @@ def main(argv=None):
     build_s = timed("build", phase_build)
     rows, kernel_launches = timed("kernels", phase_kernels)
     step36 = step36_summary(rows)
+    fwd36 = fwd36_summary(rows)
     step12 = bert_step12_summary(rows)
     OUT_DIR.mkdir(exist_ok=True)
     if args.only == "kernels":
         (OUT_DIR / "smoke_kernels.json").write_text(json.dumps(
             {"card": card, "kernels": rows, "step36": step36,
-             "bert_step12": step12}, indent=1))
+             "fwd36": fwd36, "bert_step12": step12}, indent=1))
         return 0
     if args.only == "resnet":
         resnet, _, _ = timed("resnet", phase_resnet)
         resnet_train, _, _ = timed("resnet_train", phase_resnet_train)
         (OUT_DIR / "smoke_resnet.json").write_text(json.dumps(
             {"card": card, "kernels": rows, "step36": step36,
-             "bert_step12": step12,
+             "fwd36": fwd36, "bert_step12": step12,
              "resnet": resnet, "resnet_train": resnet_train,
              "phase_seconds": seconds}, indent=1))
         return 0
@@ -1753,7 +1871,8 @@ def main(argv=None):
     line = kernel_line(rows, launches, launches_from)
     (OUT_DIR / "smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "kernels": rows,
-         "step36": step36, "bert_step12": step12, "encoder": encoder,
+         "step36": step36, "fwd36": fwd36, "bert_step12": step12,
+         "encoder": encoder,
          "serving": serving, "train": train,
          "resnet": resnet, "resnet_train": resnet_train, "profile": prof,
          "line": line,

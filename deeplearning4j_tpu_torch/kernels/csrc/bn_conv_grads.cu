@@ -594,10 +594,6 @@ Plan plan_for(int M, int K, int N) {
   return it->second;
 }
 
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
 template <typename T, int XBN, int WBM, int WBN>
 cudaError_t launch_main(const Args<T>& a, int blocks, cudaStream_t stream) {
   using C = Cfg<T, XBN, WBM, WBN>;
@@ -643,9 +639,9 @@ cudaError_t launch(const void* x, const void* y, const void* dz,
   a.x_len = p.x_len;
   a.x_parts = p.x_parts;
   a.x_workers = p.x_workers;
-  a.vec_k = (K * sizeof(T)) % 16 == 0 && aligned16(x);
-  a.vec_n = (N * sizeof(T)) % 16 == 0 && aligned16(y) && aligned16(dz) &&
-            aligned16(w);
+  a.vec_k = (K * sizeof(T)) % 16 == 0 && mma::aligned16(x);
+  a.vec_n = (N * sizeof(T)) % 16 == 0 && mma::aligned16(y) &&
+            mma::aligned16(dz) && mma::aligned16(w);
   const int blocks = p.w_workers + p.x_workers;
   cudaError_t err;
   if (p.narrow_k && p.narrow_n)

@@ -8,111 +8,222 @@
 //
 // Replaces: deeplearning4j_tpu/kernels/pointwise_conv.py::_epilogue_kernel
 // and _int8_epilogue_kernel (:116-139, pallas_call at :168 in
-// _matmul_epilogue_call). As there, ONE kernel body serves both
-// precisions: the accumulator type comes from the input type's traits,
-// and the epilogue below is shared, so the fp and int8 inference paths
+// _matmul_epilogue_call). As there, the fp and int8 paths share their
+// epilogue: both kernels below apply it through `epilogue`, so they
 // cannot drift apart.
 //
-// What bounds it on the H100: 2·M·K·N flops against (M·K + K·N)·size +
-// M·N·size (+ the residual) bytes. At ResNet-50's 1×1 convs (K, N 64…2048,
-// M = B·H·W) it is bound by operations in f32 (res2 _c at B = 32:
-// 3.29 GFLOP, 0.049 ms at 67 TFLOP/s against 0.038 ms of bytes). This
-// first kernel does its math in f32 FMA (or dp4a) out of shared memory;
-// mma/wgmma on the tensor cores are later work.
+// What bounds it on the H100: 2·M·K·N operations against
+// (M·K + K·N + M·N (+ M·N of residual))·size bytes. f32 runs as 3×TF32
+// (mma_tile.cuh), three tensor-core products per f32 product: 6·M·K·N at
+// 495 TFLOP/s; bf16 runs 2·M·K·N at 989 TFLOP/s. At ResNet-50's B=32
+// shapes f32 is bound by bytes where K is 64 (res2 _c 100,352 × 64 × 256:
+// 0.038 ms of bytes against 0.020 ms of operations) and by operations
+// where K and N are ≥ 512 (res5 _c 1,568 × 512 × 2,048: 0.020 ms against
+// 0.018 ms); bf16 is bound by bytes at every shape but res5's.
 //
-// Design: the TPU kernel holds a whole (block_m, K) slab and the whole
-// weight in VMEM. A Hopper block has far less fast memory, so the grid
-// is (M tiles × N tiles) of 128 × 64 outputs (N reaches 2048 at res5) and
-// each block loops over K in slices of 16 values (64 for int8): the x
-// and w slices are staged through shared memory as 32-bit words (f32, or
-// four packed int8), and each of 256 threads accumulates an 8 × 4 patch
-// in registers, reading its operands as 16-byte vectors. M tails, N tails
-// and a K that is not a multiple of the slice are zero-filled at staging,
-// so nothing is padded in device memory. The epilogue runs on the
-// accumulators in registers and casts on the store.
-#include "common.cuh"
+// Design (fp): the forward product of mma_tile.cuh on the tensor cores —
+// mma.sync bf16, and f32 as 3×TF32 with each slice's products summed apart
+// and added to the accumulator in f32, so K = 2,048 keeps f32's accuracy.
+// Persistent blocks (one per SM) walk BM × BN output tiles through a
+// 3-stage cp.async ring of x and w slices, so a tile's epilogue overlaps
+// the next tile's first copies; the tile comes from (M, K, N) (fwd_plan:
+// 128 × 128 unless narrower tiles fill far more SMs, or N ≤ 64). Ragged
+// M, N and K are zero-filled by the copy and never stored;
+// rows whose byte length is not a multiple of 16 are copied element by
+// element. Each tile's scale and shift ride with its first slice into a
+// small buffer beside the ring (one per tile in flight), and the epilogue
+// runs on the accumulators in registers: each thread holds four adjacent
+// columns of a row, so it stores the output 16 bytes (f32) or 8 bytes
+// (bf16) at a time, reading the residual per element beside them.
+//
+// The int8 route stays on the CUDA cores: 128 × 64 tiles of 256 threads,
+// K staged 64 values at a time as packed words, __dp4a into int32, each
+// thread an 8 × 4 patch.
+#include "mma_tile.cuh"
 
 namespace dl4j {
 namespace {
 
-constexpr int kInt8 = 2;      // dtype code of int8 inputs (kernels/pointwise_conv.py)
+constexpr int kInt8 = 2;  // dtype code of int8 inputs (kernels/pointwise_conv.py)
+
+// The epilogue of both routes: acc·scale + shift (+ residual) (relu), cast.
+template <typename TOut>
+__device__ __forceinline__ TOut epilogue(float acc, float scale, float shift,
+                                         const TOut* res, size_t o,
+                                         int relu) {
+  float v = acc * scale + shift;
+  if (res != nullptr) v += to_f32(res[o]);
+  if (relu) v = fmaxf(v, 0.f);
+  return from_f32<TOut>(v);
+}
+
+template <typename T, typename TOut>
+struct EpiArgs {
+  const T* x;
+  const T* w;
+  const float* scale;
+  const float* shift;
+  const TOut* res;
+  TOut* out;
+  int M, K, N, relu, tiles_n, tiles, vec_x, vec_w;
+};
+
+// The tensor-core route. Shared memory: the ring, then mma::kStages
+// buffers of one tile's scale and shift (BN each).
+template <typename T, typename TOut, int BM, int BN>
+__global__ void __launch_bounds__(mma::kThreads, 1)
+matmul_epilogue_kernel(EpiArgs<T, TOut> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  using C = mma::FwdCfg<T, BM, BN>;
+  using G = typename C::G;
+  float* vecs = reinterpret_cast<float*>(smem + C::kSmem);
+  auto buf = [&](const mma::FwdItem& it) {
+    return vecs + (it.idx % mma::kStages) * 2 * BN;
+  };
+  auto extra = [&](int, const mma::FwdItem& it) {
+    const int tid = threadIdx.x;
+    if (tid < 2 * BN) {
+      const int n = it.n0 + tid % BN;
+      const float* src = tid < BN ? a.scale : a.shift;
+      mma::cp4(buf(it) + tid, n < a.N ? src + n : src, n < a.N);
+    }
+  };
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int rb = (warp / G::WC) * G::MI * 16;
+  const int cb = (warp % G::WC) * G::NI * 8;
+  auto finish = [&](const mma::FwdItem& it, float (&acc)[G::MI][G::NI][4]) {
+    // the tile's first slice, and with it scale and shift, landed before
+    // its first product
+    const float* v = buf(it);
+    float sc[G::NI / 2][4], sh[G::NI / 2][4];
+#pragma unroll
+    for (int j = 0; j < G::NI / 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[j][e] = v[cb + 16 * j + 4 * t + e];
+        sh[j][e] = v[BN + cb + 16 * j + 4 * t + e];
+      }
+    }
+#pragma unroll
+    for (int mi = 0; mi < G::MI; ++mi) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = it.m0 + rb + mi * 16 + g + 8 * h;
+        if (row >= a.M) continue;
+#pragma unroll
+        for (int j = 0; j < G::NI / 2; ++j) {
+          const int col = it.n0 + cb + 16 * j + 4 * t;
+          if (col >= a.N) continue;
+          const size_t o = (size_t)row * a.N + col;
+          float q[4];
+          mma::fwd_quad(acc, mi, j, h, q);
+          TOut r[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            r[e] = col + e < a.N ? epilogue(q[e], sc[j][e], sh[j][e], a.res,
+                                            o + e, a.relu)
+                                 : from_f32<TOut>(0.f);
+          mma::store4(a.out, o, col, a.N, r);
+        }
+      }
+    }
+  };
+  mma::fwd_walk<T, BM, BN>(a.x, a.w, a.M, a.K, a.N, a.tiles_n, a.tiles,
+                           a.vec_x, a.vec_w, smem, extra, finish);
+}
+
+template <typename T, typename TOut, int BM, int BN>
+cudaError_t launch_tile(const EpiArgs<T, TOut>& a, int blocks,
+                        cudaStream_t stream) {
+  constexpr int smem =
+      mma::FwdCfg<T, BM, BN>::kSmem + mma::kStages * 2 * BN * 4;
+  static_assert(smem <= 232448, "ring does not fit a block's shared memory");
+  auto kernel = matmul_epilogue_kernel<T, TOut, BM, BN>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, mma::kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T, typename TOut>
+cudaError_t launch_fp(const void* x, const void* w, const float* scale,
+                      const float* shift, const void* res, void* out, int M,
+                      int K, int N, int relu, cudaStream_t stream) {
+  const mma::FwdPlan p = mma::fwd_plan(M, K, N);
+  EpiArgs<T, TOut> a;
+  a.x = static_cast<const T*>(x);
+  a.w = static_cast<const T*>(w);
+  a.scale = scale;
+  a.shift = shift;
+  a.res = static_cast<const TOut*>(res);
+  a.out = static_cast<TOut*>(out);
+  a.M = M;
+  a.K = K;
+  a.N = N;
+  a.relu = relu;
+  a.tiles_n = p.tiles_n;
+  a.tiles = p.tiles_m * p.tiles_n;
+  a.vec_x = (K * sizeof(T)) % 16 == 0 && mma::aligned16(x);
+  a.vec_w = (N * sizeof(T)) % 16 == 0 && mma::aligned16(w);
+  if (p.bm == 128 && p.bn == 128)
+    return launch_tile<T, TOut, 128, 128>(a, p.blocks, stream);
+  if (p.bm == 128) return launch_tile<T, TOut, 128, 64>(a, p.blocks, stream);
+  if (p.bn == 128) return launch_tile<T, TOut, 64, 128>(a, p.blocks, stream);
+  return launch_tile<T, TOut, 64, 64>(a, p.blocks, stream);
+}
+
+// -- the int8 route (CUDA cores) ----------------------------------------------
 constexpr int kThreads = 256;
-constexpr int kBM = 128;      // rows of x per block
-constexpr int kBN = 64;       // columns of w per block
-constexpr int kSlices = 16;   // 32-bit words of K staged per step
+constexpr int kBM = 128;            // rows of x per block
+constexpr int kBN = 64;             // columns of w per block
+constexpr int kWords = 16;          // 32-bit words (64 int8 values) of K a step
 constexpr int kAStride = kBM + 4;   // keeps 16-byte rows, spreads banks
 constexpr int kBStride = kBN + 4;
 
-// How one input type is staged and multiplied.
-template <typename TIn>
-struct Traits {
-  using Word = float;
-  using Acc = float;
-  static constexpr int kPack = 1;  // K values per 32-bit word
-  __device__ static Word a_word(const TIn* __restrict__ x, int row, int k,
-                                int M, int K) {
-    return (row < M && k < K) ? to_f32(x[(size_t)row * K + k]) : 0.f;
-  }
-  __device__ static Word b_word(const TIn* __restrict__ w, int k, int col,
-                                int K, int N) {
-    return (k < K && col < N) ? to_f32(w[(size_t)k * N + col]) : 0.f;
-  }
-  __device__ static Acc mac(Word a, Word b, Acc c) { return fmaf(a, b, c); }
-};
-
-template <>
-struct Traits<int8_t> {
-  using Word = int;
-  using Acc = int;
-  static constexpr int kPack = 4;
-  // x[row, k..k+3] packed little-endian; values past K are zero
-  __device__ static Word a_word(const int8_t* __restrict__ x, int row, int k,
-                                int M, int K) {
-    unsigned v = 0;
-    if (row < M) {
-      const int8_t* p = x + (size_t)row * K;
+// x[row, k..k+3] packed little-endian; values past K are zero
+__device__ __forceinline__ int a_word(const int8_t* __restrict__ x, int row,
+                                      int k, int M, int K) {
+  unsigned v = 0;
+  if (row < M) {
+    const int8_t* p = x + (size_t)row * K;
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (k + j < K) v |= (unsigned)(uint8_t)p[k + j] << (8 * j);
-    }
-    return (int)v;
+    for (int j = 0; j < 4; ++j)
+      if (k + j < K) v |= (unsigned)(uint8_t)p[k + j] << (8 * j);
   }
-  // w[k..k+3, col] packed little-endian
-  __device__ static Word b_word(const int8_t* __restrict__ w, int k, int col,
-                                int K, int N) {
-    unsigned v = 0;
-    if (col < N) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (k + j < K) v |= (unsigned)(uint8_t)w[(size_t)(k + j) * N + col]
-                            << (8 * j);
-    }
-    return (int)v;
-  }
-  __device__ static Acc mac(Word a, Word b, Acc c) { return __dp4a(a, b, c); }
-};
-
-__device__ __forceinline__ void load4(const float* p, float* d) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
+  return (int)v;
 }
+
+// w[k..k+3, col] packed little-endian
+__device__ __forceinline__ int b_word(const int8_t* __restrict__ w, int k,
+                                      int col, int K, int N) {
+  unsigned v = 0;
+  if (col < N) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (k + j < K) v |= (unsigned)(uint8_t)w[(size_t)(k + j) * N + col]
+                          << (8 * j);
+  }
+  return (int)v;
+}
+
 __device__ __forceinline__ void load4(const int* p, int* d) {
   const int4 v = *reinterpret_cast<const int4*>(p);
   d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
 }
 
-template <typename TIn, typename TOut>
+template <typename TOut>
 __global__ void __launch_bounds__(kThreads)
-matmul_epilogue_kernel(const TIn* __restrict__ x, const TIn* __restrict__ w,
-                       const float* __restrict__ scale,
-                       const float* __restrict__ shift,
-                       const TOut* __restrict__ res, TOut* __restrict__ out,
-                       int M, int K, int N, int relu) {
-  using Tr = Traits<TIn>;
-  using Word = typename Tr::Word;
-  using Acc = typename Tr::Acc;
-  __shared__ __align__(16) Word as[kSlices][kAStride];  // x slice, k-major
-  __shared__ __align__(16) Word bs[kSlices][kBStride];  // w slice
+matmul_epilogue_int8_kernel(const int8_t* __restrict__ x,
+                            const int8_t* __restrict__ w,
+                            const float* __restrict__ scale,
+                            const float* __restrict__ shift,
+                            const TOut* __restrict__ res,
+                            TOut* __restrict__ out, int M, int K, int N,
+                            int relu) {
+  __shared__ __align__(16) int as[kWords][kAStride];  // x slice, k-major
+  __shared__ __align__(16) int bs[kWords][kBStride];  // w slice
 
   const int tid = threadIdx.x;
   const int tx = tid % 16;   // columns tx*4 .. tx*4+3
@@ -120,45 +231,44 @@ matmul_epilogue_kernel(const TIn* __restrict__ x, const TIn* __restrict__ w,
   const int m0 = blockIdx.x * kBM;
   const int n0 = blockIdx.y * kBN;
 
-  Acc acc[8][4];
+  int acc[8][4];
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = Acc(0);
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
   }
 
-  for (int k0 = 0; k0 < K; k0 += kSlices * Tr::kPack) {
+  for (int k0 = 0; k0 < K; k0 += kWords * 4) {
 #pragma unroll
-    for (int i = 0; i < kBM * kSlices / kThreads; ++i) {
+    for (int i = 0; i < kBM * kWords / kThreads; ++i) {
       const int idx = tid + i * kThreads;
-      const int m = idx / kSlices;
-      const int s = idx % kSlices;
-      as[s][m] = Tr::a_word(x, m0 + m, k0 + s * Tr::kPack, M, K);
+      const int m = idx / kWords;
+      const int s = idx % kWords;
+      as[s][m] = a_word(x, m0 + m, k0 + s * 4, M, K);
     }
 #pragma unroll
-    for (int i = 0; i < kBN * kSlices / kThreads; ++i) {
+    for (int i = 0; i < kBN * kWords / kThreads; ++i) {
       const int idx = tid + i * kThreads;
       const int s = idx / kBN;
       const int n = idx % kBN;
-      bs[s][n] = Tr::b_word(w, k0 + s * Tr::kPack, n0 + n, K, N);
+      bs[s][n] = b_word(w, k0 + s * 4, n0 + n, K, N);
     }
     __syncthreads();
 #pragma unroll
-    for (int s = 0; s < kSlices; ++s) {
-      Word a[8], b[4];
+    for (int s = 0; s < kWords; ++s) {
+      int a[8], b[4];
       load4(&as[s][ty * 4], a);
       load4(&as[s][64 + ty * 4], a + 4);
       load4(&bs[s][tx * 4], b);
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = Tr::mac(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
       }
     }
     __syncthreads();
   }
 
-  // the shared epilogue: acc·scale + shift (+ residual) (relu), cast on store
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int row = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
@@ -168,36 +278,38 @@ matmul_epilogue_kernel(const TIn* __restrict__ x, const TIn* __restrict__ w,
       const int col = n0 + tx * 4 + j;
       if (col >= N) continue;
       const size_t o = (size_t)row * N + col;
-      float v = static_cast<float>(acc[i][j]) * scale[col] + shift[col];
-      if (res != nullptr) v += to_f32(res[o]);
-      if (relu) v = fmaxf(v, 0.f);
-      out[o] = from_f32<TOut>(v);
+      out[o] = epilogue(static_cast<float>(acc[i][j]), scale[col],
+                        shift[col], res, o, relu);
     }
   }
 }
 
-template <typename TIn, typename TOut>
-cudaError_t launch(const void* x, const void* w, const float* scale,
-                   const float* shift, const void* res, void* out, int M,
-                   int K, int N, int relu, cudaStream_t stream) {
+template <typename TOut>
+cudaError_t launch_int8(const void* x, const void* w, const float* scale,
+                        const float* shift, const void* res, void* out,
+                        int M, int K, int N, int relu, cudaStream_t stream) {
   const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN);
-  matmul_epilogue_kernel<TIn, TOut><<<grid, kThreads, 0, stream>>>(
-      static_cast<const TIn*>(x), static_cast<const TIn*>(w), scale, shift,
-      static_cast<const TOut*>(res), static_cast<TOut*>(out), M, K, N, relu);
+  matmul_epilogue_int8_kernel<TOut><<<grid, kThreads, 0, stream>>>(
+      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w), scale,
+      shift, static_cast<const TOut*>(res), static_cast<TOut*>(out), M, K,
+      N, relu);
   return cudaGetLastError();
 }
 
-template <typename TIn>
-cudaError_t launch_in(const void* x, const void* w, const float* scale,
-                      const float* shift, const void* res, void* out,
-                      int out_dtype, int M, int K, int N, int relu,
-                      cudaStream_t stream) {
-  if (out_dtype == kFloat32)
-    return launch<TIn, float>(x, w, scale, shift, res, out, M, K, N, relu,
-                              stream);
-  if (out_dtype == kBFloat16)
-    return launch<TIn, __nv_bfloat16>(x, w, scale, shift, res, out, M, K, N,
-                                      relu, stream);
+template <typename TOut>
+cudaError_t launch_out(const void* x, const void* w, const float* scale,
+                       const float* shift, const void* res, void* out,
+                       int in_dtype, int M, int K, int N, int relu,
+                       cudaStream_t stream) {
+  if (in_dtype == kFloat32)
+    return launch_fp<float, TOut>(x, w, scale, shift, res, out, M, K, N,
+                                  relu, stream);
+  if (in_dtype == kBFloat16)
+    return launch_fp<__nv_bfloat16, TOut>(x, w, scale, shift, res, out, M, K,
+                                          N, relu, stream);
+  if (in_dtype == kInt8)
+    return launch_int8<TOut>(x, w, scale, shift, res, out, M, K, N, relu,
+                             stream);
   return cudaErrorInvalidValue;
 }
 
@@ -219,14 +331,19 @@ extern "C" int dl4j_matmul_epilogue(const void* x, const void* w,
   const float* s = static_cast<const float*>(scale);
   const float* b = static_cast<const float*>(shift);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (in_dtype == dl4j::kFloat32)
-    return dl4j::launch_in<float>(x, w, s, b, res, out, out_dtype, M, K, N,
-                                  relu, st);
-  if (in_dtype == dl4j::kBFloat16)
-    return dl4j::launch_in<__nv_bfloat16>(x, w, s, b, res, out, out_dtype, M,
-                                          K, N, relu, st);
-  if (in_dtype == dl4j::kInt8)
-    return dl4j::launch_in<int8_t>(x, w, s, b, res, out, out_dtype, M, K, N,
+  if (out_dtype == dl4j::kFloat32)
+    return dl4j::launch_out<float>(x, w, s, b, res, out, in_dtype, M, K, N,
                                    relu, st);
+  if (out_dtype == dl4j::kBFloat16)
+    return dl4j::launch_out<__nv_bfloat16>(x, w, s, b, res, out, in_dtype, M,
+                                           K, N, relu, st);
   return cudaErrorInvalidValue;
+}
+
+// The tile the f32/bf16 route of both forward GEMMs (this kernel and
+// matmul_stats.cu) picks for (M, K, N) on the current device, as
+// BM · 1000 + BN.
+extern "C" int dl4j_fwd_tile(int M, int K, int N) {
+  const dl4j::mma::FwdPlan p = dl4j::mma::fwd_plan(M, K, N);
+  return p.bm * 1000 + p.bn;
 }

@@ -8,115 +8,156 @@
 // (:47, pallas_call at :81 in matmul_stats), the forward of
 // fused_conv1x1_bn: the training BN's statistics pass over y disappears.
 //
-// What bounds it on the H100: 2·M·K·N flops against (M·K + K·N + M·N)·size
-// bytes. At ResNet-50's res2 _c (M = 100,352, K = 64, N = 256, f32) that is
-// 3.29 GFLOP, 0.049 ms at 67 TFLOP/s, against 0.038 ms of bytes: bound by
-// operations. This first kernel does its math in f32 FMA; the tensor
-// cores are later work.
+// What bounds it on the H100: 2·M·K·N operations against
+// (M·K + K·N + M·N)·size bytes. f32 runs as 3×TF32 (6·M·K·N at 495
+// TFLOP/s), bf16 at 989 TFLOP/s. At ResNet-50's res2 _c (M = 100,352,
+// K = 64, N = 256, f32) that is 0.038 ms of bytes against 0.020 ms of
+// operations; at res5 _c (1,568 × 512 × 2,048) 0.020 ms of operations
+// against 0.018 ms of bytes.
 //
-// Design: the TPU kernel carries Σy and Σy² in VMEM across its sequential
-// grid. Hopper's blocks run in parallel and in no order, so each block
-// (a 128 × 64 tile of y, bn_train.cuh's product) reduces its own tile's
-// columns in registers and shared memory and writes one partial per
-// column; a second launch sums the partials of the M tiles in a fixed
-// order (no atomics: a re-run gives the same bits). Ragged M, N and K are
-// zero at staging and never stored, so rows past M add nothing.
+// Design: the forward product of mma_tile.cuh on the tensor cores, as in
+// matmul_epilogue.cu — persistent blocks walking BM × BN tiles chosen by
+// fwd_plan through a 3-stage cp.async ring; mma.sync bf16, and f32 as
+// 3×TF32 with each slice summed apart in f32. The statistics come from the
+// accumulator fragments: each value is rounded to T as it is stored, and
+// v and v² are summed over the thread's rows, then across the 8 lanes that
+// share its columns (__shfl_xor), then across the warps of a tile column
+// through shared memory in a fixed order; one partial per (M tile, column)
+// goes out. The TPU kernel carries Σy and Σy² across its sequential grid;
+// Hopper's blocks run in parallel, so a second launch (bn_train.cuh's
+// sum_partials) adds the partials of the M tiles in a fixed order: no
+// float atomics, a re-run gives the same bits. Ragged M, N and K are zero
+// at staging and never stored.
 #include "bn_train.cuh"
+#include "mma_tile.cuh"
 
 namespace dl4j {
 namespace {
 
-using namespace bn;
-
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-matmul_stats_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                    T* __restrict__ y, float* __restrict__ part, int M,
-                    int K, int N) {
-  __shared__ Stage st;
-  __shared__ float red[2][16][kBN];
+struct StatsArgs {
+  const T* x;
+  const T* w;
+  T* y;
+  float* part;  // (2, tiles_m, N)
+  int M, K, N, tiles_m, tiles_n, vec_x, vec_w;
+};
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int m0 = blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
-
-  float acc[8][4];
+// Shared memory: the ring, then the warps' column sums, [2][WR][BN].
+template <typename T, int BM, int BN>
+__global__ void __launch_bounds__(mma::kThreads, 1)
+matmul_stats_kernel(StatsArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  using C = mma::FwdCfg<T, BM, BN>;
+  using G = typename C::G;
+  float* red = reinterpret_cast<float*>(smem + C::kSmem);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wr = warp / G::WC;
+  const int rb = wr * G::MI * 16;
+  const int cb = (warp % G::WC) * G::NI * 8;
+  auto finish = [&](const mma::FwdItem& it, float (&acc)[G::MI][G::NI][4]) {
+    float s1[G::NI / 2][4] = {}, s2[G::NI / 2][4] = {};
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+    for (int mi = 0; mi < G::MI; ++mi) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < K; k0 += kSlices) {
-    // x[m0 + m, k0 + s]: consecutive threads along K (contiguous)
+      for (int h = 0; h < 2; ++h) {
+        const int row = it.m0 + rb + mi * 16 + g + 8 * h;
+        if (row >= a.M) continue;
 #pragma unroll
-    for (int i = 0; i < kBM * kSlices / kThreads; ++i) {
-      const int idx = tid + i * kThreads;
-      const int m = idx / kSlices, s = idx % kSlices;
-      const int row = m0 + m, k = k0 + s;
-      st.a[s][m] = (row < M && k < K) ? to_f32(x[(size_t)row * K + k]) : 0.f;
+        for (int j = 0; j < G::NI / 2; ++j) {
+          const int col = it.n0 + cb + 16 * j + 4 * t;
+          float q[4];
+          mma::fwd_quad(acc, mi, j, h, q);
+          T v[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            v[e] = from_f32<T>(q[e]);
+            const float f = to_f32(v[e]);
+            s1[j][e] += f;
+            s2[j][e] += f * f;
+          }
+          if (col < a.N)
+            mma::store4(a.y, (size_t)row * a.N + col, col, a.N, v);
+        }
+      }
     }
-    // w[k0 + s, n0 + n]: consecutive threads along N (contiguous)
+    // over the warp's 8 row groups (the lanes that share t), then its rows
 #pragma unroll
-    for (int i = 0; i < kBN * kSlices / kThreads; ++i) {
-      const int idx = tid + i * kThreads;
-      const int s = idx / kBN, n = idx % kBN;
-      const int k = k0 + s, col = n0 + n;
-      st.b[s][n] = (k < K && col < N) ? to_f32(w[(size_t)k * N + col]) : 0.f;
+    for (int j = 0; j < G::NI / 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+#pragma unroll
+        for (int m = 4; m < 32; m *= 2) {
+          s1[j][e] += __shfl_xor_sync(0xffffffffu, s1[j][e], m);
+          s2[j][e] += __shfl_xor_sync(0xffffffffu, s2[j][e], m);
+        }
+        if (g == 0) {
+          const int c = cb + 16 * j + 4 * t + e;
+          red[wr * BN + c] = s1[j][e];
+          red[(G::WR + wr) * BN + c] = s2[j][e];
+        }
+      }
     }
     __syncthreads();
-    mac_stage(st, tx, ty, acc);
-    __syncthreads();
-  }
-
-  // store y, and sum the stored values of this thread's 8 rows per column
-  float s1[4] = {0.f, 0.f, 0.f, 0.f}, s2[4] = {0.f, 0.f, 0.f, 0.f};
+    // one thread per (statistic, column) adds the warp rows in order
+    if (threadIdx.x < 2 * BN) {
+      const int which = threadIdx.x / BN, c = threadIdx.x % BN;
+      float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = m0 + tile_row(ty, i);
-    if (row >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx * 4 + j;
-      if (col >= N) continue;
-      const T v = from_f32<T>(acc[i][j]);
-      y[(size_t)row * N + col] = v;
-      const float f = to_f32(v);
-      s1[j] += f;
-      s2[j] += f * f;
+      for (int r = 0; r < G::WR; ++r) s += red[(which * G::WR + r) * BN + c];
+      const int col = it.n0 + c;
+      if (col < a.N)
+        a.part[((size_t)which * a.tiles_m + it.tm) * a.N + col] = s;
     }
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    red[0][ty][tx * 4 + j] = s1[j];
-    red[1][ty][tx * 4 + j] = s2[j];
-  }
-  __syncthreads();
-  // one thread per (stat, column) adds the 16 row groups in order
-  if (tid < 2 * kBN) {
-    const int which = tid / kBN, c = tid % kBN, col = n0 + c;
-    float t = 0.f;
-#pragma unroll
-    for (int r = 0; r < 16; ++r) t += red[which][r][c];
-    if (col < N)
-      part[((size_t)which * gridDim.x + blockIdx.x) * N + col] = t;
-  }
+  };
+  auto extra = [](int, const mma::FwdItem&) {};
+  mma::fwd_walk<T, BM, BN>(a.x, a.w, a.M, a.K, a.N, a.tiles_n,
+                           a.tiles_m * a.tiles_n, a.vec_x, a.vec_w, smem,
+                           extra, finish);
 }
 
-int m_tiles(int M) { return (M + kBM - 1) / kBM; }
+template <typename T, int BM, int BN>
+cudaError_t launch_tile(const StatsArgs<T>& a, int blocks,
+                        cudaStream_t stream) {
+  using C = mma::FwdCfg<T, BM, BN>;
+  constexpr int smem = C::kSmem + 2 * C::G::WR * BN * 4;
+  static_assert(smem <= 232448, "ring does not fit a block's shared memory");
+  auto kernel = matmul_stats_kernel<T, BM, BN>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, mma::kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
 
 template <typename T>
 cudaError_t launch(const void* x, const void* w, void* y, float* part,
                    float* stats, int M, int K, int N, cudaStream_t stream) {
-  const dim3 grid(m_tiles(M), (N + kBN - 1) / kBN);
-  matmul_stats_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y),
-      part, M, K, N);
-  cudaError_t err = cudaGetLastError();
+  const mma::FwdPlan p = mma::fwd_plan(M, K, N);
+  StatsArgs<T> a;
+  a.x = static_cast<const T*>(x);
+  a.w = static_cast<const T*>(w);
+  a.y = static_cast<T*>(y);
+  a.part = part;
+  a.M = M;
+  a.K = K;
+  a.N = N;
+  a.tiles_m = p.tiles_m;
+  a.tiles_n = p.tiles_n;
+  a.vec_x = (K * sizeof(T)) % 16 == 0 && mma::aligned16(x);
+  a.vec_w = (N * sizeof(T)) % 16 == 0 && mma::aligned16(w);
+  cudaError_t err;
+  if (p.bm == 128 && p.bn == 128)
+    err = launch_tile<T, 128, 128>(a, p.blocks, stream);
+  else if (p.bm == 128)
+    err = launch_tile<T, 128, 64>(a, p.blocks, stream);
+  else if (p.bn == 128)
+    err = launch_tile<T, 64, 128>(a, p.blocks, stream);
+  else
+    err = launch_tile<T, 64, 64>(a, p.blocks, stream);
   if (err != cudaSuccess) return err;
-  return sum_partials(part, stats, m_tiles(M), N, 2, stream);
+  return bn::sum_partials(part, stats, p.tiles_m, N, 2, stream);
 }
 
 }  // namespace
@@ -124,7 +165,7 @@ cudaError_t launch(const void* x, const void* w, void* y, float* part,
 
 // Floats of scratch `dl4j_matmul_stats` needs for the partial sums.
 extern "C" long long dl4j_matmul_stats_scratch(int M, int K, int N) {
-  return 2LL * dl4j::m_tiles(M) * N;
+  return 2LL * dl4j::mma::fwd_plan(M, K, N).tiles_m * N;
 }
 
 // x (M, K), w (K, N) contiguous in `dtype` (0 f32, 1 bf16); y (M, N) in

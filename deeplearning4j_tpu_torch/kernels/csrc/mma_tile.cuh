@@ -9,6 +9,8 @@
 // (`Slice`'s `op.frags`), so it may compute on the raw values on the way
 // (the BN gradient forms its dy there) and pick which shared-memory
 // element feeds which fragment slot, to read pairs as 64-bit words.
+// The forward product y = x @ w of matmul_epilogue.cu and matmul_stats.cu
+// is built on it at the end of this file (`fwd_walk`, `fwd_plan`).
 //
 // Two routes, by the operand type T:
 // - bf16: mma.sync.m16n8k16 bf16 × bf16 → f32. The product of two bf16
@@ -234,7 +236,7 @@ struct Slice<__nv_bfloat16> {
 // per item on each side of the ring); `stage_in(slot, item, i)` issues the
 // copies of the item's slice i into ring slot `slot`; `product(slot, item,
 // i)` multiplies it; `finish(item)` runs after the item's last product
-// (registers and device memory only, not the ring). One commit group per
+// (on every thread; it must not touch the ring). One commit group per
 // slice, empty ones included, so wait_pending<kStages - 2> always means
 // "the slice about to be read has landed".
 template <class ItemAt, class StageIn, class Product, class Finish>
@@ -266,6 +268,250 @@ __device__ __forceinline__ void walk(int n, ItemAt item_at, StageIn stage_in,
     }
     finish(it);
   }
+}
+
+// -- the forward product y = x @ w (matmul_epilogue.cu, matmul_stats.cu) -----
+// x (M, K) and w (K, N) row-major. Persistent blocks walk BM × BN output
+// tiles (BM, BN in {64, 128}, chosen by `fwd_plan`), each over K in slices
+// through one ring, so a tile's epilogue overlaps the next tile's first
+// copies. A stage holds x's BM rows (the contraction contiguous, rows of
+// kBK + 8) and w's kBK rows (columns contiguous, rows of BN + 4 floats or
+// BN + 8 bf16); every fragment read below meets no bank conflict.
+// - A = x. f32: slot t takes contraction 2t and slot t + 4 takes 2t + 1,
+//   one 64-bit read per row; bf16: the k16 layout, 32-bit reads.
+// - B = w, read in column pairs: n8 fragments 2j and 2j + 1 at fragment
+//   column g are tile columns 16j + 2g and 16j + 2g + 1 (f32: 64-bit reads
+//   of rows 2t and 2t + 1; bf16: 32-bit reads of two adjacent rows merged
+//   by __byte_perm). So the accumulators acc[mi][2j][2h + e] and
+//   acc[mi][2j + 1][2h + e] of a thread are the four adjacent columns
+//   16j + 4t … 16j + 4t + 3 of tile row 16·mi + g + 8h (`fwd_quad`), and an
+//   epilogue stores 16 bytes (f32) or 8 bytes (bf16) at a time.
+template <typename T, int BM_, int BN_>
+struct FwdCfg {
+  static constexpr int BM = BM_, BN = BN_;
+  static constexpr int SX = kBK + 8;
+  static constexpr int SN = BN + (sizeof(T) == 4 ? 4 : 8);
+  static constexpr int kStage = (BM * SX + kBK * SN) * (int)sizeof(T);
+  static constexpr int kSmem = kStages * kStage;
+  using G = Geom<BM, BN, BN / 32>;  // warp tiles of 64 × 32, 32 × 32, 16 × 32
+};
+
+template <typename T, class C, int MI, int NI>
+struct FwdOps {
+  const T* a;  // BM × SX: x's rows
+  const T* b;  // kBK × SN: w's rows
+
+  __device__ __forceinline__ void frags(int kk, int rb, int cb,
+                                        float (&fa)[MI][4],
+                                        float (&fb)[NI][2]) const {
+    const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float2 v = *reinterpret_cast<const float2*>(
+            a + (rb + mi * 16 + g + 8 * h) * C::SX + kk + 2 * t);
+        fa[mi][h] = v.x;
+        fa[mi][2 + h] = v.y;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NI / 2; ++j) {
+      const T* p = b + (kk + 2 * t) * C::SN + cb + 16 * j + 2 * g;
+      const float2 v0 = *reinterpret_cast<const float2*>(p);
+      const float2 v1 = *reinterpret_cast<const float2*>(p + C::SN);
+      fb[2 * j][0] = v0.x;
+      fb[2 * j + 1][0] = v0.y;
+      fb[2 * j][1] = v1.x;
+      fb[2 * j + 1][1] = v1.y;
+    }
+  }
+
+  __device__ __forceinline__ void frags(int kk, int rb, int cb,
+                                        uint32_t (&fa)[MI][4],
+                                        uint32_t (&fb)[NI][2]) const {
+    const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const T* p = a + (rb + mi * 16 + g + 8 * h) * C::SX + kk + 2 * t;
+        fa[mi][h] = *reinterpret_cast<const uint32_t*>(p);
+        fa[mi][2 + h] = *reinterpret_cast<const uint32_t*>(p + 8);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NI / 2; ++j) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const T* p = b + (kk + 2 * t + 8 * q) * C::SN + cb + 16 * j + 2 * g;
+        const uint32_t r0 = *reinterpret_cast<const uint32_t*>(p);
+        const uint32_t r1 = *reinterpret_cast<const uint32_t*>(p + C::SN);
+        fb[2 * j][q] = __byte_perm(r0, r1, 0x5410);      // column 2g
+        fb[2 * j + 1][q] = __byte_perm(r0, r1, 0x7632);  // column 2g + 1
+      }
+    }
+  }
+};
+
+// The four accumulators of tile columns 16j + 4t … + 3 in row half h.
+template <int MI, int NI>
+__device__ __forceinline__ void fwd_quad(const float (&acc)[MI][NI][4],
+                                         int mi, int j, int h,
+                                         float (&v)[4]) {
+  v[0] = acc[mi][2 * j][2 * h];
+  v[1] = acc[mi][2 * j + 1][2 * h];
+  v[2] = acc[mi][2 * j][2 * h + 1];
+  v[3] = acc[mi][2 * j + 1][2 * h + 1];
+}
+
+// Four adjacent outputs at o (column col of a row of N): one 16-byte (f32)
+// or 8-byte (bf16) store where all four exist and o is a multiple of 4.
+__device__ __forceinline__ void store4(float* p, size_t o, int col, int N,
+                                       const float (&v)[4]) {
+  if (col + 3 < N && o % 4 == 0) {
+    *reinterpret_cast<float4*>(p + o) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    for (int e = 0; e < 4 && col + e < N; ++e) p[o + e] = v[e];
+  }
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, size_t o, int col,
+                                       int N, const __nv_bfloat16 (&v)[4]) {
+  if (col + 3 < N && o % 4 == 0) {
+    __nv_bfloat162 lo, hi;
+    lo.x = v[0];
+    lo.y = v[1];
+    hi.x = v[2];
+    hi.y = v[3];
+    uint2 u;
+    u.x = *reinterpret_cast<uint32_t*>(&lo);
+    u.y = *reinterpret_cast<uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(p + o) = u;
+  } else {
+    for (int e = 0; e < 4 && col + e < N; ++e) p[o + e] = v[e];
+  }
+}
+
+struct FwdItem {
+  int m0, n0, tm, idx, slices;  // tile origin, tile row, item number
+};
+
+// The block's walk over tiles blockIdx.x, blockIdx.x + gridDim.x, … of
+// `tiles` (tiles_n across N), each over K in slices of kBK: x's rows ≥ M,
+// w's columns ≥ N and the contraction past K stage as zeros. `extra(slot,
+// item)` issues the cp.async copies the item's epilogue needs into the
+// commit group of its first slice (ring slot `slot`); `finish(item, acc)`
+// runs after its last product, on every thread (it may synchronise), and
+// the accumulators are zeroed after it. `vec_x`, `vec_w`: x's and w's rows
+// take 16-byte copies. At most kStages items are in flight at once, so an
+// item's `extra` data may be kept in buffer idx % kStages.
+template <typename T, int BM, int BN, class Extra, class Finish>
+__device__ __forceinline__ void fwd_walk(const T* x, const T* w, int M, int K,
+                                         int N, int tiles_n, int tiles,
+                                         bool vec_x, bool vec_w,
+                                         unsigned char* smem, Extra extra,
+                                         Finish finish) {
+  using C = FwdCfg<T, BM, BN>;
+  using G = typename C::G;
+  const int slices = (K + kBK - 1) / kBK;
+  auto item_at = [&](int j) {
+    const int q = blockIdx.x + j * gridDim.x;
+    FwdItem it;
+    it.tm = q / tiles_n;
+    it.m0 = it.tm * BM;
+    it.n0 = (q % tiles_n) * BN;
+    it.idx = j;
+    it.slices = slices;
+    return it;
+  };
+  auto xs = [&](int slot) {
+    return reinterpret_cast<T*>(smem + slot * C::kStage);
+  };
+  auto stage_in = [&](int slot, const FwdItem& it, int i) {
+    const int k0 = i * kBK;
+    load_tile<T, BM, kBK>(xs(slot), C::SX, x, K, it.m0, M, k0, K, vec_x);
+    load_tile<T, kBK, BN>(xs(slot) + BM * C::SX, C::SN, w, N, k0, K, it.n0,
+                          N, vec_w);
+    if (i == 0) extra(slot, it);
+  };
+  const int warp = threadIdx.x / 32;
+  const int rb = (warp / G::WC) * G::MI * 16;
+  const int cb = (warp % G::WC) * G::NI * 8;
+  float acc[G::MI][G::NI][4] = {};
+  auto product = [&](int slot, const FwdItem&, int) {
+    const FwdOps<T, C, G::MI, G::NI> op{xs(slot), xs(slot) + BM * C::SX};
+    Slice<T>::template run<G::MI, G::NI>(op, rb, cb, acc);
+  };
+  auto done = [&](const FwdItem& it) {
+    finish(it, acc);
+#pragma unroll
+    for (int mi = 0; mi < G::MI; ++mi) {
+#pragma unroll
+      for (int ni = 0; ni < G::NI; ++ni) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+      }
+    }
+  };
+  const int n = (tiles - (int)blockIdx.x + (int)gridDim.x - 1) /
+                (int)gridDim.x;
+  walk(n, item_at, stage_in, product, done);
+}
+
+// A matrix's rows take load_tile's 16-byte copies only where its base is
+// 16-byte aligned (and its row length a multiple of 16 bytes, which the
+// caller checks).
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// The launch of a forward product: tile BM × BN, tiles_m × tiles_n tiles,
+// `blocks` persistent blocks (one per SM, at most one per tile).
+struct FwdPlan {
+  int bm, bn, tiles_m, tiles_n, blocks;
+};
+
+// The tile of (M, K, N) on `sms` SMs: the one whose walk a model finds
+// shortest. The busiest block walks ceil(tiles / sms) tiles of
+// (slices + kItem) slice times; a slice time grows with the tile's area,
+// and per output a small tile costs more (its warps read more shared
+// memory and split more values per product). kCost is the H100's, fitted
+// to the f32 times of every tile at ResNet-50's 15 shapes: a tile that
+// leaves SMs idle can still win (res4 _a's 98 tiles of 128 × 128 beat 196
+// of 128 × 64 on all 132 SMs), and a K split is reckoned not to pay for
+// its partials' traffic at these shapes. The plan depends on the shape
+// and the card alone, so a re-run gives the same bits.
+inline FwdPlan fwd_plan(int M, int K, int N, int sms) {
+  constexpr int kTiles[4][2] = {{128, 128}, {128, 64}, {64, 128}, {64, 64}};
+  constexpr double kCost[4] = {1.0, 1.17, 1.2, 1.52};  // per output
+  constexpr double kItem = 0.5;                         // the epilogue
+  const long long slices = (K + kBK - 1) / kBK;
+  FwdPlan best{};
+  double best_t = -1.0;
+  for (int c = 0; c < 4; ++c) {
+    const int bm = kTiles[c][0], bn = kTiles[c][1];
+    const long long tm = (M + bm - 1) / bm, tn = (N + bn - 1) / bn;
+    const long long tiles = tm * tn;
+    const long long rounds = (tiles + sms - 1) / sms;
+    const double t = rounds * (slices + kItem) * kCost[c] * bm * bn /
+                     (128.0 * 128.0);
+    if (best_t < 0.0 || t < best_t) {
+      best_t = t;
+      best = FwdPlan{bm, bn, (int)tm, (int)tn,
+                     (int)(tiles < sms ? tiles : sms)};
+    }
+  }
+  return best;
+}
+
+// fwd_plan on the current device.
+inline FwdPlan fwd_plan(int M, int K, int N) {
+  int device = 0, sms = 132;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
+          cudaSuccess)
+    sms = 132;
+  return fwd_plan(M, K, N, sms);
 }
 
 }  // namespace mma

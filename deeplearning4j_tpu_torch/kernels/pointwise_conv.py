@@ -4,9 +4,10 @@
 
     y = act((x @ w) · scale + shift [+ residual])
 
-One hand-written Hopper kernel carries both (csrc/matmul_epilogue.cu): f32
-or bf16 inputs accumulate in f32, int8 × int8 accumulates exactly in
-int32, and one shared epilogue applies the affine, the residual and the
+One hand-written Hopper source carries both (csrc/matmul_epilogue.cu):
+f32 or bf16 inputs run on the tensor cores (mma.sync; f32 as 3×TF32) and
+accumulate in f32, int8 × int8 accumulates exactly in int32 on the CUDA
+cores, and one shared epilogue applies the affine, the residual and the
 activation in registers, so the fp and int8 paths cannot drift apart.
 The kernel tiles M, N and K itself and guards every ragged edge, so the
 wrappers pad nothing.
@@ -22,7 +23,8 @@ The training half, the counterpart of the JAX module's `matmul_stats`,
 `bn_grad_stats`, `bn_conv_grads` and `fused_conv1x1_bn`:
 
 - `matmul_stats` (csrc/matmul_stats.cu): y = x @ w with the per-channel
-  Σy and Σy² of the training BN in the same kernel.
+  Σy and Σy² of the training BN in the same kernel, on the tensor-core
+  tile of `matmul_epilogue`.
 - `bn_grad_stats` (csrc/bn_grad_stats.cu): dγ and dβ in one read of
   (y, dz).
 - `bn_conv_grads` (csrc/bn_conv_grads.cu): dX and dW of the conv, with BN's
@@ -64,6 +66,16 @@ def _entry():
         fn.restype = ctypes.c_int
         _bound.append(fn)
     return _bound[0]
+
+
+def _fwd_tile(m, k, n):
+    """(BM, BN): the output tile the tensor-core route of `matmul_epilogue`
+    and `matmul_stats` picks for (M, K, N) on the current card
+    (csrc/mma_tile.cuh `fwd_plan`)."""
+    fn = _build.library("matmul_epilogue").dl4j_fwd_tile
+    fn.argtypes, fn.restype = [_I] * 3, _I
+    code = fn(m, k, n)
+    return code // 1000, code % 1000
 
 
 def _check_act(act):

@@ -238,6 +238,91 @@ def test_cuda_epilogue_wrappers_raise_on_what_the_kernel_does_not_take(card):
         tpc.matmul_epilogue(x, w, v.cpu(), v)
 
 
+#: the forward GEMMs (matmul_epilogue's fp route, matmul_stats) at the edges
+#: of their tiles and ring: M, N and K one off a multiple of a tile or of
+#: the 32-value slice; N = 9 and K = 12 (rows of 36 and 48 bytes in f32,
+#: 18 and 24 in bf16: copied element by element); K = 2,048 (res5's longest
+#: contraction); and res4 _a and res5 _c. Together they reach every tile
+#: the launch can pick.
+FWD_EDGE_SHAPES = ((64, 12, 9), (129, 33, 65), (127, 31, 63),
+                   (1000, 95, 1025), (511, 2048, 130), (200, 12, 4097),
+                   (2049, 12, 511), (6272, 1024, 256), (1568, 512, 2048))
+FWD_TILES = {(128, 128), (128, 64), (64, 128), (64, 64)}
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2)])
+def test_cuda_forward_gemms_match_plain_at_tile_edges(card, dtype, atol):
+    """matmul_epilogue (identity, and residual + relu) and matmul_stats
+    against their plain versions at FWD_EDGE_SHAPES, matmul_stats re-run
+    for the same bits; the shapes cover every tile of the launch's plan."""
+    gen = torch.Generator(device=card).manual_seed(7)
+    assert {tpc._fwd_tile(*s) for s in FWD_EDGE_SHAPES} == FWD_TILES
+    for m, k, n in FWD_EDGE_SHAPES:
+        x = torch.randn((m, k), generator=gen, device=card).to(dtype)
+        w = (torch.randn((k, n), generator=gen, device=card)
+             / k ** 0.5).to(dtype)
+        scale = torch.rand(n, generator=gen, device=card) + 0.5
+        shift = torch.randn(n, generator=gen, device=card) * 0.1
+        res = torch.randn((m, n), generator=gen, device=card).to(dtype)
+        for r, act in ((None, "identity"), (res, "relu")):
+            got = tpc.matmul_epilogue(x, w, scale, shift, residual=r,
+                                      act=act)
+            want = tpc._epilogue_reference(x, w, scale, shift, r, act, dtype)
+            assert _scaled_err(got, want) <= atol, (m, k, n, act)
+        got, again = tpc.matmul_stats(x, w), tpc.matmul_stats(x, w)
+        for a, b, c in zip(got, tpc._matmul_stats_reference(x, w), again):
+            assert a.shape == b.shape and a.dtype == b.dtype
+            assert _scaled_err(a, b) <= atol, (m, k, n)
+            assert torch.equal(a, c), (m, k, n)
+
+
+@pytest.mark.parametrize("in_dtype,out_dtype,atol",
+                         [(torch.float32, torch.bfloat16, 2e-2),
+                          (torch.bfloat16, torch.float32, 2e-5)])
+def test_cuda_matmul_epilogue_casts_its_output(card, in_dtype, out_dtype,
+                                               atol):
+    """The output (and the residual) in the other float type than x and
+    w, with relu: the epilogue casts on the store."""
+    gen = torch.Generator(device=card).manual_seed(8)
+    for m, k, n in ((257, 200, 130), (6272, 1024, 256)):
+        x = torch.randn((m, k), generator=gen, device=card).to(in_dtype)
+        w = (torch.randn((k, n), generator=gen, device=card)
+             / k ** 0.5).to(in_dtype)
+        scale = torch.rand(n, generator=gen, device=card) + 0.5
+        shift = torch.randn(n, generator=gen, device=card) * 0.1
+        res = torch.randn((m, n), generator=gen, device=card).to(out_dtype)
+        got = tpc.matmul_epilogue(x, w, scale, shift, residual=res,
+                                  act="relu", out_dtype=out_dtype)
+        want = tpc._epilogue_reference(x, w, scale, shift, res, "relu",
+                                       out_dtype)
+        assert got.dtype == out_dtype and got.shape == (m, n)
+        assert _scaled_err(got, want) <= atol, (m, k, n)
+
+
+def test_cuda_matmul_stats_sums_the_stored_bf16_values(card):
+    """In bf16, Σy and Σy² are taken over y as stored (rounded to bf16):
+    far closer to the sums of the returned y than to those of the f32
+    product before rounding; and three runs give the same bits."""
+    gen = torch.Generator(device=card).manual_seed(9)
+    x = torch.randn((4096, 256), generator=gen, device=card).to(
+        torch.bfloat16)
+    w = (torch.randn((256, 192), generator=gen, device=card) / 16).to(
+        torch.bfloat16)
+    runs = [tpc.matmul_stats(x, w) for _ in range(3)]
+    for other in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], other))
+    y, s1, s2 = runs[0]
+    stored = y.double()
+    exact = x.double() @ w.double()
+    for got, want, unrounded in ((s1, stored.sum(0), exact.sum(0)),
+                                 (s2, (stored ** 2).sum(0),
+                                  (exact ** 2).sum(0))):
+        off = (got.double() - want).norm()
+        assert off <= 1e-5 * want.abs().sum()
+        assert off < 0.05 * (unrounded - want).norm()
+
+
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
                                         (torch.bfloat16, 2e-2)])
 def test_cuda_bottleneck_block_matches_plain(card, dtype, atol):

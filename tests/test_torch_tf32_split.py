@@ -1,5 +1,6 @@
-"""The f32 route of csrc/bn_conv_grads.cu, csrc/flash_fwd.cu and
-csrc/flash_bwd_dq.cu, emulated on the CPU.
+"""The f32 route of csrc/bn_conv_grads.cu, csrc/flash_fwd.cu,
+csrc/flash_bwd_dq.cu, csrc/matmul_epilogue.cu and csrc/matmul_stats.cu,
+emulated on the CPU.
 
 The kernels multiply f32 operands on the tensor cores as 3×TF32: each
 operand x is split into hi (x rounded to TF32's 10 mantissa bits, to
@@ -9,7 +10,10 @@ This file repeats that split in PyTorch, bit for bit as the kernel forms
 it, and holds the emulated products against an f64 product at the step's
 longest contractions (N = 2,048 for dX, M = 100,352 for dW) within the
 kernel's f32 gate, 2e-5 × max(1, max |plain|). One TF32 pass (a_hi·b_hi
-alone) must miss the same gate: that is why the kernel takes three.
+alone) must miss the same gate: that is why the kernel takes three. The
+forward GEMMs are emulated at res5's longest contraction, K = 2,048, as
+their walk forms it: each slice of 32 contraction values summed apart and
+added to the accumulator in f32.
 The attention kernels' walk (key tiles of 32, online softmax, each tile's
 second product summed apart) is emulated the same way at 2×4×512×64: O,
 lse and dQ within the gate of f64 with three passes, outside it with one.
@@ -19,10 +23,13 @@ import pytest
 import torch
 
 ATOL = 2e-5  # the f32 gate of chip_smoke.py and tests/test_torch_cuda_kernels.py
-#: (rows, contraction, columns) of the step's longest contractions:
-#: dX = dy · wᵀ at res5 (N = 2,048) and dW = xᵀ · dy at res2 (M = 100,352),
-#: cut to a few output rows and columns
-CONTRACTIONS = {"dX N=2048": (48, 2048, 40), "dW M=100352": (24, 100352, 32)}
+#: (rows, contraction, columns, slice) of the longest contractions: the
+#: step's dX = dy · wᵀ at res5 (N = 2,048) and dW = xᵀ · dy at res2
+#: (M = 100,352), each one product, and the forward y = x @ w at res5's
+#: 1,568 × 2,048 × 512 in slices of 32; cut to a few output rows and columns
+CONTRACTIONS = {"dX N=2048": (48, 2048, 40, None),
+                "dW M=100352": (24, 100352, 32, None),
+                "fwd K=2048": (64, 2048, 48, 32)}
 _MASK = -8192  # 0xffffe000 as int32: keeps sign, exponent, 10 mantissa bits
 
 
@@ -66,18 +73,32 @@ def test_split_rounds_to_tf32_and_keeps_f32_accuracy():
     assert split(tie)[0].tolist() == [1 + 2.0 ** -10, -(1 + 2.0 ** -10)]
 
 
+def _contraction(a, b, passes, piece):
+    """a @ b through `passes` TF32 products, over the whole contraction at
+    once or, as the forward GEMMs' walk does, `piece` values at a time,
+    each piece's products summed apart and added to the sum in f32."""
+    if piece is None:
+        return _tf32_product(a, b, passes)
+    acc = torch.zeros(a.shape[0], b.shape[1])
+    for k0 in range(0, a.shape[1], piece):
+        acc = acc + _tf32_product(a[:, k0:k0 + piece], b[k0:k0 + piece],
+                                  passes)
+    return acc
+
+
 @pytest.mark.parametrize("case", sorted(CONTRACTIONS))
 def test_three_tf32_products_hold_the_f32_gate(case):
-    a, b = _operands(*CONTRACTIONS[case], seed=2)
-    (ah, al), (bh, bl) = split(a), split(b)
-    got = al @ bh + ah @ bl + ah @ bh
+    *shape, piece = CONTRACTIONS[case]
+    a, b = _operands(*shape, seed=2)
+    got = _contraction(a, b, 3, piece)
     assert _scaled_err(got, a.double() @ b.double()) <= ATOL
 
 
 @pytest.mark.parametrize("case", sorted(CONTRACTIONS))
 def test_one_tf32_product_misses_the_f32_gate(case):
-    a, b = _operands(*CONTRACTIONS[case], seed=3)
-    got = split(a)[0] @ split(b)[0]
+    *shape, piece = CONTRACTIONS[case]
+    a, b = _operands(*shape, seed=3)
+    got = _contraction(a, b, 1, piece)
     assert _scaled_err(got, a.double() @ b.double()) > ATOL
 
 
