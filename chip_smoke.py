@@ -14,9 +14,11 @@ Phases, in order; any failure exits non-zero and prints no result:
             the main paths' shapes, in f32 and bf16, with its time, the
             plain version's time, one PyTorch library call's time (a
             yardstick only; the port never calls it) and the least time
-            the card could take for the same work. The backward pair is
-            also re-run and must agree bit for bit; the int8 epilogue's
-            int32 sums must be exact. bn_conv_grads also runs the 15
+            the card could take for the same work. The backward pair and
+            the decode kernel are also re-run and must agree bit for bit
+            (each decode call is one launch, its cluster size logged);
+            the int8 epilogue's int32 sums must be exact.
+            bn_conv_grads also runs the 15
             shapes of a ResNet-50 training step's 36 conv1x1+BN pairs
             (`step36`): kernel and library ms summed over the pairs
             beside the step's bound. matmul_epilogue and matmul_stats run
@@ -93,8 +95,8 @@ from deeplearning4j_tpu_torch.generation import BertDecoder, GenerationServer
 from deeplearning4j_tpu_torch.kernels import _build
 from deeplearning4j_tpu_torch.kernels.flash_attention import (
     _decode_reference, _delta, _dkv_reference, _dq_reference,
-    _flash_forward, _flash_forward_reference, flash_bwd_dkv, flash_bwd_dq,
-    flash_decode, flash_fwd)
+    _flash_forward, _flash_forward_reference, decode_cluster_size,
+    flash_bwd_dkv, flash_bwd_dq, flash_decode, flash_fwd)
 from deeplearning4j_tpu_torch.models import (bert_base, bert_classify,
                                              classification_loss,
                                              init_bert_params, param_leaves)
@@ -122,12 +124,13 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12,      # f32 outside the tensor cores
               torch.bfloat16: 989e12,    # bf16 tensor cores
               torch.int8: 1979e12}       # int8 tensor cores (TOP/s)
-#: TF32 tensor cores: bn_conv_grads, flash_fwd and flash_bwd_dq take f32
-#: through them as 3×TF32, three TF32 products for each f32 product
+#: TF32 tensor cores: bn_conv_grads, the forward GEMMs and the flash
+#: kernels but decode take f32 through them as 3×TF32, three TF32 products
+#: for each f32 product
 PEAK_TF32 = 495e12
 #: the flash kernels whose f32 route is 3×TF32 on the tensor cores
-#: (flash_bwd_dkv and flash_decode run f32 FMA)
-TF32_FLASH = ("flash_fwd", "flash_bwd_dq")
+#: (flash_decode runs f32 FMA)
+TF32_FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 #: kernel vs plain version: f32 sums run in another order; bf16 rounds
 #: its output to 8 mantissa bits. Gradients, the epilogue GEMM and the
 #: bottleneck block are held to the same atol scaled by
@@ -357,7 +360,14 @@ def _decode_case(label, b, h, c, d, lengths, dtype, gen):
     k = torch.randn((b, h, c, d), generator=gen, device=dev).to(dtype)
     v = torch.randn((b, h, c, d), generator=gen, device=dev).to(dtype)
     mask = _ragged_mask(lengths, c, dev)
+    on_card = dev.type == "cuda"   # a CPU rehearsal runs the plain version
+    before = flash_decode.launches
     out = flash_decode(q, k, v, mask)
+    if on_card and flash_decode.launches - before != 1:
+        raise AssertionError(f"flash_decode {label}: "
+                             f"{flash_decode.launches - before} launches "
+                             "for one call")
+    again = flash_decode(q, k, v, mask)
     ref = _decode_reference(q, k, v, mask)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
@@ -375,6 +385,9 @@ def _decode_case(label, b, h, c, d, lengths, dtype, gen):
         q, k, v, attn_mask=mask[:, None, None, :]), iters=50)
     return dict(name="flash_decode", case=label, shape=[b, h, c, d],
                 dtype=DTYPE_NAMES[dtype], max_abs_err=err, atol=ATOL[dtype],
+                bit_identical=torch.equal(out, again),
+                cluster=(decode_cluster_size(b, h, c, d, dtype, dev)
+                         if on_card else None),
                 ms=ms, plain_ms=plain, library_ms=lib,
                 bound_ms=bms, bound_by=by)
 
@@ -932,6 +945,7 @@ def run_kernel_cases(cases, gen):
             + ("" if "bit_identical" not in r else
                f" bit_identical={r['bit_identical']}")
             + ("" if "f64_err" not in r else f" f64_err={r['f64_err']:.3e}")
+            + ("" if "cluster" not in r else f" cluster={r['cluster']}")
             + ("" if "acc_exact" not in r else
                f" int32_sums_exact={r['acc_exact']}"))
         if not ok:

@@ -1,12 +1,16 @@
-// The attention tile of the port's query-tile kernels (flash_fwd.cu,
-// flash_bwd_dq.cu) on Hopper's tensor cores, built on mma_tile.cuh.
+// The attention tile of the port's flash kernels (flash_fwd.cu,
+// flash_bwd_dq.cu, flash_bwd_dkv.cu) on Hopper's tensor cores, built on
+// mma_tile.cuh.
 //
 // A warp owns 16 query rows of one (b·h); a block has 1, 2 or 4 warps
 // (`warps_per_block` picks them at launch). The warp keeps its rows' A
 // fragments (Q, and dO in the backward) in registers for the whole walk
 // over the K/V tiles, which a ring of mma::kStages stages of shared memory
-// brings in by cp.async (`stage_kv`, driven by mma::walk). Every product
-// is an mma.sync over the warp's 16 rows:
+// brings in by cp.async (`stage_kv`, driven by mma::walk). flash_bwd_dkv.cu
+// swaps the roles: a warp owns 16 key rows (K and V kept as A fragments)
+// and walks tiles of query rows (Q and dO staged as B operands), so the
+// fragments' rows are keys and their columns queries (`mask_scores_t`).
+// Every product is an mma.sync over the warp's 16 rows:
 // - `scores`: S = A·Kᵀ (or dP = dO·Vᵀ) for a tile of BK keys, with K
 //   row-major as the B operand: the thread's accumulator fragments hold
 //   rows g and g + 8 at keys 8j + 2t and 8j + 2t + 1 (g = lane / 4,
@@ -356,6 +360,37 @@ __device__ __forceinline__ void mask_scores(float (&s)[NJ][4], uint64_t bits,
       if (key >= Tk) {
         s[j][e] = neg_inf();
       } else if (!((bits >> c) & 1) || (causal && key > rows[e >> 1])) {
+        s[j][e] = kNegInf;
+      }
+    }
+  }
+}
+
+// The masks of the dK/dV walk on Sᵀ = K·Qᵀ, in place: rows are the
+// thread's two keys (`kv`: present, key < Tk, and not removed by the key
+// mask), columns the queries q0 + 8j + 2t (+1). A key that `kv` drops
+// (rows ≥ Tk are never stored) and, under causality, a query before the
+// key take −1e30, as in the JAX kernel; queries ≥ Tq are absent (−inf:
+// p == 0 exactly). A tile whose queries are all present and see every one
+// of the warp's 16 keys (`all_keys`) is left as it is.
+template <int NJ>
+__device__ __forceinline__ void mask_scores_t(float (&s)[NJ][4],
+                                              const bool (&kv)[2],
+                                              bool all_keys, int q0, int Tq,
+                                              int causal,
+                                              const int (&keys)[2]) {
+  const int t = threadIdx.x % 4;
+  const int r0 = keys[0] - threadIdx.x % 32 / 4;  // the warp's first key
+  if (all_keys && q0 + 8 * NJ <= Tq && !(causal && q0 < r0 + 15)) return;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int qi = q0 + 8 * j + 2 * t + (e & 1);
+      const int h = e >> 1;
+      if (qi >= Tq) {
+        s[j][e] = neg_inf();
+      } else if (!kv[h] || (causal && qi < keys[h])) {
         s[j][e] = kNegInf;
       }
     }

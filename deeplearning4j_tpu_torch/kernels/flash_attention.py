@@ -9,13 +9,15 @@ Four hand-written Hopper kernels carry it on the card:
   encode (`attn_impl="flash"`) and decoder prefill run it.
 - `flash_bwd_dq` (csrc/flash_bwd_dq.cu) and `flash_bwd_dkv`
   (csrc/flash_bwd_dkv.cu): the backward pair. Both recompute
-  P = exp(S − lse) from the forward's saved logsumexp; one block owns a
-  query tile (dQ) or a key tile (dK, dV), so each gradient row is written
-  by one block and two runs agree bit for bit. `flash_attention` is a
+  P = exp(S − lse) from the forward's saved logsumexp; one warp owns 16
+  query rows (dQ) or 16 key rows (dK, dV), so each gradient row is written
+  by one warp and two runs agree bit for bit. `flash_attention` is a
   `torch.autograd.Function` whose backward runs them, so BERT fine-tuning
   trains through the kernels.
 - `flash_decode` (csrc/flash_decode.cu): one query per (b, h) against a
   (B, H, C, D) cache under a (B, C) cache mask; the decode step runs it.
+  One launch splits each (b, h)'s cache rows over a thread-block cluster
+  of 2, 4 or 8 CTAs (`decode_cluster_size`).
 
 Each wrapper launches its kernel for a CUDA tensor, counts the launch on
 its `launches` attribute, and raises on what the kernel does not take. For
@@ -37,7 +39,7 @@ from deeplearning4j_tpu_torch.kernels import _build
 
 __all__ = ["flash_attention", "flash_attention_decode",
            "flash_attention_decode_mq", "flash_fwd", "flash_bwd_dq",
-           "flash_bwd_dkv", "flash_decode"]
+           "flash_bwd_dkv", "flash_decode", "decode_cluster_size"]
 
 _NEG_INF = -1e30
 
@@ -47,34 +49,36 @@ _FWD_HEAD_DIMS = (16, 32, 64)
 _DECODE_HEAD_DIMS = (32, 64, 128)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: C entry point -> (its library, csrc/<library>.cu; its argument types)
 _ENTRIES = {
     # q, k, v, kv_mask, o, lse, dtype, BH, H, Tq, Tk, D, causal, scale,
     # device, stream
-    "flash_fwd": ("dl4j_flash_fwd",
-                  [_P] * 6 + [_I] * 7 + [_F, _I, _P]),
+    "dl4j_flash_fwd": ("flash_fwd", [_P] * 6 + [_I] * 7 + [_F, _I, _P]),
     # q, k, v, dO, lse, delta, kv_mask, dq, dtype, BH, H, Tq, Tk, D,
     # causal, scale, device, stream
-    "flash_bwd_dq": ("dl4j_flash_bwd_dq",
-                     [_P] * 8 + [_I] * 7 + [_F, _I, _P]),
+    "dl4j_flash_bwd_dq": ("flash_bwd_dq",
+                          [_P] * 8 + [_I] * 7 + [_F, _I, _P]),
     # q, k, v, dO, lse, delta, kv_mask, dk, dv, dtype, BH, H, Tq, Tk, D,
     # causal, scale, device, stream
-    "flash_bwd_dkv": ("dl4j_flash_bwd_dkv",
-                      [_P] * 9 + [_I] * 7 + [_F, _I, _P]),
+    "dl4j_flash_bwd_dkv": ("flash_bwd_dkv",
+                           [_P] * 9 + [_I] * 7 + [_F, _I, _P]),
     # q, k, v, mask, o, dtype, BH, H, C, D, scale, device, stream
-    "flash_decode": ("dl4j_flash_decode",
-                     [_P] * 5 + [_I] * 5 + [_F, _I, _P]),
+    "dl4j_flash_decode": ("flash_decode",
+                          [_P] * 5 + [_I] * 5 + [_F, _I, _P]),
+    # dtype, BH, C, D, device -> CTAs per (b, h)
+    "dl4j_flash_decode_cluster": ("flash_decode", [_I] * 5),
 }
 _bound = {}
 
 
-def _entry(name):
-    fn = _bound.get(name)
+def _entry(sym):
+    fn = _bound.get(sym)
     if fn is None:
-        sym, argtypes = _ENTRIES[name]
-        fn = getattr(_build.library(name), sym)
+        lib, argtypes = _ENTRIES[sym]
+        fn = getattr(_build.library(lib), sym)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _bound[name] = fn
+        _bound[sym] = fn
     return fn
 
 
@@ -173,7 +177,7 @@ def flash_fwd(q, k, v, kv_mask=None, causal=False):
                              f"{(b, tk)}, got {tuple(mask.shape)}")
     out = torch.empty_like(q)
     lse = torch.empty((b * h, tq), dtype=torch.float32, device=q.device)
-    code = _entry("flash_fwd")(
+    code = _entry("dl4j_flash_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if mask is None else mask.data_ptr(), out.data_ptr(),
         lse.data_ptr(), _DTYPE_CODES[q.dtype], b * h, h, tq, tk, d,
@@ -305,7 +309,7 @@ def flash_bwd_dq(q, k, v, g, lse, delta, kv_mask=None, causal=False):
     dq = torch.empty_like(q)
     d = q.shape[-1]
     ptrs, ints = _bwd_args(q, k, v, g, lse, delta, mask)
-    code = _entry("flash_bwd_dq")(
+    code = _entry("dl4j_flash_bwd_dq")(
         *ptrs, dq.data_ptr(), *ints, int(causal), 1.0 / d ** 0.5,
         q.device.index or 0, _stream(q.device))
     _build.check(code, "flash_bwd_dq")
@@ -328,7 +332,7 @@ def flash_bwd_dkv(q, k, v, g, lse, delta, kv_mask=None, causal=False):
     dv = torch.empty_like(v)
     d = q.shape[-1]
     ptrs, ints = _bwd_args(q, k, v, g, lse, delta, mask)
-    code = _entry("flash_bwd_dkv")(
+    code = _entry("dl4j_flash_bwd_dkv")(
         *ptrs, dk.data_ptr(), dv.data_ptr(), *ints, int(causal),
         1.0 / d ** 0.5, q.device.index or 0, _stream(q.device))
     _build.check(code, "flash_bwd_dkv")
@@ -429,7 +433,7 @@ def flash_decode(q, k_cache, v_cache, cache_mask):
                         _DECODE_HEAD_DIMS)
     mask = _mask_bytes(cache_mask, q.device, "cache_mask")
     out = torch.empty_like(q)
-    code = _entry("flash_decode")(
+    code = _entry("dl4j_flash_decode")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
         out.data_ptr(), _DTYPE_CODES[q.dtype], b * h, h, c, d,
         1.0 / d ** 0.5, q.device.index or 0, _stream(q.device))
@@ -439,6 +443,21 @@ def flash_decode(q, k_cache, v_cache, cache_mask):
 
 
 flash_decode.launches = 0
+
+
+def decode_cluster_size(b, h, c, d, dtype, device):
+    """The CTAs of the thread-block cluster that `flash_decode` launches
+    for each (b, h) at this shape on `device` (a CUDA device): 2, 4 or 8,
+    each reading a contiguous share of the C cache rows."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"decode_cluster_size: flash_decode runs on a CUDA "
+                         f"device, got {dev}")
+    if dtype not in _DTYPE_CODES or d not in _DECODE_HEAD_DIMS:
+        raise ValueError(f"flash_decode takes float32 or bfloat16 at head "
+                         f"dims {_DECODE_HEAD_DIMS}, got {dtype}, {d}")
+    return _entry("dl4j_flash_decode_cluster")(
+        _DTYPE_CODES[dtype], b * h, c, d, dev.index or 0)
 
 
 def flash_attention_decode(q1, k_cache, v_cache, cache_mask, impl="auto"):

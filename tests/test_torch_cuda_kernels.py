@@ -116,6 +116,88 @@ def test_cuda_kernels_match_plain_versions(card, dtype, atol):
             assert dq[lens.index(0)].abs().max() == 0
 
 
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2)])
+def test_cuda_flash_bwd_dkv_matches_plain_on_the_tile_paths(card, dtype,
+                                                            atol):
+    """dK/dV on the tensor-core tile (a warp per 16 keys, query tiles
+    walked): head dims 16/32/64, ragged Tq ≠ Tk, a causal 1×12×128 grid
+    (one warp a block), Tk = 200 with lengths 200/70/0 (whole key tiles
+    masked, a fully padded example) and a padded cross case; each within
+    atol × max(1, max |plain|), bit-identical on a re-run, and exactly
+    zero for a fully padded example."""
+    gen = torch.Generator(device=card).manual_seed(3)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=card).to(dtype)
+
+    for (b, h, tq, tk, d), lens, causal in (
+            ((3, 4, 70, 70, 16), [70, 33, 0], False),
+            ((3, 4, 70, 45, 32), [45, 20, 1], False),
+            ((2, 3, 45, 45, 32), None, True),
+            ((1, 12, 128, 128, 64), None, True),
+            ((3, 2, 200, 200, 64), [200, 70, 0], False),
+            ((2, 4, 100, 300, 64), [300, 0], False),
+            ((4, 12, 128, 128, 64), [128, 100, 64, 17], False)):
+        q, g = rnd(b, h, tq, d), rnd(b, h, tq, d)
+        k, v = rnd(b, h, tk, d), rnd(b, h, tk, d)
+        km = None if lens is None else (
+            torch.arange(tk, device=card)[None]
+            < torch.tensor(lens, device=card)[:, None])
+        qm = km if tq == tk else None
+        o, lse = tfa._flash_forward(q, k, v, qm, km, causal)
+        args = (q, k, v, g, lse, tfa._delta(g, o), km, causal)
+        before = tfa.flash_bwd_dkv.launches
+        got, again = tfa.flash_bwd_dkv(*args), tfa.flash_bwd_dkv(*args)
+        assert tfa.flash_bwd_dkv.launches - before == 2
+        want = tfa._dkv_reference(*args)
+        for a, w, c in zip(got, want, again):
+            scale = max(1.0, w.float().abs().max().item())
+            assert a.dtype == dtype and a.shape == w.shape
+            assert (a.float() - w.float()).abs().max() <= atol * scale, (
+                b, h, tq, tk, d, lens, causal)
+            assert torch.equal(a, c)          # no atomics: bit-identical
+            if lens is not None and 0 in lens:
+                assert a[lens.index(0)].abs().max() == 0
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2)])
+def test_cuda_flash_decode_splits_the_cache_over_a_cluster(card, dtype,
+                                                           atol):
+    """Decode through a thread-block cluster per (b, h): C = 128, 200 and
+    512 (and 1000, two passes a CTA) with lengths 1, 0, C − 1 and C/2 + 3,
+    which leave whole cluster shares empty; one launch per call, within
+    atol of the plain version, exact zeros for the empty row, bit-identical
+    on a re-run. In f32 the shapes reach every cluster size the launch can
+    pick (2, 4 and 8)."""
+    gen = torch.Generator(device=card).manual_seed(4)
+    sizes = set()
+    for b, h, c, d in ((4, 24, 128, 64), (4, 24, 200, 64), (4, 24, 512, 64),
+                       (4, 3, 1000, 64), (4, 24, 128, 32),
+                       (4, 6, 512, 128)):
+        lens = [1, 0, c - 1, c // 2 + 3]
+        q = torch.randn((b, h, 1, d), generator=gen, device=card).to(dtype)
+        k = torch.randn((b, h, c, d), generator=gen, device=card).to(dtype)
+        v = torch.randn((b, h, c, d), generator=gen, device=card).to(dtype)
+        mask = (torch.arange(c, device=card)[None]
+                < torch.tensor(lens, device=card)[:, None])
+        before = tfa.flash_decode.launches
+        out = tfa.flash_decode(q, k, v, mask)
+        assert tfa.flash_decode.launches - before == 1
+        again = tfa.flash_decode(q, k, v, mask)
+        ref = tfa._decode_reference(q, k, v, mask)
+        assert out.dtype == dtype and out.shape == ref.shape
+        assert (out.float() - ref.float()).abs().max() <= atol, (b, h, c, d)
+        assert out[1].abs().max() == 0
+        assert torch.equal(out, again)
+        cs = tfa.decode_cluster_size(b, h, c, d, dtype, card)
+        assert cs in (2, 4, 8)
+        sizes.add(cs)
+    if dtype == torch.float32:
+        assert sizes == {2, 4, 8}
+
+
 def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(card):
     x = torch.zeros((1, 2, 8, 64), device=card)
     with pytest.raises(TypeError, match="float32 or bfloat16"):

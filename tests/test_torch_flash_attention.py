@@ -167,3 +167,14 @@ def test_kernel_wrappers_count_no_launch_on_cpu():
     tfa.flash_decode(q[:, :, :1], k, v, torch.ones(1, 6, dtype=torch.bool))
     assert (tfa.flash_fwd.launches, tfa.flash_decode.launches) == before
 
+
+
+def test_decode_cluster_size_checks_what_the_kernel_takes():
+    """`decode_cluster_size` reports the card's launch and rejects what
+    flash_decode would not launch, before it loads any library."""
+    with pytest.raises(ValueError, match="CUDA device"):
+        tfa.decode_cluster_size(8, 12, 512, 64, torch.float32, "cpu")
+    with pytest.raises(ValueError, match="head dims"):
+        tfa.decode_cluster_size(8, 12, 512, 16, torch.float32, "cuda")
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tfa.decode_cluster_size(8, 12, 512, 64, torch.float16, "cuda")

@@ -1,6 +1,6 @@
 """The f32 route of csrc/bn_conv_grads.cu, csrc/flash_fwd.cu,
-csrc/flash_bwd_dq.cu, csrc/matmul_epilogue.cu and csrc/matmul_stats.cu,
-emulated on the CPU.
+csrc/flash_bwd_dq.cu, csrc/flash_bwd_dkv.cu, csrc/matmul_epilogue.cu and
+csrc/matmul_stats.cu, emulated on the CPU.
 
 The kernels multiply f32 operands on the tensor cores as 3×TF32: each
 operand x is split into hi (x rounded to TF32's 10 mantissa bits, to
@@ -17,6 +17,9 @@ added to the accumulator in f32.
 The attention kernels' walk (key tiles of 32, online softmax, each tile's
 second product summed apart) is emulated the same way at 2×4×512×64: O,
 lse and dQ within the gate of f64 with three passes, outside it with one.
+So is the dK/dV kernel's walk over query tiles of 32, in both orders of
+its sums (each tile's Pᵀ·dO and dSᵀ·Q summed apart, or accumulated
+straight into dK and dV as the mma chain adds them, 8 queries a step).
 """
 import numpy as np
 import pytest
@@ -123,14 +126,16 @@ def _attention_operands(seed):
 
 
 def _attention_f64(q, k, v, g):
-    """O, lse and dQ of unmasked attention in f64."""
+    """O, lse, dQ, dK and dV of unmasked attention in f64."""
     q, k, v, g = (x.double() for x in (q, k, v, g))
-    s = q @ k.transpose(-1, -2) / q.shape[-1] ** 0.5
+    scale = 1.0 / q.shape[-1] ** 0.5
+    s = q @ k.transpose(-1, -2) * scale
     lse = torch.logsumexp(s, -1)
     p = torch.exp(s - lse[..., None])
     o = p @ v
     ds = p * (g @ v.transpose(-1, -2) - (g * o).sum(-1, keepdim=True))
-    return o, lse, ds @ k / q.shape[-1] ** 0.5
+    return (o, lse, ds @ k * scale, ds.transpose(-1, -2) @ q * scale,
+            p.transpose(-1, -2) @ g)
 
 
 def _forward_emulated(q, k, v, passes):
@@ -173,7 +178,7 @@ def _attention_errors(passes, seed):
     against f64; dQ from the f64 lse and Δ rounded to f32, as the forward
     and the wrapper hand them over."""
     q, k, v, g = _attention_operands(seed)
-    o64, lse64, dq64 = _attention_f64(q, k, v, g)
+    o64, lse64, dq64, _, _ = _attention_f64(q, k, v, g)
     o, lse = _forward_emulated(q, k, v, passes)
     delta = (g.double() * o64).sum(-1).float()
     dq = _dq_emulated(q, k, v, g, lse64.float(), delta, passes)
@@ -190,3 +195,61 @@ def test_three_tf32_products_hold_the_attention_gate():
 def test_one_tf32_product_misses_the_attention_gate():
     o_err, lse_err, dq_err = _attention_errors(passes=1, seed=5)
     assert o_err > ATOL and dq_err > ATOL
+
+
+def _chain(acc, a, b, passes):
+    """acc + a @ b as an mma.sync chain adds it: 8 contraction values a
+    step, and per step lo·hi, hi·lo and hi·hi (or hi·hi alone), each added
+    to acc in f32."""
+    (ah, al), (bh, bl) = split(a.contiguous()), split(b.contiguous())
+    terms = [(ah, bh)] if passes == 1 else [(al, bh), (ah, bl), (ah, bh)]
+    for k0 in range(0, a.shape[-1], 8):
+        for x, y in terms:
+            acc = acc + x[..., k0:k0 + 8] @ y[..., k0:k0 + 8, :]
+    return acc
+
+
+def _dkv_emulated(q, k, v, g, lse, delta, passes, order):
+    """The f32 dK/dV kernel's walk: query tiles of ATTN_TILE, Sᵀ = K·scale·
+    Qᵀ and dPᵀ = V·dOᵀ, then Pᵀ·dO and dSᵀ·Q, each tile's sums kept apart
+    and added to dK and dV in f32 (`order` "apart") or chained straight
+    onto them ("straight")."""
+    scale = 1.0 / q.shape[-1] ** 0.5
+    ks = k * scale
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for q0 in range(0, q.shape[2], ATTN_TILE):
+        qt, gt = q[:, :, q0:q0 + ATTN_TILE], g[:, :, q0:q0 + ATTN_TILE]
+        cols = slice(q0, q0 + ATTN_TILE)
+        pt = torch.exp(_tf32_product(ks, qt.transpose(-1, -2), passes)
+                       - lse[:, :, None, cols])
+        dpt = _tf32_product(v, gt.transpose(-1, -2), passes)
+        dst = pt * (dpt - delta[:, :, None, cols])
+        if order == "apart":
+            dv = dv + _chain(torch.zeros_like(dv), pt, gt, passes)
+            dk = dk + _chain(torch.zeros_like(dk), dst, qt, passes)
+        else:
+            dv = _chain(dv, pt, gt, passes)
+            dk = _chain(dk, dst, qt, passes)
+    return scale * dk, dv
+
+
+def _dkv_errors(passes, seed, order):
+    """(|ΔdK|, |ΔdV|), each over max(1, max |f64|), of the emulated dK/dV
+    kernel against f64, from the f64 lse and Δ rounded to f32."""
+    q, k, v, g = _attention_operands(seed)
+    o64, lse64, _, dk64, dv64 = _attention_f64(q, k, v, g)
+    delta = (g.double() * o64).sum(-1).float()
+    dk, dv = _dkv_emulated(q, k, v, g, lse64.float(), delta, passes, order)
+    return _scaled_err(dk, dk64), _scaled_err(dv, dv64)
+
+
+@pytest.mark.parametrize("order", ["apart", "straight"])
+def test_three_tf32_products_hold_the_dkv_gate(order):
+    dk_err, dv_err = _dkv_errors(passes=3, seed=6, order=order)
+    assert dk_err <= ATOL and dv_err <= ATOL
+
+
+@pytest.mark.parametrize("order", ["apart", "straight"])
+def test_one_tf32_product_misses_the_dkv_gate(order):
+    dk_err, dv_err = _dkv_errors(passes=1, seed=7, order=order)
+    assert dk_err > ATOL and dv_err > ATOL
