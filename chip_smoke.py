@@ -17,7 +17,10 @@ Phases, in order; any failure exits non-zero and prints no result:
             the card could take for the same work. The backward pair and
             the decode kernel are also re-run and must agree bit for bit
             (each decode call is one launch, its cluster size logged);
-            the int8 epilogue's int32 sums must be exact.
+            the int8 epilogue's int32 sums must be exact at four shapes
+            (its tile logged); the bottleneck block runs ResNet-50's four
+            identity stages, re-run for bit identity, its plan (R rows a
+            block, P pixels, blocks, L2 weight bytes) logged.
             bn_conv_grads also runs the 15
             shapes of a ResNet-50 training step's 36 conv1x1+BN pairs
             (`step36`): kernel and library ms summed over the pairs
@@ -107,7 +110,7 @@ from deeplearning4j_tpu_torch.kernels.pointwise_conv import (
     _epilogue_reference, _fwd_tile, _matmul_stats_reference, bn_conv_grads,
     bn_grad_stats, int8_matmul_epilogue, matmul_epilogue, matmul_stats)
 from deeplearning4j_tpu_torch.kernels.residual_block import (
-    bottleneck_block, bottleneck_block_xla)
+    _plan as _block_plan_of, bottleneck_block, bottleneck_block_xla)
 from deeplearning4j_tpu_torch.models.convert import named_param_leaves
 from deeplearning4j_tpu_torch.models.zoo import ResNet50
 from deeplearning4j_tpu_torch.nn import Nesterovs
@@ -465,6 +468,13 @@ EPILOGUE_SHAPES = {"res2_c B=32": (32 * 56 * 56, 64, 256),
                    "res4_a B=32": (32 * 14 * 14, 1024, 256),
                    "res5_c B=32": (32 * 7 * 7, 512, 2048),
                    "ragged+res+relu": (4999, 1000, 256)}
+#: the int8 epilogue GEMM's cases: three 1×1 convs of ResNet-50 at B=32 and
+#: a ragged one (K % 16 and N % 8 not 0: rows copied byte by byte) with a
+#: residual and bf16 out: (M, K, N, residual and bf16 out)
+INT8_SHAPES = {"res2_c B=32": (32 * 56 * 56, 64, 256, False),
+               "res4_a B=32": (32 * 14 * 14, 1024, 256, False),
+               "res5_c B=32": (32 * 7 * 7, 512, 2048, False),
+               "ragged+res bf16": (4999, 1000, 251, True)}
 #: ResNet-50's identity blocks at B=32: (B, H, W, C, M)
 BOTTLENECK_SHAPES = {"res2 B=32": (32, 56, 56, 256, 64),
                      "res3 B=32": (32, 28, 28, 512, 128),
@@ -487,9 +497,10 @@ def _fwd_work(m, k, n, dtype, nbytes, extra_flops=0.0):
     return 2.0 * m * k * n + extra_flops, nbytes, None
 
 
-def _tile(m, k, n):
+def _tile(m, k, n, int8=False):
     """The tile the forward GEMMs' launch picks on the card, "BMxBN"."""
-    return "x".join(map(str, _fwd_tile(m, k, n))) if DEV == "cuda" else None
+    return ("x".join(map(str, _fwd_tile(m, k, n, int8))) if DEV == "cuda"
+            else None)
 
 
 def _epilogue_case(label, m, k, n, with_res, act, dtype, gen, iters=20):
@@ -527,11 +538,13 @@ def _epilogue_case(label, m, k, n, with_res, act, dtype, gen, iters=20):
         library_ms=time_ms(library, iters), bound_ms=bms, bound_by=by)
 
 
-def _int8_case(label, m, k, n, gen):
+def _int8_case(label, m, k, n, ragged, gen):
     """int8_matmul_epilogue: the int32 sums bit-exact (scale 1, shift 0
-    against the exact product), then the f32 epilogue within INT8_RTOL of
-    the largest output (one rounding of acc·scale + shift apart).
-    The yardstick is torch._int_mm (cuBLAS int8) with the same epilogue."""
+    against the exact product), then the epilogue (relu; with a residual
+    and bf16 out where `ragged`) within INT8_RTOL of the largest f32
+    output (one rounding of acc·scale + shift apart), or ATOL[bf16] of it
+    in bf16 (the output's rounding). The yardstick is torch._int_mm
+    (cuBLAS int8) with the same epilogue."""
     def ints(*shape):
         return torch.randint(-127, 128, shape, generator=gen, device=DEV,
                              dtype=torch.int32).to(torch.int8)
@@ -539,33 +552,48 @@ def _int8_case(label, m, k, n, gen):
     xq, wq = ints(m, k), ints(k, n)
     scale = (torch.rand(n, generator=gen, device=DEV) + 0.5) * 1e-3
     shift = torch.randn(n, generator=gen, device=DEV)
+    out_dtype = torch.bfloat16 if ragged else torch.float32
+    res = _randn(gen, out_dtype, m, n) if ragged else None
     ones = torch.ones(n, device=DEV)
     acc = int8_matmul_epilogue(xq, wq, ones, torch.zeros_like(ones))
     exact = (xq.double() @ wq.double()).float()
-    out = int8_matmul_epilogue(xq, wq, scale, shift, act="relu")
-    ref = _epilogue_reference(xq, wq, scale, shift, None, "relu",
-                              torch.float32)
+
+    def kernel():
+        return int8_matmul_epilogue(xq, wq, scale, shift, residual=res,
+                                    act="relu", out_dtype=out_dtype)
+
+    def plain():
+        return _epilogue_reference(xq, wq, scale, shift, res, "relu",
+                                   out_dtype)
+
+    out, ref = kernel(), plain()
     torch.cuda.synchronize()
     acc_exact = bool(torch.equal(acc, exact))
-    err = (out - ref).abs().max().item()
-    nbytes = m * k + k * n + 4 * m * n + 8 * n
+    err, scl = _scaled_err(out, ref)
+    atol = (ATOL[torch.bfloat16] * scl if ragged
+            else INT8_RTOL * ref.abs().max().item())
+    osz = 2 if ragged else 4
+    nbytes = m * k + k * n + osz * m * n * (2 if ragged else 1) + 8 * n
     bms, by = bound(2.0 * m * k * n, nbytes, torch.int8)
+
+    def library():
+        y = torch._int_mm(xq, wq).float() * scale + shift
+        if res is not None:
+            y = y + res
+        return torch.relu(y).to(out_dtype)
+
     try:
-        torch._int_mm(xq, wq)
-        lib = time_ms(lambda: torch.relu(torch._int_mm(xq, wq).float()
-                                         * scale + shift))
+        library()
+        lib = time_ms(library)
     except RuntimeError as e:      # the yardstick only; not the port
         log(f"[kernels] torch._int_mm unavailable at {[m, k, n]}: {e}")
         lib = None
     return dict(
         name="int8_matmul_epilogue", case=label, shape=[m, k, n],
-        dtype="int8", max_abs_err=err, acc_exact=acc_exact,
-        atol=INT8_RTOL * ref.abs().max().item(),
-        ms=time_ms(lambda: int8_matmul_epilogue(xq, wq, scale, shift,
-                                                act="relu")),
-        plain_ms=time_ms(lambda: _epilogue_reference(
-            xq, wq, scale, shift, None, "relu", torch.float32)),
-        library_ms=lib, bound_ms=bms, bound_by=by)
+        dtype="int8", out_dtype=DTYPE_NAMES[out_dtype],
+        tile=_tile(m, k, n, int8=True), max_abs_err=err,
+        acc_exact=acc_exact, atol=atol, ms=time_ms(kernel),
+        plain_ms=time_ms(plain), library_ms=lib, bound_ms=bms, bound_by=by)
 
 
 def _bottleneck_library(x, w1, b1, w2, b2, w3, b3):
@@ -600,10 +628,26 @@ def _bottleneck_weights(c, m, dtype, gen):
 
 
 def _bottleneck_work(b, h, w, c, m, esz):
+    """(operations, bytes, peak) of the block on its tensor-core route: f32
+    as 3×TF32 (three TF32 products each) at the TF32 rate, bf16 at the bf16
+    rate; bytes are x, y and the weights once, and the f32 biases."""
     flops = 2.0 * b * h * w * (c * m + 9 * m * m + m * c)
     nbytes = 2 * b * h * w * c * esz + (2 * c * m + 9 * m * m) * esz \
         + (2 * m + c) * 4
-    return flops, nbytes
+    if esz == 4:
+        return 3.0 * flops, nbytes, PEAK_TF32
+    return flops, nbytes, None
+
+
+def _block_plan(b, h, w, c, m, dtype):
+    """The launch's plan (R, pixels, blocks, mi, smem) and the L2 weight
+    bytes it implies: every block streams all 17·M² weight values."""
+    if DEV != "cuda":
+        return None
+    plan = _block_plan_of(dtype, b, h, w, c, m)
+    esz = torch.tensor([], dtype=dtype).element_size()
+    plan["l2_weight_bytes"] = plan["blocks"] * 17 * m * m * esz
+    return plan
 
 
 def _bottleneck_case(label, b, h, w, c, m, dtype, gen):
@@ -611,14 +655,18 @@ def _bottleneck_case(label, b, h, w, c, m, dtype, gen):
     wts = _bottleneck_weights(c, m, dtype, gen)
     args = (x, wts[0], wts[1], wts[2], wts[3], wts[4], wts[5])
     out = bottleneck_block(*args, block_b=1)
+    again = bottleneck_block(*args, block_b=1)
     ref = bottleneck_block_xla(*args)
     torch.cuda.synchronize()
     err, scl = _scaled_err(out, ref)
-    bms, by = bound(*_bottleneck_work(b, h, w, c, m, x.element_size()),
-                    dtype)
+    flops, nbytes, peak = _bottleneck_work(b, h, w, c, m, x.element_size())
+    bms, by = bound(flops, nbytes, dtype, peak)
     return dict(
         name="bottleneck_block", case=label, shape=[b, h, w, c, m],
         dtype=DTYPE_NAMES[dtype], max_abs_err=err, atol=ATOL[dtype] * scl,
+        bit_identical=bool(torch.equal(out, again)),
+        plan=_block_plan(b, h, w, c, m, dtype),
+        fma_bound_ms=(bound(flops / 3, nbytes, dtype)[0] if peak else None),
         ms=time_ms(lambda: bottleneck_block(*args, block_b=1), iters=10),
         plain_ms=time_ms(lambda: bottleneck_block_xla(*args), iters=10),
         library_ms=time_ms(lambda: _bottleneck_library(*args), iters=10),
@@ -947,7 +995,14 @@ def run_kernel_cases(cases, gen):
             + ("" if "f64_err" not in r else f" f64_err={r['f64_err']:.3e}")
             + ("" if "cluster" not in r else f" cluster={r['cluster']}")
             + ("" if "acc_exact" not in r else
-               f" int32_sums_exact={r['acc_exact']}"))
+               f" int32_sums_exact={r['acc_exact']}")
+            + ("" if not r.get("tile") or r["name"] != "int8_matmul_epilogue"
+               else f" tile={r['tile']}")
+            + ("" if not r.get("plan") else
+               " R={rows} P={pixels} blocks={blocks} mi={mi} smem={smem} "
+               "l2_weight_bytes={l2_weight_bytes}".format(**r["plan"]))
+            + ("" if not r.get("fma_bound_ms") else
+               f" fma_rate_bound_ms={r['fma_bound_ms']:.5f}"))
         if not ok:
             bad.append(f"{r['name']} {r['case']} {r['dtype']}")
     if bad:
@@ -996,7 +1051,8 @@ def phase_kernels():
         for label, shape in BOTTLENECK_SHAPES.items():
             cases.append((_bottleneck_case, label, *shape, dtype))
         cases += training_kernel_cases(dtype)
-    cases.append((_int8_case, "res4_a B=32", *EPILOGUE_SHAPES["res4_a B=32"]))
+    for label, shape in INT8_SHAPES.items():
+        cases.append((_int8_case, label, *shape))
     cases += step36_cases()
     cases += fwd36_cases()
     return run_kernel_cases(cases, gen), _counts()
@@ -1627,7 +1683,6 @@ KERNEL_GROUPS = (("flash_fwd_kernel", "flash_fwd"),
                  ("flash_bwd_dq_kernel", "flash_bwd_dq"),
                  ("flash_bwd_dkv_kernel", "flash_bwd_dkv"),
                  ("matmul_epilogue_kernel", "matmul_epilogue"),
-                 ("matmul_epilogue_int8_kernel", "int8_matmul_epilogue"),
                  ("bottleneck_block_kernel", "bottleneck_block"),
                  ("matmul_stats_kernel", "matmul_stats"),
                  ("bn_grad_stats_kernel", "bn_grad_stats"),

@@ -1,6 +1,6 @@
 // Fused ResNet bottleneck block for inference on Hopper, BN folded:
 //   h1 = relu(x @ W1 + b1)              1×1 reduce,  C → M
-//   h2 = relu(conv3×3(h1, W2) + b2)     SAME, as 9 shifted products, M → M
+//   h2 = relu(conv3×3(h1, W2) + b2)     SAME, one product of depth 9·M
 //   y  = relu(h2 @ W3 + b3 + x)         1×1 expand,  M → C, residual
 // x and y (B, H, W, C) NHWC; W1 (C, M), W2 (3, 3, M, M) HWIO, W3 (M, C), all
 // in the activation dtype (f32 or bf16); biases f32. Products accumulate
@@ -9,199 +9,414 @@
 //
 // Replaces: deeplearning4j_tpu/kernels/residual_block.py::_block_kernel
 // (:38, pallas_call at :72 in _run), reached through `bottleneck_block`.
+// Its point, kept here: one launch, h1 and h2 never leave the chip.
 //
-// What bounds it on the H100: 2·B·H·W·(C·M + 9·M² + M·C) flops against
-// |x| + |y| + |W| bytes; at ResNet-50's identity blocks it is bound by
-// operations in f32 (res4 at B = 32: 13.95 GFLOP, 0.208 ms at 67 TFLOP/s).
-// The kernel does its math in f32 FMA out of shared memory, off the tensor
-// cores (mma/wgmma are later work), and reads x once and writes y once:
-// h1 and h2 never leave the SM.
+// What bounds it on the H100: 2·B·H·W·(C·M + 9·M² + M·C) operations
+// (13.95 G at every ResNet-50 identity stage at B = 32) against
+// |x| + |y| + |W| bytes. f32 runs as 3×TF32, three tensor-core products
+// per f32 product: 0.0845 ms at 495 TFLOP/s, over res2's 0.061 ms of
+// bytes; bf16 runs at 989 TFLOP/s (0.0141 ms) and is bound by bytes at
+// res2 (0.031 ms). Inside the chip the weights are the traffic that
+// counts: every block streams all 17·M² weight values from L2, so a
+// block with P output pixels does 2·P / size operations per byte of L2
+// weight traffic, and the design's main lever is a large P.
 //
-// Design: the TPU kernel tiles by batch and keeps a whole image's h1 in
-// VMEM. On Hopper a 56×56×64 f32 h1 is 802 KB, over the 227 KB of shared
-// memory a block can have, so a block owns R output rows of one image
-// (blockIdx.y = image, blockIdx.x = row group) with a one-row halo:
-//   1. h1 for image rows r0−1 … r0+R (zero outside the image, which is the
-//      SAME padding of the 3×3 conv) into shared memory;
-//   2. h2 for rows r0 … r0+R−1, the 3×3 conv as one product of depth 9·M
-//      whose operand is read from h1 at the nine shifts (zero past the
-//      left and right edges), into shared memory;
-//   3. y = relu(h2 @ W3 + b3 + x), written straight to device memory.
-// R = 2 (`kRows`): shared memory holds (2R + 2)·W·M f32 = 86 KB at every
-// ResNet-50 stage (W·M = 3,584), so two blocks fit on one SM, and h1 of
-// the halo rows is recomputed by the neighbouring block: phase 1 does
-// (R+2)/R = 2× its share, 23.5 % more flops over the whole block (C = 4M).
-// Each phase is a block-wide product in tiles of TR × TC outputs
-// (64×64, 32×128 or 16×256, picked by the phase's row count, so the small
-// res5 row groups waste little), staged through shared memory 16 depth
-// values at a time; each of 256 threads owns a 4 × 4 patch. The weights
-// stream from device memory and L2 (W2 at res5 is 9.4 MB).
-#include "common.cuh"
+// Design:
+// - The three products on the tensor cores through mma_tile.cuh's engine
+//   (`walk`, `Slice`): mma.sync bf16, and f32 as 3×TF32 with each slice's
+//   products summed apart and added to the accumulator in f32, so phase
+//   2's contraction of 9·512 = 4,608 at res5 keeps f32's accuracy.
+// - A block owns R image rows of one image (blockIdx.x = image · groups +
+//   row group) and keeps, in shared memory in the activation dtype, h1 of
+//   its rows and a one-row halo above and below ((R + 2)·W pixels; zero
+//   outside the image, which is the SAME padding of the 3×3) and h2 of its
+//   rows (R·W pixels). Pixel rows are padded to M + 8 values, so the
+//   fragment reads of eight consecutive pixels meet no bank conflict.
+// - Each phase is a walk over output tiles of 32·MI pixels × BN channels
+//   (BN = 64 in f32, 128 in bf16, twice that where M ≥ 256; 8 warps, 2 down
+//   the pixels and 4 across the channels), each over its contraction in
+//   slices of 64 (twice the forward GEMMs' 32: half the slices' barriers
+//   and waits, which ran faster on the H100 at every stage). The three
+//   phases' tiles form one walk through one 3-stage cp.async ring, so the
+//   first weight slices of a phase load while the last products of the
+//   one before run: the weights (all three phases' B) and x (phase 1's A)
+//   stream through the ring as 16-byte copies; phases 2 and 3 read A
+//   straight from the resident h1 and h2. Phase 2 is an implicit GEMM:
+//   contraction t·M + k reads h1 at pixel p + dy·W + dx − 1 (t = 3·dy + dx),
+//   zero past the left and right edges; W2's HWIO layout is already that
+//   (9·M, M) matrix. Each tap is walked in its own slices, so any M that is
+//   a multiple of 8 works (the rest of a slice past M reads as zero).
+// - Epilogues in registers: phases 1 and 2 add the bias, apply relu, round
+//   to the dtype and store four adjacent channels to shared memory (halo
+//   rows outside the image store zero); phase 3 adds b3 and x, applies
+//   relu, and reads x and writes y four channels (16 bytes f32) at a time.
+// - R and MI come from `block_plan`: the largest tile that fits the 227 KB
+//   of shared memory is not always best, because the whole image rows of
+//   ResNet-50's late stages give few blocks (res5 at B = 32 has 224 image
+//   rows), so a model of the walk weighs the products (padding rows
+//   included) against the blocks' L2 weight traffic and the waves.
+// - What still holds it back on the H100 is the engine's rate: the
+//   mma.sync walk (32-bit fragment loads, a barrier per slice, 8 warps an
+//   SM) reaches about a fifth of the tensor cores' peak on a large GEMM,
+//   and at res5 the few blocks leave SMs idle (PERF.md).
+// - Fixed summation order and no atomics: a re-run gives the same bits.
+#include "mma_tile.cuh"
 
 namespace dl4j {
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kSlices = 16;   // depth values staged per step
-constexpr int kRows = 2;      // output rows per block (R)
+using mma::kStages;
+using mma::kThreads;
+
+constexpr int kSmemMax = 232448;  // a block's shared memory on the H100
+constexpr int kPad = 8;           // values of padding after a pixel's M
+constexpr int kBKB = 64;          // contraction values per slice
+
+// The tile of a block's walk: 32·MI pixels × BN channels, BN narrow (64
+// f32, 128 bf16) or, where M ≥ 256, wide (twice that), so each warp's
+// fragment reads feed twice the products. A ring stage holds x's pixel
+// rows (phase 1) and the weights' contraction rows in the forward
+// product's layout (FwdOps): rows of kBKB + 8 values for x and of BN + 4
+// (f32) or BN + 8 (bf16) for the weights, fragment reads free of bank
+// conflicts.
+template <typename T, int MI_, bool WIDE>
+struct Cfg {
+  static constexpr int MI = MI_;
+  static constexpr int BN = (sizeof(T) == 4 ? 64 : 128) * (WIDE ? 2 : 1);
+  static constexpr int RT = 32 * MI;
+  static constexpr int SX = kBKB + 8;
+  static constexpr int SN = BN + (sizeof(T) == 4 ? 4 : 8);
+  static constexpr int kStage = (RT * SX + kBKB * SN) * (int)sizeof(T);
+  static constexpr int kRing = kStages * kStage;
+  using G = mma::Geom<RT, BN, 4>;
+};
 
 template <typename T>
-__device__ __forceinline__ float round_to(float v) {
-  return to_f32(from_f32<T>(v));
-}
+struct Args {
+  const T* x;
+  const T* w1;
+  const float* b1;
+  const T* w2;
+  const float* b2;
+  const T* w3;
+  const float* b3;
+  T* y;
+  int H, W, C, M, R, groups;
+  int vec_x, vec_w1, vec_w2, vec_w3;
+};
 
-// out(p, n) for p < P, n < N of the product A (P × K) · B (K × N): A is read
-// through `a_at(p, k)`, B is row-major in device memory; `epi(p, n, acc)`
-// consumes each sum. Tiles of TR rows × (4096 / TR) columns; 256 threads in
-// a (TR/4) × (TC/4) grid, each a 4 × 4 patch.
-template <int TR, typename T, typename AFn, typename EpiFn>
-__device__ void block_gemm(int P, int K, int N, const T* __restrict__ B,
-                           AFn a_at, EpiFn epi, float* as, float* bs) {
-  constexpr int TC = 4096 / TR;
-  constexpr int AS = TR + 4;   // stride of the staged A slice (k-major)
-  constexpr int BS = TC + 4;
-  constexpr int kCols = TC / 4;      // threads along the columns
-  const int tid = threadIdx.x;
-  const int tx = tid % kCols;
-  const int ty = tid / kCols;
-  for (int p0 = 0; p0 < P; p0 += TR) {
-    for (int n0 = 0; n0 < N; n0 += TC) {
-      float acc[4][4];
+// The A operand of phases 2 and 3 from a resident h1 or h2 (pixel rows of
+// S values), B from the ring stage. off[mi][h]: the element offset of
+// fragment row (mi, h)'s pixel, contraction k0 included, or −1 for a row
+// that reads zero; kmax: the contraction values of this slice that exist.
+template <typename T, int SN, int MI, int NI>
+struct HOps {
+  const T* h;
+  const T* b;
+  int off[MI][2];
+  int kmax;
+
+  __device__ __forceinline__ void frags(int kk, int, int cb,
+                                        float (&fa)[MI][4],
+                                        float (&fb)[NI][2]) const {
+    const int k = kk + 2 * (threadIdx.x % 4);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+    for (int mi = 0; mi < MI; ++mi) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+      for (int hh = 0; hh < 2; ++hh) {
+        float2 v = make_float2(0.f, 0.f);
+        if (off[mi][hh] >= 0 && k < kmax)
+          v = *reinterpret_cast<const float2*>(h + off[mi][hh] + k);
+        fa[mi][hh] = v.x;
+        fa[mi][2 + hh] = v.y;
       }
-      for (int k0 = 0; k0 < K; k0 += kSlices) {
-        __syncthreads();  // the previous slices are consumed
+    }
+    mma::b_frags<SN>(b, kk, cb, fb);
+  }
+
+  __device__ __forceinline__ void frags(int kk, int, int cb,
+                                        uint32_t (&fa)[MI][4],
+                                        uint32_t (&fb)[NI][2]) const {
+    const int k = kk + 2 * (threadIdx.x % 4);
 #pragma unroll
-        for (int i = 0; i < TR * kSlices / kThreads; ++i) {
-          const int idx = tid + i * kThreads;
-          const int m = idx / kSlices;
-          const int s = idx % kSlices;
-          as[s * AS + m] =
-              (p0 + m < P && k0 + s < K) ? a_at(p0 + m, k0 + s) : 0.f;
-        }
+    for (int mi = 0; mi < MI; ++mi) {
 #pragma unroll
-        for (int i = 0; i < TC * kSlices / kThreads; ++i) {
-          const int idx = tid + i * kThreads;
-          const int s = idx / TC;
-          const int n = idx % TC;
-          bs[s * BS + n] = (k0 + s < K && n0 + n < N)
-                               ? to_f32(B[(size_t)(k0 + s) * N + n0 + n])
-                               : 0.f;
-        }
-        __syncthreads();
+      for (int hh = 0; hh < 2; ++hh) {
+        const T* p = h + off[mi][hh] + k;
+        const bool in = off[mi][hh] >= 0;
+        fa[mi][hh] = in && k < kmax ? *reinterpret_cast<const uint32_t*>(p)
+                                    : 0u;
+        fa[mi][2 + hh] = in && k + 8 < kmax
+                             ? *reinterpret_cast<const uint32_t*>(p + 8)
+                             : 0u;
+      }
+    }
+    mma::b_frags<SN>(b, kk, cb, fb);
+  }
+};
+
+struct Item {
+  int phase, r0, rows, n0, slices;  // tile's first pixel, pixels in it
+};
+
+template <typename T, int MI, bool WIDE>
+__global__ void __launch_bounds__(kThreads, 1)
+bottleneck_block_kernel(Args<T> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  using K = Cfg<T, MI, WIDE>;
+  using F = K;
+  using G = typename K::G;
+  constexpr int RT = K::RT, BN = K::BN, NI = G::NI;
+  const int W = a.W, C = a.C, M = a.M, S = M + kPad;
+  const int b = blockIdx.x / a.groups;
+  const int row0 = (blockIdx.x % a.groups) * a.R;
+  const int rb_rows = min(a.R, a.H - row0);  // output rows of this block
+  const int P = rb_rows * W, P1 = P + 2 * W;
+  T* h1 = reinterpret_cast<T*>(smem + K::kRing);
+  T* h2 = h1 + (size_t)(a.R + 2) * W * S;
+  const T* x_img = a.x + (size_t)b * a.H * W * C;
+
+  const int t1 = (P1 + RT - 1) / RT, t2 = (P + RT - 1) / RT;
+  const int n_m = (M + BN - 1) / BN, n_c = (C + BN - 1) / BN;
+  const int spt = (M + kBKB - 1) / kBKB;  // slices per tap of phase 2
+  const int n1 = t1 * n_m, n2 = t2 * n_m, n3 = t2 * n_c;
+  auto item_at = [&](int j) {
+    Item it;
+    int tiles_n, jj;
+    if (j < n1) {
+      it.phase = 1, jj = j, tiles_n = n_m;
+      it.slices = (C + kBKB - 1) / kBKB;
+    } else if (j < n1 + n2) {
+      it.phase = 2, jj = j - n1, tiles_n = n_m;
+      it.slices = 9 * spt;
+    } else {
+      it.phase = 3, jj = j - n1 - n2, tiles_n = n_c;
+      it.slices = spt;
+    }
+    it.r0 = (jj / tiles_n) * RT;
+    it.n0 = (jj % tiles_n) * BN;
+    it.rows = min(RT, (it.phase == 1 ? P1 : P) - it.r0);
+    return it;
+  };
+  auto stage = [&](int slot) {
+    return reinterpret_cast<T*>(smem + slot * F::kStage);
+  };
+  auto stage_in = [&](int slot, const Item& it, int i) {
+    T* xs = stage(slot);
+    T* ws = xs + RT * F::SX;
+    if (it.phase == 1) {
+      const int k0 = i * kBKB;
+      // x's pixels of h1's rows row0 − 1 … row0 + rows: rows outside the
+      // image are never read
+      mma::load_tile<T, RT, kBKB>(xs, F::SX, x_img, C, (row0 - 1) * W + it.r0,
+                                 min(a.H, row0 + rb_rows + 1) * W, k0, C,
+                                 a.vec_x, 0);
+      mma::load_tile<T, kBKB, BN>(ws, F::SN, a.w1, M, k0, C, it.n0, M,
+                                 a.vec_w1);
+    } else if (it.phase == 2) {
+      const int tap = i / spt, k0 = tap * M + (i % spt) * kBKB;
+      mma::load_tile<T, kBKB, BN>(ws, F::SN, a.w2, M, k0, tap * M + M, it.n0,
+                                 M, a.vec_w2);
+    } else {
+      mma::load_tile<T, kBKB, BN>(ws, F::SN, a.w3, C, i * kBKB, M, it.n0, C,
+                                 a.vec_w3);
+    }
+  };
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int rb = (warp / G::WC) * MI * 16;
+  const int cb = (warp % G::WC) * NI * 8;
+  float acc[MI][NI][4] = {};
+  // the column within the image of each fragment row's pixel (phase 2)
+  int pc[MI][2];
+  auto product = [&](int slot, const Item& it, int i) {
+    const T* ws = stage(slot) + RT * F::SX;
+    if (it.phase == 1) {
+      const mma::FwdOps<T, F, MI, NI> op{stage(slot), ws};
+      mma::Slice<T>::template run<MI, NI, kBKB>(op, rb, cb, acc);
+      return;
+    }
+    HOps<T, F::SN, MI, NI> op;
+    op.b = ws;
+    if (it.phase == 2) {
+      const int tap = i / spt, k0 = (i % spt) * kBKB;
+      const int dy = tap / 3, dx = tap % 3;
+      if (i == 0) {
 #pragma unroll
-        for (int s = 0; s < kSlices; ++s) {
-          const float4 a = *reinterpret_cast<const float4*>(
-              &as[s * AS + ty * 4]);
-          const float4 b = *reinterpret_cast<const float4*>(
-              &bs[s * BS + tx * 4]);
-          const float av[4] = {a.x, a.y, a.z, a.w};
-          const float bv[4] = {b.x, b.y, b.z, b.w};
+        for (int mi = 0; mi < MI; ++mi) {
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-          }
+          for (int hh = 0; hh < 2; ++hh)
+            pc[mi][hh] = (it.r0 + rb + mi * 16 + g + 8 * hh) % W;
         }
       }
+      op.h = h1;
+      op.kmax = M - k0;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int p = p0 + ty * 4 + i;
-        if (p >= P) continue;
+      for (int mi = 0; mi < MI; ++mi) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int n = n0 + tx * 4 + j;
-          if (n < N) epi(p, n, acc[i][j]);
+        for (int hh = 0; hh < 2; ++hh) {
+          const int p = it.r0 + rb + mi * 16 + g + 8 * hh;
+          const int c = pc[mi][hh] + dx - 1;
+          op.off[mi][hh] = p < P && c >= 0 && c < W
+                               ? (p + dy * W + dx - 1) * S + k0
+                               : -1;
+        }
+      }
+    } else {
+      const int k0 = i * kBKB;
+      op.h = h2;
+      op.kmax = M - k0;
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int p = it.r0 + rb + mi * 16 + g + 8 * hh;
+          op.off[mi][hh] = p < P ? p * S + k0 : -1;
         }
       }
     }
+    mma::Slice<T>::template run<MI, NI, kBKB>(op, rb, cb, acc);
+  };
+
+  auto finish = [&](const Item& it) {
+    const int ncols = it.phase == 3 ? C : M;
+    const float* bias = it.phase == 1 ? a.b1 : it.phase == 2 ? a.b2 : a.b3;
+#pragma unroll
+    for (int j = 0; j < NI / 2; ++j) {
+      const int n = it.n0 + cb + 16 * j + 4 * t;
+      float bv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) bv[e] = n < ncols ? __ldg(bias + n + e) : 0.f;
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int p = it.r0 + rb + mi * 16 + g + 8 * hh;
+          float q[4];
+          mma::fwd_run<2>(acc, mi, j, hh, q);
+          if (n < ncols && p - it.r0 < it.rows) {
+            T v[4];
+            if (it.phase == 3) {
+              const size_t o = ((size_t)(b * a.H + row0) * W + p) * C + n;
+              T xv[4];
+              if constexpr (sizeof(T) == 4) {
+                const float4 u = *reinterpret_cast<const float4*>(a.x + o);
+                xv[0] = u.x, xv[1] = u.y, xv[2] = u.z, xv[3] = u.w;
+              } else {
+                const uint2 u = *reinterpret_cast<const uint2*>(a.x + o);
+                const __nv_bfloat162* hv =
+                    reinterpret_cast<const __nv_bfloat162*>(&u);
+                xv[0] = hv[0].x, xv[1] = hv[0].y, xv[2] = hv[1].x,
+                xv[3] = hv[1].y;
+              }
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                v[e] = from_f32<T>(fmaxf(q[e] + bv[e] + to_f32(xv[e]), 0.f));
+              mma::store4(a.y, o, n, C, v);
+            } else {
+              // phase 1: h1's halo rows outside the image are the SAME
+              // padding, zero
+              const int img_row = row0 - 1 + p / W;
+              const bool in = it.phase == 2 || (img_row >= 0 && img_row < a.H);
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                v[e] = from_f32<T>(in ? fmaxf(q[e] + bv[e], 0.f) : 0.f);
+              mma::store4(it.phase == 1 ? h1 : h2, (size_t)p * S + n, n, M,
+                          v);
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) {
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+      }
+    }
+  };
+  mma::walk(n1 + n2 + n3, item_at, stage_in, product, finish);
+}
+
+// The block plan: R image rows per block, MI row fragments per warp, and
+// the tile width.
+struct BlockPlan {
+  int rows, mi, wide, groups, blocks, smem;
+};
+
+// A model of one block's walk, per tile and R: its products (the phases'
+// tiles padded to 32·MI pixels and BN channels; f32 three TF32 products
+// each) at a tensor-core rate per SM, against its weights' L2 traffic (all
+// blocks of a wave share the L2's rate), times the waves of blocks (one
+// block per SM). The rates are the H100's published peaks derated to the
+// 20 % of them that this engine's mma.sync walk reaches on a large GEMM
+// (kernels/engine_rate.py), a warp tile of twice the rows running
+// 1.35× faster per product (`gain`; both fitted to H100 times of the four
+// ResNet-50 stages), and an L2 rate of 5.5 TB/s. The largest R wins a
+// tie: it moves fewer bytes.
+template <typename T, int MI, bool WIDE>
+void consider(int B, int H, int W, int C, int M, int sms, double gain,
+              BlockPlan& best, double& best_t) {
+  using K = Cfg<T, MI, WIDE>;
+  constexpr bool f32 = sizeof(T) == 4;
+  const double mac_rate =
+      (f32 ? 495e12 / 3.0 : 989e12) / 2.0 / 132 * 0.2 * gain;
+  const double l2_rate = 5.5e12;
+  const long long kp = 9LL * ((M + kBKB - 1) / kBKB) * kBKB;
+  const long long mp = (M + K::BN - 1) / K::BN * K::BN;
+  const long long cp = (C + K::BN - 1) / K::BN * K::BN;
+  for (int R = 1; R <= H; ++R) {
+    const long long smem =
+        K::kRing + (2LL * R + 2) * W * (M + kPad) * (long long)sizeof(T);
+    if (smem > kSmemMax) break;
+    const long long P = (long long)R * W, P1 = P + 2LL * W;
+    const long long t1 = (P1 + K::RT - 1) / K::RT, t2 = (P + K::RT - 1) / K::RT;
+    const double macs =
+        (double)K::RT * (t1 * C * mp + t2 * kp * mp + t2 * M * cp);
+    const double bytes =
+        (double)(t1 * C * M + t2 * 9LL * M * M + t2 * (long long)M * C) *
+        sizeof(T);
+    const int groups = (H + R - 1) / R;
+    const long long blocks = (long long)B * groups;
+    const long long waves = (blocks + sms - 1) / sms;
+    const double in_wave = blocks < sms ? (double)blocks : (double)sms;
+    const double t_mac = macs / mac_rate, t_l2 = bytes * in_wave / l2_rate;
+    const double t = waves * (t_mac > t_l2 ? t_mac : t_l2);
+    if (best_t < 0.0 || t <= best_t) {
+      best_t = t;
+      best = BlockPlan{R, MI, WIDE, groups, (int)blocks, (int)smem};
+    }
   }
-  __syncthreads();  // this phase's outputs are visible to the next
 }
 
-// The tile shape for a phase of P rows: 64×64 unless P is small.
-template <typename T, typename AFn, typename EpiFn>
-__device__ void phase(int P, int K, int N, const T* __restrict__ B, AFn a_at,
-                      EpiFn epi, float* as, float* bs) {
-  if (P > 32)
-    block_gemm<64>(P, K, N, B, a_at, epi, as, bs);
-  else if (P > 16)
-    block_gemm<32>(P, K, N, B, a_at, epi, as, bs);
-  else
-    block_gemm<16>(P, K, N, B, a_at, epi, as, bs);
-}
-
-// floats of shared memory for the staged slices of the widest tile shape
-constexpr int kStageFloats = kSlices * (64 + 4) + kSlices * (256 + 4);
-
+// The wide tile (with the smaller MI: the larger spills) where M ≥ 256
+// and it fits: on the H100 it was faster at res4 and res5 in both dtypes,
+// slower at M = 64 and 128. Else the narrow tile, MI and R from the model.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-bottleneck_block_kernel(const T* __restrict__ x, const T* __restrict__ w1,
-                        const float* __restrict__ b1,
-                        const T* __restrict__ w2,
-                        const float* __restrict__ b2,
-                        const T* __restrict__ w3,
-                        const float* __restrict__ b3, T* __restrict__ y,
-                        int H, int W, int C, int M, int h1_floats,
-                        int h2_floats) {
-  extern __shared__ __align__(16) float smem[];
-  float* h1 = smem;                       // (kRows + 2) · W rows × M
-  float* h2 = h1 + h1_floats;             // kRows · W rows × M
-  float* as = h2 + h2_floats;
-  float* bs = as + kSlices * (64 + 4);
+BlockPlan block_plan(int B, int H, int W, int C, int M, int sms) {
+  constexpr int lo = sizeof(T) == 4 ? 1 : 2;
+  BlockPlan best{};
+  double best_t = -1.0;
+  if (M >= 256) consider<T, lo, true>(B, H, W, C, M, sms, 1.0, best, best_t);
+  if (best.rows == 0) {
+    consider<T, lo, false>(B, H, W, C, M, sms, 1.0, best, best_t);
+    consider<T, 2 * lo, false>(B, H, W, C, M, sms, 1.35, best, best_t);
+  }
+  return best;
+}
 
-  const int b = blockIdx.y;
-  const int r0 = blockIdx.x * kRows;
-  const int rows = min(kRows, H - r0);          // output rows of this block
-  const T* xb = x + (size_t)b * H * W * C;
-
-  // 1. h1 of image rows r0-1 .. r0+rows (halo rows outside the image: 0)
-  const int P1 = (rows + 2) * W;
-  phase(P1, C, M, w1,
-        [&](int p, int k) {
-          const int r = r0 - 1 + p / W;
-          return (r >= 0 && r < H)
-                     ? to_f32(xb[((size_t)r * W + p % W) * C + k])
-                     : 0.f;
-        },
-        [&](int p, int n, float acc) {
-          const int r = r0 - 1 + p / W;
-          h1[(size_t)p * M + n] =
-              (r >= 0 && r < H) ? round_to<T>(fmaxf(acc + b1[n], 0.f)) : 0.f;
-        },
-        as, bs);
-
-  // 2. h2 = relu(Σ_taps shifted h1 · W2[dy, dx] + b2): depth 9·M, W2 read
-  //    as the (9·M, M) matrix its HWIO layout already is
-  const int P2 = rows * W;
-  phase(P2, 9 * M, M, w2,
-        [&](int p, int kk) {
-          const int t = kk / M;
-          const int k = kk - t * M;
-          const int dy = t / 3;
-          const int wc = p % W + t - 3 * dy - 1;
-          return (wc >= 0 && wc < W)
-                     ? h1[((size_t)(p / W + dy) * W + wc) * M + k]
-                     : 0.f;
-        },
-        [&](int p, int n, float acc) {
-          h2[(size_t)p * M + n] = round_to<T>(fmaxf(acc + b2[n], 0.f));
-        },
-        as, bs);
-
-  // 3. y = relu(h2 @ W3 + b3 + x) for the block's rows
-  const size_t base = ((size_t)b * H + r0) * W;
-  phase(P2, M, C, w3,
-        [&](int p, int k) { return h2[(size_t)p * M + k]; },
-        [&](int p, int n, float acc) {
-          const size_t o = (base + p) * C + n;
-          y[o] = from_f32<T>(fmaxf(acc + b3[n] + to_f32(x[o]), 0.f));
-        },
-        as, bs);
+template <typename T, int MI, bool WIDE>
+cudaError_t launch_tile(const Args<T>& a, const BlockPlan& p,
+                        cudaStream_t stream) {
+  auto kernel = bottleneck_block_kernel<T, MI, WIDE>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<p.blocks, kThreads, p.smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -209,29 +424,43 @@ cudaError_t launch(const void* x, const void* w1, const float* b1,
                    const void* w2, const float* b2, const void* w3,
                    const float* b3, void* y, int B, int H, int W, int C,
                    int M, cudaStream_t stream) {
-  // h1 and h2 rounded up to whole 16-byte vectors so the staged slices
-  // after them stay aligned
-  const int h1_floats = ((kRows + 2) * W * M + 3) / 4 * 4;
-  const int h2_floats = (kRows * W * M + 3) / 4 * 4;
-  const size_t smem = sizeof(float) * (h1_floats + h2_floats + kStageFloats);
-  auto kernel = bottleneck_block_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((H + kRows - 1) / kRows, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w1), b1,
-      static_cast<const T*>(w2), b2, static_cast<const T*>(w3), b3,
-      static_cast<T*>(y), H, W, C, M, h1_floats, h2_floats);
-  return cudaGetLastError();
+  const BlockPlan p = block_plan<T>(B, H, W, C, M, mma::sm_count());
+  if (p.rows == 0) return cudaErrorInvalidValue;  // W·M too large
+  Args<T> a;
+  a.x = static_cast<const T*>(x);
+  a.w1 = static_cast<const T*>(w1);
+  a.b1 = b1;
+  a.w2 = static_cast<const T*>(w2);
+  a.b2 = b2;
+  a.w3 = static_cast<const T*>(w3);
+  a.b3 = b3;
+  a.y = static_cast<T*>(y);
+  a.H = H;
+  a.W = W;
+  a.C = C;
+  a.M = M;
+  a.R = p.rows;
+  a.groups = p.groups;
+  // rows of C (x, w3) and of M (w1, w2) are whole 16-byte chunks (M and C
+  // are multiples of 8): 16-byte copies wherever the base is aligned
+  a.vec_x = mma::aligned16(x);
+  a.vec_w1 = mma::aligned16(w1);
+  a.vec_w2 = mma::aligned16(w2);
+  a.vec_w3 = mma::aligned16(w3);
+  constexpr int lo = sizeof(T) == 4 ? 1 : 2;  // the tiles block_plan weighs
+  if (p.wide) return launch_tile<T, lo, true>(a, p, stream);
+  return p.mi == lo ? launch_tile<T, lo, false>(a, p, stream)
+                    : launch_tile<T, 2 * lo, false>(a, p, stream);
 }
 
 }  // namespace
 }  // namespace dl4j
 
 // x, y (B, H, W, C); w1 (C, M); w2 (3, 3, M, M); w3 (M, C), all contiguous in
-// `dtype` (0 f32, 1 bf16); b1, b2 (M,) and b3 (C,) f32. Launches on `stream`
-// and returns cudaGetLastError().
+// `dtype` (0 f32, 1 bf16), x and y 16-byte aligned; b1, b2 (M,) and b3 (C,)
+// f32. M and C multiples of 8, and W·(M + 8)·size ≤ 38,144 bytes (a block
+// holds four pixel rows of h1 and h2 at least beside its ring). Launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int dl4j_bottleneck_block(const void* x, const void* w1,
                                      const void* b1, const void* w2,
                                      const void* b2, const void* w3,
@@ -240,7 +469,8 @@ extern "C" int dl4j_bottleneck_block(const void* x, const void* w1,
                                      int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || M <= 0)
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || M <= 0 || M % 8 || C % 8 ||
+      !dl4j::mma::aligned16(x) || !dl4j::mma::aligned16(y))
     return cudaErrorInvalidValue;
   const float* fb1 = static_cast<const float*>(b1);
   const float* fb2 = static_cast<const float*>(b2);
@@ -253,4 +483,26 @@ extern "C" int dl4j_bottleneck_block(const void* x, const void* w1,
     return dl4j::launch<__nv_bfloat16>(x, w1, fb1, w2, fb2, w3, fb3, y, B, H,
                                        W, C, M, s);
   return cudaErrorInvalidValue;
+}
+
+// The plan the launch picks for this shape on the current device:
+// out = {R image rows per block, output pixels per block (R·W), blocks,
+// MI row fragments per warp (tiles of 32·MI pixels), shared memory bytes,
+// the tile's BN channels}.
+// Returns 0, or cudaErrorInvalidValue where no plan fits.
+extern "C" int dl4j_bottleneck_plan(int dtype, int B, int H, int W, int C,
+                                    int M, int* out) {
+  const int sms = dl4j::mma::sm_count();
+  const dl4j::BlockPlan p =
+      dtype == dl4j::kFloat32
+          ? dl4j::block_plan<float>(B, H, W, C, M, sms)
+          : dl4j::block_plan<__nv_bfloat16>(B, H, W, C, M, sms);
+  if (p.rows == 0) return cudaErrorInvalidValue;
+  out[0] = p.rows;
+  out[1] = p.rows * W;
+  out[2] = p.blocks;
+  out[3] = p.mi;
+  out[4] = p.smem;
+  out[5] = (dtype == dl4j::kFloat32 ? 64 : 128) * (p.wide ? 2 : 1);
+  return 0;
 }

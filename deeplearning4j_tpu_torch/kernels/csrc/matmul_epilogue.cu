@@ -1,44 +1,45 @@
 // GEMM with a fused inference epilogue on Hopper:
 //   out = act((x @ w) · scale[n] + shift[n] [+ residual])
 // x (M, K) and w (K, N) row-major; f32 or bf16 inputs accumulate in f32,
-// int8 × int8 accumulates exactly in int32 (__dp4a). scale/shift are f32,
-// the residual (optional) and the output are f32 or bf16; act is identity
-// or relu. The folded inference BatchNorm of a conv1x1+BN pair is
+// int8 × int8 accumulates exactly in int32. scale/shift are f32, the
+// residual (optional) and the output are f32 or bf16; act is identity or
+// relu. The folded inference BatchNorm of a conv1x1+BN pair is
 // (scale, shift) = (γ·rsqrt(var+ε), β − γ·μ·rsqrt(var+ε)).
 //
 // Replaces: deeplearning4j_tpu/kernels/pointwise_conv.py::_epilogue_kernel
 // and _int8_epilogue_kernel (:116-139, pallas_call at :168 in
-// _matmul_epilogue_call). As there, the fp and int8 paths share their
-// epilogue: both kernels below apply it through `epilogue`, so they
-// cannot drift apart.
+// _matmul_epilogue_call). As there, the fp and int8 routes share their
+// epilogue: both apply it through `epilogue`, the one place an int32 sum
+// becomes a float, so they cannot drift apart.
 //
 // What bounds it on the H100: 2·M·K·N operations against
 // (M·K + K·N + M·N (+ M·N of residual))·size bytes. f32 runs as 3×TF32
 // (mma_tile.cuh), three tensor-core products per f32 product: 6·M·K·N at
-// 495 TFLOP/s; bf16 runs 2·M·K·N at 989 TFLOP/s. At ResNet-50's B=32
-// shapes f32 is bound by bytes where K is 64 (res2 _c 100,352 × 64 × 256:
-// 0.038 ms of bytes against 0.020 ms of operations) and by operations
-// where K and N are ≥ 512 (res5 _c 1,568 × 512 × 2,048: 0.020 ms against
-// 0.018 ms); bf16 is bound by bytes at every shape but res5's.
+// 495 TFLOP/s; bf16 runs 2·M·K·N at 989 TFLOP/s, int8 at 1,979 TOP/s. At
+// ResNet-50's B=32 shapes f32 is bound by bytes where K is 64 (res2 _c
+// 100,352 × 64 × 256: 0.038 ms of bytes against 0.020 ms of operations)
+// and by operations where K and N are ≥ 512 (res5 _c 1,568 × 512 × 2,048:
+// 0.020 ms against 0.018 ms); bf16 is bound by bytes at every shape but
+// res5's, and int8 (1-byte inputs, f32 out) by bytes at every shape.
 //
-// Design (fp): the forward product of mma_tile.cuh on the tensor cores —
-// mma.sync bf16, and f32 as 3×TF32 with each slice's products summed apart
-// and added to the accumulator in f32, so K = 2,048 keeps f32's accuracy.
+// Design: the forward product of mma_tile.cuh on the tensor cores, one
+// kernel template for the three routes — mma.sync bf16; f32 as 3×TF32 with
+// each slice's products summed apart and added to the accumulator in f32,
+// so K = 2,048 keeps f32's accuracy; int8 through mma.sync.m16n8k32 s8 × s8
+// into int32 accumulators, in slices of 128 contraction values, w's
+// fragments transposed from 32-bit words of four rows by __byte_perm.
 // Persistent blocks (one per SM) walk BM × BN output tiles through a
 // 3-stage cp.async ring of x and w slices, so a tile's epilogue overlaps
 // the next tile's first copies; the tile comes from (M, K, N) (fwd_plan:
 // 128 × 128 unless narrower tiles fill far more SMs, or N ≤ 64). Ragged
-// M, N and K are zero-filled by the copy and never stored;
-// rows whose byte length is not a multiple of 16 are copied element by
-// element. Each tile's scale and shift ride with its first slice into a
-// small buffer beside the ring (one per tile in flight), and the epilogue
-// runs on the accumulators in registers: each thread holds four adjacent
-// columns of a row, so it stores the output 16 bytes (f32) or 8 bytes
-// (bf16) at a time, reading the residual per element beside them.
-//
-// The int8 route stays on the CUDA cores: 128 × 64 tiles of 256 threads,
-// K staged 64 values at a time as packed words, __dp4a into int32, each
-// thread an 8 × 4 patch.
+// M, N and K are zero-filled by the copy and never stored; rows whose byte
+// length is not a multiple of 16 (int8: K or N not a multiple of 16) are
+// copied element by element. Each tile's scale and shift ride with its
+// first slice into a small buffer beside the ring (one per tile in
+// flight), and the epilogue runs on the accumulators in registers: each
+// thread holds 4 (f32, bf16) or 8 (int8) adjacent columns of a row, so it
+// stores the output 16 bytes (f32) or 8 bytes (bf16) at a time, reading
+// the residual per element beside them.
 #include "mma_tile.cuh"
 
 namespace dl4j {
@@ -46,12 +47,13 @@ namespace {
 
 constexpr int kInt8 = 2;  // dtype code of int8 inputs (kernels/pointwise_conv.py)
 
-// The epilogue of both routes: acc·scale + shift (+ residual) (relu), cast.
-template <typename TOut>
-__device__ __forceinline__ TOut epilogue(float acc, float scale, float shift,
+// The epilogue of every route: acc·scale + shift (+ residual) (relu),
+// cast; an int32 sum becomes a float here and nowhere else.
+template <typename TOut, typename A>
+__device__ __forceinline__ TOut epilogue(A acc, float scale, float shift,
                                          const TOut* res, size_t o,
                                          int relu) {
-  float v = acc * scale + shift;
+  float v = static_cast<float>(acc) * scale + shift;
   if (res != nullptr) v += to_f32(res[o]);
   if (relu) v = fmaxf(v, 0.f);
   return from_f32<TOut>(v);
@@ -68,14 +70,16 @@ struct EpiArgs {
   int M, K, N, relu, tiles_n, tiles, vec_x, vec_w;
 };
 
-// The tensor-core route. Shared memory: the ring, then mma::kStages
-// buffers of one tile's scale and shift (BN each).
+// Shared memory: the ring, then mma::kStages buffers of one tile's scale
+// and shift (BN each).
 template <typename T, typename TOut, int BM, int BN>
 __global__ void __launch_bounds__(mma::kThreads, 1)
 matmul_epilogue_kernel(EpiArgs<T, TOut> a) {
   extern __shared__ __align__(16) unsigned char smem[];
   using C = mma::FwdCfg<T, BM, BN>;
   using G = typename C::G;
+  using A = typename mma::Acc<T>::type;
+  constexpr int F = C::F, R = 2 * F;  // a thread's run of R columns
   float* vecs = reinterpret_cast<float*>(smem + C::kSmem);
   auto buf = [&](const mma::FwdItem& it) {
     return vecs + (it.idx % mma::kStages) * 2 * BN;
@@ -92,17 +96,17 @@ matmul_epilogue_kernel(EpiArgs<T, TOut> a) {
   const int g = lane / 4, t = lane % 4;
   const int rb = (warp / G::WC) * G::MI * 16;
   const int cb = (warp % G::WC) * G::NI * 8;
-  auto finish = [&](const mma::FwdItem& it, float (&acc)[G::MI][G::NI][4]) {
+  auto finish = [&](const mma::FwdItem& it, A (&acc)[G::MI][G::NI][4]) {
     // the tile's first slice, and with it scale and shift, landed before
     // its first product
     const float* v = buf(it);
-    float sc[G::NI / 2][4], sh[G::NI / 2][4];
+    float sc[G::NI / F][R], sh[G::NI / F][R];
 #pragma unroll
-    for (int j = 0; j < G::NI / 2; ++j) {
+    for (int j = 0; j < G::NI / F; ++j) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        sc[j][e] = v[cb + 16 * j + 4 * t + e];
-        sh[j][e] = v[BN + cb + 16 * j + 4 * t + e];
+      for (int e = 0; e < R; ++e) {
+        sc[j][e] = v[cb + 8 * F * j + R * t + e];
+        sh[j][e] = v[BN + cb + 8 * F * j + R * t + e];
       }
     }
 #pragma unroll
@@ -112,19 +116,23 @@ matmul_epilogue_kernel(EpiArgs<T, TOut> a) {
         const int row = it.m0 + rb + mi * 16 + g + 8 * h;
         if (row >= a.M) continue;
 #pragma unroll
-        for (int j = 0; j < G::NI / 2; ++j) {
-          const int col = it.n0 + cb + 16 * j + 4 * t;
+        for (int j = 0; j < G::NI / F; ++j) {
+          const int col = it.n0 + cb + 8 * F * j + R * t;
           if (col >= a.N) continue;
           const size_t o = (size_t)row * a.N + col;
-          float q[4];
-          mma::fwd_quad(acc, mi, j, h, q);
-          TOut r[4];
+          A q[R];
+          mma::fwd_run<F>(acc, mi, j, h, q);
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            r[e] = col + e < a.N ? epilogue(q[e], sc[j][e], sh[j][e], a.res,
-                                            o + e, a.relu)
-                                 : from_f32<TOut>(0.f);
-          mma::store4(a.out, o, col, a.N, r);
+          for (int c = 0; c < R; c += 4) {
+            TOut r[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              r[e] = col + c + e < a.N
+                         ? epilogue(q[c + e], sc[j][c + e], sh[j][c + e],
+                                    a.res, o + c + e, a.relu)
+                         : from_f32<TOut>(0.f);
+            if (col + c < a.N) mma::store4(a.out, o + c, col + c, a.N, r);
+          }
         }
       }
     }
@@ -148,10 +156,10 @@ cudaError_t launch_tile(const EpiArgs<T, TOut>& a, int blocks,
 }
 
 template <typename T, typename TOut>
-cudaError_t launch_fp(const void* x, const void* w, const float* scale,
-                      const float* shift, const void* res, void* out, int M,
-                      int K, int N, int relu, cudaStream_t stream) {
-  const mma::FwdPlan p = mma::fwd_plan(M, K, N);
+cudaError_t launch_mma(const void* x, const void* w, const float* scale,
+                       const float* shift, const void* res, void* out, int M,
+                       int K, int N, int relu, cudaStream_t stream) {
+  const mma::FwdPlan p = mma::fwd_plan(M, K, N, mma::Slice<T>::kDepth);
   EpiArgs<T, TOut> a;
   a.x = static_cast<const T*>(x);
   a.w = static_cast<const T*>(w);
@@ -174,142 +182,20 @@ cudaError_t launch_fp(const void* x, const void* w, const float* scale,
   return launch_tile<T, TOut, 64, 64>(a, p.blocks, stream);
 }
 
-// -- the int8 route (CUDA cores) ----------------------------------------------
-constexpr int kThreads = 256;
-constexpr int kBM = 128;            // rows of x per block
-constexpr int kBN = 64;             // columns of w per block
-constexpr int kWords = 16;          // 32-bit words (64 int8 values) of K a step
-constexpr int kAStride = kBM + 4;   // keeps 16-byte rows, spreads banks
-constexpr int kBStride = kBN + 4;
-
-// x[row, k..k+3] packed little-endian; values past K are zero
-__device__ __forceinline__ int a_word(const int8_t* __restrict__ x, int row,
-                                      int k, int M, int K) {
-  unsigned v = 0;
-  if (row < M) {
-    const int8_t* p = x + (size_t)row * K;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (k + j < K) v |= (unsigned)(uint8_t)p[k + j] << (8 * j);
-  }
-  return (int)v;
-}
-
-// w[k..k+3, col] packed little-endian
-__device__ __forceinline__ int b_word(const int8_t* __restrict__ w, int k,
-                                      int col, int K, int N) {
-  unsigned v = 0;
-  if (col < N) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (k + j < K) v |= (unsigned)(uint8_t)w[(size_t)(k + j) * N + col]
-                          << (8 * j);
-  }
-  return (int)v;
-}
-
-__device__ __forceinline__ void load4(const int* p, int* d) {
-  const int4 v = *reinterpret_cast<const int4*>(p);
-  d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
-}
-
-template <typename TOut>
-__global__ void __launch_bounds__(kThreads)
-matmul_epilogue_int8_kernel(const int8_t* __restrict__ x,
-                            const int8_t* __restrict__ w,
-                            const float* __restrict__ scale,
-                            const float* __restrict__ shift,
-                            const TOut* __restrict__ res,
-                            TOut* __restrict__ out, int M, int K, int N,
-                            int relu) {
-  __shared__ __align__(16) int as[kWords][kAStride];  // x slice, k-major
-  __shared__ __align__(16) int bs[kWords][kBStride];  // w slice
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;   // columns tx*4 .. tx*4+3
-  const int ty = tid / 16;   // rows ty*4 .. +3 and 64+ty*4 .. +3
-  const int m0 = blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
-
-  int acc[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
-  }
-
-  for (int k0 = 0; k0 < K; k0 += kWords * 4) {
-#pragma unroll
-    for (int i = 0; i < kBM * kWords / kThreads; ++i) {
-      const int idx = tid + i * kThreads;
-      const int m = idx / kWords;
-      const int s = idx % kWords;
-      as[s][m] = a_word(x, m0 + m, k0 + s * 4, M, K);
-    }
-#pragma unroll
-    for (int i = 0; i < kBN * kWords / kThreads; ++i) {
-      const int idx = tid + i * kThreads;
-      const int s = idx / kBN;
-      const int n = idx % kBN;
-      bs[s][n] = b_word(w, k0 + s * 4, n0 + n, K, N);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int s = 0; s < kWords; ++s) {
-      int a[8], b[4];
-      load4(&as[s][ty * 4], a);
-      load4(&as[s][64 + ty * 4], a + 4);
-      load4(&bs[s][tx * 4], b);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (row >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx * 4 + j;
-      if (col >= N) continue;
-      const size_t o = (size_t)row * N + col;
-      out[o] = epilogue(static_cast<float>(acc[i][j]), scale[col],
-                        shift[col], res, o, relu);
-    }
-  }
-}
-
-template <typename TOut>
-cudaError_t launch_int8(const void* x, const void* w, const float* scale,
-                        const float* shift, const void* res, void* out,
-                        int M, int K, int N, int relu, cudaStream_t stream) {
-  const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN);
-  matmul_epilogue_int8_kernel<TOut><<<grid, kThreads, 0, stream>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w), scale,
-      shift, static_cast<const TOut*>(res), static_cast<TOut*>(out), M, K,
-      N, relu);
-  return cudaGetLastError();
-}
-
 template <typename TOut>
 cudaError_t launch_out(const void* x, const void* w, const float* scale,
                        const float* shift, const void* res, void* out,
                        int in_dtype, int M, int K, int N, int relu,
                        cudaStream_t stream) {
   if (in_dtype == kFloat32)
-    return launch_fp<float, TOut>(x, w, scale, shift, res, out, M, K, N,
-                                  relu, stream);
+    return launch_mma<float, TOut>(x, w, scale, shift, res, out, M, K, N,
+                                   relu, stream);
   if (in_dtype == kBFloat16)
-    return launch_fp<__nv_bfloat16, TOut>(x, w, scale, shift, res, out, M, K,
-                                          N, relu, stream);
+    return launch_mma<__nv_bfloat16, TOut>(x, w, scale, shift, res, out, M,
+                                           K, N, relu, stream);
   if (in_dtype == kInt8)
-    return launch_int8<TOut>(x, w, scale, shift, res, out, M, K, N, relu,
-                             stream);
+    return launch_mma<int8_t, TOut>(x, w, scale, shift, res, out, M, K, N,
+                                    relu, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -340,10 +226,11 @@ extern "C" int dl4j_matmul_epilogue(const void* x, const void* w,
   return cudaErrorInvalidValue;
 }
 
-// The tile the f32/bf16 route of both forward GEMMs (this kernel and
-// matmul_stats.cu) picks for (M, K, N) on the current device, as
-// BM · 1000 + BN.
-extern "C" int dl4j_fwd_tile(int M, int K, int N) {
-  const dl4j::mma::FwdPlan p = dl4j::mma::fwd_plan(M, K, N);
+// The tile the forward GEMMs (this kernel and matmul_stats.cu) pick for
+// (M, K, N) on the current device, as BM · 1000 + BN: the f32/bf16 route,
+// or this kernel's int8 route where `int8` is non-zero.
+extern "C" int dl4j_fwd_tile(int M, int K, int N, int int8) {
+  const dl4j::mma::FwdPlan p = dl4j::mma::fwd_plan(
+      M, K, N, int8 ? dl4j::mma::kBK8 : dl4j::mma::kBK);
   return p.bm * 1000 + p.bn;
 }

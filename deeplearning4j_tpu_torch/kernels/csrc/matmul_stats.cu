@@ -68,7 +68,7 @@ matmul_stats_kernel(StatsArgs<T> a) {
         for (int j = 0; j < G::NI / 2; ++j) {
           const int col = it.n0 + cb + 16 * j + 4 * t;
           float q[4];
-          mma::fwd_quad(acc, mi, j, h, q);
+          mma::fwd_run<2>(acc, mi, j, h, q);
           T v[4];
 #pragma unroll
           for (int e = 0; e < 4; ++e) {

@@ -4,11 +4,12 @@
 
     y = act((x @ w) · scale + shift [+ residual])
 
-One hand-written Hopper source carries both (csrc/matmul_epilogue.cu):
-f32 or bf16 inputs run on the tensor cores (mma.sync; f32 as 3×TF32) and
-accumulate in f32, int8 × int8 accumulates exactly in int32 on the CUDA
-cores, and one shared epilogue applies the affine, the residual and the
-activation in registers, so the fp and int8 paths cannot drift apart.
+One hand-written Hopper source carries both (csrc/matmul_epilogue.cu), on
+the tensor cores (mma.sync) through one kernel template: f32 (as 3×TF32)
+and bf16 inputs accumulate in f32, int8 × int8 accumulates exactly in
+int32 (m16n8k32), and one shared epilogue applies the affine, the residual
+and the activation in registers, so the fp and int8 paths cannot drift
+apart.
 The kernel tiles M, N and K itself and guards every ragged edge, so the
 wrappers pad nothing.
 
@@ -51,6 +52,9 @@ __all__ = ["matmul_epilogue", "int8_matmul_epilogue", "matmul_stats",
 _IN_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ACTS = ("identity", "relu")
+#: the longest int8 contraction whose int32 sums cannot overflow:
+#: K · 128² < 2^31
+_INT8_MAX_K = (2 ** 31 - 1) // 128 ** 2
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # x, w, scale, shift, residual, out, in_dtype, out_dtype, M, K, N, relu,
@@ -68,13 +72,14 @@ def _entry():
     return _bound[0]
 
 
-def _fwd_tile(m, k, n):
+def _fwd_tile(m, k, n, int8=False):
     """(BM, BN): the output tile the tensor-core route of `matmul_epilogue`
-    and `matmul_stats` picks for (M, K, N) on the current card
-    (csrc/mma_tile.cuh `fwd_plan`)."""
+    and `matmul_stats` picks for (M, K, N) on the current card, or the int8
+    route of `int8_matmul_epilogue` where `int8` (csrc/mma_tile.cuh
+    `fwd_plan`)."""
     fn = _build.library("matmul_epilogue").dl4j_fwd_tile
-    fn.argtypes, fn.restype = [_I] * 3, _I
-    code = fn(m, k, n)
+    fn.argtypes, fn.restype = [_I] * 4, _I
+    code = fn(m, k, n, int(int8))
     return code // 1000, code % 1000
 
 
@@ -172,7 +177,8 @@ def int8_matmul_epilogue(xq, wq, scale, shift, residual=None,
     """The int8 variant: xq (M, K) int8 × wq (K, N) int8 → int32, with the
     dequant (scale = x_scale·w_scale[·γr]) + bias (+ residual) (+ act)
     epilogue of `matmul_epilogue` in the same kernel — the int32
-    accumulator never leaves the registers."""
+    accumulator never leaves the registers. On the card K is at most
+    131,071, so no int32 sum of K products of int8 values can overflow."""
     _check_act(act)
     if not xq.is_cuda:
         if xq.dtype != torch.int8 or wq.dtype != torch.int8:
@@ -180,6 +186,9 @@ def int8_matmul_epilogue(xq, wq, scale, shift, residual=None,
                             f"got {xq.dtype} and {wq.dtype}")
         return _epilogue_reference(xq, wq, scale, shift, residual, act,
                                    out_dtype)
+    if xq.ndim == 2 and xq.shape[1] > _INT8_MAX_K:
+        raise ValueError(f"int8_matmul_epilogue: K = {xq.shape[1]} > "
+                         f"{_INT8_MAX_K}: the int32 sums could overflow")
     out = _launch("int8_matmul_epilogue", xq, wq, scale, shift, residual,
                   act, out_dtype, (torch.int8,))
     int8_matmul_epilogue.launches += 1

@@ -285,17 +285,28 @@ def test_cuda_matmul_epilogue_matches_plain(card, dtype, atol):
             assert _scaled_err(got, want) <= atol, (m, k, n, act)
 
 
-def test_cuda_int8_epilogue_accumulates_exactly(card):
+@pytest.mark.parametrize("m,k,n", [(150, 70, 33), (300, 2048, 130)])
+def test_cuda_int8_epilogue_accumulates_exactly(card, m, k, n):
+    """The int32 sums bit-exact on the tensor cores (m16n8k32), at a ragged
+    K (70: rows copied byte by byte) and N, and at K = 2,048, where the
+    sums pass 2^24 and an f32 accumulator would round them; the epilogue
+    in f32 and in bf16 with a residual."""
     gen = torch.Generator(device=card).manual_seed(3)
-    m, k, n = 150, 70, 33
-    xq = torch.randint(-127, 128, (m, k), generator=gen, device=card,
+    xq = torch.randint(-128, 128, (m, k), generator=gen, device=card,
                        dtype=torch.int32).to(torch.int8)
-    wq = torch.randint(-127, 128, (k, n), generator=gen, device=card,
+    wq = torch.randint(-128, 128, (k, n), generator=gen, device=card,
                        dtype=torch.int32).to(torch.int8)
+    if k == 2048:   # sums near the extremes: past 2^24 in magnitude
+        xq[:8] = -128
+        wq[:, :8] = -128
     ones = torch.ones(n, device=card)
+    before = tpc.int8_matmul_epilogue.launches
     acc = tpc.int8_matmul_epilogue(xq, wq, ones, torch.zeros_like(ones))
-    exact = (xq.double() @ wq.double()).float()
-    assert torch.equal(acc, exact)
+    assert tpc.int8_matmul_epilogue.launches == before + 1
+    exact = xq.double() @ wq.double()
+    assert torch.equal(acc, exact.float())
+    if k == 2048:
+        assert exact.abs().max() > 2 ** 24
     scale = (torch.rand(n, generator=gen, device=card) + 0.5) * 1e-3
     shift = torch.randn(n, generator=gen, device=card)
     res = torch.randn((m, n), generator=gen, device=card)
@@ -304,6 +315,13 @@ def test_cuda_int8_epilogue_accumulates_exactly(card):
     want = tpc._epilogue_reference(xq, wq, scale, shift, res, "relu",
                                    torch.float32)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    rb = res.to(torch.bfloat16)
+    got = tpc.int8_matmul_epilogue(xq, wq, scale, shift, residual=rb,
+                                   act="relu", out_dtype=torch.bfloat16)
+    want = tpc._epilogue_reference(xq, wq, scale, shift, rb, "relu",
+                                   torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    assert _scaled_err(got, want) <= 2e-2
 
 
 def test_cuda_epilogue_wrappers_raise_on_what_the_kernel_does_not_take(card):
@@ -405,27 +423,73 @@ def test_cuda_matmul_stats_sums_the_stored_bf16_values(card):
         assert off < 0.05 * (unrounded - want).norm()
 
 
-@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
-                                        (torch.bfloat16, 2e-2)])
-def test_cuda_bottleneck_block_matches_plain(card, dtype, atol):
-    """Shapes whose row groups and tiles are ragged (H odd, W·M small and
-    large), against the cuDNN composition of the same math."""
-    gen = torch.Generator(device=card).manual_seed(4)
+#: bottleneck shapes (B, H, W, C, M): M = 8 and 16 (slices zero-filled past
+#: M in every tap, C = 32 and 64), H odd, a res5-like whole image (7 × 7,
+#: M = 64: one block per image in bf16), and 29 rows of 56 that split
+#: into ragged row groups
+BOTTLENECK_SHAPES = ((2, 7, 7, 64, 16), (2, 5, 6, 32, 8),
+                     (1, 14, 14, 256, 64), (2, 7, 7, 256, 64),
+                     (8, 29, 56, 256, 64))
 
+
+def _block_args(gen, card, dtype, b, h, w, c, m):
     def rnd(*shape, scale=0.2):
         return (torch.randn(shape, generator=gen, device=card)
                 * scale).to(dtype)
 
-    for b, h, w, c, m in ((2, 7, 7, 64, 16), (2, 5, 6, 32, 8),
-                          (1, 14, 14, 256, 64)):
-        args = (rnd(b, h, w, c), rnd(c, m), rnd(m).float(), rnd(3, 3, m, m),
-                rnd(m).float(), rnd(m, c), rnd(c).float())
+    return (rnd(b, h, w, c), rnd(c, m), rnd(m).float(), rnd(3, 3, m, m),
+            rnd(m).float(), rnd(m, c), rnd(c).float())
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2)])
+def test_cuda_bottleneck_block_matches_plain(card, dtype, atol):
+    """BOTTLENECK_SHAPES against the plain composition of the same math,
+    one launch each; the res5-like shape takes a whole image per block in
+    bf16, and the last shape's row groups are ragged in both dtypes."""
+    gen = torch.Generator(device=card).manual_seed(4)
+    for b, h, w, c, m in BOTTLENECK_SHAPES:
+        args = _block_args(gen, card, dtype, b, h, w, c, m)
         before = trb.bottleneck_block.launches
         got = trb.bottleneck_block(*args, block_b=1)
         want = trb.bottleneck_block_xla(*args)
         assert trb.bottleneck_block.launches == before + 1
         assert got.dtype == dtype and got.shape == (b, h, w, c)
         assert _scaled_err(got, want) <= atol, (b, h, w, c, m)
+    whole = trb._plan(torch.bfloat16, 2, 7, 7, 256, 64)
+    assert whole["rows"] == 7 and whole["blocks"] == 2
+    plan = trb._plan(dtype, 8, 29, 56, 256, 64)
+    assert plan["blocks"] > 8 and 29 % plan["rows"] != 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_bottleneck_block_reruns_are_bit_identical(card, dtype):
+    """Fixed summation order, no atomics: the same bits on every run."""
+    gen = torch.Generator(device=card).manual_seed(5)
+    args = _block_args(gen, card, dtype, 4, 14, 14, 256, 64)
+    runs = [trb.bottleneck_block(*args, block_b=1) for _ in range(3)]
+    for other in runs[1:]:
+        assert torch.equal(runs[0], other)
+
+
+def test_cuda_bottleneck_block_raises_beyond_its_limits(card):
+    x = torch.zeros((1, 4, 4, 36), device=card)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        trb.bottleneck_block(x, torch.zeros((36, 12), device=card),
+                             torch.zeros(12, device=card),
+                             torch.zeros((3, 3, 12, 12), device=card),
+                             torch.zeros(12, device=card),
+                             torch.zeros((12, 36), device=card),
+                             torch.zeros(36, device=card), block_b=1)
+    m, c, w = 2048, 64, 8       # W·(M + 8) = 16,448 > 9,536 in f32
+    x = torch.zeros((1, 2, w, c), device=card)
+    with pytest.raises(ValueError, match="shared memory"):
+        trb.bottleneck_block(x, torch.zeros((c, m), device=card),
+                             torch.zeros(m, device=card),
+                             torch.zeros((3, 3, m, m), device=card),
+                             torch.zeros(m, device=card),
+                             torch.zeros((m, c), device=card),
+                             torch.zeros(c, device=card), block_b=1)
 
 
 def test_cuda_fused_resnet_launches_the_epilogue_kernel(card, monkeypatch):

@@ -1,6 +1,6 @@
 """The f32 route of csrc/bn_conv_grads.cu, csrc/flash_fwd.cu,
-csrc/flash_bwd_dq.cu, csrc/flash_bwd_dkv.cu, csrc/matmul_epilogue.cu and
-csrc/matmul_stats.cu, emulated on the CPU.
+csrc/flash_bwd_dq.cu, csrc/flash_bwd_dkv.cu, csrc/matmul_epilogue.cu,
+csrc/matmul_stats.cu and csrc/bottleneck_block.cu, emulated on the CPU.
 
 The kernels multiply f32 operands on the tensor cores as 3×TF32: each
 operand x is split into hi (x rounded to TF32's 10 mantissa bits, to
@@ -13,7 +13,10 @@ kernel's f32 gate, 2e-5 × max(1, max |plain|). One TF32 pass (a_hi·b_hi
 alone) must miss the same gate: that is why the kernel takes three. The
 forward GEMMs are emulated at res5's longest contraction, K = 2,048, as
 their walk forms it: each slice of 32 contraction values summed apart and
-added to the accumulator in f32.
+added to the accumulator in f32. So is the bottleneck block's 3×3 phase at
+res5, the longest contraction in the port: depth 9·512 = 4,608, walked tap
+by tap in slices of 32 (16 a tap), a non-negative h1 (after relu) against
+W2 drawn as the smoke draws it.
 The attention kernels' walk (key tiles of 32, online softmax, each tile's
 second product summed apart) is emulated the same way at 2×4×512×64: O,
 lse and dQ within the gate of f64 with three passes, outside it with one.
@@ -29,10 +32,13 @@ ATOL = 2e-5  # the f32 gate of chip_smoke.py and tests/test_torch_cuda_kernels.p
 #: (rows, contraction, columns, slice) of the longest contractions: the
 #: step's dX = dy · wᵀ at res5 (N = 2,048) and dW = xᵀ · dy at res2
 #: (M = 100,352), each one product, and the forward y = x @ w at res5's
-#: 1,568 × 2,048 × 512 in slices of 32; cut to a few output rows and columns
+#: 1,568 × 2,048 × 512 in slices of 32, and the bottleneck block's 3×3 at
+#: res5 (49 pixels × 4,608 × 512) in slices of 32; cut to a few output rows
+#: and columns
 CONTRACTIONS = {"dX N=2048": (48, 2048, 40, None),
                 "dW M=100352": (24, 100352, 32, None),
-                "fwd K=2048": (64, 2048, 48, 32)}
+                "fwd K=2048": (64, 2048, 48, 32),
+                "block3x3 K=4608": (49, 4608, 40, 32)}
 _MASK = -8192  # 0xffffe000 as int32: keeps sign, exponent, 10 mantissa bits
 
 
@@ -51,6 +57,9 @@ def _operands(rows, inner, cols, seed):
         np.float32)
     if inner > 10_000:  # dW: x and dy as they come, no 1/√M scale
         b = rng.standard_normal((inner, cols)).astype(np.float32)
+    if inner == 4608:   # the 3×3: h1 after relu, W2 at std √(2 / (9·M))
+        a = np.maximum(a, 0)
+        b = b * np.float32(np.sqrt(2.0))
     return torch.from_numpy(a), torch.from_numpy(b)
 
 
