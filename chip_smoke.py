@@ -4,7 +4,8 @@
     python3 chip_smoke.py --only kernels
     python3 chip_smoke.py --only resnet   # card, build, kernels, resnet,
                                           # resnet_train
-    python3 chip_smoke.py --profile  # and phase 9
+    python3 chip_smoke.py --only graphs   # card, build, graphs
+    python3 chip_smoke.py --profile  # and phase 10
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -63,15 +64,37 @@ Phases, in order; any failure exits non-zero and prints no result:
             warm-up and 10 timed fused steps on that
             batch, each launching matmul_stats, bn_grad_stats and
             bn_conv_grads 36 times; the loss must fall.
-9. profile (only with --profile): the serving workload, three
-            fine-tune steps, one fused B=32 ResNet-50 forward and one fused
-            ResNet-50 training step once more under torch.profiler: the
-            card's busy and idle share of the wall time, and device time by
-            kernel group.
+9. graphs:  the executable store's three capture targets, each against
+            its eager run in turns (eager, graph, graph, eager):
+            BERT serving as in phase 5 (every stream equal to the eager
+            server's, greedy and sampled; a second store on the same
+            directory warms with every key `from_disk` and no nvcc run);
+            ResNet-50 training at B=32 (parameters, optimizer and BN state
+            and loss bit-identical to eager steps after 3 steps, with
+            cuDNN's deterministic algorithms; 10 timed steps per arm, each
+            of eager and graph with prefetch 0 and 2, in mirrored turns);
+            ResNet-50 through `ParallelInference` with
+            `bucketLadder([1, 2, 4, 8, 16, 32])` (each bucket's replay
+            bit-identical to the eager forward of its rows, the 96 images
+            equal to `net.output`, one B=32 forward timed both ways, and a
+            store given no signature warming every bucket from the
+            manifest). No capture after warmup, no eager call or
+            degradation in a graph store, and launch counters that count
+            replays.
+10. profile (only with --profile): the serving workload, one fused B=32
+            ResNet-50 forward and three fused ResNet-50 training steps,
+            each eager and through its graphs (training: eager and graph
+            with prefetch 0, graph with prefetch 2), and three fine-tune
+            steps,
+            once more under torch.profiler: the card's busy and idle share
+            of the wall time, and device time by kernel group.
 
-The kernels' launch counters are set to 0 just before each main path (the
-encoder, serving, the timed training steps, ResNet serving and the timed
-ResNet training steps) and read just after. Every number is measured in this run; the last lines are the
+Phases 5, 7 and 8 run as a user runs them: the server and `fit` replay
+CUDA graphs on the card by default. The kernels' launch counters are set
+to 0 just before each main path (the encoder, serving, the timed training
+steps, ResNet serving, the timed ResNet training steps and each arm of the
+graphs phase) and read just after; a replay adds the launches its capture
+recorded. Every number is measured in this run; the last lines are the
 kernel JSON object and the `{"ok": true, "device": ...}` line. Imports
 nothing of JAX.
 """
@@ -116,6 +139,8 @@ from deeplearning4j_tpu_torch.models.zoo import ResNet50
 from deeplearning4j_tpu_torch.nn import Nesterovs
 from deeplearning4j_tpu_torch.parallel.inference import (InferenceMode,
                                                          ParallelInference)
+from deeplearning4j_tpu_torch.runtime.executables import (ExecutableStore,
+                                                          tensor_leaves)
 
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 #: the card; a rehearsal of a phase on the CPU sets "cpu" (the kernel
@@ -1366,16 +1391,21 @@ def _resnet_nets(**zoo):
     return fused, plain
 
 
-def _serve_resnet(net, images, sizes):
+def _serve_resnet(net, images, sizes, ladder=None, cache_dir=None):
     """The requests through ParallelInference(BATCHED, batchLimit=32) from
-    RESNET["threads"] client threads. Returns (answers, per-request
-    latencies s, wall s, kernel launches, forwards)."""
+    RESNET["threads"] client threads; with `ladder`, through its bucket
+    graphs (`bucketLadder(ladder)`, `warmup()`). Returns (answers,
+    per-request latencies s, wall s, kernel launches, forwards, {warmup
+    stats, status})."""
     off = np.concatenate([[0], np.cumsum(sizes)])
     answers, lat, errs = [None] * len(sizes), [None] * len(sizes), []
     nxt, lock = [0], threading.Lock()
-    pi = (ParallelInference.Builder(net)
-          .inferenceMode(InferenceMode.BATCHED)
-          .batchLimit(RESNET["batch"]).build())
+    builder = (ParallelInference.Builder(net)
+               .inferenceMode(InferenceMode.BATCHED)
+               .batchLimit(RESNET["batch"]))
+    if ladder is not None:
+        builder.bucketLadder(ladder).executableCacheDir(cache_dir)
+    pi = builder.build()
 
     def client():
         while True:
@@ -1392,11 +1422,15 @@ def _serve_resnet(net, images, sizes):
                 return
             lat[i] = time.perf_counter() - t
 
+    info = {}
     try:
-        # warm: the allocator grows to the padded batch sizes the
-        # collector forms (32 rows, and 64 when a batch runs past 32)
-        for rows in (1, RESNET["batch"], 2 * RESNET["batch"]):
-            pi.output(np.resize(images, (rows,) + images.shape[1:]))
+        if ladder is not None:
+            info["warmup"] = pi.warmup()
+        else:
+            # warm: the allocator grows to the padded batch sizes the
+            # collector forms (32 rows, and 64 when a batch runs past 32)
+            for rows in (1, RESNET["batch"], 2 * RESNET["batch"]):
+                pi.output(np.resize(images, (rows,) + images.shape[1:]))
         torch.cuda.synchronize()
         _reset_counts()
         calls = pi.model_calls
@@ -1411,11 +1445,12 @@ def _serve_resnet(net, images, sizes):
         wall = time.perf_counter() - t0
         launches = _counts()
         calls = pi.model_calls - calls
+        info["status"] = pi.status()
     finally:
         pi.shutdown()
     if errs or any(t.is_alive() for t in threads):
         raise AssertionError(f"resnet: serving failed: {errs}")
-    return answers, lat, wall, launches, calls
+    return answers, lat, wall, launches, calls, info
 
 
 def _forward_ms(net, x):
@@ -1460,15 +1495,23 @@ def _res4_block_check(net, acts):
             "shape": list(y.shape)}
 
 
-def phase_resnet():
-    fused, plain = _resnet_nets()
+def _resnet_requests():
+    """(request sizes of 1-8 rows, summing to >= RESNET["images"], the
+    images), from a seed."""
     rng = np.random.default_rng(5)
     sizes = []
     while sum(sizes) < RESNET["images"]:
         sizes.append(int(rng.integers(1, 9)))
     images = rng.standard_normal((sum(sizes), 224, 224, 3)).astype(
         np.float32)
-    answers, lat, wall, launches, calls = _serve_resnet(fused, images, sizes)
+    return sizes, images
+
+
+def phase_resnet():
+    fused, plain = _resnet_nets()
+    sizes, images = _resnet_requests()
+    answers, lat, wall, launches, calls, _ = _serve_resnet(fused, images,
+                                                           sizes)
     n_img = int(sum(sizes))
     # the unfused net's answers for the same rows, on the card
     want = np.concatenate([plain.output(images[i:i + RESNET["batch"]])
@@ -1676,7 +1719,316 @@ def phase_resnet_train():
              "loss_f64": le.item()}, fused, ds)
 
 
-# -- phase 9 (--profile) ------------------------------------------------------
+# -- phase 9: graphs ----------------------------------------------------------
+#: the executable store's three capture targets, each against its eager
+#: run in turns on this card (eager, graph, graph, eager): BERT serving
+#: (the serving phase's 12 requests), ResNet-50 training at B=32 (2 warm-up
+#: and GRAPHS["steps"] timed `fit` steps per arm; bit identity over
+#: GRAPHS["check_steps"] steps, with cuDNN's deterministic algorithms on:
+#: its default weight-gradient convolutions sum in a varying order, so two
+#: eager steps already differ in the last bits), and ResNet-50 served
+#: through `ParallelInference` with the bucket ladder
+GRAPHS = dict(steps=10, check_steps=3, buckets=[1, 2, 4, 8, 16, 32],
+              forwards=10)
+ARMS = ("eager", "graph", "graph", "eager")
+#: the fit A/B: (arm, prefetch depth) in mirrored turns, so that the
+#: graph's gain and the prefetch's gain are measured apart (prefetch 0
+#: copies each batch from pageable memory when its step starts)
+FIT_ARMS = (("eager", 0), ("graph", 0), ("graph", 2), ("eager", 2),
+            ("eager", 2), ("graph", 2), ("graph", 0), ("eager", 0))
+
+
+def _store_clean(st, what):
+    """A graph store that served without capturing, degrading or running
+    eagerly after its warmup; logs its counts."""
+    counts = {k: st[k] for k in ("keys", "captures", "replays",
+                                 "live_captures", "eager_calls",
+                                 "degradations")}
+    log(f"[graphs] {what} store: {counts}")
+    bad = {k: st[k] for k in ("live_captures", "degradations",
+                              "eager_calls") if st[k]}
+    if bad or st["replays"] == 0 or not st["capture"]:
+        raise AssertionError(f"graphs: {what}: {bad or st}")
+
+
+def _graphs_serving(cfg, params, cache_dir):
+    reqs = _requests(cfg)
+    runs = []
+    for arm in ARMS:
+        graph = arm == "graph"
+        srv = GenerationServer(BertDecoder(cfg, params), cuda_graphs=graph,
+                               exec_cache_dir=cache_dir if graph else None,
+                               **SERVER)
+        try:
+            warm = srv.warmup()
+            torch.cuda.synchronize()
+            _reset_counts()
+            t0 = time.perf_counter()
+            streams = [h.result(timeout=600)
+                       for h in [srv.submit(**r) for r in reqs]]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _counts()
+            st = srv.status()
+        finally:
+            srv.shutdown()
+        ntok = sum(len(x) for x in streams)
+        ex = st["executables"]
+        run = {"arm": arm, "wall_s": wall, "tokens": ntok,
+               "tokens_per_s": ntok / wall, "blocks": st["steps"],
+               "admissions": st["admissions"],
+               "per_token_p50_ms": st["per_token_p50_ms"],
+               "per_token_p99_ms": st["per_token_p99_ms"],
+               "launches": {k: launches[k]
+                            for k in ("flash_fwd", "flash_decode")},
+               "warmup": warm, "replays": ex["replays"],
+               "eager_calls": ex["eager_calls"]}
+        log(f"[graphs] serving {arm}: {ntok} tokens in {wall:.3f} s = "
+            f"{ntok / wall:.1f} tokens/s; per-token p50 "
+            f"{st['per_token_p50_ms']:.3f} ms p99 "
+            f"{st['per_token_p99_ms']:.3f} ms; {st['steps']} blocks, "
+            f"{st['admissions']} admissions; host calls: "
+            f"{ex['replays']} graph replays, {ex['eager_calls']} eager "
+            f"calls; launches {run['launches']}; warmup {warm}")
+        want = (cfg.num_layers * st["admissions"],
+                cfg.num_layers * SERVER["superstep"] * st["steps"])
+        if (launches["flash_fwd"], launches["flash_decode"]) != want:
+            raise AssertionError(f"graphs: serving {arm} launched "
+                                 f"{run['launches']}, expected {want}")
+        if graph:
+            _store_clean(ex, "serving")
+        if runs and streams != runs[0]["streams"]:
+            diff = [i for i, (a, b) in enumerate(zip(streams,
+                                                     runs[0]["streams"]))
+                    if a != b]
+            raise AssertionError(f"graphs: serving {arm} streams {diff} "
+                                 f"differ from the eager server's")
+        runs.append(dict(run, streams=streams))
+    first, second = runs[1]["warmup"], runs[2]["warmup"]
+    keys = first["executables"]
+    log(f"[graphs] serving store: {keys} keys; first warmup compiled "
+        f"{first['compiled']} from_disk {first['from_disk']}; second "
+        f"(same directory) compiled {second['compiled']} from_disk "
+        f"{second['from_disk']} nvcc runs {second['nvcc_runs']}, "
+        f"{second['seconds']:.2f} s; every stream equal to the eager "
+        f"server's (greedy and sampled)")
+    if (first["compiled"], first["from_disk"]) != (keys, 0) or (
+            second["compiled"], second["from_disk"],
+            second["nvcc_runs"]) != (0, keys, 0):
+        raise AssertionError(f"graphs: the serving store's disk tier: "
+                             f"{first} then {second}")
+    for r in runs:
+        del r["streams"]
+    return runs
+
+
+def _graphs_fit():
+    fused, plain = _resnet_nets(updater=Nesterovs(RESNET_TRAIN["lr"], 0.9))
+    del plain
+    ds = _train_batch_resnet()
+    n, b = GRAPHS["check_steps"], RESNET_TRAIN["batch"]
+    # two eager steps from one state, cuDNN's default algorithms
+    one, two = fused.clone(), fused.clone()
+    one.fit(ds, cudaGraphs=False)
+    two.fit(ds, cudaGraphs=False)
+    pairs = list(zip(tensor_leaves(one._params), tensor_leaves(two._params)))
+    eager_unequal = sum(not torch.equal(x, y) for x, y in pairs)
+    eager_diff = max((x - y).abs().max().item() for x, y in pairs)
+    log(f"[graphs] fit: two eager steps from one state, default cuDNN: "
+        f"{eager_unequal} of {len(pairs)} parameter tensors differ, by at "
+        f"most {eager_diff:.3e}")
+    del one, two, pairs
+    torch.backends.cudnn.deterministic = True
+    try:
+        graph, eager = fused.clone(), fused.clone()
+        graph.fit([ds] * n)
+        eager.fit([ds] * n, prefetch=0, cudaGraphs=False)
+        torch.cuda.synchronize()
+        unequal = {what: sum(not torch.equal(x, y) for x, y in zip(
+            tensor_leaves(getattr(graph, attr)),
+            tensor_leaves(getattr(eager, attr))))
+            for what, attr in (("parameters", "_params"),
+                               ("optimizer state", "_opt_state"),
+                               ("BN state", "_state"))}
+        scores = (graph.score(), eager.score())
+        st = graph.fit_status()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    log(f"[graphs] fit ResNet-50 B={b}, {n} steps, cuDNN deterministic: "
+        f"graph vs eager tensors not bit-identical {unequal}; loss "
+        f"{scores[0]!r} vs {scores[1]!r}; graph store: {st['captures']} "
+        f"capture, {st['replays']} replays, {st['degradations']} "
+        f"degradations")
+    if any(unequal.values()) or scores[0] != scores[1] or (
+            st["captures"], st["replays"], st["degradations"]) != (
+                1, n - 1, 0):
+        raise AssertionError(f"graphs: the fit step's replays differ from "
+                             f"the eager steps: {unequal}, {scores}, {st}")
+    del graph, eager
+    nets = {"eager": fused.clone(), "graph": fused.clone()}
+    del fused
+    for arm, net in nets.items():
+        net.fit([ds] * RESNET_TRAIN["warmup"], cudaGraphs=arm == "graph")
+    torch.cuda.synchronize()
+    runs = []
+    steps = GRAPHS["steps"]
+    for arm, prefetch in FIT_ARMS:
+        net = nets[arm]
+        _reset_counts()
+        t0 = time.perf_counter()
+        net.fit([ds] * steps, prefetch=prefetch, cudaGraphs=arm == "graph")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counts()
+        per_step = {k: launches[k] / steps for k in TRAIN_KERNELS}
+        loss = net.score()
+        st = net.fit_status()
+        runs.append({"arm": arm, "prefetch": prefetch,
+                     "ms_per_step": wall * 1e3 / steps,
+                     "images_per_s": b * steps / wall, "loss": loss,
+                     "launches_per_step": per_step,
+                     "replays": None if st is None else st["replays"]})
+        log(f"[graphs] fit {arm} (prefetch {prefetch}): "
+            f"{wall * 1e3 / steps:.2f} ms/step, {b * steps / wall:.1f} "
+            f"images/s, loss {loss:.4f}; launches per step {per_step}")
+        if any(v != EPILOGUE_PAIRS for v in per_step.values()) or \
+                not np.isfinite(loss):
+            raise AssertionError(f"graphs: fit {arm}: {runs[-1]}")
+    st = nets["graph"].fit_status()
+    if st["captures"] != 1:
+        raise AssertionError(f"graphs: the fit step was captured again: "
+                             f"{st}")
+    _store_clean(st, "fit")
+    return {"bit_identity": {"steps": n, "unequal": unequal,
+                             "scores": scores,
+                             "eager_default_cudnn_unequal": eager_unequal,
+                             "eager_default_cudnn_max_diff": eager_diff},
+            "runs": runs, "store": {k: st[k] for k in (
+                "captures", "replays", "degradations", "eager_calls")}}
+
+
+def _graphs_inference(cache_dir):
+    fused, plain = _resnet_nets()
+    del plain
+    sizes, images = _resnet_requests()
+    n_img = int(sum(sizes))
+    want = np.concatenate([fused.output(images[i:i + RESNET["batch"]])
+                           .cpu().numpy()
+                           for i in range(0, n_img, RESNET["batch"])])
+    scale = float(np.abs(want).max())
+    # each bucket's replay against the eager forward at the same rows
+    store = ExecutableStore(fused)
+    buckets = GRAPHS["buckets"]
+    feat = images.shape[1:]
+    store.warmup([(((bk, *feat), "float32"),) for bk in buckets])
+    unequal = []
+    for bk in buckets:
+        sig = (((bk, *feat), "float32"),)
+        x = images[:bk]
+        (static,) = store.ensure(sig)
+        static.copy_(torch.as_tensor(x, device=DEV))
+        got = store.run(("forward", sig))
+        if not torch.equal(got, fused.output(x)):
+            unequal.append(bk)
+    log(f"[graphs] inference buckets {buckets}: replay vs eager forward "
+        f"on the same rows, not bit-identical: {unequal or 'none'}")
+    if unequal:
+        raise AssertionError(f"graphs: buckets {unequal} differ from the "
+                             f"eager forward")
+    # one B=32 forward, eager against its graph, in turns
+    x = torch.as_tensor(images[:RESNET["batch"]], device=DEV)
+    sig = (((RESNET["batch"], *feat), "float32"),)
+    (static,) = store.ensure(sig)
+
+    def replay():
+        static.copy_(x)
+        return store.run(("forward", sig))
+
+    forward = []
+    for arm in ARMS:
+        fn = replay if arm == "graph" else (lambda: fused.output(x))
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(GRAPHS["forwards"]):
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        forward.append({"arm": arm, "ms": float(np.mean(times)),
+                        "min_ms": float(np.min(times))})
+    log("[graphs] one B=32 forward (host clock, mean / min of "
+        f"{GRAPHS['forwards']}): " + ", ".join(
+            f"{r['arm']} {r['ms']:.3f} / {r['min_ms']:.3f} ms"
+            for r in forward))
+    del store
+    # the 96 images through ParallelInference, eager against the ladder
+    runs = []
+    for arm in ARMS:
+        graph = arm == "graph"
+        answers, lat, wall, launches, calls, info = _serve_resnet(
+            fused, images, sizes, ladder=buckets if graph else None,
+            cache_dir=cache_dir)
+        got = np.concatenate(answers)
+        err = float(np.abs(got - want).max())
+        lat_ms = np.asarray(lat) * 1e3
+        st = info["status"]
+        run = {"arm": arm, "wall_s": wall, "images_per_s": n_img / wall,
+               "p50_ms": float(np.percentile(lat_ms, 50)),
+               "p99_ms": float(np.percentile(lat_ms, 99)),
+               "forwards": calls, "max_abs_err": err,
+               "matmul_epilogue": launches["matmul_epilogue"],
+               "warmup": info.get("warmup"),
+               "aot_fallbacks": st["aot_fallbacks"]}
+        log(f"[graphs] inference {arm}: {n_img} images, {calls} forwards, "
+            f"{wall:.3f} s = {n_img / wall:.1f} images/s; p50 "
+            f"{run['p50_ms']:.2f} ms p99 {run['p99_ms']:.2f} ms; "
+            f"matmul_epilogue launches {launches['matmul_epilogue']}; "
+            f"max |answer - net.output| = {err:.3e} of max {scale:.3e}"
+            + (f"; warmup {info['warmup']}" if graph else ""))
+        if got.shape != (n_img, 1000) or not err <= RESNET_RTOL * scale:
+            raise AssertionError(f"graphs: inference {arm} answers differ "
+                                 f"from net.output by {err}")
+        if launches["matmul_epilogue"] != EPILOGUE_PAIRS * calls:
+            raise AssertionError(f"graphs: inference {arm}: "
+                                 f"{launches['matmul_epilogue']} epilogue "
+                                 f"launches over {calls} forwards")
+        if graph:
+            _store_clean(st["executables"], "inference")
+            if st["aot_fallbacks"]:
+                raise AssertionError(f"graphs: inference fell back: "
+                                     f"{st['aot_error']}")
+        runs.append(run)
+    first, second = runs[1]["warmup"], runs[2]["warmup"]
+    # a store given no signature captures what the manifest records
+    third = ExecutableStore(fused, directory=cache_dir).warmup([])
+    torch.cuda.synchronize()
+    log(f"[graphs] inference disk tier: first warmup {first}; second "
+        f"(same directory) {second}; a store given no signature warms "
+        f"the manifest's {third}")
+    if (first["compiled"], first["from_disk"]) != (len(buckets), 0) or (
+            second["compiled"], second["from_disk"],
+            second["nvcc_runs"]) != (0, len(buckets), 0) or (
+            third["keys"], third["from_disk"], third["compiled"],
+            third["nvcc_runs"]) != (len(buckets), len(buckets), 0, 0):
+        raise AssertionError(f"graphs: the inference store's disk tier: "
+                             f"{first} then {second} then {third}")
+    return {"buckets": buckets, "forward": forward, "runs": runs,
+            "manifest_warmup": third}
+
+
+def phase_graphs(cfg, params):
+    """The three capture targets against their eager runs."""
+    cache = OUT_DIR / "exec_cache"
+    shutil.rmtree(cache, ignore_errors=True)
+    out = {"serving": _graphs_serving(cfg, params, str(cache / "serving")),
+           "fit": _graphs_fit(),
+           "inference": _graphs_inference(str(cache / "inference"))}
+    shutil.rmtree(cache, ignore_errors=True)
+    return out
+
+
+# -- phase 10 (--profile) ------------------------------------------------------
 #: kernel-name substrings -> the part of a step they belong to
 KERNEL_GROUPS = (("flash_fwd_kernel", "flash_fwd"),
                  ("flash_decode_kernel", "flash_decode"),
@@ -1784,26 +2136,34 @@ def _profiled(what, run):
 
 
 def phase_profile(cfg, params, resnet_net, resnet_x, train_net, train_ds):
-    """The serving phase's workload, three fine-tune steps, one fused B=32
-    ResNet-50 forward and one fused ResNet-50 training step once more
-    under torch.profiler."""
+    """Under torch.profiler, eager and through its CUDA graphs: the serving
+    phase's workload, one fused B=32 ResNet-50 forward and three fused
+    ResNet-50 training steps; and three fine-tune steps."""
     reqs = _requests(cfg)
-    srv = GenerationServer(BertDecoder(cfg, params), **SERVER)
-    try:
-        srv.warmup()
-        torch.cuda.synchronize()
-        serving, _ = _profiled("serving", lambda: [
-            h.result(timeout=600) for h in [srv.submit(**r) for r in reqs]])
-        st = srv.status()
-    finally:
-        srv.shutdown()
-    if serving is not None:
-        steps = st["steps"] * srv.superstep
-        serving.update(decode_steps=steps, admissions=st["admissions"],
-                       kernels_per_decode_step=serving["kernels"] / steps)
-        log(f"[profile] serving: {steps} decode steps + {st['admissions']} "
-            f"prefills ({serving['kernels_per_decode_step']:.1f} kernels "
-            f"per decode step)")
+    serving = {}
+    for arm in ("eager", "graph"):
+        srv = GenerationServer(BertDecoder(cfg, params),
+                               cuda_graphs=arm == "graph", **SERVER)
+        try:
+            srv.warmup()
+            torch.cuda.synchronize()
+            prof, _ = _profiled(f"serving {arm}", lambda: [
+                h.result(timeout=600)
+                for h in [srv.submit(**r) for r in reqs]])
+            st = srv.status()
+        finally:
+            srv.shutdown()
+        if prof is not None:
+            steps = st["steps"] * srv.superstep
+            ex = st["executables"]
+            prof.update(decode_steps=steps, admissions=st["admissions"],
+                        kernels_per_decode_step=prof["kernels"] / steps,
+                        graph_replays=ex["replays"])
+            log(f"[profile] serving {arm}: {steps} decode steps + "
+                f"{st['admissions']} prefills "
+                f"({prof['kernels_per_decode_step']:.1f} kernels per decode "
+                f"step; {ex['replays']} graph replays)")
+        serving[arm] = prof
     gen = torch.Generator(device=DEV)
     gen.manual_seed(0)
     step = _trainer(cfg, params, _train_batch(cfg), gen)
@@ -1814,14 +2174,34 @@ def phase_profile(cfg, params, resnet_net, resnet_x, train_net, train_ds):
     if train is not None:
         train["steps"] = 3
     del step
-    resnet_net.output(resnet_x)
-    torch.cuda.synchronize()
-    resnet, _ = _profiled("resnet fused forward B=32",
-                          lambda: resnet_net.output(resnet_x))
-    train_net.fit(train_ds)
-    torch.cuda.synchronize()
-    resnet_train, _ = _profiled("resnet fused training step B=32",
-                                lambda: train_net.fit(train_ds))
+    store = ExecutableStore(resnet_net)
+    sig = ((tuple(resnet_x.shape), "float32"),)
+    store.warmup([sig])
+    (static,) = store.ensure(sig)
+
+    def replay():
+        static.copy_(resnet_x)
+        return store.run(("forward", sig))
+
+    resnet = {}
+    for arm, fn in (("eager", lambda: resnet_net.output(resnet_x)),
+                    ("graph", replay)):
+        fn()
+        torch.cuda.synchronize()
+        resnet[arm], _ = _profiled(f"resnet fused forward B=32 {arm}", fn)
+    del store, static
+    resnet_train = {}
+    for arm, prefetch in (("eager", 0), ("graph", 0), ("graph", 2)):
+        graph = arm == "graph"
+        train_net.fit(train_ds, cudaGraphs=graph)
+        torch.cuda.synchronize()
+        name = f"{arm} prefetch {prefetch}"
+        resnet_train[name], _ = _profiled(
+            f"resnet fused training B=32, 3 steps {name}",
+            lambda: train_net.fit([train_ds] * 3, cudaGraphs=graph,
+                                  prefetch=prefetch))
+        if resnet_train[name] is not None:
+            resnet_train[name]["steps"] = 3
     return {"serving": serving, "train": train, "resnet": resnet,
             "resnet_train": resnet_train}
 
@@ -1855,9 +2235,11 @@ def kernel_line(rows, launches, launches_from):
 # -- main ---------------------------------------------------------------------
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["kernels", "resnet"], default=None,
+    ap.add_argument("--only", choices=["kernels", "resnet", "graphs"],
+                    default=None,
                     help="stop after the kernel checks, or run the resnet "
-                         "serving and training phases right after them "
+                         "serving and training phases right after them, or "
+                         "run the graphs phase alone after the build "
                          "(bring-up runs)")
     ap.add_argument("--profile", action="store_true",
                     help="after the resnet phases, profile the serving "
@@ -1880,11 +2262,19 @@ def main(argv=None):
 
     card = timed("card", phase_card)
     build_s = timed("build", phase_build)
+    OUT_DIR.mkdir(exist_ok=True)
+    if args.only == "graphs":
+        cfg = bert_base()
+        graphs = timed("graphs", phase_graphs, cfg,
+                       init_bert_params(cfg, 0))
+        (OUT_DIR / "smoke_graphs.json").write_text(json.dumps(
+            {"card": card, "graphs": graphs, "phase_seconds": seconds},
+            indent=1))
+        return 0
     rows, kernel_launches = timed("kernels", phase_kernels)
     step36 = step36_summary(rows)
     fwd36 = fwd36_summary(rows)
     step12 = bert_step12_summary(rows)
-    OUT_DIR.mkdir(exist_ok=True)
     if args.only == "kernels":
         (OUT_DIR / "smoke_kernels.json").write_text(json.dumps(
             {"card": card, "kernels": rows, "step36": step36,
@@ -1907,6 +2297,7 @@ def main(argv=None):
     resnet, resnet_net, resnet_x = timed("resnet", phase_resnet)
     resnet_train, train_net, train_ds = timed("resnet_train",
                                               phase_resnet_train)
+    graphs = timed("graphs", phase_graphs, cfg, params)
     prof = (timed("profile", phase_profile, cfg, params, resnet_net,
                   resnet_x, train_net, train_ds) if args.profile else None)
     # each kernel's launches from the path that carries it: the forward and
@@ -1943,8 +2334,8 @@ def main(argv=None):
          "step36": step36, "fwd36": fwd36, "bert_step12": step12,
          "encoder": encoder,
          "serving": serving, "train": train,
-         "resnet": resnet, "resnet_train": resnet_train, "profile": prof,
-         "line": line,
+         "resnet": resnet, "resnet_train": resnet_train, "graphs": graphs,
+         "profile": prof, "line": line,
          "phase_seconds": seconds, "seconds": time.perf_counter() - t0},
         indent=1))
     log(f"[smoke] {time.perf_counter() - t0:.1f} s; by phase "

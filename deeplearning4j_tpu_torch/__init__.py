@@ -12,7 +12,10 @@ with the flash attention kernels (`kernels/`), KV-cache serving through
 `generation.GenerationServer` over `generation.BertDecoder`, and
 ResNet-50 inference through the `nn/` builder DSL, `ComputationGraph`
 and `parallel.inference.ParallelInference`, with the conv1x1+BN epilogue
-GEMM and the fused bottleneck block.
+GEMM and the fused bottleneck block; ResNet-50 training through
+`ComputationGraph.fit`; and the executable store (`runtime/`), which
+replays the decode block, the training step and the inference buckets as
+CUDA graphs on the card.
 """
 from deeplearning4j_tpu_torch.device import resolve
 

@@ -8,7 +8,10 @@ cache through `flash_attention_decode` (the `flash_decode` kernel on the
 card). `prefill` runs the causal full forward over a length-bucketed
 prompt (the `flash_fwd` kernel on the card) and writes the slot's K/V
 block. Where the JAX package donates the cache through each dispatch, the
-port updates it in place and returns the same dict.
+port updates it in place and returns the same dict. `step`, `prefill`
+and `grow_into` read no device value on the host and allocate nothing
+that outlives them, so `GenerationServer` captures them into CUDA graphs;
+`prefill` takes its slot and prompt length as device tensors for that.
 
 The full-sequence reference this must match (≤ 1e-5) is
 `bert_encode(..., causal=True)` + `bert_mlm_logits` over the same prefix.
@@ -71,7 +74,7 @@ class BertDecoder:
 
     def fingerprint(self):
         parts = ("bert-decode", repr(self.cfg), self.attn_impl,
-                 _shape_tree_repr(self.params))
+                 _shape_tree_repr(self.params), torch.__version__)
         return hashlib.sha256(repr(parts).encode()).hexdigest()[:16]
 
     def model_args(self):
@@ -87,13 +90,17 @@ class BertDecoder:
 
     def grow(self, cache, new_len):
         """The cache padded with zero rows to the longer rung `new_len`."""
-        out = {}
+        big = {name: t.new_zeros(t.shape[:3] + (int(new_len),) + t.shape[4:])
+               for name, t in cache.items()}
+        return self.grow_into(cache, big)
+
+    def grow_into(self, cache, big):
+        """Copy `cache` into the longer rung's cache `big` (rows beyond
+        the shorter rung zeroed), in place; returns `big`."""
         for name, t in cache.items():
-            shape = t.shape[:3] + (int(new_len),) + t.shape[4:]
-            big = t.new_zeros(shape)
-            big[:, :, :, :t.shape[3]] = t
-            out[name] = big
-        return out
+            big[name].zero_()
+            big[name][:, :, :, :t.shape[3]].copy_(t)
+        return big
 
     def verify(self, margs, cache, tokens, pos, draft):
         raise NotImplementedError(
@@ -165,10 +172,14 @@ class BertDecoder:
         """Causal full forward over one length-bucketed prompt (P,); writes
         slot `slot`'s K/V block for rows 0..P-1 and returns (cache, the
         logits (V,) at the last REAL position plen - 1). Rows beyond plen
-        hold padding garbage that the decode cache mask hides."""
+        hold padding garbage that the decode cache mask hides. `slot` and
+        `plen` are ints or one-element int64 tensors on the cache's
+        device."""
         (params,) = margs
         cfg = self.cfg
         p_len = prompt.shape[0]
+        slot = torch.as_tensor(slot, device=prompt.device).reshape(1)
+        plen = torch.as_tensor(plen, device=prompt.device).reshape(1)
         emb = params["embeddings"]
         x = emb["word"][prompt[None]] + emb["position"][None, :p_len]
         x = _layer_norm(x.to(cfg.compute_dtype), emb["ln_scale"],
@@ -184,8 +195,8 @@ class BertDecoder:
                 return t.reshape(1, p_len, nh, hd).transpose(1, 2)
 
             q, k, v = heads(q), heads(k), heads(v)      # (1, nh, P, hd)
-            kc[li, slot, :, :p_len] = k[0].to(kc.dtype)
-            vc[li, slot, :, :p_len] = v[0].to(vc.dtype)
+            kc[li, :, :, :p_len][slot] = k.to(kc.dtype)
+            vc[li, :, :, :p_len][slot] = v.to(vc.dtype)
             ctx = self._prefill_attn(q, k, v)
             a = ctx.transpose(1, 2).reshape(1, p_len, cfg.hidden_size) \
                 @ layer["proj_W"].to(dt) + layer["proj_b"].to(dt)
@@ -194,6 +205,6 @@ class BertDecoder:
             f = _ffn(cfg, layer, x)
             x = _layer_norm(x + f, layer["ln2_scale"], layer["ln2_bias"],
                             cfg.layer_norm_eps)
-        h_last = x[0, plen - 1]                         # (H,)
+        h_last = x[0].index_select(0, plen - 1)[0]      # (H,)
         logits = bert_mlm_logits(cfg, params, h_last)
         return cache, logits

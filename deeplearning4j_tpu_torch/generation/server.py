@@ -17,6 +17,19 @@ sampling knobs) stays on the device; the ONLY host syncs are one fetch of
 the (k, S) token block per block and one of the first token per
 admission.
 
+Executable store: `warmup` adds the reference's closed key set to a
+`runtime.executables.FunctionStore` — ("superstep", rung, k) per rung,
+("admit", rung, p) per prompt bucket p <= rung, ("grow_to_<bigger>",
+rung) per rung pair and ("retire",) — and on the card captures each into
+a CUDA graph, so a decode block is one graph launch on the host. The
+decode state lives in static tensors: one cache per rung, allocated at
+warmup, and the per-slot columns. Host values (EOS and budget columns,
+the admitted slot, prompt, key and sampling knobs, the retired slot)
+enter static inputs through a `StagingRing`. `exec_cache_dir` keeps the
+store's manifest of keys on disk; `cuda_graphs=False` runs the same
+functions eagerly on the card (the reference the graphs are held to). On
+the CPU they always run eagerly.
+
 Each request's rng key is a pure function of (server seed, admission
 order) (`_admit_key`, the JAX package's derivation), and sampling follows
 JAX's threefry bit for bit, so streams match the JAX server's.
@@ -24,8 +37,8 @@ JAX's threefry bit for bit, so streams match the JAX server's.
 Not in this slice, each waiting for a later slice of the port: greedy
 drafting (`draft`), paged KV, `adopt`, crash-replay and the supervised
 restart (a decode-loop failure here latches `ServerDeadError`), the
-memory-pressure ladder, the executable store (`exec_cache_dir`), the
-asynchronous token fetch, monitoring, and `RecurrentDecoder`.
+memory-pressure ladder, the asynchronous token fetch, monitoring, the
+replay key-advance executable, and `RecurrentDecoder`.
 """
 from __future__ import annotations
 
@@ -42,18 +55,21 @@ from deeplearning4j_tpu_torch.generation.sampling import (method_id,
                                                           sample_step)
 from deeplearning4j_tpu_torch.parallel.inference import bounded_enqueue
 from deeplearning4j_tpu_torch.resilience.errors import ServerDeadError
+from deeplearning4j_tpu_torch.runtime.executables import (FunctionStore,
+                                                          StagingRing)
 
 __all__ = ["GenerationRequest", "GenerationServer", "status"]
 
 _SERVERS = weakref.WeakSet()
 
-#: decode-state tuple layout
-_CACHE, _POS, _ACTIVE, _TOKENS, _RNG, _METHOD, _TEMP, _TOPK = range(8)
+#: per-slot decode-state columns
+_POS, _ACTIVE, _TOKENS, _RNG, _METHOD, _TEMP, _TOPK = range(7)
+#: the admit input's leading scalars, then the padded prompt
+_A_SLOT, _A_PLEN, _A_KEY, _A_METHOD, _A_TOPK, _A_PROMPT = 0, 1, 2, 4, 5, 6
 
 #: knobs of the JAX server that this slice does not port, with their
 #: defaults there; any other value raises
 _LATER = {
-    "exec_cache_dir": (None, "the executable store"),
     "restart_policy": (None, "crash-replay and supervised restarts"),
     "max_consecutive_failures": (8, "crash-replay and supervised restarts"),
     "pressure_relief_steps": (256, "the memory-pressure ladder"),
@@ -139,13 +155,16 @@ class GenerationServer:
     `decoder`: a `generation.decode.BertDecoder`; the server runs on its
     device. `slots` is the decode batch; `cache_lengths` the cache rungs
     (prompt_len + max_new_tokens must fit the top rung); `prompt_buckets`
-    the prefill length ladder; `superstep` the decode steps per block."""
+    the prefill length ladder; `superstep` the decode steps per block.
+    `exec_cache_dir` holds the executable store's manifest; `cuda_graphs`
+    (on the card) replays CUDA graphs, or runs the same functions eagerly
+    when False."""
 
     def __init__(self, decoder, slots=4, cache_lengths=(128,),
                  prompt_buckets=None, method="greedy", temperature=1.0,
                  top_k=0, eos_id=None, max_new_tokens=64, seed=0,
                  queue_limit=256, enqueue_timeout_ms=100.0, superstep=1,
-                 **later):
+                 exec_cache_dir=None, cuda_graphs=True, **later):
         for name, value in later.items():
             if name not in _LATER:
                 raise TypeError(f"unexpected keyword argument {name!r}")
@@ -196,8 +215,13 @@ class GenerationServer:
                       "admissions": 0, "retirements": 0, "errors": 0}
         self.token_fetches = 0       # host syncs: one per block/admission
         self._queue = queue.Queue(maxsize=int(queue_limit))
+        self._exec_cache_dir = exec_cache_dir
+        self.cuda_graphs = bool(cuda_graphs)
+        self._store = None           # FunctionStore, built at warmup
+        self._ring = StagingRing(2)
         self._margs = None
-        self._state = None
+        self._caches = None          # rung -> static K/V cache
+        self._cols = None            # static per-slot columns
         self._rung = None
         self._slot_req = {}          # slot -> (request, admission id)
         self._latencies = collections.deque(maxlen=512)  # per-token ms
@@ -211,50 +235,97 @@ class GenerationServer:
         self._thread = None
         _SERVERS.add(self)
 
-    # -- warmup -----------------------------------------------------------
+    # -- warmup (the capture boundary) -------------------------------------
     def warmup(self):
-        """Build the kernels (on the card), initialize the decode state at
-        the smallest rung, and start the decode loop. Idempotent."""
+        """Build the kernels (on the card), allocate the static decode
+        state (a cache per rung), add the closed key set to the executable
+        store (on the card: capture a CUDA graph of each), and start the
+        decode loop. Idempotent. Returns {compiled, from_disk, captures,
+        nvcc_runs, seconds, executables}."""
         with self._lock:
             if self._warm:
-                return {"seconds": 0.0}
+                return {"compiled": 0, "from_disk": 0, "captures": 0,
+                        "nvcc_runs": 0, "seconds": 0.0,
+                        "executables": len(self._store)}
             t0 = time.perf_counter()
+            nvcc = 0
             if self.device.type == "cuda":
                 from deeplearning4j_tpu_torch.kernels import _build
+                nvcc = _build.nvcc_runs
                 _build.build_all()
+                nvcc = _build.nvcc_runs - nvcc
             self._margs = tuple(self.decoder.model_args())
-            self._rung = self.cache_lengths[0]
-            self._state = self._init_state(self._rung)
+            s, dev, rungs = self.slots, self.device, self.cache_lengths
+
+            def zeros(*shape, dtype=torch.int64):
+                return torch.zeros(shape, dtype=dtype, device=dev)
+
+            self._caches = {r: self.decoder.init_cache(s, r) for r in rungs}
+            self._cols = [zeros(s), zeros(s, dtype=torch.bool), zeros(s),
+                          zeros(s, 2), zeros(s),
+                          zeros(s, dtype=torch.float32), zeros(s)]
+            # static inputs: [eos; budget] of a block; an admission's
+            # scalars and padded prompt, and its temperature; the retired
+            # slot. The warm-up runs admit a one-token prompt into slot 0.
+            self._block_in = zeros(2, s)
+            self._admit_in = zeros(_A_PROMPT + self.prompt_buckets[-1])
+            self._admit_in[_A_PLEN] = 1
+            self._admit_temp = zeros(1, dtype=torch.float32)
+            self._retire_in = zeros(1)
+            # slots is part of every graph's shape but not of the keys, so
+            # it is part of the store's identity
+            store = FunctionStore(
+                f"{self.decoder.fingerprint()}-s{s}", dev,
+                directory=self._exec_cache_dir,
+                capture=self.cuda_graphs and dev.type == "cuda")
+            store.register("superstep", self._superstep)
+            store.register("admit", self._admit_fn)
+            store.register("retire", self._retire_fn)
+            items = []
+            for ci, rung in enumerate(rungs):
+                items.append((("superstep", rung, self.superstep), (rung,)))
+                items += [(("admit", rung, p), (rung, p))
+                          for p in self.prompt_buckets if p <= rung]
+                for bigger in rungs[ci + 1:]:
+                    name = f"grow_to_{bigger}"
+                    store.register(name, self._grow_fn)
+                    items.append(((name, rung), (rung, bigger)))
+            items.append((("retire",), ()))
+            stats = store.warmup(items)
+            self._store = store
+            self._reset_state()
+            self._rung = rungs[0]
             self._warm = True
             self._thread = threading.Thread(target=self._loop, daemon=True)
             self._thread.start()
-            return {"seconds": time.perf_counter() - t0}
+            stats.update(nvcc_runs=stats["nvcc_runs"] + nvcc,
+                         seconds=time.perf_counter() - t0,
+                         executables=len(store))
+            return stats
 
-    def _init_state(self, rung):
-        s, dev = self.slots, self.device
-
-        def zeros(dtype):
-            return torch.zeros((s,), dtype=dtype, device=dev)
-
-        return [self.decoder.init_cache(s, rung), zeros(torch.int64),
-                zeros(torch.bool), zeros(torch.int64),
-                torch.zeros((s, 2), dtype=torch.int64, device=dev),
-                zeros(torch.int64),
-                torch.ones((s,), dtype=torch.float32, device=dev),
-                zeros(torch.int64)]
-
-    # -- device work ------------------------------------------------------
     @torch.no_grad()
-    def _run_block(self, eos, budget):
-        """k decode steps for all slots. Per-slot halt masks freeze a slot
-        the moment it samples its EOS token or exhausts its budget —
-        frozen steps recompute the held token at the held position
-        (idempotent cache writes, output -1). `eos` is -1 for slots with
-        no EOS; `budget` the per-slot count of tokens the block may still
-        emit. Returns the (k, S) token block, on the device."""
-        st = self._state
-        cache, pos, active, tokens, rng = st[_CACHE:_RNG + 1]
-        method, temp, topk = st[_METHOD], st[_TEMP], st[_TOPK]
+    def _reset_state(self):
+        """The decode state as at start (the warm-up runs wrote into it):
+        every cache and column 0, temperatures 1."""
+        for cache in self._caches.values():
+            for t in cache.values():
+                t.zero_()
+        for i, t in enumerate(self._cols):
+            t.fill_(1 if i == _TEMP else 0)
+
+    # -- device work: the store's functions ---------------------------------
+    @torch.no_grad()
+    def _superstep(self, rung):
+        """k decode steps for all slots at cache rung `rung`. Per-slot halt
+        masks freeze a slot the moment it samples its EOS token or
+        exhausts its budget — frozen steps recompute the held token at
+        the held position (idempotent cache writes, output -1). The
+        static input holds `eos` (-1 for slots with no EOS) and `budget`
+        (the tokens each slot may still emit). Returns the (k, S) token
+        block, on the device."""
+        cache = self._caches[rung]
+        pos, active, tokens, rng, method, temp, topk = self._cols
+        eos, budget = self._block_in[0], self._block_in[1]
         outs = []
         for _ in range(self.superstep):
             logits, cache = self.decoder.step(self._margs, cache, tokens,
@@ -266,30 +337,47 @@ class GenerationServer:
             tokens = torch.where(active, sampled, tokens)
             pos = torch.where(active, pos + 1, pos)
             active = active & ~halt
-        st[_CACHE:_RNG + 1] = [cache, pos, active, tokens, rng]
+        for col, new in zip(self._cols, (pos, active, tokens, rng)):
+            col.copy_(new)
         return torch.stack(outs)
 
     @torch.no_grad()
-    def _prefill_slot(self, slot, padded, plen, key, req):
-        """Prefill one prompt into `slot`, arm the slot's sampling config
-        and rng key, and sample its first token (on the device)."""
-        st, dev = self._state, self.device
-        st[_CACHE], logits = self.decoder.prefill(
-            self._margs, st[_CACHE], slot,
-            torch.as_tensor(padded, dtype=torch.int64, device=dev), plen)
-        m = torch.tensor([req.method], device=dev)
-        t = torch.tensor([req.temperature], dtype=torch.float32, device=dev)
-        k = torch.tensor([req.top_k], device=dev)
-        key = torch.as_tensor(key.astype(np.int64), device=dev)[None]
-        first, key2 = sample_step(logits[None], key, m, t, k)
-        st[_POS][slot] = plen
-        st[_ACTIVE][slot] = True
-        st[_TOKENS][slot] = first[0]
-        st[_RNG][slot] = key2[0]
-        st[_METHOD][slot] = m[0]
-        st[_TEMP][slot] = t[0]
-        st[_TOPK][slot] = k[0]
-        return first[0]
+    def _admit_fn(self, rung, p):
+        """Prefill the staged prompt (bucket `p`) into the staged slot of
+        rung `rung`'s cache, arm the slot's sampling knobs and rng key,
+        and sample its first token. Returns it, (1,) on the device."""
+        a = self._admit_in
+        slot, plen = a[_A_SLOT:_A_SLOT + 1], a[_A_PLEN:_A_PLEN + 1]
+        method, topk = a[_A_METHOD:_A_METHOD + 1], a[_A_TOPK:_A_TOPK + 1]
+        _, logits = self.decoder.prefill(self._margs, self._caches[rung],
+                                         slot, a[_A_PROMPT:_A_PROMPT + p],
+                                         plen)
+        first, key = sample_step(logits[None], a[None, _A_KEY:_A_KEY + 2],
+                                 method, self._admit_temp, topk)
+        pos, active, tokens, rng, m, temp, k = self._cols
+        # scalars by index_fill_: an index write of a Python scalar copies
+        # it from the host, which a capture refuses
+        pos[slot] = plen
+        active.index_fill_(0, slot, True)
+        tokens[slot] = first
+        rng[slot] = key
+        m[slot] = method
+        temp[slot] = self._admit_temp
+        k[slot] = topk
+        return first
+
+    @torch.no_grad()
+    def _retire_fn(self):
+        """Clear the staged slot's position/active/token columns (cache
+        rows need no clearing: the cache mask hides them)."""
+        slot = self._retire_in
+        for col in self._cols[_POS:_TOKENS + 1]:
+            col.index_fill_(0, slot, 0)
+
+    @torch.no_grad()
+    def _grow_fn(self, rung, bigger):
+        """Copy rung `rung`'s cache into rung `bigger`'s."""
+        self.decoder.grow_into(self._caches[rung], self._caches[bigger])
 
     # -- client side ------------------------------------------------------
     def submit(self, prompt, max_new_tokens=None, eos_id="default",
@@ -381,16 +469,21 @@ class GenerationServer:
         if needed > self._rung or pbucket > self._rung:
             rung = next(c for c in self.cache_lengths
                         if c >= needed and c >= pbucket)
-            st = self._state
-            st[_CACHE] = self.decoder.grow(st[_CACHE], rung)
+            self._store.run((f"grow_to_{rung}", self._rung))
             self._rung = rung
         slot = self._free.pop()
         self._slot_req[slot] = (req, admit_id)
-        padded = np.zeros((pbucket,), np.int32)
-        padded[:plen] = req.prompt
-        first = self._prefill_slot(slot, padded, plen,
-                                   self._admit_key(admit_id), req)
-        first = int(self._fetch(first))
+        ints = np.zeros(self._admit_in.shape, np.int64)
+        ints[[_A_SLOT, _A_PLEN, _A_METHOD, _A_TOPK]] = (slot, plen,
+                                                        req.method,
+                                                        req.top_k)
+        ints[_A_KEY:_A_KEY + 2] = self._admit_key(admit_id)
+        ints[_A_PROMPT:_A_PROMPT + plen] = req.prompt
+        self._ring.stage(
+            [ints, np.array([req.temperature], np.float32)],
+            [self._admit_in, self._admit_temp])
+        first = self._store.run(("admit", self._rung, pbucket))
+        first = int(self._fetch(first)[0])
         self.stats["admissions"] += 1
         self.stats["tokens"] += 1     # the prefill's first sampled token
         self._deliver(slot, req, first)
@@ -403,25 +496,25 @@ class GenerationServer:
                                             dtype=np.uint32)
 
     def _block_args(self):
-        """Per-block EOS/budget columns from the host-side requests: -1
+        """Per-block [EOS; budget] columns from the host-side requests: -1
         for slots with no EOS (sampled ids are >= 0, so it never
         matches); budget = tokens the slot may still emit."""
-        eos = np.full((self.slots,), -1, np.int64)
-        budget = np.zeros((self.slots,), np.int64)
+        args = np.zeros((2, self.slots), np.int64)
+        args[0] = -1
         for slot, (req, _) in self._slot_req.items():
             if req.eos_id is not None:
-                eos[slot] = req.eos_id
-            budget[slot] = max(req.max_new_tokens - len(req.tokens), 0)
-        dev = self.device
-        return (torch.as_tensor(eos, device=dev),
-                torch.as_tensor(budget, device=dev))
+                args[0, slot] = req.eos_id
+            args[1, slot] = max(req.max_new_tokens - len(req.tokens), 0)
+        return args
 
     def _dispatch_block(self):
         """Run one decode block, fetch its (k, S) token block (THE host
         sync of the block) and deliver it step-major: -1 marks a
         frozen/empty lane."""
         t0 = time.perf_counter()
-        toks = self._fetch(self._run_block(*self._block_args()))
+        self._ring.stage([self._block_args()], [self._block_in])
+        toks = self._fetch(self._store.run(
+            ("superstep", self._rung, self.superstep)))
         dt_ms = (time.perf_counter() - t0) * 1e3
         recs = dict(self._slot_req)
         live = 0
@@ -459,12 +552,9 @@ class GenerationServer:
         return None
 
     def _retire_slot(self, slot, reason):
-        """Clear a slot's position/active/token columns (cache rows need
-        no clearing: the cache mask hides them) and free it."""
-        st = self._state
-        st[_POS][slot] = 0
-        st[_ACTIVE][slot] = False
-        st[_TOKENS][slot] = 0
+        """Clear a slot's columns on the device and free it."""
+        self._ring.stage([np.array([slot], np.int64)], [self._retire_in])
+        self._store.run(("retire",))
         req, _ = self._slot_req.pop(slot)
         self._free.append(slot)
         self.stats["retirements"] += 1
@@ -546,6 +636,9 @@ class GenerationServer:
             "rung": self._rung,
             "prompt_buckets": list(self.prompt_buckets),
             "superstep": self.superstep,
+            "cuda_graphs": self._store is not None and self._store.capture,
+            "executables": (None if self._store is None
+                            else self._store.status()),
             "queued": self._queue.qsize(),
             "warm": self._warm,
             "token_fetches": self.token_fetches,

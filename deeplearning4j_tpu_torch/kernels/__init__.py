@@ -8,7 +8,12 @@ from deeplearning4j_tpu_torch.kernels.pointwise_conv import (
     matmul_epilogue, matmul_stats)
 from deeplearning4j_tpu_torch.kernels.residual_block import bottleneck_block
 
-__all__ = ["flash_attention", "flash_attention_decode",
+#: every wrapper that counts its kernel's launches on `<wrapper>.launches`
+COUNTED = (flash_fwd, flash_decode, flash_bwd_dq, flash_bwd_dkv,
+           matmul_epilogue, int8_matmul_epilogue, bottleneck_block,
+           matmul_stats, bn_grad_stats, bn_conv_grads, fused_layernorm)
+
+__all__ = ["COUNTED", "flash_attention", "flash_attention_decode",
            "flash_attention_decode_mq", "flash_bwd_dkv", "flash_bwd_dq",
            "flash_decode", "flash_fwd", "int8_matmul_epilogue",
            "matmul_epilogue", "bottleneck_block", "fused_layernorm",

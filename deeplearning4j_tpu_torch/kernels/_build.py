@@ -5,7 +5,8 @@ for `sm_90a` with a plain C interface (no PyTorch headers, so a build
 takes seconds). Libraries land in `build/kernels/` at the repository
 root, named by a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one loads straight away. `build_all` starts one
-`nvcc` per source, all at once.
+`nvcc` per source, all at once; `nvcc_runs` counts the compilers started
+in this process (a warm `build/kernels/` starts none).
 
 Every C entry point launches on the stream it is given, allocates
 nothing, and returns `cudaGetLastError()`; `check` turns a non-zero code
@@ -29,6 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+nvcc_runs = 0
 
 
 def kernel_names():
@@ -58,6 +60,7 @@ def _start(name, extra):
     """Spawn nvcc for one source unless its library exists; returns
     (target, process or None). `extra` only adds compiler reports, which
     leave the library as it is, so it is not part of the library's key."""
+    global nvcc_runs
     src, out = _target(name)
     if out.exists():
         return out, None
@@ -67,6 +70,7 @@ def _start(name, extra):
            str(src)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
+    nvcc_runs += 1
     return out, (proc, tmp)
 
 

@@ -21,6 +21,21 @@ three kernels. A `torch.Generator` seeded from conf.seed, on the graph's
 device, draws the dropout masks. Not ported yet, each raising and naming
 its slice: `evaluate`, remat, gradient accumulation, constraints, feature
 masks, and stateful RNN stepping (A12).
+
+A training step writes its results into the live parameter, optimizer
+and BN-state tensors in place, so `params()`, `score()` and the listeners
+read them as they are. On the card `fit` captures the step into a CUDA
+graph per batch signature (the shapes and dtypes of the inputs, labels
+and label masks; `runtime.executables.FunctionStore`): the first batch of
+a signature runs eagerly and is captured after, later ones copy into the
+graph's static inputs and replay it. A step that draws dropout masks from
+the graph's generator registers it with the graph, or, where the
+installed torch cannot, runs eagerly and says so in `fit_status()`. The
+graphs are bound to the parameter, optimizer and state tensors they were
+captured with: after `init` or a weight load rebinds them, the next step
+captures again against the new ones.
+`fit(prefetch=)` stages batch N+1 onto the device on a background thread
+while step N runs (`runtime.pipeline`).
 """
 from __future__ import annotations
 
@@ -36,6 +51,12 @@ from deeplearning4j_tpu_torch.nn.updaters import (apply_updates,
                                                   build_optimizer,
                                                   multi_transform,
                                                   same_updater)
+from deeplearning4j_tpu_torch.runtime.executables import (FunctionStore,
+                                                          model_fingerprint,
+                                                          tensor_leaves)
+from deeplearning4j_tpu_torch.runtime.pipeline import (StagedBatch,
+                                                       StagedMultiBatch,
+                                                       maybe_prefetch)
 
 _DTYPES = {"float": torch.float32, "float32": torch.float32,
            "double": torch.float64, "float64": torch.float64,
@@ -51,6 +72,24 @@ def _later(what, where):
 def _to(tree, device):
     return {n: {k: v.to(device) for k, v in d.items()}
             for n, d in tree.items()}
+
+
+def _copy_into(dst, src):
+    """Write every tensor of tree `src` into its place in `dst`."""
+    d, s = tensor_leaves(dst), tensor_leaves(src)
+    if len(d) != len(s):
+        raise ValueError(f"trees differ: {len(d)} vs {len(s)} tensors")
+    if d:
+        torch._foreach_copy_(d, s)
+
+
+def _batch_sig(ins, labels, lmasks):
+    """The shapes and dtypes of one unpacked batch."""
+    def sig(t):
+        return None if t is None else (tuple(t.shape), str(t.dtype))
+    return (tuple((n, sig(ins[n])) for n in sorted(ins)),
+            tuple(sig(t) for t in labels),
+            None if lmasks is None else tuple(sig(t) for t in lmasks))
 
 
 def _l1l2_penalty(layers, params):
@@ -90,6 +129,7 @@ class ComputationGraph:
         self._tx = None          # the optimizer, built at the first fit
         self._opt_state = None
         self._generator = None   # dropout masks, from conf.seed
+        self._fit_store = None   # CUDA graphs of the training step
         self._listeners = []
         self._score = None
         self._iteration = 0
@@ -359,37 +399,83 @@ class ComputationGraph:
                  for n, d in new_state.items()}
         return loss.detach(), tree, state
 
-    def _train_step(self, ins, labels, lmasks):
-        """One step: loss, backward, optimizer update, new BN state."""
+    def _step_in_place(self, ins, labels, lmasks):
+        """One training step — loss, backward, optimizer update, new BN
+        state — written into the live parameter, optimizer-state and BN
+        state tensors; returns the loss. What a CUDA graph of the step
+        captures, so it reads no device value on the host."""
+        loss, grads, state = self._value_and_grad(ins, labels, lmasks,
+                                                  self._generator)
+        updates, opt_state = self._tx.update(grads, self._opt_state,
+                                             self._params)
+        _copy_into(self._params, apply_updates(self._params, updates))
+        _copy_into(self._opt_state, opt_state)
+        _copy_into(self._state, state)
+        return loss
+
+    def _graph_step(self, ins, labels, lmasks):
+        """The step through its CUDA graph for this batch signature: the
+        first batch of a signature runs eagerly and is captured after,
+        with static copies of its tensors as the graph's inputs; a later
+        one is copied into them and replays the graph."""
+        store = self._fit_store
+        if store is None:
+            store = FunctionStore(
+                f"{model_fingerprint(self)}-fit", self._device,
+                bindings=lambda: (self._params, self._opt_state,
+                                  self._state))
+            store.register("fit", self._step_in_place)
+            self._fit_store = store
+        key = ("fit", _batch_sig(ins, labels, lmasks))
+        batch = (ins, labels, lmasks)
+        if key not in store:
+            static = ({n: t.clone() for n, t in ins.items()},
+                      [t.clone() for t in labels],
+                      None if lmasks is None else [t.clone() for t in lmasks])
+            return store.add(key, static, generators=[self._generator])
+        _copy_into(store.args(key), batch)
+        return store.run(key)
+
+    def _train_step(self, ins, labels, lmasks, graphs=True):
+        """One step (`_step_in_place`), through its CUDA graph on the card
+        when `graphs`; then the counters and the listeners."""
         if self._tx is None:
             self._build_optimizer()
         if self._generator is None:
             self._generator = torch.Generator(device=self._device)
             self._generator.manual_seed(int(self.conf.seed))
-        loss, grads, state = self._value_and_grad(ins, labels, lmasks,
-                                                  self._generator)
-        updates, self._opt_state = self._tx.update(grads, self._opt_state,
-                                                   self._params)
-        self._params = apply_updates(self._params, updates)
-        self._state = state
-        self._score = loss
+        if graphs and self._device.type == "cuda":
+            self._score = self._graph_step(ins, labels, lmasks)
+        else:
+            self._score = self._step_in_place(ins, labels, lmasks)
         self._iteration += 1
         for listener in self._listeners:
             listener.iterationDone(self, self._iteration, self._epoch)
 
     def _unpack(self, ds):
         """(inputs {name: tensor}, labels [tensor], label masks or None) of
-        a DataSet or MultiDataSet, on the graph's device."""
-        def tensor(a):
-            return None if a is None else torch.as_tensor(
-                np.asarray(a), device=self._device)
+        a DataSet or MultiDataSet, or of one that the prefetch thread
+        staged, on the graph's device."""
+        staged = isinstance(ds, (StagedBatch, StagedMultiBatch))
+        if staged and ds.event is not None:
+            torch.cuda.current_stream(self._device).wait_event(ds.event)
 
-        if isinstance(ds, MultiDataSet):
+        def tensor(a):
+            if a is None:
+                return None
+            if staged:
+                if a.is_cuda:
+                    # made on the prefetch stream, read on this one
+                    a.record_stream(torch.cuda.current_stream(a.device))
+                return a
+            return torch.as_tensor(np.asarray(a), device=self._device)
+
+        if isinstance(ds, (MultiDataSet, StagedMultiBatch)):
             fmasks, lmasks = ds.featuresMasks, ds.labelsMasks
             ins = {n: tensor(f) for n, f in zip(self.conf.input_names,
                                                 ds.features)}
             labels = [tensor(l) for l in ds.labels]
-        elif isinstance(ds, DataSet):
+        elif isinstance(ds, (DataSet, StagedBatch)):
             fmasks = None if ds.featuresMask is None else [ds.featuresMask]
             lmasks = None if ds.labelsMask is None else [ds.labelsMask]
             ins = {self.conf.input_names[0]: tensor(ds.features)}
@@ -403,16 +489,25 @@ class ComputationGraph:
             lmasks = [tensor(m) for m in lmasks]
         return ins, labels, lmasks
 
-    def _fit_batch(self, ds):
-        self._train_step(*self._unpack(ds))
+    def _fit_batch(self, ds, graphs):
+        self._train_step(*self._unpack(ds), graphs=graphs)
 
-    def fit(self, data, labels=None, epochs=None, stepsPerDispatch=1):
+    def fit(self, data, labels=None, epochs=None, stepsPerDispatch=1,
+            prefetch=None, cudaGraphs=True):
         """Train on one batch — a DataSet, a MultiDataSet, fit(features,
         labels) or a (features, labels) pair — or on each batch of an
         iterable (an iterator with `reset` is reset at each epoch) for
-        `epochs` epochs. `stepsPerDispatch` k groups k batches into one
-        dispatch in the JAX package, numerically identical to k sequential
-        steps; the port runs them sequentially."""
+        `epochs` epochs.
+
+        `prefetch`: the depth of the background staging queue for an
+        iterable (None: runtime.pipeline.DEFAULT_PREFETCH, 0: copy each
+        batch when its step starts). `cudaGraphs`: on the card, replay a
+        CUDA graph of the step per batch signature (False: run it eagerly,
+        the reference the graphs are held to). `stepsPerDispatch` k groups
+        k batches into one dispatch in the JAX package, numerically
+        identical to k sequential steps; the port runs the k steps (graph
+        replays on the card) back to back, with no host sync between
+        them."""
         if self._params is None:
             self.init()
         if int(self.conf.defaults.get("gradientAccumulation", 1) or 1) > 1:
@@ -421,26 +516,38 @@ class ComputationGraph:
         if int(stepsPerDispatch) < 1:
             raise ValueError(f"stepsPerDispatch must be >= 1, got "
                              f"{stepsPerDispatch}")
+        graphs = bool(cudaGraphs)
         if labels is not None:
-            self._fit_batch(DataSet(data, labels))
+            self._fit_batch(DataSet(data, labels), graphs)
             return self
         if isinstance(data, (DataSet, MultiDataSet)):
-            self._fit_batch(data)
+            self._fit_batch(data, graphs)
             return self
         if (isinstance(data, tuple) and len(data) == 2
                 and not isinstance(data[0], (DataSet, MultiDataSet))):
-            self._fit_batch(DataSet(*data))
+            self._fit_batch(DataSet(*data), graphs)
             return self
-        for _ in range(int(epochs) if epochs is not None else 1):
-            if hasattr(data, "reset"):
-                data.reset()
-            for ds in data:
-                self._fit_batch(ds)
-            self._epoch += 1
-            for listener in self._listeners:
-                if hasattr(listener, "onEpochEnd"):
-                    listener.onEpochEnd(self)
+        it, prefetcher = maybe_prefetch(data, prefetch, self._device)
+        try:
+            for _ in range(int(epochs) if epochs is not None else 1):
+                if hasattr(it, "reset"):
+                    it.reset()
+                for ds in it:
+                    self._fit_batch(ds, graphs)
+                self._epoch += 1
+                for listener in self._listeners:
+                    if hasattr(listener, "onEpochEnd"):
+                        listener.onEpochEnd(self)
+        finally:
+            if prefetcher is not None:
+                prefetcher.close()
         return self
+
+    def fit_status(self):
+        """The training step's executable store: keys, captures, replays
+        and eager degradations with their reasons (None before the first
+        step on the card with CUDA graphs)."""
+        return None if self._fit_store is None else self._fit_store.status()
 
     # -- listeners / counters ---------------------------------------------
     def setListeners(self, *listeners):

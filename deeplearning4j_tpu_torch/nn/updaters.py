@@ -251,13 +251,18 @@ class _Trace(_Transform):
 class _ScaleByAdam(_Transform):
     """optax.scale_by_adam: μ' = (1−b1)·g + b1·μ, ν' = (1−b2)·g² + b2·ν,
     the update μ̂/(√ν̂ + ε) with bias corrections 1 − b**count taken in
-    f32, as optax takes them."""
+    f32, as optax takes them. The count is an int32 tensor on the
+    parameters' device and the corrections are computed there, so a
+    CUDA graph of the step reads the live count at every replay and the
+    eager step computes the same bits."""
 
     def __init__(self, b1, b2, eps):
         self.b1, self.b2, self.eps = b1, b2, eps
 
     def init(self, params):
-        return (0, [torch.zeros_like(p) for p in params],
+        dev = params[0].device if params else None
+        return (torch.zeros((), dtype=torch.int32, device=dev),
+                [torch.zeros_like(p) for p in params],
                 [torch.zeros_like(p) for p in params])
 
     def update(self, grads, state, params):
@@ -268,10 +273,10 @@ class _ScaleByAdam(_Transform):
         nu = f._foreach_add(f._foreach_mul(f._foreach_mul(grads, grads),
                                            1 - self.b2),
                             f._foreach_mul(nu, self.b2))
-        count += 1
-        c = np.float32(count)
-        bc1 = float(np.float32(1) - np.float32(self.b1) ** c)
-        bc2 = float(np.float32(1) - np.float32(self.b2) ** c)
+        count = count + 1
+        c = count.to(torch.float32)
+        bc1 = 1 - torch.pow(float(np.float32(self.b1)), c)
+        bc2 = 1 - torch.pow(float(np.float32(self.b2)), c)
         denom = f._foreach_add(f._foreach_sqrt(f._foreach_div(nu, bc2)),
                                self.eps)
         upd = f._foreach_div(f._foreach_div(mu, bc1), denom)

@@ -21,16 +21,25 @@ indefinitely:
   the collector back;
 - `shutdown()` is idempotent and drains the queue clean.
 
+The executable path: with `bucketLadder([...])` a batch is padded to the
+smallest bucket that holds it, or split across max-bucket chunks
+(`runtime.executables.BucketLadder`), and each chunk replays the CUDA
+graph of that bucket's forward from an `ExecutableStore` (on the CPU the
+same forward runs eagerly). `warmup()` captures every bucket up front;
+inputs enter the graphs' static inputs through a `StagingRing` of
+`stagingDepth` pinned buffers; `executableCacheDir` keeps the store's
+manifest of keys, whose signatures a later `warmup()` captures too. A failed replay opens the `aotBreaker` and the batch is
+served through the eager forward, counted in `status()`.
+
 Not ported yet: the monitoring and fault-injection hooks (ROADMAP A16,
-A14) and the ahead-of-time executable path (`bucketLadder`,
-`lengthBuckets`, `executableCacheDir`, `stagingDepth`, `aotBreaker`,
-`warmup`), whose port is a CUDA-graph executable store (ROADMAP A7); each
-raises, naming it.
+A14) and `lengthBuckets`, which serves the recurrent models (ROADMAP
+A12); it raises, naming them.
 
 Usage parity:
     pi = (ParallelInference.Builder(net)
           .inferenceMode(InferenceMode.BATCHED)
           .batchLimit(32).queueLimit(256).build())
+    pi.warmup()                           # with .bucketLadder([1, 2, 4, 8])
     out = pi.output(x)                    # thread-safe, blocks
     out = pi.output(x, timeout_ms=50)     # bounded wait
     pi.shutdown()
@@ -42,10 +51,14 @@ import threading
 import time
 
 import numpy as np
+import torch
 
 from deeplearning4j_tpu_torch.resilience.errors import (
     InferenceOverloadedError, InferenceTimeoutError)
 from deeplearning4j_tpu_torch.resilience.policy import CircuitBreaker
+from deeplearning4j_tpu_torch.runtime.executables import (BucketLadder,
+                                                          ExecutableStore,
+                                                          StagingRing)
 
 __all__ = ["InferenceMode", "ParallelInference", "bounded_enqueue"]
 
@@ -64,11 +77,10 @@ def _bucket(n):
     return b
 
 
-def _executable_store(what):
+def _length_buckets():
     return NotImplementedError(
-        f"ParallelInference.{what}: the ahead-of-time executable path "
-        "(bucket ladder, on-disk executable cache, warmup) is a CUDA-graph "
-        "executable store in the port, ROADMAP A7")
+        "ParallelInference.lengthBuckets: length-bucketed serving pads the "
+        "time axis of the recurrent models, which come with ROADMAP A12")
 
 
 def bounded_enqueue(q, item, deadline, enqueue_timeout, count_timeout=None,
@@ -122,9 +134,18 @@ class _Request:
 class ParallelInference:
     def __init__(self, model, inference_mode=InferenceMode.BATCHED,
                  batch_limit=32, queue_limit=256, collect_timeout_ms=2.0,
-                 enqueue_timeout_ms=100.0, breaker=None):
+                 enqueue_timeout_ms=100.0, breaker=None, bucket_ladder=None,
+                 exec_cache_dir=None, staging_depth=2, aot_breaker=None):
         self.model = model
         self.mode = inference_mode
+        # a ladder closes the shape vocabulary and serves through the
+        # executable store; admission coalesces up to its top bucket
+        self._ladder = None
+        if bucket_ladder is not None:
+            self._ladder = (bucket_ladder
+                            if isinstance(bucket_ladder, BucketLadder)
+                            else BucketLadder(batch=bucket_ladder))
+            batch_limit = self._ladder.max_batch
         self.batch_limit = int(batch_limit)
         self.collect_timeout = collect_timeout_ms / 1e3
         self.enqueue_timeout = enqueue_timeout_ms / 1e3
@@ -133,6 +154,18 @@ class ParallelInference:
         self.collector_restarts = 0   # diagnostic: breaker-guarded revives
         self.collector_error = None   # last error that killed a collector
         self._restart_unconfirmed = False   # revive awaiting 1st success
+        self._exec_cache_dir = exec_cache_dir
+        self._store = None            # ExecutableStore, built lazily
+        self._ring = StagingRing(staging_depth)
+        # one dispatch at a time through the graphs: they share static
+        # inputs and outputs
+        self._graph_lock = threading.Lock()
+        self.aot_fallbacks = 0        # failed graph dispatches, served eager
+        self._aot_error = None        # the last one's exception
+        # ONE failed dispatch opens it (serve eagerly for the cooldown);
+        # the half-open probe tries the graphs again
+        self._aot_breaker = aot_breaker or CircuitBreaker(
+            failure_threshold=1, cooldown=30.0, name="inference.aot")
         self._queue = queue.Queue(maxsize=int(queue_limit))
         self._claim_lock = threading.Lock()
         self._lifecycle_lock = threading.Lock()   # restart + shutdown
@@ -189,25 +222,109 @@ class ParallelInference:
             return self  # one model serves all threads
 
         def aotBreaker(self, breaker):
-            raise _executable_store("aotBreaker")
+            """Circuit breaker guarding the executable path: a failed
+            dispatch opens it and batches are served eagerly until its
+            half-open probe succeeds."""
+            self._kw["aot_breaker"] = breaker
+            return self
 
         def bucketLadder(self, buckets):
-            raise _executable_store("bucketLadder")
+            """Serve through one CUDA graph per batch bucket (a list of
+            sizes or a BucketLadder)."""
+            self._kw["bucket_ladder"] = buckets
+            return self
 
         def lengthBuckets(self, buckets):
-            raise _executable_store("lengthBuckets")
+            raise _length_buckets()
 
         def executableCacheDir(self, path):
-            raise _executable_store("executableCacheDir")
+            """Where the executable store keeps its manifest of keys."""
+            self._kw["exec_cache_dir"] = path
+            return self
 
         def stagingDepth(self, n):
-            raise _executable_store("stagingDepth")
+            """Pinned staging buffers per input signature."""
+            self._kw["staging_depth"] = int(n)
+            return self
 
         def build(self):
             return ParallelInference(self._model, **self._kw)
 
+    # -- the executable path -----------------------------------------------
     def warmup(self, buckets=None, lengths=None, example=None):
-        raise _executable_store("warmup")
+        """Capture the forward of every bucket of the ladder up front, so
+        that serving never captures. `buckets` (re)configures the ladder
+        (with neither it nor a Builder ladder: powers of two up to
+        batchLimit); the per-input feature shapes come from `example`
+        (one example or a batch, as output() takes it) or from the
+        model's input types. With `executableCacheDir`, every signature
+        the store's manifest records is captured too. Returns {compiled,
+        from_disk, captures, nvcc_runs, seconds, keys, signatures}; a
+        successful warmup closes the AOT breaker."""
+        if lengths is not None:
+            raise _length_buckets()
+        if buckets is not None or self._ladder is None:
+            if buckets is None:
+                buckets, b = [], 1
+                while b < self.batch_limit:
+                    buckets.append(b)
+                    b *= 2
+                buckets.append(self.batch_limit)
+            self._ladder = BucketLadder(batch=buckets)
+            self.batch_limit = self._ladder.max_batch
+        feats = self._feature_shapes(example)
+        sigs = [tuple(((b,) + shp, "float32") for shp in feats)
+                for b in self._ladder.batch]
+        with self._graph_lock:
+            stats = self._ensure_store().warmup(sigs)
+        stats["signatures"] = len(sigs)
+        self._aot_breaker.record_success()
+        return stats
+
+    def _feature_shapes(self, example):
+        """Per-input feature shapes (no batch dim): from an example, else
+        from the model's input types."""
+        if example is not None:
+            n_inputs = len(self._input_ranks())
+            if isinstance(example, (list, tuple)) and n_inputs > 1:
+                xs = tuple(np.asarray(a, np.float32) for a in example)
+            else:
+                xs = (np.asarray(example, np.float32),)
+            if self._needs_batch(xs):
+                return [tuple(a.shape) for a in xs]
+            return [tuple(a.shape[1:]) for a in xs]
+        conf = getattr(self.model, "conf", None)
+        types = getattr(conf, "node_output_types", None)
+        if not types:
+            raise ValueError("the model has no input types: pass "
+                             "warmup(example=)")
+        feats = [tuple(types[n].shape()) for n in conf.input_names]
+        if any(d is None for shp in feats for d in shp):
+            raise ValueError(f"cannot warm variable-size inputs {feats}: "
+                             "pass warmup(example=)")
+        return feats
+
+    def _ensure_store(self):
+        with self._lifecycle_lock:
+            if self._store is None:
+                self._store = ExecutableStore(
+                    self.model, directory=self._exec_cache_dir)
+            return self._store
+
+    def status(self):
+        """Serving counters and the executable store's status."""
+        return {"mode": self.mode, "batch_limit": self.batch_limit,
+                "bucket_ladder": (None if self._ladder is None
+                                  else list(self._ladder.batch)),
+                "model_calls": self.model_calls, "timeouts": self.timeouts,
+                "collector_restarts": self.collector_restarts,
+                "aot_fallbacks": self.aot_fallbacks,
+                "aot_error": (None if self._aot_error is None
+                              else repr(self._aot_error)),
+                "aot_breaker": self._aot_breaker.state,
+                "staged": self._ring.staged,
+                "executables": (None if self._store is None
+                                else self._store.status())}
 
     # -- client side -----------------------------------------------------
     def output(self, x, timeout_ms=None):
@@ -441,6 +558,15 @@ class ParallelInference:
 
     def _run(self, batch):
         try:
+            if self._ladder is not None and self._aot_breaker.allow():
+                try:
+                    self._serve_graphs(batch)
+                    self._aot_breaker.record_success()
+                    return
+                except Exception as e:  # noqa: BLE001 — degrade, stay up
+                    self._aot_error = e
+                    self.aot_fallbacks += 1
+                    self._aot_breaker.record_failure()
             self._serve(batch)
         except BaseException as e:  # noqa: BLE001 — deliver to the waiter
             # even KeyboardInterrupt/SystemExit must release the waiters
@@ -452,6 +578,41 @@ class ParallelInference:
                 r.event.set()
             if not isinstance(e, Exception):
                 raise
+
+    def _serve_graphs(self, batch):
+        """The coalesced batch through the bucket graphs: split into
+        ladder chunks, each padded to its bucket (copies of the last row,
+        sliced away before delivery), staged into the bucket's static
+        inputs and replayed. Each chunk's rows are copied out of the
+        graph's static output before the next replay; results are
+        delivered only after every chunk ran, so a failure part-way can
+        still fall back to the eager path."""
+        store = self._ensure_store()
+        n_inputs = len(batch[0].x)
+        cols = [np.concatenate([r.x[j] for r in batch], axis=0)
+                for j in range(n_inputs)]
+        parts, i = [], 0
+        with self._graph_lock:
+            for c in self._ladder.chunks(cols[0].shape[0]):
+                b = self._ladder.bucket(c)
+                chunk = [xj[i:i + c] for xj in cols]
+                if b != c:
+                    chunk = [np.concatenate(
+                        [xj, np.repeat(xj[-1:], b - c, axis=0)], axis=0)
+                        for xj in chunk]
+                sig = tuple((tuple(xj.shape), "float32") for xj in chunk)
+                self._ring.stage(chunk, store.ensure(sig))
+                self.model_calls += 1
+                parts.append(store.run(("forward", sig))[:c].clone())
+                i += c
+        out = torch.cat(parts).cpu().numpy()
+        i = 0
+        for r in batch:
+            k = r.x[0].shape[0]
+            r.result = out[i:i + k]
+            i += k
+        for r in batch:
+            r.event.set()
 
     def _serve(self, batch):
         """One `model.output` per coalesced batch, batch dim padded to the

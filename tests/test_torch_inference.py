@@ -146,17 +146,22 @@ def test_multi_input_graph_batched():
     assert pi.model_calls < 24
 
 
-def test_aot_surface_names_its_slice(net):
+def test_aot_surface_names_its_slice(net, tmp_path):
+    """The executable path's knobs build; lengthBuckets (recurrent
+    serving) still raises, naming its slice."""
     b = ParallelInference.Builder(net)
-    for call in (lambda: b.bucketLadder([1, 2]),
-                 lambda: b.executableCacheDir("/nonexistent"),
-                 lambda: b.lengthBuckets([8]),
-                 lambda: b.stagingDepth(2),
-                 lambda: b.aotBreaker(CircuitBreaker()),
+    assert (b.bucketLadder([1, 2]).executableCacheDir(str(tmp_path))
+            .stagingDepth(2).aotBreaker(CircuitBreaker())) is b
+    for call in (lambda: b.lengthBuckets([8]),
                  lambda: ParallelInference(
-                     net, InferenceMode.SEQUENTIAL).warmup()):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+                     net, InferenceMode.SEQUENTIAL).warmup(lengths=[8])):
+        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
             call()
+    pi = b.build()
+    try:
+        assert pi.warmup()["keys"] == 2
+    finally:
+        pi.shutdown()
 
 
 # ===================== degradation ========================================

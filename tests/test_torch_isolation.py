@@ -45,6 +45,14 @@ def test_port_sources_import_nothing_of_jax():
     assert not bad, bad
 
 
+def test_the_runtime_modules_are_among_the_checked_sources():
+    """The executable store and the prefetch are port modules like any
+    other: the two tests around this one hold them to the same rule."""
+    names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
+    for module in ("executables", "pipeline", "__init__"):
+        assert f"deeplearning4j_tpu_torch/runtime/{module}.py" in names
+
+
 def test_importing_the_port_loads_no_jax_module():
     """A fresh interpreter (isolated: no PYTHONPATH, no user site) imports
     every module of the port and chip_smoke.py."""

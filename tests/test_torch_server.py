@@ -107,8 +107,7 @@ def test_eos_retirement_slot_reuse_and_streaming(models):
 def test_server_surface_and_refusals(models):
     _, _, tcfg, tp = models
     dec = BertDecoder(tcfg, tp)
-    for knob, value in (("draft", 2), ("exec_cache_dir", "/x"),
-                        ("memory_high_water", None)):
+    for knob, value in (("draft", 2), ("memory_high_water", None)):
         with pytest.raises(ValueError, match="not ported yet"):
             GenerationServer(dec, **{knob: value})
     with pytest.raises(NotImplementedError, match="RecurrentDecoder"):
