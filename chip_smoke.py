@@ -5,7 +5,8 @@
     python3 chip_smoke.py --only resnet   # card, build, kernels, resnet,
                                           # resnet_train
     python3 chip_smoke.py --only graphs   # card, build, graphs
-    python3 chip_smoke.py --profile  # and phase 10
+    python3 chip_smoke.py --only paged    # card, build, paged
+    python3 chip_smoke.py --profile  # and phase 11
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -81,11 +82,32 @@ Phases, in order; any failure exits non-zero and prints no result:
             manifest). No capture after warmup, no eager call or
             degradation in a graph store, and launch counters that count
             replays.
-10. profile (only with --profile): the serving workload, one fused B=32
+10. paged: `bert_base()` served from a page pool (`page_size=16`,
+            `pool_pages=129`: half the dense worst case) with phase 5's
+            knobs, on 12 requests of which six share a 64-token system
+            prompt and two are identical (one growth to rung 512). Six
+            servers in turns, each through its graphs: dense fp (the
+            control), paged fp, dense int8, paged int8, paged fp with
+            `draft=2`, dense fp again. Gates: paged fp streams equal the
+            dense fp ones and paged int8 the dense int8 ones (all, greedy
+            and sampled); the drafted greedy streams equal the undrafted
+            ones with drafts accepted; the paged pool counts >= 5 prefix
+            hits, >= 1 copy-on-write and no page mapped at the end;
+            flash_fwd and flash_decode launch in the paged fp run; every
+            store serves with no live capture, eager call or degradation;
+            each server fetches once per block plus once per admission. A
+            pool of 3 pages refuses a 3-page prompt with
+            `PagePoolExhaustedError` and then serves a 1-page one. Printed,
+            not gated: tokens/s and per-token p50/p99 of each server; the
+            int8 decode's logit error against fp over 16 steps; the pool's
+            bytes against the dense caches'; the card time of the page
+            gather, the int8 and the multi-query attention beside
+            flash_decode.
+11. profile (only with --profile): the serving workload, one fused B=32
             ResNet-50 forward and three fused ResNet-50 training steps,
             each eager and through its graphs (training: eager and graph
-            with prefetch 0, graph with prefetch 2), and three fine-tune
-            steps,
+            with prefetch 0, graph with prefetch 2), the paged server's
+            workload through its graphs, and three fine-tune steps,
             once more under torch.profiler: the card's busy and idle share
             of the wall time, and device time by kernel group.
 
@@ -122,8 +144,11 @@ from deeplearning4j_tpu_torch.kernels import _build
 from deeplearning4j_tpu_torch.kernels.flash_attention import (
     _decode_reference, _delta, _dkv_reference, _dq_reference,
     _flash_forward, _flash_forward_reference, decode_cluster_size,
-    flash_bwd_dkv, flash_bwd_dq, flash_decode, flash_fwd)
+    flash_attention_decode, flash_attention_decode_mq,
+    flash_attention_decode_paged, flash_bwd_dkv, flash_bwd_dq, flash_decode,
+    flash_fwd, gather_kv_pages)
 from deeplearning4j_tpu_torch.models import (bert_base, bert_classify,
+                                             bert_encode, bert_mlm_logits,
                                              classification_loss,
                                              init_bert_params, param_leaves)
 from deeplearning4j_tpu_torch.kernels.layernorm import (
@@ -139,6 +164,8 @@ from deeplearning4j_tpu_torch.models.zoo import ResNet50
 from deeplearning4j_tpu_torch.nn import Nesterovs
 from deeplearning4j_tpu_torch.parallel.inference import (InferenceMode,
                                                          ParallelInference)
+from deeplearning4j_tpu_torch.quantize import cache_page_bytes, quantize_rows
+from deeplearning4j_tpu_torch.resilience.errors import PagePoolExhaustedError
 from deeplearning4j_tpu_torch.runtime.executables import (ExecutableStore,
                                                           tensor_leaves)
 
@@ -1164,10 +1191,10 @@ def _serve(cfg, params, attn_impl, reqs):
         streams = [h.result(timeout=600) for h in handles]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = _counts()
-        return streams, handles, wall, launches, srv.status()
     finally:
         srv.shutdown()
+    # after the shutdown, which delivers the block still in flight
+    return streams, handles, wall, _counts(), srv.status()
 
 
 def phase_serving(cfg, params):
@@ -1768,10 +1795,11 @@ def _graphs_serving(cfg, params, cache_dir):
                        for h in [srv.submit(**r) for r in reqs]]
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = _counts()
-            st = srv.status()
         finally:
             srv.shutdown()
+        # after the shutdown, which delivers the block still in flight
+        launches = _counts()
+        st = srv.status()
         ntok = sum(len(x) for x in streams)
         ex = st["executables"]
         run = {"arm": arm, "wall_s": wall, "tokens": ntok,
@@ -2028,7 +2056,348 @@ def phase_graphs(cfg, params):
     return out
 
 
-# -- phase 10 (--profile) ------------------------------------------------------
+# -- phase 10: paged, int8 and drafting serving ----------------------------------
+#: the paged server: phase 5's knobs, pages of 16 rows, and a pool of 129
+#: pages (128 allocatable: half the dense worst case of 8 slots x 32 pages)
+PAGED = dict(page_size=16, pool_pages=129, draft=2, steps=16)
+
+
+def _greedy_continuation(cfg, params, prompt, n):
+    """The first n greedy tokens after `prompt`, by the causal full
+    forward."""
+    ids = [int(t) for t in prompt]
+    for _ in range(n):
+        h = bert_encode(cfg, params, torch.as_tensor(ids, device=DEV)[None],
+                        causal=True)
+        ids.append(int(bert_mlm_logits(cfg, params, h[0, -1]).argmax()))
+    return ids[len(prompt):]
+
+
+def _draft_prompt(cfg, params, tries=16, rounds=6):
+    """A prompt A + C + B of 113 tokens that holds its own continuation:
+    C is the first three greedy tokens after A + C + B, found by iterating
+    C to a fixed point. Prompt lookup then drafts C[1:] right after the
+    prefill's token C[0]. Random weights seldom repeat a token, so without
+    it drafting has nothing to accept."""
+    rng = np.random.default_rng(6)
+    for attempt in range(tries):
+        a = rng.integers(1, cfg.vocab_size, 60)
+        b = rng.integers(1, cfg.vocab_size, 50)
+        c = _greedy_continuation(cfg, params, np.concatenate([a, b]), 3)
+        for r in range(rounds):
+            prompt = np.concatenate([a, c, b])
+            nxt = _greedy_continuation(cfg, params, prompt, 3)
+            if nxt == c:
+                log(f"[paged] draft prompt: attempt {attempt}, round {r}, "
+                    f"holds its continuation {c}")
+                return prompt
+            c = nxt
+    raise AssertionError("paged: no prompt held its own continuation")
+
+
+def _paged_requests(cfg, params):
+    """12 requests: six share a 64-token system prompt (4 full pages) with
+    distinct suffixes; requests 6 and 7 are identical (their tail page is
+    shared, then copied on write); prompts run 5-120 tokens with 32-64 new
+    tokens, greedy / temperature 0.8 / top-k 40 in turn; request 3 needs
+    120 + 64 rows, so the cache grows to rung 512. Greedy request 9's
+    prompt is `_draft_prompt`'s, which the drafting server drafts from."""
+    rng = np.random.default_rng(3)
+    system = rng.integers(1, cfg.vocab_size, 64)
+    twin = rng.integers(1, cfg.vocab_size, 37)
+    reqs = []
+    for i in range(12):
+        if i < 6:
+            plen = 120 if i == 3 else int(rng.integers(69, 121))
+            prompt = np.concatenate(
+                [system, rng.integers(1, cfg.vocab_size, plen - 64)])
+        elif i < 8:
+            prompt = twin
+        else:
+            plen = 5 if i == 8 else int(rng.integers(5, 121))
+            prompt = rng.integers(1, cfg.vocab_size, plen)
+        new = 64 if i == 3 else int(rng.integers(32, 65))
+        mode = ("greedy", "temperature", "top_k")[i % 3]
+        if i == 9:
+            prompt = _draft_prompt(cfg, params)
+        reqs.append(dict(prompt=prompt, max_new_tokens=new, method=mode,
+                         temperature=0.8,
+                         top_k=40 if mode == "top_k" else 0))
+    assert any(len(r["prompt"]) + r["max_new_tokens"] > 128 for r in reqs)
+    return reqs
+
+
+def _top2_gap(cfg, params, prompt, stream, j):
+    """The margin of the greedy choice at generated token j: top-1 minus
+    top-2 logit of the causal full forward over prompt + stream[:j]."""
+    ids = torch.as_tensor(np.concatenate([prompt, stream[:j]]),
+                          device=DEV)[None]
+    h = bert_encode(cfg, params, ids, causal=True)
+    top = bert_mlm_logits(cfg, params, h[0, -1]).topk(2).values
+    return float(top[0] - top[1])
+
+
+def _paged_server(cfg, params, reqs, what, check_launches=False, **kw):
+    """One server over `reqs`: warmed up, counters at 0, every request
+    through it, its store held clean; returns its run."""
+    dkw = {k: kw.pop(k) for k in ("kv_dtype", "page_size", "pool_pages")
+           if k in kw}
+    srv = GenerationServer(BertDecoder(cfg, params, **dkw),
+                           **{**SERVER, **kw})
+    try:
+        srv.warmup()
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        streams = [h.result(timeout=600)
+                   for h in [srv.submit(**r) for r in reqs]]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        srv.shutdown()
+    # after the shutdown, which delivers the block still in flight: every
+    # dispatched block is counted in the launches and in the status
+    launches = _counts()
+    st = srv.status()
+    ntok = sum(len(s) for s in streams)
+    run = {"server": what, "wall_s": wall, "tokens": ntok,
+           "tokens_per_s": ntok / wall, "blocks": st["steps"],
+           "admissions": st["admissions"],
+           "token_fetches": st["token_fetches"],
+           "per_token_p50_ms": st["per_token_p50_ms"],
+           "per_token_p99_ms": st["per_token_p99_ms"],
+           "launches": {k: launches[k] for k in ("flash_fwd",
+                                                 "flash_decode")},
+           "page_pool": st.get("page_pool"),
+           "draft_accepts": st["draft_accepts"],
+           "draft_rejects": st["draft_rejects"], "streams": streams}
+    log(f"[paged] {what}: {ntok} tokens in {wall:.3f} s = "
+        f"{ntok / wall:.1f} tokens/s; per-token p50 "
+        f"{st['per_token_p50_ms']:.3f} ms p99 {st['per_token_p99_ms']:.3f} "
+        f"ms; {st['steps']} blocks, {st['admissions']} admissions, "
+        f"{st['token_fetches']} token fetches, rung {st['rung']}; launches "
+        f"{run['launches']}" + (f"; pool {st['page_pool']}"
+                                if st.get("page_pool") else "")
+        + (f"; drafts accepted {st['draft_accepts']} rejected "
+           f"{st['draft_rejects']}" if st["draft"] else ""))
+    _store_clean(st["executables"], what)
+    if st["token_fetches"] != st["steps"] + st["admissions"]:
+        raise AssertionError(f"paged: {what} fetched {st['token_fetches']} "
+                             f"times for {st['steps']} blocks and "
+                             f"{st['admissions']} admissions")
+    if st["rung"] != 512:
+        raise AssertionError(f"paged: {what} never grew to rung 512")
+    if check_launches:
+        missing = [k for k, n in run["launches"].items() if n == 0]
+        if missing:
+            raise AssertionError(f"paged: {what} never launched {missing}")
+    return run
+
+
+def _same(what, reqs, got, want, only=None):
+    """Streams that must be equal (all, or those of the `only` indices)."""
+    idx = range(len(reqs)) if only is None else only
+    diff = [i for i in idx if got[i] != want[i]]
+    if diff:
+        raise AssertionError(f"paged: {what}: streams {diff} differ")
+
+
+def _paged_exhaustion(cfg, params):
+    """A pool of 3 pages (2 usable, 32 rows) at one rung of 128: a 3-page
+    prompt is refused typed before dispatch, the server stays up and
+    serves a 1-page prompt."""
+    srv = GenerationServer(
+        BertDecoder(cfg, params, page_size=PAGED["page_size"],
+                    pool_pages=3),
+        **{**SERVER, "cache_lengths": [128]})
+    try:
+        srv.warmup()
+        rng = np.random.default_rng(4)
+        big = srv.submit(rng.integers(1, cfg.vocab_size, 40),
+                         max_new_tokens=8)
+        try:
+            big.result(timeout=600)
+            raise AssertionError("paged: a 3-page prompt was admitted into "
+                                 "a pool of 2 pages")
+        except PagePoolExhaustedError as e:
+            refused = repr(e)
+        state = srv.serving_state()["state"]
+        small = srv.generate(rng.integers(1, cfg.vocab_size, 9),
+                             max_new_tokens=16, timeout=600)
+        st = srv.status()
+    finally:
+        srv.shutdown()
+    log(f"[paged] exhaustion: pool of 3 pages refused a 3-page prompt "
+        f"({refused}); state {state}; then served a 1-page prompt "
+        f"({len(small)} tokens); pool {st['page_pool']}")
+    if state != "serving" or len(small) != 16:
+        raise AssertionError(f"paged: exhaustion left the server {state}, "
+                             f"{len(small)} tokens")
+    _store_clean(st["executables"], "exhaustion")
+    return {"refused": refused, "served_tokens": len(small),
+            "page_pool": st["page_pool"]}
+
+
+def _int8_logit_error(cfg, params):
+    """int8 against fp decode of one prompt over PAGED['steps'] steps on
+    the fp server's greedy tokens: the max relative logit error and the
+    greedy agreement (printed, not gated)."""
+    rng = np.random.default_rng(5)
+    prompt = torch.as_tensor(rng.integers(1, cfg.vocab_size, 40),
+                             device=DEV)
+    padded = torch.cat([prompt, prompt.new_zeros(24)])
+    decs = [BertDecoder(cfg, params), BertDecoder(cfg, params,
+                                                  kv_dtype="int8")]
+    caches = [d.init_cache(1, 128) for d in decs]
+    logits = [d.prefill(d.model_args(), c, 0, padded, 40)[1][None]
+              for d, c in zip(decs, caches)]
+    pos = torch.tensor([40], device=DEV)
+    err, agree = 0.0, 0
+    for _ in range(PAGED["steps"]):
+        err = max(err, ((logits[1] - logits[0]).abs().max()
+                        / logits[0].abs().max()).item())
+        agree += int(logits[1].argmax() == logits[0].argmax())
+        tok = logits[0].argmax(dim=-1)
+        logits = [d.step(d.model_args(), c, tok, pos)[0]
+                  for d, c in zip(decs, caches)]
+        pos = pos + 1
+    log(f"[paged] int8 against fp decode, one 40-token prompt, "
+        f"{PAGED['steps']} steps: max relative logit error {err:.3e}, "
+        f"greedy agreement {agree}/{PAGED['steps']}")
+    return {"max_rel_logit_err": err, "greedy_agree": agree,
+            "steps": PAGED["steps"]}
+
+
+def _paged_attention_times(cfg):
+    """Card times of the plain-PyTorch pieces of the paged and int8 decode,
+    beside flash_decode on the same rows: one layer at serving's decode
+    shape (8 slots, 12 heads, C = 512, D = 64, f32), the gathers reading
+    a pool of 257 pages of 16 rows (the kernel phase's decode case)."""
+    b, h, c, d, ps = SERVER["slots"], cfg.num_heads, 512, cfg.head_dim, \
+        PAGED["page_size"]
+    n = c // ps
+    gen = torch.Generator(device=DEV).manual_seed(9)
+    kp = torch.randn((b * n + 1, h, ps, d), generator=gen, device=DEV)
+    vp = torch.randn_like(kp)
+    tab = (torch.randperm(b * n, generator=gen, device=DEV) + 1).reshape(
+        b, n)
+    q = torch.randn((b, h, 1, d), generator=gen, device=DEV)
+    qm = torch.randn((b, h, PAGED["draft"] + 1, d), generator=gen,
+                     device=DEV)
+    mask = torch.ones((b, c), dtype=torch.bool, device=DEV)
+    qmask = torch.ones((b, PAGED["draft"] + 1, c), dtype=torch.bool,
+                       device=DEV)
+    kc, vc = gather_kv_pages(kp, tab), gather_kv_pages(vp, tab)
+    (k8, ks), (v8, vs) = quantize_rows(kc), quantize_rows(vc)
+    kp8, ksp = quantize_rows(kp)
+    vp8, vsp = quantize_rows(vp)
+    f32 = 4
+    rows = b * h * c
+    cases = {
+        "flash_decode (dense view)": (
+            lambda: flash_decode(q, kc, vc, mask), 2 * rows * d * f32),
+        "gather K and V pages": (
+            lambda: (gather_kv_pages(kp, tab), gather_kv_pages(vp, tab)),
+            4 * rows * d * f32),
+        "paged fp decode (gather + flash_decode)": (
+            lambda: flash_attention_decode_paged(q, kp, vp, tab, mask),
+            2 * rows * d * f32),
+        "int8 decode (scale-folding einsum)": (
+            lambda: flash_attention_decode(q, k8, v8, mask, k_scale=ks,
+                                           v_scale=vs),
+            2 * rows * (d + f32)),
+        "paged int8 decode (gathers + einsum)": (
+            lambda: flash_attention_decode_paged(
+                q, kp8, vp8, tab, mask, k_scale_pool=ksp,
+                v_scale_pool=vsp), 2 * rows * (d + f32)),
+        f"verify attention d={PAGED['draft'] + 1} (multi-query einsum)": (
+            lambda: flash_attention_decode_mq(qm, kc, vc, qmask),
+            2 * rows * d * f32),
+    }
+    out = {}
+    for name, (fn, nbytes) in cases.items():
+        ms = time_ms(fn)
+        lo = nbytes / PEAK_BYTES_PER_S * 1e3
+        out[name] = {"ms": ms, "bound_ms": lo, "bytes": nbytes}
+        log(f"[paged] {name} 8x12 C=512 D=64: {ms:.4f} ms, bytes bound "
+            f"{lo:.5f} ms")
+    return out
+
+
+def phase_paged(cfg, params):
+    """bert_base served from a page pool (fp and int8) and with greedy
+    drafting, each against its dense counterpart, the dense fp server in
+    turns as the control; pool exhaustion on a small pool; the int8 codec's
+    logit error; the card times of the paged and int8 attention pieces."""
+    reqs = _paged_requests(cfg, params)
+    greedy = [i for i, r in enumerate(reqs) if r["method"] == "greedy"]
+    pg = dict(page_size=PAGED["page_size"], pool_pages=PAGED["pool_pages"])
+    runs = [_paged_server(cfg, params, reqs, "dense fp (control)")]
+    runs.append(_paged_server(cfg, params, reqs, "paged fp",
+                              check_launches=True, **pg))
+    _same("paged fp against dense fp", reqs, runs[1]["streams"],
+          runs[0]["streams"])
+    occ = runs[1]["page_pool"]
+    if occ["prefix_hits"] < 5 or occ["cow_copies"] < 1 \
+            or occ["pages_mapped"] != 0:
+        raise AssertionError(f"paged: pool counters {occ}")
+    runs.append(_paged_server(cfg, params, reqs, "dense int8",
+                              kv_dtype="int8"))
+    runs.append(_paged_server(cfg, params, reqs, "paged int8",
+                              kv_dtype="int8", **pg))
+    _same("paged int8 against dense int8", reqs, runs[3]["streams"],
+          runs[2]["streams"])
+    runs.append(_paged_server(cfg, params, reqs, "paged fp, draft=2",
+                              draft=PAGED["draft"], superstep=1, **pg))
+    draft = runs[-1]
+    diff = [i for i in greedy if draft["streams"][i] != runs[0]["streams"][i]]
+    if diff:
+        i = diff[0]
+        a, b = draft["streams"][i], runs[0]["streams"][i]
+        j = next(t for t in range(len(b)) if a[t] != b[t])
+        gap = _top2_gap(cfg, params, reqs[i]["prompt"], b, j)
+        raise AssertionError(f"paged: drafted greedy streams {diff} differ "
+                             f"from the undrafted ones; request {i} first "
+                             f"at token {j} ({a[j]} against {b[j]}), whose "
+                             f"top-2 logit gap is {gap:.3e}")
+    if draft["draft_accepts"] <= 0:
+        raise AssertionError("paged: the drafting server accepted no draft")
+    sampled_same = sum(draft["streams"][i] == runs[0]["streams"][i]
+                       for i in range(len(reqs)) if i not in greedy)
+    runs.append(_paged_server(cfg, params, reqs, "dense fp (control, "
+                              "again)"))
+    _same("the two dense fp controls", reqs, runs[-1]["streams"],
+          runs[0]["streams"])
+    int8_vs_fp = sum(runs[2]["streams"][i] == runs[0]["streams"][i]
+                     for i in greedy)
+    log(f"[paged] greedy streams: paged fp = dense fp, paged int8 = dense "
+        f"int8 (all 12 each), drafted = undrafted {len(greedy)}/"
+        f"{len(greedy)}; drafted sampled streams equal to undrafted "
+        f"{sampled_same}/{len(reqs) - len(greedy)}; int8 greedy streams "
+        f"equal to fp {int8_vs_fp}/{len(greedy)}")
+    layers, heads, hd = cfg.num_layers, cfg.num_heads, cfg.head_dim
+    pool_bytes = {kv: PAGED["pool_pages"] * cache_page_bytes(
+        layers, heads, PAGED["page_size"], hd, kv) for kv in ("fp", "int8")}
+    rows = SERVER["slots"] * sum(SERVER["cache_lengths"])
+    dense_bytes = {kv: rows // PAGED["page_size"] * cache_page_bytes(
+        layers, heads, PAGED["page_size"], hd, kv) for kv in ("fp", "int8")}
+    log(f"[paged] cache bytes: pool of {PAGED['pool_pages']} pages fp "
+        f"{pool_bytes['fp']} / int8 {pool_bytes['int8']}; dense caches "
+        f"(8 slots, rungs 128 + 512) fp {dense_bytes['fp']} / int8 "
+        f"{dense_bytes['int8']}")
+    exhaustion = _paged_exhaustion(cfg, params)
+    int8_err = _int8_logit_error(cfg, params)
+    times = _paged_attention_times(cfg)
+    for r in runs:
+        del r["streams"]
+    return {"runs": runs, "exhaustion": exhaustion, "int8_logits": int8_err,
+            "attention_ms": times, "pool_bytes": pool_bytes,
+            "dense_cache_bytes": dense_bytes,
+            "drafted_sampled_identical": sampled_same,
+            "int8_greedy_equal_fp": int8_vs_fp}
+
+
+# -- phase 11 (--profile) ------------------------------------------------------
 #: kernel-name substrings -> the part of a step they belong to
 KERNEL_GROUPS = (("flash_fwd_kernel", "flash_fwd"),
                  ("flash_decode_kernel", "flash_decode"),
@@ -2052,7 +2421,9 @@ KERNEL_GROUPS = (("flash_fwd_kernel", "flash_fwd"),
                  ("gemm", "matmul"), ("gemv", "matmul"),
                  ("cutlass", "matmul"), ("multi_tensor", "optimizer"),
                  ("sort", "sort (top-k)"), ("reduce", "reductions"),
-                 ("index", "gather/scatter"), ("elementwise", "elementwise"))
+                 ("index", "gather/scatter"), ("gather", "gather/scatter"),
+                 ("direct_copy", "copies (incl. the page gather's)"),
+                 ("elementwise", "elementwise"))
 
 
 def _busy_us(spans):
@@ -2138,21 +2509,26 @@ def _profiled(what, run):
 def phase_profile(cfg, params, resnet_net, resnet_x, train_net, train_ds):
     """Under torch.profiler, eager and through its CUDA graphs: the serving
     phase's workload, one fused B=32 ResNet-50 forward and three fused
-    ResNet-50 training steps; and three fine-tune steps."""
-    reqs = _requests(cfg)
+    ResNet-50 training steps; the paged phase's workload on the paged fp
+    server through its graphs (where the page gather's time shows); and
+    three fine-tune steps."""
     serving = {}
-    for arm in ("eager", "graph"):
-        srv = GenerationServer(BertDecoder(cfg, params),
-                               cuda_graphs=arm == "graph", **SERVER)
+    for arm in ("eager", "graph", "paged graph"):
+        paged = arm == "paged graph"
+        reqs = _paged_requests(cfg, params) if paged else _requests(cfg)
+        dkw = (dict(page_size=PAGED["page_size"],
+                    pool_pages=PAGED["pool_pages"]) if paged else {})
+        srv = GenerationServer(BertDecoder(cfg, params, **dkw),
+                               cuda_graphs=arm != "eager", **SERVER)
         try:
             srv.warmup()
             torch.cuda.synchronize()
             prof, _ = _profiled(f"serving {arm}", lambda: [
                 h.result(timeout=600)
                 for h in [srv.submit(**r) for r in reqs]])
-            st = srv.status()
         finally:
             srv.shutdown()
+        st = srv.status()
         if prof is not None:
             steps = st["steps"] * srv.superstep
             ex = st["executables"]
@@ -2235,12 +2611,13 @@ def kernel_line(rows, launches, launches_from):
 # -- main ---------------------------------------------------------------------
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--only", choices=["kernels", "resnet", "graphs"],
+    ap.add_argument("--only",
+                    choices=["kernels", "resnet", "graphs", "paged"],
                     default=None,
                     help="stop after the kernel checks, or run the resnet "
                          "serving and training phases right after them, or "
-                         "run the graphs phase alone after the build "
-                         "(bring-up runs)")
+                         "run the graphs or the paged phase alone after the "
+                         "build (bring-up runs)")
     ap.add_argument("--profile", action="store_true",
                     help="after the resnet phases, profile the serving "
                          "workload, three fine-tune steps, one ResNet-50 "
@@ -2263,13 +2640,15 @@ def main(argv=None):
     card = timed("card", phase_card)
     build_s = timed("build", phase_build)
     OUT_DIR.mkdir(exist_ok=True)
-    if args.only == "graphs":
+    if args.only in ("graphs", "paged"):
         cfg = bert_base()
-        graphs = timed("graphs", phase_graphs, cfg,
-                       init_bert_params(cfg, 0))
-        (OUT_DIR / "smoke_graphs.json").write_text(json.dumps(
-            {"card": card, "graphs": graphs, "phase_seconds": seconds},
+        phase = phase_graphs if args.only == "graphs" else phase_paged
+        out = timed(args.only, phase, cfg, init_bert_params(cfg, 0))
+        (OUT_DIR / f"smoke_{args.only}.json").write_text(json.dumps(
+            {"card": card, args.only: out, "phase_seconds": seconds},
             indent=1))
+        log(f"[smoke] by phase " + ", ".join(
+            f"{k} {v:.1f}" for k, v in seconds.items()))
         return 0
     rows, kernel_launches = timed("kernels", phase_kernels)
     step36 = step36_summary(rows)
@@ -2298,6 +2677,7 @@ def main(argv=None):
     resnet_train, train_net, train_ds = timed("resnet_train",
                                               phase_resnet_train)
     graphs = timed("graphs", phase_graphs, cfg, params)
+    paged = timed("paged", phase_paged, cfg, params)
     prof = (timed("profile", phase_profile, cfg, params, resnet_net,
                   resnet_x, train_net, train_ds) if args.profile else None)
     # each kernel's launches from the path that carries it: the forward and
@@ -2335,7 +2715,7 @@ def main(argv=None):
          "encoder": encoder,
          "serving": serving, "train": train,
          "resnet": resnet, "resnet_train": resnet_train, "graphs": graphs,
-         "profile": prof, "line": line,
+         "paged": paged, "profile": prof, "line": line,
          "phase_seconds": seconds, "seconds": time.perf_counter() - t0},
         indent=1))
     log(f"[smoke] {time.perf_counter() - t0:.1f} s; by phase "

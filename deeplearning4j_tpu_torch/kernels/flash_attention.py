@@ -26,6 +26,11 @@ a CPU tensor it runs the kernel's plain PyTorch version beside it
 `_decode_reference`), which is what the CPU tests compare with the JAX
 package. Nothing falls back from a kernel to its plain version on the card.
 
+Decode over an int8 cache (`k_scale`/`v_scale`), the multi-query draft
+block and the paged pool are plain PyTorch on every device, as they are
+einsums and gathers in the JAX package: the paged fp decode gathers the
+slot-contiguous view (`gather_kv_pages`) and runs `flash_decode` on it.
+
 Layout (B, H, T, D) as in the JAX package. Scores that a mask removes take
 -1e30, as in the JAX kernel; rows with no valid key come back as zeros.
 """
@@ -38,7 +43,9 @@ import torch
 from deeplearning4j_tpu_torch.kernels import _build
 
 __all__ = ["flash_attention", "flash_attention_decode",
-           "flash_attention_decode_mq", "flash_fwd", "flash_bwd_dq",
+           "flash_attention_decode_mq", "flash_attention_decode_paged",
+           "flash_attention_decode_mq_paged", "gather_kv_pages",
+           "gather_scale_pages", "flash_fwd", "flash_bwd_dq",
            "flash_bwd_dkv", "flash_decode", "decode_cluster_size"]
 
 _NEG_INF = -1e30
@@ -421,6 +428,26 @@ def _decode_reference(q, k_cache, v_cache, cache_mask):
     return torch.where(any_valid[:, None, None, None], out, 0)
 
 
+def _decode_reference_quantized(q, k_cache, v_cache, cache_mask, k_scale,
+                                v_scale):
+    """Decode attention over an int8 cache with the dequantization folded
+    into the contractions: the per-row key scale multiplies the logits
+    (s·(k·ks) = (s·k)·ks) and the per-row value scale the softmax weights
+    before the value pass, so no dequantized cache is formed. q
+    (B, H, 1, D), caches (B, H, C, D) int8, scales (B, H, C) f32."""
+    d = q.shape[-1]
+    scale = 1.0 / d ** 0.5
+    s = torch.einsum("bhqd,bhcd->bhqc", q.float(), k_cache.float()) * scale
+    s = s * k_scale[:, :, None, :].float()
+    valid = cache_mask.to(torch.bool)
+    s = torch.where(valid[:, None, None, :], s, _NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    pv = p * v_scale[:, :, None, :].float()
+    out = torch.einsum("bhqc,bhcd->bhqd", pv, v_cache.float()).to(q.dtype)
+    any_valid = valid.any(dim=-1)
+    return torch.where(any_valid[:, None, None, None], out, 0)
+
+
 def flash_decode(q, k_cache, v_cache, cache_mask):
     """Kernel 2 (csrc/flash_decode.cu) on a CUDA tensor, its plain version
     on a CPU one. q (B, H, 1, D), caches (B, H, C, D), cache_mask (B, C)
@@ -460,7 +487,8 @@ def decode_cluster_size(b, h, c, d, dtype, device):
         _DTYPE_CODES[dtype], b * h, c, d, dev.index or 0)
 
 
-def flash_attention_decode(q1, k_cache, v_cache, cache_mask, impl="auto"):
+def flash_attention_decode(q1, k_cache, v_cache, cache_mask, impl="auto",
+                           k_scale=None, v_scale=None):
     """Incremental-decode attention: ONE query per sequence attends that
     sequence's cached K/V under a cache-validity mask.
 
@@ -470,6 +498,10 @@ def flash_attention_decode(q1, k_cache, v_cache, cache_mask, impl="auto"):
     - impl: 'auto' (kernel on the card, dense on the CPU), 'kernel'
       (`flash_decode`: the kernel on the card, its plain version on the
       CPU) or 'dense'
+    - k_scale / v_scale: (B, H, C) float32 per-row scales of an int8 cache
+      (`quantize/kvcache.py`). Given, the scales fold into the
+      contractions (`_decode_reference_quantized`) on every device;
+      'kernel' has no int8 variant and raises.
     Rows whose mask has NO valid cache entry return zeros. Returns the
     same rank as q1.
     """
@@ -490,12 +522,29 @@ def flash_attention_decode(q1, k_cache, v_cache, cache_mask, impl="auto"):
         raise ValueError(
             f"unknown decode impl {impl!r}; expected 'auto', 'kernel' "
             "or 'dense'")
-    if impl == "auto":
-        impl = "kernel" if q.is_cuda else "dense"
-    if impl == "kernel":
-        out = flash_decode(q, k_cache, v_cache, cache_mask)
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale must be given together")
+    if k_scale is not None:
+        if impl == "kernel":
+            raise ValueError(
+                "impl='kernel' has no int8-cache variant (flash_decode has "
+                "no slot for per-row scales) — use 'auto' or 'dense' with "
+                "a quantized cache")
+        expect = (q.shape[0], q.shape[1], k_cache.shape[2])
+        if tuple(k_scale.shape) != expect \
+                or tuple(v_scale.shape) != expect:
+            raise ValueError(
+                f"k_scale/v_scale must be (B, H, C) = {expect}, got "
+                f"{tuple(k_scale.shape)} / {tuple(v_scale.shape)}")
+        out = _decode_reference_quantized(q, k_cache, v_cache, cache_mask,
+                                          k_scale, v_scale)
     else:
-        out = _decode_reference(q, k_cache, v_cache, cache_mask)
+        if impl == "auto":
+            impl = "kernel" if q.is_cuda else "dense"
+        if impl == "kernel":
+            out = flash_decode(q, k_cache, v_cache, cache_mask)
+        else:
+            out = _decode_reference(q, k_cache, v_cache, cache_mask)
     return out[:, :, 0, :] if squeeze else out
 
 
@@ -532,3 +581,87 @@ def flash_attention_decode_mq(q, k_cache, v_cache, q_mask, impl="auto"):
     out = torch.einsum("bhqc,bhcd->bhqd", p, v_cache.float()).to(q.dtype)
     any_valid = valid.any(dim=-1)
     return torch.where(any_valid[:, None, :, None], out, 0)
+
+
+# ---------------------------------------------------------------------------
+# paged decode: attention reading a pooled KV through a per-slot page index
+# ---------------------------------------------------------------------------
+def gather_kv_pages(pool, page_table):
+    """The per-slot contiguous cache VIEW of a paged pool.
+
+    - pool: (P, H, ps, D) — one layer's page pool (page 0 is the null
+      page by convention)
+    - page_table: (B, n) integer — physical page per (slot, logical page);
+      unmapped entries point at page 0 and are hidden by the caller's mask
+    Returns (B, H, n·ps, D), contiguous: the slot-contiguous layout bit
+    for bit, so the dense decode arithmetic (and `flash_decode`'s cluster
+    split, which depends on C) carries over unchanged.
+    """
+    if pool.ndim != 4:
+        raise ValueError(f"pool must be (P, H, ps, D), got {pool.shape}")
+    if page_table.ndim != 2:
+        raise ValueError(
+            f"page_table must be (B, n_pages), got {page_table.shape}")
+    b, n = page_table.shape
+    _, h, ps, d = pool.shape
+    g = pool[page_table]                        # (B, n, H, ps, D)
+    return g.permute(0, 2, 1, 3, 4).reshape(b, h, n * ps, d)
+
+
+def gather_scale_pages(scale_pool, page_table):
+    """The per-row scale twin of `gather_kv_pages` for an int8 pool:
+    scale_pool (P, H, ps) f32, page_table (B, n) → (B, H, n·ps)."""
+    if scale_pool.ndim != 3:
+        raise ValueError(
+            f"scale_pool must be (P, H, ps), got {scale_pool.shape}")
+    b, n = page_table.shape
+    _, h, ps = scale_pool.shape
+    g = scale_pool[page_table]                  # (B, n, H, ps)
+    return g.permute(0, 2, 1, 3).reshape(b, h, n * ps)
+
+
+def flash_attention_decode_paged(q1, k_pool, v_pool, page_table,
+                                 cache_mask, impl="auto", k_scale_pool=None,
+                                 v_scale_pool=None):
+    """`flash_attention_decode` through a page index: the query attends the
+    (B, H, n·ps, D) view gathered from the pools. The gather feeds the
+    unchanged decode (`flash_decode` on the card for an fp pool, the
+    scale-folding einsum for an int8 one), so streams stay bit-identical to
+    the slot-contiguous layout.
+
+    - q1: (B, H, D) or (B, H, 1, D)
+    - k_pool / v_pool: (P, H, ps, D) (int8 under `kv_dtype="int8"`)
+    - page_table: (B, n_pages) physical page ids
+    - cache_mask: (B, n_pages·ps) — valid ROWS of the gathered view
+    - k_scale_pool / v_scale_pool: (P, H, ps) f32 scales of an int8 pool
+    """
+    if k_pool.shape != v_pool.shape or k_pool.ndim != 4:
+        raise ValueError(
+            f"k_pool/v_pool must match as (P, H, ps, D): "
+            f"{k_pool.shape} vs {v_pool.shape}")
+    if (k_scale_pool is None) != (v_scale_pool is None):
+        raise ValueError(
+            "k_scale_pool and v_scale_pool must be given together")
+    kc = gather_kv_pages(k_pool, page_table)
+    vc = gather_kv_pages(v_pool, page_table)
+    ks = vs = None
+    if k_scale_pool is not None:
+        ks = gather_scale_pages(k_scale_pool, page_table)
+        vs = gather_scale_pages(v_scale_pool, page_table)
+    return flash_attention_decode(q1, kc, vc, cache_mask, impl=impl,
+                                  k_scale=ks, v_scale=vs)
+
+
+def flash_attention_decode_mq_paged(q, k_pool, v_pool, page_table, q_mask,
+                                    impl="auto"):
+    """`flash_attention_decode_mq` through the page index: the draft verify
+    reads the same pool as the decode step. Operands as in
+    `flash_attention_decode_mq`, with (k_pool, v_pool, page_table) in place
+    of the contiguous caches."""
+    if k_pool.shape != v_pool.shape or k_pool.ndim != 4:
+        raise ValueError(
+            f"k_pool/v_pool must match as (P, H, ps, D): "
+            f"{k_pool.shape} vs {v_pool.shape}")
+    kc = gather_kv_pages(k_pool, page_table)
+    vc = gather_kv_pages(v_pool, page_table)
+    return flash_attention_decode_mq(q, kc, vc, q_mask, impl=impl)

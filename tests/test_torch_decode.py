@@ -105,15 +105,29 @@ def test_frozen_lane_at_the_rung_end_leaves_the_cache_untouched(decoders):
 
 
 def test_decoder_rejects_what_waits_for_later_slices(decoders):
+    """What the decoder still refuses: MoE layers (the expert-parallel
+    slice), the TPU kernel name, an int8 cache on the fp decode kernel,
+    pool sizes without a page size and the reverse, and drafting over an
+    int8 cache. The int8 cache, paged mode and `verify` itself run
+    (tests/test_torch_decode_paged.py)."""
     _, td = decoders
-    with pytest.raises(NotImplementedError, match="int8"):
-        BertDecoder(td.cfg, td.params, kv_dtype="int8")
-    with pytest.raises(NotImplementedError, match="paged"):
-        BertDecoder(td.cfg, td.params, page_size=4, pool_pages=8)
+    with pytest.raises(NotImplementedError, match="MoE"):
+        BertDecoder(tb.bert_tiny(moe_layers=(1,)), td.params)
     with pytest.raises(ValueError, match="attn_impl"):
         BertDecoder(td.cfg, td.params, attn_impl="pallas")
-    with pytest.raises(NotImplementedError, match="drafting"):
-        td.verify(td.model_args(), td.init_cache(1, 8), None, None, None)
+    with pytest.raises(ValueError, match="int8-cache"):
+        BertDecoder(td.cfg, td.params, attn_impl="kernel", kv_dtype="int8")
+    with pytest.raises(ValueError, match="pool_pages"):
+        BertDecoder(td.cfg, td.params, page_size=4)
+    with pytest.raises(ValueError, match="requires page_size"):
+        BertDecoder(td.cfg, td.params, pool_pages=8)
+    q8 = BertDecoder(td.cfg, td.params, kv_dtype="int8")
+    assert not q8.supports_draft and td.supports_draft
+    with pytest.raises(ValueError, match="fp cache"):
+        q8.verify(q8.model_args(), q8.init_cache(1, 8), None, None, None)
     assert td.fingerprint() == BertDecoder(td.cfg, td.params).fingerprint()
     assert td.fingerprint() != BertDecoder(td.cfg, td.params,
                                            attn_impl="dense").fingerprint()
+    assert td.fingerprint() != q8.fingerprint()
+    assert td.fingerprint() != BertDecoder(
+        td.cfg, td.params, page_size=4, pool_pages=8).fingerprint()

@@ -53,6 +53,17 @@ def test_the_runtime_modules_are_among_the_checked_sources():
         assert f"deeplearning4j_tpu_torch/runtime/{module}.py" in names
 
 
+def test_the_paged_serving_modules_are_among_the_checked_sources():
+    """The page allocator, the int8 codec and the typed errors are copies
+    of JAX-package modules that import no jax themselves; the port's
+    copies must not import the JAX package's either."""
+    names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
+    for module in ("generation/paging", "generation/decode",
+                   "generation/server", "quantize/__init__", "quantize/core",
+                   "quantize/kvcache", "resilience/errors"):
+        assert f"deeplearning4j_tpu_torch/{module}.py" in names
+
+
 def test_importing_the_port_loads_no_jax_module():
     """A fresh interpreter (isolated: no PYTHONPATH, no user site) imports
     every module of the port and chip_smoke.py."""

@@ -107,11 +107,24 @@ def test_eos_retirement_slot_reuse_and_streaming(models):
 def test_server_surface_and_refusals(models):
     _, _, tcfg, tp = models
     dec = BertDecoder(tcfg, tp)
-    for knob, value in (("draft", 2), ("memory_high_water", None)):
+    # what still waits for a later slice: crash replay and the supervised
+    # restart, the memory-pressure ladder, and RecurrentDecoder
+    for knob, value in (("restart_policy", object()),
+                        ("max_consecutive_failures", 2),
+                        ("memory_high_water", None)):
         with pytest.raises(ValueError, match="not ported yet"):
             GenerationServer(dec, **{knob: value})
     with pytest.raises(NotImplementedError, match="RecurrentDecoder"):
         GenerationServer(object())
+    with pytest.raises(TypeError, match="adopt"):
+        GenerationServer(dec, adopt=True)
+    # drafting runs now (tests/test_torch_server_paged.py); its knob
+    # combinations that the JAX server refuses are refused
+    with pytest.raises(ValueError, match="pick one"):
+        GenerationServer(dec, draft=2, superstep=4, **SERVER)
+    with pytest.raises(ValueError, match="draft-verify"):
+        GenerationServer(BertDecoder(tcfg, tp, kv_dtype="int8"), draft=2,
+                         **SERVER)
     srv = GenerationServer(dec, queue_limit=1, enqueue_timeout_ms=1.0,
                            **SERVER)
     with pytest.raises(ValueError, match="exceeds the top prompt bucket"):
