@@ -6,7 +6,8 @@
                                           # resnet_train
     python3 chip_smoke.py --only graphs   # card, build, graphs
     python3 chip_smoke.py --only paged    # card, build, paged
-    python3 chip_smoke.py --profile  # and phase 11
+    python3 chip_smoke.py --only chaos    # card, build, chaos
+    python3 chip_smoke.py --profile  # and phase 12
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -103,7 +104,27 @@ Phases, in order; any failure exits non-zero and prints no result:
             bytes against the dense caches'; the card time of the page
             gather, the int8 and the multi-query attention beside
             flash_decode.
-11. profile (only with --profile): the serving workload, one fused B=32
+11. chaos:  phase 5's server (graphed, f32) and 12 requests under injected
+            faults. Fault-free first, monitoring off, on, on, off in
+            turns, twice (tokens/s each; every run's streams equal).
+            Then:
+            two block kills (`generation.superstep`) and one admission
+            kill (`generation.admit`): streams equal the fault-free run's,
+            the replay modes, the ms from each fault to the next
+            delivered token, the largest |Δlogit| between the decode
+            path and the replay's prefill at each prefix replay point,
+            flash_fwd and flash_decode launched; a `cache.page` kill on
+            the paged server (streams equal, no page mapped at the end);
+            an OOM-shaped fault at the growth to rung 512 (that request
+            refused with `MemoryPressureError`, the rest served, relief
+            back to serving); `memory_high_water` just under the
+            `mem_get_info` reading after the warm-up (growth refused by
+            the telemetry); and a restart budget that runs out
+            (`ServerDeadError`, every consumer released within 1 s). No
+            capture, rebind, degradation or eager call after a warm-up;
+            every fetch a block, an admission or a replay. One JSON line
+            per case.
+12. profile (only with --profile): the serving workload, one fused B=32
             ResNet-50 forward and three fused ResNet-50 training steps,
             each eager and through its graphs (training: eager and graph
             with prefetch 0, graph with prefetch 2), the paged server's
@@ -114,11 +135,11 @@ Phases, in order; any failure exits non-zero and prints no result:
 Phases 5, 7 and 8 run as a user runs them: the server and `fit` replay
 CUDA graphs on the card by default. The kernels' launch counters are set
 to 0 just before each main path (the encoder, serving, the timed training
-steps, ResNet serving, the timed ResNet training steps and each arm of the
-graphs phase) and read just after; a replay adds the launches its capture
-recorded. Every number is measured in this run; the last lines are the
-kernel JSON object and the `{"ok": true, "device": ...}` line. Imports
-nothing of JAX.
+steps, ResNet serving, the timed ResNet training steps, each arm of the
+graphs phase and each server of the chaos phase) and read just after; a
+replay adds the launches its capture recorded. Every number is measured
+in this run; the last lines are the kernel JSON object and the
+`{"ok": true, "device": ...}` line. Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -165,7 +186,13 @@ from deeplearning4j_tpu_torch.nn import Nesterovs
 from deeplearning4j_tpu_torch.parallel.inference import (InferenceMode,
                                                          ParallelInference)
 from deeplearning4j_tpu_torch.quantize import cache_page_bytes, quantize_rows
-from deeplearning4j_tpu_torch.resilience.errors import PagePoolExhaustedError
+from deeplearning4j_tpu_torch import monitoring as mon
+from deeplearning4j_tpu_torch.monitoring import events as ev
+from deeplearning4j_tpu_torch.monitoring import memory as _mem
+from deeplearning4j_tpu_torch.resilience import faults
+from deeplearning4j_tpu_torch.resilience.errors import (
+    MemoryPressureError, PagePoolExhaustedError, ServerDeadError)
+from deeplearning4j_tpu_torch.resilience.policy import RetryPolicy
 from deeplearning4j_tpu_torch.runtime.executables import (ExecutableStore,
                                                           tensor_leaves)
 
@@ -1179,6 +1206,21 @@ def _requests(cfg):
     return reqs
 
 
+def _fault_free(st, what):
+    """A run that met no fault. The server recovers from a failed block
+    or admission by replaying its requests, so a failure that clears on
+    retry shows only in its counters: no error, replay, restart or
+    dropped block, and each token fetch a delivered block or an
+    admission. `st` is a status read after the shutdown, or a run."""
+    bad = {k: st[k] for k in ("errors", "replays", "restarts",
+                              "blocks_dropped") if st[k]}
+    if bad or st["token_fetches"] != st["steps"] + st["admissions"]:
+        raise AssertionError(f"{what}: the server met a fault: {bad}; "
+                             f"{st['token_fetches']} token fetches for "
+                             f"{st['steps']} blocks and {st['admissions']} "
+                             f"admissions")
+
+
 def _serve(cfg, params, attn_impl, reqs):
     srv = GenerationServer(BertDecoder(cfg, params, attn_impl=attn_impl),
                            **SERVER)
@@ -1194,7 +1236,9 @@ def _serve(cfg, params, attn_impl, reqs):
     finally:
         srv.shutdown()
     # after the shutdown, which delivers the block still in flight
-    return streams, handles, wall, _counts(), srv.status()
+    st = srv.status()
+    _fault_free(st, f"serving ({attn_impl} attention)")
+    return streams, handles, wall, _counts(), st
 
 
 def phase_serving(cfg, params):
@@ -1800,6 +1844,7 @@ def _graphs_serving(cfg, params, cache_dir):
         # after the shutdown, which delivers the block still in flight
         launches = _counts()
         st = srv.status()
+        _fault_free(st, f"graphs: serving {arm}")
         ntok = sum(len(x) for x in streams)
         ex = st["executables"]
         run = {"arm": arm, "wall_s": wall, "tokens": ntok,
@@ -2181,10 +2226,7 @@ def _paged_server(cfg, params, reqs, what, check_launches=False, **kw):
         + (f"; drafts accepted {st['draft_accepts']} rejected "
            f"{st['draft_rejects']}" if st["draft"] else ""))
     _store_clean(st["executables"], what)
-    if st["token_fetches"] != st["steps"] + st["admissions"]:
-        raise AssertionError(f"paged: {what} fetched {st['token_fetches']} "
-                             f"times for {st['steps']} blocks and "
-                             f"{st['admissions']} admissions")
+    _fault_free(st, f"paged: {what}")
     if st["rung"] != 512:
         raise AssertionError(f"paged: {what} never grew to rung 512")
     if check_launches:
@@ -2397,7 +2439,420 @@ def phase_paged(cfg, params):
             "int8_greedy_equal_fp": int8_vs_fp}
 
 
-# -- phase 11 (--profile) ------------------------------------------------------
+# -- phase 11: chaos ----------------------------------------------------------
+#: the chaos phase: phase 5's server and 12 requests, f32, through the
+#: graphs. Fault calls count visits to each site in one run: admissions
+#: 1-8 fill the 8 slots, blocks are numbered from the first.
+CHAOS = dict(kill_blocks=(3, 9), kill_admission=4, relief_steps=32,
+             budget_attempts=2, release_s=1.0,
+             monitoring_arms=("off", "on", "on", "off") * 2)
+
+
+def _cuda_oom(site, call_n):
+    """An OOM of the shape torch.cuda.OutOfMemoryError reports."""
+    return RuntimeError(f"CUDA out of memory. Tried to allocate 2.00 GiB "
+                        f"(injected at {site}, call {call_n})")
+
+
+def _stamped(make, stamps):
+    """A FaultPlan exception factory that notes when each fault fired."""
+    def exc(site, call_n):
+        stamps.append((time.perf_counter(), site, call_n))
+        return make(site, call_n)
+    return exc
+
+
+def _chaos_server(cfg, params, reqs, what, plan=None, dec_kw=None,
+                  monitoring=False, stamps=False, after_warmup=None,
+                  **kw):
+    """One server over `reqs`, warmed up, counters at 0, with `plan`
+    installed around the workload; each request resolves to its stream or
+    its exception. Returns the run, with the store's counters after the
+    warm-up and at the end."""
+    srv = GenerationServer(BertDecoder(cfg, params, **(dec_kw or {})),
+                           **{**SERVER, **kw})
+    mon.disable()
+    ev.reset()
+    delivered = []
+    try:
+        srv.warmup()
+        torch.cuda.synchronize()
+        if after_warmup is not None:
+            after_warmup(srv)
+        warm = dict(srv._store.stats)
+        if monitoring:
+            mon.enable()
+        _reset_counts()
+        t0 = time.perf_counter()
+        if plan is not None:
+            faults.install_plan(plan)
+        try:
+            hs = []
+            for i, r in enumerate(reqs):
+                cb = ((lambda tok, i=i: delivered.append(
+                    (time.perf_counter(), i))) if stamps else None)
+                hs.append(srv.submit(**r, on_token=cb))
+            out = []
+            for h in hs:
+                try:
+                    out.append(h.result(timeout=600))
+                except Exception as e:  # noqa: BLE001 — gated by callers
+                    out.append(e)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            faults.clear_plan()
+        events = ev.snapshot(last=None)["events"]
+        state = srv.serving_state()
+    finally:
+        mon.disable()
+        srv.shutdown()
+    launches = _counts()
+    st = srv.status()
+    ntok = sum(len(s) for s in out if isinstance(s, list))
+    run = {"server": what, "wall_s": wall, "tokens": ntok,
+           "tokens_per_s": ntok / wall,
+           "per_token_p50_ms": st["per_token_p50_ms"],
+           "per_token_p99_ms": st["per_token_p99_ms"],
+           "launches": {k: launches[k] for k in ("flash_fwd",
+                                                 "flash_decode")},
+           **{k: st[k] for k in ("steps", "admissions", "replays",
+                                 "restarts", "errors", "degradations",
+                                 "blocks_dropped", "token_fetches")},
+           "state": state, "store_after_warmup": warm,
+           "store": st["executables"], "fired": (None if plan is None
+                                                 else dict(plan.fired))}
+    log(f"[chaos] {what}: {ntok} tokens in {wall:.3f} s = "
+        f"{ntok / wall:.1f} tokens/s; {st['steps']} blocks, "
+        f"{st['admissions']} admissions, {st['replays']} replays, "
+        f"{st['restarts']} restarts, {st['blocks_dropped']} blocks dropped, "
+        f"{st['token_fetches']} fetches; state {state['state']}; launches "
+        f"{run['launches']}" + (f"; fired {run['fired']}" if plan else ""))
+    return run, out, events, delivered, srv, hs
+
+
+def _recovery_clean(run, what):
+    """No capture, rebind, degradation, live capture or eager call after
+    the warm-up: recovery ran from the warm graphs; and each fetch is a
+    delivered block, an admission or a replay."""
+    a, b = run["store_after_warmup"], run["store"]
+    moved = {k: b[k] - a[k] for k in ("captures", "rebinds",
+                                      "degradations", "live_captures",
+                                      "eager_calls", "compiled")
+             if b[k] != a[k]}
+    if moved or not b["capture"] or b["replays"] == a["replays"]:
+        raise AssertionError(f"chaos: {what}: the store moved after its "
+                             f"warm-up: {moved or b}")
+    want = run["steps"] + run["admissions"] + run["replays"]
+    if run["token_fetches"] != want:
+        raise AssertionError(f"chaos: {what}: {run['token_fetches']} "
+                             f"fetches for {want} blocks, admissions and "
+                             f"replays")
+
+
+def _streams_equal(what, got, want, only=None):
+    idx = range(len(want)) if only is None else only
+    bad = [i for i in idx if got[i] != want[i]]
+    if bad:
+        raise AssertionError(f"chaos: {what}: streams {bad} differ from "
+                             f"the fault-free run's ({got[bad[0]]!r})")
+
+
+def _replay_points(events, handles):
+    """(request index, mode, delivered) of each SERVER_REPLAY event."""
+    index = {h.trace_id: i for i, h in enumerate(handles)}
+    return [(index.get(e["attrs"]["request"]), e["attrs"]["mode"],
+             e["attrs"]["delivered"]) for e in events
+            if e["kind"] == ev.SERVER_REPLAY]
+
+
+@torch.no_grad()
+def _replay_logit_gap(cfg, params, req, stream, g):
+    """At a prefix replay point (g tokens delivered): the logits of token
+    g as the uninterrupted run computed them — a prefill, then g decode
+    steps through flash_decode — against the replay's prefill of
+    prompt + stream[:g] through flash_fwd. Returns the largest |Δlogit|
+    and the top-1 minus top-2 margin of the decode path's logits."""
+    dec = BertDecoder(cfg, params)
+    margs = dec.model_args()
+    prompt = np.asarray(req["prompt"], np.int64)
+    plen = len(prompt)
+    rung = next(c for c in SERVER["cache_lengths"]
+                if c >= plen + req["max_new_tokens"])
+
+    def prefill(ids):
+        bucket = next(p for p in SERVER["prompt_buckets"] if p >= len(ids))
+        padded = np.zeros(bucket, np.int64)
+        padded[:len(ids)] = ids
+        cache = dec.init_cache(1, rung)
+        _, logits = dec.prefill(margs, cache, 0,
+                                torch.as_tensor(padded, device=DEV),
+                                len(ids))
+        return cache, logits
+
+    cache, _ = prefill(prompt)
+    for j in range(g):
+        tok = torch.tensor([stream[j]], device=DEV)
+        pos = torch.tensor([plen + j], device=DEV)
+        step_logits, cache = dec.step(margs, cache, tok, pos)
+    _, replay_logits = prefill(np.concatenate([prompt, stream[:g]]))
+    a, b = step_logits[0].float(), replay_logits.float()
+    top = a.topk(2).values
+    return float((a - b).abs().max()), float(top[0] - top[1])
+
+
+def _case_line(case, run, keys):
+    """One JSON line for a chaos case: the numbers that its gate read."""
+    print(json.dumps({"chaos": case, **{k: run.get(k) for k in keys}},
+                     default=str), flush=True)
+
+
+def _chaos_kills(cfg, params, reqs, want):
+    """Two block kills and one admission kill on the dense server."""
+    stamps = []
+    exc = _stamped(faults._default_exc, stamps)
+    plan = faults.FaultPlan(seed=12)
+    for n in CHAOS["kill_blocks"]:
+        plan.fail_at(faults.GENERATION_SUPERSTEP, n, exc=exc)
+    plan.fail_at(faults.GENERATION_ADMIT, CHAOS["kill_admission"], exc=exc)
+    run, out, events, delivered, srv, hs = _chaos_server(
+        cfg, params, reqs, "dense kills", plan=plan, monitoring=True,
+        stamps=True)
+    _streams_equal("dense kills", out, want)
+    _recovery_clean(run, "dense kills")
+    if run["fired"] != {faults.GENERATION_SUPERSTEP: 2,
+                        faults.GENERATION_ADMIT: 1}:
+        raise AssertionError(f"chaos: dense kills fired {run['fired']}")
+    if not 1 <= run["blocks_dropped"] <= 2:
+        raise AssertionError(f"chaos: dense kills dropped "
+                             f"{run['blocks_dropped']} blocks")
+    missing = [k for k, n in run["launches"].items() if n == 0]
+    if missing:
+        raise AssertionError(f"chaos: dense kills never launched {missing}")
+    recovery_ms = []
+    for t, site, call_n in stamps:
+        after = [d for d, _ in delivered if d > t]
+        if not after:
+            raise AssertionError(f"chaos: no token after the fault at "
+                                 f"{site} call {call_n}")
+        recovery_ms.append({"site": site, "call": call_n,
+                            "ms": (min(after) - t) * 1e3})
+    points = _replay_points(events, hs)
+    modes = {m: sum(1 for _, mm, _ in points if mm == m)
+             for m in ("prefix", "regenerate")}
+    if len(points) != run["replays"] or None in [i for i, _, _ in points]:
+        raise AssertionError(f"chaos: replay events {points} against "
+                             f"{run['replays']} replays")
+    gaps = []
+    for i, mode, g in points:
+        if mode != "prefix" or g == 0:
+            continue
+        err, margin = _replay_logit_gap(cfg, params, reqs[i], want[i], g)
+        gaps.append({"request": i, "delivered": g, "max_abs_dlogit": err,
+                     "decode_top2_margin": margin})
+    kinds = [e["kind"] for e in events]
+    if ev.SERVER_DISRUPTED not in kinds or ev.SERVER_RECOVERED not in kinds:
+        raise AssertionError(f"chaos: dense kills emitted {kinds}")
+    run.update(recovery_ms=recovery_ms, replay_modes=modes,
+               replay_points=[list(p) for p in points],
+               replay_logit_gaps=gaps,
+               max_abs_dlogit=max((x["max_abs_dlogit"] for x in gaps),
+                                  default=None))
+    log(f"[chaos] dense kills: streams equal the fault-free run's; "
+        f"replays {modes}; fault to next delivered token "
+        + ", ".join(f"{r['site']}#{r['call']} {r['ms']:.2f} ms"
+                    for r in recovery_ms)
+        + f"; largest |dlogit| at {len(gaps)} prefix replay points "
+        f"{run['max_abs_dlogit']}; store after warm-up: no capture, "
+        f"rebind, degradation or eager call")
+    return run
+
+
+def _chaos_paged(cfg, params, reqs, want):
+    """A cache.page fault mid-stream on the paged server."""
+    plan = faults.FaultPlan(seed=13).fail_at(faults.CACHE_PAGE, 20)
+    run, out, _, _, _, _ = _chaos_server(
+        cfg, params, reqs, "paged cache.page kill", plan=plan,
+        dec_kw=dict(page_size=PAGED["page_size"],
+                    pool_pages=PAGED["pool_pages"]))
+    _streams_equal("paged kill", out, want)
+    _recovery_clean(run, "paged kill")
+    mapped = run["state"]["page_pool"]["pages_mapped"]
+    if run["fired"] != {faults.CACHE_PAGE: 1} or run["replays"] < 1 \
+            or mapped != 0:
+        raise AssertionError(f"chaos: paged kill fired {run['fired']}, "
+                             f"{run['replays']} replays, {mapped} pages "
+                             f"mapped at the end")
+    return run
+
+
+def _chaos_ladder(cfg, params, reqs, want):
+    """An OOM-shaped fault at the growth to rung 512: the growing request
+    is refused typed, the rest are served, and the pressure relieves."""
+    plan = faults.FaultPlan(seed=14).fail_at(faults.CACHE_GROW, 1,
+                                             exc=_cuda_oom)
+    run, out, _, _, srv, _ = _chaos_server(
+        cfg, params, reqs, "ladder (OOM at growth)", plan=plan,
+        pressure_relief_steps=CHAOS["relief_steps"],
+        pressure_relief_secs=None)
+    refused = [i for i, s in enumerate(out)
+               if isinstance(s, MemoryPressureError)]
+    other = [i for i, s in enumerate(out)
+             if not isinstance(s, (list, MemoryPressureError))]
+    served = [i for i, s in enumerate(out) if isinstance(s, list)]
+    _streams_equal("ladder", out, want, only=served)
+    if 3 not in refused or other or run["degradations"] < 2 \
+            or run["state"]["state"] != "serving" \
+            or run["state"]["pressure"] != 0:
+        raise AssertionError(f"chaos: ladder refused {refused}, other "
+                             f"errors {other}, state {run['state']}")
+    run.update(refused=refused, served=len(served))
+    log(f"[chaos] ladder: requests {refused} refused typed "
+        f"(MemoryPressureError), {len(served)} served equal to the "
+        f"fault-free run; {run['degradations']} degradations; relieved to "
+        f"{run['state']['state']} after {CHAOS['relief_steps']} clean "
+        f"tokens")
+    return run
+
+
+def _chaos_high_water(cfg, params, reqs, want):
+    """memory_high_water just under the reading after the warm-up: the
+    telemetry refuses the growth to rung 512."""
+    reading = {}
+
+    def set_mark(srv):
+        stats = next(iter(_mem.device_memory_stats(srv.device).values()))
+        reading.update(stats)
+        reading["fraction"] = stats["bytes_in_use"] / stats["bytes_limit"]
+        srv.memory_high_water = reading["fraction"] - 1e-3
+
+    run, out, _, _, _, _ = _chaos_server(
+        cfg, params, reqs, "high water", after_warmup=set_mark,
+        pressure_relief_steps=1 << 30, pressure_relief_secs=None)
+    refused = [i for i, s in enumerate(out)
+               if isinstance(s, MemoryPressureError)
+               and "high-water" in str(s)]
+    served = [i for i, s in enumerate(out) if isinstance(s, list)]
+    _streams_equal("high water", out, want, only=served)
+    if 3 not in refused or len(refused) + len(served) != len(reqs) \
+            or run["errors"] or run["state"]["state"] != "degraded":
+        raise AssertionError(f"chaos: high water refused {refused}, "
+                             f"served {served}, {run['errors']} errors, "
+                             f"state {run['state']}")
+    run.update(refused=refused, served=len(served), reading=reading)
+    log(f"[chaos] high water: device memory after the warm-up "
+        f"{reading['bytes_in_use']} of {reading['bytes_limit']} bytes "
+        f"({reading['fraction']:.4f}; allocator: allocated "
+        f"{reading.get('allocated_bytes')}, reserved "
+        f"{reading.get('reserved_bytes')}); mark set to "
+        f"{reading['fraction'] - 1e-3:.4f}: growth refused for {refused}, "
+        f"{len(served)} served; state degraded")
+    return run
+
+
+def _chaos_budget(cfg, params, reqs):
+    """Every admission faults: the restart budget runs out and latches
+    ServerDeadError; every open consumer is released within a second."""
+    stamps = []
+    plan = faults.FaultPlan(seed=15).every(
+        faults.GENERATION_ADMIT, 1, exc=_stamped(faults._default_exc, stamps))
+    srv = GenerationServer(BertDecoder(cfg, params), **SERVER,
+                           restart_policy=RetryPolicy(
+                               max_attempts=CHAOS["budget_attempts"],
+                               initial_backoff=0.01, max_backoff=0.02))
+    released = [None] * len(reqs)
+    try:
+        srv.warmup()
+        with plan:
+            hs = [srv.submit(**r) for r in reqs]
+
+            def consume(i):
+                try:
+                    for _ in hs[i].stream(timeout=60):
+                        pass
+                except ServerDeadError:
+                    released[i] = time.perf_counter()
+
+            threads = [threading.Thread(target=consume, args=(i,))
+                       for i in range(len(hs))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=90)
+        state = srv.serving_state()["state"]
+        restarts = srv.stats["restarts"]
+    finally:
+        srv.shutdown()
+    if None in released or state != "dead":
+        raise AssertionError(f"chaos: budget: state {state}, consumers "
+                             f"released {released}")
+    latest = max(released) - stamps[-1][0]
+    log(f"[chaos] restart budget: {len(stamps)} admission faults, "
+        f"{restarts} restarts, then ServerDeadError; all {len(hs)} "
+        f"consumers released, the last {latest * 1e3:.2f} ms after the "
+        f"last fault")
+    if latest > CHAOS["release_s"]:
+        raise AssertionError(f"chaos: budget: a consumer waited "
+                             f"{latest:.3f} s")
+    return {"faults": len(stamps), "restarts": restarts,
+            "release_ms": latest * 1e3, "state": state}
+
+
+def phase_chaos(cfg, params):
+    """Phase 5's server and workload under injected faults: streams equal
+    the fault-free run's, recovery from the warm graphs, the
+    memory-pressure ladder, the restart budget, and what monitoring
+    costs."""
+    torch.cuda.empty_cache()    # earlier phases' cached blocks
+    reqs = _requests(cfg)
+    arms = []
+    for arm in CHAOS["monitoring_arms"]:
+        run, out, _, _, _, _ = _chaos_server(
+            cfg, params, reqs, f"fault-free, monitoring {arm}",
+            monitoring=arm == "on")
+        if any(not isinstance(s, list) for s in out):
+            raise AssertionError(f"chaos: fault-free run failed: {out}")
+        _fault_free(run, f"chaos: fault-free, monitoring {arm}")
+        if arms:
+            _streams_equal(f"monitoring {arm}", out, arms[0][1])
+        run["monitoring"] = arm
+        arms.append((run, out))
+    want = arms[0][1]
+    tps = {a: [r["tokens_per_s"] for r, _ in arms if r["monitoring"] == a]
+           for a in ("off", "on")}
+    ratio = float(np.median(tps["on"]) / np.median(tps["off"]))
+    log(f"[chaos] tokens/s, monitoring off {tps['off']} / on {tps['on']} "
+        f"(in turns off, on, on, off, twice); median on / median off "
+        f"{ratio:.4f}")
+    for run, _ in arms:
+        _case_line(f"fault-free, monitoring {run['monitoring']}", run,
+                   ("tokens", "wall_s", "tokens_per_s", "per_token_p50_ms",
+                    "per_token_p99_ms", "steps", "admissions", "launches"))
+    kills = _chaos_kills(cfg, params, reqs, want)
+    _case_line("dense kills", kills,
+               ("fired", "replays", "replay_modes", "restarts",
+                "blocks_dropped", "recovery_ms", "max_abs_dlogit",
+                "replay_logit_gaps", "launches", "tokens_per_s"))
+    paged = _chaos_paged(cfg, params, reqs, want)
+    _case_line("paged cache.page kill", paged,
+               ("fired", "replays", "blocks_dropped", "launches",
+                "tokens_per_s"))
+    ladder = _chaos_ladder(cfg, params, reqs, want)
+    _case_line("ladder", ladder, ("fired", "refused", "served",
+                                  "degradations", "replays", "state"))
+    high = _chaos_high_water(cfg, params, reqs, want)
+    _case_line("high water", high, ("refused", "served", "degradations",
+                                    "reading", "state"))
+    budget = _chaos_budget(cfg, params, reqs)
+    _case_line("restart budget", budget, ("faults", "restarts",
+                                          "release_ms", "state"))
+    return {"monitoring": [r for r, _ in arms], "tokens_per_s": tps,
+            "monitoring_on_over_off": ratio,
+            "kills": kills, "paged": paged, "ladder": ladder,
+            "high_water": high, "budget": budget}
+
+
+# -- phase 12 (--profile) -----------------------------------------------------
 #: kernel-name substrings -> the part of a step they belong to
 KERNEL_GROUPS = (("flash_fwd_kernel", "flash_fwd"),
                  ("flash_decode_kernel", "flash_decode"),
@@ -2529,6 +2984,7 @@ def phase_profile(cfg, params, resnet_net, resnet_x, train_net, train_ds):
         finally:
             srv.shutdown()
         st = srv.status()
+        _fault_free(st, f"profile: serving {arm}")
         if prof is not None:
             steps = st["steps"] * srv.superstep
             ex = st["executables"]
@@ -2612,12 +3068,13 @@ def kernel_line(rows, launches, launches_from):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only",
-                    choices=["kernels", "resnet", "graphs", "paged"],
+                    choices=["kernels", "resnet", "graphs", "paged",
+                             "chaos"],
                     default=None,
                     help="stop after the kernel checks, or run the resnet "
                          "serving and training phases right after them, or "
-                         "run the graphs or the paged phase alone after the "
-                         "build (bring-up runs)")
+                         "run the graphs, the paged or the chaos phase "
+                         "alone after the build (bring-up runs)")
     ap.add_argument("--profile", action="store_true",
                     help="after the resnet phases, profile the serving "
                          "workload, three fine-tune steps, one ResNet-50 "
@@ -2650,6 +3107,19 @@ def main(argv=None):
         log(f"[smoke] by phase " + ", ".join(
             f"{k} {v:.1f}" for k, v in seconds.items()))
         return 0
+    if args.only == "chaos":
+        cfg = bert_base()
+        out = timed("chaos", phase_chaos, cfg, init_bert_params(cfg, 0))
+        (OUT_DIR / "smoke_chaos.json").write_text(json.dumps(
+            {"card": card, "chaos": out, "phase_seconds": seconds},
+            indent=1, default=str))
+        log(f"[smoke] by phase " + ", ".join(
+            f"{k} {v:.1f}" for k, v in seconds.items()))
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     rows, kernel_launches = timed("kernels", phase_kernels)
     step36 = step36_summary(rows)
     fwd36 = fwd36_summary(rows)
@@ -2678,6 +3148,7 @@ def main(argv=None):
                                               phase_resnet_train)
     graphs = timed("graphs", phase_graphs, cfg, params)
     paged = timed("paged", phase_paged, cfg, params)
+    chaos = timed("chaos", phase_chaos, cfg, params)
     prof = (timed("profile", phase_profile, cfg, params, resnet_net,
                   resnet_x, train_net, train_ds) if args.profile else None)
     # each kernel's launches from the path that carries it: the forward and
@@ -2715,9 +3186,9 @@ def main(argv=None):
          "encoder": encoder,
          "serving": serving, "train": train,
          "resnet": resnet, "resnet_train": resnet_train, "graphs": graphs,
-         "paged": paged, "profile": prof, "line": line,
+         "paged": paged, "chaos": chaos, "profile": prof, "line": line,
          "phase_seconds": seconds, "seconds": time.perf_counter() - t0},
-        indent=1))
+        indent=1, default=str))
     log(f"[smoke] {time.perf_counter() - t0:.1f} s; by phase "
         + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     print(card, flush=True)

@@ -83,16 +83,20 @@ def tiny():
          superstep=1)], ids=["two-rungs", "three-rungs"])
 def test_server_warmup_keys_equal_the_jax_servers(tiny, conf):
     """The same (name, rung, bucket) keys as the JAX server's executables,
-    but for its crash-replay key-advance, which comes with crash replay."""
+    its crash-replay key-advance included, which runs on the host here
+    and so is no key of the store."""
     cfg, jp, tcfg, tp = tiny
     jsrv = JaxServer(JaxDecoder(cfg, jp), **conf)
     tsrv = GenerationServer(BertDecoder(tcfg, tp), **conf)
     try:
         jsrv.warmup()
         stats = tsrv.warmup()
-        want = set(jsrv._exes) - {("advance_key_n",)}
-        assert set(tsrv._store._entries) == want
-        assert stats["executables"] == stats["compiled"] == len(want)
+        want = set(jsrv._exes)
+        assert ("advance_key_n",) in want
+        assert tsrv.executable_keys() == want
+        host = {("advance_key_n",)}
+        assert set(tsrv._store._entries) == want - host
+        assert stats["executables"] == stats["compiled"] == len(want) - 1
         assert stats["captures"] == 0 and stats["from_disk"] == 0
     finally:
         jsrv.shutdown()

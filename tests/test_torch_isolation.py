@@ -64,6 +64,24 @@ def test_the_paged_serving_modules_are_among_the_checked_sources():
         assert f"deeplearning4j_tpu_torch/{module}.py" in names
 
 
+def test_the_survivability_modules_are_among_the_checked_sources():
+    """Monitoring, fault injection, the retry policy and crash reporting
+    are copies of JAX-package modules that import no jax, with their
+    imports re-pointed (the lazy ones inside functions too): the rule
+    above walks every import node, so it holds them all."""
+    names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
+    for module in ("monitoring/__init__", "monitoring/state",
+                   "monitoring/registry", "monitoring/tracing",
+                   "monitoring/steps", "monitoring/events",
+                   "monitoring/requests", "monitoring/slo",
+                   "monitoring/stragglers", "monitoring/cluster",
+                   "monitoring/memory", "monitoring/profiler",
+                   "resilience/__init__", "resilience/faults",
+                   "resilience/policy", "util/__init__",
+                   "util/crash_reporting"):
+        assert f"deeplearning4j_tpu_torch/{module}.py" in names
+
+
 def test_importing_the_port_loads_no_jax_module():
     """A fresh interpreter (isolated: no PYTHONPATH, no user site) imports
     every module of the port and chip_smoke.py."""

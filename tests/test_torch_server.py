@@ -19,6 +19,7 @@ from deeplearning4j_tpu_torch.models import bert as tb
 from deeplearning4j_tpu_torch.models.convert import params_from_numpy
 from deeplearning4j_tpu_torch.resilience.errors import (
     InferenceOverloadedError, ServerDeadError)
+from deeplearning4j_tpu_torch.resilience.policy import RetryPolicy
 
 #: slots 2, rungs 16 → 32; requests 1 and 4 need 20 rows (a growth),
 #: six requests through two slots reuse every slot
@@ -107,13 +108,21 @@ def test_eos_retirement_slot_reuse_and_streaming(models):
 def test_server_surface_and_refusals(models):
     _, _, tcfg, tp = models
     dec = BertDecoder(tcfg, tp)
-    # what still waits for a later slice: crash replay and the supervised
-    # restart, the memory-pressure ladder, and RecurrentDecoder
-    for knob, value in (("restart_policy", object()),
-                        ("max_consecutive_failures", 2),
-                        ("memory_high_water", None)):
-        with pytest.raises(ValueError, match="not ported yet"):
-            GenerationServer(dec, **{knob: value})
+    # the survivability knobs are the JAX server's; a caller's restart
+    # policy sets the budget of the server's own private clone
+    policy = RetryPolicy(max_attempts=2, initial_backoff=0.001)
+    srv = GenerationServer(dec, restart_policy=policy,
+                           max_consecutive_failures=2,
+                           pressure_relief_steps=16,
+                           pressure_relief_secs=None,
+                           memory_high_water=None, **SERVER)
+    assert srv.restart_policy is not policy
+    assert srv.restart_policy.max_attempts == 2
+    assert (srv.max_consecutive_failures, srv.pressure_relief_steps,
+            srv.pressure_relief_secs, srv.memory_high_water) == (
+                2, 16, None, None)
+    assert hasattr(srv, "adopt")
+    # what still waits for a later slice: RecurrentDecoder
     with pytest.raises(NotImplementedError, match="RecurrentDecoder"):
         GenerationServer(object())
     with pytest.raises(TypeError, match="adopt"):
@@ -149,15 +158,18 @@ def test_full_queue_sheds_and_dead_loop_fails_requests(models):
     srv.shutdown()
     with pytest.raises(RuntimeError, match="shut down"):
         queued.result(timeout=5)
-    # a failing decode step latches ServerDeadError on every request
+    # a decode loop that can never make progress (every prefill and every
+    # step fails) exhausts the restart budget and latches ServerDeadError
+    # on every request
     boom = RuntimeError("device fault")
 
-    def broken_step(*a, **k):
+    def broken(*a, **k):
         raise boom
 
     dec_broken = BertDecoder(tcfg, tp)
-    dec_broken.step = broken_step
-    bad = GenerationServer(dec_broken, **SERVER)
+    dec_broken.step = dec_broken.prefill = broken
+    bad = GenerationServer(dec_broken, restart_policy=RetryPolicy(
+        max_attempts=2, initial_backoff=0.001), **SERVER)
     h = bad.submit([1, 2, 3], max_new_tokens=4)
     with pytest.raises(ServerDeadError):
         h.result(timeout=60)
