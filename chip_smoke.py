@@ -7,7 +7,8 @@
     python3 chip_smoke.py --only graphs   # card, build, graphs
     python3 chip_smoke.py --only paged    # card, build, paged
     python3 chip_smoke.py --only chaos    # card, build, chaos
-    python3 chip_smoke.py --profile  # and phase 12
+    python3 chip_smoke.py --only fleet    # card, build, fleet
+    python3 chip_smoke.py --profile  # and phase 13
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -124,7 +125,32 @@ Phases, in order; any failure exits non-zero and prints no result:
             capture, rebind, degradation or eager call after a warm-up;
             every fetch a block, an admission or a replay. One JSON line
             per case.
-12. profile (only with --profile): the serving workload, one fused B=32
+12. fleet:  three replicas of phase 5's server (graphed, f32) behind a
+            `FleetRouter` on the one card, over one parameter set and one
+            manifest directory; a factory builds them and every
+            replacement. 24 requests (phase 5's twice). In turns single
+            server, fleet, fleet, single server: every fleet stream equals
+            the single server's (greedy and sampled), each replica reads
+            `_fault_free` and was routed a request; during the first fleet
+            run a `UIServer` on an ephemeral port answers 200 with a
+            parseable body on /fleet, /health, /generation, /metrics,
+            /events, /incidents, /requests and /executables. A replica
+            killed mid-stream (its block fault): streams equal, no client
+            error, a failover, one replacement that warms from the
+            manifest (`compiled` 0) while the survivors serve, no live
+            capture or eager call in any replica, the incident ordered
+            replica.unhealthy -> drained -> replaced and resolved, and
+            `memory_allocated` after the replacement within 10 % of its
+            value before the kill. Every 5th `router.dispatch` faulting:
+            streams equal, each fault absorbed. A failing replacement
+            (`replica.restart`): the fleet serves on degraded (/health
+            200 degraded), and `FleetDeadError` latches (/health 503) only
+            once its last replica is killed. Printed: tokens/s of each
+            turn, requests routed per replica, ms from the fault to each
+            failed-over request's next token, the replacement's warm-up
+            seconds and the survivors' tokens/s meanwhile, allocated
+            bytes before the kill, at the replacement's build and after.
+13. profile (only with --profile): the serving workload, one fused B=32
             ResNet-50 forward and three fused ResNet-50 training steps,
             each eager and through its graphs (training: eager and graph
             with prefetch 0, graph with prefetch 2), the paged server's
@@ -136,7 +162,8 @@ Phases 5, 7 and 8 run as a user runs them: the server and `fit` replay
 CUDA graphs on the card by default. The kernels' launch counters are set
 to 0 just before each main path (the encoder, serving, the timed training
 steps, ResNet serving, the timed ResNet training steps, each arm of the
-graphs phase and each server of the chaos phase) and read just after; a
+graphs phase, each server of the chaos phase and each run of the fleet
+phase) and read just after; a
 replay adds the launches its capture recorded. Every number is measured
 in this run; the last lines are the kernel JSON object and the
 `{"ok": true, "device": ...}` line. Imports nothing of JAX.
@@ -145,6 +172,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import gc
 import json
 import os
 import re
@@ -2852,7 +2880,401 @@ def phase_chaos(cfg, params):
             "high_water": high, "budget": budget}
 
 
-# -- phase 12 (--profile) -----------------------------------------------------
+# -- phase 12 -----------------------------------------------------------------
+#: three replicas of serving's server on the one card, over one parameter
+#: set and one manifest directory; the workload is `_requests(cfg)` twice
+#: (24 requests in order; requests 3 and 15 grow to rung 512). Replicas die
+#: on their first failed block (`max_consecutive_failures=0`), so a fault
+#: is the fleet's to recover. The kill is the block site of a superstep-4
+#: server (`generation.superstep`; the k=1 path's `generation.step` never
+#: fires there).
+FLEET = dict(replicas=3, kill_block=12, dispatch_every=5, failover_budget=6,
+             memory_slack=0.10, arms=("single", "fleet", "fleet", "single"),
+             http=("/fleet", "/health", "/generation", "/metrics",
+                   "/events", "/incidents", "/requests", "/executables"))
+
+
+def _fleet_factory(cfg, params, cache_dir, builds):
+    """The replicas' factory, which is also the supervisor's replacement
+    builder. Each build notes, in `builds`, the allocated bytes when it was
+    built and its warm-up's window and counts."""
+    def factory(i):
+        rec = {"index": i, "built": time.perf_counter(),
+               "allocated_at_build": torch.cuda.memory_allocated()}
+        srv = GenerationServer(BertDecoder(cfg, params),
+                               exec_cache_dir=cache_dir,
+                               max_consecutive_failures=0, **SERVER)
+        warm = srv.warmup
+
+        def warmup():
+            rec["t0"] = time.perf_counter()
+            out = warm()
+            rec["t1"] = time.perf_counter()
+            rec.update({k: out[k] for k in ("compiled", "from_disk",
+                                            "captures", "executables")},
+                       seconds=rec["t1"] - rec["t0"])
+            return out
+
+        srv.warmup = warmup
+        builds.append(rec)
+        return srv
+    return factory
+
+
+def _http(port, path):
+    """GET a UIServer route: (status, parsed body)."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=30) as r:
+            code, body, ctype = r.status, r.read(), r.headers["Content-Type"]
+    except urllib.error.HTTPError as e:
+        code, body, ctype = e.code, e.read(), e.headers["Content-Type"]
+    if ctype.startswith("application/json"):
+        return code, json.loads(body)
+    return code, body.decode()
+
+
+def _fleet_single(cfg, params, cache_dir, reqs):
+    """One bare server over the workload: the streams the fleet must give."""
+    srv = GenerationServer(BertDecoder(cfg, params), exec_cache_dir=cache_dir,
+                           **SERVER)
+    try:
+        srv.warmup()
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        hs = [srv.submit(**r) for r in reqs]
+        out = [h.result(timeout=600) for h in hs]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        srv.shutdown()
+    _fault_free(srv.status(), "fleet: single server")
+    ntok = sum(len(x) for x in out)
+    return out, {"arm": "single", "tokens": ntok, "wall_s": wall,
+                 "tokens_per_s": ntok / wall, "launches": _counts()}
+
+
+def _fleet_run(cfg, params, cache_dir, reqs, what, plan=None,
+               monitoring=False, during=None, after=None, **router_kw):
+    """Build and warm a fleet, then submit `reqs` in order (each token
+    stamped) with `plan` installed, and wait for every request, which
+    resolves to its stream or its exception. `during(router)` runs while
+    the requests are in flight, `after(router)` once they are done, before
+    the shutdown. Returns the run and the streams."""
+    from deeplearning4j_tpu_torch.generation import FleetRouter
+    builds = []
+    router = FleetRouter(factory=_fleet_factory(cfg, params, cache_dir,
+                                                builds),
+                         num_replicas=FLEET["replicas"], **router_kw)
+    mon.disable()
+    ev.reset()
+    stamps, faulted = [], []
+    run = {"fleet": what}
+    try:
+        router.warmup()
+        torch.cuda.synchronize()
+        first = len(builds)
+        if monitoring:
+            mon.enable()
+        _reset_counts()
+        gc.collect()                # servers of earlier runs hold cycles
+        run["allocated_before"] = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        if plan is not None:
+            faults.install_plan(plan)
+        try:
+            hs = [router.submit(**r, on_token=lambda tok, i=i: stamps.append(
+                (time.perf_counter(), i))) for i, r in enumerate(reqs)]
+            if during is not None:
+                run["during"] = during(router)
+            out = []
+            for h in hs:
+                try:
+                    out.append(h.result(timeout=600))
+                except Exception as e:  # noqa: BLE001 — gated by callers
+                    out.append(e)
+            wall = time.perf_counter() - t0
+            # a reviver may still be at work: no device-wide synchronize
+            # while a replacement captures
+            while any(r.reviving for r in router._replicas):
+                time.sleep(0.01)
+            torch.cuda.synchronize()
+            if after is not None:
+                run["after"] = after(router)
+        finally:
+            faults.clear_plan()
+        gc.collect()
+        torch.cuda.synchronize()
+        run["allocated_after"] = torch.cuda.memory_allocated()
+        st = router.status()
+        stores = [dict(r.server._store.stats) for r in router._replicas]
+        events = ev.snapshot(last=None)["events"]
+        incidents = ev.incidents()
+        state = router.fleet_state()
+    finally:
+        mon.disable()
+        router.shutdown()
+    servers = [r.server.status() for r in router._replicas]
+    del router
+    gc.collect()
+    ntok = sum(len(x) for x in out if isinstance(x, list))
+    run.update(
+        tokens=ntok, wall_s=wall, tokens_per_s=ntok / wall,
+        launches=_counts(), routed=[r["routed"] for r in st["replicas"]],
+        healths=[r["health"] for r in st["replicas"]],
+        state=state["state"], stores=stores, servers=servers,
+        replacement_builds=builds[first:], handles=hs, stamps=stamps,
+        events=events, incidents=incidents,
+        fired=None if plan is None else dict(plan.fired),
+        **{k: st[k] for k in ("submitted", "completed", "failed",
+                              "failovers", "shed", "replacements")})
+    log(f"[fleet] {what}: {ntok} tokens in {wall:.3f} s = "
+        f"{ntok / wall:.1f} tokens/s; routed {run['routed']}; failovers "
+        f"{run['failovers']}, replacements {run['replacements']}, failed "
+        f"{run['failed']}, shed {run['shed']}; state {run['state']}; "
+        f"launches flash_fwd {run['launches']['flash_fwd']} flash_decode "
+        f"{run['launches']['flash_decode']}"
+        + (f"; fired {run['fired']}" if plan is not None else ""))
+    return run, out
+
+
+def _fleet_streams(what, got, want):
+    bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+    if bad or len(got) != len(want):
+        raise AssertionError(f"fleet: {what}: requests {bad} differ from "
+                             f"the single server's ({got[bad[0]]!r})")
+
+
+def _fleet_stores_clean(run, what):
+    """No replica captured live, ran a key eagerly or degraded one after its
+    warm-up, and every one replays graphs."""
+    bad = [s for s in run["stores"] if s["live_captures"]
+           or s["eager_calls"] or s["degradations"] or not s["replays"]]
+    if bad:
+        raise AssertionError(f"fleet: {what}: a store moved after its "
+                             f"warm-up: {bad}")
+
+
+def _fleet_probe(port):
+    """During the fault-free run: every route answers 200 with a body that
+    parses; /fleet lists three replicas and /health the fleet serving."""
+    out = {}
+    for path in FLEET["http"]:
+        code, body = _http(port, path)
+        if code != 200 or (path != "/metrics" and not isinstance(body,
+                                                                  dict)):
+            raise AssertionError(f"fleet: GET {path} answered {code}")
+        out[path] = code
+    routers = _http(port, "/fleet")[1]["routers"]
+    health = _http(port, "/health")[1]
+    if not any(len(r["replicas"]) == FLEET["replicas"] for r in routers) \
+            or health["status"] != "ok" \
+            or not any(f["state"] == "serving" for f in health["fleet"]):
+        raise AssertionError(f"fleet: /fleet {routers} /health {health}")
+    return out
+
+
+def _fleet_kill(cfg, params, cache_dir, reqs, want):
+    """A replica killed mid-stream: its requests fail over, the supervisor
+    replaces it from the manifest while the survivors serve, and the dead
+    server's memory is released."""
+    fault_t = []
+    plan = faults.FaultPlan(seed=21).fail_at(
+        faults.GENERATION_SUPERSTEP, FLEET["kill_block"],
+        exc=_stamped(faults._default_exc, fault_t))
+    run, out = _fleet_run(cfg, params, cache_dir, reqs, "replica killed",
+                          plan=plan, monitoring=True)
+    _fleet_streams("replica killed", out, want)
+    if run["fired"] != {faults.GENERATION_SUPERSTEP: 1} \
+            or run["failovers"] < 1 or run["replacements"] != 1 \
+            or run["failed"] or run["shed"] or run["state"] != "serving":
+        raise AssertionError(f"fleet: replica killed: {run['fired']}, "
+                             f"{run['failovers']} failovers, "
+                             f"{run['replacements']} replacements, "
+                             f"{run['failed']} failed, state {run['state']}")
+    _fleet_stores_clean(run, "replica killed")
+    (rep,) = run["replacement_builds"]
+    if rep["compiled"] != 0 or rep["from_disk"] != rep["executables"] \
+            or not rep["from_disk"]:
+        raise AssertionError(f"fleet: the replacement did not warm from the "
+                             f"manifest: {rep}")
+    inc = [i for i in run["incidents"]["recent"] + run["incidents"]["open"]
+           if ev.REPLICA_REPLACED in i["kinds"]]
+    kinds = inc[0]["kinds"] if inc else []
+    if not inc or inc[0]["state"] != "resolved" or not (
+            kinds.index(ev.REPLICA_UNHEALTHY) < kinds.index(ev.REPLICA_DRAINED)
+            < kinds.index(ev.REPLICA_REPLACED)):
+        raise AssertionError(f"fleet: replica killed: incident {inc}")
+    before, after = run["allocated_before"], run["allocated_after"]
+    if after > before * (1 + FLEET["memory_slack"]):
+        raise AssertionError(f"fleet: the dead replica's memory was not "
+                             f"released: {before} bytes before the kill, "
+                             f"{after} after the replacement")
+    # each failover names its request and the tokens it had delivered:
+    # the next token is the first of the continuation on another replica
+    t_fault = fault_t[0][0]
+    index = {h.trace_id: i for i, h in enumerate(run["handles"])}
+    moved, next_ms = [], []
+    for e in run["events"]:
+        if e["kind"] != ev.REQUEST_FAILOVER:
+            continue
+        i, g = index[e["attrs"]["request"]], e["attrs"]["delivered"]
+        times = [t for t, j in run["stamps"] if j == i]
+        moved.append(i)
+        next_ms.append((times[g] - t_fault) * 1e3)
+    if len(moved) != run["failovers"]:
+        raise AssertionError(f"fleet: replica killed: {len(moved)} "
+                             f"failover events for {run['failovers']} "
+                             f"failovers")
+    window = rep["t1"] - rep["t0"]
+    during = sum(1 for t, _ in run["stamps"] if rep["t0"] <= t <= rep["t1"])
+    run.update(failed_over=moved, fault_to_next_token_ms=next_ms,
+               replacement_warmup_s=window,
+               survivor_tokens_per_s_during_warmup=during / window,
+               allocated_at_replacement=rep["allocated_at_build"],
+               incident=kinds)
+    log(f"[fleet] replica killed: streams equal the single server's; "
+        f"{len(moved)} requests failed over; fault -> their next token "
+        f"{min(next_ms):.1f}-{max(next_ms):.1f} ms; the replacement warmed "
+        f"in {window:.3f} s (compiled {rep['compiled']}, from_disk "
+        f"{rep['from_disk']}), survivors {during} tokens in that window = "
+        f"{during / window:.1f} tokens/s; allocated bytes before the kill "
+        f"{before}, at the replacement's build {rep['allocated_at_build']},"
+        f" after it {after}; incident {' -> '.join(kinds)}")
+    return run
+
+
+def _fleet_restart_fault(cfg, params, cache_dir, reqs, want, port):
+    """A replacement that itself fails: the slot stays dead, the fleet
+    serves on degraded; FleetDeadError only once no live replica remains."""
+    from deeplearning4j_tpu_torch.resilience.errors import FleetDeadError
+    plan = (faults.FaultPlan(seed=23)
+            .fail_at(faults.GENERATION_SUPERSTEP, FLEET["kill_block"])
+            .every(faults.REPLICA_RESTART, 1))
+
+    def after(router):
+        healths = sorted(r.health(router._clock()) for r in router._replicas)
+        code, health = _http(port, "/health")
+        fleet = [f for f in health["fleet"] if f["state"] != "serving"]
+        seen = {"healths": healths, "health": code,
+                "status": health["status"],
+                "fleet": fleet[0]["state"] if fleet else None}
+        live = [r for r in router._replicas if r.server._dead is None
+                and not r.server._shutdown]
+        for r in live[:-1]:
+            r.server._die(RuntimeError("chip_smoke: survivor killed"))
+            router.submit(**{**reqs[0], "max_new_tokens": 4}).result(
+                timeout=60)
+            if router._dead is not None:
+                raise AssertionError("fleet: latched with a live replica")
+        live[-1].server._die(RuntimeError("chip_smoke: last replica killed"))
+        try:
+            router.submit(**{**reqs[0], "max_new_tokens": 4}).result(
+                timeout=60)
+            seen["latched"] = None
+        except FleetDeadError as e:
+            seen["latched"] = type(e).__name__
+        code, health = _http(port, "/health")
+        seen.update(dead_health=code, dead_status=health["status"])
+        return seen
+
+    run, out = _fleet_run(cfg, params, cache_dir, reqs, "restart fault",
+                          plan=plan, after=after)
+    _fleet_streams("restart fault", out, want)
+    seen = run["after"]
+    if run["replacements"] or run["fired"].get(faults.REPLICA_RESTART, 0) < 1 \
+            or seen["healths"] != ["dead", "healthy", "healthy"] \
+            or seen["health"] != 200 or seen["status"] != "degraded" \
+            or seen["fleet"] != "degraded" \
+            or seen["latched"] != "FleetDeadError" \
+            or seen["dead_health"] != 503 \
+            or seen["dead_status"] != "serving_dead":
+        raise AssertionError(f"fleet: restart fault: {run['fired']}, "
+                             f"{run['replacements']} replacements, {seen}")
+    log(f"[fleet] restart fault: the slot stayed dead, streams equal; "
+        f"/health {seen['health']} {seen['status']} (fleet "
+        f"{seen['fleet']}); with every replica dead: {seen['latched']}, "
+        f"/health {seen['dead_health']} {seen['dead_status']}")
+    return run
+
+
+def phase_fleet(cfg, params):
+    """Three replicas behind a FleetRouter: streams equal one bare server's
+    fault-free, under a replica killed mid-stream, under dispatch faults
+    and under a failed replacement; the UIServer's routes answer."""
+    from deeplearning4j_tpu_torch.ui import UIServer
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()    # earlier phases' cached blocks
+    reqs = _requests(cfg) * 2
+    cache_dir = OUT_DIR / "fleet-exec"
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    cache_dir = str(cache_dir)
+    ui = UIServer().start(port=0)
+    try:
+        arms, want = [], None
+        for i, arm in enumerate(FLEET["arms"]):
+            if arm == "single":
+                out, run = _fleet_single(cfg, params, cache_dir, reqs)
+            else:
+                probe = ((lambda router: _fleet_probe(ui.port))
+                         if i == 1 else None)
+                run, out = _fleet_run(cfg, params, cache_dir, reqs,
+                                      f"fault-free #{i}", during=probe)
+                for k, st in enumerate(run["servers"]):
+                    _fault_free(st, f"fleet: fault-free replica r{k}")
+                if run["failed"] or run["shed"] or run["failovers"] \
+                        or min(run["routed"]) < 1:
+                    raise AssertionError(f"fleet: fault-free run: {run}")
+                _fleet_stores_clean(run, "fault-free")
+            if want is None:
+                want = out
+            _fleet_streams(f"{arm} arm {i}", out, want)
+            arms.append(run)
+        tps = {a: [r["tokens_per_s"] for r in arms if r.get("arm", "fleet")
+                   == a] for a in ("single", "fleet")}
+        ratio = float(np.median(tps["fleet"]) / np.median(tps["single"]))
+        log(f"[fleet] tokens/s in turns single, fleet, fleet, single: "
+            f"single {tps['single']}, fleet {tps['fleet']}; median fleet / "
+            f"median single {ratio:.4f}; routed per replica "
+            f"{[r['routed'] for r in arms if 'routed' in r]}")
+        kill = _fleet_kill(cfg, params, cache_dir, reqs, want)
+        plan = faults.FaultPlan(seed=22).every(faults.ROUTER_DISPATCH,
+                                               FLEET["dispatch_every"])
+        chaos, out = _fleet_run(cfg, params, cache_dir, reqs,
+                                "dispatch chaos", plan=plan,
+                                failover_budget=FLEET["failover_budget"])
+        _fleet_streams("dispatch chaos", out, want)
+        fired = chaos["fired"].get(faults.ROUTER_DISPATCH, 0)
+        if not fired or chaos["failovers"] < fired or chaos["failed"]:
+            raise AssertionError(f"fleet: dispatch chaos: {fired} faults, "
+                                 f"{chaos['failovers']} failovers, "
+                                 f"{chaos['failed']} failed")
+        restart = _fleet_restart_fault(cfg, params, cache_dir, reqs, want,
+                                       ui.port)
+    finally:
+        ui.stop()
+    runs = arms + [kill, chaos, restart]
+    launches = {k: sum(r["launches"][k] for r in runs)
+                for k in ("flash_fwd", "flash_decode")}
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"fleet: kernels never launched: {missing}")
+    seconds = time.perf_counter() - t_phase
+    log(f"[fleet] launches over the phase {launches}; the phase "
+        f"{seconds:.1f} s")
+    drop = ("handles", "stamps", "events", "servers")
+    for r in runs:
+        for k in drop:
+            r.pop(k, None)
+    return {"arms": arms, "tokens_per_s": tps, "fleet_over_single": ratio,
+            "kill": kill, "dispatch_chaos": chaos, "restart_fault": restart,
+            "launches": launches, "seconds": seconds}
+
+
+# -- phase 13 (--profile) -----------------------------------------------------
 #: kernel-name substrings -> the part of a step they belong to
 KERNEL_GROUPS = (("flash_fwd_kernel", "flash_fwd"),
                  ("flash_decode_kernel", "flash_decode"),
@@ -3069,12 +3491,13 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only",
                     choices=["kernels", "resnet", "graphs", "paged",
-                             "chaos"],
+                             "chaos", "fleet"],
                     default=None,
                     help="stop after the kernel checks, or run the resnet "
                          "serving and training phases right after them, or "
-                         "run the graphs, the paged or the chaos phase "
-                         "alone after the build (bring-up runs)")
+                         "run the graphs, the paged, the chaos or the "
+                         "fleet phase alone after the build (bring-up "
+                         "runs)")
     ap.add_argument("--profile", action="store_true",
                     help="after the resnet phases, profile the serving "
                          "workload, three fine-tune steps, one ResNet-50 "
@@ -3107,11 +3530,12 @@ def main(argv=None):
         log(f"[smoke] by phase " + ", ".join(
             f"{k} {v:.1f}" for k, v in seconds.items()))
         return 0
-    if args.only == "chaos":
+    if args.only in ("chaos", "fleet"):
         cfg = bert_base()
-        out = timed("chaos", phase_chaos, cfg, init_bert_params(cfg, 0))
-        (OUT_DIR / "smoke_chaos.json").write_text(json.dumps(
-            {"card": card, "chaos": out, "phase_seconds": seconds},
+        phase = phase_chaos if args.only == "chaos" else phase_fleet
+        out = timed(args.only, phase, cfg, init_bert_params(cfg, 0))
+        (OUT_DIR / f"smoke_{args.only}.json").write_text(json.dumps(
+            {"card": card, args.only: out, "phase_seconds": seconds},
             indent=1, default=str))
         log(f"[smoke] by phase " + ", ".join(
             f"{k} {v:.1f}" for k, v in seconds.items()))
@@ -3149,6 +3573,7 @@ def main(argv=None):
     graphs = timed("graphs", phase_graphs, cfg, params)
     paged = timed("paged", phase_paged, cfg, params)
     chaos = timed("chaos", phase_chaos, cfg, params)
+    fleet = timed("fleet", phase_fleet, cfg, params)
     prof = (timed("profile", phase_profile, cfg, params, resnet_net,
                   resnet_x, train_net, train_ds) if args.profile else None)
     # each kernel's launches from the path that carries it: the forward and
@@ -3186,7 +3611,8 @@ def main(argv=None):
          "encoder": encoder,
          "serving": serving, "train": train,
          "resnet": resnet, "resnet_train": resnet_train, "graphs": graphs,
-         "paged": paged, "chaos": chaos, "profile": prof, "line": line,
+         "paged": paged, "chaos": chaos, "fleet": fleet, "profile": prof,
+         "line": line,
          "phase_seconds": seconds, "seconds": time.perf_counter() - t0},
         indent=1, default=str))
     log(f"[smoke] {time.perf_counter() - t0:.1f} s; by phase "

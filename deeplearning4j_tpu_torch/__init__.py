@@ -13,9 +13,12 @@ with the flash attention kernels (`kernels/`), KV-cache serving through
 ResNet-50 inference through the `nn/` builder DSL, `ComputationGraph`
 and `parallel.inference.ParallelInference`, with the conv1x1+BN epilogue
 GEMM and the fused bottleneck block; ResNet-50 training through
-`ComputationGraph.fit`; and the executable store (`runtime/`), which
+`ComputationGraph.fit`; the executable store (`runtime/`), which
 replays the decode block, the training step and the inference buckets as
-CUDA graphs on the card.
+CUDA graphs on the card; paged and int8 KV serving with drafting;
+serving survivability (`resilience/`, `monitoring/`); the
+`generation.FleetRouter` over server replicas, with the `ui.UIServer`
+operations endpoints; and the port's lints (`lint/`).
 """
 from deeplearning4j_tpu_torch.device import resolve
 

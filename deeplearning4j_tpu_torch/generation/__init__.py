@@ -8,18 +8,34 @@ continuous-batching admission.
   explicit per-slot threefry keys, bit-compatible with the JAX package.
 - `server`   — `GenerationServer`: fixed-size decode batches, cache rungs,
   decode supersteps, per-slot admission/retirement, streaming callbacks.
+- `fleet`    — `FleetRouter`: health-driven routing across N server
+  replicas, mid-stream failover through `adopt`, replica supervision.
 
 Quick start:
 
     from deeplearning4j_tpu_torch.generation import (BertDecoder,
+                                                     FleetRouter,
                                                      GenerationServer)
     from deeplearning4j_tpu_torch.models import bert_base, init_bert_params
     cfg = bert_base()
-    srv = GenerationServer(BertDecoder(cfg, init_bert_params(cfg)),
+    params = init_bert_params(cfg)
+    srv = GenerationServer(BertDecoder(cfg, params),
                            slots=8, cache_lengths=[128, 512])
     tokens = srv.generate(prompt_ids, max_new_tokens=32)
+
+    # three replicas over one parameter set and one manifest directory;
+    # the factory also builds the supervisor's replacements
+    router = FleetRouter(
+        factory=lambda i: GenerationServer(
+            BertDecoder(cfg, params), slots=8, cache_lengths=[128, 512],
+            exec_cache_dir="exec-cache"),
+        num_replicas=3)
+    router.warmup()
+    tokens = router.generate(prompt_ids, max_new_tokens=32)
 """
 from deeplearning4j_tpu_torch.generation.decode import BertDecoder
+from deeplearning4j_tpu_torch.generation.fleet import (FleetRequest,
+                                                       FleetRouter)
 from deeplearning4j_tpu_torch.generation.sampling import (GREEDY, SAMPLE,
                                                           method_id,
                                                           sample_step,
@@ -28,5 +44,6 @@ from deeplearning4j_tpu_torch.generation.server import (GenerationRequest,
                                                         GenerationServer,
                                                         status)
 
-__all__ = ["BertDecoder", "GREEDY", "SAMPLE", "method_id", "sample_step",
-           "split_keys", "GenerationRequest", "GenerationServer", "status"]
+__all__ = ["BertDecoder", "FleetRequest", "FleetRouter", "GREEDY", "SAMPLE",
+           "method_id", "sample_step", "split_keys", "GenerationRequest",
+           "GenerationServer", "status"]

@@ -62,7 +62,9 @@ knobs and write-redirect row, the retired slot, the copied pages) enter
 static inputs through a `StagingRing`. `exec_cache_dir` keeps the store's
 manifest of keys on disk; `cuda_graphs=False` runs the same functions
 eagerly on the card (the reference the graphs are held to). On the CPU
-they always run eagerly.
+they always run eagerly. On the card the decode loop launches on the
+server's own stream, so replicas that share a card (a `FleetRouter`)
+overlap there, and one can capture while the others replay.
 
 Each request's rng key is a pure function of (server seed, admission
 order) (`_admit_key`, the JAX package's derivation), and sampling follows
@@ -452,6 +454,7 @@ class GenerationServer:
         self._consecutive_failures = 0   # incidents without a delivery
         self._warm = False
         self._thread = None
+        self._stream = None          # the decode loop's stream on the card
         self._corr = "genserver-%x" % id(self)   # ops-event incident key
         _SERVERS.add(self)
 
@@ -484,6 +487,7 @@ class GenerationServer:
                     [torch.empty((self._block_depth, self.slots),
                                  dtype=torch.int64, pin_memory=True), None]
                     for _ in range(2)]
+                self._stream = torch.cuda.Stream(self.device)
             self._margs = tuple(self.decoder.model_args())
             s, dev, rungs = self.slots, self.device, self.cache_lengths
             paged = self._pages is not None
@@ -554,7 +558,10 @@ class GenerationServer:
             self._reset_state()
             self._rung = rungs[0]
             self._warm = True
-            self._thread = threading.Thread(target=self._loop, daemon=True)
+            if self._stream is not None:
+                # the loop's first work follows the warm-up's state reset
+                self._stream.wait_stream(torch.cuda.current_stream(dev))
+            self._thread = threading.Thread(target=self._run, daemon=True)
             self._thread.start()
             stats.update(nvcc_runs=stats["nvcc_runs"] + nvcc,
                          seconds=time.perf_counter() - t0,
@@ -801,6 +808,16 @@ class GenerationServer:
         return req
 
     # -- decode loop ------------------------------------------------------
+    def _run(self):
+        """The decode thread. On the card every launch of the loop (graph
+        replays, staging copies, token fetches, recovery) goes to the
+        server's own stream, so servers sharing a card overlap there."""
+        if self._stream is None:
+            self._loop()
+            return
+        with torch.cuda.stream(self._stream):
+            self._loop()
+
     def _loop(self):
         while not self._shutdown:
             try:
@@ -1718,6 +1735,10 @@ class GenerationServer:
         self._work.set()
         if self._thread is not None:
             self._thread.join(timeout=5)
+        if self._stream is not None:
+            # the state was allocated on the warm-up's stream: nothing may
+            # reuse it while the loop's last launches still run
+            self._stream.synchronize()
         err = RuntimeError("GenerationServer shut down")
         with self._lock:
             self._fail_open_requests(err)

@@ -11,9 +11,18 @@ in this process (a warm `build/kernels/` starts none).
 Every C entry point launches on the stream it is given, allocates
 nothing, and returns `cudaGetLastError()`; `check` turns a non-zero code
 into an exception.
+
+Launch counts: each wrapper counts its launches on `<wrapper>.launches`
+through `count_launch`, under one lock (several server threads replay at
+once). While a CUDA graph is captured (`capture_tally`, one capture at a
+time), a launch onto a capturing stream counts on the capture's tally
+instead: a capture launches nothing. That is decided by the stream, not
+the thread: autograd runs a captured backward on a thread of its own,
+and other threads' launches meanwhile stay on the counters.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -22,6 +31,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -114,6 +125,37 @@ def library(name):
             _finish(name, out, job)
             _libs[name] = ctypes.CDLL(str(out))
         return _libs[name]
+
+
+_count_lock = threading.Lock()
+_tally = None        # the capture in progress's {wrapper: launches}
+
+
+def count_launch(wrapper, n=1):
+    """Count `n` launches of `wrapper`'s kernel: on the capture's tally
+    when the calling thread's stream is capturing, else on
+    `wrapper.launches`."""
+    with _count_lock:
+        if _tally is not None and torch.cuda.is_current_stream_capturing():
+            _tally[wrapper] = _tally.get(wrapper, 0) + n
+        else:
+            wrapper.launches += n
+
+
+@contextlib.contextmanager
+def capture_tally():
+    """For the span of one graph capture, count the launches made onto a
+    capturing stream into a fresh {wrapper: n} (yielded). Captures do not
+    overlap (the executable store holds its capture lock)."""
+    global _tally
+    with _count_lock:
+        _tally = {}
+        tally = _tally
+    try:
+        yield tally
+    finally:
+        with _count_lock:
+            _tally = None
 
 
 def check(code, what):

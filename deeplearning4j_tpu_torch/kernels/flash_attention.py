@@ -190,7 +190,7 @@ def flash_fwd(q, k, v, kv_mask=None, causal=False):
         lse.data_ptr(), _DTYPE_CODES[q.dtype], b * h, h, tq, tk, d,
         int(causal), 1.0 / d ** 0.5, q.device.index or 0, _stream(q.device))
     _build.check(code, "flash_fwd")
-    flash_fwd.launches += 1
+    _build.count_launch(flash_fwd)
     return out, lse
 
 
@@ -320,7 +320,7 @@ def flash_bwd_dq(q, k, v, g, lse, delta, kv_mask=None, causal=False):
         *ptrs, dq.data_ptr(), *ints, int(causal), 1.0 / d ** 0.5,
         q.device.index or 0, _stream(q.device))
     _build.check(code, "flash_bwd_dq")
-    flash_bwd_dq.launches += 1
+    _build.count_launch(flash_bwd_dq)
     return dq
 
 
@@ -343,7 +343,7 @@ def flash_bwd_dkv(q, k, v, g, lse, delta, kv_mask=None, causal=False):
         *ptrs, dk.data_ptr(), dv.data_ptr(), *ints, int(causal),
         1.0 / d ** 0.5, q.device.index or 0, _stream(q.device))
     _build.check(code, "flash_bwd_dkv")
-    flash_bwd_dkv.launches += 1
+    _build.count_launch(flash_bwd_dkv)
     return dk, dv
 
 
@@ -465,7 +465,7 @@ def flash_decode(q, k_cache, v_cache, cache_mask):
         out.data_ptr(), _DTYPE_CODES[q.dtype], b * h, h, c, d,
         1.0 / d ** 0.5, q.device.index or 0, _stream(q.device))
     _build.check(code, "flash_decode")
-    flash_decode.launches += 1
+    _build.count_launch(flash_decode)
     return out
 
 

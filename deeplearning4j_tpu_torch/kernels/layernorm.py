@@ -83,7 +83,7 @@ def _launch(x2, gamma, beta, eps):
         float(eps), x2.device.index or 0,
         ctypes.c_void_p(torch.cuda.current_stream(x2.device).cuda_stream))
     _build.check(code, "fused_layernorm")
-    fused_layernorm.launches += 1
+    _build.count_launch(fused_layernorm)
     return out, mean, rstd
 
 

@@ -165,7 +165,7 @@ def matmul_epilogue(x, w, scale, shift, residual=None, act="identity",
                                    out_dtype)
     out = _launch("matmul_epilogue", x, w, scale, shift, residual, act,
                   out_dtype, (torch.float32, torch.bfloat16))
-    matmul_epilogue.launches += 1
+    _build.count_launch(matmul_epilogue)
     return out
 
 
@@ -191,7 +191,7 @@ def int8_matmul_epilogue(xq, wq, scale, shift, residual=None,
                          f"{_INT8_MAX_K}: the int32 sums could overflow")
     out = _launch("int8_matmul_epilogue", xq, wq, scale, shift, residual,
                   act, out_dtype, (torch.int8,))
-    int8_matmul_epilogue.launches += 1
+    _build.count_launch(int8_matmul_epilogue)
     return out
 
 
@@ -303,7 +303,7 @@ def matmul_stats(x, w):
         stats.data_ptr(), _FLOAT_CODES[x.dtype], m, k, n,
         x.device.index or 0, _stream(x))
     _build.check(code, "matmul_stats")
-    matmul_stats.launches += 1
+    _build.count_launch(matmul_stats)
     return y, stats[0], stats[1]
 
 
@@ -343,7 +343,7 @@ def bn_grad_stats(y, dz, mu, r):
         vecs["r"].data_ptr(), part.data_ptr(), out.data_ptr(),
         _FLOAT_CODES[y.dtype], m, n, y.device.index or 0, _stream(y))
     _build.check(code, "bn_grad_stats")
-    bn_grad_stats.launches += 1
+    _build.count_launch(bn_grad_stats)
     return out[0], out[1]
 
 
@@ -400,7 +400,7 @@ def bn_conv_grads(x, y, dz, w, k1, k2, c, mu):
         dx.data_ptr(), dw.data_ptr(), part.data_ptr(),
         _FLOAT_CODES[x.dtype], m, k, n, x.device.index or 0, _stream(x))
     _build.check(code, "bn_conv_grads")
-    bn_conv_grads.launches += 1
+    _build.count_launch(bn_conv_grads)
     return dx, dw
 
 

@@ -136,7 +136,7 @@ def bottleneck_block(x, w1, b1, w2, b2, w3, b3, block_b=8):
         _DTYPE_CODES[x.dtype], b, h, w, c, m, x.device.index or 0,
         ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
     _build.check(code, "bottleneck_block")
-    bottleneck_block.launches += 1
+    _build.count_launch(bottleneck_block)
     return y
 
 

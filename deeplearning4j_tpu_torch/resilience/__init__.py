@@ -14,8 +14,9 @@ Pieces:
 
 The training half (`guardian`, `watchdog`, `integrity`, `trainer`)
 comes with ROADMAP A14; until then, and until the multi-host
-coordinator (A15) and the fleet router (A9), their sections of
-`health_snapshot()` report None.
+coordinator (A15), their sections of `health_snapshot()` report None.
+The serving and fleet sections read `generation/server.py` and
+`generation/fleet.py`.
 """
 from __future__ import annotations
 
@@ -59,11 +60,12 @@ __all__ = [
 
 def health_snapshot():
     """The `GET /health` payload: overall status plus the serving
-    (GenerationServer) and SLO-tracker snapshots, with the guardian,
-    watchdog, distributed and fleet sections None until their slices
-    land. Status ladder as in the JAX package: a dead serving loop makes
-    the process `serving_dead`; a serving memory-pressure degradation or
-    an SLO breach reports `degraded`."""
+    (GenerationServer), fleet (FleetRouter) and SLO-tracker snapshots,
+    with the guardian, watchdog and distributed sections None until their
+    slices land. Status ladder as in the JAX package: a dead serving loop
+    or a fleet latched dead makes the process `serving_dead`; a serving
+    memory-pressure degradation, a fleet with a replica out of the
+    healthy pool, or an SLO breach reports `degraded`."""
     import sys
     # serving states come from sys.modules, never a fresh import: a
     # health tick must not pull the server (and torch's CUDA) in
@@ -74,6 +76,15 @@ def health_snapshot():
             ssnap = [s.serving_state() for s in list(_gen._SERVERS)]
         except Exception:  # noqa: BLE001 — health must always answer
             ssnap = None
+    # fleet routers: each router's replica healths and autoscale signal,
+    # from sys.modules for the same reason
+    fsnap = None
+    _fl = sys.modules.get("deeplearning4j_tpu_torch.generation.fleet")
+    if _fl is not None:
+        try:
+            fsnap = [r.fleet_state() for r in list(_fl._ROUTERS)]
+        except Exception:  # noqa: BLE001 — health must always answer
+            fsnap = None
     slosnap = None
     _slo = sys.modules.get("deeplearning4j_tpu_torch.monitoring.slo")
     if _slo is not None and _slo.ACTIVE is not None:
@@ -84,10 +95,14 @@ def health_snapshot():
     status = "ok"
     if ssnap and any(s["state"] == "degraded" for s in ssnap):
         status = "degraded"
+    if fsnap and any(f["state"] == "degraded" for f in fsnap):
+        status = "degraded"
     if slosnap is not None and slosnap.get("violated"):
         status = "degraded"
     if ssnap and any(s["state"] == "dead" for s in ssnap):
         status = "serving_dead"
+    if fsnap and any(f["state"] == "dead" for f in fsnap):
+        status = "serving_dead"
     return {"status": status, "guardian": None, "watchdog": None,
-            "distributed": None, "serving": ssnap, "fleet": None,
+            "distributed": None, "serving": ssnap, "fleet": fsnap,
             "slo": slosnap}

@@ -29,9 +29,33 @@ step or a forward.
   contract).
 
 Launch accounting: the kernel wrappers count `<wrapper>.launches` in
-Python, and a replay runs no Python. So the store takes each capture's
-launches back off the counters (a capture launches nothing) and adds them
-again at every replay.
+Python, and a replay runs no Python. So a capture counts the launches
+made onto its capturing stream on a tally of its own
+(`kernels._build.capture_tally`: a capture launches nothing, and other
+streams' launches meanwhile stay counted), and every replay adds them to
+the counters.
+
+Concurrency: several stores replay at once, each on its own server's
+stream, while another store captures (a fleet replacing a replica on the
+same card). Three rules make that safe:
+
+- A device-wide synchronize, and the allocator's release of cached
+  memory, are invalid while any stream captures, and `torch.cuda.graph`
+  does both before it begins. So captures take one process-wide lock
+  (`_CAPTURE_LOCK`) and never overlap one another; replays take no lock.
+- cuBLAS keys its workspace by (handle, stream), and every capture runs
+  on torch's one default capture stream: left alone, every graph captured
+  from one thread bakes in the same workspace, and graphs of two servers
+  replaying at once on their own streams race on it (on the H100 an
+  illegal memory access within the first concurrent blocks). So each
+  capture first clears cuBLAS's workspaces and allocates a fresh one
+  inside its store's pool: a store's graphs share a workspace only with
+  each other, and they replay one at a time.
+- A server holds reference cycles, so a dead one's stores are freed by
+  the garbage collector, at whatever allocation triggers it; destroying
+  a graph inside a capture is not permitted and invalidates it (seen on
+  the H100 when a collection ran in the middle of a warm-up). So the
+  collector is paused for the span of each capture.
 
 Disk tier: a CUDA graph cannot be serialized. What a cold start costs is
 `nvcc`, whose libraries `build/kernels/` already caches by hash
@@ -58,24 +82,32 @@ the live ones (`rebinds`), so a graph never reads stale weights.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import hashlib
 import json
 import os
 import threading
 import time
+import weakref
 
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.kernels import COUNTED, _build
+from deeplearning4j_tpu_torch.kernels import _build
+from deeplearning4j_tpu_torch.resilience import faults as _faults
 
 __all__ = ["BucketLadder", "ExecutableStore", "FunctionStore",
-           "StagingRing", "device_flavour", "model_fingerprint",
+           "StagingRing", "device_flavour", "model_fingerprint", "status",
            "tensor_leaves", "torch_dtype"]
 
 #: bump to invalidate every manifest on disk at once
 LAYOUT_VERSION = "v1"
 MANIFEST = "manifest.json"
+
+_STORES = weakref.WeakSet()   # live stores, aggregated by status()
+#: one graph capture at a time in this process (see "Concurrency")
+_CAPTURE_LOCK = threading.Lock()
 
 
 # -- identity --------------------------------------------------------------
@@ -290,6 +322,18 @@ def _is_sig(sig):
         for p in sig)
 
 
+@contextlib.contextmanager
+def _gc_paused():
+    """No garbage collection in any thread while the body runs."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
+
+
 class _Entry:
     __slots__ = ("args", "graph", "out", "launches", "source", "generators")
 
@@ -338,6 +382,7 @@ class FunctionStore:
         self._bound = None      # the bindings' addresses at the captures
         self._pool = torch.cuda.graph_pool_handle() if self.capture else None
         self._lock = threading.RLock()
+        _STORES.add(self)
 
     def register(self, name, fn):
         """Declare `fn(*args)`: a function of its static inputs that only
@@ -370,6 +415,11 @@ class FunctionStore:
             if key in self._entries:
                 raise KeyError(f"{key!r} is already in the store")
             fn = self._fns[key[0]]
+            # chaos site: a fault here simulates a store that cannot load
+            # on the miss path (warm-up or a novel signature) — never the
+            # steady state `run`
+            if _faults.ACTIVE is not None:
+                _faults.ACTIVE.fire(_faults.EXECUTABLES_LOAD)
             self._read_manifest()
             disk = _key_text(key) in (self._manifest or {})
             entry = _Entry(tuple(args), "disk" if disk else "compiled")
@@ -415,20 +465,15 @@ class FunctionStore:
         graph = torch.cuda.CUDAGraph()
         for g in entry.generators:
             graph.register_generator_state(g)
-        before = [w.launches for w in COUNTED]
-        try:
+        with _CAPTURE_LOCK, _build.capture_tally() as tally, _gc_paused():
+            # see "Concurrency": the capture allocates its cuBLAS
+            # workspace in this store's pool, used by its graphs alone
+            torch._C._cuda_clearCublasWorkspaces()
             with torch.cuda.graph(graph, pool=self._pool,
                                   capture_error_mode="thread_local"):
                 out = fn(*entry.args)
-        finally:
-            launches = []
-            for w, b in zip(COUNTED, before):
-                n = w.launches - b
-                if n:
-                    w.launches -= n         # a capture launches nothing
-                    launches.append((w, n))
         entry.graph, entry.out = graph, out
-        entry.launches = tuple(launches)
+        entry.launches = tuple(tally.items())
         self.stats["captures"] += 1
 
     def degrade(self, key, reason):
@@ -473,7 +518,7 @@ class FunctionStore:
             return self._fns[key[0]](*entry.args)
         entry.graph.replay()
         for w, n in entry.launches:
-            w.launches += n
+            _build.count_launch(w, n)
         self.stats["replays"] += 1
         return entry.out
 
@@ -566,6 +611,10 @@ class FunctionStore:
         self._manifest = keys
 
     def status(self):
+        with self._lock:
+            return self._status()
+
+    def _status(self):
         return {"kind": self.kind, "fingerprint": self.fingerprint,
                 "flavour": self.flavour, "directory": self.directory,
                 "device": str(self.device), "capture": self.capture,
@@ -621,3 +670,40 @@ class ExecutableStore(FunctionStore):
                  and k[1] not in sigs]
         return super().warmup((("forward", sig), self._inputs(sig))
                               for sig in sigs)
+
+
+def _manifest_tier(directory):
+    """The manifests under one store directory and the keys they list."""
+    manifests = entries = 0
+    root = os.path.join(directory, LAYOUT_VERSION)
+    for base, _, names in os.walk(root):
+        if MANIFEST not in names:
+            continue
+        try:
+            with open(os.path.join(base, MANIFEST)) as f:
+                keys = json.load(f).get("keys")
+        except (OSError, ValueError, AttributeError):
+            continue
+        if isinstance(keys, dict):
+            manifests += 1
+            entries += len(keys)
+    return {"manifests": manifests, "entries": entries}
+
+
+def status():
+    """Aggregate status of every live store (`GET /executables`).
+
+    `persistent_compile_cache` keeps the JAX package's key for the
+    port's counterpart of its persistent compilation cache, the manifest
+    tier: `directories` maps each manifest directory that a live store
+    uses to the manifests under it and the keys they list, and
+    `manifests` / `entries` total them. (A CUDA graph is not serialized;
+    a manifest lists the keys a later store captures at warm-up.)"""
+    stores = list(_STORES)
+    dirs = {d: _manifest_tier(d)
+            for d in sorted({s.directory for s in stores if s.directory})}
+    return {"stores": [s.status() for s in stores],
+            "persistent_compile_cache": {
+                "directories": dirs,
+                "manifests": sum(d["manifests"] for d in dirs.values()),
+                "entries": sum(d["entries"] for d in dirs.values())}}

@@ -326,6 +326,31 @@ def test_cpu_store_runs_the_function_on_its_static_inputs():
         texe.FunctionStore("fp1", "cpu", capture=True)
 
 
+def test_executables_load_fault_hits_the_miss_path_only(tmp_path):
+    """`executables.load` chaos, the JAX package's contract: a fault on
+    the store's miss path (adding a key, at warm-up or live) surfaces
+    typed and adds nothing, clears with the plan, and the steady state
+    `run` never reaches the site; `status()` lists the live store and
+    its manifest tier."""
+    from deeplearning4j_tpu_torch.resilience import faults
+    from deeplearning4j_tpu_torch.resilience.errors import InjectedFault
+    store = texe.FunctionStore("fp-load", "cpu", directory=str(tmp_path))
+    store.register("affine", lambda x: x + 1)
+    x = torch.zeros(2)
+    with faults.FaultPlan(seed=0).fail_at(faults.EXECUTABLES_LOAD, 1):
+        with pytest.raises(InjectedFault):
+            store.warmup([(("affine",), (x,))])
+    assert ("affine",) not in store
+    assert store.warmup([(("affine",), (x,))])["compiled"] == 1
+    with faults.FaultPlan(seed=0).every(faults.EXECUTABLES_LOAD, 1) as plan:
+        assert torch.equal(store.run(("affine",)), x + 1)
+        assert plan.calls(faults.EXECUTABLES_LOAD) == 0
+    st = texe.status()
+    assert any(s["fingerprint"] == "fp-load" for s in st["stores"])
+    tier = st["persistent_compile_cache"]["directories"][str(tmp_path)]
+    assert tier == {"manifests": 1, "entries": 1}
+
+
 def test_executable_store_forward_equals_the_model():
     net = _net()
     store = texe.ExecutableStore(net)

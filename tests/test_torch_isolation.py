@@ -45,6 +45,45 @@ def test_port_sources_import_nothing_of_jax():
     assert not bad, bad
 
 
+#: calls that load a module by name at run time
+_LOOKUPS = ("sys.modules.get", "importlib.import_module", "import_module",
+            "__import__")
+
+
+def _jax_package_lookups(source, where):
+    """`sys.modules.get(...)` / `importlib.import_module(...)` calls whose
+    string literal names a module of the JAX package (and not the port's).
+    Both packages are loaded in the tests, so such a lookup would quietly
+    answer with the JAX package's objects."""
+    bad = []
+    for node in ast.walk(ast.parse(source, where)):
+        if not (isinstance(node, ast.Call)
+                and ast.unparse(node.func) in _LOOKUPS):
+            continue
+        for arg in node.args[:1]:
+            for sub in ast.walk(arg):
+                if (isinstance(sub, ast.Constant)
+                        and isinstance(sub.value, str)
+                        and _forbidden(sub.value)):
+                    bad.append(f"{where}:{node.lineno} {sub.value}")
+    return bad
+
+
+def test_port_sources_look_up_no_module_of_the_jax_package():
+    bad = []
+    for path in PORT_FILES:
+        bad += _jax_package_lookups(path.read_text(),
+                                    str(path.relative_to(REPO)))
+    assert not bad, bad
+    planted = ("import sys, importlib\n"
+               "a = sys.modules.get('deeplearning4j_tpu.generation.fleet')\n"
+               "b = importlib.import_module('deeplearning4j_tpu.ui')\n"
+               "c = sys.modules.get('deeplearning4j_tpu_torch.ui.server')\n"
+               "d = sys.modules.get('deeplearning4j_tpu')\n")
+    assert [b.split()[0] for b in _jax_package_lookups(planted, "x")] \
+        == ["x:2", "x:3", "x:5"]
+
+
 def test_the_runtime_modules_are_among_the_checked_sources():
     """The executable store and the prefetch are port modules like any
     other: the two tests around this one hold them to the same rule."""
@@ -79,6 +118,14 @@ def test_the_survivability_modules_are_among_the_checked_sources():
                    "resilience/__init__", "resilience/faults",
                    "resilience/policy", "util/__init__",
                    "util/crash_reporting"):
+        assert f"deeplearning4j_tpu_torch/{module}.py" in names
+
+
+def test_the_fleet_ui_and_lint_modules_are_among_the_checked_sources():
+    names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
+    for module in ("generation/fleet", "ui/__init__", "ui/server",
+                   "lint/__init__", "lint/_coverage", "lint/fastpath",
+                   "lint/fault_coverage", "lint/event_coverage"):
         assert f"deeplearning4j_tpu_torch/{module}.py" in names
 
 

@@ -403,5 +403,15 @@ def test_health_snapshot_reports_serving_and_none_for_later_slices():
     assert set(snap) == {"status", "guardian", "watchdog", "distributed",
                          "serving", "fleet", "slo"}
     assert snap["status"] in ("ok", "degraded", "serving_dead")
-    for later in ("guardian", "watchdog", "distributed", "fleet"):
+    for later in ("guardian", "watchdog", "distributed"):
         assert snap[later] is None
+    # the fleet section came with the FleetRouter: one compact state per
+    # live router (tests/test_torch_fleet*.py drive it), read from
+    # sys.modules like the serving section
+    import sys
+    if "deeplearning4j_tpu_torch.generation.fleet" in sys.modules:
+        assert isinstance(snap["fleet"], list)
+        assert all(f["state"] in ("serving", "degraded", "dead")
+                   for f in snap["fleet"])
+    else:
+        assert snap["fleet"] is None

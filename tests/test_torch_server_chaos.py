@@ -874,3 +874,55 @@ def test_monitoring_off_leaves_the_registry_untouched(bert):
         assert ev.snapshot(last=None)["emitted"] == 0
     finally:
         srv.shutdown()
+
+
+@pytest.mark.parametrize("case", ["dense ladder", "paged ladder"])
+def test_ladder_and_refusal_events_reach_the_journal(bert, case):
+    """Each ladder step and each refusal emits its ops event, as the JAX
+    server's do: PRESSURE_ESCALATED, SERVER_SHED and CACHE_SHRUNK up the
+    dense ladder, PRESSURE_RELIEVED on the way down, SERVER_REFUSED for a
+    submit to a stopped server; PAGES_EXHAUSTED for an admission the pool
+    cannot hold, PAGES_EVICTED at the paged ladder's eviction level."""
+    mon.enable()
+    ev.reset()
+    if case == "dense ladder":
+        srv = _server(bert, slots=1, pressure_relief_steps=4)
+        plan = (faults.FaultPlan(seed=6)
+                .fail_at(faults.GENERATION_STEP, 2, exc=_oom)
+                .fail_at(faults.GENERATION_STEP, 4, exc=_oom)
+                .fail_at(faults.GENERATION_STEP, 6, exc=_oom))
+        want = {ev.PRESSURE_ESCALATED, ev.SERVER_SHED, ev.CACHE_SHRUNK,
+                ev.PRESSURE_RELIEVED, ev.SERVER_REFUSED}
+    else:
+        srv = _server(bert, paged=True, slots=1, pool_pages=2,
+                      cache_lengths=[32], prompt_buckets=[24])
+        plan = (faults.FaultPlan(seed=8)
+                .fail_at(faults.GENERATION_STEP, 1, exc=_pool_oom)
+                .fail_at(faults.GENERATION_STEP, 2, exc=_pool_oom)
+                .fail_at(faults.GENERATION_STEP, 3, exc=_pool_oom))
+        want = {ev.PAGES_EXHAUSTED, ev.PAGES_EVICTED,
+                ev.PRESSURE_ESCALATED}
+    try:
+        with plan:
+            if case == "dense ladder":
+                reqs = [srv.submit([5, 6, 7, 8, 9, 10, 11],
+                                   max_new_tokens=20),
+                        srv.submit([1, 2], max_new_tokens=4),
+                        srv.submit([3, 4], max_new_tokens=4)]
+            else:
+                reqs = [srv.submit(list(range(1, 18)), max_new_tokens=4),
+                        srv.submit([1, 2], max_new_tokens=12)]
+            for r in reqs:
+                try:
+                    r.result(timeout=60)
+                except (MemoryPressureError, PagePoolExhaustedError):
+                    pass
+        # clean tokens relieve the ladder step by step
+        for _ in range(4):
+            srv.generate([1, 2], max_new_tokens=4, timeout=60)
+    finally:
+        srv.shutdown()
+    with pytest.raises(RuntimeError):
+        srv.submit([1, 2], max_new_tokens=2)
+    kinds = {e["kind"] for e in ev.snapshot(last=None)["events"]}
+    assert want <= kinds, want - kinds
