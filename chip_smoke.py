@@ -8,7 +8,8 @@
     python3 chip_smoke.py --only paged    # card, build, paged
     python3 chip_smoke.py --only chaos    # card, build, chaos
     python3 chip_smoke.py --only fleet    # card, build, fleet
-    python3 chip_smoke.py --profile  # and phase 13
+    python3 chip_smoke.py --only mln      # card, build, mln
+    python3 chip_smoke.py --profile  # and phase 14
 
 Phases, in order; any failure exits non-zero and prints no result:
 
@@ -150,7 +151,34 @@ Phases, in order; any failure exits non-zero and prints no result:
             failed-over request's next token, the replacement's warm-up
             seconds and the survivors' tokens/s meanwhile, allocated
             bytes before the kill, at the replacement's build and after.
-13. profile (only with --profile): the serving workload, one fused B=32
+13. mln:    MultiLayerNetwork on the card. The LeNet MNIST drive
+            (`MnistDataSetIterator(64, num_examples=384)`, Adam(1e-2), 3
+            epochs, graphed and prefetched): `evaluate` accuracy above
+            0.85, one capture and no degradation; `stepsPerDispatch=3`
+            equal to the sequential fit bit for bit. On LeNet in graphs,
+            with cuDNN's deterministic algorithms: a StepSchedule whose
+            boundary falls inside a graphed fit equals the eager fit bit
+            for bit; `gradientAccumulation(4)` (two graphed updates) equals
+            the explicit accumulation loop; a MaxNorm-constrained layer's
+            unit norms hold after every graphed step. VGG16 at full width
+            (224×224×3, 1000 classes, 138,357,544 parameters, the zoo's
+            Nesterovs(1e-2, 0.9), dropout 0.5 on fc6 and fc7), one seeded
+            batch of 32: 3 graphed steps equal 3 eager steps bit for bit
+            (parameters, optimizer and BN state, loss; deterministic
+            cuDNN) with one capture, 2 replays and no degradation or eager
+            call (dropout inside the graph); then eager, graph, graph,
+            eager arms of 10 timed `fit` steps after 2 warm-up steps
+            (ms/step, images/s, peak allocated bytes). Served: one B=32
+            `output()` timed, and phase 7's 96 images from 8 threads
+            through `ParallelInference` with `bucketLadder([1, 2, 4, 8,
+            16, 32])` (images/s; every answer equal to `output()` of the
+            same rows to 1e-4 of the largest; no capture after warmup).
+            VGG16 as a chain ComputationGraph on the network's
+            parameters: one output and one training step bit-identical.
+            None of the nine kernels launches on this path (counted and
+            checked zero). With --profile: 3 VGG16 steps eager and graph
+            and one B=32 forward under torch.profiler.
+14. profile (only with --profile): the serving workload, one fused B=32
             ResNet-50 forward and three fused ResNet-50 training steps,
             each eager and through its graphs (training: eager and graph
             with prefetch 0, graph with prefetch 2), the paged server's
@@ -164,13 +192,16 @@ to 0 just before each main path (the encoder, serving, the timed training
 steps, ResNet serving, the timed ResNet training steps, each arm of the
 graphs phase, each server of the chaos phase and each run of the fleet
 phase) and read just after; a
-replay adds the launches its capture recorded. Every number is measured
+replay adds the launches its capture recorded. The mln phase runs none of
+them: its counts are read and must stay 0. Every number is measured
 in this run; the last lines are the kernel JSON object and the
 `{"ok": true, "device": ...}` line. Imports nothing of JAX.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import copy
 import functools
 import gc
 import json
@@ -187,7 +218,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from deeplearning4j_tpu_torch.datasets import DataSet
+from deeplearning4j_tpu_torch.datasets import (DataSet, ListDataSetIterator,
+                                               MnistDataSetIterator)
 from deeplearning4j_tpu_torch.generation import BertDecoder, GenerationServer
 from deeplearning4j_tpu_torch.kernels import _build
 from deeplearning4j_tpu_torch.kernels.flash_attention import (
@@ -209,8 +241,15 @@ from deeplearning4j_tpu_torch.kernels.pointwise_conv import (
 from deeplearning4j_tpu_torch.kernels.residual_block import (
     _plan as _block_plan_of, bottleneck_block, bottleneck_block_xla)
 from deeplearning4j_tpu_torch.models.convert import named_param_leaves
-from deeplearning4j_tpu_torch.models.zoo import ResNet50
-from deeplearning4j_tpu_torch.nn import Nesterovs
+from deeplearning4j_tpu_torch.models.zoo import VGG16, ResNet50
+from deeplearning4j_tpu_torch.nn import (Activation, Adam, ComputationGraph,
+                                         ConvolutionLayer, DenseLayer,
+                                         InputType, MaxNormConstraint,
+                                         MultiLayerNetwork, Nesterovs,
+                                         NeuralNetConfiguration, OutputLayer,
+                                         StepSchedule, SubsamplingLayer,
+                                         WeightInit, graph_params_from_numpy,
+                                         multilayer_params_to_numpy)
 from deeplearning4j_tpu_torch.parallel.inference import (InferenceMode,
                                                          ParallelInference)
 from deeplearning4j_tpu_torch.quantize import cache_page_bytes, quantize_rows
@@ -1942,7 +1981,7 @@ def _graphs_fit():
     torch.backends.cudnn.deterministic = True
     try:
         graph, eager = fused.clone(), fused.clone()
-        graph.fit([ds] * n)
+        graph.fit(ListDataSetIterator([ds] * n, b))
         eager.fit([ds] * n, prefetch=0, cudaGraphs=False)
         torch.cuda.synchronize()
         unequal = {what: sum(not torch.equal(x, y) for x, y in zip(
@@ -1969,15 +2008,18 @@ def _graphs_fit():
     nets = {"eager": fused.clone(), "graph": fused.clone()}
     del fused
     for arm, net in nets.items():
-        net.fit([ds] * RESNET_TRAIN["warmup"], cudaGraphs=arm == "graph")
+        net.fit(ListDataSetIterator([ds] * RESNET_TRAIN["warmup"], b),
+                cudaGraphs=arm == "graph")
     torch.cuda.synchronize()
     runs = []
     steps = GRAPHS["steps"]
     for arm, prefetch in FIT_ARMS:
         net = nets[arm]
         _reset_counts()
+        # an iterator that opts in to the prefetch (a plain list does not)
+        it = ListDataSetIterator([ds] * steps, b)
         t0 = time.perf_counter()
-        net.fit([ds] * steps, prefetch=prefetch, cudaGraphs=arm == "graph")
+        net.fit(it, prefetch=prefetch, cudaGraphs=arm == "graph")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = _counts()
@@ -3274,7 +3316,391 @@ def phase_fleet(cfg, params):
             "launches": launches, "seconds": seconds}
 
 
-# -- phase 13 (--profile) -----------------------------------------------------
+# -- phase 13: MultiLayerNetwork ---------------------------------------------
+#: the mln phase: the LeNet MNIST drive, VGG16 at full width
+#: (224×224×3, 1000 classes) trained at B=32 with the zoo's Nesterovs(1e-2,
+#: 0.9) and dropout 0.5 on fc6/fc7, served by output() and through
+#: ParallelInference's bucket ladder, and VGG16 as a chain ComputationGraph
+MLN = dict(batch=32, warmup=2, steps=10, check_steps=3, seed=11,
+           buckets=[1, 2, 4, 8, 16, 32], forwards=10, lenet_acc=0.85,
+           lenet_epochs=3, maxnorm=1.0)
+MLN_ARMS = ("eager", "graph", "graph", "eager")
+
+
+def _lenet_conf(updater, accum=1, constraints=None):
+    """LeNet (dl4j-examples' LenetMnistExample), in the reference's
+    builder idiom."""
+    b = (NeuralNetConfiguration.Builder().seed(123).updater(updater)
+         .weightInit(WeightInit.XAVIER))
+    if accum > 1:
+        b = b.gradientAccumulation(accum)
+    return (b.list()
+            .layer(ConvolutionLayer.Builder(5, 5).stride(1, 1).nOut(20)
+                   .activation(Activation.IDENTITY).build())
+            .layer(SubsamplingLayer.Builder("max").kernelSize(2, 2)
+                   .stride(2, 2).build())
+            .layer(ConvolutionLayer.Builder(5, 5).stride(1, 1).nOut(50)
+                   .activation(Activation.IDENTITY).build())
+            .layer(SubsamplingLayer.Builder("max").kernelSize(2, 2)
+                   .stride(2, 2).build())
+            .layer(DenseLayer(nOut=500, activation="relu",
+                              constraints=constraints))
+            .layer(OutputLayer(lossFunction="negativeloglikelihood", nOut=10,
+                               activation="softmax"))
+            .setInputType(InputType.convolutionalFlat(28, 28, 1)).build())
+
+
+def _mnist(batch=64, n=384):
+    return MnistDataSetIterator(batch, num_examples=n)
+
+
+def _unequal(a, b):
+    """{what: tensors not bit-identical} of two networks' trees."""
+    return {what: sum(not torch.equal(x, y) for x, y in zip(
+        tensor_leaves(getattr(a, attr)), tensor_leaves(getattr(b, attr))))
+        for what, attr in (("parameters", "_params"),
+                           ("optimizer state", "_opt_state"),
+                           ("BN state", "_state"))}
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """cuDNN's deterministic algorithms: its default weight-gradient
+    convolutions sum in a varying order, so two eager steps already differ
+    in the last bits."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def _mln_lenet():
+    """The LeNet MNIST drive on the card, then the schedule, the
+    accumulation and the constraint through graphed fits, all under
+    cuDNN's deterministic algorithms, so every gate reads one trajectory
+    on every run."""
+    with _deterministic():
+        net = MultiLayerNetwork(_lenet_conf(Adam(1e-2))).init()
+        net.fit(_mnist(), epochs=MLN["lenet_epochs"])
+        acc = net.evaluate(MnistDataSetIterator(
+            128, train=False, num_examples=256)).accuracy()
+        st = net.fit_status()
+        log(f"[mln] LeNet, Adam(1e-2), {MLN['lenet_epochs']} epochs of 384 "
+            f"synthetic digits (graphed, prefetched): evaluate accuracy "
+            f"{acc:.4f}; fit store {st['captures']} capture, "
+            f"{st['replays']} replays, {st['degradations']} degradations")
+        if not acc > MLN["lenet_acc"] or st["degradations"] or \
+                st["captures"] != 1:
+            raise AssertionError(f"mln: LeNet drive: accuracy {acc}, {st}")
+        out = {"lenet_accuracy": acc}
+        # stepsPerDispatch=3 against the sequential fit
+        a = MultiLayerNetwork(_lenet_conf(Adam(1e-2))).init()
+        b = MultiLayerNetwork(_lenet_conf(Adam(1e-2))).init()
+        a.fit(_mnist(), epochs=2, stepsPerDispatch=3)
+        b.fit(_mnist(), epochs=2)
+        out["steps_per_dispatch_unequal"] = _unequal(a, b)
+        ok = a.score() == b.score() and not any(
+            out["steps_per_dispatch_unequal"].values())
+        log(f"[mln] stepsPerDispatch=3 vs sequential, 12 steps: not "
+            f"bit-identical {out['steps_per_dispatch_unequal']}; loss "
+            f"{a.score()!r} vs {b.score()!r}")
+        if not ok:
+            raise AssertionError(f"mln: stepsPerDispatch: {out}")
+        # a StepSchedule whose boundary (iteration 3) falls inside the fit
+        nets = [MultiLayerNetwork(_lenet_conf(Nesterovs(
+            StepSchedule(0.01, 0.5, 3), 0.9))).init() for _ in range(2)]
+        nets[0].fit(_mnist())
+        nets[1].fit(_mnist(), prefetch=0, cudaGraphs=False)
+        sched = _unequal(*nets)
+        st = nets[0].fit_status()
+        log(f"[mln] StepSchedule(0.01, 0.5, 3), 6 steps graph vs eager: "
+            f"not bit-identical {sched}; {st['replays']} replays")
+        if any(sched.values()) or nets[0].score() != nets[1].score() \
+                or st["replays"] != 5:
+            raise AssertionError(f"mln: schedule: {sched}, {st}")
+        out["schedule_unequal"] = sched
+        # gradientAccumulation(4) against the explicit accumulation loop
+        # (two updates of 4 batches: the eager first run and a replay)
+        acc_net = MultiLayerNetwork(_lenet_conf(Nesterovs(0.01, 0.9),
+                                                accum=4)).init()
+        ref = acc_net.clone()
+        batches = list(_mnist(64, 512))
+        acc_net.fit(ListDataSetIterator(batches, 64))
+        ref._build_optimizer()
+        for g in range(0, len(batches), 4):
+            gsum, lsum, state = None, None, ref._state
+            for ds in batches[g:g + 4]:
+                ins, labels, lm = ref._unpack(ds)
+                loss, grads, state = ref._value_and_grad(ins, labels, lm,
+                                                         state=state)
+                gsum = grads if gsum is None else {
+                    n: {k: gsum[n][k] + v for k, v in d.items()}
+                    for n, d in grads.items()}
+                lsum = loss if lsum is None else lsum + loss
+            ref._update_in_place({n: {k: v * 0.25 for k, v in d.items()}
+                                  for n, d in gsum.items()}, state)
+        accum = _unequal(acc_net, ref)
+        st = acc_net.fit_status()
+        log(f"[mln] gradientAccumulation(4), two graphed updates vs the "
+            f"explicit loop: not bit-identical {accum}; loss "
+            f"{acc_net.score()!r} vs {float(lsum * 0.25)!r}; store "
+            f"{st['keys']} key, {st['replays']} replay")
+        if any(accum.values()) or acc_net.score() != float(lsum * 0.25) \
+                or acc_net.getIterationCount() != 2 or st["replays"] != 1:
+            raise AssertionError(f"mln: accumulation: {accum}, {st}")
+        out["accumulation_unequal"] = accum
+        # MaxNorm on the dense layer: the norms hold after every graphed step
+        net = MultiLayerNetwork(_lenet_conf(Nesterovs(0.05, 0.9),
+                                            constraints=[MaxNormConstraint(
+                                                MLN["maxnorm"])])).init()
+        worst = 0.0
+        for ds in _mnist():
+            net.fit(ds)
+            worst = max(worst, float(torch.linalg.vector_norm(
+                net._params["4"]["W"], dim=0).max()))
+    log(f"[mln] MaxNorm({MLN['maxnorm']}) on the dense layer: largest unit "
+        f"norm over 6 graphed steps {worst:.6f}")
+    if not worst <= MLN["maxnorm"] * (1 + 1e-5) or \
+            net.fit_status()["replays"] != 5:
+        raise AssertionError(f"mln: MaxNorm: {worst}, {net.fit_status()}")
+    out["maxnorm_worst"] = worst
+    return out
+
+
+def _vgg_batch():
+    rng = np.random.default_rng(MLN["seed"])
+    b = MLN["batch"]
+    x = rng.random((b, 224, 224, 3), np.float32)
+    y = np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, b)]
+    return DataSet(x, y)
+
+
+def _no_kernel_launched(what):
+    """The MultiLayerNetwork path runs none of the nine kernels: VGG16's
+    3×3 convs, pools and dense layers are cuDNN and cuBLAS calls."""
+    launched = {k: n for k, n in _counts().items() if n}
+    if launched:
+        raise AssertionError(f"mln: {what} launched {launched}")
+
+
+def _vgg_timed_arm(arm, m, ds):
+    """One timed arm of VGG16 training: MLN["steps"] `fit` steps of `ds`,
+    graphed or eager, with the peak memory it reached."""
+    b, steps = MLN["batch"], MLN["steps"]
+    it = ListDataSetIterator([ds] * steps, b)
+    # the graph arm's activations live in its store's pool, allocated at
+    # the capture: they are in `base`, not in the arm's rise
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    m.fit(it, cudaGraphs=arm == "graph")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _no_kernel_launched(f"VGG16 training ({arm})")
+    peak = torch.cuda.max_memory_allocated()
+    loss = m.score()
+    log(f"[mln] VGG16 fit {arm}: {wall * 1e3 / steps:.2f} ms/step, "
+        f"{b * steps / wall:.1f} images/s, loss {loss:.4f} at step "
+        f"{m.getIterationCount()}, peak allocated {peak / 2**30:.3f} GiB "
+        f"over {base / 2**30:.3f} GiB held before the arm (both nets, the "
+        f"graph's pool)")
+    if not np.isfinite(loss):
+        raise AssertionError(f"mln: VGG16 fit {arm}: loss {loss}")
+    return {"arm": arm, "ms_per_step": wall * 1e3 / steps,
+            "images_per_s": b * steps / wall, "loss": loss,
+            "iteration": m.getIterationCount(), "peak_bytes": peak,
+            "base_bytes": base}
+
+
+def _mln_vgg_train():
+    net = VGG16(updater=Nesterovs(1e-2, 0.9)).init()
+    n_params = net.numParams()
+    ds = _vgg_batch()
+    b, n = MLN["batch"], MLN["check_steps"]
+    with _deterministic():
+        graph, eager = net.clone(), net.clone()
+        graph.fit(ListDataSetIterator([ds] * n, b))
+        eager.fit([ds] * n, prefetch=0, cudaGraphs=False)
+        torch.cuda.synchronize()
+        unequal = _unequal(graph, eager)
+        scores = (graph.score(), eager.score())
+        st = graph.fit_status()
+    log(f"[mln] VGG16 fit B={b}, {n} steps, cuDNN deterministic: graph vs "
+        f"eager not bit-identical {unequal}; loss {scores[0]!r} vs "
+        f"{scores[1]!r}; graph store {st['captures']} capture, "
+        f"{st['replays']} replays, {st['degradations']} degradations, "
+        f"{st['eager_calls']} eager calls")
+    if any(unequal.values()) or scores[0] != scores[1] or (
+            st["captures"], st["replays"], st["degradations"],
+            st["eager_calls"]) != (1, n - 1, 0, 0):
+        raise AssertionError(f"mln: VGG16 graph vs eager: {unequal}, "
+                             f"{scores}, {st}")
+    del graph, eager
+    torch.cuda.empty_cache()
+    # The timed arms run under cuDNN's deterministic algorithms too:
+    # Nesterovs(1e-2, 0.9) on one repeated batch of a VGG16 without BN is
+    # at the edge of stability, and the default weight-gradient sums, whose
+    # order varies from run to run, can send a trajectory to NaN within the
+    # arms' 22 steps. Deterministic, both nets follow one trajectory on
+    # every run, so arms at the same step give one loss.
+    nets = {"eager": net.clone(), "graph": net.clone()}
+    del net
+    runs, steps = [], MLN["steps"]
+    with _deterministic():
+        for arm, m in nets.items():
+            m.fit(ListDataSetIterator([ds] * MLN["warmup"], b),
+                  cudaGraphs=arm == "graph")
+        torch.cuda.synchronize()
+        for arm in MLN_ARMS:
+            runs.append(_vgg_timed_arm(arm, nets[arm], ds))
+    by_step = {}
+    for run in runs:
+        by_step.setdefault(run["iteration"], set()).add(run["loss"])
+    if any(len(losses) != 1 for losses in by_step.values()):
+        raise AssertionError(f"mln: VGG16 arms at one step disagree: {runs}")
+    st = nets["graph"].fit_status()
+    if (st["captures"], st["degradations"], st["eager_calls"]) != (1, 0, 0):
+        raise AssertionError(f"mln: VGG16 graph store: {st}")
+    del nets
+    torch.cuda.empty_cache()
+    return {"params": n_params, "bit_identity": {
+        "steps": n, "unequal": unequal, "scores": scores},
+        "runs": runs, "store": {k: st[k] for k in (
+            "captures", "replays", "degradations", "eager_calls")}}
+
+
+def _mln_vgg_serve():
+    net = VGG16().init()
+    sizes, images = _resnet_requests()
+    n_img = int(sum(sizes))
+    x = torch.as_tensor(images[:MLN["batch"]], device=DEV)
+    _reset_counts()
+    mean_ms, min_ms = _forward_ms(net, x)
+    _no_kernel_launched("VGG16 output()")
+    log(f"[mln] VGG16 output() B={MLN['batch']}: {mean_ms:.3f} ms mean, "
+        f"{min_ms:.3f} ms min (host clock, {RESNET['timed']} forwards)")
+    want = np.concatenate([net.output(images[i:i + MLN["batch"]])
+                           .cpu().numpy()
+                           for i in range(0, n_img, MLN["batch"])])
+    scale = float(np.abs(want).max())
+    answers, lat, wall, launches, calls, info = _serve_resnet(
+        net, images, sizes, ladder=MLN["buckets"])
+    _no_kernel_launched("VGG16 serving")
+    got = np.concatenate(answers)
+    err = float(np.abs(got - want).max())
+    st = info["status"]
+    lat_ms = np.asarray(lat) * 1e3
+    run = {"images": n_img, "requests": len(sizes), "wall_s": wall,
+           "images_per_s": n_img / wall, "forwards": calls,
+           "p50_ms": float(np.percentile(lat_ms, 50)),
+           "p99_ms": float(np.percentile(lat_ms, 99)),
+           "max_abs_err": err, "warmup": info["warmup"],
+           "output_ms": mean_ms, "output_min_ms": min_ms}
+    log(f"[mln] VGG16 ParallelInference bucketLadder({MLN['buckets']}): "
+        f"{n_img} images in {len(sizes)} requests of 1-8 rows from "
+        f"{RESNET['threads']} threads, {calls} forwards, {wall:.3f} s = "
+        f"{n_img / wall:.1f} images/s; p50 {run['p50_ms']:.2f} ms p99 "
+        f"{run['p99_ms']:.2f} ms; max |answer - output()| {err:.3e} of max "
+        f"{scale:.3e}; warmup {info['warmup']}")
+    if got.shape != (n_img, 1000) or not err <= RESNET_RTOL * scale:
+        raise AssertionError(f"mln: VGG16 answers differ from output() by "
+                             f"{err}")
+    _store_clean(st["executables"], "mln VGG16 inference")
+    if st["aot_fallbacks"] or info["warmup"]["captures"] != len(
+            MLN["buckets"]):
+        raise AssertionError(f"mln: VGG16 serving: {st}")
+    del net
+    torch.cuda.empty_cache()
+    return run
+
+
+def _chain_graph(conf):
+    """A ComputationGraph of a MultiLayerConfiguration's layers as a chain,
+    node i named "i", so its trees are keyed as the network's."""
+    g = (NeuralNetConfiguration.Builder().seed(conf.seed)
+         .updater(conf.defaults["updater"]).dataType(conf.data_type)
+         .graphBuilder().addInputs("input").setInputTypes(conf.input_type))
+    prev = "input"
+    for i, layer in enumerate(conf.layers):
+        g.addLayer(str(i), copy.deepcopy(layer), prev)
+        prev = str(i)
+    return ComputationGraph(g.setOutputs(prev).build())
+
+
+def _mln_vs_graph():
+    """VGG16 as a MultiLayerNetwork and as a chain ComputationGraph on the
+    MultiLayerNetwork's parameters: one B=32 output and one training step
+    (dropout drawn from each net's generator, seeded alike) bit for
+    bit."""
+    conf = VGG16(updater=Nesterovs(1e-2, 0.9)).conf()
+    net = MultiLayerNetwork(conf).init()
+    graph = graph_params_from_numpy(_chain_graph(conf),
+                                    *multilayer_params_to_numpy(net))
+    ds = _vgg_batch()
+    out_equal = torch.equal(net.output(ds.features),
+                            graph.output(ds.features))
+    with _deterministic():
+        net.fit(ds)
+        graph.fit(ds)
+        torch.cuda.synchronize()
+    unequal = _unequal(net, graph)
+    log(f"[mln] VGG16 MultiLayerNetwork vs chain ComputationGraph: "
+        f"B={MLN['batch']} outputs bit-identical {out_equal}; after one "
+        f"`fit` step not "
+        f"bit-identical {unequal}; loss {net.score()!r} vs "
+        f"{graph.score()!r}")
+    if not out_equal or any(unequal.values()) or \
+            net.score() != graph.score():
+        raise AssertionError(f"mln: MultiLayerNetwork vs ComputationGraph: "
+                             f"{out_equal}, {unequal}")
+    del net, graph
+    torch.cuda.empty_cache()
+    return {"outputs_equal": out_equal, "step_unequal": unequal}
+
+
+def _mln_vgg_profile():
+    """--profile: VGG16's training step (3 steps, eager and graph) and one
+    B=32 forward under torch.profiler (card busy and idle share, device
+    time by kernel group)."""
+    net = VGG16(updater=Nesterovs(1e-2, 0.9)).init()
+    ds, b = _vgg_batch(), MLN["batch"]
+    out = {}
+    for arm in ("eager", "graph"):
+        graph = arm == "graph"
+        net.fit(ListDataSetIterator([ds] * 2, b), cudaGraphs=graph)
+        torch.cuda.synchronize()
+        it = ListDataSetIterator([ds] * 3, b)   # merged outside the window
+        out[f"train {arm}"], _ = _profiled(
+            f"VGG16 training B={b}, 3 steps {arm}",
+            lambda: net.fit(it, cudaGraphs=graph))
+    x = torch.as_tensor(ds.features, device=DEV)
+    net.output(x)
+    torch.cuda.synchronize()
+    out["forward"], _ = _profiled(f"VGG16 forward B={b}",
+                                  lambda: net.output(x))
+    del net
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mln(profile=False):
+    """MultiLayerNetwork on the card: the LeNet drive, VGG16 training and
+    serving at full width, and VGG16 against its chain graph; with
+    `profile`, VGG16's step and forward under torch.profiler."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {"lenet": _mln_lenet(), "vgg16_train": _mln_vgg_train(),
+           "vgg16_serve": _mln_vgg_serve(), "vs_graph": _mln_vs_graph()}
+    if profile:
+        out["profile"] = _mln_vgg_profile()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[mln] the phase {out['seconds']:.1f} s")
+    return out
+
+
+# -- phase 14 (--profile) -----------------------------------------------------
 #: kernel-name substrings -> the part of a step they belong to
 KERNEL_GROUPS = (("flash_fwd_kernel", "flash_fwd"),
                  ("flash_decode_kernel", "flash_decode"),
@@ -3452,8 +3878,9 @@ def phase_profile(cfg, params, resnet_net, resnet_x, train_net, train_ds):
         name = f"{arm} prefetch {prefetch}"
         resnet_train[name], _ = _profiled(
             f"resnet fused training B=32, 3 steps {name}",
-            lambda: train_net.fit([train_ds] * 3, cudaGraphs=graph,
-                                  prefetch=prefetch))
+            lambda: train_net.fit(
+                ListDataSetIterator([train_ds] * 3, RESNET_TRAIN["batch"]),
+                cudaGraphs=graph, prefetch=prefetch))
         if resnet_train[name] is not None:
             resnet_train[name]["steps"] = 3
     return {"serving": serving, "train": train, "resnet": resnet,
@@ -3491,18 +3918,19 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only",
                     choices=["kernels", "resnet", "graphs", "paged",
-                             "chaos", "fleet"],
+                             "chaos", "fleet", "mln"],
                     default=None,
                     help="stop after the kernel checks, or run the resnet "
                          "serving and training phases right after them, or "
-                         "run the graphs, the paged, the chaos or the "
-                         "fleet phase alone after the build (bring-up "
-                         "runs)")
+                         "run the graphs, the paged, the chaos, the fleet "
+                         "or the mln phase alone after the build "
+                         "(bring-up runs)")
     ap.add_argument("--profile", action="store_true",
                     help="after the resnet phases, profile the serving "
                          "workload, three fine-tune steps, one ResNet-50 "
                          "forward and one ResNet-50 training step (card "
-                         "busy/idle share, device time by kernel group)")
+                         "busy/idle share, device time by kernel group); "
+                         "with the mln phase, VGG16's step and forward")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3530,10 +3958,13 @@ def main(argv=None):
         log(f"[smoke] by phase " + ", ".join(
             f"{k} {v:.1f}" for k, v in seconds.items()))
         return 0
-    if args.only in ("chaos", "fleet"):
-        cfg = bert_base()
-        phase = phase_chaos if args.only == "chaos" else phase_fleet
-        out = timed(args.only, phase, cfg, init_bert_params(cfg, 0))
+    if args.only in ("chaos", "fleet", "mln"):
+        if args.only == "mln":
+            out = timed("mln", phase_mln, args.profile)
+        else:
+            cfg = bert_base()
+            phase = phase_chaos if args.only == "chaos" else phase_fleet
+            out = timed(args.only, phase, cfg, init_bert_params(cfg, 0))
         (OUT_DIR / f"smoke_{args.only}.json").write_text(json.dumps(
             {"card": card, args.only: out, "phase_seconds": seconds},
             indent=1, default=str))
@@ -3574,6 +4005,7 @@ def main(argv=None):
     paged = timed("paged", phase_paged, cfg, params)
     chaos = timed("chaos", phase_chaos, cfg, params)
     fleet = timed("fleet", phase_fleet, cfg, params)
+    mln = timed("mln", phase_mln, args.profile)
     prof = (timed("profile", phase_profile, cfg, params, resnet_net,
                   resnet_x, train_net, train_ds) if args.profile else None)
     # each kernel's launches from the path that carries it: the forward and
@@ -3611,7 +4043,8 @@ def main(argv=None):
          "encoder": encoder,
          "serving": serving, "train": train,
          "resnet": resnet, "resnet_train": resnet_train, "graphs": graphs,
-         "paged": paged, "chaos": chaos, "fleet": fleet, "profile": prof,
+         "paged": paged, "chaos": chaos, "fleet": fleet, "mln": mln,
+         "profile": prof,
          "line": line,
          "phase_seconds": seconds, "seconds": time.perf_counter() - t0},
         indent=1, default=str))

@@ -18,7 +18,11 @@ replays the decode block, the training step and the inference buckets as
 CUDA graphs on the card; paged and int8 KV serving with drafting;
 serving survivability (`resilience/`, `monitoring/`); the
 `generation.FleetRouter` over server replicas, with the `ui.UIServer`
-operations endpoints; and the port's lints (`lint/`).
+operations endpoints; the port's lints (`lint/`); and `MultiLayerNetwork`
+with the rest of the nn core's training surface (every updater, schedule,
+loss, dropout object, constraint and gradient accumulation, shared with
+`ComputationGraph`), the `eval/` evaluators, the DataSetIterators and the
+zoo's `.list()` CNNs (LeNet, SimpleCNN, AlexNet, VGG16, VGG19, Darknet19).
 """
 from deeplearning4j_tpu_torch.device import resolve
 

@@ -26,7 +26,6 @@ PENDING = {
     "DATA_NEXT": "A14: the fit loop's fault hooks (resilience/trainer.py)",
     "TRAIN_DISPATCH": "A14: the fit loop's fault hooks; A15: wrapper.py, "
                       "sharded_trainer.py",
-    "EVAL_FORWARD": "A10: evaluate() and its fault hook",
     "CHECKPOINT_SAVE": "A15: parallel/elastic.py",
     "CHECKPOINT_RESTORE": "A15: parallel/elastic.py",
     "CHECKPOINT_CORRUPT": "A14: resilience/integrity.py",

@@ -1,4 +1,9 @@
-"""The port's model zoo: ResNet-50 so far."""
-from deeplearning4j_tpu_torch.models.zoo.models import ResNet50, ZooModel
+"""The port's model zoo: the `.list()` CNNs (LeNet, SimpleCNN, AlexNet,
+VGG16, VGG19, Darknet19) and ResNet-50."""
+from deeplearning4j_tpu_torch.models.zoo.models import (VGG16, AlexNet, LeNet,
+                                                        ResNet50, SimpleCNN,
+                                                        ZooModel)
+from deeplearning4j_tpu_torch.models.zoo.models2 import VGG19, Darknet19
 
-__all__ = ["ResNet50", "ZooModel"]
+__all__ = ["AlexNet", "Darknet19", "LeNet", "ResNet50", "SimpleCNN", "VGG16",
+           "VGG19", "ZooModel"]

@@ -1,12 +1,13 @@
-"""Model zoo: the port of `ZooModel` and `ResNet50` of
-`deeplearning4j_tpu/models/zoo/models.py` (≡ deeplearning4j-zoo ::
-org.deeplearning4j.zoo.model.*).
+"""Model zoo: the port of `ZooModel`, LeNet, SimpleCNN, AlexNet, VGG16 and
+ResNet50 of `deeplearning4j_tpu/models/zoo/models.py` (≡
+deeplearning4j-zoo :: org.deeplearning4j.zoo.model.*).
 
 The models build through the same public config DSL a user would write.
-`ResNet50(numClasses=...).init()` returns the network on the card (or on
-`device`); `initPretrained()` needs a local checkpoint, as this
-environment has no network. The other zoo models come later (ROADMAP
-A11).
+`init()` returns the network on the card (or on `device`): a
+MultiLayerNetwork for a `.list()` configuration, a ComputationGraph for a
+graph. `initPretrained()` needs a local checkpoint, as the port fetches
+nothing over a network. UNet, TinyYOLO and TextGenerationLSTM come later
+(ROADMAP A11, A12).
 """
 from __future__ import annotations
 
@@ -20,11 +21,13 @@ from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import (ActivationLayer,
                                                      BatchNormalization,
                                                      ConvolutionLayer,
+                                                     DenseLayer, DropoutLayer,
                                                      GlobalPoolingLayer,
                                                      OutputLayer,
                                                      SubsamplingLayer)
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
-from deeplearning4j_tpu_torch.nn.updaters import Nesterovs
+from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+from deeplearning4j_tpu_torch.nn.updaters import Adam, Nesterovs
 
 
 class ZooModel:
@@ -49,8 +52,7 @@ class ZooModel:
         conf = self.conf()
         if isinstance(conf, ComputationGraphConfiguration):
             return ComputationGraph(conf).init(device)
-        raise NotImplementedError(
-            "MultiLayerNetwork comes with ROADMAP A10")
+        return MultiLayerNetwork(conf).init(device)
 
     #: directory scanned for local pretrained checkpoints
     PRETRAINED_DIR_ENV = "DL4J_TPU_PRETRAINED_DIR"
@@ -72,7 +74,8 @@ class ZooModel:
         bucket — this environment has no egress, so the file must already
         exist: pass `path=` or set $DL4J_TPU_PRETRAINED_DIR). Reading the
         checkpoint formats comes with ROADMAP A12; weights held by the
-        JAX package carry across with `nn.graph_params_from_numpy`."""
+        JAX package carry across with `nn.graph_params_from_numpy` or
+        `nn.multilayer_params_from_numpy`."""
         path = path or self._pretrained_path(dataset)
         if path is None:
             raise RuntimeError(
@@ -86,6 +89,136 @@ class ZooModel:
 
     def pretrainedAvailable(self, dataset="imagenet"):
         return self._pretrained_path(dataset) is not None
+
+
+class LeNet(ZooModel):
+    """≡ zoo.model.LeNet — the classic MNIST CNN."""
+
+    DEFAULT_INPUT = (28, 28, 1)
+
+    def conf(self):
+        h, w, c = self.inputShape
+        return (NeuralNetConfiguration.Builder()
+                .seed(self.seed)
+                .updater(self.updater or Nesterovs(0.01, 0.9))
+                .weightInit("xavier")
+                .dataType(self.dataType)
+                .list()
+                .layer(ConvolutionLayer(kernelSize=(5, 5), stride=(1, 1),
+                                        nOut=20, activation="identity",
+                                        convolutionMode="same"))
+                .layer(SubsamplingLayer(poolingType="max", kernelSize=(2, 2),
+                                        stride=(2, 2)))
+                .layer(ConvolutionLayer(kernelSize=(5, 5), stride=(1, 1),
+                                        nOut=50, activation="identity",
+                                        convolutionMode="same"))
+                .layer(SubsamplingLayer(poolingType="max", kernelSize=(2, 2),
+                                        stride=(2, 2)))
+                .layer(DenseLayer(nOut=500, activation="relu"))
+                .layer(OutputLayer(lossFunction="negativeloglikelihood",
+                                   nOut=self.numClasses,
+                                   activation="softmax"))
+                .setInputType(InputType.convolutional(h, w, c))
+                .build())
+
+
+class SimpleCNN(ZooModel):
+    """≡ zoo.model.SimpleCNN."""
+
+    DEFAULT_INPUT = (48, 48, 3)
+
+    def conf(self):
+        h, w, c = self.inputShape
+        return (NeuralNetConfiguration.Builder()
+                .seed(self.seed)
+                .updater(self.updater or Adam(1e-3))
+                .weightInit("relu")
+                .activation("relu")
+                .dataType(self.dataType)
+                .list()
+                .layer(ConvolutionLayer(kernelSize=(7, 7), nOut=16,
+                                        convolutionMode="same"))
+                .layer(BatchNormalization())
+                .layer(SubsamplingLayer(kernelSize=(2, 2), stride=(2, 2)))
+                .layer(ConvolutionLayer(kernelSize=(5, 5), nOut=32,
+                                        convolutionMode="same"))
+                .layer(BatchNormalization())
+                .layer(SubsamplingLayer(kernelSize=(2, 2), stride=(2, 2)))
+                .layer(ConvolutionLayer(kernelSize=(3, 3), nOut=64,
+                                        convolutionMode="same"))
+                .layer(BatchNormalization())
+                .layer(SubsamplingLayer(kernelSize=(2, 2), stride=(2, 2)))
+                .layer(DenseLayer(nOut=128))
+                .layer(DropoutLayer(dropOut=0.5))
+                .layer(OutputLayer(lossFunction="mcxent",
+                                   nOut=self.numClasses,
+                                   activation="softmax"))
+                .setInputType(InputType.convolutional(h, w, c))
+                .build())
+
+
+class AlexNet(ZooModel):
+    """≡ zoo.model.AlexNet (one-tower variant)."""
+
+    def conf(self):
+        h, w, c = self.inputShape
+        return (NeuralNetConfiguration.Builder()
+                .seed(self.seed)
+                .updater(self.updater or Nesterovs(1e-2, 0.9))
+                .weightInit("relu")
+                .activation("relu")
+                .l2(5e-4)
+                .dataType(self.dataType)
+                .list()
+                .layer(ConvolutionLayer(kernelSize=(11, 11), stride=(4, 4),
+                                        nOut=96, convolutionMode="same"))
+                .layer(BatchNormalization())
+                .layer(SubsamplingLayer(kernelSize=(3, 3), stride=(2, 2)))
+                .layer(ConvolutionLayer(kernelSize=(5, 5), nOut=256,
+                                        convolutionMode="same"))
+                .layer(BatchNormalization())
+                .layer(SubsamplingLayer(kernelSize=(3, 3), stride=(2, 2)))
+                .layer(ConvolutionLayer(kernelSize=(3, 3), nOut=384,
+                                        convolutionMode="same"))
+                .layer(ConvolutionLayer(kernelSize=(3, 3), nOut=384,
+                                        convolutionMode="same"))
+                .layer(ConvolutionLayer(kernelSize=(3, 3), nOut=256,
+                                        convolutionMode="same"))
+                .layer(SubsamplingLayer(kernelSize=(3, 3), stride=(2, 2)))
+                .layer(DenseLayer(nOut=4096, dropOut=0.5))
+                .layer(DenseLayer(nOut=4096, dropOut=0.5))
+                .layer(OutputLayer(lossFunction="mcxent",
+                                   nOut=self.numClasses,
+                                   activation="softmax"))
+                .setInputType(InputType.convolutional(h, w, c))
+                .build())
+
+
+class VGG16(ZooModel):
+    """≡ zoo.model.VGG16."""
+
+    def conf(self):
+        h, w, c = self.inputShape
+        b = (NeuralNetConfiguration.Builder()
+             .seed(self.seed)
+             .updater(self.updater or Nesterovs(1e-2, 0.9))
+             .weightInit("relu")
+             .activation("relu")
+             .dataType(self.dataType)
+             .list())
+        plan = [(64, 2), (128, 2), (256, 3), (512, 3), (512, 3)]
+        for n_out, reps in plan:
+            for _ in range(reps):
+                b.layer(ConvolutionLayer(kernelSize=(3, 3), nOut=n_out,
+                                         convolutionMode="same"))
+            b.layer(SubsamplingLayer(kernelSize=(2, 2), stride=(2, 2)))
+        return (b.layer(DenseLayer(nOut=4096, dropOut=0.5))
+                 .layer(DenseLayer(nOut=4096, dropOut=0.5))
+                 .layer(OutputLayer(lossFunction="mcxent",
+                                    nOut=self.numClasses,
+                                    activation="softmax"))
+                 .setInputType(InputType.convolutional(h, w, c))
+                 .build())
 
 
 class ResNet50(ZooModel):

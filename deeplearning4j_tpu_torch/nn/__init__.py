@@ -1,5 +1,8 @@
-"""The port's `nn/`: the builder DSL, the layers ResNet-50 needs, the
-conv1x1+BN fusion pass and `ComputationGraph`'s inference forward."""
+"""The port's `nn/`: the builder DSL, the layers ResNet-50 and the zoo's
+CNNs need, the conv1x1+BN fusion pass, `ComputationGraph`,
+`MultiLayerNetwork` and the training surface they share: updaters,
+schedules, losses, dropout objects, constraints and gradient
+accumulation."""
 from deeplearning4j_tpu_torch.nn.activations import Activation
 from deeplearning4j_tpu_torch.nn.conf import layers
 from deeplearning4j_tpu_torch.nn.conf.builders import (BackpropType,
@@ -16,12 +19,38 @@ from deeplearning4j_tpu_torch.nn.conf.layers import (ActivationLayer,
                                                      GlobalPoolingLayer,
                                                      OutputLayer,
                                                      SubsamplingLayer)
+from deeplearning4j_tpu_torch.nn.constraints import (MaxNormConstraint,
+                                                     MinMaxNormConstraint,
+                                                     NonNegativeConstraint,
+                                                     UnitNormConstraint)
 from deeplearning4j_tpu_torch.nn.convert import (graph_params_from_numpy,
-                                                 graph_params_to_numpy)
+                                                 graph_params_to_numpy,
+                                                 multilayer_params_from_numpy,
+                                                 multilayer_params_to_numpy)
+from deeplearning4j_tpu_torch.nn.dropout import (AlphaDropout, Dropout,
+                                                 GaussianDropout,
+                                                 GaussianNoise, IDropout,
+                                                 SpatialDropout)
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
-from deeplearning4j_tpu_torch.nn.losses import LossFunction
-from deeplearning4j_tpu_torch.nn.updaters import (Adam, Nesterovs, Sgd,
-                                                  Updater)
+from deeplearning4j_tpu_torch.nn.losses import (LossBinaryXENT, LossFMeasure,
+                                                LossFunction, LossMCXENT,
+                                                LossMixtureDensity, LossMSE,
+                                                LossMultiLabel,
+                                                LossNegativeLogLikelihood,
+                                                LossWasserstein)
+from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+from deeplearning4j_tpu_torch.nn.schedules import (CycleSchedule,
+                                                   ExponentialSchedule,
+                                                   FixedSchedule,
+                                                   InverseSchedule,
+                                                   MapSchedule, PolySchedule,
+                                                   Schedule, SigmoidSchedule,
+                                                   StepSchedule)
+from deeplearning4j_tpu_torch.nn.updaters import (AdaDelta, AdaGrad, Adam,
+                                                  AdaMax, AMSGrad,
+                                                  GradientNormalization,
+                                                  Nadam, Nesterovs, NoOp,
+                                                  RmsProp, Sgd, Updater)
 from deeplearning4j_tpu_torch.nn.weights_init import WeightInit
 
 __all__ = [
@@ -30,6 +59,17 @@ __all__ = [
     "ActivationLayer", "BatchNormalization", "ConvolutionLayer",
     "DenseLayer", "DropoutLayer", "GlobalPoolingLayer", "OutputLayer",
     "SubsamplingLayer", "GraphVertex", "MergeVertex", "ElementWiseVertex",
-    "ComputationGraph", "graph_params_from_numpy", "graph_params_to_numpy",
-    "LossFunction", "Adam", "Nesterovs", "Sgd", "Updater", "WeightInit",
+    "ComputationGraph", "MultiLayerNetwork", "graph_params_from_numpy",
+    "graph_params_to_numpy", "multilayer_params_from_numpy",
+    "multilayer_params_to_numpy", "LossFunction", "LossBinaryXENT",
+    "LossFMeasure", "LossMCXENT", "LossMixtureDensity", "LossMSE",
+    "LossMultiLabel", "LossNegativeLogLikelihood", "LossWasserstein",
+    "Updater", "Sgd", "Nesterovs", "Adam", "AdaMax", "Nadam", "AMSGrad",
+    "RmsProp", "AdaGrad", "AdaDelta", "NoOp", "GradientNormalization",
+    "Schedule", "FixedSchedule", "StepSchedule", "ExponentialSchedule",
+    "InverseSchedule", "PolySchedule", "SigmoidSchedule", "MapSchedule",
+    "CycleSchedule", "IDropout", "Dropout", "GaussianDropout",
+    "GaussianNoise", "AlphaDropout", "SpatialDropout", "MaxNormConstraint",
+    "MinMaxNormConstraint", "UnitNormConstraint", "NonNegativeConstraint",
+    "WeightInit",
 ]

@@ -1,0 +1,515 @@
+"""The training step and the evaluation loop that MultiLayerNetwork and
+ComputationGraph share (the JAX package shares its step helpers between
+its two network classes the same way: they must never diverge).
+
+`Network` holds the machinery; a network class supplies its layers as
+(key, config) pairs (`_layer_items`), its loss (`_loss`), the unpacking of
+a batch into (inputs {name: tensor}, labels [tensor], label masks or None)
+(`_unpack`) and its first output for the evaluation loop (`_eval_output`).
+Parameters, optimizer state and BN state are trees {key: {name: tensor}};
+a training step writes its results into the live tensors in place.
+
+One step: the loss (the output layers' losses plus the L1/L2 penalty),
+`backward`, the optimizer of `build_optimizer` (per-layer updater
+overrides included), the layers' constraints on the new parameters, and
+the new BN state. With `.gradientAccumulation(G)` a group of G batches
+runs through `nn.accum.accumulate` and one update. On the card each step
+(or group) runs through a CUDA graph per batch signature
+(`runtime.executables.FunctionStore`): the first batch of a signature runs
+eagerly and is captured after, later ones copy into the graph's static
+inputs and replay it. The dropout generator, seeded from conf.seed, is
+registered with the graph. The graphs are bound to the parameter,
+optimizer and state tensors they were captured with: after `init` or a
+weight load rebinds them, the next step captures again.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
+from deeplearning4j_tpu_torch.eval.evaluation import (Evaluation,
+                                                      EvaluationCalibration,
+                                                      RegressionEvaluation,
+                                                      ROC, ROCMultiClass)
+from deeplearning4j_tpu_torch.nn.accum import accumulate
+from deeplearning4j_tpu_torch.nn.constraints import apply_layer_constraints
+from deeplearning4j_tpu_torch.nn.updaters import (apply_updates,
+                                                  build_optimizer,
+                                                  multi_transform,
+                                                  same_updater)
+from deeplearning4j_tpu_torch.resilience import faults as _faults
+from deeplearning4j_tpu_torch.runtime.executables import (FunctionStore,
+                                                          model_fingerprint,
+                                                          tensor_leaves)
+from deeplearning4j_tpu_torch.runtime.pipeline import (StagedBatch,
+                                                       StagedMultiBatch,
+                                                       maybe_prefetch,
+                                                       stage_for_eval)
+
+_DTYPES = {"float": torch.float32, "float32": torch.float32,
+           "double": torch.float64, "float64": torch.float64,
+           "half": torch.float16, "float16": torch.float16,
+           "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(conf):
+    """The torch dtype of the configuration's `dataType`."""
+    dt = str(conf.data_type).lower()
+    if dt not in _DTYPES:
+        raise ValueError(f"dataType {conf.data_type!r} is not a float "
+                         f"type the port computes in: {sorted(_DTYPES)}")
+    return _DTYPES[dt]
+
+
+def later(cls, what, where):
+    return NotImplementedError(
+        f"{cls}: {what} is not ported yet; it comes with {where}")
+
+
+def to_device(tree, device):
+    return {n: {k: v.to(device) for k, v in d.items()}
+            for n, d in tree.items()}
+
+
+def clone_tree(tree):
+    """A copy of a tree of dicts, lists and tuples with every tensor
+    cloned."""
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(clone_tree(v) for v in tree)
+    return tree.clone() if torch.is_tensor(tree) else tree
+
+
+def copy_into(dst, src):
+    """Write every tensor of tree `src` into its place in `dst`."""
+    d, s = tensor_leaves(dst), tensor_leaves(src)
+    if len(d) != len(s):
+        raise ValueError(f"trees differ: {len(d)} vs {len(s)} tensors")
+    if d:
+        torch._foreach_copy_(d, s)
+
+
+def batch_sig(ins, labels, lmasks):
+    """The shapes and dtypes of one unpacked batch."""
+    def sig(t):
+        return None if t is None else (tuple(t.shape), str(t.dtype))
+    return (tuple((n, sig(ins[n])) for n in sorted(ins)),
+            tuple(sig(t) for t in labels),
+            None if lmasks is None else tuple(sig(t) for t in lmasks))
+
+
+def l1l2_penalty(layers, params):
+    """≡ the reference's score regularization: l1·Σ|W| + 0.5·l2·‖W‖² over
+    the weight tensors of each layer (biases, β, γ excluded), in f32.
+    `params` is a list parallel to `layers`."""
+    total = 0.0
+    for layer, p in zip(layers, params):
+        l1, l2 = layer.regularization_terms()
+        if not l1 and not l2:
+            continue
+        for name, v in p.items():
+            if name in ("b", "beta", "gamma", "alpha", "centers"):
+                continue
+            v = v.float()
+            if l1:
+                total = total + l1 * v.abs().sum()
+            if l2:
+                total = total + 0.5 * l2 * (v * v).sum()
+    return total
+
+
+class Network:
+    """What both network classes share; see the module docstring."""
+
+    def _reset_training(self):
+        self._tx = None          # the optimizer, built at the first fit
+        self._opt_state = None
+        self._generator = None   # dropout masks, from conf.seed
+        self._fit_store = None   # CUDA graphs of the training step
+        self._listeners = []
+        self._score = None
+        self._iteration = 0
+        self._epoch = 0
+
+    # -- what a network class supplies ------------------------------------
+    def _layer_items(self):
+        """[(key, layer config)] of the layers in forward order."""
+        raise NotImplementedError
+
+    def _loss(self, params, state, inputs, labels, lmasks=None,
+              generator=None, train=True):
+        raise NotImplementedError
+
+    @property
+    def _input_names(self):
+        """The names of the inputs, in the order a batch's features come."""
+        raise NotImplementedError
+
+    def _unpack(self, ds):
+        """(inputs {name: tensor}, labels [tensor], label masks or None) of
+        a DataSet or MultiDataSet, or of one that the prefetch thread
+        staged, on the network's device."""
+        staged = isinstance(ds, (StagedBatch, StagedMultiBatch))
+        if staged and ds.event is not None:
+            torch.cuda.current_stream(self._device).wait_event(ds.event)
+
+        def tensor(a):
+            if a is None:
+                return None
+            if staged:
+                if a.is_cuda:
+                    # made on the prefetch stream, read on this one
+                    a.record_stream(torch.cuda.current_stream(a.device))
+                return a
+            return torch.as_tensor(np.asarray(a), device=self._device)
+
+        if isinstance(ds, (MultiDataSet, StagedMultiBatch)):
+            fmasks, lmasks = ds.featuresMasks, ds.labelsMasks
+            ins = {n: tensor(f) for n, f in zip(self._input_names,
+                                                ds.features)}
+            labels = [tensor(l) for l in ds.labels]
+        elif isinstance(ds, (DataSet, StagedBatch)):
+            fmasks = None if ds.featuresMask is None else [ds.featuresMask]
+            lmasks = None if ds.labelsMask is None else [ds.labelsMask]
+            ins = {self._input_names[0]: tensor(ds.features)}
+            labels = [tensor(ds.labels)]
+        else:
+            raise TypeError(f"Cannot fit on {type(ds)}")
+        if fmasks is not None and any(m is not None for m in fmasks):
+            raise later(type(self).__name__, "feature masks",
+                        "the recurrent layers (ROADMAP A12)")
+        if lmasks is not None:
+            lmasks = [tensor(m) for m in lmasks]
+        return ins, labels, lmasks
+
+    def _eval_output(self, features, fmask):
+        """The first output for a batch's features (and feature mask)."""
+        raise NotImplementedError
+
+    # -- parameters (≡ Model.params / numParams / paramTable) ---------------
+    def _leaves(self):
+        """Parameter tensors in the JAX package's tree order (keys sorted
+        as strings, then names sorted)."""
+        return [self._params[n][k] for n in sorted(self._params)
+                for k in sorted(self._params[n])]
+
+    def numParams(self):
+        return sum(v.numel() for v in self._leaves())
+
+    def params(self):
+        """Every parameter, flattened into one vector."""
+        leaves = self._leaves()
+        if not leaves:
+            return torch.zeros((0,), device=self._device)
+        return torch.cat([v.reshape(-1) for v in leaves])
+
+    def paramTable(self):
+        """{"<key>_<name>": tensor} of every parameter."""
+        return {f"{key}_{k}": v for key, p in (self._params or {}).items()
+                for k, v in p.items()}
+
+    # -- score ------------------------------------------------------------
+    def _penalty(self, params):
+        items = self._layer_items()
+        return l1l2_penalty([layer for _, layer in items],
+                            [params.get(key, {}) for key, _ in items])
+
+    def score(self, dataset=None):
+        """The loss of the last training step (None before the first), or
+        the inference-mode loss of `dataset` (≡ the reference's
+        score(DataSet))."""
+        if dataset is None:
+            return None if self._score is None else float(self._score)
+        ins, labels, lmasks = self._unpack(dataset)
+        with torch.no_grad():
+            loss, _ = self._loss(self._params, self._state, ins, labels,
+                                 lmasks, None, train=False)
+        return float(loss)
+
+    # -- the optimizer ----------------------------------------------------
+    def _build_optimizer(self):
+        """The optimizer of the configuration: the global updater, and
+        each layer whose own updater differs from it gets its own, all
+        behind the same gradient normalization and weight decay."""
+        defaults = self.conf.defaults
+        glob = defaults.get("updater")
+        gn = defaults.get("gradientNormalization")
+        thr = defaults.get("gradientNormalizationThreshold", 1.0)
+        wd = defaults.get("weightDecay", 0.0) or 0.0
+        overrides = {k: layer.updater for k, layer in self._layer_items()
+                     if layer.updater is not None
+                     and not same_updater(layer.updater, glob)}
+        tx = build_optimizer(glob, gn, thr, wd)
+        if overrides:
+            opts = {"__global__": tx}
+            opts.update({k: build_optimizer(u, gn, thr, wd)
+                         for k, u in overrides.items()})
+            tx = multi_transform(opts, {k: k for k in overrides})
+        self._tx = tx
+        self._opt_state = tx.init(self._params)
+
+    def _apply_constraints(self, params):
+        """The layers' constraints on freshly updated parameters (none
+        declared: the parameters as they are)."""
+        items = self._layer_items()
+        if not any(getattr(layer, "constraints", None)
+                   for _, layer in items):
+            return params
+        return apply_layer_constraints(items, params)
+
+    # -- one step ---------------------------------------------------------
+    def _value_and_grad(self, ins, labels, lmasks=None, generator=None,
+                        state=None):
+        """(loss, gradients {key: {name: tensor}}, new state) of one
+        training-mode forward and backward at the current parameters,
+        from `state` (default: the live state). A parameter the loss does
+        not reach gets a zero gradient, as `jax.grad` gives it."""
+        leaves = {n: {k: v.detach().requires_grad_() for k, v in d.items()}
+                  for n, d in self._params.items()}
+        loss, new_state = self._loss(
+            leaves, self._state if state is None else state, ins, labels,
+            lmasks, generator, train=True)
+        flat = [(n, k, v) for n, d in leaves.items() for k, v in d.items()]
+        grads = torch.autograd.grad(loss, [v for _, _, v in flat],
+                                    allow_unused=True)
+        tree = {}
+        for (n, k, v), g in zip(flat, grads):
+            tree.setdefault(n, {})[k] = torch.zeros_like(v) if g is None \
+                else g
+        new_state = {n: {k: v.detach() for k, v in d.items()}
+                     for n, d in new_state.items()}
+        return loss.detach(), tree, new_state
+
+    def _update_in_place(self, grads, state):
+        """The optimizer's update, then the constraints, written into the
+        live parameter and optimizer-state tensors; `state` into the live
+        BN state."""
+        updates, opt_state = self._tx.update(grads, self._opt_state,
+                                             self._params)
+        params = self._apply_constraints(apply_updates(self._params,
+                                                       updates))
+        copy_into(self._params, params)
+        copy_into(self._opt_state, opt_state)
+        copy_into(self._state, state)
+
+    def _step_in_place(self, ins, labels, lmasks):
+        """One training step written into the live tensors; returns the
+        loss. What a CUDA graph of the step captures, so it reads no
+        device value on the host."""
+        loss, grads, state = self._value_and_grad(ins, labels, lmasks,
+                                                  self._generator)
+        self._update_in_place(grads, state)
+        return loss
+
+    def _accum_step_in_place(self, group):
+        """One update from the G batches of `group` ((ins, labels,
+        lmasks) each): `accumulate`'s mean gradients, one optimizer step;
+        returns the mean loss."""
+        grads, loss, state = accumulate(
+            lambda s, b: self._value_and_grad(*b, self._generator, state=s),
+            self._state, group)
+        self._update_in_place(grads, state)
+        return loss
+
+    def _fit_store_for(self):
+        store = self._fit_store
+        if store is None:
+            store = FunctionStore(
+                f"{model_fingerprint(self)}-fit", self._device,
+                bindings=lambda: (self._params, self._opt_state,
+                                  self._state))
+            store.register("fit", self._step_in_place)
+            store.register("fit_accum", self._accum_step_in_place)
+            self._fit_store = store
+        return store
+
+    def _graph_step(self, key, args):
+        """`key`'s function through its CUDA graph: the first call of a
+        key runs eagerly and is captured after, with static copies of
+        `args` as the graph's inputs; a later one copies `args` into them
+        and replays the graph."""
+        store = self._fit_store_for()
+        if key not in store:
+            out = store.add(key, clone_tree(args),
+                            generators=[self._generator])
+            if store.capture:
+                return out
+        else:
+            copy_into(store.args(key), args)
+        return store.run(key)   # a store that does not capture: eagerly
+
+    def _train_step(self, batches, graphs=True):
+        """One update from one batch or from an accumulation group (a list
+        of unpacked batches), through its CUDA graph on the card when
+        `graphs`; then the counters and the listeners."""
+        if self._tx is None:
+            self._build_optimizer()
+        if self._generator is None:
+            self._generator = torch.Generator(device=self._device)
+            self._generator.manual_seed(int(self.conf.seed))
+        if len(batches) == 1:
+            name, fn, args = "fit", self._step_in_place, batches[0]
+            sig = batch_sig(*batches[0])
+        else:
+            name, fn, args = "fit_accum", self._accum_step_in_place, (
+                tuple(batches),)
+            sig = tuple(batch_sig(*b) for b in batches)
+        if graphs and self._device.type == "cuda":
+            self._score = self._graph_step((name, sig), args)
+        else:
+            self._score = fn(*args)
+        self._iteration += 1
+        for listener in self._listeners:
+            listener.iterationDone(self, self._iteration, self._epoch)
+
+    # -- fit --------------------------------------------------------------
+    def fit(self, data, labels=None, epochs=None, stepsPerDispatch=1,
+            prefetch=None, cudaGraphs=True):
+        """Train on one batch — a DataSet, a MultiDataSet, fit(features,
+        labels) or a (features, labels) pair — or on each batch of an
+        iterable (an iterator with `reset` is reset at each epoch) for
+        `epochs` epochs.
+
+        `prefetch`: the depth of the background staging queue for an
+        iterator that opts in (`asyncSupported()`; None:
+        runtime.pipeline.DEFAULT_PREFETCH, 0: copy each batch when its
+        step starts). `cudaGraphs`: on the card, replay a CUDA graph of
+        the step per batch signature (False: run it eagerly, the
+        reference the graphs are held to). `stepsPerDispatch` k groups k
+        batches into one dispatch in the JAX package, numerically
+        identical to k sequential steps; the port runs the k steps (graph
+        replays on the card) back to back, with no host sync between
+        them. With `.gradientAccumulation(G)` on the configuration, each
+        G consecutive batches of one signature of an iterable make one
+        update (a shorter tail runs batch by batch)."""
+        if self._params is None:
+            self.init()
+        if int(stepsPerDispatch) < 1:
+            raise ValueError(f"stepsPerDispatch must be >= 1, got "
+                             f"{stepsPerDispatch}")
+        graphs = bool(cudaGraphs)
+        one = None
+        if labels is not None:
+            one = DataSet(data, labels)
+        elif isinstance(data, (DataSet, MultiDataSet)):
+            one = data
+        elif (isinstance(data, tuple) and len(data) == 2
+              and not isinstance(data[0], (DataSet, MultiDataSet))):
+            one = DataSet(*data)
+        if one is not None:
+            self._train_step([self._unpack(one)], graphs)
+            return self
+        accum = int(self.conf.defaults.get("gradientAccumulation", 1) or 1)
+        it, prefetcher = maybe_prefetch(data, prefetch, self._device)
+        try:
+            for _ in range(int(epochs) if epochs is not None else 1):
+                if hasattr(it, "reset"):
+                    it.reset()
+                group = []
+                for ds in it:
+                    batch = self._unpack(ds)
+                    if accum == 1:
+                        self._train_step([batch], graphs)
+                        continue
+                    if group and batch_sig(*batch) != batch_sig(*group[0]):
+                        for b in group:
+                            self._train_step([b], graphs)
+                        group = []
+                    group.append(batch)
+                    if len(group) == accum:
+                        self._train_step(group, graphs)
+                        group = []
+                for b in group:
+                    self._train_step([b], graphs)
+                self._epoch += 1
+                for listener in self._listeners:
+                    if hasattr(listener, "onEpochEnd"):
+                        listener.onEpochEnd(self)
+        finally:
+            if prefetcher is not None:
+                prefetcher.close()
+        return self
+
+    def fit_status(self):
+        """The training step's executable store: keys, captures, replays
+        and eager degradations with their reasons (None before the first
+        step on the card with CUDA graphs)."""
+        return None if self._fit_store is None else self._fit_store.status()
+
+    # -- evaluation -------------------------------------------------------
+    def _eval_loop(self, iterator, evaluator, prefetch=None):
+        """Each batch's first output into `evaluator`; the features of an
+        iterator that opts in are staged onto the device in the
+        background while the batch before runs (labels stay on the
+        host)."""
+        it, prefetcher = maybe_prefetch(iterator, prefetch, self._device,
+                                        stage=stage_for_eval)
+        try:
+            if hasattr(it, "reset"):
+                it.reset()
+            for ds in it:
+                if _faults.ACTIVE is not None:
+                    _faults.ACTIVE.fire(_faults.EVAL_FORWARD)
+                feats = ds.features
+                if isinstance(ds, StagedBatch) and ds.event is not None:
+                    cur = torch.cuda.current_stream(self._device)
+                    cur.wait_event(ds.event)
+                    feats.record_stream(cur)
+                with torch.no_grad():
+                    out = self._eval_output(feats, ds.featuresMask)
+                evaluator.eval(ds.labels, out.detach().float().cpu().numpy(),
+                               mask=ds.labelsMask)
+        finally:
+            if prefetcher is not None:
+                prefetcher.close()
+        return evaluator
+
+    def evaluate(self, iterator, prefetch=None):
+        """≡ evaluate(DataSetIterator): classification metrics."""
+        return self._eval_loop(iterator, Evaluation(), prefetch)
+
+    def evaluateROC(self, iterator, threshold_steps=0, prefetch=None):
+        return self._eval_loop(iterator, ROC(threshold_steps), prefetch)
+
+    def evaluateRegression(self, iterator, prefetch=None):
+        return self._eval_loop(iterator, RegressionEvaluation(), prefetch)
+
+    def evaluateROCMultiClass(self, iterator, threshold_steps=0,
+                              prefetch=None):
+        return self._eval_loop(iterator, ROCMultiClass(threshold_steps),
+                               prefetch)
+
+    def evaluateCalibration(self, iterator, reliabilityDiagNumBins=10,
+                            histogramNumBins=10, prefetch=None):
+        return self._eval_loop(
+            iterator, EvaluationCalibration(reliabilityDiagNumBins,
+                                            histogramNumBins), prefetch)
+
+    # -- listeners / counters ---------------------------------------------
+    def setListeners(self, *listeners):
+        if len(listeners) == 1 and isinstance(listeners[0], (list, tuple)):
+            listeners = listeners[0]
+        self._listeners = list(listeners)
+        return self
+
+    def addListeners(self, *listeners):
+        self._listeners.extend(listeners)
+        return self
+
+    def getListeners(self):
+        return list(self._listeners)
+
+    def getIterationCount(self):
+        return self._iteration
+
+    def getEpochCount(self):
+        return self._epoch
+
+
+def as_tensor(v, device):
+    """An array or tensor as a tensor on `device`."""
+    if torch.is_tensor(v):
+        return v.to(device)
+    return torch.as_tensor(np.asarray(v), device=device)

@@ -13,7 +13,8 @@ Conventions, as in the JAX package: NHWC activations, HWIO conv kernels,
 batch-major (B, T, F) sequences. A conv views its NHWC input as NCHW in
 channels-last memory (no copy) and hands cuDNN the kernel permuted to
 OIHW at the call. `dropOut(p)` is the RETAIN probability, inverted
-dropout on the layer input at train time.
+dropout on the layer input at train time; `dropOut` also takes an
+`nn/dropout.py` object (GaussianDropout, AlphaDropout, ...).
 
 Ported so far: DenseLayer, ConvolutionLayer, SubsamplingLayer,
 BatchNormalization, ActivationLayer, DropoutLayer, GlobalPoolingLayer and
@@ -188,6 +189,8 @@ class Layer:
         p = self.dropOut
         if not train or p is None or generator is None:
             return x
+        if hasattr(p, "apply"):  # an IDropout object (nn/dropout.py)
+            return p.apply(x, generator)
         if p == 0.0 or p == 1.0:
             return x
         keep = torch.rand(x.shape, generator=generator,

@@ -1,10 +1,13 @@
-"""ComputationGraph parameters carried across from the JAX package.
+"""Network parameters carried across from the JAX package.
 
 `graph_params_from_numpy` takes a JAX `ComputationGraph`'s `_params` and
 `_state` as numpy dicts (node → {"W", "b", "gamma", "beta"} and
 {"mean", "var"}), checks every node, key and shape against what the
 port's own `init` draws for the same configuration, and installs them on
 the port's graph; `graph_params_to_numpy` is the way back.
+`multilayer_params_from_numpy` / `multilayer_params_to_numpy` do the same
+for a `MultiLayerNetwork`, whose trees are keyed "0".."n-1" as the JAX
+`_params` / `_state` are.
 """
 from __future__ import annotations
 
@@ -13,7 +16,8 @@ import torch
 
 from deeplearning4j_tpu_torch.device import resolve
 
-__all__ = ["graph_params_from_numpy", "graph_params_to_numpy"]
+__all__ = ["graph_params_from_numpy", "graph_params_to_numpy",
+           "multilayer_params_from_numpy", "multilayer_params_to_numpy"]
 
 
 def _shapes(tree):
@@ -41,27 +45,44 @@ def _convert(what, spec, tree, dev):
     return out
 
 
-def graph_params_from_numpy(net, params, state, device=None):
-    """Install the JAX graph's parameters and state (numpy trees) on the
-    port's `net`, on `device` (default: the card). Every node, key and
-    shape is checked against the port's own initialisation of the same
-    configuration. Takes the fusion decision as `init` does, so an
-    uninitialised graph is ready to run afterwards. Returns `net`."""
+def _install(net, params, state, device):
+    """Check `params`/`state` against the port's own draw for `net` (or its
+    live trees) and install them on `device`."""
     dev = resolve(device)
-    if net._params is None:
-        spec_p, spec_s = net._draw()
-        net._decide_fusion()
-    else:
-        spec_p, spec_s = net._params, net._state
+    spec_p, spec_s = ((net._draw() if net._params is None
+                       else (net._params, net._state)))
     net._params = _convert("params", _shapes(spec_p), params, dev)
     net._state = _convert("state", _shapes(spec_s), state, dev)
     net._device = dev
     return net
 
 
+def graph_params_from_numpy(net, params, state, device=None):
+    """Install the JAX graph's parameters and state (numpy trees) on the
+    port's `net`, on `device` (default: the card). Every node, key and
+    shape is checked against the port's own initialisation of the same
+    configuration. Takes the fusion decision as `init` does, so an
+    uninitialised graph is ready to run afterwards. Returns `net`."""
+    if net._params is None:
+        net._decide_fusion()
+    return _install(net, params, state, device)
+
+
 def graph_params_to_numpy(net):
-    """(params, state) of the port's graph as float32 numpy trees."""
+    """(params, state) of the port's graph (or MultiLayerNetwork) as
+    float32 numpy trees."""
     def tree(t):
         return {n: {k: v.detach().float().cpu().numpy()
                     for k, v in d.items()} for n, d in t.items()}
     return tree(net._params), tree(net._state)
+
+
+def multilayer_params_from_numpy(net, params, state, device=None):
+    """Install the JAX MultiLayerNetwork's parameters and state (numpy
+    trees keyed "0".."n-1") on the port's `net`, on `device` (default: the
+    card). Every layer key, name and shape is checked against the port's
+    own initialisation of the same configuration. Returns `net`."""
+    return _install(net, params, state, device)
+
+
+multilayer_params_to_numpy = graph_params_to_numpy

@@ -1,0 +1,334 @@
+"""MultiLayerNetwork (≡ deeplearning4j-nn :: multilayer.MultiLayerNetwork):
+the port of `deeplearning4j_tpu/nn/multilayer.py`.
+
+A stack of layers built by `NeuralNetConfiguration.Builder()...list()`.
+Parameters and state are dicts of tensors keyed "0".."n-1" (the layer's
+index) and then by name ({"W", "b", "gamma", "beta"}, {"mean", "var"}),
+the JAX package's trees, so weights carry across as numpy
+(`nn/convert.py`'s `multilayer_params_from_numpy`). Outputs are tensors on
+the network's device.
+
+`init(device=None)` draws the parameters from `conf.seed` on the CPU, in
+layer order from one generator, and moves them to the card (or to
+`device`). Training and evaluation are `nn/_network.py`'s, shared with
+ComputationGraph: `fit` in the array, DataSet and iterator forms (epochs,
+`stepsPerDispatch`, `prefetch`, `cudaGraphs`), any updater and schedule,
+constraints, dropout objects and `.gradientAccumulation(G)`; on the card
+the step replays one CUDA graph per batch signature (`fit_status()`);
+`evaluate`, `evaluateROC`, `evaluateRegression`, `evaluateROCMultiClass`
+and `evaluateCalibration` feed the `eval/` evaluators.
+
+Not ported yet, each raising and naming its ROADMAP item: stateful RNN
+stepping, truncated BPTT and feature masks (A12), `pretrain` /
+`pretrainLayer` (A12, variational layers), `getPredictedObjects` (A12,
+detection heads), `save` / `load` / `toJson` (A12, the checkpoint
+formats), frozen layers (A17, transfer learning), `weightNoise` (A12),
+activation remat (a later part of A10). The JAX package's guardian and
+watchdog hooks come with the port's resilience trainer (A14).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+from deeplearning4j_tpu_torch.device import resolve
+from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+from deeplearning4j_tpu_torch.nn._network import (Network, as_tensor,
+                                                  compute_dtype, later,
+                                                  to_device)
+from deeplearning4j_tpu_torch.nn.activations import get_activation
+from deeplearning4j_tpu_torch.nn.conf.builders import BackpropType
+
+__all__ = ["MultiLayerNetwork"]
+
+
+def _later(what, where):
+    return later("MultiLayerNetwork", what, where)
+
+
+class MultiLayerNetwork(Network):
+    def __init__(self, conf):
+        self.conf = conf
+        self.layers = conf.layers
+        self._params = None
+        self._state = None
+        self._device = None
+        self._compute_dtype = compute_dtype(conf)
+        self._fused_pairs = {}   # no fusion pass: read by model_fingerprint
+        self._reset_training()
+
+    _input_names = ("input",)
+
+    def _layer_items(self):
+        return [(str(i), layer) for i, layer in enumerate(self.layers)]
+
+    # -- lifecycle -------------------------------------------------------
+    def _check_layers(self):
+        for i, layer in enumerate(self.layers):
+            if getattr(layer, "frozen", False) or getattr(
+                    layer, "frozen_params", False):
+                raise _later(f"frozen layer {i}", "transfer learning "
+                             "(transfer/, ROADMAP A17)")
+            if getattr(layer, "weightNoise", None) is not None:
+                raise _later(f"weightNoise on layer {i}", "ROADMAP A12")
+
+    def _draw(self):
+        """(params, state) on the CPU, drawn in layer order from one
+        generator seeded with conf.seed."""
+        if self.conf.input_type is None:
+            raise ValueError("setInputType(...) (or explicit nIn on every "
+                             "layer) is required before init()")
+        self._check_layers()
+        gen = torch.Generator().manual_seed(int(self.conf.seed))
+        ps, ss = {}, {}
+        for i, layer in enumerate(self.layers):
+            p, s, _ = layer.initialize(gen, self.conf.input_types[i])
+            if p:
+                ps[str(i)] = p
+            if s:
+                ss[str(i)] = s
+        return ps, ss
+
+    def init(self, device=None, params=None):
+        """Draw the parameters and state from conf.seed and place them on
+        `device` (default: the card; raises without one unless the caller
+        passes device='cpu'). `params`: a flat vector for setParams."""
+        dev = resolve(device)
+        ps, ss = self._draw()
+        self._params, self._state = to_device(ps, dev), to_device(ss, dev)
+        self._device = dev
+        if params is not None:
+            self.setParams(params)
+        return self
+
+    def clone(self):
+        """A copy with its own parameter and state tensors and an optimizer
+        of its own (fresh state, built at its first fit)."""
+        m = MultiLayerNetwork(self.conf)
+        m._device = self._device
+        if self._params is not None:
+            m._params = {n: {k: v.clone() for k, v in d.items()}
+                         for n, d in self._params.items()}
+            m._state = {n: {k: v.clone() for k, v in d.items()}
+                        for n, d in self._state.items()}
+        return m
+
+    # -- parameters (≡ Model.params / numParams / paramTable) ------------
+    def setParams(self, flat):
+        """Write a flat vector (in `params()` order) into the parameters,
+        in place."""
+        flat = as_tensor(flat, self._device).reshape(-1)
+        leaves = self._leaves()
+        n = sum(v.numel() for v in leaves)
+        if flat.numel() != n:
+            raise ValueError(f"setParams: expected {n} values, got "
+                             f"{flat.numel()}")
+        off = 0
+        with torch.no_grad():
+            for v in leaves:
+                v.copy_(flat[off:off + v.numel()].reshape(v.shape))
+                off += v.numel()
+        return self
+
+    def getParam(self, key):
+        li, name = key.split("_", 1)
+        return self._params[li][name]
+
+    def setParam(self, key, value):
+        li, name = key.split("_", 1)
+        with torch.no_grad():
+            self._params[li][name].copy_(as_tensor(value, self._device))
+
+    # -- forward ---------------------------------------------------------
+    def _forward(self, params, state, x, train, generator=None,
+                 collect=False):
+        """(output, the output layer's pre-activation or None, new state,
+        every layer's activation when `collect`)."""
+        if train and (getattr(self.conf, "remat_policy", "none") != "none"
+                      or any(getattr(l, "remat", False)
+                             for l in self.layers)):
+            raise _later("remat", "a later slice of the nn core "
+                         "(ROADMAP A10)")
+        x = x.to(self._compute_dtype)
+        acts = []
+        new_state = dict(state)
+        preact = None
+        for i, layer in enumerate(self.layers):
+            pp = self.conf.preprocessors.get(i)
+            if pp is not None:
+                x = pp.preProcess(x)
+            p = params.get(str(i), {})
+            s = state.get(str(i), {})
+            if i == len(self.layers) - 1 and hasattr(layer, "compute_loss") \
+                    and hasattr(layer, "pre_activation"):
+                xd = layer._dropout_in(x, train, generator)
+                preact = layer.pre_activation(p, xd)
+                x = get_activation(layer.activation)(preact)
+            else:
+                x, ns = layer.apply(p, s, x, train=train,
+                                    generator=generator)
+                if ns:
+                    new_state[str(i)] = ns
+            if collect:
+                acts.append(x)
+        return x, preact, new_state, acts
+
+    def _input(self, x):
+        if self._params is None:
+            raise ValueError("init() (or multilayer_params_from_numpy) "
+                             "first")
+        return as_tensor(x, self._device)
+
+    def output(self, x, train=False, fmask=None, generator=None):
+        """The last layer's activation for `x` (array or tensor). `train`
+        runs dropout (from `generator`) and batch-statistics BN, without
+        touching the stored state."""
+        if fmask is not None:
+            raise _later("feature masks", "the recurrent layers (ROADMAP "
+                         "A12)")
+        y, _, _, _ = self._forward(self._params, self._state, self._input(x),
+                                   train, generator)
+        return y
+
+    def _eval_output(self, features, fmask):
+        return self.output(features, fmask=fmask)
+
+    def feedForward(self, x, train=False, generator=None):
+        """Every layer's activation, in order."""
+        _, _, _, acts = self._forward(self._params, self._state,
+                                      self._input(x), train, generator,
+                                      collect=True)
+        return acts
+
+    def activateSelectedLayers(self, from_idx, to_idx, x):
+        """Layers [from_idx, to_idx] inclusive applied, in inference mode,
+        to `x`, which must already be layer from_idx's input."""
+        x = self._input(x).to(self._compute_dtype)
+        for i in range(int(from_idx), int(to_idx) + 1):
+            pp = self.conf.preprocessors.get(i)
+            if pp is not None:
+                x = pp.preProcess(x)
+            x, _ = self.layers[i].apply(self._params.get(str(i), {}),
+                                        self._state.get(str(i), {}), x,
+                                        train=False)
+        return x
+
+    def getOutputLayer(self):
+        return self.layers[-1]
+
+    def predict(self, x):
+        """≡ Classifier.predict: the argmax class index per example."""
+        if isinstance(x, DataSet):
+            x = x.features
+        return self.output(x).argmax(-1).cpu().numpy()
+
+    def f1Score(self, data, labels=None):
+        """≡ Classifier.f1Score(DataSet | (examples, labels)): the
+        macro-averaged F1 (Evaluation.f1()'s default) of one forward."""
+        mask = None
+        if isinstance(data, DataSet):
+            feats, labels, mask = data.features, data.labels, data.labelsMask
+        else:
+            feats = data
+        ev = Evaluation()
+        ev.eval(np.asarray(labels), self.output(feats).float().cpu().numpy(),
+                mask)
+        return ev.f1()
+
+    # -- loss and gradients ----------------------------------------------
+    def _loss(self, params, state, inputs, labels, lmasks=None,
+              generator=None, train=True):
+        """(the scalar loss, the new state): the output layer's loss on its
+        pre-activation in f32, plus the L1/L2 penalty."""
+        out_layer = self.layers[-1]
+        if not hasattr(out_layer, "compute_loss"):
+            raise ValueError("Last layer must be an OutputLayer/LossLayer "
+                             "to fit()")
+        _, preact, new_state, _ = self._forward(params, state,
+                                                inputs["input"], train,
+                                                generator)
+        lm = None if lmasks is None else lmasks[0]
+        data_loss = out_layer.compute_loss(labels[0].to(torch.float32),
+                                           preact.float(), lm)
+        return data_loss + self._penalty(params), new_state
+
+    def computeGradients(self, x, y, fmask=None, lmask=None):
+        """Gradients of the full regularized loss at the current
+        parameters ({key: {name: tensor}}; ≡ GradientCheckUtil's use)."""
+        ins, labels, lmasks = self._unpack(DataSet(x, y, fmask, lmask))
+        _, grads, _ = self._value_and_grad(ins, labels, lmasks)
+        return grads
+
+    # -- training --------------------------------------------------------
+    def fit(self, data, labels=None, epochs=None, stepsPerDispatch=1,
+            prefetch=None, cudaGraphs=True):
+        if self.conf.backprop_type == BackpropType.TruncatedBPTT:
+            raise _later("truncated BPTT", "the recurrent layers (ROADMAP "
+                         "A12)")
+        return super().fit(data, labels, epochs, stepsPerDispatch,
+                           prefetch, cudaGraphs)
+
+    fit.__doc__ = Network.fit.__doc__
+
+    # -- misc parity -------------------------------------------------------
+    def getnLayers(self):
+        return len(self.layers)
+
+    def getLayer(self, idx):
+        return self.layers[idx]
+
+    def summary(self):
+        lines = ["=" * 72,
+                 f"{'Idx':<4}{'Layer':<28}{'Out':<22}{'nParams':>10}",
+                 "-" * 72]
+        total = 0
+        for i, l in enumerate(self.layers):
+            p = self._params.get(str(i), {}) if self._params else {}
+            n = sum(v.numel() for v in p.values())
+            total += n
+            out = self.conf.input_types[i]
+            out_str = str(l.output_type(out).shape()) if out is not None \
+                else "?"
+            lines.append(f"{i:<4}{type(l).__name__:<28}{out_str:<22}"
+                         f"{n:>10,}")
+        lines += ["-" * 72, f"Total params: {total:,}", "=" * 72]
+        return "\n".join(lines)
+
+    # -- later slices ----------------------------------------------------
+    def rnnTimeStep(self, x):
+        raise _later("rnnTimeStep (carried recurrent state)",
+                     "the recurrent layers (ROADMAP A12)")
+
+    def rnnClearPreviousState(self):
+        raise _later("rnnClearPreviousState", "the recurrent layers "
+                     "(ROADMAP A12)")
+
+    def rnnGetPreviousState(self, layer_idx):
+        raise _later("rnnGetPreviousState", "the recurrent layers "
+                     "(ROADMAP A12)")
+
+    def pretrain(self, data, epochs=1):
+        raise _later("pretrain", "the variational layers (variational.py, "
+                     "ROADMAP A12)")
+
+    def pretrainLayer(self, layer_idx, data, epochs=1):
+        raise _later("pretrainLayer", "the variational layers "
+                     "(variational.py, ROADMAP A12)")
+
+    def getPredictedObjects(self, x, confThreshold=0.5, nmsThreshold=0.4):
+        raise _later("getPredictedObjects", "the detection heads "
+                     "(objdetect.py, ROADMAP A12)")
+
+    def save(self, path, saveUpdater=True):
+        raise _later("save", "the checkpoint formats "
+                     "(util/model_serializer.py, ROADMAP A12)")
+
+    @staticmethod
+    def load(path, loadUpdater=True):
+        raise _later("load", "the checkpoint formats "
+                     "(util/model_serializer.py, ROADMAP A12)")
+
+    def toJson(self):
+        raise _later("toJson", "the configuration formats (util/serde.py, "
+                     "ROADMAP A12)")

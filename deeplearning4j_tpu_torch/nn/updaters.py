@@ -20,9 +20,12 @@ rounding. The updaters and `apply_updates` run PyTorch's multi-tensor
 dtype, not one per leaf (ResNet-50 has 161 leaves). `multi_transform` gives layers their own updaters, as the JAX
 graph does with `optax.multi_transform`.
 
-Ported: Sgd, Nesterovs (with `momentumDtype`) and Adam, the updaters the
-zoo and the ResNet-50 training path use. Schedules (a learning rate that
-is not a number) and the other updaters raise, naming their slice.
+All ten updaters of the JAX package are ported: Sgd, Nesterovs (with
+`momentumDtype`), Adam, AdaMax, Nadam, AMSGrad, RmsProp, AdaGrad, AdaDelta
+and NoOp, each with optax's formulas. A learning rate may be a number or a
+schedule (`nn/schedules.py`): a schedule's rate is computed on the device
+from an int32 count in the optimizer state, which the step advances
+(optax.scale_by_schedule), so a CUDA graph of the step follows it.
 """
 from __future__ import annotations
 
@@ -31,27 +34,27 @@ import numbers
 import numpy as np
 import torch
 
-_LATER_UPDATERS = "the updaters slice of the port (ROADMAP A10)"
+from deeplearning4j_tpu_torch.nn.schedules import as_schedule
+
 _DTYPES = {"float32": torch.float32, "float": torch.float32,
            "bfloat16": torch.bfloat16, "float16": torch.float16,
            "half": torch.float16, "float64": torch.float64}
 
 
 def _lr(value):
+    """The transform that scales by −learning rate: optax.scale for a
+    number, optax.scale_by_schedule for a schedule or a callable of the
+    count."""
     if isinstance(value, numbers.Real):
-        return float(value)
-    raise NotImplementedError(
-        f"learning-rate schedule {value!r}: nn/schedules.py is not ported "
-        f"yet; it comes with {_LATER_UPDATERS}")
+        return _Scale(-float(value))
+    return _ScaleBySchedule(as_schedule(value))
 
 
 class Updater:
     """Base of the updater configurations."""
 
     def to_transform(self):
-        raise NotImplementedError(
-            f"updater {type(self).__name__} is not ported yet; it comes with "
-            f"{_LATER_UPDATERS}")
+        raise NotImplementedError
 
     def config(self):
         return {"type": type(self).__name__, **self.__dict__}
@@ -69,7 +72,7 @@ class Sgd(Updater):
         self.learningRate = learningRate
 
     def to_transform(self):
-        return _Scale(-_lr(self.learningRate))
+        return _lr(self.learningRate)
 
 
 class Nesterovs(Updater):
@@ -90,7 +93,7 @@ class Nesterovs(Updater):
                                  f"expected one of {sorted(_DTYPES)}")
             acc = _DTYPES[key]
         return _Chain([_Trace(float(self.momentum), True, acc),
-                       _Scale(-_lr(self.learningRate))])
+                       _lr(self.learningRate)])
 
 
 class Adam(Updater):
@@ -102,19 +105,28 @@ class Adam(Updater):
     def to_transform(self):
         return _Chain([_ScaleByAdam(float(self.beta1), float(self.beta2),
                                     float(self.epsilon)),
-                       _Scale(-_lr(self.learningRate))])
+                       _lr(self.learningRate)])
 
 
 class AdaMax(Adam):
-    to_transform = Updater.to_transform
+    def to_transform(self):
+        return _Chain([_ScaleByAdamax(float(self.beta1), float(self.beta2),
+                                      float(self.epsilon)),
+                       _lr(self.learningRate)])
 
 
 class Nadam(Adam):
-    to_transform = Updater.to_transform
+    def to_transform(self):
+        return _Chain([_ScaleByAdam(float(self.beta1), float(self.beta2),
+                                    float(self.epsilon), nesterov=True),
+                       _lr(self.learningRate)])
 
 
 class AMSGrad(Adam):
-    to_transform = Updater.to_transform
+    def to_transform(self):
+        return _Chain([_ScaleByAmsgrad(float(self.beta1), float(self.beta2),
+                                       float(self.epsilon)),
+                       _lr(self.learningRate)])
 
 
 class RmsProp(Updater):
@@ -122,19 +134,38 @@ class RmsProp(Updater):
         self.learningRate, self.rmsDecay = learningRate, rmsDecay
         self.epsilon = epsilon
 
+    def to_transform(self):
+        return _Chain([_ScaleByRms(float(self.rmsDecay),
+                                   float(self.epsilon)),
+                       _lr(self.learningRate)])
+
 
 class AdaGrad(Updater):
+    """optax.adagrad: its accumulators start at 0.1."""
+
     def __init__(self, learningRate=1e-1, epsilon=1e-6):
         self.learningRate, self.epsilon = learningRate, epsilon
 
+    def to_transform(self):
+        return _Chain([_ScaleByRss(0.1, float(self.epsilon)),
+                       _lr(self.learningRate)])
+
 
 class AdaDelta(Updater):
+    """optax.adadelta with no learning rate, as the JAX package builds it."""
+
     def __init__(self, rho=0.95, epsilon=1e-6):
         self.rho, self.epsilon = rho, epsilon
 
+    def to_transform(self):
+        return _ScaleByAdadelta(float(self.rho), float(self.epsilon))
+
 
 class NoOp(Updater):
-    pass
+    """optax.set_to_zero."""
+
+    def to_transform(self):
+        return _SetToZero()
 
 
 class GradientNormalization:
@@ -256,31 +287,189 @@ class _ScaleByAdam(_Transform):
     CUDA graph of the step reads the live count at every replay and the
     eager step computes the same bits."""
 
-    def __init__(self, b1, b2, eps):
+    def __init__(self, b1, b2, eps, nesterov=False):
         self.b1, self.b2, self.eps = b1, b2, eps
+        self.nesterov = nesterov
 
     def init(self, params):
-        dev = params[0].device if params else None
-        return (torch.zeros((), dtype=torch.int32, device=dev),
-                [torch.zeros_like(p) for p in params],
-                [torch.zeros_like(p) for p in params])
+        return _count_and_moments(params)
 
     def update(self, grads, state, params):
         count, mu, nu = state
         f = torch
-        mu = f._foreach_add(f._foreach_mul(grads, 1 - self.b1),
-                            f._foreach_mul(mu, self.b1))
-        nu = f._foreach_add(f._foreach_mul(f._foreach_mul(grads, grads),
-                                           1 - self.b2),
-                            f._foreach_mul(nu, self.b2))
+        mu = _moment(grads, mu, self.b1, 1)
+        nu = _moment(grads, nu, self.b2, 2)
         count = count + 1
         c = count.to(torch.float32)
-        bc1 = 1 - torch.pow(float(np.float32(self.b1)), c)
-        bc2 = 1 - torch.pow(float(np.float32(self.b2)), c)
+        bc1 = _bias_correction(self.b1, c)
+        bc2 = _bias_correction(self.b2, c)
+        if self.nesterov:
+            # Nadam: b1·μ̂(count+1) + (1−b1)·ĝ(count)
+            mu_hat = f._foreach_add(
+                f._foreach_mul(f._foreach_div(
+                    mu, _bias_correction(self.b1, c + 1)), self.b1),
+                f._foreach_mul(f._foreach_div(grads, bc1), 1 - self.b1))
+        else:
+            mu_hat = f._foreach_div(mu, bc1)
         denom = f._foreach_add(f._foreach_sqrt(f._foreach_div(nu, bc2)),
                                self.eps)
-        upd = f._foreach_div(f._foreach_div(mu, bc1), denom)
+        upd = f._foreach_div(mu_hat, denom)
         return list(upd), (count, list(mu), list(nu))
+
+
+def _count_and_moments(params):
+    """(an int32 count on the parameters' device, μ, ν): zeros."""
+    dev = params[0].device if params else None
+    return (torch.zeros((), dtype=torch.int32, device=dev),
+            [torch.zeros_like(p) for p in params],
+            [torch.zeros_like(p) for p in params])
+
+
+def _bias_correction(decay, count):
+    """1 − decay**count in f32, optax's bias correction (count an f32
+    tensor on the device)."""
+    return 1 - torch.pow(float(np.float32(decay)), count)
+
+
+def _moment(grads, state, decay, order):
+    """optax.tree.update_moment: (1 − decay)·g**order + decay·t."""
+    f = torch
+    g = f._foreach_mul(grads, grads) if order == 2 else grads
+    return f._foreach_add(f._foreach_mul(g, 1 - decay),
+                          f._foreach_mul(state, decay))
+
+
+class _ScaleBySchedule(_Transform):
+    """optax.scale_by_schedule(−schedule): the rate at the int32 count,
+    on the device, then the count advanced."""
+
+    def __init__(self, schedule):
+        self.schedule = schedule
+
+    def init(self, params):
+        dev = params[0].device if params else None
+        return torch.zeros((), dtype=torch.int32, device=dev)
+
+    def update(self, grads, count, params):
+        step = -1 * self.schedule(count).to(torch.float32)
+        upd = [g * step.to(g.dtype) for g in grads]
+        return upd, count + 1
+
+
+class _ScaleByAdamax(_Transform):
+    """optax.scale_by_adamax: μ' = (1−b1)·g + b1·μ, ν' = max(|g| + ε,
+    b2·ν), the update μ̂/ν' (bias-corrected μ only)."""
+
+    def __init__(self, b1, b2, eps):
+        self.b1, self.b2, self.eps = b1, b2, eps
+
+    def init(self, params):
+        return _count_and_moments(params)
+
+    def update(self, grads, state, params):
+        count, mu, nu = state
+        f = torch
+        count = count + 1
+        mu = _moment(grads, mu, self.b1, 1)
+        nu = f._foreach_maximum(f._foreach_add(f._foreach_abs(grads),
+                                               self.eps),
+                                f._foreach_mul(nu, self.b2))
+        bc1 = _bias_correction(self.b1, count.to(torch.float32))
+        upd = f._foreach_div(f._foreach_div(mu, bc1), nu)
+        return list(upd), (count, list(mu), list(nu))
+
+
+class _ScaleByAmsgrad(_Transform):
+    """optax.scale_by_amsgrad: Adam's moments, the update μ̂ / (√max(ν̂
+    so far) + ε)."""
+
+    def __init__(self, b1, b2, eps):
+        self.b1, self.b2, self.eps = b1, b2, eps
+
+    def init(self, params):
+        return _count_and_moments(params) + ([torch.zeros_like(p)
+                                              for p in params],)
+
+    def update(self, grads, state, params):
+        count, mu, nu, nu_max = state
+        f = torch
+        mu = _moment(grads, mu, self.b1, 1)
+        nu = _moment(grads, nu, self.b2, 2)
+        count = count + 1
+        c = count.to(torch.float32)
+        mu_hat = f._foreach_div(mu, _bias_correction(self.b1, c))
+        nu_hat = f._foreach_div(nu, _bias_correction(self.b2, c))
+        nu_max = f._foreach_maximum(nu_max, nu_hat)
+        upd = f._foreach_div(mu_hat, f._foreach_add(f._foreach_sqrt(nu_max),
+                                                    self.eps))
+        return list(upd), (count, list(mu), list(nu), list(nu_max))
+
+
+class _ScaleByRms(_Transform):
+    """optax.scale_by_rms: ν' = (1−decay)·g² + decay·ν, the update
+    g / √(ν' + ε)."""
+
+    def __init__(self, decay, eps):
+        self.decay, self.eps = decay, eps
+
+    def init(self, params):
+        return [torch.zeros_like(p) for p in params]
+
+    def update(self, grads, nu, params):
+        f = torch
+        nu = _moment(grads, nu, self.decay, 2)
+        upd = f._foreach_mul(f._foreach_rsqrt(f._foreach_add(nu, self.eps)),
+                             grads)
+        return list(upd), list(nu)
+
+
+class _ScaleByRss(_Transform):
+    """optax.scale_by_rss: s' = g² + s, the update g / √(s' + ε) where
+    s' > 0, else 0."""
+
+    def __init__(self, initial, eps):
+        self.initial, self.eps = initial, eps
+
+    def init(self, params):
+        return [torch.full_like(p, self.initial) for p in params]
+
+    def update(self, grads, sums, params):
+        f = torch
+        sums = f._foreach_add(f._foreach_mul(grads, grads), sums)
+        upd = [torch.where(s > 0, torch.rsqrt(s + self.eps),
+                           torch.zeros_like(s)) * g
+               for s, g in zip(sums, grads)]
+        return upd, list(sums)
+
+
+class _ScaleByAdadelta(_Transform):
+    """optax.scale_by_adadelta: E[g²]' = (1−ρ)·g² + ρ·E[g²], the update
+    √(E[x²] + ε) / √(E[g²]' + ε) · g, then E[x²]' from the update."""
+
+    def __init__(self, rho, eps):
+        self.rho, self.eps = rho, eps
+
+    def init(self, params):
+        return ([torch.zeros_like(p) for p in params],
+                [torch.zeros_like(p) for p in params])
+
+    def update(self, grads, state, params):
+        e_g, e_x = state
+        f = torch
+        e_g = _moment(grads, e_g, self.rho, 2)
+        upd = f._foreach_mul(
+            f._foreach_div(f._foreach_sqrt(f._foreach_add(e_x, self.eps)),
+                           f._foreach_sqrt(f._foreach_add(e_g, self.eps))),
+            grads)
+        e_x = _moment(upd, e_x, self.rho, 2)
+        return list(upd), (list(e_g), list(e_x))
+
+
+class _SetToZero(_Transform):
+    """optax.set_to_zero."""
+
+    def leaf(self, g, p):
+        return torch.zeros_like(g)
 
 
 def build_optimizer(updater, gradient_normalization=None,
@@ -309,9 +498,8 @@ def build_optimizer(updater, gradient_normalization=None,
     if weight_decay:
         chain.append(_AddDecayedWeights(float(weight_decay)))
     if not isinstance(updater, Updater):
-        raise NotImplementedError(
-            f"updater {updater!r} is not an Updater config; optax-style "
-            f"transformations come with {_LATER_UPDATERS}")
+        raise TypeError(f"updater {updater!r} is not an Updater config "
+                        "(Sgd, Adam, Nesterovs, ...)")
     chain.append(updater.to_transform())
     return Optimizer({_GLOBAL: _Chain(chain)})
 

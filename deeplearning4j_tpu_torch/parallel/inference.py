@@ -6,8 +6,9 @@ One model serves every thread; the value is in the coalescing. A
 collector thread drains the request queue, groups compatible shapes up
 to `batchLimit` rows, pads the batch dim to a power of two, runs one
 `model.output` and scatters the rows back to their callers as numpy
-arrays. With a `ComputationGraph` whose conv1x1+BN fusion is on, each
-forward runs the hand-written epilogue GEMM on the card.
+arrays. The model is a `ComputationGraph` or a `MultiLayerNetwork`. With
+a `ComputationGraph` whose conv1x1+BN fusion is on, each forward runs the
+hand-written epilogue GEMM on the card.
 
 Graceful degradation, as in the JAX package — callers never block
 indefinitely:
@@ -295,10 +296,14 @@ class ParallelInference:
             return [tuple(a.shape[1:]) for a in xs]
         conf = getattr(self.model, "conf", None)
         types = getattr(conf, "node_output_types", None)
-        if not types:
+        if types:
+            feats = [tuple(types[n].shape()) for n in conf.input_names]
+        elif getattr(conf, "input_type", None) is not None:
+            # a MultiLayerConfiguration: one input
+            feats = [tuple(conf.input_type.shape())]
+        else:
             raise ValueError("the model has no input types: pass "
                              "warmup(example=)")
-        feats = [tuple(types[n].shape()) for n in conf.input_names]
         if any(d is None for shp in feats for d in shp):
             raise ValueError(f"cannot warm variable-size inputs {feats}: "
                              "pass warmup(example=)")

@@ -10,10 +10,12 @@ then copies into its graph's static inputs. This replaces the synchronous copy f
 `fit` made for every batch. The staged tensors own their memory; none
 aliases the caller's numpy arrays.
 
-Differences from the reference: the port has no DataSetIterator classes
-yet (ROADMAP A18), so `maybe_prefetch` wraps any iterable of DataSets
-except one whose `asyncSupported()` says no, and the staging has no
-monitoring counters (ROADMAP A16).
+As in the reference, `maybe_prefetch` wraps only an iterable that opts in
+(`asyncSupported()` True, as every `datasets.iterators.DataSetIterator`
+does): a plain list of DataSets is stepped through as it is. The
+evaluation loop stages with `stage_for_eval` (features only; the
+evaluators read the labels on the host). Difference from the reference:
+the staging has no monitoring counters (ROADMAP A16).
 """
 from __future__ import annotations
 
@@ -30,7 +32,8 @@ from deeplearning4j_tpu_torch.runtime.executables import (StagingRing,
                                                           torch_dtype)
 
 __all__ = ["DEFAULT_PREFETCH", "PrefetchIterator", "StagedBatch",
-           "StagedMultiBatch", "maybe_prefetch", "stage_dataset"]
+           "StagedMultiBatch", "maybe_prefetch", "stage_dataset",
+           "stage_for_eval"]
 
 #: default staging queue depth (double buffer): batch N+1 stages while
 #: step N computes. 0 disables prefetch.
@@ -102,6 +105,15 @@ def stage_dataset(ds, device, ring=None, stream=None):
     if multi:
         return StagedMultiBatch(*groups, event=event)
     return StagedBatch(*(g[0] for g in groups), event=event)
+
+
+def stage_for_eval(ds, device, ring=None, stream=None):
+    """A DataSet's features staged onto `device` as `stage_dataset` stages
+    them; the labels and masks stay numpy for the evaluators."""
+    staged = stage_dataset(StagedBatch(ds.features, None), device, ring,
+                           stream)
+    return StagedBatch(staged.features, ds.labels, ds.featuresMask,
+                       ds.labelsMask, event=staged.event)
 
 
 class PrefetchIterator:
@@ -237,21 +249,21 @@ class PrefetchIterator:
             self._base.reset()
 
 
-def maybe_prefetch(data, depth, device):
+def maybe_prefetch(data, depth, device, stage=stage_dataset):
     """(iterator, prefetcher or None): `data` wrapped in a PrefetchIterator
-    that stages onto `device` when `depth` (None: DEFAULT_PREFETCH) is
-    above 0 and `data` does not refuse (`asyncSupported()` False). The
-    second element is the caller's close() handle."""
+    that stages onto `device` with `stage` when `depth` (None:
+    DEFAULT_PREFETCH) is above 0 and `data` opts in (`asyncSupported()`
+    True). The second element is the caller's close() handle."""
     depth = DEFAULT_PREFETCH if depth is None else int(depth)
     if depth <= 0 or isinstance(data, PrefetchIterator):
         return data, None
     sup = getattr(data, "asyncSupported", None)
-    if sup is not None and not sup():
+    if sup is None or not sup():
         return data, None
     dev = torch.device(device)
     ring = StagingRing(2)
     stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
     pf = PrefetchIterator(
         data, depth=depth,
-        stage=lambda ds: stage_dataset(ds, dev, ring, stream))
+        stage=lambda ds: stage(ds, dev, ring, stream))
     return pf, pf

@@ -2,7 +2,9 @@
 functions, on the card: the decode superstep at two rungs, admit, grow and
 retire; three `fit` steps of a small fused CNN (Nesterovs and Adam, and
 dropout); an inference bucket; and both after a weight load rebinds the
-tensors their graphs were captured with. Every replay must give the eager
+tensors their graphs were captured with; and MultiLayerNetwork.fit of a
+small `.list()` CNN with a schedule, dropout, a constraint and gradient
+accumulation. Every replay must give the eager
 run's bits, and the kernels' launch counters must advance on replay as they do
 on an eager call. Every test is marked `cuda` and skips without a CUDA
 device; the file imports nothing of JAX, so it runs on the card with
@@ -15,17 +17,21 @@ import numpy as np
 import pytest
 import torch
 
-from deeplearning4j_tpu_torch.datasets import DataSet
+from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator
 from deeplearning4j_tpu_torch.generation import BertDecoder, GenerationServer
 from deeplearning4j_tpu_torch.kernels import pointwise_conv as tpc
 from deeplearning4j_tpu_torch.models import bert_tiny, init_bert_params
 from deeplearning4j_tpu_torch.nn import (Adam, BatchNormalization,
                                          ComputationGraph, ConvolutionLayer,
                                          DenseLayer, GlobalPoolingLayer,
-                                         InputType, Nesterovs,
-                                         NeuralNetConfiguration, OutputLayer)
+                                         InputType, MaxNormConstraint,
+                                         MultiLayerNetwork, Nesterovs,
+                                         NeuralNetConfiguration, OutputLayer,
+                                         StepSchedule, SubsamplingLayer)
 from deeplearning4j_tpu_torch.nn.convert import (graph_params_from_numpy,
-                                                 graph_params_to_numpy)
+                                                 graph_params_to_numpy,
+                                                 multilayer_params_from_numpy,
+                                                 multilayer_params_to_numpy)
 from deeplearning4j_tpu_torch.runtime.executables import (ExecutableStore,
                                                           tensor_leaves)
 
@@ -198,7 +204,8 @@ def test_cuda_fit_step_replays_bit_identical_to_eager(card, monkeypatch,
     launched, scores = [], []
     for net, graphs, prefetch in ((nets[0], True, 2), (nets[1], False, 0)):
         before = [k.launches for k in kernels]
-        net.fit(_batches(), prefetch=prefetch, cudaGraphs=graphs)
+        net.fit(ListDataSetIterator(_batches(), 16), prefetch=prefetch,
+                cudaGraphs=graphs)
         torch.cuda.synchronize()
         launched.append([k.launches - b for k, b in zip(kernels, before)])
         scores.append(net.score())
@@ -289,3 +296,89 @@ def test_cuda_inference_bucket_follows_a_weight_load(card, monkeypatch):
     assert not torch.equal(got, before)
     assert (store.stats["rebinds"], store.stats["captures"],
             store.stats["live_captures"]) == (1, 2, 0)
+
+
+# -- MultiLayerNetwork ----------------------------------------------------------
+def _mln_conf(case):
+    """A small `.list()` CNN: 3×3 conv, BN, pool, dense, softmax head, with
+    the case's updater, schedule, dropout, constraint or accumulation."""
+    lr = StepSchedule(0.05, 0.5, 2) if case == "schedule" else 0.05
+    b = (NeuralNetConfiguration.Builder().seed(5).weightInit("relu")
+         .updater(Adam(1e-2) if case == "adam-dropout"
+                  else Nesterovs(lr, 0.9)))
+    if case == "accumulation":
+        b = b.gradientAccumulation(2)
+    return (b.list()
+            .layer(ConvolutionLayer(kernelSize=(3, 3), nOut=8,
+                                    convolutionMode="same",
+                                    activation="identity"))
+            .layer(BatchNormalization(activation="relu"))
+            .layer(SubsamplingLayer(kernelSize=(2, 2), stride=(2, 2)))
+            .layer(DenseLayer(nOut=24, activation="relu",
+                              dropOut=0.5 if case == "adam-dropout" else None,
+                              constraints=([MaxNormConstraint(0.3)]
+                                           if case == "maxnorm" else None)))
+            .layer(OutputLayer(lossFunction="mcxent", nOut=5,
+                               activation="softmax"))
+            .setInputType(InputType.convolutional(8, 8, 16)).build())
+
+
+@pytest.mark.parametrize("case", ["nesterovs", "adam-dropout", "schedule",
+                                  "maxnorm", "accumulation"])
+def test_cuda_multilayer_fit_replays_bit_identical_to_eager(card, case):
+    """Four batches through MultiLayerNetwork.fit, graphed (prefetched)
+    and eager: parameters, optimizer state (the schedule's count among
+    them), BN state and loss equal bit for bit, with cuDNN's deterministic
+    algorithms; the dropout generator is registered with the graph."""
+    batches = _batches(4)
+    torch.backends.cudnn.deterministic = True
+    try:
+        nets = [MultiLayerNetwork(_mln_conf(case)).init() for _ in range(2)]
+        nets[0].fit(ListDataSetIterator(batches, 16), prefetch=2)
+        nets[1].fit(batches, prefetch=0, cudaGraphs=False)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    graph, eager = nets
+    assert graph.score() == eager.score()
+    for attr in ("_params", "_opt_state", "_state"):
+        for a, b in zip(tensor_leaves(getattr(graph, attr)),
+                        tensor_leaves(getattr(eager, attr))):
+            assert torch.equal(a, b), attr
+    st = graph.fit_status()
+    updates = 2 if case == "accumulation" else 4
+    assert graph.getIterationCount() == updates
+    assert (st["keys"], st["captures"], st["replays"],
+            st["degradations"]) == (1, 1, updates - 1, 0), st
+    if case == "maxnorm":
+        norms = torch.linalg.vector_norm(graph._params["3"]["W"], dim=0)
+        assert float(norms.max()) <= 0.3 + 1e-6
+
+
+def test_cuda_multilayer_fit_graph_follows_a_weight_load(card):
+    """fit, load other weights (new tensors), fit again: the
+    MultiLayerNetwork's step is captured again against the loaded
+    tensors and matches eager steps."""
+    other = MultiLayerNetwork(_mln_conf("nesterovs")).init()
+    other.fit(_batches(1), cudaGraphs=False)
+    loaded = multilayer_params_to_numpy(other)
+    batches = _batches(4)
+    torch.backends.cudnn.deterministic = True
+    try:
+        nets = [MultiLayerNetwork(_mln_conf("nesterovs")).init()
+                for _ in range(2)]
+        for net, graphs in zip(nets, (True, False)):
+            net.fit(batches[:2], prefetch=0, cudaGraphs=graphs)
+            multilayer_params_from_numpy(net, *loaded, device=card)
+            net.fit(batches[2:], prefetch=0, cudaGraphs=graphs)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    graph, eager = nets
+    assert graph.score() == eager.score()
+    for attr in ("_params", "_opt_state", "_state"):
+        for a, b in zip(tensor_leaves(getattr(graph, attr)),
+                        tensor_leaves(getattr(eager, attr))):
+            assert torch.equal(a, b), attr
+    st = graph.fit_status()
+    assert (st["captures"], st["rebinds"], st["replays"]) == (2, 1, 3), st

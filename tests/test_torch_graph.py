@@ -290,9 +290,11 @@ def test_structural_errors_match_the_jax_package():
             g.setOutputs(edges[0][0])
             got.append(_error(g.build))
         assert got[0] == got[1] and got[1][0] is ValueError
-    # a loss the losses slice ports: typed, and named
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        tl.OutputLayer(lossFunction="mse", nOut=2).apply_defaults({})
+    # every loss name of the JAX package resolves at build; an unknown one
+    # is a ValueError there too
+    tl.OutputLayer(lossFunction="mse", nOut=2).apply_defaults({})
+    with pytest.raises(ValueError, match="Unknown loss"):
+        tl.OutputLayer(lossFunction="msee", nOut=2).apply_defaults({})
 
 
 @pytest.mark.parametrize("size,k,s,mode", [(32, 7, 2, "same"),

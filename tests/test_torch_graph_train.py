@@ -278,22 +278,31 @@ def test_what_is_not_ported_raises_naming_its_slice(monkeypatch):
          .setOutputs("out"))
     net = tnn.ComputationGraph(g.build()).init("cpu")
     xs, ys = x[:4, 0, 0], y[:4, :2]
-    with pytest.raises(NotImplementedError, match="RmsProp.*ROADMAP A10"):
-        net.fit(xs, ys)
-    with pytest.raises(NotImplementedError, match="schedule"):
-        tup.build_optimizer(tup.Sgd(lambda step: 0.1))
-    with pytest.raises(NotImplementedError, match="evaluate"):
-        net.evaluate([])
+    # the updaters, schedules, evaluate and accumulation are ported now
+    net.fit(xs, ys)
+    assert net.getIterationCount() == 1
+    tup.build_optimizer(tup.Sgd(lambda step: 0.1))
+    assert net.evaluate([DataSet(xs, ys)])._count == 4
     with pytest.raises(NotImplementedError, match="feature masks"):
         net.fit(DataSet(xs, ys, featuresMask=np.ones((4, 1))))
+    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+        net.rnnTimeStep(xs)
     with pytest.raises(ValueError, match="GradientNormalization"):
         tup.build_optimizer(tup.Sgd(0.1), "clipEverything")
     with pytest.raises(ValueError, match="no updater"):
         tup.build_optimizer(None)
+    remat = (tnn.NeuralNetConfiguration.Builder().seed(1)
+             .updater(tup.Sgd(0.1)).graphBuilder().rematPolicy("layers")
+             .addInputs("input").setInputTypes(tnn.InputType.feedForward(4))
+             .addLayer("out", tnn.OutputLayer(nOut=2), "input")
+             .setOutputs("out").build())
+    with pytest.raises(NotImplementedError, match="rematPolicy"):
+        tnn.ComputationGraph(remat).init("cpu").fit(xs, ys)
     acc = (tnn.NeuralNetConfiguration.Builder().seed(1)
            .updater(tup.Sgd(0.1)).gradientAccumulation(2).graphBuilder()
            .addInputs("input").setInputTypes(tnn.InputType.feedForward(4))
            .addLayer("out", tnn.OutputLayer(nOut=2), "input")
            .setOutputs("out").build())
-    with pytest.raises(NotImplementedError, match="gradientAccumulation"):
-        tnn.ComputationGraph(acc).init("cpu").fit(xs, ys)
+    acc_net = tnn.ComputationGraph(acc).init("cpu")
+    acc_net.fit([DataSet(xs, ys)] * 2)
+    assert acc_net.getIterationCount() == 1       # one accumulated update

@@ -14,10 +14,11 @@ from deeplearning4j_tpu_torch import resolve
 from deeplearning4j_tpu_torch.models import bert_tiny, init_bert_params
 from deeplearning4j_tpu_torch.models.convert import (param_shapes,
                                                      params_from_numpy)
-from deeplearning4j_tpu_torch.models.zoo import ResNet50
-from deeplearning4j_tpu_torch.nn import (ComputationGraph,
+from deeplearning4j_tpu_torch.models.zoo import VGG16, LeNet, ResNet50
+from deeplearning4j_tpu_torch.nn import (ComputationGraph, MultiLayerNetwork,
                                          graph_params_from_numpy,
-                                         graph_params_to_numpy)
+                                         graph_params_to_numpy,
+                                         multilayer_params_from_numpy)
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "deeplearning4j_tpu_torch").rglob("*.py")) + [
@@ -127,6 +128,37 @@ def test_the_fleet_ui_and_lint_modules_are_among_the_checked_sources():
                    "lint/__init__", "lint/_coverage", "lint/fastpath",
                    "lint/fault_coverage", "lint/event_coverage"):
         assert f"deeplearning4j_tpu_torch/{module}.py" in names
+
+
+def test_the_multilayer_slice_modules_are_among_the_checked_sources():
+    """MultiLayerNetwork, the training surface it shares with
+    ComputationGraph, the evaluators and the iterators (copies of
+    JAX-package numpy modules, their imports re-pointed) and the zoo's
+    `.list()` models."""
+    names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
+    for module in ("nn/multilayer", "nn/_network", "nn/schedules",
+                   "nn/dropout", "nn/constraints", "nn/accum",
+                   "nn/updaters", "nn/losses", "nn/convert",
+                   "eval/__init__", "eval/evaluation",
+                   "datasets/__init__", "datasets/iterators",
+                   "models/zoo/models", "models/zoo/models2"):
+        assert f"deeplearning4j_tpu_torch/{module}.py" in names
+
+
+def test_multilayer_entry_points_default_to_the_card():
+    conf = LeNet(numClasses=4).conf()
+    if torch.cuda.is_available():
+        assert MultiLayerNetwork(conf).init()._params["0"]["W"].is_cuda
+        return
+    for call in (lambda: MultiLayerNetwork(conf).init(),
+                 lambda: LeNet().init(), lambda: VGG16().init(),
+                 lambda: multilayer_params_from_numpy(
+                     MultiLayerNetwork(conf), {}, {})):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    net = MultiLayerNetwork(conf).init("cpu")
+    assert net._params["0"]["W"].device.type == "cpu"
+    assert net.output(np.zeros((1, 28, 28, 1), np.float32)).shape == (1, 4)
 
 
 def test_importing_the_port_loads_no_jax_module():

@@ -7,7 +7,9 @@ import numpy as np
 import pytest
 import torch
 
-from deeplearning4j_tpu_torch.datasets import DataSet, MultiDataSet
+from deeplearning4j_tpu_torch.datasets import (DataSet,
+                                             ListDataSetIterator,
+                                             MultiDataSet)
 from deeplearning4j_tpu_torch.nn import (Adam, ComputationGraph, DenseLayer,
                                          InputType, NeuralNetConfiguration,
                                          OutputLayer, Sgd)
@@ -48,7 +50,8 @@ def test_prefetched_fit_bit_identical_to_synchronous(updater,
                                                      steps_per_dispatch):
     data = _batches()
     a, b = _net(updater()), _net(updater())
-    a.fit(data, epochs=2, stepsPerDispatch=steps_per_dispatch)  # default 2
+    a.fit(ListDataSetIterator(data, 8), epochs=2,
+          stepsPerDispatch=steps_per_dispatch)            # default depth 2
     b.fit(data, epochs=2, stepsPerDispatch=steps_per_dispatch, prefetch=0)
     _assert_same(a, b)
     assert a.getIterationCount() == b.getIterationCount() == 60
@@ -60,6 +63,9 @@ class _Loader:
 
     def __init__(self, batches, fail_at=None):
         self.batches, self.fail_at, self.i = batches, fail_at, 0
+
+    def asyncSupported(self):
+        return True
 
     def hasNext(self):
         return self.i < len(self.batches)
@@ -106,7 +112,10 @@ def test_maybe_prefetch_wraps_only_what_opts_in():
 
     it, pf = pipeline.maybe_prefetch(NoAsync(data), 2, "cpu")
     assert pf is None
+    # as in the reference, a plain list does not opt in; an iterator does
     it, pf = pipeline.maybe_prefetch(data, 2, "cpu")
+    assert it is data and pf is None
+    it, pf = pipeline.maybe_prefetch(ListDataSetIterator(data, 8), 2, "cpu")
     try:
         assert isinstance(it, pipeline.PrefetchIterator) and it is pf
         got = list(it)
