@@ -9,6 +9,7 @@
     python3 chip_smoke.py --only chaos    # card, build, chaos
     python3 chip_smoke.py --only fleet    # card, build, fleet
     python3 chip_smoke.py --only mln      # card, build, mln
+    python3 chip_smoke.py --only rnn      # card, build, rnn
     python3 chip_smoke.py --profile  # and phase 14
 
 Phases, in order; any failure exits non-zero and prints no result:
@@ -186,14 +187,52 @@ Phases, in order; any failure exits non-zero and prints no result:
             once more under torch.profiler: the card's busy and idle share
             of the wall time, and device time by kernel group.
 
+15. rnn:    recurrent and attention networks. TextGenerationLSTM at the
+            zoo's width (77 classes, LSTM(256) × 2, 887,117 parameters),
+            seeded weights, trained with truncated BPTT 50/50 on a seeded
+            synthetic 77-symbol corpus: one B=32, T=120 batch (segments of
+            50, 50 and 20: two segment signatures) graph against eager
+            bit for bit under cuDNN's deterministic algorithms, with one
+            capture per signature; then eager, graph, graph, eager arms of
+            one B=32, T=1000 batch (20 segments) each (segments/s,
+            characters/s; arms at one batch read one loss; finite).
+            Served by `TextGenerationLSTM().generationServer(net,
+            slots=8, cache_lengths=[512], method="top_k", top_k=5)`,
+            graph then eager: 24 requests (prompts of 5-120 characters
+            from the corpus, 64-200 new tokens, greedy and top-k in turn),
+            tokens/s and per-token p50/p99; every stream equal across the
+            arms, the greedy ones equal to an `rnnTimeStep` loop of the
+            net (the smallest top-2 gap along them, and the largest
+            |Δlogit| of an 8-slot decode against the one-row carried-state
+            forward, printed); no
+            capture after warm-up. `ParallelInference` with
+            `bucketLadder([1, 2, 4, 8])` and `lengthBuckets([16, 64,
+            128])` over the trained net: 12 requests of 5-120 characters
+            from as many threads, every answer within 1e-5 of `output()`.
+            The attention stack of examples/attention_sequence_classifier.py
+            (SelfAttentionLayer(32, 4 heads), LearnedSelfAttentionLayer(32,
+            4 heads, 4 queries), LastTimeStep(LSTM(16)), D = 8) trained 30
+            full-batch steps graphed and eagerly: test accuracy > 0.8 in
+            both, flash_fwd, flash_bwd_dq and flash_bwd_dkv launched in
+            the graphed step, `output(fmask=)` of the two within 1e-5,
+            one capture. A SelfAttentionLayer at nIn = nOut = 512, 8 heads
+            (D = 64), B=16, T=512, ragged masks, forward and backward:
+            against the same layer on the kernels' plain versions (1e-4 of
+            the largest), the kernels on its own operands at the kernel
+            rows' gates, and its ms beside SDPA's. The LSTM paths launch
+            none of the nine kernels (counted, checked zero). With
+            --profile: one TBPTT batch eager and graphed and the graphed
+            server's workload under torch.profiler.
+            It runs after the mln phase, before the profile.
+
 Phases 5, 7 and 8 run as a user runs them: the server and `fit` replay
 CUDA graphs on the card by default. The kernels' launch counters are set
 to 0 just before each main path (the encoder, serving, the timed training
 steps, ResNet serving, the timed ResNet training steps, each arm of the
-graphs phase, each server of the chaos phase and each run of the fleet
-phase) and read just after; a
-replay adds the launches its capture recorded. The mln phase runs none of
-them: its counts are read and must stay 0. Every number is measured
+graphs phase, each server of the chaos phase, each run of the fleet
+phase and each path of the rnn phase) and read just after; a replay adds
+the launches its capture recorded. The mln phase and the rnn phase's LSTM
+paths run none of them: their counts are read and must stay 0. Every number is measured
 in this run; the last lines are the kernel JSON object and the
 `{"ok": true, "device": ...}` line. Imports nothing of JAX.
 """
@@ -220,7 +259,9 @@ import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.datasets import (DataSet, ListDataSetIterator,
                                                MnistDataSetIterator)
-from deeplearning4j_tpu_torch.generation import BertDecoder, GenerationServer
+from deeplearning4j_tpu_torch.generation import (BertDecoder,
+                                                 GenerationServer,
+                                                 RecurrentDecoder)
 from deeplearning4j_tpu_torch.kernels import _build
 from deeplearning4j_tpu_torch.kernels.flash_attention import (
     _decode_reference, _delta, _dkv_reference, _dq_reference,
@@ -241,15 +282,21 @@ from deeplearning4j_tpu_torch.kernels.pointwise_conv import (
 from deeplearning4j_tpu_torch.kernels.residual_block import (
     _plan as _block_plan_of, bottleneck_block, bottleneck_block_xla)
 from deeplearning4j_tpu_torch.models.convert import named_param_leaves
-from deeplearning4j_tpu_torch.models.zoo import VGG16, ResNet50
-from deeplearning4j_tpu_torch.nn import (Activation, Adam, ComputationGraph,
+from deeplearning4j_tpu_torch.models.zoo import (VGG16, ResNet50,
+                                                 TextGenerationLSTM)
+from deeplearning4j_tpu_torch.nn import (LSTM, Activation, Adam,
+                                         BackpropType, ComputationGraph,
                                          ConvolutionLayer, DenseLayer,
-                                         InputType, MaxNormConstraint,
+                                         InputType, LastTimeStep,
+                                         LearnedSelfAttentionLayer,
+                                         MaxNormConstraint,
                                          MultiLayerNetwork, Nesterovs,
                                          NeuralNetConfiguration, OutputLayer,
-                                         StepSchedule, SubsamplingLayer,
-                                         WeightInit, graph_params_from_numpy,
+                                         SelfAttentionLayer, StepSchedule,
+                                         SubsamplingLayer, WeightInit,
+                                         graph_params_from_numpy,
                                          multilayer_params_to_numpy)
+from deeplearning4j_tpu_torch.nn.conf import attention as attn_conf
 from deeplearning4j_tpu_torch.parallel.inference import (InferenceMode,
                                                          ParallelInference)
 from deeplearning4j_tpu_torch.quantize import cache_page_bytes, quantize_rows
@@ -605,6 +652,19 @@ def _bwd_cases(label, b, h, tq, tk, d, causal, lengths, dtype, gen):
             plain_ms=time_ms(lambda: plain(*args)), library_ms=lib,
             bound_ms=bms, bound_by=by))
     return rows
+
+
+#: the attention layers' kernel shapes (B, H, Tq, Tk, D) with their key
+#: lengths: the example stack's self-attention and learned queries at D = 8
+#: (B = 256, T = 24, lengths 8-24), and a 512-wide layer of 4 heads at
+#: D = 128 (B = 16, T = 512)
+ATTN_KERNEL_SHAPES = (
+    ("attn D=8", (256, 4, 24, 24, 8),
+     [8 + (i * 7) % 17 for i in range(256)]),
+    ("learned Tq=4 D=8", (256, 4, 4, 24, 8),
+     [8 + (i * 7) % 17 for i in range(256)]),
+    ("attn D=128", (16, 4, 512, 512, 128),
+     [512 - 31 * i for i in range(16)]))
 
 
 #: the 1×1 convs whose shapes the epilogue GEMM is checked at, ResNet-50
@@ -1190,6 +1250,11 @@ def phase_kernels():
                       None, dtype))
         cases.append((_bwd_cases, "cross Tq!=Tk", 2, 12, 100, 300, 64, False,
                       [300, 171], dtype))
+        # the attention layers' head dims: the example's D = 8 (run padded
+        # to 16; its learned queries cross-attend, Tq = 4) and D = 128
+        for label, shape, lens in ATTN_KERNEL_SHAPES:
+            cases.append((_fwd_case, label, *shape, False, lens, dtype))
+            cases.append((_bwd_cases, label, *shape, False, lens, dtype))
         for label, (m, k, n) in EPILOGUE_SHAPES.items():
             ragged = label.startswith("ragged")
             cases.append((_epilogue_case, label, m, k, n, ragged,
@@ -3887,6 +3952,590 @@ def phase_profile(cfg, params, resnet_net, resnet_x, train_net, train_ds):
             "resnet_train": resnet_train}
 
 
+# -- phase 15: recurrent and attention networks ---------------------------------
+#: TextGenerationLSTM at the zoo's width (77 classes, LSTM(256) × 2), trained
+#: as dl4j-examples' GravesLSTMCharModellingExample: B=32, 1000-character
+#: sequences, truncated BPTT 50/50; served with the zoo docstring's
+#: settings (8 slots, rung 512, top-k 5); 24 requests, prompts 5-120
+#: characters, 64-200 new tokens, greedy and top-k in turn
+RNN = dict(classes=77, width=256, batch=32, seq=1000, tbptt=50,
+           check_seq=120, warmup_batches=1, requests=24, prompt=(5, 121),
+           new=(64, 201), slots=8, rung=512, top_k=5, seed=13,
+           length_buckets=[16, 64, 128], length_ladder=[1, 2, 4, 8],
+           length_requests=12)
+#: the attention stack of examples/attention_sequence_classifier.py and its
+#: gate; the wide SelfAttentionLayer at real shape (D = 64)
+ATTN = dict(t=24, f=8, train=256, test=64, epochs=30, acc=0.8,
+            wide=dict(b=16, t=512, width=512, heads=8), wide_rtol=1e-4)
+#: eager vs graph answers of one net, and lengthBuckets' answers against
+#: output(): the same operations at other batch row counts, which cuBLAS
+#: may sum in another order (f32)
+RNN_RTOL = 1e-5
+RNN_ARMS = ("eager", "graph", "graph", "eager")
+
+
+def _char_corpus(n, seed):
+    """n characters of a seeded synthetic text over 77 symbols: words of
+    2-8 letters drawn from a 400-word lexicon (Zipf-weighted), separated
+    by symbol 0, with symbol 1 closing a sentence every 5-15 words."""
+    rng = np.random.default_rng(seed)
+    c = RNN["classes"]
+    lexicon = [rng.integers(2, c, int(rng.integers(2, 9)))
+               for _ in range(400)]
+    weights = 1.0 / np.arange(1, 401)
+    words = rng.choice(400, size=n // 2, p=weights / weights.sum())
+    ends = set(np.cumsum(rng.integers(5, 16, n // 2)).tolist())
+    out, size = [], 0
+    for i, w in enumerate(words):
+        if size >= n:
+            break
+        if i in ends:
+            out.append(np.array([1]))
+        out += [lexicon[w], np.array([0])]
+        size += len(lexicon[w]) + 1 + (i in ends)
+    return np.concatenate(out)[:n]
+
+
+def _char_batches(corpus, b, t, count, offset=0):
+    """`count` DataSets of B sequences of t characters: features one-hot
+    of each character, labels one-hot of the next."""
+    eye = np.eye(RNN["classes"], dtype=np.float32)
+    out = []
+    for i in range(count):
+        starts = offset + (i * b + np.arange(b)) * (t + 1)
+        idx = starts[:, None] + np.arange(t + 1)[None, :]
+        chars = corpus[idx]
+        out.append(DataSet(eye[chars[:, :-1]], eye[chars[:, 1:]]))
+    return out
+
+
+def _text_lstm():
+    conf = TextGenerationLSTM(numClasses=RNN["classes"],
+                              lstmLayerSize=RNN["width"]).conf()
+    conf.backprop_type = BackpropType.TruncatedBPTT
+    conf.tbptt_fwd_length = conf.tbptt_back_length = RNN["tbptt"]
+    return MultiLayerNetwork(conf).init()
+
+
+def _rnn_train(corpus):
+    """TBPTT training of TextGenerationLSTM: graph against eager bit for
+    bit on a B=32, T=120 batch (two full segments and a short one: two
+    segment signatures, two captures), then timed arms of one B=32,
+    T=1000 batch (20 segments) each, eager and graph in turns."""
+    b, t, seg = RNN["batch"], RNN["seq"], RNN["tbptt"]
+    net = _text_lstm()
+    n_params = net.numParams()
+    check = _char_batches(corpus, b, RNN["check_seq"], 1)[0]
+    with _deterministic():
+        graph, eager = net.clone(), net.clone()
+        _reset_counts()
+        graph.fit(check)
+        eager.fit(check, cudaGraphs=False)
+        torch.cuda.synchronize()
+        unequal = _unequal(graph, eager)
+        scores = (graph.score(), eager.score())
+        st = graph.fit_status()
+    n_seg = -(-RNN["check_seq"] // seg)
+    log(f"[rnn] TextGenerationLSTM ({n_params} parameters) TBPTT {seg}, "
+        f"B={b} T={RNN['check_seq']} ({n_seg} segments), cuDNN "
+        f"deterministic: graph vs eager not bit-identical {unequal}; loss "
+        f"{scores[0]!r} vs {scores[1]!r}; graph store {st['captures']} "
+        f"captures (one per segment signature), {st['replays']} replays, "
+        f"{st['degradations']} degradations, {st['eager_calls']} eager "
+        f"calls")
+    if any(unequal.values()) or scores[0] != scores[1] or (
+            st["captures"], st["replays"], st["degradations"],
+            st["eager_calls"]) != (2, n_seg - 2, 0, 0):
+        raise AssertionError(f"rnn: TBPTT graph vs eager: {unequal}, "
+                             f"{scores}, {st}")
+    _no_kernel_launched("TextGenerationLSTM training")
+    del graph, eager
+    nets = {"eager": net.clone(), "graph": net.clone()}
+    del net
+    batches = _char_batches(corpus, b, t, RNN["warmup_batches"]
+                            + len(RNN_ARMS) // 2,
+                            offset=b * (RNN["check_seq"] + 1))
+    with _deterministic():
+        for arm, m in nets.items():
+            m.fit(batches[0], cudaGraphs=arm == "graph")
+        torch.cuda.synchronize()
+        runs, used = [], {"eager": 1, "graph": 1}
+        for arm in RNN_ARMS:
+            ds = batches[used[arm]]
+            used[arm] += 1
+            _reset_counts()
+            t0 = time.perf_counter()
+            nets[arm].fit(ds, cudaGraphs=arm == "graph")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            _no_kernel_launched(f"TextGenerationLSTM training ({arm})")
+            loss = nets[arm].score()
+            segs = t // seg
+            run = {"arm": arm, "segments": segs, "wall_s": wall,
+                   "segments_per_s": segs / wall,
+                   "chars_per_s": b * t / wall, "loss": loss,
+                   "iteration": nets[arm].getIterationCount()}
+            log(f"[rnn] TextGenerationLSTM fit {arm}: one B={b} T={t} "
+                f"batch = {segs} segments in {wall * 1e3:.1f} ms: "
+                f"{segs / wall:.1f} segments/s, {b * t / wall:.0f} "
+                f"characters/s, mean segment loss {loss:.4f} at batch "
+                f"{run['iteration']}")
+            if not np.isfinite(loss):
+                raise AssertionError(f"rnn: TBPTT {arm}: loss {loss}")
+            runs.append(run)
+    by_batch = {}
+    for run in runs:
+        by_batch.setdefault(run["iteration"], set()).add(run["loss"])
+    st = nets["graph"].fit_status()
+    if any(len(v) != 1 for v in by_batch.values()) or (
+            st["captures"], st["degradations"], st["eager_calls"]) != (
+                1, 0, 0):
+        raise AssertionError(f"rnn: TBPTT arms: {runs}, {st}")
+    eager_ms = [r["wall_s"] for r in runs if r["arm"] == "eager"]
+    graph_ms = [r["wall_s"] for r in runs if r["arm"] == "graph"]
+    log(f"[rnn] TBPTT graph over eager wall: "
+        f"{np.median(graph_ms) / np.median(eager_ms):.4f}; both arms read "
+        f"one loss at each batch; graph store {st['captures']} capture, "
+        f"{st['replays']} replays")
+    del nets["eager"]
+    torch.cuda.empty_cache()
+    return nets["graph"], {"params": n_params, "bit_identity": {
+        "segments": n_seg, "unequal": unequal, "scores": scores},
+        "runs": runs, "store": {k: st[k] for k in (
+            "captures", "replays", "degradations", "eager_calls")}}
+
+
+def _rnn_requests(corpus):
+    rng = np.random.default_rng(RNN["seed"] + 1)
+    reqs = []
+    for i in range(RNN["requests"]):
+        plen = int(rng.integers(*RNN["prompt"]))
+        start = int(rng.integers(0, len(corpus) - plen))
+        greedy = i % 2 == 0
+        reqs.append(dict(prompt=corpus[start:start + plen],
+                         max_new_tokens=int(rng.integers(*RNN["new"])),
+                         method="greedy" if greedy else "top_k",
+                         top_k=0 if greedy else RNN["top_k"]))
+    return reqs
+
+
+@torch.no_grad()
+def _step_loop(net, prompt, n):
+    """The greedy continuation of `prompt` by an `rnnTimeStep` loop of
+    the network: (tokens, the smallest top-2 gap of the log-probabilities
+    along them, which is the logits' gap)."""
+    eye = torch.eye(RNN["classes"], device=DEV)
+    net.rnnClearPreviousState()
+    probs = net.rnnTimeStep(eye[torch.as_tensor(prompt, device=DEV)][None])
+    probs = probs[0, -1]
+    toks, gap = [], float("inf")
+    for _ in range(n):
+        top = torch.topk(torch.log(probs), 2).values
+        gap = min(gap, float(top[0] - top[1]))
+        tok = int(probs.argmax())
+        toks.append(tok)
+        probs = net.rnnTimeStep(eye[[tok]])[0]
+    net.rnnClearPreviousState()
+    return toks, gap
+
+
+def _rnn_serve(net, corpus):
+    """TextGenerationLSTM served with the docstring's settings, graph then
+    eager: every stream equal across the arms, the greedy ones equal to
+    an rnnTimeStep loop of the net; no capture after the warm-up."""
+    reqs = _rnn_requests(corpus)
+    runs = {}
+    for arm in ("graph", "eager"):
+        srv = TextGenerationLSTM(numClasses=RNN["classes"]).generationServer(
+            net, slots=RNN["slots"], cache_lengths=[RNN["rung"]],
+            method="top_k", top_k=RNN["top_k"], seed=RNN["seed"],
+            cuda_graphs=arm == "graph")
+        try:
+            warm = srv.warmup()
+            torch.cuda.synchronize()
+            _reset_counts()
+            t0 = time.perf_counter()
+            streams = [h.result(timeout=600)
+                       for h in [srv.submit(**r) for r in reqs]]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            srv.shutdown()
+        st = srv.status()
+        _fault_free(st, f"rnn: serving {arm}")
+        _no_kernel_launched(f"TextGenerationLSTM serving ({arm})")
+        ex = st["executables"]
+        ntok = sum(len(s) for s in streams)
+        runs[arm] = {"tokens": ntok, "wall_s": wall,
+                     "tokens_per_s": ntok / wall,
+                     "per_token_p50_ms": st["per_token_p50_ms"],
+                     "per_token_p99_ms": st["per_token_p99_ms"],
+                     "blocks": st["steps"], "admissions": st["admissions"],
+                     "keys": sorted(map(str, srv.executable_keys())),
+                     "warmup": warm, "replays": ex["replays"],
+                     "eager_calls": ex["eager_calls"], "streams": streams}
+        log(f"[rnn] TextGenerationLSTM serving {arm} (slots "
+            f"{RNN['slots']}, rung {st['cache_lengths']}, top-k "
+            f"{RNN['top_k']}): {len(reqs)} requests, {ntok} tokens in "
+            f"{wall:.3f} s = {ntok / wall:.1f} tokens/s; per-token p50 "
+            f"{st['per_token_p50_ms']:.3f} ms p99 "
+            f"{st['per_token_p99_ms']:.3f} ms; {st['steps']} blocks, "
+            f"{st['admissions']} admissions; {len(srv.executable_keys())} "
+            f"keys; {ex['replays']} replays, {ex['eager_calls']} eager "
+            f"calls")
+        if st["cache_lengths"] != [RNN["rung"]] or any(
+                len(s) != r["max_new_tokens"] for s, r in zip(streams,
+                                                             reqs)):
+            raise AssertionError(f"rnn: serving {arm}: {st}")
+        if arm == "graph":
+            _store_clean(ex, "rnn serving")
+    if runs["graph"]["streams"] != runs["eager"]["streams"]:
+        raise AssertionError("rnn: graph and eager servers' streams differ")
+    greedy = [i for i, r in enumerate(reqs) if r["method"] == "greedy"]
+    gaps, diff = [], []
+    for i in greedy:
+        want, gap = _step_loop(net, reqs[i]["prompt"],
+                               reqs[i]["max_new_tokens"])
+        gaps.append(gap)
+        if runs["graph"]["streams"][i] != want:
+            diff.append(i)
+    # decode at 8 slots against the one-row step loop, on one request
+    dec = RecurrentDecoder(net)
+    margs, cache = dec.model_args(), dec.init_cache(RNN["slots"], RNN["rung"])
+    r0, slot = reqs[greedy[0]], RNN["slots"] - 1
+    prompt = torch.as_tensor(r0["prompt"], device=DEV)
+    padded = torch.zeros(128, dtype=torch.long, device=DEV)
+    padded[:len(prompt)] = prompt
+    with torch.no_grad():
+        cache, logits = dec.prefill(margs, cache,
+                                    torch.tensor(slot, device=DEV), padded,
+                                    torch.tensor(len(prompt), device=DEV))
+        eye = torch.eye(RNN["classes"], device=DEV)
+        _, pre, _, _, carries = net._forward(
+            net._params, net._state, eye[prompt][None], False, carries={})
+        worst = float((logits - pre[0, -1]).abs().max())
+        tok = int(logits.argmax())
+        for _ in range(16):
+            tokens = torch.zeros(RNN["slots"], dtype=torch.long, device=DEV)
+            tokens[slot] = tok
+            logits, cache = dec.step(margs, cache, tokens,
+                                     torch.zeros_like(tokens))
+            _, pre, _, _, carries = net._forward(
+                net._params, net._state, eye[[tok]][None], False,
+                carries=carries)
+            worst = max(worst,
+                        float((logits[slot] - pre[0, -1]).abs().max()))
+            tok = int(logits[slot].argmax())
+    log(f"[rnn] greedy streams equal to the rnnTimeStep loop "
+        f"{len(greedy) - len(diff)}/{len(greedy)}; smallest top-2 logit gap "
+        f"along them {min(gaps):.4e}; largest |Δlogit| of 8-slot decode "
+        f"(prefill + 16 steps) against the one-row step loop {worst:.3e}; "
+        f"graph and eager streams equal (greedy and top-k)")
+    if diff:
+        raise AssertionError(f"rnn: greedy streams {diff} differ from the "
+                             f"rnnTimeStep loop (smallest gap {min(gaps)})")
+    for run in runs.values():
+        del run["streams"]
+    return {"runs": runs, "greedy": len(greedy), "min_top2_gap": min(gaps),
+            "decode_vs_step_max_abs_logit": worst}
+
+
+def _rnn_length_buckets(net, corpus):
+    """ParallelInference over the LSTM net with a batch ladder and a length
+    ladder: requests of 5-120 characters from 4 threads coalesce under a
+    mask; every answer equals `output()` on its unpadded input."""
+    rng = np.random.default_rng(RNN["seed"] + 2)
+    eye = np.eye(RNN["classes"], dtype=np.float32)
+    xs = []
+    for _ in range(RNN["length_requests"]):
+        n, t = int(rng.integers(1, 3)), int(rng.integers(5, 121))
+        starts = rng.integers(0, len(corpus) - t, n)
+        xs.append(eye[corpus[starts[:, None] + np.arange(t)[None, :]]])
+    pi = (ParallelInference.Builder(net)
+          .inferenceMode(InferenceMode.BATCHED)
+          .bucketLadder(RNN["length_ladder"])
+          .lengthBuckets(RNN["length_buckets"]).build())
+    got = [None] * len(xs)
+    try:
+        warm = pi.warmup()
+        torch.cuda.synchronize()
+
+        def call(i):
+            got[i] = pi.output(xs[i])
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=call, args=(i,))
+                   for i in range(len(xs))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        st = pi.status()
+    finally:
+        pi.shutdown()
+    worst = 0.0
+    for x, y in zip(xs, got):
+        want = net.output(x).cpu().numpy()
+        worst = max(worst, float(np.abs(y - want).max()))
+    log(f"[rnn] lengthBuckets({RNN['length_buckets']}) over "
+        f"bucketLadder({RNN['length_ladder']}): {len(xs)} requests of 5-120 "
+        f"characters in {st['model_calls']} forwards, {wall:.3f} s; max "
+        f"|answer - output()| {worst:.3e}; warmup {warm}")
+    _store_clean(st["executables"], "rnn lengthBuckets")
+    if not worst <= RNN_RTOL or st["aot_fallbacks"] or \
+            warm["captures"] != len(RNN["length_buckets"]) * len(
+                RNN["length_ladder"]):
+        raise AssertionError(f"rnn: lengthBuckets: {worst}, {st}")
+    return {"requests": len(xs), "forwards": st["model_calls"],
+            "wall_s": wall, "max_abs_err": worst, "warmup": warm}
+
+
+def _attention_data(n, seed):
+    """examples/attention_sequence_classifier.py's task: does the ragged
+    sequence hold a spike > 2?"""
+    t, f = ATTN["t"], ATTN["f"]
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, t, f)).astype(np.float32) * 0.5
+    lengths = rng.integers(8, t + 1, n)
+    mask = (np.arange(t)[None, :] < lengths[:, None]).astype(np.float32)
+    labels = rng.integers(0, 2, n)
+    for i in np.where(labels == 1)[0]:
+        x[i, rng.integers(0, lengths[i])] += 3.0
+    x *= mask[:, :, None]
+    ds = DataSet(x, np.eye(2, dtype=np.float32)[labels])
+    ds.featuresMask = mask
+    return ds
+
+
+def _attention_net():
+    conf = (NeuralNetConfiguration.Builder()
+            .seed(7).updater(Adam(3e-3)).weightInit("xavier")
+            .list()
+            .layer(SelfAttentionLayer(nOut=32, nHeads=4))
+            .layer(LearnedSelfAttentionLayer(nOut=32, nHeads=4, nQueries=4))
+            .layer(LastTimeStep(LSTM(nOut=16)))
+            .layer(OutputLayer(lossFunction="mcxent", nOut=2,
+                               activation="softmax"))
+            .setInputType(InputType.recurrent(ATTN["f"], ATTN["t"]))
+            .build())
+    return MultiLayerNetwork(conf).init()
+
+
+def _attention_train():
+    """The example's stack trained on the card, graphed and eagerly from
+    one init: both reach the example's accuracy gate, flash_fwd,
+    flash_bwd_dq and flash_bwd_dkv launch inside the graphed step, and
+    the two nets' masked outputs agree."""
+    train = _attention_data(ATTN["train"], 0)
+    test = _attention_data(ATTN["test"], 1)
+    net = _attention_net()
+    out = {}
+    with _deterministic():
+        graph, eager = net.clone(), net.clone()
+        for arm, m in (("graph", graph), ("eager", eager)):
+            _reset_counts()
+            t0 = time.perf_counter()
+            for _ in range(ATTN["epochs"]):
+                m.fit(train, cudaGraphs=arm == "graph")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: v for k, v in _counts().items() if v}
+            preds = m.output(test.features, fmask=test.featuresMask)
+            acc = float((preds.argmax(-1).cpu().numpy()
+                         == test.labels.argmax(-1)).mean())
+            out[arm] = {"accuracy": acc, "wall_s": wall,
+                        "ms_per_step": wall * 1e3 / ATTN["epochs"],
+                        "launches": launches, "loss": m.score()}
+            log(f"[rnn] attention stack fit {arm}: {ATTN['epochs']} steps "
+                f"of B={ATTN['train']} T={ATTN['t']} (D = 8, padded to 16 "
+                f"in the kernels) in {wall:.3f} s ({wall * 1e3 / ATTN['epochs']:.2f}"
+                f" ms/step); test accuracy {acc:.4f}; launches {launches}")
+            if not acc > ATTN["acc"]:
+                raise AssertionError(f"rnn: attention {arm}: accuracy {acc}")
+            missing = [k for k in ("flash_fwd", "flash_bwd_dq",
+                                   "flash_bwd_dkv") if not launches.get(k)]
+            if missing:
+                raise AssertionError(f"rnn: attention {arm}: never "
+                                     f"launched {missing}")
+        st = graph.fit_status()
+        a = graph.output(test.features, fmask=test.featuresMask)
+        b = eager.output(test.features, fmask=test.featuresMask)
+        err = float((a - b).abs().max())
+    log(f"[rnn] attention stack graph vs eager: max |output(fmask=)| "
+        f"difference {err:.3e}; graph store {st['captures']} capture, "
+        f"{st['replays']} replays, {st['degradations']} degradations, "
+        f"{st['eager_calls']} eager calls")
+    if not err <= RNN_RTOL or (st["captures"], st["degradations"],
+                               st["eager_calls"]) != (1, 0, 0):
+        raise AssertionError(f"rnn: attention graph vs eager: {err}, {st}")
+    out.update(graph_vs_eager_max_abs=err, store={k: st[k] for k in (
+        "captures", "replays", "degradations", "eager_calls")})
+    del net, graph, eager
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sdpa_attend(q, k, v, mask):
+    """The library yardstick of self-attention's `_attend`: SDPA under the
+    key mask, padded query rows zeroed (every example here has a valid
+    key)."""
+    m = mask.bool()
+    o = F.scaled_dot_product_attention(q, k, v, attn_mask=m[:, None, None])
+    return torch.where(m[:, None, :, None], o, 0)
+
+
+def _plain_attend(q, k, v, mask):
+    """Self-attention's `_attend` through the kernels' plain version."""
+    m = mask.bool()
+    o, _ = _flash_forward_reference(q, k, v, m, False)
+    return torch.where(m[:, None, :, None], o, 0)
+
+
+def _attention_wide():
+    """A SelfAttentionLayer at nIn = nOut = 512, 8 heads (D = 64), B=16,
+    T=512, ragged masks, forward and backward: the layer through the
+    kernels against the layer through their plain versions (outputs and
+    every gradient within ATTN["wide_rtol"] of the largest), the kernels
+    against their plain versions on the layer's own q, k, v and output
+    cotangent (the kernel rows' gates), and the layer's ms against the
+    same layer on SDPA."""
+    w = ATTN["wide"]
+    b, t, width, heads = w["b"], w["t"], w["width"], w["heads"]
+    layer = SelfAttentionLayer(nIn=width, nOut=width, nHeads=heads)
+    layer.apply_defaults({})
+    gen = torch.Generator().manual_seed(3)
+    params, _, _ = layer.initialize(gen, InputType.recurrent(width, t))
+    params = {k: v.to(DEV).requires_grad_() for k, v in params.items()}
+    g = torch.Generator(device=DEV).manual_seed(5)
+    x = torch.randn((b, t, width), generator=g, device=DEV).requires_grad_()
+    lens = torch.linspace(t, 1, b, device=DEV).round().long()
+    mask = (torch.arange(t, device=DEV)[None] < lens[:, None]).float()
+    dy = torch.randn((b, t, width), generator=g, device=DEV)
+    leaves = [x] + list(params.values())
+
+    def fwd_bwd(attend):
+        real = attn_conf._attend
+        attn_conf._attend = attend
+        try:
+            y, _ = layer.apply(params, {}, x, mask=mask)
+            grads = torch.autograd.grad(y, leaves, dy)
+        finally:
+            attn_conf._attend = real
+        return y, grads
+
+    _reset_counts()
+    y, grads = fwd_bwd(attn_conf._attend)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _counts().items() if v}
+    yp, gp = fwd_bwd(_plain_attend)
+    errs = [float((a - c).abs().max()) / max(1.0, float(c.abs().max()))
+            for a, c in zip((y.detach(),) + grads, (yp.detach(),) + gp)]
+    ms = time_ms(lambda: fwd_bwd(attn_conf._attend), iters=5)
+    lib = time_ms(lambda: fwd_bwd(_sdpa_attend), iters=5)
+    plain = time_ms(lambda: fwd_bwd(_plain_attend), iters=5)
+    # the kernels on the layer's own operands
+    with torch.no_grad():
+        q, k, v = (attn_conf._split_heads(x @ params[n], heads)
+                   .contiguous() for n in ("Wq", "Wk", "Wv"))
+    gen_k = torch.Generator(device=DEV).manual_seed(6)
+    m = mask.bool()
+    o, lse = flash_fwd(q, k, v, m, False)
+    ref, ref_lse = _flash_forward_reference(q, k, v, m, False)
+    fwd_err = max(float((o - ref).abs().max()), float(
+        (lse - ref_lse).abs().max()))
+    go = torch.randn(q.shape, generator=gen_k, device=DEV)
+    o2, lse2 = _flash_forward(q, k, v, m, m, False)
+    args = (q, k, v, go, lse2, _delta(go, o2), m, False)
+    bwd_errs = []
+    for kernel, plain_fn in ((flash_bwd_dq, _dq_reference),
+                             (flash_bwd_dkv, _dkv_reference)):
+        got, want = _as_tuple(kernel(*args)), _as_tuple(plain_fn(*args))
+        scale = max([1.0] + [float(c.abs().max()) for c in want])
+        bwd_errs.append(max(float((a - c).abs().max()) for a, c in
+                            zip(got, want)) / scale)
+    log(f"[rnn] wide SelfAttentionLayer nIn=nOut={width}, {heads} heads "
+        f"(D = {width // heads}), B={b} T={t}, ragged masks: forward + "
+        f"backward {ms:.3f} ms through the kernels, {lib:.3f} ms on SDPA, "
+        f"{plain:.3f} ms on the plain versions; layer vs plain (relative to "
+        f"the largest) output {errs[0]:.3e}, gradients "
+        f"{max(errs[1:]):.3e}; kernels on the layer's operands: flash_fwd "
+        f"{fwd_err:.3e} (atol {ATOL[torch.float32]:.0e}), dq "
+        f"{bwd_errs[0]:.3e}, dk/dv {bwd_errs[1]:.3e} (relative, atol "
+        f"{ATOL[torch.float32]:.0e}); launches {launches}")
+    if max(errs) > ATTN["wide_rtol"] or fwd_err > ATOL[torch.float32] or \
+            max(bwd_errs) > ATOL[torch.float32]:
+        raise AssertionError(f"rnn: wide attention: {errs}, {fwd_err}, "
+                             f"{bwd_errs}")
+    missing = [k for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+               if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"rnn: wide attention never launched {missing}")
+    return {"shape": [b, heads, t, width // heads], "ms": ms,
+            "sdpa_ms": lib, "plain_ms": plain, "layer_rel_err": errs,
+            "fwd_err": fwd_err, "bwd_rel_err": bwd_errs,
+            "launches": launches}
+
+
+def _rnn_profile(net, corpus):
+    """--profile: one B=32, T=1000 TBPTT batch eager and graphed, and the
+    serving workload on the graphed server, under torch.profiler (card
+    busy and idle share, device time by kernel group)."""
+    ds = _char_batches(corpus, RNN["batch"], RNN["seq"], 1)[0]
+    out = {}
+    for arm in ("eager", "graph"):
+        out[f"tbptt {arm}"], _ = _profiled(
+            f"TextGenerationLSTM TBPTT, one B={RNN['batch']} T={RNN['seq']} "
+            f"batch {arm}", lambda: net.fit(ds, cudaGraphs=arm == "graph"))
+    reqs = _rnn_requests(corpus)
+    srv = TextGenerationLSTM(numClasses=RNN["classes"]).generationServer(
+        net, slots=RNN["slots"], cache_lengths=[RNN["rung"]],
+        method="top_k", top_k=RNN["top_k"], seed=RNN["seed"])
+    try:
+        srv.warmup()
+        torch.cuda.synchronize()
+        out["serving graph"], _ = _profiled(
+            "TextGenerationLSTM serving graph", lambda: [
+                h.result(timeout=600)
+                for h in [srv.submit(**r) for r in reqs]])
+    finally:
+        srv.shutdown()
+    return out
+
+
+def phase_rnn(profile=False):
+    """Recurrent and attention networks on the card: TextGenerationLSTM
+    trained with truncated BPTT and served, lengthBuckets over it, the
+    example's attention stack trained through the flash kernels, and the
+    wide SelfAttentionLayer at real shape. The counts are set to 0 before
+    each path and read after it: the LSTM paths launch none of the nine
+    kernels, the attention paths flash_fwd, flash_bwd_dq and
+    flash_bwd_dkv. With `profile`, the TBPTT batch and the serving
+    workload under torch.profiler."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    b = RNN["batch"]
+    corpus = _char_corpus(b * (RNN["check_seq"] + 1) + b * (RNN["seq"] + 1)
+                          * (RNN["warmup_batches"] + len(RNN_ARMS) // 2),
+                          RNN["seed"])
+    net, train = _rnn_train(corpus)
+    out = {"train": train, "serve": _rnn_serve(net, corpus)}
+    out["length_buckets"] = _rnn_length_buckets(net, corpus)
+    if profile:
+        out["profile"] = _rnn_profile(net, corpus)
+    del net
+    torch.cuda.empty_cache()
+    _reset_counts()
+    out["attention"] = _attention_train()
+    out["attention_wide"] = _attention_wide()
+    out["launches"] = {k: out["attention"]["graph"]["launches"].get(k, 0)
+                       for k in ("flash_fwd", "flash_bwd_dq",
+                                 "flash_bwd_dkv")}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[rnn] the phase {out['seconds']:.1f} s")
+    return out
+
+
 def kernel_line(rows, launches, launches_from):
     """The per-kernel JSON object: each kernel's numbers at its
     representative case, its launches (from the main path's run where it
@@ -3918,19 +4567,21 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only",
                     choices=["kernels", "resnet", "graphs", "paged",
-                             "chaos", "fleet", "mln"],
+                             "chaos", "fleet", "mln", "rnn"],
                     default=None,
                     help="stop after the kernel checks, or run the resnet "
                          "serving and training phases right after them, or "
-                         "run the graphs, the paged, the chaos, the fleet "
-                         "or the mln phase alone after the build "
+                         "run the graphs, the paged, the chaos, the fleet, "
+                         "the mln or the rnn phase alone after the build "
                          "(bring-up runs)")
     ap.add_argument("--profile", action="store_true",
                     help="after the resnet phases, profile the serving "
                          "workload, three fine-tune steps, one ResNet-50 "
                          "forward and one ResNet-50 training step (card "
                          "busy/idle share, device time by kernel group); "
-                         "with the mln phase, VGG16's step and forward")
+                         "with the mln phase, VGG16's step and forward; "
+                         "with the rnn phase, the TBPTT batch and the "
+                         "LSTM server")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3958,9 +4609,11 @@ def main(argv=None):
         log(f"[smoke] by phase " + ", ".join(
             f"{k} {v:.1f}" for k, v in seconds.items()))
         return 0
-    if args.only in ("chaos", "fleet", "mln"):
+    if args.only in ("chaos", "fleet", "mln", "rnn"):
         if args.only == "mln":
             out = timed("mln", phase_mln, args.profile)
+        elif args.only == "rnn":
+            out = timed("rnn", phase_rnn, args.profile)
         else:
             cfg = bert_base()
             phase = phase_chaos if args.only == "chaos" else phase_fleet
@@ -4006,6 +4659,7 @@ def main(argv=None):
     chaos = timed("chaos", phase_chaos, cfg, params)
     fleet = timed("fleet", phase_fleet, cfg, params)
     mln = timed("mln", phase_mln, args.profile)
+    rnn = timed("rnn", phase_rnn, args.profile)
     prof = (timed("profile", phase_profile, cfg, params, resnet_net,
                   resnet_x, train_net, train_ds) if args.profile else None)
     # each kernel's launches from the path that carries it: the forward and
@@ -4037,6 +4691,10 @@ def main(argv=None):
     launches_from.update({k: f"resnet training ({RESNET_TRAIN['steps']} "
                           "timed steps)" for k in TRAIN_KERNELS})
     line = kernel_line(rows, launches, launches_from)
+    for row in line["kernels"]:
+        if row["name"] in rnn["launches"]:
+            # this slice's path: the attention stack's graphed training
+            row["launches_attention"] = rnn["launches"][row["name"]]
     (OUT_DIR / "smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "kernels": rows,
          "step36": step36, "fwd36": fwd36, "bert_step12": step12,
@@ -4044,6 +4702,7 @@ def main(argv=None):
          "serving": serving, "train": train,
          "resnet": resnet, "resnet_train": resnet_train, "graphs": graphs,
          "paged": paged, "chaos": chaos, "fleet": fleet, "mln": mln,
+         "rnn": rnn,
          "profile": prof,
          "line": line,
          "phase_seconds": seconds, "seconds": time.perf_counter() - t0},

@@ -3,7 +3,8 @@ continuous-batching admission.
 
 - `decode`   — `BertDecoder`: per-layer K/V caches, prefill through the
   flash forward kernel and single-token steps through the flash decode
-  kernel.
+  kernel; `RecurrentDecoder`: the carries of a recurrent
+  MultiLayerNetwork (TextGenerationLSTM) as the decode state.
 - `sampling` — batched greedy / temperature / top-k sampling over
   explicit per-slot threefry keys, bit-compatible with the JAX package.
 - `server`   — `GenerationServer`: fixed-size decode batches, cache rungs,
@@ -32,8 +33,14 @@ Quick start:
         num_replicas=3)
     router.warmup()
     tokens = router.generate(prompt_ids, max_new_tokens=32)
+
+    # a char-RNN: the server wraps the network in a RecurrentDecoder
+    from deeplearning4j_tpu_torch.models.zoo import TextGenerationLSTM
+    srv = TextGenerationLSTM().generationServer(
+        slots=8, cache_lengths=[512], method="top_k", top_k=5)
 """
-from deeplearning4j_tpu_torch.generation.decode import BertDecoder
+from deeplearning4j_tpu_torch.generation.decode import (BertDecoder,
+                                                        RecurrentDecoder)
 from deeplearning4j_tpu_torch.generation.fleet import (FleetRequest,
                                                        FleetRouter)
 from deeplearning4j_tpu_torch.generation.sampling import (GREEDY, SAMPLE,
@@ -44,6 +51,7 @@ from deeplearning4j_tpu_torch.generation.server import (GenerationRequest,
                                                         GenerationServer,
                                                         status)
 
-__all__ = ["BertDecoder", "FleetRequest", "FleetRouter", "GREEDY", "SAMPLE",
+__all__ = ["BertDecoder", "RecurrentDecoder", "FleetRequest", "FleetRouter",
+           "GREEDY", "SAMPLE",
            "method_id", "sample_step", "split_keys", "GenerationRequest",
            "GenerationServer", "status"]

@@ -1,5 +1,6 @@
 """Decode-mode forwards: the port of
-`deeplearning4j_tpu/generation/decode.py`'s `BertDecoder`.
+`deeplearning4j_tpu/generation/decode.py`'s `BertDecoder` and
+`RecurrentDecoder`.
 
 `BertDecoder` keeps per-layer K/V caches `(L, S, H, C, Dh)` (C = the
 cache-length rung). `step` embeds each slot's current token at its
@@ -35,13 +36,17 @@ arithmetic, so paged streams are bit-identical to slot-contiguous ones.
 The full-sequence reference this must match (≤ 1e-5) is
 `bert_encode(..., causal=True)` + `bert_mlm_logits` over the same prefix.
 
-Not in this slice: `RecurrentDecoder`.
+`RecurrentDecoder` serves a recurrent `MultiLayerNetwork` (the zoo's
+TextGenerationLSTM): its decode state is the recurrent layers' carries,
+(S, nOut) per layer, which `step` and `prefill` overwrite in place, so the
+server captures them as it captures BertDecoder's.
 """
 from __future__ import annotations
 
 import hashlib
 
 import torch
+import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.generation.paging import NULL_PAGE
 from deeplearning4j_tpu_torch.kernels.flash_attention import (
@@ -53,7 +58,7 @@ from deeplearning4j_tpu_torch.models.bert import (_ffn, _layer_norm,
 from deeplearning4j_tpu_torch.parallel.ring_attention import dense_attention
 from deeplearning4j_tpu_torch.quantize.kvcache import quantize_rows
 
-__all__ = ["BertDecoder"]
+__all__ = ["BertDecoder", "RecurrentDecoder"]
 
 #: the value each cache entry starts at: scale rows at 1, so that rows
 #: never written round-trip to zeros; every other entry at 0
@@ -419,4 +424,121 @@ class BertDecoder:
                             cfg.layer_norm_eps)
         h_last = x[0].index_select(0, plen - 1)[0]      # (H,)
         logits = bert_mlm_logits(cfg, params, h_last)
+        return cache, logits
+
+
+class RecurrentDecoder:
+    """Carry-state decode over a recurrent `MultiLayerNetwork` (stacked
+    LSTM / GravesLSTM / SimpleRnn layers and an RnnOutputLayer-style dense
+    head, e.g. the zoo's TextGenerationLSTM). Tokens enter as one-hot
+    feature vectors (the char-RNN convention: head nOut == input feature
+    width == vocabulary). A decode step is the network's own carried-state
+    forward (`_forward(carries=)`) over T = 1 under an all-ones mask, the
+    same masked pass as the bucketed prefill and the masked full-sequence
+    forward. Runs on the network's device."""
+
+    uses_cache_rungs = False
+    supports_draft = False
+
+    def __init__(self, net):
+        self.net = net
+        layers = net.layers
+        head = layers[-1]
+        if not hasattr(head, "pre_activation"):
+            raise ValueError(
+                f"RecurrentDecoder needs a dense (RnnOutputLayer-style) "
+                f"head with pre_activation; got {type(head).__name__}")
+        rec = [l for l in layers[:-1] if getattr(l, "is_recurrent", False)]
+        if not rec:
+            raise ValueError(
+                "RecurrentDecoder needs at least one recurrent layer")
+        for l in rec:
+            if not hasattr(l, "scan_apply"):
+                raise ValueError(
+                    f"{type(l).__name__} cannot run step-by-step "
+                    "(no carried-state protocol)")
+        it = getattr(net.conf, "input_type", None)
+        if it is None or not hasattr(it, "size"):
+            raise ValueError("net conf has no sized recurrent InputType")
+        self.n_features = int(it.size)
+        self.vocab_size = int(head.nOut)
+        if self.vocab_size != self.n_features:
+            raise ValueError(
+                f"char-RNN generation feeds sampled tokens back as one-hot "
+                f"inputs: head nOut ({self.vocab_size}) must equal the "
+                f"input feature width ({self.n_features})")
+        if net._params is None:
+            raise ValueError("RecurrentDecoder needs an initialised network "
+                             "(init() or multilayer_params_from_numpy)")
+        self.device = net._device
+        # the carries are O(1) in sequence length: the server keeps one
+        # rung, which only bounds prompt_len + max_new_tokens
+        self.max_cache_len = None
+
+    def fingerprint(self):
+        from deeplearning4j_tpu_torch.runtime.executables import \
+            model_fingerprint
+        return hashlib.sha256(
+            ("recurrent-decode-" + model_fingerprint(self.net)).encode()
+        ).hexdigest()[:16]
+
+    def model_args(self):
+        return (self.net._params, self.net._state)
+
+    # -- the cache: the carries --------------------------------------------
+    def init_cache(self, slots, cache_len):
+        return {"carries": self.net._zero_carries(int(slots))}
+
+    def reset_cache(self, cache):
+        for carry in cache["carries"].values():
+            for t in carry:
+                t.zero_()
+        return cache
+
+    def grow(self, cache, new_len):
+        return cache    # the carries do not depend on the length
+
+    def _write(self, cache, carries, rows=None):
+        """Write new carries into the cache's tensors, in place: every row,
+        or the rows `rows` (a one-element index tensor)."""
+        for key, carry in cache["carries"].items():
+            for dst, src in zip(carry, carries[key]):
+                if rows is None:
+                    dst.copy_(src)
+                else:
+                    dst.index_copy_(0, rows, src.to(dst.dtype))
+
+    # -- the contract -------------------------------------------------------
+    def step(self, margs, cache, tokens, pos):
+        """One decode step: the current tokens (S,) one-hot through a T = 1
+        masked carried-state pass; returns (the head's pre-activation
+        logits (S, V) in f32, the cache with the advanced carries)."""
+        params, state = margs
+        s = tokens.shape[0]
+        x = F.one_hot(tokens, self.n_features).to(torch.float32)[:, None]
+        _, preact, _, _, carries = self.net._forward(
+            params, state, x, False,
+            mask=torch.ones((s, 1), dtype=torch.float32,
+                            device=tokens.device),
+            carries=cache["carries"])
+        self._write(cache, carries)
+        return preact[:, 0].float(), cache
+
+    def prefill(self, margs, cache, slot, prompt, plen):
+        """The length-bucketed prompt (P,) through the full masked pass
+        from zero carries (masked steps hold the carry), its final carries
+        grafted into row `slot` of the cache; returns (the cache, the
+        logits (V,) at the last real step plen - 1). `slot` and `plen` are
+        ints or one-element int64 tensors on the cache's device."""
+        params, state = margs
+        p_len = prompt.shape[0]
+        slot = torch.as_tensor(slot, device=prompt.device).reshape(1)
+        plen = torch.as_tensor(plen, device=prompt.device).reshape(1)
+        x = F.one_hot(prompt, self.n_features).to(torch.float32)[None]
+        mask = (torch.arange(p_len, device=prompt.device)[None, :]
+                < plen).to(torch.float32)
+        _, preact, _, _, fresh = self.net._forward(
+            params, state, x, False, mask=mask, carries={})
+        self._write(cache, fresh, rows=slot)
+        logits = preact[0].index_select(0, plen - 1)[0].float()
         return cache, logits

@@ -107,7 +107,11 @@ pays one `enabled()` or `is None` branch a site. Fault sites
 `generation.admit`, `cache.grow` and `cache.page`, each one
 module-attribute check when no plan is installed.
 
-`RecurrentDecoder` (LSTM/GRU networks) is not ported yet.
+A recurrent `MultiLayerNetwork` (the zoo's TextGenerationLSTM) is served
+through `RecurrentDecoder`, as the JAX server serves it: its carries are
+the cache, the cache rungs collapse to the top one (the carries do not
+grow with the length), and drafting is refused. Its decode block, admits
+and retire are captured like BertDecoder's.
 """
 from __future__ import annotations
 
@@ -121,6 +125,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch import monitoring as _mon
+from deeplearning4j_tpu_torch.generation.decode import RecurrentDecoder
 from deeplearning4j_tpu_torch.generation.paging import PageAllocator
 from deeplearning4j_tpu_torch.generation.sampling import (GREEDY, method_id,
                                                           sample_step,
@@ -306,7 +311,8 @@ class GenerationServer:
     """Continuous-batching KV-cache decode server over one model.
 
     `decoder`: a `generation.decode.BertDecoder` (dense or paged, fp or
-    int8); the server runs on its device. `slots` is the decode batch;
+    int8) or `RecurrentDecoder`, or a recurrent `MultiLayerNetwork`
+    (wrapped in a RecurrentDecoder); the server runs on its device. `slots` is the decode batch;
     `cache_lengths` the cache rungs (prompt_len + max_new_tokens must fit
     the top rung; whole pages when paged); `prompt_buckets` the prefill
     length ladder; `superstep` the decode steps per block; `draft` the
@@ -334,9 +340,7 @@ class GenerationServer:
                  pressure_relief_secs=60.0, memory_high_water=0.92,
                  superstep=1, draft=0, cuda_graphs=True):
         if not hasattr(decoder, "init_cache"):
-            raise NotImplementedError(
-                "RecurrentDecoder (LSTM/GRU networks) is not ported yet; "
-                "it comes with the nn/ slice — pass a BertDecoder")
+            decoder = RecurrentDecoder(decoder)
         self.decoder = decoder
         self.device = decoder.device
         self.slots = int(slots)
@@ -361,7 +365,12 @@ class GenerationServer:
         rungs = tuple(sorted({int(c) for c in cache_lengths}))
         if not rungs or rungs[0] < 2:
             raise ValueError(f"cache_lengths must be >= 2: {cache_lengths}")
-        if rungs[-1] > decoder.max_cache_len:
+        if not getattr(decoder, "uses_cache_rungs", True):
+            # carry state is O(1) in sequence length: one rung, which only
+            # bounds prompt_len + max_new_tokens
+            rungs = (rungs[-1],)
+        if decoder.max_cache_len is not None \
+                and rungs[-1] > decoder.max_cache_len:
             raise ValueError(
                 f"top cache rung {rungs[-1]} exceeds the model's "
                 f"maximum decodable length {decoder.max_cache_len}")

@@ -181,6 +181,13 @@ template <int D>
 struct Kept<__nv_bfloat16, D> {
   using type = Rows<__nv_bfloat16, D>;
 };
+// f32 at D = 128: Q (or K) kept split would take 128 registers a thread
+// beside the 64 of the accumulators; raw fragments, split at each use, take
+// 64.
+template <>
+struct Kept<float, 128> {
+  using type = Rows<float, 128>;
+};
 
 // -- shared-memory fragment loads -------------------------------------------------
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {

@@ -213,6 +213,9 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     case 64:
       return launch_d<T, 64>(q, k, v, kv_mask, o, lse, BH, H, Tq, Tk, causal,
                              scale, device, stream);
+    case 128:
+      return launch_d<T, 128>(q, k, v, kv_mask, o, lse, BH, H, Tq, Tk, causal,
+                             scale, device, stream);
     default:
       return cudaErrorInvalidValue;
   }

@@ -31,6 +31,11 @@ block and the paged pool are plain PyTorch on every device, as they are
 einsums and gathers in the JAX package: the paged fp decode gathers the
 slot-contiguous view (`gather_kv_pages`) and runs `flash_decode` on it.
 
+Head dims: flash_fwd, flash_bwd_dq and flash_bwd_dkv are built for D = 16,
+32, 64 and 128; a smaller D runs zero-padded to the next (`head_dim_plan`,
+`pad_heads`) with the scale of the true D, which is exact, and D > 128
+raises. The decode kernel takes D = 32, 64 and 128.
+
 Layout (B, H, T, D) as in the JAX package. Scores that a mask removes take
 -1e30, as in the JAX kernel; rows with no valid key come back as zeros.
 """
@@ -39,6 +44,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.kernels import _build
 
@@ -52,7 +58,9 @@ _NEG_INF = -1e30
 
 #: dtype codes of the C entry points (csrc/common.cuh)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_FWD_HEAD_DIMS = (16, 32, 64)
+#: head dims flash_fwd, flash_bwd_dq and flash_bwd_dkv are built for; a
+#: smaller head dim runs zero-padded to the next one (`head_dim_plan`)
+_FWD_HEAD_DIMS = (16, 32, 64, 128)
 _DECODE_HEAD_DIMS = (32, 64, 128)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -126,6 +134,26 @@ def _stream(device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+def head_dim_plan(d):
+    """The head dim at which the attention kernels run a head dim `d`: the
+    smallest instantiated one (16, 32, 64, 128) that holds it. Zero columns
+    added to q, k and v change no score, and the output's extra columns are
+    zeros, so padding and slicing is exact; the scale stays 1/√d."""
+    for hd in _FWD_HEAD_DIMS:
+        if d <= hd:
+            return hd
+    raise ValueError(
+        f"flash attention kernels take head dims up to {_FWD_HEAD_DIMS[-1]} "
+        f"on the card, got {d} (a wider head dim is an open item of "
+        "ROADMAP.md)")
+
+
+def pad_heads(dp, *ts):
+    """Each (…, D) tensor zero-padded to head dim `dp` (as they are)."""
+    return tuple(t if t.shape[-1] == dp else F.pad(t, (0, dp - t.shape[-1]))
+                 for t in ts)
+
+
 # ---------------------------------------------------------------------------
 # kernel 1: flash forward
 # ---------------------------------------------------------------------------
@@ -135,11 +163,16 @@ def _wide(t):
     return t if t.dtype == torch.float64 else t.float()
 
 
-def _masked_scores(q, k, kv_mask, causal):
+def _scale(q, scale):
+    return 1.0 / q.shape[-1] ** 0.5 if scale is None else scale
+
+
+def _masked_scores(q, k, kv_mask, causal, scale=None):
     """(q·scale)·kᵀ in f32, (B, H, Tq, Tk), with -1e30 where the key mask
-    or causality removes a key (the JAX kernels' `where(mask, s, -1e30)`)."""
-    tq, tk, d = q.shape[2], k.shape[2], q.shape[3]
-    s = torch.einsum("bhqd,bhkd->bhqk", _wide(q) * (1.0 / d ** 0.5),
+    or causality removes a key (the JAX kernels' `where(mask, s, -1e30)`).
+    The scale defaults to 1/√D of q's head dim."""
+    tq, tk = q.shape[2], k.shape[2]
+    s = torch.einsum("bhqd,bhkd->bhqk", _wide(q) * _scale(q, scale),
                      _wide(k))
     valid = torch.ones((1, 1, tq, tk), dtype=torch.bool, device=q.device)
     if causal:
@@ -149,12 +182,12 @@ def _masked_scores(q, k, kv_mask, causal):
     return torch.where(valid, s, _NEG_INF)
 
 
-def _flash_forward_reference(q, k, v, kv_mask, causal):
+def _flash_forward_reference(q, k, v, kv_mask, causal, scale=None):
     """Plain version of `flash_fwd`: the same masked online-softmax result
     computed densely in f32. Returns (out (B, H, Tq, D) in q.dtype,
     lse (B*H, Tq) f32)."""
     b, h, tq, d = q.shape
-    s = _masked_scores(q, k, kv_mask, causal)
+    s = _masked_scores(q, k, kv_mask, causal, scale)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
@@ -170,12 +203,13 @@ def flash_fwd(q, k, v, kv_mask=None, causal=False):
     query rows are not zeroed here (see `_flash_forward`)."""
     if not q.is_cuda:
         return _flash_forward_reference(q, k, v, kv_mask, causal)
-    b, h, tq, d = q.shape
+    b, h, tq, d_true = q.shape
     tk = k.shape[2]
-    if k.shape != (b, h, tk, d) or v.shape != k.shape:
+    if k.shape != (b, h, tk, d_true) or v.shape != k.shape:
         raise ValueError(f"flash_fwd: q {tuple(q.shape)} does not match "
                          f"k {tuple(k.shape)} / v {tuple(v.shape)}")
-    q, k, v = _operands("flash_fwd", (q, k, v), _FWD_HEAD_DIMS)
+    d = head_dim_plan(d_true)
+    q, k, v = _operands("flash_fwd", pad_heads(d, q, k, v), _FWD_HEAD_DIMS)
     mask = None
     if kv_mask is not None:
         mask = _mask_bytes(kv_mask, q.device, "kv_mask")
@@ -188,10 +222,11 @@ def flash_fwd(q, k, v, kv_mask=None, causal=False):
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if mask is None else mask.data_ptr(), out.data_ptr(),
         lse.data_ptr(), _DTYPE_CODES[q.dtype], b * h, h, tq, tk, d,
-        int(causal), 1.0 / d ** 0.5, q.device.index or 0, _stream(q.device))
+        int(causal), 1.0 / d_true ** 0.5, q.device.index or 0,
+        _stream(q.device))
     _build.check(code, "flash_fwd")
     _build.count_launch(flash_fwd)
-    return out, lse
+    return (out if d == d_true else out[..., :d_true]), lse
 
 
 flash_fwd.launches = 0
@@ -220,32 +255,32 @@ def _flash_forward(q, k, v, q_mask, kv_mask, causal):
 # ---------------------------------------------------------------------------
 # backward kernels: dQ and dK/dV
 # ---------------------------------------------------------------------------
-def _bwd_tiles(q, k, v, g, lse, delta, kv_mask, causal):
+def _bwd_tiles(q, k, v, g, lse, delta, kv_mask, causal, scale=None):
     """P = exp(where(mask, S, -1e30) - lse) and dS = P∘(dO·Vᵀ - Δ), f32
     (B, H, Tq, Tk), as `_recompute_p` and the TPU backward kernels form
     them. There is no query-side mask: invalid query rows carry
     lse = +1e30 (`_flash_forward`), so their P is exactly 0."""
     b, h, tq, _ = q.shape
-    s = _masked_scores(q, k, kv_mask, causal)
+    s = _masked_scores(q, k, kv_mask, causal, scale)
     p = torch.exp(s - lse.reshape(b, h, tq, 1))
     dp = torch.einsum("bhqd,bhkd->bhqk", _wide(g), _wide(v))
     ds = p * (dp - delta.reshape(b, h, tq, 1))
     return p, ds
 
 
-def _dq_reference(q, k, v, g, lse, delta, kv_mask, causal):
+def _dq_reference(q, k, v, g, lse, delta, kv_mask, causal, scale=None):
     """Plain version of `flash_bwd_dq`: dQ = scale·dS·K in q.dtype."""
-    _, ds = _bwd_tiles(q, k, v, g, lse, delta, kv_mask, causal)
-    scale = 1.0 / q.shape[-1] ** 0.5
+    scale = _scale(q, scale)
+    _, ds = _bwd_tiles(q, k, v, g, lse, delta, kv_mask, causal, scale)
     return (scale * torch.einsum("bhqk,bhkd->bhqd", ds, _wide(k))).to(
         q.dtype)
 
 
-def _dkv_reference(q, k, v, g, lse, delta, kv_mask, causal):
+def _dkv_reference(q, k, v, g, lse, delta, kv_mask, causal, scale=None):
     """Plain version of `flash_bwd_dkv`: dK = scale·dSᵀ·Q and dV = Pᵀ·dO,
     in k.dtype and v.dtype."""
-    p, ds = _bwd_tiles(q, k, v, g, lse, delta, kv_mask, causal)
-    scale = 1.0 / q.shape[-1] ** 0.5
+    scale = _scale(q, scale)
+    p, ds = _bwd_tiles(q, k, v, g, lse, delta, kv_mask, causal, scale)
     dk = scale * torch.einsum("bhqk,bhqd->bhkd", ds, _wide(q))
     dv = torch.einsum("bhqk,bhqd->bhkd", p, _wide(g))
     return dk.to(k.dtype), dv.to(v.dtype)
@@ -277,7 +312,8 @@ def _bwd_operands(name, q, k, v, g, lse, delta, kv_mask):
         raise ValueError(
             f"{name}: q {tuple(q.shape)} / dO {tuple(g.shape)} do not match "
             f"k {tuple(k.shape)} / v {tuple(v.shape)}")
-    q, k, v, g = _operands(name, (q, k, v, g), _FWD_HEAD_DIMS)
+    q, k, v, g = _operands(name, pad_heads(head_dim_plan(d), q, k, v, g),
+                           _FWD_HEAD_DIMS)
     rows = []
     for what, t in (("lse", lse), ("delta", delta)):
         if (t.dtype != torch.float32 or t.device != q.device
@@ -311,17 +347,17 @@ def flash_bwd_dq(q, k, v, g, lse, delta, kv_mask=None, causal=False):
     truthy or None. Returns dq (B, H, Tq, D) in q.dtype."""
     if not q.is_cuda:
         return _dq_reference(q, k, v, g, lse, delta, kv_mask, causal)
+    d = q.shape[-1]
     q, k, v, g, lse, delta, mask = _bwd_operands(
         "flash_bwd_dq", q, k, v, g, lse, delta, kv_mask)
     dq = torch.empty_like(q)
-    d = q.shape[-1]
     ptrs, ints = _bwd_args(q, k, v, g, lse, delta, mask)
     code = _entry("dl4j_flash_bwd_dq")(
         *ptrs, dq.data_ptr(), *ints, int(causal), 1.0 / d ** 0.5,
         q.device.index or 0, _stream(q.device))
     _build.check(code, "flash_bwd_dq")
     _build.count_launch(flash_bwd_dq)
-    return dq
+    return dq[..., :d] if dq.shape[-1] != d else dq
 
 
 flash_bwd_dq.launches = 0
@@ -333,17 +369,19 @@ def flash_bwd_dkv(q, k, v, g, lse, delta, kv_mask=None, causal=False):
     (B, H, Tk, D) in k's dtype."""
     if not q.is_cuda:
         return _dkv_reference(q, k, v, g, lse, delta, kv_mask, causal)
+    d = q.shape[-1]
     q, k, v, g, lse, delta, mask = _bwd_operands(
         "flash_bwd_dkv", q, k, v, g, lse, delta, kv_mask)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    d = q.shape[-1]
     ptrs, ints = _bwd_args(q, k, v, g, lse, delta, mask)
     code = _entry("dl4j_flash_bwd_dkv")(
         *ptrs, dk.data_ptr(), dv.data_ptr(), *ints, int(causal),
         1.0 / d ** 0.5, q.device.index or 0, _stream(q.device))
     _build.check(code, "flash_bwd_dkv")
     _build.count_launch(flash_bwd_dkv)
+    if dk.shape[-1] != d:
+        dk, dv = dk[..., :d], dv[..., :d]
     return dk, dv
 
 

@@ -1,13 +1,13 @@
-"""Model zoo: the port of `ZooModel`, LeNet, SimpleCNN, AlexNet, VGG16 and
-ResNet50 of `deeplearning4j_tpu/models/zoo/models.py` (≡
+"""Model zoo: the port of `ZooModel`, LeNet, SimpleCNN, AlexNet, VGG16,
+ResNet50 and TextGenerationLSTM of `deeplearning4j_tpu/models/zoo/models.py`
+(≡
 deeplearning4j-zoo :: org.deeplearning4j.zoo.model.*).
 
 The models build through the same public config DSL a user would write.
 `init()` returns the network on the card (or on `device`): a
 MultiLayerNetwork for a `.list()` configuration, a ComputationGraph for a
 graph. `initPretrained()` needs a local checkpoint, as the port fetches
-nothing over a network. UNet, TinyYOLO and TextGenerationLSTM come later
-(ROADMAP A11, A12).
+nothing over a network. UNet and TinyYOLO come later (ROADMAP A11, A12).
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ from deeplearning4j_tpu_torch.nn.conf.layers import (ActivationLayer,
                                                      GlobalPoolingLayer,
                                                      OutputLayer,
                                                      SubsamplingLayer)
+from deeplearning4j_tpu_torch.nn.conf.recurrent import LSTM, RnnOutputLayer
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.nn.updaters import Adam, Nesterovs
@@ -288,3 +289,50 @@ class ResNet50(ZooModel):
                                      activation="softmax"), "avgpool")
         g.setOutputs("fc")
         return g.build()
+
+
+class TextGenerationLSTM(ZooModel):
+    """≡ zoo.model.TextGenerationLSTM — char-RNN: two stacked LSTMs and a
+    per-step softmax (the GravesLSTM char-modelling baseline
+    configuration: 77 classes, LSTM(256) × 2, ~0.89 M parameters)."""
+
+    def __init__(self, numClasses=77, lstmLayerSize=256, scanUnroll=1,
+                 **kw):
+        kw.setdefault("inputShape", (None, numClasses))
+        super().__init__(numClasses=numClasses, **kw)
+        self.lstmLayerSize = lstmLayerSize
+        self.scanUnroll = int(scanUnroll)
+
+    DEFAULT_INPUT = (None, 77)
+
+    def conf(self):
+        return (NeuralNetConfiguration.Builder()
+                .seed(self.seed)
+                .updater(self.updater or Adam(1e-2))
+                .weightInit("xavier")
+                .dataType(self.dataType)
+                .list()
+                .layer(LSTM(nOut=self.lstmLayerSize, activation="tanh",
+                            scanUnroll=self.scanUnroll))
+                .layer(LSTM(nOut=self.lstmLayerSize, activation="tanh",
+                            scanUnroll=self.scanUnroll))
+                .layer(RnnOutputLayer(lossFunction="mcxent",
+                                      nOut=self.numClasses,
+                                      activation="softmax"))
+                .setInputType(InputType.recurrent(self.numClasses))
+                .build())
+
+    def generationServer(self, net=None, **kw):
+        """Serve this char-RNN token by token through `GenerationServer`
+        (a `RecurrentDecoder` over the net's carries):
+
+            srv = TextGenerationLSTM().generationServer(
+                slots=8, cache_lengths=[512], method="top_k", top_k=5)
+            srv.warmup()
+
+        `net`: a trained network (default: a fresh `init()` on the card).
+        The other keywords go to GenerationServer."""
+        from deeplearning4j_tpu_torch.generation.server import \
+            GenerationServer
+        return GenerationServer(net if net is not None else self.init(),
+                                **kw)

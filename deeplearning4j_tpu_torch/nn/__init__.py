@@ -1,5 +1,6 @@
 """The port's `nn/`: the builder DSL, the layers ResNet-50 and the zoo's
-CNNs need, the conv1x1+BN fusion pass, `ComputationGraph`,
+CNNs need, the recurrent, sequence and attention layers, the conv1x1+BN
+fusion pass, `ComputationGraph`,
 `MultiLayerNetwork` and the training surface they share: updaters,
 schedules, losses, dropout objects, constraints and gradient
 accumulation."""
@@ -9,16 +10,23 @@ from deeplearning4j_tpu_torch.nn.conf.builders import (BackpropType,
                                                        MultiLayerConfiguration,
                                                        NeuralNetConfiguration,
                                                        WorkspaceMode)
+from deeplearning4j_tpu_torch.nn.conf.attention import (
+    AttentionVertex, LearnedSelfAttentionLayer, RecurrentAttentionLayer,
+    SelfAttentionLayer)
 from deeplearning4j_tpu_torch.nn.conf.graph_vertices import (
-    ElementWiseVertex, GraphVertex, MergeVertex)
+    DuplicateToTimeSeriesVertex, ElementWiseVertex, GraphVertex,
+    LastTimeStepVertex, MergeVertex, ReverseTimeSeriesVertex)
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
-from deeplearning4j_tpu_torch.nn.conf.layers import (ActivationLayer,
-                                                     BatchNormalization,
-                                                     ConvolutionLayer,
-                                                     DenseLayer, DropoutLayer,
-                                                     GlobalPoolingLayer,
-                                                     OutputLayer,
-                                                     SubsamplingLayer)
+from deeplearning4j_tpu_torch.nn.conf.layers import (
+    ActivationLayer, BatchNormalization, ConvolutionLayer, DenseLayer,
+    DropoutLayer, EmbeddingLayer, EmbeddingSequenceLayer, GlobalPoolingLayer,
+    OutputLayer, SubsamplingLayer, TimeDistributed)
+from deeplearning4j_tpu_torch.nn.conf.recurrent import (
+    LSTM, Bidirectional, GravesBidirectionalLSTM, GravesLSTM, LastTimeStep,
+    RnnOutputLayer, SimpleRnn)
+from deeplearning4j_tpu_torch.nn.conf.sequence_layers import (MaskLayer,
+                                                              MaskZeroLayer,
+                                                              RnnLossLayer)
 from deeplearning4j_tpu_torch.nn.constraints import (MaxNormConstraint,
                                                      MinMaxNormConstraint,
                                                      NonNegativeConstraint,
@@ -58,7 +66,14 @@ __all__ = [
     "MultiLayerConfiguration", "WorkspaceMode", "InputType", "layers",
     "ActivationLayer", "BatchNormalization", "ConvolutionLayer",
     "DenseLayer", "DropoutLayer", "GlobalPoolingLayer", "OutputLayer",
-    "SubsamplingLayer", "GraphVertex", "MergeVertex", "ElementWiseVertex",
+    "SubsamplingLayer", "EmbeddingLayer", "EmbeddingSequenceLayer",
+    "TimeDistributed", "LSTM", "GravesLSTM", "SimpleRnn",
+    "Bidirectional", "GravesBidirectionalLSTM", "LastTimeStep",
+    "RnnOutputLayer", "MaskLayer", "MaskZeroLayer", "RnnLossLayer",
+    "SelfAttentionLayer", "LearnedSelfAttentionLayer",
+    "RecurrentAttentionLayer", "AttentionVertex", "LastTimeStepVertex",
+    "DuplicateToTimeSeriesVertex", "ReverseTimeSeriesVertex",
+    "GraphVertex", "MergeVertex", "ElementWiseVertex",
     "ComputationGraph", "MultiLayerNetwork", "graph_params_from_numpy",
     "graph_params_to_numpy", "multilayer_params_from_numpy",
     "multilayer_params_to_numpy", "LossFunction", "LossBinaryXENT",

@@ -12,7 +12,10 @@ a training step writes its results into the live tensors in place.
 One step: the loss (the output layers' losses plus the L1/L2 penalty),
 `backward`, the optimizer of `build_optimizer` (per-layer updater
 overrides included), the layers' constraints on the new parameters, and
-the new BN state. With `.gradientAccumulation(G)` a group of G batches
+the new BN state. A batch's feature masks ride in its inputs dict under
+`<input name>#mask` (`mask_key`; present only when given), so a masked
+batch is a batch signature of its own and its mask a static input of the
+step's graph. With `.gradientAccumulation(G)` a group of G batches
 runs through `nn.accum.accumulate` and one update. On the card each step
 (or group) runs through a CUDA graph per batch signature
 (`runtime.executables.FunctionStore`): the first batch of a signature runs
@@ -62,6 +65,18 @@ def compute_dtype(conf):
     return _DTYPES[dt]
 
 
+def mask_key(name):
+    """The key of input `name`'s feature mask in an unpacked inputs dict."""
+    return f"{name}#mask"
+
+
+def split_inputs(ins):
+    """(features {name: tensor}, feature masks {name: tensor}) of an
+    unpacked inputs dict."""
+    feats = {n: t for n, t in ins.items() if not n.endswith("#mask")}
+    return feats, {n: ins[mask_key(n)] for n in feats if mask_key(n) in ins}
+
+
 def later(cls, what, where):
     return NotImplementedError(
         f"{cls}: {what} is not ported yet; it comes with {where}")
@@ -80,6 +95,15 @@ def clone_tree(tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(clone_tree(v) for v in tree)
     return tree.clone() if torch.is_tensor(tree) else tree
+
+
+def _detached(tree):
+    """A tree of dicts, lists and tuples with every tensor detached."""
+    if isinstance(tree, dict):
+        return {k: _detached(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_detached(v) for v in tree)
+    return tree.detach() if torch.is_tensor(tree) else tree
 
 
 def copy_into(dst, src):
@@ -110,7 +134,9 @@ def l1l2_penalty(layers, params):
         if not l1 and not l2:
             continue
         for name, v in p.items():
-            if name in ("b", "beta", "gamma", "alpha", "centers"):
+            # a wrapper's names carry a prefix ("fwd_b" of Bidirectional)
+            if name.rsplit("_", 1)[-1] in ("b", "beta", "gamma", "alpha",
+                                           "centers"):
                 continue
             v = v.float()
             if l1:
@@ -150,7 +176,8 @@ class Network:
     def _unpack(self, ds):
         """(inputs {name: tensor}, labels [tensor], label masks or None) of
         a DataSet or MultiDataSet, or of one that the prefetch thread
-        staged, on the network's device."""
+        staged, on the network's device; a feature mask joins the inputs
+        under `mask_key(name)`."""
         staged = isinstance(ds, (StagedBatch, StagedMultiBatch))
         if staged and ds.event is not None:
             torch.cuda.current_stream(self._device).wait_event(ds.event)
@@ -177,9 +204,9 @@ class Network:
             labels = [tensor(ds.labels)]
         else:
             raise TypeError(f"Cannot fit on {type(ds)}")
-        if fmasks is not None and any(m is not None for m in fmasks):
-            raise later(type(self).__name__, "feature masks",
-                        "the recurrent layers (ROADMAP A12)")
+        for n, m in zip(self._input_names, fmasks or ()):
+            if m is not None:
+                ins[mask_key(n)] = tensor(m)
         if lmasks is not None:
             lmasks = [tensor(m) for m in lmasks]
         return ins, labels, lmasks
@@ -260,17 +287,14 @@ class Network:
         return apply_layer_constraints(items, params)
 
     # -- one step ---------------------------------------------------------
-    def _value_and_grad(self, ins, labels, lmasks=None, generator=None,
-                        state=None):
-        """(loss, gradients {key: {name: tensor}}, new state) of one
-        training-mode forward and backward at the current parameters,
-        from `state` (default: the live state). A parameter the loss does
-        not reach gets a zero gradient, as `jax.grad` gives it."""
+    def _grad_tree(self, loss_fn):
+        """(loss, gradients {key: {name: tensor}}, aux) of `loss_fn(params)
+        -> (loss, aux)` at the current parameters, every tensor of aux
+        detached. A parameter the loss does not reach gets a zero gradient,
+        as `jax.grad` gives it."""
         leaves = {n: {k: v.detach().requires_grad_() for k, v in d.items()}
                   for n, d in self._params.items()}
-        loss, new_state = self._loss(
-            leaves, self._state if state is None else state, ins, labels,
-            lmasks, generator, train=True)
+        loss, aux = loss_fn(leaves)
         flat = [(n, k, v) for n, d in leaves.items() for k, v in d.items()]
         grads = torch.autograd.grad(loss, [v for _, _, v in flat],
                                     allow_unused=True)
@@ -278,9 +302,16 @@ class Network:
         for (n, k, v), g in zip(flat, grads):
             tree.setdefault(n, {})[k] = torch.zeros_like(v) if g is None \
                 else g
-        new_state = {n: {k: v.detach() for k, v in d.items()}
-                     for n, d in new_state.items()}
-        return loss.detach(), tree, new_state
+        return loss.detach(), tree, _detached(aux)
+
+    def _value_and_grad(self, ins, labels, lmasks=None, generator=None,
+                        state=None):
+        """(loss, gradients {key: {name: tensor}}, new state) of one
+        training-mode forward and backward at the current parameters,
+        from `state` (default: the live state)."""
+        return self._grad_tree(lambda p: self._loss(
+            p, self._state if state is None else state, ins, labels, lmasks,
+            generator, train=True))
 
     def _update_in_place(self, grads, state):
         """The optimizer's update, then the constraints, written into the
@@ -340,15 +371,10 @@ class Network:
             copy_into(store.args(key), args)
         return store.run(key)   # a store that does not capture: eagerly
 
-    def _train_step(self, batches, graphs=True):
+    def _run_step(self, batches, graphs):
         """One update from one batch or from an accumulation group (a list
         of unpacked batches), through its CUDA graph on the card when
-        `graphs`; then the counters and the listeners."""
-        if self._tx is None:
-            self._build_optimizer()
-        if self._generator is None:
-            self._generator = torch.Generator(device=self._device)
-            self._generator.manual_seed(int(self.conf.seed))
+        `graphs`; returns the loss."""
         if len(batches) == 1:
             name, fn, args = "fit", self._step_in_place, batches[0]
             sig = batch_sig(*batches[0])
@@ -357,9 +383,19 @@ class Network:
                 tuple(batches),)
             sig = tuple(batch_sig(*b) for b in batches)
         if graphs and self._device.type == "cuda":
-            self._score = self._graph_step((name, sig), args)
-        else:
-            self._score = fn(*args)
+            return self._graph_step((name, sig), args)
+        return fn(*args)
+
+    def _train_step(self, batches, graphs=True):
+        """`_run_step`, after building the optimizer and the dropout
+        generator on the first call; then the counters and the
+        listeners."""
+        if self._tx is None:
+            self._build_optimizer()
+        if self._generator is None:
+            self._generator = torch.Generator(device=self._device)
+            self._generator.manual_seed(int(self.conf.seed))
+        self._score = self._run_step(batches, graphs)
         self._iteration += 1
         for listener in self._listeners:
             listener.iterationDone(self, self._iteration, self._epoch)

@@ -1,7 +1,12 @@
-"""Graph vertices: the port of `GraphVertex`, `MergeVertex` and
-`ElementWiseVertex` of `deeplearning4j_tpu/nn/conf/graph_vertices.py`
-(≡ deeplearning4j-nn :: conf.graph.*). Plain functions over one or more
-parent activations. The other vertices come with ROADMAP A12.
+"""Graph vertices: the port of `GraphVertex`, `MergeVertex`,
+`ElementWiseVertex` and the recurrent vertices `LastTimeStepVertex`,
+`DuplicateToTimeSeriesVertex` and `ReverseTimeSeriesVertex` of
+`deeplearning4j_tpu/nn/conf/graph_vertices.py` (≡ deeplearning4j-nn ::
+conf.graph.*). Plain functions over one or more parent activations and
+the feature mask (B, T) of the first parent that has one; a vertex's
+`feed_forward_mask` is the mask its consumers see. `AttentionVertex`,
+which has parameters, lives in `attention.py`. The other vertices come
+with ROADMAP A12.
 """
 from __future__ import annotations
 
@@ -16,8 +21,14 @@ class GraphVertex:
     def output_type(self, *input_types):
         raise NotImplementedError
 
-    def apply(self, *xs):
+    def apply(self, *xs, mask=None):
         raise NotImplementedError
+
+    def feed_forward_mask(self, *parent_masks):
+        """The mask downstream of this vertex (≡ feedForwardMaskArray): the
+        first parent mask that is not None, unless the vertex drops or
+        re-keys the time axis."""
+        return next((m for m in parent_masks if m is not None), None)
 
 
 class MergeVertex(GraphVertex):
@@ -33,7 +44,7 @@ class MergeVertex(GraphVertex):
                                        t0.timeSeriesLength)
         return InputType.feedForward(sum(t.size for t in ts))
 
-    def apply(self, *xs):
+    def apply(self, *xs, mask=None):
         return torch.cat(xs, dim=-1)
 
 
@@ -47,7 +58,7 @@ class ElementWiseVertex(GraphVertex):
     def output_type(self, *ts):
         return ts[0]
 
-    def apply(self, *xs):
+    def apply(self, *xs, mask=None):
         if self.op == "add":
             out = xs[0]
             for x in xs[1:]:
@@ -79,3 +90,68 @@ class ElementWiseVertex(GraphVertex):
                 out = torch.minimum(out, x)
             return out
         raise ValueError(f"Unknown ElementWiseVertex op {self.op}")
+
+
+class LastTimeStepVertex(GraphVertex):
+    """≡ rnn.LastTimeStepVertex — (B, T, F) → (B, F): each example's last
+    valid step under the mask."""
+
+    def __init__(self, maskArrayInputName=None):
+        self.maskName = maskArrayInputName
+
+    def feed_forward_mask(self, *parent_masks):
+        return None  # one (feed-forward) step
+
+    def output_type(self, *ts):
+        return InputType.feedForward(ts[0].size)
+
+    def apply(self, *xs, mask=None):
+        x = xs[0]
+        if mask is None:
+            return x[:, -1, :]
+        idx = ((mask > 0).sum(dim=1) - 1).clamp_min(0)
+        return x.gather(1, idx[:, None, None].expand(-1, 1, x.shape[-1]))[:, 0]
+
+
+class DuplicateToTimeSeriesVertex(GraphVertex):
+    """≡ rnn.DuplicateToTimeSeriesVertex — a (B, F) activation repeated
+    over the time axis of the second parent (B, T, F'): (B, T, F)."""
+
+    def __init__(self, referenceInputName=None):
+        self.referenceInputName = referenceInputName
+
+    def output_type(self, *ts):
+        ff, seq = ts[0], ts[1]
+        return InputType.recurrent(ff.size,
+                                   getattr(seq, "timeSeriesLength", None))
+
+    def feed_forward_mask(self, *parent_masks):
+        # the time axis is the second (reference) parent's
+        return parent_masks[1] if len(parent_masks) > 1 else None
+
+    def apply(self, *xs, mask=None):
+        ff, seq = xs[0], xs[1]
+        return ff[:, None, :].expand(ff.shape[0], seq.shape[1], ff.shape[1])
+
+
+class ReverseTimeSeriesVertex(GraphVertex):
+    """≡ rnn.ReverseTimeSeriesVertex — the time axis reversed; under a mask
+    each example reverses within its own length L (out[t] = x[L-1-t] for
+    t < L, zeros after)."""
+
+    def __init__(self, maskArrayInputName=None):
+        self.maskName = maskArrayInputName
+
+    def output_type(self, *ts):
+        return ts[0]
+
+    def apply(self, *xs, mask=None):
+        x = xs[0]
+        t = x.shape[1]
+        if mask is None:
+            return torch.flip(x, dims=(1,))
+        lengths = (mask > 0).sum(dim=1)                          # (B,)
+        pos = torch.arange(t, device=x.device)[None, :]          # (1, T)
+        src = (lengths[:, None] - 1 - pos).clamp(0, t - 1)       # (B, T)
+        y = x.gather(1, src[:, :, None].expand(-1, -1, x.shape[-1]))
+        return torch.where((pos < lengths[:, None])[:, :, None], y, 0)

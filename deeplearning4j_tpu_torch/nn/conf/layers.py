@@ -16,9 +16,14 @@ OIHW at the call. `dropOut(p)` is the RETAIN probability, inverted
 dropout on the layer input at train time; `dropOut` also takes an
 `nn/dropout.py` object (GaussianDropout, AlphaDropout, ...).
 
-Ported so far: DenseLayer, ConvolutionLayer, SubsamplingLayer,
-BatchNormalization, ActivationLayer, DropoutLayer, GlobalPoolingLayer and
-OutputLayer. The other layer families come with ROADMAP A12.
+Ported so far: DenseLayer, EmbeddingLayer, EmbeddingSequenceLayer,
+TimeDistributed, ConvolutionLayer, SubsamplingLayer, BatchNormalization,
+ActivationLayer, DropoutLayer, GlobalPoolingLayer (mask-aware over time),
+and OutputLayer; the recurrent, sequence and attention layers
+live in `recurrent.py`, `sequence_layers.py` and `attention.py`. Every
+`apply` takes the (B, T) feature mask (`mask`, 1 = valid), and
+`feed_forward_mask` gives the mask the next layer sees. The other layer
+families come with ROADMAP A11/A12.
 """
 from __future__ import annotations
 
@@ -173,8 +178,15 @@ class Layer:
     def output_type(self, input_type):
         return input_type
 
-    def apply(self, params, state, x, train=False, generator=None):
+    def apply(self, params, state, x, train=False, generator=None,
+              mask=None):
         return x, state
+
+    def feed_forward_mask(self, mask):
+        """The feature mask as seen by the layers after this one (≡ the
+        reference's feedForwardMaskArray): the same mask unless the layer
+        reshapes or drops the time axis (None: every step valid)."""
+        return mask
 
     # -- helpers ---------------------------------------------------------
     def regularization_terms(self):
@@ -241,11 +253,128 @@ class DenseLayer(Layer):
             y = y + params["b"].to(x.dtype)
         return y
 
-    def apply(self, params, state, x, train=False, generator=None):
+    def apply(self, params, state, x, train=False, generator=None,
+              mask=None):
         x = self._dropout_in(x, train, generator)
         return (get_activation(self.activation)(self.pre_activation(params,
                                                                     x)),
                 state)
+
+
+class EmbeddingLayer(Layer):
+    """≡ conf.layers.EmbeddingLayer — integer indices (B,) or one-hot rows
+    (B, nIn) to dense vectors by a row gather."""
+
+    def __init__(self, nIn=None, nOut=None, hasBias=False, **kw):
+        super().__init__(**kw)
+        self.nIn, self.nOut, self.hasBias = nIn, nOut, hasBias
+
+    def output_type(self, input_type):
+        return InputType.feedForward(self.nOut)
+
+    def initialize(self, generator, input_type):
+        if self.nIn is None:
+            self.nIn = input_type.size
+        params = {"W": init_weight(generator, (int(self.nIn), int(self.nOut)),
+                                   self.weightInit, self.dist)}
+        if self.hasBias:
+            params["b"] = torch.full((int(self.nOut),), float(self.biasInit))
+        return params, {}, self.output_type(input_type)
+
+    def apply(self, params, state, x, train=False, generator=None,
+              mask=None):
+        w = params["W"]
+        if not x.is_floating_point():
+            idx = x.reshape(x.shape[0])
+        elif x.ndim == 2 and x.shape[-1] == w.shape[0]:
+            idx = x.argmax(dim=-1)
+        else:
+            idx = x.reshape(-1)
+        y = w[idx.long()]
+        if self.hasBias:
+            y = y + params["b"].to(y.dtype)
+        return get_activation(self.activation)(y), state
+
+
+class EmbeddingSequenceLayer(Layer):
+    """≡ EmbeddingSequenceLayer — (B, T) integer tokens (or (B, T, nIn)
+    one-hot) to (B, T, nOut)."""
+
+    def __init__(self, nIn=None, nOut=None, inputLength=None, **kw):
+        super().__init__(**kw)
+        self.nIn, self.nOut, self.inputLength = nIn, nOut, inputLength
+
+    def output_type(self, input_type):
+        t = getattr(input_type, "timeSeriesLength", None) or self.inputLength
+        return InputType.recurrent(self.nOut, t)
+
+    def initialize(self, generator, input_type):
+        if self.nIn is None:
+            self.nIn = input_type.size
+        w = init_weight(generator, (int(self.nIn), int(self.nOut)),
+                        self.weightInit, self.dist)
+        return {"W": w}, {}, self.output_type(input_type)
+
+    def apply(self, params, state, x, train=False, generator=None,
+              mask=None):
+        if x.ndim == 3:  # one-hot (B, T, nIn)
+            x = x.argmax(dim=-1)
+        y = params["W"][x.long()]
+        return get_activation(self.activation)(y), state
+
+
+class TimeDistributed(Layer):
+    """≡ conf.layers.recurrent.TimeDistributed — a feed-forward layer
+    applied at every step of (B, T, F) by folding time into the batch."""
+
+    @classmethod
+    def _builder_positional(cls, args):
+        return {"underlying": args[0]} if args else {}
+
+    def __init__(self, underlying=None, **kw):
+        super().__init__(**kw)
+        if underlying is None:
+            raise ValueError("TimeDistributed needs an underlying layer")
+        self.underlying = underlying
+
+    def apply_defaults(self, defaults):
+        # dropout runs once, in the inner layer; an explicit wrapper
+        # dropOut is handed to it, and the training hooks the networks read
+        # from the outer layer mirror the inner one's
+        if self.dropOut is not None and self.underlying.dropOut is None:
+            self.underlying.dropOut = self.dropOut
+        self.underlying.apply_defaults(defaults)
+        out = super().apply_defaults(defaults)
+        u = self.underlying
+        if self.constraints is None:
+            self.constraints = getattr(u, "constraints", None)
+        if getattr(self, "weightNoise", None) is None:
+            self.weightNoise = getattr(u, "weightNoise", None)
+        if getattr(u, "frozen_params", False):
+            self.frozen_params = True
+        return out
+
+    def regularization_terms(self):
+        return self.underlying.regularization_terms()
+
+    def output_type(self, input_type):
+        inner = self.underlying.output_type(
+            InputType.feedForward(input_type.size))
+        return InputType.recurrent(inner.size, input_type.timeSeriesLength)
+
+    def initialize(self, generator, input_type):
+        params, state, inner_out = self.underlying.initialize(
+            generator, InputType.feedForward(input_type.size))
+        return params, state, InputType.recurrent(
+            inner_out.size, input_type.timeSeriesLength)
+
+    def apply(self, params, state, x, train=False, generator=None,
+              mask=None):
+        b, t = x.shape[0], x.shape[1]
+        y, state = self.underlying.apply(
+            params, state, x.reshape((b * t,) + tuple(x.shape[2:])),
+            train=train, generator=generator)
+        return y.reshape((b, t) + tuple(y.shape[1:])), state
 
 
 class ConvolutionLayer(Layer):
@@ -339,7 +468,8 @@ class ConvolutionLayer(Layer):
             y = y + params["b"].to(x.dtype)
         return y
 
-    def apply(self, params, state, x, train=False, generator=None):
+    def apply(self, params, state, x, train=False, generator=None,
+              mask=None):
         x = self._dropout_in(x, train, generator)
         return (get_activation(self.activation)(self.pre_activation(params,
                                                                     x)),
@@ -399,7 +529,8 @@ class SubsamplingLayer(Layer):
             (plh, phh), (plw, phw) = ((p, p) for p in self.padding)
         return (plw, phw, plh, phh)
 
-    def apply(self, params, state, x, train=False, generator=None):
+    def apply(self, params, state, x, train=False, generator=None,
+              mask=None):
         pads = self._pads(x.shape[1], x.shape[2])
         xc = _nchw(x)
         if self.poolingType == "max":
@@ -503,7 +634,8 @@ class BatchNormalization(Layer):
             return params["gamma"], params["beta"]
         return torch.ones_like(like), torch.zeros_like(like)
 
-    def apply(self, params, state, x, train=False, generator=None):
+    def apply(self, params, state, x, train=False, generator=None,
+              mask=None):
         gamma, beta = self.gamma_beta(params, state["mean"])
         if train:
             y, mean, var = _BNTrain.apply(x, gamma, beta, self.eps)
@@ -520,7 +652,8 @@ class BatchNormalization(Layer):
 class ActivationLayer(Layer):
     """≡ conf.layers.ActivationLayer."""
 
-    def apply(self, params, state, x, train=False, generator=None):
+    def apply(self, params, state, x, train=False, generator=None,
+              mask=None):
         return get_activation(self.activation)(x), state
 
 
@@ -530,7 +663,8 @@ class DropoutLayer(Layer):
     def __init__(self, dropOut=0.5, **kw):
         super().__init__(dropOut=dropOut, **kw)
 
-    def apply(self, params, state, x, train=False, generator=None):
+    def apply(self, params, state, x, train=False, generator=None,
+              mask=None):
         return self._dropout_in(x, train, generator), state
 
 
@@ -556,12 +690,23 @@ class GlobalPoolingLayer(Layer):
             return InputType.feedForward(input_type.size)
         return input_type
 
-    def apply(self, params, state, x, train=False, generator=None):
+    def feed_forward_mask(self, mask):
+        return None  # the pooled output has no time axis
+
+    def apply(self, params, state, x, train=False, generator=None,
+              mask=None):
         axes = (1, 2) if x.ndim == 4 else (1,)
+        seq_mask = mask is not None and x.ndim == 3
         if self.poolingType == "max":
+            if seq_mask:
+                x = torch.where(mask[..., None] > 0, x, float("-inf"))
             y = x.amax(dim=axes)
         elif self.poolingType in ("avg", "mean"):
-            y = x.mean(dim=axes)
+            if seq_mask:
+                m = mask[..., None].to(x.dtype)
+                y = (x * m).sum(dim=axes) / m.sum(dim=axes).clamp_min(1.0)
+            else:
+                y = x.mean(dim=axes)
         elif self.poolingType == "sum":
             y = x.sum(dim=axes)
         elif self.poolingType == "pnorm":

@@ -7,7 +7,10 @@ port's own `init` draws for the same configuration, and installs them on
 the port's graph; `graph_params_to_numpy` is the way back.
 `multilayer_params_from_numpy` / `multilayer_params_to_numpy` do the same
 for a `MultiLayerNetwork`, whose trees are keyed "0".."n-1" as the JAX
-`_params` / `_state` are.
+`_params` / `_state` are. A layer whose JAX parameters nest one level
+deeper (Bidirectional's {"fwd": {...}, "bwd": {...}}) carries across
+into the port's flat names ("fwd_W", "bwd_W", ...); the `_to_numpy`
+direction gives the flat names.
 """
 from __future__ import annotations
 
@@ -25,13 +28,24 @@ def _shapes(tree):
             for n, d in tree.items()}
 
 
+def _flat(d):
+    """{name: array}, with a nested {sub: {name: array}} as "sub_name"."""
+    out = {}
+    for k, v in d.items():
+        if isinstance(v, dict):
+            out.update({f"{k}_{n}": a for n, a in _flat(v).items()})
+        else:
+            out[k] = v
+    return out
+
+
 def _convert(what, spec, tree, dev):
     if set(tree) != set(spec):
         raise ValueError(f"{what}: expected nodes {sorted(spec)}, got "
                          f"{sorted(tree)}")
     out = {}
     for node, keys in spec.items():
-        got = tree[node]
+        got = _flat(tree[node])
         if set(got) != set(keys):
             raise ValueError(f"{what}.{node}: expected keys {sorted(keys)}, "
                              f"got {sorted(got)}")

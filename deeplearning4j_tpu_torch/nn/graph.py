@@ -21,9 +21,13 @@ updater overrides), the layers' constraints and the new BN state, with
 gives the last training loss or an inference-mode loss of a batch;
 `evaluate*` feed the `eval/` evaluators. With the fusion on, every marked
 pair trains through `fused_conv1x1_bn`'s three kernels. A `torch.Generator`
-seeded from conf.seed, on the graph's device, draws the dropout masks. Not
-ported yet, each raising and naming its slice: remat, feature masks, and
-stateful RNN stepping (A12).
+seeded from conf.seed, on the graph's device, draws the dropout masks.
+Feature masks ({input name: (B, T)}) flow through `output(fmasks=)`, `fit`
+and the evaluation loop: each node sees its first parent's mask (a vertex
+may name its mask input) and hands its consumers `feed_forward_mask`.
+`rnnTimeStep` threads the recurrent layer nodes' carries across calls.
+A vertex with parameters (`AttentionVertex`) is drawn, stored and trained
+like a layer. Not ported yet: remat (A10).
 
 A training step writes its results into the live parameter, optimizer
 and BN-state tensors in place, so `params()`, `score()` and the listeners
@@ -42,6 +46,7 @@ import torch
 from deeplearning4j_tpu_torch.device import resolve
 from deeplearning4j_tpu_torch.nn._network import (Network, as_tensor,
                                                   compute_dtype, later,
+                                                  mask_key, split_inputs,
                                                   to_device)
 from deeplearning4j_tpu_torch.nn.activations import get_activation
 from deeplearning4j_tpu_torch.nn.fused import (find_conv1x1_bn_fusions,
@@ -62,16 +67,15 @@ class ComputationGraph(Network):
         self._compute_dtype = compute_dtype(conf)
         self._fused_pairs = {}   # bn node -> conv node (nn/fused.py)
         self._fused_convs = set()
+        self._rnn_carries = None  # rnnTimeStep's state
         self._reset_training()
 
-    @property
-    def _layer_names(self):
-        """Layer-bearing node names in topological order."""
-        return [n for n in self.conf.topo_order
-                if self.nodes[n].kind == "layer"]
-
     def _layer_items(self):
-        return [(n, self.nodes[n].ref) for n in self._layer_names]
+        """Layer nodes and vertices with parameters, in topological order."""
+        return [(n, self.nodes[n].ref) for n in self.conf.topo_order
+                if self.nodes[n].kind == "layer"
+                or (self.nodes[n].kind == "vertex"
+                    and hasattr(self.nodes[n].ref, "initialize"))]
 
     # -- lifecycle -------------------------------------------------------
     def _decide_fusion(self):
@@ -89,12 +93,11 @@ class ComputationGraph(Network):
         for name in self.conf.topo_order:
             node = self.nodes[name]
             if node.kind == "vertex" and hasattr(node.ref, "initialize"):
-                raise NotImplementedError(
-                    f"parameterized vertex '{name}' "
-                    f"({type(node.ref).__name__}) comes with ROADMAP A12")
-            if node.kind != "layer":
+                p, s = node.ref.initialize(gen, *node.resolved_input_types)
+            elif node.kind == "layer":
+                p, s, _ = node.ref.initialize(gen, node.resolved_input_type)
+            else:
                 continue
-            p, s, _ = node.ref.initialize(gen, node.resolved_input_type)
             if p:
                 ps[name] = p
             if s:
@@ -135,29 +138,50 @@ class ComputationGraph(Network):
 
     # -- forward ---------------------------------------------------------
     def _forward(self, params, state, inputs, train, generator=None,
-                 report_conv=False):
-        """inputs: dict name -> tensor. Returns (acts dict, preacts dict for
-        output layers, new_state). `report_conv` also computes the conv
-        output of each fused pair, for feedForward."""
+                 report_conv=False, carries=None):
+        """inputs: dict name -> tensor, feature masks under
+        `mask_key(name)`. Returns (acts dict, preacts dict for output
+        layers, new_state[, new carries when `carries` is given]).
+        `report_conv` also computes the conv output of each fused pair, for
+        feedForward. `carries` {node: carry} drives the recurrent layer
+        nodes through `scan_apply` (rnnTimeStep)."""
         if train and getattr(self.conf, "remat_policy", "none") != "none":
             raise _later("rematPolicy", "a later slice of the nn core "
                          "(ROADMAP A10)")
+        inputs, fmasks = split_inputs(inputs)
         acts, preacts = {}, {}
         new_state = dict(state)
+        new_carries = None if carries is None else {}
+        mask0 = next(iter(fmasks.values()), None)
+        masks = {}
         for name, x in inputs.items():
             acts[name] = x.to(self._compute_dtype)
+            masks[name] = fmasks.get(name, mask0)
         for name in self.conf.topo_order:
             node = self.nodes[name]
             if node.kind == "input":
                 continue
             parents = [acts[p] for p in node.inputs]
+            parent_masks = [masks.get(p) for p in node.inputs]
+            pmask = next((m for m in parent_masks if m is not None), None)
             if node.kind == "vertex":
-                acts[name] = node.ref.apply(*parents)
+                vertex = node.ref
+                if getattr(vertex, "maskName", None) in fmasks:
+                    pmask = fmasks[vertex.maskName]
+                if hasattr(vertex, "initialize"):
+                    acts[name] = vertex.apply(
+                        *parents, params=params.get(name, {}), mask=pmask)
+                else:
+                    acts[name] = vertex.apply(*parents, mask=pmask)
+                masks[name] = vertex.feed_forward_mask(*parent_masks)
                 continue
             layer = node.ref
             # frozen layers (transfer learning) always run inference-mode
             ltrain = train and not getattr(layer, "frozen", False)
             x = parents[0]
+            pmask = parent_masks[0]
+            masks[name] = (None if pmask is None
+                           else layer.feed_forward_mask(pmask))
             if node.preprocessor is not None:
                 x = node.preprocessor.preProcess(x)
             if name in self._fused_convs:
@@ -184,12 +208,24 @@ class ComputationGraph(Network):
                 pre = layer.pre_activation(p, xd)
                 preacts[name] = pre
                 acts[name] = get_activation(layer.activation)(pre)
+            elif carries is not None and getattr(layer, "is_recurrent",
+                                                 False):
+                if not hasattr(layer, "scan_apply"):
+                    raise ValueError(
+                        f"rnnTimeStep: {type(layer).__name__} '{name}' "
+                        "cannot run step-by-step (no carried state "
+                        "protocol); use output() on whole sequences")
+                x = layer._dropout_in(x, ltrain, generator)
+                acts[name], new_carries[name] = layer.scan_apply(
+                    p, x, carries.get(name), pmask)
             else:
                 y, ns = layer.apply(p, s, x, train=ltrain,
-                                    generator=generator)
+                                    generator=generator, mask=pmask)
                 acts[name] = y
                 if ns:
                     new_state[name] = ns
+        if carries is not None:
+            return acts, preacts, new_state, new_carries
         return acts, preacts, new_state
 
     def _as_input_dict(self, inputs):
@@ -203,14 +239,21 @@ class ComputationGraph(Network):
         return {n: as_tensor(v, self._device)
                 for n, v in zip(self.conf.input_names, inputs)}
 
-    def output(self, *inputs, train=False, generator=None):
+    def _with_masks(self, ins, fmasks):
+        for n, m in (fmasks or {}).items():
+            if m is not None:
+                ins[mask_key(n)] = as_tensor(m, self._device)
+        return ins
+
+    def output(self, *inputs, train=False, generator=None, fmasks=None):
         """The output node(s) for the inputs (arrays or tensors, one per
         graph input, in the order of addInputs): one tensor, or a list
-        for several outputs. `train` runs dropout (from `generator`) and
-        batch-statistics BN, without touching the stored state."""
+        for several outputs. `fmasks`: {input name: (B, T) feature mask}.
+        `train` runs dropout (from `generator`) and batch-statistics BN,
+        without touching the stored state."""
         if len(inputs) == 1:
             inputs = inputs[0]
-        ins = self._as_input_dict(inputs)
+        ins = self._with_masks(self._as_input_dict(inputs), fmasks)
         acts, _, _ = self._forward(self._params, self._state, ins, train,
                                    generator)
         outs = [acts[n] for n in self.conf.output_names]
@@ -252,11 +295,30 @@ class ComputationGraph(Network):
         return self.conf.input_names
 
     def _eval_output(self, features, fmask):
-        out = self.output(features)
+        fmasks = None if fmask is None else {self.conf.input_names[0]: fmask}
+        out = self.output(features, fmasks=fmasks)
         return out[0] if isinstance(out, list) else out
 
-    # -- later slices ----------------------------------------------------
+    # -- stateful RNN inference ------------------------------------------
+    @torch.no_grad()
     def rnnTimeStep(self, *inputs):
-        raise NotImplementedError(
-            "ComputationGraph.rnnTimeStep (carried recurrent state) comes "
-            "with the recurrent layers, ROADMAP A12")
+        """The output(s) for the next step(s), continuing from the carries
+        the last call left; (B, F) inputs give (B, C) outputs."""
+        if len(inputs) == 1:
+            inputs = inputs[0]
+        ins = self._as_input_dict(inputs)
+        squeeze = any(v.ndim == 2 for v in ins.values())
+        ins = {k: (v[:, None, :] if v.ndim == 2 else v)
+               for k, v in ins.items()}
+        acts, _, _, self._rnn_carries = self._forward(
+            self._params, self._state, ins, False,
+            carries=self._rnn_carries or {})
+        outs = [acts[n][:, -1, :] if squeeze and acts[n].ndim == 3
+                else acts[n] for n in self.conf.output_names]
+        return outs[0] if len(outs) == 1 else outs
+
+    def rnnClearPreviousState(self):
+        self._rnn_carries = None
+
+    def rnnGetPreviousState(self, node_name):
+        return (self._rnn_carries or {}).get(node_name)

@@ -18,8 +18,20 @@ the step replays one CUDA graph per batch signature (`fit_status()`);
 `evaluate`, `evaluateROC`, `evaluateRegression`, `evaluateROCMultiClass`
 and `evaluateCalibration` feed the `eval/` evaluators.
 
-Not ported yet, each raising and naming its ROADMAP item: stateful RNN
-stepping, truncated BPTT and feature masks (A12), `pretrain` /
+Recurrent networks: feature masks (B, T) flow through `output(fmask=)`,
+`fit` and the evaluation loop, each layer handing the next its
+`feed_forward_mask`. `rnnTimeStep` threads the recurrent layers' carries
+across calls (`rnnClearPreviousState` / `rnnGetPreviousState`). With
+`backpropType(TruncatedBPTT)`, a batch longer than `tBPTTForwardLength`
+trains segment by segment: each segment is one update, and the carries
+thread from one segment into the next, detached at the boundary (the JAX
+package's segment step; like it, the backward runs over the whole
+segment). On the card a segment runs through its CUDA graph: the
+carries are static inputs that the graph overwrites with the segment's
+final carries, so every full segment replays one graph and a shorter
+last segment is a second batch signature.
+
+Not ported yet, each raising and naming its ROADMAP item: `pretrain` /
 `pretrainLayer` (A12, variational layers), `getPredictedObjects` (A12,
 detection heads), `save` / `load` / `toJson` (A12, the checkpoint
 formats), frozen layers (A17, transfer learning), `weightNoise` (A12),
@@ -35,7 +47,8 @@ from deeplearning4j_tpu_torch.datasets.dataset import DataSet
 from deeplearning4j_tpu_torch.device import resolve
 from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
 from deeplearning4j_tpu_torch.nn._network import (Network, as_tensor,
-                                                  compute_dtype, later,
+                                                  batch_sig, compute_dtype,
+                                                  copy_into, later, mask_key,
                                                   to_device)
 from deeplearning4j_tpu_torch.nn.activations import get_activation
 from deeplearning4j_tpu_torch.nn.conf.builders import BackpropType
@@ -56,6 +69,7 @@ class MultiLayerNetwork(Network):
         self._device = None
         self._compute_dtype = compute_dtype(conf)
         self._fused_pairs = {}   # no fusion pass: read by model_fingerprint
+        self._rnn_carries = None  # rnnTimeStep's state
         self._reset_training()
 
     _input_names = ("input",)
@@ -142,9 +156,13 @@ class MultiLayerNetwork(Network):
 
     # -- forward ---------------------------------------------------------
     def _forward(self, params, state, x, train, generator=None,
-                 collect=False):
+                 collect=False, mask=None, carries=None):
         """(output, the output layer's pre-activation or None, new state,
-        every layer's activation when `collect`)."""
+        every layer's activation when `collect`, and the new carries when
+        `carries` is given). `mask`: the (B, T) feature mask. `carries`
+        {layer index: carry} (missing entries start at zero) drives each
+        recurrent layer through `scan_apply`, as rnnTimeStep and truncated
+        BPTT do."""
         if train and (getattr(self.conf, "remat_policy", "none") != "none"
                       or any(getattr(l, "remat", False)
                              for l in self.layers)):
@@ -153,6 +171,7 @@ class MultiLayerNetwork(Network):
         x = x.to(self._compute_dtype)
         acts = []
         new_state = dict(state)
+        new_carries = None if carries is None else {}
         preact = None
         for i, layer in enumerate(self.layers):
             pp = self.conf.preprocessors.get(i)
@@ -165,13 +184,27 @@ class MultiLayerNetwork(Network):
                 xd = layer._dropout_in(x, train, generator)
                 preact = layer.pre_activation(p, xd)
                 x = get_activation(layer.activation)(preact)
+            elif carries is not None and getattr(layer, "is_recurrent",
+                                                 False):
+                if not hasattr(layer, "scan_apply"):
+                    raise ValueError(
+                        f"rnnTimeStep/tbptt: {type(layer).__name__} (layer "
+                        f"{i}) cannot run step-by-step (no carried state "
+                        "protocol); use fit/output on whole sequences")
+                x = layer._dropout_in(x, train, generator)
+                x, new_carries[str(i)] = layer.scan_apply(
+                    p, x, carries.get(str(i)), mask)
             else:
                 x, ns = layer.apply(p, s, x, train=train,
-                                    generator=generator)
+                                    generator=generator, mask=mask)
                 if ns:
                     new_state[str(i)] = ns
+            if mask is not None:
+                mask = layer.feed_forward_mask(mask)
             if collect:
                 acts.append(x)
+        if carries is not None:
+            return x, preact, new_state, acts, new_carries
         return x, preact, new_state, acts
 
     def _input(self, x):
@@ -181,14 +214,13 @@ class MultiLayerNetwork(Network):
         return as_tensor(x, self._device)
 
     def output(self, x, train=False, fmask=None, generator=None):
-        """The last layer's activation for `x` (array or tensor). `train`
-        runs dropout (from `generator`) and batch-statistics BN, without
-        touching the stored state."""
-        if fmask is not None:
-            raise _later("feature masks", "the recurrent layers (ROADMAP "
-                         "A12)")
+        """The last layer's activation for `x` (array or tensor) under the
+        (B, T) feature mask `fmask`. `train` runs dropout (from
+        `generator`) and batch-statistics BN, without touching the stored
+        state."""
+        fmask = None if fmask is None else as_tensor(fmask, self._device)
         y, _, _, _ = self._forward(self._params, self._state, self._input(x),
-                                   train, generator)
+                                   train, generator, mask=fmask)
         return y
 
     def _eval_output(self, features, fmask):
@@ -238,20 +270,25 @@ class MultiLayerNetwork(Network):
 
     # -- loss and gradients ----------------------------------------------
     def _loss(self, params, state, inputs, labels, lmasks=None,
-              generator=None, train=True):
+              generator=None, train=True, carries=None):
         """(the scalar loss, the new state): the output layer's loss on its
-        pre-activation in f32, plus the L1/L2 penalty."""
+        pre-activation in f32, plus the L1/L2 penalty. With `carries`,
+        (the loss, (the new state, the new carries))."""
         out_layer = self.layers[-1]
         if not hasattr(out_layer, "compute_loss"):
             raise ValueError("Last layer must be an OutputLayer/LossLayer "
                              "to fit()")
-        _, preact, new_state, _ = self._forward(params, state,
-                                                inputs["input"], train,
-                                                generator)
+        out = self._forward(params, state, inputs["input"], train,
+                            generator, mask=inputs.get(mask_key("input")),
+                            carries=carries)
+        preact, new_state = out[1], out[2]
         lm = None if lmasks is None else lmasks[0]
         data_loss = out_layer.compute_loss(labels[0].to(torch.float32),
                                            preact.float(), lm)
-        return data_loss + self._penalty(params), new_state
+        loss = data_loss + self._penalty(params)
+        if carries is not None:
+            return loss, (new_state, out[4])
+        return loss, new_state
 
     def computeGradients(self, x, y, fmask=None, lmask=None):
         """Gradients of the full regularized loss at the current
@@ -260,16 +297,69 @@ class MultiLayerNetwork(Network):
         _, grads, _ = self._value_and_grad(ins, labels, lmasks)
         return grads
 
-    # -- training --------------------------------------------------------
-    def fit(self, data, labels=None, epochs=None, stepsPerDispatch=1,
-            prefetch=None, cudaGraphs=True):
-        if self.conf.backprop_type == BackpropType.TruncatedBPTT:
-            raise _later("truncated BPTT", "the recurrent layers (ROADMAP "
-                         "A12)")
-        return super().fit(data, labels, epochs, stepsPerDispatch,
-                           prefetch, cudaGraphs)
+    # -- truncated BPTT ----------------------------------------------------
+    def _zero_carries(self, batch):
+        return {str(i): layer.zero_carry(batch, self._compute_dtype,
+                                         self._device)
+                for i, layer in enumerate(self.layers)
+                if getattr(layer, "is_recurrent", False)
+                and hasattr(layer, "zero_carry")}
 
-    fit.__doc__ = Network.fit.__doc__
+    def _tbptt_step_in_place(self, ins, labels, lmasks, carries):
+        """One segment's update written into the live tensors, and the
+        segment's final carries written (detached) into `carries`; returns
+        the loss. What the segment's CUDA graph captures."""
+        loss, grads, (state, new_carries) = self._grad_tree(
+            lambda p: self._loss(p, self._state, ins, labels, lmasks,
+                                 self._generator, train=True,
+                                 carries=carries))
+        self._update_in_place(grads, state)
+        copy_into(carries, new_carries)
+        return loss
+
+    def _tbptt_segment(self, args, graphs):
+        """One segment (ins, labels, lmasks, carries) through its graph on
+        the card; returns (loss, the carries after it). On the card these
+        are the graph's static carries, overwritten by the next replay of
+        that graph, which reads them first."""
+        if graphs and self._device.type == "cuda":
+            key = ("fit_tbptt", batch_sig(*args[:3]))
+            loss = self._graph_step(key, args)
+            return loss.clone(), self._fit_store.args(key)[3]
+        return self._tbptt_step_in_place(*args), args[3]
+
+    def _fit_store_for(self):
+        store = super()._fit_store_for()
+        store.register("fit_tbptt", self._tbptt_step_in_place)
+        return store
+
+    def _is_tbptt(self, batch):
+        x = batch[0]["input"]
+        return (self.conf.backprop_type == BackpropType.TruncatedBPTT
+                and x.ndim == 3
+                and x.shape[1] > int(self.conf.tbptt_fwd_length))
+
+    def _run_step(self, batches, graphs):
+        """A batch longer than tBPTTForwardLength under truncated BPTT:
+        one update a segment; returns the mean segment loss."""
+        if len(batches) != 1 or not self._is_tbptt(batches[0]):
+            return super()._run_step(batches, graphs)
+        ins, labels, lmasks = batches[0]
+        x = ins["input"]
+        tlen = int(self.conf.tbptt_fwd_length)
+        carries = self._zero_carries(x.shape[0])
+        total, nseg = None, 0
+        for t0 in range(0, x.shape[1], tlen):
+            seg = slice(t0, t0 + tlen)
+            sins = {k: v[:, seg] for k, v in ins.items()}
+            slabels = [y[:, seg] if y.ndim == 3 else y for y in labels]
+            slm = None if lmasks is None else [
+                None if m is None else m[:, seg] for m in lmasks]
+            loss, carries = self._tbptt_segment(
+                (sins, slabels, slm, carries), graphs)
+            total = loss if total is None else total + loss
+            nseg += 1
+        return total / nseg
 
     # -- misc parity -------------------------------------------------------
     def getnLayers(self):
@@ -295,19 +385,30 @@ class MultiLayerNetwork(Network):
         lines += ["-" * 72, f"Total params: {total:,}", "=" * 72]
         return "\n".join(lines)
 
-    # -- later slices ----------------------------------------------------
+    # -- stateful RNN inference (≡ rnnTimeStep / rnnClearPreviousState) --
+    @torch.no_grad()
     def rnnTimeStep(self, x):
-        raise _later("rnnTimeStep (carried recurrent state)",
-                     "the recurrent layers (ROADMAP A12)")
+        """The network's output for the next step(s) `x`, (B, F) or
+        (B, T, F), continuing from the carries the last call left (zeros
+        after `rnnClearPreviousState`). A (B, F) input gives (B, C)."""
+        x = self._input(x)
+        squeeze = x.ndim == 2
+        if squeeze:
+            x = x[:, None, :]
+        y, _, _, _, self._rnn_carries = self._forward(
+            self._params, self._state, x, False,
+            carries=self._rnn_carries or {})
+        return y[:, -1, :] if squeeze and y.ndim == 3 else y
 
     def rnnClearPreviousState(self):
-        raise _later("rnnClearPreviousState", "the recurrent layers "
-                     "(ROADMAP A12)")
+        self._rnn_carries = None
 
     def rnnGetPreviousState(self, layer_idx):
-        raise _later("rnnGetPreviousState", "the recurrent layers "
-                     "(ROADMAP A12)")
+        """The carry (a tuple of (B, nOut) tensors) layer `layer_idx` left,
+        or None."""
+        return (self._rnn_carries or {}).get(str(layer_idx))
 
+    # -- later slices ----------------------------------------------------
     def pretrain(self, data, epochs=1):
         raise _later("pretrain", "the variational layers (variational.py, "
                      "ROADMAP A12)")

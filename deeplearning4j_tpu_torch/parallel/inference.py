@@ -29,12 +29,18 @@ graph of that bucket's forward from an `ExecutableStore` (on the CPU the
 same forward runs eagerly). `warmup()` captures every bucket up front;
 inputs enter the graphs' static inputs through a `StagingRing` of
 `stagingDepth` pinned buffers; `executableCacheDir` keeps the store's
-manifest of keys, whose signatures a later `warmup()` captures too. A failed replay opens the `aotBreaker` and the batch is
-served through the eager forward, counted in `status()`.
+manifest of keys, whose signatures a later `warmup()` captures too. A
+failed replay opens the `aotBreaker` and the batch is served through the
+eager forward, counted in `status()`. With `lengthBuckets([...])` as well,
+a recurrent model's requests of different lengths coalesce: the time axis
+(of every 3-d input) is zero-padded to the smallest length bucket that
+holds the longest, under a (B, T) validity mask that the masked graph of
+that signature takes (padded steps hold the carries and emit zeros), and
+each answer is cut back to its own length, so it equals `output()` on the
+unpadded input.
 
 Not ported yet: the monitoring and fault-injection hooks (ROADMAP A16,
-A14) and `lengthBuckets`, which serves the recurrent models (ROADMAP
-A12); it raises, naming them.
+A14).
 
 Usage parity:
     pi = (ParallelInference.Builder(net)
@@ -76,12 +82,6 @@ def _bucket(n):
     while b < n:
         b *= 2
     return b
-
-
-def _length_buckets():
-    return NotImplementedError(
-        "ParallelInference.lengthBuckets: length-bucketed serving pads the "
-        "time axis of the recurrent models, which come with ROADMAP A12")
 
 
 def bounded_enqueue(q, item, deadline, enqueue_timeout, count_timeout=None,
@@ -136,16 +136,19 @@ class ParallelInference:
     def __init__(self, model, inference_mode=InferenceMode.BATCHED,
                  batch_limit=32, queue_limit=256, collect_timeout_ms=2.0,
                  enqueue_timeout_ms=100.0, breaker=None, bucket_ladder=None,
-                 exec_cache_dir=None, staging_depth=2, aot_breaker=None):
+                 length_buckets=None, exec_cache_dir=None, staging_depth=2,
+                 aot_breaker=None):
         self.model = model
         self.mode = inference_mode
         # a ladder closes the shape vocabulary and serves through the
         # executable store; admission coalesces up to its top bucket
         self._ladder = None
+        self._length_buckets = length_buckets   # warmup()'s default
         if bucket_ladder is not None:
             self._ladder = (bucket_ladder
                             if isinstance(bucket_ladder, BucketLadder)
-                            else BucketLadder(batch=bucket_ladder))
+                            else BucketLadder(batch=bucket_ladder,
+                                              length=length_buckets))
             batch_limit = self._ladder.max_batch
         self.batch_limit = int(batch_limit)
         self.collect_timeout = collect_timeout_ms / 1e3
@@ -236,7 +239,11 @@ class ParallelInference:
             return self
 
         def lengthBuckets(self, buckets):
-            raise _length_buckets()
+            """Sequence-length ladder: recurrent inputs pad their time
+            axis to the smallest admitting bucket under a validity
+            mask."""
+            self._kw["length_buckets"] = buckets
+            return self
 
         def executableCacheDir(self, path):
             """Where the executable store keeps its manifest of keys."""
@@ -258,12 +265,12 @@ class ParallelInference:
         (with neither it nor a Builder ladder: powers of two up to
         batchLimit); the per-input feature shapes come from `example`
         (one example or a batch, as output() takes it) or from the
-        model's input types. With `executableCacheDir`, every signature
-        the store's manifest records is captured too. Returns {compiled,
-        from_disk, captures, nvcc_runs, seconds, keys, signatures}; a
-        successful warmup closes the AOT breaker."""
-        if lengths is not None:
-            raise _length_buckets()
+        model's input types. `lengths` (re)configures the length ladder:
+        then every (batch, length) bucket pair is captured with its mask.
+        With `executableCacheDir`, every signature the store's manifest
+        records is captured too. Returns {compiled, from_disk, captures,
+        nvcc_runs, seconds, keys, signatures}; a successful warmup closes
+        the AOT breaker."""
         if buckets is not None or self._ladder is None:
             if buckets is None:
                 buckets, b = [], 1
@@ -271,20 +278,38 @@ class ParallelInference:
                     buckets.append(b)
                     b *= 2
                 buckets.append(self.batch_limit)
-            self._ladder = BucketLadder(batch=buckets)
+            self._ladder = BucketLadder(
+                batch=buckets,
+                length=(lengths if lengths is not None
+                        else (self._ladder.length if self._ladder
+                              else self._length_buckets)))
             self.batch_limit = self._ladder.max_batch
-        feats = self._feature_shapes(example)
-        sigs = [tuple(((b,) + shp, "float32") for shp in feats)
-                for b in self._ladder.batch]
+        elif lengths is not None:
+            self._ladder = BucketLadder(batch=self._ladder.batch,
+                                        length=lengths)
+        sigs, masked = [], []
+        if self._ladder.length is None:
+            feats = self._feature_shapes(example)
+            sigs = [tuple(((b,) + shp, "float32") for shp in feats)
+                    for b in self._ladder.batch]
+        else:
+            feats = self._feature_shapes(example, variable_time=True)
+            for b in self._ladder.batch:
+                for tb in self._ladder.length:
+                    masked.append(tuple(
+                        ((b, tb) + shp[1:] if len(shp) == 2 else (b,) + shp,
+                         "float32") for shp in feats)
+                        + (((b, tb), "float32"),))
         with self._graph_lock:
-            stats = self._ensure_store().warmup(sigs)
-        stats["signatures"] = len(sigs)
+            stats = self._ensure_store().warmup(sigs, masked)
+        stats["signatures"] = len(sigs) + len(masked)
         self._aot_breaker.record_success()
         return stats
 
-    def _feature_shapes(self, example):
+    def _feature_shapes(self, example, variable_time=False):
         """Per-input feature shapes (no batch dim): from an example, else
-        from the model's input types."""
+        from the model's input types (with `variable_time`, a sequence
+        input's length may be None)."""
         if example is not None:
             n_inputs = len(self._input_ranks())
             if isinstance(example, (list, tuple)) and n_inputs > 1:
@@ -304,7 +329,9 @@ class ParallelInference:
         else:
             raise ValueError("the model has no input types: pass "
                              "warmup(example=)")
-        if any(d is None for shp in feats for d in shp):
+        if any(d is None for shp in feats
+               for d in (shp[1:] if variable_time and len(shp) == 2
+                         else shp)):
             raise ValueError(f"cannot warm variable-size inputs {feats}: "
                              "pass warmup(example=)")
         return feats
@@ -321,6 +348,9 @@ class ParallelInference:
         return {"mode": self.mode, "batch_limit": self.batch_limit,
                 "bucket_ladder": (None if self._ladder is None
                                   else list(self._ladder.batch)),
+                "length_buckets": (None if self._ladder is None
+                                   or self._ladder.length is None
+                                   else list(self._ladder.length)),
                 "model_calls": self.model_calls, "timeouts": self.timeouts,
                 "collector_restarts": self.collector_restarts,
                 "aot_fallbacks": self.aot_fallbacks,
@@ -539,14 +569,47 @@ class ParallelInference:
             for s in strays:
                 self._dispatch([s])
 
-    @staticmethod
-    def _incompatible(nxt, first):
-        """Can nxt coalesce into first's dispatch? Exact feature-shape
-        match of every input."""
+    def _incompatible(self, nxt, first):
+        """Can nxt coalesce into first's dispatch? An exact feature-shape
+        match of every input; under a length ladder whose first input is
+        a sequence, 3-d inputs may differ in their time axis (they pad to
+        one length bucket)."""
         if len(nxt.x) != len(first.x):
             return True
-        return any(a.shape[1:] != b.shape[1:] for a, b in zip(nxt.x,
-                                                               first.x))
+        seq_ok = self._time_padded(first.x)
+        for a, b in zip(nxt.x, first.x):
+            if a.shape[1:] == b.shape[1:]:
+                continue
+            if not (seq_ok and a.ndim == 3 and b.ndim == 3
+                    and a.shape[2:] == b.shape[2:]):
+                return True
+        return False
+
+    def _time_padded(self, xs):
+        return (self._ladder is not None and self._ladder.length is not None
+                and xs[0].ndim == 3)
+
+    @staticmethod
+    def _pad_time(batch, n_inputs, tb):
+        """Each 3-d input zero-padded (axis 1) to the length bucket `tb`;
+        returns the concatenated columns and the (N, tb) validity mask
+        (1 = a real step)."""
+        cols = []
+        for j in range(n_inputs):
+            parts = []
+            for r in batch:
+                xj = r.x[j]
+                if xj.ndim == 3 and xj.shape[1] < tb:
+                    xj = np.pad(xj, [(0, 0), (0, tb - xj.shape[1]), (0, 0)])
+                parts.append(xj)
+            cols.append(np.concatenate(parts, axis=0))
+        mask = np.zeros((cols[0].shape[0], tb), np.float32)
+        i = 0
+        for r in batch:
+            k, t = r.x[0].shape[0], r.x[0].shape[1]
+            mask[i:i + k, :t] = 1.0
+            i += k
+        return cols, mask
 
     def _dispatch(self, batch):
         """Claim-then-run: a request the fallback path already claimed
@@ -594,27 +657,42 @@ class ParallelInference:
         still fall back to the eager path."""
         store = self._ensure_store()
         n_inputs = len(batch[0].x)
-        cols = [np.concatenate([r.x[j] for r in batch], axis=0)
-                for j in range(n_inputs)]
+        masked = self._time_padded(batch[0].x)
+        if masked:
+            # one length bucket covers every sequence input
+            tb = self._ladder.length_bucket(max(
+                r.x[j].shape[1] for r in batch for j in range(n_inputs)
+                if r.x[j].ndim == 3))
+            cols, mask = self._pad_time(batch, n_inputs, tb)
+            cols.append(mask)
+        else:
+            cols = [np.concatenate([r.x[j] for r in batch], axis=0)
+                    for j in range(n_inputs)]
         parts, i = [], 0
         with self._graph_lock:
             for c in self._ladder.chunks(cols[0].shape[0]):
                 b = self._ladder.bucket(c)
                 chunk = [xj[i:i + c] for xj in cols]
                 if b != c:
+                    # padded rows: copies of the last row (a mask row of
+                    # a real request), sliced away before delivery
                     chunk = [np.concatenate(
                         [xj, np.repeat(xj[-1:], b - c, axis=0)], axis=0)
                         for xj in chunk]
                 sig = tuple((tuple(xj.shape), "float32") for xj in chunk)
-                self._ring.stage(chunk, store.ensure(sig))
+                self._ring.stage(chunk, store.ensure(sig, masked))
                 self.model_calls += 1
-                parts.append(store.run(("forward", sig))[:c].clone())
+                key = ("forward_masked" if masked else "forward", sig)
+                parts.append(store.run(key)[:c].clone())
                 i += c
         out = torch.cat(parts).cpu().numpy()
         i = 0
         for r in batch:
             k = r.x[0].shape[0]
-            r.result = out[i:i + k]
+            res = out[i:i + k]
+            if masked and res.ndim == 3:
+                res = res[:, :r.x[0].shape[1]]   # drop the padded steps
+            r.result = res
             i += k
         for r in batch:
             r.event.set()

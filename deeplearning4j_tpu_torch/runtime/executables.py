@@ -633,8 +633,10 @@ class FunctionStore:
 class ExecutableStore(FunctionStore):
     """The graphs of one model's inference forward, one per bucketed input
     signature `((shape, "float32"), ...)` (one pair per model input),
-    keyed `("forward", signature)`. Each graph returns the model's first
-    output. The model's parameters and state are the store's bindings."""
+    keyed `("forward", signature)`; a length-bucketed signature ends with
+    the (B, T) feature mask's pair and is keyed `("forward_masked",
+    signature)`. Each graph returns the model's first output. The model's
+    parameters and state are the store's bindings."""
 
     kind = "model-forward"
 
@@ -644,32 +646,47 @@ class ExecutableStore(FunctionStore):
                          bindings=lambda: (model._params, model._state))
         self.model = model
         self.register("forward", self._forward)
+        self.register("forward_masked", self._forward_masked)
 
     def _forward(self, *xs):
         with torch.no_grad():
             out = self.model.output(list(xs) if len(xs) > 1 else xs[0])
         return out[0] if isinstance(out, list) else out
 
+    def _forward_masked(self, *xs):
+        """The forward of xs[:-1] under the feature mask xs[-1] (the first
+        input's)."""
+        *xs, mask = xs
+        x = list(xs) if len(xs) > 1 else xs[0]
+        with torch.no_grad():
+            if hasattr(self.model.conf, "input_names"):   # a graph
+                out = self.model.output(x, fmasks={
+                    self.model.conf.input_names[0]: mask})
+            else:
+                out = self.model.output(x, fmask=mask)
+        return out[0] if isinstance(out, list) else out
+
     def _inputs(self, sig):
         return tuple(torch.zeros(shape, dtype=getattr(torch, dt),
                                  device=self.device) for shape, dt in sig)
 
-    def ensure(self, sig):
+    def ensure(self, sig, masked=False):
         """The static inputs of `sig`'s graph, captured first if the
         store lacks it (a live capture once warm)."""
-        key = ("forward", sig)
+        key = ("forward_masked" if masked else "forward", sig)
         if key not in self._entries:
             self.add(key, self._inputs(sig))
         return self._entries[key].args
 
-    def warmup(self, sigs):
-        """Capture `sigs` and every signature the manifest records."""
-        sigs = list(sigs)
-        sigs += [k[1] for k in self.recorded_keys()
-                 if len(k) == 2 and k[0] == "forward" and _is_sig(k[1])
-                 and k[1] not in sigs]
-        return super().warmup((("forward", sig), self._inputs(sig))
-                              for sig in sigs)
+    def warmup(self, sigs, masked_sigs=()):
+        """Capture `sigs`, `masked_sigs` and every signature the manifest
+        records."""
+        keys = [("forward", sig) for sig in sigs]
+        keys += [("forward_masked", sig) for sig in masked_sigs]
+        keys += [k for k in self.recorded_keys()
+                 if len(k) == 2 and k[0] in ("forward", "forward_masked")
+                 and _is_sig(k[1]) and k not in keys]
+        return super().warmup((k, self._inputs(k[1])) for k in keys)
 
 
 def _manifest_tier(directory):

@@ -4,7 +4,8 @@ retire; three `fit` steps of a small fused CNN (Nesterovs and Adam, and
 dropout); an inference bucket; and both after a weight load rebinds the
 tensors their graphs were captured with; and MultiLayerNetwork.fit of a
 small `.list()` CNN with a schedule, dropout, a constraint and gradient
-accumulation. Every replay must give the eager
+accumulation; truncated-BPTT segments, a recurrent server and attention
+layers in a graphed step. Every replay must give the eager
 run's bits, and the kernels' launch counters must advance on replay as they do
 on an eager call. Every test is marked `cuda` and skips without a CUDA
 device; the file imports nothing of JAX, so it runs on the card with
@@ -21,12 +22,16 @@ from deeplearning4j_tpu_torch.datasets import DataSet, ListDataSetIterator
 from deeplearning4j_tpu_torch.generation import BertDecoder, GenerationServer
 from deeplearning4j_tpu_torch.kernels import pointwise_conv as tpc
 from deeplearning4j_tpu_torch.models import bert_tiny, init_bert_params
-from deeplearning4j_tpu_torch.nn import (Adam, BatchNormalization,
+from deeplearning4j_tpu_torch.nn import (LSTM, Adam, BackpropType,
+                                         BatchNormalization,
                                          ComputationGraph, ConvolutionLayer,
                                          DenseLayer, GlobalPoolingLayer,
-                                         InputType, MaxNormConstraint,
+                                         GravesLSTM, InputType,
+                                         LearnedSelfAttentionLayer,
+                                         MaxNormConstraint,
                                          MultiLayerNetwork, Nesterovs,
                                          NeuralNetConfiguration, OutputLayer,
+                                         RnnOutputLayer, SelfAttentionLayer,
                                          StepSchedule, SubsamplingLayer)
 from deeplearning4j_tpu_torch.nn.convert import (graph_params_from_numpy,
                                                  graph_params_to_numpy,
@@ -382,3 +387,101 @@ def test_cuda_multilayer_fit_graph_follows_a_weight_load(card):
             assert torch.equal(a, b), attr
     st = graph.fit_status()
     assert (st["captures"], st["rebinds"], st["replays"]) == (2, 1, 3), st
+
+
+# -- recurrent and attention networks ----------------------------------------
+def _rnn_conf(tbptt):
+    b = (NeuralNetConfiguration.Builder().seed(5).updater(Adam(1e-2))
+         .weightInit("xavier").list()
+         .layer(LSTM(nOut=32)).layer(GravesLSTM(nOut=16))
+         .layer(RnnOutputLayer(lossFunction="mcxent", nOut=12,
+                               activation="softmax")))
+    if tbptt:
+        b.backpropType(BackpropType.TruncatedBPTT).tBPTTForwardLength(8) \
+            .tBPTTBackwardLength(8)
+    return b.setInputType(InputType.recurrent(12)).build()
+
+
+def test_cuda_tbptt_segments_replay_bit_identical_to_eager(card):
+    """Two batches of 20 steps in segments of 8, 8 and 4 under a ragged
+    mask: the graphed net (one capture per segment signature, the carries
+    its static inputs) equals the eager one bit for bit."""
+    rng = np.random.default_rng(0)
+    eye = np.eye(12, dtype=np.float32)
+    graph = MultiLayerNetwork(_rnn_conf(tbptt=True)).init()
+    eager = graph.clone()
+    for _ in range(2):
+        chars = rng.integers(0, 12, (6, 21))
+        ds = DataSet(eye[chars[:, :-1]], eye[chars[:, 1:]])
+        ds.featuresMask = ds.labelsMask = (
+            np.arange(20)[None] < np.array([20, 17, 9, 20, 3, 12])[:, None]
+        ).astype(np.float32)
+        graph.fit(ds)
+        eager.fit(ds, cudaGraphs=False)
+    for a, b in zip(tensor_leaves((graph._params, graph._opt_state)),
+                    tensor_leaves((eager._params, eager._opt_state))):
+        assert torch.equal(a, b)
+    assert graph.score() == eager.score()
+    st = graph.fit_status()
+    assert (st["captures"], st["replays"], st["eager_calls"]) == (2, 4, 0)
+
+
+def test_cuda_recurrent_server_streams_equal_the_eager_server(card):
+    """A recurrent network served through its graphs (the block, the
+    admits, the retire) and eagerly: equal streams, greedy and top-k,
+    and no capture after warm-up."""
+    net = MultiLayerNetwork(_rnn_conf(tbptt=False)).init()
+    reqs = [dict(prompt=[1, 2, 3], max_new_tokens=9),
+            dict(prompt=[4, 5], max_new_tokens=7, method="top_k", top_k=3),
+            dict(prompt=[6, 7, 8, 9, 10, 11, 0], max_new_tokens=12)]
+    streams = []
+    for graphs in (True, False):
+        srv = GenerationServer(net, slots=2, cache_lengths=[32],
+                               prompt_buckets=[8], seed=3,
+                               cuda_graphs=graphs)
+        try:
+            srv.warmup()
+            streams.append([h.result(timeout=120)
+                            for h in [srv.submit(**r) for r in reqs]])
+            st = srv.status()["executables"]
+        finally:
+            srv.shutdown()
+        assert st["live_captures"] == 0
+        if graphs:
+            assert st["eager_calls"] == 0 and st["replays"] > 0
+    assert streams[0] == streams[1]
+
+
+def test_cuda_attention_layers_train_through_the_kernels(card):
+    """SelfAttentionLayer and LearnedSelfAttentionLayer (D = 8, padded in
+    the kernels) in a graphed fit step: flash_fwd, flash_bwd_dq and
+    flash_bwd_dkv launch on every replay, and three graphed steps equal
+    three eager ones bit for bit."""
+    conf = (NeuralNetConfiguration.Builder().seed(7).updater(Adam(3e-3))
+            .list()
+            .layer(SelfAttentionLayer(nOut=16, nHeads=2))
+            .layer(LearnedSelfAttentionLayer(nOut=16, nHeads=2, nQueries=3))
+            .layer(GlobalPoolingLayer("avg"))
+            .layer(OutputLayer(lossFunction="mcxent", nOut=2,
+                               activation="softmax"))
+            .setInputType(InputType.recurrent(6, 10)).build())
+    rng = np.random.default_rng(1)
+    ds = DataSet(rng.standard_normal((8, 10, 6)).astype(np.float32),
+                 np.eye(2, dtype=np.float32)[rng.integers(0, 2, 8)])
+    ds.featuresMask = (np.arange(10)[None]
+                       < rng.integers(1, 11, 8)[:, None]).astype(np.float32)
+    graph = MultiLayerNetwork(conf).init()
+    eager = graph.clone()
+    before = (tfa.flash_fwd.launches, tfa.flash_bwd_dq.launches,
+              tfa.flash_bwd_dkv.launches)
+    for _ in range(3):
+        graph.fit(ds)
+    after = (tfa.flash_fwd.launches, tfa.flash_bwd_dq.launches,
+             tfa.flash_bwd_dkv.launches)
+    assert [a - b for a, b in zip(after, before)] == [6, 6, 6]
+    for _ in range(3):
+        eager.fit(ds, cudaGraphs=False)
+    for a, b in zip(tensor_leaves(graph._params),
+                    tensor_leaves(eager._params)):
+        assert torch.equal(a, b)
+    assert graph.fit_status()["captures"] == 1

@@ -163,6 +163,57 @@ def test_cuda_flash_bwd_dkv_matches_plain_on_the_tile_paths(card, dtype,
 
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
                                         (torch.bfloat16, 2e-2)])
+def test_cuda_flash_kernels_at_padded_and_wide_head_dims(card, dtype, atol):
+    """flash_fwd, flash_bwd_dq and flash_bwd_dkv at head dims the kernels
+    are not built for (8 and 24: zero-padded to 16 and 32, scale 1/√D of
+    the true D) and at D = 128 (its own instantiation): a self-attention
+    case with ragged lengths and a fully padded example, a causal one and
+    a cross-length one with a key mask (the LearnedSelfAttentionLayer
+    shape). Each within atol × max(1, max |plain|) of the unpadded plain
+    version, one launch a call, bit-identical on a re-run, and the
+    results of the true head dim's shape."""
+    gen = torch.Generator(device=card).manual_seed(5)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=card).to(dtype)
+
+    for d in (8, 24, 128):
+        for (b, h, tq, tk), lens, causal in (
+                ((3, 4, 40, 40), [40, 17, 0], False),
+                ((2, 2, 70, 70), None, True),
+                ((3, 4, 4, 40), [40, 9, 1], False)):
+            q, g = rnd(b, h, tq, d), rnd(b, h, tq, d)
+            k, v = rnd(b, h, tk, d), rnd(b, h, tk, d)
+            km = None if lens is None else (
+                torch.arange(tk, device=card)[None]
+                < torch.tensor(lens, device=card)[:, None])
+            qm = km if tq == tk else None
+            before = tfa.flash_fwd.launches
+            out, lse = tfa.flash_fwd(q, k, v, km, causal)
+            assert tfa.flash_fwd.launches - before == 1
+            ref, ref_lse = tfa._flash_forward_reference(q, k, v, km, causal)
+            assert out.shape == q.shape and out.dtype == dtype
+            assert (out.float() - ref.float()).abs().max() <= atol, d
+            assert (lse - ref_lse).abs().max() <= atol, d
+            assert torch.equal(out, tfa.flash_fwd(q, k, v, km, causal)[0])
+            o, lse = tfa._flash_forward(q, k, v, qm, km, causal)
+            args = (q, k, v, g, lse, tfa._delta(g, o), km, causal)
+            before = (tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches)
+            got = (tfa.flash_bwd_dq(*args), *tfa.flash_bwd_dkv(*args))
+            assert (tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches) \
+                == (before[0] + 1, before[1] + 1)
+            want = (tfa._dq_reference(*args), *tfa._dkv_reference(*args))
+            again = (tfa.flash_bwd_dq(*args), *tfa.flash_bwd_dkv(*args))
+            for a, w, c in zip(got, want, again):
+                scale = max(1.0, w.float().abs().max().item())
+                assert a.dtype == dtype and a.shape == w.shape
+                assert (a.float() - w.float()).abs().max() <= atol * scale, (
+                    d, b, h, tq, tk, lens, causal)
+                assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2)])
 def test_cuda_flash_decode_splits_the_cache_over_a_cluster(card, dtype,
                                                            atol):
     """Decode through a thread-block cluster per (b, h): C = 128, 200 and
@@ -202,8 +253,10 @@ def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(card):
     x = torch.zeros((1, 2, 8, 64), device=card)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         tfa.flash_fwd(x.half(), x.half(), x.half())
-    with pytest.raises(ValueError, match="head dims"):
-        tfa.flash_fwd(x[..., :8], x[..., :8], x[..., :8])
+    # a head dim under 128 runs zero-padded; one past 128 is refused
+    wide = torch.zeros((1, 2, 8, 160), device=card)
+    with pytest.raises(ValueError, match="head dims up to 128"):
+        tfa.flash_fwd(wide, wide, wide)
     with pytest.raises(ValueError, match="share one device"):
         tfa.flash_decode(x[:, :, :1], x.cpu(), x, torch.ones(
             (1, 8), dtype=torch.bool, device=card))

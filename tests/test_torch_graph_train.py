@@ -283,10 +283,10 @@ def test_what_is_not_ported_raises_naming_its_slice(monkeypatch):
     assert net.getIterationCount() == 1
     tup.build_optimizer(tup.Sgd(lambda step: 0.1))
     assert net.evaluate([DataSet(xs, ys)])._count == 4
-    with pytest.raises(NotImplementedError, match="feature masks"):
-        net.fit(DataSet(xs, ys, featuresMask=np.ones((4, 1))))
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        net.rnnTimeStep(xs)
+    # feature masks and rnnTimeStep run now (tests/test_torch_recurrent.py)
+    net.fit(DataSet(xs, ys, featuresMask=np.ones((4, 1))))
+    assert net.getIterationCount() == 2
+    assert net.rnnTimeStep(xs).shape == net.output(xs).shape
     with pytest.raises(ValueError, match="GradientNormalization"):
         tup.build_optimizer(tup.Sgd(0.1), "clipEverything")
     with pytest.raises(ValueError, match="no updater"):

@@ -147,19 +147,22 @@ def test_multi_input_graph_batched():
 
 
 def test_aot_surface_names_its_slice(net, tmp_path):
-    """The executable path's knobs build; lengthBuckets (recurrent
-    serving) still raises, naming its slice."""
+    """The executable path's knobs build, lengthBuckets (recurrent
+    serving, tests/test_torch_recurrent_serving.py) among them; on a model
+    without a sequence input the length ladder changes no signature."""
     b = ParallelInference.Builder(net)
     assert (b.bucketLadder([1, 2]).executableCacheDir(str(tmp_path))
             .stagingDepth(2).aotBreaker(CircuitBreaker())) is b
-    for call in (lambda: b.lengthBuckets([8]),
-                 lambda: ParallelInference(
-                     net, InferenceMode.SEQUENTIAL).warmup(lengths=[8])):
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-            call()
     pi = b.build()
     try:
         assert pi.warmup()["keys"] == 2
+        assert pi.status()["length_buckets"] is None
+    finally:
+        pi.shutdown()
+    assert b.lengthBuckets([8]) is b
+    pi = b.build()
+    try:
+        assert pi.status()["length_buckets"] == [8]
     finally:
         pi.shutdown()
 

@@ -14,7 +14,9 @@ from deeplearning4j_tpu_torch import resolve
 from deeplearning4j_tpu_torch.models import bert_tiny, init_bert_params
 from deeplearning4j_tpu_torch.models.convert import (param_shapes,
                                                      params_from_numpy)
-from deeplearning4j_tpu_torch.models.zoo import VGG16, LeNet, ResNet50
+from deeplearning4j_tpu_torch.generation import RecurrentDecoder
+from deeplearning4j_tpu_torch.models.zoo import (VGG16, LeNet, ResNet50,
+                                                 TextGenerationLSTM)
 from deeplearning4j_tpu_torch.nn import (ComputationGraph, MultiLayerNetwork,
                                          graph_params_from_numpy,
                                          graph_params_to_numpy,
@@ -143,6 +145,36 @@ def test_the_multilayer_slice_modules_are_among_the_checked_sources():
                    "datasets/__init__", "datasets/iterators",
                    "models/zoo/models", "models/zoo/models2"):
         assert f"deeplearning4j_tpu_torch/{module}.py" in names
+
+
+def test_the_recurrent_slice_modules_are_among_the_checked_sources():
+    """The recurrent, sequence and attention layers, the recurrent
+    vertices, RecurrentDecoder and the server, lengthBuckets and
+    TextGenerationLSTM: the two rules above hold them like every module
+    of the port."""
+    names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
+    for module in ("nn/conf/recurrent", "nn/conf/sequence_layers",
+                   "nn/conf/attention", "nn/conf/layers",
+                   "nn/conf/graph_vertices", "nn/graph", "nn/multilayer",
+                   "generation/decode", "generation/server",
+                   "parallel/inference", "models/zoo/models",
+                   "kernels/flash_attention"):
+        assert f"deeplearning4j_tpu_torch/{module}.py" in names
+
+
+def test_recurrent_entry_points_default_to_the_card():
+    conf = TextGenerationLSTM(numClasses=11, lstmLayerSize=8).conf()
+    if torch.cuda.is_available():
+        assert MultiLayerNetwork(conf).init()._params["0"]["W"].is_cuda
+        return
+    for call in (lambda: TextGenerationLSTM().init(),
+                 lambda: TextGenerationLSTM().generationServer(),
+                 lambda: MultiLayerNetwork(conf).init()):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    net = MultiLayerNetwork(conf).init("cpu")
+    assert RecurrentDecoder(net).device.type == "cpu"
+    assert net.rnnTimeStep(np.zeros((1, 11), np.float32)).shape == (1, 11)
 
 
 def test_multilayer_entry_points_default_to_the_card():

@@ -15,7 +15,9 @@ from deeplearning4j_tpu.generation import GenerationServer as JaxServer
 from deeplearning4j_tpu.models import bert as jb
 from deeplearning4j_tpu_torch.generation import (BertDecoder,
                                                  GenerationServer, status)
+from deeplearning4j_tpu_torch.generation.decode import RecurrentDecoder
 from deeplearning4j_tpu_torch.models import bert as tb
+from deeplearning4j_tpu_torch.models.zoo import TextGenerationLSTM
 from deeplearning4j_tpu_torch.models.convert import params_from_numpy
 from deeplearning4j_tpu_torch.resilience.errors import (
     InferenceOverloadedError, ServerDeadError)
@@ -122,9 +124,14 @@ def test_server_surface_and_refusals(models):
             srv.pressure_relief_secs, srv.memory_high_water) == (
                 2, 16, None, None)
     assert hasattr(srv, "adopt")
-    # what still waits for a later slice: RecurrentDecoder
-    with pytest.raises(NotImplementedError, match="RecurrentDecoder"):
-        GenerationServer(object())
+    # a recurrent network is served through a RecurrentDecoder, on one
+    # rung, and refuses drafting (tests/test_torch_recurrent_serving.py)
+    rnn = TextGenerationLSTM(numClasses=11, lstmLayerSize=8).init("cpu")
+    rsrv = GenerationServer(rnn, **SERVER)
+    assert isinstance(rsrv.decoder, RecurrentDecoder)
+    assert rsrv.cache_lengths == (32,) and rsrv.device.type == "cpu"
+    with pytest.raises(ValueError, match="draft-verify"):
+        GenerationServer(rnn, draft=2, **SERVER)
     with pytest.raises(TypeError, match="adopt"):
         GenerationServer(dec, adopt=True)
     # drafting runs now (tests/test_torch_server_paged.py); its knob
