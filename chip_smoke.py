@@ -10,6 +10,7 @@
     python3 chip_smoke.py --only fleet    # card, build, fleet
     python3 chip_smoke.py --only mln      # card, build, mln
     python3 chip_smoke.py --only rnn      # card, build, rnn
+    python3 chip_smoke.py --only zoo      # card, build, zoo
     python3 chip_smoke.py --profile  # and phase 14
 
 Phases, in order; any failure exits non-zero and prints no result:
@@ -30,7 +31,9 @@ Phases, in order; any failure exits non-zero and prints no result:
             bn_conv_grads also runs the 15
             shapes of a ResNet-50 training step's 36 conv1x1+BN pairs
             (`step36`): kernel and library ms summed over the pairs
-            beside the step's bound. matmul_epilogue and matmul_stats run
+            beside the step's bound. The four pair kernels also run the
+            zoo phase's pair shapes (InceptionResNetV1's three in f32 and
+            bf16, NASNet's N = 44 in bf16). matmul_epilogue and matmul_stats run
             the same 15 shapes (the 36 pairs of one ResNet-50 forward,
             `fwd36`) in f32 and bf16, summed the same way beside the sum of
             their bounds on the tensor-core route. `bert_step12` sums the BERT
@@ -224,6 +227,33 @@ Phases, in order; any failure exits non-zero and prints no result:
             --profile: one TBPTT batch eager and graphed and the graphed
             server's workload under torch.profiler.
             It runs after the mln phase, before the profile.
+15. zoo:    the zoo's graph models at their published widths, f32, TF32
+            off, cuDNN's deterministic algorithms, BN statistics and γ/β
+            drawn from a seed. InceptionResNetV1 (160×160×3, blocks (5,
+            10, 5), 1000 classes, 11,565,192 parameters) with the
+            conv1x1+BN fusion on: one B=32 `output()` equal to the
+            unfused net's within 1e-4 with 36 matmul_epilogue launches
+            (timed both ways); 3 graphed `fit` steps equal to 3 eager ones
+            bit for bit, fused and unfused; the first step's loss fused
+            vs unfused within 1e-4; then 2 warm-up and 10 timed steps of
+            one seeded batch of 32 in the arms fused graph, fused eager,
+            unfused graph (ms/step, images/s, peak allocated bytes;
+            exactly 36 launches each of matmul_stats, bn_grad_stats and
+            bn_conv_grads per fused step, none unfused; the two fused
+            arms' losses equal). YOLO2 (416×416×3, 80 classes, 67,445,065
+            parameters): `output()` at B=8 is (8, 13, 13, 425);
+            `getPredictedObjects` at confidence 0.3 and NMS 0.4 keeps,
+            in every example, the boxes a numpy greedy per-class NMS
+            keeps on the same decoded tensors; 3 `fit` steps on synthetic
+            boxes with finite losses (ms of the output and of the
+            detection printed). UNet, TinyYOLO, SqueezeNet, Xception (8
+            middle blocks), FaceNetNN4Small2, NASNet and EfficientNet-B0
+            at their default inputs, B=8: an output of the right shape
+            (softmax rows summing to 1 within 1e-4, UNet's mask in (0,
+            1)) and 2 `fit` steps with finite losses; EfficientNet-B0 and
+            FaceNetNN4Small2 also fused (their 16 and 21 pairs: the fused
+            output within 1e-4 of the unfused one, every pair launching
+            the four pair kernels). It runs after the rnn phase.
 
 Phases 5, 7 and 8 run as a user runs them: the server and `fit` replay
 CUDA graphs on the card by default. The kernels' launch counters are set
@@ -232,7 +262,8 @@ steps, ResNet serving, the timed ResNet training steps, each arm of the
 graphs phase, each server of the chaos phase, each run of the fleet
 phase and each path of the rnn phase) and read just after; a replay adds
 the launches its capture recorded. The mln phase and the rnn phase's LSTM
-paths run none of them: their counts are read and must stay 0. Every number is measured
+paths run none of them: their counts are read and must stay 0. The zoo
+phase's counts are set to 0 before each of its paths. Every number is measured
 in this run; the last lines are the kernel JSON object and the
 `{"ok": true, "device": ...}` line. Imports nothing of JAX.
 """
@@ -282,8 +313,9 @@ from deeplearning4j_tpu_torch.kernels.pointwise_conv import (
 from deeplearning4j_tpu_torch.kernels.residual_block import (
     _plan as _block_plan_of, bottleneck_block, bottleneck_block_xla)
 from deeplearning4j_tpu_torch.models.convert import named_param_leaves
-from deeplearning4j_tpu_torch.models.zoo import (VGG16, ResNet50,
-                                                 TextGenerationLSTM)
+from deeplearning4j_tpu_torch.models.zoo import (
+    VGG16, YOLO2, EfficientNet, FaceNetNN4Small2, InceptionResNetV1, NASNet,
+    ResNet50, SqueezeNet, TextGenerationLSTM, TinyYOLO, UNet, Xception)
 from deeplearning4j_tpu_torch.nn import (LSTM, Activation, Adam,
                                          BackpropType, ComputationGraph,
                                          ConvolutionLayer, DenseLayer,
@@ -681,6 +713,19 @@ INT8_SHAPES = {"res2_c B=32": (32 * 56 * 56, 64, 256, False),
                "res4_a B=32": (32 * 14 * 14, 1024, 256, False),
                "res5_c B=32": (32 * 7 * 7, 512, 2048, False),
                "ragged+res bf16": (4999, 1000, 251, True)}
+#: the zoo's graph models' conv1x1+BN pair shapes (M, K, N) on the zoo
+#: phase's path, with the dtypes each runs in: InceptionResNetV1's three at
+#: 160×160, B=32 (stem3: 1 pair; block35's b0/b1a/b2a: 15; block17's
+#: b0/b1a: 20; the BN takes relu) and NASNet's N = 44 at 224×224, B=8 in
+#: bf16 (44·2 bytes is no multiple of 16: the unvectorised loads)
+ZOO_PAIR_SHAPES = {"irv1 stem3 B=32": ((51200, 64, 128),
+                                       (torch.float32, torch.bfloat16)),
+                   "irv1 block35 B=32": ((12800, 256, 32),
+                                         (torch.float32, torch.bfloat16)),
+                   "irv1 block17 B=32": ((3200, 512, 128),
+                                         (torch.float32, torch.bfloat16)),
+                   "nasnet N=44 B=8": ((100352, 132, 44),
+                                       (torch.bfloat16,))}
 #: ResNet-50's identity blocks at B=32: (B, H, W, C, M)
 BOTTLENECK_SHAPES = {"res2 B=32": (32, 56, 56, 256, 64),
                      "res3 B=32": (32, 28, 28, 512, 128),
@@ -1266,7 +1311,25 @@ def phase_kernels():
         cases.append((_int8_case, label, *shape))
     cases += step36_cases()
     cases += fwd36_cases()
+    cases += zoo_pair_cases()
     return run_kernel_cases(cases, gen), _counts()
+
+
+def zoo_pair_cases():
+    """The four pair kernels at ZOO_PAIR_SHAPES: the epilogue GEMM (relu),
+    matmul_stats, bn_grad_stats and bn_conv_grads, each against its plain
+    version at the kernel rows' gates (10 timed calls each)."""
+    cases = []
+    for label, ((m, k, n), dtypes) in ZOO_PAIR_SHAPES.items():
+        for dtype in dtypes:
+            cases.append((functools.partial(_epilogue_case, iters=10), label,
+                          m, k, n, False, "relu", dtype))
+            cases.append((functools.partial(_stats_case, iters=10), label,
+                          m, k, n, dtype))
+            cases.append((_grad_stats_case, label, m, k, n, dtype))
+            cases.append((functools.partial(_conv_grads_case, iters=10),
+                          label, m, k, n, dtype))
+    return cases
 
 
 # -- phase 4 ------------------------------------------------------------------
@@ -4536,6 +4599,412 @@ def phase_rnn(profile=False):
     return out
 
 
+# -- phase 15: zoo -------------------------------------------------------------
+#: the zoo's graph models on the card, f32, TF32 off, cuDNN's deterministic
+#: algorithms: InceptionResNetV1 trained at its published width (the timed
+#: path, the conv1x1+BN fusion on), YOLO2 serving detections, the other
+#: seven built and stepped
+ZOO = dict(batch=32, warmup=2, steps=10, check_steps=3, seed=13, forwards=5,
+           yolo_batch=8, yolo_fit=3, conf=0.3, nms=0.4, small_batch=8,
+           small_fit=2)
+#: fused vs unfused on the card (outputs, the first step's loss): f32 sums
+#: in another order, held to ZOO_RTOL of the largest unfused value
+ZOO_RTOL = 1e-4
+#: InceptionResNetV1's fused pairs at blocks (5, 10, 5): stem3, 3 in each
+#: of 5 block35, 2 in each of 10 block17
+IRV1_PAIRS = 36
+#: the timed arms, in turns: (fusion, fit route)
+ZOO_ARMS = (("fused", "graph"), ("fused", "eager"), ("unfused", "graph"))
+#: published widths' parameter counts (the JAX package's `init()`)
+ZOO_PARAMS = {"InceptionResNetV1": 11_565_192, "YOLO2": 67_445_065,
+              "EfficientNet": 5_288_548}
+#: the other seven at their default widths: zoo class -> the fused pairs
+#: when it also runs fused (B5–B8 on its own shapes), else None
+ZOO_OTHERS = {"UNet": (UNet, None), "TinyYOLO": (TinyYOLO, None),
+              "SqueezeNet": (SqueezeNet, None), "Xception": (Xception, None),
+              "FaceNetNN4Small2": (FaceNetNN4Small2, 21),
+              "NASNet": (NASNet, None), "EfficientNet": (EfficientNet, 16)}
+
+
+@contextlib.contextmanager
+def _fusion(on):
+    """DL4J_TPU_FUSE_CONV_BN set for the span (read at `init()`)."""
+    before = os.environ.get("DL4J_TPU_FUSE_CONV_BN")
+    os.environ["DL4J_TPU_FUSE_CONV_BN"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop("DL4J_TPU_FUSE_CONV_BN", None)
+        else:
+            os.environ["DL4J_TPU_FUSE_CONV_BN"] = before
+
+
+def _fused_copy(net, pairs):
+    """A copy of graph `net` (its weights and BN state) with the fusion
+    decision taken on: `pairs` conv1x1+BN pairs must be marked."""
+    m = net.clone()
+    with _fusion(True):
+        m._decide_fusion()
+    if len(m._fused_pairs) != pairs:
+        raise AssertionError(f"zoo: {len(m._fused_pairs)} fused pairs, "
+                             f"expected {pairs}")
+    return m
+
+
+def yolo_labels(b, h, w, n_cls, seed):
+    """One ground-truth box in a random cell per image, (x, y, w, h) in grid
+    units and a one-hot class (the YOLOv2 head's label layout)."""
+    rng = np.random.default_rng(seed)
+    lab = np.zeros((b, h, w, 4 + n_cls), np.float32)
+    for i in range(b):
+        ci, cj = rng.integers(h), rng.integers(w)
+        lab[i, ci, cj, :4] = (cj + rng.random(), ci + rng.random(),
+                              1 + rng.random() * 2, 1 + rng.random() * 2)
+        lab[i, ci, cj, 4 + rng.integers(n_cls)] = 1.0
+    return lab
+
+
+def _zoo_data(model, b, seed):
+    """A seeded batch for `model` at its input shape: uniform images and
+    its kind of labels (a binary mask for UNet, YOLO boxes on the 1/32 grid,
+    one-hot classes otherwise)."""
+    rng = np.random.default_rng(seed)
+    h, w, c = model.inputShape
+    x = rng.random((b, h, w, c), np.float32)
+    if isinstance(model, UNet):
+        y = (rng.random((b, h, w, 1)) > 0.5).astype(np.float32)
+    elif hasattr(model, "priors"):   # YOLO2, TinyYOLO
+        y = yolo_labels(b, h // 32, w // 32, model.numClasses, seed)
+    else:
+        y = np.eye(model.numClasses, dtype=np.float32)[
+            rng.integers(0, model.numClasses, b)]
+    return DataSet(x, y)
+
+
+def _rel(a, b):
+    """max |a − b| / max(1, max |b|)."""
+    err, scl = _scaled_err(a, b)
+    return err / scl
+
+
+def _zoo_timed_arm(arm, m, ds):
+    """ZOO["steps"] `fit` steps of `ds`, graphed or eager, with the peak
+    memory the arm reached and its launches per step."""
+    fusion, route = arm
+    b, steps = ZOO["batch"], ZOO["steps"]
+    it = ListDataSetIterator([ds] * steps, b)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    m.fit(it, cudaGraphs=route == "graph")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    per_step = {k: launches[k] / steps for k in TRAIN_KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    loss = m.score()
+    log(f"[zoo] InceptionResNetV1 fit {fusion} {route}: "
+        f"{wall * 1e3 / steps:.2f} ms/step, {b * steps / wall:.1f} "
+        f"images/s, loss {loss:.6f} at step {m.getIterationCount()}, peak "
+        f"allocated {peak / 2**30:.3f} GiB over {base / 2**30:.3f} GiB held "
+        f"before the arm; launches per step {per_step}")
+    want = IRV1_PAIRS if fusion == "fused" else 0
+    if any(n != want for n in per_step.values()) or not np.isfinite(loss):
+        raise AssertionError(f"zoo: InceptionResNetV1 {arm}: launches per "
+                             f"step {per_step} (expected {want} of each), "
+                             f"loss {loss}")
+    return {"arm": f"{fusion} {route}", "ms_per_step": wall * 1e3 / steps,
+            "images_per_s": b * steps / wall, "loss": loss,
+            "iteration": m.getIterationCount(), "peak_bytes": peak,
+            "base_bytes": base, "launches": launches,
+            "launches_per_step": per_step}
+
+
+def _zoo_irv1():
+    """InceptionResNetV1 at 160×160×3, blocks (5, 10, 5), 1000 classes:
+    fused against unfused, graph against eager, then the timed arms."""
+    with _fusion(True):
+        fused = InceptionResNetV1().init(DEV)
+    _perturb_bn(fused, ZOO["seed"])
+    plain = fused.clone()
+    plain._fused_pairs, plain._fused_convs = {}, set()
+    n_params = fused.numParams()
+    if (n_params != ZOO_PARAMS["InceptionResNetV1"]
+            or len(fused._fused_pairs) != IRV1_PAIRS):
+        raise AssertionError(f"zoo: InceptionResNetV1 {n_params} "
+                             f"parameters, {len(fused._fused_pairs)} pairs")
+    b = ZOO["batch"]
+    ds = _zoo_data(InceptionResNetV1(), b, ZOO["seed"])
+    x = torch.as_tensor(ds.features, device=DEV)
+    with torch.no_grad():
+        _reset_counts()
+        yf = fused.output(x)
+        torch.cuda.synchronize()
+        epilogue = _counts()["matmul_epilogue"]
+        yp = plain.output(x)
+    out_err = _rel(yf, yp)
+    fused_ms, fused_min = _forward_ms(fused, x)
+    plain_ms, plain_min = _forward_ms(plain, x)
+    h, w, c = InceptionResNetV1().inputShape
+    log(f"[zoo] InceptionResNetV1 {h}x{w}x{c} f32, {n_params:,} parameters, "
+        f"{len(fused._fused_pairs)} fused pairs: output B={b} fused vs "
+        f"unfused max|err|/max(1, max|unfused|) {out_err:.3e} (rtol "
+        f"{ZOO_RTOL:.0e}); {epilogue} matmul_epilogue launches in one "
+        f"output(); one B={b} output() {fused_ms:.2f} ms fused (min "
+        f"{fused_min:.2f}), {plain_ms:.2f} ms unfused (min {plain_min:.2f})")
+    if not out_err <= ZOO_RTOL or epilogue != IRV1_PAIRS:
+        raise AssertionError(f"zoo: InceptionResNetV1 output fused vs "
+                             f"unfused {out_err}, epilogue launches "
+                             f"{epilogue}")
+    n = ZOO["check_steps"]
+    identity = {}
+    for fusion, net in (("fused", fused), ("unfused", plain)):
+        graph, eager = net.clone(), net.clone()
+        graph.fit(ListDataSetIterator([ds] * n, b))
+        eager.fit([ds] * n, prefetch=0, cudaGraphs=False)
+        torch.cuda.synchronize()
+        unequal = _unequal(graph, eager)
+        scores = (graph.score(), eager.score())
+        st = graph.fit_status()
+        identity[fusion] = {"unequal": unequal, "scores": scores,
+                            "store": {k: st[k] for k in (
+                                "captures", "replays", "degradations",
+                                "eager_calls")}}
+        log(f"[zoo] InceptionResNetV1 {fusion}, {n} steps graph vs eager: "
+            f"not bit-identical {unequal}; loss {scores[0]!r} vs "
+            f"{scores[1]!r}; store {identity[fusion]['store']}")
+        if any(unequal.values()) or scores[0] != scores[1] or (
+                st["captures"], st["replays"], st["degradations"],
+                st["eager_calls"]) != (1, n - 1, 0, 0):
+            raise AssertionError(f"zoo: InceptionResNetV1 {fusion} graph "
+                                 f"vs eager: {identity[fusion]}")
+        del graph, eager
+    torch.cuda.empty_cache()
+    nets = {arm: (fused if arm[0] == "fused" else plain).clone()
+            for arm in ZOO_ARMS}
+    del fused, plain
+    first = {}
+    for arm, m in nets.items():
+        for i in range(ZOO["warmup"]):
+            m.fit(ds, cudaGraphs=arm[1] == "graph")
+            if i == 0:
+                first[arm] = m.score()
+    torch.cuda.synchronize()
+    loss_err = abs(first["fused", "graph"] - first["unfused", "graph"]) / max(
+        1.0, abs(first["unfused", "graph"]))
+    log(f"[zoo] InceptionResNetV1 first step's loss: fused "
+        f"{first['fused', 'graph']!r}, unfused "
+        f"{first['unfused', 'graph']!r}, rel {loss_err:.3e}")
+    if not loss_err <= ZOO_RTOL:
+        raise AssertionError(f"zoo: first step's loss fused vs unfused "
+                             f"{first}")
+    runs = [_zoo_timed_arm(arm, nets[arm], ds) for arm in ZOO_ARMS]
+    if runs[0]["loss"] != runs[1]["loss"]:
+        raise AssertionError(f"zoo: InceptionResNetV1 fused graph and eager "
+                             f"arms at one step disagree: {runs}")
+    del nets
+    torch.cuda.empty_cache()
+    return {"params": n_params, "pairs": IRV1_PAIRS,
+            "output_rel_err": out_err, "epilogue_launches": epilogue,
+            "output_ms": {"fused": fused_ms, "unfused": plain_ms,
+                          "fused_min": fused_min, "unfused_min": plain_min},
+            "bit_identity": identity, "first_loss_rel_err": loss_err,
+            "first_loss": {" ".join(a): v for a, v in first.items()},
+            "runs": runs}
+
+
+def _nms_oracle(xy, wh, conf, classes, conf_thr, iou_thr):
+    """Indices kept by a greedy per-class NMS in numpy, f64, written from
+    its definition: the boxes at or above the threshold by descending
+    confidence (stable), each kept unless a kept box of its class overlaps
+    it by more than `iou_thr` (IoU as the head computes it)."""
+    xy, wh = xy.astype(np.float64), wh.astype(np.float64)
+    cls = classes.argmax(-1)
+    cand = np.nonzero(conf >= np.float32(conf_thr))[0]
+    cand = cand[np.argsort(-conf[cand], kind="stable")]
+    kept = []
+    for i in cand:
+        ok = True
+        for j in kept:
+            if cls[j] != cls[i]:
+                continue
+            lo = np.maximum(xy[i] - wh[i] / 2, xy[j] - wh[j] / 2)
+            hi = np.minimum(xy[i] + wh[i] / 2, xy[j] + wh[j] / 2)
+            inter = np.prod(np.clip(hi - lo, 0.0, None))
+            union = (max(wh[i].prod(), 1e-9) + max(wh[j].prod(), 1e-9)
+                     - inter + 1e-9)
+            if inter / union > iou_thr:
+                ok = False
+                break
+        if ok:
+            kept.append(int(i))
+    return kept
+
+
+def _zoo_yolo2():
+    """YOLO2 at 416×416×3, 80 classes, the COCO priors: detections served
+    and held to the numpy oracle, then a few training steps."""
+    model = YOLO2()
+    net = model.init(DEV)
+    _perturb_bn(net, ZOO["seed"])
+    n_params = net.numParams()
+    b = ZOO["yolo_batch"]
+    ds = _zoo_data(model, b, ZOO["seed"] + 1)
+    x = torch.as_tensor(ds.features, device=DEV)
+    with torch.no_grad():
+        out = net.output(x)
+    out_ms, out_min = _forward_ms(net, x)
+    head = net.getOutputLayer(0)
+    thr = (ZOO["conf"], ZOO["nms"])
+    dets = head.getPredictedObjects(out, *thr)
+    times = []
+    for _ in range(ZOO["forwards"]):
+        t = time.perf_counter()
+        head.getPredictedObjects(out, *thr)
+        times.append((time.perf_counter() - t) * 1e3)
+    t = time.perf_counter()
+    whole = net.getPredictedObjects(x, *thr)
+    whole_ms = (time.perf_counter() - t) * 1e3
+    with torch.no_grad():
+        dec = {k: v.cpu().numpy() for k, v in head.decode(out.float()).items()}
+    n = dec["confidence"][0].size
+    h, w, _ = model.inputShape
+    grid = (b, h // 32, w // 32, len(model.priors) * (5 + model.numClasses))
+    mismatched, per_example = [], []
+    for i in range(b):
+        xy, wh = dec["xy"][i].reshape(n, 2), dec["wh"][i].reshape(n, 2)
+        conf = dec["confidence"][i].reshape(n)
+        cls = dec["classes"][i].reshape(n, -1)
+        want = sorted((float(xy[j, 0]), float(xy[j, 1]), float(wh[j, 0]),
+                       float(wh[j, 1]), float(conf[j]))
+                      for j in _nms_oracle(xy, wh, conf, cls, *thr))
+        got = sorted((d.centerX, d.centerY, d.width, d.height, d.confidence)
+                     for d in dets[i])
+        per_example.append(len(got))
+        if (got != want or any(d.exampleNumber != i for d in dets[i])
+                or len(whole[i]) != len(got)):
+            mismatched.append(i)
+    log(f"[zoo] YOLO2 {h}x{w}x3 f32, {model.numClasses} classes, "
+        f"{n_params:,} parameters: "
+        f"output B={b} {tuple(out.shape)} in {out_ms:.2f} ms (min "
+        f"{out_min:.2f}); getPredictedObjects(conf {thr[0]}, nms {thr[1]}) "
+        f"on that output {np.mean(times):.2f} ms (min {np.min(times):.2f}), "
+        f"with its forward {whole_ms:.2f} ms; detections per example "
+        f"{per_example}; keep sets unequal to the numpy oracle at examples "
+        f"{mismatched}")
+    if (tuple(out.shape) != grid or mismatched
+            or n_params != ZOO_PARAMS["YOLO2"]
+            or not torch.isfinite(out).all()):
+        raise AssertionError(f"zoo: YOLO2 output {tuple(out.shape)}, "
+                             f"{n_params} parameters, keep sets unequal at "
+                             f"{mismatched}")
+    losses = []
+    for _ in range(ZOO["yolo_fit"]):
+        net.fit(ds)
+        losses.append(net.score())
+    log(f"[zoo] YOLO2 fit B={b} on synthetic boxes: losses {losses}")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"zoo: YOLO2 fit losses {losses}")
+    del net
+    torch.cuda.empty_cache()
+    return {"params": n_params, "output_shape": list(out.shape),
+            "output_ms": out_ms, "output_min_ms": out_min,
+            "detect_ms": float(np.mean(times)), "detect_min_ms":
+            float(np.min(times)), "detect_with_forward_ms": whole_ms,
+            "detections_per_example": per_example, "losses": losses}
+
+
+def _zoo_other(name):
+    """One of the other seven at its default width: an output of the right
+    shape and range, ZOO["small_fit"] `fit` steps with a finite score;
+    with the fusion too where ZOO_OTHERS names its pairs."""
+    cls, pairs = ZOO_OTHERS[name]
+    model = cls()
+    net = model.init(DEV)
+    _perturb_bn(net, ZOO["seed"])
+    b = ZOO["small_batch"]
+    ds = _zoo_data(model, b, ZOO["seed"] + 2)
+    x = torch.as_tensor(ds.features, device=DEV)
+    h, w, _ = model.inputShape
+    want = {"UNet": (b, h, w, 1),
+            "TinyYOLO": (b, h // 32, w // 32, 5 * (5 + model.numClasses))
+            }.get(name, (b, model.numClasses))
+    fused = None if pairs is None else _fused_copy(net, pairs)
+    with torch.no_grad():
+        out = net.output(x)
+        if fused is not None:
+            _reset_counts()
+            out_fused = fused.output(x)
+            torch.cuda.synchronize()
+            epilogue = _counts()["matmul_epilogue"]
+    row = {"params": net.numParams(), "output_shape": list(out.shape)}
+    bad = []
+    if tuple(out.shape) != want or not torch.isfinite(out).all():
+        bad.append(f"output {tuple(out.shape)} (expected {want})")
+    if name == "UNet":
+        row["mask_range"] = [out.min().item(), out.max().item()]
+        if not (out.min() > 0 and out.max() < 1):
+            bad.append(f"mask outside (0, 1): {row['mask_range']}")
+    elif name != "TinyYOLO":
+        row["row_sum_err"] = (out.double().sum(-1) - 1).abs().max().item()
+        if not row["row_sum_err"] <= 1e-4:
+            bad.append(f"softmax rows off 1 by {row['row_sum_err']}")
+    arms = [("unfused", net)] + ([] if fused is None else [("fused", fused)])
+    for arm, m in arms:
+        losses = []
+        _reset_counts()
+        for _ in range(ZOO["small_fit"]):
+            m.fit(ds)
+            losses.append(m.score())
+        torch.cuda.synchronize()
+        row[f"{arm}_losses"] = losses
+        row[f"{arm}_launches"] = {k: _counts()[k] for k in TRAIN_KERNELS}
+        if not np.isfinite(losses).all():
+            bad.append(f"{arm} fit losses {losses}")
+        want_launches = (pairs or 0) * ZOO["small_fit"] if arm == "fused" \
+            else 0
+        if any(v != want_launches for v in row[f"{arm}_launches"].values()):
+            bad.append(f"{arm} fit launches {row[f'{arm}_launches']} "
+                       f"(expected {want_launches} of each)")
+    if fused is not None:
+        row["fused_output_rel_err"] = _rel(out_fused, out)
+        row["fused_epilogue_launches"] = epilogue
+        if not row["fused_output_rel_err"] <= ZOO_RTOL or epilogue != pairs:
+            bad.append(f"fused output {row['fused_output_rel_err']}, "
+                       f"epilogue launches {epilogue}")
+    if name == "EfficientNet" and row["params"] != ZOO_PARAMS[name]:
+        bad.append(f"{row['params']} parameters")
+    log(f"[zoo] {name} {h}x{w}: {row}")
+    if bad:
+        raise AssertionError(f"zoo: {name}: {bad}")
+    del net, fused
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_zoo():
+    """The zoo's graph models on the card, all under cuDNN's deterministic
+    algorithms; the launch counts are set to 0 before each path and read
+    after it."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {}
+    with _deterministic():
+        out["irv1"] = _zoo_irv1()
+        out["yolo2"] = _zoo_yolo2()
+        out["others"] = {name: _zoo_other(name) for name in ZOO_OTHERS}
+    # the path's kernels: B5, B7, B8 in the fused graphed steps, B6 in one
+    # fused output()
+    out["launches"] = {k: out["irv1"]["runs"][0]["launches"][k]
+                       for k in TRAIN_KERNELS}
+    out["launches"]["matmul_epilogue"] = out["irv1"]["epilogue_launches"]
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[zoo] the phase {out['seconds']:.1f} s")
+    return out
+
+
 def kernel_line(rows, launches, launches_from):
     """The per-kernel JSON object: each kernel's numbers at its
     representative case, its launches (from the main path's run where it
@@ -4567,13 +5036,13 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only",
                     choices=["kernels", "resnet", "graphs", "paged",
-                             "chaos", "fleet", "mln", "rnn"],
+                             "chaos", "fleet", "mln", "rnn", "zoo"],
                     default=None,
                     help="stop after the kernel checks, or run the resnet "
                          "serving and training phases right after them, or "
                          "run the graphs, the paged, the chaos, the fleet, "
-                         "the mln or the rnn phase alone after the build "
-                         "(bring-up runs)")
+                         "the mln, the rnn or the zoo phase alone after the "
+                         "build (bring-up runs)")
     ap.add_argument("--profile", action="store_true",
                     help="after the resnet phases, profile the serving "
                          "workload, three fine-tune steps, one ResNet-50 "
@@ -4609,11 +5078,13 @@ def main(argv=None):
         log(f"[smoke] by phase " + ", ".join(
             f"{k} {v:.1f}" for k, v in seconds.items()))
         return 0
-    if args.only in ("chaos", "fleet", "mln", "rnn"):
+    if args.only in ("chaos", "fleet", "mln", "rnn", "zoo"):
         if args.only == "mln":
             out = timed("mln", phase_mln, args.profile)
         elif args.only == "rnn":
             out = timed("rnn", phase_rnn, args.profile)
+        elif args.only == "zoo":
+            out = timed("zoo", phase_zoo)
         else:
             cfg = bert_base()
             phase = phase_chaos if args.only == "chaos" else phase_fleet
@@ -4660,6 +5131,7 @@ def main(argv=None):
     fleet = timed("fleet", phase_fleet, cfg, params)
     mln = timed("mln", phase_mln, args.profile)
     rnn = timed("rnn", phase_rnn, args.profile)
+    zoo = timed("zoo", phase_zoo)
     prof = (timed("profile", phase_profile, cfg, params, resnet_net,
                   resnet_x, train_net, train_ds) if args.profile else None)
     # each kernel's launches from the path that carries it: the forward and
@@ -4693,8 +5165,17 @@ def main(argv=None):
     line = kernel_line(rows, launches, launches_from)
     for row in line["kernels"]:
         if row["name"] in rnn["launches"]:
-            # this slice's path: the attention stack's graphed training
+            # the attention stack's graphed training
             row["launches_attention"] = rnn["launches"][row["name"]]
+        if row["name"] in zoo["launches"]:
+            # this slice's path: InceptionResNetV1's fused graphed steps
+            # (the epilogue: one fused output())
+            row["launches_zoo"] = zoo["launches"][row["name"]]
+            row["launches_zoo_from"] = (
+                "InceptionResNetV1 one B=32 output()"
+                if row["name"] == "matmul_epilogue" else
+                f"InceptionResNetV1 fused graph arm ({ZOO['steps']} timed "
+                "steps)")
     (OUT_DIR / "smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "kernels": rows,
          "step36": step36, "fwd36": fwd36, "bert_step12": step12,
@@ -4702,7 +5183,7 @@ def main(argv=None):
          "serving": serving, "train": train,
          "resnet": resnet, "resnet_train": resnet_train, "graphs": graphs,
          "paged": paged, "chaos": chaos, "fleet": fleet, "mln": mln,
-         "rnn": rnn,
+         "rnn": rnn, "zoo": zoo,
          "profile": prof,
          "line": line,
          "phase_seconds": seconds, "seconds": time.perf_counter() - t0},

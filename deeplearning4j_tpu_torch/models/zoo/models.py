@@ -1,13 +1,13 @@
 """Model zoo: the port of `ZooModel`, LeNet, SimpleCNN, AlexNet, VGG16,
-ResNet50 and TextGenerationLSTM of `deeplearning4j_tpu/models/zoo/models.py`
-(≡
-deeplearning4j-zoo :: org.deeplearning4j.zoo.model.*).
+ResNet50, UNet, TinyYOLO and TextGenerationLSTM of
+`deeplearning4j_tpu/models/zoo/models.py` (≡ deeplearning4j-zoo ::
+org.deeplearning4j.zoo.model.*), the whole of that file.
 
 The models build through the same public config DSL a user would write.
 `init()` returns the network on the card (or on `device`): a
 MultiLayerNetwork for a `.list()` configuration, a ComputationGraph for a
 graph. `initPretrained()` needs a local checkpoint, as the port fetches
-nothing over a network. UNet and TinyYOLO come later (ROADMAP A11, A12).
+nothing over a network.
 """
 from __future__ import annotations
 
@@ -18,13 +18,16 @@ from deeplearning4j_tpu_torch.nn.conf.graph_builder import \
     ComputationGraphConfiguration
 from deeplearning4j_tpu_torch.nn.conf.graph_vertices import ElementWiseVertex
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.nn.conf.graph_vertices import MergeVertex
 from deeplearning4j_tpu_torch.nn.conf.layers import (ActivationLayer,
                                                      BatchNormalization,
                                                      ConvolutionLayer,
                                                      DenseLayer, DropoutLayer,
                                                      GlobalPoolingLayer,
-                                                     OutputLayer,
-                                                     SubsamplingLayer)
+                                                     LossLayer, OutputLayer,
+                                                     SubsamplingLayer,
+                                                     Upsampling2D)
+from deeplearning4j_tpu_torch.nn.conf.objdetect import Yolo2OutputLayer
 from deeplearning4j_tpu_torch.nn.conf.recurrent import LSTM, RnnOutputLayer
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
@@ -289,6 +292,114 @@ class ResNet50(ZooModel):
                                      activation="softmax"), "avgpool")
         g.setOutputs("fc")
         return g.build()
+
+
+class UNet(ZooModel):
+    """≡ zoo.model.UNet — encoder/decoder with skip connections
+    (MergeVertex concat), sigmoid pixel output."""
+
+    DEFAULT_INPUT = (128, 128, 3)
+
+    def conf(self):
+        h, w, c = self.inputShape
+        g = (NeuralNetConfiguration.Builder()
+             .seed(self.seed)
+             .updater(self.updater or Adam(1e-3))
+             .weightInit("relu")
+             .activation("relu")
+             .dataType(self.dataType)
+             .graphBuilder()
+             .addInputs("input")
+             .setInputTypes(InputType.convolutional(h, w, c)))
+
+        def double_conv(name, inp, n_out):
+            g.addLayer(f"{name}_c1", ConvolutionLayer(
+                kernelSize=(3, 3), nOut=n_out, convolutionMode="same"), inp)
+            g.addLayer(f"{name}_c2", ConvolutionLayer(
+                kernelSize=(3, 3), nOut=n_out, convolutionMode="same"),
+                f"{name}_c1")
+            return f"{name}_c2"
+
+        d1 = double_conv("down1", "input", 32)
+        g.addLayer("pool1", SubsamplingLayer(kernelSize=(2, 2),
+                                             stride=(2, 2)), d1)
+        d2 = double_conv("down2", "pool1", 64)
+        g.addLayer("pool2", SubsamplingLayer(kernelSize=(2, 2),
+                                             stride=(2, 2)), d2)
+        mid = double_conv("mid", "pool2", 128)
+        g.addLayer("up2", Upsampling2D(size=2), mid)
+        g.addVertex("cat2", MergeVertex(), "up2", d2)
+        u2 = double_conv("dec2", "cat2", 64)
+        g.addLayer("up1", Upsampling2D(size=2), u2)
+        g.addVertex("cat1", MergeVertex(), "up1", d1)
+        u1 = double_conv("dec1", "cat1", 32)
+        g.addLayer("outconv", ConvolutionLayer(kernelSize=(1, 1), nOut=1,
+                                               activation="identity",
+                                               convolutionMode="same"), u1)
+        g.addLayer("out", LossLayer(lossFunction="xent",
+                                    activation="sigmoid"), "outconv")
+        g.setOutputs("out")
+        return g.build()
+
+
+def _resolve_priors(boxes, defaults):
+    """boxes: None → all default priors; int n → first n defaults;
+    list of [w, h] → explicit priors."""
+    if boxes is None:
+        return defaults
+    if isinstance(boxes, int):
+        if not 1 <= boxes <= len(defaults):
+            raise ValueError(
+                f"boxes={boxes}: pass 1..{len(defaults)} to subset the "
+                "default priors, or an explicit [[w, h], ...] list")
+        return defaults[:boxes]
+    return [list(map(float, b)) for b in boxes]
+
+
+class TinyYOLO(ZooModel):
+    """≡ zoo.model.TinyYOLO — Darknet-style backbone + Yolo2OutputLayer
+    (anchor-box YOLOv2 loss) with the reference's VOC box priors; a
+    `.list()` model, so `init()` gives a MultiLayerNetwork."""
+
+    DEFAULT_INPUT = (416, 416, 3)
+    PRIORS = [[1.08, 1.19], [3.42, 4.41], [6.63, 11.38],
+              [9.42, 5.11], [16.62, 10.52]]
+
+    def __init__(self, numClasses=20, boxes=None, **kw):
+        super().__init__(numClasses=numClasses, **kw)
+        self.priors = _resolve_priors(boxes, self.PRIORS)
+        self.boxes = len(self.priors)
+
+    def conf(self):
+        h, w, c = self.inputShape
+        b = (NeuralNetConfiguration.Builder()
+             .seed(self.seed)
+             .updater(self.updater or Adam(1e-3))
+             .weightInit("relu")
+             .dataType(self.dataType)
+             .list())
+        n_out = 16
+        for _ in range(5):
+            b.layer(ConvolutionLayer(kernelSize=(3, 3), nOut=n_out,
+                                     convolutionMode="same", hasBias=False,
+                                     activation="identity"))
+            b.layer(BatchNormalization(activation="leakyrelu"))
+            b.layer(SubsamplingLayer(kernelSize=(2, 2), stride=(2, 2)))
+            n_out *= 2
+        b.layer(ConvolutionLayer(kernelSize=(3, 3), nOut=512,
+                                 convolutionMode="same", hasBias=False,
+                                 activation="identity"))
+        b.layer(BatchNormalization(activation="leakyrelu"))
+        b.layer(ConvolutionLayer(kernelSize=(3, 3), nOut=1024,
+                                 convolutionMode="same", hasBias=False,
+                                 activation="identity"))
+        b.layer(BatchNormalization(activation="leakyrelu"))
+        head_out = self.boxes * (5 + self.numClasses)
+        b.layer(ConvolutionLayer(kernelSize=(1, 1), nOut=head_out,
+                                 convolutionMode="same",
+                                 activation="identity"))
+        b.layer(Yolo2OutputLayer(boundingBoxes=self.priors))
+        return b.setInputType(InputType.convolutional(h, w, c)).build()
 
 
 class TextGenerationLSTM(ZooModel):

@@ -1,6 +1,6 @@
-"""The port's `nn/`: the builder DSL, the layers ResNet-50 and the zoo's
-CNNs need, the recurrent, sequence and attention layers, the conv1x1+BN
-fusion pass, `ComputationGraph`,
+"""The port's `nn/`: the builder DSL, the layers and vertices the zoo's
+models need, the YOLOv2 head and the center loss, the recurrent, sequence
+and attention layers, the conv1x1+BN fusion pass, `ComputationGraph`,
 `MultiLayerNetwork` and the training surface they share: updaters,
 schedules, losses, dropout objects, constraints and gradient
 accumulation."""
@@ -15,18 +15,27 @@ from deeplearning4j_tpu_torch.nn.conf.attention import (
     SelfAttentionLayer)
 from deeplearning4j_tpu_torch.nn.conf.graph_vertices import (
     DuplicateToTimeSeriesVertex, ElementWiseVertex, GraphVertex,
-    LastTimeStepVertex, MergeVertex, ReverseTimeSeriesVertex)
+    L2NormalizeVertex, L2Vertex, LastTimeStepVertex, MergeVertex,
+    PreprocessorVertex, ReshapeVertex, ReverseTimeSeriesVertex, ScaleVertex,
+    ShiftVertex, SpaceToDepthVertex, StackVertex, SubsetVertex,
+    UnstackVertex)
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import (
     ActivationLayer, BatchNormalization, ConvolutionLayer, DenseLayer,
-    DropoutLayer, EmbeddingLayer, EmbeddingSequenceLayer, GlobalPoolingLayer,
-    OutputLayer, SubsamplingLayer, TimeDistributed)
+    DepthwiseConvolution2D, DropoutLayer, EmbeddingLayer,
+    EmbeddingSequenceLayer, GlobalPoolingLayer, LossLayer, OutputLayer,
+    SeparableConvolution2D, SubsamplingLayer, TimeDistributed, Upsampling2D)
+from deeplearning4j_tpu_torch.nn.conf.objdetect import (DetectedObject,
+                                                        Yolo2OutputLayer,
+                                                        YoloUtils)
 from deeplearning4j_tpu_torch.nn.conf.recurrent import (
     LSTM, Bidirectional, GravesBidirectionalLSTM, GravesLSTM, LastTimeStep,
     RnnOutputLayer, SimpleRnn)
 from deeplearning4j_tpu_torch.nn.conf.sequence_layers import (MaskLayer,
                                                               MaskZeroLayer,
                                                               RnnLossLayer)
+from deeplearning4j_tpu_torch.nn.conf.special_layers import \
+    CenterLossOutputLayer
 from deeplearning4j_tpu_torch.nn.constraints import (MaxNormConstraint,
                                                      MinMaxNormConstraint,
                                                      NonNegativeConstraint,
@@ -67,7 +76,12 @@ __all__ = [
     "ActivationLayer", "BatchNormalization", "ConvolutionLayer",
     "DenseLayer", "DropoutLayer", "GlobalPoolingLayer", "OutputLayer",
     "SubsamplingLayer", "EmbeddingLayer", "EmbeddingSequenceLayer",
-    "TimeDistributed", "LSTM", "GravesLSTM", "SimpleRnn",
+    "TimeDistributed", "DepthwiseConvolution2D", "SeparableConvolution2D",
+    "Upsampling2D", "LossLayer", "Yolo2OutputLayer", "YoloUtils",
+    "DetectedObject", "CenterLossOutputLayer", "ScaleVertex", "ShiftVertex",
+    "L2NormalizeVertex", "L2Vertex", "PreprocessorVertex", "ReshapeVertex",
+    "SpaceToDepthVertex", "SubsetVertex", "StackVertex", "UnstackVertex",
+    "LSTM", "GravesLSTM", "SimpleRnn",
     "Bidirectional", "GravesBidirectionalLSTM", "LastTimeStep",
     "RnnOutputLayer", "MaskLayer", "MaskZeroLayer", "RnnLossLayer",
     "SelfAttentionLayer", "LearnedSelfAttentionLayer",

@@ -419,7 +419,8 @@ class Network:
         replays on the card) back to back, with no host sync between
         them. With `.gradientAccumulation(G)` on the configuration, each
         G consecutive batches of one signature of an iterable make one
-        update (a shorter tail runs batch by batch)."""
+        update (a shorter tail runs batch by batch; under truncated BPTT
+        each batch runs its segments, one update a segment)."""
         if self._params is None:
             self.init()
         if int(stepsPerDispatch) < 1:
@@ -437,7 +438,7 @@ class Network:
         if one is not None:
             self._train_step([self._unpack(one)], graphs)
             return self
-        accum = int(self.conf.defaults.get("gradientAccumulation", 1) or 1)
+        accum = self._accum_group_size()
         it, prefetcher = maybe_prefetch(data, prefetch, self._device)
         try:
             for _ in range(int(epochs) if epochs is not None else 1):
@@ -467,6 +468,11 @@ class Network:
             if prefetcher is not None:
                 prefetcher.close()
         return self
+
+    def _accum_group_size(self):
+        """G of `.gradientAccumulation(G)`: the batches of an iterable that
+        make one update."""
+        return int(self.conf.defaults.get("gradientAccumulation", 1) or 1)
 
     def fit_status(self):
         """The training step's executable store: keys, captures, replays

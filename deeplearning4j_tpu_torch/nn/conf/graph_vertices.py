@@ -1,12 +1,14 @@
-"""Graph vertices: the port of `GraphVertex`, `MergeVertex`,
-`ElementWiseVertex` and the recurrent vertices `LastTimeStepVertex`,
-`DuplicateToTimeSeriesVertex` and `ReverseTimeSeriesVertex` of
+"""Graph vertices: the port of
 `deeplearning4j_tpu/nn/conf/graph_vertices.py` (≡ deeplearning4j-nn ::
-conf.graph.*). Plain functions over one or more parent activations and
-the feature mask (B, T) of the first parent that has one; a vertex's
-`feed_forward_mask` is the mask its consumers see. `AttentionVertex`,
-which has parameters, lives in `attention.py`. The other vertices come
-with ROADMAP A12.
+conf.graph.*): MergeVertex, ElementWiseVertex, SubsetVertex, StackVertex,
+UnstackVertex, ScaleVertex, ShiftVertex, L2NormalizeVertex,
+PreprocessorVertex, ReshapeVertex, SpaceToDepthVertex, L2Vertex and the
+recurrent vertices LastTimeStepVertex, DuplicateToTimeSeriesVertex and
+ReverseTimeSeriesVertex. Plain functions over one or more parent
+activations and the feature mask (B, T) of the first parent that has one;
+a vertex's `feed_forward_mask` is the mask its consumers see.
+`AttentionVertex`, which has parameters, lives in `attention.py`.
+FrozenVertex comes with transfer learning (ROADMAP A17).
 """
 from __future__ import annotations
 
@@ -90,6 +92,162 @@ class ElementWiseVertex(GraphVertex):
                 out = torch.minimum(out, x)
             return out
         raise ValueError(f"Unknown ElementWiseVertex op {self.op}")
+
+
+class SubsetVertex(GraphVertex):
+    """Features frm..to of the last axis, both ends inclusive."""
+
+    def __init__(self, frm, to):
+        self.frm, self.to = int(frm), int(to)
+
+    def output_type(self, *ts):
+        n = self.to - self.frm + 1
+        t = ts[0]
+        if isinstance(t, RecurrentType):
+            return InputType.recurrent(n, t.timeSeriesLength)
+        return InputType.feedForward(n)
+
+    def apply(self, *xs, mask=None):
+        return xs[0][..., self.frm:self.to + 1]
+
+
+class StackVertex(GraphVertex):
+    """The parents' examples stacked along the batch axis."""
+
+    def output_type(self, *ts):
+        return ts[0]
+
+    def apply(self, *xs, mask=None):
+        return torch.cat(xs, dim=0)
+
+
+class UnstackVertex(GraphVertex):
+    """Block `frm` of `stackSize` equal blocks of the batch axis."""
+
+    def __init__(self, frm, stackSize):
+        self.frm, self.stackSize = int(frm), int(stackSize)
+
+    def output_type(self, *ts):
+        return ts[0]
+
+    def apply(self, *xs, mask=None):
+        x = xs[0]
+        step = x.shape[0] // self.stackSize
+        return x[self.frm * step:(self.frm + 1) * step]
+
+
+class ScaleVertex(GraphVertex):
+    def __init__(self, scaleFactor):
+        self.scale = float(scaleFactor)
+
+    def output_type(self, *ts):
+        return ts[0]
+
+    def apply(self, *xs, mask=None):
+        return xs[0] * self.scale
+
+
+class ShiftVertex(GraphVertex):
+    def __init__(self, shiftFactor):
+        self.shift = float(shiftFactor)
+
+    def output_type(self, *ts):
+        return ts[0]
+
+    def apply(self, *xs, mask=None):
+        return xs[0] + self.shift
+
+
+class L2NormalizeVertex(GraphVertex):
+    """x / sqrt(Σx² + eps) over the last axis (eps inside the root)."""
+
+    def __init__(self, eps=1e-8):
+        self.eps = float(eps)
+
+    def output_type(self, *ts):
+        return ts[0]
+
+    def apply(self, *xs, mask=None):
+        x = xs[0]
+        return x / torch.sqrt((x * x).sum(dim=-1, keepdim=True) + self.eps)
+
+
+class PreprocessorVertex(GraphVertex):
+    """An InputPreProcessor as a vertex."""
+
+    def __init__(self, preprocessor):
+        self.pp = preprocessor
+
+    def output_type(self, *ts):
+        return self.pp.getOutputType(ts[0])
+
+    def apply(self, *xs, mask=None):
+        return self.pp.preProcess(xs[0])
+
+
+class ReshapeVertex(GraphVertex):
+    """The parent reshaped to `shape` (batch axis included, -1 allowed):
+    a 2-D shape gives a feed-forward type, a 4-D one a convolutional
+    (H, W, C) type."""
+
+    def __init__(self, *shape):
+        self.shape = tuple(int(s) for s in
+                           (shape[0] if len(shape) == 1 and
+                            isinstance(shape[0], (tuple, list)) else shape))
+
+    def output_type(self, *ts):
+        if len(self.shape) == 2:
+            return InputType.feedForward(self.shape[-1])
+        if len(self.shape) == 4:
+            return InputType.convolutional(*self.shape[1:])
+        return ts[0]
+
+    def apply(self, *xs, mask=None):
+        return xs[0].reshape(self.shape)
+
+
+class SpaceToDepthVertex(GraphVertex):
+    """≡ conf.layers.SpaceToDepthLayer as a vertex (YOLOv2's 'reorg'
+    passthrough): (B, H, W, C) → (B, H/b, W/b, C·b²), each b×b block's
+    pixels in (row, column) order, then the channels."""
+
+    def __init__(self, blockSize=2):
+        self.blockSize = int(blockSize)
+
+    def output_type(self, *ts):
+        t = ts[0]
+        b = self.blockSize
+        return InputType.convolutional(t.height // b, t.width // b,
+                                       t.channels * b * b)
+
+    def apply(self, *xs, mask=None):
+        x = xs[0]
+        n, h, w, c = x.shape
+        b = self.blockSize
+        x = x.reshape(n, h // b, b, w // b, b, c)
+        return x.permute(0, 1, 3, 2, 4, 5).reshape(n, h // b, w // b,
+                                                   c * b * b)
+
+
+class L2Vertex(GraphVertex):
+    """≡ conf.graph.L2Vertex: the Euclidean distance between two parents,
+    (B, ...) × (B, ...) → (B, 1), summed in f32 (the siamese head)."""
+
+    def __init__(self, eps=1e-8):
+        self.eps = float(eps)
+
+    def output_type(self, *ts):
+        return InputType.feedForward(1)
+
+    def feed_forward_mask(self, *parent_masks):
+        return None  # one distance an example, no time axis
+
+    def apply(self, *xs, mask=None):
+        a, b = xs[0], xs[1]
+        d = (a - b).reshape(a.shape[0], -1)
+        wide = torch.float64 if d.dtype == torch.float64 else torch.float32
+        sq = (d.to(wide) ** 2).sum(dim=1, keepdim=True)
+        return torch.sqrt(sq + self.eps).to(a.dtype)
 
 
 class LastTimeStepVertex(GraphVertex):

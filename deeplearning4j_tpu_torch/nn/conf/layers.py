@@ -1,5 +1,5 @@
 """Layer configurations: the port of the part of
-`deeplearning4j_tpu/nn/conf/layers.py` that ResNet-50 and its heads use
+`deeplearning4j_tpu/nn/conf/layers.py` that the zoo's models use
 (≡ deeplearning4j-nn :: conf.layers.*).
 
 Each config class doubles as the reference's `Layer.Builder` surface:
@@ -17,13 +17,15 @@ dropout on the layer input at train time; `dropOut` also takes an
 `nn/dropout.py` object (GaussianDropout, AlphaDropout, ...).
 
 Ported so far: DenseLayer, EmbeddingLayer, EmbeddingSequenceLayer,
-TimeDistributed, ConvolutionLayer, SubsamplingLayer, BatchNormalization,
-ActivationLayer, DropoutLayer, GlobalPoolingLayer (mask-aware over time),
-and OutputLayer; the recurrent, sequence and attention layers
-live in `recurrent.py`, `sequence_layers.py` and `attention.py`. Every
-`apply` takes the (B, T) feature mask (`mask`, 1 = valid), and
-`feed_forward_mask` gives the mask the next layer sees. The other layer
-families come with ROADMAP A11/A12.
+TimeDistributed, ConvolutionLayer, DepthwiseConvolution2D,
+SeparableConvolution2D, SubsamplingLayer, BatchNormalization,
+ActivationLayer, DropoutLayer, Upsampling2D, GlobalPoolingLayer
+(mask-aware over time), OutputLayer and LossLayer; the YOLOv2 head lives
+in `objdetect.py`, CenterLossOutputLayer in `special_layers.py`, the
+recurrent, sequence and attention layers in `recurrent.py`,
+`sequence_layers.py` and `attention.py`. Every `apply` takes the (B, T)
+feature mask (`mask`, 1 = valid), and `feed_forward_mask` gives the mask
+the next layer sees. The other layer families come with ROADMAP A12.
 """
 from __future__ import annotations
 
@@ -446,13 +448,11 @@ class ConvolutionLayer(Layer):
             params["b"] = torch.full((int(self.nOut),), float(self.biasInit))
         return params, {}, self.output_type(input_type)
 
-    def pre_activation(self, params, x):
-        if getattr(self, "precisionPolicy", None) is not None:
-            raise NotImplementedError(
-                "precisionPolicy (QAT fake-quant) comes with the int8 "
-                "slice (ROADMAP A13)")
+    def _conv(self, x, w, groups=1):
+        """The NHWC convolution of `x` by the HWIO kernel `w` (input axis
+        nIn/groups) at this layer's stride, padding and dilation."""
         cl = torch.channels_last
-        w = params["W"].to(x.dtype).permute(3, 2, 0, 1).contiguous(
+        w = w.to(x.dtype).permute(3, 2, 0, 1).contiguous(
             memory_format=cl)                                  # OIHW
         (plh, phh), (plw, phw) = self._explicit_padding(x.shape[1],
                                                         x.shape[2])
@@ -462,8 +462,15 @@ class ConvolutionLayer(Layer):
         else:
             xc = F.pad(xc, (plw, phw, plh, phh)).contiguous(memory_format=cl)
             pad = (0, 0)
-        y = _nhwc(F.conv2d(xc, w, stride=self.stride, padding=pad,
-                           dilation=self.dilation))
+        return _nhwc(F.conv2d(xc, w, stride=self.stride, padding=pad,
+                              dilation=self.dilation, groups=groups))
+
+    def pre_activation(self, params, x):
+        if getattr(self, "precisionPolicy", None) is not None:
+            raise NotImplementedError(
+                "precisionPolicy (QAT fake-quant) comes with the int8 "
+                "slice (ROADMAP A13)")
+        y = self._conv(x, params["W"])
         if self.hasBias:
             y = y + params["b"].to(x.dtype)
         return y
@@ -474,6 +481,73 @@ class ConvolutionLayer(Layer):
         return (get_activation(self.activation)(self.pre_activation(params,
                                                                     x)),
                 state)
+
+
+class DepthwiseConvolution2D(ConvolutionLayer):
+    """≡ conf.layers.DepthwiseConvolution2D — a convolution per input
+    channel, no mixing across channels: a grouped convolution with nIn
+    groups. nOut = nIn · depthMultiplier (nOut need not be set). The HWIO
+    kernel (kh, kw, 1, nIn·m) is torch's (nIn·m, 1, kh, kw): output
+    channel o belongs to input channel o // m in both packages."""
+
+    def __init__(self, depthMultiplier=1, **kw):
+        super().__init__(**kw)
+        self.depthMultiplier = int(depthMultiplier)
+
+    def output_type(self, input_type):
+        if self.nIn is None:
+            self.nIn = input_type.channels
+        self.nOut = int(self.nIn) * self.depthMultiplier
+        return super().output_type(input_type)
+
+    def initialize(self, generator, input_type):
+        if self.nIn is None:
+            self.nIn = input_type.channels
+        self.nOut = int(self.nIn) * self.depthMultiplier
+        kh, kw = self.kernelSize
+        params = {"W": init_weight(generator, (kh, kw, 1, int(self.nOut)),
+                                   self.weightInit, self.dist)}
+        if self.hasBias:
+            params["b"] = torch.full((int(self.nOut),), float(self.biasInit))
+        return params, {}, self.output_type(input_type)
+
+    def pre_activation(self, params, x):
+        y = self._conv(x, params["W"], groups=int(self.nIn))
+        if self.hasBias:
+            y = y + params["b"].to(x.dtype)
+        return y
+
+
+class SeparableConvolution2D(ConvolutionLayer):
+    """≡ conf.layers.SeparableConvolution2D — a depthwise convolution
+    (`dW`, (kh, kw, 1, nIn·m), this layer's stride and padding), then a
+    1×1 one (`pW`, (1, 1, nIn·m, nOut)) as a product over the channels.
+    `dW` and `pW` are weights under l1/l2."""
+
+    def __init__(self, depthMultiplier=1, **kw):
+        super().__init__(**kw)
+        self.depthMultiplier = int(depthMultiplier)
+
+    def initialize(self, generator, input_type):
+        if self.nIn is None:
+            self.nIn = input_type.channels
+        kh, kw = self.kernelSize
+        cm = int(self.nIn) * self.depthMultiplier
+        params = {"dW": init_weight(generator, (kh, kw, 1, cm),
+                                    self.weightInit, self.dist),
+                  "pW": init_weight(generator, (1, 1, cm, int(self.nOut)),
+                                    self.weightInit, self.dist)}
+        if self.hasBias:
+            params["b"] = torch.full((int(self.nOut),), float(self.biasInit))
+        return params, {}, self.output_type(input_type)
+
+    def pre_activation(self, params, x):
+        y = self._conv(x, params["dW"], groups=int(self.nIn))
+        pw = params["pW"]
+        y = y @ pw.to(x.dtype).reshape(pw.shape[2], pw.shape[3])
+        if self.hasBias:
+            y = y + params["b"].to(x.dtype)
+        return y
 
 
 class SubsamplingLayer(Layer):
@@ -716,6 +790,24 @@ class GlobalPoolingLayer(Layer):
         return y, state
 
 
+class Upsampling2D(Layer):
+    """≡ conf.layers.Upsampling2D — nearest-neighbour repeat, H then W."""
+
+    def __init__(self, size=2, **kw):
+        super().__init__(**kw)
+        self.size = _pair(size)
+
+    def output_type(self, input_type):
+        return InputType.convolutional(input_type.height * self.size[0],
+                                       input_type.width * self.size[1],
+                                       input_type.channels)
+
+    def apply(self, params, state, x, train=False, generator=None,
+              mask=None):
+        y = x.repeat_interleave(self.size[0], dim=1)
+        return y.repeat_interleave(self.size[1], dim=2), state
+
+
 class BaseOutputLayer(Layer):
     @classmethod
     def _builder_positional(cls, args):
@@ -753,3 +845,15 @@ class OutputLayer(BaseOutputLayer, DenseLayer):
             self.activation = "softmax"
         Layer.apply_defaults(self, defaults)
         return self
+
+
+class LossLayer(BaseOutputLayer):
+    """≡ conf.layers.LossLayer — a loss on its input, no parameters; the
+    activation applies in `apply`."""
+
+    def pre_activation(self, params, x):
+        return x
+
+    def apply(self, params, state, x, train=False, generator=None,
+              mask=None):
+        return get_activation(self.activation)(x), state

@@ -27,7 +27,11 @@ and the evaluation loop: each node sees its first parent's mask (a vertex
 may name its mask input) and hands its consumers `feed_forward_mask`.
 `rnnTimeStep` threads the recurrent layer nodes' carries across calls.
 A vertex with parameters (`AttentionVertex`) is drawn, stored and trained
-like a layer. Not ported yet: remat (A10).
+like a layer. An output layer whose loss reads its input features
+(`needs_features`: CenterLossOutputLayer) gets its input node's
+activation after the node's preprocessor; `getPredictedObjects` decodes
+a Yolo2OutputLayer head's output into detections. Not ported yet: remat
+(A10).
 
 A training step writes its results into the live parameter, optimizer
 and BN-state tensors in place, so `params()`, `score()` and the listeners
@@ -263,6 +267,26 @@ class ComputationGraph(Network):
         out = self.output(*inputs)
         return out[0] if isinstance(out, list) else out
 
+    def getOutputLayer(self, index=0):
+        """The configuration of the index-th output layer."""
+        return self.nodes[self.conf.output_names[index]].ref
+
+    def getPredictedObjects(self, inputs, confThreshold=0.5,
+                            nmsThreshold=0.4):
+        """The detections of a Yolo2OutputLayer head (≡
+        YoloUtils.getPredictedObjects over this graph's output): forward,
+        decode, threshold and per-class NMS. `inputs` is one array, or a
+        list or dict for a graph of several inputs. Returns
+        List[List[DetectedObject]], an inner list per example."""
+        out_layer = self.getOutputLayer(0)
+        if not hasattr(out_layer, "getPredictedObjects"):
+            raise TypeError(
+                f"output layer {type(out_layer).__name__} has no detection "
+                "decode — getPredictedObjects needs a Yolo2OutputLayer head")
+        with torch.no_grad():
+            y = self.outputSingle(inputs)
+        return out_layer.getPredictedObjects(y, confThreshold, nmsThreshold)
+
     def feedForward(self, inputs, train=False, generator=None):
         """Every node's activation, {name: tensor}; a fused conv node
         reports its true conv output."""
@@ -280,13 +304,24 @@ class ComputationGraph(Network):
                                                  train, generator)
         total = 0.0
         for i, name in enumerate(self.conf.output_names):
-            layer = self.nodes[name].ref
+            node = self.nodes[name]
+            layer = node.ref
             if not hasattr(layer, "compute_loss"):
                 raise ValueError(f"Output node '{name}' is not an output "
                                  "layer")
+            y = labels[i].to(torch.float32)
             lm = None if lmasks is None else lmasks[i]
-            total = total + layer.compute_loss(
-                labels[i].to(torch.float32), preacts[name].float(), lm)
+            if getattr(layer, "needs_features", False):
+                # the loss reads the layer's input (CenterLossOutputLayer)
+                feats = acts[node.inputs[0]]
+                if node.preprocessor is not None:
+                    feats = node.preprocessor.preProcess(feats)
+                total = total + layer.compute_loss_with_features(
+                    params.get(name, {}), y, preacts[name].float(),
+                    feats.float(), lm)
+            else:
+                total = total + layer.compute_loss(y, preacts[name].float(),
+                                                   lm)
         return total + self._penalty(params), new_state
 
     # -- training and evaluation (nn/_network.py) ------------------------

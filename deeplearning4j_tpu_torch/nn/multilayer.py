@@ -26,17 +26,21 @@ across calls (`rnnClearPreviousState` / `rnnGetPreviousState`). With
 trains segment by segment: each segment is one update, and the carries
 thread from one segment into the next, detached at the boundary (the JAX
 package's segment step; like it, the backward runs over the whole
-segment). On the card a segment runs through its CUDA graph: the
-carries are static inputs that the graph overwrites with the segment's
-final carries, so every full segment replays one graph and a shorter
-last segment is a second batch signature.
+segment), whatever `.gradientAccumulation(G)` says. On the card a
+segment runs through its CUDA graph: the carries are static inputs that
+the graph overwrites with the segment's final carries, so every full
+segment replays one graph and a shorter last segment is a second batch
+signature. A last layer whose loss reads its input features
+(`needs_features`: CenterLossOutputLayer) gets the layer before's
+activation; `getPredictedObjects` decodes a Yolo2OutputLayer head's
+output into detections.
 
 Not ported yet, each raising and naming its ROADMAP item: `pretrain` /
-`pretrainLayer` (A12, variational layers), `getPredictedObjects` (A12,
-detection heads), `save` / `load` / `toJson` (A12, the checkpoint
-formats), frozen layers (A17, transfer learning), `weightNoise` (A12),
-activation remat (a later part of A10). The JAX package's guardian and
-watchdog hooks come with the port's resilience trainer (A14).
+`pretrainLayer` (A12, variational layers), `save` / `load` / `toJson`
+(A12, the checkpoint formats), frozen layers (A17, transfer learning),
+`weightNoise` (A12), activation remat (a later part of A10). The JAX
+package's guardian and watchdog hooks come with the port's resilience
+trainer (A14).
 """
 from __future__ import annotations
 
@@ -249,6 +253,20 @@ class MultiLayerNetwork(Network):
     def getOutputLayer(self):
         return self.layers[-1]
 
+    def getPredictedObjects(self, x, confThreshold=0.5, nmsThreshold=0.4):
+        """The detections of a Yolo2OutputLayer head (≡
+        YoloUtils.getPredictedObjects over this network's output):
+        forward, decode, threshold and per-class NMS. Returns
+        List[List[DetectedObject]], an inner list per example."""
+        out_layer = self.layers[-1]
+        if not hasattr(out_layer, "getPredictedObjects"):
+            raise TypeError(
+                f"output layer {type(out_layer).__name__} has no detection "
+                "decode — getPredictedObjects needs a Yolo2OutputLayer head")
+        with torch.no_grad():
+            y = self.output(x)
+        return out_layer.getPredictedObjects(y, confThreshold, nmsThreshold)
+
     def predict(self, x):
         """≡ Classifier.predict: the argmax class index per example."""
         if isinstance(x, DataSet):
@@ -278,13 +296,30 @@ class MultiLayerNetwork(Network):
         if not hasattr(out_layer, "compute_loss"):
             raise ValueError("Last layer must be an OutputLayer/LossLayer "
                              "to fit()")
-        out = self._forward(params, state, inputs["input"], train,
-                            generator, mask=inputs.get(mask_key("input")),
-                            carries=carries)
+        needs_feats = getattr(out_layer, "needs_features", False)
+        if needs_feats and carries is not None:
+            raise ValueError(
+                f"{type(out_layer).__name__} (feature-dependent loss) is "
+                "not supported with truncated BPTT")
+        x = inputs["input"]
+        out = self._forward(params, state, x, train, generator,
+                            mask=inputs.get(mask_key("input")),
+                            collect=needs_feats, carries=carries)
         preact, new_state = out[1], out[2]
+        y = labels[0].to(torch.float32)
         lm = None if lmasks is None else lmasks[0]
-        data_loss = out_layer.compute_loss(labels[0].to(torch.float32),
-                                           preact.float(), lm)
+        if needs_feats:
+            # the loss reads the last layer's input (CenterLossOutputLayer)
+            acts = out[3]
+            feats = acts[-2] if len(acts) >= 2 else x.to(self._compute_dtype)
+            pp = self.conf.preprocessors.get(len(self.layers) - 1)
+            if pp is not None:
+                feats = pp.preProcess(feats)
+            data_loss = out_layer.compute_loss_with_features(
+                params.get(str(len(self.layers) - 1), {}), y, preact.float(),
+                feats.float(), lm)
+        else:
+            data_loss = out_layer.compute_loss(y, preact.float(), lm)
         loss = data_loss + self._penalty(params)
         if carries is not None:
             return loss, (new_state, out[4])
@@ -338,6 +373,14 @@ class MultiLayerNetwork(Network):
         return (self.conf.backprop_type == BackpropType.TruncatedBPTT
                 and x.ndim == 3
                 and x.shape[1] > int(self.conf.tbptt_fwd_length))
+
+    def _accum_group_size(self):
+        """1 under truncated BPTT, whatever `.gradientAccumulation(G)` says:
+        the segment loop owns the updates, one a segment (the JAX
+        package's rule)."""
+        if self.conf.backprop_type == BackpropType.TruncatedBPTT:
+            return 1
+        return super()._accum_group_size()
 
     def _run_step(self, batches, graphs):
         """A batch longer than tBPTTForwardLength under truncated BPTT:
@@ -416,10 +459,6 @@ class MultiLayerNetwork(Network):
     def pretrainLayer(self, layer_idx, data, epochs=1):
         raise _later("pretrainLayer", "the variational layers "
                      "(variational.py, ROADMAP A12)")
-
-    def getPredictedObjects(self, x, confThreshold=0.5, nmsThreshold=0.4):
-        raise _later("getPredictedObjects", "the detection heads "
-                     "(objdetect.py, ROADMAP A12)")
 
     def save(self, path, saveUpdater=True):
         raise _later("save", "the checkpoint formats "

@@ -605,6 +605,63 @@ def test_cuda_bn_training_kernels_match_plain(card, dtype, atol):
                 assert torch.equal(a, c_)
 
 
+#: the zoo's graph models' conv1x1+BN pair shapes (M, K, N): the three of
+#: InceptionResNetV1 at 160×160, B = 32 (stem3, block35's branches,
+#: block17's branches), NASNet's N = 44 (44·2 bytes: no 16-byte bf16
+#: copies) and EfficientNet-B0's (K, N) = (96, 24) projection, each with
+#: the dtypes it runs in
+ZOO_PAIR_SHAPES = [((51200, 64, 128), torch.float32),
+                   ((51200, 64, 128), torch.bfloat16),
+                   ((12800, 256, 32), torch.float32),
+                   ((12800, 256, 32), torch.bfloat16),
+                   ((3200, 512, 128), torch.float32),
+                   ((3200, 512, 128), torch.bfloat16),
+                   ((12544, 132, 44), torch.bfloat16),
+                   ((3136, 96, 24), torch.float32)]
+
+
+@pytest.mark.parametrize("shape,dtype", ZOO_PAIR_SHAPES)
+def test_cuda_bn_kernels_at_the_zoo_graph_pair_shapes(card, shape, dtype):
+    """matmul_epilogue, matmul_stats, bn_grad_stats and bn_conv_grads at
+    the pair shapes the zoo's graph models give them, against their plain
+    versions (f32 2e-5, bf16 2e-2, scaled by max(1, max |plain|)); one
+    launch counted per call and a re-run with the same bits."""
+    m, k, n = shape
+    atol = 2e-5 if dtype == torch.float32 else 2e-2
+    gen = torch.Generator(device=card).manual_seed(8)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=card)
+                * scale).to(dtype)
+
+    x, y, dz = rnd(m, k), rnd(m, n), rnd(m, n)
+    w = rnd(k, n, scale=k ** -0.5)
+    mu = torch.randn(n, generator=gen, device=card) * 0.1
+    r = torch.rand(n, generator=gen, device=card) + 0.5
+    k1, k2, c = r, r * 1e-2, mu * 1e-2
+    scale = torch.rand(n, generator=gen, device=card) + 0.5
+    shift = torch.randn(n, generator=gen, device=card) * 0.1
+    calls = ((tpc.matmul_epilogue,
+              lambda *a: (tpc._epilogue_reference(*a, None, "relu", dtype),),
+              (x, w, scale, shift)),
+             (tpc.matmul_stats, tpc._matmul_stats_reference, (x, w)),
+             (tpc.bn_grad_stats, tpc._bn_grad_stats_reference,
+              (y, dz, mu, r)),
+             (tpc.bn_conv_grads, tpc._bn_conv_grads_reference,
+              (x, y, dz, w, k1, k2, c, mu)))
+    for kernel, plain, args in calls:
+        run = ((lambda a=args: (kernel(*a, act="relu"),))
+               if kernel is tpc.matmul_epilogue else
+               (lambda a=args: kernel(*a)))
+        before = kernel.launches
+        got, again = run(), run()
+        assert kernel.launches == before + 2
+        for a, b, c_ in zip(got, plain(*args), again):
+            assert a.shape == b.shape and a.dtype == b.dtype
+            assert _scaled_err(a, b) <= atol, (kernel.__name__, shape)
+            assert torch.equal(a, c_)
+
+
 def test_cuda_fused_conv1x1_bn_trains_through_the_kernels(card):
     """fused_conv1x1_bn forward and backward on the card: one launch of
     each kernel, z and every gradient as the plain versions on the CPU."""

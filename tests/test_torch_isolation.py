@@ -162,6 +162,66 @@ def test_the_recurrent_slice_modules_are_among_the_checked_sources():
         assert f"deeplearning4j_tpu_torch/{module}.py" in names
 
 
+def test_the_zoo_graph_slice_modules_are_among_the_checked_sources():
+    """The YOLOv2 head, the center loss, the new layers and vertices and
+    the zoo's graph models: the two rules above hold them like every
+    module of the port."""
+    names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
+    for module in ("nn/conf/objdetect", "nn/conf/special_layers",
+                   "nn/conf/layers", "nn/conf/graph_vertices", "nn/graph",
+                   "nn/multilayer", "nn/_network", "nn/convert",
+                   "models/zoo/__init__", "models/zoo/models",
+                   "models/zoo/models2"):
+        assert f"deeplearning4j_tpu_torch/{module}.py" in names
+
+
+ZOO_GRAPH_MODELS = {
+    "UNet": dict(inputShape=(8, 8, 3)),
+    "TinyYOLO": dict(inputShape=(32, 32, 3), numClasses=2),
+    "SqueezeNet": dict(inputShape=(16, 16, 3), numClasses=2),
+    "Xception": dict(inputShape=(32, 32, 3), numClasses=2,
+                     middleFlowBlocks=1),
+    "InceptionResNetV1": dict(inputShape=(32, 32, 3), numClasses=2,
+                              blocks=(1, 1, 1)),
+    "YOLO2": dict(inputShape=(32, 32, 3), numClasses=2),
+    "FaceNetNN4Small2": dict(inputShape=(16, 16, 3), numClasses=2),
+    "NASNet": dict(inputShape=(16, 16, 3), numClasses=2, numBlocks=1,
+                   filters=8, stemFilters=8),
+    "EfficientNet": dict(inputShape=(16, 16, 3), numClasses=2)}
+
+
+@pytest.mark.parametrize("name", sorted(ZOO_GRAPH_MODELS))
+def test_zoo_graph_models_init_on_the_card_by_default(name, monkeypatch):
+    """`init()` of each new zoo model places its network on the card: with
+    the device check answering "available", the placement is asked for
+    CUDA (and fails only where torch has no CUDA build); without a card it
+    raises, naming device='cpu', which runs it on the CPU."""
+    from deeplearning4j_tpu_torch.models import zoo
+    model = getattr(zoo, name)(**ZOO_GRAPH_MODELS[name])
+    if torch.cuda.is_available():
+        assert model.init()._device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init()
+    asked = []
+    real = torch.Tensor.to
+
+    def to(t, *a, **kw):
+        dev = a[0] if a else kw.get("device")
+        if isinstance(dev, torch.device) and dev.type == "cuda":
+            asked.append(dev)
+            raise RuntimeError("placed on the card")
+        return real(t, *a, **kw)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.Tensor, "to", to)
+    with pytest.raises(RuntimeError, match="placed on the card"):
+        model.init()
+    assert asked and asked[0].type == "cuda"
+    monkeypatch.undo()
+    assert model.init("cpu")._device.type == "cpu"
+
+
 def test_recurrent_entry_points_default_to_the_card():
     conf = TextGenerationLSTM(numClasses=11, lstmLayerSize=8).conf()
     if torch.cuda.is_available():

@@ -504,13 +504,16 @@ def test_what_is_not_ported_raises_naming_its_item():
     x = np.zeros((2, 4), np.float32)
     for call, item in ((lambda: net.pretrain(x), "variational"),
                        (lambda: net.pretrainLayer(0, x), "variational"),
-                       (lambda: net.getPredictedObjects(x), "objdetect"),
                        (lambda: net.save("m.zip"), "model_serializer"),
                        (lambda: MultiLayerNetwork.load("m.zip"),
                         "model_serializer"),
                        (net.toJson, "serde")):
         with pytest.raises(NotImplementedError, match=item):
             call()
+    # the detection decode runs now (tests/test_torch_objdetect.py); this
+    # net has no Yolo2OutputLayer head
+    with pytest.raises(TypeError, match="Yolo2OutputLayer"):
+        net.getPredictedObjects(x)
     # the recurrent surface runs now (tests/test_torch_recurrent.py): on a
     # feed-forward net a step is one row, a mask changes nothing, and a
     # truncated-BPTT configuration fits a 2-d batch in one step

@@ -80,10 +80,13 @@ def _flat(tree):
     return out
 
 
-def _conf(ns, layers, input_type, updater=None, tbptt=None):
+def _conf(ns, layers, input_type, updater=None, tbptt=None, accum=None):
     b = (ns.nn.NeuralNetConfiguration.Builder().seed(1)
          .updater(updater(ns) if updater else ns.nn.Sgd(0.1))
-         .weightInit("xavier").list())
+         .weightInit("xavier"))
+    if accum:
+        b = b.gradientAccumulation(accum)
+    b = b.list()
     for layer in layers(ns):
         b.layer(layer)
     if tbptt:
@@ -252,6 +255,25 @@ def test_truncated_bptt_matches_the_jax_package():
             for name, v in d.items():
                 _close(tnet._params[key][name], v, f"tbptt {key}.{name}")
     assert tnet.getIterationCount() == jnet.getIterationCount() == 2
+
+
+def test_truncated_bptt_makes_one_update_a_segment_under_accumulation():
+    """Under TruncatedBPTT, `fit` on an iterable runs each batch through its
+    segments, one update a segment, whatever `.gradientAccumulation(2)`
+    says (the JAX package's rule, deeplearning4j_tpu/nn/multilayer.py:
+    909-910): LSTM(5) and an RnnOutputLayer, T = 12 in segments of 4, two
+    batches of 4, Sgd(0.1). The iteration count and every parameter equal
+    the JAX package's to 1e-6."""
+    layers = lambda ns: [ns.LSTM(nOut=5), _head(ns)]  # noqa: E731
+    jnet, tnet = _pair(layers, tbptt=4, accum=2)
+    data = [(_seq(seed, t=12), _labels(seed + 5, t=12)) for seed in (0, 1)]
+    jnet.fit([JDataSet(x, y) for x, y in data])
+    tnet.fit([DataSet(x, y) for x, y in data])
+    assert tnet.getIterationCount() == jnet.getIterationCount() == 2
+    _close(tnet.score(), jnet.score(), "score", tol=1e-6)
+    for key, d in _flat(_np_tree(jnet._params)).items():
+        for name, v in d.items():
+            _close(tnet._params[key][name], v, f"{key}.{name}", tol=1e-6)
 
 
 def test_rnn_time_step_matches_the_jax_package():
