@@ -11,6 +11,7 @@
     python3 chip_smoke.py --only mln      # card, build, mln
     python3 chip_smoke.py --only rnn      # card, build, rnn
     python3 chip_smoke.py --only zoo      # card, build, zoo
+    python3 chip_smoke.py --only layers   # card, build, layers
     python3 chip_smoke.py --profile  # and phase 14
 
 Phases, in order; any failure exits non-zero and prints no result:
@@ -227,7 +228,7 @@ Phases, in order; any failure exits non-zero and prints no result:
             --profile: one TBPTT batch eager and graphed and the graphed
             server's workload under torch.profiler.
             It runs after the mln phase, before the profile.
-15. zoo:    the zoo's graph models at their published widths, f32, TF32
+16. zoo:    the zoo's graph models at their published widths, f32, TF32
             off, cuDNN's deterministic algorithms, BN statistics and γ/β
             drawn from a seed. InceptionResNetV1 (160×160×3, blocks (5,
             10, 5), 1000 classes, 11,565,192 parameters) with the
@@ -254,6 +255,35 @@ Phases, in order; any failure exits non-zero and prints no result:
             FaceNetNN4Small2 also fused (their 16 and 21 pairs: the fused
             output within 1e-4 of the unfused one, every pair launching
             the four pair kernels). It runs after the rnn phase.
+17. layers: this slice's layer families and the model archives, f32, TF32
+            off, cuDNN's deterministic algorithms. CapsNet at Sabour et
+            al.'s widths (arXiv:1710.09829 §4: 28×28×1, conv 256 9×9,
+            PrimaryCapsules 32×8 9×9/2, CapsuleLayer 10×16 with 3
+            routings, CapsuleStrengthLayer, the softmax LossLayer head;
+            6,804,224 parameters), one seeded batch of 128, Adam(1e-3):
+            3 graphed `fit` steps equal 3 eager ones bit for bit, then 2
+            warm-up and 10 timed steps in the arms eager, graph, graph,
+            eager (ms/step, images/s, peak allocated bytes; the loss
+            finite and falling in each arm). CapsNet saved with its
+            updater state and restored onto the card: `output()` equal bit
+            for bit, 3 resumed graphed steps equal 3 more steps of the
+            uninterrupted net bit for bit. InceptionResNetV1 at its
+            published width, fused, after 2 graphed steps, the same, its
+            restore keeping its 36 fused pairs (36 matmul_epilogue in one
+            `output()`, 36 of each training kernel per resumed step); the
+            archives' bytes and save and restore seconds printed. The VAE
+            of dl4j-examples' VariationalAutoEncoderExample (784 → 256,
+            256 → 2, Bernoulli, LeakyReLU, l2 1e-4, RmsProp(1e-3)), 20
+            `pretrainLayer` steps of B=128 binarized synthetic digits: the
+            negative ELBO at a fixed ε falls. Each other new family once
+            (a 3-D classifier with Deconvolution3D, Deconvolution2D at
+            k = 4, s = 2, p = 1 with LRN, LocallyConnected2D with PReLU,
+            the 1-D layers, a SameDiffLayer, DropConnect and
+            WeightNoise): forward and one `fit` step on the card within
+            1e-4 of the CPU run of the same net and parameters (weight
+            noise: the forward; its draws are each device's). CapsNet, the
+            VAE and the families launch none of the nine kernels (counted,
+            checked zero). It runs after the zoo phase.
 
 Phases 5, 7 and 8 run as a user runs them: the server and `fit` replay
 CUDA graphs on the card by default. The kernels' launch counters are set
@@ -263,9 +293,9 @@ graphs phase, each server of the chaos phase, each run of the fleet
 phase and each path of the rnn phase) and read just after; a replay adds
 the launches its capture recorded. The mln phase and the rnn phase's LSTM
 paths run none of them: their counts are read and must stay 0. The zoo
-phase's counts are set to 0 before each of its paths. Every number is measured
-in this run; the last lines are the kernel JSON object and the
-`{"ok": true, "device": ...}` line. Imports nothing of JAX.
+and layers phases' counts are set to 0 before each of their paths. Every
+number is measured in this run; the last lines are the kernel JSON object
+and the `{"ok": true, "device": ...}` line. Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -316,19 +346,33 @@ from deeplearning4j_tpu_torch.models.convert import named_param_leaves
 from deeplearning4j_tpu_torch.models.zoo import (
     VGG16, YOLO2, EfficientNet, FaceNetNN4Small2, InceptionResNetV1, NASNet,
     ResNet50, SqueezeNet, TextGenerationLSTM, TinyYOLO, UNet, Xception)
-from deeplearning4j_tpu_torch.nn import (LSTM, Activation, Adam,
-                                         BackpropType, ComputationGraph,
-                                         ConvolutionLayer, DenseLayer,
-                                         InputType, LastTimeStep,
-                                         LearnedSelfAttentionLayer,
-                                         MaxNormConstraint,
-                                         MultiLayerNetwork, Nesterovs,
-                                         NeuralNetConfiguration, OutputLayer,
-                                         SelfAttentionLayer, StepSchedule,
-                                         SubsamplingLayer, WeightInit,
-                                         graph_params_from_numpy,
-                                         multilayer_params_to_numpy)
+from deeplearning4j_tpu_torch.nn import (
+    LSTM, Activation, Adam, BackpropType, ComputationGraph,
+    Convolution1DLayer, ConvolutionLayer, DenseLayer, GlobalPoolingLayer,
+    InputType, LastTimeStep, LearnedSelfAttentionLayer, LocallyConnected1D,
+    LocallyConnected2D, LossLayer, MaxNormConstraint, MultiLayerNetwork,
+    Nesterovs, NeuralNetConfiguration, OutputLayer, PReLULayer, RmsProp,
+    SelfAttentionLayer, StepSchedule, Subsampling1DLayer, SubsamplingLayer,
+    Upsampling1D, VariationalAutoencoder, WeightInit,
+    graph_params_from_numpy, multilayer_params_to_numpy)
 from deeplearning4j_tpu_torch.nn.conf import attention as attn_conf
+from deeplearning4j_tpu_torch.nn.conf.capsules import (CapsuleLayer,
+                                                       CapsuleStrengthLayer,
+                                                       PrimaryCapsules)
+from deeplearning4j_tpu_torch.nn.conf.layers import (
+    Cropping1D, Deconvolution2D, ElementWiseMultiplicationLayer,
+    LocalResponseNormalization, ZeroPadding1DLayer)
+from deeplearning4j_tpu_torch.nn.conf.layers3d import (Convolution3D,
+                                                       Cropping3D,
+                                                       Deconvolution3D,
+                                                       Subsampling3DLayer,
+                                                       Upsampling3D,
+                                                       ZeroPadding3DLayer)
+from deeplearning4j_tpu_torch.nn.conf.samediff_layers import SameDiffLayer
+from deeplearning4j_tpu_torch.nn.conf.variational import \
+    BernoulliReconstructionDistribution
+from deeplearning4j_tpu_torch.nn.conf.weightnoise import (DropConnect,
+                                                          WeightNoise)
 from deeplearning4j_tpu_torch.parallel.inference import (InferenceMode,
                                                          ParallelInference)
 from deeplearning4j_tpu_torch.quantize import cache_page_bytes, quantize_rows
@@ -4599,7 +4643,7 @@ def phase_rnn(profile=False):
     return out
 
 
-# -- phase 15: zoo -------------------------------------------------------------
+# -- phase 16: zoo -------------------------------------------------------------
 #: the zoo's graph models on the card, f32, TF32 off, cuDNN's deterministic
 #: algorithms: InceptionResNetV1 trained at its published width (the timed
 #: path, the conv1x1+BN fusion on), YOLO2 serving detections, the other
@@ -5005,6 +5049,426 @@ def phase_zoo():
     return out
 
 
+# -- phase 17: layers -----------------------------------------------------------
+#: this slice's families on the card, f32, TF32 off, cuDNN's deterministic
+#: algorithms: CapsNet at Sabour et al.'s widths (arXiv:1710.09829 §4)
+#: trained through MultiLayerNetwork.fit, the model archives (CapsNet and
+#: InceptionResNetV1 saved and resumed), the VAE of dl4j-examples'
+#: VariationalAutoEncoderExample pretrained, and each other new family
+#: once against its CPU run
+LAYERS = dict(batch=128, warmup=2, steps=10, check_steps=3, seed=17,
+              resume_steps=3, vae_batch=128, vae_steps=20, family_batch=4)
+#: 28×28×1 → conv 256 9×9 → PrimaryCapsules 32×8 9×9/2 (1152 capsules) →
+#: CapsuleLayer 10×16, 3 routings: 20,992 + 5,308,672 + 1,474,560
+CAPSNET_PARAMS = 6_804_224
+LAYERS_ARMS = ("eager", "graph", "graph", "eager")
+#: the card against its CPU run of the same net and parameters, relative
+#: to max(1, max |CPU|)
+FAMILY_RTOL = 1e-4
+#: archives are written and read here (inside the checkout, gitignored)
+CKPT_DIR = Path(__file__).resolve().parent / "build" / "layers_ckpt"
+
+
+def _capsnet():
+    conf = (NeuralNetConfiguration.Builder().seed(LAYERS["seed"])
+            .updater(Adam(1e-3)).weightInit("xavier").list()
+            .layer(ConvolutionLayer(kernelSize=(9, 9), stride=(1, 1),
+                                    nOut=256, activation="relu"))
+            .layer(PrimaryCapsules(capsuleDimensions=8, channels=32,
+                                   kernelSize=(9, 9), stride=(2, 2)))
+            .layer(CapsuleLayer(capsules=10, capsuleDimensions=16,
+                                routings=3))
+            .layer(CapsuleStrengthLayer())
+            .layer(LossLayer(lossFunction="mcxent", activation="softmax"))
+            .setInputType(InputType.convolutional(28, 28, 1)).build())
+    return MultiLayerNetwork(conf).init(DEV)
+
+
+def _caps_batch():
+    rng = np.random.default_rng(LAYERS["seed"])
+    b = LAYERS["batch"]
+    return DataSet(rng.random((b, 28, 28, 1), np.float32),
+                   np.eye(10, dtype=np.float32)[rng.integers(0, 10, b)])
+
+
+def _layers_timed_arm(what, arm, m, ds, steps):
+    """`steps` fit steps of `ds`, graphed or eager: ms/step, images/s, the
+    loss and the peak allocated bytes; no kernel of the nine launched."""
+    b = ds.features.shape[0]
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        m.fit(ds, cudaGraphs=arm == "graph")
+        # a graph's loss lives in its store's pool, overwritten by the next
+        # replay: a copy of each, read after the arm
+        losses.append(m._score.clone())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _no_kernel_launched(f"{what} training ({arm})")
+    losses = [float(v) for v in losses]
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[layers] {what} fit {arm}: {wall * 1e3 / steps:.2f} ms/step, "
+        f"{b * steps / wall:.1f} images/s, loss {losses[0]:.6f} -> "
+        f"{losses[-1]:.6f} at step {m.getIterationCount()}, peak allocated "
+        f"{peak / 2**30:.3f} GiB over {base / 2**30:.3f} GiB held before "
+        "the arm")
+    if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"layers: {what} {arm}: losses {losses}")
+    return {"arm": arm, "ms_per_step": wall * 1e3 / steps,
+            "images_per_s": b * steps / wall, "losses": losses,
+            "iteration": m.getIterationCount(), "peak_bytes": peak,
+            "base_bytes": base}
+
+
+def _save_restore(net, name, load):
+    """`net` saved with its updater state and read back by `load` onto the
+    card: (the restored net, the archive's bytes and seconds)."""
+    CKPT_DIR.mkdir(parents=True, exist_ok=True)
+    path = CKPT_DIR / f"{name}.zip"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.save(str(path), saveUpdater=True)
+    save_s = time.perf_counter() - t0
+    nbytes = path.stat().st_size
+    t0 = time.perf_counter()
+    back = load(str(path))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    path.unlink()
+    log(f"[layers] {name} archive {nbytes:,} bytes, saved in {save_s:.3f} "
+        f"s, restored onto the card in {restore_s:.3f} s")
+    return back, {"bytes": nbytes, "save_s": save_s,
+                  "restore_s": restore_s}
+
+
+def _resume(what, net, back, ds, steps_counts=None):
+    """The restored `back` against the uninterrupted `net`: output() on the
+    batch bit for bit, then LAYERS["resume_steps"] graphed steps of each
+    bit for bit (parameters, optimizer and BN state, loss). Returns the
+    restored net's launches in one output() and in its resumed steps."""
+    x = torch.as_tensor(ds.features, device=DEV)
+    with torch.no_grad():
+        _reset_counts()
+        yb = back.output(x)
+        torch.cuda.synchronize()
+        out_launches = _counts()
+        ya = net.output(x)
+    same_out = torch.equal(ya, yb)
+    n = LAYERS["resume_steps"]
+    _reset_counts()
+    for _ in range(n):
+        back.fit(ds)
+    torch.cuda.synchronize()
+    step_launches = _counts()
+    for _ in range(n):
+        net.fit(ds)
+    torch.cuda.synchronize()
+    unequal = _unequal(net, back)
+    scores = (net.score(), back.score())
+    log(f"[layers] {what} restored: output() bit-identical {same_out}; "
+        f"{n} resumed graphed steps vs {n} more of the uninterrupted net: "
+        f"not bit-identical {unequal}, loss {scores[0]!r} vs {scores[1]!r}")
+    if not same_out or any(unequal.values()) or scores[0] != scores[1]:
+        raise AssertionError(f"layers: {what} resume: output equal "
+                             f"{same_out}, {unequal}, {scores}")
+    return {"output_equal": same_out, "unequal": unequal, "scores": scores,
+            "output_launches": out_launches, "step_launches": step_launches}
+
+
+def _layers_capsnet(profile=False):
+    """CapsNet at its published widths: graph = eager bit for bit, the
+    timed arms (with `profile`, 3 steps of each arm under torch.profiler),
+    then its archive resumed."""
+    net = _capsnet()
+    n_params = net.numParams()
+    if n_params != CAPSNET_PARAMS:
+        raise AssertionError(f"layers: CapsNet {n_params} parameters")
+    ds = _caps_batch()
+    n = LAYERS["check_steps"]
+    graph, eager = net.clone(), net.clone()
+    for _ in range(n):
+        graph.fit(ds)
+        eager.fit(ds, cudaGraphs=False)
+    torch.cuda.synchronize()
+    unequal = _unequal(graph, eager)
+    scores = (graph.score(), eager.score())
+    st = graph.fit_status()
+    log(f"[layers] CapsNet 28x28x1, {n_params:,} parameters, B="
+        f"{LAYERS['batch']}, {n} steps graph vs eager: not bit-identical "
+        f"{unequal}; loss {scores[0]!r} vs {scores[1]!r}; store "
+        f"{st['captures']} capture, {st['replays']} replays")
+    if any(unequal.values()) or scores[0] != scores[1] or (
+            st["captures"], st["replays"], st["degradations"],
+            st["eager_calls"]) != (1, n - 1, 0, 0):
+        raise AssertionError(f"layers: CapsNet graph vs eager: {unequal}, "
+                             f"{scores}, {st}")
+    del graph, eager
+    nets = {"eager": net.clone(), "graph": net.clone()}
+    del net
+    torch.cuda.empty_cache()
+    for arm, m in nets.items():
+        for _ in range(LAYERS["warmup"]):
+            m.fit(ds, cudaGraphs=arm == "graph")
+    torch.cuda.synchronize()
+    runs = [_layers_timed_arm("CapsNet", arm, nets[arm], ds,
+                              LAYERS["steps"]) for arm in LAYERS_ARMS]
+    traced = {}
+    for arm, m in nets.items():
+        if profile:
+            traced[arm], _ = _profiled(
+                f"CapsNet training B={LAYERS['batch']}, 3 steps {arm}",
+                lambda: [m.fit(ds, cudaGraphs=arm == "graph")
+                         for _ in range(3)])
+    back, ckpt = _save_restore(nets["graph"], "capsnet",
+                               MultiLayerNetwork.load)
+    resume = _resume("CapsNet", nets["graph"], back, ds)
+    if any(resume["output_launches"].values()) or any(
+            resume["step_launches"].values()):
+        raise AssertionError(f"layers: CapsNet launched {resume}")
+    del nets, back
+    torch.cuda.empty_cache()
+    return {"params": n_params, "bit_identity": {
+        "steps": n, "unequal": unequal, "scores": scores},
+        "runs": runs, "profile": traced, "checkpoint": ckpt,
+        "resume": resume}
+
+
+def _layers_irv1():
+    """InceptionResNetV1 at its published width, fused, after 2 graphed
+    steps: saved, restored onto the card with its fusion decision taken
+    again, and resumed."""
+    with _fusion(True):
+        net = InceptionResNetV1().init(DEV)
+    _perturb_bn(net, ZOO["seed"])
+    ds = _zoo_data(InceptionResNetV1(), ZOO["batch"], ZOO["seed"])
+    for _ in range(2):
+        net.fit(ds)
+    with _fusion(True):
+        back, ckpt = _save_restore(net, "irv1", ComputationGraph.load)
+    pairs = len(back._fused_pairs)
+    resume = _resume("InceptionResNetV1", net, back, ds)
+    n = LAYERS["resume_steps"]
+    per_step = {k: resume["step_launches"][k] / n for k in TRAIN_KERNELS}
+    epilogue = resume["output_launches"]["matmul_epilogue"]
+    log(f"[layers] InceptionResNetV1 restored: {pairs} fused pairs, "
+        f"{epilogue} matmul_epilogue launches in one output(), launches "
+        f"per resumed step {per_step}")
+    if pairs != IRV1_PAIRS or epilogue != IRV1_PAIRS or any(
+            v != IRV1_PAIRS for v in per_step.values()):
+        raise AssertionError(f"layers: InceptionResNetV1 restored: {pairs} "
+                             f"pairs, {epilogue} epilogues, {per_step}")
+    del net, back
+    torch.cuda.empty_cache()
+    return {"params": ZOO_PARAMS["InceptionResNetV1"], "pairs": pairs,
+            "checkpoint": ckpt, "resume": resume,
+            "launches_per_step": per_step}
+
+
+def _layers_vae():
+    """dl4j-examples' VariationalAutoEncoderExample: 784 → (256, 256) → 2,
+    Bernoulli reconstruction, LeakyReLU, Xavier, l2 1e-4, RmsProp(1e-3),
+    B = 128; 20 pretrainLayer steps on binarized synthetic digits. The
+    negative ELBO of the first batch at one fixed ε must fall."""
+    conf = (NeuralNetConfiguration.Builder().seed(LAYERS["seed"])
+            .updater(RmsProp(1e-3)).weightInit("xavier").l2(1e-4).list()
+            .layer(VariationalAutoencoder(
+                nIn=784, nOut=2, encoderLayerSizes=(256, 256),
+                decoderLayerSizes=(256, 256), activation="leakyrelu",
+                pzxActivationFunction="identity",
+                reconstructionDistribution=BernoulliReconstructionDistribution(
+                    "sigmoid")))
+            .setInputType(InputType.feedForward(784)).build())
+    net = MultiLayerNetwork(conf).init(DEV)
+    b, steps = LAYERS["vae_batch"], LAYERS["vae_steps"]
+    it = MnistDataSetIterator(b, num_examples=b * steps,
+                              root=str(CKPT_DIR / "no-mnist"))
+    batches = [DataSet((ds.features > 0.5).astype(np.float32), ds.labels)
+               for ds in it]
+    x0 = torch.as_tensor(batches[0].features, device=DEV)
+    layer = net.layers[0]
+
+    def elbo():
+        g = torch.Generator(device=DEV).manual_seed(0)
+        with torch.no_grad():
+            return float(layer.pretrain_loss(net._params["0"], x0, g))
+
+    before = elbo()
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    net.pretrainLayer(0, ListDataSetIterator(batches, b))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = elbo()
+    _no_kernel_launched("VAE pretraining")
+    log(f"[layers] VAE 784-256-256-2, B={b}: {steps} pretrainLayer steps "
+        f"in {wall * 1e3 / steps:.2f} ms/step; negative ELBO of batch 0 at "
+        f"a fixed eps {before:.4f} -> {after:.4f}; last step's loss "
+        f"{net.score():.4f}")
+    if not (np.isfinite(after) and after < before):
+        raise AssertionError(f"layers: VAE negative ELBO {before} -> {after}")
+    return {"params": net.numParams(), "ms_per_step": wall * 1e3 / steps,
+            "elbo_before": before, "elbo_after": after,
+            "last_loss": net.score()}
+
+
+class _Swish(SameDiffLayer):
+    """A custom layer written on torch tensors: z·sigmoid(z), z = xW + b."""
+
+    def __init__(self, nOut=None, **kw):
+        super().__init__(**kw)
+        self.nOut = nOut
+
+    def defineParameters(self):
+        return {"W": (self.nIn, self.nOut), "b": (self.nOut,)}
+
+    def defineLayer(self, params, x, mask=None):
+        z = x @ params["W"] + params["b"]
+        return z * torch.sigmoid(z)
+
+
+def _family_confs():
+    """name -> (a maker of the configuration, its input shape, classes):
+    each family at the reference tests' small shapes."""
+    def b():
+        return (NeuralNetConfiguration.Builder().seed(LAYERS["seed"])
+                .updater(Nesterovs(1e-2, 0.9)).list())
+
+    return {
+        "3d": (lambda: b()
+               .layer(Convolution3D(nOut=4, kernelSize=(3, 3, 3),
+                                    convolutionMode="same",
+                                    activation="relu"))
+               .layer(Subsampling3DLayer(kernelSize=(2, 2, 2),
+                                         stride=(2, 2, 2)))
+               .layer(Deconvolution3D(nOut=3, kernelSize=(2, 2, 2),
+                                      stride=(2, 2, 2), activation="tanh"))
+               .layer(ZeroPadding3DLayer(padding=1))
+               .layer(Cropping3D(cropping=1))
+               .layer(Upsampling3D(size=1))
+               .layer(OutputLayer(nOut=3))
+               .setInputType(InputType.convolutional3D(8, 8, 8, 2)).build(),
+               (8, 8, 8, 2), 3),
+        "deconv2d k4 s2 p1, lrn": (
+            lambda: b()
+            .layer(ConvolutionLayer(kernelSize=(3, 3), nOut=8,
+                                    convolutionMode="same",
+                                    activation="relu"))
+            .layer(Deconvolution2D(nOut=6, kernelSize=(4, 4), stride=(2, 2),
+                                   padding=(1, 1), activation="tanh"))
+            .layer(LocalResponseNormalization())
+            .layer(GlobalPoolingLayer(poolingType="avg"))
+            .layer(OutputLayer(nOut=3))
+            .setInputType(InputType.convolutional(8, 8, 3)).build(),
+            (8, 8, 3), 3),
+        "locally connected 2d, prelu": (
+            lambda: b()
+            .layer(LocallyConnected2D(nOut=6, kernelSize=(3, 3)))
+            .layer(PReLULayer(alphaInit=0.1))
+            .layer(DenseLayer(nOut=8, activation="tanh"))
+            .layer(OutputLayer(nOut=3))
+            .setInputType(InputType.convolutional(8, 8, 3)).build(),
+            (8, 8, 3), 3),
+        "1d": (lambda: b()
+               .layer(Convolution1DLayer(nOut=6, kernelSize=3,
+                                         activation="relu"))
+               .layer(Subsampling1DLayer(kernelSize=2, stride=2))
+               .layer(Upsampling1D(size=2))
+               .layer(ZeroPadding1DLayer(padding=1))
+               .layer(Cropping1D(cropping=1))
+               .layer(LocallyConnected1D(nOut=4, kernelSize=2))
+               .layer(ElementWiseMultiplicationLayer(activation="tanh"))
+               .layer(GlobalPoolingLayer(poolingType="max"))
+               .layer(OutputLayer(nOut=3))
+               .setInputType(InputType.recurrent(5, 12)).build(),
+               (12, 5), 3),
+        "samediff": (lambda: b()
+                     .layer(DenseLayer(nOut=8, activation="tanh"))
+                     .layer(_Swish(nOut=6))
+                     .layer(OutputLayer(nOut=3))
+                     .setInputType(InputType.feedForward(10)).build(),
+                     (10,), 3),
+        "weight noise": (lambda: b()
+                         .layer(DenseLayer(nOut=64, activation="tanh",
+                                           weightNoise=DropConnect(0.8)))
+                         .layer(DenseLayer(nOut=8, activation="tanh",
+                                           weightNoise=WeightNoise(
+                                               {"type": "normal",
+                                                "std": 0.01})))
+                         .layer(OutputLayer(nOut=3))
+                         .setInputType(InputType.feedForward(32)).build(),
+                         (32,), 3),
+    }
+
+
+def _layers_family(name, make, shape, classes):
+    """One forward and one fit step on the card and on the CPU from the same
+    parameters: the outputs within FAMILY_RTOL before and after the step
+    (weight noise: its draws come from each device's generator, so after
+    its step the loss must be finite and DropConnect keep its rate)."""
+    rng = np.random.default_rng(LAYERS["seed"])
+    b = LAYERS["family_batch"]
+    ds = DataSet(rng.standard_normal((b,) + shape).astype(np.float32),
+                 np.eye(classes, dtype=np.float32)[
+                     rng.integers(0, classes, b)])
+    card = MultiLayerNetwork(make()).init(DEV)
+    cpu = MultiLayerNetwork(make()).init("cpu")
+    errs = [_rel(card.output(ds.features).cpu(), cpu.output(ds.features))]
+    _reset_counts()
+    card.fit(ds)
+    torch.cuda.synchronize()
+    _no_kernel_launched(f"family {name}")
+    cpu.fit(ds)
+    loss = card.score()
+    noise = name == "weight noise"
+    if noise:
+        w = card._params["0"]["W"]
+        keep = float((card.layers[0].weightNoise.apply_to_params(
+            {"W": w}, card._generator)["W"] != 0).float().mean())
+    else:
+        errs.append(_rel(card.output(ds.features).cpu(),
+                         cpu.output(ds.features)))
+        keep = None
+    log(f"[layers] {name}: card vs CPU max|err|/max(1, max|CPU|) "
+        f"{', '.join(f'{e:.3e}' for e in errs)} (forward"
+        f"{'' if noise else ', after one fit step'}; rtol "
+        f"{FAMILY_RTOL:.0e}); loss {loss:.6f}"
+        + ("" if keep is None else f"; DropConnect kept {keep:.4f} of W"))
+    if max(errs) > FAMILY_RTOL or not np.isfinite(loss) or (
+            keep is not None and abs(keep - 0.8) > 0.04):
+        raise AssertionError(f"layers: {name}: errors {errs}, loss {loss}, "
+                             f"kept {keep}")
+    return {"errors": errs, "loss": loss, "dropconnect_kept": keep}
+
+
+def phase_layers(profile=False):
+    """This slice's families on the card under cuDNN's deterministic
+    algorithms; the launch counts are set to 0 before each path and read
+    after it. `profile`: CapsNet's steps under torch.profiler too."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {}
+    with _deterministic():
+        out["capsnet"] = _layers_capsnet(profile)
+        out["irv1"] = _layers_irv1()
+        out["vae"] = _layers_vae()
+        out["families"] = {name: _layers_family(name, *spec)
+                           for name, spec in _family_confs().items()}
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    # the path's kernels: the restored InceptionResNetV1's resumed steps
+    # (B5, B7, B8) and its output() (B6)
+    res = out["irv1"]["resume"]
+    out["launches"] = {k: res["step_launches"][k] for k in TRAIN_KERNELS}
+    out["launches"]["matmul_epilogue"] = res["output_launches"][
+        "matmul_epilogue"]
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[layers] the phase {out['seconds']:.1f} s")
+    return out
+
+
 def kernel_line(rows, launches, launches_from):
     """The per-kernel JSON object: each kernel's numbers at its
     representative case, its launches (from the main path's run where it
@@ -5036,13 +5500,14 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only",
                     choices=["kernels", "resnet", "graphs", "paged",
-                             "chaos", "fleet", "mln", "rnn", "zoo"],
+                             "chaos", "fleet", "mln", "rnn", "zoo",
+                             "layers"],
                     default=None,
                     help="stop after the kernel checks, or run the resnet "
                          "serving and training phases right after them, or "
                          "run the graphs, the paged, the chaos, the fleet, "
-                         "the mln, the rnn or the zoo phase alone after the "
-                         "build (bring-up runs)")
+                         "the mln, the rnn, the zoo or the layers phase "
+                         "alone after the build (bring-up runs)")
     ap.add_argument("--profile", action="store_true",
                     help="after the resnet phases, profile the serving "
                          "workload, three fine-tune steps, one ResNet-50 "
@@ -5050,7 +5515,8 @@ def main(argv=None):
                          "busy/idle share, device time by kernel group); "
                          "with the mln phase, VGG16's step and forward; "
                          "with the rnn phase, the TBPTT batch and the "
-                         "LSTM server")
+                         "LSTM server; with the layers phase, CapsNet's "
+                         "steps")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -5078,13 +5544,15 @@ def main(argv=None):
         log(f"[smoke] by phase " + ", ".join(
             f"{k} {v:.1f}" for k, v in seconds.items()))
         return 0
-    if args.only in ("chaos", "fleet", "mln", "rnn", "zoo"):
+    if args.only in ("chaos", "fleet", "mln", "rnn", "zoo", "layers"):
         if args.only == "mln":
             out = timed("mln", phase_mln, args.profile)
         elif args.only == "rnn":
             out = timed("rnn", phase_rnn, args.profile)
         elif args.only == "zoo":
             out = timed("zoo", phase_zoo)
+        elif args.only == "layers":
+            out = timed("layers", phase_layers, args.profile)
         else:
             cfg = bert_base()
             phase = phase_chaos if args.only == "chaos" else phase_fleet
@@ -5132,6 +5600,7 @@ def main(argv=None):
     mln = timed("mln", phase_mln, args.profile)
     rnn = timed("rnn", phase_rnn, args.profile)
     zoo = timed("zoo", phase_zoo)
+    layers = timed("layers", phase_layers, args.profile)
     prof = (timed("profile", phase_profile, cfg, params, resnet_net,
                   resnet_x, train_net, train_ds) if args.profile else None)
     # each kernel's launches from the path that carries it: the forward and
@@ -5176,6 +5645,15 @@ def main(argv=None):
                 if row["name"] == "matmul_epilogue" else
                 f"InceptionResNetV1 fused graph arm ({ZOO['steps']} timed "
                 "steps)")
+        if row["name"] in layers["launches"]:
+            # this slice's path: the restored InceptionResNetV1's resumed
+            # graphed steps (the epilogue: its first output())
+            row["launches_layers"] = layers["launches"][row["name"]]
+            row["launches_layers_from"] = (
+                "restored InceptionResNetV1 one B=32 output()"
+                if row["name"] == "matmul_epilogue" else
+                f"restored InceptionResNetV1 ({LAYERS['resume_steps']} "
+                "resumed graphed steps)")
     (OUT_DIR / "smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "kernels": rows,
          "step36": step36, "fwd36": fwd36, "bert_step12": step12,
@@ -5183,7 +5661,7 @@ def main(argv=None):
          "serving": serving, "train": train,
          "resnet": resnet, "resnet_train": resnet_train, "graphs": graphs,
          "paged": paged, "chaos": chaos, "fleet": fleet, "mln": mln,
-         "rnn": rnn, "zoo": zoo,
+         "rnn": rnn, "zoo": zoo, "layers": layers,
          "profile": prof,
          "line": line,
          "phase_seconds": seconds, "seconds": time.perf_counter() - t0},

@@ -22,7 +22,12 @@ operations endpoints; the port's lints (`lint/`); and `MultiLayerNetwork`
 with the rest of the nn core's training surface (every updater, schedule,
 loss, dropout object, constraint and gradient accumulation, shared with
 `ComputationGraph`), the `eval/` evaluators, the DataSetIterators and the
-zoo's `.list()` CNNs (LeNet, SimpleCNN, AlexNet, VGG16, VGG19, Darknet19).
+zoo's `.list()` CNNs (LeNet, SimpleCNN, AlexNet, VGG16, VGG19, Darknet19);
+the recurrent and attention networks; the zoo's graph models; every layer
+family of the JAX package's `nn/conf/` but the frozen wrappers; and the
+configuration JSON and model archives of `util/serde.py`,
+`util/model_serializer.py` and `util/model_guesser.py`, which the JAX
+package reads and writes too.
 """
 from deeplearning4j_tpu_torch.device import resolve
 

@@ -1,4 +1,5 @@
-"""DataSet, MultiDataSet and the DataSetIterators of the port (numpy)."""
+"""DataSet, MultiDataSet, the DataSetIterators and the normalizers of the
+port (numpy)."""
 from deeplearning4j_tpu_torch.datasets.dataset import (DataSet, MultiDataSet,
                                                        SplitTestAndTrain)
 from deeplearning4j_tpu_torch.datasets.iterators import (
@@ -9,6 +10,10 @@ from deeplearning4j_tpu_torch.datasets.iterators import (
     SingletonMultiDataSetIterator, SvhnDataSetIterator,
     SyntheticImageNetIterator, TinyImageNetDataSetIterator,
     UciSequenceDataSetIterator)
+from deeplearning4j_tpu_torch.datasets.normalizers import (
+    DataNormalization, ImagePreProcessingScaler, MultiNormalizerMinMaxScaler,
+    MultiNormalizerStandardize, NormalizerMinMaxScaler,
+    NormalizerStandardize, VGG16ImagePreProcessor)
 
 __all__ = [
     "DataSet", "MultiDataSet", "SplitTestAndTrain", "ArrayDataSetIterator",
@@ -18,5 +23,8 @@ __all__ = [
     "ListMultiDataSetIterator", "MnistDataSetIterator",
     "SingletonMultiDataSetIterator", "SvhnDataSetIterator",
     "SyntheticImageNetIterator", "TinyImageNetDataSetIterator",
-    "UciSequenceDataSetIterator",
+    "UciSequenceDataSetIterator", "DataNormalization",
+    "ImagePreProcessingScaler", "MultiNormalizerMinMaxScaler",
+    "MultiNormalizerStandardize", "NormalizerMinMaxScaler",
+    "NormalizerStandardize", "VGG16ImagePreProcessor",
 ]

@@ -1,9 +1,11 @@
-"""The port's `nn/`: the builder DSL, the layers and vertices the zoo's
-models need, the YOLOv2 head and the center loss, the recurrent, sequence
-and attention layers, the conv1x1+BN fusion pass, `ComputationGraph`,
-`MultiLayerNetwork` and the training surface they share: updaters,
-schedules, losses, dropout objects, constraints and gradient
-accumulation."""
+"""The port's `nn/`: the builder DSL, every layer and vertex of the JAX
+package's `nn/conf/` but the frozen ones (the convolutional, 1-D and 3-D
+families, the YOLOv2 head and the center loss, the recurrent, sequence
+and attention layers, the locally connected layers, the autoencoders, the
+capsules, weight noise and the custom SameDiff layers), the conv1x1+BN
+fusion pass, `ComputationGraph`, `MultiLayerNetwork` and the training
+surface they share: updaters, schedules, losses, dropout objects,
+constraints and gradient accumulation."""
 from deeplearning4j_tpu_torch.nn.activations import Activation
 from deeplearning4j_tpu_torch.nn.conf import layers
 from deeplearning4j_tpu_torch.nn.conf.builders import (BackpropType,
@@ -21,10 +23,12 @@ from deeplearning4j_tpu_torch.nn.conf.graph_vertices import (
     UnstackVertex)
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import (
-    ActivationLayer, BatchNormalization, ConvolutionLayer, DenseLayer,
-    DepthwiseConvolution2D, DropoutLayer, EmbeddingLayer,
-    EmbeddingSequenceLayer, GlobalPoolingLayer, LossLayer, OutputLayer,
-    SeparableConvolution2D, SubsamplingLayer, TimeDistributed, Upsampling2D)
+    ActivationLayer, BatchNormalization, Convolution1DLayer,
+    ConvolutionLayer, Cropping2D, DenseLayer, DepthwiseConvolution2D,
+    DropoutLayer, EmbeddingLayer, EmbeddingSequenceLayer, GlobalPoolingLayer,
+    LossLayer, OutputLayer, PReLULayer, SeparableConvolution2D,
+    Subsampling1DLayer, SubsamplingLayer, TimeDistributed, Upsampling1D,
+    Upsampling2D, ZeroPaddingLayer)
 from deeplearning4j_tpu_torch.nn.conf.objdetect import (DetectedObject,
                                                         Yolo2OutputLayer,
                                                         YoloUtils)
@@ -34,8 +38,9 @@ from deeplearning4j_tpu_torch.nn.conf.recurrent import (
 from deeplearning4j_tpu_torch.nn.conf.sequence_layers import (MaskLayer,
                                                               MaskZeroLayer,
                                                               RnnLossLayer)
-from deeplearning4j_tpu_torch.nn.conf.special_layers import \
-    CenterLossOutputLayer
+from deeplearning4j_tpu_torch.nn.conf.special_layers import (
+    AutoEncoder, CenterLossOutputLayer, LocallyConnected1D,
+    LocallyConnected2D, VariationalAutoencoder)
 from deeplearning4j_tpu_torch.nn.constraints import (MaxNormConstraint,
                                                      MinMaxNormConstraint,
                                                      NonNegativeConstraint,
@@ -78,7 +83,10 @@ __all__ = [
     "SubsamplingLayer", "EmbeddingLayer", "EmbeddingSequenceLayer",
     "TimeDistributed", "DepthwiseConvolution2D", "SeparableConvolution2D",
     "Upsampling2D", "LossLayer", "Yolo2OutputLayer", "YoloUtils",
-    "DetectedObject", "CenterLossOutputLayer", "ScaleVertex", "ShiftVertex",
+    "DetectedObject", "CenterLossOutputLayer", "Convolution1DLayer",
+    "Cropping2D", "PReLULayer", "Subsampling1DLayer", "Upsampling1D",
+    "ZeroPaddingLayer", "AutoEncoder", "LocallyConnected1D",
+    "LocallyConnected2D", "VariationalAutoencoder", "ScaleVertex", "ShiftVertex",
     "L2NormalizeVertex", "L2Vertex", "PreprocessorVertex", "ReshapeVertex",
     "SpaceToDepthVertex", "SubsetVertex", "StackVertex", "UnstackVertex",
     "LSTM", "GravesLSTM", "SimpleRnn",

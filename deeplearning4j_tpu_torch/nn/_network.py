@@ -24,6 +24,11 @@ inputs and replay it. The dropout generator, seeded from conf.seed, is
 registered with the graph. The graphs are bound to the parameter,
 optimizer and state tensors they were captured with: after `init` or a
 weight load rebinds them, the next step captures again.
+
+Every layer's parameters reach its forward through `hook_params`, which at
+train time noises them with the layer's `weightNoise` (drawn from the same
+generator, so a replay draws fresh noise). `save` and `toJson` write the
+JAX package's archive and JSON formats (`util/model_serializer.py`).
 """
 from __future__ import annotations
 
@@ -75,6 +80,26 @@ def split_inputs(ins):
     unpacked inputs dict."""
     feats = {n: t for n, t in ins.items() if not n.endswith("#mask")}
     return feats, {n: ins[mask_key(n)] for n in feats if mask_key(n) in ins}
+
+
+def hook_params(layer, params, train, generator):
+    """A layer's parameters as its forward sees them; both network classes
+    call it for every layer (≡ the JAX package's `_hook_params`): at train
+    time with a generator, a layer's `weightNoise` (WeightNoise,
+    DropConnect) replaces them by noised ones drawn from the generator."""
+    wn = getattr(layer, "weightNoise", None)
+    if wn is not None and train and generator is not None:
+        return wn.apply_to_params(params, generator)
+    return params
+
+
+def pre_activation(layer, params, x, mask):
+    """An output layer's pre-activation; a custom loss head
+    (`pre_activation_takes_mask`: SameDiffOutputLayer) gets the feature
+    mask too."""
+    if getattr(layer, "pre_activation_takes_mask", False):
+        return layer.pre_activation(params, x, mask=mask)
+    return layer.pre_activation(params, x)
 
 
 def later(cls, what, where):
@@ -528,6 +553,19 @@ class Network:
         return self._eval_loop(
             iterator, EvaluationCalibration(reliabilityDiagNumBins,
                                             histogramNumBins), prefetch)
+
+    # -- persistence (≡ ModelSerializer.writeModel, toJson) ---------------
+    def toJson(self):
+        """The configuration's JSON (the JAX package's format)."""
+        return self.conf.toJson()
+
+    def save(self, path, saveUpdater=True, normalizer=None):
+        """Write the network to a zip archive the JAX package reads too
+        (`util/model_serializer.py`)."""
+        from deeplearning4j_tpu_torch.util.model_serializer import \
+            ModelSerializer
+        ModelSerializer.writeModel(self, path, saveUpdater, normalizer)
+        return path
 
     # -- listeners / counters ---------------------------------------------
     def setListeners(self, *listeners):

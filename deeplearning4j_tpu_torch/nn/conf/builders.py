@@ -6,30 +6,28 @@ MultiLayerConfiguration, conf.ComputationGraphConfiguration.GraphBuilder).
 The fluent surface mirrors the reference; `build()` runs the reference's
 config-validation + shape-inference pass (nIn inference from InputType,
 automatic preprocessor insertion between layer families). The automatic
-preprocessors cover the layer families ported so far. The configuration
-formats (`toJson`/`fromJson`) come with ROADMAP A12's checkpoint formats.
+preprocessors cover the layer families ported so far. `toJson`/`fromJson`
+write and read the JAX package's JSON format (`util/serde.py`).
 """
 from __future__ import annotations
 
 import copy
+import json
 
 from deeplearning4j_tpu_torch.nn.conf import layers as L
 from deeplearning4j_tpu_torch.nn.conf.inputs import (
-    ConvolutionalFlatType, ConvolutionalType, FeedForwardType, InputType)
+    Convolutional3DType, ConvolutionalFlatType, ConvolutionalType,
+    FeedForwardType, InputType)
 from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
+    Cnn3DToFeedForwardPreProcessor,
     CnnToFeedForwardPreProcessor, FeedForwardToCnnPreProcessor)
 from deeplearning4j_tpu_torch.nn.updaters import Sgd
 
-_CNN_LAYERS = (L.ConvolutionLayer, L.SubsamplingLayer)
+_CNN_LAYERS = (L.ConvolutionLayer, L.SubsamplingLayer, L.ZeroPaddingLayer,
+               L.Upsampling2D, L.SeparableConvolution2D)
 
 #: parameter names a weight constraint applies to (nn/constraints.py)
 WEIGHT_KEYS = ("W", "U", "dW", "pW")
-
-
-def serde_not_ported(what):
-    return NotImplementedError(
-        f"{what}: the configuration and checkpoint formats "
-        "(util/serde.py, util/model_serializer.py) come with ROADMAP A12")
 
 
 class BackpropType:
@@ -115,17 +113,24 @@ class MultiLayerConfiguration:
                     "without image dimensions; use "
                     "InputType.convolutionalFlat(h, w, c)")
         elif isinstance(cur, ConvolutionalType) and isinstance(
-                layer, L.DenseLayer):
+                layer, (L.DenseLayer, L.EmbeddingLayer)):
             return CnnToFeedForwardPreProcessor(cur.height, cur.width,
                                                 cur.channels)
+        elif isinstance(cur, Convolutional3DType) and isinstance(
+                layer, (L.DenseLayer, L.EmbeddingLayer)):
+            return Cnn3DToFeedForwardPreProcessor(cur.depth, cur.height,
+                                                  cur.width, cur.channels)
         return None
 
+    # -- serialization (≡ MultiLayerConfiguration.toJson/fromJson) -------
     def toJson(self):
-        raise serde_not_ported("MultiLayerConfiguration.toJson")
+        from deeplearning4j_tpu_torch.util.serde import config_to_dict
+        return json.dumps(config_to_dict(self), indent=2)
 
     @staticmethod
     def fromJson(s):
-        raise serde_not_ported("MultiLayerConfiguration.fromJson")
+        from deeplearning4j_tpu_torch.util.serde import config_from_dict
+        return config_from_dict(json.loads(s))
 
 
 class ListBuilder:

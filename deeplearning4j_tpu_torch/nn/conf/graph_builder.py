@@ -7,9 +7,11 @@ shape inference + automatic preprocessor insertion runs at build() exactly
 like the MultiLayer path."""
 from __future__ import annotations
 
+import json
+
 from deeplearning4j_tpu_torch.nn.conf import layers as L
-from deeplearning4j_tpu_torch.nn.conf.builders import (
-    _CNN_LAYERS, BackpropType, serde_not_ported)
+from deeplearning4j_tpu_torch.nn.conf.builders import (_CNN_LAYERS,
+                                                       BackpropType)
 from deeplearning4j_tpu_torch.nn.conf.graph_vertices import GraphVertex
 from deeplearning4j_tpu_torch.nn.conf.inputs import (ConvolutionalFlatType,
                                                ConvolutionalType,
@@ -178,17 +180,45 @@ class ComputationGraphConfiguration:
                 return FeedForwardToCnnPreProcessor(cur.height, cur.width,
                                                     cur.channels)
         elif isinstance(cur, ConvolutionalType) and isinstance(
-                layer, L.DenseLayer):
+                layer, (L.DenseLayer, L.EmbeddingLayer)):
             return CnnToFeedForwardPreProcessor(cur.height, cur.width,
                                                 cur.channels)
         return None
 
     def toJson(self):
-        raise serde_not_ported("ComputationGraphConfiguration.toJson")
+        from deeplearning4j_tpu_torch.util.serde import encode
+        return json.dumps({
+            "format": "deeplearning4j_tpu/ComputationGraphConfiguration/v1",
+            "defaults": encode(self.defaults),
+            "nodes": [
+                {"name": n.name, "kind": n.kind, "inputs": n.inputs,
+                 "ref": encode(n.ref) if n.ref is not None else None}
+                for n in (self.nodes[k] for k in self.topo_order)],
+            "input_names": self.input_names,
+            "output_names": self.output_names,
+            "input_types": [encode(t) for t in self.input_types],
+            "backprop_type": self.backprop_type,
+            "tbptt_fwd_length": self.tbptt_fwd_length,
+            "tbptt_back_length": self.tbptt_back_length,
+            "data_type": self.data_type,
+            "seed": self.seed,
+        }, indent=2)
 
     @staticmethod
     def fromJson(s):
-        raise serde_not_ported("ComputationGraphConfiguration.fromJson")
+        from deeplearning4j_tpu_torch.util.serde import decode
+        d = json.loads(s)
+        nodes = {}
+        for nd in d["nodes"]:
+            ref = decode(nd["ref"]) if nd["ref"] is not None else None
+            nodes[nd["name"]] = GraphNode(nd["name"], nd["kind"], ref,
+                                          nd["inputs"])
+        return ComputationGraphConfiguration(
+            decode(d["defaults"]), nodes, d["input_names"],
+            d["output_names"], [decode(t) for t in d["input_types"]],
+            d.get("backprop_type", "standard"),
+            d.get("tbptt_fwd_length", 20), d.get("tbptt_back_length", 20),
+            d.get("data_type", "float32"), d.get("seed", 0))
 
 
 class GraphBuilder:

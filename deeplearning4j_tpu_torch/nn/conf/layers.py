@@ -16,16 +16,17 @@ OIHW at the call. `dropOut(p)` is the RETAIN probability, inverted
 dropout on the layer input at train time; `dropOut` also takes an
 `nn/dropout.py` object (GaussianDropout, AlphaDropout, ...).
 
-Ported so far: DenseLayer, EmbeddingLayer, EmbeddingSequenceLayer,
-TimeDistributed, ConvolutionLayer, DepthwiseConvolution2D,
-SeparableConvolution2D, SubsamplingLayer, BatchNormalization,
-ActivationLayer, DropoutLayer, Upsampling2D, GlobalPoolingLayer
-(mask-aware over time), OutputLayer and LossLayer; the YOLOv2 head lives
-in `objdetect.py`, CenterLossOutputLayer in `special_layers.py`, the
-recurrent, sequence and attention layers in `recurrent.py`,
-`sequence_layers.py` and `attention.py`. Every `apply` takes the (B, T)
-feature mask (`mask`, 1 = valid), and `feed_forward_mask` gives the mask
-the next layer sees. The other layer families come with ROADMAP A12.
+Every layer of the JAX package's `layers.py` is ported but the frozen
+wrappers (FrozenLayer, FrozenLayerWithBackprop: ROADMAP A17). The 2-D and
+3-D transposed convolutions compute what the JAX package's
+`lax.conv_transpose` computes (`conv_transpose`). The YOLOv2 head lives in
+`objdetect.py`; the locally connected layers, the autoencoders, the center
+loss and PermuteLayer in `special_layers.py`; the capsules, the 3-D family,
+weight noise and the custom SameDiff layers in `capsules.py`,
+`layers3d.py`, `weightnoise.py` and `samediff_layers.py`; the recurrent,
+sequence and attention layers in `recurrent.py`, `sequence_layers.py` and
+`attention.py`. Every `apply` takes the (B, T) feature mask (`mask`,
+1 = valid), and `feed_forward_mask` gives the mask the next layer sees.
 """
 from __future__ import annotations
 
@@ -857,3 +858,446 @@ class LossLayer(BaseOutputLayer):
     def apply(self, params, state, x, train=False, generator=None,
               mask=None):
         return get_activation(self.activation)(x), state
+
+
+# -- the rest of the JAX package's layers.py ----------------------------------
+def conv_transpose(x, w, stride, pads):
+    """The JAX package's `lax.conv_transpose(x, w, stride, pads)` without
+    `transpose_kernel`, channels-last: `x` (B, *S, C) and `w` (*K, I, O)
+    for 2 or 3 spatial dims. lax correlates the UNFLIPPED kernel with the
+    input dilated by `stride` and padded by `pads` ((lo, hi) per dim);
+    torch's transposed convolution is that with the kernel flipped, at
+    full size cropped by k − 1 − lo and k − 1 − hi (a negative crop pads
+    zeros)."""
+    nd = w.ndim - 2
+    ks = w.shape[:nd]
+    wt = w.to(x.dtype).flip(list(range(nd))).permute(
+        nd, nd + 1, *range(nd)).contiguous()                    # I, O, *K
+    xc = x.permute(0, nd + 1, *range(1, nd + 1))                 # N, C, *S
+    crops = [(k - 1 - lo, k - 1 - hi) for k, (lo, hi) in zip(ks, pads)]
+    conv = F.conv_transpose2d if nd == 2 else F.conv_transpose3d
+    if all(a == b and a >= 0 for a, b in crops):
+        y = conv(xc, wt, stride=stride, padding=[a for a, _ in crops])
+    else:
+        y = conv(xc, wt, stride=stride)
+        pad = []
+        for a, b in reversed(crops):   # F.pad runs from the last dim
+            pad += [-a, -b]
+        y = F.pad(y, pad)
+    return y.permute(0, *range(2, nd + 2), 1)
+
+
+def conv_transpose_pads(ks, stride, padding, same):
+    """lax's (lo, hi) per dim for `conv_transpose` under the JAX package's
+    padding argument: 'SAME', 'VALID' (all padding 0) or (p, p) each."""
+    out = []
+    for k, s, p in zip(ks, stride, padding):
+        if same:
+            n, lo = k + s - 2, (k - 1 if s > k - 1 else -(-(k + s - 2) // 2))
+        elif not any(padding):
+            n, lo = k + s - 2 + max(k - s, 0), k - 1
+        else:
+            n, lo = 2 * p, p
+        out.append((lo, n - lo))
+    return out
+
+
+class Cropping2D(Layer):
+    """≡ conf.layers.convolutional.Cropping2D — crop (top, bottom, left,
+    right) off the spatial dims, NHWC."""
+
+    def __init__(self, cropping=(0, 0, 0, 0), **kw):
+        super().__init__(**kw)
+        c = cropping
+        if isinstance(c, int):
+            c = (c, c, c, c)
+        elif len(c) == 2:
+            if isinstance(c[0], (tuple, list)):  # keras ((t,b),(l,r))
+                c = (c[0][0], c[0][1], c[1][0], c[1][1])
+            else:
+                c = (c[0], c[0], c[1], c[1])
+        self.crop = tuple(int(v) for v in c)  # (top, bottom, left, right)
+
+    def output_type(self, input_type):
+        t, b, l, r = self.crop
+        oh = input_type.height - t - b
+        ow = input_type.width - l - r
+        if oh <= 0 or ow <= 0:
+            raise ValueError(
+                f"Cropping2D '{self.name}': crop {self.crop} consumes the "
+                f"whole {input_type.height}x{input_type.width} input")
+        return InputType.convolutional(oh, ow, input_type.channels)
+
+    def apply(self, params, state, x, train=False, generator=None,
+              mask=None):
+        t, b, l, r = self.crop
+        h, w = x.shape[1], x.shape[2]
+        return x[:, t:h - b, l:w - r, :], state
+
+
+class LocalResponseNormalization(Layer):
+    """≡ conf.layers.LocalResponseNormalization — cross-channel LRN:
+    y = x / (k + α·Σ_window x²)^β over n adjacent channels, NHWC, in f32.
+    α multiplies the window's sum as it is (`F.local_response_norm`
+    divides it by n, so it is not used)."""
+
+    def __init__(self, k=2.0, n=5, alpha=1e-4, beta=0.75, **kw):
+        super().__init__(**kw)
+        self.k, self.n = float(k), int(n)
+        self.alpha, self.beta = float(alpha), float(beta)
+
+    def apply(self, params, state, x, train=False, generator=None,
+              mask=None):
+        xf = x.float()
+        c, half = x.shape[-1], self.n // 2
+        sq = F.pad(xf * xf, (half, self.n - 1 - half))
+        win = sq[..., 0:c]
+        for i in range(1, self.n):
+            win = win + sq[..., i:i + c]
+        denom = torch.pow(self.k + self.alpha * win, self.beta)
+        return (xf / denom).to(x.dtype), state
+
+
+class Deconvolution2D(Layer):
+    """≡ conf.layers.Deconvolution2D — transposed convolution, NHWC/HWIO,
+    computing what the JAX package's `lax.conv_transpose` computes
+    (`conv_transpose`). Its declared output type is the JAX package's too:
+    s·(n − 1) + k − 2p, which differs from the computed size unless
+    p = (k − 1)/2 or the mode is "same" (a defect of the JAX package that
+    the port mirrors)."""
+
+    def __init__(self, nIn=None, nOut=None, kernelSize=(2, 2), stride=(2, 2),
+                 padding=(0, 0), convolutionMode="truncate", hasBias=True,
+                 **kw):
+        super().__init__(**kw)
+        self.nIn, self.nOut = nIn, nOut
+        self.kernelSize, self.stride = _pair(kernelSize), _pair(stride)
+        self.padding = _pair(padding)
+        self.convolutionMode = convolutionMode
+        self.hasBias = hasBias
+
+    def _same(self):
+        return str(self.convolutionMode).lower() == "same"
+
+    def output_type(self, input_type):
+        if self.nOut is None:
+            raise ValueError(
+                f"Deconvolution2D '{self.name}': nOut is required")
+        if not isinstance(input_type, ConvolutionalType):
+            raise ValueError(
+                f"Deconvolution2D '{self.name}' needs convolutional input, "
+                f"got {input_type}")
+        kh, kw = self.kernelSize
+        sh, sw = self.stride
+        if self._same():
+            oh, ow = input_type.height * sh, input_type.width * sw
+        else:
+            ph, pw = self.padding
+            oh = sh * (input_type.height - 1) + kh - 2 * ph
+            ow = sw * (input_type.width - 1) + kw - 2 * pw
+        return InputType.convolutional(oh, ow, self.nOut)
+
+    def initialize(self, generator, input_type):
+        if self.nIn is None:
+            self.nIn = input_type.channels
+        kh, kw = self.kernelSize
+        params = {"W": init_weight(generator, (kh, kw, int(self.nIn),
+                                               int(self.nOut)),
+                                   self.weightInit, self.dist)}
+        if self.hasBias:
+            params["b"] = torch.full((int(self.nOut),), float(self.biasInit))
+        return params, {}, self.output_type(input_type)
+
+    def pre_activation(self, params, x):
+        w = params["W"]
+        y = conv_transpose(x, w, self.stride, conv_transpose_pads(
+            w.shape[:2], self.stride, self.padding, self._same()))
+        if self.hasBias:
+            y = y + params["b"].to(x.dtype)
+        return y
+
+    def apply(self, params, state, x, train=False, generator=None,
+              mask=None):
+        x = self._dropout_in(x, train, generator)
+        return get_activation(self.activation)(
+            self.pre_activation(params, x)), state
+
+
+class RepeatVector(Layer):
+    """≡ conf.layers.misc.RepeatVector — (B, F) -> (B, n, F)."""
+
+    def __init__(self, repetitionFactor=1, **kw):
+        super().__init__(**kw)
+        self.n = int(repetitionFactor)
+
+    def output_type(self, input_type):
+        return InputType.recurrent(input_type.size, self.n)
+
+    def apply(self, params, state, x, train=False, generator=None,
+              mask=None):
+        return x[:, None, :].repeat(1, self.n, 1), state
+
+
+class ZeroPadding1DLayer(Layer):
+    """≡ conf.layers.ZeroPadding1DLayer — pads the time axis of (B,T,F)."""
+
+    def __init__(self, padding=1, **kw):
+        super().__init__(**kw)
+        p = padding
+        self.pad = (int(p), int(p)) if isinstance(p, int) else \
+            (int(p[0]), int(p[1]))
+
+    def output_type(self, input_type):
+        return InputType.recurrent(
+            input_type.size,
+            None if getattr(input_type, "timeSeriesLength", None) is None
+            else input_type.timeSeriesLength + sum(self.pad))
+
+    def apply(self, params, state, x, train=False, generator=None,
+              mask=None):
+        return F.pad(x, (0, 0) + self.pad), state
+
+
+class Cropping1D(Layer):
+    """≡ conf.layers.convolutional.Cropping1D — crops the time axis."""
+
+    def __init__(self, cropping=1, **kw):
+        super().__init__(**kw)
+        c = cropping
+        self.crop = (int(c), int(c)) if isinstance(c, int) else \
+            (int(c[0]), int(c[1]))
+
+    def output_type(self, input_type):
+        return InputType.recurrent(
+            input_type.size,
+            None if getattr(input_type, "timeSeriesLength", None) is None
+            else input_type.timeSeriesLength - sum(self.crop))
+
+    def apply(self, params, state, x, train=False, generator=None,
+              mask=None):
+        lo, hi = self.crop
+        return x[:, lo:x.shape[1] - hi, :], state
+
+
+class ZeroPaddingLayer(Layer):
+    """≡ conf.layers.ZeroPaddingLayer (2D, NHWC)."""
+
+    def __init__(self, padding=(1, 1), **kw):
+        super().__init__(**kw)
+        p = padding
+        if isinstance(p, int):
+            p = (p, p, p, p)
+        elif len(p) == 2:
+            p = (p[0], p[0], p[1], p[1])
+        self.pad = tuple(int(v) for v in p)  # (top, bottom, left, right)
+
+    def output_type(self, input_type):
+        t, b, l, r = self.pad
+        return InputType.convolutional(input_type.height + t + b,
+                                       input_type.width + l + r,
+                                       input_type.channels)
+
+    def apply(self, params, state, x, train=False, generator=None,
+              mask=None):
+        t, b, l, r = self.pad
+        return F.pad(x, (0, 0, l, r, t, b)), state
+
+
+class PReLULayer(Layer):
+    """≡ conf.layers.PReLULayer — a learned negative slope `alpha` per
+    feature of the last axis."""
+
+    def __init__(self, alphaInit=0.0, **kw):
+        super().__init__(**kw)
+        self.alphaInit = float(alphaInit)
+
+    def initialize(self, generator, input_type):
+        n = input_type.shape()[-1]
+        return ({"alpha": torch.full((n,), self.alphaInit)}, {},
+                input_type)
+
+    def apply(self, params, state, x, train=False, generator=None,
+              mask=None):
+        a = params["alpha"].to(x.dtype)
+        return torch.where(x >= 0, x, a * x), state
+
+
+class Convolution1DLayer(Layer):
+    """≡ conf.layers.Convolution1DLayer — (B, T, F) temporal convolution,
+    kernel (k, nIn, nOut); SAME padding puts the odd pad at the end."""
+
+    def __init__(self, nIn=None, nOut=None, kernelSize=3, stride=1,
+                 padding=0, dilation=1, convolutionMode="same",
+                 hasBias=True, **kw):
+        super().__init__(**kw)
+        self.nIn, self.nOut = nIn, nOut
+        self.kernelSize, self.stride = int(kernelSize), int(stride)
+        self.padding, self.dilation = int(padding), int(dilation)
+        self.convolutionMode, self.hasBias = convolutionMode, hasBias
+
+    def _same(self):
+        return str(self.convolutionMode).lower() == "same"
+
+    def feed_forward_mask(self, mask):
+        if mask is None or self.stride == 1 and self._same():
+            return mask
+        m = mask[:, ::self.stride]
+        if not self._same():
+            t = mask.shape[1]
+            out_t = (t + 2 * self.padding
+                     - ((self.kernelSize - 1) * self.dilation + 1)) \
+                // self.stride + 1
+            m = m[:, :out_t]
+        return m
+
+    def output_type(self, input_type):
+        t = input_type.timeSeriesLength
+        if t is not None:
+            if self._same():
+                t = -(-t // self.stride)
+            else:
+                t = (t + 2 * self.padding - ((self.kernelSize - 1)
+                                             * self.dilation + 1)) \
+                    // self.stride + 1
+        return InputType.recurrent(self.nOut, t)
+
+    def initialize(self, generator, input_type):
+        if self.nIn is None:
+            self.nIn = input_type.size
+        w = init_weight(generator, (self.kernelSize, int(self.nIn),
+                                    int(self.nOut)),
+                        self.weightInit, self.dist)
+        params = {"W": w}
+        if self.hasBias:
+            params["b"] = torch.full((int(self.nOut),), float(self.biasInit))
+        return params, {}, self.output_type(input_type)
+
+    def apply(self, params, state, x, train=False, generator=None,
+              mask=None):
+        x = self._dropout_in(x, train, generator)
+        if self._same():
+            lo, hi = _same_padding(x.shape[1], self.kernelSize, self.stride,
+                                   self.dilation)
+        else:
+            lo = hi = self.padding
+        xc = F.pad(x.transpose(1, 2), (lo, hi))                 # B, F, T
+        w = params["W"].to(x.dtype).permute(2, 1, 0)             # O, I, k
+        y = F.conv1d(xc, w, stride=self.stride,
+                     dilation=self.dilation).transpose(1, 2)
+        if self.hasBias:
+            y = y + params["b"].to(x.dtype)
+        return get_activation(self.activation)(y), state
+
+
+class Upsampling1D(Layer):
+    """≡ conf.layers.Upsampling1D — nearest-neighbour repeat along time,
+    (B, T, F)."""
+
+    def __init__(self, size=2, **kw):
+        super().__init__(**kw)
+        self.size = int(size if not isinstance(size, (list, tuple))
+                        else size[0])
+
+    def output_type(self, input_type):
+        t = input_type.timeSeriesLength
+        return InputType.recurrent(input_type.size,
+                                   None if t is None else t * self.size)
+
+    def feed_forward_mask(self, mask):
+        return None if mask is None else mask.repeat_interleave(self.size,
+                                                                dim=1)
+
+    def apply(self, params, state, x, train=False, generator=None,
+              mask=None):
+        return x.repeat_interleave(self.size, dim=1), state
+
+
+class Subsampling1DLayer(Layer):
+    """≡ conf.layers.Subsampling1DLayer — (B, T, F) max or avg pooling
+    over time; avg divides by the count of real (unpadded) steps."""
+
+    def __init__(self, poolingType="max", kernelSize=2, stride=2, padding=0,
+                 **kw):
+        super().__init__(**kw)
+        self.poolingType = str(poolingType).lower()
+        self.kernelSize, self.stride = int(kernelSize), int(stride)
+        self.padding = int(padding)
+
+    def output_type(self, input_type):
+        t = input_type.timeSeriesLength
+        if t is not None:
+            t = (t + 2 * self.padding - self.kernelSize) // self.stride + 1
+        return InputType.recurrent(input_type.size, t)
+
+    def apply(self, params, state, x, train=False, generator=None,
+              mask=None):
+        p, k, s = self.padding, self.kernelSize, self.stride
+        xc = x.transpose(1, 2)
+        if self.poolingType == "max":
+            y = F.max_pool1d(F.pad(xc, (p, p), value=float("-inf")), k, s)
+        else:
+            y = F.avg_pool1d(F.pad(xc, (p, p)), k, s) * k
+            ones = torch.ones((1, 1, x.shape[1]), dtype=x.dtype,
+                              device=x.device)
+            y = y / (F.avg_pool1d(F.pad(ones, (p, p)), k, s) * k)
+        return y.transpose(1, 2), state
+
+
+class CnnLossLayer(BaseOutputLayer):
+    """≡ conf.layers.CnnLossLayer — a per-pixel loss over an NHWC output,
+    no parameters; labels (B, H, W, C)."""
+
+    def pre_activation(self, params, x):
+        return x
+
+    def apply(self, params, state, x, train=False, generator=None,
+              mask=None):
+        return get_activation(self.activation)(x), state
+
+    def output_type(self, input_type):
+        if not isinstance(input_type, ConvolutionalType):
+            raise ValueError(
+                f"CnnLossLayer '{self.name}' needs convolutional input, "
+                f"got {input_type} (use Cnn3DLossLayer for 5-D volumes)")
+        return input_type
+
+
+class ElementWiseMultiplicationLayer(Layer):
+    """≡ conf.layers.misc.ElementWiseMultiplicationLayer —
+    y = act(x ⊙ W + b), a learned scale and bias per feature
+    (nOut == nIn)."""
+
+    def __init__(self, nIn=None, nOut=None, **kw):
+        super().__init__(**kw)
+        self.nIn, self.nOut = nIn, nOut
+
+    def output_type(self, input_type):
+        if (self.nOut is not None and self.nIn is not None
+                and int(self.nOut) != int(self.nIn)):
+            raise ValueError(
+                f"ElementWiseMultiplicationLayer '{self.name}': nIn "
+                f"({self.nIn}) must equal nOut ({self.nOut}) — it scales "
+                "features elementwise, it cannot resize")
+        n = self.nOut or self.nIn
+        if isinstance(input_type, RecurrentType):
+            return InputType.recurrent(n, input_type.timeSeriesLength)
+        return InputType.feedForward(n)
+
+    def initialize(self, generator, input_type):
+        if self.nIn is None:
+            self.nIn = input_type.size
+        if self.nOut is None:
+            self.nOut = self.nIn
+        out = self.output_type(input_type)
+        n = int(self.nIn)
+        return ({"W": torch.ones((n,)),
+                 "b": torch.full((n,), float(self.biasInit))}, {}, out)
+
+    def pre_activation(self, params, x):
+        return x * params["W"].to(x.dtype) + params["b"].to(x.dtype)
+
+    def apply(self, params, state, x, train=False, generator=None,
+              mask=None):
+        x = self._dropout_in(x, train, generator)
+        return (get_activation(self.activation)(
+            self.pre_activation(params, x)), state)

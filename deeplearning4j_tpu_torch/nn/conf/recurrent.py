@@ -208,6 +208,9 @@ class Bidirectional(Layer):
 
     CONCAT, ADD, MUL, AVERAGE = "concat", "add", "mul", "average"
     is_recurrent = True
+    #: the prefixes of the flat parameter names ("fwd_W") that the JAX
+    #: package nests ({"fwd": {"W": ...}}; nn/convert.py maps the two)
+    param_groups = ("fwd", "bwd")
 
     @classmethod
     def _builder_positional(cls, args):

@@ -10,7 +10,12 @@ for a `MultiLayerNetwork`, whose trees are keyed "0".."n-1" as the JAX
 `_params` / `_state` are. A layer whose JAX parameters nest one level
 deeper (Bidirectional's {"fwd": {...}, "bwd": {...}}) carries across
 into the port's flat names ("fwd_W", "bwd_W", ...); the `_to_numpy`
-direction gives the flat names.
+direction gives the flat names, and `jax_tree` / `jax_path` nest them
+again as the JAX package does (what `util/model_serializer.py` writes).
+Every other layer keeps the JAX package's names and layouts (HWIO and
+DHWIO kernels, the unshared kernels of the locally connected layers, the
+VAE's heads, the capsule W, PReLU's alpha), so its parameters carry
+across as they are. Entries may be numpy arrays or tensors.
 """
 from __future__ import annotations
 
@@ -20,7 +25,8 @@ import torch
 from deeplearning4j_tpu_torch.device import resolve
 
 __all__ = ["graph_params_from_numpy", "graph_params_to_numpy",
-           "multilayer_params_from_numpy", "multilayer_params_to_numpy"]
+           "jax_path", "jax_tree", "multilayer_params_from_numpy",
+           "multilayer_params_to_numpy"]
 
 
 def _shapes(tree):
@@ -51,11 +57,13 @@ def _convert(what, spec, tree, dev):
                              f"got {sorted(got)}")
         out[node] = {}
         for k, shape in keys.items():
-            a = np.asarray(got[k])
-            if a.shape != shape:
+            a = got[k]
+            if not torch.is_tensor(a):
+                a = torch.from_numpy(np.array(a, np.float32))
+            if tuple(a.shape) != shape:
                 raise ValueError(f"{what}.{node}.{k}: expected shape "
-                                 f"{shape}, got {a.shape}")
-            out[node][k] = torch.from_numpy(np.array(a, np.float32)).to(dev)
+                                 f"{shape}, got {tuple(a.shape)}")
+            out[node][k] = a.to(device=dev, dtype=torch.float32)
     return out
 
 
@@ -100,3 +108,29 @@ def multilayer_params_from_numpy(net, params, state, device=None):
 
 
 multilayer_params_to_numpy = graph_params_to_numpy
+
+
+def jax_path(layer, name):
+    """The JAX package's path of the port's parameter `name` within its
+    layer: ("fwd", "W") for Bidirectional's "fwd_W", else (name,)."""
+    head, _, rest = name.partition("_")
+    if rest and head in getattr(layer, "param_groups", ()):
+        return (head, rest)
+    return (name,)
+
+
+def jax_tree(net, tree):
+    """A tree {key: {name: value}} of `net` (parameters, state or one
+    parameter-shaped tree of the optimizer) nested as the JAX package
+    nests it."""
+    layers = dict(net._layer_items())
+    out = {}
+    for n, d in tree.items():
+        node = out[n] = {}
+        for k, v in d.items():
+            *heads, last = jax_path(layers.get(n), k)
+            for h in heads:
+                node = node.setdefault(h, {})
+            node[last] = v
+            node = out[n]
+    return out

@@ -30,8 +30,9 @@ A vertex with parameters (`AttentionVertex`) is drawn, stored and trained
 like a layer. An output layer whose loss reads its input features
 (`needs_features`: CenterLossOutputLayer) gets its input node's
 activation after the node's preprocessor; `getPredictedObjects` decodes
-a Yolo2OutputLayer head's output into detections. Not ported yet: remat
-(A10).
+a Yolo2OutputLayer head's output into detections. `save` / `load` /
+`toJson` read and write the JAX package's archive and JSON formats; a
+restore takes the fusion decision again. Not ported yet: remat (A10).
 
 A training step writes its results into the live parameter, optimizer
 and BN-state tensors in place, so `params()`, `score()` and the listeners
@@ -49,9 +50,10 @@ import torch
 
 from deeplearning4j_tpu_torch.device import resolve
 from deeplearning4j_tpu_torch.nn._network import (Network, as_tensor,
-                                                  compute_dtype, later,
-                                                  mask_key, split_inputs,
-                                                  to_device)
+                                                  compute_dtype, hook_params,
+                                                  later, mask_key,
+                                                  pre_activation,
+                                                  split_inputs, to_device)
 from deeplearning4j_tpu_torch.nn.activations import get_activation
 from deeplearning4j_tpu_torch.nn.fused import (find_conv1x1_bn_fusions,
                                                fused_apply, fusion_enabled)
@@ -193,7 +195,7 @@ class ComputationGraph(Network):
                 # node runs the fused kernel with both parameter groups
                 acts[name] = x
                 continue
-            p = params.get(name, {})
+            p = hook_params(layer, params.get(name, {}), ltrain, generator)
             s = state.get(name, {})
             fc = self._fused_pairs.get(name)
             if fc is not None:
@@ -209,7 +211,7 @@ class ComputationGraph(Network):
             if name in self.conf.output_names and hasattr(layer,
                                                           "compute_loss"):
                 xd = layer._dropout_in(x, ltrain, generator)
-                pre = layer.pre_activation(p, xd)
+                pre = pre_activation(layer, p, xd, pmask)
                 preacts[name] = pre
                 acts[name] = get_activation(layer.activation)(pre)
             elif carries is not None and getattr(layer, "is_recurrent",
@@ -357,3 +359,12 @@ class ComputationGraph(Network):
 
     def rnnGetPreviousState(self, node_name):
         return (self._rnn_carries or {}).get(node_name)
+
+    @staticmethod
+    def load(path, loadUpdater=True, device=None):
+        """A ComputationGraph restored from an archive of either package,
+        on `device` (default: the card)."""
+        from deeplearning4j_tpu_torch.util.model_serializer import \
+            ModelSerializer
+        return ModelSerializer.restoreComputationGraph(path, loadUpdater,
+                                                       device)

@@ -35,10 +35,15 @@ signature. A last layer whose loss reads its input features
 activation; `getPredictedObjects` decodes a Yolo2OutputLayer head's
 output into detections.
 
-Not ported yet, each raising and naming its ROADMAP item: `pretrain` /
-`pretrainLayer` (A12, variational layers), `save` / `load` / `toJson`
-(A12, the checkpoint formats), frozen layers (A17, transfer learning),
-`weightNoise` (A12), activation remat (a later part of A10). The JAX
+`pretrain` / `pretrainLayer` train the layers that define a
+`pretrain_loss` (the VAE, the AutoEncoder) layer by layer; a layer's
+`weightNoise` (WeightNoise, DropConnect) noises its parameters in every
+training forward (`nn._network.hook_params`); `save` / `load` / `toJson`
+write and read the JAX package's archive and JSON formats
+(`util/model_serializer.py`, `util/serde.py`).
+
+Not ported yet, each raising and naming its ROADMAP item: frozen layers
+(A17, transfer learning), activation remat (a later part of A10). The JAX
 package's guardian and watchdog hooks come with the port's resilience
 trainer (A14).
 """
@@ -52,10 +57,13 @@ from deeplearning4j_tpu_torch.device import resolve
 from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
 from deeplearning4j_tpu_torch.nn._network import (Network, as_tensor,
                                                   batch_sig, compute_dtype,
-                                                  copy_into, later, mask_key,
-                                                  to_device)
+                                                  copy_into, hook_params,
+                                                  later, mask_key,
+                                                  pre_activation, to_device)
 from deeplearning4j_tpu_torch.nn.activations import get_activation
 from deeplearning4j_tpu_torch.nn.conf.builders import BackpropType
+from deeplearning4j_tpu_torch.nn.updaters import (apply_updates,
+                                                  build_optimizer)
 
 __all__ = ["MultiLayerNetwork"]
 
@@ -88,8 +96,6 @@ class MultiLayerNetwork(Network):
                     layer, "frozen_params", False):
                 raise _later(f"frozen layer {i}", "transfer learning "
                              "(transfer/, ROADMAP A17)")
-            if getattr(layer, "weightNoise", None) is not None:
-                raise _later(f"weightNoise on layer {i}", "ROADMAP A12")
 
     def _draw(self):
         """(params, state) on the CPU, drawn in layer order from one
@@ -181,12 +187,12 @@ class MultiLayerNetwork(Network):
             pp = self.conf.preprocessors.get(i)
             if pp is not None:
                 x = pp.preProcess(x)
-            p = params.get(str(i), {})
+            p = hook_params(layer, params.get(str(i), {}), train, generator)
             s = state.get(str(i), {})
             if i == len(self.layers) - 1 and hasattr(layer, "compute_loss") \
                     and hasattr(layer, "pre_activation"):
                 xd = layer._dropout_in(x, train, generator)
-                preact = layer.pre_activation(p, xd)
+                preact = pre_activation(layer, p, xd, mask)
                 x = get_activation(layer.activation)(preact)
             elif carries is not None and getattr(layer, "is_recurrent",
                                                  False):
@@ -451,24 +457,77 @@ class MultiLayerNetwork(Network):
         or None."""
         return (self._rnn_carries or {}).get(str(layer_idx))
 
-    # -- later slices ----------------------------------------------------
-    def pretrain(self, data, epochs=1):
-        raise _later("pretrain", "the variational layers (variational.py, "
-                     "ROADMAP A12)")
-
+    # -- layerwise unsupervised pretraining (≡ pretrain / pretrainLayer) -
     def pretrainLayer(self, layer_idx, data, epochs=1):
-        raise _later("pretrainLayer", "the variational layers "
-                     "(variational.py, ROADMAP A12)")
+        """Train one layer that defines `pretrain_loss` (the VAE's negative
+        ELBO, the AutoEncoder's reconstruction loss) on the activations
+        that feed it, with its own optimizer of the configuration's updater
+        (the layer's, else the global one); other layers are skipped, as
+        in the reference. `data`: an iterator of DataSets, a DataSet or a
+        features array. The noise (ε, corruption) comes from the network's
+        generator. The network's own optimizer starts afresh afterwards,
+        as the JAX package's does."""
+        layer = self.layers[int(layer_idx)]
+        if not hasattr(layer, "pretrain_loss"):
+            return self
+        if self._params is None:
+            self.init()
+        if self._generator is None:
+            self._generator = torch.Generator(device=self._device)
+            self._generator.manual_seed(int(self.conf.seed))
+        d = self.conf.defaults
+        key = str(layer_idx)
+        tx = build_optimizer(layer.updater or d.get("updater"),
+                             d.get("gradientNormalization"),
+                             d.get("gradientNormalizationThreshold", 1.0),
+                             d.get("weightDecay", 0.0) or 0.0)
+        params = {key: self._params[key]}
+        opt_state = tx.init(params)
 
-    def save(self, path, saveUpdater=True):
-        raise _later("save", "the checkpoint formats "
-                     "(util/model_serializer.py, ROADMAP A12)")
+        def batches():
+            if hasattr(data, "reset"):
+                data.reset()
+                for ds in data:
+                    yield ds.features
+            else:
+                yield data.features if isinstance(data, DataSet) else data
+
+        for _ in range(int(epochs)):
+            for feats in batches():
+                x = self._input(feats).to(self._compute_dtype)
+                with torch.no_grad():
+                    if int(layer_idx) > 0:
+                        x = self.activateSelectedLayers(0, int(layer_idx) - 1,
+                                                        x)
+                    pp = self.conf.preprocessors.get(int(layer_idx))
+                    if pp is not None:
+                        x = pp.preProcess(x)
+                leaves = {k: v.detach().requires_grad_()
+                          for k, v in params[key].items()}
+                loss = layer.pretrain_loss(leaves, x, self._generator)
+                names = list(leaves)
+                grads = torch.autograd.grad(loss, [leaves[k] for k in names],
+                                            allow_unused=True)
+                grads = {key: {k: torch.zeros_like(leaves[k]) if g is None
+                               else g for k, g in zip(names, grads)}}
+                with torch.no_grad():
+                    updates, opt_state = tx.update(grads, opt_state, params)
+                    copy_into(params, apply_updates(params, updates))
+                self._score = loss.detach()
+        self._tx = self._opt_state = None   # rebuilt at the next fit
+        return self
+
+    def pretrain(self, data, epochs=1):
+        """≡ pretrain(iterator): pretrainLayer over every layer, in order."""
+        for i in range(len(self.layers)):
+            self.pretrainLayer(i, data, epochs)
+        return self
 
     @staticmethod
-    def load(path, loadUpdater=True):
-        raise _later("load", "the checkpoint formats "
-                     "(util/model_serializer.py, ROADMAP A12)")
-
-    def toJson(self):
-        raise _later("toJson", "the configuration formats (util/serde.py, "
-                     "ROADMAP A12)")
+    def load(path, loadUpdater=True, device=None):
+        """A MultiLayerNetwork restored from an archive of either package,
+        on `device` (default: the card)."""
+        from deeplearning4j_tpu_torch.util.model_serializer import \
+            ModelSerializer
+        return ModelSerializer.restoreMultiLayerNetwork(path, loadUpdater,
+                                                        device)

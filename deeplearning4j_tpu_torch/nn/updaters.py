@@ -23,13 +23,13 @@ graph does with `optax.multi_transform`.
 All ten updaters of the JAX package are ported: Sgd, Nesterovs (with
 `momentumDtype`), Adam, AdaMax, Nadam, AMSGrad, RmsProp, AdaGrad, AdaDelta
 and NoOp, each with optax's formulas. A learning rate may be a number or a
-schedule (`nn/schedules.py`): a schedule's rate is computed on the device
-from an int32 count in the optimizer state, which the step advances
-(optax.scale_by_schedule), so a CUDA graph of the step follows it.
+schedule (`nn/schedules.py`); a number is a FixedSchedule, as in the JAX
+package, so every optimizer state is the JAX package's leaf for leaf. The
+rate is computed on the device from an int32 count in the optimizer state,
+which the step advances (optax.scale_by_schedule), so a CUDA graph of the
+step follows it.
 """
 from __future__ import annotations
-
-import numbers
 
 import numpy as np
 import torch
@@ -42,11 +42,11 @@ _DTYPES = {"float32": torch.float32, "float": torch.float32,
 
 
 def _lr(value):
-    """The transform that scales by −learning rate: optax.scale for a
-    number, optax.scale_by_schedule for a schedule or a callable of the
-    count."""
-    if isinstance(value, numbers.Real):
-        return _Scale(-float(value))
+    """The transform that scales by −learning rate: optax's
+    scale_by_schedule of a schedule, a callable of the count or a number
+    (a FixedSchedule), as the JAX package builds every updater, so the
+    optimizer state holds optax's schedule count (what the model archives
+    carry across)."""
     return _ScaleBySchedule(as_schedule(value))
 
 
@@ -206,16 +206,6 @@ class _Chain(_Transform):
         return grads, tuple(out)
 
 
-class _Scale(_Transform):
-    """optax.scale: the updater's −learning rate."""
-
-    def __init__(self, factor):
-        self.factor = factor
-
-    def update(self, grads, state, params):
-        return list(torch._foreach_mul(grads, self.factor)), state
-
-
 class _ClipElementwise(_Transform):
     """optax.clip: each gradient value into [−thr, thr]."""
 
@@ -352,7 +342,10 @@ class _ScaleBySchedule(_Transform):
 
     def update(self, grads, count, params):
         step = -1 * self.schedule(count).to(torch.float32)
-        upd = [g * step.to(g.dtype) for g in grads]
+        if all(g.dtype == torch.float32 for g in grads):
+            upd = list(torch._foreach_mul(grads, step))
+        else:
+            upd = [g * step.to(g.dtype) for g in grads]
         return upd, count + 1
 
 

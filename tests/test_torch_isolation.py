@@ -2,6 +2,7 @@
 import neither jax nor any module of the JAX package, and the port's
 entry points run on the card unless the caller asks for the CPU."""
 import ast
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -174,6 +175,79 @@ def test_the_zoo_graph_slice_modules_are_among_the_checked_sources():
                    "models/zoo/models2"):
         assert f"deeplearning4j_tpu_torch/{module}.py" in names
 
+
+
+def test_the_checkpoint_and_layer_family_modules_are_among_the_checked_sources():
+    """The configuration JSON, the model archives and ModelGuesser, the
+    normalizers (a copy of a JAX-package numpy module) and the rest of the
+    layer families: the two rules above hold them like every module of the
+    port."""
+    names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
+    for module in ("util/serde", "util/model_serializer",
+                   "util/model_guesser", "datasets/normalizers",
+                   "nn/conf/variational", "nn/conf/weightnoise",
+                   "nn/conf/capsules", "nn/conf/layers3d",
+                   "nn/conf/samediff_layers", "nn/conf/special_layers",
+                   "nn/conf/layers", "nn/convert"):
+        assert f"deeplearning4j_tpu_torch/{module}.py" in names
+
+
+_WRITE_JAX_ARCHIVE = """
+import sys
+import numpy as np
+from deeplearning4j_tpu.datasets.dataset import DataSet
+from deeplearning4j_tpu.datasets.normalizers import NormalizerStandardize
+from deeplearning4j_tpu.nn import (Adam, DenseLayer, InputType,
+                                   MultiLayerNetwork, NeuralNetConfiguration,
+                                   OutputLayer)
+from deeplearning4j_tpu.util.model_serializer import ModelSerializer
+conf = (NeuralNetConfiguration.Builder().seed(1).updater(Adam(1e-2)).list()
+        .layer(DenseLayer(nOut=4)).layer(OutputLayer(nOut=2))
+        .setInputType(InputType.feedForward(3)).build())
+net = MultiLayerNetwork(conf).init()
+x = np.random.default_rng(0).standard_normal((8, 3)).astype(np.float32)
+net.fit(DataSet(x, np.eye(2, dtype=np.float32)[[0, 1] * 4]))
+norm = NormalizerStandardize()
+norm.fit(DataSet(x, np.zeros((8, 2), np.float32)))
+ModelSerializer.writeModel(net, sys.argv[1], normalizer=norm)
+"""
+
+_READ_ARCHIVE = """
+import sys
+from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+from deeplearning4j_tpu_torch.util.model_guesser import ModelGuesser
+from deeplearning4j_tpu_torch.util.model_serializer import ModelSerializer
+net = MultiLayerNetwork.load(sys.argv[1], device="cpu")
+guess = ModelGuesser.loadModelGuess(sys.argv[1], device="cpu")
+norm = ModelSerializer.restoreNormalizerFromFile(sys.argv[1])
+assert type(norm).__module__ == "deeplearning4j_tpu_torch.datasets.normalizers"
+bad = [m for m in sys.modules if m in ("jax", "jaxlib", "deeplearning4j_tpu")
+       or m.startswith(("jax.", "jaxlib.", "deeplearning4j_tpu."))]
+print(type(net).__name__, type(guess).__name__, type(norm).__name__, bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_reading_a_jax_archive_imports_nothing_of_the_jax_package(tmp_path):
+    """A JAX-written archive with a pickled normalizer, read by a fresh
+    interpreter that has only the port: the model, ModelGuesser and the
+    normalizer load, and neither jax nor the JAX package is imported (the
+    unpickler maps the JAX normalizer onto the port's)."""
+    path = str(tmp_path / "jax.zip")
+    env = dict(os.environ, PYTHONPATH=str(REPO), JAX_PLATFORMS="cpu")
+    wrote = subprocess.run([sys.executable, "-c", _WRITE_JAX_ARCHIVE, path],
+                           capture_output=True, text=True, timeout=300,
+                           cwd=str(REPO), env=env)
+    assert wrote.returncode == 0, wrote.stdout + wrote.stderr
+    read = subprocess.run([sys.executable, "-I", "-c",
+                           f"import sys; sys.path.insert(0, {str(REPO)!r})\n"
+                           + _READ_ARCHIVE, path],
+                          capture_output=True, text=True, timeout=120,
+                          cwd=str(REPO))
+    assert read.returncode == 0, read.stdout + read.stderr
+    assert read.stdout.split()[:3] == ["MultiLayerNetwork",
+                                      "MultiLayerNetwork",
+                                      "NormalizerStandardize"]
 
 ZOO_GRAPH_MODELS = {
     "UNet": dict(inputShape=(8, 8, 3)),

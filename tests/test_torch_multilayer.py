@@ -499,17 +499,19 @@ def _jax_mlp_conf():
             .setInputType(jnn.InputType.feedForward(4)).build())
 
 
-def test_what_is_not_ported_raises_naming_its_item():
+def test_what_is_not_ported_raises_naming_its_item(tmp_path):
     net = _mlp()
     x = np.zeros((2, 4), np.float32)
-    for call, item in ((lambda: net.pretrain(x), "variational"),
-                       (lambda: net.pretrainLayer(0, x), "variational"),
-                       (lambda: net.save("m.zip"), "model_serializer"),
-                       (lambda: MultiLayerNetwork.load("m.zip"),
-                        "model_serializer"),
-                       (net.toJson, "serde")):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    # pretraining, the archives and the JSON run now
+    # (tests/test_torch_layers_train.py, tests/test_torch_checkpoint.py):
+    # this net has no pretrainable layer, and its archive restores it
+    before = [v.clone() for v in net._leaves()]
+    assert net.pretrain(x) is net and net.pretrainLayer(0, x) is net
+    assert all(torch.equal(a, b) for a, b in zip(before, net._leaves()))
+    assert net.toJson() == net.conf.toJson()
+    net.save(str(tmp_path / "m.zip"))
+    back = MultiLayerNetwork.load(str(tmp_path / "m.zip"), device="cpu")
+    assert torch.equal(back.output(x), net.output(x))
     # the detection decode runs now (tests/test_torch_objdetect.py); this
     # net has no Yolo2OutputLayer head
     with pytest.raises(TypeError, match="Yolo2OutputLayer"):
@@ -537,10 +539,13 @@ def test_what_is_not_ported_raises_naming_its_item():
     frozen.layers[0].frozen = True
     with pytest.raises(NotImplementedError, match="frozen.*A17"):
         MultiLayerNetwork(frozen).init("cpu")
+    # weight noise trains now (tests/test_torch_layers_train.py)
+    from deeplearning4j_tpu_torch.nn.conf.weightnoise import DropConnect
     noisy = _mlp_conf()
-    noisy.layers[1].weightNoise = object()
-    with pytest.raises(NotImplementedError, match="weightNoise.*A12"):
-        MultiLayerNetwork(noisy).init("cpu")
+    noisy.layers[1].weightNoise = DropConnect(0.5)
+    noisy_net = MultiLayerNetwork(noisy).init("cpu")
+    noisy_net.fit(x, np.eye(3)[[0, 1]])
+    assert np.isfinite(noisy_net.score())
 
 
 # -- MultiLayerNetwork against a chain ComputationGraph --------------------------
