@@ -12,6 +12,7 @@
     python3 chip_smoke.py --only rnn      # card, build, rnn
     python3 chip_smoke.py --only zoo      # card, build, zoo
     python3 chip_smoke.py --only layers   # card, build, layers
+    python3 chip_smoke.py --only resilience  # card, build, resilience
     python3 chip_smoke.py --profile  # and phase 14
 
 Phases, in order; any failure exits non-zero and prints no result:
@@ -284,6 +285,41 @@ Phases, in order; any failure exits non-zero and prints no result:
             noise: the forward; its draws are each device's). CapsNet, the
             VAE and the families launch none of the nine kernels (counted,
             checked zero). It runs after the zoo phase.
+18. resilience: training that survives faults and fits in memory, on
+            `ResNet50()` at its published width (224×224×3, 1000
+            classes, f32, TF32 off, Nesterovs(0.01, 0.9), the resnet
+            phase's BN draws), cuDNN's deterministic algorithms. The
+            fused net through its CUDA graphs, unguarded and under
+            `TrainingGuardian(check_every=10)` in turns (2 warm-up and
+            10 timed steps an arm, B=32): the two runs equal bit for bit
+            (parameters, momentum, BN state, every loss), the guardian
+            syncing once per 10 steps, 36 launches of each training
+            kernel per guarded step; a NaN in one batch's labels refused
+            on the card (equal to the unguarded run that skipped the
+            batch, one skipped update); a `StallWatchdog` of 2 s trips
+            on a guarded step made to sleep 3 s, its report naming the
+            stalled stack, and the next beat clears it.
+            `FaultTolerantTrainer` over 30 seeded batches, save_every=10:
+            a data fault, a transient dispatch fault and a kill after
+            step 22, a new trainer resuming from step 20, ends equal to
+            the uninterrupted run (with the same data fault) bit for bit,
+            the dropout generator's state included; a corrupt newest
+            manifest falls back one generation and the restored net
+            keeps its 36 fused pairs; a checkpoint's bytes and its save,
+            read, checksum and load seconds printed. NaN batches drive
+            the guardian's ladder to its rollback rung: the rollback
+            restores the last verified step bit for bit,
+            dl4j.guardian.rollbacks reads 1. The unfused net with
+            rematPolicy("blocks") against none: the first step's
+            gradients equal (bit for bit, else within 1e-6 relative),
+            graph and eager arms at B=32 (ms/step, peak allocated bytes),
+            remat graph equal to remat eager, then both eager at the
+            largest of B=256, 128 that fits without remat; VGG16 under
+            rematPolicy("layers") (dropout drawn inside the capture) equal
+            to VGG16 without over 3 graphed steps. `nd` draws and 14
+            Transforms on the card against the CPU, the native runtime
+            (built with g++) against numpy, the op executioner's counts.
+            It runs after the layers phase.
 
 Phases 5, 7 and 8 run as a user runs them: the server and `fit` replay
 CUDA graphs on the card by default. The kernels' launch counters are set
@@ -292,8 +328,9 @@ steps, ResNet serving, the timed ResNet training steps, each arm of the
 graphs phase, each server of the chaos phase, each run of the fleet
 phase and each path of the rnn phase) and read just after; a replay adds
 the launches its capture recorded. The mln phase and the rnn phase's LSTM
-paths run none of them: their counts are read and must stay 0. The zoo
-and layers phases' counts are set to 0 before each of their paths. Every
+paths run none of them: their counts are read and must stay 0. The zoo,
+layers and resilience phases' counts are set to 0 before each of their
+paths. Every
 number is measured in this run; the last lines are the kernel JSON object
 and the `{"ok": true, "device": ...}` line. Imports nothing of JAX.
 """
@@ -5469,6 +5506,734 @@ def phase_layers(profile=False):
     return out
 
 
+# -- phase 18: resilience -----------------------------------------------------
+#: training that survives faults and fits in memory, on ResNet-50 at its
+#: published width (224×224×3, 1000 classes, f32, TF32 off, Nesterovs(0.01,
+#: 0.9) as the resnet_train phase trains it, the BN draws of the resnet
+#: phase), under cuDNN's deterministic algorithms. `ft_batches` seeded
+#: synthetic batches of `batch` feed the fault-tolerant trainer; faults go
+#: in at the trainer's data pull `data_fault_at`, at dispatch call
+#: `retry_at` (transient), and as a kill after step `kill_after`
+RESIL = dict(batch=32, size=224, warmup=2, steps=10, check_every=10,
+             seed=19, lr=0.01, ft_batches=30, save_every=10, data_fault_at=5,
+             retry_at=13, kill_after=22, rollback_clean=4, rollback_bad=6,
+             remat_warmup=2, remat_steps=3, remat_big=(256, 128),
+             stall_timeout=2.0, stall_sleep=3.0)
+RESIL_ARMS = ("unguarded", "guarded", "guarded", "unguarded")
+RESIL_DIR = Path(__file__).resolve().parent / "build" / "resilience"
+
+
+def _resil_batches(n, seed, batch=None):
+    """`n` seeded ResNet-50 batches, drawn in bulk."""
+    rng = np.random.default_rng(seed)
+    b, hw = batch or RESIL["batch"], RESIL["size"]
+    x = rng.standard_normal((n, b, hw, hw, 3), dtype=np.float32)
+    y = np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, (n, b))]
+    return [DataSet(x[i], y[i]) for i in range(n)]
+
+
+def _resil_net(fused):
+    """ResNet-50 at its published width, fused or not, with the resnet
+    phase's BN draws."""
+    before = os.environ.get("DL4J_TPU_FUSE_CONV_BN")
+    os.environ["DL4J_TPU_FUSE_CONV_BN"] = "1" if fused else "0"
+    try:
+        net = ResNet50(updater=Nesterovs(RESIL["lr"], 0.9)).init(DEV)
+    finally:
+        if before is None:
+            os.environ.pop("DL4J_TPU_FUSE_CONV_BN", None)
+        else:
+            os.environ["DL4J_TPU_FUSE_CONV_BN"] = before
+    _perturb_bn(net, RESNET["seed"])
+    want = EPILOGUE_PAIRS if fused else 0
+    if len(net._fused_pairs) != want:
+        raise AssertionError(f"resilience: {len(net._fused_pairs)} fused "
+                             f"pairs, expected {want}")
+    return net
+
+
+def _guardian_syncs():
+    snap = mon.get_registry().snapshot()
+    return sum(r["value"] for r in snap.get(mon.PIPELINE_SYNCS, [])
+               if r.get("labels", {}).get("site") == "guardian")
+
+
+def _resil_arm(what, net, batches, offset, guard=None, count=False):
+    """RESIL["warmup"] + RESIL["steps"] graphed fit steps over `batches`
+    from `offset`, under `guard` when given: ms/step of the timed steps,
+    each step's loss (copied out of the graph's pool), the guardian's
+    syncs and the launches of the timed steps."""
+    n_warm, steps = RESIL["warmup"], RESIL["steps"]
+    losses = []
+    ctx = guard if guard is not None else contextlib.nullcontext()
+    syncs0 = _guardian_syncs()
+    with ctx:
+        for i in range(n_warm):
+            net.fit(batches[(offset + i) % len(batches)])
+            losses.append(net._score.clone())
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        for i in range(n_warm, n_warm + steps):
+            net.fit(batches[(offset + i) % len(batches)])
+            losses.append(net._score.clone())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counts()
+        syncs = _guardian_syncs() - syncs0     # before the exit's flush
+    losses = [float(v) for v in losses]
+    log(f"[resilience] {what}: {wall * 1e3 / steps:.2f} ms/step over "
+        f"{steps} graphed steps, loss {losses[0]:.6f} -> {losses[-1]:.6f}"
+        + (f", guardian syncs {syncs}" if guard is not None else ""))
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"resilience: {what}: losses {losses}")
+    return {"ms_per_step": wall * 1e3 / steps, "losses": losses,
+            "syncs": syncs, "launches": launches}
+
+
+def _resil_guarded(base, batches):
+    """Guarded against unguarded training of the fused net through its
+    graphs, in turns; then a NaN batch refused on the card."""
+    from deeplearning4j_tpu_torch.resilience.guardian import \
+        TrainingGuardian
+    nets = {"unguarded": base.clone(), "guarded": base.clone()}
+    # spike detection off (warmup_steps): a healthy guarded run must be the
+    # unguarded run, step for step
+    g = TrainingGuardian(check_every=RESIL["check_every"],
+                         warmup_steps=10**6)
+    per = RESIL["warmup"] + RESIL["steps"]
+    arms, seen = [], {"unguarded": 0, "guarded": 0}
+    mon.enable()
+    mon.get_registry().clear()
+    try:
+        for kind in RESIL_ARMS:
+            arms.append((kind, _resil_arm(
+                f"ResNet-50 fused B={RESIL['batch']} {kind}", nets[kind],
+                batches, seen[kind], g if kind == "guarded" else None)))
+            seen[kind] += per
+            if kind == "guarded" and arms[-1][1]["syncs"] != \
+                    per // RESIL["check_every"]:
+                raise AssertionError(
+                    f"resilience: {arms[-1][1]['syncs']} guardian syncs in "
+                    f"{per} steps, expected {per // RESIL['check_every']}")
+    finally:
+        mon.disable()
+    ug, gd = nets["unguarded"], nets["guarded"]
+    unequal = _unequal(ug, gd)
+    loss_u = [a["losses"] for k, a in arms if k == "unguarded"]
+    loss_g = [a["losses"] for k, a in arms if k == "guarded"]
+    if any(unequal.values()) or loss_u != loss_g or g.skipped:
+        raise AssertionError(f"resilience: guarded != unguarded: {unequal}, "
+                             f"losses equal {loss_u == loss_g}, skipped "
+                             f"{g.skipped}")
+    # a NaN in one batch's labels: refused on the card, the parameters
+    # equal those of the unguarded run that skipped that batch
+    bad = DataSet(batches[0].features, batches[0].labels * np.nan)
+    nxt = batches[1]
+    with g:
+        gd.fit(bad)
+        gd.fit(nxt)
+        ok = g.verify_now()
+    ug.fit(nxt)
+    torch.cuda.synchronize()
+    unequal_nan = _unequal(ug, gd)
+    if any(unequal_nan.values()) or g.skipped != 1 or not ok:
+        raise AssertionError(f"resilience: NaN batch: not refused exactly "
+                             f"({unequal_nan}, skipped {g.skipped}, "
+                             f"healthy after the next step {ok})")
+    st = gd.fit_status()
+    # B6 on this path: one output() of the guarded net
+    x = torch.as_tensor(batches[2].features, device=DEV)
+    with torch.no_grad():
+        _reset_counts()
+        gd.output(x)
+        torch.cuda.synchronize()
+        epi = _counts()["matmul_epilogue"]
+    timed = [a for k, a in arms if k == "guarded"][0]
+    launches = {k: timed["launches"][k] for k in TRAIN_KERNELS}
+    launches["matmul_epilogue"] = epi
+    per_step = {k: timed["launches"][k] / RESIL["steps"]
+                for k in TRAIN_KERNELS}
+    if any(v != EPILOGUE_PAIRS for v in per_step.values()) \
+            or epi != EPILOGUE_PAIRS:
+        raise AssertionError(f"resilience: launches per guarded step "
+                             f"{per_step}, output() epilogues {epi}")
+    ms = {k: [a["ms_per_step"] for kk, a in arms if kk == k]
+          for k in ("unguarded", "guarded")}
+    cost = float(np.mean(ms["guarded"]) / np.mean(ms["unguarded"]) - 1.0)
+    log(f"[resilience] guarded vs unguarded ms/step {ms['guarded']} vs "
+        f"{ms['unguarded']}: the guard costs {cost * 100:+.2f} %; "
+        f"bit-identical over {2 * per} steps and after a NaN batch "
+        f"(refused on the card, skipped {g.skipped}); guardian checks "
+        f"{g.checks}; launches per guarded step {per_step}; fit store "
+        f"{st['captures']} captures, {st['replays']} replays, "
+        f"{st['degradations']} degradations")
+    if st["degradations"]:
+        raise AssertionError(f"resilience: degraded keys {st['degraded']}")
+    return {"arms": arms, "ms": ms, "guard_cost": cost,
+            "launches": launches, "launches_per_step": per_step,
+            "skipped": g.skipped, "checks": g.checks,
+            "captures": st["captures"], "replays": st["replays"]}, gd
+
+
+def _dispatch_call_of(position, data_fault_at, retry_at):
+    """The TRAIN_DISPATCH call that dispatches iterator position
+    `position` when the pull `data_fault_at` is dropped and the dispatch
+    call `retry_at` is retried once."""
+    call = 0
+    for p in range(1, position + 1):
+        if p == data_fault_at:
+            continue
+        call += 1
+        if call == retry_at:
+            call += 1
+    return call
+
+
+def _resil_ft(base, batches):
+    """FaultTolerantTrainer with verified checkpoints over the fused graph:
+    a data fault, a transient dispatch fault and a kill, resumed by a new
+    trainer, against the uninterrupted run with the same data fault."""
+    from deeplearning4j_tpu_torch.resilience import integrity
+    from deeplearning4j_tpu_torch.resilience.errors import \
+        FatalTrainingError
+    from deeplearning4j_tpu_torch.resilience.trainer import \
+        FaultTolerantTrainer
+    shutil.rmtree(RESIL_DIR, ignore_errors=True)
+    b, every = RESIL["batch"], RESIL["save_every"]
+    pol = RetryPolicy(max_attempts=3, initial_backoff=0.0,
+                      sleep=lambda s: None)
+
+    def source():
+        return ListDataSetIterator(batches, b)
+
+    t0 = time.perf_counter()
+    ref = FaultTolerantTrainer(base.clone(), RESIL_DIR / "ref",
+                               save_every=every, retry_policy=pol)
+    with faults.FaultPlan(seed=1).fail_at(faults.DATA_NEXT,
+                                          RESIL["data_fault_at"]):
+        ref.fit(source())
+    ref.close()
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    kill = _dispatch_call_of(RESIL["kill_after"] + 1,
+                             RESIL["data_fault_at"], RESIL["retry_at"])
+    plan = (faults.FaultPlan(seed=2)
+            .fail_at(faults.DATA_NEXT, RESIL["data_fault_at"])
+            .fail_at(faults.TRAIN_DISPATCH, RESIL["retry_at"])
+            .fail_at(faults.TRAIN_DISPATCH, kill,
+                     exc=lambda s, n: FatalTrainingError(f"kill at {s}#{n}")))
+    t1 = FaultTolerantTrainer(base.clone(), RESIL_DIR / "run",
+                              save_every=every, retry_policy=pol)
+    killed = False
+    with plan:
+        try:
+            t1.fit(source())
+        except FatalTrainingError:
+            killed = True
+        t1.close()
+        t2 = FaultTolerantTrainer(base.clone(), RESIL_DIR / "run",
+                                  save_every=every, retry_policy=pol)
+        _reset_counts()
+        t2.fit(source())
+        torch.cuda.synchronize()
+        resumed_launches = _counts()
+    m_ref, m2 = ref.model, t2.model
+    unequal = _unequal(m_ref, m2)
+    gen_equal = torch.equal(m_ref._generator.get_state(),
+                            m2._generator.get_state())
+    counters = ((m_ref._iteration, m2._iteration),
+                (ref.skipped, t1.skipped + t2.skipped))
+    log(f"[resilience] FaultTolerantTrainer over {len(batches)} batches of "
+        f"{b}, save_every={every}: killed {killed} after step "
+        f"{t1.step}, resumed from {t2.resumed_step}; retries "
+        f"{t1.retries}; skipped {t1.skipped} (data fault); final state vs "
+        f"the uninterrupted run not bit-identical {unequal}, generator "
+        f"equal {gen_equal}, iterations {counters[0]}, skips "
+        f"{counters[1]}; the uninterrupted run {ref_s:.1f} s")
+    resume_at = RESIL["kill_after"] // every * every
+    if (not killed or t2.resumed_step != resume_at or t1.retries != 1
+            or t1.skipped != 1 or any(unequal.values()) or not gen_equal
+            or counters[0][0] != counters[0][1]
+            or counters[1][0] != counters[1][1]):
+        raise AssertionError(f"resilience: fault-tolerant run differs: "
+                             f"killed {killed}, resumed "
+                             f"{t2.resumed_step}, retries {t1.retries}, "
+                             f"skipped {t1.skipped}, {unequal}, generator "
+                             f"{gen_equal}, {counters}")
+    resumed_steps = RESIL["ft_batches"] - resume_at
+    per_step = {k: resumed_launches[k] / resumed_steps
+                for k in TRAIN_KERNELS}
+    # a checkpoint's cost: bytes, save, restore, checksum
+    ck = t2.ckpt
+    step = ck.latest_step()
+    nbytes = ck.step_bytes(step)
+    torch.cuda.synchronize()
+    s0 = time.perf_counter()
+    t2._save_network(wait=True)
+    save_s = time.perf_counter() - s0
+    like = t2._like()
+    s0 = time.perf_counter()
+    rstep, state = ck.restore(step=step, like=like)
+    read_s = time.perf_counter() - s0
+    s0 = time.perf_counter()
+    verdict = integrity.verify_restored(ck.directory, rstep, state)
+    check_s = time.perf_counter() - s0
+    s0 = time.perf_counter()
+    t2._load_network_state(state)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - s0
+    t2.close()
+    # a corrupt newest manifest: restore_verified falls back a generation,
+    # and the restored net keeps its 36 fused pairs
+    with faults.FaultPlan(seed=3).fail_at(faults.CHECKPOINT_CORRUPT, 1):
+        t3 = FaultTolerantTrainer(base.clone(), RESIL_DIR / "run",
+                                  save_every=every)
+        fell_back = t3.resume_or_init()
+    pairs = len(t3.model._fused_pairs)
+    _reset_counts()
+    t3.model.fit(batches[0])
+    torch.cuda.synchronize()
+    after = {k: v for k, v in _counts().items() if k in TRAIN_KERNELS}
+    t3.close()
+    log(f"[resilience] checkpoint of step {step}: {nbytes:,} bytes; "
+        f"save {save_s:.3f} s (snapshot and write, waited), read "
+        f"{read_s:.3f} s, checksums {check_s:.3f} s ({verdict}), into "
+        f"the live tensors {load_s:.3f} s; a corrupt newest manifest "
+        f"falls back to step {fell_back}; the restored net keeps {pairs} "
+        f"fused pairs, one step launches {after}; resumed steps launch "
+        f"{per_step} per step")
+    if fell_back != step - every or pairs != EPILOGUE_PAIRS or any(
+            v != EPILOGUE_PAIRS for v in after.values()) or any(
+            v != EPILOGUE_PAIRS for v in per_step.values()) \
+            or verdict != "verified":
+        raise AssertionError(f"resilience: fallback {fell_back}, pairs "
+                             f"{pairs}, launches {after} {per_step}, "
+                             f"{verdict}")
+    return {"killed_after": t1.step, "resumed_step": t2.resumed_step,
+            "retries": t1.retries, "skipped": t1.skipped,
+            "ckpt_bytes": nbytes, "save_s": save_s, "read_s": read_s,
+            "checksum_s": check_s, "load_s": load_s,
+            "async_write_s": ref.ckpt.last_save[2],
+            "fallback_step": fell_back, "ref_s": ref_s,
+            "resumed_launches_per_step": per_step}
+
+
+def _resil_ft_cost(base, batches):
+    """FaultTolerantTrainer.fit against the bare graphed fit on the same
+    batches, in turns, each arm a fresh clone warmed by RESIL["warmup"]
+    bare steps: ms/step over RESIL["steps"] batches (the trainer's up to
+    its end-of-fit save, which is timed apart), the peak allocated bytes
+    above what was held at the arm's start, and the bytes still resident
+    after it (the trainer's device snapshot of the training state, which
+    its exact retry restores)."""
+    from deeplearning4j_tpu_torch.resilience.trainer import \
+        FaultTolerantTrainer
+    n_warm, steps, b = RESIL["warmup"], RESIL["steps"], RESIL["batch"]
+    timed = batches[n_warm:n_warm + steps]
+    arms = []
+    for i, kind in enumerate(("bare", "trainer", "trainer", "bare")):
+        net = base.clone()
+        for ds in batches[:n_warm]:
+            net.fit(ds)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        stamp = {}
+        t0 = time.perf_counter()
+        if kind == "bare":
+            net.fit(ListDataSetIterator(timed, b))
+            torch.cuda.synchronize()
+            stamp["steps"] = time.perf_counter()
+            stamp["peak"] = torch.cuda.max_memory_allocated()
+            trainer = None
+        else:
+            trainer = FaultTolerantTrainer(net, RESIL_DIR / f"cost{i}",
+                                           save_every=10**6)
+            save = trainer._maybe_save
+
+            def _stamped_save(g, wait=False, save=save):
+                torch.cuda.synchronize()
+                stamp["steps"] = time.perf_counter()
+                stamp["peak"] = torch.cuda.max_memory_allocated()
+                return save(g, wait=wait)
+
+            trainer._maybe_save = _stamped_save
+            trainer.fit(ListDataSetIterator(timed, b))
+            torch.cuda.synchronize()
+        end = time.perf_counter()
+        resident = torch.cuda.memory_allocated() - held
+        if trainer is not None:
+            trainer.close()
+        arm = {"kind": kind,
+               "ms_per_step": (stamp["steps"] - t0) * 1e3 / steps,
+               "end_save_s": end - stamp["steps"],
+               "peak_above_bytes": stamp["peak"] - held,
+               "resident_bytes": resident, "held_bytes": held}
+        if net._iteration != n_warm + steps or not np.isfinite(
+                net.score()):
+            raise AssertionError(f"resilience: trainer cost arm {arm}, "
+                                 f"iterations {net._iteration}")
+        arms.append(arm)
+        log(f"[resilience] {kind} fit of {steps} batches of {b}: "
+            f"{arm['ms_per_step']:.2f} ms/step, peak allocated "
+            f"{arm['peak_above_bytes']:,} bytes above the "
+            f"{held:,} held, {resident:,} still resident after"
+            + (f", end-of-fit save {arm['end_save_s']:.3f} s"
+               if trainer is not None else ""))
+        del net, trainer
+        torch.cuda.empty_cache()
+    ms = {k: [a["ms_per_step"] for a in arms if a["kind"] == k]
+          for k in ("bare", "trainer")}
+    cost = float(np.mean(ms["trainer"]) / np.mean(ms["bare"]) - 1.0)
+    log(f"[resilience] FaultTolerantTrainer vs bare fit ms/step "
+        f"{ms['trainer']} vs {ms['bare']}: the trainer costs "
+        f"{cost * 100:+.2f} %")
+    return {"arms": arms, "ms": ms, "cost": cost}
+
+
+def _resil_rollback(base, batches):
+    """The ladder to its rollback rung: clean batches, then NaN ones."""
+    from deeplearning4j_tpu_torch.resilience import integrity
+    from deeplearning4j_tpu_torch.resilience.errors import DivergenceError
+    from deeplearning4j_tpu_torch.resilience.guardian import \
+        TrainingGuardian
+    from deeplearning4j_tpu_torch.resilience.trainer import \
+        FaultTolerantTrainer
+    clean = RESIL["rollback_clean"]
+    data = list(batches[:clean]) + [
+        DataSet(d.features, d.labels * np.nan)
+        for d in batches[clean:clean + RESIL["rollback_bad"]]]
+    g = TrainingGuardian(check_every=1, max_skips=1, max_lr_retries=1,
+                         max_rollbacks=1, warmup_steps=10**6)
+    t = FaultTolerantTrainer(base.clone(), RESIL_DIR / "rollback",
+                             save_every=clean, prefetch=0,
+                             skip_non_finite=False, guardian=g)
+    mon.enable()
+    mon.get_registry().clear()
+    diverged = False
+    try:
+        t.fit(data)
+    except DivergenceError:
+        diverged = True
+    finally:
+        reg = mon.get_registry()
+        rollbacks = reg.get(mon.GUARDIAN_ROLLBACKS)
+        rollbacks = None if rollbacks is None else rollbacks.value
+        mon.disable()
+    like = t._like()
+    _, state = t.ckpt.restore(step=clean, like=like)
+    live = integrity.flatten({"params": t.model._params,
+                              "opt_state": t.model._opt_state,
+                              "net_state": t.model._state})
+    disk = integrity.flatten({"params": state["params"],
+                              "opt_state": state["opt_state"],
+                              "net_state": state["extra"]["net_state"]})
+    same = sum(not torch.equal(a.cpu(), b) for (_, a), (_, b)
+               in zip(live, disk))
+    t.close()
+    log(f"[resilience] rollback: {clean} clean then "
+        f"{RESIL['rollback_bad']} NaN batches: diverged {diverged}, "
+        f"rollbacks {g.rollbacks} (dl4j.guardian.rollbacks {rollbacks}), "
+        f"skipped {g.skipped}, lr_scale {g.lr_scale}; leaves differing "
+        f"from the step-{clean} checkpoint {same}")
+    if not diverged or g.rollbacks != 1 or rollbacks != 1 or same:
+        raise AssertionError(f"resilience: rollback: diverged {diverged}, "
+                             f"{g.rollbacks} / {rollbacks} rollbacks, "
+                             f"{same} leaves off the checkpoint")
+    return {"rollbacks": g.rollbacks, "skipped": g.skipped,
+            "lr_retries": g.lr_retries}
+
+
+def _resil_watchdog(net, batches):
+    """A StallWatchdog (2 s) around a guarded graphed fit whose second
+    step sleeps past the timeout."""
+    from deeplearning4j_tpu_torch.resilience.guardian import \
+        TrainingGuardian
+    from deeplearning4j_tpu_torch.resilience.watchdog import StallWatchdog
+    wd = StallWatchdog(stall_timeout=RESIL["stall_timeout"],
+                       poll_interval=0.1,
+                       dump_dir=str(RESIL_DIR / "stall")).start()
+    real = net._run_step
+    calls = []
+
+    def _stalled_step(batches_, graphs):
+        calls.append(1)
+        if len(calls) == 2:
+            threading.Event().wait(RESIL["stall_sleep"])
+        return real(batches_, graphs)
+
+    net._run_step = _stalled_step
+    wd.arm()
+    try:
+        with TrainingGuardian(check_every=RESIL["check_every"],
+                              warmup_steps=10**6):
+            for ds in batches[:3]:
+                net.fit(ds)
+        torch.cuda.synchronize()
+    finally:
+        wd.disarm()
+        wd.stop()
+        del net._run_step
+    report = Path(wd.last_report_path).read_text() \
+        if wd.last_report_path else ""
+    named = "_stalled_step" in report
+    log(f"[resilience] watchdog ({RESIL['stall_timeout']} s) over a step "
+        f"that slept {RESIL['stall_sleep']} s: stalls {wd.stall_count}, "
+        f"latched {wd.stalled} after the next beat, the report names the "
+        f"stalled stack {named} ({wd.last_report_path})")
+    if wd.stall_count != 1 or wd.stalled or not named:
+        raise AssertionError(f"resilience: watchdog stalls "
+                             f"{wd.stall_count}, stalled {wd.stalled}, "
+                             f"named {named}")
+    return {"stalls": wd.stall_count, "report": wd.last_report_path}
+
+
+def _with_policy(net, policy):
+    """A clone of `net` under `rematPolicy(policy)` (its own
+    configuration; the layers are shared)."""
+    m = net.clone()
+    m.conf = copy.copy(net.conf)
+    m.conf.remat_policy = policy
+    return m
+
+
+def _leaf_rel(a, b):
+    """max over the leaves of max |a − b| / max |b|."""
+    return max(((x.double() - y.double()).abs().max()
+                / y.double().abs().max().clamp_min(1e-300)).item()
+               for x, y in zip(tensor_leaves(a), tensor_leaves(b)))
+
+
+def _remat_arm(what, net, batches, graphs):
+    n_warm, steps = RESIL["remat_warmup"], RESIL["remat_steps"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base_b = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(n_warm):
+        net.fit(batches[i % len(batches)], cudaGraphs=graphs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n_warm, n_warm + steps):
+        net.fit(batches[i % len(batches)], cudaGraphs=graphs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    b = batches[0].features.shape[0]
+    above = (peak - base_b) / 2**30
+    log(f"[resilience] remat {what}: {wall * 1e3 / steps:.2f} ms/step, "
+        f"peak allocated {peak / 2**30:.3f} GiB ({above:.3f} above the "
+        f"{base_b / 2**30:.3f} held before), B={b}")
+    if not np.isfinite(net.score()):
+        raise AssertionError(f"resilience: remat {what}: loss "
+                             f"{net.score()}")
+    return {"ms_per_step": wall * 1e3 / steps, "peak_bytes": peak,
+            "base_bytes": base_b, "above_bytes": peak - base_b, "batch": b}
+
+
+def _resil_remat(batches):
+    """rematPolicy("blocks") on the unfused net against none."""
+    base = _resil_net(fused=False)
+    ins, labels, _ = base._unpack(batches[0])
+    plain, remat = _with_policy(base, "none"), _with_policy(base, "blocks")
+    lp, gp, sp = plain._value_and_grad(ins, labels)
+    lr, gr, sr = remat._value_and_grad(ins, labels)
+    bits = (torch.equal(lp, lr) and all(
+        torch.equal(a, b) for a, b in zip(tensor_leaves((gp, sp)),
+                                          tensor_leaves((gr, sr)))))
+    rel = 0.0 if bits else _leaf_rel(gr, gp)
+    del plain, remat, gp, gr, sp, sr
+    how = "bit for bit" if bits else f"within {rel:.3e} relative"
+    log(f"[resilience] remat first step: gradients, BN state and loss "
+        f"with rematPolicy(\"blocks\") {how} of none "
+        f"({len(base.conf.remat_plan())} segments)")
+    if not bits and not rel <= 1e-6:
+        raise AssertionError(f"resilience: remat gradients off by {rel}")
+    arms = {}
+    nets = {}
+    for policy, graphs in (("none", True), ("blocks", True),
+                           ("blocks", False), ("none", False)):
+        key = f"{policy} {'graph' if graphs else 'eager'}"
+        nets[key] = _with_policy(base, policy)
+        arms[key] = _remat_arm(f"{key} B={RESIL['batch']}", nets[key],
+                               batches, graphs)
+        if policy == "none":
+            nets[key] = None
+    g_e = _unequal(nets["blocks graph"], nets["blocks eager"])
+    log(f"[resilience] remat blocks graph vs eager after "
+        f"{RESIL['remat_warmup'] + RESIL['remat_steps']} steps: not "
+        f"bit-identical {g_e}")
+    if any(g_e.values()):
+        raise AssertionError(f"resilience: remat graph != eager: {g_e}")
+    del nets
+    torch.cuda.empty_cache()
+    # the largest batch the run without remat fits at
+    big = {}
+    for b in RESIL["remat_big"]:
+        data = _resil_batches(2, RESIL["seed"] + 7, batch=b)
+        try:
+            m = _with_policy(base, "none")
+            big["none"] = _remat_arm(f"none eager B={b}", m, data, False)
+        except torch.cuda.OutOfMemoryError:
+            log(f"[resilience] remat: B={b} does not fit without remat")
+            m = None
+            big.clear()
+            torch.cuda.empty_cache()
+            continue
+        del m
+        m = _with_policy(base, "blocks")
+        big["blocks"] = _remat_arm(f"blocks eager B={b}", m, data, False)
+        del m
+        break
+    torch.cuda.empty_cache()
+    if not big:
+        raise AssertionError("resilience: no batch of "
+                             f"{RESIL['remat_big']} fits without remat")
+    cut = 1.0 - big["blocks"]["above_bytes"] / big["none"]["above_bytes"]
+    cost = big["blocks"]["ms_per_step"] / big["none"]["ms_per_step"] - 1.0
+    log(f"[resilience] remat at B={big['none']['batch']}: blocks costs "
+        f"{cost * 100:+.1f} % of the step and cuts the peak above the "
+        f"held bytes by {cut * 100:.1f} %")
+    return {"first_step_bits": bits, "first_step_rel": rel, "arms": arms,
+            "big": big, "big_cost": cost, "big_cut": cut}
+
+
+def _resil_vgg_layers():
+    """VGG16 (MultiLayerNetwork, dropout 0.5 in its dense layers) under
+    rematPolicy("layers") against none, graphed: equal after the same
+    steps, with each arm's ms/step and peak allocated bytes (remat keeps
+    each dropout's boolean keep mask)."""
+    net = VGG16(updater=Nesterovs(1e-2, 0.9)).init(DEV)
+    plain = net.clone()
+    remat = net.clone()
+    del net
+    remat.conf = copy.deepcopy(remat.conf)
+    remat.conf.remat_policy = "layers"
+    remat.layers = remat.conf.layers
+    for layer in remat.layers:
+        layer.remat = True
+    ds = [_vgg_batch()]
+    arms = {"none": _remat_arm("VGG16 none graph", plain, ds, True),
+            "layers": _remat_arm("VGG16 layers graph", remat, ds, True)}
+    unequal = _unequal(plain, remat)
+    st = remat.fit_status()
+    steps = RESIL["remat_warmup"] + RESIL["remat_steps"]
+    cut = 1.0 - arms["layers"]["above_bytes"] / arms["none"]["above_bytes"]
+    log(f"[resilience] VGG16 rematPolicy(\"layers\") {steps} graphed "
+        f"steps vs none: not bit-identical {unequal}, loss "
+        f"{plain.score()!r} vs {remat.score()!r}; store {st['captures']} "
+        f"captures, {st['degradations']} degradations; the peak above "
+        f"the held bytes cut {cut * 100:.1f} %")
+    if any(unequal.values()) or plain.score() != remat.score() \
+            or st["degradations"]:
+        raise AssertionError(f"resilience: VGG16 remat: {unequal}, "
+                             f"{st['degraded']}")
+    return {"unequal": unequal, "loss": remat.score(), "arms": arms,
+            "cut": cut}
+
+
+def _resil_ops_runtime():
+    """`nd` draws and Transforms on the card against the CPU; the native
+    runtime against numpy; the op executioner's counts."""
+    from deeplearning4j_tpu_torch.ops import Transforms, nd
+    from deeplearning4j_tpu_torch.runtime import native_lib
+    from deeplearning4j_tpu_torch.runtime.executioner import OpExecutioner
+    errs = {}
+    nd.setDevice(DEV)
+    try:
+        nd.setSeed(7)
+        card = nd.rand(256, 512)
+        nd.setDevice("cpu")
+        nd.setSeed(7)
+        host = nd.rand(256, 512)
+        if not torch.equal(card.tensor.cpu(), host.tensor):
+            raise AssertionError("resilience: nd.rand on the card differs "
+                                 "from the CPU draw")
+        nd.setDevice(DEV)
+        x = nd.randn(512, 512)
+    finally:
+        nd.setDevice(None)
+    xc = x.tensor.cpu()
+    for name in ("exp", "tanh", "sigmoid", "relu", "gelu", "swish", "mish",
+                 "softPlus", "erf", "hardTanh", "softmax", "logSoftmax",
+                 "sqrt", "log1p"):
+        arg = x.abs() if name in ("sqrt", "log1p") else x
+        argc = xc.abs() if name in ("sqrt", "log1p") else xc
+        got = getattr(Transforms, name)(arg).tensor.cpu()
+        want = getattr(Transforms, name)(argc).tensor
+        errs[name] = _rel(got, want)
+    bad = {k: v for k, v in errs.items() if not v <= 1e-5}
+    if bad:
+        raise AssertionError(f"resilience: Transforms on the card: {bad}")
+    if not native_lib.available():
+        raise AssertionError("resilience: the native runtime did not build")
+    rng = np.random.default_rng(3)
+    arch = rng.integers(0, 256, (64, 28, 28), dtype=np.uint8)
+    idx = rng.integers(0, 64, 32)
+    got = native_lib.gather_batch_u8(arch, idx, scale=1 / 255.0)
+    np.testing.assert_allclose(got, arch[idx].astype(np.float32) / 255,
+                               rtol=1e-6)
+    labels = rng.integers(0, 10, 64).astype(np.uint8)
+    np.testing.assert_array_equal(native_lib.one_hot_u8(labels, idx, 10),
+                                  np.eye(10, dtype=np.float32)[labels[idx]])
+    img = rng.integers(0, 256, (224, 224, 3), dtype=np.uint8)
+    np.testing.assert_allclose(native_lib.resize_bilinear_u8(img, 64, 64),
+                               native_lib._resize_bilinear_oracle(img, 64,
+                                                                  64),
+                               atol=1e-3)
+    ex = OpExecutioner.getInstance()
+    ex.setProfilingMode(True)
+    ex.op_counts.clear()
+    y = torch.randn(2048, 2048, device=DEV)
+
+    def square_matmul(a):
+        return a @ a
+
+    for _ in range(5):
+        ex.exec(square_matmul, y)
+    ex.setProfilingMode(False)
+    stats = ex.getProfilingStats()["square_matmul"]
+    log(f"[resilience] ops: nd.rand equal to the CPU draw; Transforms on "
+        f"the card within {max(errs.values()):.3e} of the CPU; native "
+        f"runtime built ({native_lib._so_path()}), gather/one-hot/"
+        f"bilinear equal to numpy; OpExecutioner counted "
+        f"{stats['count']} calls, "
+        f"{stats['total_time_s'] * 1e3 / max(stats['count'], 1):.3f} ms "
+        "each (CUDA events)")
+    if stats["count"] != 5 or not stats["total_time_s"] > 0:
+        raise AssertionError(f"resilience: executioner {stats}")
+    return {"transforms_rel": errs, "executioner": stats}
+
+
+def phase_resilience():
+    """Training that survives faults and fits in memory (phase 18); the
+    launch counts are set to 0 before each path and read after it."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {}
+    batches = _resil_batches(RESIL["ft_batches"], RESIL["seed"])
+    with _deterministic():
+        base = _resil_net(fused=True)
+        out["guarded"], guarded_net = _resil_guarded(base, batches)
+        out["watchdog"] = _resil_watchdog(guarded_net, batches)
+        del guarded_net
+        out["ft"] = _resil_ft(base, batches)
+        out["ft_cost"] = _resil_ft_cost(base, batches)
+        out["rollback"] = _resil_rollback(base, batches)
+        del base
+        torch.cuda.empty_cache()
+        out["remat"] = _resil_remat(batches[:RESIL["remat_warmup"]
+                                            + RESIL["remat_steps"]])
+        out["vgg_layers"] = _resil_vgg_layers()
+    out["ops"] = _resil_ops_runtime()
+    shutil.rmtree(RESIL_DIR, ignore_errors=True)
+    out["launches"] = out["guarded"]["launches"]
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[resilience] the phase {out['seconds']:.1f} s")
+    return out
+
+
 def kernel_line(rows, launches, launches_from):
     """The per-kernel JSON object: each kernel's numbers at its
     representative case, its launches (from the main path's run where it
@@ -5501,13 +6266,14 @@ def main(argv=None):
     ap.add_argument("--only",
                     choices=["kernels", "resnet", "graphs", "paged",
                              "chaos", "fleet", "mln", "rnn", "zoo",
-                             "layers"],
+                             "layers", "resilience"],
                     default=None,
                     help="stop after the kernel checks, or run the resnet "
                          "serving and training phases right after them, or "
                          "run the graphs, the paged, the chaos, the fleet, "
-                         "the mln, the rnn, the zoo or the layers phase "
-                         "alone after the build (bring-up runs)")
+                         "the mln, the rnn, the zoo, the layers or the "
+                         "resilience phase alone after the build (bring-up "
+                         "runs)")
     ap.add_argument("--profile", action="store_true",
                     help="after the resnet phases, profile the serving "
                          "workload, three fine-tune steps, one ResNet-50 "
@@ -5544,7 +6310,8 @@ def main(argv=None):
         log(f"[smoke] by phase " + ", ".join(
             f"{k} {v:.1f}" for k, v in seconds.items()))
         return 0
-    if args.only in ("chaos", "fleet", "mln", "rnn", "zoo", "layers"):
+    if args.only in ("chaos", "fleet", "mln", "rnn", "zoo", "layers",
+                     "resilience"):
         if args.only == "mln":
             out = timed("mln", phase_mln, args.profile)
         elif args.only == "rnn":
@@ -5553,6 +6320,8 @@ def main(argv=None):
             out = timed("zoo", phase_zoo)
         elif args.only == "layers":
             out = timed("layers", phase_layers, args.profile)
+        elif args.only == "resilience":
+            out = timed("resilience", phase_resilience)
         else:
             cfg = bert_base()
             phase = phase_chaos if args.only == "chaos" else phase_fleet
@@ -5601,6 +6370,7 @@ def main(argv=None):
     rnn = timed("rnn", phase_rnn, args.profile)
     zoo = timed("zoo", phase_zoo)
     layers = timed("layers", phase_layers, args.profile)
+    resilience = timed("resilience", phase_resilience)
     prof = (timed("profile", phase_profile, cfg, params, resnet_net,
                   resnet_x, train_net, train_ds) if args.profile else None)
     # each kernel's launches from the path that carries it: the forward and
@@ -5654,6 +6424,15 @@ def main(argv=None):
                 if row["name"] == "matmul_epilogue" else
                 f"restored InceptionResNetV1 ({LAYERS['resume_steps']} "
                 "resumed graphed steps)")
+        if row["name"] in resilience["launches"]:
+            # this slice's path: the guarded graphed ResNet-50 steps (the
+            # epilogue: one output() of the guarded net)
+            row["launches_resilience"] = resilience["launches"][row["name"]]
+            row["launches_resilience_from"] = (
+                "guarded ResNet-50 one B=32 output()"
+                if row["name"] == "matmul_epilogue" else
+                f"guarded ResNet-50 fused graph arm ({RESIL['steps']} timed "
+                "steps)")
     (OUT_DIR / "smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "kernels": rows,
          "step36": step36, "fwd36": fwd36, "bert_step12": step12,
@@ -5662,7 +6441,7 @@ def main(argv=None):
          "resnet": resnet, "resnet_train": resnet_train, "graphs": graphs,
          "paged": paged, "chaos": chaos, "fleet": fleet, "mln": mln,
          "rnn": rnn, "zoo": zoo, "layers": layers,
-         "profile": prof,
+         "resilience": resilience, "profile": prof,
          "line": line,
          "phase_seconds": seconds, "seconds": time.perf_counter() - t0},
         indent=1, default=str))

@@ -1,10 +1,10 @@
 """DataSet (≡ nd4j-api :: org.nd4j.linalg.dataset.DataSet) — features,
 labels, optional feature/label masks, plus the reference's utility surface
 (merge/split/shuffle/batchBy): a copy of
-`deeplearning4j_tpu/datasets/dataset.py` without its `ops.ndarray`
-dependency. The arrays are numpy; the accessors return them as they are
-(the JAX package wraps them in its NDArray), and tensors given to the
-constructors are copied to the host."""
+`deeplearning4j_tpu/datasets/dataset.py`. The arrays are numpy; the
+accessors wrap them in NDArrays over host tensors (sharing their
+memory), and tensors or NDArrays given to the constructors are copied to
+the host."""
 from __future__ import annotations
 
 import numpy as np
@@ -19,6 +19,13 @@ def _np(x):
     return np.asarray(x)
 
 
+def _nd(a):
+    """A host array as an NDArray on the host (the data lives there; the
+    network moves it to its device)."""
+    from deeplearning4j_tpu_torch.ops.ndarray import NDArray
+    return NDArray(torch.from_numpy(np.ascontiguousarray(a)))
+
+
 class DataSet:
     def __init__(self, features=None, labels=None, featuresMask=None,
                  labelsMask=None):
@@ -29,16 +36,16 @@ class DataSet:
 
     # -- accessors (reference names) -------------------------------------
     def getFeatures(self):
-        return self.features
+        return _nd(self.features)
 
     def getLabels(self):
-        return self.labels
+        return _nd(self.labels)
 
     def getFeaturesMaskArray(self):
-        return self.featuresMask
+        return None if self.featuresMask is None else _nd(self.featuresMask)
 
     def getLabelsMaskArray(self):
-        return self.labelsMask
+        return None if self.labelsMask is None else _nd(self.labelsMask)
 
     def setFeatures(self, f):
         self.features = _np(f)
@@ -143,10 +150,12 @@ class MultiDataSet:
         self.labelsMasks = aslist(labelsMasks)
 
     def getFeatures(self, i=None):
-        return list(self.features) if i is None else self.features[i]
+        return [_nd(f) for f in self.features] if i is None \
+            else _nd(self.features[i])
 
     def getLabels(self, i=None):
-        return list(self.labels) if i is None else self.labels[i]
+        return [_nd(l) for l in self.labels] if i is None \
+            else _nd(self.labels[i])
 
     def numFeatureArrays(self):
         return len(self.features)

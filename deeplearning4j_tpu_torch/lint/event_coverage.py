@@ -23,12 +23,6 @@ EVENTS_MODULE = os.path.join(_coverage.PACKAGE, "monitoring", "events.py")
 
 #: declared kinds the port does not emit yet -> the ROADMAP item
 PENDING = {
-    "GUARDIAN_RETRY": "A14: resilience/guardian.py",
-    "GUARDIAN_ROLLBACK": "A14: resilience/guardian.py",
-    "GUARDIAN_DIVERGED": "A14: resilience/guardian.py",
-    "GUARDIAN_RECOVERED": "A14: resilience/guardian.py",
-    "WATCHDOG_STALL": "A14: resilience/watchdog.py",
-    "WATCHDOG_RECOVERED": "A14: resilience/watchdog.py",
     "MEMBERSHIP_EPOCH": "A15: parallel/membership.py",
     "MEMBERSHIP_JOINED": "A15: parallel/membership.py",
     "MEMBERSHIP_LEAVE": "A15: parallel/membership.py",

@@ -39,6 +39,14 @@ PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: per-step modules (relative to the package): registry calls guarded
 HOT_MODULES = [
     "nn/graph.py",
+    # the fit loop: guarded steps, fault sites and heartbeats
+    "nn/_network.py",
+    "nn/multilayer.py",
+    # the training half of resilience: per-step verdicts, saves, beats
+    "resilience/guardian.py",
+    "resilience/watchdog.py",
+    "resilience/trainer.py",
+    "parallel/elastic.py",
     "runtime/pipeline.py",
     "runtime/executables.py",
     "parallel/inference.py",
@@ -122,7 +130,8 @@ TIMELINE_SYNC_BOUNDARY = set()
 
 # -- ops events ------------------------------------------------------------
 EVENT_HOOK_MODULES = ["resilience/faults.py", "generation/server.py",
-                      "generation/fleet.py", "monitoring/slo.py"]
+                      "generation/fleet.py", "monitoring/slo.py",
+                      "resilience/guardian.py", "resilience/watchdog.py"]
 EVENT_EMIT_ALIASES = {"_events"}
 EVENT_JOURNAL_MODULES = ["monitoring/events.py"]
 EVENT_EMIT_ROOTS = {"emit", "journal", "_correlate", "_sweep_quiet",

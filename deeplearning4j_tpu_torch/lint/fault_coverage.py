@@ -23,12 +23,6 @@ FAULTS_MODULE = os.path.join(_coverage.PACKAGE, "resilience", "faults.py")
 
 #: declared sites the port does not fire yet -> the ROADMAP item
 PENDING = {
-    "DATA_NEXT": "A14: the fit loop's fault hooks (resilience/trainer.py)",
-    "TRAIN_DISPATCH": "A14: the fit loop's fault hooks; A15: wrapper.py, "
-                      "sharded_trainer.py",
-    "CHECKPOINT_SAVE": "A15: parallel/elastic.py",
-    "CHECKPOINT_RESTORE": "A15: parallel/elastic.py",
-    "CHECKPOINT_CORRUPT": "A14: resilience/integrity.py",
     "INFERENCE_FORWARD": "A15: ParallelInference's fault hooks",
     "INFERENCE_COLLECTOR": "A15: ParallelInference's fault hooks",
     "SERVING_DISPATCH": "A15: ParallelInference's fault hooks",

@@ -34,6 +34,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.overrides import TorchFunctionMode
+from torch.utils.checkpoint import checkpoint
 
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
 from deeplearning4j_tpu_torch.eval.evaluation import (Evaluation,
@@ -42,11 +44,14 @@ from deeplearning4j_tpu_torch.eval.evaluation import (Evaluation,
                                                       ROC, ROCMultiClass)
 from deeplearning4j_tpu_torch.nn.accum import accumulate
 from deeplearning4j_tpu_torch.nn.constraints import apply_layer_constraints
+from deeplearning4j_tpu_torch.ops.ndarray import NDArray
 from deeplearning4j_tpu_torch.nn.updaters import (apply_updates,
                                                   build_optimizer,
                                                   multi_transform,
                                                   same_updater)
 from deeplearning4j_tpu_torch.resilience import faults as _faults
+from deeplearning4j_tpu_torch.resilience import guardian as _guardian
+from deeplearning4j_tpu_torch.resilience import watchdog as _watchdog
 from deeplearning4j_tpu_torch.runtime.executables import (FunctionStore,
                                                           model_fingerprint,
                                                           tensor_leaves)
@@ -100,6 +105,70 @@ def pre_activation(layer, params, x, mask):
     if getattr(layer, "pre_activation_takes_mask", False):
         return layer.pre_activation(params, x, mask=mask)
     return layer.pre_activation(params, x)
+
+
+class _DrawTape(TorchFunctionMode):
+    """Records every torch call that draws from a generator (a call given
+    `generator=`) and, on a replay, returns the recorded draws in order
+    instead of drawing again. A dropout draw is seen as one
+    `nn.dropout.keep_mask` call, so the tape keeps its boolean mask (the
+    tensor plain autograd keeps for the dropout's backward too); a
+    Gaussian noise draw is kept as drawn, in the activations' dtype."""
+
+    def __init__(self, tape, replay):
+        super().__init__()
+        self.tape, self.replay, self.i = tape, replay, 0
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if kwargs.get("generator") is None:
+            return func(*args, **kwargs)
+        if self.replay:
+            self.i += 1
+            return self.tape[self.i - 1]
+        out = func(*args, **kwargs)
+        self.tape.append(out)
+        return out
+
+
+def remat_call(fn, *args, draws=True):
+    """`fn(*args)` under `torch.utils.checkpoint` (≡ `jax.checkpoint`):
+    only the inputs are kept, and the backward runs `fn` again. The
+    recompute must see the forward's dropout and weight-noise draws:
+    with `draws`, the forward's draws are recorded (kept with the
+    checkpoint) and the recompute reads them back, so the network's
+    generator advances once, exactly as without remat, and its state is
+    never read or set, which a CUDA graph capture forbids. What `fn`
+    returns besides its activations (a BN layer's new running state)
+    reaches the caller from the forward only; the recompute's copy is
+    dropped."""
+    if not draws:
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    tape, calls = [], [0]
+
+    def run(*a):
+        replay = calls[0] > 0
+        calls[0] += 1
+        with _DrawTape(tape, replay):
+            return fn(*a)
+
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def apply_layer(layer, params, state, x, train, generator, mask):
+    """One layer's `apply`, honouring its `remat` flag at train time (≡
+    the JAX package's `_apply_layer`, which both network classes use):
+    remat=True recomputes the layer's activations in the backward
+    instead of keeping them."""
+    if train and getattr(layer, "remat", False):
+        return remat_call(
+            lambda x_: layer.apply(params, state, x_, train=True,
+                                   generator=generator, mask=mask),
+            x, draws=generator is not None)
+    return layer.apply(params, state, x, train=train, generator=generator,
+                       mask=mask)
 
 
 def later(cls, what, where):
@@ -179,6 +248,8 @@ class Network:
         self._opt_state = None
         self._generator = None   # dropout masks, from conf.seed
         self._fit_store = None   # CUDA graphs of the training step
+        self._guard_t = None     # the guarded step's (lr_scale, max_gnorm)
+        self._guard_host = None  # ... as the host last wrote them
         self._listeners = []
         self._score = None
         self._iteration = 0
@@ -251,15 +322,17 @@ class Network:
         return sum(v.numel() for v in self._leaves())
 
     def params(self):
-        """Every parameter, flattened into one vector."""
+        """Every parameter, flattened into one vector (an NDArray)."""
         leaves = self._leaves()
         if not leaves:
-            return torch.zeros((0,), device=self._device)
-        return torch.cat([v.reshape(-1) for v in leaves])
+            return NDArray(torch.zeros((0,), device=self._device))
+        return NDArray(torch.cat([v.detach().reshape(-1) for v in leaves]))
 
     def paramTable(self):
-        """{"<key>_<name>": tensor} of every parameter."""
-        return {f"{key}_{k}": v for key, p in (self._params or {}).items()
+        """{"<key>_<name>": NDArray} of every parameter, each over the live
+        tensor (an in-place NDArray method writes the parameter)."""
+        return {f"{key}_{k}": NDArray(v)
+                for key, p in (self._params or {}).items()
                 for k, v in p.items()}
 
     # -- score ------------------------------------------------------------
@@ -369,15 +442,68 @@ class Network:
         self._update_in_place(grads, state)
         return loss
 
+    # -- the guarded step (a TrainingGuardian is installed) ----------------
+    def _guarded_update(self, loss, grads, state, extra=()):
+        """`resilience.guardian.guarded_apply` into the live tensors:
+        the update (scaled by the guardian's lr_scale) lands only where
+        the step is healthy. Returns (loss, (gnorm, ok) stacked)."""
+        lr_scale, max_gnorm = self._guard_t
+        gnorm, ok = _guardian.guarded_apply(
+            self._tx, grads, loss, self._params, self._opt_state, lr_scale,
+            max_gnorm, constraints=self._apply_constraints,
+            extra=((state, self._state),) + tuple(extra))
+        return loss, torch.stack([gnorm, ok.to(gnorm.dtype)])
+
+    def _guarded_step_in_place(self, ins, labels, lmasks):
+        """`_step_in_place` under the guardian's verdict."""
+        loss, grads, state = self._value_and_grad(ins, labels, lmasks,
+                                                  self._generator)
+        return self._guarded_update(loss, grads, state)
+
+    def _guarded_accum_step_in_place(self, group):
+        """`_accum_step_in_place` under one verdict for the accumulated
+        update (a NaN in any microbatch poisons the mean loss and the
+        summed gradients, so it fails the verdict)."""
+        grads, loss, state = accumulate(
+            lambda s, b: self._value_and_grad(*b, self._generator, state=s),
+            self._state, group)
+        return self._guarded_update(loss, grads, state)
+
+    def _alloc_guard(self):
+        """The guarded step's device scalars (lr_scale, max_gnorm),
+        allocated once: the fit store binds them with the parameters."""
+        if self._guard_t is None:
+            self._guard_t = [
+                torch.ones((), dtype=torch.float32, device=self._device),
+                torch.full((), float("inf"), dtype=torch.float32,
+                           device=self._device)]
+            self._guard_host = (1.0, float("inf"))
+
+    def _set_guard(self, g):
+        """Write the guardian's lr_scale and max_gnorm into the step's
+        device scalars when they changed (a fill between replays: the
+        graphs read them, so a change never recaptures)."""
+        self._alloc_guard()
+        want = (float(g.lr_scale), float(g.max_gnorm))
+        if want != self._guard_host:
+            with torch.no_grad():
+                for t, v in zip(self._guard_t, want):
+                    t.fill_(v)
+            self._guard_host = want
+
     def _fit_store_for(self):
         store = self._fit_store
         if store is None:
+            self._alloc_guard()
             store = FunctionStore(
                 f"{model_fingerprint(self)}-fit", self._device,
                 bindings=lambda: (self._params, self._opt_state,
-                                  self._state))
+                                  self._state, self._guard_t))
             store.register("fit", self._step_in_place)
             store.register("fit_accum", self._accum_step_in_place)
+            store.register("fit_guarded", self._guarded_step_in_place)
+            store.register("fit_accum_guarded",
+                           self._guarded_accum_step_in_place)
             self._fit_store = store
         return store
 
@@ -399,31 +525,69 @@ class Network:
     def _run_step(self, batches, graphs):
         """One update from one batch or from an accumulation group (a list
         of unpacked batches), through its CUDA graph on the card when
-        `graphs`; returns the loss."""
+        `graphs`; returns the loss. With a guardian installed, the
+        guarded variant runs (its own store key) and its verdict goes to
+        the guardian."""
+        g = _guardian.ACTIVE
         if len(batches) == 1:
-            name, fn, args = "fit", self._step_in_place, batches[0]
+            name, args = "fit", batches[0]
             sig = batch_sig(*batches[0])
+            fn = self._guarded_step_in_place if g is not None \
+                else self._step_in_place
         else:
-            name, fn, args = "fit_accum", self._accum_step_in_place, (
-                tuple(batches),)
+            name, args = "fit_accum", (tuple(batches),)
             sig = tuple(batch_sig(*b) for b in batches)
+            fn = self._guarded_accum_step_in_place if g is not None \
+                else self._accum_step_in_place
+        if g is not None:
+            name += "_guarded"
+            self._set_guard(g)
         if graphs and self._device.type == "cuda":
-            return self._graph_step((name, sig), args)
-        return fn(*args)
+            out = self._graph_step((name, sig), args)
+        else:
+            out = fn(*args)
+        if g is None:
+            return out
+        loss, stats = out
+        g.on_step(loss, stats)   # device scalars; read at its cadence
+        return loss
 
-    def _train_step(self, batches, graphs=True):
-        """`_run_step`, after building the optimizer and the dropout
-        generator on the first call; then the counters and the
-        listeners."""
+    def _ensure_training(self):
+        """Build the optimizer and the dropout generator if the first
+        step has not yet."""
         if self._tx is None:
             self._build_optimizer()
         if self._generator is None:
             self._generator = torch.Generator(device=self._device)
             self._generator.manual_seed(int(self.conf.seed))
+
+    def _train_step(self, batches, graphs=True):
+        """`_run_step`, after building the optimizer and the dropout
+        generator on the first call; then the counters and the
+        listeners. The dispatch's fault site and watchdog heartbeat fire
+        first."""
+        if _faults.ACTIVE is not None:
+            _faults.ACTIVE.fire(_faults.TRAIN_DISPATCH)
+        if _watchdog.ACTIVE is not None:
+            _watchdog.ACTIVE.beat(self._beat_name())
+        self._ensure_training()
         self._score = self._run_step(batches, graphs)
         self._iteration += 1
         for listener in self._listeners:
             listener.iterationDone(self, self._iteration, self._epoch)
+
+    def _beat_name(self):
+        """This network's heartbeat name for the stall watchdog."""
+        return f"{self._kind}@{id(self):x}"
+
+    def _retire(self):
+        if _watchdog.ACTIVE is not None:
+            _watchdog.ACTIVE.retire(self._beat_name())
+
+    def _fit_batch(self, ds, graphs=True):
+        """One batch (a DataSet or MultiDataSet) through one training
+        step: what FaultTolerantTrainer drives."""
+        self._train_step([self._unpack(ds)], graphs)
 
     # -- fit --------------------------------------------------------------
     def fit(self, data, labels=None, epochs=None, stepsPerDispatch=1,
@@ -461,7 +625,11 @@ class Network:
               and not isinstance(data[0], (DataSet, MultiDataSet))):
             one = DataSet(*data)
         if one is not None:
-            self._train_step([self._unpack(one)], graphs)
+            try:
+                self._train_step([self._unpack(one)], graphs)
+            finally:
+                # a fit that ended (or raised) is not a wedged one
+                self._retire()
             return self
         accum = self._accum_group_size()
         it, prefetcher = maybe_prefetch(data, prefetch, self._device)
@@ -471,6 +639,8 @@ class Network:
                     it.reset()
                 group = []
                 for ds in it:
+                    if _faults.ACTIVE is not None:
+                        _faults.ACTIVE.fire(_faults.DATA_NEXT)
                     batch = self._unpack(ds)
                     if accum == 1:
                         self._train_step([batch], graphs)
@@ -490,6 +660,7 @@ class Network:
                     if hasattr(listener, "onEpochEnd"):
                         listener.onEpochEnd(self)
         finally:
+            self._retire()
             if prefetcher is not None:
                 prefetcher.close()
         return self
@@ -589,7 +760,9 @@ class Network:
 
 
 def as_tensor(v, device):
-    """An array or tensor as a tensor on `device`."""
+    """An array, tensor or NDArray as a tensor on `device`."""
+    if isinstance(v, NDArray):
+        v = v.tensor
     if torch.is_tensor(v):
         return v.to(device)
     return torch.as_tensor(np.asarray(v), device=device)

@@ -37,6 +37,7 @@ from deeplearning4j_tpu_torch.nn.activations import get_activation
 from deeplearning4j_tpu_torch.nn.conf.inputs import (ConvolutionalType,
                                                      InputType,
                                                      RecurrentType)
+from deeplearning4j_tpu_torch.nn.dropout import keep_mask
 from deeplearning4j_tpu_torch.nn.losses import get_loss
 from deeplearning4j_tpu_torch.nn.weights_init import init_weight
 
@@ -208,8 +209,7 @@ class Layer:
             return p.apply(x, generator)
         if p == 0.0 or p == 1.0:
             return x
-        keep = torch.rand(x.shape, generator=generator,
-                          device=x.device) < p
+        keep = keep_mask(x, p, generator=generator)
         return torch.where(keep, x / p, torch.zeros_like(x))
 
 

@@ -26,6 +26,7 @@ from deeplearning4j_tpu_torch.nn.conf.inputs import (Convolutional3DType,
                                                      RecurrentType)
 from deeplearning4j_tpu_torch.nn.conf.layers import (BaseOutputLayer,
                                                      DenseLayer, Layer, _pair)
+from deeplearning4j_tpu_torch.nn.dropout import keep_mask
 from deeplearning4j_tpu_torch.nn.losses import get_loss
 from deeplearning4j_tpu_torch.nn.weights_init import init_weight
 
@@ -372,8 +373,8 @@ class AutoEncoder(DenseLayer):
     def pretrain_loss(self, params, x, generator=None, keep=None):
         if self.corruptionLevel > 0.0:
             if keep is None:
-                keep = torch.rand(x.shape, generator=generator,
-                                  device=x.device) < 1.0 - self.corruptionLevel
+                keep = keep_mask(x, 1.0 - self.corruptionLevel,
+                                 generator=generator)
             x_in = torch.where(torch.as_tensor(keep, device=x.device), x,
                                torch.zeros_like(x))
         else:

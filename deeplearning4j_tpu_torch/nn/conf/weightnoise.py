@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from deeplearning4j_tpu_torch.nn.dropout import keep_mask
+
 
 def _sample(distribution, generator, shape, like):
     kind = (distribution or {}).get("type", "normal")
@@ -89,7 +91,6 @@ class DropConnect(IWeightNoise):
             if _is_bias(k) and not self.applyToBias:
                 out[k] = v
                 continue
-            keep = torch.rand(v.shape, generator=generator,
-                              device=v.device) < p
+            keep = keep_mask(v, p, generator=generator)
             out[k] = torch.where(keep, v / p, torch.zeros_like(v))
         return out

@@ -13,13 +13,23 @@ package on the eval path (no draw) and by the statistics of the draws.
 from __future__ import annotations
 
 import torch
+from torch.overrides import handle_torch_function, has_torch_function
 
 __all__ = ["IDropout", "Dropout", "GaussianDropout", "GaussianNoise",
-           "AlphaDropout", "SpatialDropout"]
+           "AlphaDropout", "SpatialDropout", "keep_mask"]
 
 
-def _bernoulli(p, shape, x, generator):
-    return torch.rand(shape, generator=generator, device=x.device) < p
+def keep_mask(x, p, shape=None, *, generator):
+    """A boolean Bernoulli(p) keep mask of `shape` (x's by default) on x's
+    device, drawn from `generator`. Every dropout draw goes through here so
+    that a remat segment's draw tape (nn/_network.remat_call), a torch
+    function mode, sees the call whole: it keeps the one-byte mask for the
+    recompute, not the f32 uniform draw behind it."""
+    if has_torch_function((x,)):
+        return handle_torch_function(keep_mask, (x,), x, p, shape,
+                                     generator=generator)
+    return torch.rand(x.shape if shape is None else shape,
+                      generator=generator, device=x.device) < p
 
 
 class IDropout:
@@ -36,7 +46,7 @@ class Dropout(IDropout):
     def apply(self, x, generator):
         if self.p <= 0.0 or self.p >= 1.0:
             return x
-        keep = _bernoulli(self.p, x.shape, x, generator)
+        keep = keep_mask(x, self.p, generator=generator)
         return torch.where(keep, x / self.p, torch.zeros_like(x))
 
 
@@ -86,7 +96,7 @@ class AlphaDropout(IDropout):
         alpha_p = -self._ALPHA * self._SCALE
         a = (p + alpha_p ** 2 * p * (1.0 - p)) ** -0.5
         b = -a * alpha_p * (1.0 - p)
-        keep = _bernoulli(p, x.shape, x, generator)
+        keep = keep_mask(x, p, generator=generator)
         y = torch.where(keep, x, torch.full_like(x, alpha_p))
         return (a * y + b).to(x.dtype)
 
@@ -105,5 +115,5 @@ class SpatialDropout(IDropout):
         if self.p <= 0.0 or self.p >= 1.0 or x.ndim < 2:
             return x
         mask_shape = (x.shape[0],) + (1,) * (x.ndim - 2) + (x.shape[-1],)
-        keep = _bernoulli(self.p, mask_shape, x, generator)
+        keep = keep_mask(x, self.p, mask_shape, generator=generator)
         return torch.where(keep, x / self.p, torch.zeros_like(x))

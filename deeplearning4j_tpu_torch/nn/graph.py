@@ -5,7 +5,8 @@ A DAG of layer and vertex nodes over the configuration's topological
 order; multi-input, multi-output. Parameters and state are dicts of
 tensors keyed by node name ({"W", "b", "gamma", "beta"}, {"mean",
 "var"}), the JAX package's trees, so weights carry across as numpy
-(`nn/convert.py`). Outputs are tensors on the graph's device.
+(`nn/convert.py`). Outputs are NDArrays (`ops/`) over tensors on the
+graph's device.
 
 `init(device=None)` draws the parameters from `conf.seed` on the CPU and
 moves them to the card (or to `device`), and takes this instance's
@@ -32,7 +33,12 @@ like a layer. An output layer whose loss reads its input features
 activation after the node's preprocessor; `getPredictedObjects` decodes
 a Yolo2OutputLayer head's output into detections. `save` / `load` /
 `toJson` read and write the JAX package's archive and JSON formats; a
-restore takes the fusion decision again. Not ported yet: remat (A10).
+restore takes the fusion decision again. Per-layer `remat` and
+`rematPolicy("layers")` recompute a layer's activations in the backward;
+`rematPolicy("blocks")` runs each segment of `conf.remat_plan()` under
+activation checkpointing (not on a graph with fused pairs, feature
+masks or carries, the JAX package's rule), and the recompute reads the
+forward's dropout draws back (`nn._network.remat_call`).
 
 A training step writes its results into the live parameter, optimizer
 and BN-state tensors in place, so `params()`, `score()` and the listeners
@@ -43,24 +49,25 @@ into the graph's static inputs and replay it (`fit_status()`). After
 `init` or a weight load rebinds the tensors, the next step captures
 again. `fit(prefetch=)` stages batch N+1 of an iterator that opts in onto
 the device on a background thread while step N runs (`runtime.pipeline`).
+With a `TrainingGuardian` installed each step runs its guarded variant
+(`nn/_network.py`); the fit loop fires the `train.dispatch` and
+`data.next` fault sites and beats the stall watchdog.
 """
 from __future__ import annotations
 
 import torch
 
 from deeplearning4j_tpu_torch.device import resolve
-from deeplearning4j_tpu_torch.nn._network import (Network, as_tensor,
-                                                  compute_dtype, hook_params,
-                                                  later, mask_key,
+from deeplearning4j_tpu_torch.nn._network import (Network, apply_layer,
+                                                  as_tensor, compute_dtype,
+                                                  hook_params, mask_key,
+                                                  remat_call,
                                                   pre_activation,
                                                   split_inputs, to_device)
 from deeplearning4j_tpu_torch.nn.activations import get_activation
 from deeplearning4j_tpu_torch.nn.fused import (find_conv1x1_bn_fusions,
                                                fused_apply, fusion_enabled)
-
-
-def _later(what, where):
-    return later("ComputationGraph", what, where)
+from deeplearning4j_tpu_torch.ops.ndarray import NDArray
 
 
 class ComputationGraph(Network):
@@ -75,6 +82,8 @@ class ComputationGraph(Network):
         self._fused_convs = set()
         self._rnn_carries = None  # rnnTimeStep's state
         self._reset_training()
+
+    _kind = "graph"          # the stall watchdog's heartbeat name
 
     def _layer_items(self):
         """Layer nodes and vertices with parameters, in topological order."""
@@ -151,10 +160,14 @@ class ComputationGraph(Network):
         `report_conv` also computes the conv output of each fused pair, for
         feedForward. `carries` {node: carry} drives the recurrent layer
         nodes through `scan_apply` (rnnTimeStep)."""
-        if train and getattr(self.conf, "remat_policy", "none") != "none":
-            raise _later("rematPolicy", "a later slice of the nn core "
-                         "(ROADMAP A10)")
         inputs, fmasks = split_inputs(inputs)
+        if (train and carries is None and not report_conv
+                and getattr(self.conf, "remat_policy", "none") == "blocks"
+                and not self._fused_pairs and not fmasks):
+            # the JAX package's rule: block remat runs on a graph without
+            # fused pairs, feature masks or carries
+            return self._forward_remat_blocks(params, state, inputs,
+                                              generator)
         acts, preacts = {}, {}
         new_state = dict(state)
         new_carries = None if carries is None else {}
@@ -225,13 +238,81 @@ class ComputationGraph(Network):
                 acts[name], new_carries[name] = layer.scan_apply(
                     p, x, carries.get(name), pmask)
             else:
-                y, ns = layer.apply(p, s, x, train=ltrain,
-                                    generator=generator, mask=pmask)
+                y, ns = apply_layer(layer, p, s, x, ltrain, generator,
+                                    pmask)
                 acts[name] = y
                 if ns:
                     new_state[name] = ns
         if carries is not None:
             return acts, preacts, new_state, new_carries
+        return acts, preacts, new_state
+
+    # -- per-block selective recompute (rematPolicy "blocks") ------------
+    def _run_node_plain(self, name, params, state, acts, new_state,
+                        preacts, generator, train=True):
+        """One node of the mask-free forward, with the general loop's
+        per-node semantics (preprocessors, frozen layers, parameter hooks,
+        dropout-in and pre-activation for loss heads)."""
+        node = self.nodes[name]
+        parents = [acts[p] for p in node.inputs]
+        if node.kind == "vertex":
+            if hasattr(node.ref, "initialize"):
+                acts[name] = node.ref.apply(
+                    *parents, params=params.get(name, {}), mask=None)
+            else:
+                acts[name] = node.ref.apply(*parents, mask=None)
+            return
+        layer = node.ref
+        ltrain = train and not getattr(layer, "frozen", False)
+        x = parents[0]
+        if node.preprocessor is not None:
+            x = node.preprocessor.preProcess(x)
+        p = hook_params(layer, params.get(name, {}), ltrain, generator)
+        s = state.get(name, {})
+        if name in self.conf.output_names and hasattr(layer,
+                                                      "compute_loss"):
+            xd = layer._dropout_in(x, ltrain, generator)
+            pre = pre_activation(layer, p, xd, None)
+            preacts[name] = pre
+            acts[name] = get_activation(layer.activation)(pre)
+        else:
+            y, ns = apply_layer(layer, p, s, x, ltrain, generator, None)
+            acts[name] = y
+            if ns:
+                new_state[name] = ns
+
+    def _forward_remat_blocks(self, params, state, inputs, generator):
+        """The training forward with each segment of `conf.remat_plan()`
+        under activation checkpointing: the backward keeps only each
+        segment's saved outputs (on a residual chain, the block
+        boundaries) and runs the segment's nodes again. Draws from the
+        generator come back from the forward's record in the recompute
+        (`remat_call`), so the masks equal the plain forward's."""
+        acts = {n: x.to(self._compute_dtype) for n, x in inputs.items()}
+        preacts = {}
+        new_state = dict(state)
+        for seg, outs in self.conf.remat_plan():
+            seg_set = set(seg)
+            ext = []
+            for name in seg:
+                for p in self.nodes[name].inputs:
+                    if p not in seg_set and p not in ext:
+                        ext.append(p)
+
+            def seg_fn(*ext_acts, _seg=tuple(seg), _ext=tuple(ext),
+                       _outs=tuple(outs)):
+                a = dict(zip(_ext, ext_acts))
+                ns, pre = {}, {}
+                for n in _seg:
+                    self._run_node_plain(n, params, state, a, ns, pre,
+                                         generator)
+                return tuple(a[n] for n in _outs), ns, pre
+
+            out, ns, pre = remat_call(seg_fn, *(acts[p] for p in ext),
+                                      draws=generator is not None)
+            acts.update(zip(outs, out))
+            new_state.update(ns)
+            preacts.update(pre)
         return acts, preacts, new_state
 
     def _as_input_dict(self, inputs):
@@ -252,11 +333,18 @@ class ComputationGraph(Network):
         return ins
 
     def output(self, *inputs, train=False, generator=None, fmasks=None):
-        """The output node(s) for the inputs (arrays or tensors, one per
-        graph input, in the order of addInputs): one tensor, or a list
-        for several outputs. `fmasks`: {input name: (B, T) feature mask}.
-        `train` runs dropout (from `generator`) and batch-statistics BN,
-        without touching the stored state."""
+        """The output node(s) for the inputs (arrays, tensors or NDArrays,
+        one per graph input, in the order of addInputs): one NDArray, or
+        a list for several outputs. `fmasks`: {input name: (B, T) feature
+        mask}. `train` runs dropout (from `generator`) and
+        batch-statistics BN, without touching the stored state."""
+        out = self._output(*inputs, train=train, generator=generator,
+                           fmasks=fmasks)
+        return [NDArray(o) for o in out] if isinstance(out, list) \
+            else NDArray(out)
+
+    def _output(self, *inputs, train=False, generator=None, fmasks=None):
+        """`output` as tensors (what the port's own callers read)."""
         if len(inputs) == 1:
             inputs = inputs[0]
         ins = self._with_masks(self._as_input_dict(inputs), fmasks)
@@ -286,16 +374,18 @@ class ComputationGraph(Network):
                 f"output layer {type(out_layer).__name__} has no detection "
                 "decode — getPredictedObjects needs a Yolo2OutputLayer head")
         with torch.no_grad():
-            y = self.outputSingle(inputs)
+            y = self._output(inputs)
+        if isinstance(y, list):
+            y = y[0]
         return out_layer.getPredictedObjects(y, confThreshold, nmsThreshold)
 
     def feedForward(self, inputs, train=False, generator=None):
-        """Every node's activation, {name: tensor}; a fused conv node
+        """Every node's activation, {name: NDArray}; a fused conv node
         reports its true conv output."""
         ins = self._as_input_dict(inputs)
         acts, _, _ = self._forward(self._params, self._state, ins, train,
                                    generator, report_conv=True)
-        return acts
+        return {k: NDArray(v) for k, v in acts.items()}
 
     # -- loss and score --------------------------------------------------
     def _loss(self, params, state, inputs, labels, lmasks=None,
@@ -333,7 +423,7 @@ class ComputationGraph(Network):
 
     def _eval_output(self, features, fmask):
         fmasks = None if fmask is None else {self.conf.input_names[0]: fmask}
-        out = self.output(features, fmasks=fmasks)
+        out = self._output(features, fmasks=fmasks)
         return out[0] if isinstance(out, list) else out
 
     # -- stateful RNN inference ------------------------------------------
@@ -350,8 +440,8 @@ class ComputationGraph(Network):
         acts, _, _, self._rnn_carries = self._forward(
             self._params, self._state, ins, False,
             carries=self._rnn_carries or {})
-        outs = [acts[n][:, -1, :] if squeeze and acts[n].ndim == 3
-                else acts[n] for n in self.conf.output_names]
+        outs = [NDArray(acts[n][:, -1, :] if squeeze and acts[n].ndim == 3
+                        else acts[n]) for n in self.conf.output_names]
         return outs[0] if len(outs) == 1 else outs
 
     def rnnClearPreviousState(self):

@@ -6,7 +6,7 @@ Parameters and state are dicts of tensors keyed "0".."n-1" (the layer's
 index) and then by name ({"W", "b", "gamma", "beta"}, {"mean", "var"}),
 the JAX package's trees, so weights carry across as numpy
 (`nn/convert.py`'s `multilayer_params_from_numpy`). Outputs are tensors on
-the network's device.
+the network's device (wrapped as NDArrays by the public entry points).
 
 `init(device=None)` draws the parameters from `conf.seed` on the CPU, in
 layer order from one generator, and moves them to the card (or to
@@ -42,10 +42,15 @@ training forward (`nn._network.hook_params`); `save` / `load` / `toJson`
 write and read the JAX package's archive and JSON formats
 (`util/model_serializer.py`, `util/serde.py`).
 
-Not ported yet, each raising and naming its ROADMAP item: frozen layers
-(A17, transfer learning), activation remat (a later part of A10). The JAX
-package's guardian and watchdog hooks come with the port's resilience
-trainer (A14).
+Outputs, parameters and activations come back as NDArrays (`ops/`). A
+layer with `remat` (every layer under `rematPolicy("layers")`) recomputes
+its activations in the backward (`nn._network.apply_layer`). With a
+`TrainingGuardian` installed every step, accumulation step and TBPTT
+segment runs its guarded variant (`fit_status()` keys "fit_guarded",
+"fit_accum_guarded", "fit_tbptt_guarded"); the fit loop fires the
+`train.dispatch` and `data.next` fault sites and beats the stall
+watchdog. Not ported yet, raising and naming its ROADMAP item: frozen
+layers (A17, transfer learning).
 """
 from __future__ import annotations
 
@@ -55,8 +60,9 @@ import torch
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet
 from deeplearning4j_tpu_torch.device import resolve
 from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
-from deeplearning4j_tpu_torch.nn._network import (Network, as_tensor,
-                                                  batch_sig, compute_dtype,
+from deeplearning4j_tpu_torch.nn._network import (Network, apply_layer,
+                                                  as_tensor, batch_sig,
+                                                  compute_dtype,
                                                   copy_into, hook_params,
                                                   later, mask_key,
                                                   pre_activation, to_device)
@@ -64,6 +70,8 @@ from deeplearning4j_tpu_torch.nn.activations import get_activation
 from deeplearning4j_tpu_torch.nn.conf.builders import BackpropType
 from deeplearning4j_tpu_torch.nn.updaters import (apply_updates,
                                                   build_optimizer)
+from deeplearning4j_tpu_torch.ops.ndarray import NDArray
+from deeplearning4j_tpu_torch.resilience import guardian as _guardian
 
 __all__ = ["MultiLayerNetwork"]
 
@@ -85,6 +93,7 @@ class MultiLayerNetwork(Network):
         self._reset_training()
 
     _input_names = ("input",)
+    _kind = "multilayer"     # the stall watchdog's heartbeat name
 
     def _layer_items(self):
         return [(str(i), layer) for i, layer in enumerate(self.layers)]
@@ -156,8 +165,10 @@ class MultiLayerNetwork(Network):
         return self
 
     def getParam(self, key):
+        """The parameter "<layer>_<name>" as an NDArray over the live
+        tensor."""
         li, name = key.split("_", 1)
-        return self._params[li][name]
+        return NDArray(self._params[li][name])
 
     def setParam(self, key, value):
         li, name = key.split("_", 1)
@@ -173,11 +184,6 @@ class MultiLayerNetwork(Network):
         {layer index: carry} (missing entries start at zero) drives each
         recurrent layer through `scan_apply`, as rnnTimeStep and truncated
         BPTT do."""
-        if train and (getattr(self.conf, "remat_policy", "none") != "none"
-                      or any(getattr(l, "remat", False)
-                             for l in self.layers)):
-            raise _later("remat", "a later slice of the nn core "
-                         "(ROADMAP A10)")
         x = x.to(self._compute_dtype)
         acts = []
         new_state = dict(state)
@@ -205,8 +211,7 @@ class MultiLayerNetwork(Network):
                 x, new_carries[str(i)] = layer.scan_apply(
                     p, x, carries.get(str(i)), mask)
             else:
-                x, ns = layer.apply(p, s, x, train=train,
-                                    generator=generator, mask=mask)
+                x, ns = apply_layer(layer, p, s, x, train, generator, mask)
                 if ns:
                     new_state[str(i)] = ns
             if mask is not None:
@@ -224,24 +229,28 @@ class MultiLayerNetwork(Network):
         return as_tensor(x, self._device)
 
     def output(self, x, train=False, fmask=None, generator=None):
-        """The last layer's activation for `x` (array or tensor) under the
-        (B, T) feature mask `fmask`. `train` runs dropout (from
-        `generator`) and batch-statistics BN, without touching the stored
-        state."""
+        """The last layer's activation for `x` (array, tensor or NDArray)
+        under the (B, T) feature mask `fmask`, as an NDArray. `train` runs
+        dropout (from `generator`) and batch-statistics BN, without
+        touching the stored state."""
+        return NDArray(self._output(x, train, fmask, generator))
+
+    def _output(self, x, train=False, fmask=None, generator=None):
+        """`output` as a tensor (what the port's own callers read)."""
         fmask = None if fmask is None else as_tensor(fmask, self._device)
         y, _, _, _ = self._forward(self._params, self._state, self._input(x),
                                    train, generator, mask=fmask)
         return y
 
     def _eval_output(self, features, fmask):
-        return self.output(features, fmask=fmask)
+        return self._output(features, fmask=fmask)
 
     def feedForward(self, x, train=False, generator=None):
-        """Every layer's activation, in order."""
+        """Every layer's activation, in order (NDArrays)."""
         _, _, _, acts = self._forward(self._params, self._state,
                                       self._input(x), train, generator,
                                       collect=True)
-        return acts
+        return [NDArray(a) for a in acts]
 
     def activateSelectedLayers(self, from_idx, to_idx, x):
         """Layers [from_idx, to_idx] inclusive applied, in inference mode,
@@ -270,14 +279,14 @@ class MultiLayerNetwork(Network):
                 f"output layer {type(out_layer).__name__} has no detection "
                 "decode — getPredictedObjects needs a Yolo2OutputLayer head")
         with torch.no_grad():
-            y = self.output(x)
+            y = self._output(x)
         return out_layer.getPredictedObjects(y, confThreshold, nmsThreshold)
 
     def predict(self, x):
         """≡ Classifier.predict: the argmax class index per example."""
         if isinstance(x, DataSet):
             x = x.features
-        return self.output(x).argmax(-1).cpu().numpy()
+        return self._output(x).argmax(-1).cpu().numpy()
 
     def f1Score(self, data, labels=None):
         """≡ Classifier.f1Score(DataSet | (examples, labels)): the
@@ -288,7 +297,7 @@ class MultiLayerNetwork(Network):
         else:
             feats = data
         ev = Evaluation()
-        ev.eval(np.asarray(labels), self.output(feats).float().cpu().numpy(),
+        ev.eval(np.asarray(labels), self._output(feats).float().cpu().numpy(),
                 mask)
         return ev.f1()
 
@@ -358,20 +367,52 @@ class MultiLayerNetwork(Network):
         copy_into(carries, new_carries)
         return loss
 
+    def _guarded_tbptt_step_in_place(self, ins, labels, lmasks, carries):
+        """`_tbptt_step_in_place` under the guardian's verdict: the
+        parameters, optimizer and BN state AND the carries keep their old
+        values on an unhealthy segment (a NaN forward must not poison the
+        hidden state the next segment reads)."""
+        loss, grads, (state, new_carries) = self._grad_tree(
+            lambda p: self._loss(p, self._state, ins, labels, lmasks,
+                                 self._generator, train=True,
+                                 carries=carries))
+        return self._guarded_update(loss, grads, state,
+                                    extra=((new_carries, carries),))
+
     def _tbptt_segment(self, args, graphs):
         """One segment (ins, labels, lmasks, carries) through its graph on
         the card; returns (loss, the carries after it). On the card these
         are the graph's static carries, overwritten by the next replay of
-        that graph, which reads them first."""
+        that graph, which reads them first. Under a guardian each segment
+        reports its verdict as not retryable: the batch's earlier healthy
+        segments already updated the parameters."""
+        g = _guardian.ACTIVE
+        name = "fit_tbptt" if g is None else "fit_tbptt_guarded"
+        fn = self._tbptt_step_in_place if g is None \
+            else self._guarded_tbptt_step_in_place
+        if g is not None:
+            self._set_guard(g)
         if graphs and self._device.type == "cuda":
-            key = ("fit_tbptt", batch_sig(*args[:3]))
-            loss = self._graph_step(key, args)
-            return loss.clone(), self._fit_store.args(key)[3]
-        return self._tbptt_step_in_place(*args), args[3]
+            key = (name, batch_sig(*args[:3]))
+            out = self._graph_step(key, args)
+            carries = self._fit_store.args(key)[3]
+            if g is None:
+                return out.clone(), carries
+            loss, stats = out
+            g.on_step(loss, stats, retryable=False)
+            return loss.clone(), carries
+        out = fn(*args)
+        if g is None:
+            return out, args[3]
+        loss, stats = out
+        g.on_step(loss, stats, retryable=False)
+        return loss, args[3]
 
     def _fit_store_for(self):
         store = super()._fit_store_for()
         store.register("fit_tbptt", self._tbptt_step_in_place)
+        store.register("fit_tbptt_guarded",
+                       self._guarded_tbptt_step_in_place)
         return store
 
     def _is_tbptt(self, batch):

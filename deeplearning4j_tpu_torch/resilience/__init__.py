@@ -12,11 +12,13 @@ Pieces:
   module-attribute check per site when off (a copy);
 - `health_snapshot()` — the `GET /health` payload.
 
-The training half (`guardian`, `watchdog`, `integrity`, `trainer`)
-comes with ROADMAP A14; until then, and until the multi-host
-coordinator (A15), their sections of `health_snapshot()` report None.
-The serving and fleet sections read `generation/server.py` and
-`generation/fleet.py`.
+The training half: `guardian` (`TrainingGuardian`, the device-side
+verdict and the escalation ladder), `watchdog` (`StallWatchdog`),
+`integrity` (checkpoint manifests) and `trainer`
+(`FaultTolerantTrainer`, network mode). `health_snapshot()` reports the
+installed guardian's and watchdog's snapshots; its distributed section
+stays None until the multi-host coordinator (A15). The serving and fleet
+sections read `generation/server.py` and `generation/fleet.py`.
 """
 from __future__ import annotations
 
@@ -55,18 +57,48 @@ __all__ = [
     "EXECUTABLES_LOAD", "SERVING_DISPATCH",
     "ROUTER_DISPATCH", "REPLICA_RESTART",
     "health_snapshot",
+    "TrainingGuardian", "StallWatchdog", "FaultTolerantTrainer",
 ]
+
+#: the training half, loaded on first use (guardian imports the nn
+#: core's updaters, and the nn core imports this package)
+_LAZY = {"TrainingGuardian": ("guardian", "TrainingGuardian"),
+         "StallWatchdog": ("watchdog", "StallWatchdog"),
+         "FaultTolerantTrainer": ("trainer", "FaultTolerantTrainer"),
+         "guardian": ("guardian", None), "watchdog": ("watchdog", None),
+         "integrity": ("integrity", None), "trainer": ("trainer", None)}
+
+
+def __getattr__(name):
+    if name not in _LAZY:
+        raise AttributeError(name)
+    import importlib
+    mod, attr = _LAZY[name]
+    m = importlib.import_module(f"{__name__}.{mod}")
+    return m if attr is None else getattr(m, attr)
 
 
 def health_snapshot():
-    """The `GET /health` payload: overall status plus the serving
-    (GenerationServer), fleet (FleetRouter) and SLO-tracker snapshots,
-    with the guardian, watchdog and distributed sections None until their
-    slices land. Status ladder as in the JAX package: a dead serving loop
-    or a fleet latched dead makes the process `serving_dead`; a serving
-    memory-pressure degradation, a fleet with a replica out of the
-    healthy pool, or an SLO breach reports `degraded`."""
+    """The `GET /health` payload: overall status plus the installed
+    guardian's and watchdog's snapshots and the serving
+    (GenerationServer), fleet (FleetRouter) and SLO-tracker snapshots
+    (None when not installed; the distributed section is None until A15).
+    Status ladder as in the JAX package: a latched stall makes the
+    process `stalled`, an exhausted guardian `diverged`, a dead serving
+    loop or a fleet latched dead `serving_dead`; a guardian
+    mid-escalation, a serving memory-pressure degradation, a fleet with a
+    replica out of the healthy pool, or an SLO breach reports
+    `degraded`."""
     import sys
+    # the training half from sys.modules: nothing is installed unless
+    # its module was loaded
+    gsnap = wsnap = None
+    _g = sys.modules.get("deeplearning4j_tpu_torch.resilience.guardian")
+    if _g is not None and _g.ACTIVE is not None:
+        gsnap = _g.ACTIVE.snapshot()
+    _w = sys.modules.get("deeplearning4j_tpu_torch.resilience.watchdog")
+    if _w is not None and _w.ACTIVE is not None:
+        wsnap = _w.ACTIVE.snapshot()
     # serving states come from sys.modules, never a fresh import: a
     # health tick must not pull the server (and torch's CUDA) in
     ssnap = None
@@ -93,16 +125,22 @@ def health_snapshot():
         except Exception:  # noqa: BLE001 — health must always answer
             slosnap = None
     status = "ok"
+    if gsnap is not None and gsnap["status"] == "degraded":
+        status = "degraded"
     if ssnap and any(s["state"] == "degraded" for s in ssnap):
         status = "degraded"
     if fsnap and any(f["state"] == "degraded" for f in fsnap):
         status = "degraded"
     if slosnap is not None and slosnap.get("violated"):
         status = "degraded"
+    if wsnap is not None and wsnap["stalled"]:
+        status = "stalled"
+    if gsnap is not None and gsnap["status"] == "diverged":
+        status = "diverged"
     if ssnap and any(s["state"] == "dead" for s in ssnap):
         status = "serving_dead"
     if fsnap and any(f["state"] == "dead" for f in fsnap):
         status = "serving_dead"
-    return {"status": status, "guardian": None, "watchdog": None,
+    return {"status": status, "guardian": gsnap, "watchdog": wsnap,
             "distributed": None, "serving": ssnap, "fleet": fsnap,
             "slo": slosnap}

@@ -650,7 +650,7 @@ class ExecutableStore(FunctionStore):
 
     def _forward(self, *xs):
         with torch.no_grad():
-            out = self.model.output(list(xs) if len(xs) > 1 else xs[0])
+            out = self.model._output(list(xs) if len(xs) > 1 else xs[0])
         return out[0] if isinstance(out, list) else out
 
     def _forward_masked(self, *xs):
@@ -660,10 +660,10 @@ class ExecutableStore(FunctionStore):
         x = list(xs) if len(xs) > 1 else xs[0]
         with torch.no_grad():
             if hasattr(self.model.conf, "input_names"):   # a graph
-                out = self.model.output(x, fmasks={
+                out = self.model._output(x, fmasks={
                     self.model.conf.input_names[0]: mask})
             else:
-                out = self.model.output(x, fmask=mask)
+                out = self.model._output(x, fmask=mask)
         return out[0] if isinstance(out, list) else out
 
     def _inputs(self, sig):

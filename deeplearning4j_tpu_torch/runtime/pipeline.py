@@ -14,8 +14,10 @@ As in the reference, `maybe_prefetch` wraps only an iterable that opts in
 (`asyncSupported()` True, as every `datasets.iterators.DataSetIterator`
 does): a plain list of DataSets is stepped through as it is. The
 evaluation loop stages with `stage_for_eval` (features only; the
-evaluators read the labels on the host). Difference from the reference:
-the staging has no monitoring counters (ROADMAP A16).
+evaluators read the labels on the host). `record_sync` counts a
+host-blocking read (the guardian's) on `dl4j.pipeline.syncs`. Difference
+from the reference: the staging has no monitoring counters (ROADMAP
+A16).
 """
 from __future__ import annotations
 
@@ -32,12 +34,30 @@ from deeplearning4j_tpu_torch.runtime.executables import (StagingRing,
                                                           torch_dtype)
 
 __all__ = ["DEFAULT_PREFETCH", "PrefetchIterator", "StagedBatch",
-           "StagedMultiBatch", "maybe_prefetch", "stage_dataset",
-           "stage_for_eval"]
+           "StagedMultiBatch", "maybe_prefetch", "record_sync",
+           "stage_dataset", "stage_for_eval"]
 
 #: default staging queue depth (double buffer): batch N+1 stages while
 #: step N computes. 0 disables prefetch.
 DEFAULT_PREFETCH = int(os.environ.get("DL4J_PIPELINE_PREFETCH", "2"))
+
+
+def record_sync(site, blocked_ms):
+    """Account ONE host-blocking device sync: `dl4j.pipeline.syncs` and
+    `host_blocked_ms` with the site, and the flight recorder's current
+    step (the JAX package's `record_sync`; the guardian's stacked verdict
+    read counts here as site "guardian")."""
+    from deeplearning4j_tpu_torch import monitoring as _mon
+    if not _mon.enabled():
+        return
+    reg = _mon.get_registry()
+    reg.counter(_mon.PIPELINE_SYNCS, labels={"site": site},
+                help="host-blocking device syncs (0/step when the "
+                     "pipeline is healthy)").inc()
+    reg.histogram(_mon.PIPELINE_HOST_BLOCKED_MS, labels={"site": site},
+                  help="wall time the host spent blocked per sync") \
+       .observe(blocked_ms)
+    _mon.step_recorder().on_host_blocked(blocked_ms)
 
 
 class StagedBatch:
@@ -141,6 +161,7 @@ class PrefetchIterator:
         self._thread = None
         self._peek = self._EMPTY
         self._error = None
+        self._it = None      # the base's iterator, kept across restarts
 
     # -- worker side -----------------------------------------------------
     def _offer(self, q, stop, item):
@@ -159,7 +180,9 @@ class PrefetchIterator:
             while base.hasNext():
                 yield base.next()
         else:
-            yield from iter(base)
+            if self._it is None:
+                self._it = iter(base)
+            yield from self._it
 
     def _worker(self, q, stop):
         # q/stop belong to this generation: a worker from before a reset()
@@ -223,6 +246,20 @@ class PrefetchIterator:
             raise StopIteration
         return self.next()
 
+    def resume_after_error(self):
+        """Clear a worker failure and prefetch on from the base's CURRENT
+        position (the failed pull's batch is lost, as with a raw iterator
+        whose next() raised): how skip-and-count consumers
+        (FaultTolerantTrainer) count one error and continue with prefetch
+        on. A no-op unless in the failed state."""
+        if self._peek is not self._FAILED:
+            return
+        self.close()
+        self._stop = threading.Event()
+        self._queue = _queue.Queue(maxsize=self._depth)
+        self._peek = self._EMPTY
+        self._error = None
+
     # -- lifecycle -------------------------------------------------------
     def close(self):
         """Stop the worker without resetting the base."""
@@ -245,6 +282,7 @@ class PrefetchIterator:
         self._queue = _queue.Queue(maxsize=self._depth)
         self._peek = self._EMPTY
         self._error = None
+        self._it = None
         if hasattr(self._base, "reset"):
             self._base.reset()
 

@@ -18,8 +18,9 @@ an ephemeral port, read back from `.port`) serves, from a stdlib
 - `GET /requests`, `GET /requests/<trace-id>` — request timelines (404
   for an unknown id), with the latency histograms' exemplars;
 - `GET /slo` — the SLO tracker; `GET /trace` — the merged Chrome trace;
-- `GET /health` — `resilience.health_snapshot()`: 200 while `ok` or
-  `degraded`, 503 otherwise (`serving_dead`);
+- `GET /health` — `resilience.health_snapshot()` (the installed
+  guardian's and watchdog's snapshots among its sections): 200 while `ok`
+  or `degraded`, 503 otherwise (`stalled`, `diverged`, `serving_dead`);
 - `GET /events`, `GET /incidents` — the ops event journal;
 - `GET /metrics` — the registry's Prometheus text (a multi-host cluster
   view on process 0 once a coordinator is active);

@@ -485,3 +485,167 @@ def test_cuda_attention_layers_train_through_the_kernels(card):
                     tensor_leaves(eager._params)):
         assert torch.equal(a, b)
     assert graph.fit_status()["captures"] == 1
+
+
+# -- the guarded step, remat and the fault-tolerant trainer ------------------
+def _leaves_equal(a, b):
+    for x, y in zip(tensor_leaves((a._params, a._opt_state, a._state)),
+                    tensor_leaves((b._params, b._opt_state, b._state))):
+        if not torch.equal(x, y):
+            return False
+    return True
+
+
+def test_cuda_guarded_fit_replays_and_never_recaptures(card):
+    """A guarded MultiLayerNetwork fit through its graph (key
+    "fit_guarded") against the same guarded fit run eagerly, with a NaN
+    batch the device refuses and the guardian's lr_scale and max_gnorm
+    changed between replays: equal bit for bit, one capture, the
+    threshold and rate changes read by the replays."""
+    from deeplearning4j_tpu_torch.resilience.guardian import \
+        TrainingGuardian
+    batches = _batches(6)
+    batches[2] = DataSet(batches[2].features * np.nan, batches[2].labels)
+    torch.backends.cudnn.deterministic = True
+    nets = [MultiLayerNetwork(_mln_conf("nesterovs")).init()
+            for _ in range(2)]
+    guards = []
+    try:
+        for net, graphs in zip(nets, (True, False)):
+            g = TrainingGuardian(check_every=2, max_skips=10,
+                                 warmup_steps=10**6)
+            with g:
+                for i, ds in enumerate(batches):
+                    if i == 4:
+                        g.lr_scale, g.max_gnorm = 0.5, 1e6
+                    net.fit(ds, cudaGraphs=graphs)
+            guards.append(g)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert _leaves_equal(*nets)
+    assert [g.skipped for g in guards] == [1, 1]
+    st = nets[0].fit_status()
+    assert (st["keys"], st["captures"], st["rebinds"]) == (1, 1, 0), st
+    assert st["replays"] == 5
+
+
+def test_cuda_guarded_accumulation_replays_and_refuses_a_nan_microbatch(
+        card):
+    """A guarded `.gradientAccumulation(2)` fit through its graph (key
+    "fit_accum_guarded") against the same guarded fit run eagerly, over
+    six batches whose third (the first microbatch of the second update)
+    is NaN: equal bit for bit, that update refused and counted, one
+    capture."""
+    from deeplearning4j_tpu_torch.resilience.guardian import \
+        TrainingGuardian
+    batches = _batches(6)
+    batches[2] = DataSet(batches[2].features * np.nan, batches[2].labels)
+    torch.backends.cudnn.deterministic = True
+    nets = [MultiLayerNetwork(_mln_conf("accumulation")).init()
+            for _ in range(2)]
+    guards = []
+    try:
+        for net, graphs in zip(nets, (True, False)):
+            with TrainingGuardian(check_every=2, max_skips=10,
+                                  warmup_steps=10**6) as g:
+                net.fit(ListDataSetIterator(batches, 16), prefetch=0,
+                        cudaGraphs=graphs)
+            guards.append(g)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert _leaves_equal(*nets)
+    assert [(g.step, g.skipped) for g in guards] == [(3, 1), (3, 1)]
+    assert all(torch.isfinite(t).all() for t in tensor_leaves(
+        (nets[0]._params, nets[0]._opt_state, nets[0]._state)))
+    st = nets[0].fit_status()
+    assert (st["keys"], st["captures"], st["replays"],
+            st["degradations"]) == (1, 1, 2, 0), st
+
+
+def test_cuda_guarded_tbptt_segments_equal_eager(card):
+    from deeplearning4j_tpu_torch.resilience.guardian import \
+        TrainingGuardian
+    rng = np.random.default_rng(1)
+    eye = np.eye(12, dtype=np.float32)
+    graph = MultiLayerNetwork(_rnn_conf(tbptt=True)).init()
+    eager = graph.clone()
+    for net, graphs in ((graph, True), (eager, False)):
+        with TrainingGuardian(check_every=1, max_skips=10,
+                              warmup_steps=10**6):
+            for _ in range(2):
+                chars = rng.integers(0, 12, (6, 17))
+                net.fit(DataSet(eye[chars[:, :-1]], eye[chars[:, 1:]]),
+                        cudaGraphs=graphs)
+        rng = np.random.default_rng(1)
+    for a, b in zip(tensor_leaves((graph._params, graph._opt_state)),
+                    tensor_leaves((eager._params, eager._opt_state))):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dropout", [False, True])
+def test_cuda_remat_through_the_graph_equals_plain(card, dropout):
+    """rematPolicy("layers") with dropout captured into the fit graph:
+    the recompute reads the forward's draws back inside the capture, so
+    the graphed remat run equals the eager plain run bit for bit."""
+    def conf(policy):
+        b = (NeuralNetConfiguration.Builder().seed(5).weightInit("relu")
+             .updater(Nesterovs(0.05, 0.9)).list())
+        if policy:
+            b = b.rematPolicy(policy)
+        return (b.layer(ConvolutionLayer(kernelSize=(3, 3), nOut=8,
+                                         convolutionMode="same",
+                                         activation="identity"))
+                .layer(BatchNormalization(activation="relu"))
+                .layer(SubsamplingLayer(kernelSize=(2, 2), stride=(2, 2)))
+                .layer(DenseLayer(nOut=24, activation="relu",
+                                  dropOut=0.5 if dropout else None))
+                .layer(OutputLayer(lossFunction="mcxent", nOut=5,
+                                   activation="softmax"))
+                .setInputType(InputType.convolutional(8, 8, 16)).build())
+    batches = _batches(4)
+    torch.backends.cudnn.deterministic = True
+    try:
+        remat = MultiLayerNetwork(conf("layers")).init()
+        plain = MultiLayerNetwork(conf(None)).init()
+        remat.fit(batches, prefetch=0)
+        plain.fit(batches, prefetch=0, cudaGraphs=False)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert _leaves_equal(remat, plain)
+    assert remat.fit_status()["captures"] == 1
+
+
+def test_cuda_fault_tolerant_trainer_resumes_bit_for_bit(card, tmp_path):
+    from deeplearning4j_tpu_torch.resilience import (FatalTrainingError,
+                                                     FaultPlan, faults)
+    from deeplearning4j_tpu_torch.resilience.trainer import \
+        FaultTolerantTrainer
+    batches = _batches(8)
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref = FaultTolerantTrainer(MultiLayerNetwork(
+            _mln_conf("adam-dropout")).init(), tmp_path / "ref",
+            save_every=3)
+        ref.fit(ListDataSetIterator(batches, 16))
+        plan = FaultPlan().fail_at(faults.TRAIN_DISPATCH, 5,
+                                   exc=lambda s, n: FatalTrainingError("k"))
+        t1 = FaultTolerantTrainer(MultiLayerNetwork(
+            _mln_conf("adam-dropout")).init(), tmp_path / "run",
+            save_every=3)
+        with plan:
+            with pytest.raises(FatalTrainingError):
+                t1.fit(ListDataSetIterator(batches, 16))
+        t2 = FaultTolerantTrainer(MultiLayerNetwork(
+            _mln_conf("adam-dropout")).init(), tmp_path / "run",
+            save_every=3)
+        t2.fit(ListDataSetIterator(batches, 16))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert t2.resumed_step == 3
+    assert _leaves_equal(ref.model, t2.model)
+    assert torch.equal(ref.model._generator.get_state(),
+                       t2.model._generator.get_state())

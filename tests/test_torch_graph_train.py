@@ -296,8 +296,16 @@ def test_what_is_not_ported_raises_naming_its_slice(monkeypatch):
              .addInputs("input").setInputTypes(tnn.InputType.feedForward(4))
              .addLayer("out", tnn.OutputLayer(nOut=2), "input")
              .setOutputs("out").build())
-    with pytest.raises(NotImplementedError, match="rematPolicy"):
-        tnn.ComputationGraph(remat).init("cpu").fit(xs, ys)
+    # remat runs now (tests/test_torch_remat.py): the same step as without
+    plain = (tnn.NeuralNetConfiguration.Builder().seed(1)
+             .updater(tup.Sgd(0.1)).graphBuilder()
+             .addInputs("input").setInputTypes(tnn.InputType.feedForward(4))
+             .addLayer("out", tnn.OutputLayer(nOut=2), "input")
+             .setOutputs("out").build())
+    nets = [tnn.ComputationGraph(c).init("cpu") for c in (remat, plain)]
+    for n in nets:
+        n.fit(xs, ys)
+    assert torch.equal(nets[0].params().tensor, nets[1].params().tensor)
     acc = (tnn.NeuralNetConfiguration.Builder().seed(1)
            .updater(tup.Sgd(0.1)).gradientAccumulation(2).graphBuilder()
            .addInputs("input").setInputTypes(tnn.InputType.feedForward(4))

@@ -533,8 +533,13 @@ def test_what_is_not_ported_raises_naming_its_item(tmp_path):
              .list().rematPolicy("layers").layer(DenseLayer(nOut=3))
              .layer(OutputLayer(nOut=2))
              .setInputType(InputType.feedForward(4)).build())
-    with pytest.raises(NotImplementedError, match="remat.*A10"):
-        MultiLayerNetwork(remat).init("cpu").fit(x, np.eye(2)[[0, 1]])
+    # remat runs now (tests/test_torch_remat.py): the same step as without
+    plain = (NeuralNetConfiguration.Builder().seed(1).updater(Sgd(0.1))
+             .list().layer(DenseLayer(nOut=3)).layer(OutputLayer(nOut=2))
+             .setInputType(InputType.feedForward(4)).build())
+    nets = [MultiLayerNetwork(c).init("cpu").fit(x, np.eye(2)[[0, 1]])
+            for c in (remat, plain)]
+    assert torch.equal(nets[0].params().tensor, nets[1].params().tensor)
     frozen = _mlp_conf()
     frozen.layers[0].frozen = True
     with pytest.raises(NotImplementedError, match="frozen.*A17"):
