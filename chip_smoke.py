@@ -13,6 +13,7 @@
     python3 chip_smoke.py --only zoo      # card, build, zoo
     python3 chip_smoke.py --only layers   # card, build, layers
     python3 chip_smoke.py --only resilience  # card, build, resilience
+    python3 chip_smoke.py --only quant    # card, build, quant
     python3 chip_smoke.py --profile  # and phase 14
 
 Phases, in order; any failure exits non-zero and prints no result:
@@ -320,6 +321,42 @@ Phases, in order; any failure exits non-zero and prints no result:
             Transforms on the card against the CPU, the native runtime
             (built with g++) against numpy, the op executioner's counts.
             It runs after the layers phase.
+19. quant:  fine-tune, then serve int8, on `ResNet50()` at its published
+            width (224×224×3, 1000 classes, the resnet phase's BN draws),
+            f32 with cuDNN's TF32 off. The net is saved and restored with
+            `ModelSerializer` (the "pretrained" source; restored equal bit
+            for bit). `TransferLearning.GraphBuilder` freezes everything up
+            to res4_5_relu, removes "fc" and adds a head (DenseLayer 2048 →
+            256, relu, `PrecisionPolicy.int8()`: QAT in the graphed step;
+            a 10-class OutputLayer), built with the fusion on: 7 fused
+            pairs (res5's). `EarlyStoppingGraphTrainer` (MaxEpochs 5,
+            ScoreImprovement 2, `DataSetLossCalculator` on 2 held-out
+            batches, a `LocalFileModelSaver`) over 8 seeded batches of 32
+            of a learnable 10-class task (class patterns plus noise), with
+            a `ScoreIterationListener` and a `StatsListener` into an
+            `InMemoryStatsStorage` that a `UIServer` serves. Gates: B5, B7
+            and B8 each launch 7 times a step; `GET /stats` gives one
+            record per iteration, update ratios exactly 0 for the frozen
+            parameters and > 0 for res5 and the head; the frozen
+            parameters and BN state bit for bit unchanged, the source
+            equal to its values before; the restored best model equal to
+            an in-memory clone of it bit for bit. `quantize_network(best,
+            data=[2 training batches])`: 37 int8 layers, 17 fallbacks, 36
+            folded BNs; one int8 forward launches B6's int8 route 37
+            times; each quantized layer equals B6's plain version from the
+            same input within 1e-6 of its largest value (an FMA's ulp),
+            the whole forward of 4 rows equals the CPU twin through the
+            plain version within 5e-2 (softmax) with its top-1; int8 top-1
+            agrees with the fp best model on ≥ 0.95 of 256 held-out
+            images. 96 images from 8 threads through
+            `ParallelInference(BATCHED, batchLimit=32)` with the bucket
+            ladder: answers within 5e-2 of `output()` with its top-1, 37
+            int8 launches a forward; the head's activation scale
+            recalibrated in place (×1.25): answers change, no capture.
+            Printed: fp and int8 B=32 forwards through their graphs in
+            turns, the fine-tune step's ms; with --profile, both forwards'
+            device time by group (B6 int8, the quantize passes, cuDNN) and
+            idle share. It runs after the resilience phase.
 
 Phases 5, 7 and 8 run as a user runs them: the server and `fit` replay
 CUDA graphs on the card by default. The kernels' launch counters are set
@@ -329,8 +366,8 @@ graphs phase, each server of the chaos phase, each run of the fleet
 phase and each path of the rnn phase) and read just after; a replay adds
 the launches its capture recorded. The mln phase and the rnn phase's LSTM
 paths run none of them: their counts are read and must stay 0. The zoo,
-layers and resilience phases' counts are set to 0 before each of their
-paths. Every
+layers, resilience and quant phases' counts are set to 0 before each of
+their paths. Every
 number is measured in this run; the last lines are the kernel JSON object
 and the `{"ok": true, "device": ...}` line. Imports nothing of JAX.
 """
@@ -355,7 +392,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from deeplearning4j_tpu_torch.datasets import (DataSet, ListDataSetIterator,
+from deeplearning4j_tpu_torch.datasets import (ArrayDataSetIterator,
+                                               DataSet, ListDataSetIterator,
                                                MnistDataSetIterator)
 from deeplearning4j_tpu_torch.generation import (BertDecoder,
                                                  GenerationServer,
@@ -412,7 +450,24 @@ from deeplearning4j_tpu_torch.nn.conf.weightnoise import (DropConnect,
                                                           WeightNoise)
 from deeplearning4j_tpu_torch.parallel.inference import (InferenceMode,
                                                          ParallelInference)
-from deeplearning4j_tpu_torch.quantize import cache_page_bytes, quantize_rows
+from deeplearning4j_tpu_torch.optimize import (
+    DataSetLossCalculator, EarlyStoppingConfiguration,
+    EarlyStoppingGraphTrainer, InMemoryModelSaver, LocalFileModelSaver,
+    MaxEpochsTerminationCondition, ScoreImprovementEpochTerminationCondition,
+    ScoreIterationListener)
+from deeplearning4j_tpu_torch.quantize import (PrecisionPolicy,
+                                               QuantizedConv1x1,
+                                               QuantizedDense,
+                                               cache_page_bytes,
+                                               quantize_network,
+                                               quantize_rows)
+from deeplearning4j_tpu_torch.quantize.infer import (
+    QuantizedComputationGraph, recalibrate)
+from deeplearning4j_tpu_torch.transfer import (FineTuneConfiguration,
+                                               TransferLearning)
+from deeplearning4j_tpu_torch.ui import (InMemoryStatsStorage, StatsListener,
+                                         UIServer)
+from deeplearning4j_tpu_torch.util.model_serializer import ModelSerializer
 from deeplearning4j_tpu_torch import monitoring as mon
 from deeplearning4j_tpu_torch.monitoring import events as ev
 from deeplearning4j_tpu_torch.monitoring import memory as _mem
@@ -3956,10 +4011,12 @@ def _busy_us(spans):
 SETTLE_CYCLES, MARKER_CYCLES = 20_000_000, 1000
 
 
-def _profiled(what, run):
+def _profiled(what, run, groups=KERNEL_GROUPS):
     """Run `run()` under torch.profiler: the card's busy and idle share of
     the wall time, and device time by kernel group and by kernel name.
-    Returns (stats or None, what `run` returned). Only the card's activity
+    Returns (stats or None, what `run` returned). `groups`: (kernel-name
+    substring, group) pairs, the first match naming a kernel's group. Only
+    the card's activity
     is traced, and its raw events are read without building the
     profiler's event tree: host operator events would slow the host loop
     that the idle share measures, and the tree takes longer to build than
@@ -3998,7 +4055,7 @@ def _profiled(what, run):
         n, t = by_name.get(name, (0, 0.0))
         by_name[name] = (n + 1, t + dur)
         low = name.lower()
-        group = next((g for sub, g in KERNEL_GROUPS if sub in low), "other")
+        group = next((g for sub, g in groups if sub in low), "other")
         n, t = by_group.get(group, (0, 0.0))
         by_group[group] = (n + 1, t + dur)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
@@ -6234,6 +6291,541 @@ def phase_resilience():
     return out
 
 
+# -- phase 19: quant ----------------------------------------------------------
+#: fine-tune, then serve int8: ResNet-50 at its published width (224×224×3,
+#: 1000 classes, the resnet phase's BN draws) saved and restored as the
+#: "pretrained" source; a new head (Dense 2048 → `hidden`, relu, QAT int8;
+#: then a `classes`-way output) trained with everything up to res4_5_relu
+#: frozen, under early stopping, on a synthetic learnable task: class c's
+#: image is `signal` × its seeded pattern plus `noise` × N(0, 1). `train`
+#: batches an epoch, `held` held-out batches for the loss calculator, at
+#: most `epochs` epochs with a patience of `patience`; `calib` training
+#: batches calibrate the int8 twin; `agree` held-out images for the top-1
+#: agreement; `cpu_rows` rows through the CPU twin
+QUANT = dict(size=224, batch=32, classes=10, hidden=256, train=8, held=2,
+             epochs=5, patience=2, lr=0.01, seed=23, calib=2, agree=256, cpu_rows=4,
+             signal=1.0, noise=0.5, ladder=[1, 2, 4, 8, 16, 32], timed=10,
+             recal=1.25)
+QUANT_DIR = Path(__file__).resolve().parent / "build" / "quant"
+#: pairs the fusion marks in the fine-tuned net: res5's three _a, three _c
+#: and one _sc conv (frozen pairs are not fused)
+QUANT_PAIRS = 7
+#: the int8 twin: 36 1×1 convs (BN folded) + the QAT head; the stem and
+#: the 16 3×3 convs stay fp
+QUANT_STATS = {"int8_layers": 37, "fallbacks": 17, "folded_bns": 36}
+#: one quantized layer on the card against B6's plain version, from the
+#: same input: nvcc contracts acc·scale + shift into one FMA, the plain
+#: version rounds twice, so the two differ by at most an ulp of the output
+INT8_LAYER_RTOL = 1e-6
+#: the int8 forward on the card against the same network on the CPU
+#: through the plain version, and served answers against output(): an ulp
+#: of an epilogue (or of cuDNN's fp 3×3 convs against the CPU's, or
+#: between algorithms of two batch sizes) can move a later layer's
+#: quantized input by one int8 step, and such steps add up over 37
+#: layers; softmax outputs are held to this absolute tolerance (printed
+#: beside the int8 forward's own distance from the fp one) and the top-1
+#: must agree
+INT8_E2E_ATOL = 5e-2
+#: int8 top-1 against the fp best model on the `agree` held-out images
+INT8_AGREE = 0.95
+#: the int8 forward's device time by group (--profile): B6's int8 route
+#: and the quantize passes (x/s, round, clamp; the int8 cast is a copy)
+#: ahead of the table the other phases use
+QUANT_GROUPS = (("matmul_epilogue_kernel<signed char", "int8_matmul_epilogue"),
+                ("matmul_epilogue_kernel<int8", "int8_matmul_epilogue"),
+                ("div_true", "quantize (x/s, round, clamp)"),
+                ("round_kernel", "quantize (x/s, round, clamp)"),
+                ("clamp_scalar_kernel", "quantize (x/s, round, clamp)"),
+                ) + KERNEL_GROUPS
+
+
+def _quant_data(n, seed):
+    """`n` images of the synthetic task and their one-hot labels, drawn in
+    bulk: class c is QUANT["signal"] × pattern c + QUANT["noise"] ×
+    N(0, 1), the patterns fixed by QUANT["seed"]."""
+    k, hw = QUANT["classes"], QUANT["size"]
+    patterns = np.random.default_rng(QUANT["seed"]).standard_normal(
+        (k, hw, hw, 3), dtype=np.float32)
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, k, n)
+    x = rng.standard_normal((n, hw, hw, 3), dtype=np.float32)
+    x *= QUANT["noise"]
+    x += QUANT["signal"] * patterns[labels]
+    return x, np.eye(k, dtype=np.float32)[labels]
+
+
+class _QuantSaver(LocalFileModelSaver):
+    """LocalFileModelSaver that also keeps the best model in memory (a
+    clone), so the restored archive can be held against it."""
+
+    def __init__(self, directory):
+        super().__init__(directory, device=DEV)
+        self.memory = InMemoryModelSaver()
+
+    def saveBestModel(self, net, score):
+        super().saveBestModel(net, score)
+        self.memory.saveBestModel(net, score)
+
+
+def _snapshot(tree, names=None):
+    return {n: {k: v.clone() for k, v in d.items()} for n, d in tree.items()
+            if names is None or n in names}
+
+
+def _equal_trees(a, b):
+    """The names whose tensors differ (empty: bit for bit equal)."""
+    return [f"{n}/{k}" for n in a for k in a[n]
+            if not torch.equal(a[n][k], b[n][k])]
+
+
+def _quant_source():
+    """ResNet-50 with the resnet phase's BN draws, saved and restored
+    through ModelSerializer: the pretrained source."""
+    QUANT_DIR.mkdir(parents=True, exist_ok=True)
+    hw = QUANT["size"]
+    net = ResNet50(updater=Nesterovs(0.01, 0.9),
+                   inputShape=(hw, hw, 3)).init(DEV)
+    _perturb_bn(net, RESNET["seed"])
+    path = str(QUANT_DIR / "source.zip")
+    t0 = time.perf_counter()
+    ModelSerializer.writeModel(net, path)
+    src = ModelSerializer.restoreComputationGraph(path, device=DEV)
+    bad = _equal_trees(net._params, src._params) + _equal_trees(
+        net._state, src._state)
+    if bad:
+        raise AssertionError(f"quant: the restored source differs: {bad[:4]}")
+    log(f"[quant] source ResNet-50 saved and restored in "
+        f"{time.perf_counter() - t0:.2f} s ({os.path.getsize(path)} bytes)")
+    return src
+
+
+def _quant_transfer(src):
+    """The fine-tune network: res5 and a new QAT head trainable, the rest
+    frozen, built with the fusion on."""
+    ftc = (FineTuneConfiguration.Builder()
+           .updater(Nesterovs(QUANT["lr"], 0.9)).build())
+    head = DenseLayer(nIn=2048, nOut=QUANT["hidden"], activation="relu",
+                      precisionPolicy=PrecisionPolicy.int8())
+    out = OutputLayer(nIn=QUANT["hidden"], nOut=QUANT["classes"],
+                      lossFunction="mcxent", activation="softmax")
+    with _fusion(True):
+        net = (TransferLearning.GraphBuilder(src).fineTuneConfiguration(ftc)
+               .setFeatureExtractor("res4_5_relu")
+               .removeVertexAndConnections("fc")
+               .addLayer("head", head, "avgpool")
+               .addLayer("out", out, "head")
+               .setOutputs("out").build())
+    if len(net._fused_pairs) != QUANT_PAIRS:
+        raise AssertionError(f"quant: {len(net._fused_pairs)} fused pairs "
+                             f"in the fine-tune net, expected {QUANT_PAIRS}")
+    frozen = sorted(n for n, nd in net.conf.nodes.items()
+                    if nd.kind == "layer" and getattr(nd.ref, "frozen",
+                                                      False))
+    return net, frozen
+
+
+def _http_json(port, path):
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=30) as r:
+        return json.loads(r.read())
+
+
+def _quant_finetune(net, frozen, train, held):
+    """Early stopping over the synthetic task, with a ScoreIterationListener
+    and a StatsListener into a storage that a UIServer serves. Returns
+    (the saver, the result, gates and numbers)."""
+    saver = _QuantSaver(str(QUANT_DIR / "es"))
+    train_it = ArrayDataSetIterator(*train, QUANT["batch"])
+    held_it = ArrayDataSetIterator(*held, QUANT["batch"])
+    cfg = (EarlyStoppingConfiguration.Builder()
+           .epochTerminationConditions(
+               MaxEpochsTerminationCondition(QUANT["epochs"]),
+               ScoreImprovementEpochTerminationCondition(QUANT["patience"]))
+           .scoreCalculator(DataSetLossCalculator(held_it, True))
+           .modelSaver(saver).build())
+    storage = InMemoryStatsStorage()
+    # activation histograms on the first record only: a histogram of every
+    # node of a B=32 ResNet-50 forward copies gigabytes to the host
+    stats = StatsListener(storage, activationFrequency=10 ** 6)
+    net.setListeners(ScoreIterationListener(
+        QUANT["train"], log_fn=lambda s: log(f"[quant] {s}")), stats)
+    ui = UIServer()
+    ui.attach(storage)
+    ui.start(port=0)
+    try:
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        result = EarlyStoppingGraphTrainer(cfg, net, train_it).fit()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counts()
+        records = _http_json(ui.port, "/stats")
+    finally:
+        ui.stop()
+    iters = net.getIterationCount()
+    out = {"epochs": result.totalEpochs, "best_epoch": result.bestModelEpoch,
+           "best_score": result.bestModelScore,
+           "score_vs_epoch": result.scoreVsEpoch,
+           "reason": result.terminationReason,
+           "details": result.terminationDetails, "iterations": iters,
+           "seconds": wall, "launches": launches}
+    it_ms = [r["iterationTimeMs"] for r in records
+             if r.get("iterationTimeMs") is not None]
+    log(f"[quant] early stopping: {result}; {iters} iterations in "
+        f"{wall:.1f} s (median {float(np.median(it_ms)):.1f} ms between "
+        "records, listeners and the epoch ends' scoring and saves "
+        "included); held-out loss by epoch "
+        + ", ".join(f"{e}: {s:.6f}" for e, s in result.scoreVsEpoch.items()))
+    for k in TRAIN_KERNELS:
+        if launches[k] != QUANT_PAIRS * iters:
+            raise AssertionError(f"quant: {k} launched {launches[k]} times "
+                                 f"in {iters} steps, expected "
+                                 f"{QUANT_PAIRS} a step")
+    if len(records) != iters or [r["iteration"] for r in records] != list(
+            range(1, iters + 1)):
+        raise AssertionError(f"quant: GET /stats gave {len(records)} "
+                             f"records for {iters} iterations")
+    frozen_keys = {f"{n}_" for n in frozen}
+    zero, moved = 0, 0
+    for r in records[1:]:
+        for k, v in r["updateRatios"].items():
+            is_frozen = any(k.startswith(p) for p in frozen_keys)
+            if is_frozen and v != 0.0:
+                raise AssertionError(f"quant: frozen {k} update ratio {v} "
+                                     f"at iteration {r['iteration']}")
+            if not is_frozen and not v > 0.0:
+                raise AssertionError(f"quant: trained {k} update ratio {v} "
+                                     f"at iteration {r['iteration']}")
+            zero += is_frozen
+            moved += not is_frozen
+    hist = records[0].get("activationHistograms") or {}
+    if not hist:
+        raise AssertionError("quant: the first stats record has no "
+                             "activation histograms")
+    out["stats"] = {"records": len(records), "zero_ratios": zero,
+                    "nonzero_ratios": moved, "histograms": len(hist)}
+    log(f"[quant] GET /stats: {len(records)} records, update ratios "
+        f"exactly 0 for the frozen parameters ({zero}) and > 0 for res5 "
+        f"and the head ({moved}); {len(hist)} activation histograms on the "
+        "first record")
+    return saver, result, out
+
+
+def _quantized_nodes(q):
+    return [n for n in q.conf.topo_order
+            if isinstance(q.nodes[n].ref, (QuantizedConv1x1,
+                                           QuantizedDense))]
+
+
+def _quant_vs_plain(q, best, x):
+    """Each quantized layer of the card's forward against B6's plain
+    version from the same input, and the whole forward against the same
+    network on the CPU through the plain version (beside the int8
+    forward's distance from the fp `best`'s)."""
+    with torch.no_grad():
+        acts = {k: v.tensor for k, v in q.feedForward(x).items()}
+        worst = (-1.0, None)
+        for name in _quantized_nodes(q):
+            node = q.nodes[name]
+            plain = copy.copy(node.ref)
+            plain.impl = "dot"
+            want, _ = plain.apply({k: v.cpu() for k, v in
+                                   q._params[name].items()}, {},
+                                  acts[node.inputs[0]].cpu())
+            err = (acts[name].cpu() - want).abs().max().item() / max(
+                1.0, want.abs().max().item())
+            worst = max(worst, (err, name), key=lambda t: t[0])
+        if worst[0] > INT8_LAYER_RTOL:
+            raise AssertionError(f"quant: {worst[1]} on the card differs from"
+                                 f" the plain version by {worst[0]:.3g} of "
+                                 f"its largest value > {INT8_LAYER_RTOL}")
+        cpu = QuantizedComputationGraph(copy.deepcopy(q.conf), "cpu")
+        for name in _quantized_nodes(cpu):
+            cpu.nodes[name].ref.impl = "dot"
+        cpu._params = {n: {k: v.cpu() for k, v in d.items()}
+                       for n, d in q._params.items()}
+        cpu._state = {n: {k: v.cpu() for k, v in d.items()}
+                      for n, d in q._state.items()}
+        got = q.output(x).tensor.cpu()
+        want = cpu.output(x).tensor
+        fp = best.output(x).tensor.cpu()
+    e2e = (got - want).abs().max().item()
+    vs_fp = (got - fp).abs().max().item()
+    if e2e > INT8_E2E_ATOL or not torch.equal(got.argmax(-1),
+                                              want.argmax(-1)):
+        raise AssertionError(f"quant: the int8 forward on the card differs "
+                             f"from the plain version on the CPU by {e2e} "
+                             f"(atol {INT8_E2E_ATOL}) or in its top-1")
+    log(f"[quant] int8 forward on the card against B6's plain version: "
+        f"largest per-layer difference {worst[0]:.3g} of the layer's "
+        f"largest value ({worst[1]}; tol {INT8_LAYER_RTOL}); whole "
+        f"forward of {x.shape[0]} rows against the CPU twin: largest "
+        f"|Δ softmax| {e2e:.3g} (atol {INT8_E2E_ATOL}), top-1 equal; the "
+        f"int8 forward against the fp one: {vs_fp:.3g}")
+    return {"layer_rel_err": worst[0], "layer": worst[1], "e2e_abs_err": e2e,
+            "int8_vs_fp_abs": vs_fp}
+
+
+def _quant_serve(q, images, sizes, head_scale):
+    """The requests through ParallelInference(BATCHED, batchLimit=32) with
+    the bucket ladder, twice in one store: before and after a
+    recalibration of the head's activation scale written in place."""
+    off = np.concatenate([[0], np.cumsum(sizes)])
+    pi = (ParallelInference.Builder(q).inferenceMode(InferenceMode.BATCHED)
+          .batchLimit(QUANT["batch"]).bucketLadder(QUANT["ladder"]).build())
+
+    def serve():
+        answers, errs = [None] * len(sizes), []
+        nxt, lock = [0], threading.Lock()
+
+        def client():
+            while True:
+                with lock:
+                    i = nxt[0]
+                    nxt[0] += 1
+                if i >= len(sizes):
+                    return
+                try:
+                    answers[i] = pi.output(images[off[i]:off[i + 1]])
+                except Exception as e:  # noqa: BLE001 — re-raised below
+                    errs.append(e)
+                    return
+        threads = [threading.Thread(target=client)
+                   for _ in range(RESNET["threads"])]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if errs or any(t.is_alive() for t in threads):
+            raise AssertionError(f"quant: serving failed: {errs}")
+        return answers
+
+    def check(answers, what):
+        worst = 0.0
+        for i, a in enumerate(answers):
+            want = q.output(images[off[i]:off[i + 1]]).tensor.cpu().numpy()
+            worst = max(worst, float(np.abs(a - want).max()))
+            if not np.array_equal(a.argmax(-1), want.argmax(-1)):
+                raise AssertionError(f"quant: {what}: request {i}'s top-1 "
+                                     "differs from output()")
+        if worst > INT8_E2E_ATOL:
+            raise AssertionError(f"quant: {what}: answers differ from "
+                                 f"output() by {worst} > {INT8_E2E_ATOL}")
+        return worst
+
+    try:
+        warm = pi.warmup()
+        torch.cuda.synchronize()
+        _reset_counts()
+        calls = pi.model_calls
+        t0 = time.perf_counter()
+        first = serve()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counts()
+        forwards = pi.model_calls - calls
+        before = pi.status()["executables"]
+        err = check(first, "serving")
+        recalibrate(q, {"head": head_scale * QUANT["recal"]})
+        second = serve()
+        after = pi.status()["executables"]
+        err2 = check(second, "serving after the recalibration")
+    finally:
+        pi.shutdown()
+    moved = max(float(np.abs(a - b).max()) for a, b in zip(first, second))
+    if not moved > 0:
+        raise AssertionError("quant: the recalibration changed no answer")
+    for k in ("captures", "live_captures", "rebinds", "degradations"):
+        if after[k] != before[k]:
+            raise AssertionError(f"quant: the recalibration moved the "
+                                 f"store's {k}: {before[k]} -> {after[k]}")
+    if after["capture"] and after["eager_calls"]:
+        raise AssertionError(f"quant: {after['eager_calls']} eager calls in "
+                             "a capturing store")
+    if launches["int8_matmul_epilogue"] != QUANT_STATS["int8_layers"] \
+            * forwards:
+        raise AssertionError(f"quant: {launches['int8_matmul_epilogue']} "
+                             f"int8 launches in {forwards} served forwards")
+    log(f"[quant] int8 serving: {sum(sizes)} images in {len(sizes)} "
+        f"requests from {RESNET['threads']} threads through the bucket "
+        f"ladder: {forwards} forwards in {wall:.3f} s "
+        f"({sum(sizes) / wall:.1f} images/s), "
+        f"{launches['int8_matmul_epilogue']} int8 launches; answers within "
+        f"{err:.3g} of output(); after a recalibration of the head's scale "
+        f"(×{QUANT['recal']}, written in place): answers moved by up to "
+        f"{moved:.3g}, within {err2:.3g} of output(), captures "
+        f"{before['captures']} -> {after['captures']}")
+    return {"warmup": warm, "forwards": forwards, "wall_s": wall,
+            "images_per_s": sum(sizes) / wall, "launches": launches,
+            "max_abs_vs_output": err, "recal_moved": moved,
+            "recal_max_abs_vs_output": err2, "captures": after["captures"]}
+
+
+def _quant_times(best, q, x, net, batches, profile):
+    """fp against int8 B=32 forwards through their graphs, in turns; the
+    fine-tune step through its graph; with `profile`, the int8 forward's
+    device time by group."""
+    stores, keys = {}, {}
+    sig = ((tuple(x.shape), "float32"),)
+    for what, m in (("fp", best), ("int8", q)):
+        st = ExecutableStore(m)
+        st.warmup([sig])
+        st.ensure(sig)[0].copy_(torch.as_tensor(x, device=DEV))
+        stores[what], keys[what] = st, ("forward", sig)
+    ms = {"fp": [], "int8": []}
+    for what in ("fp", "int8", "int8", "fp"):
+        ms[what].append(time_ms(lambda: stores[what].run(keys[what])))
+    log(f"[quant] B=32 forward through its graph, in turns fp, int8, int8, "
+        f"fp: fp {ms['fp'][0]:.3f}/{ms['fp'][1]:.3f} ms, int8 "
+        f"{ms['int8'][0]:.3f}/{ms['int8'][1]:.3f} ms")
+    net.setListeners()
+    for ds in batches[:2]:
+        net.fit(ds)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    for i in range(QUANT["timed"]):
+        net.fit(batches[i % len(batches)])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / QUANT["timed"]
+    launches = _counts()
+    log(f"[quant] fine-tune step through its graph: {step_ms:.2f} ms/step "
+        f"over {QUANT['timed']} steps (B=32; "
+        + ", ".join(f"{k} {launches[k]}" for k in TRAIN_KERNELS) + ")")
+    out = {"fp_ms": ms["fp"], "int8_ms": ms["int8"], "step_ms": step_ms,
+           "step_launches": launches}
+    if profile:
+        out["profile"], _ = _profiled(
+            "int8 ResNet-50 forward B=32 (graph, 3 replays)",
+            lambda: [stores["int8"].run(keys["int8"]) for _ in range(3)],
+            QUANT_GROUPS)
+        out["profile_fp"], _ = _profiled(
+            "fp ResNet-50 forward B=32 (graph, 3 replays)",
+            lambda: [stores["fp"].run(keys["fp"]) for _ in range(3)],
+            QUANT_GROUPS)
+    return out
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    was = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = was
+
+
+def phase_quant(profile=False):
+    """Fine-tune, then serve int8 (phase 19); the launch counts are set to
+    0 before each path and read after it."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    q_b, n_train, n_held = QUANT["batch"], QUANT["train"], QUANT["held"]
+    x, y = _quant_data(q_b * (n_train + n_held), QUANT["seed"] + 1)
+    train = (x[:q_b * n_train], y[:q_b * n_train])
+    held = (x[q_b * n_train:], y[q_b * n_train:])
+    out = {}
+    with _no_tf32():
+        src = _quant_source()
+        src_before = (_snapshot(src._params), _snapshot(src._state))
+        net, frozen = _quant_transfer(src)
+        frozen_before = (_snapshot(net._params, frozen),
+                         _snapshot(net._state, frozen))
+        saver, result, out["finetune"] = _quant_finetune(net, frozen, train,
+                                                          held)
+        bad = (_equal_trees(frozen_before[0], net._params)
+               + _equal_trees(frozen_before[1], net._state))
+        if bad:
+            raise AssertionError(f"quant: frozen tensors moved: {bad[:4]}")
+        bad = (_equal_trees(src_before[0], src._params)
+               + _equal_trees(src_before[1], src._state))
+        if bad:
+            raise AssertionError(f"quant: the source moved: {bad[:4]}")
+        log(f"[quant] {len(frozen)} frozen layers bit for bit unchanged "
+            f"after {net.getIterationCount()} steps; the source equals its "
+            "values before the fine-tune")
+        del src, src_before
+        with _fusion(True):
+            best = saver.getBestModel()
+        mem = saver.memory.getBestModel()
+        bad = (_equal_trees(mem._params, best._params)
+               + _equal_trees(mem._state, best._state))
+        if bad:
+            raise AssertionError(f"quant: the restored best model differs "
+                                 f"from the in-memory best: {bad[:4]}")
+        del mem, saver.memory
+        log(f"[quant] the restored best model (epoch "
+            f"{result.bestModelEpoch}) equals the in-memory best bit for "
+            f"bit; {len(best._fused_pairs)} fused pairs")
+        calib = [train[0][i * q_b:(i + 1) * q_b]
+                 for i in range(QUANT["calib"])]
+        t0 = time.perf_counter()
+        q = quantize_network(best, data=calib)
+        rewrite_s = time.perf_counter() - t0
+        got = {k: q._quant_stats[k] for k in QUANT_STATS}
+        if got != QUANT_STATS:
+            raise AssertionError(f"quant: _quant_stats {got}, expected "
+                                 f"{QUANT_STATS}")
+        log(f"[quant] quantize_network in {rewrite_s:.2f} s: "
+            f"{q._quant_stats['int8_layers']} int8 layers, "
+            f"{q._quant_stats['fallbacks']} fallbacks, "
+            f"{q._quant_stats['folded_bns']} folded BNs, "
+            f"{q._quant_stats['chains']} chains")
+        ax, ay = _quant_data(QUANT["agree"], QUANT["seed"] + 2)
+        x32 = ax[:q_b]
+        with torch.no_grad():
+            q.output(x32)
+            torch.cuda.synchronize()
+            _reset_counts()
+            q.output(x32)
+            torch.cuda.synchronize()
+            one = _counts()
+        if one["int8_matmul_epilogue"] != QUANT_STATS["int8_layers"]:
+            raise AssertionError(f"quant: one int8 forward launched "
+                                 f"{one['int8_matmul_epilogue']} int8 "
+                                 "epilogues, expected "
+                                 f"{QUANT_STATS['int8_layers']}")
+        out["vs_plain"] = _quant_vs_plain(q, best, ax[:QUANT["cpu_rows"]])
+        with torch.no_grad():
+            fp_top = torch.cat([best.output(ax[i:i + q_b]).tensor.argmax(-1)
+                                for i in range(0, len(ax), q_b)])
+            q_top = torch.cat([q.output(ax[i:i + q_b]).tensor.argmax(-1)
+                               for i in range(0, len(ax), q_b)])
+        agree = float((fp_top == q_top).float().mean())
+        acc = float((q_top.cpu() == torch.as_tensor(ay.argmax(-1)))
+                    .float().mean())
+        fp_acc = float((fp_top.cpu() == torch.as_tensor(ay.argmax(-1)))
+                       .float().mean())
+        log(f"[quant] top-1 on {len(ax)} held-out images: int8 agrees with "
+            f"fp on {agree:.4f} (gate {INT8_AGREE}); accuracy fp {fp_acc:.4f},"
+            f" int8 {acc:.4f}")
+        if agree < INT8_AGREE:
+            raise AssertionError(f"quant: int8/fp top-1 agreement {agree}")
+        sizes = _resnet_requests()[0]
+        images = _quant_data(sum(sizes), QUANT["seed"] + 3)[0]
+        head_scale = float(q._params["head"]["x_scale"])
+        out["serving"] = _quant_serve(q, images, sizes, head_scale)
+        out["times"] = _quant_times(best, q, x32, net,
+                                    [DataSet(train[0][i * q_b:(i + 1) * q_b],
+                                             train[1][i * q_b:(i + 1) * q_b])
+                                     for i in range(n_train)], profile)
+    out.update({"stats": got, "one_forward": one, "agree": agree,
+                "accuracy_int8": acc, "accuracy_fp": fp_acc,
+                "rewrite_s": rewrite_s,
+                "launches": {"int8_matmul_epilogue":
+                             out["serving"]["launches"][
+                                 "int8_matmul_epilogue"],
+                             **{k: out["finetune"]["launches"][k]
+                                for k in TRAIN_KERNELS}}})
+    shutil.rmtree(QUANT_DIR, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[quant] the phase {out['seconds']:.1f} s")
+    return out
+
+
 def kernel_line(rows, launches, launches_from):
     """The per-kernel JSON object: each kernel's numbers at its
     representative case, its launches (from the main path's run where it
@@ -6266,14 +6858,14 @@ def main(argv=None):
     ap.add_argument("--only",
                     choices=["kernels", "resnet", "graphs", "paged",
                              "chaos", "fleet", "mln", "rnn", "zoo",
-                             "layers", "resilience"],
+                             "layers", "resilience", "quant"],
                     default=None,
                     help="stop after the kernel checks, or run the resnet "
                          "serving and training phases right after them, or "
                          "run the graphs, the paged, the chaos, the fleet, "
-                         "the mln, the rnn, the zoo, the layers or the "
-                         "resilience phase alone after the build (bring-up "
-                         "runs)")
+                         "the mln, the rnn, the zoo, the layers, the "
+                         "resilience or the quant phase alone after the "
+                         "build (bring-up runs)")
     ap.add_argument("--profile", action="store_true",
                     help="after the resnet phases, profile the serving "
                          "workload, three fine-tune steps, one ResNet-50 "
@@ -6282,7 +6874,8 @@ def main(argv=None):
                          "with the mln phase, VGG16's step and forward; "
                          "with the rnn phase, the TBPTT batch and the "
                          "LSTM server; with the layers phase, CapsNet's "
-                         "steps")
+                         "steps; with the quant phase, the int8 and fp "
+                         "ResNet-50 forwards")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -6311,7 +6904,7 @@ def main(argv=None):
             f"{k} {v:.1f}" for k, v in seconds.items()))
         return 0
     if args.only in ("chaos", "fleet", "mln", "rnn", "zoo", "layers",
-                     "resilience"):
+                     "resilience", "quant"):
         if args.only == "mln":
             out = timed("mln", phase_mln, args.profile)
         elif args.only == "rnn":
@@ -6322,6 +6915,8 @@ def main(argv=None):
             out = timed("layers", phase_layers, args.profile)
         elif args.only == "resilience":
             out = timed("resilience", phase_resilience)
+        elif args.only == "quant":
+            out = timed("quant", phase_quant, args.profile)
         else:
             cfg = bert_base()
             phase = phase_chaos if args.only == "chaos" else phase_fleet
@@ -6371,20 +6966,22 @@ def main(argv=None):
     zoo = timed("zoo", phase_zoo)
     layers = timed("layers", phase_layers, args.profile)
     resilience = timed("resilience", phase_resilience)
+    quant = timed("quant", phase_quant, args.profile)
     prof = (timed("profile", phase_profile, cfg, params, resnet_net,
                   resnet_x, train_net, train_ds) if args.profile else None)
     # each kernel's launches from the path that carries it: the forward and
     # decode kernels from serving, the backward pair from training, the
-    # epilogue GEMM from ResNet serving; the int8 epilogue and the
-    # bottleneck block are entry points no served model calls, so theirs
-    # come from the kernel phase and from the res4 check
+    # epilogue GEMM from ResNet serving, the int8 epilogue from the int8
+    # ResNet-50's serving; the bottleneck block and the layer norm are
+    # entry points no model calls, so theirs come from the res4 check and
+    # from the kernel phase
     launches = {k: serving["launches"][k]
                 for k in ("flash_fwd", "flash_decode")}
     launches.update({k: train["launches"][k]
                      for k in ("flash_bwd_dq", "flash_bwd_dkv")})
     launches["matmul_epilogue"] = resnet["launches"]["matmul_epilogue"]
     launches["int8_matmul_epilogue"] = \
-        kernel_launches["int8_matmul_epilogue"]
+        quant["launches"]["int8_matmul_epilogue"]
     launches["bottleneck_block"] = resnet["res4_block"]["launches"]
     launches.update({k: resnet_train["launches"][k] for k in TRAIN_KERNELS})
     launches["fused_layernorm"] = kernel_launches["fused_layernorm"]
@@ -6393,8 +6990,9 @@ def main(argv=None):
                      "timed steps)", "flash_bwd_dkv": "bert training (10 "
                      "timed steps)", "matmul_epilogue": "resnet serving "
                      f"({resnet['forwards']} forwards)",
-                     "int8_matmul_epilogue": "kernel phase (checks and "
-                     "timing; no served model calls it)",
+                     "int8_matmul_epilogue": "int8 ResNet-50 serving "
+                     f"({quant['serving']['forwards']} forwards, 37 "
+                     "quantized layers each)",
                      "bottleneck_block": "resnet res4_1 check (no served "
                      "model calls it)",
                      "fused_layernorm": "kernel phase (checks and timing; "
@@ -6433,6 +7031,13 @@ def main(argv=None):
                 if row["name"] == "matmul_epilogue" else
                 f"guarded ResNet-50 fused graph arm ({RESIL['steps']} timed "
                 "steps)")
+        if row["name"] in TRAIN_KERNELS:
+            # this slice's path: the fine-tune's graphed steps under early
+            # stopping (7 unfrozen pairs)
+            row["launches_quant"] = quant["launches"][row["name"]]
+            row["launches_quant_from"] = (
+                f"ResNet-50 fine-tune ({quant['finetune']['iterations']} "
+                "graphed steps)")
     (OUT_DIR / "smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "kernels": rows,
          "step36": step36, "fwd36": fwd36, "bert_step12": step12,
@@ -6441,7 +7046,7 @@ def main(argv=None):
          "resnet": resnet, "resnet_train": resnet_train, "graphs": graphs,
          "paged": paged, "chaos": chaos, "fleet": fleet, "mln": mln,
          "rnn": rnn, "zoo": zoo, "layers": layers,
-         "resilience": resilience, "profile": prof,
+         "resilience": resilience, "quant": quant, "profile": prof,
          "line": line,
          "phase_seconds": seconds, "seconds": time.perf_counter() - t0},
         indent=1, default=str))

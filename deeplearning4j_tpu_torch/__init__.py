@@ -24,10 +24,15 @@ loss, dropout object, constraint and gradient accumulation, shared with
 `ComputationGraph`), the `eval/` evaluators, the DataSetIterators and the
 zoo's `.list()` CNNs (LeNet, SimpleCNN, AlexNet, VGG16, VGG19, Darknet19);
 the recurrent and attention networks; the zoo's graph models; every layer
-family of the JAX package's `nn/conf/` but the frozen wrappers; and the
-configuration JSON and model archives of `util/serde.py`,
+family of the JAX package's `nn/conf/`, the frozen wrappers among them;
+the configuration JSON and model archives of `util/serde.py`,
 `util/model_serializer.py` and `util/model_guesser.py`, which the JAX
-package reads and writes too.
+package reads and writes too; training that survives faults
+(`resilience/`); and the fine-tune-then-serve-int8 front end: QAT and the
+int8 rewrite of `quantize/` (`quantize_network`, served through
+`int8_matmul_epilogue` on the card), transfer learning (`transfer/`),
+early stopping and the training listeners (`optimize/`) and
+`ui.StatsListener` with its storages.
 """
 from deeplearning4j_tpu_torch.device import resolve
 

@@ -1,11 +1,13 @@
 """The port's `nn/`: the builder DSL, every layer and vertex of the JAX
-package's `nn/conf/` but the frozen ones (the convolutional, 1-D and 3-D
-families, the YOLOv2 head and the center loss, the recurrent, sequence
-and attention layers, the locally connected layers, the autoencoders, the
-capsules, weight noise and the custom SameDiff layers), the conv1x1+BN
-fusion pass, `ComputationGraph`, `MultiLayerNetwork` and the training
-surface they share: updaters, schedules, losses, dropout objects,
-constraints and gradient accumulation."""
+package's `nn/conf/` (the convolutional, 1-D and 3-D families, the YOLOv2
+head and the center loss, the recurrent, sequence and attention layers,
+the locally connected layers, the autoencoders, the capsules, weight
+noise, the custom SameDiff layers and the frozen wrappers
+`layers.FrozenLayer`, `layers.FrozenLayerWithBackprop` and
+`graph_vertices.FrozenVertex`), the conv1x1+BN fusion pass,
+`ComputationGraph`, `MultiLayerNetwork` and the training surface they
+share: updaters, schedules, losses, dropout objects, constraints and
+gradient accumulation."""
 from deeplearning4j_tpu_torch.nn.activations import Activation
 from deeplearning4j_tpu_torch.nn.conf import layers
 from deeplearning4j_tpu_torch.nn.conf.builders import (BackpropType,

@@ -89,9 +89,14 @@ def split_inputs(ins):
 
 def hook_params(layer, params, train, generator):
     """A layer's parameters as its forward sees them; both network classes
-    call it for every layer (≡ the JAX package's `_hook_params`): at train
-    time with a generator, a layer's `weightNoise` (WeightNoise,
-    DropConnect) replaces them by noised ones drawn from the generator."""
+    call it for every layer (≡ the JAX package's `_hook_params`): the
+    parameters of a layer with `frozen_params` (FrozenLayerWithBackprop)
+    are detached, so no gradient and no regularization reaches them while
+    gradients still flow through the layer's outputs; at train time with a
+    generator, a layer's `weightNoise` (WeightNoise, DropConnect) replaces
+    them by noised ones drawn from the generator."""
+    if getattr(layer, "frozen_params", False):
+        params = _detached(params)
     wn = getattr(layer, "weightNoise", None)
     if wn is not None and train and generator is not None:
         return wn.apply_to_params(params, generator)
@@ -171,11 +176,6 @@ def apply_layer(layer, params, state, x, train, generator, mask):
                        mask=mask)
 
 
-def later(cls, what, where):
-    return NotImplementedError(
-        f"{cls}: {what} is not ported yet; it comes with {where}")
-
-
 def to_device(tree, device):
     return {n: {k: v.to(device) for k, v in d.items()}
             for n, d in tree.items()}
@@ -251,6 +251,7 @@ class Network:
         self._guard_t = None     # the guarded step's (lr_scale, max_gnorm)
         self._guard_host = None  # ... as the host last wrote them
         self._listeners = []
+        self._last_features = None   # the last training batch's features
         self._score = None
         self._iteration = 0
         self._epoch = 0
@@ -563,15 +564,21 @@ class Network:
 
     def _train_step(self, batches, graphs=True):
         """`_run_step`, after building the optimizer and the dropout
-        generator on the first call; then the counters and the
-        listeners. The dispatch's fault site and watchdog heartbeat fire
-        first."""
+        generator on the first call; then the last batch's features
+        (`_last_features`), the counters and the listeners. The dispatch's
+        fault site and watchdog heartbeat fire first."""
         if _faults.ACTIVE is not None:
             _faults.ACTIVE.fire(_faults.TRAIN_DISPATCH)
         if _watchdog.ACTIVE is not None:
             _watchdog.ACTIVE.beat(self._beat_name())
         self._ensure_training()
         self._score = self._run_step(batches, graphs)
+        # the batch itself (never a graph's static input, which the next
+        # replay overwrites), for listeners that run a forward over it
+        # (StatsListener's activation histograms)
+        feats, _ = split_inputs(batches[-1][0])
+        self._last_features = feats if self._kind == "graph" \
+            else feats["input"]
         self._iteration += 1
         for listener in self._listeners:
             listener.iterationDone(self, self._iteration, self._epoch)

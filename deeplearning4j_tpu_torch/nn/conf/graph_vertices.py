@@ -7,8 +7,9 @@ recurrent vertices LastTimeStepVertex, DuplicateToTimeSeriesVertex and
 ReverseTimeSeriesVertex. Plain functions over one or more parent
 activations and the feature mask (B, T) of the first parent that has one;
 a vertex's `feed_forward_mask` is the mask its consumers see.
-`AttentionVertex`, which has parameters, lives in `attention.py`.
-FrozenVertex comes with transfer learning (ROADMAP A17).
+`AttentionVertex`, which has parameters, lives in `attention.py`;
+FrozenVertex wraps any vertex and detaches its parameters (transfer
+learning).
 """
 from __future__ import annotations
 
@@ -313,3 +314,32 @@ class ReverseTimeSeriesVertex(GraphVertex):
         src = (lengths[:, None] - 1 - pos).clamp(0, t - 1)       # (B, T)
         y = x.gather(1, src[:, :, None].expand(-1, -1, x.shape[-1]))
         return torch.where((pos < lengths[:, None])[:, :, None], y, 0)
+
+
+class FrozenVertex(GraphVertex):
+    """≡ conf.graph.FrozenVertex — wraps any vertex and blocks gradient
+    flow into its parameters (they are detached in the forward), while
+    activations still differentiate through to the layers upstream."""
+
+    def __init__(self, vertex=None):
+        if vertex is None:
+            raise ValueError("FrozenVertex requires a wrapped vertex")
+        self.inner = vertex
+
+    def output_type(self, *ts):
+        return self.inner.output_type(*ts)
+
+    # the parameterized-vertex protocol, only when the inner vertex has it
+    def __getattr__(self, name):
+        if name == "initialize" and hasattr(self.inner, "initialize"):
+            return self.inner.initialize
+        raise AttributeError(name)
+
+    def apply(self, *xs, params=None, mask=None):
+        if hasattr(self.inner, "initialize"):
+            frozen = {k: v.detach() for k, v in (params or {}).items()}
+            return self.inner.apply(*xs, params=frozen, mask=mask)
+        return self.inner.apply(*xs, mask=mask)
+
+    def feed_forward_mask(self, *parent_masks):
+        return self.inner.feed_forward_mask(*parent_masks)

@@ -16,14 +16,18 @@ OIHW at the call. `dropOut(p)` is the RETAIN probability, inverted
 dropout on the layer input at train time; `dropOut` also takes an
 `nn/dropout.py` object (GaussianDropout, AlphaDropout, ...).
 
-Every layer of the JAX package's `layers.py` is ported but the frozen
-wrappers (FrozenLayer, FrozenLayerWithBackprop: ROADMAP A17). The 2-D and
-3-D transposed convolutions compute what the JAX package's
-`lax.conv_transpose` computes (`conv_transpose`). The YOLOv2 head lives in
-`objdetect.py`; the locally connected layers, the autoencoders, the center
-loss and PermuteLayer in `special_layers.py`; the capsules, the 3-D family,
-weight noise and the custom SameDiff layers in `capsules.py`,
-`layers3d.py`, `weightnoise.py` and `samediff_layers.py`; the recurrent,
+Every layer of the JAX package's `layers.py` is ported, the frozen
+wrappers (FrozenLayer, FrozenLayerWithBackprop) among them. A layer's
+`precisionPolicy` (`quantize.PrecisionPolicy`) fake-quantizes the weights
+and the input of DenseLayer and ConvolutionLayer in the forward (QAT,
+straight-through gradients); `.precisionPolicy(None)` opts a layer out of
+an inherited one. The 2-D and 3-D transposed convolutions compute what the
+JAX package's `lax.conv_transpose` computes (`conv_transpose`). The
+YOLOv2 head lives in `objdetect.py`; the locally connected layers, the
+autoencoders, the center loss and PermuteLayer in `special_layers.py`;
+the capsules, the 3-D family, weight noise and the custom SameDiff layers
+in `capsules.py`, `layers3d.py`, `weightnoise.py` and `samediff_layers.py`;
+the recurrent,
 sequence and attention layers in `recurrent.py`, `sequence_layers.py` and
 `attention.py`. Every `apply` takes the (B, T) feature mask (`mask`,
 1 = valid), and `feed_forward_mask` gives the mask the next layer sees.
@@ -104,6 +108,24 @@ def _nhwc(y):
     return y.permute(0, 2, 3, 1)
 
 
+def _qat(layer, w, x):
+    """(w, x) as the layer's forward sees them under its precisionPolicy:
+    where the policy applies, QAT fake-quant (straight-through) of the
+    weights with per-output-channel scales on the last axis (W is (nIn,
+    nOut) or HWIO) and of the input with one per-tensor scale, so the fp
+    forward simulates the deployed int8 lattice."""
+    qp = getattr(layer, "precisionPolicy", None)
+    if qp is None or not qp.applies_to(layer):
+        return w, x
+    from deeplearning4j_tpu_torch.quantize.core import (fake_quant_act,
+                                                        fake_quant_weight)
+    if qp.weights:
+        w = fake_quant_weight(w, channel_axis=-1)
+    if qp.activations:
+        x = fake_quant_act(x).to(x.dtype)
+    return w, x
+
+
 class Layer:
     """Base layer config. Fields left None inherit NeuralNetConfiguration
     globals (applied by the builder in nn.conf.builders)."""
@@ -141,6 +163,13 @@ class Layer:
         self.weightDecay = weightDecay
         self.constraints = constraints
         self.weightNoise = kw.pop("weightNoise", None)
+        if "precisionPolicy" in kw and kw["precisionPolicy"] is None:
+            # the explicit per-layer opt-out: a literal None would read as
+            # "unset" and inherit the global policy right back, so it
+            # resolves to a disabled policy that shadows the inherited one
+            from deeplearning4j_tpu_torch.quantize.policy import \
+                PrecisionPolicy
+            kw["precisionPolicy"] = PrecisionPolicy.off()
         cw = kw.pop("constrainWeights", None)  # builder-method spelling
         if cw is not None:
             self.constraints = (list(cw) if isinstance(cw, (list, tuple))
@@ -247,11 +276,8 @@ class DenseLayer(Layer):
         return params, {}, self.output_type(input_type)
 
     def pre_activation(self, params, x):
-        if getattr(self, "precisionPolicy", None) is not None:
-            raise NotImplementedError(
-                "precisionPolicy (QAT fake-quant) comes with the int8 "
-                "slice (ROADMAP A13)")
-        y = x @ params["W"].to(x.dtype)
+        w, x = _qat(self, params["W"], x)
+        y = x @ w.to(x.dtype)
         if self.hasBias:
             y = y + params["b"].to(x.dtype)
         return y
@@ -467,11 +493,8 @@ class ConvolutionLayer(Layer):
                               dilation=self.dilation, groups=groups))
 
     def pre_activation(self, params, x):
-        if getattr(self, "precisionPolicy", None) is not None:
-            raise NotImplementedError(
-                "precisionPolicy (QAT fake-quant) comes with the int8 "
-                "slice (ROADMAP A13)")
-        y = self._conv(x, params["W"])
+        w, x = _qat(self, params["W"], x)
+        y = self._conv(x, w)
         if self.hasBias:
             y = y + params["b"].to(x.dtype)
         return y
@@ -1301,3 +1324,43 @@ class ElementWiseMultiplicationLayer(Layer):
         x = self._dropout_in(x, train, generator)
         return (get_activation(self.activation)(
             self.pre_activation(params, x)), state)
+
+
+def FrozenLayer(layer):
+    """≡ conf.layers.misc.FrozenLayer — a frozen copy of a layer config:
+    NoOp updates, no regularization, and the layer always runs in
+    inference mode during training (no dropout, BN running statistics
+    pinned). A flagged deep copy, so isinstance checks and preprocessor
+    inference still see the wrapped layer's own type."""
+    import copy
+
+    from deeplearning4j_tpu_torch.nn.updaters import NoOp
+    if isinstance(layer, _Builder):
+        layer = layer.build()
+    layer = copy.deepcopy(layer)
+    layer.frozen = True
+    layer.updater = NoOp()
+    layer.l1 = 0.0
+    layer.l2 = 0.0
+    layer.weightDecay = 0.0
+    return layer
+
+
+def FrozenLayerWithBackprop(layer):
+    """≡ conf.layers.misc.FrozenLayerWithBackprop — parameters frozen
+    (NoOp updates, and detached in the forward, so not even
+    regularization reaches them) while the layer keeps its train-time
+    behaviour (dropout stays on) and gradients still flow through its
+    outputs to everything upstream."""
+    import copy
+
+    from deeplearning4j_tpu_torch.nn.updaters import NoOp
+    if isinstance(layer, _Builder):
+        layer = layer.build()
+    layer = copy.deepcopy(layer)
+    layer.frozen_params = True
+    layer.updater = NoOp()
+    layer.l1 = 0.0
+    layer.l2 = 0.0
+    layer.weightDecay = 0.0
+    return layer

@@ -49,8 +49,9 @@ its activations in the backward (`nn._network.apply_layer`). With a
 segment runs its guarded variant (`fit_status()` keys "fit_guarded",
 "fit_accum_guarded", "fit_tbptt_guarded"); the fit loop fires the
 `train.dispatch` and `data.next` fault sites and beats the stall
-watchdog. Not ported yet, raising and naming its ROADMAP item: frozen
-layers (A17, transfer learning).
+watchdog. A frozen layer (FrozenLayer; transfer learning) runs in
+inference mode during training, as in the JAX package: no dropout, BN
+running statistics pinned.
 """
 from __future__ import annotations
 
@@ -64,7 +65,7 @@ from deeplearning4j_tpu_torch.nn._network import (Network, apply_layer,
                                                   as_tensor, batch_sig,
                                                   compute_dtype,
                                                   copy_into, hook_params,
-                                                  later, mask_key,
+                                                  mask_key,
                                                   pre_activation, to_device)
 from deeplearning4j_tpu_torch.nn.activations import get_activation
 from deeplearning4j_tpu_torch.nn.conf.builders import BackpropType
@@ -74,10 +75,6 @@ from deeplearning4j_tpu_torch.ops.ndarray import NDArray
 from deeplearning4j_tpu_torch.resilience import guardian as _guardian
 
 __all__ = ["MultiLayerNetwork"]
-
-
-def _later(what, where):
-    return later("MultiLayerNetwork", what, where)
 
 
 class MultiLayerNetwork(Network):
@@ -99,20 +96,12 @@ class MultiLayerNetwork(Network):
         return [(str(i), layer) for i, layer in enumerate(self.layers)]
 
     # -- lifecycle -------------------------------------------------------
-    def _check_layers(self):
-        for i, layer in enumerate(self.layers):
-            if getattr(layer, "frozen", False) or getattr(
-                    layer, "frozen_params", False):
-                raise _later(f"frozen layer {i}", "transfer learning "
-                             "(transfer/, ROADMAP A17)")
-
     def _draw(self):
         """(params, state) on the CPU, drawn in layer order from one
         generator seeded with conf.seed."""
         if self.conf.input_type is None:
             raise ValueError("setInputType(...) (or explicit nIn on every "
                              "layer) is required before init()")
-        self._check_layers()
         gen = torch.Generator().manual_seed(int(self.conf.seed))
         ps, ss = {}, {}
         for i, layer in enumerate(self.layers):
@@ -190,14 +179,16 @@ class MultiLayerNetwork(Network):
         new_carries = None if carries is None else {}
         preact = None
         for i, layer in enumerate(self.layers):
+            # frozen layers (transfer learning) always run inference-mode
+            ltrain = train and not getattr(layer, "frozen", False)
             pp = self.conf.preprocessors.get(i)
             if pp is not None:
                 x = pp.preProcess(x)
-            p = hook_params(layer, params.get(str(i), {}), train, generator)
+            p = hook_params(layer, params.get(str(i), {}), ltrain, generator)
             s = state.get(str(i), {})
             if i == len(self.layers) - 1 and hasattr(layer, "compute_loss") \
                     and hasattr(layer, "pre_activation"):
-                xd = layer._dropout_in(x, train, generator)
+                xd = layer._dropout_in(x, ltrain, generator)
                 preact = pre_activation(layer, p, xd, mask)
                 x = get_activation(layer.activation)(preact)
             elif carries is not None and getattr(layer, "is_recurrent",
@@ -207,11 +198,11 @@ class MultiLayerNetwork(Network):
                         f"rnnTimeStep/tbptt: {type(layer).__name__} (layer "
                         f"{i}) cannot run step-by-step (no carried state "
                         "protocol); use fit/output on whole sequences")
-                x = layer._dropout_in(x, train, generator)
+                x = layer._dropout_in(x, ltrain, generator)
                 x, new_carries[str(i)] = layer.scan_apply(
                     p, x, carries.get(str(i)), mask)
             else:
-                x, ns = apply_layer(layer, p, s, x, train, generator, mask)
+                x, ns = apply_layer(layer, p, s, x, ltrain, generator, mask)
                 if ns:
                     new_state[str(i)] = ns
             if mask is not None:

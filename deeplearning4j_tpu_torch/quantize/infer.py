@@ -1,0 +1,1001 @@
+"""Real int8 inference: the port of `deeplearning4j_tpu/quantize/infer.py`.
+
+`quantize_network(net)` takes a trained MultiLayerNetwork or
+ComputationGraph and returns an inference-only twin whose eligible layers
+(dense layers and pad-free 1×1 convolutions: the policy's `int8_servable`
+set) carry int8 weights with per-output-channel scales and run an int8
+contraction with a fused dequant+bias+activation epilogue. A 1×1 conv that
+feeds only a BatchNormalization absorbs the BN's inference affine into that
+epilogue (the BN node becomes a pass-through). Weight-bearing layers left
+fp are counted on `dl4j.quant.dequant_fallbacks`.
+
+Execution routes (`impl=`, default "auto": "dot" on a CUDA device, "chain"
+on the CPU; the JAX package picks "dot" only on a TPU, so each package
+takes its own accelerator's int8 route):
+
+- **"dot"** — per layer, the input is quantized in a plain elementwise
+  pass (x/s, rounded half to even, clipped, int8), then ONE launch of
+  `kernels.pointwise_conv.int8_matmul_epilogue` runs the int8 × int8 →
+  int32 contraction and the epilogue act(acc·scale + shift) in registers
+  (csrc/matmul_epilogue.cu on the card; on the CPU the same call takes the
+  kernel's plain version, exact f64 sums). The kernel applies identity or
+  relu; any other activation runs after an identity epilogue.
+- **"chain"** — maximal runs of quantized pointwise layers (with residual
+  adds and relu/identity activations between them) run as one plan: the
+  run's input is quantized once at entry, every GEMM, epilogue, add and
+  relu after that works on the dequantized f32 value, and nothing is
+  requantized until the run's output. The JAX package scans this over
+  tiles of CHAIN_TILE_ROWS rows to keep each tile cache-resident on the
+  CPU; every step works row by row, so the port runs a chain over all rows
+  at once and gets the same values. Plain torch: the JAX chain is a
+  `lax.scan`, not a Pallas kernel. On the card it runs only when asked
+  for (`impl="chain"`).
+
+The twin keeps the layer and node names and indices (folded BNs become
+`QuantPassthrough`) and carries what the serving stack reads (`conf`,
+`_params`, `_state`, `_device`, `_compute_dtype`, `_fused_pairs`,
+`output`, `_output`), so `ExecutableStore` and `ParallelInference` serve it
+like any model; its fingerprint differs from the fp model's. Its
+parameters are copies, never aliases of the source's (the source's
+graphed fit writes its own tensors in place). `x_scale` is a 0-d tensor
+among a layer's parameters: `recalibrate` writes it, and the epilogue
+scale that holds it, in place, so a captured CUDA graph reads the new
+scale without a recapture.
+"""
+from __future__ import annotations
+
+import copy
+
+import numpy as np
+import torch
+
+from deeplearning4j_tpu_torch import monitoring as _mon
+from deeplearning4j_tpu_torch.kernels.pointwise_conv import \
+    int8_matmul_epilogue
+from deeplearning4j_tpu_torch.nn._network import clone_tree
+from deeplearning4j_tpu_torch.nn.activations import get_activation
+from deeplearning4j_tpu_torch.quantize import calibrate as _cal
+from deeplearning4j_tpu_torch.quantize.core import (dequant_epilogue,
+                                                    per_channel_scales,
+                                                    quantize)
+from deeplearning4j_tpu_torch.quantize.policy import PrecisionPolicy
+
+__all__ = ["QuantizedConv1x1", "QuantizedDense", "QuantPassthrough",
+           "quantize_network"]
+
+#: rows per cache-resident tile of the JAX package's chain executor; the
+#: port's chain runs all rows at once (each step works row by row, so the
+#: values are the same)
+CHAIN_TILE_ROWS = 1568
+
+#: the epilogue activations the int8 kernel applies itself
+_KERNEL_ACTS = {"identity": "identity", "linear": "identity",
+                "relu": "relu"}
+
+
+def _default_impl(device):
+    return "dot" if torch.device(device).type == "cuda" else "chain"
+
+
+def _gemm(layer, params, xf):
+    """act(int8(xf) @ Wq · scale + bias) of a quantized layer, xf (M, K)
+    fp: per the layer's impl, through one int8_matmul_epilogue launch
+    ("dot") or the exact f32 twin of the int32 sums ("chain")."""
+    xq = quantize(xf, params["x_scale"])
+    impl = _default_impl(xf.device) if layer.impl == "auto" else layer.impl
+    bias = params.get("bias")
+    if impl == "dot":
+        act = str(layer.activation).lower()
+        kact = _KERNEL_ACTS.get(act, "identity")
+        shift = bias if bias is not None else torch.zeros_like(
+            params["scale"])
+        y = int8_matmul_epilogue(xq, params["Wq"], params["scale"], shift,
+                                 act=kact, out_dtype=torch.float32)
+        if kact == "identity" and act not in _KERNEL_ACTS:
+            y = get_activation(layer.activation)(y)
+        return y
+    acc = xq.float() @ params["Wq"].float()
+    return dequant_epilogue(acc, params["scale"], bias,
+                            act=layer.activation)
+
+
+# -- quantized layer confs --------------------------------------------------
+class _QuantLayerBase:
+    """The conf-object contract shared with nn.conf.layers.Layer: enough
+    surface for the network classes, serde and summary()."""
+
+    updater = None
+    constraints = None
+    dropOut = None
+    frozen = False
+
+    def apply_defaults(self, defaults):
+        return self
+
+    def regularization_terms(self):
+        return 0.0, 0.0
+
+    def feed_forward_mask(self, mask):
+        return mask
+
+    def initialize(self, generator, input_type):
+        raise RuntimeError(
+            f"{type(self).__name__} is produced by quantize_network() "
+            "from a trained layer — it cannot initialize fresh params")
+
+
+class QuantizedDense(_QuantLayerBase):
+    """Dense layer served int8: y = act(int8dot(q(x), Wq)·scale + bias).
+
+    params: Wq int8 (nIn, nOut); scale f32 (nOut,) = x_scale·w_scale;
+    bias f32 (nOut,) or absent; x_scale f32 0-d (a recalibration writes
+    it in place, never rebuilding a captured graph)."""
+
+    def __init__(self, name, nIn, nOut, activation, hasBias, impl="auto"):
+        self.name = name
+        self.nIn, self.nOut = int(nIn), int(nOut)
+        self.activation = activation
+        self.hasBias = bool(hasBias)
+        self.impl = impl
+
+    def output_type(self, input_type):
+        from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+        return InputType.feedForward(self.nOut)
+
+    def apply(self, params, state, x, train=False, generator=None,
+              mask=None):
+        lead = tuple(x.shape[:-1])
+        y = _gemm(self, params, x.reshape(-1, x.shape[-1]))
+        return y.to(x.dtype).reshape(lead + (self.nOut,)), state
+
+
+class QuantizedConv1x1(_QuantLayerBase):
+    """Pad-free 1×1 conv served int8 as a GEMM over the flattened spatial
+    axis, with any following BatchNormalization folded into the dequant
+    epilogue (scale ← x_scale·w_scale·γr, bias ← conv-bias·γr + (β − γμr))
+    and the BN's activation fused behind it. A stride s > 1 takes the
+    (::s, ::s) pixels first, made contiguous for the GEMM."""
+
+    is_pointwise = True
+
+    def __init__(self, name, nIn, nOut, activation, stride=1,
+                 impl="auto"):
+        self.name = name
+        self.nIn, self.nOut = int(nIn), int(nOut)
+        self.activation = activation
+        self.stride = int(stride)
+        self.impl = impl
+
+    def output_type(self, input_type):
+        from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+        s = self.stride
+        return InputType.convolutional(
+            -(-input_type.height // s), -(-input_type.width // s),
+            self.nOut)
+
+    def apply(self, params, state, x, train=False, generator=None,
+              mask=None):
+        if self.stride > 1:
+            x = x[:, ::self.stride, ::self.stride, :]
+        x = x.contiguous()
+        b, h, w, c = x.shape
+        y = _gemm(self, params, x.reshape(b * h * w, c))
+        return y.to(x.dtype).reshape(b, h, w, self.nOut), state
+
+
+class QuantPassthrough(_QuantLayerBase):
+    """Stand-in for a layer whose work was folded into the quantized layer
+    before it (a BN absorbed into a conv epilogue). Keeps the layer list
+    and the node graph shape-stable: names, indices, preprocessor slots
+    and serialization all survive the rewrite."""
+
+    def __init__(self, name, folded_into):
+        self.name = name
+        self.folded_into = folded_into
+        self.activation = "identity"
+
+    def output_type(self, input_type):
+        return input_type
+
+    def apply(self, params, state, x, train=False, generator=None,
+              mask=None):
+        return x, state
+
+
+# -- weight/BN folding (on the host, in numpy, as the JAX package folds) -----
+def _host(v):
+    return v.detach().float().cpu().numpy() if torch.is_tensor(v) \
+        else np.asarray(v, np.float32)
+
+
+def _quantize_weight(w2):
+    """(int8 weights, f32 per-output-channel scales) of a (K, N) matrix."""
+    w = torch.from_numpy(np.ascontiguousarray(w2, np.float32))
+    w_scale = per_channel_scales(w, -1)
+    return quantize(w, w_scale, 1).numpy(), w_scale.numpy()
+
+
+def _fold_dense(layer, p):
+    wq, w_scale = _quantize_weight(_host(p["W"]))
+    out = {"Wq": wq, "w_scale": w_scale}
+    if layer.hasBias and "b" in p:
+        out["bias"] = _host(p["b"])
+    return out
+
+
+def _fold_conv_bn(conv, p_conv, bn, p_bn, s_bn):
+    """int8 weights + the conv-bias/BN affine folded to ONE epilogue
+    scale/bias pair (missing BN → plain conv epilogue)."""
+    w = _host(p_conv["W"])
+    cin, cout = w.shape[2], w.shape[3]
+    wq, w_scale = _quantize_weight(w.reshape(cin, cout))
+    bias = (_host(p_conv["b"])
+            if getattr(conv, "hasBias", False) and "b" in p_conv
+            else np.zeros(cout, np.float32))
+    a = np.ones(cout, np.float32)
+    b = np.zeros(cout, np.float32)
+    if bn is not None:
+        mean = _host(s_bn["mean"])
+        var = _host(s_bn["var"])
+        gamma = _host(p_bn.get("gamma", np.ones(cout)))
+        beta = _host(p_bn.get("beta", np.zeros(cout)))
+        inv = 1.0 / np.sqrt(var + bn.eps)
+        a = gamma * inv
+        b = beta - gamma * mean * inv
+    return {"Wq": wq, "w_scale": w_scale,
+            "affine_a": a, "affine_b": np.asarray(a * bias + b, np.float32)}
+
+
+def _finish_params(folded, x_scale, device):
+    """Bake the calibrated activation scale into the epilogue: scale =
+    x_scale·w_scale[·γr], bias already affine-folded; every array becomes
+    a tensor of its own on `device`, x_scale a 0-d one."""
+    w_scale = folded.pop("w_scale")
+    a = folded.pop("affine_a", None)
+    if a is not None:
+        folded["scale"] = np.asarray(x_scale * w_scale * a, np.float32)
+        folded["bias"] = np.asarray(folded.pop("affine_b"), np.float32)
+    else:
+        folded["scale"] = np.asarray(x_scale * w_scale, np.float32)
+    folded["x_scale"] = np.asarray(x_scale, np.float32)
+    return {k: torch.from_numpy(np.array(v)).to(device)
+            for k, v in folded.items()}
+
+
+def recalibrate(qnet, scales):
+    """Write new activation scales {layer key: x_scale} into a quantized
+    twin in place: each layer's 0-d `x_scale` and its epilogue `scale`
+    (which holds x_scale as a factor). Tensors keep their addresses, so the
+    serving store's graphs read the new scales at their next replay."""
+    with torch.no_grad():
+        for key, x_scale in scales.items():
+            p = qnet._params[key]
+            new = torch.as_tensor(float(x_scale), dtype=torch.float32,
+                                  device=p["x_scale"].device)
+            p["scale"].mul_(new / p["x_scale"])
+            p["x_scale"].copy_(new)
+    return qnet
+
+
+# -- the chain executor -----------------------------------------------------
+class _ChainPlan:
+    """One maximal run of quantized pointwise work. steps: ("gemm", key,
+    act) | ("add", tap_step, src_is_entry) | ("relu",). `taps`: step
+    indices whose (dequantized) outputs later adds read."""
+
+    def __init__(self, entry, exit_, steps, keys, taps, in_key,
+                 out_names):
+        self.entry = entry          # upstream act feeding the run
+        self.exit = exit_           # node/layer whose act the run yields
+        self.steps = steps
+        self.keys = keys            # param keys of the gemm steps
+        self.taps = frozenset(taps)
+        self.in_key = in_key        # param key supplying the entry scale
+        self.out_names = out_names  # names covered (for bookkeeping)
+
+    def run(self, params, x):
+        """x: (B, H, W, C) fp activation. One int8 quantize at entry; then
+        the dequantized f32 value flows through every GEMM epilogue,
+        residual add and relu of the run (int8 quantization error is
+        incurred at the run entry and in the int8 weights)."""
+        b, h, w, c = x.shape
+        x_scale = params[self.in_key]["x_scale"]
+        cur = quantize(x.reshape(b * h * w, c), x_scale).float() * x_scale
+        entry = cur
+        saved = {}
+        gi = 0
+        for si, step in enumerate(self.steps):
+            if step[0] == "gemm":
+                p = params[self.keys[gi]]
+                # `scale` carries x_scale·w_scale[·a] for the per-layer
+                # route; the value here is already dequantized
+                cur = (cur @ p["Wq"].float()) * (p["scale"] / p["x_scale"])
+                if p.get("bias") is not None:
+                    cur = cur + p["bias"]
+                if step[2] == "relu":
+                    cur = torch.clamp_min(cur, 0.0)
+                gi += 1
+            elif step[0] == "add":
+                cur = cur + (entry if step[2] else saved[step[1]])
+            elif step[0] == "relu":
+                cur = torch.clamp_min(cur, 0.0)
+            if si in self.taps:
+                saved[si] = cur
+        return cur.reshape(b, h, w, cur.shape[-1]).to(x.dtype)
+
+
+def _count_quant_metrics(n_int8, n_fallback):
+    if _mon.enabled():
+        reg = _mon.get_registry()
+        if n_int8:
+            reg.counter(_mon.QUANT_INT8_LAYERS,
+                        help="layers rewritten to the int8 serving "
+                             "path").inc(n_int8)
+        if n_fallback:
+            reg.counter(_mon.QUANT_DEQUANT_FALLBACKS,
+                        help="weight-bearing layers the int8 rewrite "
+                             "left at full precision").inc(n_fallback)
+
+
+def _is_relu_or_identity(act):
+    return str(act).lower() in ("relu", "identity", "linear")
+
+
+def _effective_policy(layer, default):
+    """A layer-level precisionPolicy (including the `.off()` opt-out
+    sentinel `.precisionPolicy(None)` resolves to) shadows the
+    network-level/passed one for BOTH QAT and this rewrite."""
+    lp = getattr(layer, "precisionPolicy", None)
+    return lp if lp is not None else default
+
+
+# -- MultiLayerNetwork rewrite ----------------------------------------------
+def _quantize_multilayer(net, data, policy, impl, fuse):
+    from deeplearning4j_tpu_torch.nn._network import as_tensor
+    from deeplearning4j_tpu_torch.nn.conf.layers import (BatchNormalization,
+                                                         ConvolutionLayer,
+                                                         DenseLayer)
+    conf = copy.deepcopy(net.conf)
+    layers = conf.layers
+    n = len(layers)
+    dev = net._device
+
+    # plan: which indices quantize, which BN folds into which conv
+    to_quant, folds = [], {}
+    i = 0
+    while i < n:
+        layer = net.conf.layers[i]
+        if _effective_policy(layer, policy).int8_servable(layer):
+            if (type(layer) is ConvolutionLayer
+                    and _is_relu_or_identity(layer.activation)
+                    and str(layer.activation).lower() != "relu"
+                    and i + 1 < n
+                    and type(net.conf.layers[i + 1]) is BatchNormalization
+                    and (i + 1) not in net.conf.preprocessors):
+                folds[i] = i + 1
+                to_quant.append(i)
+                i += 2
+                continue
+            to_quant.append(i)
+        i += 1
+
+    if not to_quant:
+        raise ValueError(
+            "quantize_network: no int8-servable layer found (policy "
+            f"{policy!r}); nothing to quantize")
+
+    # activation-scale calibration: observed (data) > upstream-BN > default
+    observed = None
+    if data is not None:
+        def collect(x):
+            xs = as_tensor(x, dev)
+            _, _, _, acts = net._forward(net._params, net._state, xs,
+                                         False, collect=True)
+            ins = {}
+            for idx in to_quant:
+                a = xs.to(net._compute_dtype) if idx == 0 \
+                    else acts[idx - 1]
+                pp = net.conf.preprocessors.get(idx)
+                ins[str(idx)] = pp.preProcess(a) if pp is not None else a
+            return ins
+        observed = _cal.observe(collect, data)
+    bn_scales = {}
+    for idx in to_quant:
+        prev = net.conf.layers[idx - 1] if idx > 0 else None
+        if type(prev) is BatchNormalization:
+            bn_scales[str(idx)] = _cal.bn_param_scale(
+                net._params.get(str(idx - 1), {}))
+    scales = _cal.resolve_scales([str(i) for i in to_quant], observed,
+                                 bn_scales)
+
+    new_params = {}
+    new_state = {}
+    fallbacks = 0
+    for idx in range(n):
+        key = str(idx)
+        layer = net.conf.layers[idx]
+        if idx in to_quant:
+            p = net._params.get(key, {})
+            x_scale, _src = scales[key]
+            if type(layer) is ConvolutionLayer:
+                bn_idx = folds.get(idx)
+                bn = net.conf.layers[bn_idx] if bn_idx is not None else None
+                folded = _fold_conv_bn(
+                    layer, p, bn,
+                    net._params.get(str(bn_idx), {}) if bn else None,
+                    net._state.get(str(bn_idx), {}) if bn else None)
+                act = bn.activation if bn is not None else layer.activation
+                layers[idx] = QuantizedConv1x1(
+                    layer.name, layer.nIn, layer.nOut, act,
+                    stride=layer.stride[0], impl=impl)
+                if bn_idx is not None:
+                    layers[bn_idx] = QuantPassthrough(
+                        net.conf.layers[bn_idx].name, layer.name)
+            else:
+                folded = _fold_dense(layer, p)
+                layers[idx] = QuantizedDense(
+                    layer.name, layer.nIn, layer.nOut, layer.activation,
+                    layer.hasBias, impl=impl)
+            new_params[key] = _finish_params(folded, x_scale, dev)
+        elif idx in folds.values():
+            pass          # folded BN: no params, no state
+        else:
+            if net._params.get(key):
+                new_params[key] = clone_tree(net._params[key])
+            if net._state.get(key):
+                new_state[key] = clone_tree(net._state[key])
+            if isinstance(layer, (DenseLayer, ConvolutionLayer)) \
+                    and not hasattr(layer, "compute_loss"):
+                fallbacks += 1
+
+    _count_quant_metrics(len(to_quant), fallbacks)
+
+    # chain plans: maximal runs of stride-1 quantized convs /
+    # passthroughs / relu-identity activation layers (sequential nets
+    # have no residual taps)
+    plans = []
+    eff_impl = _default_impl(dev) if impl == "auto" else impl
+    if fuse and eff_impl == "chain":
+        plans = _plan_multilayer_chains(conf, layers)
+
+    q = QuantizedMultiLayerNetwork(conf, dev)
+    q._params = new_params
+    q._state = new_state
+    q._chain_plans = {p.entry: p for p in plans}
+    q._quant_stats = {"int8_layers": len(to_quant),
+                      "fallbacks": fallbacks,
+                      "folded_bns": len(folds),
+                      "chains": len(plans),
+                      "scales": {k: v for k, v in scales.items()}}
+    return q
+
+
+def _plan_multilayer_chains(conf, layers):
+    """Runs of consecutive [QuantizedConv1x1 stride-1 | QuantPassthrough
+    | ActivationLayer(relu/identity)] with >= 2 GEMMs become one chain. A
+    preprocessor on a layer breaks the run before it; the loss head never
+    joins."""
+    from deeplearning4j_tpu_torch.nn.conf.layers import ActivationLayer
+    plans, i, n = [], 0, len(layers)
+    while i < n:
+        layer = layers[i]
+        if not (isinstance(layer, QuantizedConv1x1)
+                and layer.stride == 1):
+            i += 1
+            continue
+        steps, keys, run = [], [], []
+        j = i
+        while j < n:
+            lj = layers[j]
+            if conf.preprocessors.get(j) is not None and j > i:
+                break
+            if isinstance(lj, QuantizedConv1x1) and lj.stride == 1 \
+                    and _is_relu_or_identity(lj.activation):
+                steps.append(("gemm", str(j),
+                              "relu" if str(lj.activation).lower()
+                              == "relu" else "identity"))
+                keys.append(str(j))
+            elif isinstance(lj, QuantPassthrough):
+                pass
+            elif isinstance(lj, ActivationLayer) \
+                    and _is_relu_or_identity(lj.activation):
+                if str(lj.activation).lower() == "relu":
+                    steps.append(("relu",))
+            else:
+                break
+            run.append(j)
+            j += 1
+        if len(keys) >= 2:
+            plans.append(_ChainPlan(
+                entry=i, exit_=run[-1], steps=steps, keys=keys,
+                taps=(), in_key=keys[0], out_names=tuple(run)))
+        i = max(j, i + 1)
+    return plans
+
+
+def _refuse(*a, **kw):
+    raise RuntimeError(
+        "quantized networks are inference-only — train the fp "
+        "model (optionally with a QAT precisionPolicy) and "
+        "re-run quantize_network()")
+
+
+def _mln():
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    return MultiLayerNetwork
+
+
+def _cg():
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    return ComputationGraph
+
+
+class QuantizedMultiLayerNetwork:
+    """Inference-only MultiLayerNetwork twin produced by
+    quantize_network(). Duck-compatible with the serving stack (output /
+    _output / _forward / _params / _state / conf); refuses to train. The
+    fp layers between quantized ones run through MultiLayerNetwork's own
+    forward loop."""
+
+    _input_ranks = None
+
+    def __init__(self, conf, device):
+        from deeplearning4j_tpu_torch.nn._network import compute_dtype
+        self.conf = conf
+        self.layers = conf.layers
+        self._params = None
+        self._state = None
+        self._device = torch.device(device)
+        self._chain_plans = {}
+        self._fused_pairs = {}
+        self._compute_dtype = compute_dtype(conf)
+
+    # -- training surface: refused ----------------------------------------
+    fit = computeGradients = pretrain = _refuse
+
+    # -- forward -----------------------------------------------------------
+    def _forward(self, params, state, x, train, generator=None,
+                 collect=False, mask=None, carries=None):
+        from deeplearning4j_tpu_torch.nn._network import (apply_layer,
+                                                          hook_params)
+        if train:
+            raise RuntimeError("quantized networks are inference-only")
+        if collect or carries is not None or mask is not None \
+                or not self._chain_plans:
+            return _mln()._forward(self, params, state, x, False,
+                                   collect=collect, mask=mask,
+                                   carries=carries)
+        x = x.to(self._compute_dtype)
+        new_state = dict(state)
+        preact = None
+        n = len(self.layers)
+        i = 0
+        while i < n:
+            pp = self.conf.preprocessors.get(i)
+            if pp is not None:
+                x = pp.preProcess(x)
+            plan = self._chain_plans.get(i)
+            if plan is not None:
+                x = plan.run(params, x)
+                i = plan.exit + 1
+                continue
+            layer = self.layers[i]
+            p = hook_params(layer, params.get(str(i), {}), False, None)
+            s = state.get(str(i), {})
+            if i == n - 1 and hasattr(layer, "compute_loss") \
+                    and hasattr(layer, "pre_activation"):
+                preact = layer.pre_activation(p, x)
+                x = get_activation(layer.activation)(preact)
+            else:
+                x, ns = apply_layer(layer, p, s, x, False, None, None)
+                if ns:
+                    new_state[str(i)] = ns
+            i += 1
+        return x, preact, new_state, []
+
+    def _input(self, x):
+        return _mln()._input(self, x)
+
+    def _output(self, x, train=False, fmask=None, generator=None):
+        return _mln()._output(self, x, False, fmask)
+
+    def output(self, x, train=False, fmask=None):
+        from deeplearning4j_tpu_torch.ops.ndarray import NDArray
+        with torch.no_grad():
+            return NDArray(self._output(x, fmask=fmask))
+
+    def feedForward(self, x, train=False):
+        with torch.no_grad():
+            return _mln().feedForward(self, x)
+
+    def predict(self, x):
+        return self.output(x).tensor.argmax(-1).cpu().numpy()
+
+    def summary(self):
+        return _mln().summary(self)
+
+    def getnLayers(self):
+        return len(self.layers)
+
+    def getLayer(self, idx):
+        return self.layers[idx]
+
+
+# -- ComputationGraph rewrite -----------------------------------------------
+def _quantize_graph(net, data, policy, impl, fuse):
+    from deeplearning4j_tpu_torch.nn._network import as_tensor
+    from deeplearning4j_tpu_torch.nn.conf.layers import (BatchNormalization,
+                                                         ConvolutionLayer,
+                                                         DenseLayer)
+    conf = copy.deepcopy(net.conf)
+    nodes = conf.nodes
+    consumers = net.conf.consumers()
+    dev = net._device
+
+    to_quant, folds = [], {}
+    skip = set()
+    for name in net.conf.topo_order:
+        node = net.conf.nodes[name]
+        if node.kind != "layer" or name in skip:
+            continue
+        layer = node.ref
+        if not _effective_policy(layer, policy).int8_servable(layer):
+            continue
+        if (type(layer) is ConvolutionLayer
+                and _is_relu_or_identity(layer.activation)
+                and str(layer.activation).lower() != "relu"):
+            outs = consumers.get(name, [])
+            if (len(outs) == 1 and name not in net.conf.output_names):
+                cand = net.conf.nodes[outs[0]]
+                if (cand.kind == "layer"
+                        and type(cand.ref) is BatchNormalization
+                        and cand.preprocessor is None
+                        and outs[0] not in net.conf.output_names):
+                    folds[name] = outs[0]
+                    skip.add(outs[0])
+        to_quant.append(name)
+
+    if not to_quant:
+        raise ValueError(
+            "quantize_network: no int8-servable layer node found "
+            f"(policy {policy!r}); nothing to quantize")
+
+    observed = None
+    if data is not None:
+        input_names = list(net.conf.input_names)
+
+        def collect(x):
+            ins = ({n: as_tensor(v, dev) for n, v in x.items()}
+                   if isinstance(x, dict)
+                   else {input_names[0]: as_tensor(x, dev)})
+            acts, _, _ = net._forward(net._params, net._state, ins, False)
+            out = {}
+            for name in to_quant:
+                node = net.conf.nodes[name]
+                a = acts[node.inputs[0]]
+                if node.preprocessor is not None:
+                    a = node.preprocessor.preProcess(a)
+                out[name] = a
+            return out
+        observed = _cal.observe(collect, data)
+    bn_scales = {}
+    for name in to_quant:
+        parent = net.conf.nodes[net.conf.nodes[name].inputs[0]]
+        if parent.kind == "layer" \
+                and type(parent.ref) is BatchNormalization:
+            bn_scales[name] = _cal.bn_param_scale(
+                net._params.get(parent.name, {}))
+    scales = _cal.resolve_scales(to_quant, observed, bn_scales)
+
+    new_params, new_state = {}, {}
+    fallbacks = 0
+    folded_bns = set(folds.values())
+    for name in net.conf.topo_order:
+        node = net.conf.nodes[name]
+        if node.kind != "layer":
+            continue
+        layer = node.ref
+        if name in to_quant:
+            p = net._params.get(name, {})
+            x_scale, _src = scales[name]
+            if type(layer) is ConvolutionLayer:
+                bn_name = folds.get(name)
+                bn = (net.conf.nodes[bn_name].ref
+                      if bn_name is not None else None)
+                folded = _fold_conv_bn(
+                    layer, p, bn,
+                    net._params.get(bn_name, {}) if bn else None,
+                    net._state.get(bn_name, {}) if bn else None)
+                act = bn.activation if bn is not None else layer.activation
+                nodes[name].ref = QuantizedConv1x1(
+                    name, layer.nIn, layer.nOut, act,
+                    stride=layer.stride[0], impl=impl)
+                if bn_name is not None:
+                    nodes[bn_name].ref = QuantPassthrough(bn_name, name)
+            else:
+                folded = _fold_dense(layer, p)
+                nodes[name].ref = QuantizedDense(
+                    name, layer.nIn, layer.nOut, layer.activation,
+                    layer.hasBias, impl=impl)
+            new_params[name] = _finish_params(folded, x_scale, dev)
+        elif name in folded_bns:
+            pass
+        else:
+            if net._params.get(name):
+                new_params[name] = clone_tree(net._params[name])
+            if net._state.get(name):
+                new_state[name] = clone_tree(net._state[name])
+            if isinstance(layer, (DenseLayer, ConvolutionLayer)) \
+                    and not hasattr(layer, "compute_loss"):
+                fallbacks += 1
+    # parameterized vertices keep their params too
+    for name in net.conf.topo_order:
+        node = net.conf.nodes[name]
+        if node.kind == "vertex" and net._params.get(name):
+            new_params[name] = clone_tree(net._params[name])
+
+    _count_quant_metrics(len(to_quant), fallbacks)
+
+    plans = []
+    eff_impl = _default_impl(dev) if impl == "auto" else impl
+    if fuse and eff_impl == "chain":
+        plans = _plan_graph_chains(conf)
+
+    q = QuantizedComputationGraph(conf, dev)
+    q._params = new_params
+    q._state = new_state
+    q._chain_plans = {p.exit: p for p in plans}
+    q._chain_covered = {n for p in plans for n in p.out_names}
+    q._quant_stats = {"int8_layers": len(to_quant),
+                      "fallbacks": fallbacks,
+                      "folded_bns": len(folds),
+                      "chains": len(plans),
+                      "scales": dict(scales)}
+    return q
+
+
+def _plan_graph_chains(conf):
+    """Maximal single-entry/single-exit regions of chainable nodes —
+    stride-1 QuantizedConv1x1, folded-BN passthroughs, relu/identity
+    ActivationLayers, and ElementWiseVertex("add") whose residual source
+    is the region entry or an in-region value. Each region with >= 2 GEMMs
+    becomes one chain."""
+    from deeplearning4j_tpu_torch.nn.conf.graph_vertices import \
+        ElementWiseVertex
+    from deeplearning4j_tpu_torch.nn.conf.layers import ActivationLayer
+    consumers = conf.consumers()
+    nodes = conf.nodes
+
+    def chainable(name):
+        node = nodes[name]
+        if node.kind == "layer":
+            if getattr(node, "preprocessor", None) is not None:
+                return False
+            ref = node.ref
+            if isinstance(ref, QuantizedConv1x1):
+                return ref.stride == 1 and _is_relu_or_identity(
+                    ref.activation)
+            if isinstance(ref, QuantPassthrough):
+                return True
+            return (isinstance(ref, ActivationLayer)
+                    and _is_relu_or_identity(ref.activation))
+        if node.kind == "vertex":
+            return (isinstance(node.ref, ElementWiseVertex)
+                    and getattr(node.ref, "op", None) == "add"
+                    and len(node.inputs) == 2)
+        return False
+
+    assigned = set()
+    plans = []
+    topo = [n for n in conf.topo_order if nodes[n].kind != "input"]
+    for start_i, start in enumerate(topo):
+        if start in assigned or not chainable(start):
+            continue
+        if not isinstance(nodes[start].ref, QuantizedConv1x1):
+            continue
+        entry = nodes[start].inputs[0]
+        region = []
+        avail = {entry}
+        for name in topo[start_i:]:
+            if name in assigned:
+                break
+            if not chainable(name):
+                break
+            if any(p not in avail for p in nodes[name].inputs):
+                break
+            region.append(name)
+            avail.add(name)
+        # trim: every non-final node must be consumed inside the region
+        while len(region) > 1:
+            rset = set(region)
+            bad = None
+            for n in region[:-1]:
+                if any(c not in rset for c in consumers.get(n, ())) \
+                        or n in conf.output_names:
+                    bad = n
+                    break
+            if bad is None and region[-1] not in conf.output_names:
+                break
+            region = region[:region.index(bad) + 1] if bad is not None \
+                else region[:-1]
+        plan = _steps_for_region(conf, region, entry)
+        if plan is not None:
+            plans.append(plan)
+            assigned.update(plan.out_names)
+    return plans
+
+
+def _steps_for_region(conf, region, entry):
+    """Compile a region's nodes into executor steps; None when the region
+    is too small (< 2 GEMMs) or an add's source cannot be expressed as an
+    in-region tap."""
+    from deeplearning4j_tpu_torch.nn.conf.layers import ActivationLayer
+    nodes = conf.nodes
+    steps, keys, taps = [], [], set()
+    # node_step: node name -> the executor step index producing its
+    # value ("entry" = the run's input). cur_step tracks the value the
+    # executor's running `cur` holds — only steps advance it, aliases
+    # (passthroughs, identity activations) don't.
+    node_step = {entry: "entry"}
+    cur_step = "entry"
+    for name in region:
+        ref = nodes[name].ref if nodes[name].kind == "layer" else None
+        if isinstance(ref, QuantizedConv1x1):
+            if node_step.get(nodes[name].inputs[0]) != cur_step:
+                return None   # chain must consume the running value
+            steps.append(("gemm", name,
+                          "relu" if str(ref.activation).lower() == "relu"
+                          else "identity"))
+            keys.append(name)
+            cur_step = node_step[name] = len(steps) - 1
+        elif isinstance(ref, QuantPassthrough):
+            node_step[name] = node_step[nodes[name].inputs[0]]
+        elif isinstance(ref, ActivationLayer):
+            if str(ref.activation).lower() == "relu":
+                if node_step.get(nodes[name].inputs[0]) != cur_step:
+                    return None
+                steps.append(("relu",))
+                cur_step = node_step[name] = len(steps) - 1
+            else:
+                node_step[name] = node_step[nodes[name].inputs[0]]
+        else:   # ElementWiseVertex add
+            p1, p2 = nodes[name].inputs
+            s1, s2 = node_step.get(p1), node_step.get(p2)
+            if s1 == cur_step:
+                src = s2
+            elif s2 == cur_step:
+                src = s1
+            else:
+                return None
+            if src is None:
+                return None
+            if src == "entry":
+                steps.append(("add", None, True))
+            else:
+                steps.append(("add", src, False))
+                taps.add(src)
+            cur_step = node_step[name] = len(steps) - 1
+    if len(keys) < 2:
+        return None
+    if node_step.get(region[-1]) != cur_step:
+        return None   # exit must BE the running value
+    return _ChainPlan(entry=entry, exit_=region[-1], steps=steps,
+                      keys=keys, taps=taps, in_key=keys[0],
+                      out_names=tuple(region))
+
+
+class QuantizedComputationGraph:
+    """Inference-only ComputationGraph twin produced by quantize_network().
+    Duck-compatible with the serving stack (output / outputSingle /
+    _output / _forward / conf); refuses to train. The fp nodes run through
+    ComputationGraph's own per-node code."""
+
+    _input_ranks = None
+
+    def __init__(self, conf, device):
+        from deeplearning4j_tpu_torch.nn._network import compute_dtype
+        self.conf = conf
+        self.nodes = conf.nodes
+        self._params = None
+        self._state = None
+        self._device = torch.device(device)
+        self._chain_plans = {}
+        self._chain_covered = set()
+        self._fused_pairs = {}
+        self._fused_convs = set()
+        self._compute_dtype = compute_dtype(conf)
+
+    fit = computeGradients = _refuse
+
+    # -- forward -----------------------------------------------------------
+    def _forward(self, params, state, inputs, train, generator=None,
+                 report_conv=False, carries=None):
+        from deeplearning4j_tpu_torch.nn._network import split_inputs
+        if train:
+            raise RuntimeError("quantized networks are inference-only")
+        feats, fmasks = split_inputs(inputs)
+        if carries is not None or fmasks or report_conv \
+                or not self._chain_plans:
+            return _cg()._forward(self, params, state, inputs, False,
+                                  report_conv=report_conv, carries=carries)
+        acts = {name: x.to(self._compute_dtype)
+                for name, x in feats.items()}
+        preacts = {}
+        new_state = dict(state)
+        for name in self.conf.topo_order:
+            if self.nodes[name].kind == "input" \
+                    or name in self._chain_covered:
+                plan = self._chain_plans.get(name)
+                if plan is not None:
+                    acts[name] = plan.run(params, acts[plan.entry])
+                continue
+            _cg()._run_node_plain(self, name, params, state, acts,
+                                  new_state, preacts, None, train=False)
+        return acts, preacts, new_state
+
+    def _as_input_dict(self, inputs):
+        return _cg()._as_input_dict(self, inputs)
+
+    def _with_masks(self, ins, fmasks):
+        return _cg()._with_masks(self, ins, fmasks)
+
+    def _output(self, *inputs, train=False, generator=None, fmasks=None):
+        return _cg()._output(self, *inputs, fmasks=fmasks)
+
+    def output(self, *inputs, train=False, fmasks=None):
+        with torch.no_grad():
+            return _cg().output(self, *inputs, fmasks=fmasks)
+
+    def outputSingle(self, *inputs):
+        out = self.output(*inputs)
+        return out[0] if isinstance(out, list) else out
+
+    def feedForward(self, inputs, train=False):
+        with torch.no_grad():
+            return _cg().feedForward(self, inputs)
+
+    def getLayer(self, name):
+        return self.nodes[name].ref
+
+
+# -- entry point ------------------------------------------------------------
+def quantize_network(net, data=None, policy=None, impl="auto",
+                     fuse=True):
+    """Rewrite a trained network for int8 serving.
+
+    net: MultiLayerNetwork or ComputationGraph (init()ed / trained).
+    data: optional iterable of feature batches (arrays, or input dicts
+        for multi-input graphs) for observed-absmax calibration of
+        activation scales; without it, scales come from upstream BN
+        statistics where available, else a conservative default.
+    policy: PrecisionPolicy (defaults to the net conf's inherited
+        precisionPolicy, else PrecisionPolicy.int8()).
+    impl: "auto" | "dot" | "chain" — see module docstring.
+    fuse: allow the chain executor over runs of quantized pointwise
+        layers (chain impl only).
+
+    Returns the inference-only quantized twin on the network's device; the
+    original net is untouched (its parameters are copied, never
+    aliased)."""
+    if policy is None:
+        policy = (getattr(net.conf, "defaults", {}) or {}).get(
+            "precisionPolicy") or PrecisionPolicy.int8()
+    if impl not in ("auto", "dot", "chain"):
+        raise ValueError(f"impl must be auto|dot|chain, got {impl!r}")
+    if net._params is None:
+        raise ValueError("quantize_network needs an init()ed network")
+    if hasattr(net, "outputSingle"):
+        q = _quantize_graph(net, data, policy, impl, fuse)
+    else:
+        q = _quantize_multilayer(net, data, policy, impl, fuse)
+    if _mon.enabled():
+        # the per-model activation-traffic estimate under the new precision
+        # widths; the label carries the model's fingerprint, so two
+        # quantized nets of one class keep gauges of their own
+        from deeplearning4j_tpu_torch.quantize import traffic as _traffic
+        from deeplearning4j_tpu_torch.runtime.executables import \
+            model_fingerprint
+        _traffic.publish(
+            q, model_name=(f"{type(net).__name__}:"
+                           f"{model_fingerprint(q)[:8]}"))
+    return q

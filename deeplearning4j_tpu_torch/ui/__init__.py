@@ -1,7 +1,10 @@
 """UI of the port (≡ deeplearning4j-ui): the dashboard and the operations
-endpoints of `UIServer`. `ui/stats.py` (`StatsListener` and its
-storages) and `render_static_html` come with ROADMAP A17: until then
-`/stats` serves any attached object with an `.all()` of JSON records."""
-from deeplearning4j_tpu_torch.ui.server import UIServer
+endpoints of `UIServer`, the training statistics of `StatsListener` and its
+storages (`ui/stats.py`), and `render_static_html`."""
+from deeplearning4j_tpu_torch.ui.stats import (FileStatsStorage,
+                                               InMemoryStatsStorage,
+                                               StatsListener)
+from deeplearning4j_tpu_torch.ui.server import UIServer, render_static_html
 
-__all__ = ["UIServer"]
+__all__ = ["FileStatsStorage", "InMemoryStatsStorage", "StatsListener",
+           "UIServer", "render_static_html"]

@@ -8,8 +8,9 @@ an ephemeral port, read back from `.port`) serves, from a stdlib
 
 - `GET /` — the dashboard page (the JAX package's, as it is), which polls
   the routes below every second;
-- `GET /stats` — the JSON records of every attached storage (`.all()`;
-  `ui/stats.py`'s `StatsListener` and storages come with ROADMAP A17);
+- `GET /stats` — the JSON records of every attached storage (`.all()`:
+  `ui/stats.py`'s InMemoryStatsStorage or FileStatsStorage, which a
+  `StatsListener` fills, one record per iteration);
 - `GET /tsne` — the points `attachTsne` holds;
 - `GET /generation` — every live `GenerationServer`'s status;
 - `GET /fleet` — every live `FleetRouter`'s status: per-replica health,
@@ -36,8 +37,10 @@ an ephemeral port, read back from `.port`) serves, from a stdlib
 
 Any other path answers 404 (the JAX package serves its page there). A
 route that raises answers 500 with the error, and the handler lives on.
-The JAX module's `render_static_html` renders a stats storage, so it
-comes with `ui/stats.py` (ROADMAP A17).
+`render_static_html(storage, path)` writes a self-contained HTML snapshot
+of a stats storage (inline SVG charts: score, iteration time, update
+ratios, the latest activation histograms, an optional t-SNE scatter) for
+environments without an open port.
 Modules are looked up when a route is served, so a dashboard-only server
 imports neither the server nor the fleet; the coordinator, like the
 JAX package's, is read from `sys.modules`.
@@ -50,7 +53,7 @@ import threading
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-__all__ = ["UIServer"]
+__all__ = ["UIServer", "render_static_html"]
 
 #: the port's coordination module (ROADMAP A15), read from sys.modules
 _COORDINATION = "deeplearning4j_tpu_torch.parallel.coordination"
@@ -665,3 +668,97 @@ class UIServer:
             self._httpd = None
             self._thread = None
         return self
+
+
+def render_static_html(storage, path, tsne=None):
+    """Static dashboard snapshot: inline-SVG score/time charts plus the
+    round-5 panels — log10 update:parameter ratios, latest activation
+    histograms, and an optional t-SNE scatter (tsne=(coords, labels))."""
+    import math
+
+    recs = storage.all()
+
+    def svg_line(xs, ys, color):
+        if len(xs) < 2:
+            return "<svg></svg>"
+        W, H, P = 640, 220, 30
+        xmin, xmax = min(xs), max(xs)
+        ymin, ymax = min(ys), max(ys)
+        def sx(x):
+            return P + (x - xmin) / ((xmax - xmin) or 1) * (W - 2 * P)
+        def sy(y):
+            return H - P - (y - ymin) / ((ymax - ymin) or 1) * (H - 2 * P)
+        pts = " ".join(f"{sx(x):.1f},{sy(y):.1f}" for x, y in zip(xs, ys))
+        return (f'<svg viewBox="0 0 {W} {H}">'
+                f'<polyline fill="none" stroke="{color}" stroke-width="1.5" '
+                f'points="{pts}"/>'
+                f'<text x="4" y="12" font-size="11">{ymax:.4g}</text>'
+                f'<text x="4" y="{H-6}" font-size="11">{ymin:.4g}</text>'
+                f'</svg>')
+
+    iters = [r["iteration"] for r in recs]
+    scores = [r["score"] for r in recs]
+    times = [(r["iteration"], r["iterationTimeMs"]) for r in recs
+             if r.get("iterationTimeMs") is not None]
+    html = ("<!DOCTYPE html><html><head><title>training snapshot</title>"
+            "</head><body><h1>Training snapshot</h1>"
+            f"<p>{len(recs)} records</p>"
+            "<h2>Score</h2>" + svg_line(iters, scores, "#0a6"))
+    if times:
+        html += "<h2>Iteration time (ms)</h2>" + svg_line(
+            [t[0] for t in times], [t[1] for t in times], "#06a")
+
+    colors = ["#0a6", "#06a", "#a06", "#a60", "#60a", "#6a0", "#066"]
+    with_r = [r for r in recs if r.get("updateRatios")]
+    if with_r:
+        keys = sorted(with_r[-1]["updateRatios"])
+        html += "<h2>log10 update:parameter ratio</h2>"
+        for i, k in enumerate(keys):
+            pts = [(r["iteration"],
+                    math.log10(r["updateRatios"][k] + 1e-12))
+                   for r in with_r if k in r["updateRatios"]]
+            html += (f'<div>{k}</div>'
+                     + svg_line([p[0] for p in pts], [p[1] for p in pts],
+                                colors[i % len(colors)]))
+    ah = next((r["activationHistograms"] for r in reversed(recs)
+               if r.get("activationHistograms")), None)
+    if ah:
+        html += "<h2>Activation histograms (latest)</h2>"
+        for i, (k, h) in enumerate(sorted(ah.items())):
+            cmax = max(h["counts"]) or 1
+            W, H, n = 300, 120, len(h["counts"])
+            bars = "".join(
+                f'<rect x="{j * W / n:.1f}" width="{W / n - 1:.1f}" '
+                f'y="{H - 20 - (H - 24) * c / cmax:.1f}" '
+                f'height="{(H - 24) * c / cmax:.1f}" '
+                f'fill="{colors[i % len(colors)]}"/>'
+                for j, c in enumerate(h["counts"]))
+            html += (f'<h3>{k}</h3><svg viewBox="0 0 {W} {H}" '
+                     f'width="{W}" height="{H}">{bars}'
+                     f'<text x="2" y="{H - 6}" font-size="10">'
+                     f'{h["min"]:.2f}</text>'
+                     f'<text x="{W - 44}" y="{H - 6}" font-size="10">'
+                     f'{h["max"]:.2f}</text></svg>')
+    if tsne is not None:
+        coords, labels = (tsne if isinstance(tsne, tuple)
+                          else (tsne, None))
+        import numpy as _np
+        coords = _np.asarray(coords, _np.float32)
+        lset = sorted(set(map(str, labels))) if labels is not None else []
+        W, H, P = 640, 360, 20
+        xmin, ymin = coords.min(0)
+        xmax, ymax = coords.max(0)
+        dots = "".join(
+            f'<circle cx="{P + (cx - xmin) / ((xmax - xmin) or 1) * (W - 2 * P):.1f}" '
+            f'cy="{H - P - (cy - ymin) / ((ymax - ymin) or 1) * (H - 2 * P):.1f}" '
+            f'r="2.5" fill="'
+            + (colors[lset.index(str(labels[i])) % len(colors)]
+               if lset else colors[0]) + '"/>'
+            for i, (cx, cy) in enumerate(coords))
+        html += (f"<h2>t-SNE ({len(coords)} points)</h2>"
+                 f'<svg viewBox="0 0 {W} {H}" width="{W}" '
+                 f'height="{H}">{dots}</svg>')
+    html += "</body></html>"
+    with open(path, "w") as f:
+        f.write(html)
+    return path

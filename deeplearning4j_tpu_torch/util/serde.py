@@ -19,9 +19,9 @@ its own module. Decode never imports a module the restoring process has
 not imported already, unless `registerCustomModule` trusts it: a
 configuration file cannot trigger an import.
 
-The quantized configurations (`quantize.policy`, `quantize.infer`) and
-FrozenVertex are not ported yet: their names resolve to an error naming
-ROADMAP A13 and A17.
+The registry holds the quantized configurations too (`quantize.policy`'s
+PrecisionPolicy on a QAT layer, `quantize.infer`'s layers in a network
+that `quantize_network` rewrote), in the JAX package's order.
 """
 from __future__ import annotations
 
@@ -52,16 +52,11 @@ _CONFIG_MODULES = [
     "deeplearning4j_tpu_torch.nn.conf.graph_vertices",
     "deeplearning4j_tpu_torch.nn.updaters",
     "deeplearning4j_tpu_torch.nn.schedules",
+    # precision policies ride on layer confs (QAT), and quantized layer
+    # confs replace trained layers after quantize_network()
+    "deeplearning4j_tpu_torch.quantize.policy",
+    "deeplearning4j_tpu_torch.quantize.infer",
 ]
-
-#: the registry's quantized configurations (the JAX package's
-#: `quantize.policy` and `quantize.infer`), not ported yet
-_QUANTIZED = ("PrecisionPolicy", "QuantizedDense", "QuantizedConv1x1",
-              "QuantPassthrough", "QuantizedMultiLayerNetwork",
-              "QuantizedComputationGraph")
-
-#: the registry's classes that come with transfer learning (A17)
-_TRANSFER = ("FrozenVertex",)
 
 #: modules explicitly trusted for custom-class restore (beyond ones the
 #: restoring process has ALREADY imported) — see registerCustomModule
@@ -143,13 +138,6 @@ def _resolve(name):
         m = importlib.import_module(mod)
         if hasattr(m, name):
             return getattr(m, name)
-    if name in _QUANTIZED or name in _TRANSFER:
-        what, item = (("the quantized configurations (quantize/policy.py, "
-                       "quantize/infer.py)", "A13") if name in _QUANTIZED
-                      else ("transfer learning (transfer/)", "A17"))
-        raise NotImplementedError(
-            f"Config class '{name}': {what} is not ported yet; it comes "
-            f"with ROADMAP {item}")
     raise ValueError(f"Cannot resolve config class '{name}'")
 
 

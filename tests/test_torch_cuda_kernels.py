@@ -564,6 +564,38 @@ def test_cuda_fused_resnet_launches_the_epilogue_kernel(card, monkeypatch):
         assert _scaled_err(a[node], b[node]) <= 1e-4, node
 
 
+def test_cuda_quantized_layers_dot_match_their_plain_route(card):
+    """quantize/infer.py's "dot" route on the card: one int8_matmul_epilogue
+    launch per QuantizedConv1x1 (stride 2: the subsampled pixels) and per
+    QuantizedDense (tanh: after an identity epilogue), against the same
+    layer on CPU copies of its tensors (the kernel's plain version). The
+    quantized inputs and the int32 sums are exact; the card's epilogue
+    contracts acc·scale + shift into one FMA, so it may differ by an ulp:
+    held to 1e-6 of max(1, max |plain|)."""
+    from deeplearning4j_tpu_torch.quantize import (QuantizedConv1x1,
+                                                   QuantizedDense)
+    gen = torch.Generator().manual_seed(3)
+    layers = ((QuantizedConv1x1("c", 96, 40, "relu", stride=2, impl="dot"),
+               96, 40, (3, 9, 9, 96)),
+              (QuantizedDense("d", 70, 33, "tanh", True, impl="dot"), 70, 33,
+               (5, 70)))
+    for layer, k, n, shape in layers:
+        params = {"Wq": torch.randint(-127, 128, (k, n), generator=gen,
+                                      dtype=torch.int32).to(torch.int8),
+                  "scale": torch.rand(n, generator=gen) * 1e-3,
+                  "bias": torch.randn(n, generator=gen) * 0.1,
+                  "x_scale": torch.tensor(0.02)}
+        x = torch.randn(shape, generator=gen)
+        want, _ = layer.apply(params, {}, x)
+        before = tpc.int8_matmul_epilogue.launches
+        got, _ = layer.apply({k_: v.to(card) for k_, v in params.items()},
+                             {}, x.to(card))
+        assert tpc.int8_matmul_epilogue.launches == before + 1
+        assert got.shape == want.shape
+        tol = 1e-6 * max(1.0, float(want.abs().max()))
+        assert float((got.cpu() - want).abs().max()) <= tol, type(layer)
+
+
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
                                         (torch.bfloat16, 2e-2)])
 def test_cuda_bn_training_kernels_match_plain(card, dtype, atol):

@@ -192,6 +192,23 @@ def test_the_checkpoint_and_layer_family_modules_are_among_the_checked_sources()
         assert f"deeplearning4j_tpu_torch/{module}.py" in names
 
 
+def test_the_int8_and_training_front_end_modules_are_among_the_checked_sources():
+    """The int8 path (quantize/), transfer learning, the listeners and
+    early stopping, and the training statistics: copies of JAX-package
+    modules with their imports re-pointed (the lazy ones too), held by the
+    two rules above like every module of the port."""
+    names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
+    for module in ("quantize/__init__", "quantize/core", "quantize/policy",
+                   "quantize/calibrate", "quantize/infer",
+                   "quantize/traffic", "transfer/__init__",
+                   "transfer/transfer_learning", "optimize/__init__",
+                   "optimize/listeners", "optimize/early_stopping",
+                   "ui/__init__", "ui/stats", "ui/server",
+                   "nn/conf/layers", "nn/conf/graph_vertices",
+                   "util/serde"):
+        assert f"deeplearning4j_tpu_torch/{module}.py" in names
+
+
 _WRITE_JAX_ARCHIVE = """
 import sys
 import numpy as np

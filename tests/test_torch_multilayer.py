@@ -540,10 +540,13 @@ def test_what_is_not_ported_raises_naming_its_item(tmp_path):
     nets = [MultiLayerNetwork(c).init("cpu").fit(x, np.eye(2)[[0, 1]])
             for c in (remat, plain)]
     assert torch.equal(nets[0].params().tensor, nets[1].params().tensor)
+    # frozen layers run now (tests/test_torch_transfer.py): inference mode
+    # in training, so a frozen layer's dropout draws nothing
     frozen = _mlp_conf()
     frozen.layers[0].frozen = True
-    with pytest.raises(NotImplementedError, match="frozen.*A17"):
-        MultiLayerNetwork(frozen).init("cpu")
+    frozen_net = MultiLayerNetwork(frozen).init("cpu")
+    frozen_net.fit(x, np.eye(3)[[0, 1]])
+    assert np.isfinite(frozen_net.score())
     # weight noise trains now (tests/test_torch_layers_train.py)
     from deeplearning4j_tpu_torch.nn.conf.weightnoise import DropConnect
     noisy = _mlp_conf()
