@@ -14,6 +14,7 @@
     python3 chip_smoke.py --only layers   # card, build, layers
     python3 chip_smoke.py --only resilience  # card, build, resilience
     python3 chip_smoke.py --only quant    # card, build, quant
+    python3 chip_smoke.py --only parallel  # card, build, parallel
     python3 chip_smoke.py --profile  # and phase 14
 
 Phases, in order; any failure exits non-zero and prints no result:
@@ -357,6 +358,30 @@ Phases, in order; any failure exits non-zero and prints no result:
             turns, the fine-tune step's ms; with --profile, both forwards'
             device time by group (B6 int8, the quantize passes, cuDNN) and
             idle share. It runs after the resilience phase.
+20. parallel: data- and sequence-parallel training over
+            `torch.distributed`, in rank processes the phase spawns and
+            joins against a deadline (every process group with a
+            timeout; a rank that fails or hangs fails the run). The ranks
+            load the kernels this run built (they count no nvcc) and send
+            their launch counts back. Arm A, NCCL, one rank per card: the
+            long-context recipe of examples/long_context_bert.py at
+            BERT-base width (T = 4096, B = 2, remat, Adam under ZeRO-1)
+            through `ShardedTrainer` with the flash ring as attn_impl, 3
+            steps, against the same trainer with attn_impl="flash"
+            (gradients per leaf and losses, PAR_GRAD_RTOL and
+            PAR_LOSS_RTOL); `ParallelWrapper` on fused ResNet-50 at B = 32,
+            graphed: 2 steps bit for bit equal to `net.fit`'s and to its
+            own eager steps, the NCCL all-reduce captured in the graph.
+            Arm B, two gloo ranks on the first card (host-staged hops):
+            the same recipe at dp = 1, sp = 2 against arm A's gradients and
+            losses; the causal and the masked flash ring against the plain
+            ring and Ulysses with flash_attention against single-device
+            flash (forward and gradients); `ParallelWrapper` on fused
+            ResNet-50 at 2 × 16 rows (synchronized BN) against arm A's one
+            rank on 32, 2 steps; BERT-base's 12 layers as a 2-stage GPipe
+            pipeline of 4 microbatches against the sequential forward.
+            Printed: ms/step and peak allocated bytes per arm, each rank's
+            launches per step of B1/B2a/B2b and B5/B7/B8.
 
 Phases 5, 7 and 8 run as a user runs them: the server and `fit` replay
 CUDA graphs on the card by default. The kernels' launch counters are set
@@ -367,7 +392,8 @@ phase and each path of the rnn phase) and read just after; a replay adds
 the launches its capture recorded. The mln phase and the rnn phase's LSTM
 paths run none of them: their counts are read and must stay 0. The zoo,
 layers, resilience and quant phases' counts are set to 0 before each of
-their paths. Every
+their paths, and the parallel phase's ranks set theirs to 0 before each
+of theirs. Every
 number is measured in this run; the last lines are the kernel JSON object
 and the `{"ok": true, "device": ...}` line. Imports nothing of JAX.
 """
@@ -699,9 +725,20 @@ def _fwd_case(label, b, h, tq, tk, d, causal, lengths, dtype, gen):
     out, lse = flash_fwd(q, k, v, mask, causal)
     again = flash_fwd(q, k, v, mask, causal)
     ref, ref_lse = _flash_forward_reference(q, k, v, mask, causal)
+    exact, exact_lse = _flash_forward_reference(q.double(), k.double(),
+                                                v.double(), mask, causal)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     lse_err = (lse - ref_lse).abs().max().item()
+    # against f64, the lse where it is no sentinel (±1e30 differ by far
+    # more than any error between f32 and f64)
+    live = exact_lse.abs() < 1e29
+
+    def from_f64(o, l):
+        return max((o.double() - exact).abs().max().item(),
+                   (l.double() - exact_lse).abs().where(live, 0).max().item())
+    f64_err, plain_f64_err = from_f64(out, lse), from_f64(ref, ref_lse)
+    del exact, exact_lse
     identical = torch.equal(out, again[0]) and torch.equal(lse, again[1])
     bms, by = _flash_bound("flash_fwd", b, h, tq, tk, d, causal, mask, dtype)
     ms = time_ms(lambda: flash_fwd(q, k, v, mask, causal))
@@ -713,7 +750,8 @@ def _fwd_case(label, b, h, tq, tk, d, causal, lengths, dtype, gen):
     return dict(name="flash_fwd", case=label, shape=[b, h, tq, tk, d],
                 dtype=DTYPE_NAMES[dtype], causal=causal,
                 max_abs_err=max(err, lse_err), out_err=err,
-                lse_err=lse_err, atol=ATOL[dtype], bit_identical=identical,
+                lse_err=lse_err, atol=ATOL[dtype], f64_err=f64_err,
+                plain_f64_err=plain_f64_err, bit_identical=identical,
                 ms=ms, plain_ms=plain,
                 library_ms=lib, bound_ms=bms, bound_by=by)
 
@@ -805,6 +843,8 @@ def _bwd_cases(label, b, h, tq, tk, d, causal, lengths, dtype, gen):
                   for a, w in zip(got, want))
         f64_err = max((a.double() - w).abs().max().item()
                       for a, w in zip(got, exact))
+        plain_f64_err = max((a.double() - w).abs().max().item()
+                            for a, w in zip(want, exact))
         del exact
         scale = max([1.0] + [w.float().abs().max().item() for w in want])
         identical = all(torch.equal(a, c) for a, c in zip(got, again))
@@ -815,7 +855,7 @@ def _bwd_cases(label, b, h, tq, tk, d, causal, lengths, dtype, gen):
             name=name, case=label, shape=[b, h, tq, tk, d],
             dtype=DTYPE_NAMES[dtype], causal=causal, max_abs_err=err,
             atol=ATOL[dtype] * scale, f64_err=f64_err,
-            bit_identical=identical,
+            plain_f64_err=plain_f64_err, bit_identical=identical,
             padded_example_zero=not leak, ms=time_ms(lambda: kernel(*args)),
             plain_ms=time_ms(lambda: plain(*args)), library_ms=lib,
             bound_ms=bms, bound_by=by))
@@ -835,6 +875,9 @@ ATTN_KERNEL_SHAPES = (
      [512 - 31 * i for i in range(16)]))
 
 
+#: the flash ring's block in the parallel phase's recipe (B, H, Tq, Tk, D):
+#: BERT-base at T = 4096 over sp = 2
+RING_BLOCK = (2, 12, 2048, 2048, 64)
 #: the 1×1 convs whose shapes the epilogue GEMM is checked at, ResNet-50
 #: at 224×224 and B=32: (M = B·H·W, K, N), and one ragged M (and K) with
 #: a residual and relu
@@ -1379,7 +1422,8 @@ def run_kernel_cases(cases, gen):
             f"case_s={r['wall_s']:.2f}"
             + ("" if "bit_identical" not in r else
                f" bit_identical={r['bit_identical']}")
-            + ("" if "f64_err" not in r else f" f64_err={r['f64_err']:.3e}")
+            + ("" if "f64_err" not in r else f" f64_err={r['f64_err']:.3e}"
+               f" plain_f64_err={r['plain_f64_err']:.3e}")
             + ("" if "cluster" not in r else f" cluster={r['cluster']}")
             + ("" if "acc_exact" not in r else
                f" int32_sums_exact={r['acc_exact']}")
@@ -1445,6 +1489,14 @@ def phase_kernels():
         cases += training_kernel_cases(dtype)
     for label, shape in INT8_SHAPES.items():
         cases.append((_int8_case, label, *shape))
+    for causal in (False, True):
+        # the flash ring's block at the long-context recipe's shape: one
+        # rank's 2048 queries against one held block of 2048 keys
+        label = "ring block causal" if causal else "ring block"
+        cases.append((_fwd_case, label, *RING_BLOCK, causal,
+                      None, torch.float32))
+        cases.append((_bwd_cases, label, *RING_BLOCK, causal,
+                      None, torch.float32))
     cases += step36_cases()
     cases += fwd36_cases()
     cases += zoo_pair_cases()
@@ -6826,6 +6878,732 @@ def phase_quant(profile=False):
     return out
 
 
+# -- phase 20: parallel ----------------------------------------------------------
+#: the parallel phase (`--only parallel`): BERT-base in the long-context
+#: recipe of examples/long_context_bert.py (T = 4096, B = 2, remat, Adam
+#: under ZeRO-1, the flash ring as attn_impl) through ShardedTrainer, and
+#: fused ResNet-50 through ParallelWrapper. Arm A: NCCL, one rank per card;
+#: arm B: two gloo ranks on the first card (host-staged hops).
+PAR = dict(seq=4096, batch=2, steps=3, lr=1e-4, seed=11,
+           resnet_size=224, resnet_batch=32, resnet_steps=2, resnet_timed=5,
+           ring_lengths=[4096, 2900], pipe_batch=8, pipe_seq=512,
+           pipe_micro=4, bert=None,
+           backend_a="nccl", deadline_a_s=420, deadline_b_s=480,
+           pg_timeout_s=300)
+#: gates. Ring vs flash at sp = 1 and the gloo ring at sp = 2 vs arm A:
+#: each gradient leaf's L2 error relative to its norm, the losses
+#: relatively; the ring and Ulysses kernels' paths against their plain
+#: versions, scaled by max(1, max |plain|); the pipeline against the
+#: sequential forward. ParallelWrapper's ResNet-50 at 2 × 16 rows (synced
+#: BN) against one rank's net.fit on the 32 rows, both through their fit:
+#: - the unfused net in f64, 2 steps: each leaf's update (parameters minus
+#:   the start) and each BN running statistic after each step within
+#:   PAR_RESNET_F64_RTOL of one rank's, L2 relative to its norm (the CPU,
+#:   64×64 at 2 × 8 rows: 1.4e-12 after 2 steps; a rank that sums only
+#:   its own rows is off by percents);
+#: - the fused net in f32 (B5, B7, B8 with their sums over dp): the losses
+#:   of 2 steps relatively (step 2 follows one update), and step 1's update
+#:   held to the f64 one as the resnet_train phase holds the fused
+#:   gradients (the update is −(1 + μ)·lr·g at the first Nesterov step):
+#:   each leaf's max|err|/max|f64| within max(RESNET_GRAD_RTOL,
+#:   RESNET_GRAD_FACTOR × one rank's, one rank's worst leaf), the median
+#:   within RESNET_GRAD_FACTOR × one rank's. (Two sound f32 runs of this
+#:   net differ by ~2 % at the median leaf of one step's gradients, and by
+#:   up to 2.03× at a leaf: the resnet_train phase's fused/unfused ratio.
+#:   Two steps in f32 are printed beside the same spread of two sound
+#:   one-rank runs, fused and unfused, and not gated: each step's 2 %
+#:   carries through BN into the next.)
+PAR_GRAD_RTOL = 1e-3
+PAR_LOSS_RTOL = 1e-5
+PAR_ATTN_ATOL = 1e-4
+PAR_PIPE_ATOL = 1e-4
+PAR_RESNET_LOSS_RTOL = (1e-4, 1e-3)
+PAR_RESNET_F64_RTOL = 1e-9
+PAR_DIR = Path(__file__).resolve().parent / "build" / "parallel"
+PAR_BERT_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def _par_sync():
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+
+
+def _par_reset_peak():
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _par_peak():
+    return torch.cuda.max_memory_allocated() if DEV == "cuda" else None
+
+
+def _par_launched(counts, kernels):
+    """Every kernel of the path launched (the plain versions of a CPU
+    rehearsal count none)."""
+    return DEV != "cuda" or all(counts[k] > 0 for k in kernels)
+
+
+def _par_cfg():
+    over = dict(max_position_embeddings=PAR["seq"], remat=True)
+    if PAR["bert"]:
+        from deeplearning4j_tpu_torch.models import bert_tiny
+        return bert_tiny(**over, **PAR["bert"])
+    return bert_base(**over)
+
+
+def _par_batch(cfg):
+    rng = np.random.default_rng(PAR["seed"])
+    return {"input_ids": rng.integers(0, cfg.vocab_size,
+                                      (PAR["batch"], PAR["seq"])),
+            "labels": rng.integers(0, cfg.num_labels, (PAR["batch"],))}
+
+
+def _par_trainer(cfg, mesh, attn):
+    """ShardedTrainer over the recipe's loss: the ring (a shard_map of
+    make_ring_attention over sp: the flash ring on the card) or "flash"."""
+    from deeplearning4j_tpu_torch.models.bert import sharding_rules
+    from deeplearning4j_tpu_torch.parallel import (ShardedTrainer,
+                                                   make_ring_attention)
+    from deeplearning4j_tpu_torch.parallel.mesh import P, shard_map
+    impl = attn
+    if attn == "ring":
+        spec = P(None, None, "sp", None)
+        impl = shard_map(make_ring_attention(mesh, "sp"), mesh=mesh,
+                         in_specs=(spec, spec, spec), out_specs=spec)
+
+    def loss_fn(p, batch, generator):
+        return classification_loss(cfg, p, batch, train=False,
+                                   attn_impl=impl)
+
+    return ShardedTrainer(loss_fn, Adam(PAR["lr"]), mesh,
+                          sharding_rules(cfg, mesh, dp="dp", tp=None))
+
+
+def _par_grads(tr, p, b):
+    """(loss, {path: gradient}) of one dp-synced backward of `tr`."""
+    from deeplearning4j_tpu_torch.parallel.sharded_trainer import \
+        accumulate_grads
+    grads, loss, _ = accumulate_grads(tr._gathered_loss, p, b, None, 1)
+    grads, loss = tr._sync(dict(grads), loss)
+    return float(loss), grads
+
+
+def _par_leaf_rel(got, want):
+    """{path: ‖got − want‖ / ‖want‖} (0 where both are 0)."""
+    out = {}
+    for k, w in want.items():
+        a, w = got[k].double().cpu(), w.double().cpu()
+        n = float(w.norm())
+        d = float((a - w).norm())
+        out[k] = 0.0 if d == 0 else d / max(n, 1e-30)
+    return out
+
+
+def _par_bert_run(tr, cfg, params, batch, steps):
+    """Init (ZeRO-1 state), one synced backward, then `steps` timed steps
+    with the kernel counts set to 0 just before them."""
+    from deeplearning4j_tpu_torch.parallel.zero import shard_optimizer_state
+    from deeplearning4j_tpu_torch.parallel.sharded_trainer import _paths
+    p, s = tr.init(params)
+    s = shard_optimizer_state(s, tr.mesh, axis="dp")
+    b = tr.shard_batch(batch)
+    loss, grads = _par_grads(tr, p, b)
+    _par_sync()
+    _par_reset_peak()
+    _reset_counts()
+    losses, ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        p, s, step_loss = tr.fit_batch(p, s, b, None)
+        losses.append(float(step_loss))
+        _par_sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = _counts()
+    return dict(loss=loss, grads=grads, losses=losses, ms=ms,
+                counts=counts, peak=_par_peak(),
+                params=dict(_paths(p)))
+
+
+def _par_resnet_net(fused=True):
+    with _fusion(fused):
+        net = ResNet50(inputShape=(PAR["resnet_size"],) * 2 + (3,),
+                       updater=Nesterovs(0.01, 0.9)).init(DEV)
+    _perturb_bn(net, RESNET["seed"])
+    return net
+
+
+def _par_resnet_batch(rows=None):
+    rng = np.random.default_rng(PAR["seed"] + 1)
+    b, hw = PAR["resnet_batch"], PAR["resnet_size"]
+    x = rng.standard_normal((b, hw, hw, 3), dtype=np.float32)
+    y = np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, b)]
+    return DataSet(x, y)
+
+
+def _par_tree(tree):
+    return {f"{n}/{k}": v.detach().cpu().clone() for n in sorted(tree)
+            for k, v in sorted(tree[n].items())}
+
+
+def _par_equal(a, b):
+    return all(torch.equal(a[k], b[k]) for k in a)
+
+
+def _par_arm_a(world, rank):
+    """NCCL, one rank per card: the recipe through the flash ring against
+    the same trainer with attn_impl="flash"; ParallelWrapper's graphed
+    fused ResNet-50 step against net.fit's and its own eager step."""
+    from deeplearning4j_tpu_torch.parallel import DeviceMesh, ParallelWrapper
+    out = {}
+    mesh = DeviceMesh(dp=1, sp=world)
+    cfg = _par_cfg()
+    params = init_bert_params(cfg, 0, device=DEV)
+    batch = _par_batch(cfg)
+    ring = _par_bert_run(_par_trainer(cfg, mesh, "ring"), cfg, params,
+                         batch, PAR["steps"])
+    flash = _par_bert_run(_par_trainer(cfg, mesh, "flash"), cfg, params,
+                          batch, PAR["steps"])
+    g_err = _par_leaf_rel(ring["grads"], flash["grads"])
+    p_err = _par_leaf_rel(ring["params"], flash["params"])
+    out["bert"] = dict(
+        loss=ring["loss"], flash_loss=flash["loss"],
+        grad_rel_worst=max(g_err.values()),
+        grad_rel_median=float(np.median(list(g_err.values()))),
+        losses=ring["losses"], flash_losses=flash["losses"],
+        params_rel_worst=max(p_err.values()), ms=ring["ms"],
+        flash_ms=flash["ms"], peak_bytes=ring["peak"],
+        flash_peak_bytes=flash["peak"], launches=ring["counts"],
+        flash_launches=flash["counts"])
+    if rank == 0:
+        torch.save({"loss": ring["loss"], "losses": ring["losses"],
+                    "grads": {k: v.cpu() for k, v in ring["grads"].items()},
+                    "params": {k: v.cpu()
+                               for k, v in ring["params"].items()}},
+                   PAR_DIR / "bert_ref.pt")
+    del ring, flash, params
+    torch.cuda.empty_cache()
+    with _deterministic():
+        ds = _par_resnet_batch()
+        ref, net, eager = (_par_resnet_net(), _par_resnet_net(),
+                           _par_resnet_net())
+        init = _par_tree(net._params)
+        pw = ParallelWrapper.Builder(net).workers(world).build()
+        pw_e = ParallelWrapper.Builder(eager).workers(world).cudaGraphs(
+            False).build()
+        same_fit, same_eager, losses, steps = [], [], [], []
+        for _ in range(PAR["resnet_steps"]):
+            ref.fit(ds)
+            steps.append(_par_tree(ref._params))
+            pw.fit([ds])
+            pw_e.fit([ds])
+            _par_sync()
+            losses.append(float(net._score))
+            same_fit.append(_par_equal(_par_tree(ref._params),
+                                       _par_tree(net._params))
+                            and _par_equal(_par_tree(ref._state),
+                                           _par_tree(net._state)))
+            same_eager.append(_par_equal(_par_tree(eager._params),
+                                         _par_tree(net._params))
+                              and _par_equal(_par_tree(eager._state),
+                                             _par_tree(net._state)))
+        del ref, eager
+        if rank == 0:
+            torch.save({"init": init, "steps": steps,
+                        "state": _par_tree(net._state), "losses": losses,
+                        **_par_resnet_refs(ds)},
+                       PAR_DIR / "resnet_ref.pt")
+        _par_sync()
+        _par_reset_peak()
+        _reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(PAR["resnet_timed"]):
+            pw.fit([ds])
+        _par_sync()
+        ms = (time.perf_counter() - t0) * 1e3 / PAR["resnet_timed"]
+        counts = _counts()
+        st = net.fit_status() or {}
+    out["resnet"] = dict(
+        bit_equal_fit=same_fit, bit_equal_eager=same_eager, losses=losses,
+        ms=ms, peak_bytes=_par_peak(),
+        launches=counts, steps=PAR["resnet_timed"], store=_par_store(st),
+        backend=mesh.backend("sp"))
+    return out
+
+
+def _par_store(st):
+    """The fit store's entries (key, graph or eager) with its capture and
+    replay counts; `dp_in_graph`: the data-parallel step's key (its
+    function all-reduces the gradients) runs as a captured graph."""
+    entries = [{"key": e["key"], "mode": e["mode"]}
+               for e in st.get("entries", [])]
+    return {"entries": entries,
+            "captures": st.get("captures"), "replays": st.get("replays"),
+            "degraded": st.get("degraded", {}),
+            "dp_in_graph": any(e["key"].startswith("('dp_fit'")
+                               and e["mode"] == "graph" for e in entries)}
+
+
+def _par_attn_checks(world):
+    """The causal and the masked flash ring against the plain ring, and
+    Ulysses with flash_attention as attn_fn against single-device flash, at
+    the recipe's attention shape: forward and gradients."""
+    from deeplearning4j_tpu_torch.kernels.flash_attention import \
+        flash_attention
+    from deeplearning4j_tpu_torch.parallel import (DeviceMesh,
+                                                   make_ring_attention,
+                                                   ulysses_attention_sharded)
+    from deeplearning4j_tpu_torch.parallel.mesh import P, shard_map
+    cfg = _par_cfg()
+    mesh = DeviceMesh(sp=world)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(PAR["seed"] + 2)
+    shape = (PAR["batch"], cfg.num_heads, PAR["seq"], cfg.head_dim)
+    q, k, v, g = (torch.randn(shape, generator=gen, device=DEV)
+                  for _ in range(4))
+    mask = _ragged_mask(PAR["ring_lengths"], PAR["seq"], torch.device(DEV))
+    spec = P(None, None, "sp", None)
+    out = {}
+
+    def run(fn, *extra):
+        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+        o = fn(qq, kk, vv, *extra)
+        grads = torch.autograd.grad(o, (qq, kk, vv), g)
+        return [o.detach()] + list(grads)
+
+    def err(got, want):
+        return max(((a - b).abs().max() / b.abs().max().clamp_min(1.0)).item()
+                   for a, b in zip(got, want))
+
+    for name, causal, masked in (("causal", True, False),
+                                 ("masked", False, True)):
+        specs = (spec,) * 3 + ((P(None, "sp"),) if masked else ())
+        extra = (mask,) if masked else ()
+        fns = [shard_map(make_ring_attention(mesh, "sp", causal=causal,
+                                             use_flash=use),
+                         mesh=mesh, in_specs=specs, out_specs=spec)
+               for use in (True, False)]
+        _reset_counts()
+        got = run(fns[0], *extra)
+        counts = _counts()
+        want = run(fns[1], *extra)
+        if masked:   # rows of padded queries attend over nothing useful
+            keep = mask[:, None, :, None]
+            got = [got[0] * keep] + got[1:]
+            want = [want[0] * keep] + want[1:]
+        out[f"ring_{name}"] = dict(err=err(got, want), launches=counts)
+    _reset_counts()
+    got = run(lambda a, b, c, m: ulysses_attention_sharded(
+        mesh, a, b, c, mask=m, attn_fn=flash_attention), mask)
+    counts = _counts()
+    want = run(lambda a, b, c, m: flash_attention(a, b, c, kv_mask=m), mask)
+    out["ulysses_flash"] = dict(err=err(got, want), launches=counts)
+    return out
+
+
+def _par_pipeline(world):
+    """BERT-base's layers as `world` stages of a GPipe pipeline (flash
+    attention), PAR["pipe_micro"] microbatches, against the sequential
+    forward."""
+    from deeplearning4j_tpu_torch.models.bert import _encoder_layer
+    from deeplearning4j_tpu_torch.parallel import (DeviceMesh,
+                                                   make_pipeline_fn,
+                                                   stack_stage_params)
+    cfg = _par_cfg()
+    params = init_bert_params(cfg, 1, device=DEV)
+    per = cfg.num_layers // world
+    stages = [{"layers": params["layers"][s * per:(s + 1) * per]}
+              for s in range(world)]
+    stacked = stack_stage_params(stages)
+
+    def stage_fn(p, x):
+        for layer in p["layers"]:
+            x = _encoder_layer(cfg, layer, x, None, "flash")
+        return x
+
+    mesh = DeviceMesh(pp=world)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(PAR["seed"] + 3)
+    x = torch.randn((PAR["pipe_batch"], PAR["pipe_seq"], cfg.hidden_size),
+                    generator=gen, device=DEV)
+    pipe = make_pipeline_fn(stage_fn, mesh, PAR["pipe_micro"])
+    with torch.no_grad():
+        _reset_counts()
+        _par_sync()
+        t0 = time.perf_counter()
+        y = pipe(stacked, x)
+        _par_sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = _counts()
+        want = x
+        for layer in params["layers"]:
+            want = _encoder_layer(cfg, layer, want, None, "flash")
+    e = ((y - want).abs().max() / want.abs().max().clamp_min(1.0)).item()
+    return dict(err=e, ms=ms, launches=counts, stages=world,
+                microbatches=PAR["pipe_micro"])
+
+
+def _par_arm_b(world, rank):
+    """Two gloo ranks on one card: the recipe at dp = 1, sp = 2 against arm
+    A's sp = 1; the causal and masked flash rings and Ulysses; ParallelWrapper
+    on fused ResNet-50 at 2 × 16 rows against one rank on 32; the
+    pipeline."""
+    from deeplearning4j_tpu_torch.parallel import DeviceMesh, ParallelWrapper
+    out = {}
+    mesh = DeviceMesh(dp=1, sp=world)
+    cfg = _par_cfg()
+    params = init_bert_params(cfg, 0, device=DEV)
+    ring = _par_bert_run(_par_trainer(cfg, mesh, "ring"), cfg, params,
+                         _par_batch(cfg), PAR["steps"])
+    ref = torch.load(PAR_DIR / "bert_ref.pt")
+    g_err = _par_leaf_rel(ring["grads"], ref["grads"])
+    p_err = _par_leaf_rel(ring["params"], ref["params"])
+    out["bert"] = dict(
+        loss=ring["loss"], ref_loss=ref["loss"],
+        grad_rel_worst=max(g_err.values()),
+        grad_rel_median=float(np.median(list(g_err.values()))),
+        losses=ring["losses"], ref_losses=ref["losses"],
+        params_rel_worst=max(p_err.values()), ms=ring["ms"],
+        peak_bytes=ring["peak"], launches=ring["counts"],
+        launches_per_step={k: v / PAR["steps"]
+                           for k, v in ring["counts"].items()})
+    del ring, ref, params
+    torch.cuda.empty_cache()
+    out["attention"] = _par_attn_checks(world)
+    torch.cuda.empty_cache()
+    with _deterministic():
+        full = _par_resnet_batch()
+        ref = torch.load(PAR_DIR / "resnet_ref.pt")
+        net = _par_resnet_net()
+        pw = ParallelWrapper.Builder(net).workers(world).build()
+        losses, trees, ms = [], [], []
+        _par_sync()
+        _par_reset_peak()
+        _reset_counts()
+        for _ in range(PAR["resnet_steps"]):
+            t0 = time.perf_counter()
+            pw.fit([full])      # each rank takes its 16 rows
+            losses.append(float(net._score))
+            _par_sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            trees.append(_par_tree(net._params))
+        counts = _counts()
+        peak = _par_peak()
+        state = _par_tree(net._state)
+        del net, pw
+        torch.cuda.empty_cache()
+        # the same wrapper steps on the unfused net in f64
+        net = _in_f64(_par_resnet_net(fused=False))
+        pw = ParallelWrapper.Builder(net).workers(world).build()
+        trees64 = []
+        for _ in range(PAR["resnet_steps"]):
+            pw.fit([full])
+            trees64.append(_par_tree(net._params))
+        state64 = _par_tree(net._state)
+        del net, pw
+    # ms: the last step's (the first pays the first call's set-up)
+    out["resnet"] = dict(
+        losses=losses, ref_losses=ref["losses"], ms=ms[-1], ms_steps=ms,
+        peak_bytes=peak,
+        launches=counts,
+        launches_per_step={k: v / PAR["resnet_steps"]
+                           for k, v in counts.items()},
+        **_par_resnet_compare(ref, trees, state, trees64, state64))
+    del ref
+    torch.cuda.empty_cache()
+    out["pipeline"] = _par_pipeline(world)
+    return out
+
+
+def _par_resnet_refs(ds):
+    """One rank's net.fit on the 32 rows that arm B's wrapper steps are held
+    to: the unfused net in f64 (its parameters at the start and after each
+    step, and its BN state) and in f32 (its parameters after the last step:
+    the spread of two sound f32 runs beside the fused net's)."""
+    out = {}
+    for tag in ("f64", "unfused"):
+        net = _par_resnet_net(fused=False)
+        if tag == "f64":
+            net = _in_f64(net)
+        trees = [_par_tree(net._params)]
+        for _ in range(PAR["resnet_steps"]):
+            net.fit(ds)
+            if tag == "f64":
+                trees.append(_par_tree(net._params))
+        out[tag] = trees if tag == "f64" else _par_tree(net._params)
+        if tag == "f64":
+            out["f64_state"] = _par_tree(net._state)
+        del net
+        torch.cuda.empty_cache()
+    return out
+
+
+def _par_flat_errors(got, want):
+    """{leaf: max |got − want| / max |want|} in f64 (`_leaf_errors` over
+    flat trees)."""
+    return {k: ((got[k].double() - w.double()).abs().max()
+                / w.double().abs().max().clamp_min(1e-300)).item()
+            for k, w in want.items()}
+
+
+def _par_resnet_compare(ref, trees, state, trees64, state64):
+    """Arm B's wrapper runs against one rank's (`ref`, from arm A): the f64
+    updates and BN state after each step (gated), step 1's f32 update
+    against f64's as one rank's is (gated), and 2 steps in f32 beside two
+    sound one-rank runs (printed)."""
+    f64, init = ref["f64"], ref["init"]
+
+    def update(tree, start):
+        return {k: tree[k].double() - start[k].double() for k in start}
+
+    f64_err = [max(_par_leaf_rel(update(t, f64[0]),
+                                 update(f64[s + 1], f64[0])).values())
+               for s, t in enumerate(trees64)]
+    f64_state = max(_par_leaf_rel(state64, ref["f64_state"]).values())
+    exact = update(f64[1], f64[0])
+    e2 = _par_flat_errors(update(trees[0], init), exact)
+    e1 = _par_flat_errors(update(ref["steps"][0], init), exact)
+    worst1, med1 = max(e1.values()), float(np.median(list(e1.values())))
+    med2 = float(np.median(list(e2.values())))
+    bad = [f"{k} ({e2[k]:.2e} vs one rank {e1[k]:.2e})" for k in e2
+           if not e2[k] <= max(RESNET_GRAD_RTOL, RESNET_GRAD_FACTOR * e1[k],
+                               worst1)]
+    if not med2 <= RESNET_GRAD_FACTOR * med1:
+        bad.append(f"median {med2:.2e} vs one rank {med1:.2e}")
+    two = _par_leaf_rel(update(trees[-1], init),
+                        update(ref["steps"][-1], init))
+    sound = _par_leaf_rel(update(ref["unfused"], init),
+                          update(ref["steps"][-1], init))
+    return dict(
+        f64_update_rel_worst=f64_err, f64_state_rel_worst=f64_state,
+        step1=dict(two_worst=max(e2.values()), two_median=med2,
+                   one_worst=worst1, one_median=med1, bad=bad),
+        update_rel_median=float(np.median(list(two.values()))),
+        update_rel_worst=max(two.values()),
+        sound_rel_median=float(np.median(list(sound.values()))),
+        sound_rel_worst=max(sound.values()),
+        state_rel_worst=max(_par_leaf_rel(state, ref["state"]).values()))
+
+
+def _par_rank(rank, world, arm, init_file, knobs):
+    """One rank of an arm: brings up its process group (every group with a
+    timeout), runs the arm and writes its results as JSON; the parent
+    reads them. The ranks load the kernels the parent built."""
+    import datetime
+    import traceback
+    import torch.distributed as dist
+    global DEV
+    DEV = knobs["DEV"]
+    PAR.update(knobs["PAR"])
+    res = {"rank": rank, "arm": arm}
+    try:
+        cuda = DEV == "cuda"
+        if cuda:
+            torch.cuda.set_device(rank if arm == "A" else 0)
+        backend = PAR["backend_a"] if arm == "A" else "gloo"
+        kw = {}
+        if backend == "nccl":
+            kw["device_id"] = torch.device("cuda", rank)
+        dist.init_process_group(
+            backend, init_method=f"file://{init_file}", rank=rank,
+            world_size=world,
+            timeout=datetime.timedelta(seconds=PAR["pg_timeout_s"]), **kw)
+        res.update(_par_arm_a(world, rank) if arm == "A"
+                   else _par_arm_b(world, rank))
+        res["nvcc_runs"] = _build.nvcc_runs
+        dist.barrier()
+    except Exception:
+        res["error"] = traceback.format_exc()
+    finally:
+        (PAR_DIR / f"{arm}.{rank}.json").write_text(json.dumps(res,
+                                                               default=str))
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _par_spawn(arm, world, deadline_s):
+    """Start `world` rank processes, join each against a deadline; a rank
+    that fails or outlives the deadline fails the phase (its siblings are
+    killed). Returns each rank's results."""
+    import torch.multiprocessing as mp
+    init = PAR_DIR / f"{arm}.init"
+    if init.exists():
+        init.unlink()
+    for r in range(world):
+        p = PAR_DIR / f"{arm}.{r}.json"
+        if p.exists():
+            p.unlink()
+    knobs = {"DEV": DEV, "PAR": dict(PAR)}
+    ctx = mp.start_processes(_par_rank, args=(world, arm, str(init), knobs),
+                             nprocs=world, join=False, start_method="spawn")
+    t0 = time.perf_counter()
+    try:
+        while not ctx.join(timeout=2):
+            if time.perf_counter() - t0 > deadline_s:
+                raise AssertionError(f"parallel arm {arm}: a rank passed its "
+                                     f"{deadline_s} s deadline")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+    seconds = time.perf_counter() - t0
+    results = []
+    for r in range(world):
+        res = json.loads((PAR_DIR / f"{arm}.{r}.json").read_text())
+        if "error" in res:
+            raise AssertionError(f"parallel arm {arm} rank {r}:\n"
+                                 f"{res['error']}")
+        if res["nvcc_runs"]:
+            raise AssertionError(f"parallel arm {arm} rank {r} compiled "
+                                 f"{res['nvcc_runs']} kernels")
+        results.append(res)
+    return results, seconds
+
+
+def _par_gate(ok, what):
+    if not ok:
+        raise AssertionError(f"parallel: {what}")
+
+
+def _par_rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def phase_parallel():
+    """Arm A (NCCL, one rank per card) and arm B (two gloo ranks on the
+    first card, host-staged); every rank's kernel launches come back to
+    the parent."""
+    PAR_DIR.mkdir(parents=True, exist_ok=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    world = torch.cuda.device_count() if DEV == "cuda" else 1
+    a, a_s = _par_spawn("A", world, PAR["deadline_a_s"])
+    b, b_s = _par_spawn("B", 2, PAR["deadline_b_s"])
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "smoke_parallel_ranks.json").write_text(json.dumps(
+        {"arm_a": a, "arm_b": b}, indent=1, default=str))
+    a0, b0 = a[0], b[0]
+    store = a0["resnet"]["store"]
+    log(f"[parallel] arm A: NCCL, {world} rank(s); arm B: 2 gloo ranks on "
+        f"one card (host-staged hops: its times are not NCCL times)")
+    for tag, r in (("A", a0), ("B", b0)):
+        bert = r["bert"]
+        log(f"[parallel] arm {tag} BERT-base T={PAR['seq']} B={PAR['batch']} "
+            f"remat ZeRO-1 Adam, flash ring: ms/step "
+            f"{[round(x, 2) for x in bert['ms']]} peak "
+            f"{bert['peak_bytes']} B; loss {bert['loss']:.6f}; gradients "
+            f"vs {'flash' if tag == 'A' else 'arm A'}: worst leaf "
+            f"{bert['grad_rel_worst']:.3e}, median "
+            f"{bert['grad_rel_median']:.3e}; launches per rank per step "
+            + ", ".join(f"{k} {bert['launches'][k] / PAR['steps']:g}"
+                        for k in PAR_BERT_KERNELS))
+    log(f"[parallel] arm A flash trainer ms/step "
+        f"{[round(x, 2) for x in a0['bert']['flash_ms']]} peak "
+        f"{a0['bert']['flash_peak_bytes']} B")
+    for tag, r in (("A", a0), ("B", b0)):
+        rn = r["resnet"]
+        log(f"[parallel] arm {tag} ParallelWrapper fused ResNet-50 "
+            + (f"B={PAR['resnet_batch']} graphed" if tag == "A" else
+               f"2 x {PAR['resnet_batch'] // 2} rows, synced BN, eager "
+               f"(steps {[round(x, 2) for x in rn['ms_steps']]} ms)")
+            + f": ms/step {rn['ms']:.2f} peak {rn['peak_bytes']} B; "
+            f"launches per step "
+            + ", ".join(f"{k} {rn['launches'][k] / (PAR['resnet_timed'] if tag == 'A' else PAR['resnet_steps']):g}"
+                        for k in TRAIN_KERNELS))
+    rn = a0["resnet"]
+    log(f"[parallel] arm A wrapper vs net.fit bit-equal {rn['bit_equal_fit']}"
+        f", graphed vs eager bit-equal {rn['bit_equal_eager']}; the "
+        f"{rn['backend']} all-reduce inside the step's CUDA graph: "
+        f"{store['dp_in_graph']} (entries {store['entries']}, captures "
+        f"{store['captures']}, replays {store['replays']}, degraded "
+        f"{store['degraded']})")
+    rb = b0["resnet"]
+    g = rb["step1"]
+    log(f"[parallel] arm B ResNet-50 2 ranks vs 1 through their fit: "
+        f"unfused f64, the update's L2 error per leaf, worst after each "
+        f"step {rb['f64_update_rel_worst']} (rtol {PAR_RESNET_F64_RTOL:g}), "
+        f"BN state worst {rb['f64_state_rel_worst']:.3e}; fused f32 losses "
+        f"{rb['losses']} vs {rb['ref_losses']}; step 1's update against "
+        f"f64 (max|err|/max|f64| per leaf): 2 ranks worst "
+        f"{g['two_worst']:.3e} median {g['two_median']:.3e}, one rank worst "
+        f"{g['one_worst']:.3e} median {g['one_median']:.3e}; failing "
+        f"{g['bad']}")
+    log(f"[parallel] arm B ResNet-50 f32 after 2 steps (printed, not gated): "
+        f"2 ranks fused vs 1 rank fused, the update's L2 error per leaf "
+        f"median {rb['update_rel_median']:.3e} worst "
+        f"{rb['update_rel_worst']:.3e}; two sound one-rank runs (unfused vs "
+        f"fused) median {rb['sound_rel_median']:.3e} worst "
+        f"{rb['sound_rel_worst']:.3e}; BN state worst "
+        f"{rb['state_rel_worst']:.3e}")
+    for name, row in b0["attention"].items():
+        log(f"[parallel] arm B {name}: max err {row['err']:.3e} (atol "
+            f"{PAR_ATTN_ATOL:g}); launches "
+            + ", ".join(f"{k} {row['launches'][k]}"
+                        for k in PAR_BERT_KERNELS))
+    pipe = b0["pipeline"]
+    log(f"[parallel] arm B pipeline {pipe['stages']} stages x "
+        f"{pipe['microbatches']} microbatches: max err {pipe['err']:.3e}, "
+        f"{pipe['ms']:.1f} ms, flash_fwd {pipe['launches']['flash_fwd']}")
+    log(f"[parallel] arm A {a_s:.1f} s, arm B {b_s:.1f} s (process start, "
+        "imports and kernel loads included)")
+    for r in a:
+        bert, rn = r["bert"], r["resnet"]
+        _par_gate(bert["grad_rel_worst"] <= PAR_GRAD_RTOL,
+                  f"arm A ring vs flash gradients {bert['grad_rel_worst']}")
+        _par_gate(all(_par_rel(x, y) <= PAR_LOSS_RTOL for x, y in zip(
+            bert["losses"] + [bert["loss"]],
+            bert["flash_losses"] + [bert["flash_loss"]])),
+            f"arm A ring vs flash losses {bert['losses']} "
+            f"{bert['flash_losses']}")
+        _par_gate(_par_launched(bert["launches"], PAR_BERT_KERNELS),
+                  f"arm A ring steps launched {bert['launches']}")
+        _par_gate(all(rn["bit_equal_fit"]) and all(rn["bit_equal_eager"]),
+                  f"arm A wrapper step not bit-equal: fit "
+                  f"{rn['bit_equal_fit']} eager {rn['bit_equal_eager']}")
+        _par_gate(_par_launched(rn["launches"], TRAIN_KERNELS),
+                  f"arm A wrapper steps launched {rn['launches']}")
+        _par_gate(DEV != "cuda" or rn["store"]["dp_in_graph"],
+                  f"arm A wrapper step not captured: {rn['store']}")
+    for r in b:
+        bert, att, rn, pipe = (r["bert"], r["attention"], r["resnet"],
+                               r["pipeline"])
+        _par_gate(bert["grad_rel_worst"] <= PAR_GRAD_RTOL,
+                  f"arm B sp=2 vs arm A gradients {bert['grad_rel_worst']}")
+        _par_gate(all(_par_rel(x, y) <= PAR_LOSS_RTOL for x, y in zip(
+            bert["losses"] + [bert["loss"]],
+            bert["ref_losses"] + [bert["ref_loss"]])),
+            f"arm B losses {bert['losses']} vs {bert['ref_losses']}")
+        _par_gate(_par_launched(bert["launches"], PAR_BERT_KERNELS),
+                  f"arm B ring steps launched {bert['launches']}")
+        for name, row in att.items():
+            _par_gate(row["err"] <= PAR_ATTN_ATOL,
+                      f"arm B {name} error {row['err']}")
+        _par_gate(all(_par_rel(x, y) <= tol for x, y, tol in zip(
+            rn["losses"], rn["ref_losses"], PAR_RESNET_LOSS_RTOL)),
+            f"arm B ResNet-50 losses {rn['losses']} vs {rn['ref_losses']}")
+        _par_gate(max(rn["f64_update_rel_worst"]
+                      + [rn["f64_state_rel_worst"]]) <= PAR_RESNET_F64_RTOL,
+                  f"arm B ResNet-50 f64 2 ranks vs 1: updates "
+                  f"{rn['f64_update_rel_worst']} state "
+                  f"{rn['f64_state_rel_worst']}")
+        _par_gate(not rn["step1"]["bad"],
+                  f"arm B ResNet-50 step 1 against f64: "
+                  f"{rn['step1']['bad']}")
+        _par_gate(_par_launched(rn["launches"], TRAIN_KERNELS),
+                  f"arm B wrapper steps launched {rn['launches']}")
+        _par_gate(pipe["err"] <= PAR_PIPE_ATOL,
+                  f"arm B pipeline error {pipe['err']}")
+    # the main paths' launches: every rank's BERT ring steps and ResNet-50
+    # wrapper steps, both arms
+    launches = {k.__name__: 0 for k in KERNELS}
+    for r in a + b:
+        for part in ("bert", "resnet"):
+            for k, v in r[part]["launches"].items():
+                launches[k] += v
+    return {"arm_a": a, "arm_b": b, "arm_a_s": a_s, "arm_b_s": b_s,
+            "world": world, "launches": launches}
+
+
 def kernel_line(rows, launches, launches_from):
     """The per-kernel JSON object: each kernel's numbers at its
     representative case, its launches (from the main path's run where it
@@ -6858,14 +7636,14 @@ def main(argv=None):
     ap.add_argument("--only",
                     choices=["kernels", "resnet", "graphs", "paged",
                              "chaos", "fleet", "mln", "rnn", "zoo",
-                             "layers", "resilience", "quant"],
+                             "layers", "resilience", "quant", "parallel"],
                     default=None,
                     help="stop after the kernel checks, or run the resnet "
                          "serving and training phases right after them, or "
                          "run the graphs, the paged, the chaos, the fleet, "
                          "the mln, the rnn, the zoo, the layers, the "
-                         "resilience or the quant phase alone after the "
-                         "build (bring-up runs)")
+                         "resilience, the quant or the parallel phase alone "
+                         "after the build (bring-up runs)")
     ap.add_argument("--profile", action="store_true",
                     help="after the resnet phases, profile the serving "
                          "workload, three fine-tune steps, one ResNet-50 "
@@ -6904,8 +7682,10 @@ def main(argv=None):
             f"{k} {v:.1f}" for k, v in seconds.items()))
         return 0
     if args.only in ("chaos", "fleet", "mln", "rnn", "zoo", "layers",
-                     "resilience", "quant"):
-        if args.only == "mln":
+                     "resilience", "quant", "parallel"):
+        if args.only == "parallel":
+            out = timed("parallel", phase_parallel)
+        elif args.only == "mln":
             out = timed("mln", phase_mln, args.profile)
         elif args.only == "rnn":
             out = timed("rnn", phase_rnn, args.profile)
@@ -6967,6 +7747,7 @@ def main(argv=None):
     layers = timed("layers", phase_layers, args.profile)
     resilience = timed("resilience", phase_resilience)
     quant = timed("quant", phase_quant, args.profile)
+    parallel = timed("parallel", phase_parallel)
     prof = (timed("profile", phase_profile, cfg, params, resnet_net,
                   resnet_x, train_net, train_ds) if args.profile else None)
     # each kernel's launches from the path that carries it: the forward and
@@ -7038,6 +7819,14 @@ def main(argv=None):
             row["launches_quant_from"] = (
                 f"ResNet-50 fine-tune ({quant['finetune']['iterations']} "
                 "graphed steps)")
+    for row in line["kernels"]:
+        # this slice's paths: every rank's flash-ring BERT steps and
+        # ParallelWrapper ResNet-50 steps, both arms of the parallel phase
+        row["launches_parallel"] = parallel["launches"][row["name"]]
+        row["launches_parallel_from"] = (
+            f"parallel phase: {PAR['steps']} ring-trainer steps and "
+            f"{PAR['resnet_steps'] + PAR['resnet_timed']} (arm A) / "
+            f"{PAR['resnet_steps']} (arm B) wrapper steps on every rank")
     (OUT_DIR / "smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "kernels": rows,
          "step36": step36, "fwd36": fwd36, "bert_step12": step12,
@@ -7046,7 +7835,8 @@ def main(argv=None):
          "resnet": resnet, "resnet_train": resnet_train, "graphs": graphs,
          "paged": paged, "chaos": chaos, "fleet": fleet, "mln": mln,
          "rnn": rnn, "zoo": zoo, "layers": layers,
-         "resilience": resilience, "quant": quant, "profile": prof,
+         "resilience": resilience, "quant": quant, "parallel": parallel,
+         "profile": prof,
          "line": line,
          "phase_seconds": seconds, "seconds": time.perf_counter() - t0},
         indent=1, default=str))

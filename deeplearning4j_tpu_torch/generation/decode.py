@@ -53,8 +53,7 @@ from deeplearning4j_tpu_torch.kernels.flash_attention import (
     flash_attention, flash_attention_decode, flash_attention_decode_mq,
     flash_attention_decode_mq_paged, flash_attention_decode_paged)
 from deeplearning4j_tpu_torch.models.bert import (_ffn, _layer_norm,
-                                                  bert_mlm_logits,
-                                                  check_supported)
+                                                  bert_mlm_logits)
 from deeplearning4j_tpu_torch.parallel.ring_attention import dense_attention
 from deeplearning4j_tpu_torch.quantize.kvcache import quantize_rows
 
@@ -90,7 +89,10 @@ class BertDecoder:
 
     def __init__(self, cfg, params, attn_impl="auto", kv_dtype="fp",
                  page_size=None, pool_pages=None):
-        check_supported(cfg)
+        if cfg.moe_layers:
+            raise ValueError(
+                "BertDecoder does not support MoE layers (dense-dispatch "
+                "expert FFNs have no single-token decode path yet)")
         if attn_impl not in ("auto", "dense", "kernel"):
             raise ValueError(
                 f"attn_impl must be 'auto', 'dense' or 'kernel', "

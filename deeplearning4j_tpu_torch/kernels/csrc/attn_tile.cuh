@@ -269,8 +269,13 @@ __device__ __forceinline__ void scores(
 // acc += P · V over a staged tile (V row-major, keys by d), P in the
 // layout `scores` leaves. acc[n] holds columns 8n + 2t, 8n + 2t + 1 of rows
 // g (acc[n][0..1]) and g + 8 (acc[n][2..3]).
-// f32, 3×TF32, with the relabelled contraction (header note).
-template <int D>
+// f32, 3×TF32, with the relabelled contraction (header note). The tensor
+// cores add each product into the accumulator they are given, truncating
+// to f32 as they go; with kRound each 8-key step's three products start
+// from zero and are added to `acc` in f32 (rounded to nearest), so an
+// accumulator that holds a large sum over a long walk loses no bit per
+// step (flash_bwd_dkv.cu's causal dK and dV).
+template <int D, bool kRound = false>
 __device__ __forceinline__ void accumulate(
     const float (&p)[Tile<float, D>::BK / 8][4], const float* vs,
     float (&acc)[D / 8][4]) {
@@ -289,15 +294,26 @@ __device__ __forceinline__ void accumulate(
       uint32_t bh[2], bl[2];
       mma::split(col[8 * n], bh[0], bl[0]);
       mma::split(col[C::S + 8 * n], bh[1], bl[1]);
-      mma::mma_tf32(acc[n], al, bh);
-      mma::mma_tf32(acc[n], ah, bl);
-      mma::mma_tf32(acc[n], ah, bh);
+      if constexpr (kRound) {
+        float c[4] = {0.f, 0.f, 0.f, 0.f};
+        mma::mma_tf32(c, al, bh);
+        mma::mma_tf32(c, ah, bl);
+        mma::mma_tf32(c, ah, bh);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] += c[e];
+      } else {
+        mma::mma_tf32(acc[n], al, bh);
+        mma::mma_tf32(acc[n], ah, bl);
+        mma::mma_tf32(acc[n], ah, bh);
+      }
     }
   }
 }
 
-// bf16: P rounded to bf16 pairs; V's B fragments by ldmatrix.trans.
-template <int D>
+// bf16: P rounded to bf16 pairs; V's B fragments by ldmatrix.trans
+// (kRound is ignored: rounding the products to bf16 costs more than the
+// tensor cores' truncation).
+template <int D, bool kRound = false>
 __device__ __forceinline__ void accumulate(
     const float (&p)[Tile<__nv_bfloat16, D>::BK / 8][4],
     const __nv_bfloat16* vs, float (&acc)[D / 8][4]) {

@@ -33,11 +33,18 @@
 //   then dV += Pᵀ·dO and dK += dSᵀ·Q with Pᵀ and dSᵀ taken straight from
 //   the score fragments as A operands (attn::accumulate: f32 relabelled,
 //   bf16 packed in pairs). P and dS never leave registers.
-// - f32 accumulates each tile's products straight into dK and dV: the
-//   mma chain is at most 3 × T/8 steps long (192 at T = 512), and a
+// - f32 adds each 8-query step's products into dK and dV in f32
+//   (attn::accumulate<D, true>): the tensor cores truncate what they add
+//   to the accumulator they are given, and chained straight into dK and
+//   dV over a walk of 3 × T/8 steps that truncation built up with the
+//   sum. At the causal 2×12×2048² f32 block, where the first keys' dK
+//   and dV reach ~5, chained sums came out 1.285e-4 from f64 and the
+//   step's sums 5.6e-6, nearer than the plain f32 version's 8.6e-6; they
+//   cost 14–20 % of the kernel's time at every f32 shape (H100). A
 //   separate sum per tile (as flash_bwd_dq.cu keeps) would take 64 more
-//   registers a thread; the CPU emulation of both orders holds the f32
-//   gate (tests/test_torch_tf32_split.py).
+//   registers a thread; the step's sum takes 4. The CPU emulation of both
+//   orders (tests/test_torch_tf32_split.py) rounds every add to nearest,
+//   so it cannot show the truncation.
 // - Skips that change no bit: causal query tiles that end before the
 //   block's first key are never walked (the TPU kernel's skip, :308-311); a
 //   tile whose queries all carry the +1e30 lse sentinel (padded rows of a
@@ -166,7 +173,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
             s[j][2 * h + 1] = expf(s[j][2 * h + 1] - L.y);
           }
         }
-        attn::accumulate<D>(s, gs, dva);
+        attn::accumulate<D, true>(s, gs, dva);
         // dSᵀ = Pᵀ∘(dPᵀ − Δ), in place
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
@@ -178,7 +185,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
             s[j][2 * h + 1] *= dp[j][2 * h + 1] - dl.y;
           }
         }
-        attn::accumulate<D>(s, qs, dka);
+        attn::accumulate<D, true>(s, qs, dka);
       },
       [&](const Item&) {});
 

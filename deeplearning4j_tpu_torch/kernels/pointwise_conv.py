@@ -42,6 +42,7 @@ import ctypes
 
 import torch
 
+from deeplearning4j_tpu_torch import batch_sync as _batch_sync
 from deeplearning4j_tpu_torch.kernels import _build
 
 __all__ = ["matmul_epilogue", "int8_matmul_epilogue", "matmul_stats",
@@ -414,12 +415,19 @@ class _FusedConv1x1BN(torch.autograd.Function):
     affine; the backward is `bn_grad_stats`, then `bn_conv_grads` with
     BN's closed-form input gradient formed inside the conv-gradient
     kernel. μ and var get no gradient: they feed only the running
-    averages."""
+    averages. Under a data-parallel step (`batch_sync.ACTIVE`) the
+    statistics and BN's backward sums are the global batch's."""
 
     @staticmethod
     def forward(ctx, x, w, gamma, beta, eps, act):
         y, s1, s2 = matmul_stats(x, w)
         m = x.shape[0]
+        sync = _batch_sync.ACTIVE
+        ctx.sync = sync
+        if sync is not None:
+            # data parallel: Σy and Σy² over the dp ranks' rows
+            s1, s2 = sync.sum(s1, s2)
+            m = m * sync.n
         mu = s1 / m
         var = torch.clamp_min(s2 / m - mu * mu, 0.0)
         r = torch.rsqrt(var + eps)
@@ -441,9 +449,15 @@ class _FusedConv1x1BN(torch.autograd.Function):
             dz = torch.where(z > 0, dz, torch.zeros_like(dz))
         dgamma, dbeta = bn_grad_stats(y, dz, mu, r)
         m = y.shape[0]
+        sgamma, sbeta = dgamma, dbeta
+        if ctx.sync is not None:
+            # the global Σdz·x̂ and Σdz before B8 forms dX; dγ and dβ stay
+            # this rank's share (the data-parallel step sums the gradients)
+            sgamma, sbeta = ctx.sync.sum(dgamma, dbeta)
+            m = m * ctx.sync.n
         k1 = gamma * r
-        k2 = gamma * r * r * dgamma / m
-        c = gamma * r * dbeta / m
+        k2 = gamma * r * r * sgamma / m
+        c = gamma * r * sbeta / m
         dx, dw = bn_conv_grads(x, y, dz, w, k1, k2, c, mu)
         return (dx, dw.to(w.dtype), dgamma.to(gamma.dtype),
                 dbeta.to(gamma.dtype), None, None)

@@ -13,8 +13,16 @@ Dropout runs when `train` is true, `cfg.dropout` > 0 and a
 package runs it only with an rng key. Its masks come from torch's
 generator, not from JAX's threefry, so with dropout on the two packages
 draw different masks from the same seed; the parity tests hold them
-together with dropout off. MoE layers and blockwise/custom attention wait
-for a later slice.
+together with dropout off.
+
+Layers listed in `cfg.moe_layers` run a top-1 switch mixture-of-experts
+FFN (dense one-hot dispatch, as the JAX package's). `attn_impl` also takes
+"blockwise" (the online-softmax loop of `parallel/ring_attention.py`) or a
+callable attn_impl(q, k, v[, mask]) such as a `shard_map` of the ring or
+Ulysses attention; a callable must declare the mask explicitly to run a
+padded batch. `sharding_rules` gives the tensor-, data- and
+expert-parallel spec of every parameter (`parallel/mesh.py`'s
+NamedSharding).
 """
 from __future__ import annotations
 
@@ -25,11 +33,14 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from deeplearning4j_tpu_torch.kernels.flash_attention import flash_attention
-from deeplearning4j_tpu_torch.parallel.ring_attention import dense_attention
+from deeplearning4j_tpu_torch.parallel.moe import switch_router
+from deeplearning4j_tpu_torch.parallel.ring_attention import (
+    blockwise_attention, dense_attention)
+from deeplearning4j_tpu_torch.util.introspect import explicit_mask_param
 
 __all__ = ["BertConfig", "bert_base", "bert_tiny", "bert_encode",
            "bert_pooled", "bert_classify", "bert_mlm_logits",
-           "classification_loss"]
+           "classification_loss", "sharding_rules"]
 
 
 @dataclass
@@ -46,7 +57,9 @@ class BertConfig:
     layer_norm_eps: float = 1e-12
     dtype: str = "float32"        # compute dtype ("bfloat16" for serving)
     remat: bool = False           # recompute each layer in the backward
-    moe_layers: tuple = ()        # rejected: MoE waits for a later slice
+    # MoE (expert parallel): layers listed here use a mixture-of-experts FFN
+    moe_layers: tuple = ()
+    num_experts: int = 8
 
     @property
     def head_dim(self):
@@ -55,14 +68,6 @@ class BertConfig:
     @property
     def compute_dtype(self):
         return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
-
-
-def check_supported(cfg):
-    """Raise for what this slice of the port does not run yet."""
-    if cfg.moe_layers:
-        raise NotImplementedError(
-            "MoE FFN layers (moe_layers) are not ported yet; they come "
-            "with the expert-parallel slice")
 
 
 def _layer_norm(x, scale, bias, eps):
@@ -100,24 +105,55 @@ def _attention(cfg, layer, x, attn_mask, attn_impl, causal=False,
     q, k, v = heads(q), heads(k), heads(v)
     if attn_impl == "auto":
         attn_impl = "flash" if x.is_cuda else "dense"
-    if attn_impl == "flash":
+    if causal and callable(attn_impl):
+        raise ValueError(
+            "causal attention is only wired through the built-in "
+            "'dense'/'flash' impls; custom attn_impl callables do not "
+            "declare a causal parameter")
+    if causal and attn_impl == "blockwise":
+        raise ValueError("'blockwise' attn_impl has no causal path; "
+                         "use flash or dense for causal encoding")
+    if callable(attn_impl):
+        ctx = _custom_attention(attn_impl, q, k, v, attn_mask)
+    elif attn_impl == "flash":
         ctx = flash_attention(q, k, v, causal=causal, mask=attn_mask)
+    elif attn_impl == "blockwise":
+        if attn_mask is not None:
+            raise ValueError("'blockwise' attn_impl has no padding-mask "
+                             "path; use flash or dense for masked batches")
+        ctx = blockwise_attention(q, k, v, block_size=max(128, T // 4))
     elif attn_impl == "dense":
         mask = None
         if attn_mask is not None:
             mask = attn_mask[:, None, None, :] > 0
         ctx = dense_attention(q, k, v, causal=causal, mask=mask)
-    elif attn_impl == "blockwise" or callable(attn_impl):
-        raise NotImplementedError(
-            f"attn_impl {attn_impl!r} is not ported yet; blockwise and "
-            "custom attention come with the parallel/ slice — use "
-            "'auto', 'flash' or 'dense'")
     else:
         raise ValueError(f"unknown attn_impl {attn_impl!r}; expected "
-                         "'auto', 'dense' or 'flash'")
+                         "'dense', 'blockwise', 'flash', or a callable")
     ctx = ctx.transpose(1, 2).reshape(B, T, H)
     out = ctx @ layer["proj_W"].to(dt) + layer["proj_b"].to(dt)
     return _dropout(out, cfg.dropout, train, generator)
+
+
+def _custom_attention(attn_impl, q, k, v, attn_mask):
+    """A callable attn_impl. A padded batch must never silently attend to
+    padding: the impl has to DECLARE the mask, as a 4th positional slot
+    or an explicit 'mask'/'attn_mask'/'kv_mask' parameter, and gets it by
+    that convention. Bare *args/**kwargs catch-alls and signatures that
+    cannot be read are refused."""
+    if attn_mask is None:
+        return attn_impl(q, k, v)
+    conv = explicit_mask_param(attn_impl, positional_slot=4)
+    if conv is None:
+        raise ValueError(
+            "attn_impl callable does not explicitly declare a mask "
+            "parameter (bare *args/**kwargs or a non-introspectable "
+            "signature does not count) but the batch carries "
+            "attention_mask — use a masked impl (flash/dense) or an "
+            "attn_impl(q, k, v, mask)")
+    if conv[0] == "positional":
+        return attn_impl(q, k, v, attn_mask)
+    return attn_impl(q, k, v, **{conv[1]: attn_mask})
 
 
 def _ffn(cfg, layer, x, train=False, generator=None):
@@ -125,6 +161,21 @@ def _ffn(cfg, layer, x, train=False, generator=None):
     f = layer["ffn"]
     h = _gelu(x @ f["up_W"].to(dt) + f["up_b"].to(dt))
     out = h @ f["down_W"].to(dt) + f["down_b"].to(dt)
+    return _dropout(out, cfg.dropout, train, generator)
+
+
+def _moe_ffn(cfg, layer, x, train=False, generator=None):
+    """Top-1 switch MoE with a dense one-hot dispatch: every expert's FFN
+    runs on all tokens and the one-hot of `parallel.moe.switch_router`
+    picks each token's expert, scaled by its gate."""
+    dt = x.dtype
+    m = layer["moe"]
+    onehot, gate, _ = switch_router(x, m["router_W"], cfg.num_experts)
+    up = (torch.einsum("bth,ehi->beti", x, m["up_W"].to(dt))
+          + m["up_b"].to(dt)[None, :, None, :])
+    down = (torch.einsum("beti,eih->beth", _gelu(up), m["down_W"].to(dt))
+            + m["down_b"].to(dt)[None, :, None, :])
+    out = torch.einsum("beth,bte->bth", down, onehot) * gate[..., None]
     return _dropout(out, cfg.dropout, train, generator)
 
 
@@ -136,7 +187,10 @@ def _encoder_layer(cfg, layer, x, attn_mask, attn_impl, causal=False,
                    generator)
     x = _layer_norm(x + a, layer["ln1_scale"], layer["ln1_bias"],
                     cfg.layer_norm_eps)
-    f = _ffn(cfg, layer, x, train, generator)
+    if "moe" in layer:
+        f = _moe_ffn(cfg, layer, x, train, generator)
+    else:
+        f = _ffn(cfg, layer, x, train, generator)
     return _layer_norm(x + f, layer["ln2_scale"], layer["ln2_bias"],
                        cfg.layer_norm_eps)
 
@@ -175,7 +229,6 @@ def bert_encode(cfg, params, input_ids, token_type_ids=None, attn_mask=None,
     `train` with a `generator` applies dropout (see the module docstring).
     `causal=True` masks attention to past-and-present positions only —
     the full-sequence reference for the KV-cache decode path."""
-    check_supported(cfg)
     dt = cfg.compute_dtype
     T = input_ids.shape[1]
     emb = params["embeddings"]
@@ -232,6 +285,51 @@ def classification_loss(cfg, params, batch, train=True, generator=None,
     logp = F.log_softmax(logits, dim=-1)
     onehot = F.one_hot(batch["labels"].long(), cfg.num_labels).to(logp.dtype)
     return -(onehot * logp).sum(dim=-1).mean()
+
+
+def sharding_rules(cfg, mesh, dp="dp", tp="tp", ep=None):
+    """The spec of every parameter, as a tree matching the parameters
+    (`parallel.mesh.NamedSharding` leaves), the JAX package's rules:
+    column-parallel (last dim over tp) for QKV and the FFN's up
+    projection, row-parallel (first dim over tp) for the output
+    projection and the FFN's down projection, the word embeddings' vocab
+    dim over tp, an MoE layer's expert dim over ep (default tp), the rest
+    replicated. `parallel.ShardedTrainer` stores each shard as its spec
+    says. `dp` is accepted for the reference's signature."""
+    from deeplearning4j_tpu_torch.parallel.mesh import NamedSharding, P
+
+    def ns(*spec):
+        return NamedSharding(mesh, P(*spec))
+
+    rep = ns()
+    rules = {
+        "embeddings": {"word": ns(tp, None), "position": rep,
+                       "token_type": rep, "ln_scale": rep, "ln_bias": rep},
+        "pooler": {"W": rep, "b": rep},
+        "classifier": {"W": rep, "b": rep},
+        "mlm_head": {"W": rep, "b": rep, "ln_scale": rep, "ln_bias": rep,
+                     "out_bias": rep},
+        "layers": [],
+    }
+    for li in range(cfg.num_layers):
+        layer = {
+            "qkv_W": ns(None, tp), "qkv_b": ns(tp),
+            "proj_W": ns(tp, None), "proj_b": rep,
+            "ln1_scale": rep, "ln1_bias": rep,
+            "ln2_scale": rep, "ln2_bias": rep,
+        }
+        if li in cfg.moe_layers:
+            e = ep or tp
+            layer["moe"] = {"router_W": rep,
+                            "up_W": ns(e, None, None),
+                            "up_b": ns(e, None),
+                            "down_W": ns(e, None, None),
+                            "down_b": ns(e, None)}
+        else:
+            layer["ffn"] = {"up_W": ns(None, tp), "up_b": ns(tp),
+                            "down_W": ns(tp, None), "down_b": rep}
+        rules["layers"].append(layer)
+    return rules
 
 
 def bert_base(**overrides):

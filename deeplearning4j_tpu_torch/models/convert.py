@@ -13,7 +13,6 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.device import resolve
-from deeplearning4j_tpu_torch.models.bert import check_supported
 
 __all__ = ["param_shapes", "params_from_numpy", "params_to_numpy",
            "named_param_leaves", "param_leaves", "init_bert_params"]
@@ -21,27 +20,38 @@ __all__ = ["param_shapes", "params_from_numpy", "params_to_numpy",
 #: leaves initialised as N(0, 0.02²); the rest are LayerNorm scales (ones)
 #: or biases (zeros), as in the JAX package
 _RANDOM = {"word", "position", "token_type", "W", "qkv_W", "proj_W",
-           "up_W", "down_W"}
+           "up_W", "down_W", "router_W"}
 
 
 def param_shapes(cfg):
-    """The parameter tree of `cfg` with a shape tuple at every leaf."""
-    check_supported(cfg)
+    """The parameter tree of `cfg` with a shape tuple at every leaf; a
+    layer of `cfg.moe_layers` holds "moe" (router and E experts) where
+    the others hold "ffn"."""
     H, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
-    layer = {
-        "qkv_W": (H, 3 * H), "qkv_b": (3 * H,),
-        "proj_W": (H, H), "proj_b": (H,),
-        "ln1_scale": (H,), "ln1_bias": (H,),
-        "ln2_scale": (H,), "ln2_bias": (H,),
-        "ffn": {"up_W": (H, I), "up_b": (I,),
-                "down_W": (I, H), "down_b": (H,)},
-    }
+    E = cfg.num_experts
+
+    def layer(li):
+        out = {
+            "qkv_W": (H, 3 * H), "qkv_b": (3 * H,),
+            "proj_W": (H, H), "proj_b": (H,),
+            "ln1_scale": (H,), "ln1_bias": (H,),
+            "ln2_scale": (H,), "ln2_bias": (H,),
+        }
+        if li in cfg.moe_layers:
+            out["moe"] = {"router_W": (H, E), "up_W": (E, H, I),
+                          "up_b": (E, I), "down_W": (E, I, H),
+                          "down_b": (E, H)}
+        else:
+            out["ffn"] = {"up_W": (H, I), "up_b": (I,),
+                          "down_W": (I, H), "down_b": (H,)}
+        return out
+
     return {
         "embeddings": {"word": (V, H),
                        "position": (cfg.max_position_embeddings, H),
                        "token_type": (cfg.type_vocab_size, H),
                        "ln_scale": (H,), "ln_bias": (H,)},
-        "layers": [layer] * cfg.num_layers,
+        "layers": [layer(li) for li in range(cfg.num_layers)],
         "pooler": {"W": (H, H), "b": (H,)},
         "classifier": {"W": (H, cfg.num_labels), "b": (cfg.num_labels,)},
         "mlm_head": {"W": (H, H), "b": (H,), "ln_scale": (H,),

@@ -250,6 +250,7 @@ class Network:
         self._fit_store = None   # CUDA graphs of the training step
         self._guard_t = None     # the guarded step's (lr_scale, max_gnorm)
         self._guard_host = None  # ... as the host last wrote them
+        self._dp = None          # parallel.ParallelWrapper's dp context
         self._listeners = []
         self._last_features = None   # the last training batch's features
         self._score = None
@@ -394,6 +395,11 @@ class Network:
         leaves = {n: {k: v.detach().requires_grad_() for k, v in d.items()}
                   for n, d in self._params.items()}
         loss, aux = loss_fn(leaves)
+        if self._dp is not None:
+            # data parallel: this rank's share of the global batch's loss,
+            # so the gradients (BN's global sums included) are the global
+            # loss's and the dp step sums them
+            loss = loss * self._dp.weight
         flat = [(n, k, v) for n, d in leaves.items() for k, v in d.items()]
         grads = torch.autograd.grad(loss, [v for _, _, v in flat],
                                     allow_unused=True)
@@ -412,10 +418,31 @@ class Network:
             p, self._state if state is None else state, ins, labels, lmasks,
             generator, train=True))
 
+    def _grads_of(self, fn):
+        """(loss, gradients, new state) of fn(). Under data parallelism
+        (`_dp`, set by parallel.ParallelWrapper) the batch statistics are
+        the global batch's and the loss and gradients are reduced over
+        the dp ranks."""
+        dp = self._dp
+        if dp is None:
+            if getattr(self._opt_state, "sharded_over_dp", False):
+                raise RuntimeError(
+                    "the updater state holds this rank's ZeRO-1 blocks "
+                    "(ParallelWrapper.shardOptimizerState): train it "
+                    "through the wrapper's fit")
+            return fn()
+        with dp.batch_stats():
+            loss, grads, state = fn()
+        loss, grads = dp.reduce(loss, grads)
+        return loss, grads, state
+
     def _update_in_place(self, grads, state):
         """The optimizer's update, then the constraints, written into the
         live parameter and optimizer-state tensors; `state` into the live
         BN state."""
+        if self._dp is not None and self._dp.zero:
+            self._dp.update(self, grads, state)
+            return
         updates, opt_state = self._tx.update(grads, self._opt_state,
                                              self._params)
         params = self._apply_constraints(apply_updates(self._params,
@@ -428,8 +455,8 @@ class Network:
         """One training step written into the live tensors; returns the
         loss. What a CUDA graph of the step captures, so it reads no
         device value on the host."""
-        loss, grads, state = self._value_and_grad(ins, labels, lmasks,
-                                                  self._generator)
+        loss, grads, state = self._grads_of(lambda: self._value_and_grad(
+            ins, labels, lmasks, self._generator))
         self._update_in_place(grads, state)
         return loss
 
@@ -437,11 +464,17 @@ class Network:
         """One update from the G batches of `group` ((ins, labels,
         lmasks) each): `accumulate`'s mean gradients, one optimizer step;
         returns the mean loss."""
+        loss, grads, state = self._grads_of(lambda: self._accumulate(group))
+        self._update_in_place(grads, state)
+        return loss
+
+    def _accumulate(self, group):
+        """(mean loss, mean gradients, final state) of an accumulation
+        group."""
         grads, loss, state = accumulate(
             lambda s, b: self._value_and_grad(*b, self._generator, state=s),
             self._state, group)
-        self._update_in_place(grads, state)
-        return loss
+        return loss, grads, state
 
     # -- the guarded step (a TrainingGuardian is installed) ----------------
     def _guarded_update(self, loss, grads, state, extra=()):
@@ -449,6 +482,10 @@ class Network:
         the update (scaled by the guardian's lr_scale) lands only where
         the step is healthy. Returns (loss, (gnorm, ok) stacked)."""
         lr_scale, max_gnorm = self._guard_t
+        if self._dp is not None and self._dp.zero:
+            gnorm, ok = self._dp.update(self, grads, state, loss, lr_scale,
+                                        max_gnorm)
+            return loss, torch.stack([gnorm, ok.to(gnorm.dtype)])
         gnorm, ok = _guardian.guarded_apply(
             self._tx, grads, loss, self._params, self._opt_state, lr_scale,
             max_gnorm, constraints=self._apply_constraints,
@@ -457,17 +494,15 @@ class Network:
 
     def _guarded_step_in_place(self, ins, labels, lmasks):
         """`_step_in_place` under the guardian's verdict."""
-        loss, grads, state = self._value_and_grad(ins, labels, lmasks,
-                                                  self._generator)
+        loss, grads, state = self._grads_of(lambda: self._value_and_grad(
+            ins, labels, lmasks, self._generator))
         return self._guarded_update(loss, grads, state)
 
     def _guarded_accum_step_in_place(self, group):
         """`_accum_step_in_place` under one verdict for the accumulated
         update (a NaN in any microbatch poisons the mean loss and the
         summed gradients, so it fails the verdict)."""
-        grads, loss, state = accumulate(
-            lambda s, b: self._value_and_grad(*b, self._generator, state=s),
-            self._state, group)
+        loss, grads, state = self._grads_of(lambda: self._accumulate(group))
         return self._guarded_update(loss, grads, state)
 
     def _alloc_guard(self):
@@ -498,13 +533,20 @@ class Network:
             self._alloc_guard()
             store = FunctionStore(
                 f"{model_fingerprint(self)}-fit", self._device,
-                bindings=lambda: (self._params, self._opt_state,
-                                  self._state, self._guard_t))
-            store.register("fit", self._step_in_place)
-            store.register("fit_accum", self._accum_step_in_place)
-            store.register("fit_guarded", self._guarded_step_in_place)
-            store.register("fit_accum_guarded",
-                           self._guarded_accum_step_in_place)
+                bindings=lambda: (self._params, getattr(
+                    self._opt_state, "state", self._opt_state), self._state,
+                    self._guard_t,
+                    None if self._dp is None else self._dp.bound()))
+            for prefix in ("", "dp_"):
+                # dp_: the same steps under data parallelism (their graphs
+                # hold the collectives)
+                store.register(prefix + "fit", self._step_in_place)
+                store.register(prefix + "fit_accum",
+                               self._accum_step_in_place)
+                store.register(prefix + "fit_guarded",
+                               self._guarded_step_in_place)
+                store.register(prefix + "fit_accum_guarded",
+                               self._guarded_accum_step_in_place)
             self._fit_store = store
         return store
 
@@ -543,6 +585,8 @@ class Network:
         if g is not None:
             name += "_guarded"
             self._set_guard(g)
+        if self._dp is not None:
+            name = "dp_" + name
         if graphs and self._device.type == "cuda":
             out = self._graph_step((name, sig), args)
         else:

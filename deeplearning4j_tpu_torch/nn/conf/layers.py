@@ -37,6 +37,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from deeplearning4j_tpu_torch import batch_sync as _batch_sync
 from deeplearning4j_tpu_torch.nn.activations import get_activation
 from deeplearning4j_tpu_torch.nn.conf.inputs import (ConvolutionalType,
                                                      InputType,
@@ -661,7 +662,8 @@ def _bn_stats(x):
 class _BNTrain(torch.autograd.Function):
     """Training BatchNorm y = x·a + b with the batch statistics, and the
     closed-form backward of the JAX `_bn_train` custom VJP
-    (deeplearning4j_tpu/nn/conf/layers.py:792-829):
+    (deeplearning4j_tpu/nn/conf/layers.py:792-829), over the global batch
+    when a data-parallel step has `batch_sync.ACTIVE` set:
       dβ = Σdy, dγ = Σdy·x̂, dx = k1·dy − (x − μ)·k2 − c
     with k1 = γr, k2 = γr²·dγ/n, c = γr·dβ/n cast to x.dtype, instead of
     autograd's passes through the mean/var chain. Returns (y, μ, var); μ
@@ -669,7 +671,20 @@ class _BNTrain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, gamma, beta, eps):
-        mu, var = _bn_stats(x)
+        sync = _batch_sync.ACTIVE
+        ctx.sync = sync
+        if sync is None:
+            mu, var = _bn_stats(x)
+        else:
+            # data parallel: the global batch's statistics (Σx, Σx² over
+            # the dp ranks, each holding as many rows)
+            axes = tuple(range(x.ndim - 1))
+            xf = x.to(torch.float64 if x.dtype == torch.float64
+                      else torch.float32)
+            s1, s2 = sync.sum(xf.sum(dim=axes), (xf * xf).sum(dim=axes))
+            n = (x.numel() // x.shape[-1]) * sync.n
+            mu = s1 / n
+            var = torch.clamp_min(s2 / n - mu * mu, 0.0)
         r = torch.rsqrt(var + eps)
         a = (gamma * r).to(x.dtype)
         b = (beta - gamma * mu * r).to(x.dtype)
@@ -686,9 +701,15 @@ class _BNTrain(torch.autograd.Function):
         dyf = dy.to(mu.dtype)
         dbeta = dyf.sum(dim=axes)
         dgamma = (dyf * xhat).sum(dim=axes)
+        sbeta, sgamma = dbeta, dgamma
+        if ctx.sync is not None:
+            # dX needs the global batch's sums; dγ and dβ stay this rank's
+            # share (the data-parallel step sums the gradients after)
+            sbeta, sgamma = ctx.sync.sum(dbeta, dgamma)
+            n = n * ctx.sync.n
         k1 = (gamma * r).to(x.dtype)
-        k2 = (gamma * r * r * dgamma / n).to(x.dtype)
-        c = (gamma * r * (dbeta / n)).to(x.dtype)
+        k2 = (gamma * r * r * sgamma / n).to(x.dtype)
+        c = (gamma * r * (sbeta / n)).to(x.dtype)
         dx = k1 * dy - (x - mu.to(x.dtype)) * k2 - c
         return dx, dgamma, dbeta, None
 

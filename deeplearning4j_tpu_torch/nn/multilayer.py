@@ -350,10 +350,10 @@ class MultiLayerNetwork(Network):
         """One segment's update written into the live tensors, and the
         segment's final carries written (detached) into `carries`; returns
         the loss. What the segment's CUDA graph captures."""
-        loss, grads, (state, new_carries) = self._grad_tree(
-            lambda p: self._loss(p, self._state, ins, labels, lmasks,
-                                 self._generator, train=True,
-                                 carries=carries))
+        loss, grads, (state, new_carries) = self._grads_of(
+            lambda: self._grad_tree(lambda p: self._loss(
+                p, self._state, ins, labels, lmasks, self._generator,
+                train=True, carries=carries)))
         self._update_in_place(grads, state)
         copy_into(carries, new_carries)
         return loss
@@ -363,10 +363,10 @@ class MultiLayerNetwork(Network):
         parameters, optimizer and BN state AND the carries keep their old
         values on an unhealthy segment (a NaN forward must not poison the
         hidden state the next segment reads)."""
-        loss, grads, (state, new_carries) = self._grad_tree(
-            lambda p: self._loss(p, self._state, ins, labels, lmasks,
-                                 self._generator, train=True,
-                                 carries=carries))
+        loss, grads, (state, new_carries) = self._grads_of(
+            lambda: self._grad_tree(lambda p: self._loss(
+                p, self._state, ins, labels, lmasks, self._generator,
+                train=True, carries=carries)))
         return self._guarded_update(loss, grads, state,
                                     extra=((new_carries, carries),))
 
@@ -379,6 +379,8 @@ class MultiLayerNetwork(Network):
         segments already updated the parameters."""
         g = _guardian.ACTIVE
         name = "fit_tbptt" if g is None else "fit_tbptt_guarded"
+        if self._dp is not None:
+            name = "dp_" + name
         fn = self._tbptt_step_in_place if g is None \
             else self._guarded_tbptt_step_in_place
         if g is not None:
@@ -401,9 +403,10 @@ class MultiLayerNetwork(Network):
 
     def _fit_store_for(self):
         store = super()._fit_store_for()
-        store.register("fit_tbptt", self._tbptt_step_in_place)
-        store.register("fit_tbptt_guarded",
-                       self._guarded_tbptt_step_in_place)
+        for prefix in ("", "dp_"):
+            store.register(prefix + "fit_tbptt", self._tbptt_step_in_place)
+            store.register(prefix + "fit_tbptt_guarded",
+                           self._guarded_tbptt_step_in_place)
         return store
 
     def _is_tbptt(self, batch):

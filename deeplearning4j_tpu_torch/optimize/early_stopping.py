@@ -10,8 +10,7 @@ net's step writes its own in place, so a snapshot sharing them would move
 with every later fit() (pinned by test_best_model_survives_further_training).
 `LocalFileModelSaver` writes and reads through the port's ModelSerializer
 (archives of the JAX package's format). `EarlyStoppingParallelTrainer`
-raises naming ROADMAP A15: it drives the data-parallel ParallelWrapper,
-which the port does not have yet.
+runs each epoch's batches through `parallel.ParallelWrapper`'s dp step.
 """
 from __future__ import annotations
 
@@ -416,13 +415,41 @@ EarlyStoppingGraphTrainer = EarlyStoppingTrainer
 
 class EarlyStoppingParallelTrainer(EarlyStoppingTrainer):
     """≡ deeplearning4j-parallel-wrapper ::
-    parallelism.EarlyStoppingParallelTrainer — early stopping over
-    data-parallel training. Its epochs run through ParallelWrapper, which
-    comes with the port's parallel/ (ROADMAP A15), so constructing it
-    raises naming that item."""
+    parallelism.EarlyStoppingParallelTrainer: early stopping over
+    data-parallel training. Each batch's fit runs ParallelWrapper's dp
+    step (optionally with ZeRO-1 state sharding; every rank of the group
+    runs the same trainer), and the scoring and termination loop is
+    inherited unchanged."""
 
     def __init__(self, config, network, train_iterator, workers=None,
                  shard_optimizer_state=False):
-        raise NotImplementedError(
-            "EarlyStoppingParallelTrainer is not ported yet: it trains "
-            "through ParallelWrapper, which comes with ROADMAP A15")
+        super().__init__(config, network, train_iterator)
+        if network._params is None:
+            network.init()
+        from deeplearning4j_tpu_torch.parallel.wrapper import \
+            ParallelWrapper
+        self._pw = ParallelWrapper(
+            network, workers=workers,
+            shard_optimizer_state=shard_optimizer_state)
+        self._pw._shard_model()
+        # per-DataSet fits go through the wrapper's dp step; every other
+        # attribute access, reads and writes, reaches the network itself
+        self.net = _DpFitProxy(self._pw)
+
+
+class _DpFitProxy:
+    """Network stand-in whose fit(ds) is ParallelWrapper._fit_dataset;
+    everything else (attribute writes like `_epoch += 1` included)
+    operates on the wrapped network."""
+
+    def __init__(self, pw):
+        object.__setattr__(self, "_pw", pw)
+
+    def fit(self, ds):
+        return self._pw._fit_dataset(ds)
+
+    def __getattr__(self, name):
+        return getattr(object.__getattribute__(self, "_pw").model, name)
+
+    def __setattr__(self, name, value):
+        setattr(object.__getattribute__(self, "_pw").model, name, value)

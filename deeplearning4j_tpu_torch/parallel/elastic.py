@@ -23,8 +23,8 @@ raises what the thread hit. `restore` returns host tensors in the
 structure of `like`, which the trainer copies into the live tensors.
 
 `ElasticTrainer`, `place_global`, `replace_on_mesh` and
-`initialize_multihost` need the sharded trainer and a mesh: they raise,
-naming ROADMAP A15.
+`initialize_multihost` belong to the multi-host half of parallel/: they
+raise, naming ROADMAP A15b.
 """
 from __future__ import annotations
 
@@ -53,8 +53,8 @@ _SEQ = itertools.count()
 
 def _a15(what):
     return NotImplementedError(
-        f"{what} is not ported yet; it comes with the sharded trainer and "
-        "the mesh (parallel/, ROADMAP A15)")
+        f"{what} is not ported yet; it comes with the multi-host half of "
+        "parallel/ (ROADMAP A15b)")
 
 
 def _snapshot(leaf):
@@ -112,7 +112,7 @@ class ElasticCheckpointer:
         """sweep_orphans=False skips the startup debris sweep: required
         when another process may be saving into the same directory.
         `primary_only` (the multi-host single writer) raises, naming
-        ROADMAP A15."""
+        ROADMAP A15b."""
         if primary_only:
             raise _a15("ElasticCheckpointer(primary_only=True)")
         self.directory = os.path.abspath(str(directory))
@@ -340,7 +340,7 @@ def initialize_multihost(coordinator_address=None, num_processes=None,
 
 
 class ElasticTrainer:
-    """The sharded trainer's checkpoint loop (ROADMAP A15)."""
+    """The sharded trainer's checkpoint loop (ROADMAP A15b)."""
 
     def __init__(self, *args, **kwargs):
         raise _a15("ElasticTrainer")

@@ -17,7 +17,7 @@ verdict and the escalation ladder), `watchdog` (`StallWatchdog`),
 `integrity` (checkpoint manifests) and `trainer`
 (`FaultTolerantTrainer`, network mode). `health_snapshot()` reports the
 installed guardian's and watchdog's snapshots; its distributed section
-stays None until the multi-host coordinator (A15). The serving and fleet
+stays None until the multi-host coordinator (A15b). The serving and fleet
 sections read `generation/server.py` and `generation/fleet.py`.
 """
 from __future__ import annotations
@@ -82,7 +82,7 @@ def health_snapshot():
     """The `GET /health` payload: overall status plus the installed
     guardian's and watchdog's snapshots and the serving
     (GenerationServer), fleet (FleetRouter) and SLO-tracker snapshots
-    (None when not installed; the distributed section is None until A15).
+    (None when not installed; the distributed section is None until A15b).
     Status ladder as in the JAX package: a latched stall makes the
     process `stalled`, an exhausted guardian `diverged`, a dead serving
     loop or a fleet latched dead `serving_dead`; a guardian

@@ -100,7 +100,7 @@ def guarded_apply(tx, grads, loss, params, opt_state, lr_scale, max_gnorm,
     recaptures. Everything stays on the device: no host read. Returns
     (gnorm, ok) as 0-d tensors."""
     gnorm = global_norm(grads)
-    ok = torch.isfinite(loss) & torch.isfinite(gnorm) & (gnorm <= max_gnorm)
+    ok = healthy(loss, gnorm, max_gnorm)
     updates, new_opt = tx.update(grads, opt_state, params)
     up = tensor_leaves(updates)
     if up:
@@ -108,15 +108,33 @@ def guarded_apply(tx, grads, loss, params, opt_state, lr_scale, max_gnorm,
     new_params = apply_updates(params, updates)
     if constraints is not None:
         new_params = constraints(new_params)
-    pairs = [(new_params, params), (new_opt, opt_state)] + list(extra)
-    for new, old in pairs:
-        dst, src = tensor_leaves(old), tensor_leaves(new)
-        if len(dst) != len(src):
-            raise ValueError(f"trees differ: {len(dst)} vs {len(src)} "
-                             "tensors")
-        for d, s in zip(dst, src):
-            torch.where(ok, s, d, out=d)
+    write_where(ok, [(new_params, params), (new_opt, opt_state)]
+                + list(extra))
     return gnorm, ok
+
+
+def healthy(loss, gnorm, max_gnorm):
+    """A guarded step's verdict, a 0-d device bool: finite loss, finite
+    gradient norm within `max_gnorm`."""
+    return torch.isfinite(loss) & torch.isfinite(gnorm) & (gnorm <= max_gnorm)
+
+
+def write_where(ok, pairs):
+    """Each (new, old) pair of trees written into old's tensors in place,
+    `torch.where(ok, new, old)` leaf by leaf, or copied whole where `ok` is
+    None."""
+    with torch.no_grad():
+        for new, old in pairs:
+            dst, src = tensor_leaves(old), tensor_leaves(new)
+            if len(dst) != len(src):
+                raise ValueError(f"trees differ: {len(dst)} vs {len(src)} "
+                                 "tensors")
+            if ok is None:
+                if dst:
+                    torch._foreach_copy_(dst, src)
+                continue
+            for d, s in zip(dst, src):
+                torch.where(ok, s, d, out=d)
 
 
 class TrainingGuardian:

@@ -28,7 +28,8 @@ fixed addresses and stay valid. Every resume, retry, skipped batch and
 save is observable through `monitoring/` (`dl4j.resilience.*`).
 
 The sharded (functional) mode, `resume_or_init_sharded` and `fit_batch`,
-needs the sharded trainer and raises, naming ROADMAP A15.
+belongs to the multi-host half of parallel/ and raises, naming ROADMAP
+A15b.
 """
 from __future__ import annotations
 
@@ -427,12 +428,12 @@ class FaultTolerantTrainer:
     def resume_or_init_sharded(self, init_params):
         raise NotImplementedError(
             "FaultTolerantTrainer's sharded mode is not ported yet; it "
-            "comes with the sharded trainer (parallel/, ROADMAP A15)")
+            "comes with the multi-host half of parallel/ (ROADMAP A15b)")
 
     def fit_batch(self, params, opt_state, batch, rng):
         raise NotImplementedError(
             "FaultTolerantTrainer's sharded mode is not ported yet; it "
-            "comes with the sharded trainer (parallel/, ROADMAP A15)")
+            "comes with the multi-host half of parallel/ (ROADMAP A15b)")
 
     def finalize(self, params=None, opt_state=None):
         """A final synchronous save of the live model, gated like every

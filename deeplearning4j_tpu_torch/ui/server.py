@@ -27,7 +27,7 @@ an ephemeral port, read back from `.port`) serves, from a stdlib
   view on process 0 once a coordinator is active);
 - `GET /steps` — the step-time flight recorder; `GET /stragglers` —
   straggler attribution, 404 with no active coordinator (the port's
-  coordination module comes with ROADMAP A15);
+  coordination module comes with ROADMAP A15b);
 - `GET /executables` — `runtime.executables.status()`;
 - `GET /profile` — the profiler's session status; `POST /profile?steps=k`
   arms a session (its capture is ROADMAP A16's: a route that raises
@@ -55,7 +55,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 __all__ = ["UIServer", "render_static_html"]
 
-#: the port's coordination module (ROADMAP A15), read from sys.modules
+#: the port's coordination module (ROADMAP A15b), read from sys.modules
 _COORDINATION = "deeplearning4j_tpu_torch.parallel.coordination"
 
 _PAGE = """<!DOCTYPE html>

@@ -132,11 +132,82 @@ def test_bert_auto_is_dense_on_cpu_and_flash_agrees(models, batch):
 
 
 def test_bert_rejects_what_waits_for_later_slices(models, batch):
-    _, _, _, tcfg, tp = models
-    x = torch.from_numpy(batch[0])
-    with pytest.raises(NotImplementedError, match="blockwise"):
-        tb.bert_encode(tcfg, tp, x, attn_impl="blockwise")
+    """What once waited for the parallel slice now runs: blockwise
+    attention (an unmasked batch; a masked one raises as in the JAX
+    package) and an MoE layer, each against the JAX package at 1e-5; an
+    unknown attn_impl still raises."""
+    cfg, jp, _, tcfg, tp = models
+    ids, types, mask = batch
+    x = torch.from_numpy(ids)
+    got = tb.bert_encode(tcfg, tp, x, attn_impl="blockwise")
+    want = jb.bert_encode(cfg, jp, jnp.asarray(ids), attn_impl="blockwise")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    with pytest.raises(ValueError, match="padding-mask"):
+        tb.bert_encode(tcfg, tp, x, attn_mask=torch.from_numpy(mask),
+                       attn_impl="blockwise")
     with pytest.raises(ValueError, match="unknown attn_impl"):
         tb.bert_encode(tcfg, tp, x, attn_impl="nope")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        init_bert_params(tb.bert_tiny(moe_layers=(1,)), device="cpu")
+    mcfg = jb.bert_tiny(moe_layers=(1,), num_experts=4)
+    mp = jb.init_bert_params(mcfg, jax.random.PRNGKey(2))
+    tmp = params_from_numpy(tb.bert_tiny(moe_layers=(1,), num_experts=4),
+                            jax.tree_util.tree_map(np.asarray, mp),
+                            device="cpu")
+    assert set(tmp["layers"][1]) >= {"moe"} and "ffn" not in tmp["layers"][1]
+    got = tb.bert_classify(tb.bert_tiny(moe_layers=(1,), num_experts=4), tmp,
+                           x, torch.from_numpy(types))
+    want = jb.bert_classify(mcfg, mp, jnp.asarray(ids), jnp.asarray(types))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    drawn = init_bert_params(tb.bert_tiny(moe_layers=(1,)), device="cpu")
+    assert drawn["layers"][1]["moe"]["up_W"].shape == (8, 32, 64)
+
+
+def test_bert_callable_attn_impl_and_mask_guard(models, batch):
+    """A callable attn_impl gets the mask by the convention it declares
+    (a 4th positional slot or an explicit mask keyword) and equals the
+    JAX package's; a mask-blind callable on a padded batch raises."""
+    cfg, jp, _, tcfg, tp = models
+    ids, _, mask = batch
+    m = mask.copy()
+    m[2, :5] = 1    # no fully padded example: dense gives NaN rows there
+    x, tm = torch.from_numpy(ids), torch.from_numpy(m)
+
+    def t_impl(q, k, v, attn_mask):
+        return tb.dense_attention(q, k, v,
+                                  mask=attn_mask[:, None, None, :] > 0)
+
+    def j_impl(q, k, v, attn_mask):
+        return jb.dense_attention(q, k, v,
+                                  mask=attn_mask[:, None, None, :] > 0)
+
+    got = tb.bert_encode(tcfg, tp, x, attn_mask=tm, attn_impl=t_impl)
+    want = jb.bert_encode(cfg, jp, jnp.asarray(ids),
+                          attn_mask=jnp.asarray(m), attn_impl=j_impl)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    kw = tb.bert_encode(tcfg, tp, x, attn_mask=tm,
+                        attn_impl=lambda q, k, v, kv_mask=None: t_impl(
+                            q, k, v, kv_mask))
+    np.testing.assert_allclose(kw.numpy(), got.numpy(), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="mask"):
+        tb.bert_encode(tcfg, tp, x, attn_mask=tm,
+                       attn_impl=lambda q, k, v: tb.dense_attention(q, k, v))
+    with pytest.raises(ValueError, match="causal"):
+        tb.bert_encode(tcfg, tp, x, attn_impl=t_impl, causal=True)
+
+
+def test_sharding_rules_cover_params(models):
+    """The JAX package's rules as the port's spec tree: the same structure
+    as the parameters, column/row-parallel over tp, experts over ep."""
+    from deeplearning4j_tpu_torch.parallel import DeviceMesh
+    mcfg = tb.bert_tiny(moe_layers=(1,))
+    params = init_bert_params(mcfg, device="cpu")
+    rules = tb.sharding_rules(mcfg, DeviceMesh(dp=1, tp=1))
+    assert (jax.tree_util.tree_structure(jax.tree_util.tree_map(
+        lambda _: 0, params)) == jax.tree_util.tree_structure(
+        jax.tree_util.tree_map(lambda _: 0, rules,
+                               is_leaf=lambda r: hasattr(r, "spec"))))
+    assert tuple(rules["layers"][0]["qkv_W"].spec) == (None, "tp")
+    assert tuple(rules["layers"][0]["ffn"]["down_W"].spec) == ("tp", None)
+    assert tuple(rules["layers"][1]["moe"]["up_W"].spec) == ("tp", None,
+                                                             None)
+    assert tuple(tb.sharding_rules(mcfg, DeviceMesh(dp=1), ep="ep")[
+        "layers"][1]["moe"]["down_b"].spec) == ("ep", None)

@@ -731,3 +731,42 @@ def test_cuda_layernorm_matches_plain(card, dtype, atol):
         want = tln._layernorm_reference(x, g, b, 1e-5)[0]
         assert got.dtype == dtype and _scaled_err(got, want) <= atol
         assert torch.equal(got, tln.fused_layernorm(x, g, b))
+
+
+@pytest.mark.parametrize("causal,masked", [(False, False), (True, False),
+                                           (False, True)])
+def test_cuda_flash_ring_matches_plain_ring_on_one_rank(card, causal,
+                                                        masked):
+    """The flash ring (B1 per held block, B2a/B2b under the global lse) on
+    a one-rank mesh (no process group: one block, no hop) against the
+    plain ring on the same inputs, forward and gradients; f32, held to
+    2e-5 scaled by max(1, max |plain|). chip_smoke.py's parallel phase
+    runs it over two and more ranks."""
+    from deeplearning4j_tpu_torch.parallel import (DeviceMesh,
+                                                   make_ring_attention)
+    from deeplearning4j_tpu_torch.parallel.mesh import P, shard_map
+    gen = torch.Generator(device=card).manual_seed(3)
+    q, k, v, g = (torch.randn((2, 4, 96, 64), generator=gen, device=card)
+                  for _ in range(4))
+    mask = torch.arange(96, device=card)[None] < torch.tensor(
+        [96, 40], device=card)[:, None]
+    mesh = DeviceMesh(sp=1, device=card)
+    spec = P(None, None, "sp", None)
+    specs = (spec,) * 3 + ((P(None, "sp"),) if masked else ())
+    extra = (mask,) if masked else ()
+    outs = []
+    for use in (True, False):
+        f = shard_map(make_ring_attention(mesh, "sp", causal=causal,
+                                          use_flash=use),
+                      mesh=mesh, in_specs=specs, out_specs=spec)
+        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+        before = tfa.flash_fwd.launches
+        o = f(qq, kk, vv, *extra)
+        if use:
+            assert tfa.flash_fwd.launches - before == 1
+        keep = mask[:, None, :, None] if masked else 1.0
+        grads = torch.autograd.grad(o, (qq, kk, vv), g * keep)
+        outs.append([(o * keep).detach()] + list(grads))
+    for a, b in zip(*outs):
+        tol = 2e-5 * max(1.0, b.abs().max().item())
+        assert (a - b).abs().max().item() <= tol

@@ -105,13 +105,14 @@ def test_frozen_lane_at_the_rung_end_leaves_the_cache_untouched(decoders):
 
 
 def test_decoder_rejects_what_waits_for_later_slices(decoders):
-    """What the decoder still refuses: MoE layers (the expert-parallel
-    slice), the TPU kernel name, an int8 cache on the fp decode kernel,
+    """What the decoder still refuses: MoE layers (the JAX package's
+    ValueError: no single-token decode path for expert FFNs), the TPU
+    kernel name, an int8 cache on the fp decode kernel,
     pool sizes without a page size and the reverse, and drafting over an
     int8 cache. The int8 cache, paged mode and `verify` itself run
     (tests/test_torch_decode_paged.py)."""
     _, td = decoders
-    with pytest.raises(NotImplementedError, match="MoE"):
+    with pytest.raises(ValueError, match="MoE"):
         BertDecoder(tb.bert_tiny(moe_layers=(1,)), td.params)
     with pytest.raises(ValueError, match="attn_impl"):
         BertDecoder(td.cfg, td.params, attn_impl="pallas")

@@ -1,8 +1,7 @@
 """Transfer learning, the frozen wrappers and early stopping in the port
 (transfer/, nn/conf/layers.py FrozenLayer*, graph_vertices.FrozenVertex,
 optimize/early_stopping.py) against the JAX package on the CPU: the
-contracts of tests/test_transfer.py (all but the data-parallel trainer,
-which raises naming ROADMAP A15 in the port), each run in both packages on
+contracts of tests/test_transfer.py, each run in both packages on
 the same seeded inputs and the same starting parameters (carried across
 as numpy).
 
@@ -578,9 +577,27 @@ def test_local_file_model_saver(tmp_path):
 
 
 def test_parallel_trainer_raises_naming_a15():
-    net = _pair()[1]
-    conf = (T.opt.EarlyStoppingConfiguration.Builder()
-            .epochTerminationConditions(
-                T.opt.MaxEpochsTerminationCondition(1)).build())
-    with pytest.raises(NotImplementedError, match="A15"):
-        T.opt.EarlyStoppingParallelTrainer(conf, net, _iter(T))
+    """EarlyStoppingParallelTrainer runs now (it raised naming ROADMAP A15
+    before the port had ParallelWrapper): in a world of one rank, 3 dp
+    epochs under the inherited loop equal the JAX package's
+    EarlyStoppingTrainer on the same starting parameters (scores and
+    parameters 1e-5). tests/test_torch_parallel.py runs it at two
+    ranks."""
+    jnet, tnet = _pair()
+
+    def conf(P):
+        return (P.opt.EarlyStoppingConfiguration.Builder()
+                .epochTerminationConditions(
+                    P.opt.MaxEpochsTerminationCondition(3))
+                .scoreCalculator(P.opt.DataSetLossCalculator(_iter(P), True))
+                .build())
+
+    tr = T.opt.EarlyStoppingParallelTrainer(conf(T), tnet, _iter(T),
+                                            workers=1).fit()
+    jr = J.opt.EarlyStoppingTrainer(conf(J), jnet, _iter(J)).fit()
+    assert tr.totalEpochs == jr.totalEpochs == 3
+    for e, sc in jr.scoreVsEpoch.items():
+        _close(tr.scoreVsEpoch[e], sc, TOL)
+    for n, d in _np_tree(jnet._params).items():
+        for k, v in d.items():
+            _close(tnet._params[n][k], v, TOL)
