@@ -15,6 +15,7 @@
     python3 chip_smoke.py --only resilience  # card, build, resilience
     python3 chip_smoke.py --only quant    # card, build, quant
     python3 chip_smoke.py --only parallel  # card, build, parallel
+    python3 chip_smoke.py --only multihost  # card, build, multihost
     python3 chip_smoke.py --profile  # and phase 14
 
 Phases, in order; any failure exits non-zero and prints no result:
@@ -382,6 +383,34 @@ Phases, in order; any failure exits non-zero and prints no result:
             pipeline of 4 microbatches against the sequential forward.
             Printed: ms/step and peak allocated bytes per arm, each rank's
             launches per step of B1/B2a/B2b and B5/B7/B8.
+21. multihost: multi-host training that survives preemption, peer loss
+            and churn (parallel/multihost.py), in rank processes spawned and
+            joined against a deadline; each rank runs the hardened bootstrap
+            (`multihost.initialize`: a loopback TCPStore hosted by process
+            0, every group with a timeout). Arm A, NCCL, one rank: BERT-base
+            fine-tuning (the train phase's batch, dropout 0.1, Adam 2e-5,
+            attn_impl="flash") through MultiHostTrainer(accumulation=2,
+            buckets=4, compress=True) under MultiHostRunner with a
+            PeerCoordinator and a CoordinatedGuardian, save_every=2, 4
+            optimizer steps: 24 launches of each of B1/B2a/B2b per optimizer
+            step; per bucket the shipped payload plus the new residual
+            equals the gradient plus the old residual (MH_MASS_RTOL);
+            compress=False with 4 buckets equals ShardedTrainer bit for bit;
+            the exchange order the step recorded and a torch.profiler
+            trace's order pass `check_overlap_structure`; a preemption
+            injected at host.preempt drains into a verified checkpoint and a
+            fresh rank process resumes to step 4 equal to the uninterrupted
+            run bit for bit (parameters, Adam and encoder state). Arm B, two
+            gloo ranks on the first card (host-staged), BERT-base width at
+            `b_layers` layers: the sparse wire equals the dense one bit for
+            bit; preempt@2 plus a resume in fresh processes equals the clean
+            run bit for bit; a graceful leave 2 → 1 and a join_cluster
+            1 → 2 re-form the group (residual mass conserved, lockstep after
+            the join); rank 1 exits inside sync round 2 and rank 0 raises
+            PeerLostError, with a report, within the peer timeout plus
+            MH_LOST_SLACK_S. Printed: ms per optimizer step (compressed, raw
+            buckets), the coordinated save's seconds and bytes,
+            encoder_stats, the overlap orders.
 
 Phases 5, 7 and 8 run as a user runs them: the server and `fit` replay
 CUDA graphs on the card by default. The kernels' launch counters are set
@@ -392,8 +421,8 @@ phase and each path of the rnn phase) and read just after; a replay adds
 the launches its capture recorded. The mln phase and the rnn phase's LSTM
 paths run none of them: their counts are read and must stay 0. The zoo,
 layers, resilience and quant phases' counts are set to 0 before each of
-their paths, and the parallel phase's ranks set theirs to 0 before each
-of theirs. Every
+their paths, and the parallel and multihost phases' ranks set theirs to
+0 before each of theirs. Every
 number is measured in this run; the last lines are the kernel JSON object
 and the `{"ok": true, "device": ...}` line. Imports nothing of JAX.
 """
@@ -7604,6 +7633,654 @@ def phase_parallel():
             "world": world, "launches": launches}
 
 
+# -- phase 21: multihost --------------------------------------------------------
+#: the multihost phase (`--only multihost`): BERT-base fine-tuning (the train
+#: phase's batch: B = 32, T = 128, ragged padding, dropout 0.1, Adam 2e-5,
+#: attn_impl="flash") through MultiHostTrainer (accumulation 2, 4 buckets,
+#: threshold-encoded) under MultiHostRunner, a PeerCoordinator on a loopback
+#: TCPStore and a CoordinatedGuardian, in rank processes the phase spawns.
+#: Arm A: NCCL, one rank. Arm B: two gloo ranks on the first card
+#: (host-staged), BERT-base width cut to `b_layers` layers.
+MH = dict(batch=32, seq=128, lr=2e-5, accum=2, buckets=4, steps=4,
+          save_every=2, preempt_at=2, timed=3, seed=7, peer_timeout=60.0,
+          b_layers=2, b_batch=16, b_steps=4, b_preempt_at=2, b_leave_at=2,
+          b_total=8, b_save_every=4, b_die_at=2, b_peer_timeout=10.0,
+          bert=None,
+          backend_a="nccl", deadline_a_s=360, deadline_b_s=360,
+          pg_timeout_s=120)
+MH_DIR = Path(__file__).resolve().parent / "build" / "multihost"
+#: die@R: the survivor's PeerLostError comes within the peer timeout plus
+#: this slack (the heartbeat wait is the peer timeout; the slack covers the
+#: report and the step's own host work)
+MH_LOST_SLACK_S = 5.0
+#: residual mass per bucket: |(sent + r1) − (g + r0)| ≤ MH_MASS_RTOL ·
+#: max|g + r0| (the new residual is one f32 subtraction, acc − sent)
+MH_MASS_RTOL = 1e-6
+
+
+def _mh_cfg(layers=None):
+    if MH["bert"]:
+        from deeplearning4j_tpu_torch.models import bert_tiny
+        return bert_tiny(**MH["bert"])
+    return bert_base(num_layers=layers) if layers else bert_base()
+
+
+def _mh_batch(cfg, step, rows, g):
+    """Step `step`'s super-batch (G, rows, T), or (rows, T) at G = 1:
+    seeded ids and labels, ragged lengths in [T/2, T]."""
+    rng = np.random.default_rng(MH["seed"] * 1000 + step)
+    t = MH["seq"]
+    lens = rng.integers(t // 2, t + 1, (g, rows))
+    out = {"input_ids": rng.integers(0, cfg.vocab_size, (g, rows, t)),
+           "labels": rng.integers(0, cfg.num_labels, (g, rows)),
+           "attention_mask": (np.arange(t)[None, None, :]
+                              < lens[..., None]).astype(np.float32)}
+    return {k: v[0] for k, v in out.items()} if g == 1 else out
+
+
+def _mh_loss(cfg):
+    def loss_fn(p, batch, gen):
+        return classification_loss(cfg, p, batch, train=True, generator=gen,
+                                   attn_impl="flash")
+    return loss_fn
+
+
+def _mh_digest(tree):
+    """{path: crc32 of the leaf's bytes} of a state tree (integrity's
+    checksum, as the manifests hold it)."""
+    from deeplearning4j_tpu_torch.resilience.integrity import (
+        _leaf_checksum, flatten)
+    return {path: _leaf_checksum(leaf) for path, leaf in flatten(tree)}
+
+
+def _mh_unequal(a, b):
+    """Paths of two live trees whose leaves differ in any bit."""
+    from deeplearning4j_tpu_torch.resilience.integrity import flatten
+    fb = dict(flatten(b))
+    return sorted(k for k, v in flatten(a) if not torch.equal(v, fb[k]))
+
+
+def _mh_runner(directory, ns, trainer, peer_timeout, guardian=True, **kw):
+    """A MultiHostRunner over a fresh PeerCoordinator (sync every step) on
+    the store `multihost.initialize` brought up, namespace `ns`."""
+    from deeplearning4j_tpu_torch.parallel.multihost import (
+        CoordinatedGuardian, MultiHostRunner, PeerCoordinator)
+    c = PeerCoordinator(sync_every=1, peer_timeout=peer_timeout,
+                        namespace=ns, dump_dir=str(MH_DIR))
+    g = CoordinatedGuardian(c, warmup_steps=10 ** 6) if guardian else None
+    kw.setdefault("save_every", MH["save_every"])
+    return MultiHostRunner(trainer, str(MH_DIR / directory), c, guardian=g,
+                           rng_seed=MH["seed"], monitor=False, sigterm=False,
+                           **kw)
+
+
+def _mh_drive(r, cfg, total, rows, g, on_step=None):
+    """Run `r` to step `total` from wherever it stands; returns (params,
+    opt_state, losses, ms per fit_batch)."""
+    from deeplearning4j_tpu_torch.parallel.multihost import global_batch
+    p, o = r._live
+    losses, ms = [], []
+    while r.step < total:
+        b = global_batch(r.trainer.mesh, _mh_batch(cfg, r.step, rows, g),
+                         accumulation=g)
+        _par_sync()
+        t0 = time.perf_counter()
+        p, o, loss = r.fit_batch(p, o, b)
+        _par_sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(None if loss is None else float(loss))
+        if on_step is not None:
+            on_step(r, p, o)
+    r._live = (p, o)
+    return p, o, losses, ms
+
+
+def _mh_start(r, params):
+    r._live = r.resume_or_init(params)
+    return r
+
+
+def _mh_time(tr, params, cfg, steps):
+    """ms per optimizer step of a bare trainer (one warm-up step first)."""
+    from deeplearning4j_tpu_torch.parallel.multihost import global_batch
+    p, o = tr.init(params)
+    b = global_batch(tr.mesh, _mh_batch(cfg, 0, MH["batch"], MH["accum"]),
+                     accumulation=MH["accum"])
+    tr.fit_batch(p, o, b)
+    _par_sync()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        tr.fit_batch(p, o, b)
+    _par_sync()
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def _mh_overlap_trace(tr, params, cfg):
+    """One compressed step under torch.profiler: the start order of the
+    bucket phases' record_function ranges (host side) and the NCCL kernels
+    the trace shows on the card."""
+    from deeplearning4j_tpu_torch.parallel.multihost import global_batch
+    p, o = tr.init(params)
+    b = global_batch(tr.mesh, _mh_batch(cfg, 0, MH["batch"], MH["accum"]),
+                     accumulation=MH["accum"])
+    tr.fit_batch(p, o, b)
+    _par_sync()
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if DEV == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        tr.fit_batch(p, o, b)
+        _par_sync()
+    evs = [e for e in prof.events()]
+    # the host-side record_function ranges (the card's user annotations
+    # repeat their names)
+    ranges = sorted((e.time_range.start, e.name) for e in evs
+                    if e.name.startswith("dl4j_bucket")
+                    and "CPU" in str(getattr(e, "device_type", "CPU")))
+    nccl = [e for e in evs if "nccl" in e.name.lower()
+            and getattr(e, "device_type", None) is not None
+            and "CUDA" in str(e.device_type)]
+    return [n for _, n in ranges], len(nccl)
+
+
+def _mh_arm_a(part, res):
+    """Arm A, NCCL, one rank. "run": the runner's clean 4 steps (launch
+    counts, the residual-mass check on step 1, encoder stats, the recorded
+    exchange order, the coordinated save), raw buckets against
+    ShardedTrainer bit for bit, the timings and the profiled step, then a
+    run preempted at host.preempt. "resume": a fresh process resumes the
+    preempted run's checkpoint to step 4."""
+    from deeplearning4j_tpu_torch.parallel import ShardedTrainer
+    from deeplearning4j_tpu_torch.parallel.buckets import \
+        check_overlap_structure
+    from deeplearning4j_tpu_torch.parallel.multihost import (
+        MultiHostTrainer, global_batch)
+    from deeplearning4j_tpu_torch.resilience.errors import PreemptionSignal
+    cfg = _mh_cfg()
+    params = init_bert_params(cfg, 0, device=DEV)
+    loss_fn = _mh_loss(cfg)
+    G, B, steps = MH["accum"], MH["batch"], MH["steps"]
+
+    def trainer(compress=True):
+        return MultiHostTrainer(loss_fn, Adam(MH["lr"]), compress=compress,
+                                accumulation=G, buckets=MH["buckets"])
+
+    if part == "resume":
+        r = _mh_start(_mh_runner("a-pre", "a-res", trainer(),
+                                 MH["peer_timeout"]), params)
+        res["resumed_at"] = r.resumed_step
+        p, o, losses, _ = _mh_drive(r, cfg, steps, B, G)
+        res["digest"] = _mh_digest({"params": p, "opt_state": o})
+        res["losses"] = losses
+        r.close()
+        return
+    # the clean run, counts from 0 just before its steps
+    r = _mh_start(_mh_runner("a-clean", "a-clean", trainer(),
+                             MH["peer_timeout"]), params)
+    r.trainer.keep_exchange = True
+    old = [t.clone() for t in r._live[1]["encoder"]["residual"].values()]
+    mass = []
+
+    def check_mass(r, p, o):
+        ex = r.trainer.last_exchange
+        if ex is None:
+            return
+        for b, (e, r0) in enumerate(zip(ex, old)):
+            r1 = o["encoder"]["residual"][str(b)][0]
+            rhs = e["flat"] + r0[0]
+            mass.append({"bucket": b, "elems": int(rhs.numel()),
+                         "err": float(((e["sent"] + r1) - rhs).abs().max()),
+                         "scale": float(rhs.abs().max()),
+                         "delivered_is_sent": bool(torch.equal(
+                             e["delivered"], e["sent"])),
+                         "shipped": int((e["sent"] != 0).sum())})
+        r.trainer.keep_exchange = False
+        r.trainer.last_exchange = None
+        old.clear()
+
+    _par_sync()
+    _reset_counts()
+    p, o, losses, ms = _mh_drive(r, cfg, steps, B, G, on_step=check_mass)
+    res["launches"] = _counts()
+    nb = r.trainer.bucket_plan.num_buckets
+    res["bucket_bytes"] = list(r.trainer.bucket_plan.bucket_bytes)
+    res["mass"] = mass
+    res["stats"] = r.trainer.encoder_stats(o)
+    res["log"] = list(r.trainer.exchange_log)
+    res["log_problems"] = check_overlap_structure(res["log"], nb,
+                                                  require_async=True)
+    res["losses"], res["runner_ms"] = losses, ms
+    res["digest"] = _mh_digest({"params": p, "opt_state": o})
+    res["guardian"] = {"skipped": r.guardian.skipped,
+                       "flushes": r.guardian._flushes}
+    r.close()
+    del r, p, o, old
+    gc.collect()
+    _mh_empty()
+    # raw buckets against ShardedTrainer: one step, bit for bit
+    raw = trainer(compress=False)
+    sh = ShardedTrainer(loss_fn, Adam(MH["lr"]), raw.mesh, accumulation=G)
+    pr, sr = raw.init(params)
+    ps, ss = sh.init(params)
+    b = global_batch(raw.mesh, _mh_batch(cfg, 0, B, G), accumulation=G)
+    gens = []
+    for _ in range(2):
+        gen = torch.Generator(device=DEV)
+        gen.manual_seed(MH["seed"])
+        gens.append(gen)
+    _, _, la = raw.fit_batch(pr, sr, b, gens[0])
+    _, _, lb = sh.fit_batch(ps, ss, b, gens[1])
+    from deeplearning4j_tpu_torch.resilience.integrity import flatten
+    res["raw_equal"] = {
+        "leaves": len(flatten({"p": pr, "s": sr})),
+        "loss_equal": bool(torch.equal(la, lb)),
+        "unequal": _mh_unequal({"p": pr, "s": sr}, {"p": ps, "s": ss})}
+    del pr, sr, ps, ss, sh
+    gc.collect()
+    _mh_empty()
+    res["raw_ms"] = _mh_time(raw, params, cfg, MH["timed"])
+    del raw
+    gc.collect()
+    _mh_empty()
+    tr = trainer()
+    res["compressed_ms"] = _mh_time(tr, params, cfg, MH["timed"])
+    order, nccl = _mh_overlap_trace(tr, params, cfg)
+    res["trace"] = {"order": order, "nccl_kernels": nccl,
+                    "problems": check_overlap_structure(
+                        order, tr.bucket_plan.num_buckets,
+                        require_async=True)}
+    del tr
+    gc.collect()
+    _mh_empty()
+    # preempted at host.preempt: the coordinated drain
+    plan = faults.FaultPlan(seed=0).fail_at(
+        faults.HOST_PREEMPT, MH["preempt_at"],
+        exc=lambda site, n: PreemptionSignal(f"injected at {site} call {n}"))
+    r = _mh_start(_mh_runner("a-pre", "a-pre", trainer(),
+                             MH["peer_timeout"]), params)
+    drained = None
+    with plan:
+        try:
+            _mh_drive(r, cfg, steps, B, G)
+        except PreemptionSignal:
+            drained = r.step
+    res["drained"] = drained
+    # the drain is the coordinated save with wait=True
+    res["save"] = r.last_save
+    r.close()
+
+
+def _mh_arm_b(part, rank, world, res, out_file):
+    """Arm B, two gloo ranks on one card. "b1": dense and sparse wire from
+    one start (bit for bit), then a run preempted on rank 1. "b2": a fresh
+    pair resumes the preempted run (bit for bit the dense run), a graceful
+    leave 2 → 1 and a join_cluster 1 → 2, then rank 1 dies inside a sync
+    round."""
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch.parallel import multihost as mh
+    from deeplearning4j_tpu_torch.parallel.mesh import DeviceMesh
+    from deeplearning4j_tpu_torch.resilience.errors import (PeerLostError,
+                                                            PreemptionSignal)
+    cfg = _mh_cfg(MH["b_layers"])
+    params = init_bert_params(cfg, 0, device=DEV)
+    loss_fn = _mh_loss(cfg)
+    B, steps = MH["b_batch"], MH["b_steps"]
+
+    def trainer(wire="dense", mesh=None):
+        return mh.MultiHostTrainer(loss_fn, Adam(MH["lr"]), mesh=mesh,
+                                   buckets=MH["buckets"], wire=wire,
+                                   wire_capacity=1.0)
+
+    def write():
+        out_file.write_text(json.dumps(res, default=str))
+
+    if part == "b1":
+        for wire in ("dense", "sparse"):
+            r = _mh_start(_mh_runner(f"b-{wire}", f"b-{wire}", trainer(wire),
+                                     MH["b_peer_timeout"] * 3,
+                                     save_every=10 ** 6), params)
+            _reset_counts()
+            p, o, losses, ms = _mh_drive(r, cfg, steps, B, 1)
+            res[wire] = {"digest": _mh_digest({"params": p, "opt_state": o}),
+                         "losses": losses, "ms": ms, "launches": _counts(),
+                         "stats": r.trainer.encoder_stats(o)}
+            r.close()
+        plan = faults.FaultPlan(seed=0)
+        if rank == 1:
+            plan.fail_at(faults.HOST_PREEMPT, MH["b_preempt_at"],
+                         exc=lambda site, n: PreemptionSignal(
+                             f"injected at {site} call {n}"))
+        r = _mh_start(_mh_runner("b-pre", "b-pre", trainer(),
+                                 MH["b_peer_timeout"] * 3), params)
+        with plan:
+            try:
+                _mh_drive(r, cfg, steps, B, 1)
+            except PreemptionSignal:
+                res["drained"] = r.step
+        r.close()
+        return
+    # -- b2: resume, leave and join, die --------------------------------------
+    r = _mh_start(_mh_runner("b-pre", "b-res", trainer(),
+                             MH["b_peer_timeout"] * 3), params)
+    res["resumed_at"] = r.resumed_step
+    p, o, _, _ = _mh_drive(r, cfg, steps, B, 1)
+    res["resume_digest"] = _mh_digest({"params": p, "opt_state": o})
+    r.close()
+    del r, p, o
+    write()
+    el = {"widths": []}
+
+    def coordinator():
+        return mh.PeerCoordinator(sync_every=1,
+                                  peer_timeout=MH["b_peer_timeout"] * 3,
+                                  process_id=rank, num_processes=world,
+                                  namespace="b-el", dump_dir=str(MH_DIR))
+
+    c = coordinator()
+    m = mh.ElasticMembership(c)
+    factory = mh.GroupMeshFactory(c, backend="gloo",
+                                  timeout_s=MH["pg_timeout_s"])
+    r = _mh_start(mh.MultiHostRunner(
+        trainer(mesh=DeviceMesh(dp=world)), str(MH_DIR / "b-el"), c,
+        save_every=MH["b_save_every"], elastic=True, mesh_factory=factory,
+        membership=m, rng_seed=MH["seed"], monitor=False, sigterm=False),
+        params)
+    total = MH["b_total"]
+
+    def on_step(rr, p, o):
+        el["widths"].append((rr.step, rr.trainer.dp))
+
+    if rank == 1:
+        try:
+            while True:
+                if r.step == MH["b_leave_at"]:
+                    r.request_leave()
+                _mh_drive(r, cfg, r.step + 1, B, 1, on_step)
+        except PreemptionSignal:
+            el["left_at"] = r.step
+        r.close()
+        c = coordinator()
+        r, p, o = mh.MultiHostRunner.join_cluster(
+            lambda mesh: trainer(mesh=mesh), str(MH_DIR / "b-el"), c,
+            mh.GroupMeshFactory(c, backend="gloo",
+                                timeout_s=MH["pg_timeout_s"]),
+            params, timeout=120.0, save_every=MH["b_save_every"],
+            rng_seed=MH["seed"], monitor=False, sigterm=False)
+        r._live = (p, o)
+        el["joined_at"] = r.step
+        el["joined_zero"] = all(not bool(t.any()) for t in
+                                o["encoder"]["residual"].values())
+        el["joined_thr"] = o["encoder"]["threshold"].cpu().tolist()
+    else:
+        joined = False
+        while r.step < total:
+            before = r.trainer.dp
+            p, o, _, _ = _mh_drive(r, cfg, r.step + 1, B, 1, on_step)
+            if before == 2 and r.trainer.dp == 1:
+                snap = r._last_host_state["opt_state"]["encoder"]
+                el["left_at"] = r.step
+                el["leave_mass_err"] = max(float(
+                    (snap["residual"][k].sum(0).to(t.device) - t[0]).abs()
+                    .max()) for k, t in o["encoder"]["residual"].items())
+                deadline = time.monotonic() + 120
+                while not m.pending()[0] and time.monotonic() < deadline:
+                    time.sleep(0.05)
+            if before == 1 and r.trainer.dp == 2 and not joined:
+                joined = True
+                el["joined_at"] = r.step
+                el["joined_thr"] = o["encoder"]["threshold"].cpu().tolist()
+    p, o, _, _ = _mh_drive(r, cfg, total, B, 1, on_step)
+    el["members"] = list(r.coordinator.members)
+    el["world"] = dist.get_world_size()
+    el["params_digest"] = _mh_digest(p)
+    r.close()
+    res["elastic"] = el
+    del r, p, o
+    write()
+    # die@R: rank 1 exits inside its sync round; rank 0 must raise
+    # PeerLostError within the peer timeout plus slack
+    r = _mh_start(_mh_runner("b-die", "b-die", trainer(),
+                             MH["b_peer_timeout"], guardian=False), params)
+    plan = faults.FaultPlan(seed=0)
+    if rank == 1:
+        write()
+        plan.fail_at(faults.HOST_PREEMPT, MH["b_die_at"],
+                     exc=lambda site, n: os._exit(23))
+    die = {}
+    b = None
+    with plan:
+        try:
+            while r.step < steps:
+                b = mh.global_batch(r.trainer.mesh,
+                                    _mh_batch(cfg, r.step, B, 1))
+                t0 = time.perf_counter()
+                p, o, _ = r.fit_batch(*r._live, b)
+                r._live = (p, o)
+        except PeerLostError as e:
+            die = {"step": r.step, "seconds": time.perf_counter() - t0,
+                   "message": str(e)[:300],
+                   "report": bool(e.report_path
+                                  and os.path.exists(e.report_path)),
+                   "peers": sorted(str(k) for k in (e.peers or {}))}
+    res["die"] = die
+    r.close()
+
+
+def _mh_rank(rank, world, arm, part, port, knobs):
+    """One rank of a multihost arm: the hardened bootstrap on a loopback
+    TCPStore (process 0 hosts it), the arm's part, its results as JSON."""
+    import traceback
+    global DEV
+    DEV = knobs["DEV"]
+    MH.update(knobs["MH"])
+    out_file = MH_DIR / f"{arm}.{part}.{rank}.json"
+    res = {"rank": rank, "arm": arm, "part": part}
+    try:
+        from deeplearning4j_tpu_torch.parallel import multihost as mh
+        if DEV == "cuda":
+            torch.cuda.set_device(0)
+        backend = MH["backend_a"] if arm == "A" else "gloo"
+        mh.initialize(f"127.0.0.1:{port}", world, rank, backend=backend,
+                      timeout_s=MH["pg_timeout_s"],
+                      device="cuda:0" if backend == "nccl" else None)
+        if arm == "A":
+            _mh_arm_a(part, res)
+        else:
+            _mh_arm_b(part, rank, world, res, out_file)
+        res["nvcc_runs"] = _build.nvcc_runs
+    except Exception:
+        res["error"] = traceback.format_exc()
+    finally:
+        out_file.write_text(json.dumps(res, default=str))
+        from deeplearning4j_tpu_torch.parallel import multihost as mh
+        mh._teardown()
+
+
+def _mh_spawn(arm, part, world, deadline_s, exits=None):
+    """Start `world` rank processes, join each against the deadline; a rank
+    that outlives it, or exits with another code than `exits` names for it
+    (0 by default), fails the phase. Returns the ranks' results."""
+    import multiprocessing as mp
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    for r in range(world):
+        f = MH_DIR / f"{arm}.{part}.{r}.json"
+        if f.exists():
+            f.unlink()
+    knobs = {"DEV": DEV, "MH": dict(MH)}
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_mh_rank,
+                         args=(r, world, arm, part, port, knobs))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(max(1.0, deadline_s - (time.perf_counter() - t0)))
+        if any(p.is_alive() for p in procs):
+            raise AssertionError(f"multihost arm {arm} {part}: a rank passed "
+                                 f"its {deadline_s} s deadline")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+    seconds = time.perf_counter() - t0
+    results = []
+    for r, p in enumerate(procs):
+        want = (exits or {}).get(r, 0)
+        res = json.loads((MH_DIR / f"{arm}.{part}.{r}.json").read_text())
+        if "error" in res:
+            raise AssertionError(f"multihost arm {arm} {part} rank {r}:\n"
+                                 f"{res['error']}")
+        if p.exitcode != want:
+            raise AssertionError(f"multihost arm {arm} {part} rank {r} exited "
+                                 f"{p.exitcode}, expected {want}")
+        if res.get("nvcc_runs"):
+            raise AssertionError(f"multihost arm {arm} {part} rank {r} "
+                                 f"compiled {res['nvcc_runs']} kernels")
+        results.append(res)
+    return results, seconds
+
+
+def _mh_gate(ok, what):
+    if not ok:
+        raise AssertionError(f"multihost: {what}")
+
+
+def _mh_empty():
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+
+
+def phase_multihost():
+    """Arm A (NCCL, one rank: a run process and a fresh resume process) and
+    arm B (two gloo ranks on the first card: two spawns of a pair)."""
+    if MH_DIR.exists():
+        shutil.rmtree(MH_DIR)
+    MH_DIR.mkdir(parents=True)
+    gc.collect()
+    _mh_empty()
+    (a,), a_s = _mh_spawn("A", "run", 1, MH["deadline_a_s"])
+    (ar,), ar_s = _mh_spawn("A", "resume", 1, MH["deadline_a_s"])
+    b1, b1_s = _mh_spawn("B", "b1", 2, MH["deadline_b_s"])
+    b2, b2_s = _mh_spawn("B", "b2", 2, MH["deadline_b_s"], exits={1: 23})
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "smoke_multihost_ranks.json").write_text(json.dumps(
+        {"arm_a": [a, ar], "arm_b1": b1, "arm_b2": b2}, indent=1,
+        default=str))
+    steps = MH["steps"]
+    per_step = {k: a["launches"][k] / steps for k in PAR_BERT_KERNELS}
+    want_launches = _mh_cfg().num_layers * MH["accum"]
+    st = a["stats"]
+    save_step, save_s, save_bytes = a["save"]
+    log(f"[multihost] arm A: {MH['backend_a']}, one rank; BERT-base "
+        f"B={MH['batch']} "
+        f"T={MH['seq']} x G={MH['accum']} dropout 0.1 Adam({MH['lr']}), "
+        f"{MH['buckets']} buckets {a['bucket_bytes']} B, compressed: "
+        f"{a['compressed_ms']:.2f} ms/optimizer step (trainer), raw buckets "
+        f"{a['raw_ms']:.2f}; through the runner (coordinated saves every "
+        f"{MH['save_every']}, guardian sync every step) "
+        f"{[round(x, 2) for x in a['runner_ms']]} ms; launches per optimizer "
+        f"step {per_step} (want {want_launches} each)")
+    log(f"[multihost] arm A coordinated save (the drain, wait=True, step "
+        f"{save_step}): "
+        f"{save_s:.3f} s, {save_bytes} B; encoder_stats: threshold "
+        f"{st['threshold']:.3e}, nnz {st['nnz']}, residual norm "
+        f"{st['residual_norm']:.4e}, bucket nnz {st['bucket_nnz']}")
+    log(f"[multihost] arm A raw buckets vs ShardedTrainer, one step: "
+        f"{a['raw_equal']['leaves']} leaves, unequal "
+        f"{a['raw_equal']['unequal']}, loss equal "
+        f"{a['raw_equal']['loss_equal']}")
+    log(f"[multihost] arm A residual mass per bucket (step 1): "
+        + ", ".join(f"b{m['bucket']} err {m['err']:.3e} of "
+                    f"{m['scale']:.3e} ({m['shipped']} shipped)"
+                    for m in a["mass"]))
+    log(f"[multihost] arm A overlap: recorded order {a['log']} -> problems "
+        f"{a['log_problems']}; profiler trace order {a['trace']['order']} "
+        f"-> problems {a['trace']['problems']}, NCCL kernels in the trace "
+        f"{a['trace']['nccl_kernels']}")
+    log(f"[multihost] arm A preempted at host.preempt call "
+        f"{MH['preempt_at']}: drained at step {a['drained']}; a fresh "
+        f"process resumed at "
+        f"{ar['resumed_at']} and ran to step {steps}: "
+        f"{sum(ar['digest'][k] == a['digest'][k] for k in a['digest'])}/"
+        f"{len(a['digest'])} leaves bit-equal to the clean run")
+    r0, r1 = b2
+    el0, el1 = r0["elastic"], r1["elastic"]
+    log(f"[multihost] arm B: 2 gloo ranks on one card (host-staged), "
+        f"BERT-base width x {MH['b_layers']} layers, B={MH['b_batch']}: "
+        f"dense ms/step {[round(x, 1) for x in b1[0]['dense']['ms']]}, "
+        f"sparse {[round(x, 1) for x in b1[0]['sparse']['ms']]}; sparse "
+        f"wire bytes {b1[0]['sparse']['stats'].get('wire_bytes')} vs dense "
+        f"{b1[0]['sparse']['stats'].get('dense_bytes')}")
+    log(f"[multihost] arm B preempt@{MH['b_preempt_at']} drained at "
+        f"{[r['drained'] for r in b1]}, resumed at "
+        f"{[r['resumed_at'] for r in b2]}; leave at {el0.get('left_at')} "
+        f"(mass err {el0.get('leave_mass_err')}), join at "
+        f"{el0.get('joined_at')}/{el1.get('joined_at')}, widths "
+        f"{el0['widths']}; die@{MH['b_die_at']}: {r0['die']}")
+    log(f"[multihost] A {a_s:.1f} s + resume {ar_s:.1f} s, B1 {b1_s:.1f} s, "
+        f"B2 {b2_s:.1f} s (process start, imports and kernel loads "
+        "included)")
+    # -- gates ---------------------------------------------------------------
+    _mh_gate(DEV != "cuda" or all(v == want_launches
+                                  for v in per_step.values()),
+             f"arm A launches per optimizer step {per_step}")
+    _mh_gate(not a["raw_equal"]["unequal"] and a["raw_equal"]["loss_equal"],
+             f"raw buckets vs ShardedTrainer: {a['raw_equal']}")
+    _mh_gate(all(m["err"] <= MH_MASS_RTOL * max(m["scale"], 1e-30)
+                 and m["delivered_is_sent"] for m in a["mass"])
+             and len(a["mass"]) == MH["buckets"],
+             f"residual mass {a['mass']}")
+    _mh_gate(not a["log_problems"] and not a["trace"]["problems"],
+             f"overlap {a['log_problems']} {a['trace']['problems']}")
+    _mh_gate(a["drained"] == MH["preempt_at"] and ar["resumed_at"]
+             == a["drained"], f"drain {a['drained']} resume "
+             f"{ar['resumed_at']}")
+    _mh_gate(ar["digest"] == a["digest"],
+             "arm A resumed run differs from the clean run: "
+             + str([k for k in a["digest"]
+                    if ar["digest"].get(k) != a["digest"][k]][:8]))
+    _mh_gate(a["guardian"]["skipped"] == 0, f"guardian {a['guardian']}")
+    for r, rr in zip(b1, b2):
+        _mh_gate(r["sparse"]["digest"] == r["dense"]["digest"]
+                 and r["sparse"]["losses"] == r["dense"]["losses"],
+                 f"rank {r['rank']}: sparse wire differs from dense")
+        _mh_gate(r["drained"] == MH["b_preempt_at"]
+                 and rr["resumed_at"] == r["drained"],
+                 f"rank {r['rank']}: drain {r.get('drained')} resume "
+                 f"{rr.get('resumed_at')}")
+        _mh_gate(rr["resume_digest"] == r["dense"]["digest"],
+                 f"rank {r['rank']}: resumed pair differs from the clean run")
+        _mh_gate(DEV != "cuda" or all(
+            r["dense"]["launches"][k] == MH["b_layers"] * MH["b_steps"]
+            for k in PAR_BERT_KERNELS),
+            f"arm B launches {r['dense']['launches']}")
+    _mh_gate(el0["leave_mass_err"] == 0.0, f"leave mass {el0}")
+    _mh_gate(el1["joined_zero"] and el1["joined_thr"] == el0["joined_thr"],
+             f"join re-stack {el0.get('joined_thr')} {el1.get('joined_thr')}")
+    _mh_gate(el0["joined_at"] == el1["joined_at"]
+             and el0["members"] == el1["members"] == [0, 1]
+             and el0["world"] == el1["world"] == 2
+             and el0["params_digest"] == el1["params_digest"],
+             "lockstep after the join")
+    die = r0["die"]
+    _mh_gate(die.get("report") and die.get("step") is not None,
+             f"die: {die}")
+    _mh_gate(die["seconds"] <= MH["b_peer_timeout"] + MH_LOST_SLACK_S,
+             f"die: PeerLostError after {die['seconds']} s")
+    launches = {k.__name__: 0 for k in KERNELS}
+    for k, v in a["launches"].items():
+        launches[k] += v
+    return {"arm_a": a, "arm_a_resume": ar, "arm_b1": b1, "arm_b2": b2,
+            "seconds": {"A": a_s, "A_resume": ar_s, "B1": b1_s, "B2": b2_s},
+            "launches": launches, "launches_per_step": per_step}
+
+
 def kernel_line(rows, launches, launches_from):
     """The per-kernel JSON object: each kernel's numbers at its
     representative case, its launches (from the main path's run where it
@@ -7636,13 +8313,15 @@ def main(argv=None):
     ap.add_argument("--only",
                     choices=["kernels", "resnet", "graphs", "paged",
                              "chaos", "fleet", "mln", "rnn", "zoo",
-                             "layers", "resilience", "quant", "parallel"],
+                             "layers", "resilience", "quant", "parallel",
+                             "multihost"],
                     default=None,
                     help="stop after the kernel checks, or run the resnet "
                          "serving and training phases right after them, or "
                          "run the graphs, the paged, the chaos, the fleet, "
                          "the mln, the rnn, the zoo, the layers, the "
-                         "resilience, the quant or the parallel phase alone "
+                         "resilience, the quant, the parallel or the "
+                         "multihost phase alone "
                          "after the build (bring-up runs)")
     ap.add_argument("--profile", action="store_true",
                     help="after the resnet phases, profile the serving "
@@ -7682,9 +8361,11 @@ def main(argv=None):
             f"{k} {v:.1f}" for k, v in seconds.items()))
         return 0
     if args.only in ("chaos", "fleet", "mln", "rnn", "zoo", "layers",
-                     "resilience", "quant", "parallel"):
+                     "resilience", "quant", "parallel", "multihost"):
         if args.only == "parallel":
             out = timed("parallel", phase_parallel)
+        elif args.only == "multihost":
+            out = timed("multihost", phase_multihost)
         elif args.only == "mln":
             out = timed("mln", phase_mln, args.profile)
         elif args.only == "rnn":
@@ -7748,6 +8429,7 @@ def main(argv=None):
     resilience = timed("resilience", phase_resilience)
     quant = timed("quant", phase_quant, args.profile)
     parallel = timed("parallel", phase_parallel)
+    multihost = timed("multihost", phase_multihost)
     prof = (timed("profile", phase_profile, cfg, params, resnet_net,
                   resnet_x, train_net, train_ds) if args.profile else None)
     # each kernel's launches from the path that carries it: the forward and
@@ -7827,6 +8509,12 @@ def main(argv=None):
             f"parallel phase: {PAR['steps']} ring-trainer steps and "
             f"{PAR['resnet_steps'] + PAR['resnet_timed']} (arm A) / "
             f"{PAR['resnet_steps']} (arm B) wrapper steps on every rank")
+        # this slice's path: arm A's MultiHostRunner steps (BERT-base,
+        # accumulation 2)
+        row["launches_multihost"] = multihost["launches"][row["name"]]
+        row["launches_multihost_from"] = (
+            f"multihost phase arm A: {MH['steps']} optimizer steps of "
+            f"{MH['accum']} microbatches through MultiHostRunner")
     (OUT_DIR / "smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "kernels": rows,
          "step36": step36, "fwd36": fwd36, "bert_step12": step12,
@@ -7836,7 +8524,7 @@ def main(argv=None):
          "paged": paged, "chaos": chaos, "fleet": fleet, "mln": mln,
          "rnn": rnn, "zoo": zoo, "layers": layers,
          "resilience": resilience, "quant": quant, "parallel": parallel,
-         "profile": prof,
+         "multihost": multihost, "profile": prof,
          "line": line,
          "phase_seconds": seconds, "seconds": time.perf_counter() - t0},
         indent=1, default=str))

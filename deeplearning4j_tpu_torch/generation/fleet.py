@@ -58,9 +58,8 @@ The router also emits an autoscale signal — queue depth x SLO burn →
 desired replica count — on `GET /fleet`, the metrics plane
 (`dl4j.fleet.desired_replicas`), and the cross-host replica registry
 (`publish()` / `directory()` over the coordination KV's
-`fleet/<process_id>` namespace; the port's coordination module comes
-with ROADMAP A15b, and until something imports it there is no active
-coordinator: `publish()` returns None and `directory()` {}).
+`fleet/<process_id>` namespace, `parallel/coordination.py`; with no
+active coordinator `publish()` returns None and `directory()` {}).
 
 Hot-path contract (linted by `python -m
 deeplearning4j_tpu_torch.lint.fastpath`): the route / dispatch / relay /
@@ -788,8 +787,8 @@ class FleetRouter:
 def _coordinator(coordinator):
     """An explicit coordinator (duck-typed: `process_id`, `publish_json`,
     `fetch_json_dir`), else the active one of the port's coordination
-    module when something imported it (ROADMAP A15b), else None — the
-    reference's answer when no coordinator is active."""
+    module when something imported it (read through sys.modules), else
+    None — the reference's answer when no coordinator is active."""
     if coordinator is not None:
         return coordinator
     co = sys.modules.get("deeplearning4j_tpu_torch.parallel.coordination")

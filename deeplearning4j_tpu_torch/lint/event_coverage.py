@@ -22,14 +22,7 @@ from deeplearning4j_tpu_torch.lint import _coverage
 EVENTS_MODULE = os.path.join(_coverage.PACKAGE, "monitoring", "events.py")
 
 #: declared kinds the port does not emit yet -> the ROADMAP item
-PENDING = {
-    "MEMBERSHIP_EPOCH": "A15b: parallel/membership.py",
-    "MEMBERSHIP_JOINED": "A15b: parallel/membership.py",
-    "MEMBERSHIP_LEAVE": "A15b: parallel/membership.py",
-    "MEMBERSHIP_REPLACED": "A15b: parallel/multihost.py",
-    "PEER_LOST": "A15b: parallel/coordination.py",
-    "PEER_DESYNC": "A15b: parallel/coordination.py",
-}
+PENDING = {}
 
 
 def main():

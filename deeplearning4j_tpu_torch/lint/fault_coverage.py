@@ -23,14 +23,9 @@ FAULTS_MODULE = os.path.join(_coverage.PACKAGE, "resilience", "faults.py")
 
 #: declared sites the port does not fire yet -> the ROADMAP item
 PENDING = {
-    "INFERENCE_FORWARD": "A15b: ParallelInference's fault hooks",
-    "INFERENCE_COLLECTOR": "A15b: ParallelInference's fault hooks",
-    "SERVING_DISPATCH": "A15b: ParallelInference's fault hooks",
-    "COMM_ALLREDUCE": "A15b: parallel/multihost.py",
-    "COMM_BARRIER": "A15b: parallel/coordination.py, multihost.py",
-    "HOST_PREEMPT": "A15b: parallel/coordination.py",
-    "HOST_JOIN": "A15b: parallel/multihost.py",
-    "WIRE_DECODE": "A15b: parallel/multihost.py",
+    "INFERENCE_FORWARD": "A16: ParallelInference's fault hooks",
+    "INFERENCE_COLLECTOR": "A16: ParallelInference's fault hooks",
+    "SERVING_DISPATCH": "A16: ParallelInference's fault hooks",
 }
 
 

@@ -72,14 +72,15 @@ class ZooModel:
                 return p
         return None
 
-    def initPretrained(self, dataset="imagenet", path=None):
+    def initPretrained(self, dataset="imagenet", path=None, device=None):
         """Initialize with REAL trained weights from a LOCAL checkpoint
         (≡ ZooModel.initPretrained; the reference downloads from its zoo
         bucket — this environment has no egress, so the file must already
-        exist: pass `path=` or set $DL4J_TPU_PRETRAINED_DIR). Reading the
-        checkpoint formats comes with ROADMAP A12; weights held by the
-        JAX package carry across with `nn.graph_params_from_numpy` or
-        `nn.multilayer_params_from_numpy`."""
+        exist: pass `path=` or set $DL4J_TPU_PRETRAINED_DIR). A
+        ModelSerializer zip (either package's) restores through
+        `ModelSerializer.restoreModel` onto `device` (the card unless told
+        "cpu"); Keras .h5 weight files come with the Keras import (ROADMAP
+        A17)."""
         path = path or self._pretrained_path(dataset)
         if path is None:
             raise RuntimeError(
@@ -87,9 +88,13 @@ class ZooModel:
                 f"{type(self).__name__}/{dataset}: pass path= or put "
                 f"<model>_<dataset>.zip/.h5 under "
                 f"${self.PRETRAINED_DIR_ENV} (no network egress).")
-        raise NotImplementedError(
-            f"{path}: the ModelSerializer zip and Keras .h5 readers come "
-            "with ROADMAP A12")
+        if str(path).endswith(".h5"):
+            raise NotImplementedError(
+                f"{path}: the Keras .h5 weight reader comes with the Keras "
+                "import (ROADMAP A17)")
+        from deeplearning4j_tpu_torch.util.model_serializer import \
+            ModelSerializer
+        return ModelSerializer.restoreModel(str(path), device=device)
 
     def pretrainedAvailable(self, dataset="imagenet"):
         return self._pretrained_path(dataset) is not None

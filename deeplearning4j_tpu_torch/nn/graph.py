@@ -428,6 +428,28 @@ class ComputationGraph(Network):
 
     # -- stateful RNN inference ------------------------------------------
     @torch.no_grad()
+    def summary(self):
+        """The reference's table: each node in topological order with its
+        kind (the layer class for a layer), inputs and parameter count,
+        then the total."""
+        from deeplearning4j_tpu_torch.resilience.integrity import flatten
+        lines = ["=" * 78,
+                 f"{'Name':<20}{'Kind':<10}{'Inputs':<26}{'nParams':>10}",
+                 "-" * 78]
+        total = 0
+        for name in self.conf.topo_order:
+            node = self.nodes[name]
+            p = (self._params or {}).get(name, {})
+            n = sum(int(torch.Size(getattr(v, "shape", ())).numel())
+                    for _, v in flatten(p))
+            total += n
+            kind = node.kind if node.kind != "layer" \
+                else type(node.ref).__name__
+            lines.append(f"{name:<20}{kind:<10}{','.join(node.inputs):<26}"
+                         f"{n:>10,}")
+        lines += ["-" * 78, f"Total params: {total:,}", "=" * 78]
+        return "\n".join(lines)
+
     def rnnTimeStep(self, *inputs):
         """The output(s) for the next step(s), continuing from the carries
         the last call left; (B, F) inputs give (B, C) outputs."""

@@ -1,10 +1,10 @@
 """Parallel training and inference of the port over `torch.distributed`
 (one rank per device): the mesh and its collectives, ring and Ulysses
 attention, the pipeline, ZeRO-1, threshold encoding, the sharded and
-parameter-averaging trainers, ParallelWrapper, ParallelInference and the
-elastic checkpointer. The multi-host half (coordination, membership, the
-multi-host trainer and runner, gradient buckets, ElasticTrainer) raises,
-naming ROADMAP A15b."""
+parameter-averaging trainers, ParallelWrapper, ParallelInference, the
+elastic checkpointer and trainer, and the multi-host half: coordination,
+membership, gradient buckets, MultiHostTrainer/MultiHostRunner and the
+coordinated guardian."""
 from deeplearning4j_tpu_torch.parallel.mesh import (DeviceMesh,
                                                     initialize_distributed)
 from deeplearning4j_tpu_torch.parallel.wrapper import ParallelWrapper
@@ -15,6 +15,8 @@ from deeplearning4j_tpu_torch.parallel.ulysses import (
 from deeplearning4j_tpu_torch.parallel.ring_attention import (
     blockwise_attention, dense_attention, make_ring_attention,
     ring_attention)
+from deeplearning4j_tpu_torch.parallel.buckets import (
+    BucketPlan, check_overlap_structure, plan_buckets)
 from deeplearning4j_tpu_torch.parallel.compression import (
     encoded_updater, threshold_encoding)
 from deeplearning4j_tpu_torch.parallel.elastic import (ElasticCheckpointer,
@@ -27,6 +29,8 @@ from deeplearning4j_tpu_torch.parallel.zero import (shard_optimizer_state,
                                                     state_memory_bytes)
 from deeplearning4j_tpu_torch.parallel.inference import (InferenceMode,
                                                          ParallelInference)
+from deeplearning4j_tpu_torch.parallel.multihost import (
+    CoordinatedGuardian, MultiHostRunner, MultiHostTrainer, PeerCoordinator)
 
 __all__ = ["DeviceMesh", "initialize_distributed", "ParallelWrapper",
            "ParameterAveragingTrainer", "ShardedTrainer",
@@ -40,21 +44,3 @@ __all__ = ["DeviceMesh", "initialize_distributed", "ParallelWrapper",
            "state_memory_bytes", "InferenceMode", "ParallelInference",
            "CoordinatedGuardian", "MultiHostRunner", "MultiHostTrainer",
            "PeerCoordinator"]
-
-
-def _a15b(name):
-    def raising(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name} is not ported yet; it comes with the multi-host half "
-            "of parallel/ (ROADMAP A15b)")
-    raising.__name__ = name
-    return raising
-
-
-CoordinatedGuardian = _a15b("CoordinatedGuardian")
-MultiHostRunner = _a15b("MultiHostRunner")
-MultiHostTrainer = _a15b("MultiHostTrainer")
-PeerCoordinator = _a15b("PeerCoordinator")
-BucketPlan = _a15b("BucketPlan")
-check_overlap_structure = _a15b("check_overlap_structure")
-plan_buckets = _a15b("plan_buckets")

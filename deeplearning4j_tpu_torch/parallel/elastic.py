@@ -22,9 +22,20 @@ is ordered after them) and writes the files on a thread; `wait=True`,
 raises what the thread hit. `restore` returns host tensors in the
 structure of `like`, which the trainer copies into the live tensors.
 
-`ElasticTrainer`, `place_global`, `replace_on_mesh` and
-`initialize_multihost` belong to the multi-host half of parallel/: they
-raise, naming ROADMAP A15b.
+Multi-host modes: `primary_only=True` is the single writer of a
+multi-host run (process 0): it writes each step's manifest before `save`
+returns, so the peers can verify it once the writer reaches the save's
+fence, even while the leaves are still being written; `read_only=True` is
+the peers' flavor: restore and inspect, no sweep, no save.
+
+A checkpoint holds every leaf whole. A trainer's `state_specs` says how
+each leaf lies over the mesh: `host_state` gathers the blocks into whole
+host tensors by it, and `place_global` and `replace_on_mesh` cut a
+rank's block back out. `save_collective` and `restore_collective` are
+the multi-process save (process 0 writes, its outcome broadcast as the
+fence) and resume (process 0 picks the generation, every rank restores
+it); `ElasticTrainer` wraps a ShardedTrainer-style step with them, and
+`initialize_multihost` is the hardened bootstrap (`multihost.initialize`).
 """
 from __future__ import annotations
 
@@ -38,23 +49,20 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch import monitoring as _mon
+from deeplearning4j_tpu_torch.parallel import mesh as _mesh
+from deeplearning4j_tpu_torch.parallel.coordination import _world
 from deeplearning4j_tpu_torch.resilience import faults as _faults
 from deeplearning4j_tpu_torch.resilience import integrity as _integrity
 from deeplearning4j_tpu_torch.resilience.errors import \
     CheckpointIntegrityError
 
-__all__ = ["ElasticCheckpointer", "ElasticTrainer", "initialize_multihost",
-           "place_global", "replace_on_mesh"]
+__all__ = ["ElasticCheckpointer", "ElasticTrainer", "host_state",
+           "initialize_multihost", "place_global", "replace_on_mesh",
+           "restore_collective", "save_collective", "whole_zeros"]
 
 _LEAVES = "leaves.npz"
 _META = "leaves.json"
 _SEQ = itertools.count()
-
-
-def _a15(what):
-    return NotImplementedError(
-        f"{what} is not ported yet; it comes with the multi-host half of "
-        "parallel/ (ROADMAP A15b)")
 
 
 def _snapshot(leaf):
@@ -108,17 +116,18 @@ class ElasticCheckpointer:
     (the dropout generator's state, BN state, the counters)."""
 
     def __init__(self, directory, max_to_keep=3, save_interval_steps=1,
-                 sweep_orphans=True, primary_only=False):
+                 sweep_orphans=True, primary_only=False, read_only=False):
         """sweep_orphans=False skips the startup debris sweep: required
         when another process may be saving into the same directory.
-        `primary_only` (the multi-host single writer) raises, naming
-        ROADMAP A15b."""
-        if primary_only:
-            raise _a15("ElasticCheckpointer(primary_only=True)")
+        `primary_only`: the multi-host single writer (manifests written
+        before `save` returns); `read_only`: a peer's restore-only view
+        (no sweep; `save` raises)."""
         self.directory = os.path.abspath(str(directory))
         os.makedirs(self.directory, exist_ok=True)
+        self.primary_only = bool(primary_only)
+        self.read_only = bool(read_only)
         self.orphans_removed = (_integrity.sweep_orphans(self.directory)
-                                if sweep_orphans else 0)
+                                if sweep_orphans and not read_only else 0)
         self.max_to_keep = max_to_keep
         self.save_interval_steps = max(1, int(save_interval_steps))
         self._thread = None
@@ -146,6 +155,10 @@ class ElasticCheckpointer:
         """`verdict` is the guardian's health verdict recorded in the
         integrity manifest ("verified" when the guardian vouched for this
         state; default "unguarded")."""
+        if self.read_only:
+            raise RuntimeError(
+                f"checkpointer of {self.directory} is read-only (a peer of "
+                "a multi-host run: process 0 writes)")
         if _faults.ACTIVE is not None:
             _faults.ACTIVE.fire(_faults.CHECKPOINT_SAVE)
         self.wait_until_finished()
@@ -166,9 +179,19 @@ class ElasticCheckpointer:
             event.record()
         leaves = [h for h, _ in snaps]
         paths = [p for p, _ in flat]
+        manifest = True
+        if self.primary_only:
+            # the single writer's peers verify the manifest as soon as
+            # the writer passes the save's fence
+            if event is not None:
+                event.synchronize()
+                event = None
+            self._write_manifest(step, paths, leaves, verdict)
+            manifest = False
         self._thread = threading.Thread(
             target=self._write_guarded,
-            args=(step, paths, leaves, event, verdict), daemon=True,
+            args=(step, paths, leaves, event, verdict, manifest),
+            daemon=True,
             name=f"dl4j-ckpt-{step}")
         self._thread.start()
         if _mon.enabled():
@@ -186,16 +209,20 @@ class ElasticCheckpointer:
         except BaseException as e:  # noqa: BLE001 — surfaced later
             self._error = e
 
-    def _write(self, step, paths, leaves, event, verdict):
+    def _write_manifest(self, step, paths, leaves, verdict):
+        _integrity.write_manifest(self.directory, step, None,
+                                  verdict=verdict,
+                                  flat=list(zip(paths, leaves)))
+
+    def _write(self, step, paths, leaves, event, verdict, manifest=True):
         import time
         t0 = time.perf_counter()
         if event is not None:
             event.synchronize()
         # the manifest first: a kill before the rename leaves a manifest
         # without its step, which the startup sweep removes
-        _integrity.write_manifest(self.directory, step, None,
-                                  verdict=verdict,
-                                  flat=list(zip(paths, leaves)))
+        if manifest:
+            self._write_manifest(step, paths, leaves, verdict)
         arrays, dtypes = {}, []
         for i, leaf in enumerate(leaves):
             a, dt = _to_numpy(leaf)
@@ -326,21 +353,211 @@ class ElasticCheckpointer:
         self.check_for_errors()
 
 
+def _block_of(t, mesh, spec):
+    """This rank's block of a whole tensor under `spec`."""
+    for dim, name in enumerate(spec):
+        if name is not None and name in mesh.shape:
+            t = _mesh._local_slice(t, dim, mesh.index(name),
+                                   mesh.shape[name])
+    return t
+
+
 def place_global(host, sharding):
-    raise _a15("place_global")
+    """A host array (numpy or tensor) placed as this rank's block under a
+    `NamedSharding` (the dims its spec names sliced to this rank's
+    coordinate), as a fresh tensor on the mesh's device that owns its
+    memory."""
+    mesh = getattr(sharding.mesh, "mesh", sharding.mesh)
+    t = host if torch.is_tensor(host) else torch.from_numpy(
+        np.ascontiguousarray(host))
+    return _block_of(t, mesh, sharding.spec).to(mesh.device).clone()
 
 
-def replace_on_mesh(mesh, like, state):
-    raise _a15("replace_on_mesh")
+def host_state(mesh, state, specs):
+    """Every leaf of `state` whole, as a host tensor: the dims its spec
+    (the P at the same place in `specs`) names all-gathered from the
+    ranks that hold their blocks. A collective: every rank of those axes
+    calls it."""
+    mesh = getattr(mesh, "mesh", mesh)
+
+    def whole(t, spec):
+        if not torch.is_tensor(t):
+            return t
+        for dim, name in enumerate(spec):
+            group = mesh.group(name) if name is not None else None
+            if group is not None and mesh.shape[name] > 1:
+                t = _mesh._all_gather(t, group, mesh.shape[name], dim)
+        return t.detach().cpu().clone()
+
+    return _mesh._tree_map(whole, state, specs)
+
+
+def whole_zeros(mesh, like, specs):
+    """Host zeros of every leaf's whole shape (each dim its spec names
+    times that axis' size), in its `like` dtype: a restore's target."""
+    mesh = getattr(mesh, "mesh", mesh)
+
+    def zeros(t, spec):
+        if not torch.is_tensor(t):
+            return t
+        shape = list(t.shape)
+        for dim, name in enumerate(spec):
+            if name is not None:
+                shape[dim] *= mesh.shape.get(name, 1)
+        return torch.zeros(shape, dtype=t.dtype)
+
+    return _mesh._tree_map(zeros, like, specs)
+
+
+def replace_on_mesh(mesh, like, state, specs):
+    """Re-place every restored whole host leaf as this rank's block under
+    its spec (the P at the same place in `specs`, the trainer's
+    `state_specs`), in its `like` counterpart's dtype. Returns fresh
+    tensors on the mesh's device; a block whose shape is not its `like`
+    leaf's raises ValueError."""
+    mesh = getattr(mesh, "mesh", mesh)
+
+    def place(fresh, restored, spec):
+        if not torch.is_tensor(fresh):
+            return restored
+        got = place_global(restored, _mesh.NamedSharding(mesh, spec))
+        if tuple(got.shape) != tuple(fresh.shape):
+            raise ValueError(
+                f"restored leaf of shape {tuple(restored.shape)} gives "
+                f"this rank a {tuple(got.shape)} block under {spec}, the "
+                f"live leaf is {tuple(fresh.shape)}")
+        return got.to(fresh.dtype)
+
+    return _mesh._tree_map(place, like, state, specs)
+
+
+def _agree(value):
+    """Process 0's `value` on every process of the default group."""
+    import torch.distributed as dist
+    if _world()[1] == 1:
+        return value
+    box = [value]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def save_collective(ckpt, step, trainer, params, opt_state, wait=False,
+                    verdict=None):
+    """Save a trainer's state as one checkpoint. On one process it is
+    `ckpt.save`. On several, every rank gathers the whole state
+    (`host_state`), process 0 writes it to completion, and its outcome
+    is broadcast: the broadcast is the fence after which every rank may
+    read the generation, and a failed write raises on every rank."""
+    rank, world = _world()
+    if world == 1:
+        ckpt.save(step, params, opt_state, wait=wait, verdict=verdict)
+        return
+    host = host_state(trainer.mesh, {"params": params,
+                                     "opt_state": opt_state},
+                      trainer.state_specs(params, opt_state))
+    err = None
+    if rank == 0:
+        try:
+            ckpt.save(step, host["params"], host["opt_state"], wait=True,
+                      verdict=verdict)
+        except Exception as e:  # noqa: BLE001 — every rank raises below
+            err = e
+    msg = _agree(None if err is None else f"{type(err).__name__}: {err}")
+    if err is not None:
+        raise err
+    if msg is not None:
+        raise RuntimeError(f"process 0's checkpoint save of step {step} "
+                           f"failed: {msg}")
+
+
+def restore_collective(ckpt, trainer, like):
+    """(step, state placed on the trainer's mesh) of the newest verified
+    generation, or (None, None). On several processes, process 0 picks
+    the generation (`restore_verified`) and every rank restores and
+    verifies that one, so all land on the same step."""
+    specs = trainer.state_specs(like["params"], like["opt_state"])
+    host_like = whole_zeros(trainer.mesh, like, specs)
+    rank, world = _world()
+    if world == 1:
+        step, state = ckpt.restore_verified(like=host_like)
+    else:
+        step = state = err = None
+        if rank == 0:
+            try:
+                step, state = ckpt.restore_verified(like=host_like)
+            except CheckpointIntegrityError as e:
+                err = e
+        step, msg = _agree((step, None if err is None else str(err)))
+        if err is not None:
+            raise err
+        if msg is not None:
+            raise CheckpointIntegrityError(msg)
+        if rank != 0 and step is not None:
+            step, state = ckpt.restore(step=step, like=host_like)
+            _integrity.verify_restored(ckpt.directory, step, state)
+    if step is None:
+        return None, None
+    return step, replace_on_mesh(trainer.mesh, like, state, specs)
 
 
 def initialize_multihost(coordinator_address=None, num_processes=None,
                          process_id=None):
-    raise _a15("initialize_multihost")
+    """≡ the reference's cluster join for the elastic path: the hardened
+    bootstrap (`multihost.initialize`, one implementation), which
+    resolves the env config itself and returns False when no coordinator
+    is configured."""
+    from deeplearning4j_tpu_torch.parallel.multihost import initialize
+    return initialize(coordinator_address, num_processes, process_id)
 
 
 class ElasticTrainer:
-    """The sharded trainer's checkpoint loop (ROADMAP A15b)."""
+    """Wrap a ShardedTrainer-style step with periodic checkpoints and
+    crash-resume (≡ the fault-tolerant SharedTrainingMaster loop). The
+    functional style of the trainer: `resume_or_init(init_params)` then
+    `fit_batch(params, opt_state, batch, rng)`; `step_num` counts the
+    steps taken, resumed ones included. Over several processes the saves
+    and the resume are collective (`save_collective`,
+    `restore_collective`): process 0 writes the whole state into the
+    shared `directory`, and every rank resumes its block of one
+    generation."""
 
-    def __init__(self, *args, **kwargs):
-        raise _a15("ElasticTrainer")
+    def __init__(self, trainer, directory, save_every=50, max_to_keep=3,
+                 sweep_orphans=True):
+        rank, world = _world()
+        self.trainer = trainer
+        self.ckpt = ElasticCheckpointer(directory, max_to_keep=max_to_keep,
+                                        save_interval_steps=save_every,
+                                        sweep_orphans=sweep_orphans,
+                                        read_only=rank > 0)
+        self.save_every = int(save_every)
+        self.step_num = 0
+
+    def resume_or_init(self, init_params):
+        """Restore the newest VERIFIED checkpoint if one exists (manifest
+        checksums and finiteness, falling back a generation on
+        corruption), else shard the given fresh params. Returns (params,
+        opt_state)."""
+        params, opt_state = self.trainer.init(init_params)
+        step, state = restore_collective(
+            self.ckpt, self.trainer,
+            {"params": params, "opt_state": opt_state})
+        if step is None:
+            return params, opt_state
+        self.step_num = step
+        return state["params"], state["opt_state"]
+
+    def _save(self, params, opt_state, wait=False):
+        if self.step_num % self.save_every == 0:
+            save_collective(self.ckpt, self.step_num, self.trainer, params,
+                            opt_state, wait=wait)
+
+    def fit_batch(self, params, opt_state, batch, rng):
+        params, opt_state, loss = self.trainer.fit_batch(
+            params, opt_state, batch, rng)
+        self.step_num += 1
+        self._save(params, opt_state)
+        return params, opt_state, loss
+
+    def finalize(self, params, opt_state):
+        self._save(params, opt_state, wait=True)
+        self.ckpt.close()

@@ -36,7 +36,6 @@ device. The group's backend decides this.
 """
 from __future__ import annotations
 
-import datetime
 import os
 import threading
 
@@ -49,9 +48,6 @@ __all__ = ["P", "PartitionSpec", "NamedSharding", "DeviceMesh",
            "initialize_distributed", "shard_map", "axis_index", "axis_size",
            "psum", "ppermute", "all_to_all", "all_gather",
            "current_mesh"]
-
-#: default timeout of a process group brought up here
-DEFAULT_TIMEOUT_S = 600.0
 
 
 class P(tuple):
@@ -89,38 +85,20 @@ def _backend(group):
 
 
 def initialize_distributed(coordinator_address=None, num_processes=None,
-                           process_id=None, backend=None, timeout_s=None,
-                           device=None):
+                           process_id=None, **kw):
     """Bring up the default process group (≡ the JAX package's
-    `initialize_distributed`). The address, world size and rank come from
-    the arguments, else from `DL4J_COORDINATOR` / `DL4J_NUM_PROCESSES` /
-    `DL4J_PROCESS_ID`, else from torchrun's `MASTER_ADDR`/`MASTER_PORT`/
-    `WORLD_SIZE`/`RANK`. With none of them configured it does nothing
-    (a world of one) and returns False. `backend` defaults to NCCL when
-    CUDA is available, else gloo. Returns True once the group is up."""
-    if dist.is_initialized():
-        return True
-    env = os.environ
-    addr = coordinator_address or env.get("DL4J_COORDINATOR")
-    n = num_processes if num_processes is not None else env.get(
-        "DL4J_NUM_PROCESSES", env.get("WORLD_SIZE"))
-    rank = process_id if process_id is not None else env.get(
-        "DL4J_PROCESS_ID", env.get("RANK"))
-    if addr is None and "MASTER_ADDR" in env and "MASTER_PORT" in env:
-        addr = f"{env['MASTER_ADDR']}:{env['MASTER_PORT']}"
-    if addr is None or n is None or rank is None:
-        return False
-    if backend is None:
-        backend = "nccl" if torch.cuda.is_available() else "gloo"
-    url = addr if "://" in addr else f"tcp://{addr}"
-    kw = {}
-    if backend == "nccl" and device is not None:
-        kw["device_id"] = torch.device(device)
-    dist.init_process_group(
-        backend, init_method=url, world_size=int(n), rank=int(rank),
-        timeout=datetime.timedelta(seconds=timeout_s or DEFAULT_TIMEOUT_S),
-        **kw)
-    return True
+    `initialize_distributed`). Delegates to the HARDENED bootstrap in
+    `parallel/multihost.py` (`initialize`): the address, world size and
+    rank from the arguments, else `DL4J_COORDINATOR` /
+    `DL4J_NUM_PROCESSES` / `DL4J_PROCESS_ID`, else torchrun's
+    `MASTER_ADDR`/`MASTER_PORT`/`WORLD_SIZE`/`RANK`; connect
+    retry/backoff under a deadline and a post-init barrier; failures
+    raise the typed `DistributedInitError`, never hang. With none of them
+    configured it does nothing (a world of one) and returns False.
+    `backend` defaults to NCCL when CUDA is available, else gloo;
+    `timeout_s` and `device` as `multihost.initialize` takes them."""
+    from deeplearning4j_tpu_torch.parallel.multihost import initialize
+    return initialize(coordinator_address, num_processes, process_id, **kw)
 
 
 class DeviceMesh:

@@ -29,6 +29,7 @@ from deeplearning4j_tpu_torch.nn.accum import accumulate
 from deeplearning4j_tpu_torch.nn.updaters import (Optimizer, Updater,
                                                   _Transform, apply_updates,
                                                   build_optimizer)
+from deeplearning4j_tpu_torch.parallel import coordination as _dist
 from deeplearning4j_tpu_torch.parallel import mesh as _mesh
 from deeplearning4j_tpu_torch.parallel.mesh import NamedSharding, P
 from deeplearning4j_tpu_torch.parallel.zero import ZeroState, zero_apply
@@ -79,6 +80,33 @@ def _rebuild(template, values, path=""):
 def _flat(tree):
     """{_NODE: {path: leaf}}: the two-level tree the optimizers take."""
     return {_NODE: dict(_paths(tree))}
+
+
+def _opt_specs(tx, params, specs, state):
+    """A P at every leaf of an updater state: a list parallel to a label
+    group's parameters (entry i a tensor of parameter i's shape: the
+    moments) takes the parameters' specs, every other leaf (the counts)
+    is whole."""
+    flat = _flat(params)
+    groups = tx._groups(flat) if isinstance(tx, Optimizer) else {}
+
+    def walk(s, keys):
+        if isinstance(s, dict):
+            return {k: walk(v, keys) for k, v in s.items()}
+        if isinstance(s, list) and keys and len(s) == len(keys) and all(
+                torch.is_tensor(t)
+                and tuple(t.shape) == tuple(flat[n][k].shape)
+                for t, (n, k) in zip(s, keys)):
+            return [specs.get(k, P()) for _, k in keys]
+        if isinstance(s, (list, tuple)):
+            out = [walk(v, keys) for v in s]
+            return type(s)(out) if isinstance(s, tuple) else out
+        return None if s is None else P()
+
+    if isinstance(state, dict):
+        return {lab: walk(v, groups.get(lab, []))
+                for lab, v in state.items()}
+    return walk(state, [])
 
 
 def accumulate_grads(loss_fn, params, batch, generator, n_micro):
@@ -207,6 +235,22 @@ class ShardedTrainer:
         params = self.shard_params(params)
         return params, self.tx.init(_flat(params))
 
+    def state_specs(self, params, opt_state):
+        """{"params", "opt_state"} shaped like the training state with a P
+        at every leaf: how each leaf is laid out over the mesh, which a
+        checkpoint gathers it by and a restore slices it by. Each
+        parameter's spec, the same on its optimizer moments, P() on the
+        counts. A ZeRO-1 state is refused: its blocks follow their own
+        rule and are not checkpointed."""
+        if isinstance(opt_state, ZeroState):
+            raise ValueError(
+                "a ZeRO-1 optimizer state (zero.shard_optimizer_state) "
+                "cannot be checkpointed: its blocks are not gathered")
+        specs = self._specs or self._path_specs(params)
+        return {"params": _rebuild(params, {p: specs.get(p, P())
+                                            for p, _ in _paths(params)}),
+                "opt_state": _opt_specs(self.tx, params, specs, opt_state)}
+
     # -- the step --------------------------------------------------------
     def _gathered_loss(self, local, batch, generator):
         """loss_fn on whole parameters: each sharded one all-gathered from
@@ -326,6 +370,12 @@ class ShardedTrainer:
             _faults.ACTIVE.fire(_faults.TRAIN_DISPATCH)
         if _watchdog.ACTIVE is not None:
             _watchdog.ACTIVE.beat(f"sharded_trainer@{id(self):x}")
+        if _dist.ACTIVE is not None:
+            # multi-host sync point every sync_every steps: heartbeat,
+            # step agreement, the preemption decision (an int increment
+            # and a modulo off the sync cadence); `self` lets a bound
+            # coordinator ignore host-local auxiliary trainers
+            _dist.ACTIVE.on_step(self)
         _ps = _prof.ACTIVE
         if _ps is not None:
             _ps.step_start()
@@ -339,7 +389,9 @@ class ShardedTrainer:
                 params, opt_state, loss = self.make_step()(
                     params, opt_state, batch, rng)
         if _g is not None:
-            _g.on_step(loss, gnorm, ok)   # device scalars; no sync here
+            # device scalars; no sync here. `source` lets a bound
+            # guardian ignore host-local auxiliary trainers
+            _g.on_step(loss, gnorm, ok, source=self)
         _ps = _prof.ACTIVE
         if _ps is not None:
             _ps.step_end()

@@ -15,10 +15,10 @@ Pieces:
 The training half: `guardian` (`TrainingGuardian`, the device-side
 verdict and the escalation ladder), `watchdog` (`StallWatchdog`),
 `integrity` (checkpoint manifests) and `trainer`
-(`FaultTolerantTrainer`, network mode). `health_snapshot()` reports the
-installed guardian's and watchdog's snapshots; its distributed section
-stays None until the multi-host coordinator (A15b). The serving and fleet
-sections read `generation/server.py` and `generation/fleet.py`.
+(`FaultTolerantTrainer`). `health_snapshot()` reports the installed
+guardian's, watchdog's and multi-host coordinator's snapshots (the last
+with its peer table); the serving and fleet sections read
+`generation/server.py` and `generation/fleet.py`.
 """
 from __future__ import annotations
 
@@ -80,15 +80,17 @@ def __getattr__(name):
 
 def health_snapshot():
     """The `GET /health` payload: overall status plus the installed
-    guardian's and watchdog's snapshots and the serving
-    (GenerationServer), fleet (FleetRouter) and SLO-tracker snapshots
-    (None when not installed; the distributed section is None until A15b).
-    Status ladder as in the JAX package: a latched stall makes the
-    process `stalled`, an exhausted guardian `diverged`, a dead serving
-    loop or a fleet latched dead `serving_dead`; a guardian
-    mid-escalation, a serving memory-pressure degradation, a fleet with a
-    replica out of the healthy pool, or an SLO breach reports
-    `degraded`."""
+    guardian's, watchdog's and multi-host coordinator's snapshots and the
+    serving (GenerationServer), fleet (FleetRouter) and SLO-tracker
+    snapshots (None when not installed). Status ladder as in the JAX
+    package: a latched stall makes the process `stalled`, a lost peer
+    `peer_lost`, an exhausted guardian `diverged`, a dead serving loop or
+    a fleet latched dead `serving_dead`; a guardian mid-escalation, a
+    pending preemption, a serving memory-pressure degradation, a fleet
+    with a replica out of the healthy pool, or an SLO breach reports
+    `degraded`. The coordinator's snapshot carries the per-process peer
+    table (heartbeat step and age, steps/s, exchange bytes, preempt flags,
+    lost verdicts)."""
     import sys
     # the training half from sys.modules: nothing is installed unless
     # its module was loaded
@@ -99,6 +101,13 @@ def health_snapshot():
     _w = sys.modules.get("deeplearning4j_tpu_torch.resilience.watchdog")
     if _w is not None and _w.ACTIVE is not None:
         wsnap = _w.ACTIVE.snapshot()
+    csnap = None
+    _c = sys.modules.get("deeplearning4j_tpu_torch.parallel.coordination")
+    if _c is not None and _c.ACTIVE is not None:
+        try:
+            csnap = _c.ACTIVE.snapshot()
+        except Exception:  # noqa: BLE001 — health must always answer
+            csnap = None
     # serving states come from sys.modules, never a fresh import: a
     # health tick must not pull the server (and torch's CUDA) in
     ssnap = None
@@ -133,8 +142,13 @@ def health_snapshot():
         status = "degraded"
     if slosnap is not None and slosnap.get("violated"):
         status = "degraded"
+    if csnap is not None and (csnap["preempt_requested"]
+                              or csnap["preempted"]):
+        status = "degraded"
     if wsnap is not None and wsnap["stalled"]:
         status = "stalled"
+    if csnap is not None and csnap["lost"]:
+        status = "peer_lost"
     if gsnap is not None and gsnap["status"] == "diverged":
         status = "diverged"
     if ssnap and any(s["state"] == "dead" for s in ssnap):
@@ -142,5 +156,5 @@ def health_snapshot():
     if fsnap and any(f["state"] == "dead" for f in fsnap):
         status = "serving_dead"
     return {"status": status, "guardian": gsnap, "watchdog": wsnap,
-            "distributed": None, "serving": ssnap, "fleet": fsnap,
+            "distributed": csnap, "serving": ssnap, "fleet": fsnap,
             "slo": slosnap}

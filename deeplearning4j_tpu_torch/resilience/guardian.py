@@ -216,6 +216,9 @@ class TrainingGuardian:
         self.driver_attached = False
         self._climbed_this_flush = False  # one rung max per flush
         self._prev_active = None   # guardian shadowed by install()
+        #: when bound to a trainer, only that trainer's reports count
+        #: (a multi-host runner binds it: see `bind`)
+        self._bound = None
 
     # -- install / clear (the faults.py pattern, plus nesting) -----------
     def install(self):
@@ -255,8 +258,20 @@ class TrainingGuardian:
             self.uninstall()
         return False
 
+    def bind(self, trainer):
+        """Scope verdict collection to `trainer`: while bound, only reports
+        whose `source` IS that trainer feed this guardian's window, and
+        source-less reports (the networks' own fit loops) are dropped,
+        because any extra verdict desyncs a window that a
+        `CoordinatedGuardian` folds across hosts. `MultiHostRunner` binds
+        its trainer (whose `fit_batch` passes itself as the source) and
+        unbinds at close. None unbinds: every report counts, the
+        single-host default."""
+        self._bound = trainer
+        return self
+
     # -- the hot hook ----------------------------------------------------
-    def on_step(self, loss, gnorm, ok=None, retryable=True):
+    def on_step(self, loss, gnorm, ok=None, retryable=True, source=None):
         """Record one guarded step's device scalars. No host sync here:
         they materialize together at the `check_every` cadence. May raise
         `DivergenceError` from the flush when the ladder is exhausted.
@@ -271,7 +286,9 @@ class TrainingGuardian:
         RETRY rung (TBPTT segment loops: the healthy segments' updates
         were applied, so re-running the batch would apply them twice):
         escalation skips from the skip rung straight to rollback for
-        those."""
+        those. `source` is the reporting trainer (see `bind`)."""
+        if self._bound is not None and source is not self._bound:
+            return
         self.step += 1
         if ok is None:
             stats = gnorm.detach().clone()

@@ -27,9 +27,16 @@ into the live tensors, never rebinds them: the step's CUDA graphs read
 fixed addresses and stay valid. Every resume, retry, skipped batch and
 save is observable through `monitoring/` (`dl4j.resilience.*`).
 
-The sharded (functional) mode, `resume_or_init_sharded` and `fit_batch`,
-belongs to the multi-host half of parallel/ and raises, naming ROADMAP
-A15b.
+The sharded (functional) mode wraps a `ShardedTrainer`-style trainer
+(`init` / `fit_batch` / `mesh`): `resume_or_init_sharded(init_params)`
+returns the restored (params, opt_state) placed on the trainer's mesh,
+and `fit_batch(params, opt_state, batch, rng)` adds the retry, the skip
+of non-finite host batches, guardian escalations (a rollback swaps in the
+restored state) and the periodic gated save. The caller derives `rng`
+from `trainer.step` (e.g. a generator seeded from it) for a resume to be
+exact. Over several ranks only rank 0 writes (the state is replicated);
+a trainer whose state differs by rank (a compressing MultiHostTrainer's
+encoder rows) is driven by `parallel.multihost.MultiHostRunner` instead.
 """
 from __future__ import annotations
 
@@ -97,15 +104,17 @@ class FaultTolerantTrainer:
         disarmed around fit() (the caller owns its start()/stop()).
         sweep_orphans: False when the directory is shared with another
         saving process."""
-        from deeplearning4j_tpu_torch.parallel.elastic import \
-            ElasticCheckpointer
+        from deeplearning4j_tpu_torch.parallel.elastic import (
+            ElasticCheckpointer, _world)
         self.model = model
         self.guardian = guardian
         self.watchdog = watchdog
         self.prefetch = int(prefetch)
+        # over several processes only process 0 writes (sharded mode)
         self.ckpt = ElasticCheckpointer(directory, max_to_keep=max_to_keep,
                                         save_interval_steps=1,
-                                        sweep_orphans=sweep_orphans)
+                                        sweep_orphans=sweep_orphans
+                                        and _world()[0] == 0)
         self.save_every = int(save_every)
         self.retry = retry_policy or RetryPolicy(max_attempts=3)
         self.skip_non_finite = bool(skip_non_finite)
@@ -425,24 +434,111 @@ class FaultTolerantTrainer:
         return self.model
 
     # ===================== sharded (functional) mode ====================
+    # Over several processes the saves, the resume and the rollback are
+    # collective (`elastic.save_collective`, `restore_collective`):
+    # process 0 writes the whole state and broadcasts the outcome, and
+    # every rank restores its block of the generation process 0 picked.
     def resume_or_init_sharded(self, init_params):
-        raise NotImplementedError(
-            "FaultTolerantTrainer's sharded mode is not ported yet; it "
-            "comes with the multi-host half of parallel/ (ROADMAP A15b)")
+        """Sharded mode: init via the wrapped trainer, then overwrite with
+        the newest verified checkpoint placed on the trainer's mesh.
+        Returns (params, opt_state); `self.step` holds the restored step
+        for the caller's rng derivation."""
+        from deeplearning4j_tpu_torch.parallel.elastic import \
+            restore_collective
+        params, opt_state = self.model.init(init_params)
+        step, state = restore_collective(
+            self.ckpt, self.model, {"params": params, "opt_state": opt_state})
+        if step is None:
+            return params, opt_state
+        self.step = int(step)
+        self._note_resume(self.step)
+        return state["params"], state["opt_state"]
+
+    def _rollback_sharded(self, g, params, opt_state):
+        """Guardian rollback, functional style: the newest verified
+        generation written into the live (params, opt_state)."""
+        from deeplearning4j_tpu_torch.parallel.elastic import \
+            restore_collective
+        try:
+            self.ckpt.wait_until_finished()
+            step, state = restore_collective(
+                self.ckpt, self.model,
+                {"params": params, "opt_state": opt_state})
+        except CheckpointIntegrityError as e:
+            raise DivergenceError(
+                "guardian requested rollback but no checkpoint "
+                "generation could be restored") from e
+        if step is None:
+            raise DivergenceError(
+                "guardian requested rollback but no verified checkpoint "
+                "exists yet (diverged before the first save)")
+        _copy_tree(params, state["params"])
+        _copy_tree(opt_state, state["opt_state"])
+        g.note_rollback(int(step))
+        return params, opt_state
+
+    def _save_sharded(self, params, opt_state, g, wait=False):
+        from deeplearning4j_tpu_torch.parallel.elastic import \
+            save_collective
+        if self._guardian_allows_save(g):
+            save_collective(self.ckpt, self.step, self.model, params,
+                            opt_state, wait=wait,
+                            verdict=None if g is None else "verified")
 
     def fit_batch(self, params, opt_state, batch, rng):
-        raise NotImplementedError(
-            "FaultTolerantTrainer's sharded mode is not ported yet; it "
-            "comes with the multi-host half of parallel/ (ROADMAP A15b)")
+        """Sharded mode: one retried step + periodic gated save.
+        Non-finite host batches return the inputs unchanged with loss
+        None (counted as skipped)."""
+        trainer = self.model
+        # a guardian handed to the constructor is installed here (the
+        # functional style has no fit() scope to install it in); close()
+        # clears it
+        if self.guardian is not None \
+                and _guardian.ACTIVE is not self.guardian:
+            self.guardian.install()
+        if self.guardian is not None:
+            self.guardian.driver_attached = True
+        if self.skip_non_finite:
+            # only HOST leaves are checked: reading device leaves would
+            # cost a sync every step
+            from deeplearning4j_tpu_torch.parallel import mesh as _mesh
+            leaves = []
+            _mesh._tree_map(lambda a: leaves.append(a)
+                            if isinstance(a, np.ndarray) else None, batch)
+            if not all(_finite(a) for a in leaves):
+                self.step += 1
+                self._count_skip("non_finite")
+                return params, opt_state, None
+
+        def on_retry(attempt_n, exc):
+            self.retries += 1
+
+        params, opt_state, loss = self.retry.call(
+            trainer.fit_batch, params, opt_state, batch, rng,
+            label="train.dispatch", on_retry=on_retry)
+        self.step += 1
+        # guardian escalations, functional flavor: the guarded step
+        # already refused the bad update; the reduced lr_scale applies
+        # from the next step, and ROLLBACK swaps in the restored state
+        g = _guardian.ACTIVE
+        if g is not None:
+            act = g.take_action()
+            if act == _guardian.ROLLBACK:
+                params, opt_state = self._rollback_sharded(
+                    g, params, opt_state)
+        if self.step % self.save_every == 0:
+            self._save_sharded(params, opt_state, g)
+        return params, opt_state, loss
 
     def finalize(self, params=None, opt_state=None):
-        """A final synchronous save of the live model, gated like every
-        other, and close."""
-        if params is not None:
-            self.fit_batch(params, opt_state, None, None)
+        """Final synchronous save (sharded mode passes the live state;
+        network mode reads it off the model), gated like every other,
+        and close."""
         g = self.guardian if self.guardian is not None \
             else _guardian.ACTIVE
-        if self._is_network and self.model._params is not None:
+        if params is not None:
+            self._save_sharded(params, opt_state, g, wait=True)
+        elif self._is_network and self.model._params is not None:
             self.model._ensure_training()
             self._maybe_save(g, wait=True)
         self.close()

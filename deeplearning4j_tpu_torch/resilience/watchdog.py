@@ -96,7 +96,6 @@ def _peer_table_lines():
         # never loaded, no coordinator can be installed — and a stall
         # report must not pay (or deadlock on) a whole-package import
         # inside a process that is by definition wedged
-        # (the port's coordinator comes with ROADMAP A15b)
         mod = sys.modules.get(
             "deeplearning4j_tpu_torch.parallel.coordination")
         coord = getattr(mod, "ACTIVE", None) if mod is not None else None

@@ -239,12 +239,42 @@ class PrefetchIterator:
         return item
 
     def __iter__(self):
+        # a second `for` pass starts the base over, as the reference's does
+        if self.resetSupported():
+            self.reset()
         return self
 
     def __next__(self):
         if not self.hasNext():
             raise StopIteration
         return self.next()
+
+    # -- protocol parity: forwarded to the base ----------------------------
+    def resetSupported(self):
+        sup = getattr(self._base, "resetSupported", None)
+        return hasattr(self._base, "reset") if sup is None else sup()
+
+    def asyncSupported(self):
+        return False    # already async; double-wrapping buys nothing
+
+    def batch(self):
+        return self._base.batch()
+
+    def numExamples(self):
+        return self._base.numExamples()
+
+    def totalOutcomes(self):
+        return self._base.totalOutcomes()
+
+    def inputColumns(self):
+        return self._base.inputColumns()
+
+    def setPreProcessor(self, pp):
+        self._base.setPreProcessor(pp)
+
+    def getPreProcessor(self):
+        getpp = getattr(self._base, "getPreProcessor", None)
+        return None if getpp is None else getpp()
 
     def resume_after_error(self):
         """Clear a worker failure and prefetch on from the base's CURRENT

@@ -26,8 +26,8 @@ an ephemeral port, read back from `.port`) serves, from a stdlib
 - `GET /metrics` — the registry's Prometheus text (a multi-host cluster
   view on process 0 once a coordinator is active);
 - `GET /steps` — the step-time flight recorder; `GET /stragglers` —
-  straggler attribution, 404 with no active coordinator (the port's
-  coordination module comes with ROADMAP A15b);
+  straggler attribution, 404 with no active coordinator
+  (`parallel/coordination.py`);
 - `GET /executables` — `runtime.executables.status()`;
 - `GET /profile` — the profiler's session status; `POST /profile?steps=k`
   arms a session (its capture is ROADMAP A16's: a route that raises
@@ -55,7 +55,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 __all__ = ["UIServer", "render_static_html"]
 
-#: the port's coordination module (ROADMAP A15b), read from sys.modules
+#: the port's coordination module, read from sys.modules (never imported:
+#: a coordinator is only active where something imported it)
 _COORDINATION = "deeplearning4j_tpu_torch.parallel.coordination"
 
 _PAGE = """<!DOCTYPE html>

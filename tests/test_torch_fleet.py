@@ -290,33 +290,33 @@ def test_fleet_status_and_health_snapshot(models, cache_dir):
                    for r in fleet_mod.status()["routers"])
 
 
-class _KV:
-    """A duck-typed coordinator over one dict: what `publish` and
-    `directory` read (the port's coordination module comes with A15)."""
-
-    def __init__(self, store, process_id):
-        self.store, self.process_id = store, process_id
-
-    def publish_json(self, key, doc):
-        self.store[key] = doc
-
-    def fetch_json_dir(self, prefix):
-        return {k[len(prefix):]: v for k, v in self.store.items()
-                if k.startswith(prefix)}
+def _coordinators(tmp_path):
+    """Two real coordinators of two hosts over one shared LocalKV."""
+    from deeplearning4j_tpu_torch.parallel.coordination import (
+        LocalKV, PeerCoordinator)
+    kv = LocalKV()
+    return [PeerCoordinator(sync_every=1, peer_timeout=5.0, client=kv,
+                            process_id=i, num_processes=2,
+                            dump_dir=str(tmp_path)) for i in (0, 1)]
 
 
-def test_replica_registry_publishes_over_a_coordinator(models, cache_dir):
-    kv = {}
+def test_replica_registry_publishes_over_a_coordinator(models, cache_dir,
+                                                       tmp_path):
+    c0, c1 = _coordinators(tmp_path)
     with _fleet(models, cache_dir, n=2) as router:
         # no coordinator is active: the reference's answers
         assert router.publish() is None and fleet_mod.directory() == {}
-        doc = router.publish(coordinator=_KV(kv, 0))
+        doc = router.publish(coordinator=c0)
         assert doc["process_id"] == 0
-        router.publish(coordinator=_KV(kv, 1))
-        view = fleet_mod.directory(coordinator=_KV(kv, 0))
+        router.publish(coordinator=c1)
+        view = fleet_mod.directory(coordinator=c0)
         assert set(view) == {"0", "1"}
         assert len(view["0"]["replicas"]) == 2
         assert view["1"]["autoscale"]["desired_replicas"] >= 1
+        # the installed coordinator is found through sys.modules
+        with c1:
+            assert router.publish()["process_id"] == 1
+            assert set(fleet_mod.directory()) == {"0", "1"}
 
 
 def test_shutdown_refuses_new_submits(models, cache_dir):

@@ -311,13 +311,120 @@ def test_checkpoint_round_trip_dtypes_and_structure(tmp_path):
     ck.close()
 
 
-def test_sharded_mode_and_elastic_trainer_name_roadmap_a15(tmp_path):
-    t = FaultTolerantTrainer(_net(), tmp_path / "s")
-    with pytest.raises(NotImplementedError, match="A15"):
-        t.resume_or_init_sharded(None)
-    with pytest.raises(NotImplementedError, match="A15"):
-        ElasticTrainer(None, tmp_path / "e")
+def _sharded(compress=False):
+    """A functional trainer at one rank: the sharded mode's target."""
+    from deeplearning4j_tpu_torch.parallel import (MultiHostTrainer,
+                                                   ShardedTrainer)
+    from deeplearning4j_tpu_torch.parallel.mesh import DeviceMesh
+
+    def loss_fn(p, batch, gen):
+        x = torch.as_tensor(batch["x"])
+        return (torch.tanh(x @ p["W1"]) @ p["W2"]).pow(2).mean()
+
+    if compress:
+        return MultiHostTrainer(loss_fn, Sgd(0.2), buckets=2,
+                                compression_kw={"initial_threshold": 1e-3})
+    return ShardedTrainer(loss_fn, Sgd(0.2), DeviceMesh(dp=1))
+
+
+def _sharded_params():
+    r = np.random.default_rng(7)
+    return {"W1": r.standard_normal((6, 5)).astype(np.float32) * 0.5,
+            "W2": r.standard_normal((5, 2)).astype(np.float32) * 0.5}
+
+
+def _sharded_batch(step, nan=False):
+    x = np.random.default_rng(200 + step).standard_normal(
+        (8, 6)).astype(np.float32)
+    if nan:
+        x[0, 0] = np.nan
+    return {"x": x}
+
+
+@pytest.mark.parametrize("compress", [False, True])
+def test_sharded_mode_resume_equals_uninterrupted(tmp_path, compress):
+    """FaultTolerantTrainer's sharded mode over ShardedTrainer and over a
+    one-rank MultiHostTrainer (encoder state in the checkpoint): a run
+    killed after step 7 and resumed from the step-6 save ends bit for bit
+    where the uninterrupted 10-step run ends; a NaN host batch is skipped
+    (loss None, counted) without touching the state."""
+    def run(directory, steps, start=None):
+        t = FaultTolerantTrainer(_sharded(compress), directory,
+                                 save_every=3)
+        p, o = t.resume_or_init_sharded(_sharded_params())
+        if start is not None:
+            assert t.step == start and t.resumed_step == start
+        while t.step < steps:
+            p, o, loss = t.fit_batch(p, o, _sharded_batch(t.step), None)
+            assert loss is not None
+        return t, p, o
+
+    t, want_p, want_o = run(tmp_path / "a", 10)
+    t.finalize(want_p, want_o)
+    t, p, o = run(tmp_path / "b", 7)
+    t.ckpt.wait_until_finished()
     t.close()
+    t, p, o = run(tmp_path / "b", 10, start=6)
+    for (pa, a), (pb, b) in zip(integrity.flatten({"p": p, "o": o}),
+                                integrity.flatten({"p": want_p,
+                                                   "o": want_o})):
+        assert pa == pb and torch.equal(a, b), pa
+    before = {k: v.clone() for k, v in p.items()}
+    p, o, loss = t.fit_batch(p, o, _sharded_batch(10, nan=True), None)
+    assert loss is None and t.skipped == 1 and t.step == 11
+    assert all(torch.equal(before[k], p[k]) for k in p)
+    t.finalize(p, o)
+    assert t.ckpt.latest_step() == 11
+
+
+def test_sharded_mode_guardian_rollback_restores_in_place(tmp_path):
+    """A NaN window in sharded mode: the guarded step refuses the
+    updates, the ladder reaches ROLLBACK, and the newest verified
+    generation is written into the live tensors."""
+    from deeplearning4j_tpu_torch.parallel import ShardedTrainer
+    from deeplearning4j_tpu_torch.parallel.mesh import DeviceMesh
+
+    def loss_fn(p, batch, gen):
+        x = batch["x"]
+        return (torch.tanh(x @ p["W1"]) @ p["W2"]).pow(2).mean()
+
+    g = TrainingGuardian(check_every=1, warmup_steps=100, max_skips=1,
+                         max_lr_retries=0, max_rollbacks=2)
+    t = FaultTolerantTrainer(ShardedTrainer(loss_fn, Sgd(0.2),
+                                            DeviceMesh(dp=1)),
+                             tmp_path / "g", save_every=2, guardian=g)
+    p, o = t.resume_or_init_sharded(_sharded_params())
+    for step in range(8):
+        x = torch.as_tensor(_sharded_batch(step, nan=step in (4, 5))["x"])
+        p, o, _ = t.fit_batch(p, o, {"x": x}, None)
+    assert g.skipped >= 2 and g.rollbacks == 1
+    assert g.last_restored_step == 4
+    assert all(torch.isfinite(v).all() for v in p.values())
+    t.finalize(p, o)
+
+
+def test_elastic_trainer_resume_equals_uninterrupted(tmp_path):
+    """ElasticTrainer (the sharded trainer's checkpoint loop): a run
+    stopped after step 5 resumes from its step-4 save and ends where the
+    uninterrupted 8-step run ends, bit for bit."""
+    def run(directory, steps):
+        e = ElasticTrainer(_sharded(), directory, save_every=2)
+        p, o = e.resume_or_init(_sharded_params())
+        start = e.step_num
+        while e.step_num < steps:
+            p, o, _ = e.fit_batch(p, o, _sharded_batch(e.step_num), None)
+        return e, p, o, start
+
+    e, want, want_o, start = run(tmp_path / "a", 8)
+    assert start == 0
+    e.finalize(want, want_o)
+    e, p, o, _ = run(tmp_path / "b", 5)
+    e.ckpt.wait_until_finished()
+    e, p, o, start = run(tmp_path / "b", 8)
+    assert start == 4
+    for k in want:
+        assert torch.equal(p[k], want[k])
+    e.finalize(p, o)
 
 
 def test_graph_trainer_kill_resume_and_guarded_equal(tmp_path):

@@ -1,7 +1,8 @@
 """The port's parallel/ on two-axis meshes of four ranks against the JAX
 package on the CPU: the causal flash ring at sp=4 (diagonal, past and
 future blocks all occur), ShardedTrainer over dp × tp = 2 × 2 with
-column- and row-parallel weights stored as shards, and the long-context
+column- and row-parallel weights stored as shards (and its checkpoint
+resume under ElasticTrainer), and the long-context
 recipe of examples/long_context_bert.py (ring attention + remat + ZeRO-1
 over a dp × sp = 2 × 2 mesh) on bert_tiny for 3 steps. One module-scoped
 fixture spawns the four gloo ranks (tests/torch_parallel_ranks.py); the
@@ -17,7 +18,7 @@ import pytest
 
 import torch_parallel_ranks as R
 
-CASES = ["ring4_causal", "sharded_dp_tp", "recipe"]
+CASES = ["ring4_causal", "sharded_dp_tp", "sharded_dp_tp_resume", "recipe"]
 T_SP = 2
 
 
@@ -100,6 +101,17 @@ def test_sharded_trainer_dp_tp_matches_jax(ranks, devices8):
                                    atol=1e-5)
         np.testing.assert_allclose(r["W2"], W2[16 * t:16 * (t + 1)],
                                    atol=1e-5)
+
+
+def test_sharded_trainer_dp_tp_resume_equals_uninterrupted(ranks):
+    """ElasticTrainer over the dp × tp = 2 × 2 ShardedTrainer: process 0
+    saves the whole state (tp shards and their Adam moments gathered) and
+    every rank cuts its own block back out on resume, so the run stopped
+    after step 5 ends bit for bit where the uninterrupted run ends, on
+    every rank."""
+    for r in _ok(ranks, "sharded_dp_tp_resume"):
+        assert r["start"] == 4 and r["W1_shape"] == (8, 16)
+        assert r["leaves"] == len(r["equal"]) >= 7 and all(r["equal"])
 
 
 def test_long_context_recipe_matches_jax_example(ranks, devices8):

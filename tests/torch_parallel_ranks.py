@@ -192,6 +192,10 @@ def averaging_inputs():
 
 
 # -- the rank side -----------------------------------------------------------
+#: the directory the ranks share (checkpoints), set in each rank
+OUT_DIR = None
+
+
 def _t(a):
     import torch
     return torch.from_numpy(np.array(a))
@@ -633,6 +637,48 @@ def case_sharded_dp_tp(inputs):
             "spec": tuple(P(None, "tp"))}
 
 
+def case_sharded_dp_tp_resume(inputs):
+    """dp × tp = 2 × 2 under ElasticTrainer (four ranks): a run stopped
+    after step 5 resumes from its step-4 save, which process 0 wrote
+    whole, each rank taking its dp × tp block back, and ends where the
+    uninterrupted 6-step run ends: tp shards and Adam moments."""
+    import torch
+    from deeplearning4j_tpu_torch.nn import Adam
+    from deeplearning4j_tpu_torch.parallel import DeviceMesh, ShardedTrainer
+    from deeplearning4j_tpu_torch.parallel.elastic import ElasticTrainer
+    from deeplearning4j_tpu_torch.resilience import integrity
+    mesh = DeviceMesh(dp=2, tp=2)
+    params, x, y = sharded_inputs()
+    specs = {"W1": mesh.sharding(None, "tp"), "W2": mesh.sharding("tp", None)}
+
+    def loss_fn(p, batch, gen):
+        xb, yb = batch
+        h = torch.relu(xb @ p["W1"])
+        logp = torch.log_softmax(h @ p["W2"], -1)
+        return -(yb * logp).sum(-1).mean()
+
+    def run(directory, steps):
+        e = ElasticTrainer(ShardedTrainer(loss_fn, Adam(0.05), mesh, specs),
+                           directory, save_every=2)
+        p, s = e.resume_or_init(params)
+        start = e.step_num
+        batch = e.trainer.shard_batch((x, y))
+        while e.step_num < steps:
+            p, s, _ = e.fit_batch(p, s, batch, None)
+        e.ckpt.close()
+        return p, s, start
+
+    base = os.path.join(OUT_DIR, "dp_tp_resume")
+    want = run(base + "-clean", 6)
+    run(base + "-cut", 5)
+    p, s, start = run(base + "-cut", 6)
+    flat = integrity.flatten({"p": p, "s": s})
+    equal = [pa == pb and torch.equal(a, b) for (pa, a), (pb, b) in zip(
+        flat, integrity.flatten({"p": want[0], "s": want[1]}))]
+    return {"start": start, "equal": equal, "leaves": len(flat),
+            "W1_shape": tuple(p["W1"].shape)}
+
+
 def case_ring4_causal(inputs):
     """The causal flash ring at 4 ranks: diagonal, past and future blocks
     all occur."""
@@ -698,6 +744,8 @@ CASES = {name[5:]: fn for name, fn in globals().items()
 
 
 def _rank_main(rank, world, store_path, out_dir, cases, inputs_path):
+    global OUT_DIR
+    OUT_DIR = out_dir
     import torch
     import torch.distributed as dist
     torch.set_num_threads(1)
