@@ -16,6 +16,8 @@
     python3 chip_smoke.py --only quant    # card, build, quant
     python3 chip_smoke.py --only parallel  # card, build, parallel
     python3 chip_smoke.py --only multihost  # card, build, multihost
+    python3 chip_smoke.py --only keras    # card, build, keras
+    python3 chip_smoke.py --only samediff  # card, build, samediff
     python3 chip_smoke.py --profile  # and phase 14
 
 Phases, in order; any failure exits non-zero and prints no result:
@@ -193,7 +195,8 @@ Phases, in order; any failure exits non-zero and prints no result:
             with prefetch 0, graph with prefetch 2), the paged server's
             workload through its graphs, and three fine-tune steps,
             once more under torch.profiler: the card's busy and idle share
-            of the wall time, and device time by kernel group.
+            of the wall time, and device time by kernel group and by
+            category, decoded by the port's `optimize/xplane.py`.
 
 15. rnn:    recurrent and attention networks. TextGenerationLSTM at the
             zoo's width (77 classes, LSTM(256) × 2, 887,117 parameters),
@@ -411,6 +414,47 @@ Phases, in order; any failure exits non-zero and prints no result:
             MH_LOST_SLACK_S. Printed: ms per optimizer step (compressed, raw
             buckets), the coordinated save's seconds and bytes,
             encoder_stats, the overlap orders.
+22. keras:  Keras MobileNetV2 (keras.applications.MobileNetV2 at alpha
+            1.0, 224×224×3, 1000 classes: its Functional JSON built here
+            with Keras's layer names and settings, nothing downloaded)
+            imported by `KerasModelImport.importKerasModelAndWeights(json,
+            None)` with the conv1x1+BN fusion on: 3,538,984 parameters
+            (Keras's count) and 34 pairs; the BN statistics and γ/β drawn
+            from a seed. One B=32 forward through a bucket graph of
+            `ParallelInference` launches matmul_epilogue 34 times and
+            equals the unfused import's eager forward within KERAS_RTOL.
+            `profile_next_steps(3)` armed before the fresh import's first
+            `fit` at B=32: that step captures the step's graph with the
+            window shut (the session is still armed after it), the next
+            3 replay it (34 launches of each of B5, B7, B8 a step) inside
+            the window, and the fit store captured once, degraded
+            nothing and ran nothing eagerly; then 2 warm-up and 10 timed
+            graphed steps (ms/step). The session ends done over 3 steps,
+            its report (decoded by `optimize/xplane.py`) lists
+            matmul_stats_kernel, bn_grad_stats_kernel and
+            bn_conv_grads_kernel as custom-call rows whose counts equal
+            the launch counters (bn_conv_grads_sum_kernel's equals
+            bn_conv_grads'), and its device self time fits in its wall
+            time. `ProfilerListener` over one more step gives a report.
+            BERT-base's fine-tune step (phase 6's) under a session over
+            3 steps: flash_fwd, flash_bwd_dq and flash_bwd_dkv rows of 36
+            each. Printed: ms per step, the top 5 ops and the category
+            rollup of both; the reports land in chiprun_out/.
+23. samediff: a frozen TensorFlow BERT-base GraphDef written here with
+            the port's tfproto encoder from the seeded `bert_base()`
+            parameters (GatherV2 embeddings, layer norm as Mean /
+            SquaredDifference / Rsqrt, MatMul / BatchMatMulV2 / Softmax
+            under the additive mask, google-research BERT's tanh GELU,
+            the pooler and a classifier), B=8, T=128, ragged masks,
+            through `importFrozenTF` on the card: the last hidden states
+            of the valid tokens equal the port's flash encoder within
+            SAMEDIFF_RTOL; 3 `fit` steps (every weight a variable, Adam)
+            with finite losses; `save`, then `load_samediff` and
+            `ModelGuesser.loadModelGuess`, each giving outputs
+            bit-identical to the saved graph's. None of the nine kernels
+            launches on the SameDiff path (counted, checked zero).
+            Printed: the node count, ms per `output()` and per fit step,
+            the archive's bytes and seconds.
 
 Phases 5, 7 and 8 run as a user runs them: the server and `fit` replay
 CUDA graphs on the card by default. The kernels' launch counters are set
@@ -422,7 +466,9 @@ the launches its capture recorded. The mln phase and the rnn phase's LSTM
 paths run none of them: their counts are read and must stay 0. The zoo,
 layers, resilience and quant phases' counts are set to 0 before each of
 their paths, and the parallel and multihost phases' ranks set theirs to
-0 before each of theirs. Every
+0 before each of theirs; the keras phase's before its forward, its
+profiled steps, its timed steps and BERT's profiled steps, the samediff
+phase's before its import. Every
 number is measured in this run; the last lines are the kernel JSON object
 and the `{"ok": true, "device": ...}` line. Imports nothing of JAX.
 """
@@ -522,7 +568,12 @@ from deeplearning4j_tpu_torch.transfer import (FineTuneConfiguration,
                                                TransferLearning)
 from deeplearning4j_tpu_torch.ui import (InMemoryStatsStorage, StatsListener,
                                          UIServer)
+from deeplearning4j_tpu_torch.util.model_guesser import ModelGuesser
 from deeplearning4j_tpu_torch.util.model_serializer import ModelSerializer
+from deeplearning4j_tpu_torch.autodiff import TrainingConfig, importFrozenTF
+from deeplearning4j_tpu_torch.autodiff.graph_serde import load_samediff
+from deeplearning4j_tpu_torch.keras_import import KerasModelImport
+from deeplearning4j_tpu_torch.optimize import ProfilerListener, xplane
 from deeplearning4j_tpu_torch import monitoring as mon
 from deeplearning4j_tpu_torch.monitoring import events as ev
 from deeplearning4j_tpu_torch.monitoring import memory as _mem
@@ -934,6 +985,12 @@ ZOO_PAIR_SHAPES = {"irv1 stem3 B=32": ((51200, 64, 128),
                                          (torch.float32, torch.bfloat16)),
                    "nasnet N=44 B=8": ((100352, 132, 44),
                                        (torch.bfloat16,))}
+#: MobileNetV2's narrowest and widest conv1x1+BN pairs at 224×224, B=32
+#: (the keras phase's path), f32: (M, K, N)
+MOBILENET_PAIR_SHAPES = {"mnv2 expanded_conv_project": (401408, 32, 16),
+                         "mnv2 block_1_expand": (401408, 16, 96),
+                         "mnv2 block_16_project": (1568, 960, 320),
+                         "mnv2 Conv_1": (1568, 320, 1280)}
 #: ResNet-50's identity blocks at B=32: (B, H, W, C, M)
 BOTTLENECK_SHAPES = {"res2 B=32": (32, 56, 56, 256, 64),
                      "res3 B=32": (32, 28, 28, 512, 128),
@@ -1533,11 +1590,15 @@ def phase_kernels():
 
 
 def zoo_pair_cases():
-    """The four pair kernels at ZOO_PAIR_SHAPES: the epilogue GEMM (relu),
-    matmul_stats, bn_grad_stats and bn_conv_grads, each against its plain
-    version at the kernel rows' gates (10 timed calls each)."""
+    """The four pair kernels at ZOO_PAIR_SHAPES and, in f32, at
+    MOBILENET_PAIR_SHAPES: the epilogue GEMM (relu), matmul_stats,
+    bn_grad_stats and bn_conv_grads, each against its plain version at the
+    kernel rows' gates (10 timed calls each)."""
     cases = []
-    for label, ((m, k, n), dtypes) in ZOO_PAIR_SHAPES.items():
+    shapes = dict(ZOO_PAIR_SHAPES)
+    shapes.update({label: (shape, (torch.float32,))
+                   for label, shape in MOBILENET_PAIR_SHAPES.items()})
+    for label, ((m, k, n), dtypes) in shapes.items():
         for dtype in dtypes:
             cases.append((functools.partial(_epilogue_case, iters=10), label,
                           m, k, n, False, "relu", dtype))
@@ -4094,17 +4155,21 @@ SETTLE_CYCLES, MARKER_CYCLES = 20_000_000, 1000
 
 def _profiled(what, run, groups=KERNEL_GROUPS):
     """Run `run()` under torch.profiler: the card's busy and idle share of
-    the wall time, and device time by kernel group and by kernel name.
-    Returns (stats or None, what `run` returned). `groups`: (kernel-name
-    substring, group) pairs, the first match naming a kernel's group. Only
-    the card's activity
-    is traced, and its raw events are read without building the
-    profiler's event tree: host operator events would slow the host loop
-    that the idle share measures, and the tree takes longer to build than
-    the run itself."""
+    the wall time, and device time by kernel name, by category and by
+    kernel group, decoded by the port's own trace reader
+    (`optimize/xplane.py`: `op_table`, `category_rollup`). Returns (stats
+    or None, what `run` returned). `groups`: (kernel-name substring,
+    group) pairs, the first match naming a kernel's group. Only the card's
+    activity is traced, and its raw events go to the decoder as Kineto's
+    trace events without building the profiler's event tree: host
+    operator events would slow the host loop that the idle share
+    measures, and the tree takes longer to build than the run itself."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    if torch._C._autograd._profiler_enabled():
+        raise AssertionError(f"{what}: another torch.profiler window is "
+                             "open (a ProfileSession's?)")
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for cycles in (SETTLE_CYCLES, MARKER_CYCLES):
             torch.cuda._sleep(cycles)
@@ -4114,11 +4179,12 @@ def _profiled(what, run, groups=KERNEL_GROUPS):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
         t1 = time.perf_counter()
-    # (name, start µs, duration µs) of every kernel, copy and fill
-    kern = [(e.name(), e.start_ns() / 1e3, e.duration_ns() / 1e3)
+    # (name, start µs, duration µs, stream) of every kernel, copy and fill
+    kern = [(e.name(), e.start_ns() / 1e3, e.duration_ns() / 1e3,
+             getattr(e, "device_resource_id", lambda: 0)())
             for e in prof.profiler.kineto_results.events()
             if e.device_type() == DeviceType.CUDA]
-    marks = [s + dur for name, s, dur in kern if "spin_kernel" in name]
+    marks = [s + dur for name, s, dur, _ in kern if "spin_kernel" in name]
     if marks:
         kern = [k for k in kern if k[1] >= max(marks)]
     else:
@@ -4130,29 +4196,40 @@ def _profiled(what, run, groups=KERNEL_GROUPS):
         log(f"[profile] {what}: torch.profiler recorded no device kernels: "
             "device time not measured")
         return None, ret
-    busy = _busy_us([(s, s + dur) for _, s, dur in kern])
-    by_name, by_group = {}, {}
-    for name, _, dur in kern:
-        n, t = by_name.get(name, (0, 0.0))
-        by_name[name] = (n + 1, t + dur)
-        low = name.lower()
+    busy = _busy_us([(s, s + dur) for _, s, dur, _ in kern])
+    events = [{"ph": "M", "name": "process_name", "pid": 0,
+               "args": {"name": "GPU 0"}}]
+    events += [{"ph": "X", "cat": "kernel", "name": name, "pid": 0,
+                "tid": stream, "ts": start, "dur": dur}
+               for name, start, dur, stream in kern]
+    lines = [line for plane in xplane.planes_from_trace_events(
+        events, with_stats=True, plane_substr="GPU")
+        for line in plane["lines"]]
+    rows = xplane.op_table(None, lines=lines)
+    by_group = {}
+    for r in rows:
+        low = r["name"].lower()
         group = next((g for sub, g in groups if sub in low), "other")
         n, t = by_group.get(group, (0, 0.0))
-        by_group[group] = (n + 1, t + dur)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
+        by_group[group] = (n + r["count"], t + r["self_ms"])
     out = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
            "idle_share": 1.0 - busy / wall_us, "kernels": len(kern),
-           "groups": {g: {"count": n, "ms": t / 1e3}
+           "groups": {g: {"count": n, "ms": t}
                       for g, (n, t) in sorted(by_group.items(),
                                               key=lambda kv: -kv[1][1])},
-           "top": [{"name": n[:120], "count": c, "ms": t / 1e3}
-                   for n, (c, t) in top]}
+           "categories": xplane.category_rollup(rows),
+           "top": [{"name": r["name"][:120], "count": r["count"],
+                    "ms": r["self_ms"], "category": r["category"]}
+                   for r in rows[:15]]}
     log(f"[profile] {what} under torch.profiler: wall {out['wall_ms']:.1f} "
         f"ms, card busy {out['device_busy_ms']:.1f} ms, idle share "
         f"{out['idle_share']:.4f}; {len(kern)} kernels")
     for g, d in out["groups"].items():
         log(f"[profile]   {g:<18} {d['count']:>7} kernels "
             f"{d['ms']:>10.3f} ms")
+    for c in out["categories"]:
+        log(f"[profile]   category {c['category']:<12} {c['count']:>7} "
+            f"{c['self_ms']:>10.3f} ms {c['pct']:5.1f}%")
     return out, ret
 
 
@@ -8307,6 +8384,696 @@ def kernel_line(rows, launches, launches_from):
     return {"kernels": out}
 
 
+# -- phase 22: keras --------------------------------------------------------------
+#: Keras MobileNetV2 (Sandler et al., 2018; keras.applications.MobileNetV2:
+#: alpha 1.0, 224×224×3, 1000 classes), imported with the conv1x1+BN
+#: fusion on: one B=32 forward through the bucket graph, then profiled,
+#: warm-up and timed graphed fit steps at B=32
+KERAS = dict(alpha=1.0, size=224, classes=1000, batch=32, warmup=2, timed=10,
+             steps=3, seed=23, pairs=34, bert_steps=3)
+#: fused vs unfused MobileNetV2 forward on the card: max |fused - unfused|
+#: <= KERAS_RTOL * max |unfused| (f32 sums in another order)
+KERAS_RTOL = 1e-4
+#: Keras's parameter count of the model (trainable 3,504,872 and the BN
+#: moving statistics 34,112)
+MOBILENET_V2_PARAMS = 3_538_984
+#: MobileNetV2's inverted residual blocks: (expansion, filters, stride)
+MOBILENET_V2_BLOCKS = ((1, 16, 1), (6, 24, 2), (6, 24, 1), (6, 32, 2),
+                       (6, 32, 1), (6, 32, 1), (6, 64, 2), (6, 64, 1),
+                       (6, 64, 1), (6, 64, 1), (6, 96, 1), (6, 96, 1),
+                       (6, 96, 1), (6, 160, 2), (6, 160, 1), (6, 160, 1),
+                       (6, 320, 1))
+#: the profiled kernels of a fused training step and their wrappers
+PROFILED_TRAIN = (("matmul_stats_kernel", "matmul_stats"),
+                  ("bn_grad_stats_kernel", "bn_grad_stats"),
+                  ("bn_conv_grads_kernel", "bn_conv_grads"))
+PROFILED_BERT = (("flash_fwd_kernel", "flash_fwd"),
+                 ("flash_bwd_dq_kernel", "flash_bwd_dq"),
+                 ("flash_bwd_dkv_kernel", "flash_bwd_dkv"))
+KERAS_DIR = Path(__file__).resolve().parent / "build" / "keras"
+
+
+def _make_divisible(v, divisor=8):
+    """keras.applications.mobilenet_v2's channel rounding."""
+    new_v = max(divisor, int(v + divisor / 2) // divisor * divisor)
+    if new_v < 0.9 * v:
+        new_v += divisor
+    return new_v
+
+
+def keras_mobilenet_v2(alpha=1.0, size=224, classes=1000, blocks=None):
+    """The Functional JSON (a dict) that Keras writes for
+    `keras.applications.MobileNetV2(alpha, input_shape=(size, size, 3),
+    classes=classes, weights=None)`: its layer names and settings —
+    `ReLU(6.)`, `DepthwiseConv2D`, `ZeroPadding2D` with `correct_pad`,
+    `BatchNormalization(epsilon=1e-3, momentum=0.999)`, 1×1
+    `Conv2D(use_bias=False)`. `blocks` keeps the first inverted residual
+    blocks only (a narrow test model)."""
+    init = {"class_name": "GlorotUniform", "config": {"seed": None}}
+    layers = []
+
+    def add(cls, name, cfg, inbound):
+        layers.append({"class_name": cls, "name": name,
+                       "config": dict(cfg, name=name, trainable=True),
+                       "inbound_nodes": ([[[i, 0, 0, {}] for i in inbound]]
+                                         if inbound else [])})
+        return name
+
+    def conv(name, x, filters, k, stride=1):
+        return add("Conv2D", name, {
+            "filters": filters, "kernel_size": [k, k],
+            "strides": [stride, stride], "padding": "same",
+            "data_format": "channels_last", "dilation_rate": [1, 1],
+            "groups": 1, "activation": "linear", "use_bias": False,
+            "kernel_initializer": init}, [x])
+
+    def bn(name, x):
+        return add("BatchNormalization", name, {
+            "axis": -1, "momentum": 0.999, "epsilon": 1e-3, "center": True,
+            "scale": True}, [x])
+
+    def relu6(name, x):
+        return add("ReLU", name, {"max_value": 6.0, "negative_slope": 0.0,
+                                  "threshold": 0.0}, [x])
+
+    x = add("InputLayer", "input_1", {
+        "batch_input_shape": [None, size, size, 3], "dtype": "float32",
+        "sparse": False, "ragged": False}, [])
+    hw, ch = -(-size // 2), _make_divisible(32 * alpha, 8)
+    x = relu6("Conv1_relu", bn("bn_Conv1", conv("Conv1", x, ch, 3, 2)))
+    for i, (t, c, s) in enumerate(MOBILENET_V2_BLOCKS[:blocks]):
+        inp, out_ch = x, _make_divisible(int(c * alpha), 8)
+        prefix = f"block_{i}_" if i else "expanded_conv_"
+        if i:
+            x = relu6(prefix + "expand_relu", bn(
+                prefix + "expand_BN", conv(prefix + "expand", x, t * ch, 1)))
+        if s == 2:
+            adj = 1 - hw % 2        # imagenet_utils.correct_pad
+            x = add("ZeroPadding2D", prefix + "pad", {
+                "padding": [[1 - adj, 1], [1 - adj, 1]],
+                "data_format": "channels_last"}, [x])
+            hw = (hw + 2 - adj - 3) // 2 + 1
+        x = add("DepthwiseConv2D", prefix + "depthwise", {
+            "kernel_size": [3, 3], "strides": [s, s],
+            "padding": "same" if s == 1 else "valid", "depth_multiplier": 1,
+            "data_format": "channels_last", "dilation_rate": [1, 1],
+            "activation": "linear", "use_bias": False,
+            "depthwise_initializer": init}, [x])
+        x = relu6(prefix + "depthwise_relu", bn(prefix + "depthwise_BN", x))
+        x = bn(prefix + "project_BN", conv(prefix + "project", x, out_ch, 1))
+        if ch == out_ch and s == 1:
+            x = add("Add", prefix + "add", {}, [inp, x])
+        ch = out_ch
+    last = _make_divisible(1280 * alpha, 8) if alpha > 1.0 else 1280
+    x = relu6("out_relu", bn("Conv_1_bn", conv("Conv_1", x, last, 1)))
+    x = add("GlobalAveragePooling2D", "global_average_pooling2d", {
+        "data_format": "channels_last", "keepdims": False}, [x])
+    add("Dense", "predictions", {
+        "units": classes, "activation": "softmax", "use_bias": True,
+        "kernel_initializer": init,
+        "bias_initializer": {"class_name": "Zeros", "config": {}}}, [x])
+    return {"class_name": "Functional", "keras_version": "2.13.1",
+            "backend": "tensorflow",
+            "config": {"name": f"mobilenetv2_{alpha:.2f}_{size}",
+                       "layers": layers,
+                       "input_layers": [["input_1", 0, 0]],
+                       "output_layers": [["predictions", 0, 0]]}}
+
+
+def mobilenet_v2_pairs(blocks=None):
+    """The conv1x1+BN pairs the fusion finds: every expand conv (not block
+    0's), every project conv and Conv_1."""
+    n = len(MOBILENET_V2_BLOCKS[:blocks])
+    return (n - 1) + n + 1
+
+
+def _keras_batch(b, size, classes, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, size, size, 3)).astype(np.float32)
+    y = np.eye(classes, dtype=np.float32)[rng.integers(0, classes, b)]
+    return DataSet(x, y)
+
+
+def _report_kernels(report):
+    """{kernel base name: (count, {categories})} over a profile report's
+    rows of the port's own kernels."""
+    out = {}
+    for r in report["ops"]:
+        base = xplane.kernel_base_name(r["name"])
+        if base in xplane.port_kernel_names():
+            n, cats = out.get(base, (0, set()))
+            out[base] = (n + r["count"], cats | {r["category"]})
+    return out
+
+
+def _profile_check(what, session, steps, launches, pairs):
+    """The session ended done over `steps` steps; each (kernel, wrapper)
+    of `pairs` has a custom-call row whose count equals the wrapper's
+    launch counter; the device self time fits in the wall time."""
+    if session.state != "done":
+        raise AssertionError(f"{what}: the profile session ended "
+                             f"{session.state}: {session.error}")
+    rep = session.report
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / f"profile_{re.sub(r'[^a-z0-9]+', '_', what.lower())}.json") \
+        .write_text(json.dumps(rep, indent=1, default=str))
+    if session.captured_steps != steps or rep["steps"] != steps:
+        raise AssertionError(f"{what}: {session.captured_steps} steps "
+                             f"captured, expected {steps}")
+    rows = _report_kernels(rep)
+    bad = []
+    for kernel, wrapper in pairs:
+        n, cats = rows.get(kernel, (0, set()))
+        if n != launches[wrapper] or cats != {"custom-call"}:
+            bad.append(f"{kernel}: {n} rows {sorted(cats)}, "
+                       f"{launches[wrapper]} launches")
+    for kernel, (n, cats) in rows.items():
+        if cats != {"custom-call"}:
+            bad.append(f"{kernel}: categories {sorted(cats)}")
+    if "bn_conv_grads_sum_kernel" in rows:
+        # bn_conv_grads' split-K partial sums: one launch per call
+        n = rows["bn_conv_grads_sum_kernel"][0]
+        if n != launches["bn_conv_grads"]:
+            bad.append(f"bn_conv_grads_sum_kernel: {n} rows, "
+                       f"{launches['bn_conv_grads']} bn_conv_grads calls")
+    if not rep["device_self_ms"] <= rep["wall_ms"]:
+        bad.append(f"device self {rep['device_self_ms']:.3f} ms > wall "
+                   f"{rep['wall_ms']:.3f} ms")
+    if bad:
+        raise AssertionError(f"{what}: the profile disagrees: {bad}")
+    log(f"[keras] {what} profile: {steps} steps, wall "
+        f"{rep['wall_ms']:.3f} ms ({rep['wall_ms'] / steps:.3f} ms/step), "
+        f"device self {rep['device_self_ms']:.3f} ms, {rep['op_count']} "
+        f"ops; port kernels " + ", ".join(
+            f"{k} x{n}" for k, (n, _) in sorted(rows.items())))
+    for r in rep["ops"][:5]:
+        log(f"[keras]   {r['self_ms']:10.3f} ms x{r['count']:<6} "
+            f"{r['category']:<12} {r['name'][:90]}")
+    for c in rep["categories"]:
+        log(f"[keras]   category {c['category']:<12} {c['self_ms']:10.3f} "
+            f"ms x{c['count']:<6} {c['pct']:5.1f}%")
+    return {"steps": steps, "wall_ms": rep["wall_ms"],
+            "device_self_ms": rep["device_self_ms"],
+            "op_count": rep["op_count"],
+            "kernels": {k: n for k, (n, _) in rows.items()},
+            "top": [{"name": r["name"][:120], "self_ms": r["self_ms"],
+                     "count": r["count"], "category": r["category"]}
+                    for r in rep["ops"][:5]],
+            "categories": rep["categories"]}
+
+
+def _keras_nets():
+    """(fused, unfused) MobileNetV2 imported from the Keras JSON on the
+    card, the fused one's BN draws copied into the unfused one."""
+    js = json.dumps(keras_mobilenet_v2(KERAS["alpha"], KERAS["size"],
+                                       KERAS["classes"]))
+    with _fusion(True):
+        net = KerasModelImport.importKerasModelAndWeights(js, None)
+    _perturb_bn(net, KERAS["seed"])
+    with _fusion(False):
+        plain = KerasModelImport.importKerasModelAndWeights(js, None)
+    with torch.no_grad():
+        for tree_a, tree_b in ((net._params, plain._params),
+                               (net._state, plain._state)):
+            for n, d in tree_a.items():
+                for k, t in d.items():
+                    tree_b[n][k].copy_(t)
+    n_params = sum(t.numel() for tree in (net._params, net._state)
+                   for d in tree.values() for t in d.values())
+    pairs = len(net._fused_pairs)
+    log(f"[keras] MobileNetV2 alpha {KERAS['alpha']} {KERAS['size']}x"
+        f"{KERAS['size']}x3 {KERAS['classes']} classes imported from "
+        f"Keras JSON ({len(json.loads(js)['config']['layers'])} layers): "
+        f"{n_params:,} parameters and BN statistics; "
+        f"find_conv1x1_bn_fusions: {pairs} pairs")
+    if pairs != KERAS["pairs"] or plain._fused_pairs:
+        raise AssertionError(f"keras: {pairs} fused pairs (expected "
+                             f"{KERAS['pairs']}), "
+                             f"{len(plain._fused_pairs)} unfused")
+    if n_params != MOBILENET_V2_PARAMS:
+        raise AssertionError(f"keras: {n_params} parameters, Keras counts "
+                             f"{MOBILENET_V2_PARAMS}")
+    return net, plain, n_params
+
+
+def _keras_serve(net, plain, x):
+    """One B=32 forward through the fused net's bucket graph against the
+    unfused net's eager forward; B6 launches once per pair."""
+    pi = (ParallelInference.Builder(net)
+          .inferenceMode(InferenceMode.BATCHED).batchLimit(KERAS["batch"])
+          .bucketLadder([KERAS["batch"]]).build())
+    try:
+        pi.warmup()
+        _reset_counts()
+        got = pi.output(x)
+        launches = _counts()["matmul_epilogue"]
+        st = pi.status()
+    finally:
+        pi.shutdown()
+    want = plain.output(torch.as_tensor(x, device=DEV)).cpu().numpy()
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    fused_ms = time_ms(lambda: net.output(torch.as_tensor(x, device=DEV)),
+                       iters=5)
+    plain_ms = time_ms(lambda: plain.output(torch.as_tensor(x, device=DEV)),
+                       iters=5)
+    log(f"[keras] one B={KERAS['batch']} forward through the bucket graph: "
+        f"{launches} matmul_epilogue launches ({KERAS['pairs']} pairs); "
+        f"max|fused - unfused| / max|unfused| = {err:.3e} (rtol "
+        f"{KERAS_RTOL:.0e}); eager output() fused {fused_ms:.3f} ms, "
+        f"unfused {plain_ms:.3f} ms; top-1 equal on "
+        f"{int((got.argmax(1) == want.argmax(1)).sum())}/{len(x)}")
+    if launches != KERAS["pairs"]:
+        raise AssertionError(f"keras: the fused forward launched "
+                             f"matmul_epilogue {launches} times, expected "
+                             f"{KERAS['pairs']}")
+    if not err <= KERAS_RTOL:
+        raise AssertionError(f"keras: fused forward differs from unfused "
+                             f"by {err:.3e}")
+    if st["aot_fallbacks"] or st["model_calls"] != 1:
+        raise AssertionError(f"keras: the bucket graph did not serve: {st}")
+    return {"launches": launches, "rel_err": err, "fused_ms": fused_ms,
+            "unfused_ms": plain_ms}
+
+
+def _keras_steps(net, ds, steps):
+    """`steps` graphed fit steps: (ms per step, losses, launches)."""
+    _reset_counts()
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        net.fit(ds)
+        losses.append(net._score.detach().clone())
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    launches = _counts()
+    losses = [float(v) for v in losses]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"keras: a loss is not finite: {losses}")
+    want = {w: steps * KERAS["pairs"] for _, w in PROFILED_TRAIN}
+    got = {w: launches[w] for _, w in PROFILED_TRAIN}
+    if got != want:
+        raise AssertionError(f"keras: training launches {got}, expected "
+                             f"{want}")
+    return ms, losses, launches
+
+
+def _keras_train(net, ds):
+    """A ProfileSession armed before the fresh import's first fit: that
+    step captures the step's graph with the window still shut, and the
+    window covers the next KERAS["steps"] replays. Then warm-up and
+    KERAS["timed"] timed graphed fit steps, and ProfilerListener over one
+    more step."""
+    session = mon.profile_next_steps(KERAS["steps"], top=1_000_000)
+    net.fit(ds)
+    first = net.fit_status()
+    if session.state != "armed" or first["captures"] != 1:
+        raise AssertionError(f"keras: the first fit (the capture) left the "
+                             f"session {session.state}: {first}")
+    prof_ms, prof_losses, launches = _keras_steps(net, ds, KERAS["steps"])
+    prof = _profile_check("MobileNetV2 training", session, KERAS["steps"],
+                          launches, PROFILED_TRAIN)
+    for _ in range(KERAS["warmup"]):
+        net.fit(ds)
+    ms, losses, _ = _keras_steps(net, ds, KERAS["timed"])
+    st = net.fit_status()
+    log(f"[keras] graphed fit at B={KERAS['batch']}: {ms:.3f} ms/step over "
+        f"{KERAS['timed']} steps ({KERAS['batch'] * 1e3 / ms:.1f} images/s),"
+        f" {prof_ms:.3f} ms/step over {KERAS['steps']} under the profile "
+        f"armed before the first fit (its start, stop, export and decode "
+        f"included); losses {[round(v, 4) for v in prof_losses + losses]}; "
+        f"launches under the profile {launches}; captures "
+        f"{st['captures']}, replays {st['replays']}, eager calls "
+        f"{st['eager_calls']}")
+    if st["captures"] != 1 or st["eager_calls"] or st["degradations"]:
+        raise AssertionError(f"keras: the fit store did not replay one "
+                             f"graph: {st}")
+    KERAS_DIR.mkdir(parents=True, exist_ok=True)
+    listener = ProfilerListener(trace_dir=str(KERAS_DIR / "listener"),
+                                start_iter=net.getIterationCount() + 1,
+                                trace_iters=1)
+    net.setListeners(listener)
+    try:
+        net.fit(ds)
+        net.fit(ds)
+    finally:
+        net.setListeners()
+        shutil.rmtree(KERAS_DIR / "listener", ignore_errors=True)
+    rep = listener.report
+    if rep is None or rep["steps"] != 1 or not rep["op_count"]:
+        raise AssertionError(f"keras: ProfilerListener gave no report: "
+                             f"{rep}")
+    log(f"[keras] ProfilerListener over one more step: "
+        f"{rep['op_count']} ops, device self {rep['device_self_ms']:.3f} "
+        f"ms, wall {rep['wall_ms']:.3f} ms")
+    return {"ms_per_step": ms, "images_per_s": KERAS["batch"] * 1e3 / ms,
+            "profiled_ms_per_step": prof_ms,
+            "losses": prof_losses + losses, "launches": launches,
+            "profile": prof,
+            "listener": {"op_count": rep["op_count"],
+                         "device_self_ms": rep["device_self_ms"],
+                         "wall_ms": rep["wall_ms"]}}
+
+
+def _keras_bert_profile(cfg, params):
+    """Three BERT-base fine-tune steps of the train phase's model under a
+    ProfileSession, driven through its step hooks."""
+    batch = _train_batch(cfg)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    step = _trainer(cfg, params, batch, gen)
+    step()
+    step()
+    torch.cuda.synchronize()
+    n = KERAS["bert_steps"]
+    session = mon.profile_next_steps(n, top=1_000_000)
+    _reset_counts()
+    for _ in range(n):
+        session.step_start()
+        step()
+        session.step_end()
+    launches = _counts()
+    want = {w: n * cfg.num_layers for _, w in PROFILED_BERT}
+    got = {w: launches[w] for _, w in PROFILED_BERT}
+    if got != want:
+        raise AssertionError(f"keras: BERT launches {got}, expected {want}")
+    return _profile_check("BERT-base fine-tune", session, n, launches,
+                          PROFILED_BERT)
+
+
+def phase_keras(cfg, params):
+    """Keras MobileNetV2 imported, served and trained on the card under the
+    profiler, and BERT-base's fine-tune steps profiled."""
+    net, plain, n_params = _keras_nets()
+    ds = _keras_batch(KERAS["batch"], KERAS["size"], KERAS["classes"],
+                      KERAS["seed"])
+    serve = _keras_serve(net, plain, ds.features)
+    del plain
+    train = _keras_train(net, ds)
+    bert = _keras_bert_profile(cfg, params)
+    del net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"params": n_params, "pairs": KERAS["pairs"], "serve": serve,
+            "train": train, "bert_profile": bert,
+            "launches": train["launches"],
+            "launches_bert": {w: bert["kernels"].get(k, 0)
+                              for k, w in PROFILED_BERT}}
+
+
+# -- phase 23: samediff -----------------------------------------------------------
+#: a frozen BERT-base GraphDef (the port's bert_base() weights, seeded)
+#: imported into SameDiff: B=8, T=128, ragged input masks; 3 fit steps of
+#: a classification head
+SAMEDIFF = dict(batch=8, seq=128, steps=3, lr=1e-5, seed=29)
+#: imported graph vs the port's encoder (flash attention, B1): max |diff|
+#: <= SAMEDIFF_RTOL * max |encoder| over the last hidden states of the
+#: valid (unpadded) tokens
+SAMEDIFF_RTOL = 1e-4
+SAMEDIFF_DIR = Path(__file__).resolve().parent / "build" / "samediff"
+SEQUENCE_OUTPUT = "bert/encoder/sequence_output"
+
+
+def frozen_bert_graphdef(cfg, params, batch, seq, gelu="tanh"):
+    """A frozen TensorFlow BERT GraphDef (bytes, written with the port's
+    tfproto encoder) of `params` (the port's parameter tree): BERT's own
+    ops — GatherV2 embeddings, layer norm as Mean / SquaredDifference /
+    Rsqrt, MatMul / BatchMatMulV2 / Softmax attention under the additive
+    mask (1 - mask) * -10000, GELU as google-research BERT's modeling.py
+    writes it (`gelu="tanh"`: 0.5x(1 + tanh(√(2/π)(x + 0.044715x³)))) or
+    as the erf form (`gelu="erf"`) — then the pooler and classifier
+    ("logits"). Placeholders: input_ids, token_type_ids (int32, (B, T)),
+    input_mask (f32, (B, T)); the last hidden states are
+    "bert/encoder/sequence_output"."""
+    from deeplearning4j_tpu_torch.autodiff import tfproto
+    from deeplearning4j_tpu_torch.models.convert import params_to_numpy
+    P = params_to_numpy(params)
+    H, nh, hd = cfg.hidden_size, cfg.num_heads, cfg.head_dim
+    B, T = batch, seq
+    nodes = []
+
+    def op(name, kind, ins, **attrs):
+        nodes.append((name, kind, list(ins), attrs))
+        return name
+
+    def const(name, value):
+        v = np.asarray(value)
+        if v.dtype == np.float64:
+            v = v.astype(np.float32)
+        return op(name, "Const", [], value=v)
+
+    def ints(name, values):
+        return const(name, np.asarray(values, np.int32))
+
+    def dense(name, x, w, b):
+        return op(name + "/BiasAdd", "BiasAdd", [
+            op(name + "/MatMul", "MatMul", [x, const(name + "/kernel", w)]),
+            const(name + "/bias", b)])
+
+    axes = ints("bert/last_axis", [-1])
+    eps = const("bert/ln_eps", np.float32(cfg.layer_norm_eps))
+
+    def layer_norm(name, x, gamma, beta):
+        mu = op(name + "/moments/mean", "Mean", [x, axes], keep_dims=True)
+        d = op(name + "/moments/SquaredDifference", "SquaredDifference",
+               [x, mu])
+        var = op(name + "/moments/variance", "Mean", [d, axes],
+                 keep_dims=True)
+        rstd = op(name + "/batchnorm/Rsqrt", "Rsqrt", [
+            op(name + "/batchnorm/add", "AddV2", [var, eps])])
+        nrm = op(name + "/batchnorm/mul", "Mul", [
+            op(name + "/batchnorm/sub", "Sub", [x, mu]), rstd])
+        scl = op(name + "/batchnorm/mul_1", "Mul",
+                 [nrm, const(name + "/gamma", gamma)])
+        return op(name + "/batchnorm/add_1", "AddV2",
+                  [scl, const(name + "/beta", beta)])
+
+    def gelu_of(name, x):
+        half = const(name + "/half", np.float32(0.5))
+        one = const(name + "/one", np.float32(1.0))
+        if gelu == "erf":
+            e = op(name + "/Erf", "Erf", [op(name + "/truediv", "Mul", [
+                x, const(name + "/rsqrt2", np.float32(1 / np.sqrt(2)))])])
+            cdf = op(name + "/mul", "Mul", [half, op(
+                name + "/add", "AddV2", [one, e])])
+        else:
+            cube = op(name + "/Pow", "Pow",
+                      [x, const(name + "/three", np.float32(3.0))])
+            inner = op(name + "/add", "AddV2", [x, op(
+                name + "/mul", "Mul",
+                [const(name + "/c", np.float32(0.044715)), cube])])
+            t = op(name + "/Tanh", "Tanh", [op(name + "/mul_1", "Mul", [
+                const(name + "/sqrt_2_pi", np.float32(np.sqrt(2 / np.pi))),
+                inner])])
+            cdf = op(name + "/mul_2", "Mul", [half, op(
+                name + "/add_1", "AddV2", [one, t])])
+        return op(name + "/mul_3", "Mul", [x, cdf])
+
+    ids = op("input_ids", "Placeholder", [])
+    tts = op("token_type_ids", "Placeholder", [])
+    mask = op("input_mask", "Placeholder", [])
+    zero = ints("bert/axis0", 0)
+    emb = P["embeddings"]
+    x = op("bert/embeddings/GatherV2", "GatherV2", [
+        const("bert/embeddings/word_embeddings", emb["word"]), ids, zero])
+    tok = op("bert/embeddings/GatherV2_1", "GatherV2", [
+        const("bert/embeddings/token_type_embeddings", emb["token_type"]),
+        tts, zero])
+    pos = op("bert/embeddings/position_slice", "StridedSlice", [
+        const("bert/embeddings/position_embeddings", emb["position"]),
+        ints("bert/embeddings/begin", [0, 0]),
+        ints("bert/embeddings/end", [T, 0]),
+        ints("bert/embeddings/strides", [1, 1])], end_mask=2)
+    x = op("bert/embeddings/add_1", "AddV2", [
+        op("bert/embeddings/add", "AddV2", [x, tok]), pos])
+    x = layer_norm("bert/embeddings/LayerNorm", x, emb["ln_scale"],
+                   emb["ln_bias"])
+    x = op("bert/encoder/Reshape", "Reshape",
+           [x, ints("bert/encoder/shape_2d", [B * T, H])])
+    m4 = op("bert/encoder/mask4d", "Reshape",
+            [mask, ints("bert/encoder/shape_mask", [B, 1, 1, T])])
+    adder = op("bert/encoder/mul", "Mul", [
+        op("bert/encoder/sub", "Sub",
+           [const("bert/encoder/one", np.float32(1.0)), m4]),
+        const("bert/encoder/neg", np.float32(-10000.0))])
+    heads = ints("bert/encoder/shape_heads", [B, T, nh, hd])
+    perm = ints("bert/encoder/perm", [0, 2, 1, 3])
+    scale = const("bert/encoder/scale", np.float32(1.0 / np.sqrt(hd)))
+    for li, L in enumerate(P["layers"]):
+        pre = f"bert/encoder/layer_{li}/"
+
+        def split_heads(name, t):
+            return op(pre + name + "/transpose", "Transpose", [
+                op(pre + name + "/reshape", "Reshape", [t, heads]), perm])
+
+        qkv = {}
+        for j, nm in enumerate(("query", "key", "value")):
+            qkv[nm] = split_heads(f"attention/self/{nm}", dense(
+                pre + f"attention/self/{nm}", x,
+                L["qkv_W"][:, j * H:(j + 1) * H],
+                L["qkv_b"][j * H:(j + 1) * H]))
+        s = op(pre + "attention/self/MatMul", "BatchMatMulV2",
+               [qkv["query"], qkv["key"]], adj_y=True)
+        s = op(pre + "attention/self/add", "AddV2", [
+            op(pre + "attention/self/Mul", "Mul", [s, scale]), adder])
+        p = op(pre + "attention/self/Softmax", "Softmax", [s])
+        c = op(pre + "attention/self/MatMul_1", "BatchMatMulV2",
+               [p, qkv["value"]])
+        c = op(pre + "attention/self/Reshape_3", "Reshape", [
+            op(pre + "attention/self/transpose_3", "Transpose", [c, perm]),
+            ints(pre + "attention/self/shape_2d", [B * T, H])])
+        a = dense(pre + "attention/output/dense", c, L["proj_W"],
+                  L["proj_b"])
+        x = layer_norm(pre + "attention/output/LayerNorm",
+                       op(pre + "attention/output/add", "AddV2", [a, x]),
+                       L["ln1_scale"], L["ln1_bias"])
+        h = gelu_of(pre + "intermediate/gelu", dense(
+            pre + "intermediate/dense", x, L["ffn"]["up_W"],
+            L["ffn"]["up_b"]))
+        f = dense(pre + "output/dense", h, L["ffn"]["down_W"],
+                  L["ffn"]["down_b"])
+        x = layer_norm(pre + "output/LayerNorm",
+                       op(pre + "output/add", "AddV2", [f, x]),
+                       L["ln2_scale"], L["ln2_bias"])
+    seq_out = op(SEQUENCE_OUTPUT, "Reshape",
+                 [x, ints("bert/encoder/shape_3d", [B, T, H])])
+    cls = op("bert/pooler/strided_slice", "StridedSlice", [
+        seq_out, ints("bert/pooler/begin", [0, 0, 0]),
+        ints("bert/pooler/end", [0, 1, 0]),
+        ints("bert/pooler/strides", [1, 1, 1])],
+        begin_mask=5, end_mask=5, shrink_axis_mask=2)
+    pooled = op("bert/pooler/dense/Tanh", "Tanh", [dense(
+        "bert/pooler/dense", cls, P["pooler"]["W"], P["pooler"]["b"])])
+    dense("output", pooled, P["classifier"]["W"], P["classifier"]["b"])
+    nodes.append(("logits", "Identity", ["output/BiasAdd"], {}))
+    return tfproto.encode_graphdef(nodes)
+
+
+def _samediff_inputs(cfg):
+    rng = np.random.default_rng(SAMEDIFF["seed"])
+    b, t = SAMEDIFF["batch"], SAMEDIFF["seq"]
+    lens = rng.integers(t // 2, t + 1, b)
+    lens[0] = t
+    mask = (np.arange(t)[None, :] < lens[:, None]).astype(np.float32)
+    return {"input_ids": rng.integers(0, cfg.vocab_size, (b, t))
+            .astype(np.int32),
+            "token_type_ids": np.zeros((b, t), np.int32),
+            "input_mask": mask,
+            "labels": np.eye(cfg.num_labels, dtype=np.float32)[
+                rng.integers(0, cfg.num_labels, b)]}
+
+
+def phase_samediff(cfg, params):
+    """A frozen BERT-base GraphDef through importFrozenTF on the card,
+    against the port's encoder; 3 fit steps of a classification head; the
+    archive saved and reloaded (load_samediff and ModelGuesser) with
+    bit-identical outputs. None of the nine kernels launches."""
+    inputs = _samediff_inputs(cfg)
+    feeds = {k: inputs[k] for k in ("input_ids", "token_type_ids",
+                                    "input_mask")}
+    _reset_counts()
+    t0 = time.perf_counter()
+    data = frozen_bert_graphdef(cfg, params, SAMEDIFF["batch"],
+                                SAMEDIFF["seq"])
+    sd = importFrozenTF(data)
+    import_s = time.perf_counter() - t0
+    n_nodes = len(sd._nodes)
+    got = sd.output(feeds, [SEQUENCE_OUTPUT])[SEQUENCE_OUTPUT].tensor
+    ms = time_ms(lambda: sd.output(feeds, [SEQUENCE_OUTPUT]), iters=5)
+    sd_launches = _counts()
+    dev = torch.device(DEV)
+    with torch.no_grad():
+        want = bert_encode(cfg, params, torch.as_tensor(
+            inputs["input_ids"], device=dev).long(), torch.as_tensor(
+            inputs["token_type_ids"], device=dev).long(),
+            attn_mask=torch.as_tensor(inputs["input_mask"], device=dev))
+    enc_launches = _counts()["flash_fwd"] - sd_launches["flash_fwd"]
+    # the valid tokens: the flash encoder zeroes a padded query row's
+    # attention, a TF BERT graph attends from it (the rows no head reads)
+    valid = torch.as_tensor(inputs["input_mask"], device=dev) > 0
+    err = float((got - want)[valid].abs().max() / want[valid].abs().max())
+    log(f"[samediff] frozen BERT-base GraphDef ({len(data):,} bytes, "
+        f"{cfg.num_layers} layers, width {cfg.hidden_size}) imported in "
+        f"{import_s:.2f} s: {n_nodes} nodes; output() at B="
+        f"{SAMEDIFF['batch']} T={SAMEDIFF['seq']}: {ms:.3f} ms; over the "
+        f"{int(valid.sum())} valid tokens max|sd - encoder| / max|encoder| "
+        f"= {err:.3e} (rtol {SAMEDIFF_RTOL:.0e}; "
+        f"the encoder launched flash_fwd {enc_launches} times)")
+    if not err <= SAMEDIFF_RTOL:
+        raise AssertionError(f"samediff: the imported graph differs from "
+                             f"the encoder by {err:.3e}")
+    if enc_launches != cfg.num_layers:
+        raise AssertionError(f"samediff: the encoder launched flash_fwd "
+                             f"{enc_launches} times")
+    del want
+    # fine-tune: every float weight of the graph becomes a variable
+    weights = [n for n, v in sd._values.items()
+               if v.dtype == torch.float32 and v.ndim >= 1
+               and v.numel() >= cfg.num_labels and "/" in n
+               and not n.startswith("bert/encoder/shape")]
+    sd.convertConstantsToVariables(*weights)
+    labels = sd.placeHolder("labels", None, cfg.num_labels)
+    sd.loss.softmaxCrossEntropy("loss", labels, sd.getVariable("logits"))
+    sd.setLossVariables("loss")
+    sd.setTrainingConfig(TrainingConfig.Builder()
+                         .updater(Adam(SAMEDIFF["lr"])).build())
+    feeds_l = dict(feeds, labels=inputs["labels"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [sd.fit(placeholders=feeds_l)
+              for _ in range(SAMEDIFF["steps"])]
+    torch.cuda.synchronize()
+    fit_ms = (time.perf_counter() - t0) * 1e3 / SAMEDIFF["steps"]
+    log(f"[samediff] {SAMEDIFF['steps']} fit steps (Adam "
+        f"{SAMEDIFF['lr']}, {len(weights)} variables): {fit_ms:.3f} "
+        f"ms/step, losses {[round(v, 5) for v in losses]}")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"samediff: a loss is not finite: {losses}")
+    # save, reload two ways: outputs bit-identical to the saved graph's
+    SAMEDIFF_DIR.mkdir(parents=True, exist_ok=True)
+    path = SAMEDIFF_DIR / "bert_base.sdz"
+    outs = ["logits", SEQUENCE_OUTPUT]
+    try:
+        ref = {k: v.tensor.clone() for k, v in sd.output(feeds, outs)
+               .items()}
+        t0 = time.perf_counter()
+        sd.save(str(path))
+        save_s = time.perf_counter() - t0
+        nbytes = path.stat().st_size
+        t0 = time.perf_counter()
+        back = load_samediff(str(path))
+        load_s = time.perf_counter() - t0
+        guess = ModelGuesser.loadModelGuess(str(path))
+        same = {}
+        for what, g in (("load_samediff", back), ("ModelGuesser", guess)):
+            o = g.output(feeds, outs)
+            same[what] = all(torch.equal(o[k].tensor, ref[k])
+                             for k in outs)
+    finally:
+        shutil.rmtree(SAMEDIFF_DIR, ignore_errors=True)
+    launches = _counts()
+    log(f"[samediff] archive {nbytes:,} bytes: save {save_s:.2f} s, load "
+        f"{load_s:.2f} s; outputs bit-identical {same}")
+    if not all(same.values()):
+        raise AssertionError(f"samediff: reloaded outputs differ: {same}")
+    if not isinstance(guess, type(sd)):
+        raise AssertionError(f"samediff: ModelGuesser gave {type(guess)}")
+    ours = {k: n for k, n in launches.items() if n and k != "flash_fwd"}
+    if ours or launches["flash_fwd"] != enc_launches:
+        raise AssertionError(f"samediff: the SameDiff path launched "
+                             f"kernels: {launches}")
+    del sd, back, guess
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"nodes": n_nodes, "graphdef_bytes": len(data),
+            "import_s": import_s, "output_ms": ms, "rel_err": err,
+            "fit_ms": fit_ms, "losses": losses, "variables": len(weights),
+            "archive_bytes": nbytes, "save_s": save_s, "load_s": load_s,
+            "bit_identical": same,
+            "launches": {k: n for k, n in launches.items()
+                         if k != "flash_fwd"}}
+
+
 # -- main ---------------------------------------------------------------------
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -8314,14 +9081,14 @@ def main(argv=None):
                     choices=["kernels", "resnet", "graphs", "paged",
                              "chaos", "fleet", "mln", "rnn", "zoo",
                              "layers", "resilience", "quant", "parallel",
-                             "multihost"],
+                             "multihost", "keras", "samediff"],
                     default=None,
                     help="stop after the kernel checks, or run the resnet "
                          "serving and training phases right after them, or "
                          "run the graphs, the paged, the chaos, the fleet, "
                          "the mln, the rnn, the zoo, the layers, the "
-                         "resilience, the quant, the parallel or the "
-                         "multihost phase alone "
+                         "resilience, the quant, the parallel, the "
+                         "multihost, the keras or the samediff phase alone "
                          "after the build (bring-up runs)")
     ap.add_argument("--profile", action="store_true",
                     help="after the resnet phases, profile the serving "
@@ -8361,8 +9128,13 @@ def main(argv=None):
             f"{k} {v:.1f}" for k, v in seconds.items()))
         return 0
     if args.only in ("chaos", "fleet", "mln", "rnn", "zoo", "layers",
-                     "resilience", "quant", "parallel", "multihost"):
-        if args.only == "parallel":
+                     "resilience", "quant", "parallel", "multihost",
+                     "keras", "samediff"):
+        if args.only in ("keras", "samediff"):
+            cfg = bert_base()
+            phase = phase_keras if args.only == "keras" else phase_samediff
+            out = timed(args.only, phase, cfg, init_bert_params(cfg, 0))
+        elif args.only == "parallel":
             out = timed("parallel", phase_parallel)
         elif args.only == "multihost":
             out = timed("multihost", phase_multihost)
@@ -8430,6 +9202,8 @@ def main(argv=None):
     quant = timed("quant", phase_quant, args.profile)
     parallel = timed("parallel", phase_parallel)
     multihost = timed("multihost", phase_multihost)
+    keras = timed("keras", phase_keras, cfg, params)
+    samediff = timed("samediff", phase_samediff, cfg, params)
     prof = (timed("profile", phase_profile, cfg, params, resnet_net,
                   resnet_x, train_net, train_ds) if args.profile else None)
     # each kernel's launches from the path that carries it: the forward and
@@ -8515,6 +9289,23 @@ def main(argv=None):
         row["launches_multihost_from"] = (
             f"multihost phase arm A: {MH['steps']} optimizer steps of "
             f"{MH['accum']} microbatches through MultiHostRunner")
+        # this slice's paths: Keras MobileNetV2's profiled graphed steps
+        # (B5, B7, B8; B6: its one bucket-graph forward) and the profiled
+        # BERT-base fine-tune steps (B1, B2a, B2b)
+        name = row["name"]
+        if name in TRAIN_KERNELS:
+            row["launches_keras"] = keras["launches"][name]
+            row["launches_keras_from"] = (
+                f"Keras MobileNetV2 ({KERAS['steps']} profiled graphed "
+                f"steps, {KERAS['pairs']} pairs)")
+        elif name == "matmul_epilogue":
+            row["launches_keras"] = keras["serve"]["launches"]
+            row["launches_keras_from"] = "Keras MobileNetV2 one B=32 forward"
+        elif name in keras["launches_bert"]:
+            row["launches_keras"] = keras["launches_bert"][name]
+            row["launches_keras_from"] = (
+                f"BERT-base ({KERAS['bert_steps']} profiled fine-tune "
+                "steps)")
     (OUT_DIR / "smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "kernels": rows,
          "step36": step36, "fwd36": fwd36, "bert_step12": step12,
@@ -8524,7 +9315,8 @@ def main(argv=None):
          "paged": paged, "chaos": chaos, "fleet": fleet, "mln": mln,
          "rnn": rnn, "zoo": zoo, "layers": layers,
          "resilience": resilience, "quant": quant, "parallel": parallel,
-         "multihost": multihost, "profile": prof,
+         "multihost": multihost, "keras": keras, "samediff": samediff,
+         "profile": prof,
          "line": line,
          "phase_seconds": seconds, "seconds": time.perf_counter() - t0},
         indent=1, default=str))

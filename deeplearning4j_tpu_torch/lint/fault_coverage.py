@@ -22,11 +22,7 @@ from deeplearning4j_tpu_torch.lint import _coverage
 FAULTS_MODULE = os.path.join(_coverage.PACKAGE, "resilience", "faults.py")
 
 #: declared sites the port does not fire yet -> the ROADMAP item
-PENDING = {
-    "INFERENCE_FORWARD": "A16: ParallelInference's fault hooks",
-    "INFERENCE_COLLECTOR": "A16: ParallelInference's fault hooks",
-    "SERVING_DISPATCH": "A16: ParallelInference's fault hooks",
-}
+PENDING = {}
 
 
 def main():

@@ -6,6 +6,11 @@ The layout is the JAX package's `init_bert_params` tree
 "layers" (a list), "pooler", "classifier" and "mlm_head", each a dict of
 arrays. `param_shapes(cfg)` states it; both functions below check every
 leaf's name and shape against it.
+
+`samediff_values_from_numpy` carries a JAX `SameDiff`'s variable and
+constant arrays (`sd._values`, as numpy) into the port's `SameDiff` of
+the same graph, name by name and shape by shape, so the two compute the
+same thing.
 """
 from __future__ import annotations
 
@@ -15,7 +20,8 @@ import torch
 from deeplearning4j_tpu_torch.device import resolve
 
 __all__ = ["param_shapes", "params_from_numpy", "params_to_numpy",
-           "named_param_leaves", "param_leaves", "init_bert_params"]
+           "named_param_leaves", "param_leaves", "init_bert_params",
+           "samediff_values_from_numpy"]
 
 #: leaves initialised as N(0, 0.02²); the rest are LayerNorm scales (ones)
 #: or biases (zeros), as in the JAX package
@@ -142,3 +148,23 @@ def init_bert_params(cfg, seed=0, device=None, dtype=torch.float32):
 
     spec = param_shapes(cfg)
     return _map(spec, spec, leaf)
+
+
+def samediff_values_from_numpy(sd, values):
+    """Install {name: array} — a JAX SameDiff's variables and constants as
+    numpy — into the port's SameDiff `sd` of the same graph, on its device.
+    Every name must be a variable or a constant of `sd` with the same
+    shape; every variable and constant of `sd` must be given. Returns
+    `sd`."""
+    if set(values) != set(sd._values):
+        raise ValueError(
+            f"samediff values: expected {sorted(sd._values)}, got "
+            f"{sorted(values)}")
+    for name, a in values.items():
+        a = np.asarray(a)
+        want = tuple(sd._values[name].shape)
+        if a.shape != want:
+            raise ValueError(f"samediff values.{name}: expected shape "
+                             f"{want}, got {a.shape}")
+        sd._values[name] = torch.as_tensor(a.copy(), device=sd.device)
+    return sd

@@ -79,8 +79,9 @@ class ZooModel:
         exist: pass `path=` or set $DL4J_TPU_PRETRAINED_DIR). A
         ModelSerializer zip (either package's) restores through
         `ModelSerializer.restoreModel` onto `device` (the card unless told
-        "cpu"); Keras .h5 weight files come with the Keras import (ROADMAP
-        A17)."""
+        "cpu"); a Keras .h5 weight file loads by layer name onto this zoo
+        configuration's layers, initialised on `device` (conv kernels are
+        HWIO in both: no layout transpose)."""
         path = path or self._pretrained_path(dataset)
         if path is None:
             raise RuntimeError(
@@ -89,9 +90,20 @@ class ZooModel:
                 f"<model>_<dataset>.zip/.h5 under "
                 f"${self.PRETRAINED_DIR_ENV} (no network egress).")
         if str(path).endswith(".h5"):
-            raise NotImplementedError(
-                f"{path}: the Keras .h5 weight reader comes with the Keras "
-                "import (ROADMAP A17)")
+            net = self.init(device=device)
+            from deeplearning4j_tpu_torch.keras_import.keras_import import (
+                _load_h5_weights_graph, _load_h5_weights_multilayer)
+            if isinstance(net, ComputationGraph):
+                net = _load_h5_weights_graph(net, path)
+            else:
+                net = _load_h5_weights_multilayer(net, path)
+            if getattr(net, "_h5_layers_loaded", 0) == 0:
+                raise RuntimeError(
+                    f"{path}: no layer names in the .h5 match this "
+                    f"{type(self).__name__} config — refusing to return a "
+                    f"random-init network as 'pretrained'. (Our layers are "
+                    f"named layer0..layerN unless set explicitly.)")
+            return net
         from deeplearning4j_tpu_torch.util.model_serializer import \
             ModelSerializer
         return ModelSerializer.restoreModel(str(path), device=device)

@@ -15,9 +15,8 @@ dashboards and tests read the same series from both packages.
 which import no jax, with their imports (lazy ones too) re-pointed at
 the port; comments in them that speak of jit, XLA or the TPU describe
 the JAX package. `memory.py` reads `torch.cuda` (`mem_get_info` and the
-caching allocator's stats); `profiler.py` keeps the session surface,
-whose capture comes with ROADMAP A16. The port's instrumented code so
-far is `generation.GenerationServer` and `resilience.policy`.
+caching allocator's stats); `profiler.py` captures its windows with
+torch.profiler and decodes them with `optimize/xplane.py`.
 """
 from __future__ import annotations
 

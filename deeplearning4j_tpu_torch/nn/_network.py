@@ -49,6 +49,7 @@ from deeplearning4j_tpu_torch.nn.updaters import (apply_updates,
                                                   build_optimizer,
                                                   multi_transform,
                                                   same_updater)
+from deeplearning4j_tpu_torch.monitoring import profiler as _prof
 from deeplearning4j_tpu_torch.resilience import faults as _faults
 from deeplearning4j_tpu_torch.resilience import guardian as _guardian
 from deeplearning4j_tpu_torch.resilience import watchdog as _watchdog
@@ -565,12 +566,10 @@ class Network:
             copy_into(store.args(key), args)
         return store.run(key)   # a store that does not capture: eagerly
 
-    def _run_step(self, batches, graphs):
-        """One update from one batch or from an accumulation group (a list
-        of unpacked batches), through its CUDA graph on the card when
-        `graphs`; returns the loss. With a guardian installed, the
-        guarded variant runs (its own store key) and its verdict goes to
-        the guardian."""
+    def _step_plan(self, batches):
+        """(fit store key, function, arguments) of one update from one
+        batch or from an accumulation group (a list of unpacked batches).
+        With a guardian installed, the guarded variant (its own key)."""
         g = _guardian.ACTIVE
         if len(batches) == 1:
             name, args = "fit", batches[0]
@@ -584,11 +583,34 @@ class Network:
                 else self._accum_step_in_place
         if g is not None:
             name += "_guarded"
-            self._set_guard(g)
         if self._dp is not None:
             name = "dp_" + name
+        return (name, sig), fn, args
+
+    def _step_keys(self, batches):
+        """The fit store keys the update from `batches` runs."""
+        return [self._step_plan(batches)[0]]
+
+    def _captures_next(self, batches, graphs):
+        """Whether the update from `batches` captures a CUDA graph: a key
+        the fit store does not hold yet, or weights rebound since the
+        captures."""
+        if not (graphs and self._device.type == "cuda"):
+            return False
+        return self._fit_store_for().will_capture(self._step_keys(batches))
+
+    def _run_step(self, batches, graphs):
+        """One update from one batch or from an accumulation group (a list
+        of unpacked batches), through its CUDA graph on the card when
+        `graphs`; returns the loss. With a guardian installed, the
+        guarded variant runs (its own store key) and its verdict goes to
+        the guardian."""
+        g = _guardian.ACTIVE
+        key, fn, args = self._step_plan(batches)
+        if g is not None:
+            self._set_guard(g)
         if graphs and self._device.type == "cuda":
-            out = self._graph_step((name, sig), args)
+            out = self._graph_step(key, args)
         else:
             out = fn(*args)
         if g is None:
@@ -610,12 +632,21 @@ class Network:
         """`_run_step`, after building the optimizer and the dropout
         generator on the first call; then the last batch's features
         (`_last_features`), the counters and the listeners. The dispatch's
-        fault site and watchdog heartbeat fire first."""
+        fault site and watchdog heartbeat fire first; an armed
+        ProfileSession's step hooks bracket the update. Its window opens
+        at the first step that captures no CUDA graph, so the set-up, the
+        eager warm-up and the capture of a fresh network stay outside."""
         if _faults.ACTIVE is not None:
             _faults.ACTIVE.fire(_faults.TRAIN_DISPATCH)
         if _watchdog.ACTIVE is not None:
             _watchdog.ACTIVE.beat(self._beat_name())
         self._ensure_training()
+        # an armed ProfileSession: the dispatch (one batch or an
+        # accumulation group) is one step
+        _ps = _prof.ACTIVE
+        if (_ps is not None and _ps.state == "armed"
+                and not self._captures_next(batches, graphs)):
+            _ps.step_start()
         self._score = self._run_step(batches, graphs)
         # the batch itself (never a graph's static input, which the next
         # replay overwrites), for listeners that run a forward over it
@@ -626,6 +657,9 @@ class Network:
         self._iteration += 1
         for listener in self._listeners:
             listener.iterationDone(self, self._iteration, self._epoch)
+        _ps = _prof.ACTIVE
+        if _ps is not None:
+            _ps.step_end()
 
     def _beat_name(self):
         """This network's heartbeat name for the stall watchdog."""

@@ -1131,6 +1131,10 @@ class ZeroPaddingLayer(Layer):
         p = padding
         if isinstance(p, int):
             p = (p, p, p, p)
+        elif len(p) == 2 and isinstance(p[0], (list, tuple)):
+            # Keras's spelling ((top, bottom), (left, right)), which its
+            # JSON always uses (the JAX package's layer refuses it)
+            p = (p[0][0], p[0][1], p[1][0], p[1][1])
         elif len(p) == 2:
             p = (p[0], p[0], p[1], p[1])
         self.pad = tuple(int(v) for v in p)  # (top, bottom, left, right)

@@ -378,15 +378,12 @@ class MultiLayerNetwork(Network):
         reports its verdict as not retryable: the batch's earlier healthy
         segments already updated the parameters."""
         g = _guardian.ACTIVE
-        name = "fit_tbptt" if g is None else "fit_tbptt_guarded"
-        if self._dp is not None:
-            name = "dp_" + name
         fn = self._tbptt_step_in_place if g is None \
             else self._guarded_tbptt_step_in_place
         if g is not None:
             self._set_guard(g)
         if graphs and self._device.type == "cuda":
-            key = (name, batch_sig(*args[:3]))
+            key = (self._tbptt_name(), batch_sig(*args[:3]))
             out = self._graph_step(key, args)
             carries = self._fit_store.args(key)[3]
             if g is None:
@@ -400,6 +397,30 @@ class MultiLayerNetwork(Network):
         loss, stats = out
         g.on_step(loss, stats, retryable=False)
         return loss, args[3]
+
+    def _tbptt_name(self):
+        """The fit store name of a segment's update."""
+        name = "fit_tbptt" if _guardian.ACTIVE is None \
+            else "fit_tbptt_guarded"
+        return name if self._dp is None else "dp_" + name
+
+    def _tbptt_segments(self, batch):
+        """(ins, labels, lmasks) of each tBPTTForwardLength segment of an
+        unpacked batch."""
+        ins, labels, lmasks = batch
+        tlen = int(self.conf.tbptt_fwd_length)
+        for t0 in range(0, ins["input"].shape[1], tlen):
+            seg = slice(t0, t0 + tlen)
+            yield ({k: v[:, seg] for k, v in ins.items()},
+                   [y[:, seg] if y.ndim == 3 else y for y in labels],
+                   None if lmasks is None else [
+                       None if m is None else m[:, seg] for m in lmasks])
+
+    def _step_keys(self, batches):
+        if len(batches) != 1 or not self._is_tbptt(batches[0]):
+            return super()._step_keys(batches)
+        return [(self._tbptt_name(), batch_sig(*seg))
+                for seg in self._tbptt_segments(batches[0])]
 
     def _fit_store_for(self):
         store = super()._fit_store_for()
@@ -428,17 +449,9 @@ class MultiLayerNetwork(Network):
         one update a segment; returns the mean segment loss."""
         if len(batches) != 1 or not self._is_tbptt(batches[0]):
             return super()._run_step(batches, graphs)
-        ins, labels, lmasks = batches[0]
-        x = ins["input"]
-        tlen = int(self.conf.tbptt_fwd_length)
-        carries = self._zero_carries(x.shape[0])
+        carries = self._zero_carries(batches[0][0]["input"].shape[0])
         total, nseg = None, 0
-        for t0 in range(0, x.shape[1], tlen):
-            seg = slice(t0, t0 + tlen)
-            sins = {k: v[:, seg] for k, v in ins.items()}
-            slabels = [y[:, seg] if y.ndim == 3 else y for y in labels]
-            slm = None if lmasks is None else [
-                None if m is None else m[:, seg] for m in lmasks]
+        for sins, slabels, slm in self._tbptt_segments(batches[0]):
             loss, carries = self._tbptt_segment(
                 (sins, slabels, slm, carries), graphs)
             total = loss if total is None else total + loss

@@ -7,15 +7,15 @@ The networks call `iterationDone` after each training step and
 `onEpochEnd` at each epoch's end. `CheckpointListener` writes through the
 port's `ModelSerializer` (archives the JAX package reads too),
 `EvaluativeListener` evaluates through the port's `eval/`, and
-`MetricsListener` reports through the port's `monitoring/`.
-`ProfilerListener` raises naming ROADMAP A16: its device trace is the
-profiler's capture, which the port does not have yet.
+`MetricsListener` reports through the port's `monitoring/`, and
+`ProfilerListener` captures a window of iterations through the
+profiler's `ProfileSession` (torch.profiler, decoded per op).
 
 Observability cross-links (three complementary layers):
 - `MetricsListener` (here) — HOST-side operational metrics + span traces
   via `deeplearning4j_tpu_torch.monitoring` (Prometheus `/metrics` on the
   UI server, Chrome-trace JSON for Perfetto);
-- `ProfilerListener` (here) — the device-side per-op trace (ROADMAP A16);
+- `ProfilerListener` (here) — the device-side per-op trace;
 - `ui.stats.StatsListener` — LEARNING diagnostics (score, update
   ratios, activation histograms) for the training dashboard.
 """
@@ -165,16 +165,90 @@ class CollectScoresListener(TrainingListener):
 
 class ProfilerListener(TrainingListener):
     """≡ the JAX package's ProfilerListener: per-iteration step timings
-    and a device trace of a window of iterations, decoded per op. Its
-    capture is the profiler's (`monitoring.profiler.ProfileSession`, whose
-    window does not open in the port yet), so constructing it raises
-    naming ROADMAP A16."""
+    and a device trace of a window of iterations, decoded per op.
+
+    The trace window is a `monitoring.profiler.ProfileSession` that this
+    listener drives in manual begin/end mode, so the capture also yields
+    the decoded per-op report — `self.report` after the window closes,
+    the same shape as `monitoring.last_report()`. Prefer
+    `monitoring.profile_next_steps(k)` / `POST /profile?steps=k` in new
+    code; this listener is the iterationDone-cadence surface.
+
+    Two outputs per training run:
+    - per-iteration step timings recorded into the OpExecutioner profiler
+      (≡ OpProfiler: `OpExecutioner.getInstance().getProfilingStats()`),
+      under the op name "train_step";
+    - a torch.profiler trace (Kineto's Chrome JSON, `*.pt.trace.json`
+      under `trace_dir`, viewable in Perfetto) covering iterations
+      [start_iter, start_iter + trace_iters), plus the decoded
+      `self.report` per-op table.
+
+    Usage: net.setListeners(ProfilerListener(trace_dir="/tmp/trace")).
+    """
 
     def __init__(self, trace_dir=None, start_iter=1, trace_iters=3):
-        raise NotImplementedError(
-            "ProfilerListener is not ported yet: its device trace is the "
-            "profiler's capture (torch.profiler and its per-op decode), "
-            "which comes with ROADMAP A16")
+        self.trace_dir = None if trace_dir is None else str(trace_dir)
+        self.start_iter = int(start_iter)
+        self.trace_iters = int(trace_iters)
+        self.report = None
+        self._session = None
+        self._last_time = None
+        from deeplearning4j_tpu_torch.runtime.executioner import \
+            OpExecutioner
+        self._ex = OpExecutioner.getInstance()
+        self._ex.setProfilingMode(True)
+
+    @property
+    def _tracing(self):
+        return self._session is not None \
+            and self._session.state == "tracing"
+
+    def _close_window(self):
+        s = self._session
+        if s is not None and s.state == "tracing":
+            s.end()
+            self.report = s.report
+        self.trace_dir = None  # one trace per listener
+
+    def iterationDone(self, model, iteration, epoch):
+        now = time.perf_counter()
+        if self._last_time is not None:
+            # the whole iteration is the train step's (one dispatch, or
+            # one graph replay on the card)
+            self._ex.op_counts["train_step"] += 1
+            self._ex.op_times["train_step"] += now - self._last_time
+        self._last_time = now
+        if self.trace_dir is None:
+            return
+        if not self._tracing and iteration >= self.start_iter:
+            from deeplearning4j_tpu_torch.monitoring.profiler import \
+                ProfileSession
+            self._session = ProfileSession(
+                steps=self.trace_iters, trace_dir=self.trace_dir,
+                keep_trace=True, device=getattr(model, "_device", None))
+            self._session.begin()
+            if self._session.state == "failed":
+                # the window was refused (another torch.profiler is
+                # running, e.g. an armed global session's) — give up
+                # instead of retrying on every remaining iteration
+                self._session = None
+                self.trace_dir = None
+        elif self._tracing:
+            # listener-driven sessions are never the global ACTIVE one,
+            # so the trainers' step hooks skip them — count the captured
+            # step here; the k-th step_end closes the window and builds
+            # the report
+            self._session.step_end()
+            if not self._tracing:
+                self.report = self._session.report
+                self.trace_dir = None  # one trace per listener
+
+    def onEpochEnd(self, model):
+        # re-arm the timer: inter-epoch work (eval, checkpointing) must not
+        # be attributed to the next epoch's first train_step
+        self._last_time = None
+        if self._tracing:
+            self._close_window()
 
 
 class MetricsListener(TrainingListener):

@@ -39,8 +39,19 @@ that signature takes (padded steps hold the carries and emit zeros), and
 each answer is cut back to its own length, so it equals `output()` on the
 unpadded input.
 
-Not ported yet: the monitoring and fault-injection hooks (ROADMAP A16,
-A14).
+Monitoring, as in the JAX package: with `monitoring.enable()` each
+request counts on `dl4j.inference.requests` and records a request
+timeline (`monitoring/requests.py`, its latency on
+`dl4j.inference.request_ms` with the timeline's id as exemplar); each
+coalesced forward counts on `dl4j.inference.forwards` and its rows on
+`dl4j.inference.batch_rows` (the graph path also on the `dl4j.serving.*`
+rows, padding, occupancy and split metrics); sheds, timeouts, collector
+restarts and graph-path fallbacks count on their `dl4j.resilience.*` and
+`dl4j.serving.aot_fallbacks` counters. Fault sites: `inference.collector`
+at the top of the collector loop (a fault there kills the collector, the
+restart path), `inference.forward` before each coalesced forward and
+`serving.dispatch` inside the graph path (a fault there falls back to the
+eager forward).
 
 Usage parity:
     pi = (ParallelInference.Builder(net)
@@ -60,6 +71,9 @@ import time
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch import monitoring as _mon
+from deeplearning4j_tpu_torch.monitoring import requests as _req
+from deeplearning4j_tpu_torch.resilience import faults as _faults
 from deeplearning4j_tpu_torch.resilience.errors import (
     InferenceOverloadedError, InferenceTimeoutError)
 from deeplearning4j_tpu_torch.resilience.policy import CircuitBreaker
@@ -107,6 +121,11 @@ def bounded_enqueue(q, item, deadline, enqueue_timeout, count_timeout=None,
             raise InferenceTimeoutError(
                 f"{what} request deadline expired while waiting "
                 "for queue space") from None
+        if _mon.enabled():
+            _mon.get_registry().counter(
+                _mon.RESILIENCE_INFERENCE_SHED,
+                help="requests shed because the queue stayed full "
+                     "for the whole bounded enqueue wait").inc()
         raise InferenceOverloadedError(
             f"{what} queue full (limit {q.maxsize}) "
             f"after {wait * 1e3:.6g} ms — request shed") from None
@@ -120,7 +139,7 @@ def _host(out):
 
 class _Request:
     __slots__ = ("x", "event", "result", "error", "claimed", "cancelled",
-                 "server")
+                 "server", "timeline")
 
     def __init__(self, x):
         self.x = x
@@ -130,6 +149,7 @@ class _Request:
         self.claimed = False
         self.cancelled = False  # deadline expired: discard, never serve
         self.server = None      # thread that claimed it (set under lock)
+        self.timeline = None    # request trace (monitoring/requests.py)
 
 
 class ParallelInference:
@@ -375,6 +395,10 @@ class ParallelInference:
         post-shutdown) forwards run synchronously and cannot be
         interrupted mid-flight: the deadline is enforced after the
         forward."""
+        if _mon.enabled():
+            _mon.get_registry().counter(
+                "dl4j.inference.requests",
+                help="ParallelInference.output calls").inc()
         n_inputs = len(self._input_ranks())
         if isinstance(x, (list, tuple)) and n_inputs > 1:
             if len(x) != n_inputs:
@@ -392,6 +416,42 @@ class ParallelInference:
             xs = tuple(a[None] for a in xs)
         deadline = None if timeout_ms is None \
             else time.monotonic() + float(timeout_ms) / 1e3
+        # request-scoped tracing: one bounded timeline per request (None
+        # when monitoring is off); the latency histogram keeps the
+        # timeline's id as an exemplar
+        tl = _req.start("inference", meta={"rows": int(xs[0].shape[0])})
+        t_req = time.perf_counter()
+        try:
+            out = self._output_traced(xs, multi, single, deadline,
+                                      timeout_ms, tl)
+        except InferenceTimeoutError:
+            if tl is not None:
+                tl.event("timeout")
+                tl.finish("timeout")
+            raise
+        except InferenceOverloadedError:
+            if tl is not None:
+                tl.event("shed")
+                tl.finish("shed")
+            raise
+        except BaseException as e:
+            if tl is not None:
+                tl.event("failed", error=type(e).__name__)
+                tl.finish("error")
+            raise
+        if tl is not None:
+            tl.event("done")
+            tl.finish("ok")
+            if _mon.enabled():
+                _mon.get_registry().histogram(
+                    _mon.INFERENCE_REQUEST_MS,
+                    help="end-to-end inference request latency "
+                         "(enqueue to delivery)").observe(
+                    (time.perf_counter() - t_req) * 1e3,
+                    trace_id=tl.trace_id)
+        return out
+
+    def _output_traced(self, xs, multi, single, deadline, timeout_ms, tl):
         if self.mode == InferenceMode.SEQUENTIAL or self._shutdown:
             return self._direct_deadline(xs, multi, single, deadline)
         if self._thread is not None and not self._thread.is_alive():
@@ -400,6 +460,9 @@ class ParallelInference:
             if not self._revive_collector():
                 return self._direct_deadline(xs, multi, single, deadline)
         req = _Request(xs)
+        req.timeline = tl
+        if tl is not None:
+            tl.event("enqueue")
         self._enqueue(req, deadline)
         degraded = False
         while not req.event.is_set():
@@ -469,6 +532,10 @@ class ParallelInference:
 
     def _count_timeout(self):
         self.timeouts += 1
+        if _mon.enabled():
+            _mon.get_registry().counter(
+                _mon.RESILIENCE_INFERENCE_TIMEOUTS,
+                help="requests cancelled at their deadline").inc()
 
     def _enqueue(self, req, deadline):
         bounded_enqueue(self._queue, req, deadline, self.enqueue_timeout,
@@ -502,6 +569,10 @@ class ParallelInference:
             self._thread = self._start_collector()
             self.collector_restarts += 1
             self._restart_unconfirmed = True
+        if _mon.enabled():
+            _mon.get_registry().counter(
+                _mon.RESILIENCE_COLLECTOR_RESTARTS,
+                help="collector threads restarted after death").inc()
         return True
 
     def _input_ranks(self):
@@ -540,6 +611,10 @@ class ParallelInference:
     # -- collector thread ------------------------------------------------
     def _collector(self):
         while not self._shutdown:
+            # fault site OUTSIDE the per-batch try: a fault here kills
+            # the collector thread (the restart path under test)
+            if _faults.ACTIVE is not None:
+                _faults.ACTIVE.fire(_faults.INFERENCE_COLLECTOR)
             try:
                 first = self._queue.get(timeout=0.1)
             except queue.Empty:
@@ -626,6 +701,13 @@ class ParallelInference:
 
     def _run(self, batch):
         try:
+            for r in batch:
+                if r.timeline is not None:
+                    r.timeline.event("dispatch",
+                                     rows=int(r.x[0].shape[0]),
+                                     coalesced=len(batch))
+            if _faults.ACTIVE is not None:
+                _faults.ACTIVE.fire(_faults.INFERENCE_FORWARD)
             if self._ladder is not None and self._aot_breaker.allow():
                 try:
                     self._serve_graphs(batch)
@@ -635,6 +717,12 @@ class ParallelInference:
                     self._aot_error = e
                     self.aot_fallbacks += 1
                     self._aot_breaker.record_failure()
+                    if _mon.enabled():
+                        _mon.get_registry().counter(
+                            _mon.SERVING_AOT_FALLBACKS,
+                            help="graph-path serving failures (breaker-"
+                                 "guarded fallback to the eager "
+                                 "forward)").inc()
             self._serve(batch)
         except BaseException as e:  # noqa: BLE001 — deliver to the waiter
             # even KeyboardInterrupt/SystemExit must release the waiters
@@ -655,6 +743,8 @@ class ParallelInference:
         graph's static output before the next replay; results are
         delivered only after every chunk ran, so a failure part-way can
         still fall back to the eager path."""
+        if _faults.ACTIVE is not None:
+            _faults.ACTIVE.fire(_faults.SERVING_DISPATCH)
         store = self._ensure_store()
         n_inputs = len(batch[0].x)
         masked = self._time_padded(batch[0].x)
@@ -669,8 +759,10 @@ class ParallelInference:
             cols = [np.concatenate([r.x[j] for r in batch], axis=0)
                     for j in range(n_inputs)]
         parts, i = [], 0
+        mon_on = _mon.enabled()
+        chunks = self._ladder.chunks(cols[0].shape[0])
         with self._graph_lock:
-            for c in self._ladder.chunks(cols[0].shape[0]):
+            for c in chunks:
                 b = self._ladder.bucket(c)
                 chunk = [xj[i:i + c] for xj in cols]
                 if b != c:
@@ -682,9 +774,35 @@ class ParallelInference:
                 sig = tuple((tuple(xj.shape), "float32") for xj in chunk)
                 self._ring.stage(chunk, store.ensure(sig, masked))
                 self.model_calls += 1
+                if mon_on:
+                    reg = _mon.get_registry()
+                    reg.counter("dl4j.inference.forwards",
+                                help="coalesced forward passes").inc()
+                    reg.histogram(
+                        "dl4j.inference.batch_rows",
+                        help="rows per coalesced forward (pre-padding)"
+                    ).observe(c)
+                    reg.counter(_mon.SERVING_ROWS,
+                                help="real rows served through the bucket "
+                                     "graphs").inc(c)
+                    if b != c:
+                        reg.counter(
+                            _mon.SERVING_PADDED_ROWS,
+                            help="bucket-padding rows (waste ratio = "
+                                 "padded / (rows + padded))").inc(b - c)
+                    reg.histogram(_mon.SERVING_BUCKET_OCCUPANCY,
+                                  help="real rows / bucket rows per "
+                                       "dispatch").observe(c / b)
+                    _mon.record_transfer(sum(a.nbytes for a in chunk))
                 key = ("forward_masked" if masked else "forward", sig)
-                parts.append(store.run(key)[:c].clone())
+                with _mon.span("inference.forward"):
+                    parts.append(store.run(key)[:c].clone())
                 i += c
+        if mon_on and len(chunks) > 1:
+            _mon.get_registry().counter(
+                _mon.SERVING_SPLITS,
+                help="oversized batches split across bucket chunks "
+                     "instead of capturing a novel shape").inc()
         out = torch.cat(parts).cpu().numpy()
         i = 0
         for r in batch:
@@ -711,7 +829,18 @@ class ParallelInference:
                 [xj, np.repeat(xj[-1:], nb - n, axis=0)], axis=0)
                 for xj in cols]
         self.model_calls += 1
-        out = _host(self.model.output(cols if n_inputs > 1 else cols[0]))
+        if _mon.enabled():
+            reg = _mon.get_registry()
+            reg.counter("dl4j.inference.forwards",
+                        help="coalesced forward passes").inc()
+            reg.histogram(
+                "dl4j.inference.batch_rows",
+                help="rows per coalesced forward (pre-padding)"
+            ).observe(n)
+            _mon.record_transfer(sum(c.nbytes for c in cols))
+        with _mon.span("inference.forward"):
+            out = _host(self.model.output(cols if n_inputs > 1
+                                          else cols[0]))
         out = out[:n]
         i = 0
         for r in batch:

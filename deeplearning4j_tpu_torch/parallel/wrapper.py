@@ -43,7 +43,6 @@ import torch.distributed as dist
 from deeplearning4j_tpu_torch import batch_sync as _batch_sync
 from deeplearning4j_tpu_torch import monitoring as _mon
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet, MultiDataSet
-from deeplearning4j_tpu_torch.monitoring import profiler as _prof
 from deeplearning4j_tpu_torch.parallel import mesh as _mesh
 from deeplearning4j_tpu_torch.parallel.mesh import DeviceMesh
 from deeplearning4j_tpu_torch.parallel.zero import (ZeroState,
@@ -327,9 +326,6 @@ class ParallelWrapper:
         if self._dp is None:
             self._shard_model()
         self._graph_model()
-        _ps = _prof.ACTIVE
-        if _ps is not None:
-            _ps.step_start()
         m = self.model
         with _mon.span("train.stage"):
             local, mine, total = self._local(ds)
@@ -337,18 +333,12 @@ class ParallelWrapper:
             batch = m._unpack(local)
         with _mon.span("parallel.dispatch"), self._stepping():
             m._train_step([batch], self._graphs())
-        _ps = _prof.ACTIVE
-        if _ps is not None:
-            _ps.step_end()
         return m._score
 
     def _fit_group_accum(self, group):
         """One ACCUMULATED dp optimizer step over G same-shape batches:
         the network's accumulation step on this rank's rows of each, then
         the dp all-reduce of the mean gradients, one update."""
-        _ps = _prof.ACTIVE
-        if _ps is not None:
-            _ps.step_start()
         m = self.model
         with _mon.span("train.stage"):
             locals_ = [self._local(ds) for ds in group]
@@ -358,9 +348,6 @@ class ParallelWrapper:
             batches = [m._unpack(x[0]) for x in locals_]
         with _mon.span("parallel.accum_dispatch"), self._stepping():
             m._train_step(batches, self._graphs())
-        _ps = _prof.ACTIVE
-        if _ps is not None:
-            _ps.step_end()
 
     @staticmethod
     def _scan_sig(ds):

@@ -506,6 +506,16 @@ class FunctionStore:
                     "seconds": time.perf_counter() - t0,
                     "keys": len(self._entries)}
 
+    def will_capture(self, keys):
+        """Whether running `keys` next captures a graph: a key not added
+        yet, or bindings rebound since the captures (see `run`)."""
+        if not self.capture:
+            return False
+        if any(k not in self._entries for k in keys):
+            return True
+        return (self._bindings is not None and self._bound is not None
+                and self._addresses() != self._bound)
+
     # -- the steady state -------------------------------------------------
     def run(self, key):
         """Replay `key`'s graph (or run its function eagerly) on its static

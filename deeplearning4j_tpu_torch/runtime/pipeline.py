@@ -15,9 +15,11 @@ As in the reference, `maybe_prefetch` wraps only an iterable that opts in
 does): a plain list of DataSets is stepped through as it is. The
 evaluation loop stages with `stage_for_eval` (features only; the
 evaluators read the labels on the host). `record_sync` counts a
-host-blocking read (the guardian's) on `dl4j.pipeline.syncs`. Difference
-from the reference: the staging has no monitoring counters (ROADMAP
-A16).
+host-blocking read (the guardian's) on `dl4j.pipeline.syncs`. With
+monitoring on, each staged batch counts on `dl4j.pipeline.staged_batches`
+and each delivered one sets `dl4j.pipeline.prefetch_depth` to the staged
+batches still waiting (0: the step waited on the loader), as in the
+reference.
 """
 from __future__ import annotations
 
@@ -98,7 +100,18 @@ def stage_dataset(ds, device, ring=None, stream=None):
     """One DataSet or MultiDataSet copied onto `device` through `ring` (a
     `StagingRing`; a fresh one when None), into new tensors made on
     `stream` (on the card: a side stream, so the copies overlap the
-    step). Runs on the prefetch thread."""
+    step). Runs on the prefetch thread; counted on
+    `dl4j.pipeline.staged_batches` when monitoring is on."""
+    staged = _stage(ds, device, ring, stream)
+    from deeplearning4j_tpu_torch import monitoring as _mon
+    if _mon.enabled():
+        _mon.get_registry().counter(
+            _mon.PIPELINE_STAGED_BATCHES,
+            help="batches staged to device by the prefetch worker").inc()
+    return staged
+
+
+def _stage(ds, device, ring, stream):
     ring = StagingRing(1) if ring is None else ring
     dev = torch.device(device)
     multi = hasattr(ds, "featuresMasks")
@@ -130,8 +143,7 @@ def stage_dataset(ds, device, ring=None, stream=None):
 def stage_for_eval(ds, device, ring=None, stream=None):
     """A DataSet's features staged onto `device` as `stage_dataset` stages
     them; the labels and masks stay numpy for the evaluators."""
-    staged = stage_dataset(StagedBatch(ds.features, None), device, ring,
-                           stream)
+    staged = _stage(StagedBatch(ds.features, None), device, ring, stream)
     return StagedBatch(staged.features, ds.labels, ds.featuresMask,
                        ds.labelsMask, event=staged.event)
 
@@ -210,20 +222,28 @@ class PrefetchIterator:
             self._thread.start()
         while True:
             try:
-                return self._queue.get(timeout=self._POLL_S)
+                item = self._queue.get(timeout=self._POLL_S)
             except _queue.Empty:
                 if self._thread.is_alive():
                     continue
                 # the worker is gone: drain once more, in case it posted
                 # between the timeout and the liveness check
                 try:
-                    return self._queue.get_nowait()
+                    item = self._queue.get_nowait()
                 except _queue.Empty:
                     if self._error is not None:
                         raise self._error from None
                     raise RuntimeError(
                         "prefetch worker died without delivering a batch, "
                         "an error, or end-of-stream") from None
+            from deeplearning4j_tpu_torch import monitoring as _mon
+            if _mon.enabled():
+                _mon.get_registry().gauge(
+                    _mon.PIPELINE_PREFETCH_DEPTH,
+                    help="staged batches waiting in the prefetch queue "
+                         "(0 = device waiting on the loader)") \
+                    .set(self._queue.qsize())
+            return item
 
     def hasNext(self):
         if self._peek is self._EMPTY:

@@ -29,9 +29,9 @@ an ephemeral port, read back from `.port`) serves, from a stdlib
   straggler attribution, 404 with no active coordinator
   (`parallel/coordination.py`);
 - `GET /executables` — `runtime.executables.status()`;
-- `GET /profile` — the profiler's session status; `POST /profile?steps=k`
-  arms a session (its capture is ROADMAP A16's: a route that raises
-  answers 501 with the message);
+- `GET /profile` — the profiler's status: the armed session and the last
+  one's report (per-op table decoded from its torch.profiler trace);
+  `POST /profile?steps=k` arms a session over the next k training steps;
 - `POST /debug/bundle` — writes the post-mortem bundle under
   `DL4J_CRASH_DUMP_DIR` (never a client-supplied path).
 
@@ -533,11 +533,7 @@ _GET = (("/stats", lambda path, ui: _json(
 # -- POST routes ---------------------------------------------------------------
 def _post_profile(path, ui):
     from deeplearning4j_tpu_torch.monitoring import profiler as _prof
-    try:
-        session = _prof.profile_next_steps(
-            steps=_query_int(path, "steps", 3))
-    except NotImplementedError as e:
-        raise _Answer(501, _json({"error": str(e)}))
+    session = _prof.profile_next_steps(steps=_query_int(path, "steps", 3))
     return _json({"armed": True, "steps": session.steps})
 
 

@@ -11,8 +11,8 @@ Observability cross-links: StatsListener covers LEARNING diagnostics.
 For HOST-side operational metrics and span tracing (where did the step's
 wall time go; Prometheus `/metrics`; Chrome-trace export), opt in with
 `optimize.listeners.MetricsListener` / `deeplearning4j_tpu_torch.monitoring`;
-the DEVICE-side per-op trace (`optimize.listeners.ProfilerListener`) comes
-with ROADMAP A16.
+the DEVICE-side per-op trace is `optimize.listeners.ProfilerListener` and
+`monitoring.profile_next_steps`.
 """
 from __future__ import annotations
 

@@ -2,11 +2,13 @@
 deeplearning4j-core :: org.deeplearning4j.util.ModelGuesser /
 ModelGuesserException).
 
-Loads "whatever model file this is": a DL4J zip archive (MultiLayerNetwork,
-then ComputationGraph: `util/model_serializer.py`), in the reference's
-order. The JAX package's other branches, a SameDiff graph archive
-(`samediff.json` in the zip) and a Keras model file, are not ported yet:
-they raise ModelGuesserException naming ROADMAP A17.
+Loads "whatever model file this is", in the reference's order: a zip that
+holds `samediff.json` is a SameDiff graph archive (`autodiff/`, either
+package's); any other zip is a DL4J archive (MultiLayerNetwork, then
+ComputationGraph: `util/model_serializer.py`); anything else is a Keras
+file — a whole-model .h5 (architecture in its `model_config` attribute,
+weights alongside), else a Keras JSON configuration (Sequential, then
+Functional). Every model lands on `device` (the card unless "cpu").
 """
 from __future__ import annotations
 
@@ -21,31 +23,50 @@ class ModelGuesserException(Exception):
     pass
 
 
-def _a17(what):
-    return ModelGuesserException(
-        f"{what}: the SameDiff and Keras front ends are not ported yet; "
-        "they come with ROADMAP A17")
-
-
 class ModelGuesser:
     @staticmethod
-    def loadModelGuess(path, device=None):
-        """A MultiLayerNetwork or a ComputationGraph on `device` (default:
-        the card); raises ModelGuesserException when nothing matches."""
-        if not zipfile.is_zipfile(path):
-            raise _a17(f"{path!r} is not a DL4J zip archive (a Keras model "
-                       "file?)")
-        with zipfile.ZipFile(path) as zf:
-            names = set(zf.namelist())
-        if "samediff.json" in names:
-            raise _a17(f"{path!r} is a SameDiff graph archive")
+    def loadModelGuess(path, inputType=None, device=None):
+        """A MultiLayerNetwork, a ComputationGraph, a SameDiff or a
+        Keras-imported network on `device` (default: the card); raises
+        ModelGuesserException when nothing matches."""
         errors = []
-        for restore in (ModelSerializer.restoreMultiLayerNetwork,
-                        ModelSerializer.restoreComputationGraph):
-            try:
-                return restore(path, device=device)
-            except Exception as e:  # try the next format
-                errors.append(f"{restore.__name__}: {e}")
+        if zipfile.is_zipfile(path):
+            with zipfile.ZipFile(path) as zf:
+                names = set(zf.namelist())
+            if "samediff.json" in names:   # SameDiff full-graph artifact
+                from deeplearning4j_tpu_torch.autodiff.samediff import \
+                    SameDiff
+                try:
+                    return SameDiff.load(path, device=device)
+                except Exception as e:
+                    errors.append(f"samediff: {e}")
+            for restore in (ModelSerializer.restoreMultiLayerNetwork,
+                            ModelSerializer.restoreComputationGraph):
+                try:
+                    return restore(path, device=device)
+                except Exception as e:  # try the next format
+                    errors.append(f"{restore.__name__}: {e}")
+        else:
+            from deeplearning4j_tpu_torch.keras_import.keras_import import (
+                KerasModelImport, is_h5)
+            if is_h5(path):
+                try:
+                    return KerasModelImport.importKerasModelFromH5(
+                        path, device=device)
+                except Exception as e:
+                    errors.append(f"keras h5: {e}")
+            else:
+                try:
+                    return KerasModelImport.\
+                        importKerasSequentialModelAndWeights(
+                            path, inputType=inputType, device=device)
+                except Exception as e:
+                    errors.append(f"keras sequential: {e}")
+                try:
+                    return KerasModelImport.importKerasModelAndWeights(
+                        path, device=device)
+                except Exception as e:
+                    errors.append(f"keras functional: {e}")
         raise ModelGuesserException(
             f"could not load {path!r} as any known model format: "
             + "; ".join(errors))

@@ -488,8 +488,10 @@ def test_updater_pickle_refuses_other_globals(tmp_path):
 
 
 def test_model_guesser_on_both_kinds_and_its_a17_errors(tmp_path):
-    """Either kind of archive from either package; a SameDiff archive and
-    a file that is no zip raise naming ROADMAP A17."""
+    """Either kind of archive from either package. The SameDiff and Keras
+    branches are ported (they were ROADMAP A17's): a broken SameDiff
+    archive and a file that is neither a zip nor Keras raise naming every
+    format tried, the SameDiff and the Keras readers among them."""
     mln_path, cg_path = str(tmp_path / "m.zip"), str(tmp_path / "g.zip")
     JModelSerializer.writeModel(_jax_net("dense", J.Sgd(0.1)), mln_path)
     _port_net("graph", T.Sgd(0.1)).save(cg_path)
@@ -504,8 +506,9 @@ def test_model_guesser_on_both_kinds_and_its_a17_errors(tmp_path):
         zf.writestr("samediff.json", "{}")
     other = tmp_path / "model.h5"
     other.write_bytes(b"not a zip")
-    for bad in (sd, str(other)):
-        with pytest.raises(ModelGuesserException, match="A17"):
+    for bad, tried in ((sd, "samediff"), (str(other), "keras")):
+        with pytest.raises(ModelGuesserException,
+                           match=f"any known.*{tried}"):
             ModelGuesser.loadModelGuess(bad, device="cpu")
     garbage = str(tmp_path / "garbage.zip")
     with zipfile.ZipFile(garbage, "w") as zf:

@@ -652,12 +652,30 @@ ZOO_PAIR_SHAPES = [((51200, 64, 128), torch.float32),
                    ((3136, 96, 24), torch.float32)]
 
 
+#: Keras MobileNetV2's narrowest and widest conv1x1+BN pairs at 224×224,
+#: B = 32 (M, K, N), in f32: expanded_conv_project (N = 16),
+#: block_1_expand (K = 16), block_16_project and Conv_1 (N = 1280)
+MOBILENET_PAIR_SHAPES = [(401408, 32, 16), (401408, 16, 96),
+                         (1568, 960, 320), (1568, 320, 1280)]
+
+
 @pytest.mark.parametrize("shape,dtype", ZOO_PAIR_SHAPES)
 def test_cuda_bn_kernels_at_the_zoo_graph_pair_shapes(card, shape, dtype):
     """matmul_epilogue, matmul_stats, bn_grad_stats and bn_conv_grads at
     the pair shapes the zoo's graph models give them, against their plain
     versions (f32 2e-5, bf16 2e-2, scaled by max(1, max |plain|)); one
     launch counted per call and a re-run with the same bits."""
+    _pair_kernels_against_plain(card, shape, dtype)
+
+
+@pytest.mark.parametrize("shape", MOBILENET_PAIR_SHAPES)
+def test_cuda_bn_kernels_at_the_mobilenet_v2_pair_shapes(card, shape):
+    """The four pair kernels at Keras MobileNetV2's narrowest and widest
+    pairs in f32, held as the zoo's pair shapes are."""
+    _pair_kernels_against_plain(card, shape, torch.float32)
+
+
+def _pair_kernels_against_plain(card, shape, dtype):
     m, k, n = shape
     atol = 2e-5 if dtype == torch.float32 else 2e-2
     gen = torch.Generator(device=card).manual_seed(8)

@@ -209,6 +209,55 @@ def test_the_int8_and_training_front_end_modules_are_among_the_checked_sources()
         assert f"deeplearning4j_tpu_torch/{module}.py" in names
 
 
+def test_the_profiler_and_import_front_end_modules_are_among_the_checked_sources():
+    """The profiler's capture and its trace decoder, the Keras importer,
+    SameDiff with its serialization and the TF importer (with the port's
+    own copy of the protobuf codec): held by the two rules above like
+    every module of the port."""
+    names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
+    for module in ("monitoring/profiler", "optimize/xplane",
+                   "keras_import/__init__", "keras_import/keras_import",
+                   "autodiff/__init__", "autodiff/tfproto",
+                   "autodiff/samediff", "autodiff/graph_serde",
+                   "autodiff/tf_import", "parallel/inference",
+                   "runtime/pipeline", "models/convert"):
+        assert f"deeplearning4j_tpu_torch/{module}.py" in names
+
+
+_READ_SAMEDIFF = """
+import sys
+from deeplearning4j_tpu_torch.autodiff import SameDiff
+from deeplearning4j_tpu_torch.util.model_guesser import ModelGuesser
+sd = SameDiff.load(sys.argv[1], device="cpu")
+guess = ModelGuesser.loadModelGuess(sys.argv[1], device="cpu")
+out = sd.outputSingle({"x": [[1.0, 2.0]]}, "y").tensor.tolist()
+bad = [m for m in sys.modules if m in ("jax", "jaxlib", "deeplearning4j_tpu")
+       or m.startswith(("jax.", "jaxlib.", "deeplearning4j_tpu."))]
+print(type(guess).__name__, out, bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_reading_a_jax_samediff_archive_imports_nothing_of_the_jax_package(
+        tmp_path):
+    """A JAX-written SameDiff archive (with a TF-imported op), loaded by a
+    fresh interpreter that has only the port: SameDiff.load and
+    ModelGuesser load no module of jax or of the JAX package."""
+    from deeplearning4j_tpu.autodiff import SameDiff as JSameDiff
+    sd = JSameDiff.create()
+    x = sd.placeHolder("x", None, 2)
+    w = sd.var("w", np.asarray([[1.0], [2.0]], np.float32))
+    sd._op_named("y", "tf.relu", None, x.mmul(w))
+    path = str(tmp_path / "sd.zip")
+    sd.save(path)
+    res = subprocess.run([sys.executable, "-c", _READ_SAMEDIFF, path],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=str(REPO))
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.split()[0] == "SameDiff"
+    assert "[[5.0]]" in res.stdout
+
+
 _WRITE_JAX_ARCHIVE = """
 import sys
 import numpy as np

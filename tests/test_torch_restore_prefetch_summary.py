@@ -1,7 +1,7 @@
 """Three contracts of the JAX package the port missed, each against the
 JAX package: `ZooModel.initPretrained(path=<zip>)` restores a
-ModelSerializer archive the JAX package wrote (a Keras .h5 still raises,
-naming the Keras import's ROADMAP item); `PrefetchIterator` can be
+ModelSerializer archive the JAX package wrote (a Keras .h5 whose layer
+names match none of the model's is refused); `PrefetchIterator` can be
 iterated twice (a `for` pass starts the base over) and forwards the
 iterator protocol to its base; `ComputationGraph.summary()` prints the
 reference's table."""
@@ -23,8 +23,11 @@ def test_init_pretrained_restores_a_zip_the_jax_package_wrote(tmp_path):
         path=path, device="cpu")
     got = np.asarray(net.output(torch.from_numpy(x)))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="A17"):
-        LeNet().initPretrained(path=str(tmp_path / "w.h5"))
+    h5py = pytest.importorskip("h5py")
+    with h5py.File(tmp_path / "w.h5", "w") as f:
+        f.create_group("model_weights").create_group("nomatch")
+    with pytest.raises(RuntimeError, match="no layer names"):
+        LeNet().initPretrained(path=str(tmp_path / "w.h5"), device="cpu")
     with pytest.raises(RuntimeError, match="No local pretrained"):
         LeNet().initPretrained(dataset="nowhere")
 

@@ -112,14 +112,17 @@ def test_post_routes(fleet, ui, tmp_path, monkeypatch):
     assert code == 200 and json.loads(body) == {"armed": True, "steps": 2}
     status = json.loads(_get(ui, "/profile")[2])
     assert status["active"]["steps"] == 2
-    mon.profiler.active_session().finish()
-
-    def not_ported(steps=None):
-        raise NotImplementedError("capture comes with ROADMAP A16")
-
-    monkeypatch.setattr(mon.profiler, "profile_next_steps", not_ported)
-    code, _, body = _get(ui, "/profile", method="POST")
-    assert code == 501 and "A16" in json.loads(body)["error"]
+    # the capture is ported (the route answered 501 before): two steps'
+    # hooks close the window into a report that GET /profile serves
+    session = mon.profiler.active_session()
+    session.device = "cpu"
+    session.step_start()
+    session.step_end()
+    session.step_end()
+    status = json.loads(_get(ui, "/profile")[2])
+    assert status["active"] is None
+    assert status["last"]["state"] == "done", status["last"]["error"]
+    assert status["last"]["report"]["steps"] == 2
 
 
 def test_health_answers_503_once_serving_is_dead(ui):
