@@ -18,6 +18,11 @@
     python3 chip_smoke.py --only multihost  # card, build, multihost
     python3 chip_smoke.py --only keras    # card, build, keras
     python3 chip_smoke.py --only samediff  # card, build, samediff
+    python3 chip_smoke.py --only onnx     # card, build, onnx
+    python3 chip_smoke.py --only spark    # card, build, spark
+    python3 chip_smoke.py --only arbiter  # card, build, spark's batches,
+                                          # arbiter
+    python3 chip_smoke.py --only clustering  # card, build, clustering
     python3 chip_smoke.py --profile  # and phase 14
 
 Phases, in order; any failure exits non-zero and prints no result:
@@ -455,6 +460,59 @@ Phases, in order; any failure exits non-zero and prints no result:
             launches on the SameDiff path (counted, checked zero).
             Printed: the node count, ms per `output()` and per fit step,
             the archive's bytes and seconds.
+24. onnx:   the fused `ResNet50()` (224×224×3, 1000 classes, the resnet
+            phase's BN draws) written here as an opset-13 ONNX ModelProto
+            (`graph_onnx`: NCHW, OIHW weights and the BN running
+            statistics as raw_data initializers; Conv, BatchNormalization,
+            Relu, MaxPool, Add, GlobalAveragePool, Flatten, Gemm,
+            Softmax), imported by `importOnnx` on the card: `output()` at
+            B=32 within RESNET_RTOL of the fused net's forward, top-1 equal
+            on all 32, that forward launching matmul_epilogue 36 times and
+            the SameDiff path none; `convertConstantsToVariables` (weights,
+            γ, β), 3 `fit` steps on one batch (Adam) whose loss falls;
+            `save`, then `load_samediff` and `ModelGuesser`, outputs
+            bit-identical. Printed: nodes, import s, output() ms, fit
+            ms/step, the archive's bytes and seconds.
+25. spark:  SPARK's 10 × 32 seeded 256×256 RGB images written as PNGs in
+            class folders, read by `ImageRecordReader(224, 224, 3,
+            ParentPathLabelGenerator(), PipelineImageTransform(flip, random
+            192² crop), nativeLoader=True)` and `ImageRecordDataSetIterator`
+            (32, scaled to [0, 1]); the 10 batches parallelized over 4
+            slices into `SparkComputationGraph(SharedTrainingMaster)` over
+            fused ResNet-50 (10 classes, Nesterovs 0.01) at one NCCL rank,
+            cuDNN deterministic: 2 epochs, the second under torch.profiler
+            (ms/step, images/s, idle share) with 36 launches of each of B5,
+            B7, B8 a step; the parameters and BN state bit-equal to
+            `ParallelWrapper.Builder(net).workers(1)` over the same
+            `ListDataSetIterator` and to `ParameterAveragingTrainingMaster
+            (averagingFrequency 5)`; `evaluate(rdd)` equal to an
+            `Evaluation` over `net.output`. Printed: the host's record ms a
+            batch (decode, C++ resize, flip, crop, PIL resize).
+26. arbiter: `LocalOptimizationRunner(TPEGenerator({lr: log 1e-4..1e-1,
+            momentum: 0.9 | 0.95}, seed 5, 2 startup trials))` over 4 fresh
+            fused ResNet-50 candidates (Nesterovs), each 5 graphed steps on
+            the spark phase's batches (36 launches of each of B5, B7, B8 a
+            replayed step), scored by the loss on a held-out batch; and a
+            `MultiLayerSpace` at the zoo LeNet's widths (learning rate and
+            dense width as spaces) under `RandomSearchGenerator`, 4
+            candidates of 1 epoch, fed by `CSVRecordReader` ->
+            `TransformProcess` -> `RecordReaderDataSetIterator` over a
+            10,000-row seeded MNIST-shaped CSV written here. Gates: every
+            score finite, `bestResult()` the minimum, a second generator fed
+            the same scores yields the same candidates. Printed: each
+            candidate's seconds, capture included.
+27. clustering: CLUSTER's 100,000 points of a 100-blob mixture at D =
+            2048 (ResNet-50's pooled width; 819 MB f32) made on the card:
+            `KMeansClustering.setup(100, 20, "euclidean", k-means++)`
+            purity ≥ CLUSTER_PURITY and, from the same start, centers within
+            CLUSTER_RTOL of an f64 Lloyd with equal assignments; `knn` of
+            10,000 queries, k = 10, each of 256 picks within KNN_TIE_RTOL of
+            an f64 brute force's k-th best; `VPTree` on 10,000 points equal
+            to `knn`, `KDTree` at D = 3 equal to a brute force;
+            `BarnesHutTsne` on 5,000 points, 500 iterations, whose KL falls;
+            `UIServer.attachTsne` of 3-D vectors; `NearestNeighborsServer`
+            over loopback answering 16 queries as `knn`. Printed: ms per
+            Lloyd iteration, knn ms, t-SNE s, peak allocated bytes.
 
 Phases 5, 7 and 8 run as a user runs them: the server and `fit` replay
 CUDA graphs on the card by default. The kernels' launch counters are set
@@ -468,7 +526,10 @@ layers, resilience and quant phases' counts are set to 0 before each of
 their paths, and the parallel and multihost phases' ranks set theirs to
 0 before each of theirs; the keras phase's before its forward, its
 profiled steps, its timed steps and BERT's profiled steps, the samediff
-phase's before its import. Every
+phase's before its import, the onnx phase's before the import and again
+before the fused forward, the spark phase's before its second epoch and
+the arbiter phase's before each candidate's replayed steps and the LeNet
+search. Every
 number is measured in this run; the last lines are the kernel JSON object
 and the `{"ok": true, "device": ...}` line. Imports nothing of JAX.
 """
@@ -487,6 +548,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -549,6 +611,7 @@ from deeplearning4j_tpu_torch.nn.conf.variational import \
     BernoulliReconstructionDistribution
 from deeplearning4j_tpu_torch.nn.conf.weightnoise import (DropConnect,
                                                           WeightNoise)
+from deeplearning4j_tpu_torch.parallel.wrapper import ParallelWrapper
 from deeplearning4j_tpu_torch.parallel.inference import (InferenceMode,
                                                          ParallelInference)
 from deeplearning4j_tpu_torch.optimize import (
@@ -570,7 +633,12 @@ from deeplearning4j_tpu_torch.ui import (InMemoryStatsStorage, StatsListener,
                                          UIServer)
 from deeplearning4j_tpu_torch.util.model_guesser import ModelGuesser
 from deeplearning4j_tpu_torch.util.model_serializer import ModelSerializer
-from deeplearning4j_tpu_torch.autodiff import TrainingConfig, importFrozenTF
+from deeplearning4j_tpu_torch.autodiff import (TrainingConfig, VariableType,
+                                               importFrozenTF, importOnnx)
+from deeplearning4j_tpu_torch.clustering import (BarnesHutTsne, KDTree,
+                                                 KMeansClustering,
+                                                 NearestNeighborsServer,
+                                                 VPTree, knn)
 from deeplearning4j_tpu_torch.autodiff.graph_serde import load_samediff
 from deeplearning4j_tpu_torch.keras_import import KerasModelImport
 from deeplearning4j_tpu_torch.optimize import ProfilerListener, xplane
@@ -9074,6 +9142,970 @@ def phase_samediff(cfg, params):
                          if k != "flash_fwd"}}
 
 
+# -- ONNX ---------------------------------------------------------------------
+#: the onnx phase (`--only onnx`): ResNet-50 written as an ONNX ModelProto
+#: from the fused net's seeded weights and BN draws, imported into SameDiff
+ONNX = dict(batch=32, size=224, steps=3, lr=1e-4, seed=31)
+ONNX_DIR = Path(__file__).resolve().parent / "build" / "onnx"
+
+
+def onnx_tensor(name, arr):
+    """A TensorProto: dims, data_type, name and raw_data (little-endian)."""
+    from deeplearning4j_tpu_torch.autodiff.tfproto import (_put_bytes,
+                                                           _put_varint)
+    arr = np.ascontiguousarray(arr)
+    dt = {np.dtype("float32"): 1, np.dtype("int64"): 7,
+          np.dtype("int32"): 6}[arr.dtype]
+    out = bytearray()
+    for d in arr.shape:
+        _put_varint(out, 1, d)          # dims
+    _put_varint(out, 2, dt)             # data_type
+    _put_bytes(out, 8, name.encode())   # name
+    _put_bytes(out, 9, arr.tobytes())   # raw_data
+    return bytes(out)
+
+
+def onnx_attr(name, value):
+    import struct
+    from deeplearning4j_tpu_torch.autodiff.tfproto import (_field, _put_bytes,
+                                                           _put_varint)
+    out = bytearray()
+    _put_bytes(out, 1, name.encode())
+    if isinstance(value, float):
+        _field(out, 2, 5)
+        out.extend(struct.pack("<f", value))
+    elif isinstance(value, str):
+        _put_bytes(out, 4, value.encode())  # s
+    elif isinstance(value, int):
+        _put_varint(out, 3, value)
+    elif isinstance(value, (list, tuple)):
+        for v in value:
+            _put_varint(out, 8, int(v))     # ints
+    elif isinstance(value, np.ndarray):
+        _put_bytes(out, 5, onnx_tensor("", value))  # t
+    return bytes(out)
+
+
+def onnx_node(op, inputs, outputs, name="", **attrs):
+    from deeplearning4j_tpu_torch.autodiff.tfproto import _put_bytes
+    out = bytearray()
+    for i in inputs:
+        _put_bytes(out, 1, i.encode())
+    for o in outputs:
+        _put_bytes(out, 2, o.encode())
+    _put_bytes(out, 3, name.encode())
+    _put_bytes(out, 4, op.encode())
+    for k, v in attrs.items():
+        _put_bytes(out, 5, onnx_attr(k, v))
+    return bytes(out)
+
+
+def onnx_value_info(name, dims):
+    from deeplearning4j_tpu_torch.autodiff.tfproto import (_put_bytes,
+                                                           _put_varint)
+    shape = bytearray()
+    for d in dims:
+        dim = bytearray()
+        _put_varint(dim, 1, d)
+        _put_bytes(shape, 1, bytes(dim))
+    tensor_type = bytearray()
+    _put_varint(tensor_type, 1, 1)          # elem_type FLOAT
+    _put_bytes(tensor_type, 2, bytes(shape))
+    type_proto = bytearray()
+    _put_bytes(type_proto, 1, bytes(tensor_type))
+    out = bytearray()
+    _put_bytes(out, 1, name.encode())
+    _put_bytes(out, 2, bytes(type_proto))
+    return bytes(out)
+
+
+def onnx_model(nodes, initializers, inputs, outputs, opset=None):
+    """ModelProto bytes (ir_version 7) of NodeProto bytes, {name: array}
+    initializers, {name: dims} graph inputs and output names."""
+    from deeplearning4j_tpu_torch.autodiff.tfproto import (_put_bytes,
+                                                           _put_varint)
+    graph = bytearray()
+    for n in nodes:
+        _put_bytes(graph, 1, n)
+    _put_bytes(graph, 2, b"test_graph")
+    for name, arr in initializers.items():
+        _put_bytes(graph, 5, onnx_tensor(name, arr))
+    for name, dims in inputs.items():
+        _put_bytes(graph, 11, onnx_value_info(name, dims))
+    for name in outputs:
+        _put_bytes(graph, 12, onnx_value_info(name, [1]))
+    model = bytearray()
+    _put_varint(model, 1, 7)                # ir_version
+    _put_bytes(model, 7, bytes(graph))      # graph
+    if opset is not None:
+        osid = bytearray()
+        _put_bytes(osid, 1, b"")            # domain = default
+        _put_varint(osid, 2, opset)         # version
+        _put_bytes(model, 8, bytes(osid))   # opset_import
+    return bytes(model)
+
+
+def graph_onnx(net, batch):
+    """The ComputationGraph `net` (NHWC, one input, one softmax output) as
+    an opset-13 ONNX ModelProto, NCHW as exporters write it: Conv (OIHW
+    weights, explicit pads of the layer's SAME rule), BatchNormalization
+    (the running statistics), Relu, MaxPool, Add, GlobalAveragePool,
+    Flatten, Gemm and Softmax; every weight a raw_data initializer. The
+    input is "input" (batch, C, H, W); the outputs "<output>" (the
+    probabilities) and "<output>_logits". Handles the layer and vertex
+    kinds ResNet-50 is made of; any other raises."""
+    from deeplearning4j_tpu_torch.nn.conf.graph_vertices import \
+        ElementWiseVertex
+    from deeplearning4j_tpu_torch.nn.conf.layers import (
+        ActivationLayer, BatchNormalization, GlobalPoolingLayer,
+        SubsamplingLayer)
+    conf = net.conf
+    (inp,), (out,) = conf.input_names, conf.output_names
+    it = conf.input_types[0]
+    hw = {inp: (it.height, it.width)}
+    nodes, inits = [], {}
+
+    def host(t):
+        return t.detach().float().cpu().numpy()
+
+    def emit(op, args, name, layer, **attrs):
+        """`op` producing node `name`, through the layer's activation."""
+        a = str(getattr(layer, "activation", None) or "identity").lower()
+        if a not in ("identity", "relu"):
+            raise ValueError(f"graph_onnx: {name}: activation {a!r}")
+        y = name if a == "identity" else f"{name}_pre"
+        nodes.append(onnx_node(op, args, [y], **attrs))
+        if a == "relu":
+            nodes.append(onnx_node("Relu", [y], [name]))
+
+    for name in conf.topo_order:
+        node = conf.nodes[name]
+        if node.kind == "input":
+            continue
+        ref, ins = node.ref, node.inputs
+        if isinstance(ref, ElementWiseVertex) and ref.op == "add":
+            nodes.append(onnx_node("Add", ins, [name]))
+            hw[name] = hw[ins[0]]
+        elif isinstance(ref, ConvolutionLayer):
+            h, w = hw[ins[0]]
+            (pt, pb), (pl, pr) = ref._explicit_padding(h, w)
+            inits[f"{name}_W"] = np.ascontiguousarray(
+                host(net._params[name]["W"]).transpose(3, 2, 0, 1))
+            args = [ins[0], f"{name}_W"]
+            if ref.hasBias:
+                inits[f"{name}_b"] = host(net._params[name]["b"])
+                args.append(f"{name}_b")
+            emit("Conv", args, name, ref, kernel_shape=list(ref.kernelSize),
+                 strides=list(ref.stride), dilations=list(ref.dilation),
+                 pads=[pt, pl, pb, pr])
+            ot = conf.node_output_types[name]
+            hw[name] = (ot.height, ot.width)
+        elif isinstance(ref, BatchNormalization):
+            p, st = net._params[name], net._state[name]
+            for k, v in (("gamma", p["gamma"]), ("beta", p["beta"]),
+                         ("mean", st["mean"]), ("var", st["var"])):
+                inits[f"{name}_{k}"] = host(v)
+            emit("BatchNormalization",
+                 [ins[0]] + [f"{name}_{k}" for k in ("gamma", "beta",
+                                                    "mean", "var")],
+                 name, ref, epsilon=float(ref.eps))
+            hw[name] = hw[ins[0]]
+        elif isinstance(ref, ActivationLayer) and \
+                str(ref.activation).lower() == "relu":
+            nodes.append(onnx_node("Relu", [ins[0]], [name]))
+            hw[name] = hw[ins[0]]
+        elif isinstance(ref, SubsamplingLayer) and ref.poolingType == "max":
+            h, w = hw[ins[0]]
+            pl, pr, pt, pb = ref._pads(h, w)
+            nodes.append(onnx_node(
+                "MaxPool", [ins[0]], [name],
+                kernel_shape=list(ref.kernelSize), strides=list(ref.stride),
+                pads=[pt, pl, pb, pr]))
+            ot = conf.node_output_types[name]
+            hw[name] = (ot.height, ot.width)
+        elif isinstance(ref, GlobalPoolingLayer) and \
+                str(ref.poolingType).lower() == "avg":
+            nodes.append(onnx_node("GlobalAveragePool", [ins[0]],
+                                   [f"{name}_gap"]))
+            nodes.append(onnx_node("Flatten", [f"{name}_gap"], [name],
+                                   axis=1))
+        elif isinstance(ref, OutputLayer) and name == out:
+            inits[f"{name}_W"] = host(net._params[name]["W"])
+            inits[f"{name}_b"] = host(net._params[name]["b"])
+            nodes.append(onnx_node("Gemm", [ins[0], f"{name}_W",
+                                            f"{name}_b"],
+                                   [f"{name}_logits"]))
+            nodes.append(onnx_node("Softmax", [f"{name}_logits"], [name],
+                                   axis=-1))
+        else:
+            raise ValueError(f"graph_onnx: {name}: {type(ref).__name__} is "
+                             "not in the writer's set")
+    return onnx_model(nodes, inits,
+                      {inp: [batch, it.channels, it.height, it.width]},
+                      [out, f"{out}_logits"], opset=13)
+
+
+def _fused_resnet(**zoo):
+    """ResNet-50 (the zoo's, `zoo` to ResNet50) on the card with the
+    conv1x1+BN fusion on and the resnet phase's seeded BN draws."""
+    with _fusion(True):
+        net = ResNet50(**zoo).init(DEV)
+    _perturb_bn(net, RESNET["seed"])
+    if len(net._fused_pairs) != EPILOGUE_PAIRS:
+        raise AssertionError(f"{len(net._fused_pairs)} fused pairs, "
+                             f"expected {EPILOGUE_PAIRS}")
+    return net
+
+
+def phase_onnx():
+    """ResNet-50 written as an ONNX ModelProto, imported on the card and
+    held to the fused net's forward; 3 fit steps; the archive saved and
+    reloaded two ways with bit-identical outputs."""
+    with _no_tf32():
+        net = _fused_resnet(inputShape=(ONNX["size"], ONNX["size"], 3))
+        b = ONNX["batch"]
+        rng = np.random.default_rng(ONNX["seed"])
+        hw = ONNX["size"]
+        x = rng.standard_normal((b, hw, hw, 3)).astype(np.float32)
+        y = np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, b)]
+        t0 = time.perf_counter()
+        data = graph_onnx(net, b)
+        write_s = time.perf_counter() - t0
+        _reset_counts()
+        t0 = time.perf_counter()
+        sd = importOnnx(data)
+        torch.cuda.synchronize()
+        import_s = time.perf_counter() - t0
+        n_nodes = len(sd._nodes)
+        ops = sum(1 for v in sd._nodes.values()
+                  if v.vtype == VariableType.ARRAY)
+        feeds = {"input": np.ascontiguousarray(x.transpose(0, 3, 1, 2))}
+        got = sd.output(feeds, ["fc"])["fc"].tensor
+        ms = time_ms(lambda: sd.output(feeds, ["fc"]), iters=5)
+        sd_launches = _counts()
+        _reset_counts()
+        want = net.output(x).tensor
+        torch.cuda.synchronize()
+        fwd_launches = _counts()
+        err = float((got - want).abs().max() / want.abs().max())
+        top1 = int((got.argmax(-1) == want.argmax(-1)).sum())
+        log(f"[onnx] ResNet-50 as ONNX (opset 13, {len(data):,} bytes, "
+            f"written in {write_s:.2f} s): {n_nodes} nodes ({ops} "
+            f"ops), imported in {import_s:.2f} s; output() at B={b}: "
+            f"{ms:.3f} ms; max|onnx - fused| / max|fused| = {err:.3e} (rtol "
+            f"{RESNET_RTOL:.0e}), top-1 equal on {top1}/{b}; the fused "
+            f"forward launched matmul_epilogue "
+            f"{fwd_launches['matmul_epilogue']} times")
+        if not err <= RESNET_RTOL or top1 != b:
+            raise AssertionError(f"onnx: the import differs from the fused "
+                                 f"forward: {err:.3e}, top-1 {top1}/{b}")
+        if fwd_launches["matmul_epilogue"] != EPILOGUE_PAIRS:
+            raise AssertionError(f"onnx: the fused forward launched "
+                                 f"{fwd_launches}")
+        if any(sd_launches.values()):
+            raise AssertionError(f"onnx: the SameDiff path launched "
+                                 f"kernels: {sd_launches}")
+        del want, got
+        # fine-tune: the initializers but BN's running statistics become
+        # variables
+        weights = [n for n in sd._values if n.endswith(
+            ("_W", "_b", "_gamma", "_beta"))]
+        sd.convertConstantsToVariables(*weights)
+        labels = sd.placeHolder("labels", None, 1000)
+        sd.loss.softmaxCrossEntropy("loss", labels,
+                                    sd.getVariable("fc_logits"))
+        sd.setLossVariables("loss")
+        sd.setTrainingConfig(TrainingConfig.Builder()
+                             .updater(Adam(ONNX["lr"])).build())
+        feeds_l = dict(feeds, labels=y)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = [sd.fit(placeholders=feeds_l)
+                  for _ in range(ONNX["steps"])]
+        torch.cuda.synchronize()
+        fit_ms = (time.perf_counter() - t0) * 1e3 / ONNX["steps"]
+        log(f"[onnx] {ONNX['steps']} fit steps (Adam {ONNX['lr']}, "
+            f"{len(weights)} variables, B={b}): {fit_ms:.3f} ms/step, "
+            f"losses {[round(v, 5) for v in losses]}")
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"onnx: the loss did not fall: {losses}")
+        ONNX_DIR.mkdir(parents=True, exist_ok=True)
+        path = ONNX_DIR / "resnet50_onnx.sdz"
+        try:
+            ref = sd.output(feeds, ["fc"])["fc"].tensor.clone()
+            t0 = time.perf_counter()
+            sd.save(str(path))
+            save_s = time.perf_counter() - t0
+            nbytes = path.stat().st_size
+            t0 = time.perf_counter()
+            back = load_samediff(str(path))
+            load_s = time.perf_counter() - t0
+            guess = ModelGuesser.loadModelGuess(str(path))
+            same = {what: torch.equal(g.output(feeds, ["fc"])["fc"].tensor,
+                                      ref)
+                    for what, g in (("load_samediff", back),
+                                    ("ModelGuesser", guess))}
+        finally:
+            shutil.rmtree(ONNX_DIR, ignore_errors=True)
+        log(f"[onnx] archive {nbytes:,} bytes: save {save_s:.2f} s, load "
+            f"{load_s:.2f} s; outputs bit-identical {same}")
+        if not all(same.values()) or not isinstance(guess, type(sd)):
+            raise AssertionError(f"onnx: reloaded outputs differ: {same}, "
+                                 f"{type(guess)}")
+    del sd, back, guess, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"model_bytes": len(data), "write_s": write_s,
+            "nodes": n_nodes, "ops": ops,
+            "import_s": import_s, "output_ms": ms, "rel_err": err,
+            "top1_equal": top1, "fit_ms": fit_ms, "losses": losses,
+            "variables": len(weights), "archive_bytes": nbytes,
+            "save_s": save_s, "load_s": load_s, "bit_identical": same,
+            "launches": fwd_launches}
+
+
+# -- spark ----------------------------------------------------------------------
+#: the spark phase (`--only spark`): CLASSES × PER_CLASS seeded RGB images
+#: at SIZE², written as PNGs in class folders and read back by datavec
+#: (decode, the C++ bilinear resize to 224², a flip and a random 192² crop
+#: resized back), batched for SparkComputationGraph over fused ResNet-50
+SPARK = dict(classes=10, per_class=32, size=256, input=224, crop=192,
+             batch=32, epochs=2, slices=4, lr=0.01, seed=37, backend="nccl")
+SPARK_DIR = Path(__file__).resolve().parent / "build" / "spark"
+
+
+def _spark_images():
+    """(uint8 images (n, SIZE, SIZE, 3), class ids): each class a seeded
+    colour pattern plus noise."""
+    s = SPARK
+    rng = np.random.default_rng(s["seed"])
+    yy, xx = np.mgrid[0:s["size"], 0:s["size"]].astype(np.float32) / s["size"]
+    imgs, ids = [], []
+    for c in range(s["classes"]):
+        phase = c * 2.39996323
+        pattern = 0.5 + 0.5 * np.sin((1 + c % 5) * 2 * np.pi * xx + phase) \
+            * np.cos((1 + c // 5) * 2 * np.pi * yy + 0.5 * phase)
+        colour = rng.uniform(0.3, 1.0, 3).astype(np.float32)
+        x = pattern[None, :, :, None] * colour + 0.15 * rng.standard_normal(
+            (s["per_class"], s["size"], s["size"], 3), dtype=np.float32)
+        imgs.append((np.clip(x, 0, 1) * 255).astype(np.uint8))
+        ids += [c] * s["per_class"]
+    return np.concatenate(imgs), np.asarray(ids)
+
+
+def _spark_batches():
+    """The images through PNG files and datavec: (DataSets of SPARK
+    ["batch"] in [0, 1], host seconds per batch to read them, bytes)."""
+    from PIL import Image
+    from deeplearning4j_tpu_torch.datasets.normalizers import \
+        ImagePreProcessingScaler
+    from deeplearning4j_tpu_torch.datavec import (
+        FlipImageTransform, ImageRecordDataSetIterator, ImageRecordReader,
+        ParentPathLabelGenerator, PipelineImageTransform,
+        RandomCropTransform)
+    imgs, ids = _spark_images()
+    shutil.rmtree(SPARK_DIR, ignore_errors=True)
+    for i, (img, c) in enumerate(zip(imgs, ids)):
+        d = SPARK_DIR / f"class_{c:02d}"
+        d.mkdir(parents=True, exist_ok=True)
+        Image.fromarray(img).save(d / f"img_{i:04d}.png")
+    png_bytes = sum(p.stat().st_size for p in SPARK_DIR.rglob("*.png"))
+    reader = ImageRecordReader(
+        SPARK["input"], SPARK["input"], 3, ParentPathLabelGenerator(),
+        PipelineImageTransform(FlipImageTransform(),
+                               RandomCropTransform(SPARK["crop"],
+                                                   SPARK["crop"])),
+        seed=SPARK["seed"], nativeLoader=True).initialize(SPARK_DIR,
+                                                          shuffle=True)
+    it = ImageRecordDataSetIterator(reader, SPARK["batch"],
+                                    preprocessor=ImagePreProcessingScaler())
+    t0 = time.perf_counter()
+    batches = list(it)
+    record_s = (time.perf_counter() - t0) / len(batches)
+    shutil.rmtree(SPARK_DIR, ignore_errors=True)
+    return batches, record_s, png_bytes
+
+
+def _spark_net():
+    hw = SPARK["input"]
+    return _fused_resnet(numClasses=SPARK["classes"],
+                         updater=Nesterovs(SPARK["lr"], 0.9),
+                         inputShape=(hw, hw, 3))
+
+
+def _net_state(net):
+    """(parameters, BN state) of `net`, cloned."""
+    return _snapshot(net._params), _snapshot(net._state)
+
+
+def _same_state(a, b):
+    return not any(_equal_trees(x, y) for x, y in zip(a, b))
+
+
+@contextlib.contextmanager
+def _one_rank(backend):
+    """A process group of one rank (NCCL on the card) for the span."""
+    import socket
+    import torch.distributed as dist
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_spark(batches=None):
+    """datavec's image records feeding SparkComputationGraph over fused
+    ResNet-50 at one NCCL rank; held to ParallelWrapper bit for bit and to
+    ParameterAveragingTrainingMaster; returns (stats, the batches)."""
+    from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+    from deeplearning4j_tpu_torch.spark import (
+        JavaSparkContext, ParameterAveragingTrainingMaster, SharedTrainingMaster,
+        SparkComputationGraph, SparkConf)
+    s = SPARK
+    if batches is None:
+        batches, record_s, png_bytes = _spark_batches()
+    else:
+        record_s = png_bytes = None
+    steps = len(batches)
+    with _no_tf32(), _deterministic(), _one_rank(s["backend"]):
+        sc = JavaSparkContext(SparkConf().setMaster("local[*]"))
+        rdd = sc.parallelize(batches, numSlices=s["slices"])
+        shared = (SharedTrainingMaster.Builder(s["batch"])
+                  .batchSizePerWorker(s["batch"]).build())
+        net = _spark_net()
+        spark = SparkComputationGraph(sc, net, shared)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        spark.fit(rdd)                      # epoch 1: eager step, capture
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        _reset_counts()
+        prof, _ = _profiled("spark epoch 2", lambda: spark.fit(rdd),
+                            groups=PROFILED_TRAIN)
+        launches = _counts()
+        wall = (prof["wall_ms"] / 1e3 if prof is not None else None)
+        per_step = {k: launches[k] / steps for k in TRAIN_KERNELS}
+        ev = spark.evaluate(rdd)
+        manual = Evaluation()
+        for ds in batches:
+            manual.eval(ds.labels, net.output(ds.features).numpy())
+        eval_same = (ev.accuracy() == manual.accuracy()
+                     and np.array_equal(ev.confusionMatrix(),
+                                        manual.confusionMatrix()))
+        got = _net_state(net)
+        score = spark.getScore()
+        del spark, net
+        gc.collect()
+        # the same steps through ParallelWrapper, then the averaging master
+        ref = _spark_net()
+        (ParallelWrapper.Builder(ref).workers(1)
+         .prefetchBuffer(shared.workerPrefetchNumBatches).build()
+         .fit(ListDataSetIterator(batches, s["batch"]), epochs=s["epochs"]))
+        pw_same = _same_state(got, _net_state(ref))
+        del ref
+        gc.collect()
+        avg = _spark_net()
+        pam = (ParameterAveragingTrainingMaster.Builder(s["batch"])
+               .batchSizePerWorker(s["batch"]).averagingFrequency(5).build())
+        SparkComputationGraph(sc, avg, pam).fit(rdd, epochs=s["epochs"])
+        pa_same = _same_state(got, _net_state(avg))
+        del avg
+        gc.collect()
+        torch.cuda.empty_cache()
+    b = s["batch"]
+    out = {"batches": steps, "record_ms_per_batch": (record_s * 1e3 if
+                                                     record_s else None),
+           "png_bytes": png_bytes, "first_epoch_s": first_s,
+           "ms_per_step": wall * 1e3 / steps if wall else None,
+           "images_per_s": b * steps / wall if wall else None,
+           "idle_share": prof["idle_share"] if prof else None,
+           "launches": launches, "launches_per_step": per_step,
+           "score": score, "accuracy": ev.accuracy(),
+           "evaluate_equal": eval_same, "wrapper_bit_equal": pw_same,
+           "averaging_bit_equal": pa_same}
+    rec = (f"{record_s * 1e3:.1f} ms of host record time per batch (PNG "
+           f"decode, C++ resize, flip, crop, PIL resize; {png_bytes:,} PNG "
+           f"bytes)" if record_s else "batches handed in")
+    log(f"[spark] {s['classes']} classes x {s['per_class']} images "
+        f"{s['size']}x{s['size']} -> {steps} batches of {b} at "
+        f"{s['input']}x{s['input']}: "
+        f"{rec}; SparkComputationGraph(SharedTrainingMaster, one "
+        f"{s['backend']} rank) over fused ResNet-50, {s['epochs']} epochs of "
+        f"{steps} steps: epoch 1 (eager step and capture) {first_s:.2f} s, "
+        f"epoch 2 {out['ms_per_step']:.2f} ms/step, "
+        f"{out['images_per_s']:.1f} images/s, card idle share "
+        f"{out['idle_share']:.4f} (under torch.profiler); launches per "
+        f"step {per_step}; evaluate(rdd) accuracy {ev.accuracy():.4f} "
+        f"equals Evaluation over net.output {eval_same}; parameters and BN "
+        f"state bit-equal to ParallelWrapper's {pw_same}, to "
+        f"ParameterAveragingTrainingMaster's {pa_same}")
+    wrong = {k: n for k, n in per_step.items() if n != EPILOGUE_PAIRS}
+    if wrong:
+        raise AssertionError(f"spark: launches per step {wrong}")
+    if not (eval_same and pw_same and pa_same and np.isfinite(score)):
+        raise AssertionError(f"spark: evaluate {eval_same}, wrapper "
+                             f"{pw_same}, averaging {pa_same}, score {score}")
+    return out, batches
+
+
+# -- arbiter --------------------------------------------------------------------
+#: the arbiter phase (`--only arbiter`): (a) TPE over fused ResNet-50's
+#: Nesterovs rate and momentum on the spark phase's batches, (b) random
+#: search over the zoo LeNet's widths fed by a seeded MNIST-shaped CSV
+ARBITER = dict(resnet_candidates=4, startup=2, steps=5, tpe_seed=5,
+               rows=10_000, held=1_000, lenet_batch=64, lenet_candidates=4,
+               random_seed=3)
+
+
+def _mnist_csv(path):
+    """ARBITER["rows"] seeded MNIST-shaped rows (784 pixels 0-255 and a
+    label), the port's synthetic MNIST patterns, written as CSV."""
+    from deeplearning4j_tpu_torch.datasets.iterators import _synthetic_images
+    imgs, y = _synthetic_images(ARBITER["rows"], 28, 28, 1, 10, 123)
+    table = np.concatenate([imgs.reshape(len(imgs), -1).astype(np.int64),
+                            y[:, None]], axis=1)
+    np.savetxt(path, table, fmt="%d", delimiter=",")
+
+
+def _lenet_space():
+    from deeplearning4j_tpu_torch.arbiter import (ContinuousParameterSpace,
+                                                  DiscreteParameterSpace,
+                                                  LayerSpace, MultiLayerSpace,
+                                                  NesterovsSpace)
+    return (MultiLayerSpace.Builder().seed(12345).weightInit("xavier")
+            .updater(NesterovsSpace(ContinuousParameterSpace(1e-3, 1e-1,
+                                                             log=True)))
+            .addLayer(LayerSpace(ConvolutionLayer, kernelSize=(5, 5),
+                                 stride=(1, 1), nOut=20,
+                                 activation="identity"))
+            .addLayer(LayerSpace(SubsamplingLayer, poolingType="max",
+                                 kernelSize=(2, 2), stride=(2, 2)))
+            .addLayer(LayerSpace(ConvolutionLayer, kernelSize=(5, 5),
+                                 stride=(1, 1), nOut=50,
+                                 activation="identity"))
+            .addLayer(LayerSpace(SubsamplingLayer, poolingType="max",
+                                 kernelSize=(2, 2), stride=(2, 2)))
+            .addLayer(LayerSpace(DenseLayer, activation="relu",
+                                 nOut=DiscreteParameterSpace(250, 500, 750)))
+            .addLayer(LayerSpace(OutputLayer, nOut=10, activation="softmax",
+                                 lossFunction="negativeloglikelihood"))
+            .setInputType(InputType.convolutionalFlat(28, 28, 1)).build())
+
+
+def _replayed(make_gen, results):
+    """The candidates a fresh generator yields when fed `results`' scores
+    in turn."""
+    gen, seq = make_gen(), []
+    for r in results:
+        c = gen.next_candidate()
+        gen.report(c, r.score)
+        seq.append(c)
+    return seq
+
+
+def _arbiter_gate(what, runner, make_gen):
+    scores = [r.score for r in runner.results]
+    best = runner.bestResult()
+    replay = _replayed(make_gen, runner.results)
+    same = replay == [r.params for r in runner.results]
+    log(f"[arbiter] {what}: " + "; ".join(
+        f"{r.params} -> {r.score:.5f} in {r.duration_s:.2f} s"
+        for r in runner.results) + f"; best {best.params} {best.score:.5f}; "
+        f"a second generator fed the same scores yields the same "
+        f"candidates {same}")
+    if not (np.isfinite(scores).all() and best.score == min(scores)
+            and same):
+        raise AssertionError(f"arbiter: {what}: scores {scores}, best "
+                             f"{best.score}, replay {same}")
+
+
+def phase_arbiter(batches=None):
+    """Hyperparameter search: TPE over fused ResNet-50, random search over
+    a LeNet MultiLayerSpace fed by datavec from a CSV."""
+    from deeplearning4j_tpu_torch.arbiter import (ContinuousParameterSpace,
+                                                  DiscreteParameterSpace,
+                                                  LocalOptimizationRunner,
+                                                  RandomSearchGenerator,
+                                                  TPEGenerator)
+    from deeplearning4j_tpu_torch.datasets.normalizers import \
+        ImagePreProcessingScaler
+    from deeplearning4j_tpu_torch.datavec import (CollectionRecordReader,
+                                                  CSVRecordReader,
+                                                  RecordReaderDataSetIterator,
+                                                  Schema, TransformProcess)
+    a = ARBITER
+    if batches is None:
+        batches = _spark_batches()[0]
+    train, held = batches[:a["steps"]], batches[-1]
+    space = {"lr": ContinuousParameterSpace(1e-4, 1e-1, log=True),
+             "momentum": DiscreteParameterSpace(0.9, 0.95)}
+
+    def make_tpe():
+        return TPEGenerator(space, seed=a["tpe_seed"],
+                            startupTrials=a["startup"])
+
+    launches = []
+
+    def build(p):
+        hw = SPARK["input"]
+        return _fused_resnet(numClasses=SPARK["classes"],
+                             updater=Nesterovs(p["lr"], p["momentum"]),
+                             inputShape=(hw, hw, 3))
+
+    def score(net):
+        # the first fit runs eagerly and the second captures the step's
+        # graph; the launches are counted over the replays after it
+        for ds in train[:2]:
+            net.fit(ds)
+        torch.cuda.synchronize()
+        _reset_counts()
+        for ds in train[2:]:
+            net.fit(ds)
+        torch.cuda.synchronize()
+        launches.append({k: v / (len(train) - 2) for k, v in
+                         _counts().items() if k in TRAIN_KERNELS})
+        return float(net.score(held))
+
+    with _no_tf32():
+        runner = LocalOptimizationRunner(make_tpe(), build, score,
+                                         maxCandidates=a["resnet_candidates"])
+        runner.execute()
+        gc.collect()
+        torch.cuda.empty_cache()
+        _arbiter_gate("TPE over fused ResNet-50 (Nesterovs lr, momentum; "
+                      f"{a['steps']} graphed steps a candidate)", runner,
+                      make_tpe)
+        log(f"[arbiter] launches per replayed step, each candidate: "
+            f"{launches}")
+        if any(n != EPILOGUE_PAIRS for d in launches for n in d.values()):
+            raise AssertionError(f"arbiter: launches per step {launches}")
+        resnet = [{"params": r.params, "score": r.score,
+                   "s": r.duration_s} for r in runner.results]
+        # (b) LeNet over a CSV through CSVRecordReader -> TransformProcess
+        # -> RecordReaderDataSetIterator
+        tmp = Path(__file__).resolve().parent / "build" / "arbiter"
+        tmp.mkdir(parents=True, exist_ok=True)
+        csv_path = tmp / "mnist.csv"
+        t0 = time.perf_counter()
+        _mnist_csv(csv_path)
+        rows = list(CSVRecordReader().initialize(str(csv_path)))
+        shutil.rmtree(tmp, ignore_errors=True)
+        schema = (Schema.Builder()
+                  .addColumnsDouble(*[f"p{i}" for i in range(784)])
+                  .addColumnCategorical("label", *[str(d) for d in range(10)])
+                  .build())
+        tp = (TransformProcess.Builder(schema).categoricalToInteger("label")
+              .build())
+        rows, _ = tp.execute(rows)
+        its = []
+        for part in (rows[:-a["held"]], rows[-a["held"]:]):
+            it = RecordReaderDataSetIterator(CollectionRecordReader(part),
+                                             a["lenet_batch"], 784, 10)
+            it.setPreProcessor(ImagePreProcessingScaler())
+            its.append(it)
+        etl_s = time.perf_counter() - t0
+        train_it, held_it = its
+        held_ds = held_it.next()
+        mls = _lenet_space()
+
+        def make_random():
+            return RandomSearchGenerator(mls.collectLeaves(),
+                                         seed=a["random_seed"])
+
+        def lenet_score(net):
+            net.fit(train_it)
+            return float(net.score(held_ds))
+
+        lenet = LocalOptimizationRunner(make_random(), mls, lenet_score,
+                                        maxCandidates=a["lenet_candidates"])
+        _reset_counts()
+        lenet.execute()
+        lenet_launches = _counts()
+        _arbiter_gate(f"random search over LeNet ({a['rows'] - a['held']:,} "
+                      f"CSV rows, 1 epoch a candidate; the CSV written, read "
+                      f"and transformed in {etl_s:.2f} s)", lenet,
+                      make_random)
+        if any(lenet_launches.values()):
+            raise AssertionError(f"arbiter: LeNet launched {lenet_launches}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"resnet": resnet, "resnet_launches_per_step": launches,
+            "launches": {k: int(sum(d[k] for d in launches)
+                                * (len(train) - 2)) for k in TRAIN_KERNELS},
+            "lenet": [{"params": r.params, "score": r.score,
+                       "s": r.duration_s} for r in lenet.results],
+            "etl_s": etl_s}
+
+
+# -- clustering ---------------------------------------------------------------
+#: the clustering phase (`--only clustering`): N points of a K-blob mixture
+#: at ResNet-50's pooled width D (blob means N(0, 1) per dimension, spread
+#: `spread`: k-means++ then seeds one center per blob), k-means, exact kNN
+#: of queries drawn around the blob means at `query_spread`, the trees,
+#: t-SNE and the nearest-neighbours server
+CLUSTER = dict(n=100_000, d=2048, blobs=100, spread=0.02, query_spread=1.0,
+               iters=20,
+               queries=10_000, k=10, check=256, vp_n=10_000, vp_queries=8,
+               kd_n=10_000, kd_queries=32, tsne_n=5_000, tsne_iters=500,
+               tsne_block=1_000, tsne_ui_n=300, server_queries=16, seed=41)
+#: purity of the clusters against the blobs, and the centers' distance to
+#: an f64 Lloyd from the same start (max |Δ| / max |f64 center|)
+CLUSTER_PURITY = 0.99
+CLUSTER_RTOL = 1e-4
+#: kNN against an f64 brute force: each returned neighbour's f64 squared
+#: distance within this of the f64 k-th best, relative to max |q|²: the
+#: f32 GEMM form ‖q‖² − 2q·x + ‖x‖² carries ~√D·ε·|q|² of noise, and
+#: neighbours closer than that are ties
+KNN_TIE_RTOL = 5e-6
+
+
+def _blob_mixture(n, seed, means=None, spread=None):
+    """(points (n, D) f32, blob ids) of CLUSTER's mixture, drawn on the
+    card from a seeded generator; the blob means too unless given."""
+    g = torch.Generator(device=DEV)
+    g.manual_seed(seed)
+    d, k = CLUSTER["d"], CLUSTER["blobs"]
+    if means is None:
+        means = torch.randn((k, d), generator=g, device=DEV)
+    ids = torch.arange(n, device=DEV) % k
+    x = means[ids] + (spread or CLUSTER["spread"]) * torch.randn(
+        (n, d), generator=g, device=DEV)
+    return x, ids, means
+
+
+def _against_f64(picks, q, items):
+    """(identical index sets, worst pick's f64 squared distance past the
+    f64 k-th best, the tie tolerance) of (Q, k) neighbour indices of
+    queries `q` among `items`, against an f64 brute force."""
+    picks = torch.as_tensor(np.asarray(picks), device=items.device)
+    d64 = torch.cdist(q.double(), items.double()).square()
+    best = torch.topk(d64, picks.shape[1], largest=False)
+    worse = float((torch.gather(d64, 1, picks) - best.values[:, -1:]).max())
+    exact = int((torch.sort(picks)[0] == torch.sort(best.indices)[0])
+                .all(-1).sum())
+    return exact, worse, KNN_TIE_RTOL * float(q.double().square().sum(-1)
+                                              .max())
+
+
+def _kl(p_cond, y, n):
+    """KL(P ‖ Q) of embedding `y` (n rows) under the conditional P."""
+    p = p_cond[:n, :n]
+    p = torch.clamp((p + p.T) / (2.0 * n), min=1e-12)
+    d2 = torch.cdist(y, y).square()
+    num = 1.0 / (1.0 + d2)
+    num.fill_diagonal_(0.0)
+    q = torch.clamp(num / num.sum(), min=1e-12)
+    off = ~torch.eye(n, dtype=torch.bool, device=y.device)
+    return float((p * torch.log(p / q))[off].sum())
+
+
+def _clustering_kmeans(x_np, ids):
+    from deeplearning4j_tpu_torch.clustering import kmeans as km
+    c = CLUSTER
+    kmc = KMeansClustering.setup(c["blobs"], c["iters"], "euclidean",
+                                 useKMeansPlusPlus=True, seed=c["seed"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cs = kmc.applyTo(x_np)
+    apply_s = time.perf_counter() - t0
+    # the device loop alone from the same seeding, run to its count
+    # (applyTo stops at the first iteration that moves no point), timed
+    # per iteration, and the same loop in f64
+    x = torch.as_tensor(x_np, device=DEV)
+    c0 = kmc.initialCenters(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    centers, assign, iters = km._lloyd(x, c0, c["blobs"], "euclidean",
+                                       c["iters"], -1.0)
+    torch.cuda.synchronize()
+    lloyd_ms = (time.perf_counter() - t0) * 1e3 / max(iters, 1)
+    c64, a64, it64 = km._lloyd(x.double(), c0.double(), c["blobs"],
+                               "euclidean", c["iters"], -1.0)
+    rel = float((centers.double() - c64).abs().max() / c64.abs().max())
+    same_assign = bool(torch.equal(assign, a64))
+    ids_np = ids.cpu().numpy()
+    pure = 0
+    for cl in cs.getClusters():
+        members = np.asarray([int(p.getId()) for p in cl.getPoints()],
+                             np.int64)
+        if members.size:
+            pure += np.bincount(ids_np[members]).max()
+    purity = pure / len(ids_np)
+    sizes = sorted(len(cl.getPoints()) for cl in cs.getClusters())
+    log(f"[clustering] KMeansClustering.setup({c['blobs']}, {c['iters']}, "
+        f"'euclidean', k-means++) on {len(x_np):,} x {c['d']} f32 "
+        f"({x_np.nbytes:,} bytes): applyTo {apply_s:.2f} s ({kmc.iterations}"
+        f" Lloyd iterations to convergence); {iters} iterations run to the "
+        f"count at {lloyd_ms:.3f} ms each; purity {purity:.4f} (gate "
+        f">= {CLUSTER_PURITY}), cluster sizes {sizes[0]}..{sizes[-1]}; from "
+        f"the same start an f64 Lloyd ({it64} iterations): centers "
+        f"{rel:.3e} (rtol {CLUSTER_RTOL:.0e}), assignments equal "
+        f"{same_assign}")
+    if not purity >= CLUSTER_PURITY:
+        raise AssertionError(f"clustering: purity {purity:.4f}")
+    if not rel <= CLUSTER_RTOL or it64 != iters or not same_assign:
+        raise AssertionError(f"clustering: Lloyd differs from f64: {rel:.3e}"
+                             f", iterations {iters} vs {it64}")
+    return {"apply_s": apply_s, "apply_iterations": kmc.iterations,
+            "lloyd_iterations": iters,
+            "lloyd_ms_per_iteration": lloyd_ms, "purity": purity,
+            "f64_rel": rel, "cluster_sizes": [sizes[0], sizes[-1]]}
+
+
+def _clustering_knn(x, means):
+    c = CLUSTER
+    q, _, _ = _blob_mixture(c["queries"], c["seed"] + 1, means,
+                            c["query_spread"])
+    knn(q[:64], x, c["k"])                     # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx, dist = knn(q, x, c["k"])
+    knn_ms = (time.perf_counter() - t0) * 1e3
+    exact, worse, tol = _against_f64(idx[:c["check"]], q[:c["check"]], x)
+    log(f"[clustering] knn: {c['queries']:,} queries x {len(x):,} points, "
+        f"k={c['k']}: {knn_ms:.2f} ms; against an f64 brute force on "
+        f"{c['check']} queries: {exact} identical index sets, the worst "
+        f"pick {worse:.3e} past the f64 k-th best (tie tolerance "
+        f"{tol:.3e})")
+    if not worse <= tol:
+        raise AssertionError(f"clustering: knn picked a neighbour "
+                             f"{worse:.3e} beyond the f64 k-th best")
+    return q, {"knn_ms": knn_ms, "exact_sets": exact, "worst_pick": worse,
+               "tie_tol": tol}
+
+
+def _clustering_trees(x, q):
+    c = CLUSTER
+    sub = x[:c["vp_n"]].cpu().numpy()
+    t0 = time.perf_counter()
+    tree = VPTree(sub)
+    build_s = time.perf_counter() - t0
+    queries = q[:c["vp_queries"]].cpu().numpy()
+    want, _ = knn(queries, sub, c["k"])
+    t0 = time.perf_counter()
+    got = [[r.getIndex() for r in tree.search(v, c["k"])[0]]
+           for v in queries]
+    search_ms = (time.perf_counter() - t0) * 1e3 / len(queries)
+    same = sum(g == w for g, w in zip(got, want.tolist()))
+    # the tree's exact f32 distances and knn's GEMM form may order
+    # neighbours within f32 noise differently: both held to f64
+    checks = [_against_f64(p, q[:c["vp_queries"]], x[:c["vp_n"]])
+              for p in (got, want)]
+    vp_equal = all(worse <= tol for _, worse, tol in checks)
+    rng = np.random.default_rng(c["seed"])
+    pts = rng.normal(size=(c["kd_n"], 3)).astype(np.float32)
+    kd = KDTree(3)
+    for p in pts:
+        kd.insert(p)
+    kd_equal = True
+    for v in rng.normal(size=(c["kd_queries"], 3)).astype(np.float32):
+        d = ((pts.astype(np.float64) - v) ** 2).sum(-1)
+        brute = pts[np.argsort(d, kind="stable")[:c["k"]]]
+        kd_equal &= bool(np.array_equal(
+            np.stack([p for p, _ in kd.knn(v, c["k"])]), brute))
+    log(f"[clustering] VPTree over {c['vp_n']:,} x {c['d']}: built in "
+        f"{build_s:.2f} s, {search_ms:.1f} ms a search; {same} of "
+        f"{c['vp_queries']} searches identical to knn; against an f64 "
+        f"brute force (identical sets, worst pick past the k-th best, tie "
+        f"tolerance) VPTree {checks[0]}, knn {checks[1]}; KDTree at D=3 "
+        f"over {c['kd_n']:,} "
+        f"points: {c['kd_queries']} queries equal a brute force {kd_equal}")
+    if not (vp_equal and kd_equal):
+        raise AssertionError(f"clustering: trees differ: VPTree {vp_equal}, "
+                             f"KDTree {kd_equal}")
+    return {"vp_build_s": build_s, "vp_search_ms": search_ms,
+            "vp_identical_to_knn": same, "vp_against_f64": checks[0]}
+
+
+def _clustering_tsne(x):
+    from deeplearning4j_tpu_torch.clustering import tsne as ts
+    from deeplearning4j_tpu_torch.ops.random import normal, seed_key
+    c = CLUSTER
+    n = c["tsne_n"]
+    sub = x[:n].cpu().numpy()
+    b = (BarnesHutTsne.Builder().setMaxIter(c["tsne_iters"]).perplexity(30)
+         .rowBlockSize(c["tsne_block"]).seed(c["seed"]).build())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = b.fit(sub).getData()
+    torch.cuda.synchronize()
+    tsne_s = time.perf_counter() - t0
+    # KL(P ‖ Q) at the start and at the end, under fit's own P
+    xs = (sub - sub.mean(0)) / np.maximum(sub.std(0), 1e-12)
+    p = ts._calibrated_p_rows(torch.as_tensor(xs, device=DEV), 30.0, n,
+                              c["tsne_block"])
+    y0 = 1e-4 * normal(seed_key(c["seed"]), (n, 2), DEV)
+    kl0, kl1 = _kl(p, y0, n), _kl(p, torch.as_tensor(y, device=DEV), n)
+    ui = UIServer()
+    pts3 = x[:c["tsne_ui_n"], :3].cpu().numpy()
+    ui.attachTsne(pts3, labels=[str(i) for i in range(len(pts3))],
+                  maxIter=300, perplexity=10.0)
+    shown = np.asarray(ui._tsne["points"])
+    log(f"[clustering] BarnesHutTsne on {n:,} x {c['d']}, "
+        f"{c['tsne_iters']} iterations, row block {c['tsne_block']}: "
+        f"{tsne_s:.2f} s; KL {kl0:.4f} -> {kl1:.4f}; attachTsne of "
+        f"{len(pts3)} 3-D vectors: {shown.shape} finite "
+        f"{bool(np.isfinite(shown).all())}")
+    if not (np.isfinite(y).all() and kl1 < kl0):
+        raise AssertionError(f"clustering: t-SNE's KL did not fall: {kl0} "
+                             f"-> {kl1}")
+    if shown.shape != (len(pts3), 2) or not np.isfinite(shown).all():
+        raise AssertionError(f"clustering: attachTsne gave {shown.shape}")
+    return {"tsne_s": tsne_s, "kl_start": kl0, "kl_end": kl1}
+
+
+def _clustering_server(x_np, q):
+    c = CLUSTER
+    srv = NearestNeighborsServer(x_np, port=0).start()
+    try:
+        vecs = q[:c["server_queries"]].cpu().numpy()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.port}/knnnew",
+            json.dumps({"arr": vecs.tolist(), "k": c["k"]}).encode(),
+            {"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=120) as r:
+            res = json.loads(r.read())["results"]
+        http_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        srv.stop()
+    want, _ = knn(vecs, x_np, c["k"])
+    equal = [[e["index"] for e in row] for row in res] == want.tolist()
+    log(f"[clustering] NearestNeighborsServer over loopback: "
+        f"{c['server_queries']} queries in one POST /knnnew, {http_ms:.1f} "
+        f"ms; answers equal knn {equal}")
+    if not equal:
+        raise AssertionError("clustering: the server's answers differ")
+    return {"server_ms": http_ms}
+
+
+def phase_clustering():
+    """k-means, exact kNN, the trees, t-SNE and the nearest-neighbours
+    server at ResNet-50's pooled width, N = CLUSTER["n"]."""
+    c = CLUSTER
+    with _no_tf32():
+        torch.cuda.reset_peak_memory_stats()
+        x, ids, means = _blob_mixture(c["n"], c["seed"])
+        x_np = x.cpu().numpy()
+        out = _clustering_kmeans(x_np, ids)
+        q, k = _clustering_knn(x, means)
+        out.update(k)
+        out.update(_clustering_trees(x, q))
+        out.update(_clustering_tsne(x))
+        out.update(_clustering_server(x_np, q))
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        log(f"[clustering] peak allocated {out['peak_bytes']:,} bytes")
+    del x, x_np, q
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 # -- main ---------------------------------------------------------------------
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -9081,15 +10113,18 @@ def main(argv=None):
                     choices=["kernels", "resnet", "graphs", "paged",
                              "chaos", "fleet", "mln", "rnn", "zoo",
                              "layers", "resilience", "quant", "parallel",
-                             "multihost", "keras", "samediff"],
+                             "multihost", "keras", "samediff", "onnx",
+                             "spark", "arbiter", "clustering"],
                     default=None,
                     help="stop after the kernel checks, or run the resnet "
                          "serving and training phases right after them, or "
                          "run the graphs, the paged, the chaos, the fleet, "
                          "the mln, the rnn, the zoo, the layers, the "
                          "resilience, the quant, the parallel, the "
-                         "multihost, the keras or the samediff phase alone "
-                         "after the build (bring-up runs)")
+                         "multihost, the keras, the samediff, the onnx, the "
+                         "spark, the arbiter or the clustering phase alone "
+                         "after the build (bring-up runs; arbiter makes the "
+                         "spark phase's batches first)")
     ap.add_argument("--profile", action="store_true",
                     help="after the resnet phases, profile the serving "
                          "workload, three fine-tune steps, one ResNet-50 "
@@ -9129,7 +10164,8 @@ def main(argv=None):
         return 0
     if args.only in ("chaos", "fleet", "mln", "rnn", "zoo", "layers",
                      "resilience", "quant", "parallel", "multihost",
-                     "keras", "samediff"):
+                     "keras", "samediff", "onnx", "spark", "arbiter",
+                     "clustering"):
         if args.only in ("keras", "samediff"):
             cfg = bert_base()
             phase = phase_keras if args.only == "keras" else phase_samediff
@@ -9150,6 +10186,14 @@ def main(argv=None):
             out = timed("resilience", phase_resilience)
         elif args.only == "quant":
             out = timed("quant", phase_quant, args.profile)
+        elif args.only == "onnx":
+            out = timed("onnx", phase_onnx)
+        elif args.only == "spark":
+            out = timed("spark", phase_spark)[0]
+        elif args.only == "arbiter":
+            out = timed("arbiter", phase_arbiter)
+        elif args.only == "clustering":
+            out = timed("clustering", phase_clustering)
         else:
             cfg = bert_base()
             phase = phase_chaos if args.only == "chaos" else phase_fleet
@@ -9204,6 +10248,11 @@ def main(argv=None):
     multihost = timed("multihost", phase_multihost)
     keras = timed("keras", phase_keras, cfg, params)
     samediff = timed("samediff", phase_samediff, cfg, params)
+    onnx = timed("onnx", phase_onnx)
+    spark, spark_batches = timed("spark", phase_spark)
+    arbiter = timed("arbiter", phase_arbiter, spark_batches)
+    del spark_batches
+    clustering = timed("clustering", phase_clustering)
     prof = (timed("profile", phase_profile, cfg, params, resnet_net,
                   resnet_x, train_net, train_ds) if args.profile else None)
     # each kernel's launches from the path that carries it: the forward and
@@ -9306,6 +10355,22 @@ def main(argv=None):
             row["launches_keras_from"] = (
                 f"BERT-base ({KERAS['bert_steps']} profiled fine-tune "
                 "steps)")
+        # this slice's paths: the fused forward the ONNX import is held
+        # to (B6), Spark's profiled epoch and arbiter's replayed candidate
+        # steps (B5, B7, B8)
+        if name == "matmul_epilogue":
+            row["launches_onnx"] = onnx["launches"][name]
+            row["launches_onnx_from"] = ("fused ResNet-50 one B=32 output() "
+                                         "(the ONNX import's reference)")
+        if name in TRAIN_KERNELS:
+            row["launches_spark"] = spark["launches"][name]
+            row["launches_spark_from"] = (
+                f"SparkComputationGraph epoch 2 ({spark['batches']} graphed "
+                "steps)")
+            row["launches_arbiter"] = arbiter["launches"][name]
+            row["launches_arbiter_from"] = (
+                f"arbiter: {ARBITER['resnet_candidates']} ResNet-50 "
+                f"candidates x {ARBITER['steps'] - 2} replayed steps")
     (OUT_DIR / "smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "kernels": rows,
          "step36": step36, "fwd36": fwd36, "bert_step12": step12,
@@ -9316,6 +10381,8 @@ def main(argv=None):
          "rnn": rnn, "zoo": zoo, "layers": layers,
          "resilience": resilience, "quant": quant, "parallel": parallel,
          "multihost": multihost, "keras": keras, "samediff": samediff,
+         "onnx": onnx, "spark": spark, "arbiter": arbiter,
+         "clustering": clustering,
          "profile": prof,
          "line": line,
          "phase_seconds": seconds, "seconds": time.perf_counter() - t0},

@@ -1,7 +1,8 @@
-"""SameDiff and the TF frozen-graph importer (≡ nd4j-api autodiff): the
-port of `deeplearning4j_tpu/autodiff/`. The ONNX importer is not ported
-yet (ROADMAP A17)."""
+"""SameDiff with its TF frozen-graph and ONNX importers (≡ nd4j-api
+autodiff): the port of `deeplearning4j_tpu/autodiff/`."""
 from deeplearning4j_tpu_torch.autodiff import tf_import  # registers importFrozenTF
+from deeplearning4j_tpu_torch.autodiff.onnx_import import (OnnxGraphMapper,
+                                                           importOnnx)
 from deeplearning4j_tpu_torch.autodiff.tf_import import (TFGraphMapper,
                                                          importFrozenTF)
 from deeplearning4j_tpu_torch.autodiff.samediff import (SameDiff, SDVariable,
@@ -9,4 +10,5 @@ from deeplearning4j_tpu_torch.autodiff.samediff import (SameDiff, SDVariable,
                                                         VariableType)
 
 __all__ = ["SameDiff", "SDVariable", "TrainingConfig", "VariableType",
-           "TFGraphMapper", "importFrozenTF"]
+           "TFGraphMapper", "importFrozenTF", "OnnxGraphMapper",
+           "importOnnx"]

@@ -63,18 +63,19 @@ def registerSerializableOp(opname, builder):
 
 def build_fn(opname, params):
     b = OP_BUILDERS.get(opname)
-    if b is None and opname.split(".")[0] == "tf":
-        # the importer's builders register at its import; pull it in on
-        # demand (covers nested control-flow sub-graphs too)
+    if b is None and opname.split(".")[0] in ("onnx", "tf"):
+        # importer builders register at module import; pull the provider
+        # in on demand (covers nested control-flow sub-graphs too)
         import importlib
-        importlib.import_module("deeplearning4j_tpu_torch.autodiff.tf_import")
+        importlib.import_module(
+            "deeplearning4j_tpu_torch.autodiff."
+            + {"onnx": "onnx_import", "tf": "tf_import"}[
+                opname.split(".")[0]])
         b = OP_BUILDERS.get(opname)
     if b is None:
-        hint = (" (the ONNX importer is not ported yet: ROADMAP A17)"
-                if opname.startswith("onnx.") else "")
         raise KeyError(
             f"no builder registered for op {opname!r} — "
-            f"registerSerializableOp(opname, builder) first{hint}")
+            "registerSerializableOp(opname, builder) first")
     return b(**(params or {}))
 
 

@@ -18,7 +18,7 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["RandomState", "random_bits", "seed_key"]
+__all__ = ["RandomState", "normal", "random_bits", "seed_key"]
 
 _MASK32 = 0xFFFFFFFF
 
@@ -84,6 +84,18 @@ def _erfinv(x):
                        p * x)
 
 
+def normal(key, shape, device):
+    """≡ jax.random.normal(key, shape) in float32, drawn from `key` itself
+    (no split)."""
+    dev = torch.device(device)
+    lo = torch.tensor(float(np.nextafter(np.float32(-1.0), np.float32(0.0))),
+                      dtype=torch.float32, device=dev)
+    hi = torch.tensor(1.0, dtype=torch.float32, device=dev)
+    u = _unit(random_bits(key, tuple(shape), dev))
+    u = torch.maximum(u * (hi - lo) + lo, lo)
+    return _erfinv(u) * math.sqrt(2.0)
+
+
 class RandomState:
     def __init__(self, seed: int = 0, device=None):
         self._seed = int(seed)
@@ -120,10 +132,7 @@ class RandomState:
         return torch.maximum(u * (hi - lo) + lo, lo)
 
     def normal(self, shape=(), mean=0.0, std=1.0, dtype=torch.float32):
-        lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
-        u = self._uniform(tuple(shape), lo, 1.0)
-        z = _erfinv(u) * math.sqrt(2.0)
-        return mean + std * z
+        return mean + std * normal(self.split(), shape, self._device())
 
     def bernoulli(self, p, shape=()):
         return self.uniform(shape) < p

@@ -589,19 +589,22 @@ class UIServer:
         return self
 
     def attachTsne(self, vectors, labels=None, maxIter=300, perplexity=30.0,
-                   seed=0):
-        """t-SNE tab: 2-D points, shown as they are. Embedding higher
-        dimensions needs `clustering/tsne`, which comes with ROADMAP A18."""
+                   seed=0, device=None):
+        """t-SNE tab (≡ the reference UI's word-vector t-SNE view): pass
+        2-D coords directly, or higher-dim vectors to embed here via
+        clustering.tsne (exact gradients, on the card unless
+        `device="cpu"`)."""
         import numpy as _np
         vectors = _np.asarray(vectors, _np.float32)
         if vectors.ndim != 2:
             raise ValueError(f"attachTsne expects (N, D), got "
                              f"{vectors.shape}")
         if vectors.shape[1] != 2:
-            raise NotImplementedError(
-                f"attachTsne of {vectors.shape[1]}-D vectors needs "
-                f"clustering/tsne (BarnesHutTsne), which is not ported "
-                f"yet: it comes with ROADMAP A18; pass 2-D points")
+            from deeplearning4j_tpu_torch.clustering.tsne import \
+                BarnesHutTsne
+            vectors = (BarnesHutTsne.Builder().setMaxIter(int(maxIter))
+                       .perplexity(perplexity).seed(seed).build()
+                       .fit(vectors, device=device).getData())
         self._tsne = {
             "points": [[float(a), float(b)] for a, b in vectors],
             "labels": [str(l) for l in labels] if labels is not None else [],

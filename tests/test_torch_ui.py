@@ -2,9 +2,8 @@
 ephemeral port, over a bert_tiny fleet on the CPU: every GET route of the
 JAX package's dashboard answers with a parseable body from the port's
 modules, `/health` follows the fleet (503 once serving is dead), the two
-POST routes work, an unknown path answers 404, and the unported paths
-(`attachTsne` of more than two dimensions) raise naming their ROADMAP
-item."""
+POST routes work, an unknown path answers 404, and `attachTsne` embeds
+vectors wider than two dimensions through the port's t-SNE."""
 import json
 import os
 import urllib.error
@@ -156,8 +155,13 @@ def test_stats_tsne_and_a_failing_route(ui):
     assert json.loads(_get(ui, "/stats")[2]) == [rec]
     ui.attachTsne(np.zeros((3, 2)), labels=["a", "b", "a"])
     assert json.loads(_get(ui, "/tsne")[2])["labels"] == ["a", "b", "a"]
-    with pytest.raises(NotImplementedError, match="A18"):
-        ui.attachTsne(np.zeros((3, 5)))
+    # wider vectors are embedded by the port's BarnesHutTsne
+    vecs = np.random.default_rng(0).normal(size=(6, 5)).astype(np.float32)
+    ui.attachTsne(vecs, labels=list("abcabc"), maxIter=20, perplexity=2.0,
+                  device="cpu")
+    tsne = json.loads(_get(ui, "/tsne")[2])
+    assert len(tsne["points"]) == 6 and tsne["labels"] == list("abcabc")
+    assert np.isfinite(np.asarray(tsne["points"])).all()
     ui.detach(storage)
     ui.attach(_Storage(RuntimeError("broken storage")))
     code, _, body = _get(ui, "/stats")
