@@ -23,6 +23,7 @@
     python3 chip_smoke.py --only arbiter  # card, build, spark's batches,
                                           # arbiter
     python3 chip_smoke.py --only clustering  # card, build, clustering
+    python3 chip_smoke.py --only nlp      # card, build, nlp
     python3 chip_smoke.py --profile  # and phase 14
 
 Phases, in order; any failure exits non-zero and prints no result:
@@ -513,6 +514,32 @@ Phases, in order; any failure exits non-zero and prints no result:
             `UIServer.attachTsne` of 3-D vectors; `NearestNeighborsServer`
             over loopback answering 16 queries as `knn`. Printed: ms per
             Lloyd iteration, knn ms, t-SNE s, peak allocated bytes.
+28. nlp:    word, document, subword and graph embeddings at their
+            published widths (NLP) on seeded data: a Zipf corpus of
+            ~1.46 M tokens and 71,000 types in 50 topics; Word2Vec SGNS
+            (D = 300, window 5, negative 5, sample 1e-3, lr 0.025, batch
+            1024) one epoch, whose first batch's loss falls and whose
+            1,000 most frequent words are closer within a topic than
+            across; Word2Vec HS and FastText (2,000,000 buckets, n-grams
+            3–6) on the first 400 k tokens (an OOV word nearest its
+            stem); GloVe (window 10, xMax 100, alpha 0.75) on the first
+            300 k tokens, its loss falling; PV-DBOW and PV-DM (D = 400,
+            window 10) on 2,000 documents of 230 tokens, `nearestLabels`
+            putting the own label of 20 training documents in the top 5;
+            DeepWalk (d = 128, window 10, walks of 40, one a vertex) on a
+            graph of BlogCatalog's 10,312 vertices and 333,983 edges in 39
+            communities, closer within a community than across; Kim's
+            sentence CNN over the SGNS vectors (windows 3/4/5 × 100 maps,
+            dropout 0.5, minibatch 50) on 10,662 labelled sentences, 2
+            epochs, its loss falling and `output()` equal to the CPU's to
+            NLP_CNN_RTOL. Each arm's first step runs again on the card
+            (bit-identical) and through the port on the CPU (within
+            NLP_STEP_RTOL; the infer step NLP_INFER_RTOL); the SGNS vectors
+            round-trip through the binary (bit for bit) and text (to the
+            format's 6 decimals) word2vec files; the three example twins
+            run. Printed: each arm's host seconds apart from its step
+            loop's, steps/s, pairs/s, peak allocated bytes. The nine
+            kernels' counters read 0 across the phase.
 
 Phases 5, 7 and 8 run as a user runs them: the server and `fit` replay
 CUDA graphs on the card by default. The kernels' launch counters are set
@@ -529,7 +556,7 @@ profiled steps, its timed steps and BERT's profiled steps, the samediff
 phase's before its import, the onnx phase's before the import and again
 before the fused forward, the spark phase's before its second epoch and
 the arbiter phase's before each candidate's replayed steps and the LeNet
-search. Every
+search; the nlp phase's at its start, read at its end (0 each). Every
 number is measured in this run; the last lines are the kernel JSON object
 and the `{"ok": true, "device": ...}` line. Imports nothing of JAX.
 """
@@ -540,6 +567,7 @@ import contextlib
 import copy
 import functools
 import gc
+import importlib
 import json
 import os
 import re
@@ -592,14 +620,17 @@ from deeplearning4j_tpu_torch.nn import (
     Nesterovs, NeuralNetConfiguration, OutputLayer, PReLULayer, RmsProp,
     SelfAttentionLayer, StepSchedule, Subsampling1DLayer, SubsamplingLayer,
     Upsampling1D, VariationalAutoencoder, WeightInit,
-    graph_params_from_numpy, multilayer_params_to_numpy)
+    graph_params_from_numpy, graph_params_to_numpy,
+    multilayer_params_to_numpy)
 from deeplearning4j_tpu_torch.nn.conf import attention as attn_conf
 from deeplearning4j_tpu_torch.nn.conf.capsules import (CapsuleLayer,
                                                        CapsuleStrengthLayer,
                                                        PrimaryCapsules)
+from deeplearning4j_tpu_torch.nn.conf.graph_vertices import MergeVertex
 from deeplearning4j_tpu_torch.nn.conf.layers import (
-    Cropping1D, Deconvolution2D, ElementWiseMultiplicationLayer,
-    LocalResponseNormalization, ZeroPadding1DLayer)
+    Cropping1D, Deconvolution2D, DropoutLayer,
+    ElementWiseMultiplicationLayer, LocalResponseNormalization,
+    ZeroPadding1DLayer)
 from deeplearning4j_tpu_torch.nn.conf.layers3d import (Convolution3D,
                                                        Cropping3D,
                                                        Deconvolution3D,
@@ -640,6 +671,16 @@ from deeplearning4j_tpu_torch.clustering import (BarnesHutTsne, KDTree,
                                                  NearestNeighborsServer,
                                                  VPTree, knn)
 from deeplearning4j_tpu_torch.autodiff.graph_serde import load_samediff
+from deeplearning4j_tpu_torch.graph import DeepWalk, Graph
+from deeplearning4j_tpu_torch.graph import deepwalk as graph_dw
+from deeplearning4j_tpu_torch.nlp import (CnnSentenceDataSetIterator,
+                                          CollectionLabeledSentenceProvider,
+                                          FastText, Glove, ParagraphVectors,
+                                          Word2Vec, WordVectorSerializer)
+from deeplearning4j_tpu_torch.nlp import fasttext as nlp_ft
+from deeplearning4j_tpu_torch.nlp import glove as nlp_glove
+from deeplearning4j_tpu_torch.nlp import paragraph_vectors as nlp_pv
+from deeplearning4j_tpu_torch.nlp import word2vec as nlp_w2v
 from deeplearning4j_tpu_torch.keras_import import KerasModelImport
 from deeplearning4j_tpu_torch.optimize import ProfilerListener, xplane
 from deeplearning4j_tpu_torch import monitoring as mon
@@ -10106,6 +10147,674 @@ def phase_clustering():
     return out
 
 
+# -- nlp ----------------------------------------------------------------------
+#: the nlp phase (`--only nlp`): embeddings at their published widths on
+#: seeded corpora. `types` word types of Zipf counts (each at least
+#: `floor`, so minWordFrequency(5) keeps them all: text8 keeps 71,290),
+#: ~`tokens` tokens in single-topic sentences of `sent_len` (type r in
+#: topic r % topics); `sub_tokens` of them (the first sentences) for the
+#: HS and FastText arms, `glove_tokens` for GloVe; PV's `pv_docs`
+#: single-topic documents of `pv_len` tokens; a graph of BlogCatalog's
+#: counts in `communities` blocks (`within` of the edges inside one);
+#: Kim's CNN on `kim_sentences` labelled sentences of `kim_len` tokens
+NLP = dict(types=71_000, tokens=1_500_000, floor=5, topics=50, sent_len=20,
+           seed=43, d=300, window=5, negative=5, sample=1e-3, lr=0.025,
+           min_count=5, batch=1024, sub_tokens=400_000, buckets=2_000_000,
+           min_n=3, max_n=6, glove_tokens=300_000, glove_window=10,
+           glove_xmax=100.0, glove_alpha=0.75, pv_docs=2_000, pv_len=230,
+           pv_d=400, pv_window=10, pv_probe=20, vertices=10_312,
+           edges=333_983, communities=39, within=0.85, dw_d=128,
+           dw_window=10, dw_walk=40, kim_sentences=10_662, kim_len=20,
+           kim_maps=100, kim_windows=(3, 4, 5), kim_batch=50, kim_epochs=2,
+           top=1_000, sim_pairs=20_000)
+#: one step on the card against the same step through the port on the
+#: CPU, relative to the largest table entry; the infer step sums
+#: 128·(1 + K) gathered rows into one vector (tests/test_torch_nlp.py's
+#: INFER_RTOL)
+NLP_STEP_RTOL = 1e-6
+NLP_INFER_RTOL = 5e-6
+#: Kim's CNN: output() on the card against the same net on the CPU
+NLP_CNN_RTOL = 1e-5
+NLP_DIR = Path(__file__).resolve().parent / "build" / "nlp"
+
+
+def _nlp_words(n, seed):
+    """`n` distinct seeded lowercase words of 4–10 letters."""
+    rng = np.random.default_rng(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    out, seen = [], set()
+    while len(out) < n:
+        w = "".join(rng.choice(letters, int(rng.integers(4, 11))))
+        if w not in seen:
+            seen.add(w)
+            out.append(w)
+    return out
+
+
+def nlp_corpus(c=None):
+    """(sentences, words, topic of each word, counts): NLP's Zipf corpus,
+    each type `floor` times plus its Zipf share of the rest, shuffled into
+    single-topic sentences."""
+    c = c or NLP
+    words = _nlp_words(c["types"], c["seed"])
+    r = np.arange(1, c["types"] + 1, dtype=np.float64)
+    extra = c["tokens"] - c["floor"] * c["types"]
+    counts = c["floor"] + np.floor(extra * (1 / r) / (1 / r).sum()).astype(
+        np.int64)
+    rng = np.random.default_rng(c["seed"] + 1)
+    topic = np.arange(c["types"]) % c["topics"]
+    sents = []
+    for t in range(c["topics"]):
+        ids = np.repeat(np.flatnonzero(topic == t), counts[topic == t])
+        rng.shuffle(ids)
+        for s in range(0, len(ids), c["sent_len"]):
+            sents.append(" ".join(words[i] for i in ids[s:s + c["sent_len"]]))
+    sents = [sents[i] for i in rng.permutation(len(sents))]
+    return sents, words, topic, counts
+
+
+def _topic_draws(words, topic, counts, t, n, rng):
+    """`n` words of topic `t`, drawn by the corpus's counts."""
+    ids = np.flatnonzero(topic == t)
+    p = counts[ids] / counts[ids].sum()
+    return [words[i] for i in rng.choice(ids, n, p=p)]
+
+
+def _prefix(sents, tokens):
+    """The first sentences holding about `tokens` tokens."""
+    out, n = [], 0
+    for s in sents:
+        if n >= tokens:
+            break
+        out.append(s)
+        n += s.count(" ") + 1
+    return out
+
+
+def _tap_clone(x):
+    if torch.is_tensor(x):
+        return x.detach().clone()
+    if isinstance(x, dict):
+        return {k: _tap_clone(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_tap_clone(v) for v in x)
+    return x
+
+
+@contextlib.contextmanager
+def _tapped(module, name, keep=True):
+    """Count the calls of module.<name> and keep a copy of the first
+    call's arguments (its tables included) and of its result."""
+    real = getattr(module, name)
+    tap = {"calls": 0, "first": None, "seconds": 0.0}
+
+    def wrapper(*a, **kw):
+        if keep and tap["first"] is None:
+            tap["first"] = _tap_clone(a)
+        tap["calls"] += 1
+        return real(*a, **kw)
+
+    setattr(module, name, wrapper)
+    try:
+        yield tap
+    finally:
+        setattr(module, name, real)
+
+
+@contextlib.contextmanager
+def _host_timed(obj, *names):
+    """Time the calls of obj.<name> for each name (a generator method
+    counts the time spent producing its items): the arm's host work."""
+    tap = {"seconds": 0.0, "results": {}}
+    real = {n: getattr(obj, n) for n in names}
+
+    def timed(fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            tap["seconds"] += time.perf_counter() - t0
+            if not hasattr(out, "__next__"):
+                tap["results"][fn.__name__] = out
+                return out
+
+            def gen():
+                while True:
+                    t0 = time.perf_counter()
+                    try:
+                        item = next(out)
+                    except StopIteration:
+                        tap["seconds"] += time.perf_counter() - t0
+                        return
+                    tap["seconds"] += time.perf_counter() - t0
+                    yield item
+            return gen()
+        return call
+
+    for n, fn in real.items():
+        setattr(obj, n, timed(fn))
+    try:
+        yield tap
+    finally:
+        for n in names:
+            delattr(obj, n)
+
+
+def _nlp_fit(name, model, fit, host, taps, pairs=None):
+    """Run `fit` for `model` with its host work timed; the figures of the
+    arm: host seconds, the rest of the wall (the step loop: launches, the
+    batches' copies, the device), steps, steps/s, pairs/s (the pairs
+    `_pairs` made, else `pairs`), peak bytes."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _host_timed(model, *host) as ht:
+        fit()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    loop = max(wall - ht["seconds"], 1e-9)
+    if "_pairs" in ht["results"]:
+        pairs = len(ht["results"]["_pairs"][0])
+    steps = sum(t["calls"] for t in taps)
+    out = {"wall_s": wall, "host_s": ht["seconds"], "loop_s": loop,
+           "steps": steps, "steps_per_s": steps / loop,
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    if pairs is not None:
+        out["pairs"] = pairs
+        out["pairs_per_s"] = pairs / loop
+    log(f"[nlp] {name}: wall {wall:.2f} s, host {ht['seconds']:.2f} s "
+        f"({', '.join(host)}), step loop {loop:.2f} s, {out['steps']} steps "
+        f"({out['steps_per_s']:.1f}/s"
+        + (f", {pairs:,} pairs, {out['pairs_per_s']:,.0f} pairs/s"
+           if pairs is not None else "")
+        + f"), peak allocated {out['peak_bytes']:,} bytes")
+    return out
+
+
+def _topic_cosines(table, ids, topic, n, seed):
+    """(mean cosine of `n` random same-topic pairs among `ids`, of `n`
+    cross-topic pairs)."""
+    x = torch.as_tensor(np.asarray(table)[ids], dtype=torch.float64)
+    x = x / x.norm(dim=1, keepdim=True).clamp_min(1e-12)
+    rng = np.random.default_rng(seed)
+    a, b = rng.integers(0, len(ids), (2, 4 * n))
+    keep = a != b
+    a, b = a[keep], b[keep]
+    same = topic[ids[a]] == topic[ids[b]]
+    cos = (x[a] * x[b]).sum(1).numpy()
+    return float(cos[same][:n].mean()), float(cos[~same][:n].mean())
+
+
+def _step_on_both(kind, step, tables, args, hist=None):
+    """One `step` from `tables` on the card, again from the same tables,
+    and once through the port on the CPU: (largest relative difference of
+    the tables card vs CPU, bit-identical on the card, the batch repeats
+    ids)."""
+    def run(dev):
+        p = {k: v.to(dev, copy=True) for k, v in tables.items()}
+        a = [x.to(dev, copy=True) if torch.is_tensor(x) else x for x in args]
+        if kind == "infer":
+            return {"vec": step(p["vec"], p["syn1"], *a)}
+        if hist is None:
+            step(p, *a)
+        else:
+            step(p, {k: v.to(dev, copy=True) for k, v in hist.items()}, *a)
+        return p
+    one, two = run(DEV), run(DEV)
+    cpu = run("cpu")
+    same = all(torch.equal(one[k], two[k]) for k in one)
+    rel = max(float((one[k].cpu() - cpu[k]).abs().max()
+                    / cpu[k].abs().max().clamp_min(1e-30)) for k in cpu)
+    ids = [x for x in args if torch.is_tensor(x) and not x.is_floating_point()]
+    repeats = any(torch.unique(x).numel() < x.numel() for x in ids)
+    return rel, same, repeats
+
+
+def _nlp_step_check(name, kind, step, tap, hist_key=None):
+    """The arm's first step, from the tables it started with, on the card
+    twice and on the CPU."""
+    a = tap["first"]
+    if kind == "infer":
+        vec, syn1, rest = a[0], a[1], list(a[2:])
+        rel, same, rep = _step_on_both(kind, step, {"vec": vec, "syn1": syn1},
+                                       rest)
+    elif hist_key:
+        rel, same, rep = _step_on_both(kind, step, a[0], list(a[2:]),
+                                       hist=a[1])
+    else:
+        rel, same, rep = _step_on_both(kind, step, a[0], list(a[1:]))
+    tol = NLP_INFER_RTOL if kind == "infer" else NLP_STEP_RTOL
+    log(f"[nlp] {name} step, card against the CPU: {rel:.3e} of the "
+        f"largest table entry (rtol {tol:.0e}); repeated on the card "
+        f"bit-identical {same}; the batch repeats ids {rep}")
+    if not (rel <= tol and same and rep):
+        raise AssertionError(f"nlp: the {name} step: {rel:.3e}, "
+                             f"bit-identical {same}, repeats {rep}")
+    return {"rel": rel, "bit_identical": same}
+
+
+def _held_loss(step, tables, args, hist=None):
+    """The loss `step` returns on `args` at `tables` (computed before its
+    update, on copies)."""
+    p = {k: v.clone() for k, v in tables.items()}
+    if hist is None:
+        return float(step(p, *args))
+    return float(step(p, {k: v.clone() for k, v in hist.items()}, *args))
+
+
+def _nlp_word2vec(sents, topic_of, hs):
+    c = NLP
+    name = "Word2Vec HS" if hs else "Word2Vec SGNS"
+    corpus = _prefix(sents, c["sub_tokens"]) if hs else sents
+    m = (Word2Vec.Builder().minWordFrequency(c["min_count"])
+         .layerSize(c["d"]).windowSize(c["window"])
+         .negativeSample(c["negative"]).sampling(c["sample"])
+         .learningRate(c["lr"]).batchSize(c["batch"]).seed(c["seed"])
+         .useHierarchicSoftmax(hs).iterate(corpus).device(DEV).build())
+    fn = "_hs_step" if hs else "_sgns_step"
+    with _tapped(nlp_w2v, fn) as tap:
+        out = _nlp_fit(name, m, m.fit, ("_tokenized", "_pairs", "_batches"),
+                       [tap])
+    out.update(vocab=m.vocabSize(),
+               tokens=sum(s.count(" ") + 1 for s in corpus))
+    first = tap["first"]
+    step = getattr(nlp_w2v, fn)
+    loss0 = _held_loss(step, first[0], first[1:])
+    loss1 = _held_loss(step, m.params, first[1:])
+    ids = np.asarray([m.vocab.indexOf(w) for w in m.vocab.idx2word[:c["top"]]])
+    word_topic = np.asarray([topic_of[w] for w in m.vocab.idx2word])
+    within, across = _topic_cosines(m._table(), ids, word_topic,
+                                    c["sim_pairs"], c["seed"])
+    depth = (int(m._hs_tables[2].sum(1).max()) if hs else None)
+    log(f"[nlp] {name}: {out['tokens']:,} tokens, vocabulary "
+        f"{out['vocab']:,} (minWordFrequency {c['min_count']}), D = "
+        f"{c['d']}, window {c['window']}, "
+        + (f"Huffman depth {depth}, " if hs else
+           f"negative {c['negative']}, ")
+        + f"sample {c['sample']}, lr {c['lr']}, batch {c['batch']}: the "
+        f"first batch's loss {loss0:.4f} -> {loss1:.4f}; the {c['top']} "
+        f"most frequent words' cosine within a topic {within:.4f}, across "
+        f"{across:.4f}")
+    if not (loss1 < loss0 and within > across):
+        raise AssertionError(f"nlp: {name}: loss {loss0} -> {loss1}, "
+                             f"cosine within {within} across {across}")
+    out.update(loss_first=loss0, loss_last=loss1, cos_within=within,
+               cos_across=across, huffman_depth=depth,
+               step_check=_nlp_step_check(name, "hs" if hs else "sgns",
+                                          step, tap))
+    return m, out
+
+
+def _nlp_fasttext(sents, words):
+    c = NLP
+    corpus = _prefix(sents, c["sub_tokens"])
+    m = (FastText.Builder().minWordFrequency(c["min_count"])
+         .layerSize(c["d"]).windowSize(c["window"])
+         .negativeSample(c["negative"]).sampling(c["sample"])
+         .learningRate(c["lr"]).batchSize(c["batch"]).seed(c["seed"])
+         .bucket(c["buckets"]).minN(c["min_n"]).maxN(c["max_n"])
+         .iterate(corpus).device(DEV).build())
+    with _tapped(nlp_ft, "_ft_step") as tap:
+        out = _nlp_fit("FastText", m, m.fit, ("_tokenized", "_pairs",
+                                              "_batches", "_ngram_rows"),
+                       [tap])
+    # an OOV word: a vocabulary word of 7 or more letters with an "s"
+    stem = next(w for w in m.vocab.idx2word[100:]
+                if len(w) >= 7 and not m.hasWord(w + "s"))
+    vec = m.getWordVector(stem + "s")
+    near = m.wordsNearest(vec, 3)
+    table_bytes = m.params["syn0"].numel() * 4
+    log(f"[nlp] FastText: {len(corpus):,} sentences, vocabulary "
+        f"{m.vocabSize():,}, D = {c['d']}, n-grams {c['min_n']}–"
+        f"{c['max_n']}, {c['buckets']:,} buckets (table "
+        f"{tuple(m.params['syn0'].shape)}, {table_bytes:,} bytes, drawn in "
+        f"row chunks): OOV {stem + 's'!r} finite "
+        f"{bool(np.isfinite(vec).all())}, nearest {near}")
+    if not (np.isfinite(vec).all() and near[0] == stem):
+        raise AssertionError(f"nlp: FastText OOV {stem}s nearest {near}")
+    out.update(vocab=m.vocabSize(), table_bytes=table_bytes, oov=stem + "s",
+               oov_nearest=near,
+               step_check=_nlp_step_check("FastText", "ft", nlp_ft._ft_step,
+                                          tap))
+    del m, tap
+    return out
+
+
+def _nlp_glove(sents):
+    c = NLP
+    corpus = _prefix(sents, c["glove_tokens"])
+    m = (Glove.Builder().layerSize(c["d"]).windowSize(c["glove_window"])
+         .xMax(c["glove_xmax"]).alpha(c["glove_alpha"]).epochs(1)
+         .seed(c["seed"]).iterate(corpus).device(DEV).build())
+    with _tapped(nlp_glove, "_glove_step") as tap:
+        out = _nlp_fit("GloVe", m, m.fit, ("_cooccurrences",), [tap])
+    first = tap["first"]
+    pairs = len(tap["first"][3]) * tap["calls"]
+    loss0 = _held_loss(nlp_glove._glove_step, first[0], first[2:],
+                       hist=first[1])
+    loss1 = _held_loss(nlp_glove._glove_step, m.params, first[2:],
+                       hist=m.hist)
+    log(f"[nlp] GloVe: {len(corpus):,} sentences, vocabulary "
+        f"{m.vocab.numWords():,}, D = {c['d']}, window "
+        f"{c['glove_window']}, xMax {c['glove_xmax']}, alpha "
+        f"{c['glove_alpha']}, {pairs:,} co-occurrence slots in batches of "
+        f"{m.b._batch} ({pairs / out['loop_s']:,.0f} a second of the step "
+        f"loop): the first batch's mean weighted loss {loss0:.4f} -> "
+        f"{loss1:.4f}")
+    if not loss1 < loss0:
+        raise AssertionError(f"nlp: GloVe loss {loss0} -> {loss1}")
+    out.update(vocab=m.vocab.numWords(), pairs=pairs,
+               pairs_per_s=pairs / out["loop_s"], loss_first=loss0,
+               loss_last=loss1,
+               step_check=_nlp_step_check("GloVe", "glove",
+                                          nlp_glove._glove_step, tap,
+                                          hist_key=True))
+    return out
+
+
+def _nlp_paragraphs(words, topic, counts):
+    """PV-DBOW and PV-DM on single-topic documents. The documents are
+    draws from their topic's distribution, told apart by sampling noise
+    alone, so what `nearestLabels` can recover is the topic: PV-DBOW's
+    gate is that the 5 labels it returns for each training document are
+    documents of that document's topic. The own label's presence is
+    printed. PV-DM's step averages over its batch (the JAX package's
+    `_pvdm_step`), so its document vectors move ~B times less an epoch
+    than PV-DBOW's: its gate is its loss, its labels are printed."""
+    c = NLP
+    rng = np.random.default_rng(c["seed"] + 2)
+    docs, doc_topic = [], {}
+    for i in range(c["pv_docs"]):
+        t = int(rng.integers(c["topics"]))
+        docs.append((f"DOC_{i}", " ".join(_topic_draws(
+            words, topic, counts, t, c["pv_len"], rng))))
+        doc_topic[f"DOC_{i}"] = t
+    probes = [docs[i] for i in rng.choice(len(docs), c["pv_probe"],
+                                          replace=False)]
+    out = {}
+    for algo in ("PV-DBOW", "PV-DM"):
+        m = (ParagraphVectors.Builder().layerSize(c["pv_d"])
+             .windowSize(c["pv_window"]).negativeSample(c["negative"])
+             .learningRate(c["lr"]).batchSize(c["batch"]).seed(c["seed"])
+             .sequenceLearningAlgorithm(algo).iterate(docs).device(DEV)
+             .build())
+        with _tapped(nlp_pv, "_sgns_step") as dbow_tap, \
+                _tapped(nlp_w2v, "_sgns_step", keep=False) as words_tap, \
+                _tapped(nlp_pv, "_pvdm_step") as dm_tap:
+            arm = _nlp_fit(algo, m, m.fit, ("_tokenized", "_pairs",
+                                            "_batches", "_dm_rows"),
+                           [dbow_tap, words_tap, dm_tap])
+        dm = algo == "PV-DM"
+        doc_tap = dm_tap if dm else dbow_tap
+        doc_step = nlp_pv._pvdm_step if dm else nlp_pv._sgns_step
+        first = doc_tap["first"]
+        loss0 = _held_loss(doc_step, first[0], first[1:])
+        loss1 = _held_loss(doc_step, dict(m.params) if dm else {
+            "syn0": m.params["docs"], "syn1": m.params["syn1"]}, first[1:])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        own = topical = 0
+        with _tapped(nlp_pv, "_infer_step") as infer_tap:
+            for lab, text in probes:
+                near = m.nearestLabels(text, 5)
+                own += lab in near
+                topical += all(doc_topic[x] == doc_topic[lab] for x in near)
+        torch.cuda.synchronize()
+        probe_s = time.perf_counter() - t0
+        log(f"[nlp] {algo}: {len(docs):,} documents of {c['pv_len']} "
+            f"tokens in {c['topics']} topics, vocabulary {m.vocabSize():,}, "
+            f"D = {c['pv_d']}, window {c['pv_window']}, {arm['steps']} "
+            f"steps ({words_tap['calls']} word, {doc_tap['calls']} "
+            f"document); the first document batch's loss {loss0:.4f} -> "
+            f"{loss1:.4f}; nearestLabels of {len(probes)} training "
+            f"documents ({probe_s:.2f} s, {infer_tap['calls']} infer steps): "
+            f"all 5 of the document's topic for {topical}, the own label "
+            f"among them for {own}")
+        if not (loss1 < loss0 and (dm or topical == len(probes))):
+            raise AssertionError(f"nlp: {algo}: loss {loss0} -> {loss1}, "
+                                 f"topical {topical} of {len(probes)}")
+        arm.update(loss_first=loss0, loss_last=loss1, own=own,
+                   topical=topical, probes=len(probes), probe_s=probe_s,
+                   vocab=m.vocabSize())
+        if dm:
+            arm["step_check"] = _nlp_step_check(
+                "PV-DM", "pvdm", nlp_pv._pvdm_step, dm_tap)
+        arm["infer_check"] = _nlp_step_check(
+            f"{algo} infer", "infer", nlp_pv._infer_step, infer_tap)
+        out[algo] = arm
+        del m
+    return out
+
+
+def nlp_graph(c=None):
+    """A graph of `vertices` and `edges` (undirected, distinct, no
+    self-loops) in `communities` blocks, `within` of the edges inside a
+    block: (Graph, each vertex's block)."""
+    c = c or NLP
+    n, k = c["vertices"], c["communities"]
+    rng = np.random.default_rng(c["seed"] + 3)
+    block = np.arange(n) % k
+    members = [np.flatnonzero(block == b) for b in range(k)]
+    seen, edges = set(), []
+    n_in = int(round(c["edges"] * c["within"]))
+    while len(edges) < c["edges"]:
+        inside = len(edges) < n_in
+        m = 4096
+        if inside:
+            b = rng.integers(k, size=m)
+            u = np.array([members[x][rng.integers(len(members[x]))]
+                          for x in b])
+            v = np.array([members[x][rng.integers(len(members[x]))]
+                          for x in b])
+        else:
+            u, v = rng.integers(n, size=(2, m))
+        for a, z in zip(u.tolist(), v.tolist()):
+            key = (min(a, z), max(a, z))
+            if a == z or key in seen or (inside and len(edges) >= n_in) \
+                    or len(edges) >= c["edges"]:
+                continue
+            seen.add(key)
+            edges.append(key)
+    g = Graph(n, allow_multiple_edges=True)   # edges are distinct already
+    for a, z in edges:
+        g.addEdge(a, z)
+    return g, block
+
+
+def _nlp_deepwalk():
+    c = NLP
+    t0 = time.perf_counter()
+    g, block = nlp_graph()
+    graph_s = time.perf_counter() - t0
+    dw = (DeepWalk.Builder().vectorSize(c["dw_d"])
+          .windowSize(c["dw_window"]).learningRate(c["lr"])
+          .negativeSample(c["negative"]).batchSize(c["batch"])
+          .seed(c["seed"]).epochs(1).device(DEV).build())
+    with _tapped(graph_dw, "_sgns_step") as tap:
+        out = _nlp_fit("DeepWalk", dw,
+                       lambda: dw.fit(g, walk_length=c["dw_walk"]),
+                       ("_walk_pairs",), [tap])
+    pairs = tap["calls"] * c["batch"]
+    within, across = _topic_cosines(dw._syn0(), np.arange(g.numVertices()),
+                                    block, c["sim_pairs"], c["seed"])
+    log(f"[nlp] DeepWalk: {g.numVertices():,} vertices, {g.numEdges():,} "
+        f"edges in {c['communities']} communities (made in {graph_s:.2f} "
+        f"s), d = {c['dw_d']}, window {c['dw_window']}, walk length "
+        f"{c['dw_walk']}, one walk per vertex, {pairs:,} pair slots "
+        f"({pairs / out['loop_s']:,.0f} a second of the step loop): mean "
+        f"cosine within a community {within:.4f}, across {across:.4f}")
+    if not within > across:
+        raise AssertionError(f"nlp: DeepWalk within {within} across "
+                             f"{across}")
+    out.update(vertices=g.numVertices(), edges=g.numEdges(), graph_s=graph_s,
+               pairs=pairs, pairs_per_s=pairs / out["loop_s"],
+               cos_within=within, cos_across=across,
+               step_check=_nlp_step_check("DeepWalk", "sgns",
+                                          graph_dw._sgns_step, tap))
+    return out
+
+
+def _kim_conf(c):
+    b = (NeuralNetConfiguration.Builder().seed(c["seed"])
+         .updater(Adam(1e-3)).graphBuilder().addInputs("words")
+         .setInputTypes(InputType.recurrent(c["d"])))
+    for k in c["kim_windows"]:
+        b.addLayer(f"conv{k}", Convolution1DLayer(
+            nOut=c["kim_maps"], kernelSize=k, convolutionMode="truncate",
+            activation="relu"), "words")
+        b.addLayer(f"pool{k}", GlobalPoolingLayer("max"), f"conv{k}")
+    b.addVertex("merge", MergeVertex(),
+                *[f"pool{k}" for k in c["kim_windows"]])
+    b.addLayer("drop", DropoutLayer(0.5), "merge")
+    b.addLayer("out", OutputLayer(lossFunction="mcxent", nOut=2,
+                                  activation="softmax"), "drop")
+    return b.setOutputs("out").build()
+
+
+def _nlp_kim(vectors, words, topic, counts):
+    """Kim's sentence CNN over the SGNS arm's vectors (B, T, 300)."""
+    c = NLP
+    rng = np.random.default_rng(c["seed"] + 4)
+    sents, labels = [], []
+    for _ in range(c["kim_sentences"]):
+        t = int(rng.integers(c["topics"]))
+        sents.append(" ".join(_topic_draws(words, topic, counts, t,
+                                           c["kim_len"], rng)))
+        labels.append("pos" if t < c["topics"] // 2 else "neg")
+    it = (CnnSentenceDataSetIterator.Builder("RNN")
+          .sentenceProvider(CollectionLabeledSentenceProvider(sents, labels))
+          .wordVectors(vectors).minibatchSize(c["kim_batch"])
+          .maxSentenceLength(c["kim_len"]).build())
+
+    def batches():
+        it.reset()
+        t0 = time.perf_counter()
+        out = []
+        while it.hasNext():
+            ds = it.next()
+            ds.features = np.ascontiguousarray(ds.features.transpose(0, 2, 1))
+            ds.featuresMask = None          # every sentence is full length
+            out.append(ds)
+        return out, time.perf_counter() - t0
+
+    data, host_s = batches()
+    net = ComputationGraph(_kim_conf(c)).init(DEV)
+    held = data[0]
+    score0 = float(net.score(held))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(c["kim_epochs"]):
+        net.fit(ListDataSetIterator(data))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    score1 = float(net.score(held))
+    params, state = graph_params_to_numpy(net)
+    cpu = graph_params_from_numpy(ComputationGraph(_kim_conf(c)), params,
+                                  state, device="cpu")
+    x = held.features
+    on_card = np.asarray(net.output(x))
+    on_cpu = np.asarray(cpu.output(x))
+    rel = float(np.abs(on_card - on_cpu).max() / np.abs(on_cpu).max())
+    steps = c["kim_epochs"] * len(data)
+    log(f"[nlp] Kim CNN: {len(sents):,} sentences of {c['kim_len']} tokens "
+        f"through CnnSentenceDataSetIterator (RNN format, the SGNS vectors, "
+        f"{host_s:.2f} s on the host), windows {list(c['kim_windows'])} x "
+        f"{c['kim_maps']} maps, max over time, dropout 0.5, minibatch "
+        f"{c['kim_batch']}: {c['kim_epochs']} epochs, {steps} steps in "
+        f"{fit_s:.2f} s ({steps / fit_s:.1f} steps/s); the first batch's "
+        f"score {score0:.4f} -> {score1:.4f}; output() card against the CPU "
+        f"{rel:.3e} (rtol {NLP_CNN_RTOL:.0e})")
+    if not (score1 < score0 and rel <= NLP_CNN_RTOL):
+        raise AssertionError(f"nlp: Kim CNN score {score0} -> {score1}, "
+                             f"card against the CPU {rel:.3e}")
+    return {"host_s": host_s, "fit_s": fit_s, "steps": steps,
+            "steps_per_s": steps / fit_s, "score_first": score0,
+            "score_last": score1, "card_vs_cpu": rel}
+
+
+def _nlp_serializer(model):
+    """The SGNS vectors written and read back, binary then text."""
+    ref = model._table()
+    out = {}
+    NLP_DIR.mkdir(parents=True, exist_ok=True)
+    for fmt in ("binary", "text"):
+        path = NLP_DIR / f"sgns.{'bin' if fmt == 'binary' else 'txt'}"
+        t0 = time.perf_counter()
+        WordVectorSerializer.writeWord2VecModel(model, str(path),
+                                                binary=fmt == "binary")
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = WordVectorSerializer.readWord2VecModel(str(path))
+        read_s = time.perf_counter() - t0
+        same_words = back.vocab.words() == model.vocab.words()
+        err = float(np.abs(back._table() - ref).max())
+        # the text format prints 6 decimals: each value within half a unit
+        # of the 6th decimal (and the float32 rounding of the parse)
+        ok = same_words and (err == 0.0 if fmt == "binary" else
+                             err <= 5e-7 + 1e-7 * float(np.abs(ref).max()))
+        size = path.stat().st_size
+        log(f"[nlp] WordVectorSerializer {fmt}: {ref.shape[0]:,} x "
+            f"{ref.shape[1]} in {size:,} bytes, written in {write_s:.2f} s, "
+            f"read (format auto-detected) in {read_s:.2f} s; words equal "
+            f"{same_words}, largest difference {err:.3e}")
+        if not ok:
+            raise AssertionError(f"nlp: {fmt} round trip: words "
+                                 f"{same_words}, {err:.3e}")
+        out[fmt] = {"bytes": size, "write_s": write_s, "read_s": read_s,
+                    "max_abs_diff": err}
+        path.unlink()
+    return out
+
+
+def _nlp_examples():
+    out = {}
+    for name in ("word2vec_text", "text_classification_tfidf",
+                 "unsupervised_analysis"):
+        mod = importlib.import_module(
+            f"deeplearning4j_tpu_torch.examples.{name}")
+        t0 = time.perf_counter()
+        mod.main(device=DEV)
+        torch.cuda.synchronize()
+        out[name] = {"s": time.perf_counter() - t0}
+        log(f"[nlp] example {name}: {out[name]['s']:.2f} s")
+    return out
+
+
+def phase_nlp():
+    """Word, document, subword and graph embeddings at their published
+    widths; none of the nine kernels runs on this path."""
+    c = NLP
+    _reset_counts()
+    t0 = time.perf_counter()
+    sents, words, topic, counts = nlp_corpus()
+    topic_of = dict(zip(words, topic.tolist()))
+    log(f"[nlp] corpus: {len(sents):,} sentences, "
+        f"{int(counts.sum()):,} tokens, {len(words):,} types (each at least "
+        f"{c['floor']} times) in {c['topics']} topics, made in "
+        f"{time.perf_counter() - t0:.2f} s")
+    out = {"corpus_tokens": int(counts.sum()), "types": len(words)}
+    with _no_tf32():
+        sgns, out["sgns"] = _nlp_word2vec(sents, topic_of, hs=False)
+        out["serializer"] = _nlp_serializer(sgns)
+        out["kim"] = _nlp_kim(sgns, words, topic, counts)
+        del sgns
+        _, out["hs"] = _nlp_word2vec(sents, topic_of, hs=True)
+        out["fasttext"] = _nlp_fasttext(sents, words)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["glove"] = _nlp_glove(sents)
+        out.update(_nlp_paragraphs(words, topic, counts))
+        out["deepwalk"] = _nlp_deepwalk()
+        out["examples"] = _nlp_examples()
+    out["launches"] = _counts()
+    log(f"[nlp] launches of the nine kernels across the phase: "
+        f"{out['launches']}")
+    if any(out["launches"].values()):
+        raise AssertionError(f"nlp: a kernel launched: {out['launches']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 # -- main ---------------------------------------------------------------------
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -10114,7 +10823,7 @@ def main(argv=None):
                              "chaos", "fleet", "mln", "rnn", "zoo",
                              "layers", "resilience", "quant", "parallel",
                              "multihost", "keras", "samediff", "onnx",
-                             "spark", "arbiter", "clustering"],
+                             "spark", "arbiter", "clustering", "nlp"],
                     default=None,
                     help="stop after the kernel checks, or run the resnet "
                          "serving and training phases right after them, or "
@@ -10122,7 +10831,8 @@ def main(argv=None):
                          "the mln, the rnn, the zoo, the layers, the "
                          "resilience, the quant, the parallel, the "
                          "multihost, the keras, the samediff, the onnx, the "
-                         "spark, the arbiter or the clustering phase alone "
+                         "spark, the arbiter, the clustering or the nlp "
+                         "phase alone "
                          "after the build (bring-up runs; arbiter makes the "
                          "spark phase's batches first)")
     ap.add_argument("--profile", action="store_true",
@@ -10165,7 +10875,7 @@ def main(argv=None):
     if args.only in ("chaos", "fleet", "mln", "rnn", "zoo", "layers",
                      "resilience", "quant", "parallel", "multihost",
                      "keras", "samediff", "onnx", "spark", "arbiter",
-                     "clustering"):
+                     "clustering", "nlp"):
         if args.only in ("keras", "samediff"):
             cfg = bert_base()
             phase = phase_keras if args.only == "keras" else phase_samediff
@@ -10194,6 +10904,8 @@ def main(argv=None):
             out = timed("arbiter", phase_arbiter)
         elif args.only == "clustering":
             out = timed("clustering", phase_clustering)
+        elif args.only == "nlp":
+            out = timed("nlp", phase_nlp)
         else:
             cfg = bert_base()
             phase = phase_chaos if args.only == "chaos" else phase_fleet
@@ -10253,6 +10965,7 @@ def main(argv=None):
     arbiter = timed("arbiter", phase_arbiter, spark_batches)
     del spark_batches
     clustering = timed("clustering", phase_clustering)
+    nlp = timed("nlp", phase_nlp)
     prof = (timed("profile", phase_profile, cfg, params, resnet_net,
                   resnet_x, train_net, train_ds) if args.profile else None)
     # each kernel's launches from the path that carries it: the forward and
@@ -10382,7 +11095,7 @@ def main(argv=None):
          "resilience": resilience, "quant": quant, "parallel": parallel,
          "multihost": multihost, "keras": keras, "samediff": samediff,
          "onnx": onnx, "spark": spark, "arbiter": arbiter,
-         "clustering": clustering,
+         "clustering": clustering, "nlp": nlp,
          "profile": prof,
          "line": line,
          "phase_seconds": seconds, "seconds": time.perf_counter() - t0},

@@ -21,7 +21,7 @@ from deeplearning4j_tpu_torch.device import resolve
 
 __all__ = ["param_shapes", "params_from_numpy", "params_to_numpy",
            "named_param_leaves", "param_leaves", "init_bert_params",
-           "samediff_values_from_numpy"]
+           "samediff_values_from_numpy", "embedding_params_from_numpy"]
 
 #: leaves initialised as N(0, 0.02²); the rest are LayerNorm scales (ones)
 #: or biases (zeros), as in the JAX package
@@ -168,3 +168,37 @@ def samediff_values_from_numpy(sd, values):
                              f"{want}, got {a.shape}")
         sd._values[name] = torch.as_tensor(a.copy(), device=sd.device)
     return sd
+
+
+def embedding_params_from_numpy(model, params, device=None, hist=None):
+    """Set `model.params` from {name: array} — the JAX package's embedding
+    tables (`syn0`, `syn1`, `docs`; GloVe's `w`, `wc`, `b`, `bc`) as
+    numpy — as float32 tensors on `device` (default: the card); GloVe's
+    AdaGrad history `hist` likewise, same names. A model that already has
+    tables must be given the same names and shapes. Returns `model`."""
+    from deeplearning4j_tpu_torch.nlp.word2vec import _drop_host_copies
+    dev = resolve(device)
+
+    def tensors(tree, what):
+        old = getattr(model, what, None)
+        if old is not None and set(old) != set(tree):
+            raise ValueError(f"embedding {what}: expected {sorted(old)}, "
+                             f"got {sorted(tree)}")
+        out = {}
+        for name, a in tree.items():
+            a = np.asarray(a)
+            if old is not None and tuple(old[name].shape) != a.shape:
+                raise ValueError(f"embedding {what}.{name}: expected shape "
+                                 f"{tuple(old[name].shape)}, got {a.shape}")
+            out[name] = torch.from_numpy(np.array(a, np.float32)).to(dev)
+        return out
+
+    model.params = tensors(params, "params")
+    if hist is not None:
+        model.hist = tensors(hist, "hist")
+    for tables in ("_hs_tables", "_ngram_dev"):
+        if getattr(model, tables, None) is not None:
+            setattr(model, tables, tuple(t.to(dev)
+                                         for t in getattr(model, tables)))
+    _drop_host_copies(model)
+    return model

@@ -4,12 +4,18 @@ of `deeplearning4j_tpu/ops/random.py`.
 A stateful wrapper over the JAX key stream: each draw splits the key, so
 host-side data and init code get ND4J-style sequential semantics. The
 keys follow JAX's threefry2x32 (partitionable layout) through the port's
-`generation.sampling.threefry2x32`, so `split`, `uniform` and `bernoulli`
-equal the JAX package's draws bit for bit and `normal` agrees to 1e-6
-(XLA's f32 erfinv polynomial, `log1p` may differ in the last ulp). `randint`, `permutation` and
-`shuffle` are not bit for bit: they seed a `torch.Generator` from the
-split key, so they are deterministic in the seed but draw other values
-than `jax.random`'s.
+`generation.sampling.threefry2x32`, so `split`, `uniform` (any `low`,
+`high`) and `bernoulli` equal the JAX package's draws bit for bit, and
+`normal` agrees to 1e-6 (XLA's f32 erfinv polynomial; `log1p` may differ
+in the last ulp). XLA:CPU contracts `jax.random.uniform`'s
+`u * (high - low) + low` into one fused multiply-add, so the port forms
+it in float64 and rounds once to float32: rounding the product and the
+sum apart differs by an ulp wherever `high - low` is not a power of two.
+`random_bits` takes an offset into the flat index, so rows of a large
+table can be drawn a chunk at a time and equal the slice of one whole
+draw. `randint`, `permutation` and `shuffle` are not bit for bit: they
+seed a `torch.Generator` from the split key, so they are deterministic
+in the seed but draw other values than `jax.random`'s.
 """
 from __future__ import annotations
 
@@ -18,7 +24,8 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["RandomState", "normal", "random_bits", "seed_key"]
+__all__ = ["RandomState", "normal", "random_bits", "seed_key",
+           "uniform"]
 
 _MASK32 = 0xFFFFFFFF
 
@@ -44,12 +51,16 @@ def _split(key):
     return torch.stack([b1[0], b2[0]]), torch.stack([b1[1], b2[1]])
 
 
-def random_bits(key, shape, device):
+def random_bits(key, shape, device, offset=0):
     """≡ jax.random.bits(key, shape, uint32) under the partitionable
     threefry: the hash of the flat C-order index of each element, both
-    words XORed. An int64 tensor of uint32 values."""
+    words XORed. An int64 tensor of uint32 values. With `offset`, the
+    elements are those from flat index `offset` on of a larger draw from
+    the same key: rows [s, e) of an (R, D) table are
+    `random_bits(key, (e - s, D), device, offset=s * D)`."""
     n = math.prod(shape)
-    idx = torch.arange(n, dtype=torch.int64, device=device)
+    idx = torch.arange(offset, offset + n, dtype=torch.int64,
+                       device=device)
     k = key.to(device)
     b1, b2 = _threefry(k[0], k[1], idx >> 32, idx & _MASK32)
     return (b1 ^ b2).reshape(shape)
@@ -60,6 +71,23 @@ def _unit(bits):
     mantissa trick)."""
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
     return f - 1.0
+
+
+def _affine(u, low, high):
+    """max(u * (high - low) + low, low) in float32 with one rounding, as
+    XLA's fused multiply-add gives it: the span is a float32 difference,
+    the product is exact in float64, and the sum is rounded once."""
+    lo = torch.tensor(low, dtype=torch.float32, device=u.device)
+    span = torch.tensor(high, dtype=torch.float32, device=u.device) - lo
+    y = (u.double() * span.double() + lo.double()).float()
+    return torch.maximum(y, lo)
+
+
+def uniform(key, shape, device, low=0.0, high=1.0, offset=0):
+    """≡ jax.random.uniform(key, shape, float32, low, high), drawn from
+    `key` itself (no split); `offset` as in `random_bits`."""
+    return _affine(_unit(random_bits(key, tuple(shape), device, offset)),
+                   low, high)
 
 
 # XLA's single-precision erfinv (Giles' polynomials in w = -log1p(-x²)),
@@ -87,13 +115,9 @@ def _erfinv(x):
 def normal(key, shape, device):
     """≡ jax.random.normal(key, shape) in float32, drawn from `key` itself
     (no split)."""
-    dev = torch.device(device)
-    lo = torch.tensor(float(np.nextafter(np.float32(-1.0), np.float32(0.0))),
-                      dtype=torch.float32, device=dev)
-    hi = torch.tensor(1.0, dtype=torch.float32, device=dev)
-    u = _unit(random_bits(key, tuple(shape), dev))
-    u = torch.maximum(u * (hi - lo) + lo, lo)
-    return _erfinv(u) * math.sqrt(2.0)
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    return _erfinv(uniform(key, shape, torch.device(device), lo, 1.0)) \
+        * math.sqrt(2.0)
 
 
 class RandomState:
@@ -125,11 +149,7 @@ class RandomState:
         return self._uniform(tuple(shape), low, high)
 
     def _uniform(self, shape, low, high):
-        dev = self._device()
-        u = _unit(random_bits(self.split(), shape, dev))
-        lo = torch.tensor(low, dtype=torch.float32, device=dev)
-        hi = torch.tensor(high, dtype=torch.float32, device=dev)
-        return torch.maximum(u * (hi - lo) + lo, lo)
+        return uniform(self.split(), shape, self._device(), low, high)
 
     def normal(self, shape=(), mean=0.0, std=1.0, dtype=torch.float32):
         return mean + std * normal(self.split(), shape, self._device())

@@ -224,6 +224,23 @@ def test_the_profiler_and_import_front_end_modules_are_among_the_checked_sources
         assert f"deeplearning4j_tpu_torch/{module}.py" in names
 
 
+def test_the_embedding_modules_are_among_the_checked_sources():
+    """nlp/ and graph/ (the host halves copies of JAX-package modules, the
+    steps in PyTorch) and the example twins: held by the two rules above
+    like every module of the port."""
+    names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
+    for module in ("nlp/__init__", "nlp/tokenization", "nlp/vocab",
+                   "nlp/word2vec", "nlp/sequence_vectors",
+                   "nlp/paragraph_vectors", "nlp/glove", "nlp/fasttext",
+                   "nlp/serializer", "nlp/vectorizers",
+                   "nlp/cnn_sentence_iterator", "graph/__init__",
+                   "graph/graph", "graph/deepwalk", "examples/__init__",
+                   "examples/word2vec_text",
+                   "examples/text_classification_tfidf",
+                   "examples/unsupervised_analysis", "ops/random"):
+        assert f"deeplearning4j_tpu_torch/{module}.py" in names
+
+
 _READ_SAMEDIFF = """
 import sys
 from deeplearning4j_tpu_torch.autodiff import SameDiff
@@ -443,6 +460,46 @@ def test_entry_points_default_to_the_card():
     net = graph_params_from_numpy(ComputationGraph(conf), params, state,
                                   device="cpu")
     assert net.output(np.zeros((1, 32, 32, 3), np.float32)).shape == (1, 4)
+
+
+def test_embedding_trainers_default_to_the_card():
+    """Word2Vec, Glove, FastText, ParagraphVectors and DeepWalk make their
+    tables on the card unless the builder is given device("cpu")."""
+    from deeplearning4j_tpu_torch import graph, nlp
+    corpus = ["a b c a b c d"] * 4
+    trainers = {
+        "Word2Vec": lambda: nlp.Word2Vec.Builder().minWordFrequency(1)
+        .layerSize(4).iterate(corpus),
+        "Glove": lambda: nlp.Glove.Builder().layerSize(4).epochs(1)
+        .iterate(corpus),
+        "FastText": lambda: nlp.FastText.Builder().layerSize(4)
+        .bucket(16).iterate(corpus),
+        "ParagraphVectors": lambda: nlp.ParagraphVectors.Builder()
+        .layerSize(4).iterate(corpus),
+    }
+
+    def deepwalk(b):
+        g = graph.Graph(4)
+        for i in range(3):
+            g.addEdge(i, i + 1)
+        return b.vectorSize(4).build().fit(g, walk_length=3)
+
+    if torch.cuda.is_available():
+        for name, mk in trainers.items():
+            table = "w" if name == "Glove" else "syn0"
+            assert mk().build().fit().params[table].is_cuda, name
+        assert deepwalk(graph.DeepWalk.Builder()).params["syn0"].is_cuda
+        return
+    for name, mk in trainers.items():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            mk().build().fit()
+        fitted = mk().device("cpu").build().fit()
+        table = "w" if name == "Glove" else "syn0"
+        assert fitted.params[table].device.type == "cpu", name
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        deepwalk(graph.DeepWalk.Builder())
+    dw = deepwalk(graph.DeepWalk.Builder().device("cpu"))
+    assert dw.params["syn0"].device.type == "cpu"
 
 
 def _zeros(spec):

@@ -522,3 +522,36 @@ def test_random_state_follows_the_jax_key_stream():
     a, b = RandomState(1), RandomState(1)
     assert torch.equal(a.randint(0, 5, (10,)), b.randint(0, 5, (10,)))
     assert sorted(a.permutation(6).tolist()) == list(range(6))
+
+
+@pytest.mark.parametrize("low, high", [(0.0, 1.0), (-0.5, 0.5), (-3.0, 7.0),
+                                       (1.0, 3.0), (2.5, 2.75),
+                                       (-1.0 / 60, 1.0 / 60)])
+def test_random_state_uniform_matches_the_jax_package_at_any_range(low,
+                                                                   high):
+    """XLA contracts jax.random.uniform's u * (high - low) + low into one
+    fused multiply-add; the port rounds once too (in float64, then to
+    float32), so every range is bit for bit, (-3, 7) among them, and so is
+    GloVe's split-then-ranged draw at ±0.5/d."""
+    import jax
+    from deeplearning4j_tpu.ops import RandomState as JRandomState
+    from deeplearning4j_tpu_torch.ops import RandomState
+    from deeplearning4j_tpu_torch.ops.random import _split, seed_key, uniform
+    got = RandomState(5, device="cpu").uniform((64, 64), low, high)
+    want = np.asarray(JRandomState(5).uniform((64, 64), low, high))
+    np.testing.assert_array_equal(got.numpy(), want)
+    k1, k2 = _split(seed_key(42))
+    j1, j2 = jax.random.split(jax.random.PRNGKey(42))
+    for tk, jk in ((k1, j1), (k2, j2)):
+        np.testing.assert_array_equal(
+            uniform(tk, (37, 30), "cpu", low, high).numpy(),
+            np.asarray(jax.random.uniform(jk, (37, 30), minval=low,
+                                          maxval=high)))
+
+
+def test_random_bits_offset_draws_a_slice_of_the_whole_draw():
+    from deeplearning4j_tpu_torch.ops.random import random_bits, seed_key
+    whole = random_bits(seed_key(3), (11, 7), "cpu")
+    rows = [random_bits(seed_key(3), (e - s, 7), "cpu", offset=s * 7)
+            for s, e in ((0, 4), (4, 5), (5, 11))]
+    assert torch.equal(torch.cat(rows), whole)
