@@ -24,6 +24,8 @@
                                           # arbiter
     python3 chip_smoke.py --only clustering  # card, build, clustering
     python3 chip_smoke.py --only nlp      # card, build, nlp
+    python3 chip_smoke.py --only rl       # card, build, rl
+    python3 chip_smoke.py --only examples  # card, build, examples
     python3 chip_smoke.py --profile  # and phase 14
 
 Phases, in order; any failure exits non-zero and prints no result:
@@ -540,6 +542,43 @@ Phases, in order; any failure exits non-zero and prints no result:
             run. Printed: each arm's host seconds apart from its step
             loop's, steps/s, pairs/s, peak allocated bytes. The nine
             kernels' counters read 0 across the phase.
+29. rl:     rl4j's learners at the Atari widths (RL), f32, TF32 off,
+            cuDNN deterministic. A: `QLearningDiscreteConv` at the JAX
+            package's defaults (Mnih et al. 2013: 16 filters 8×8/4, 32
+            4×4/2, 256 dense; 84×84, history 4, skip 4; batch 32) on
+            `PixelGridWorld(21, 8)`'s 168×168 frames, 1,500 agent steps,
+            replay 10,000: one `td_learn_batch` from the trained weights,
+            Adam moments and replay on two card learners (bit-identical)
+            and a CPU one (the probe's Q-values and the parameters within
+            RL_CONV_RTOL, the update within RL_DELTA_RTOL); a fixed probe
+            batch's mean |TD error| against the first target net falls
+            from the first update to just before the first target sync
+            (its value after the last update printed: the targets move
+            at every sync); target syncs = maxStep //
+            targetDqnUpdateFreq.
+            B: `A3CDiscreteConv` at the same network and
+            `A3CConfiguration()` (8 envs, nstep 5), 100 updates of 40
+            rows. C: `A3CDiscreteDense` and
+            `AsyncNStepQLearningDiscreteDense` (2×64, 8 envs) on
+            `CartpoleNative`, 2,000 env steps each. B and C: one update
+            from the trained params and RMSprop state on the last rollout,
+            twice on the card (bit-identical) and on a CPU twin (B
+            RL_CONV_RTOL, C RL_DENSE_RTOL), the loss finite, the n-step
+            learner's v head unchanged. Printed: steps/s, updates/s, the
+            host's share of arm A's loop outside its network calls, host
+            reads, arm A's peak allocated bytes above what it found. The
+            nine kernels' counters read
+            0 across the phase.
+30. examples: the 15 twins of examples/ this slice adds
+            (`deeplearning4j_tpu_torch/examples/`), each `main()` on the
+            card at its script's settings (dqn_cartpole's 12,000 steps),
+            timed; the scripts' checks raise inside them (pixel DQN play
+            > 0.9, attention accuracy > 0.8, YOLO class 1, MDN samples
+            near ±2, the custom layer's round trip); every number a twin
+            returns and every loss it prints finite; B1, B2a and B2b
+            launched by attention_sequence_classifier and
+            long_context_bert, none of the nine by the other 13 (counted
+            per twin: the kernel line's `launches_examples`).
 
 Phases 5, 7 and 8 run as a user runs them: the server and `fit` replay
 CUDA graphs on the card by default. The kernels' launch counters are set
@@ -556,7 +595,8 @@ profiled steps, its timed steps and BERT's profiled steps, the samediff
 phase's before its import, the onnx phase's before the import and again
 before the fused forward, the spark phase's before its second epoch and
 the arbiter phase's before each candidate's replayed steps and the LeNet
-search; the nlp phase's at its start, read at its end (0 each). Every
+search; the nlp and rl phases' at their start, read at their end (0
+each), the examples phase's before each twin. Every
 number is measured in this run; the last lines are the kernel JSON object
 and the `{"ok": true, "device": ...}` line. Imports nothing of JAX.
 """
@@ -682,6 +722,7 @@ from deeplearning4j_tpu_torch.nlp import glove as nlp_glove
 from deeplearning4j_tpu_torch.nlp import paragraph_vectors as nlp_pv
 from deeplearning4j_tpu_torch.nlp import word2vec as nlp_w2v
 from deeplearning4j_tpu_torch.keras_import import KerasModelImport
+from deeplearning4j_tpu_torch import rl
 from deeplearning4j_tpu_torch.optimize import ProfilerListener, xplane
 from deeplearning4j_tpu_torch import monitoring as mon
 from deeplearning4j_tpu_torch.monitoring import events as ev
@@ -1053,13 +1094,16 @@ def _bwd_cases(label, b, h, tq, tk, d, causal, lengths, dtype, gen):
 
 #: the attention layers' kernel shapes (B, H, Tq, Tk, D) with their key
 #: lengths: the example stack's self-attention and learned queries at D = 8
-#: (B = 256, T = 24, lengths 8-24), and a 512-wide layer of 4 heads at
-#: D = 128 (B = 16, T = 512)
+#: (B = 256, T = 24, lengths 8-24), the long_context_bert twin's ring
+#: block on one rank (bert_tiny: B = 2, 4 heads of D = 8, T = 64, no
+#: padding: full tiles), and a 512-wide layer of 4 heads at D = 128
+#: (B = 16, T = 512)
 ATTN_KERNEL_SHAPES = (
     ("attn D=8", (256, 4, 24, 24, 8),
      [8 + (i * 7) % 17 for i in range(256)]),
     ("learned Tq=4 D=8", (256, 4, 4, 24, 8),
      [8 + (i * 7) % 17 for i in range(256)]),
+    ("long_context_bert D=8", (2, 4, 64, 64, 8), None),
     ("attn D=128", (16, 4, 512, 512, 128),
      [512 - 31 * i for i in range(16)]))
 
@@ -1671,7 +1715,8 @@ def phase_kernels():
         cases.append((_bwd_cases, "cross Tq!=Tk", 2, 12, 100, 300, 64, False,
                       [300, 171], dtype))
         # the attention layers' head dims: the example's D = 8 (run padded
-        # to 16; its learned queries cross-attend, Tq = 4) and D = 128
+        # to 16; its learned queries cross-attend, Tq = 4), the
+        # long-context twin's unpadded ring block at D = 8 and D = 128
         for label, shape, lens in ATTN_KERNEL_SHAPES:
             cases.append((_fwd_case, label, *shape, False, lens, dtype))
             cases.append((_bwd_cases, label, *shape, False, lens, dtype))
@@ -10815,6 +10860,417 @@ def phase_nlp():
     return out
 
 
+# -- phases 29 and 30: rl and examples -----------------------------------------
+#: the rl phase (`--only rl`): rl4j's learners at the Atari widths. Arm A:
+#: QLearningDiscreteConv with the JAX package's defaults (Mnih et al.
+#: 2013's network: 16 filters 8×8/4, 32 filters 4×4/2, 256 dense units, lr
+#: 2.5e-4; HistoryProcessorConfiguration(): 84×84, history 4, skip 4) on
+#: PixelGridWorld(size=21, scale=8)'s 168×168 frames, batch 32, cut to
+#: `max_step` agent steps and a replay of `replay` observations (~113 KB
+#: each, stored twice a transition). Arm B: A3CDiscreteConv at the same
+#: network and A3CConfiguration()'s defaults (8 envs, nstep 5),
+#: `a3c_updates` updates. Arm C: A3CDiscreteDense and
+#: AsyncNStepQLearningDiscreteDense on CartpoleNative at their defaults
+#: (2×64, 8 envs), `dense_steps` env steps each.
+RL = dict(max_step=1500, replay=10_000, batch=32, grid=21, scale=8,
+          a3c_updates=100, dense_steps=2000, probe=256, probe_seed=5,
+          check_seed=17)
+#: one update on the card against the same update through the port on the
+#: CPU, relative to the largest parameter: the conv learners (arms A, B)
+#: and the dense ones (arm C); arm A also holds the Q-values, relative to
+#: the largest, at RL_CONV_RTOL
+RL_CONV_RTOL = 1e-5
+RL_DENSE_RTOL = 1e-6
+#: arm A's update itself (parameters after − before), card against CPU,
+#: relative to its largest element: f32 parameters near 0.1 hold an
+#: update of lr = 2.5e-4 to ~3e-5 of itself
+RL_DELTA_RTOL = 1e-3
+
+
+def _rl_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _rl_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _rl_leaves(v)]
+    return [np.asarray(tree, np.float64)]
+
+
+def _rl_rel(got, want):
+    """max |got − want| over the leaves of two numpy trees, relative to the
+    largest |want|."""
+    g, w = _rl_leaves(got), _rl_leaves(want)
+    assert len(g) == len(w)
+    top = max(float(np.abs(x).max()) for x in w)
+    return max(float(np.abs(a - b).max()) for a, b in zip(g, w)) / top
+
+
+def _rl_equal(a, b):
+    return all(np.array_equal(x, y) for x, y in zip(_rl_leaves(a),
+                                                     _rl_leaves(b)))
+
+
+def _rl_finite(tree):
+    return all(np.isfinite(x).all() for x in _rl_leaves(tree))
+
+
+def _rl_conv_learner(device):
+    c = RL
+    return rl.QLearningDiscreteConv(
+        rl.PixelGridWorld(size=c["grid"], scale=c["scale"]),
+        rl.DQNConvNetworkConfiguration(),
+        rl.HistoryProcessorConfiguration(),
+        rl.QLearningConfiguration(maxStep=c["max_step"],
+                                  expRepMaxSize=c["replay"],
+                                  batchSize=c["batch"]),
+        device=device)
+
+
+def _rl_td_error(net, target, batch, conf):
+    """Mean |TD error| (unclamped) of `net` against `target` on a fixed
+    batch: td_learn_batch's target without the fit."""
+    obs, actions, rewards, next_obs, dones = batch
+    q_next_t = np.asarray(target.output(next_obs))
+    best = np.asarray(net.output(next_obs)).argmax(-1)
+    boot = q_next_t[np.arange(len(best)), best]
+    td = rewards * conf.rewardFactor + conf.gamma * boot * (1 - dones)
+    q = np.asarray(net.output(obs))
+    return float(np.abs(td - q[np.arange(len(actions)), actions]).mean())
+
+
+def _rl_timed(learner, name, clock):
+    """Wrap the learner's method `name` to add its wall seconds to
+    clock[name]."""
+    inner = getattr(learner, name)
+
+    def call(*a):
+        t0 = time.perf_counter()
+        try:
+            return inner(*a)
+        finally:
+            clock[name] += time.perf_counter() - t0
+
+    setattr(learner, name, call)
+
+
+def _rl_td_check(trained, probe_obs):
+    """One td_learn_batch from the trained Q-network's weights, its Adam
+    moments and step count, and its replay, on two card learners and a CPU
+    one: the card repeats bit for bit; the online net's Q-values on the
+    probe observations before the update, the parameters after it and
+    the update itself (after − before) agree with the CPU within
+    RL_CONV_RTOL, RL_CONV_RTOL and RL_DELTA_RTOL of their largest
+    magnitude. The carried moments make the update's size follow the
+    gradient's (a fresh Adam's first step is about lr·sign(g))."""
+    from deeplearning4j_tpu_torch.rl.dqn import td_learn_batch
+    from deeplearning4j_tpu_torch.util.model_serializer import _optax_leaves
+    tree = rl.params_to_numpy(trained)
+    moments = [t.detach().cpu() for t in _optax_leaves(trained.net)]
+    q, out = [], []
+    for dev in (DEV, DEV, "cpu"):
+        lrn = _rl_conv_learner(dev)
+        rl.params_from_numpy(lrn, tree)
+        lrn.net._build_optimizer()
+        leaves = _optax_leaves(lrn.net)
+        assert len(leaves) == len(moments)
+        with torch.no_grad():
+            for dst, src in zip(leaves, moments):
+                dst.copy_(src)
+        q.append(np.asarray(lrn.net.output(probe_obs)))
+        lrn.replay._buf = list(trained.replay._buf)
+        lrn.replay._rng = np.random.default_rng(RL["check_seed"])
+        td_learn_batch(lrn.net, lrn.target, lrn.replay, lrn.conf)
+        out.append(rl.params_to_numpy(lrn)["net"][0])
+        del lrn
+    before = _rl_leaves(tree["net"][0])
+    delta = [[a - b for a, b in zip(_rl_leaves(p), before)]
+             for p in (out[0], out[2])]
+    return {"td_repeat_equal": _rl_equal(out[0], out[1]),
+            "td_card_vs_cpu": _rl_rel(out[0], out[2]),
+            "td_delta_card_vs_cpu": _rl_rel(*delta),
+            "q_card_vs_cpu": _rl_rel(q[0], q[2])}
+
+
+def _rl_arm_a():
+    c = RL
+    learner = _rl_conv_learner(DEV)
+    probe = {}
+    first = learner._learn_batch
+
+    def learn():
+        if not probe:
+            # a fixed probe batch from the replay (its own generator, so
+            # the learner's draws are untouched), read before the first
+            # update
+            draw = rl.ExpReplay(c["replay"], c["probe"], c["probe_seed"])
+            draw._buf = list(learner.replay._buf)
+            probe["batch"] = draw.getBatch()
+            probe["first"] = _rl_td_error(learner.net, learner.target,
+                                          probe["batch"], learner.conf)
+        first()
+
+    learner._learn_batch = learn
+    sync = learner.target.setParams
+
+    def set_params(flat):
+        if probe and "synced" not in probe:
+            # the regression target of the first period: the probe against
+            # the same frozen target net, just before it is replaced
+            probe["synced"] = _rl_td_error(learner.net, learner.target,
+                                           probe["batch"], learner.conf)
+        return sync(flat)
+
+    learner.target.setParams = set_params
+    clock = {"_greedy_q": 0.0, "_learn_batch": 0.0, "getBatch": 0.0}
+    _rl_timed(learner, "_greedy_q", clock)
+    _rl_timed(learner, "_learn_batch", clock)
+    _rl_timed(learner.replay, "getBatch", clock)
+    base = 0
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # what earlier phases still hold is not the learner's
+        base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    rewards = learner.train()
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    last = _rl_td_error(learner.net, learner.target, probe["batch"],
+                        learner.conf)
+    peak = (torch.cuda.max_memory_allocated() - base if DEV == "cuda"
+            else None)
+    check = _rl_td_check(learner, probe["batch"][0])
+    # the network calls: the policy's B = 1 forwards and the TD updates
+    # without their replay sampling (host numpy)
+    net_s = clock["_greedy_q"] + clock["_learn_batch"] - clock["getBatch"]
+    frames = learner.step_count * learner.hp.conf.skipFrame
+    res = {"agent_steps": learner.step_count, "frames_max": frames,
+           "episodes": len(rewards), "updates": learner.updates,
+           "target_syncs": learner.target_syncs,
+           "host_reads": learner.host_reads, "wall_s": wall,
+           "steps_per_s": learner.step_count / wall,
+           "updates_per_s": learner.updates / wall,
+           "policy_forward_s": clock["_greedy_q"],
+           "update_s": clock["_learn_batch"],
+           "replay_sample_s": clock["getBatch"],
+           "host_share": (wall - net_s) / wall, "peak_bytes": peak,
+           "replay_len": len(learner.replay),
+           "probe_td_first": probe["first"],
+           "probe_td_first_sync": probe["synced"], "probe_td_last": last,
+           **check, "last10_reward": float(np.mean(rewards[-10:]))}
+    log(f"[rl] A: pixel DQN (84x84x4, 16/32/256) on PixelGridWorld("
+        f"{c['grid']}, {c['scale']}): {learner.step_count} agent steps, "
+        f"{learner.updates} updates of B={c['batch']} in {wall:.2f} s "
+        f"({res['steps_per_s']:.1f} steps/s, {res['updates_per_s']:.1f} "
+        f"updates/s), {len(rewards)} episodes; policy forwards "
+        f"{clock['_greedy_q']:.2f} s, updates {clock['_learn_batch']:.2f} "
+        f"s (replay sampling {clock['getBatch']:.2f} s of it), the host's "
+        f"share outside the network calls {res['host_share']:.4f}; host "
+        f"reads {learner.host_reads}; peak {peak} B above the {base} B "
+        f"held before the run; probe |TD| "
+        f"{probe['first']:.5f} at the first update -> "
+        f"{probe['synced']:.5f} before the first target sync (the same "
+        f"target) -> {last:.5f} after the last update; target syncs "
+        f"{learner.target_syncs}; card vs CPU from the trained weights "
+        f"and Adam moments: probe Q {check['q_card_vs_cpu']:.3e}, one "
+        f"td_learn_batch's parameters {check['td_card_vs_cpu']:.3e} (rtol "
+        f"{RL_CONV_RTOL:.0e} each), its update "
+        f"{check['td_delta_card_vs_cpu']:.3e} (rtol {RL_DELTA_RTOL:.0e}), "
+        f"repeat bit-identical {check['td_repeat_equal']}")
+    want_syncs = c["max_step"] // learner.conf.targetDqnUpdateFreq
+    if not (check["td_repeat_equal"]
+            and check["q_card_vs_cpu"] <= RL_CONV_RTOL
+            and check["td_card_vs_cpu"] <= RL_CONV_RTOL
+            and check["td_delta_card_vs_cpu"] <= RL_DELTA_RTOL
+            and probe["synced"] < probe["first"]
+            and learner.target_syncs == want_syncs
+            and _rl_finite(rl.params_to_numpy(learner))):
+        raise AssertionError(f"rl: arm A: {res}")
+    return res
+
+
+def _rl_update_check(learner, make_cpu, rollout):
+    """One `_update` from the learner's params and RMSprop state on the
+    card, twice (bit-identical), and on a CPU twin carried across."""
+    params, nu = rl.params_to_numpy(learner)
+    outs = []
+    for _ in range(2):
+        p, s = learner._update(learner.params, learner.opt_state, *rollout)
+        outs.append({g: [{k: v.cpu().numpy() for k, v in lyr.items()}
+                         for lyr in layers] for g, layers in p.items()})
+    cpu = rl.params_from_numpy(make_cpu(), params, nu=nu)
+    p, _ = cpu._update(cpu.params, cpu.opt_state, *rollout)
+    want = {g: [{k: v.numpy() for k, v in lyr.items()} for lyr in layers]
+            for g, layers in p.items()}
+    return _rl_equal(outs[0], outs[1]), _rl_rel(outs[0], want)
+
+
+def _rl_a3c_run(name, make, rtol, check_v=False):
+    learner = make(DEV)
+    rollouts = []
+    inner = learner._update
+
+    def update(*a):
+        rollouts[:] = [a[2:]]
+        return inner(*a)
+
+    learner._update = update
+    v0 = copy.deepcopy(rl.params_to_numpy(learner)[0]["v"])
+    t0 = time.perf_counter()
+    learner.train()
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    learner._update = inner
+    obs, actions, returns = rollouts[0]
+    with torch.no_grad():
+        loss = float(learner._loss(
+            learner.params, learner._tensor(obs),
+            learner._tensor(actions, torch.int64), learner._tensor(returns)))
+    repeat_equal, cpu_rel = _rl_update_check(
+        learner, lambda: make("cpu"), rollouts[0])
+    params = rl.params_to_numpy(learner)[0]
+    v_same = _rl_equal(v0, params["v"])
+    res = {"env_steps": learner.step_count, "updates": learner.updates,
+           "wall_s": wall, "env_steps_per_s": learner.step_count / wall,
+           "updates_per_s": learner.updates / wall,
+           "episodes": len(learner.episode_rewards),
+           "host_reads": learner.host_reads, "loss": loss,
+           "update_card_vs_cpu": cpu_rel, "update_repeat_equal":
+           repeat_equal, "v_unchanged": v_same}
+    log(f"[rl] {name}: {learner.step_count} env steps, {learner.updates} "
+        f"updates of {len(obs)} rows in {wall:.2f} s "
+        f"({res['env_steps_per_s']:.1f} env steps/s, "
+        f"{res['updates_per_s']:.1f} updates/s), "
+        f"{res['episodes']} episodes, loss on the last rollout {loss:.5f}; "
+        f"one update card vs CPU {cpu_rel:.3e} (rtol {rtol:.0e}), repeat "
+        f"bit-identical {repeat_equal}"
+        + (f"; the v head unchanged {v_same}" if check_v else ""))
+    if not (repeat_equal and cpu_rel <= rtol and np.isfinite(loss)
+            and _rl_finite(params) and (v_same or not check_v)):
+        raise AssertionError(f"rl: {name}: {res}")
+    return res
+
+
+def phase_rl():
+    """Arms A–C at rl4j's Atari widths; none of the nine kernels runs on
+    this path (counted, checked zero)."""
+    c = RL
+    _reset_counts()
+    out = {}
+    with _no_tf32(), _deterministic():
+        out["dqn_conv"] = _rl_arm_a()
+        gc.collect()
+        a3c = rl.A3CConfiguration()
+        conv_steps = c["a3c_updates"] * a3c.numEnvs * a3c.nstep
+
+        def conv(dev):
+            return rl.A3CDiscreteConv(
+                lambda: rl.PixelGridWorld(size=c["grid"], scale=c["scale"]),
+                rl.A3CConfiguration(maxStep=conv_steps), device=dev)
+
+        out["a3c_conv"] = _rl_a3c_run("B: A3CDiscreteConv (84x84x4, "
+                                      "16/32/256, 8 envs, nstep 5)", conv,
+                                      RL_CONV_RTOL)
+
+        def dense(dev):
+            return rl.A3CDiscreteDense(
+                lambda: rl.CartpoleNative(seed=0),
+                rl.A3CConfiguration(maxStep=c["dense_steps"]), device=dev)
+
+        def nstep(dev):
+            return rl.AsyncNStepQLearningDiscreteDense(
+                lambda: rl.CartpoleNative(seed=0),
+                rl.A3CConfiguration(maxStep=c["dense_steps"]), device=dev)
+
+        out["a3c_dense"] = _rl_a3c_run("C: A3CDiscreteDense (2x64, 8 envs) "
+                                       "on CartpoleNative", dense,
+                                       RL_DENSE_RTOL)
+        out["nstep_q"] = _rl_a3c_run("C: AsyncNStepQLearningDiscreteDense "
+                                     "(2x64, 8 envs) on CartpoleNative",
+                                     nstep, RL_DENSE_RTOL, check_v=True)
+    out["launches"] = _counts()
+    log(f"[rl] launches of the nine kernels across the phase: "
+        f"{out['launches']}")
+    if any(out["launches"].values()):
+        raise AssertionError(f"rl: a kernel launched: {out['launches']}")
+    gc.collect()
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+#: the examples phase (`--only examples`): the 15 twins of examples/ this
+#: slice adds, each at its script's settings; the attention classifier and
+#: the long-context recipe run the flash kernels (B1, B2a, B2b), the
+#: others none of the nine
+EXAMPLE_TWINS = ("dqn_cartpole", "pixel_dqn_gridworld", "mnist_cnn",
+                 "transfer_learning", "vae_anomaly", "custom_layer",
+                 "mixture_density_regression", "char_rnn_generation",
+                 "attention_sequence_classifier", "object_detection_yolo",
+                 "samediff_graph", "model_artifacts",
+                 "hyperparameter_search", "distributed_data_parallel",
+                 "long_context_bert")
+EXAMPLE_FLASH = ("attention_sequence_classifier", "long_context_bert")
+
+
+def _example_numbers(x):
+    """Every float in the returned facts (nested)."""
+    if isinstance(x, dict):
+        return [v for k in x for v in _example_numbers(x[k])]
+    if isinstance(x, (list, tuple)):
+        return [v for e in x for v in _example_numbers(e)]
+    if isinstance(x, (float, np.floating)):
+        return [float(x)]
+    return []
+
+
+def phase_examples():
+    """Each twin's `main(device=DEV)` with the launch counts set to 0
+    just before it and read just after; its script's checks raise inside
+    it; every number it returns (every loss it prints) must be finite."""
+    import io
+    out = {}
+    for name in EXAMPLE_TWINS:
+        mod = importlib.import_module(
+            f"deeplearning4j_tpu_torch.examples.{name}")
+        printed = io.StringIO()
+        _reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            facts = mod.main(device=DEV)
+            if name == "hyperparameter_search":
+                facts = {"main": facts,
+                         "declarative": mod.main_declarative(device=DEV)}
+        if DEV == "cuda":
+            torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        counts = _counts()
+        text = printed.getvalue()
+        nums = _example_numbers(facts)
+        finite = all(np.isfinite(nums)) and not re.search(
+            r"\b(nan|inf)\b", text, re.IGNORECASE)
+        flash = {k: counts[k] for k in PAR_BERT_KERNELS}
+        others = {k: v for k, v in counts.items() if k not in flash}
+        launched_ok = (not any(others.values())) and (
+            (all(flash.values()) or DEV != "cuda") if name in EXAMPLE_FLASH
+            else not any(flash.values()))
+        out[name] = {"s": s, "facts": facts, "launches": counts}
+        last = [ln for ln in text.strip().splitlines() if ln][-1:]
+        log(f"[examples] {name}: {s:.2f} s; "
+            f"{last[0][:140] if last else ''}"
+            + (f"; flash launches {flash}" if name in EXAMPLE_FLASH else ""))
+        if not (finite and launched_ok):
+            raise AssertionError(f"examples: {name}: finite {finite}, "
+                                 f"launches {counts}\n{text}")
+    out["launches"] = {k: sum(out[n]["launches"][k] for n in EXAMPLE_TWINS)
+                       for k in out[EXAMPLE_TWINS[0]]["launches"]}
+    gc.collect()
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
 # -- main ---------------------------------------------------------------------
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -10823,7 +11279,8 @@ def main(argv=None):
                              "chaos", "fleet", "mln", "rnn", "zoo",
                              "layers", "resilience", "quant", "parallel",
                              "multihost", "keras", "samediff", "onnx",
-                             "spark", "arbiter", "clustering", "nlp"],
+                             "spark", "arbiter", "clustering", "nlp", "rl",
+                             "examples"],
                     default=None,
                     help="stop after the kernel checks, or run the resnet "
                          "serving and training phases right after them, or "
@@ -10831,8 +11288,8 @@ def main(argv=None):
                          "the mln, the rnn, the zoo, the layers, the "
                          "resilience, the quant, the parallel, the "
                          "multihost, the keras, the samediff, the onnx, the "
-                         "spark, the arbiter, the clustering or the nlp "
-                         "phase alone "
+                         "spark, the arbiter, the clustering, the nlp, the "
+                         "rl or the examples phase alone "
                          "after the build (bring-up runs; arbiter makes the "
                          "spark phase's batches first)")
     ap.add_argument("--profile", action="store_true",
@@ -10875,7 +11332,7 @@ def main(argv=None):
     if args.only in ("chaos", "fleet", "mln", "rnn", "zoo", "layers",
                      "resilience", "quant", "parallel", "multihost",
                      "keras", "samediff", "onnx", "spark", "arbiter",
-                     "clustering", "nlp"):
+                     "clustering", "nlp", "rl", "examples"):
         if args.only in ("keras", "samediff"):
             cfg = bert_base()
             phase = phase_keras if args.only == "keras" else phase_samediff
@@ -10906,6 +11363,10 @@ def main(argv=None):
             out = timed("clustering", phase_clustering)
         elif args.only == "nlp":
             out = timed("nlp", phase_nlp)
+        elif args.only == "rl":
+            out = timed("rl", phase_rl)
+        elif args.only == "examples":
+            out = timed("examples", phase_examples)
         else:
             cfg = bert_base()
             phase = phase_chaos if args.only == "chaos" else phase_fleet
@@ -10966,6 +11427,8 @@ def main(argv=None):
     del spark_batches
     clustering = timed("clustering", phase_clustering)
     nlp = timed("nlp", phase_nlp)
+    rl_res = timed("rl", phase_rl)
+    examples = timed("examples", phase_examples)
     prof = (timed("profile", phase_profile, cfg, params, resnet_net,
                   resnet_x, train_net, train_ds) if args.profile else None)
     # each kernel's launches from the path that carries it: the forward and
@@ -11084,6 +11547,14 @@ def main(argv=None):
             row["launches_arbiter_from"] = (
                 f"arbiter: {ARBITER['resnet_candidates']} ResNet-50 "
                 f"candidates x {ARBITER['steps'] - 2} replayed steps")
+        # this slice's path: the 15 example twins of the examples phase
+        # (the flash kernels from the attention classifier's 30 graphed
+        # steps and the long-context recipe's 3 ring steps; the rl phase
+        # launches none of the nine)
+        row["launches_examples"] = examples["launches"][name]
+        row["launches_examples_from"] = (
+            "examples phase: attention_sequence_classifier + "
+            "long_context_bert (the other 13 twins launch none)")
     (OUT_DIR / "smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "kernels": rows,
          "step36": step36, "fwd36": fwd36, "bert_step12": step12,
@@ -11095,8 +11566,8 @@ def main(argv=None):
          "resilience": resilience, "quant": quant, "parallel": parallel,
          "multihost": multihost, "keras": keras, "samediff": samediff,
          "onnx": onnx, "spark": spark, "arbiter": arbiter,
-         "clustering": clustering, "nlp": nlp,
-         "profile": prof,
+         "clustering": clustering, "nlp": nlp, "rl": rl_res,
+         "examples": examples, "profile": prof,
          "line": line,
          "phase_seconds": seconds, "seconds": time.perf_counter() - t0},
         indent=1, default=str))

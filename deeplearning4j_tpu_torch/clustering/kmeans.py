@@ -32,8 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.device import resolve
-from deeplearning4j_tpu_torch.ops.random import (_split, _unit, random_bits,
-                                                 seed_key)
+from deeplearning4j_tpu_torch.ops.random import (_unit, random_bits,
+                                                 seed_key, split)
 
 __all__ = ["Point", "Cluster", "ClusterSet", "PointClassification",
            "KMeansClustering"]
@@ -141,13 +141,13 @@ def _kmeanspp_init(x, key, k, distance):
     squared euclidean, as the reference)."""
     del distance
     n = x.shape[0]
-    k0, key = _split(key)
+    k0, key = split(key)
     first = int(torch.randint(0, n, (), generator=_generator(k0)))
     centers = torch.zeros((k, x.shape[1]), dtype=x.dtype, device=x.device)
     centers[0] = x[first]
     d2 = _pairwise(x, centers[:1], "sqeuclidean")[:, 0]
     for i in range(1, k):
-        key, sub = _split(key)
+        key, sub = split(key)
         p = d2 / torch.clamp(d2.sum(), min=1e-12)
         idx = torch.clamp(_choice(sub, p), max=n - 1)
         row = x.index_select(0, idx.reshape(1))

@@ -24,7 +24,7 @@ from deeplearning4j_tpu_torch.nlp.word2vec import (WordVectors,
                                                    _drop_host_copies,
                                                    _host_copy, _leaf,
                                                    _segment_sum)
-from deeplearning4j_tpu_torch.ops.random import _split, seed_key, uniform
+from deeplearning4j_tpu_torch.ops.random import seed_key, split, uniform
 
 
 def _glove_step(params, hist, lr, rows, cols, log_x, f_w, mask):
@@ -143,7 +143,7 @@ class Glove(WordVectors):
     def _init_params(self, v):
         d = self.b._layer_size
         dev = resolve(self.b._device)
-        k1, k2 = _split(seed_key(self.b._seed))
+        k1, k2 = split(seed_key(self.b._seed))
         scale = 0.5 / d
         self.params = {
             "w": uniform(k1, (v, d), dev, -scale, scale),

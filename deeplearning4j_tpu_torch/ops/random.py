@@ -4,8 +4,9 @@ of `deeplearning4j_tpu/ops/random.py`.
 A stateful wrapper over the JAX key stream: each draw splits the key, so
 host-side data and init code get ND4J-style sequential semantics. The
 keys follow JAX's threefry2x32 (partitionable layout) through the port's
-`generation.sampling.threefry2x32`, so `split`, `uniform` (any `low`,
-`high`) and `bernoulli` equal the JAX package's draws bit for bit, and
+`generation.sampling.threefry2x32`, so `split` (into any count),
+`uniform` (any `low`, `high`) and `bernoulli` equal the JAX package's
+draws bit for bit, and
 `normal` agrees to 1e-6 (XLA's f32 erfinv polynomial; `log1p` may differ
 in the last ulp). XLA:CPU contracts `jax.random.uniform`'s
 `u * (high - low) + low` into one fused multiply-add, so the port forms
@@ -24,7 +25,7 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["RandomState", "normal", "random_bits", "seed_key",
+__all__ = ["RandomState", "normal", "random_bits", "seed_key", "split",
            "uniform"]
 
 _MASK32 = 0xFFFFFFFF
@@ -44,11 +45,13 @@ def _threefry(*args):
     return threefry2x32(*args)
 
 
-def _split(key):
-    """≡ jax.random.split(key): (new key, subkey)."""
-    lo = torch.arange(2, dtype=torch.int64)
+def split(key, num=2):
+    """≡ jax.random.split(key, num) under the partitionable threefry: the
+    hash of the counters (0, i) for i < num, an (num, 2) int64 tensor of
+    uint32 words, one key a row."""
+    lo = torch.arange(int(num), dtype=torch.int64)
     b1, b2 = _threefry(key[0], key[1], torch.zeros_like(lo), lo)
-    return torch.stack([b1[0], b2[0]]), torch.stack([b1[1], b2[1]])
+    return torch.stack([b1, b2], dim=1)
 
 
 def random_bits(key, shape, device, offset=0):
@@ -139,7 +142,7 @@ class RandomState:
         """The next subkey: (2,) int64 of uint32 words."""
         if self._key is None:
             self._key = seed_key(self._seed)
-        self._key, sub = _split(self._key)
+        self._key, sub = split(self._key)
         return sub
 
     def uniform(self, shape=(), low=0.0, high=1.0, dtype=torch.float32):

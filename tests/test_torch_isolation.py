@@ -255,6 +255,18 @@ sys.exit(1 if bad else 0)
 """
 
 
+def test_the_rl_modules_and_example_twins_are_among_the_checked_sources():
+    """rl/ (mdp.py and replay.py are copies of JAX-package modules that
+    import no jax: the port keeps its own) and the twin of every script
+    of examples/."""
+    names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
+    for module in ("rl/__init__", "rl/mdp", "rl/replay", "rl/dqn",
+                   "rl/conv", "rl/a3c", "rl/convert"):
+        assert f"deeplearning4j_tpu_torch/{module}.py" in names
+    for script in sorted((REPO / "examples").glob("*.py")):
+        assert f"deeplearning4j_tpu_torch/examples/{script.name}" in names
+
+
 def test_reading_a_jax_samediff_archive_imports_nothing_of_the_jax_package(
         tmp_path):
     """A JAX-written SameDiff archive (with a TF-imported op), loaded by a
@@ -508,3 +520,76 @@ def _zeros(spec):
     if isinstance(spec, list):
         return [_zeros(v) for v in spec]
     return np.zeros(spec, np.float32)
+
+
+def _rl_learners():
+    from deeplearning4j_tpu_torch import rl
+    hp = rl.HistoryProcessorConfiguration(historyLength=2, rescaledWidth=8,
+                                          rescaledHeight=8, skipFrame=1)
+    small = rl.DQNConvNetworkConfiguration(filters=(4,), kernels=((3, 3),),
+                                           strides=((2, 2),), denseUnits=8)
+    a3c = rl.A3CConfiguration(numEnvs=2, hiddenNodes=4, numLayers=1)
+    return {
+        "QLearningDiscreteDense": lambda **kw: rl.QLearningDiscreteDense(
+            rl.SimpleToy(3), rl.DQNDenseNetworkConfiguration(
+                numLayers=1, numHiddenNodes=4), **kw),
+        "QLearningDiscreteConv": lambda **kw: rl.QLearningDiscreteConv(
+            rl.PixelGridWorld(size=4, scale=2), small, hp, **kw),
+        "A3CDiscreteDense": lambda **kw: rl.A3CDiscreteDense(
+            lambda: rl.SimpleToy(3), a3c, **kw),
+        "AsyncNStepQLearningDiscreteDense": lambda **kw:
+            rl.AsyncNStepQLearningDiscreteDense(lambda: rl.SimpleToy(3),
+                                                a3c, **kw),
+        "A3CDiscreteConv": lambda **kw: rl.A3CDiscreteConv(
+            lambda: rl.PixelGridWorld(size=4, scale=2), a3c, hp, small,
+            **kw),
+    }
+
+
+def _learner_device(learner):
+    net = getattr(learner, "net", None)
+    return net._device if net is not None else learner.params["pi"][0][
+        "w"].device
+
+
+def test_rl_learners_default_to_the_card():
+    """Every learner builds its networks on the card unless given
+    device="cpu" (the DQN target network beside its online net)."""
+    learners = _rl_learners()
+    if torch.cuda.is_available():
+        for name, mk in learners.items():
+            assert _learner_device(mk()).type == "cuda", name
+        return
+    for name, mk in learners.items():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            mk()
+        learner = mk(device="cpu")
+        assert _learner_device(learner).type == "cpu", name
+        if hasattr(learner, "target"):
+            assert learner.target._device.type == "cpu"
+
+
+@pytest.mark.parametrize("name", [
+    "dqn_cartpole", "pixel_dqn_gridworld", "mnist_cnn",
+    "transfer_learning", "vae_anomaly", "custom_layer",
+    "mixture_density_regression", "char_rnn_generation",
+    "attention_sequence_classifier", "object_detection_yolo",
+    "samediff_graph", "model_artifacts", "hyperparameter_search",
+    "distributed_data_parallel", "long_context_bert"])
+def test_example_twins_default_to_the_card(name):
+    """A twin's `main()` runs on the card: without one it raises before
+    it trains (`main(device="cpu")` is tests/test_torch_examples.py's)."""
+    import contextlib
+    import importlib
+    import io
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the twins run there (the smoke's "
+                    "examples phase)")
+    mod = importlib.import_module(
+        f"deeplearning4j_tpu_torch.examples.{name}")
+    mains = [mod.main] + ([mod.main_declarative]
+                          if name == "hyperparameter_search" else [])
+    for main in mains:
+        with contextlib.redirect_stdout(io.StringIO()), \
+                pytest.raises(RuntimeError, match="device='cpu'"):
+            main()

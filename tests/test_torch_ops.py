@@ -536,11 +536,11 @@ def test_random_state_uniform_matches_the_jax_package_at_any_range(low,
     import jax
     from deeplearning4j_tpu.ops import RandomState as JRandomState
     from deeplearning4j_tpu_torch.ops import RandomState
-    from deeplearning4j_tpu_torch.ops.random import _split, seed_key, uniform
+    from deeplearning4j_tpu_torch.ops.random import seed_key, split, uniform
     got = RandomState(5, device="cpu").uniform((64, 64), low, high)
     want = np.asarray(JRandomState(5).uniform((64, 64), low, high))
     np.testing.assert_array_equal(got.numpy(), want)
-    k1, k2 = _split(seed_key(42))
+    k1, k2 = split(seed_key(42))
     j1, j2 = jax.random.split(jax.random.PRNGKey(42))
     for tk, jk in ((k1, j1), (k2, j2)):
         np.testing.assert_array_equal(
