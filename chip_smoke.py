@@ -731,7 +731,9 @@ from deeplearning4j_tpu_torch.resilience import faults
 from deeplearning4j_tpu_torch.resilience.errors import (
     MemoryPressureError, PagePoolExhaustedError, ServerDeadError)
 from deeplearning4j_tpu_torch.resilience.policy import RetryPolicy
-from deeplearning4j_tpu_torch.runtime.executables import (ExecutableStore,
+from deeplearning4j_tpu_torch.runtime.executables import (ENV_CACHE_DIR,
+                                                          ExecutableStore,
+                                                          forward_fn,
                                                           tensor_leaves)
 
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
@@ -2264,6 +2266,7 @@ def phase_resnet():
         f"{plain_min:.3f}); {RESNET['batch'] / fused_ms * 1e3:.1f} vs "
         f"{RESNET['batch'] / plain_ms * 1e3:.1f} images/s")
     del plain
+    pure = _forward_fn_check(fused, x)
     stats = {"images": n_img, "requests": len(sizes), "forwards": calls,
              "wall_s": wall, "images_per_s": n_img / wall,
              "p50_ms": float(np.percentile(lat_ms, 50)),
@@ -2273,8 +2276,30 @@ def phase_resnet():
              "avgpool_err": feat_err, "avgpool_scale": feat_scale,
              "res4_block": block, "forward_ms": fused_ms,
              "forward_min_ms": fused_min, "unfused_forward_ms": plain_ms,
-             "unfused_forward_min_ms": plain_min}
+             "unfused_forward_min_ms": plain_min, "forward_fn": pure}
     return stats, fused, x
+
+
+def _forward_fn_check(net, x):
+    """`runtime.executables.forward_fn(net)` on the batch `x` against the
+    net's own forward: bit for bit, with one forward's launches of the
+    epilogue kernel (one per fused pair)."""
+    fn = forward_fn(net)
+    torch.cuda.synchronize()
+    _reset_counts()
+    (got,) = fn(net._params, net._state, x)
+    torch.cuda.synchronize()
+    launches = _counts()["matmul_epilogue"]
+    with torch.no_grad():
+        want = net._output(x)
+    equal = torch.equal(got, want)
+    log(f"[resnet] forward_fn(fused ResNet-50) B={x.shape[0]}: bit-identical "
+        f"to output() {equal}; matmul_epilogue launches {launches}")
+    if not equal or launches != EPILOGUE_PAIRS:
+        raise AssertionError(f"resnet: forward_fn: bit-identical {equal}, "
+                             f"{launches} epilogue launches (expected "
+                             f"{EPILOGUE_PAIRS})")
+    return {"bit_identical": equal, "matmul_epilogue": launches}
 
 
 # -- phase 8 ------------------------------------------------------------------
@@ -2716,8 +2741,83 @@ def _graphs_inference(cache_dir):
             third["nvcc_runs"]) != (len(buckets), len(buckets), 0, 0):
         raise AssertionError(f"graphs: the inference store's disk tier: "
                              f"{first} then {second} then {third}")
+    env = _graphs_env_cache(fused, images, sizes, want,
+                            os.path.join(cache_dir, "env"))
     return {"buckets": buckets, "forward": forward, "runs": runs,
-            "manifest_warmup": third}
+            "manifest_warmup": third, "env_cache": env}
+
+
+def _files_under(root):
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, names in os.walk(root) for f in names)
+
+
+def _graphs_env_cache(fused, images, sizes, want, directory):
+    """The stores' default directory on the card: with $DL4J_EXEC_CACHE at
+    `directory`, two ParallelInference instances over the bucket ladder,
+    built without executableCacheDir, each warmed and then serving every
+    request in turn from one thread (so each request is one dispatch, the
+    same in both). The second warms every key from the first's manifest
+    and answers bit for bit as the first. Then two graphed `fit` steps of
+    `fused` with the variable set leave the directory's files as they
+    were. The variable is restored after."""
+    buckets = GRAPHS["buckets"]
+    off = np.concatenate([[0], np.cumsum(sizes)])
+    before = os.environ.get(ENV_CACHE_DIR)
+    os.environ[ENV_CACHE_DIR] = directory
+    try:
+        runs = []
+        for _ in range(2):
+            pi = (ParallelInference.Builder(fused)
+                  .inferenceMode(InferenceMode.BATCHED)
+                  .batchLimit(RESNET["batch"]).bucketLadder(buckets).build())
+            try:
+                warm = pi.warmup()
+                got = np.concatenate([pi.output(images[off[i]:off[i + 1]])
+                                      for i in range(len(sizes))])
+                st = pi.status()
+            finally:
+                pi.shutdown()
+            runs.append((warm, got, st))
+        files = _files_under(directory)
+        ds = _train_batch_resnet()
+        fused.fit(ListDataSetIterator([ds] * 2, RESNET_TRAIN["batch"]))
+        torch.cuda.synchronize()
+        after = _files_under(directory)
+        fit_st = fused.fit_status()     # None where fit ran no graphs
+        fit_dir = None if fit_st is None else fit_st["directory"]
+    finally:
+        if before is None:
+            os.environ.pop(ENV_CACHE_DIR, None)
+        else:
+            os.environ[ENV_CACHE_DIR] = before
+    (w1, a1, s1), (w2, a2, s2) = runs
+    scale = float(np.abs(want).max())
+    err = float(np.abs(a1 - want).max())
+    same = bool(np.array_equal(a1, a2))
+    log(f"[graphs] ${ENV_CACHE_DIR} ladder {buckets}, no "
+        f"executableCacheDir: first warmup {w1}; second {w2}; answers "
+        f"bit-identical {same}, max |answer - output()| {err:.3e} of max "
+        f"{scale:.3e}; store directory {s2['executables']['directory']}; "
+        f"files {files}; after a graphed fit {after} (fit store directory "
+        f"{fit_dir})")
+    if (w1["compiled"], w1["from_disk"]) != (len(buckets), 0) or (
+            w2["compiled"], w2["from_disk"], w2["keys"]) != (
+            0, len(buckets), len(buckets)):
+        raise AssertionError(f"graphs: ${ENV_CACHE_DIR} warmups {w1} then "
+                             f"{w2}")
+    if not same or a1.shape != want.shape or not err <= RESNET_RTOL * scale:
+        raise AssertionError(f"graphs: ${ENV_CACHE_DIR} answers: "
+                             f"bit-identical {same}, error {err}")
+    if s1["executables"]["directory"] != directory or not files:
+        raise AssertionError(f"graphs: the stores ignored "
+                             f"${ENV_CACHE_DIR}: {s1['executables']}, "
+                             f"{files}")
+    if after != files or fit_dir is not None:
+        raise AssertionError(f"graphs: fit wrote under ${ENV_CACHE_DIR}: "
+                             f"{files} -> {after}, {fit_dir}")
+    return {"warmups": [w1, w2], "bit_identical": same,
+            "max_abs_err": err, "files": files}
 
 
 def phase_graphs(cfg, params):
@@ -4060,7 +4160,11 @@ def _vgg_timed_arm(arm, m, ds):
     wall = time.perf_counter() - t0
     _no_kernel_launched(f"VGG16 training ({arm})")
     peak = torch.cuda.max_memory_allocated()
-    loss = m.score()
+    reads = None
+    if arm == "graph":
+        loss, reads = _score_reads(m, f"VGG16 fit {arm}")
+    else:
+        loss = m.score()
     log(f"[mln] VGG16 fit {arm}: {wall * 1e3 / steps:.2f} ms/step, "
         f"{b * steps / wall:.1f} images/s, loss {loss:.4f} at step "
         f"{m.getIterationCount()}, peak allocated {peak / 2**30:.3f} GiB "
@@ -4071,7 +4175,85 @@ def _vgg_timed_arm(arm, m, ds):
     return {"arm": arm, "ms_per_step": wall * 1e3 / steps,
             "images_per_s": b * steps / wall, "loss": loss,
             "iteration": m.getIterationCount(), "peak_bytes": peak,
-            "base_bytes": base}
+            "base_bytes": base, "score_reads": reads}
+
+
+def _score_syncs():
+    """(count, summed blocked ms) of dl4j.pipeline.syncs{site="score"}."""
+    snap = mon.get_registry().snapshot()
+    n = sum(r["value"] for r in snap.get(mon.PIPELINE_SYNCS, [])
+            if r["labels"].get("site") == "score")
+    ms = sum(r["sum"] for r in snap.get(mon.PIPELINE_HOST_BLOCKED_MS, [])
+             if r["labels"].get("site") == "score")
+    return n, ms
+
+
+def _all_syncs():
+    snap = mon.get_registry().snapshot()
+    return sum(r["value"] for r in snap.get(mon.PIPELINE_SYNCS, []))
+
+
+@contextlib.contextmanager
+def _monitoring_on():
+    was = mon.enabled()
+    mon.enable()
+    try:
+        yield
+    finally:
+        if not was:
+            mon.disable()
+
+
+def _score_reads(m, what):
+    """The lazy score on the card: after a fit, the first score() is one
+    counted sync on dl4j.pipeline.syncs{site="score"} and caches the float,
+    so the second is none. Monitoring is on for the two reads only.
+    Returns (the score, {"syncs": [first, second], "blocked_ms": the first
+    read's})."""
+    with _monitoring_on():
+        n0, ms0 = _score_syncs()
+        first = m.score()
+        n1, ms1 = _score_syncs()
+        second = m.score()
+        n2, _ = _score_syncs()
+    reads = {"syncs": [n1 - n0, n2 - n1], "blocked_ms": ms1 - ms0}
+    log(f"[mln] {what}: score() syncs {reads['syncs']} (first read blocked "
+        f"{reads['blocked_ms']:.4f} ms, after the arm's synchronize)")
+    if reads["syncs"] != [1, 0] or second != first:
+        raise AssertionError(f"mln: {what}: score reads {reads}, "
+                             f"{first!r} then {second!r}")
+    return first, reads
+
+
+def _score_listener_syncs(m, ds, steps=10, every=5):
+    """`steps` more graphed fit steps of `m` under ScoreIterationListener(
+    every), monitoring on: the listener's reads are the only syncs, one
+    each `every` iterations, each blocking on the steps still in flight."""
+    b = MLN["batch"]
+    it0 = m.getIterationCount()
+    m.setListeners(ScoreIterationListener(every, log_fn=lambda *_: None))
+    try:
+        with _monitoring_on():
+            n0, ms0 = _score_syncs()
+            t0 = _all_syncs()
+            m.fit(ListDataSetIterator([ds] * steps, b))
+            torch.cuda.synchronize()
+            n1, ms1 = _score_syncs()
+            others = _all_syncs() - t0 - (n1 - n0)
+    finally:
+        m.setListeners()
+    want = sum(1 for i in range(it0 + 1, it0 + steps + 1) if i % every == 0)
+    out = {"steps": steps, "every": every, "syncs": n1 - n0,
+           "expected": want, "other_syncs": others,
+           "blocked_ms": ms1 - ms0}
+    log(f"[mln] VGG16 {steps} more graphed steps under "
+        f"ScoreIterationListener({every}): {out['syncs']} score syncs "
+        f"(expected {want}), {others} other syncs; blocked "
+        f"{out['blocked_ms']:.3f} ms in all")
+    if out["syncs"] != want or want != steps // every or others:
+        raise AssertionError(f"mln: ScoreIterationListener({every}) syncs: "
+                             f"{out}")
+    return out
 
 
 def _mln_vgg_train():
@@ -4115,6 +4297,7 @@ def _mln_vgg_train():
         torch.cuda.synchronize()
         for arm in MLN_ARMS:
             runs.append(_vgg_timed_arm(arm, nets[arm], ds))
+        listened = _score_listener_syncs(nets["graph"], ds)
     by_step = {}
     for run in runs:
         by_step.setdefault(run["iteration"], set()).add(run["loss"])
@@ -4127,7 +4310,7 @@ def _mln_vgg_train():
     torch.cuda.empty_cache()
     return {"params": n_params, "bit_identity": {
         "steps": n, "unequal": unequal, "scores": scores},
-        "runs": runs, "store": {k: st[k] for k in (
+        "runs": runs, "score_listener": listened, "store": {k: st[k] for k in (
             "captures", "replays", "degradations", "eager_calls")}}
 
 
@@ -10777,12 +10960,15 @@ def _nlp_kim(vectors, words, topic, counts):
 
 
 def _nlp_serializer(model):
-    """The SGNS vectors written and read back, binary then text."""
+    """`model`'s vectors written and read back, binary then text. The
+    phase passes the HS arm's (~10,000 words): the text format of the SGNS
+    arm's 71,000 took ~30 s of the host's formatting and parsing, which
+    the smoke's time limit cannot spare."""
     ref = model._table()
     out = {}
     NLP_DIR.mkdir(parents=True, exist_ok=True)
     for fmt in ("binary", "text"):
-        path = NLP_DIR / f"sgns.{'bin' if fmt == 'binary' else 'txt'}"
+        path = NLP_DIR / f"vectors.{'bin' if fmt == 'binary' else 'txt'}"
         t0 = time.perf_counter()
         WordVectorSerializer.writeWord2VecModel(model, str(path),
                                                 binary=fmt == "binary")
@@ -10839,10 +11025,11 @@ def phase_nlp():
     out = {"corpus_tokens": int(counts.sum()), "types": len(words)}
     with _no_tf32():
         sgns, out["sgns"] = _nlp_word2vec(sents, topic_of, hs=False)
-        out["serializer"] = _nlp_serializer(sgns)
         out["kim"] = _nlp_kim(sgns, words, topic, counts)
         del sgns
-        _, out["hs"] = _nlp_word2vec(sents, topic_of, hs=True)
+        hs, out["hs"] = _nlp_word2vec(sents, topic_of, hs=True)
+        out["serializer"] = _nlp_serializer(hs)
+        del hs
         out["fasttext"] = _nlp_fasttext(sents, words)
         gc.collect()
         torch.cuda.empty_cache()

@@ -35,5 +35,6 @@ early stopping and the training listeners (`optimize/`) and
 `ui.StatsListener` with its storages.
 """
 from deeplearning4j_tpu_torch.device import resolve
+from deeplearning4j_tpu_torch.ops import nd
 
-__all__ = ["resolve"]
+__all__ = ["nd", "resolve"]

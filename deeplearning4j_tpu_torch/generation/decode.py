@@ -87,6 +87,11 @@ class BertDecoder:
     """KV-cache decode over a `models/bert.py` parameter dict. Runs on the
     device the parameters lie on."""
 
+    #: the server's decoder protocol: the cache grows through length rungs,
+    #: and `model_args()` is one tree (the parameters)
+    uses_cache_rungs = True
+    n_model_args = 1
+
     def __init__(self, cfg, params, attn_impl="auto", kv_dtype="fp",
                  page_size=None, pool_pages=None):
         if cfg.moe_layers:
@@ -441,6 +446,7 @@ class RecurrentDecoder:
 
     uses_cache_rungs = False
     supports_draft = False
+    n_model_args = 2      # model_args(): the parameters and the state
 
     def __init__(self, net):
         self.net = net

@@ -33,6 +33,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from deeplearning4j_tpu_torch.kernels.flash_attention import flash_attention
+# defined beside the other tree conversions; importable here, as in the
+# JAX package
+from deeplearning4j_tpu_torch.models.convert import init_bert_params
 from deeplearning4j_tpu_torch.parallel.moe import switch_router
 from deeplearning4j_tpu_torch.parallel.ring_attention import (
     blockwise_attention, dense_attention)
@@ -40,7 +43,7 @@ from deeplearning4j_tpu_torch.util.introspect import explicit_mask_param
 
 __all__ = ["BertConfig", "bert_base", "bert_tiny", "bert_encode",
            "bert_pooled", "bert_classify", "bert_mlm_logits",
-           "classification_loss", "sharding_rules"]
+           "classification_loss", "init_bert_params", "sharding_rules"]
 
 
 @dataclass

@@ -58,6 +58,7 @@ from deeplearning4j_tpu_torch.runtime.executables import (FunctionStore,
                                                           tensor_leaves)
 from deeplearning4j_tpu_torch.runtime.pipeline import (StagedBatch,
                                                        StagedMultiBatch,
+                                                       materialize_score,
                                                        maybe_prefetch,
                                                        stage_for_eval)
 
@@ -347,9 +348,11 @@ class Network:
     def score(self, dataset=None):
         """The loss of the last training step (None before the first), or
         the inference-mode loss of `dataset` (≡ the reference's
-        score(DataSet))."""
+        score(DataSet)). `fit` leaves the loss on the device; the first
+        read floats it (one counted sync, `dl4j.pipeline.syncs{site=
+        "score"}`) and caches the float."""
         if dataset is None:
-            return None if self._score is None else float(self._score)
+            return materialize_score(self)
         ins, labels, lmasks = self._unpack(dataset)
         with torch.no_grad():
             loss, _ = self._loss(self._params, self._state, ins, labels,
@@ -532,9 +535,11 @@ class Network:
         store = self._fit_store
         if store is None:
             self._alloc_guard()
+            # directory="": no manifest, whatever $DL4J_EXEC_CACHE says
+            # (the training step's keys are not a serving vocabulary)
             store = FunctionStore(
                 f"{model_fingerprint(self)}-fit", self._device,
-                bindings=lambda: (self._params, getattr(
+                directory="", bindings=lambda: (self._params, getattr(
                     self._opt_state, "state", self._opt_state), self._state,
                     self._guard_t,
                     None if self._dp is None else self._dp.bound()))

@@ -228,6 +228,15 @@ class Layer:
         per-layer regularization)."""
         return (self.l1 or 0.0), (self.l2 or 0.0)
 
+    def n_params(self, input_type):
+        """The number of parameters the layer holds on `input_type` (its
+        state, such as BN's running statistics, not counted)."""
+        from deeplearning4j_tpu_torch.runtime.executables import \
+            tensor_leaves
+        params, _, _ = self.initialize(torch.Generator().manual_seed(0),
+                                       input_type)
+        return sum(t.numel() for t in tensor_leaves(params))
+
     def _dropout_in(self, x, train, generator):
         """Inverted dropout on the input at train time, drawn from
         `generator` (on x's device); None means no dropout, as a None rng

@@ -433,19 +433,15 @@ class ParameterAveragingTrainer:
         return _mesh._tree_map(
             lambda a: _mesh._all_reduce(a, group) / self._n, params)
 
-    def fit_batch(self, params, opt_state, batch, rng=None, iteration=0):
-        """A local step on this rank's rows of the GLOBAL `batch`; every
+    def make_step(self):
+        """step(params, opt_state, batch, rng=None, iteration=0) ->
+        (params, opt_state, loss): a local step on this rank's rows of the
+        GLOBAL `batch`, written into the live tensors; every
         `averaging_frequency`-th iteration the parameters are averaged.
-        Returns (params, opt_state, the dp mean of the losses)."""
-        if _faults.ACTIVE is not None:
-            _faults.ACTIVE.fire(_faults.TRAIN_DISPATCH)
-        if _watchdog.ACTIVE is not None:
-            _watchdog.ACTIVE.beat(f"param_averaging@{id(self):x}")
-        _ps = _prof.ACTIVE
-        if _ps is not None:
-            _ps.step_start()
+        The loss is the dp mean."""
         mesh, axis = self.mesh, self.batch_axis
-        with _mon.span("sharded.dispatch"):
+
+        def step(params, opt_state, batch, rng=None, iteration=0):
             local = _mesh._tree_map(lambda a: _mesh._local_slice(
                 _mesh._as_tensor(a, mesh.device), 0, mesh.index(axis),
                 self._n), batch)
@@ -455,17 +451,31 @@ class ParameterAveragingTrainer:
             updates, new_state = self.tx.update(
                 {_NODE: grads}, opt_state, {_NODE: leaves})
             new = apply_updates({_NODE: leaves}, updates)[_NODE]
-            if iteration % self.freq == self.freq - 1:
-                group = mesh.group(axis)
-                if group is not None:
-                    new = {p: _mesh._all_reduce(v, group) / self._n
-                           for p, v in new.items()}
+            group = mesh.group(axis)
+            if iteration % self.freq == self.freq - 1 and group is not None:
+                new = {p: _mesh._all_reduce(v, group) / self._n
+                       for p, v in new.items()}
             _guardian.write_where(None, [(new, leaves),
                                          (new_state, opt_state)])
-            group = mesh.group(axis)
             if group is not None:
                 loss = _mesh._all_reduce(loss.reshape(1), group)[0] / self._n
+            return params, opt_state, loss
+        return step
+
+    def fit_batch(self, params, opt_state, batch, rng=None, iteration=0):
+        """`make_step()`'s step, with the dispatch's fault site, watchdog
+        heartbeat and profiler step hooks. Returns (params, opt_state, the
+        dp mean of the losses)."""
+        if _faults.ACTIVE is not None:
+            _faults.ACTIVE.fire(_faults.TRAIN_DISPATCH)
+        if _watchdog.ACTIVE is not None:
+            _watchdog.ACTIVE.beat(f"param_averaging@{id(self):x}")
+        _ps = _prof.ACTIVE
+        if _ps is not None:
+            _ps.step_start()
+        with _mon.span("sharded.dispatch"):
+            out = self.make_step()(params, opt_state, batch, rng, iteration)
         _ps = _prof.ACTIVE
         if _ps is not None:
             _ps.step_end()
-        return params, opt_state, loss
+        return out

@@ -954,6 +954,10 @@ class QuantizedComputationGraph:
         with torch.no_grad():
             return _cg().feedForward(self, inputs)
 
+    def summary(self):
+        """ComputationGraph's table over the quantized parameters."""
+        return _cg().summary(self)
+
     def getLayer(self, name):
         return self.nodes[name].ref
 

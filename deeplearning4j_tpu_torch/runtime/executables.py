@@ -19,8 +19,9 @@ step or a forward.
   `capture=False`, `add` runs nothing and `run` calls the function
   eagerly on the same static inputs, under the same keys and counters, so
   the CPU tests drive the store's whole bookkeeping.
-- `ExecutableStore`: a `FunctionStore` of one model's inference forward,
-  one graph per bucketed input signature (`ParallelInference`).
+- `ExecutableStore`: a `FunctionStore` of one model's inference forward
+  (`forward_fn`), one graph per bucketed input signature
+  (`ParallelInference`).
 - `BucketLadder`: the closed shape vocabulary; oversized batches split
   across max-bucket chunks.
 - `StagingRing`: pinned host buffers through which host arrays enter a
@@ -60,7 +61,8 @@ same card). Three rules make that safe:
 Disk tier: a CUDA graph cannot be serialized. What a cold start costs is
 `nvcc`, whose libraries `build/kernels/` already caches by hash
 (`kernels/_build.py`), and finding the key set. A store with a
-`directory` keeps a manifest of the keys it holds at
+`directory` (when built with None, `$DL4J_EXEC_CACHE` if set; "" turns
+it off) keeps a manifest of the keys it holds at
 
     <directory>/v1/<device flavour>/<fingerprint>/manifest.json
 
@@ -98,12 +100,14 @@ from deeplearning4j_tpu_torch.kernels import _build
 from deeplearning4j_tpu_torch.resilience import faults as _faults
 
 __all__ = ["BucketLadder", "ExecutableStore", "FunctionStore",
-           "StagingRing", "device_flavour", "model_fingerprint", "status",
-           "tensor_leaves", "torch_dtype"]
+           "StagingRing", "device_flavour", "forward_fn",
+           "model_fingerprint", "status", "tensor_leaves", "torch_dtype"]
 
 #: bump to invalidate every manifest on disk at once
 LAYOUT_VERSION = "v1"
 MANIFEST = "manifest.json"
+#: the manifests' directory of a store built without one ("": none)
+ENV_CACHE_DIR = "DL4J_EXEC_CACHE"
 
 _STORES = weakref.WeakSet()   # live stores, aggregated by status()
 #: one graph capture at a time in this process (see "Concurrency")
@@ -194,6 +198,35 @@ def model_fingerprint(model):
                     sorted(model._fused_pairs.items()),
                     _shape_tree(model._params), _shape_tree(model._state),
                     torch.__version__))
+
+
+def forward_fn(model, with_mask=False):
+    """The inference forward of a MultiLayerNetwork or ComputationGraph as
+    a function of its trees, `(params, state, *xs[, mask]) -> tuple` of
+    the outputs (a graph's in the order of its output names), run under
+    no_grad. `with_mask` appends a (B, T) feature mask for every input
+    (length-bucketed sequence serving). The xs are tensors on the model's
+    device."""
+    if hasattr(model, "outputSingle"):   # a ComputationGraph
+        from deeplearning4j_tpu_torch.nn._network import mask_key
+        names = list(model.conf.input_names)
+        outs = list(model.conf.output_names)
+
+        def fwd(params, state, *args):
+            ins = dict(zip(names, args))
+            if with_mask:
+                ins.update({mask_key(n): args[len(names)] for n in names})
+            with torch.no_grad():
+                acts, _, _ = model._forward(params, state, ins, False)
+            return tuple(acts[n] for n in outs)
+    else:
+        def fwd(params, state, *args):
+            mask = args[1] if with_mask else None
+            with torch.no_grad():
+                y, _, _, _ = model._forward(params, state, args[0], False,
+                                            mask=mask)
+            return (y,)
+    return fwd
 
 
 # -- bucket ladder ---------------------------------------------------------
@@ -354,7 +387,8 @@ class FunctionStore:
     of tensors (dicts, lists, tuples) that the functions read besides
     their static inputs, such as parameters, optimizer and BN state; a
     `run` that finds any of them rebound captures every graph again
-    first."""
+    first. `directory` holds the manifest of keys; None takes
+    `$DL4J_EXEC_CACHE` (none when unset), "" none."""
 
     kind = "function"
 
@@ -368,7 +402,8 @@ class FunctionStore:
                              f"{self.device}")
         self.fingerprint = fingerprint
         self.flavour = device_flavour(self.device)
-        self.directory = directory or None
+        self.directory = (os.environ.get(ENV_CACHE_DIR) or None
+                          if directory is None else (directory or None))
         self.stats = {"captures": 0, "replays": 0, "eager_calls": 0,
                       "compiled": 0, "from_disk": 0, "live_captures": 0,
                       "degradations": 0, "rebinds": 0,
@@ -400,6 +435,12 @@ class FunctionStore:
     def args(self, key):
         """The static inputs of `key`."""
         return self._entries[key].args
+
+    def lookup(self, key):
+        """The static inputs of `key` when the store holds it, else None;
+        never adds the key (`add` does)."""
+        entry = self._entries.get(key)
+        return None if entry is None else entry.args
 
     # -- adding keys ------------------------------------------------------
     def add(self, key, args=(), generators=()):
@@ -655,26 +696,19 @@ class ExecutableStore(FunctionStore):
                          directory=directory, capture=capture,
                          bindings=lambda: (model._params, model._state))
         self.model = model
-        self.register("forward", self._forward)
-        self.register("forward_masked", self._forward_masked)
+        fwds = {masked: forward_fn(model, with_mask=masked)
+                for masked in (False, True)}
+        # xs are the static inputs, the mask last when masked
+        self.register("forward", lambda *xs: fwds[False](
+            model._params, model._state, *xs)[0])
+        self.register("forward_masked", lambda *xs: fwds[True](
+            model._params, model._state, *xs)[0])
 
-    def _forward(self, *xs):
-        with torch.no_grad():
-            out = self.model._output(list(xs) if len(xs) > 1 else xs[0])
-        return out[0] if isinstance(out, list) else out
-
-    def _forward_masked(self, *xs):
-        """The forward of xs[:-1] under the feature mask xs[-1] (the first
-        input's)."""
-        *xs, mask = xs
-        x = list(xs) if len(xs) > 1 else xs[0]
-        with torch.no_grad():
-            if hasattr(self.model.conf, "input_names"):   # a graph
-                out = self.model._output(x, fmasks={
-                    self.model.conf.input_names[0]: mask})
-            else:
-                out = self.model._output(x, fmask=mask)
-        return out[0] if isinstance(out, list) else out
+    def lookup(self, sig, with_mask=False):
+        """The static inputs of `sig`'s graph when the store holds it, else
+        None; never captures (`ensure` does)."""
+        return super().lookup(
+            ("forward_masked" if with_mask else "forward", sig))
 
     def _inputs(self, sig):
         return tuple(torch.zeros(shape, dtype=getattr(torch, dt),

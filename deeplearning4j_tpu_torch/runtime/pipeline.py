@@ -36,8 +36,9 @@ from deeplearning4j_tpu_torch.runtime.executables import (StagingRing,
                                                           torch_dtype)
 
 __all__ = ["DEFAULT_PREFETCH", "PrefetchIterator", "StagedBatch",
-           "StagedMultiBatch", "maybe_prefetch", "record_sync",
-           "stage_dataset", "stage_for_eval"]
+           "StagedMultiBatch", "blocking_float", "materialize_score",
+           "maybe_prefetch", "record_sync", "stage_dataset",
+           "stage_for_eval"]
 
 #: default staging queue depth (double buffer): batch N+1 stages while
 #: step N computes. 0 disables prefetch.
@@ -60,6 +61,36 @@ def record_sync(site, blocked_ms):
                   help="wall time the host spent blocked per sync") \
        .observe(blocked_ms)
     _mon.step_recorder().on_host_blocked(blocked_ms)
+
+
+def blocking_float(value, site="score"):
+    """float(value), counted: a tensor's read (on the card or the CPU)
+    lands on `dl4j.pipeline.syncs{site}` with the ms it blocked, when
+    monitoring is on. None stays None; a Python number is returned as a
+    float, uncounted."""
+    if value is None:
+        return None
+    if isinstance(value, (float, int)):
+        return float(value)
+    from deeplearning4j_tpu_torch import monitoring as _mon
+    if not _mon.enabled():
+        return float(value)
+    t0 = time.perf_counter()
+    v = float(value)
+    record_sync(site, (time.perf_counter() - t0) * 1e3)
+    return v
+
+
+def materialize_score(model, site="score"):
+    """`model._score` as a float, read once: a device loss is floated
+    through `blocking_float` and the float written back, so later reads
+    of the same iteration's score cost no sync."""
+    s = model._score
+    if s is None or isinstance(s, float):
+        return s
+    v = blocking_float(s, site=site)
+    model._score = v
+    return v
 
 
 class StagedBatch:
@@ -252,11 +283,18 @@ class PrefetchIterator:
             raise self._error
         return self._peek is not self._EOS
 
-    def next(self):
+    def next(self, num=None):
+        """The next staged batch (`num` is the DL4J iterator's argument
+        and is ignored: a batch is what the base yields)."""
         if not self.hasNext():
             raise StopIteration("prefetch exhausted; call reset()")
         item, self._peek = self._peek, self._EMPTY
         return item
+
+    def failed(self):
+        """True once the worker has died on an error: hasNext and next
+        re-raise it until reset() or resume_after_error()."""
+        return self._peek is self._FAILED
 
     def __iter__(self):
         # a second `for` pass starts the base over, as the reference's does

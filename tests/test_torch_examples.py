@@ -6,7 +6,10 @@ more than half, the custom layer's round trip equal). `dqn_cartpole`
 runs 1,500 of the script's 12,000 steps here; the card runs them all.
 `distributed_data_parallel` and `long_context_bert` also run under two
 gloo ranks (one process per device, as the port trains across devices).
-Every printed loss is finite."""
+Every printed loss is finite. The twins that run longest under the
+suite's parallel workers have files of their own, which `--dist
+loadfile` hands to other workers: `test_torch_examples_dqn.py` (the two
+DQN twins) and `test_torch_examples_char_rnn.py`."""
 import contextlib
 import importlib
 import io
@@ -40,16 +43,6 @@ def test_every_script_has_a_twin():
     assert scripts == twins
 
 
-def _check_dqn_cartpole(out, printed):
-    assert out["steps"] == 1500 and out["updates"] == 1500 - 128
-    assert out["episodes"] >= 10 and out["play"] >= 8
-    assert "greedy play" in printed
-
-
-def _check_pixel_dqn_gridworld(out, printed):
-    assert out["play"] > 0.9 and out["episodes"] > 10
-
-
 def _check_mnist_cnn(out, printed):
     assert out["accuracy"] > 0.9 and _finite(out["score"])
     assert "Accuracy" in printed
@@ -72,10 +65,6 @@ def _check_custom_layer(out, printed):
 def _check_mixture_density_regression(out, printed):
     assert out["near_modes"] > 0.5 and _finite(*out["nll"])
     assert len(out["samples"]) == 5
-
-
-def _check_char_rnn_generation(out, printed):
-    assert out["loss"] < 1.0 and len(out["sampled"]) == 81
 
 
 def _check_attention_sequence_classifier(out, printed):
@@ -113,18 +102,16 @@ def _check_long_context_bert(out, printed):
     assert _finite(*out["losses"]) and len(out["losses"]) == 3
 
 
-TWINS = ["dqn_cartpole", "pixel_dqn_gridworld", "mnist_cnn",
-         "transfer_learning", "vae_anomaly", "custom_layer",
-         "mixture_density_regression", "char_rnn_generation",
-         "attention_sequence_classifier", "object_detection_yolo",
-         "samediff_graph", "model_artifacts", "hyperparameter_search",
-         "distributed_data_parallel", "long_context_bert"]
+TWINS = ["mnist_cnn", "transfer_learning", "vae_anomaly", "custom_layer",
+         "mixture_density_regression", "attention_sequence_classifier",
+         "object_detection_yolo", "samediff_graph", "model_artifacts",
+         "hyperparameter_search", "distributed_data_parallel",
+         "long_context_bert"]
 
 
 @pytest.mark.parametrize("name", TWINS)
 def test_twin_returns_its_facts_and_its_checks_hold(name):
-    kw = {"maxStep": 1500} if name == "dqn_cartpole" else {}
-    out, printed = _run(name, **kw)
+    out, printed = _run(name)
     globals()[f"_check_{name}"](out, printed)
 
 
