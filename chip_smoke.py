@@ -377,7 +377,8 @@ Phases, in order; any failure exits non-zero and prints no result:
             load the kernels this run built (they count no nvcc) and send
             their launch counts back. Arm A, NCCL, one rank per card: the
             long-context recipe of examples/long_context_bert.py at
-            BERT-base width (T = 4096, B = 2, remat, Adam under ZeRO-1)
+            BERT-base width, cut to PAR["layers"] = 4 layers (T = 4096,
+            B = 2, remat, Adam under ZeRO-1)
             through `ShardedTrainer` with the flash ring as attn_impl, 3
             steps, against the same trainer with attn_impl="flash"
             (gradients per leaf and losses, PAR_GRAD_RTOL and
@@ -390,7 +391,7 @@ Phases, in order; any failure exits non-zero and prints no result:
             ring and Ulysses with flash_attention against single-device
             flash (forward and gradients); `ParallelWrapper` on fused
             ResNet-50 at 2 × 16 rows (synchronized BN) against arm A's one
-            rank on 32, 2 steps; BERT-base's 12 layers as a 2-stage GPipe
+            rank on 32, 2 steps; the recipe's 4 layers as a 2-stage GPipe
             pipeline of 4 microbatches against the sequential forward.
             Printed: ms/step and peak allocated bytes per arm, each rank's
             launches per step of B1/B2a/B2b and B5/B7/B8.
@@ -399,13 +400,15 @@ Phases, in order; any failure exits non-zero and prints no result:
             joined against a deadline; each rank runs the hardened bootstrap
             (`multihost.initialize`: a loopback TCPStore hosted by process
             0, every group with a timeout). Arm A, NCCL, one rank: BERT-base
-            fine-tuning (the train phase's batch, dropout 0.1, Adam 2e-5,
+            width at `a_layers` = 4 layers fine-tuning (the train phase's
+            batch, dropout 0.1, Adam 2e-5,
             attn_impl="flash") through MultiHostTrainer(accumulation=2,
             buckets=4, compress=True) under MultiHostRunner with a
             PeerCoordinator and a CoordinatedGuardian, save_every=2, 4
-            optimizer steps: 24 launches of each of B1/B2a/B2b per optimizer
-            step; per bucket the shipped payload plus the new residual
-            equals the gradient plus the old residual (MH_MASS_RTOL);
+            optimizer steps: 8 launches of each of B1/B2a/B2b per optimizer
+            step (2 per layer); per bucket the shipped payload plus the new
+            residual equals the gradient plus the old residual
+            (MH_MASS_RTOL);
             compress=False with 4 buckets equals ShardedTrainer bit for bit;
             the exchange order the step recorded and a torch.profiler
             trace's order pass `check_overlap_structure`; a preemption
@@ -419,7 +422,10 @@ Phases, in order; any failure exits non-zero and prints no result:
             1 → 2 re-form the group (residual mass conserved, lockstep after
             the join); rank 1 exits inside sync round 2 and rank 0 raises
             PeerLostError, with a report, within the peer timeout plus
-            MH_LOST_SLACK_S. Printed: ms per optimizer step (compressed, raw
+            MH_LOST_SLACK_S. Arm A's processes and arm B's pairs run side by
+            side, and the phase beside the parallel phase (their work is
+            all in the ranks they spawn; the times they print include each
+            other's load). Printed: ms per optimizer step (compressed, raw
             buckets), the coordinated save's seconds and bytes,
             encoder_stats, the overlap orders.
 22. keras:  Keras MobileNetV2 (keras.applications.MobileNetV2 at alpha
@@ -520,13 +526,14 @@ Phases, in order; any failure exits non-zero and prints no result:
             published widths (NLP) on seeded data: a Zipf corpus of
             ~1.46 M tokens and 71,000 types in 50 topics; Word2Vec SGNS
             (D = 300, window 5, negative 5, sample 1e-3, lr 0.025, batch
-            1024) one epoch, whose first batch's loss falls and whose
+            1024) one epoch on a corpus of the same 71,000 types at
+            ~0.71 M tokens, whose first batch's loss falls and whose
             1,000 most frequent words are closer within a topic than
             across; Word2Vec HS and FastText (2,000,000 buckets, n-grams
             3–6) on the first 400 k tokens (an OOV word nearest its
             stem); GloVe (window 10, xMax 100, alpha 0.75) on the first
             300 k tokens, its loss falling; PV-DBOW and PV-DM (D = 400,
-            window 10) on 2,000 documents of 230 tokens, `nearestLabels`
+            window 10) on 1,000 documents of 230 tokens, `nearestLabels`
             putting the own label of 20 training documents in the top 5;
             DeepWalk (d = 128, window 10, walks of 40, one a vertex) on a
             graph of BlogCatalog's 10,312 vertices and 333,983 edges in 39
@@ -571,11 +578,12 @@ Phases, in order; any failure exits non-zero and prints no result:
             0 across the phase.
 30. examples: the 15 twins of examples/ this slice adds
             (`deeplearning4j_tpu_torch/examples/`), each `main()` on the
-            card at its script's settings (dqn_cartpole's 12,000 steps),
-            timed; the scripts' checks raise inside them (pixel DQN play
-            > 0.9, attention accuracy > 0.8, YOLO class 1, MDN samples
-            near ±2, the custom layer's round trip); every number a twin
-            returns and every loss it prints finite; B1, B2a and B2b
+            card at its script's settings but dqn_cartpole's steps
+            (EXAMPLE_KW: 4,000 of the script's 12,000), timed; the
+            scripts' checks raise inside them (pixel DQN play > 0.9,
+            attention accuracy > 0.8, YOLO class 1, MDN samples near ±2,
+            the custom layer's round trip); every number a twin returns
+            and every loss it prints finite; B1, B2a and B2b
             launched by attention_sequence_classifier and
             long_context_bert, none of the nine by the other 13 (counted
             per twin: the kernel line's `launches_examples`).
@@ -814,8 +822,46 @@ SOURCES = {
 FLOPS_PER_PAIR = {"flash_fwd": 4, "flash_bwd_dq": 6, "flash_bwd_dkv": 8}
 
 
+#: (path, start) of the run's timeline, set by main(): every log line's
+#: first line, after the seconds since the start, so a slow phase shows
+#: where inside it the time went
+_TIMELINE = None
+
+
+def _mark(msg):
+    """Add `msg`'s first line to the timeline (when main() set one)."""
+    if _TIMELINE is not None:
+        path, start = _TIMELINE
+        with open(path, "a") as f:
+            f.write(f"{time.perf_counter() - start:8.1f} "
+                    f"{str(msg).splitlines()[0][:200] if msg else ''}\n")
+
+
 def log(msg):
     print(msg, flush=True)
+    _mark(msg)
+
+
+def _child_timeline(tag, start, names):
+    """In a rank process: a timeline of its own, on the parent's clock
+    (`start`, the parent's time.perf_counter() origin; the clock is the
+    system's monotonic one), with each of the functions `names` marked
+    where it starts and ends."""
+    global _TIMELINE
+    if start is None:
+        return
+    _TIMELINE = (OUT_DIR / f"smoke_timeline_{tag}.log", start)
+    g = globals()
+    for n in names:
+        def marked(*a, _fn=g[n], _n=n, **kw):
+            _mark(f"[{tag}] {_n} starts")
+            t = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                _mark(f"[{tag}] {_n} took {time.perf_counter() - t:.1f} s")
+        g[n] = marked
+    _mark(f"[{tag}] process up")
 
 
 def time_ms(fn, iters=20):
@@ -7322,12 +7368,14 @@ def phase_quant(profile=False):
 
 
 # -- phase 20: parallel ----------------------------------------------------------
-#: the parallel phase (`--only parallel`): BERT-base in the long-context
-#: recipe of examples/long_context_bert.py (T = 4096, B = 2, remat, Adam
-#: under ZeRO-1, the flash ring as attn_impl) through ShardedTrainer, and
-#: fused ResNet-50 through ParallelWrapper. Arm A: NCCL, one rank per card;
-#: arm B: two gloo ranks on the first card (host-staged hops).
-PAR = dict(seq=4096, batch=2, steps=3, lr=1e-4, seed=11,
+#: the parallel phase (`--only parallel`): BERT-base's width, cut to
+#: `layers` layers, in the long-context recipe of
+#: examples/long_context_bert.py (T = 4096, B = 2, remat, Adam under
+#: ZeRO-1, the flash ring as attn_impl) through ShardedTrainer, and fused
+#: ResNet-50 through ParallelWrapper. Arm A: NCCL, one rank per card; arm
+#: B: two gloo ranks on the first card (host-staged hops: each layer's
+#: ring exchange is a host round trip, so the depth sets arm B's time).
+PAR = dict(seq=4096, batch=2, steps=3, lr=1e-4, seed=11, layers=4,
            resnet_size=224, resnet_batch=32, resnet_steps=2, resnet_timed=5,
            ring_lengths=[4096, 2900], pipe_batch=8, pipe_seq=512,
            pipe_micro=4, bert=None,
@@ -7391,7 +7439,7 @@ def _par_cfg():
     if PAR["bert"]:
         from deeplearning4j_tpu_torch.models import bert_tiny
         return bert_tiny(**over, **PAR["bert"])
-    return bert_base(**over)
+    return bert_base(num_layers=PAR["layers"], **over)
 
 
 def _par_batch(cfg):
@@ -7644,7 +7692,7 @@ def _par_attn_checks(world):
 
 
 def _par_pipeline(world):
-    """BERT-base's layers as `world` stages of a GPipe pipeline (flash
+    """The recipe's layers as `world` stages of a GPipe pipeline (flash
     attention), PAR["pipe_micro"] microbatches, against the sequential
     forward."""
     from deeplearning4j_tpu_torch.models.bert import _encoder_layer
@@ -7837,6 +7885,9 @@ def _par_rank(rank, world, arm, init_file, knobs):
     global DEV
     DEV = knobs["DEV"]
     PAR.update(knobs["PAR"])
+    _child_timeline(f"parallel_{arm}{rank}", knobs.get("t0"), (
+        "init_bert_params", "_par_bert_run", "_par_resnet_net",
+        "_par_attn_checks", "_par_pipeline", "_par_resnet_refs"))
     res = {"rank": rank, "arm": arm}
     try:
         cuda = DEV == "cuda"
@@ -7875,7 +7926,8 @@ def _par_spawn(arm, world, deadline_s):
         p = PAR_DIR / f"{arm}.{r}.json"
         if p.exists():
             p.unlink()
-    knobs = {"DEV": DEV, "PAR": dict(PAR)}
+    knobs = {"DEV": DEV, "PAR": dict(PAR),
+             "t0": _TIMELINE[1] if _TIMELINE else None}
     ctx = mp.start_processes(_par_rank, args=(world, arm, str(init), knobs),
                              nprocs=world, join=False, start_method="spawn")
     t0 = time.perf_counter()
@@ -7931,7 +7983,8 @@ def phase_parallel():
         f"one card (host-staged hops: its times are not NCCL times)")
     for tag, r in (("A", a0), ("B", b0)):
         bert = r["bert"]
-        log(f"[parallel] arm {tag} BERT-base T={PAR['seq']} B={PAR['batch']} "
+        log(f"[parallel] arm {tag} BERT-base width x {PAR['layers']} layers "
+            f"T={PAR['seq']} B={PAR['batch']} "
             f"remat ZeRO-1 Adam, flash ring: ms/step "
             f"{[round(x, 2) for x in bert['ms']]} peak "
             f"{bert['peak_bytes']} B; loss {bert['loss']:.6f}; gradients "
@@ -8053,10 +8106,13 @@ def phase_parallel():
 #: attn_impl="flash") through MultiHostTrainer (accumulation 2, 4 buckets,
 #: threshold-encoded) under MultiHostRunner, a PeerCoordinator on a loopback
 #: TCPStore and a CoordinatedGuardian, in rank processes the phase spawns.
-#: Arm A: NCCL, one rank. Arm B: two gloo ranks on the first card
-#: (host-staged), BERT-base width cut to `b_layers` layers.
+#: Arm A: NCCL, one rank, BERT-base width cut to `a_layers` layers. Arm B:
+#: two gloo ranks on the first card (host-staged), BERT-base width cut to
+#: `b_layers` layers. The arms share nothing, so arm A's two processes
+#: (run, then resume) and arm B's two pairs (b1, then b2) run side by side.
 MH = dict(batch=32, seq=128, lr=2e-5, accum=2, buckets=4, steps=4,
-          save_every=2, preempt_at=2, timed=3, seed=7, peer_timeout=60.0,
+          a_layers=4, save_every=2, preempt_at=2, timed=3, seed=7,
+          peer_timeout=60.0,
           b_layers=2, b_batch=16, b_steps=4, b_preempt_at=2, b_leave_at=2,
           b_total=8, b_save_every=4, b_die_at=2, b_peer_timeout=10.0,
           bert=None,
@@ -8073,10 +8129,11 @@ MH_MASS_RTOL = 1e-6
 
 
 def _mh_cfg(layers=None):
+    """Arm A's model, or BERT-base's width at `layers` layers."""
     if MH["bert"]:
         from deeplearning4j_tpu_torch.models import bert_tiny
         return bert_tiny(**MH["bert"])
-    return bert_base(num_layers=layers) if layers else bert_base()
+    return bert_base(num_layers=layers or MH["a_layers"])
 
 
 def _mh_batch(cfg, step, rows, g):
@@ -8487,6 +8544,9 @@ def _mh_rank(rank, world, arm, part, port, knobs):
     global DEV
     DEV = knobs["DEV"]
     MH.update(knobs["MH"])
+    _child_timeline(f"multihost_{arm}_{part}{rank}", knobs.get("t0"), (
+        "init_bert_params", "_mh_start", "_mh_drive", "_mh_time",
+        "_mh_overlap_trace"))
     out_file = MH_DIR / f"{arm}.{part}.{rank}.json"
     res = {"rank": rank, "arm": arm, "part": part}
     try:
@@ -8510,20 +8570,31 @@ def _mh_rank(rank, world, arm, part, port, knobs):
         mh._teardown()
 
 
+#: the ports _mh_spawn has handed out (arms spawn side by side)
+_MH_PORTS = set()
+_MH_PORTS_LOCK = threading.Lock()
+
+
 def _mh_spawn(arm, part, world, deadline_s, exits=None):
     """Start `world` rank processes, join each against the deadline; a rank
     that outlives it, or exits with another code than `exits` names for it
     (0 by default), fails the phase. Returns the ranks' results."""
     import multiprocessing as mp
     import socket
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
+    with _MH_PORTS_LOCK:
+        while True:
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                port = s.getsockname()[1]
+            if port not in _MH_PORTS:
+                _MH_PORTS.add(port)
+                break
     for r in range(world):
         f = MH_DIR / f"{arm}.{part}.{r}.json"
         if f.exists():
             f.unlink()
-    knobs = {"DEV": DEV, "MH": dict(MH)}
+    knobs = {"DEV": DEV, "MH": dict(MH),
+             "t0": _TIMELINE[1] if _TIMELINE else None}
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=_mh_rank,
                          args=(r, world, arm, part, port, knobs))
@@ -8578,10 +8649,29 @@ def phase_multihost():
     MH_DIR.mkdir(parents=True)
     gc.collect()
     _mh_empty()
-    (a,), a_s = _mh_spawn("A", "run", 1, MH["deadline_a_s"])
-    (ar,), ar_s = _mh_spawn("A", "resume", 1, MH["deadline_a_s"])
-    b1, b1_s = _mh_spawn("B", "b1", 2, MH["deadline_b_s"])
-    b2, b2_s = _mh_spawn("B", "b2", 2, MH["deadline_b_s"], exits={1: 23})
+    # arm B's pairs in a thread beside arm A's processes: each arm's
+    # processes wait on their own spawn, and the arms share no file, store
+    # or port
+    arm_b = {}
+
+    def run_b():
+        try:
+            arm_b["b1"] = _mh_spawn("B", "b1", 2, MH["deadline_b_s"])
+            arm_b["b2"] = _mh_spawn("B", "b2", 2, MH["deadline_b_s"],
+                                    exits={1: 23})
+        except BaseException as e:   # re-raised below, after arm A
+            arm_b["error"] = e
+
+    thread = threading.Thread(target=run_b, name="multihost-arm-b")
+    thread.start()
+    try:
+        (a,), a_s = _mh_spawn("A", "run", 1, MH["deadline_a_s"])
+        (ar,), ar_s = _mh_spawn("A", "resume", 1, MH["deadline_a_s"])
+    finally:
+        thread.join()
+    if "error" in arm_b:
+        raise arm_b["error"]
+    (b1, b1_s), (b2, b2_s) = arm_b["b1"], arm_b["b2"]
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "smoke_multihost_ranks.json").write_text(json.dumps(
         {"arm_a": [a, ar], "arm_b1": b1, "arm_b2": b2}, indent=1,
@@ -8591,7 +8681,8 @@ def phase_multihost():
     want_launches = _mh_cfg().num_layers * MH["accum"]
     st = a["stats"]
     save_step, save_s, save_bytes = a["save"]
-    log(f"[multihost] arm A: {MH['backend_a']}, one rank; BERT-base "
+    log(f"[multihost] arm A: {MH['backend_a']}, one rank; BERT-base width x "
+        f"{_mh_cfg().num_layers} layers "
         f"B={MH['batch']} "
         f"T={MH['seq']} x G={MH['accum']} dropout 0.1 Adam({MH['lr']}), "
         f"{MH['buckets']} buckets {a['bucket_bytes']} B, compressed: "
@@ -8637,9 +8728,10 @@ def phase_multihost():
         f"(mass err {el0.get('leave_mass_err')}), join at "
         f"{el0.get('joined_at')}/{el1.get('joined_at')}, widths "
         f"{el0['widths']}; die@{MH['b_die_at']}: {r0['die']}")
-    log(f"[multihost] A {a_s:.1f} s + resume {ar_s:.1f} s, B1 {b1_s:.1f} s, "
-        f"B2 {b2_s:.1f} s (process start, imports and kernel loads "
-        "included)")
+    log(f"[multihost] A {a_s:.1f} s + resume {ar_s:.1f} s, beside B1 "
+        f"{b1_s:.1f} s + B2 {b2_s:.1f} s (process start, imports and kernel "
+        "loads included; the arms share the card and the host, so each "
+        "arm's times include the other's load)")
     # -- gates ---------------------------------------------------------------
     _mh_gate(DEV != "cuda" or all(v == want_launches
                                   for v in per_step.values()),
@@ -10380,16 +10472,20 @@ def phase_clustering():
 #: seeded corpora. `types` word types of Zipf counts (each at least
 #: `floor`, so minWordFrequency(5) keeps them all: text8 keeps 71,290),
 #: ~`tokens` tokens in single-topic sentences of `sent_len` (type r in
-#: topic r % topics); `sub_tokens` of them (the first sentences) for the
+#: topic r % topics); SGNS on a corpus of the same types and topics at
+#: ~`sgns_tokens` (a depth cut: its step loop is host-bound, and its
+#: gates held at 0.71 M tokens on the CPU: cosine within a topic 0.979,
+#: across 0.675); `sub_tokens` of them (the first sentences) for the
 #: HS and FastText arms, `glove_tokens` for GloVe; PV's `pv_docs`
 #: single-topic documents of `pv_len` tokens; a graph of BlogCatalog's
 #: counts in `communities` blocks (`within` of the edges inside one);
 #: Kim's CNN on `kim_sentences` labelled sentences of `kim_len` tokens
-NLP = dict(types=71_000, tokens=1_500_000, floor=5, topics=50, sent_len=20,
+NLP = dict(types=71_000, tokens=1_500_000, sgns_tokens=750_000, floor=5,
+           topics=50, sent_len=20,
            seed=43, d=300, window=5, negative=5, sample=1e-3, lr=0.025,
            min_count=5, batch=1024, sub_tokens=400_000, buckets=2_000_000,
            min_n=3, max_n=6, glove_tokens=300_000, glove_window=10,
-           glove_xmax=100.0, glove_alpha=0.75, pv_docs=2_000, pv_len=230,
+           glove_xmax=100.0, glove_alpha=0.75, pv_docs=1_000, pv_len=230,
            pv_d=400, pv_window=10, pv_probe=20, vertices=10_312,
            edges=333_983, communities=39, within=0.85, dw_d=128,
            dw_window=10, dw_walk=40, kim_sentences=10_662, kim_len=20,
@@ -11023,8 +11119,14 @@ def phase_nlp():
         f"{c['floor']} times) in {c['topics']} topics, made in "
         f"{time.perf_counter() - t0:.2f} s")
     out = {"corpus_tokens": int(counts.sum()), "types": len(words)}
+    sgns_sents, _, _, sgns_counts = nlp_corpus(dict(c,
+                                                    tokens=c["sgns_tokens"]))
+    log(f"[nlp] SGNS corpus: {len(sgns_sents):,} sentences, "
+        f"{int(sgns_counts.sum()):,} tokens of the same {len(words):,} types "
+        f"and {c['topics']} topics")
     with _no_tf32():
-        sgns, out["sgns"] = _nlp_word2vec(sents, topic_of, hs=False)
+        sgns, out["sgns"] = _nlp_word2vec(sgns_sents, topic_of, hs=False)
+        del sgns_sents
         out["kim"] = _nlp_kim(sgns, words, topic, counts)
         del sgns
         hs, out["hs"] = _nlp_word2vec(sents, topic_of, hs=True)
@@ -11399,6 +11501,10 @@ EXAMPLE_TWINS = ("dqn_cartpole", "pixel_dqn_gridworld", "mnist_cnn",
                  "hyperparameter_search", "distributed_data_parallel",
                  "long_context_bert")
 EXAMPLE_FLASH = ("attention_sequence_classifier", "long_context_bert")
+#: a twin's arguments where its depth is cut: dqn_cartpole's host-bound
+#: loop (a B = 1 forward an agent step) at 4,000 of the script's 12,000
+#: steps; the rl phase runs DQN at the Atari widths
+EXAMPLE_KW = {"dqn_cartpole": {"maxStep": 4000}}
 
 
 def _example_numbers(x):
@@ -11425,7 +11531,7 @@ def phase_examples():
         _reset_counts()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(printed):
-            facts = mod.main(device=DEV)
+            facts = mod.main(device=DEV, **EXAMPLE_KW.get(name, {}))
             if name == "hyperparameter_search":
                 facts = {"main": facts,
                          "declarative": mod.main_declarative(device=DEV)}
@@ -11496,12 +11602,42 @@ def main(argv=None):
         return 2
     t0 = time.perf_counter()
     seconds = {}
+    global _TIMELINE
+    OUT_DIR.mkdir(exist_ok=True)
+    name = f"smoke_timeline_{args.only}.log" if args.only else \
+        "smoke_timeline.log"
+    _TIMELINE = (OUT_DIR / name, t0)
+    _TIMELINE[0].write_text("")
 
     def timed(phase, fn, *a):
+        _mark(f"[smoke] {phase} starts")
         t = time.perf_counter()
         out = fn(*a)
         seconds[phase] = time.perf_counter() - t
+        _mark(f"[smoke] {phase} took {seconds[phase]:.1f} s")
         return out
+
+    def side_by_side(*phases):
+        """Run phases whose work is all in rank processes they spawn (they
+        share no file, store or port) at once, each from its own thread;
+        the first failure is raised after all have ended."""
+        results, errors = {}, []
+
+        def run(name, fn):
+            try:
+                results[name] = timed(name, fn)
+            except BaseException as e:   # raised below, after the join
+                errors.append(e)
+
+        threads = [threading.Thread(target=run, args=p, name=p[0])
+                   for p in phases]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        return tuple(results[name] for name, _ in phases)
 
     card = timed("card", phase_card)
     build_s = timed("build", phase_build)
@@ -11604,8 +11740,8 @@ def main(argv=None):
     layers = timed("layers", phase_layers, args.profile)
     resilience = timed("resilience", phase_resilience)
     quant = timed("quant", phase_quant, args.profile)
-    parallel = timed("parallel", phase_parallel)
-    multihost = timed("multihost", phase_multihost)
+    parallel, multihost = side_by_side(("parallel", phase_parallel),
+                                       ("multihost", phase_multihost))
     keras = timed("keras", phase_keras, cfg, params)
     samediff = timed("samediff", phase_samediff, cfg, params)
     onnx = timed("onnx", phase_onnx)

@@ -497,7 +497,7 @@ def save_samediff(sd, path, values_only=False, save_updater=False):
         buf = io.BytesIO()
         np.savez(buf, **arrays)
         with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as zf:
-            zf.writestr(VALUES_NPZ, buf.getvalue())
+            zf.writestr(VALUES_NPZ, buf.getvalue(), zipfile.ZIP_STORED)
         return
 
     bad = [(n, getattr(v, "opname", None)) for n, v in sd._nodes.items()
@@ -539,7 +539,7 @@ def save_samediff(sd, path, values_only=False, save_updater=False):
     with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as zf:
         # allow_nan=False: the artifact must stay strict RFC-8259 JSON
         zf.writestr(GRAPH_JSON, json.dumps(doc, indent=1, allow_nan=False))
-        zf.writestr(VALUES_NPZ, buf.getvalue())
+        zf.writestr(VALUES_NPZ, buf.getvalue(), zipfile.ZIP_STORED)
 
 
 def load_samediff(path, device=None):

@@ -2,7 +2,9 @@
 (≡ deeplearning4j-core :: util.ModelSerializer).
 
 The JAX package's zip format, so either package restores the other's
-archives. A deflated zip holding:
+archives. A zip holding (the text entries deflated; the arrays stored, as
+deflate spends seconds on a model's weights to save a few percent, and
+either package reads both):
 
 - `modeltype.txt`: "MultiLayerNetwork" or "ComputationGraph";
 - `configuration.json`: the configuration's JSON (`util/serde.py`);
@@ -212,12 +214,13 @@ class ModelSerializer:
             zf.writestr(KIND_TXT, kind)
             zf.writestr(CONFIG_JSON, model.conf.toJson())
             zf.writestr(PARAMS_NPZ, _tree_to_npz_bytes(
-                jax_tree(model, model._params)))
+                jax_tree(model, model._params)), zipfile.ZIP_STORED)
             zf.writestr(STATE_NPZ, _tree_to_npz_bytes(
-                jax_tree(model, model._state)))
+                jax_tree(model, model._state)), zipfile.ZIP_STORED)
             if saveUpdater and model._opt_state is not None:
                 zf.writestr(UPDATER_PKL, pickle.dumps(
-                    [_to_numpy(t) for t in _optax_leaves(model)]))
+                    [_to_numpy(t) for t in _optax_leaves(model)]),
+                    zipfile.ZIP_STORED)
             if normalizer is not None:
                 zf.writestr(NORMALIZER_PKL, pickle.dumps(normalizer))
             if saveUpdater and model._generator is not None:

@@ -316,6 +316,27 @@ def test_port_archive_restores_in_the_jax_package(name, tmp_path):
     _close(tnet.output(x), _jout(jnet, x), 1e-5, f"{name} output")
 
 
+def test_port_archive_stores_its_arrays_and_deflates_its_text(tmp_path):
+    """The array entries are stored (deflate spends seconds on a model's
+    weights to save a few percent), the text entries deflated; the JAX
+    package restores the archive with the same parameters bit for bit."""
+    tnet = _port_net("graph", T.Adam(1e-2))
+    x, y = _batch("graph")
+    tnet.fit(DataSet(x, y))
+    path = str(tmp_path / "port.zip")
+    tnet.save(path)
+    with zipfile.ZipFile(path) as zf:
+        kinds = {i.filename: i.compress_type for i in zf.infolist()}
+    assert kinds == {"modeltype.txt": zipfile.ZIP_DEFLATED,
+                     "configuration.json": zipfile.ZIP_DEFLATED,
+                     "coefficients.npz": zipfile.ZIP_STORED,
+                     "state.npz": zipfile.ZIP_STORED,
+                     "updaterState.bin": zipfile.ZIP_STORED,
+                     "generatorState.bin": zipfile.ZIP_DEFLATED}, kinds
+    jnet = JModelSerializer.restoreComputationGraph(path)
+    _same_trees(tnet._params, _np_tree(jnet._params), what="params")
+
+
 FAMILY_ARCHIVES = {"capsules": (9, 9, 1), "3d": (3, 3, 3, 2), "vae": (6,),
                    "layers": (5, 5, 2), "seq1d": (6, 3)}
 

@@ -371,6 +371,27 @@ def test_each_package_loads_the_others_archive(tmp_path, writer):
     assert tc.dataSetFeatureMapping == ["x"]
 
 
+@pytest.mark.parametrize("values_only", [False, True])
+def test_port_archive_stores_its_values(tmp_path, values_only):
+    """The values entry is stored, the graph's JSON deflated; the JAX
+    package loads the whole archive."""
+    import zipfile
+    jsd, tsd = _both(_archive_graph)
+    path = str(tmp_path / "port.sdz")
+    tsd.save(path, values_only=values_only)
+    with zipfile.ZipFile(path) as zf:
+        kinds = {i.filename: i.compress_type for i in zf.infolist()}
+    want = {"values.npz": zipfile.ZIP_STORED}
+    if not values_only:
+        want["samediff.json"] = zipfile.ZIP_DEFLATED
+    assert kinds == want, kinds
+    if not values_only:
+        back = JSD.load(path)
+        for k, v in tsd._values.items():
+            np.testing.assert_array_equal(np.asarray(back._values[k]),
+                                          v.numpy())
+
+
 def test_model_guesser_loads_either_packages_samediff_archive(tmp_path):
     from deeplearning4j_tpu_torch.util.model_guesser import ModelGuesser
     jsd, _ = _both(_archive_graph)
