@@ -646,7 +646,7 @@ from deeplearning4j_tpu_torch.kernels.flash_attention import (
     flash_fwd, gather_kv_pages)
 from deeplearning4j_tpu_torch.models import (bert_base, bert_classify,
                                              bert_encode, bert_mlm_logits,
-                                             classification_loss,
+                                             bert_tiny, classification_loss,
                                              init_bert_params, param_leaves)
 from deeplearning4j_tpu_torch.kernels.layernorm import (
     _layernorm_reference, fused_layernorm)
@@ -788,14 +788,14 @@ REPRESENTATIVE = {"flash_fwd": ("prefill P=128", "f32"),
                   "fused_layernorm": ("bert_base 4096x768", "f32")}
 
 SOURCES = {
-    "flash_fwd": ("deeplearning4j_tpu_torch/kernels/csrc/flash_fwd.cu",
+    "flash_fwd": ("deeplearning4j_tpu_torch/kernels/csrc/flash_fwd.cuh",
                   "deeplearning4j_tpu/kernels/flash_attention.py:42"),
     "flash_decode": ("deeplearning4j_tpu_torch/kernels/csrc/flash_decode.cu",
                      "deeplearning4j_tpu/kernels/flash_attention.py:42"),
-    "flash_bwd_dq": ("deeplearning4j_tpu_torch/kernels/csrc/flash_bwd_dq.cu",
+    "flash_bwd_dq": ("deeplearning4j_tpu_torch/kernels/csrc/flash_bwd_dq.cuh",
                      "deeplearning4j_tpu/kernels/flash_attention.py:232"),
     "flash_bwd_dkv": (
-        "deeplearning4j_tpu_torch/kernels/csrc/flash_bwd_dkv.cu",
+        "deeplearning4j_tpu_torch/kernels/csrc/flash_bwd_dkv.cuh",
         "deeplearning4j_tpu/kernels/flash_attention.py:272"),
     "matmul_epilogue": (
         "deeplearning4j_tpu_torch/kernels/csrc/matmul_epilogue.cu",
@@ -1153,7 +1153,27 @@ ATTN_KERNEL_SHAPES = (
      [8 + (i * 7) % 17 for i in range(256)]),
     ("long_context_bert D=8", (2, 4, 64, 64, 8), None),
     ("attn D=128", (16, 4, 512, 512, 128),
+     [512 - 31 * i for i in range(16)]),
+    # DL4J's default single head: the one-head path's stack at nOut = 256
+    # (self-attention and its learned queries, Tq = 4) and the wide layer
+    # at nOut = 512, each head dim a wide kernel's (128 columns a block)
+    ("attn D=256", (32, 1, 512, 512, 256),
+     [512 - 13 * i for i in range(32)]),
+    ("learned Tq=4 D=256", (32, 1, 4, 512, 256),
+     [512 - 13 * i for i in range(32)]),
+    ("attn D=512", (16, 1, 512, 512, 512),
      [512 - 31 * i for i in range(16)]))
+#: the widest head dim checked: one forward, eight 128-column chunks
+FWD_1024 = ("D=1024 fwd", (1, 1, 128, 128, 1024))
+#: flash_decode at the instantiations this slice added, at the serving
+#: shapes that reach them: bert_tiny's D = 8 (8 slots x 4 heads), D = 16,
+#: and BERT-base width at 3 heads (D = 256, 8 slots x 3 heads, C = 512)
+DECODE_HEAD_DIMS = (("decode D=8", 8, 4, 128, 8), ("decode D=16", 8, 4, 128, 16),
+                    ("decode D=256 C=512", 8, 3, 512, 256))
+#: the kernel rows of the head dims this slice added (the kernels line's
+#: `head_dims` and PERF.md's rows)
+HEAD_DIM_CASES = tuple(c[0] for c in ATTN_KERNEL_SHAPES[4:]) + (
+    FWD_1024[0],) + tuple(c[0] for c in DECODE_HEAD_DIMS)
 
 
 #: the flash ring's block in the parallel phase's recipe (B, H, Tq, Tk, D):
@@ -1768,6 +1788,11 @@ def phase_kernels():
         for label, shape, lens in ATTN_KERNEL_SHAPES:
             cases.append((_fwd_case, label, *shape, False, lens, dtype))
             cases.append((_bwd_cases, label, *shape, False, lens, dtype))
+        cases.append((_fwd_case, FWD_1024[0], *FWD_1024[1], False, None,
+                      dtype))
+        for label, b, h, c, d in DECODE_HEAD_DIMS:
+            lens = [c, c // 2, 1, 0, 37, c - 1, 64, 100]   # one empty row
+            cases.append((_decode_case, label, b, h, c, d, lens, dtype))
         for label, (m, k, n) in EPILOGUE_SHAPES.items():
             ragged = label.startswith("ragged")
             cases.append((_epilogue_case, label, m, k, n, ragged,
@@ -2961,8 +2986,8 @@ def _top2_gap(cfg, params, prompt, stream, j):
 def _paged_server(cfg, params, reqs, what, check_launches=False, **kw):
     """One server over `reqs`: warmed up, counters at 0, every request
     through it, its store held clean; returns its run."""
-    dkw = {k: kw.pop(k) for k in ("kv_dtype", "page_size", "pool_pages")
-           if k in kw}
+    dkw = {k: kw.pop(k) for k in ("kv_dtype", "page_size", "pool_pages",
+                                  "attn_impl") if k in kw}
     srv = GenerationServer(BertDecoder(cfg, params, **dkw),
                            **{**SERVER, **kw})
     try:
@@ -4706,9 +4731,11 @@ RNN = dict(classes=77, width=256, batch=32, seq=1000, tbptt=50,
            length_buckets=[16, 64, 128], length_ladder=[1, 2, 4, 8],
            length_requests=12)
 #: the attention stack of examples/attention_sequence_classifier.py and its
-#: gate; the wide SelfAttentionLayer at real shape (D = 64)
+#: gate; the wide SelfAttentionLayer at real shape (D = 64), and again at
+#: DL4J's default single head (D = 512: the heads phase)
 ATTN = dict(t=24, f=8, train=256, test=64, epochs=30, acc=0.8,
-            wide=dict(b=16, t=512, width=512, heads=8), wide_rtol=1e-4)
+            wide=dict(b=16, t=512, width=512, heads=8),
+            one_head=dict(b=16, t=512, width=512, heads=1), wide_rtol=1e-4)
 #: eager vs graph answers of one net, and lengthBuckets' answers against
 #: output(): the same operations at other batch row counts, which cuBLAS
 #: may sum in another order (f32)
@@ -5134,15 +5161,15 @@ def _plain_attend(q, k, v, mask):
     return torch.where(m[:, None, :, None], o, 0)
 
 
-def _attention_wide():
-    """A SelfAttentionLayer at nIn = nOut = 512, 8 heads (D = 64), B=16,
-    T=512, ragged masks, forward and backward: the layer through the
-    kernels against the layer through their plain versions (outputs and
-    every gradient within ATTN["wide_rtol"] of the largest), the kernels
-    against their plain versions on the layer's own q, k, v and output
-    cotangent (the kernel rows' gates), and the layer's ms against the
-    same layer on SDPA."""
-    w = ATTN["wide"]
+def _attention_wide(w=None, tag="rnn"):
+    """A SelfAttentionLayer at nIn = nOut = 512, 8 heads (D = 64; or the
+    knobs `w`, ATTN["wide"]'s by default), B=16, T=512, ragged masks,
+    forward and backward: the layer through the kernels against the layer
+    through their plain versions (outputs and every gradient within
+    ATTN["wide_rtol"] of the largest), the kernels against their plain
+    versions on the layer's own q, k, v and output cotangent (the kernel
+    rows' gates), and the layer's ms against the same layer on SDPA."""
+    w = w or ATTN["wide"]
     b, t, width, heads = w["b"], w["t"], w["width"], w["heads"]
     layer = SelfAttentionLayer(nIn=width, nOut=width, nHeads=heads)
     layer.apply_defaults({})
@@ -5196,7 +5223,7 @@ def _attention_wide():
         scale = max([1.0] + [float(c.abs().max()) for c in want])
         bwd_errs.append(max(float((a - c).abs().max()) for a, c in
                             zip(got, want)) / scale)
-    log(f"[rnn] wide SelfAttentionLayer nIn=nOut={width}, {heads} heads "
+    log(f"[{tag}] wide SelfAttentionLayer nIn=nOut={width}, {heads} heads "
         f"(D = {width // heads}), B={b} T={t}, ragged masks: forward + "
         f"backward {ms:.3f} ms through the kernels, {lib:.3f} ms on SDPA, "
         f"{plain:.3f} ms on the plain versions; layer vs plain (relative to "
@@ -5207,12 +5234,13 @@ def _attention_wide():
         f"{ATOL[torch.float32]:.0e}); launches {launches}")
     if max(errs) > ATTN["wide_rtol"] or fwd_err > ATOL[torch.float32] or \
             max(bwd_errs) > ATOL[torch.float32]:
-        raise AssertionError(f"rnn: wide attention: {errs}, {fwd_err}, "
+        raise AssertionError(f"{tag}: wide attention: {errs}, {fwd_err}, "
                              f"{bwd_errs}")
     missing = [k for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
                if not launches.get(k)]
     if missing:
-        raise AssertionError(f"rnn: wide attention never launched {missing}")
+        raise AssertionError(f"{tag}: wide attention never launched "
+                             f"{missing}")
     return {"shape": [b, heads, t, width // heads], "ms": ms,
             "sdpa_ms": lib, "plain_ms": plain, "layer_rel_err": errs,
             "fwd_err": fwd_err, "bwd_rel_err": bwd_errs,
@@ -5275,6 +5303,177 @@ def phase_rnn(profile=False):
                                  "flash_bwd_dkv")}
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[rnn] the phase {out['seconds']:.1f} s")
+    return out
+
+
+# -- phase 15b: heads ----------------------------------------------------------
+#: DL4J's default single head at full width: the stack of
+#: examples/attention_sequence_classifier.py (SelfAttentionLayer ->
+#: LearnedSelfAttentionLayer(nQueries=4) -> LastTimeStep(LSTM(16)) ->
+#: OutputLayer) as a MultiLayerNetwork at nIn = nOut = 256, one head (D =
+#: 256 in both attention layers; the learned one cross-attends, Tq = 4),
+#: B = 32, T = 512, ragged masks, Adam; 2 warm-up and 10 timed fit steps,
+#: the graphed and the eager net in turns. Serving at D = 256 (BERT-base
+#: width, 3 heads; depth cut to `base_layers` of its 12) and at bert_tiny's
+#: D = 8 (cache rows up to 512; dense, and paged at the paged phase's
+#: pool), over serving's knobs and 12 requests.
+HEADS = dict(width=256, batch=32, seq=512, queries=4, lr=1e-3, warmup=2,
+             steps=10, seed=19, base_layers=4)
+HEADS_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def _one_head_net():
+    w = HEADS["width"]
+    conf = (NeuralNetConfiguration.Builder()
+            .seed(HEADS["seed"]).updater(Adam(HEADS["lr"]))
+            .weightInit("xavier")
+            .list()
+            .layer(SelfAttentionLayer(nOut=w, nHeads=1))
+            .layer(LearnedSelfAttentionLayer(nOut=w, nHeads=1,
+                                             nQueries=HEADS["queries"]))
+            .layer(LastTimeStep(LSTM(nOut=16)))
+            .layer(OutputLayer(lossFunction="mcxent", nOut=2,
+                               activation="softmax"))
+            .setInputType(InputType.recurrent(w, HEADS["seq"]))
+            .build())
+    return MultiLayerNetwork(conf).init()
+
+
+def _one_head_data():
+    """One fixed batch: seeded features, ragged lengths T .. T/8 (padded
+    steps zeroed), random labels."""
+    b, t, w = HEADS["batch"], HEADS["seq"], HEADS["width"]
+    rng = np.random.default_rng(HEADS["seed"])
+    x = rng.standard_normal((b, t, w)).astype(np.float32)
+    lengths = np.linspace(t, t // 8, b).round().astype(int)
+    mask = (np.arange(t)[None, :] < lengths[:, None]).astype(np.float32)
+    x *= mask[:, :, None]
+    ds = DataSet(x, np.eye(2, dtype=np.float32)[rng.integers(0, 2, b)])
+    ds.featuresMask = mask
+    return ds
+
+
+def _one_head_train():
+    """The one-head stack trained graphed and eagerly from one init, a
+    step of each in turns: the two nets' parameters, optimizer state and
+    every step's loss equal bit for bit, the loss finite and falling, and
+    flash_fwd, flash_bwd_dq and flash_bwd_dkv launched on every timed
+    step of both arms (the graph's replays counted)."""
+    ds = _one_head_data()
+    net = _one_head_net()
+    with _deterministic():
+        arms = {"graph": net.clone(), "eager": net.clone()}
+        del net
+        losses = {a: [] for a in arms}
+        wall = dict.fromkeys(arms, 0.0)
+        launches = {a: dict.fromkeys(HEADS_KERNELS, 0) for a in arms}
+        for step in range(HEADS["warmup"] + HEADS["steps"]):
+            for arm, m in arms.items():
+                before = _counts()
+                t0 = time.perf_counter()
+                m.fit(ds, cudaGraphs=arm == "graph")
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                after = _counts()
+                losses[arm].append(m.score())
+                if step >= HEADS["warmup"]:
+                    wall[arm] += dt
+                    for k in HEADS_KERNELS:
+                        launches[arm][k] += after[k] - before[k]
+        st = arms["graph"].fit_status()
+        unequal = _unequal(arms["graph"], arms["eager"])
+    steps = HEADS["steps"]
+    per_step = {a: {k: n / steps for k, n in launches[a].items()}
+                for a in arms}
+    for arm in arms:
+        log(f"[heads] one-head stack fit {arm}: {steps} timed steps of "
+            f"B={HEADS['batch']} T={HEADS['seq']} nIn=nOut={HEADS['width']}"
+            f" (D = {HEADS['width']}; learned Tq = {HEADS['queries']}) in "
+            f"{wall[arm]:.3f} s ({wall[arm] * 1e3 / steps:.2f} ms/step); "
+            f"loss {losses[arm][0]:.6f} -> {losses[arm][-1]:.6f}; "
+            f"launches a step {per_step[arm]}")
+    log(f"[heads] one-head stack graph vs eager: tensors not bit-identical "
+        f"{unequal}; losses equal {losses['graph'] == losses['eager']}; "
+        f"graph store {st['captures']} capture, {st['replays']} replays, "
+        f"{st['degradations']} degradations, {st['eager_calls']} eager "
+        f"calls")
+    if any(unequal.values()) or losses["graph"] != losses["eager"]:
+        raise AssertionError(f"heads: graph vs eager: {unequal}, "
+                             f"{losses}")
+    if (st["captures"], st["degradations"], st["eager_calls"]) != (1, 0, 0):
+        raise AssertionError(f"heads: graph store {st}")
+    loss = losses["graph"]
+    if not all(np.isfinite(loss)) or not loss[-1] < loss[0]:
+        raise AssertionError(f"heads: the loss did not fall: {loss}")
+    if any(launches[a][k] < steps for a in arms for k in HEADS_KERNELS) \
+            or launches["graph"] != launches["eager"]:
+        raise AssertionError(f"heads: launches {launches}")
+    return {"ms_per_step": {a: wall[a] * 1e3 / steps for a in arms},
+            "losses": loss, "launches": launches["graph"],
+            "launches_per_step": per_step["graph"],
+            "store": {k: st[k] for k in ("captures", "replays",
+                                         "degradations", "eager_calls")}}
+
+
+def _heads_serving():
+    """BertDecoder served at D = 256 (BERT-base width, 3 heads) and at
+    D = 8 (bert_tiny: the dense cache, and the paged fp pool): each kernel
+    server's streams equal the dense-attention server's, token for token,
+    greedy and sampled alike, and each launched flash_fwd (prefill) and
+    flash_decode (steps)."""
+    out, launches = {}, dict.fromkeys(("flash_fwd", "flash_decode"), 0)
+    tiny = bert_tiny(max_position_embeddings=512)
+    base = bert_base(num_heads=3, num_layers=HEADS["base_layers"])
+    for label, cfg, pagings in (
+            (f"bert_base 3 heads D={base.head_dim} ({base.num_layers} "
+             "layers)", base, ({},)),
+            (f"bert_tiny D={tiny.head_dim}", tiny,
+             ({}, dict(page_size=PAGED["page_size"],
+                       pool_pages=PAGED["pool_pages"])))):
+        params = init_bert_params(cfg, 0)
+        reqs = _requests(cfg)
+        want = _paged_server(cfg, params, reqs, f"heads: {label} dense "
+                             "attention", attn_impl="dense")
+        if any(want["launches"].values()):
+            raise AssertionError(f"heads: {label}: the dense-attention "
+                                 f"server launched {want['launches']}")
+        for kw in pagings:
+            what = f"heads: {label} kernels" + (" paged" if kw else "")
+            run = _paged_server(cfg, params, reqs, what,
+                                check_launches=True, **kw)
+            diff = [i for i, (a, b) in enumerate(zip(run["streams"],
+                                                     want["streams"]))
+                    if a != b]
+            log(f"[heads] {what}: streams equal to the dense-attention "
+                f"server's {len(reqs) - len(diff)}/{len(reqs)}")
+            if diff:
+                raise AssertionError(f"heads: {what}: streams {diff} "
+                                     f"differ from the dense-attention "
+                                     f"server's")
+            for k in launches:
+                launches[k] += run["launches"][k]
+            out[what] = {k: run[k] for k in (
+                "tokens", "wall_s", "tokens_per_s", "per_token_p50_ms",
+                "per_token_p99_ms", "launches")}
+        out[f"{label} dense attention tokens_per_s"] = want["tokens_per_s"]
+        del params
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+def phase_heads():
+    """Attention at DL4J's default single head on the card: the one-head
+    stack trained at D = 256, the wide layer at one head (D = 512), and
+    BertDecoder served at D = 256 and D = 8. The counts are set to 0 before
+    each part and read after it."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {"train": _one_head_train()}
+    torch.cuda.empty_cache()
+    out["wide"] = _attention_wide(ATTN["one_head"], tag="heads")
+    out["serving"], out["serving_launches"] = _heads_serving()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[heads] the phase {out['seconds']:.1f} s")
     return out
 
 
@@ -11569,7 +11768,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only",
                     choices=["kernels", "resnet", "graphs", "paged",
-                             "chaos", "fleet", "mln", "rnn", "zoo",
+                             "chaos", "fleet", "mln", "rnn", "heads", "zoo",
                              "layers", "resilience", "quant", "parallel",
                              "multihost", "keras", "samediff", "onnx",
                              "spark", "arbiter", "clustering", "nlp", "rl",
@@ -11578,7 +11777,8 @@ def main(argv=None):
                     help="stop after the kernel checks, or run the resnet "
                          "serving and training phases right after them, or "
                          "run the graphs, the paged, the chaos, the fleet, "
-                         "the mln, the rnn, the zoo, the layers, the "
+                         "the mln, the rnn, the heads, the zoo, the "
+                         "layers, the "
                          "resilience, the quant, the parallel, the "
                          "multihost, the keras, the samediff, the onnx, the "
                          "spark, the arbiter, the clustering, the nlp, the "
@@ -11652,7 +11852,8 @@ def main(argv=None):
         log(f"[smoke] by phase " + ", ".join(
             f"{k} {v:.1f}" for k, v in seconds.items()))
         return 0
-    if args.only in ("chaos", "fleet", "mln", "rnn", "zoo", "layers",
+    if args.only in ("chaos", "fleet", "mln", "rnn", "heads", "zoo",
+                     "layers",
                      "resilience", "quant", "parallel", "multihost",
                      "keras", "samediff", "onnx", "spark", "arbiter",
                      "clustering", "nlp", "rl", "examples"):
@@ -11668,6 +11869,8 @@ def main(argv=None):
             out = timed("mln", phase_mln, args.profile)
         elif args.only == "rnn":
             out = timed("rnn", phase_rnn, args.profile)
+        elif args.only == "heads":
+            out = timed("heads", phase_heads)
         elif args.only == "zoo":
             out = timed("zoo", phase_zoo)
         elif args.only == "layers":
@@ -11736,6 +11939,7 @@ def main(argv=None):
     fleet = timed("fleet", phase_fleet, cfg, params)
     mln = timed("mln", phase_mln, args.profile)
     rnn = timed("rnn", phase_rnn, args.profile)
+    heads = timed("heads", phase_heads)
     zoo = timed("zoo", phase_zoo)
     layers = timed("layers", phase_layers, args.profile)
     resilience = timed("resilience", phase_resilience)
@@ -11878,6 +12082,24 @@ def main(argv=None):
         row["launches_examples_from"] = (
             "examples phase: attention_sequence_classifier + "
             "long_context_bert (the other 13 twins launch none)")
+        # this slice's path: the one-head stack's graphed steps at D = 256
+        # (B1, B2a, B2b) and the served decoders at D = 256 and D = 8 (B1's
+        # prefill and decode), and the kernel rows at its head dims
+        if name in heads["train"]["launches"]:
+            row["launches_heads"] = heads["train"]["launches"][name]
+            row["launches_heads_from"] = (
+                f"heads phase: one-head stack at D = {HEADS['width']}, "
+                f"{HEADS['steps']} timed graphed steps")
+        if name in heads["serving_launches"]:
+            row["launches_heads_serving"] = heads["serving_launches"][name]
+            row["launches_heads_serving_from"] = (
+                "heads phase: BertDecoder servers at D = 256 (3 heads) and "
+                "D = 8 (dense and paged), 12 requests each")
+        row["head_dims"] = [
+            {k: r[k] for k in ("case", "shape", "dtype", "ms", "plain_ms",
+                               "library_ms", "bound_ms", "bound_by",
+                               "max_abs_err", "atol")}
+            for r in rows if r["name"] == name and r["case"] in HEAD_DIM_CASES]
     (OUT_DIR / "smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "kernels": rows,
          "step36": step36, "fwd36": fwd36, "bert_step12": step12,
@@ -11885,7 +12107,7 @@ def main(argv=None):
          "serving": serving, "train": train,
          "resnet": resnet, "resnet_train": resnet_train, "graphs": graphs,
          "paged": paged, "chaos": chaos, "fleet": fleet, "mln": mln,
-         "rnn": rnn, "zoo": zoo, "layers": layers,
+         "rnn": rnn, "heads": heads, "zoo": zoo, "layers": layers,
          "resilience": resilience, "quant": quant, "parallel": parallel,
          "multihost": multihost, "keras": keras, "samediff": samediff,
          "onnx": onnx, "spark": spark, "arbiter": arbiter,

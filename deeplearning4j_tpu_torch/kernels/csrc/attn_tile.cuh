@@ -32,6 +32,20 @@
 //   fragment, and V's B fragment reads rows 2t and 2t + 1. Rows are padded
 //   to D + 4 floats: the score reads (8 rows g × 4 columns t) and the P·V
 //   reads (rows 2t × 8 columns g) both meet no bank conflict.
+//
+// Wide head dims (D > 128) run on the same tile, W = 128 columns at a time
+// (each kernel's `*_wide_kernel`): a row of D = W·DC values is DC column
+// chunks. A block owns one output chunk (grid dimension z) and walks DC
+// ring slices per key (or query) tile, one chunk of the contraction each;
+// the scores sum over the chunks in registers (`scores_chunk`) and the
+// tile's last slice stages the chunk its output needs. The operand rows
+// the narrow kernels keep in registers (Q, dO; K, V) are read afresh,
+// chunk by chunk, from device memory (L1 and L2 serve the repeats): one
+// chunk of 16 rows is 64 registers in f32, and D of them would not fit.
+// Every block of a row recomputes the scores, so the products of S (and
+// dP) run DC times: the price of one owner per output element with no
+// second pass and no atomics. stage_rows / stage_kv take the row stride
+// `ld` (D) apart from the staged width.
 #pragma once
 
 #include "mma_tile.cuh"
@@ -63,13 +77,34 @@ constexpr size_t smem_bytes() {
   return (size_t)mma::kStages * Tile<T, D>::kStage;
 }
 
-// Stage keys [k0, k0 + BK) of K and V ((Tk, D) row-major each) into one
-// ring stage: K's rows, then V's. Keys ≥ Tk stage as zeros (src-size 0:
-// nothing is read). Rows are 16-byte multiples (D ≥ 16) and the bases
-// 16-byte aligned (the wrapper's `_aligned`), so every copy is 16 bytes.
+// Stage rows [r0, r0 + BK) of a row-major matrix x (row stride ld; D
+// columns from x on) into a BK × D tile of one ring stage (row stride
+// Tile::S). Rows ≥ n stage as zeros (src-size 0: nothing is read). Rows
+// are 16-byte multiples (D ≥ 16, ld a multiple of D) and the bases 16-byte
+// aligned (the wrapper's `_aligned`), so every copy is 16 bytes.
+template <typename T, int D, int NT>
+__device__ __forceinline__ void stage_rows(T* dst, const T* x, int r0, int n,
+                                           int ld) {
+  using C = Tile<T, D>;
+  constexpr int E = 16 / (int)sizeof(T);
+  constexpr int CH = D / E;
+  static_assert(C::BK * CH % NT == 0, "tile not a whole number of rounds");
+#pragma unroll
+  for (int i = 0; i < C::BK * CH / NT; ++i) {
+    const int idx = threadIdx.x + i * NT;
+    const int r = idx / CH, c = (idx % CH) * E;
+    const bool in = r0 + r < n;
+    const size_t off = in ? (size_t)(r0 + r) * ld + c : 0;
+    mma::cp16(dst + r * C::S + c, x + off, in);
+  }
+}
+
+// Stage keys [k0, k0 + BK) of K and V ((Tk, ld) row-major each; D columns
+// from k and v on) into one ring stage, K's rows then V's, each copy as in
+// stage_rows.
 template <typename T, int D, int NT>
 __device__ __forceinline__ void stage_kv(T* ks, const T* k, const T* v, int k0,
-                                         int Tk) {
+                                         int Tk, int ld = D) {
   using C = Tile<T, D>;
   constexpr int E = 16 / (int)sizeof(T);
   constexpr int CH = D / E;
@@ -80,16 +115,17 @@ __device__ __forceinline__ void stage_kv(T* ks, const T* k, const T* v, int k0,
     const int idx = threadIdx.x + i * NT;
     const int r = idx / CH, c = (idx % CH) * E;
     const bool in = k0 + r < Tk;
-    const size_t off = in ? (size_t)(k0 + r) * D + c : 0;
+    const size_t off = in ? (size_t)(k0 + r) * ld + c : 0;
     mma::cp16(ks + r * C::S + c, k + off, in);
     mma::cp16(vs + r * C::S + c, v + off, in);
   }
 }
 
 // -- the warp's A fragments -----------------------------------------------------
-// f32: rows r0 + g and r0 + g + 8 of a (n, D) matrix, times `mul`, as the
-// m16n8k8 fragments of the D/8 contraction steps: v[kk] = (g, 8kk + t),
-// (g + 8, 8kk + t), (g, 8kk + t + 4), (g + 8, 8kk + t + 4). Rows ≥ n are 0.
+// f32: rows r0 + g and r0 + g + 8 of a (n, D) matrix (row stride ld),
+// times `mul`, as the m16n8k8 fragments of the D/8 contraction steps:
+// v[kk] = (g, 8kk + t), (g + 8, 8kk + t), (g, 8kk + t + 4),
+// (g + 8, 8kk + t + 4). Rows ≥ n are 0.
 template <typename T, int D>
 struct Rows;
 
@@ -98,12 +134,12 @@ struct Rows<float, D> {
   float v[D / 8][4];
 
   __device__ __forceinline__ void load(const float* x, int r0, int n,
-                                       float mul) {
+                                       float mul, int ld = D) {
     const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = r0 + g + 8 * h;
-      const float* row = x + (size_t)(r < n ? r : 0) * D + t;
+      const float* row = x + (size_t)(r < n ? r : 0) * ld + t;
 #pragma unroll
       for (int kk = 0; kk < D / 8; ++kk) {
         v[kk][h] = r < n ? row[8 * kk] * mul : 0.f;
@@ -129,12 +165,12 @@ struct Rows<__nv_bfloat16, D> {
   uint32_t v[D / 16][4];
 
   __device__ __forceinline__ void load(const __nv_bfloat16* x, int r0, int n,
-                                       float) {
+                                       float, int ld = D) {
     const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = r0 + g + 8 * h;
-      const __nv_bfloat16* row = x + (size_t)(r < n ? r : 0) * D + 2 * t;
+      const __nv_bfloat16* row = x + (size_t)(r < n ? r : 0) * ld + 2 * t;
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         v[kk][h] = r < n ? *reinterpret_cast<const uint32_t*>(row + 16 * kk)
@@ -154,9 +190,9 @@ struct Split {
   uint32_t hi[D / 8][4], lo[D / 8][4];
 
   __device__ __forceinline__ void load(const float* x, int r0, int n,
-                                       float mul) {
+                                       float mul, int ld = D) {
     Rows<float, D> raw;
-    raw.load(x, r0, n, mul);
+    raw.load(x, r0, n, mul, ld);
 #pragma unroll
     for (int kk = 0; kk < D / 8; ++kk) raw.get(kk, hi[kk], lo[kk]);
   }
@@ -263,6 +299,24 @@ __device__ __forceinline__ void scores(
       mma::mma_bf16(s[2 * jj], a.v[kk], b0);
       mma::mma_bf16(s[2 * jj + 1], a.v[kk], b1);
     }
+  }
+}
+
+// One column chunk of a wide contraction: s = A · Kᵀ over the chunk when
+// `first`, else s += it. The chunk's products start from zero and are added
+// to s in f32 (rounded to nearest): the tensor cores truncate what they add
+// to the accumulator they are given, and chained over a D = 1024 row (384
+// products in f32) that truncation reached the gradients' f32 gate.
+template <int D, typename T, class A>
+__device__ __forceinline__ void scores_chunk(
+    const A& a, const T* ks, float (&s)[Tile<T, D>::BK / 8][4], bool first) {
+  float part[Tile<T, D>::BK / 8][4];
+  scores<D>(a, ks, part);
+#pragma unroll
+  for (int j = 0; j < Tile<T, D>::BK / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s[j][e] = first ? part[j][e] : s[j][e] + part[j][e];
   }
 }
 
@@ -440,10 +494,18 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
 }
 
 // -- launch ---------------------------------------------------------------------------
-// Warps per block: the most (4, then 2) that still give every SM of the
-// card a block at this (B·H, Tq); else 1. BERT's fine-tune and encode
-// shapes (B·H = 384 or 96, T ≥ 128) take 4; prefill (12 heads, 128 rows)
-// takes 1, 96 blocks instead of 24 blocks of 4 warps.
+// The column chunk W of the wide kernels (the widest narrow head dim), and
+// their warps a block: one instantiation per kernel and dtype, which keeps
+// the libraries' builds short (the wide grid already multiplies its blocks
+// by DC). At 4 warps the f32 wide kernels spill least: the forward none,
+// dQ 24 bytes, dK/dV 318 (nvcc -Xptxas -v).
+constexpr int kWideChunk = 128;
+constexpr int kWideWarps = 4;
+
+// Warps per block of the narrow kernels: the most (4, then 2) that still
+// give every SM of the card a block at this (B·H, Tq); else 1. BERT's
+// fine-tune and encode shapes (B·H = 384 or 96, T ≥ 128) take 4; prefill
+// (12 heads, 128 rows) takes 1, 96 blocks instead of 24 blocks of 4 warps.
 inline int warps_per_block(int BH, int Tq, int device) {
   int sms = 0;
   if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
@@ -455,15 +517,15 @@ inline int warps_per_block(int BH, int Tq, int device) {
   return 1;
 }
 
-// Launch `kernel` over (query tiles of 16·nw rows, BH) blocks of 32·nw
-// threads with `smem` bytes of dynamic shared memory.
+// Launch `kernel` over (query tiles of 16·nw rows, BH, DC column chunks)
+// blocks of 32·nw threads with `smem` bytes of dynamic shared memory.
 template <class Kernel, class... Args>
-cudaError_t launch(Kernel kernel, int nw, int BH, int Tq, size_t smem,
+cudaError_t launch(Kernel kernel, int nw, int BH, int Tq, int DC, size_t smem,
                    cudaStream_t stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Tq + 16 * nw - 1) / (16 * nw), BH);
+  const dim3 grid((Tq + 16 * nw - 1) / (16 * nw), BH, DC);
   kernel<<<grid, 32 * nw, smem, stream>>>(args...);
   return cudaGetLastError();
 }

@@ -3,12 +3,12 @@
 
 Four hand-written Hopper kernels carry it on the card:
 
-- `flash_fwd` (csrc/flash_fwd.cu): tiled online-softmax attention over
+- `flash_fwd` (csrc/flash_fwd.cuh): tiled online-softmax attention over
   (B, H, Tq, D) × (B, H, Tk, D) with an optional causal mask and an
   optional (B, Tk) key mask; it emits O and the per-row logsumexp. BERT
   encode (`attn_impl="flash"`) and decoder prefill run it.
-- `flash_bwd_dq` (csrc/flash_bwd_dq.cu) and `flash_bwd_dkv`
-  (csrc/flash_bwd_dkv.cu): the backward pair. Both recompute
+- `flash_bwd_dq` (csrc/flash_bwd_dq.cuh) and `flash_bwd_dkv`
+  (csrc/flash_bwd_dkv.cuh): the backward pair. Both recompute
   P = exp(S − lse) from the forward's saved logsumexp; one warp owns 16
   query rows (dQ) or 16 key rows (dK, dV), so each gradient row is written
   by one warp and two runs agree bit for bit. `flash_attention` is a
@@ -18,6 +18,9 @@ Four hand-written Hopper kernels carry it on the card:
   (B, H, C, D) cache under a (B, C) cache mask; the decode step runs it.
   One launch splits each (b, h)'s cache rows over a thread-block cluster
   of 2, 4 or 8 CTAs (`decode_cluster_size`).
+
+The three build one library per dtype (csrc/<kernel>.cu for float32,
+csrc/<kernel>_bf16.cu for bfloat16), so their nvcc runs go in parallel.
 
 Each wrapper launches its kernel for a CUDA tensor, counts the launch on
 its `launches` attribute, and raises on what the kernel does not take. For
@@ -31,10 +34,16 @@ block and the paged pool are plain PyTorch on every device, as they are
 einsums and gathers in the JAX package: the paged fp decode gathers the
 slot-contiguous view (`gather_kv_pages`) and runs `flash_decode` on it.
 
-Head dims: flash_fwd, flash_bwd_dq and flash_bwd_dkv are built for D = 16,
-32, 64 and 128; a smaller D runs zero-padded to the next (`head_dim_plan`,
-`pad_heads`) with the scale of the true D, which is exact, and D > 128
-raises. The decode kernel takes D = 32, 64 and 128.
+Head dims: the JAX package's kernels take any D, and so do these up to
+1024 (flash_fwd and the backward pair past it too). flash_fwd,
+flash_bwd_dq and flash_bwd_dkv have tiles for D = 16, 32, 64 and 128; a
+smaller D runs zero-padded to the next, and a wider one zero-padded to the
+next multiple of 128, which the kernels take 128 columns at a time
+(`head_dim_plan`, `pad_heads`), with the scale of the true D: exact.
+flash_decode has instantiations for D = 8, 16, 32, … 1024 and runs any
+other D up to 1024 in the next one's geometry with its true row stride,
+so the cache is never padded or copied (`decode_head_dim_plan`). A decode
+head dim past 1024 raises.
 
 Layout (B, H, T, D) as in the JAX package. Scores that a mask removes take
 -1e30, as in the JAX kernel; rows with no valid key come back as zeros.
@@ -52,16 +61,25 @@ __all__ = ["flash_attention", "flash_attention_decode",
            "flash_attention_decode_mq", "flash_attention_decode_paged",
            "flash_attention_decode_mq_paged", "gather_kv_pages",
            "gather_scale_pages", "flash_fwd", "flash_bwd_dq",
-           "flash_bwd_dkv", "flash_decode", "decode_cluster_size"]
+           "flash_bwd_dkv", "flash_decode", "decode_cluster_size",
+           "head_dim_plan", "decode_head_dim_plan"]
 
 _NEG_INF = -1e30
 
 #: dtype codes of the C entry points (csrc/common.cuh)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: head dims flash_fwd, flash_bwd_dq and flash_bwd_dkv are built for; a
-#: smaller head dim runs zero-padded to the next one (`head_dim_plan`)
+#: the forward and backward kernels build one library per dtype
+#: (csrc/<kernel>.cu for f32, csrc/<kernel>_bf16.cu): their entry's suffix
+_DTYPE_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
+#: head dims flash_fwd, flash_bwd_dq and flash_bwd_dkv have a tile for; a
+#: smaller head dim runs zero-padded to the next one, a wider one to the
+#: next multiple of the last, which the kernels take a chunk at a time
+#: (`head_dim_plan`)
 _FWD_HEAD_DIMS = (16, 32, 64, 128)
-_DECODE_HEAD_DIMS = (32, 64, 128)
+_WIDE_CHUNK = _FWD_HEAD_DIMS[-1]
+#: head dims flash_decode is instantiated for; any other D up to the last
+#: runs in the next one's geometry, unpadded (`decode_head_dim_plan`)
+_DECODE_HEAD_DIMS = (8, 16, 32, 64, 128, 256, 512, 1024)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C entry point -> (its library, csrc/<library>.cu; its argument types)
@@ -83,6 +101,9 @@ _ENTRIES = {
     # dtype, BH, C, D, device -> CTAs per (b, h)
     "dl4j_flash_decode_cluster": ("flash_decode", [_I] * 5),
 }
+for _lib in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+    _ENTRIES[f"dl4j_{_lib}_bf16"] = (f"{_lib}_bf16",
+                                     _ENTRIES[f"dl4j_{_lib}"][1])
 _bound = {}
 
 
@@ -97,7 +118,7 @@ def _entry(sym):
     return fn
 
 
-def _operands(name, tensors, head_dims):
+def _operands(name, tensors):
     """Check what a kernel takes and return its operands contiguous and
     16-byte aligned (the kernels load 16-byte vectors)."""
     dev = tensors[0].device
@@ -109,10 +130,6 @@ def _operands(name, tensors, head_dims):
                 f"{[(str(x.device), x.dtype) for x in tensors]}")
     if dt not in _DTYPE_CODES:
         raise TypeError(f"{name} takes float32 or bfloat16, got {dt}")
-    d = tensors[0].shape[-1]
-    if d not in head_dims:
-        raise ValueError(
-            f"{name} takes head dims {head_dims} on the card, got {d}")
     return [_aligned(t) for t in tensors]
 
 
@@ -134,18 +151,37 @@ def _stream(device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+def _check_head_dim(d):
+    if d < 1:
+        raise ValueError(f"a head dim is at least 1, got {d}")
+
+
 def head_dim_plan(d):
-    """The head dim at which the attention kernels run a head dim `d`: the
-    smallest instantiated one (16, 32, 64, 128) that holds it. Zero columns
-    added to q, k and v change no score, and the output's extra columns are
-    zeros, so padding and slicing is exact; the scale stays 1/√d."""
+    """The head dim at which flash_fwd, flash_bwd_dq and flash_bwd_dkv run
+    a head dim `d`: the smallest of their tiles (16, 32, 64, 128) that
+    holds it, else the next multiple of 128 (the wide kernels' chunk).
+    Zero columns added to q, k and v change no score, and the output's
+    extra columns are zeros, so padding and slicing is exact; the scale
+    stays 1/√d."""
+    _check_head_dim(d)
     for hd in _FWD_HEAD_DIMS:
         if d <= hd:
             return hd
+    return -(-d // _WIDE_CHUNK) * _WIDE_CHUNK
+
+
+def decode_head_dim_plan(d):
+    """The instantiation of flash_decode that runs a head dim `d`: the
+    smallest of 8, 16, … 1024 that holds it. A `d` between two runs in the
+    wider one's geometry with its own row stride (the columns past `d`
+    read as zeros), so nothing is padded. Past 1024 it raises."""
+    _check_head_dim(d)
+    for hd in _DECODE_HEAD_DIMS:
+        if d <= hd:
+            return hd
     raise ValueError(
-        f"flash attention kernels take head dims up to {_FWD_HEAD_DIMS[-1]} "
-        f"on the card, got {d} (a wider head dim is an open item of "
-        "ROADMAP.md)")
+        f"flash_decode takes head dims up to {_DECODE_HEAD_DIMS[-1]} on the "
+        f"card, got {d}")
 
 
 def pad_heads(dp, *ts):
@@ -197,7 +233,7 @@ def _flash_forward_reference(q, k, v, kv_mask, causal, scale=None):
 
 
 def flash_fwd(q, k, v, kv_mask=None, causal=False):
-    """Kernel 1 (csrc/flash_fwd.cu) on a CUDA tensor, its plain version on
+    """Kernel 1 (csrc/flash_fwd.cuh) on a CUDA tensor, its plain version on
     a CPU one. q (B, H, Tq, D), k/v (B, H, Tk, D), kv_mask (B, Tk) truthy
     or None. Returns (out (B, H, Tq, D) in q.dtype, lse (B*H, Tq) f32);
     query rows are not zeroed here (see `_flash_forward`)."""
@@ -209,7 +245,7 @@ def flash_fwd(q, k, v, kv_mask=None, causal=False):
         raise ValueError(f"flash_fwd: q {tuple(q.shape)} does not match "
                          f"k {tuple(k.shape)} / v {tuple(v.shape)}")
     d = head_dim_plan(d_true)
-    q, k, v = _operands("flash_fwd", pad_heads(d, q, k, v), _FWD_HEAD_DIMS)
+    q, k, v = _operands("flash_fwd", pad_heads(d, q, k, v))
     mask = None
     if kv_mask is not None:
         mask = _mask_bytes(kv_mask, q.device, "kv_mask")
@@ -218,7 +254,7 @@ def flash_fwd(q, k, v, kv_mask=None, causal=False):
                              f"{(b, tk)}, got {tuple(mask.shape)}")
     out = torch.empty_like(q)
     lse = torch.empty((b * h, tq), dtype=torch.float32, device=q.device)
-    code = _entry("dl4j_flash_fwd")(
+    code = _entry("dl4j_flash_fwd" + _DTYPE_SUFFIX[q.dtype])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if mask is None else mask.data_ptr(), out.data_ptr(),
         lse.data_ptr(), _DTYPE_CODES[q.dtype], b * h, h, tq, tk, d,
@@ -312,8 +348,7 @@ def _bwd_operands(name, q, k, v, g, lse, delta, kv_mask):
         raise ValueError(
             f"{name}: q {tuple(q.shape)} / dO {tuple(g.shape)} do not match "
             f"k {tuple(k.shape)} / v {tuple(v.shape)}")
-    q, k, v, g = _operands(name, pad_heads(head_dim_plan(d), q, k, v, g),
-                           _FWD_HEAD_DIMS)
+    q, k, v, g = _operands(name, pad_heads(head_dim_plan(d), q, k, v, g))
     rows = []
     for what, t in (("lse", lse), ("delta", delta)):
         if (t.dtype != torch.float32 or t.device != q.device
@@ -341,7 +376,7 @@ def _bwd_args(q, k, v, g, lse, delta, mask):
 
 
 def flash_bwd_dq(q, k, v, g, lse, delta, kv_mask=None, causal=False):
-    """Kernel csrc/flash_bwd_dq.cu on a CUDA tensor, its plain version on a
+    """Kernel csrc/flash_bwd_dq.cuh on a CUDA tensor, its plain version on a
     CPU one. q/g (B, H, Tq, D), k/v (B, H, Tk, D), lse and delta (B*H, Tq)
     f32 (lse with the +1e30 sentinel of `_flash_forward`), kv_mask (B, Tk)
     truthy or None. Returns dq (B, H, Tq, D) in q.dtype."""
@@ -352,7 +387,7 @@ def flash_bwd_dq(q, k, v, g, lse, delta, kv_mask=None, causal=False):
         "flash_bwd_dq", q, k, v, g, lse, delta, kv_mask)
     dq = torch.empty_like(q)
     ptrs, ints = _bwd_args(q, k, v, g, lse, delta, mask)
-    code = _entry("dl4j_flash_bwd_dq")(
+    code = _entry("dl4j_flash_bwd_dq" + _DTYPE_SUFFIX[q.dtype])(
         *ptrs, dq.data_ptr(), *ints, int(causal), 1.0 / d ** 0.5,
         q.device.index or 0, _stream(q.device))
     _build.check(code, "flash_bwd_dq")
@@ -364,7 +399,7 @@ flash_bwd_dq.launches = 0
 
 
 def flash_bwd_dkv(q, k, v, g, lse, delta, kv_mask=None, causal=False):
-    """Kernel csrc/flash_bwd_dkv.cu on a CUDA tensor, its plain version on a
+    """Kernel csrc/flash_bwd_dkv.cuh on a CUDA tensor, its plain version on a
     CPU one. Takes what `flash_bwd_dq` takes; returns (dk, dv), each
     (B, H, Tk, D) in k's dtype."""
     if not q.is_cuda:
@@ -375,7 +410,7 @@ def flash_bwd_dkv(q, k, v, g, lse, delta, kv_mask=None, causal=False):
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     ptrs, ints = _bwd_args(q, k, v, g, lse, delta, mask)
-    code = _entry("dl4j_flash_bwd_dkv")(
+    code = _entry("dl4j_flash_bwd_dkv" + _DTYPE_SUFFIX[q.dtype])(
         *ptrs, dk.data_ptr(), dv.data_ptr(), *ints, int(causal),
         1.0 / d ** 0.5, q.device.index or 0, _stream(q.device))
     _build.check(code, "flash_bwd_dkv")
@@ -488,14 +523,18 @@ def _decode_reference_quantized(q, k_cache, v_cache, cache_mask, k_scale,
 
 def flash_decode(q, k_cache, v_cache, cache_mask):
     """Kernel 2 (csrc/flash_decode.cu) on a CUDA tensor, its plain version
-    on a CPU one. q (B, H, 1, D), caches (B, H, C, D), cache_mask (B, C)
-    truthy. Returns (B, H, 1, D) in q.dtype."""
+    on a CPU one. q (B, H, 1, D), caches (B, H, C, D) with D ≤ 1024,
+    cache_mask (B, C) truthy. Returns (B, H, 1, D) in q.dtype."""
     if not q.is_cuda:
         return _decode_reference(q, k_cache, v_cache, cache_mask)
     b, h, _, d = q.shape
     c = k_cache.shape[2]
-    q, k, v = _operands("flash_decode", (q, k_cache, v_cache),
-                        _DECODE_HEAD_DIMS)
+    if k_cache.shape != (b, h, c, d) or v_cache.shape != k_cache.shape:
+        raise ValueError(f"flash_decode: q {tuple(q.shape)} does not match "
+                         f"the caches {tuple(k_cache.shape)} / "
+                         f"{tuple(v_cache.shape)}")
+    decode_head_dim_plan(d)
+    q, k, v = _operands("flash_decode", (q, k_cache, v_cache))
     mask = _mask_bytes(cache_mask, q.device, "cache_mask")
     out = torch.empty_like(q)
     code = _entry("dl4j_flash_decode")(
@@ -518,9 +557,10 @@ def decode_cluster_size(b, h, c, d, dtype, device):
     if dev.type != "cuda":
         raise ValueError(f"decode_cluster_size: flash_decode runs on a CUDA "
                          f"device, got {dev}")
-    if dtype not in _DTYPE_CODES or d not in _DECODE_HEAD_DIMS:
-        raise ValueError(f"flash_decode takes float32 or bfloat16 at head "
-                         f"dims {_DECODE_HEAD_DIMS}, got {dtype}, {d}")
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"flash_decode takes float32 or bfloat16, got "
+                         f"{dtype}")
+    decode_head_dim_plan(d)
     return _entry("dl4j_flash_decode_cluster")(
         _DTYPE_CODES[dtype], b * h, c, d, dev.index or 0)
 

@@ -246,11 +246,14 @@ def test_head_dim_padding_matches_the_unpadded_plain_versions(d):
             assert (a[..., d:] == 0).all()
 
 
-def test_head_dims_past_the_widest_kernel_are_refused():
+def test_head_dims_past_the_widest_tile_run_in_128_column_chunks():
+    """The attention layers' head dims on the card: up to 128 the smallest
+    tile that holds them, past it the next multiple of 128 (the wide
+    kernels' chunk), so no head dim is refused."""
     assert [tfa.head_dim_plan(d) for d in (1, 16, 17, 64, 65, 128)] == [
         16, 16, 32, 64, 128, 128]
-    with pytest.raises(ValueError, match="head dims up to 128"):
-        tfa.head_dim_plan(129)
+    assert [tfa.head_dim_plan(d) for d in (129, 256, 257, 512, 1024)] == [
+        256, 256, 384, 512, 1024]
 
 
 def test_the_example_attention_stack_learns_its_task():

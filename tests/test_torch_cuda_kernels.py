@@ -249,14 +249,112 @@ def test_cuda_flash_decode_splits_the_cache_over_a_cluster(card, dtype,
         assert sizes == {2, 4, 8}
 
 
+def _attention_cases(card, dtype, d, gen, cases):
+    """flash_fwd, flash_bwd_dq and flash_bwd_dkv at head dim d over
+    `cases` ((b, h, tq, tk), key lengths or None, causal): the forward's
+    output and lse within atol of the plain version, the gradients within
+    atol × max(1, max |plain|), one launch a call, the true head dim's
+    shape and dtype, a fully padded example's gradients exactly zero,
+    bit-identical on a re-run."""
+    atol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}[dtype]
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=card).to(dtype)
+
+    for (b, h, tq, tk), lens, causal in cases:
+        q, g = rnd(b, h, tq, d), rnd(b, h, tq, d)
+        k, v = rnd(b, h, tk, d), rnd(b, h, tk, d)
+        km = None if lens is None else (
+            torch.arange(tk, device=card)[None]
+            < torch.tensor(lens, device=card)[:, None])
+        qm = km if tq == tk else None
+        before = tfa.flash_fwd.launches
+        out, lse = tfa.flash_fwd(q, k, v, km, causal)
+        assert tfa.flash_fwd.launches - before == 1
+        ref, ref_lse = tfa._flash_forward_reference(q, k, v, km, causal)
+        assert out.shape == q.shape and out.dtype == dtype
+        assert (out.float() - ref.float()).abs().max() <= atol, (
+            d, b, h, tq, tk, lens, causal)
+        assert (lse - ref_lse).abs().max() <= atol, d
+        again = tfa.flash_fwd(q, k, v, km, causal)
+        assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+        o, lse = tfa._flash_forward(q, k, v, qm, km, causal)
+        args = (q, k, v, g, lse, tfa._delta(g, o), km, causal)
+        before = (tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches)
+        got = (tfa.flash_bwd_dq(*args), *tfa.flash_bwd_dkv(*args))
+        assert (tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches) \
+            == (before[0] + 1, before[1] + 1)
+        want = (tfa._dq_reference(*args), *tfa._dkv_reference(*args))
+        again = (tfa.flash_bwd_dq(*args), *tfa.flash_bwd_dkv(*args))
+        for a, w, c in zip(got, want, again):
+            scale = max(1.0, w.float().abs().max().item())
+            assert a.dtype == dtype and a.shape == w.shape
+            assert (a.float() - w.float()).abs().max() <= atol * scale, (
+                d, b, h, tq, tk, lens, causal)
+            assert torch.equal(a, c)
+            if lens is not None and 0 in lens:
+                assert a[lens.index(0)].abs().max() == 0
+
+
+@pytest.mark.parametrize("d", [160, 256, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_kernels_past_head_dim_128(card, dtype, d):
+    """The wide kernels (128 columns a block, D = 160 zero-padded to 256):
+    self-attention with ragged lengths and a fully padded example, causal,
+    and the LearnedSelfAttentionLayer's cross shape (Tq = 4) with a key
+    mask, each held to its plain version."""
+    gen = torch.Generator(device=card).manual_seed(7)
+    _attention_cases(card, dtype, d, gen, (
+        ((3, 2, 70, 70), [70, 33, 0], False),
+        ((2, 1, 100, 100), None, True),
+        ((3, 2, 4, 90), [90, 9, 1], False)))
+
+
+def test_cuda_flash_kernels_at_head_dim_1024(card):
+    """D = 1024 (eight 128-column chunks) once at a small shape, f32."""
+    gen = torch.Generator(device=card).manual_seed(8)
+    _attention_cases(card, torch.float32, 1024, gen, (
+        ((1, 1, 128, 128), [100], False),))
+
+
+@pytest.mark.parametrize("d", [8, 16, 3, 100, 256, 512, 300, 1024])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2)])
+def test_cuda_flash_decode_at_every_head_dim(card, dtype, atol, d):
+    """flash_decode at its narrow and wide instantiations (8, 16, 256, 512,
+    1024) and at head dims between them (3, 100, 300: the next
+    instantiation's geometry at the true row stride, nothing padded): one
+    launch a call, within atol of the plain version, an empty row exactly
+    zero, bit-identical on a re-run."""
+    gen = torch.Generator(device=card).manual_seed(9)
+    b, h, c = 4, 3, 200
+    lens = [1, 0, c - 1, c // 2 + 3]
+    q = torch.randn((b, h, 1, d), generator=gen, device=card).to(dtype)
+    k = torch.randn((b, h, c, d), generator=gen, device=card).to(dtype)
+    v = torch.randn((b, h, c, d), generator=gen, device=card).to(dtype)
+    mask = (torch.arange(c, device=card)[None]
+            < torch.tensor(lens, device=card)[:, None])
+    before = tfa.flash_decode.launches
+    out = tfa.flash_decode(q, k, v, mask)
+    assert tfa.flash_decode.launches - before == 1
+    ref = tfa._decode_reference(q, k, v, mask)
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert (out.float() - ref.float()).abs().max() <= atol, d
+    assert out[1].abs().max() == 0
+    assert torch.equal(out, tfa.flash_decode(q, k, v, mask))
+    assert tfa.decode_cluster_size(b, h, c, d, dtype, card) in (2, 4, 8)
+
+
 def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(card):
     x = torch.zeros((1, 2, 8, 64), device=card)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         tfa.flash_fwd(x.half(), x.half(), x.half())
-    # a head dim under 128 runs zero-padded; one past 128 is refused
-    wide = torch.zeros((1, 2, 8, 160), device=card)
-    with pytest.raises(ValueError, match="head dims up to 128"):
-        tfa.flash_fwd(wide, wide, wide)
+    # every head dim runs (narrow ones padded, wide ones in 128-column
+    # chunks); decode takes up to 1024
+    wide = torch.zeros((1, 2, 1, 1032), device=card)
+    with pytest.raises(ValueError, match="head dims up to 1024"):
+        tfa.flash_decode(wide, wide, wide, torch.ones(
+            (1, 1), dtype=torch.bool, device=card))
     with pytest.raises(ValueError, match="share one device"):
         tfa.flash_decode(x[:, :, :1], x.cpu(), x, torch.ones(
             (1, 8), dtype=torch.bool, device=card))
@@ -265,7 +363,17 @@ def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(card):
 def test_cuda_decoder_kernel_path_matches_dense(card):
     """Prefill and three steps of BertDecoder through both kernels agree
     with the same decoder on dense attention, and launch each kernel."""
-    cfg = bert_tiny(hidden_size=128, num_heads=2, intermediate_size=256)
+    _decoder_kernel_path(card, bert_tiny(hidden_size=128, num_heads=2,
+                                         intermediate_size=256))
+
+
+def test_cuda_decoder_kernel_path_matches_dense_at_head_dim_8(card):
+    """The same at bert_tiny()'s D = 8: prefill through flash_fwd padded to
+    16, the steps through flash_decode's D = 8 instantiation."""
+    _decoder_kernel_path(card, bert_tiny())
+
+
+def _decoder_kernel_path(card, cfg):
     params = init_bert_params(cfg, seed=0, device=card)
     dec, ref = BertDecoder(cfg, params), BertDecoder(cfg, params,
                                                      attn_impl="dense")

@@ -175,6 +175,6 @@ def test_decode_cluster_size_checks_what_the_kernel_takes():
     with pytest.raises(ValueError, match="CUDA device"):
         tfa.decode_cluster_size(8, 12, 512, 64, torch.float32, "cpu")
     with pytest.raises(ValueError, match="head dims"):
-        tfa.decode_cluster_size(8, 12, 512, 16, torch.float32, "cuda")
+        tfa.decode_cluster_size(8, 12, 512, 1025, torch.float32, "cuda")
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         tfa.decode_cluster_size(8, 12, 512, 64, torch.float16, "cuda")
