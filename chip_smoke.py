@@ -643,7 +643,7 @@ from deeplearning4j_tpu_torch.kernels.flash_attention import (
     _flash_forward, _flash_forward_reference, decode_cluster_size,
     flash_attention_decode, flash_attention_decode_mq,
     flash_attention_decode_paged, flash_bwd_dkv, flash_bwd_dq, flash_decode,
-    flash_fwd, gather_kv_pages)
+    flash_fwd, decode_head_dim_plan, gather_kv_pages)
 from deeplearning4j_tpu_torch.models import (bert_base, bert_classify,
                                              bert_encode, bert_mlm_logits,
                                              bert_tiny, classification_loss,
@@ -1041,12 +1041,15 @@ def _decode_case(label, b, h, c, d, lengths, dtype, gen):
     v = torch.randn((b, h, c, d), generator=gen, device=dev).to(dtype)
     mask = _ragged_mask(lengths, c, dev)
     on_card = dev.type == "cuda"   # a CPU rehearsal runs the plain version
-    before = flash_decode.launches
+    # past D = 1024 decode runs flash_fwd with one query row
+    wide = decode_head_dim_plan(d) is None
+    kernel = flash_fwd if wide else flash_decode
+    before = kernel.launches
     out = flash_decode(q, k, v, mask)
-    if on_card and flash_decode.launches - before != 1:
+    if on_card and kernel.launches - before != 1:
         raise AssertionError(f"flash_decode {label}: "
-                             f"{flash_decode.launches - before} launches "
-                             "for one call")
+                             f"{kernel.launches - before} launches of "
+                             f"{kernel.__name__} for one call")
     again = flash_decode(q, k, v, mask)
     ref = _decode_reference(q, k, v, mask)
     torch.cuda.synchronize()
@@ -1063,11 +1066,11 @@ def _decode_case(label, b, h, c, d, lengths, dtype, gen):
     plain = time_ms(lambda: _decode_reference(q, k, v, mask), iters=50)
     lib = time_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=mask[:, None, None, :]), iters=50)
-    return dict(name="flash_decode", case=label, shape=[b, h, c, d],
+    return dict(name=kernel.__name__, case=label, shape=[b, h, c, d],
                 dtype=DTYPE_NAMES[dtype], max_abs_err=err, atol=ATOL[dtype],
                 bit_identical=torch.equal(out, again),
                 cluster=(decode_cluster_size(b, h, c, d, dtype, dev)
-                         if on_card else None),
+                         if on_card and not wide else None),
                 ms=ms, plain_ms=plain, library_ms=lib,
                 bound_ms=bms, bound_by=by)
 
@@ -1167,9 +1170,12 @@ ATTN_KERNEL_SHAPES = (
 FWD_1024 = ("D=1024 fwd", (1, 1, 128, 128, 1024))
 #: flash_decode at the instantiations this slice added, at the serving
 #: shapes that reach them: bert_tiny's D = 8 (8 slots x 4 heads), D = 16,
-#: and BERT-base width at 3 heads (D = 256, 8 slots x 3 heads, C = 512)
+#: and BERT-base width at 3 heads (D = 256, 8 slots x 3 heads, C = 512);
+#: and past its widest, a one-head decoder at nOut = 1536 (8 slots,
+#: C = 512), which runs flash_fwd with one query row
 DECODE_HEAD_DIMS = (("decode D=8", 8, 4, 128, 8), ("decode D=16", 8, 4, 128, 16),
-                    ("decode D=256 C=512", 8, 3, 512, 256))
+                    ("decode D=256 C=512", 8, 3, 512, 256),
+                    ("decode D=1536", 8, 1, 512, 1536))
 #: the kernel rows of the head dims this slice added (the kernels line's
 #: `head_dims` and PERF.md's rows)
 HEAD_DIM_CASES = tuple(c[0] for c in ATTN_KERNEL_SHAPES[4:]) + (

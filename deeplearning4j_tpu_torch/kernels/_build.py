@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` becomes its own shared library, compiled by `nvcc`
 for `sm_90a` with a plain C interface (no PyTorch headers, so a build
-takes seconds). Libraries land in `build/kernels/` at the repository
+takes seconds), linked against libcuda (`-lcuda`: the wide
+attention kernels encode TMA tensor maps with `cuTensorMapEncodeTiled`). Libraries land in `build/kernels/` at the repository
 root, named by a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one loads straight away. `build_all` starts one
 `nvcc` per source, all at once; `nvcc_runs` counts the compilers started
@@ -37,7 +38,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lcuda")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

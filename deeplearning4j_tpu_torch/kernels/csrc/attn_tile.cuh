@@ -33,19 +33,21 @@
 //   to D + 4 floats: the score reads (8 rows g × 4 columns t) and the P·V
 //   reads (rows 2t × 8 columns g) both meet no bank conflict.
 //
-// Wide head dims (D > 128) run on the same tile, W = 128 columns at a time
-// (each kernel's `*_wide_kernel`): a row of D = W·DC values is DC column
-// chunks. A block owns one output chunk (grid dimension z) and walks DC
-// ring slices per key (or query) tile, one chunk of the contraction each;
-// the scores sum over the chunks in registers (`scores_chunk`) and the
-// tile's last slice stages the chunk its output needs. The operand rows
-// the narrow kernels keep in registers (Q, dO; K, V) are read afresh,
-// chunk by chunk, from device memory (L1 and L2 serve the repeats): one
-// chunk of 16 rows is 64 registers in f32, and D of them would not fit.
-// Every block of a row recomputes the scores, so the products of S (and
-// dP) run DC times: the price of one owner per output element with no
-// second pass and no atomics. stage_rows / stage_kv take the row stride
-// `ld` (D) apart from the staged width.
+// Wide head dims (D > 128): flash_fwd.cuh and flash_bwd_dq.cuh run them on
+// attn_wide.cuh's Hopper tile (warpgroup MMA, TMA, the scores once per key
+// tile for 256 output columns a block). flash_bwd_dkv.cuh's
+// `flash_bwd_dkv_wide_kernel` still runs this tile W = 128 columns at a
+// time: a row of D = W·DC values is DC column chunks. A block owns one
+// output chunk (grid dimension z) and walks DC ring slices per query tile,
+// one chunk of the contraction each; the scores sum over the chunks in
+// registers (`scores_chunk`) and the tile's last slice stages the chunk
+// its output needs. The operand rows the narrow kernel keeps in registers
+// (K, V) are read afresh, chunk by chunk, from device memory (L1 and L2
+// serve the repeats): one chunk of 16 rows is 64 registers in f32, and D
+// of them would not fit. Every block of a row recomputes the scores, so
+// the products of Sᵀ and dPᵀ run DC times: the price of one owner per
+// output element with no second pass and no atomics. stage_kv takes the
+// row stride `ld` (D) apart from the staged width.
 #pragma once
 
 #include "mma_tile.cuh"
@@ -77,31 +79,11 @@ constexpr size_t smem_bytes() {
   return (size_t)mma::kStages * Tile<T, D>::kStage;
 }
 
-// Stage rows [r0, r0 + BK) of a row-major matrix x (row stride ld; D
-// columns from x on) into a BK × D tile of one ring stage (row stride
-// Tile::S). Rows ≥ n stage as zeros (src-size 0: nothing is read). Rows
-// are 16-byte multiples (D ≥ 16, ld a multiple of D) and the bases 16-byte
-// aligned (the wrapper's `_aligned`), so every copy is 16 bytes.
-template <typename T, int D, int NT>
-__device__ __forceinline__ void stage_rows(T* dst, const T* x, int r0, int n,
-                                           int ld) {
-  using C = Tile<T, D>;
-  constexpr int E = 16 / (int)sizeof(T);
-  constexpr int CH = D / E;
-  static_assert(C::BK * CH % NT == 0, "tile not a whole number of rounds");
-#pragma unroll
-  for (int i = 0; i < C::BK * CH / NT; ++i) {
-    const int idx = threadIdx.x + i * NT;
-    const int r = idx / CH, c = (idx % CH) * E;
-    const bool in = r0 + r < n;
-    const size_t off = in ? (size_t)(r0 + r) * ld + c : 0;
-    mma::cp16(dst + r * C::S + c, x + off, in);
-  }
-}
-
 // Stage keys [k0, k0 + BK) of K and V ((Tk, ld) row-major each; D columns
-// from k and v on) into one ring stage, K's rows then V's, each copy as in
-// stage_rows.
+// from k and v on) into one ring stage (row stride Tile::S), K's rows then
+// V's. Rows ≥ Tk stage as zeros (src-size 0: nothing is read). Rows are
+// 16-byte multiples (D ≥ 16, ld a multiple of D) and the bases 16-byte
+// aligned (the wrapper's `_aligned`), so every copy is 16 bytes.
 template <typename T, int D, int NT>
 __device__ __forceinline__ void stage_kv(T* ks, const T* k, const T* v, int k0,
                                          int Tk, int ld = D) {
@@ -494,11 +476,10 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
 }
 
 // -- launch ---------------------------------------------------------------------------
-// The column chunk W of the wide kernels (the widest narrow head dim), and
-// their warps a block: one instantiation per kernel and dtype, which keeps
-// the libraries' builds short (the wide grid already multiplies its blocks
-// by DC). At 4 warps the f32 wide kernels spill least: the forward none,
-// dQ 24 bytes, dK/dV 318 (nvcc -Xptxas -v).
+// The column chunk W of the dK/dV wide kernel (the widest narrow head
+// dim), and its warps a block: one instantiation per dtype, which keeps the
+// library's build short (the wide grid already multiplies its blocks by
+// DC). At 4 warps the f32 kernel spills 318 bytes (nvcc -Xptxas -v).
 constexpr int kWideChunk = 128;
 constexpr int kWideWarps = 4;
 

@@ -44,21 +44,33 @@
 // the query tile's diagonal are skipped, as the TPU kernel skips them
 // (:262-265).
 //
-// Head dims past 128 (padded by the wrapper to a multiple of 128) run the
-// wide kernel of flash_fwd.cu's design (attn_tile.cuh's note): a block owns
-// one 128-column chunk of dQ (grid dimension z) and walks DC slices per
-// key tile, each staging one column chunk of K and of V; S = Q·Kᵀ and
-// dP = dO·Vᵀ sum over the chunks in registers, with Q's and dO's chunks
-// read where they are multiplied. The chunks run in the order oc + 1, …,
-// oc (mod DC), so the tile's last slice holds K's chunk oc, the one
-// dQ's chunk needs for dS·K. Each block's order is fixed, so re-runs stay
-// bit-identical.
-//
+// Head dims past 128 (padded by the wrapper to a multiple of 128) run
+// `flash_bwd_dq_wide_kernel` on attn_wide.cuh's Hopper tile, the
+// forward's design: 64 query rows and G = 256 columns of dQ a block, the
+// two consumer warpgroups splitting S = Q·Kᵀ and dP = dO·Vᵀ over D's
+// chunks and adding their partials through shared memory, dS = P∘(dP − Δ)
+// formed in registers and dQ += dS·K over each warpgroup's own columns.
+// The score products run D/G times: 2·D·(2·D/G + 1) flops a pair, 6·D
+// wherever D ≤ 256 (10·D at 512), in place of the 128-column-chunk
+// design's (4·DC + 2)·D (18·D at 512; flash_bwd_dkv's wide kernel keeps
+// it). Q and dO stay in shared memory while they fit beside the ring
+// (bf16 D ≤ 512, f32 D = 256); past that each key tile restages their
+// chunks from L2. The K slices of the block's output chunks stay in the
+// ring until dS·K has read them, so they come last in each tile's order.
+// What bounds it: bf16 by bytes at the paths' shapes; f32 (3×TF32) by its
+// TF32 operations at D ≥ 256 with full tiles.
+// Budget a block: 32 keys a tile, the exchange (S and dP) 32 KB; bf16 Q
+// and dO 32 KB a chunk, stages of 8 KB (D = 256: 16 stages, 512: 8;
+// restaged past 512: 24 KB, 8); f32 64 KB a chunk, stages of 16 KB (D =
+// 256: 4; restaged past 256: 48 KB, 4). Registers as the forward's: 168
+// at launch, consumers 232 and producer 40 by setmaxnreg; a consumer holds
+// dQ (64 registers), S and dP (16 each) and dS. -Xptxas -v: bf16 no spill,
+// f32 348 bytes.
 // flash_bwd_dq.cu builds the float32 instantiations and flash_bwd_dq_bf16.cu the
 // bfloat16 ones, as two libraries whose nvcc runs in parallel.
 #pragma once
 
-#include "attn_tile.cuh"
+#include "attn_wide.cuh"
 
 namespace dl4j {
 namespace {
@@ -173,40 +185,100 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// The wide kernel (D = 128·DC > 128, attn_tile.cuh's note): this block
-// writes dQ's columns [128·oc, 128·oc + 128), oc = blockIdx.z. Slice i of
-// the walk is key tile i / DC and the column chunk (oc + 1 + i % DC) mod DC
-// of K and V, so the tile's last slice holds K's chunk oc, which dS·K
-// needs.
-template <typename T, int NW>
-__global__ void __launch_bounds__(32 * NW)
-flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ dout,
+// The wide kernel (D = 128·DC > 128, attn_wide.cuh's note): 64 query rows
+// and dQ's output chunks [oc0, oc1) of one (b·h). Per visited key tile the
+// ring carries 2·DC slices: K's and V's chunk c (each with Q's or dO's
+// chunk c when those are not resident) for every other chunk c, then V's
+// output chunks, then K's. The warpgroup of chunk c multiplies both into
+// its partial S and dP; it keeps K's output chunks until dS·K has read
+// them. Those come last, so the ring (at least cpb + 2 stages) never
+// waits on a held stage for a slice of the same tile.
+template <typename T>
+__global__ void __launch_bounds__(wide::kThreads, 1)
+flash_bwd_dq_wide_kernel(const __grid_constant__ wide::Maps maps,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
                          const uint8_t* __restrict__ kv_mask,
-                         T* __restrict__ dq, int H, int Tq, int Tk,
-                         int causal, float scale, int DC) {
-  constexpr int W = attn::kWideChunk;
-  using C = attn::Tile<T, W>;
-  constexpr int BK = C::BK, NJ = BK / 8, ND = W / 8;
+                         T* __restrict__ dq, int H, int Tq, int Tk, int DC,
+                         int causal, float scale, const wide::Plan plan) {
   constexpr bool kF32 = sizeof(T) == 4;
-  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int BK = 32, NJ = BK / 8;
+  constexpr int CPW = wide::kCpw;  // output chunks a warpgroup
+  constexpr int kSlice = BK * wide::kChunk * (int)sizeof(T);
+  constexpr int kQChunk = wide::kRows * wide::kChunk * (int)sizeof(T);
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  wide::Smem sm(smem_raw, plan);
 
-  const int D = W * DC;  // the row stride
-  const int oc = blockIdx.z;
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * 16 * NW;
-  const int r0 = q0 + threadIdx.x / 32 * 16;  // the warp's first row
-  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
-  const int rows[2] = {r0 + g, r0 + g + 8};
-  const bool warp_live = r0 < Tq;
-  const T* kb = k + (size_t)bh * Tk * D;
-  const T* vb = v + (size_t)bh * Tk * D;
+  const int bh = blockIdx.y, q0 = blockIdx.x * wide::kRows;
+  const int oc0 = blockIdx.z * plan.cpb, oc1 = min(DC, oc0 + plan.cpb);
+  const int warp = threadIdx.x / 32;
   const uint8_t* mrow =
       kv_mask == nullptr ? nullptr : kv_mask + (size_t)(bh / H) * Tk;
-  const size_t qoff = (size_t)bh * Tq * D;
+  const int k_end = causal ? min(Tk, q0 + wide::kRows) : Tk;
+  const int tiles = (k_end + BK - 1) / BK;
+  if (threadIdx.x == 0) sm.init();
+  // a degenerate row (lse ≤ −1e29: every visible key masked, P = 1 on
+  // them) makes the block walk every tile
+  const int r = q0 + threadIdx.x;
+  const bool degenerate = __syncthreads_or(
+      threadIdx.x < wide::kRows && r < Tq &&
+      lse[(size_t)bh * Tq + r] <= -1e29f);
+  wide::Schedule<BK> walk{mrow, Tk, q0, causal, degenerate};
+  // a tile's slices: chunk(j) for slice j, and slice_k(c) / slice_v(c)
+  const int no = oc1 - oc0;
+  auto chunk = [&](int j) {
+    if (j >= 2 * (DC - no)) return oc0 + (j - 2 * (DC - no)) % no;
+    j /= 2;
+    return j < oc0 ? j : j + no;
+  };
+  auto out = [&](int c) { return c >= oc0 && c < oc1; };
+  auto slice_k = [&](int c) {
+    return out(c) ? 2 * DC - no + (c - oc0) : 2 * (c < oc0 ? c : c - no);
+  };
+  auto slice_v = [&](int c) {
+    return out(c) ? 2 * (DC - no) + (c - oc0)
+                  : 2 * (c < oc0 ? c : c - no) + 1;
+  };
 
+  if (warp >= wide::kProducerWarp) {
+    wide::producer_regs();
+    if (warp != wide::kProducerWarp) return;
+    const bool lead = threadIdx.x % 32 == 0;
+    if (plan.resident && lead) {
+      wide::mbar_expect(sm.qbar, 2 * DC * kQChunk);
+      for (int c = 0; c < DC; ++c) {
+        wide::load_chunk<T>(sm.qres + c * kQChunk, &maps.q, sm.qbar, c, q0,
+                            bh, wide::kRows);
+        wide::load_chunk<T>(sm.qres + (DC + c) * kQChunk, &maps.g, sm.qbar,
+                            c, q0, bh, wide::kRows);
+      }
+    }
+    const uint32_t bytes = kSlice + (plan.resident ? 0 : kQChunk);
+    int n = 0;
+    for (int kt = 0; kt < tiles; ++kt) {
+      uint64_t bits;
+      if (!walk.visit(kt, bits) || !lead) continue;
+      for (int j = 0; j < 2 * DC; ++j, ++n) {
+        const int c = chunk(j);
+        const bool is_k = j < 2 * (DC - no) ? j % 2 == 0 : j >= 2 * DC - no;
+        unsigned char* st = sm.acquire(n, bytes);
+        wide::load_chunk<T>(st, is_k ? &maps.k : &maps.v, sm.bar(n), c,
+                            kt * BK, bh, BK);
+        if (!plan.resident)
+          wide::load_chunk<T>(st + kSlice, is_k ? &maps.q : &maps.g,
+                              sm.bar(n), c, q0, bh, wide::kRows);
+      }
+    }
+    return;
+  }
+
+  wide::consumer_regs();
+  const int wg = warp / 4, wr = warp % 4 * 16;  // the warp's rows wr..
+  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+  const int rows[2] = {q0 + wr + g, q0 + wr + g + 8};
+  // f32: a warp whose rows are all past Tq skips its products (bf16's
+  // products are the warpgroup's)
+  const bool live = !kF32 || q0 + wr < Tq;
   float L[2], dl[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -214,97 +286,115 @@ flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
     L[h] = in ? lse[(size_t)bh * Tq + rows[h]] : 0.f;
     dl[h] = in ? delta[(size_t)bh * Tq + rows[h]] : 0.f;
   }
-  const bool degenerate =
-      __any_sync(attn::kFull, L[0] <= -1e29f || L[1] <= -1e29f);
-  float acc[ND][4] = {};
-  attn::Keys<BK> keys;
-  keys.load(mrow, Tk, 0);
-  float s[NJ][4], dp[NJ][4];  // S and dP of the key tile, over its chunks
-  uint64_t bits = 0;  // the key tile's validity (its first slice reads it)
-  bool skip = false;  // the warp skips the key tile
+  float acc[CPW][16][4] = {};
+  if (plan.resident) wide::mbar_wait(sm.qbar, 0);
+  int n = 0;
+  for (int kt = 0; kt < tiles; ++kt) {
+    uint64_t bits;
+    if (!walk.visit(kt, bits)) continue;
+    const int k0 = kt * BK;
+    // this warpgroup's share of S = Q·Kᵀ and dP = dO·Vᵀ: chunks wg, wg + 2,
+    // …, taken in the ring's order (each warpgroup waits on its slices in
+    // order, so the ring cannot stall on a slice not yet consumed): the
+    // other chunks' K and V, then the output chunks' V, then their K. bf16
+    // runs one product group a slice, the next issued before the last is
+    // waited on.
+    float s[NJ][4] = {}, dp[NJ][4] = {};
+    bool s_first = true, dp_first = true;
+    int prev = -1;      // bf16: the slice the group in flight reads
+    bool drop = false;  // and whether it is released after it
+    auto part = [&](float (&x)[NJ][4], bool& first, int i, int c, bool is_k) {
+      sm.wait(i);
+      const T* xs = reinterpret_cast<const T*>(sm.stage(i));
+      const T* a = reinterpret_cast<const T*>(
+          plan.resident ? sm.qres + (is_k ? c : DC + c) * kQChunk
+                        : sm.stage(i) + kSlice);
+      const bool release = !(is_k && out(c));  // else dS·K reads it
+      if constexpr (kF32) {
+        if (live) wide::scores_f32<BK>(a, is_k ? scale : 1.f, xs, x, first, wr);
+        if (release) sm.release(i);
+      } else {
+        wide::wg_fence();
+        wide::scores_bf16<BK>(a, xs, x, !first);
+        wide::wg_commit();
+        if (prev >= 0) {
+          wide::wg_wait<1>();
+          if (drop) sm.release(prev);
+        }
+        prev = i;
+        drop = release;
+      }
+      first = false;
+    };
+    if constexpr (!kF32) {
+      wide::keep(s);
+      wide::keep(dp);
+      wide::wg_fence();
+    }
+    for (int c = wg; c < DC; c += wide::kGroups) {
+      if (out(c)) continue;
+      part(s, s_first, n + slice_k(c), c, true);
+      part(dp, dp_first, n + slice_v(c), c, false);
+    }
+    for (int c = oc0 + wg; c < oc1; c += wide::kGroups)
+      part(dp, dp_first, n + slice_v(c), c, false);
+    for (int c = oc0 + wg; c < oc1; c += wide::kGroups)
+      part(s, s_first, n + slice_k(c), c, true);
+    if constexpr (!kF32) {
+      wide::wg_wait();
+      wide::keep(s);
+      wide::keep(dp);
+      if (drop) sm.release(prev);
+    }
+    wide::exchange(s, sm.xbuf, dp);
+    if constexpr (!kF32) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] *= scale;
+    }
+    attn::mask_scores(s, bits, k0, Tk, causal, rows);
+    // P = exp(S − L) (0 for absent keys, whose score is −inf), then
+    // dS = P∘(dP − Δ) in place
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[j][e] = expf(s[j][e] - L[e >> 1]) * (dp[j][e] - dl[e >> 1]);
 
-  const int k_end = causal ? min(Tk, q0 + 16 * NW) : Tk;
-  struct Item {
-    int slices;
-  };
-  auto stage = [&](int slot) {
-    return reinterpret_cast<T*>(smem + slot * C::kStage);
-  };
-  auto chunk = [&](int j) { return (oc + 1 + j) % DC; };
-  mma::walk(
-      1, [&](int) { return Item{(k_end + BK - 1) / BK * DC}; },
-      [&](int slot, const Item&, int i) {
-        const int kt = i / DC, kc = chunk(i - kt * DC);
-        attn::stage_kv<T, W, 32 * NW>(stage(slot), kb + kc * W, vb + kc * W,
-                                      kt * BK, Tk, D);
-      },
-      [&](int slot, const Item&, int i) {
-        if (!warp_live) return;
-        const int kt = i / DC, j = i - kt * DC, kc = chunk(j);
-        const int k0 = kt * BK;
-        const T* ks = stage(slot);
-        const T* vs = ks + BK * C::S;
-        if (j == 0) {
-          bits = keys.bits();
-          keys.load(mrow, Tk, k0 + BK);
-          skip = (bits == 0 || (causal && k0 > r0 + 15)) && !degenerate;
-        }
-        if (skip) return;
-        // Q's chunk (f32: times the scale) and dO's, read where they are
-        // multiplied
-        {
-          attn::Rows<T, W> qc;
-          qc.load(q + qoff + kc * W, r0, Tq, scale, D);
-          attn::scores_chunk<W>(qc, ks, s, j == 0);
-        }
-        {
-          attn::Rows<T, W> gc;
-          gc.load(dout + qoff + kc * W, r0, Tq, 1.f, D);
-          attn::scores_chunk<W>(gc, vs, dp, j == 0);
-        }
-        if (j != DC - 1) return;
-        if constexpr (!kF32) {
+    // dQ += dS·K over this warpgroup's output chunks (their K slices held)
+    uint32_t pa[kF32 ? 1 : BK / 16][4];
+    if constexpr (!kF32) wide::pack_p<BK>(s, pa);
 #pragma unroll
-          for (int jj = 0; jj < NJ; ++jj) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) s[jj][e] *= scale;
-          }
-        }
-        attn::mask_scores(s, bits, k0, Tk, causal, rows);
-        // P = exp(S − L) (0 for absent keys, whose score is −inf), then
-        // dS = P∘(dP − Δ) in place
-#pragma unroll
-        for (int jj = 0; jj < NJ; ++jj) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int h = e >> 1;
-            s[jj][e] = expf(s[jj][e] - L[h]) * (dp[jj][e] - dl[h]);
-          }
-        }
-        // ks holds K's chunk oc
-        if constexpr (kF32) {
-          float part[ND][4] = {};
-          attn::accumulate<W>(s, ks, part);
-#pragma unroll
-          for (int n = 0; n < ND; ++n) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
-          }
-        } else {
-          attn::accumulate<W>(s, ks, acc);
-        }
-      },
-      [&](const Item&) {});
+    for (int slot = 0; slot < CPW; ++slot) {
+      const int oc = oc0 + wg + wide::kGroups * slot;
+      if (oc >= oc1) continue;
+      const int i = n + slice_k(oc);
+      const T* ks = reinterpret_cast<const T*>(sm.stage(i));
+      if constexpr (kF32) {
+        if (live) wide::accumulate_f32<BK>(s, ks, acc[slot]);
+      } else {
+        wide::accumulate_bf16<BK>(pa, ks, acc[slot]);
+      }
+      sm.release(i);
+    }
+    n += 2 * DC;
+  }
 
-  if (!warp_live) return;
+  const int D = DC * wide::kChunk;  // the row stride
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (rows[h] >= Tq) continue;
-    T* row = dq + qoff + (size_t)rows[h] * D + oc * W + 2 * t;
 #pragma unroll
-    for (int n = 0; n < ND; ++n)
-      attn::store2(row + 8 * n, scale * acc[n][2 * h],
-                   scale * acc[n][2 * h + 1]);
+    for (int slot = 0; slot < CPW; ++slot) {
+      const int oc = oc0 + wg + wide::kGroups * slot;
+      if (oc >= oc1) continue;
+      T* row = dq + ((size_t)bh * Tq + rows[h]) * D + oc * wide::kChunk + 2 * t;
+#pragma unroll
+      for (int nn = 0; nn < 16; ++nn)
+        attn::store2(row + 8 * nn, scale * acc[slot][nn][2 * h],
+                     scale * acc[slot][nn][2 * h + 1]);
+    }
   }
 }
 
@@ -337,21 +427,26 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
   }
 }
 
-// D = 128·DC: DC column chunks of dQ, one per block (grid dimension z),
-// of attn::kWideWarps warps.
+// D = 128·DC: the plan of attn_wide.cuh (32 keys a tile, wide::kCpb
+// output chunks a block) and the operands' tensor maps.
 template <typename T>
 cudaError_t launch_wide(const void* q, const void* k, const void* v,
                         const void* dout, const float* lse,
                         const float* delta, const uint8_t* kv_mask, void* dq,
-                        int BH, int H, int Tq, int Tk, int causal,
-                        float scale, int DC, cudaStream_t stream) {
-  constexpr int nw = attn::kWideWarps;
-  return attn::launch(flash_bwd_dq_wide_kernel<T, nw>, nw, BH, Tq, DC,
-                      attn::smem_bytes<T, attn::kWideChunk>(), stream,
-                      static_cast<const T*>(q), static_cast<const T*>(k),
-                      static_cast<const T*>(v), static_cast<const T*>(dout),
+                        int BH, int H, int Tq, int Tk, int D, int causal,
+                        float scale, cudaStream_t stream) {
+  constexpr int esz = sizeof(T);
+  const int DC = D / wide::kChunk;
+  const wide::Plan p = wide::plan(esz, 32, wide::kCpb, 2, true, DC);
+  wide::Maps maps;
+  if (!wide::encode(&maps.q, q, esz, D, Tq, BH, wide::kRows) ||
+      !wide::encode(&maps.k, k, esz, D, Tk, BH, 32) ||
+      !wide::encode(&maps.v, v, esz, D, Tk, BH, 32) ||
+      !wide::encode(&maps.g, dout, esz, D, Tq, BH, wide::kRows))
+    return cudaErrorInvalidValue;
+  return wide::launch(flash_bwd_dq_wide_kernel<T>, p, BH, Tq, stream, maps,
                       lse, delta, kv_mask, static_cast<T*>(dq), H, Tq, Tk,
-                      causal, scale, DC);
+                      DC, causal, scale, p);
 }
 
 template <typename T>
@@ -374,11 +469,10 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       return launch_d<T, 128>(q, k, v, dout, lse, delta, kv_mask, dq, BH, H,
                              Tq, Tk, causal, scale, device, stream);
     default:
-      if (D <= attn::kWideChunk || D % attn::kWideChunk != 0 ||
-          D / attn::kWideChunk > 65535)
+      if (D <= wide::kChunk || D % wide::kChunk != 0)
         return cudaErrorInvalidValue;
       return launch_wide<T>(q, k, v, dout, lse, delta, kv_mask, dq, BH, H, Tq,
-                            Tk, causal, scale, D / attn::kWideChunk, stream);
+                            Tk, D, causal, scale, stream);
   }
 }
 

@@ -49,26 +49,35 @@
 //
 // Head dims: D = 16, 32, 64 and 128 have their own tile (the wrapper pads a
 // smaller D to the next). A wider D, padded by the wrapper to a multiple
-// of 128, runs `flash_fwd_wide_kernel` (attn_tile.cuh's note): of the two
-// ways to keep a 16 × D f32 accumulator and Q's TF32 split out of one
-// warp's registers, this one splits O's columns into 128-wide chunks, one
-// per block (grid dimension z), and sums S = Q·Kᵀ over D chunk by chunk
-// in each of them, rather than computing P once and sharing it through
-// shared memory. It keeps the narrow tile, its ring of three 128-column
-// stages (101 KB f32, 104 KB bf16: K's chunk, and V's output chunk on a
-// tile's last slice) and its one owner per output element, needs no
-// block-wide barrier between the warps' softmax and the P·V product, and
-// takes any D (D = 512's K and V rows would not fit three stages whole).
-// It pays in recomputed scores: the S products run once per output
-// chunk, 2·D·(DC + 1) flops a pair for the 4·D the function needs (2.5×
-// at D = 512). Every chunk's block sums S in the same order, so they
-// agree on m and l, and the block of chunk 0 writes the lse.
-//
+// of 128, runs `flash_fwd_wide_kernel` on attn_wide.cuh's Hopper tile: a
+// block of 64 query rows and G = 256 output columns (a wider D splits its
+// columns over grid z), two consumer warpgroups and a producer
+// warpgroup. The warpgroups split S = Q·Kᵀ over D's 128-column chunks
+// and add their partials through shared memory, so the scores run D/G
+// times: 2·D·(D/G + 1) flops a pair, 4·D wherever D ≤ 256 (6·D at 512,
+// 10·D at 1024), in place of the 128-column-chunk design's 2·D·(DC + 1)
+// (DC = D/128: 10·D at 512, 18·D at 1024). Q comes from device memory
+// once a block and stays in shared memory while it fits beside the ring
+// (bf16 D ≤ 1152, f32 D ≤ 640); past that each key tile restages its
+// chunks from L2. K and V arrive by TMA through the ring.
+// What bounds it: bf16 (wgmma, 989 TFLOP/s) by bytes at the one-head
+// layers' shapes (32×1×512² at D = 256, 16×1×512² at D = 512); f32 (3×TF32
+// on mma.sync, three TF32 products per f32 product at 495 TFLOP/s) by
+// those operations there; both by bytes at the learned queries' Tq = 4
+// (chip_smoke.py's bounds, which count 4·D a pair).
+// Budget a block (227 KB of shared memory, 65,536 registers): bf16 64
+// keys a tile, the exchange 32 KB, Q 16 KB a chunk, ring stages of 16 KB
+// (D = 256: 10 stages, 512: 8, 1024: 4); f32 32 keys a tile, the exchange
+// 16 KB, Q 32 KB a chunk, stages of 16 KB (D = 256: 9, 512: 5). Registers:
+// 168 a thread at launch, setmaxnreg then gives the consumers 232 and the
+// producer 40; a consumer holds O (64 registers for its 128 columns), S
+// (bf16 32, f32 16) and P. -Xptxas -v (chip_smoke.py's build phase logs
+// it): bf16 no spill, f32 8 bytes.
 // flash_fwd.cu builds the float32 instantiations and flash_fwd_bf16.cu the
 // bfloat16 ones, as two libraries whose nvcc runs in parallel.
 #pragma once
 
-#include "attn_tile.cuh"
+#include "attn_wide.cuh"
 
 namespace dl4j {
 namespace {
@@ -193,145 +202,197 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// The wide kernel (D = 128·DC > 128, attn_tile.cuh's note): this block
-// writes output columns [128·oc, 128·oc + 128), oc = blockIdx.z. Slice i of
-// the walk is key tile i / DC and K's column chunk i % DC; the tile's last
-// slice also stages V's chunk oc.
-template <typename T, int NW>
-__global__ void __launch_bounds__(32 * NW)
-flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v,
+// The wide kernel (D = 128·DC > 128, attn_wide.cuh's note): 64 query rows
+// and output chunks [oc0, oc1) of one (b·h). Per visited key tile the ring
+// carries K's DC chunks (slices 0 … DC − 1, each with Q's chunk when Q is
+// not resident), then V's output chunks.
+template <typename T>
+__global__ void __launch_bounds__(wide::kThreads, 1)
+flash_fwd_wide_kernel(const __grid_constant__ wide::Maps maps,
                       const uint8_t* __restrict__ kv_mask, T* __restrict__ o,
-                      float* __restrict__ lse, int H, int Tq, int Tk,
-                      int causal, float scale, int DC) {
-  constexpr int W = attn::kWideChunk;
-  using C = attn::Tile<T, W>;
-  constexpr int BK = C::BK, NJ = BK / 8, ND = W / 8;
+                      float* __restrict__ lse, int H, int Tq, int Tk, int DC,
+                      int causal, float scale, const wide::Plan plan) {
   constexpr bool kF32 = sizeof(T) == 4;
-  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int BK = kF32 ? 32 : 64, NJ = BK / 8;
+  constexpr int CPW = wide::kCpw;  // output chunks a warpgroup
+  constexpr int kSlice = BK * wide::kChunk * (int)sizeof(T);
+  constexpr int kQChunk = wide::kRows * wide::kChunk * (int)sizeof(T);
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  wide::Smem sm(smem_raw, plan);
 
-  const int D = W * DC;  // the row stride
-  const int oc = blockIdx.z;
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * 16 * NW;
-  const int r0 = q0 + threadIdx.x / 32 * 16;  // the warp's first row
-  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
-  const int rows[2] = {r0 + g, r0 + g + 8};
-  const bool warp_live = r0 < Tq;
-  const T* qb = q + (size_t)bh * Tq * D;
-  const T* kb = k + (size_t)bh * Tk * D;
-  const T* vb = v + (size_t)bh * Tk * D;
+  const int bh = blockIdx.y, q0 = blockIdx.x * wide::kRows;
+  const int oc0 = blockIdx.z * plan.cpb, oc1 = min(DC, oc0 + plan.cpb);
+  const int warp = threadIdx.x / 32;
   const uint8_t* mrow =
       kv_mask == nullptr ? nullptr : kv_mask + (size_t)(bh / H) * Tk;
+  const int k_end = causal ? min(Tk, q0 + wide::kRows) : Tk;
+  const int tiles = (k_end + BK - 1) / BK;
+  wide::Schedule<BK> walk{mrow, Tk, q0, causal, false};
+  if (threadIdx.x == 0) sm.init();
+  __syncthreads();
 
-  float acc[ND][4] = {};
+  if (warp >= wide::kProducerWarp) {
+    wide::producer_regs();
+    if (warp != wide::kProducerWarp) return;
+    const bool lead = threadIdx.x % 32 == 0;
+    if (plan.resident && lead) {
+      wide::mbar_expect(sm.qbar, DC * kQChunk);
+      for (int c = 0; c < DC; ++c)
+        wide::load_chunk<T>(sm.qres + c * kQChunk, &maps.q, sm.qbar, c, q0,
+                            bh, wide::kRows);
+    }
+    int n = 0;
+    for (int kt = 0; kt < tiles; ++kt) {
+      uint64_t bits;
+      if (!walk.visit(kt, bits)) continue;
+      if (lead) {
+        for (int c = 0; c < DC; ++c, ++n) {
+          unsigned char* st =
+              sm.acquire(n, kSlice + (plan.resident ? 0 : kQChunk));
+          wide::load_chunk<T>(st, &maps.k, sm.bar(n), c, kt * BK, bh, BK);
+          if (!plan.resident)
+            wide::load_chunk<T>(st + kSlice, &maps.q, sm.bar(n), c, q0, bh,
+                                wide::kRows);
+        }
+        for (int oc = oc0; oc < oc1; ++oc, ++n)
+          wide::load_chunk<T>(sm.acquire(n, kSlice), &maps.v, sm.bar(n), oc,
+                              kt * BK, bh, BK);
+      }
+    }
+    return;
+  }
+
+  wide::consumer_regs();
+  const bool tr = threadIdx.x % 128 == 0;  // WIDE_TRACE's thread a group
+  if (tr) WIDE_TRACE(1024 * (threadIdx.x / 128) + 1020);
+  const int wg = warp / 4, wr = warp % 4 * 16;  // the warp's rows wr..
+  const int g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+  const int rows[2] = {q0 + wr + g, q0 + wr + g + 8};
+  // f32: a warp whose rows are all past Tq skips its products (bf16's
+  // products are the warpgroup's)
+  const bool live = !kF32 || q0 + wr < Tq;
+  float acc[CPW][16][4] = {};
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};  // this thread's columns only; summed at the end
-  attn::Keys<BK> keys;
-  keys.load(mrow, Tk, 0);
-  float s[NJ][4];     // S of the key tile, summed over its chunks
-  uint64_t bits = 0;  // the key tile's validity (its first slice reads it)
-  bool skip = false;  // the warp skips the key tile
-
-  const int k_end = causal ? min(Tk, q0 + 16 * NW) : Tk;
-  struct Item {
-    int slices;
-  };
-  auto stage = [&](int slot) {
-    return reinterpret_cast<T*>(smem + slot * C::kStage);
-  };
-  mma::walk(
-      1, [&](int) { return Item{(k_end + BK - 1) / BK * DC}; },
-      [&](int slot, const Item&, int i) {
-        const int kt = i / DC, kc = i - kt * DC;
-        attn::stage_rows<T, W, 32 * NW>(stage(slot), kb + kc * W, kt * BK,
-                                        Tk, D);
-        if (kc == DC - 1)
-          attn::stage_rows<T, W, 32 * NW>(stage(slot) + BK * C::S,
-                                          vb + oc * W, kt * BK, Tk, D);
-      },
-      [&](int slot, const Item&, int i) {
-        if (!warp_live) return;
-        const int kt = i / DC, kc = i - kt * DC;
-        const int k0 = kt * BK;
-        const T* ks = stage(slot);
-        if (kc == 0) {
-          bits = keys.bits();
-          keys.load(mrow, Tk, k0 + BK);
-          const bool none = bits == 0 || (causal && k0 > r0 + 15);
-          const bool seen = (m[0] > kNegInf || rows[0] >= Tq) &&
-                            (m[1] > kNegInf || rows[1] >= Tq);
-          skip = __all_sync(attn::kFull, none && seen);
+  if (plan.resident) wide::mbar_wait(sm.qbar, 0);
+  if (tr) WIDE_TRACE(1024 * wg + 1021);
+  int n = 0;
+  for (int kt = 0; kt < tiles; ++kt) {
+    uint64_t bits;
+    if (!walk.visit(kt, bits)) continue;
+    const int k0 = kt * BK;
+    if (tr) WIDE_TRACE(1024 * wg + 8 * kt);
+    // this warpgroup's share of S = Q·Kᵀ: chunks wg, wg + 2, … (bf16: one
+    // product group a chunk, the next issued before the last is waited on)
+    float s[NJ][4] = {};
+    if constexpr (!kF32) {
+      wide::keep(s);
+      wide::wg_fence();
+    }
+    int prev = -1;  // bf16: the slice the group in flight reads
+    for (int c = wg; c < DC; c += wide::kGroups) {
+      const int i = n + c;
+      sm.wait(i);
+      if (tr && c == wg) WIDE_TRACE(1024 * wg + 8 * kt + 1);
+      const T* ks = reinterpret_cast<const T*>(sm.stage(i));
+      const T* qc = reinterpret_cast<const T*>(
+          plan.resident ? sm.qres + c * kQChunk : sm.stage(i) + kSlice);
+      if constexpr (kF32) {
+        if (live) wide::scores_f32<BK>(qc, scale, ks, s, c == wg, wr);
+        sm.release(i);
+      } else {
+        wide::wg_fence();
+        wide::scores_bf16<BK>(qc, ks, s, c != wg);
+        wide::wg_commit();
+        if (prev >= 0) {
+          wide::wg_wait<1>();
+          sm.release(prev);
         }
-        if (skip) return;
-        // Q's chunk, read where it is multiplied (f32: times the scale)
-        {
-          attn::Rows<T, W> qc;
-          qc.load(qb + kc * W, r0, Tq, scale, D);
-          attn::scores_chunk<W>(qc, ks, s, kc == 0);
-        }
-        if (kc != DC - 1) return;
+        prev = i;
+      }
+    }
+    if constexpr (!kF32) {
+      wide::wg_wait();
+      wide::keep(s);
+      sm.release(prev);
+    }
+    n += DC;
+    if (tr) WIDE_TRACE(1024 * wg + 8 * kt + 2);
+    wide::exchange(s, sm.xbuf);
+    if (tr) WIDE_TRACE(1024 * wg + 8 * kt + 3);
+    if constexpr (!kF32) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] *= scale;
+    }
+    attn::mask_scores(s, bits, k0, Tk, causal, rows);
 
-        const T* vs = ks + BK * C::S;
-        if constexpr (!kF32) {
+    float alpha[2];
 #pragma unroll
-          for (int j = 0; j < NJ; ++j) {
+    for (int h = 0; h < 2; ++h) {
+      float mx = m[h];
 #pragma unroll
-            for (int e = 0; e < 4; ++e) s[j][e] *= scale;
-          }
-        }
-        attn::mask_scores(s, bits, k0, Tk, causal, rows);
+      for (int j = 0; j < NJ; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+      mx = attn::quad_max(mx);
+      alpha[h] = expf(m[h] - mx);
+      m[h] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        s[j][2 * h] = expf(s[j][2 * h] - mx);
+        s[j][2 * h + 1] = expf(s[j][2 * h + 1] - mx);
+        sum += s[j][2 * h] + s[j][2 * h + 1];
+      }
+      l[h] = l[h] * alpha[h] + sum;
+    }
 
-        float alpha[2];
+    if (tr) WIDE_TRACE(1024 * wg + 8 * kt + 4);
+    // O += P·V over this warpgroup's output chunks
+    uint32_t pa[kF32 ? 1 : BK / 16][4];
+    if constexpr (!kF32) wide::pack_p<BK>(s, pa);
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float mx = m[h];
+    for (int slot = 0; slot < CPW; ++slot) {
+      const int oc = oc0 + wg + wide::kGroups * slot;
+      if (oc >= oc1) continue;
+      const int i = n + oc - oc0;
+      sm.wait(i);
+      if (tr && slot == 0) WIDE_TRACE(1024 * wg + 8 * kt + 5);
+      const T* vs = reinterpret_cast<const T*>(sm.stage(i));
 #pragma unroll
-          for (int j = 0; j < NJ; ++j)
-            mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
-          mx = attn::quad_max(mx);
-          alpha[h] = expf(m[h] - mx);
-          m[h] = mx;
-          float sum = 0.f;
+      for (int nn = 0; nn < 16; ++nn)
 #pragma unroll
-          for (int j = 0; j < NJ; ++j) {
-            s[j][2 * h] = expf(s[j][2 * h] - mx);
-            s[j][2 * h + 1] = expf(s[j][2 * h + 1] - mx);
-            sum += s[j][2 * h] + s[j][2 * h + 1];
-          }
-          l[h] = l[h] * alpha[h] + sum;
-        }
+        for (int e = 0; e < 4; ++e) acc[slot][nn][e] *= alpha[e >> 1];
+      if constexpr (kF32) {
+        if (live) wide::accumulate_f32<BK>(s, vs, acc[slot]);
+      } else {
+        wide::accumulate_bf16<BK>(pa, vs, acc[slot]);
+      }
+      sm.release(i);
+    }
+    n += oc1 - oc0;
+    if (tr) WIDE_TRACE(1024 * wg + 8 * kt + 6);
+  }
 
-        if constexpr (kF32) {
-          float pv[ND][4] = {};
-          attn::accumulate<W>(s, vs, pv);
-#pragma unroll
-          for (int n = 0; n < ND; ++n) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              acc[n][e] = fmaf(acc[n][e], alpha[e >> 1], pv[n][e]);
-          }
-        } else {
-#pragma unroll
-          for (int n = 0; n < ND; ++n) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
-          }
-          attn::accumulate<W>(s, vs, acc);
-        }
-      },
-      [&](const Item&) {});
-
-  if (!warp_live) return;
+  if (tr) WIDE_TRACE(1024 * wg + 1022);
+  const int D = DC * wide::kChunk;  // the row stride
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const float lc = fmaxf(attn::quad_sum(l[h]), 1e-30f);
     if (rows[h] >= Tq) continue;
-    T* orow = o + ((size_t)bh * Tq + rows[h]) * D + oc * W + 2 * t;
 #pragma unroll
-    for (int n = 0; n < ND; ++n)
-      attn::store2(orow + 8 * n, acc[n][2 * h] / lc, acc[n][2 * h + 1] / lc);
-    if (t == 0 && oc == 0) lse[(size_t)bh * Tq + rows[h]] = m[h] + logf(lc);
+    for (int slot = 0; slot < CPW; ++slot) {
+      const int oc = oc0 + wg + wide::kGroups * slot;
+      if (oc >= oc1) continue;
+      T* orow = o + ((size_t)bh * Tq + rows[h]) * D + oc * wide::kChunk + 2 * t;
+#pragma unroll
+      for (int nn = 0; nn < 16; ++nn)
+        attn::store2(orow + 8 * nn, acc[slot][nn][2 * h] / lc,
+                     acc[slot][nn][2 * h + 1] / lc);
+    }
+    if (t == 0 && wg == 0 && blockIdx.z == 0)
+      lse[(size_t)bh * Tq + rows[h]] = m[h] + logf(lc);
   }
 }
 
@@ -362,19 +423,26 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
   }
 }
 
-// D = 128·DC: DC column chunks, one per block (grid dimension z), of
-// attn::kWideWarps warps.
+// D = 128·DC: the plan of attn_wide.cuh (bf16: 64 keys a tile; f32: 32;
+// wide::kCpb output chunks a block) and the operands' tensor maps.
 template <typename T>
 cudaError_t launch_wide(const void* q, const void* k, const void* v,
                         const uint8_t* kv_mask, void* o, float* lse, int BH,
-                        int H, int Tq, int Tk, int causal, float scale,
-                        int DC, cudaStream_t stream) {
-  constexpr int nw = attn::kWideWarps;
-  return attn::launch(flash_fwd_wide_kernel<T, nw>, nw, BH, Tq, DC,
-                      attn::smem_bytes<T, attn::kWideChunk>(), stream,
-                      static_cast<const T*>(q), static_cast<const T*>(k),
-                      static_cast<const T*>(v), kv_mask, static_cast<T*>(o),
-                      lse, H, Tq, Tk, causal, scale, DC);
+                        int H, int Tq, int Tk, int D, int causal, float scale,
+                        cudaStream_t stream) {
+  constexpr int esz = sizeof(T);
+  constexpr int BK = esz == 4 ? 32 : 64;
+  const int DC = D / wide::kChunk;
+  const wide::Plan p = wide::plan(esz, BK, wide::kCpb, 1, false, DC);
+  wide::Maps maps;
+  if (!wide::encode(&maps.q, q, esz, D, Tq, BH, wide::kRows) ||
+      !wide::encode(&maps.k, k, esz, D, Tk, BH, BK) ||
+      !wide::encode(&maps.v, v, esz, D, Tk, BH, BK))
+    return cudaErrorInvalidValue;
+  maps.g = maps.q;
+  return wide::launch(flash_fwd_wide_kernel<T>, p, BH, Tq, stream, maps,
+                      kv_mask, static_cast<T*>(o), lse, H, Tq, Tk, DC,
+                      causal, scale, p);
 }
 
 template <typename T>
@@ -396,11 +464,10 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       return launch_d<T, 128>(q, k, v, kv_mask, o, lse, BH, H, Tq, Tk, causal,
                              scale, device, stream);
     default:
-      if (D <= attn::kWideChunk || D % attn::kWideChunk != 0 ||
-          D / attn::kWideChunk > 65535)
+      if (D <= wide::kChunk || D % wide::kChunk != 0)
         return cudaErrorInvalidValue;
-      return launch_wide<T>(q, k, v, kv_mask, o, lse, BH, H, Tq, Tk, causal,
-                            scale, D / attn::kWideChunk, stream);
+      return launch_wide<T>(q, k, v, kv_mask, o, lse, BH, H, Tq, Tk, D,
+                            causal, scale, stream);
   }
 }
 

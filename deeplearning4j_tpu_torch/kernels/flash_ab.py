@@ -9,7 +9,9 @@ TREE is the root of a checkout whose `deeplearning4j_tpu_torch` is imported
 flash libraries (one nvcc each, in parallel); `time` prints one line
 `AB <TREE> <json>` of {case: ms} by CUDA events (50 calls after 3, the
 host queued ahead): flash_fwd, flash_bwd_dq and flash_bwd_dkv at BERT's
-prefill, fine-tune and encode shapes and the attention layers' D = 128,
+prefill, fine-tune and encode shapes, the attention layers' D = 128 and
+the wide head dims (DL4J's one-head layers at D = 256, their learned
+queries at Tq = 4, the wide layer at D = 512, and D = 1024),
 flash_decode at C = 128 and 512, f32 and bf16. Run the two trees in turns
 in one call (A, B, B, A) and compare within it. Needs a CUDA card.
 """
@@ -43,7 +45,14 @@ SHAPES = (("prefill P=128", (1, 12, 128, 128, 64), None, True),
           ("encode", (8, 12, 512, 512, 64),
            [512, 300, 128, 1, 0, 77, 450, 511], False),
           ("attn D=128", (16, 4, 512, 512, 128),
-           [512 - 31 * i for i in range(16)], False))
+           [512 - 31 * i for i in range(16)], False),
+          ("attn D=256", (32, 1, 512, 512, 256),
+           [512 - 13 * i for i in range(32)], False),
+          ("learned Tq=4 D=256", (32, 1, 4, 512, 256),
+           [512 - 13 * i for i in range(32)], False),
+          ("attn D=512", (16, 1, 512, 512, 512),
+           [512 - 31 * i for i in range(16)], False),
+          ("D=1024", (1, 1, 128, 128, 1024), None, False))
 
 
 def time_flash():
@@ -64,7 +73,8 @@ def time_flash():
                                        device=dev).to(dt)
                            for t in (tq, tk, tk, tq))
             m = None if lens is None else mask(lens, tk)
-            o, lse = tfa._flash_forward(q, k, v, m, m, causal)
+            o, lse = tfa._flash_forward(q, k, v, m if tq == tk else None, m,
+                                        causal)
             args = (q, k, v, go, lse, tfa._delta(go, o), m, causal)
             res[f"fwd {label} {dt}"] = _ms(
                 lambda: tfa.flash_fwd(q, k, v, m, causal))

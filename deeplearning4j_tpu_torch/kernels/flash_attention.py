@@ -43,7 +43,8 @@ next multiple of 128, which the kernels take 128 columns at a time
 flash_decode has instantiations for D = 8, 16, 32, … 1024 and runs any
 other D up to 1024 in the next one's geometry with its true row stride,
 so the cache is never padded or copied (`decode_head_dim_plan`). A decode
-head dim past 1024 raises.
+head dim past 1024 runs flash_fwd with one query row, as the JAX
+package's Pallas decode runs its forward kernel.
 
 Layout (B, H, T, D) as in the JAX package. Scores that a mask removes take
 -1e30, as in the JAX kernel; rows with no valid key come back as zeros.
@@ -171,17 +172,18 @@ def head_dim_plan(d):
 
 
 def decode_head_dim_plan(d):
-    """The instantiation of flash_decode that runs a head dim `d`: the
-    smallest of 8, 16, … 1024 that holds it. A `d` between two runs in the
-    wider one's geometry with its own row stride (the columns past `d`
-    read as zeros), so nothing is padded. Past 1024 it raises."""
+    """How `flash_decode` runs a head dim `d` on the card: up to 1024, the
+    instantiation of its kernel at the smallest of 8, 16, … 1024 that holds
+    it (a `d` between two runs in the wider one's geometry with its own row
+    stride, the columns past `d` read as zeros, so nothing is padded);
+    past 1024, None: the forward kernel `flash_fwd` with one query row,
+    at `head_dim_plan(d)`, as the JAX package's Pallas decode runs its
+    forward kernel at every head dim."""
     _check_head_dim(d)
     for hd in _DECODE_HEAD_DIMS:
         if d <= hd:
             return hd
-    raise ValueError(
-        f"flash_decode takes head dims up to {_DECODE_HEAD_DIMS[-1]} on the "
-        f"card, got {d}")
+    return None
 
 
 def pad_heads(dp, *ts):
@@ -523,17 +525,23 @@ def _decode_reference_quantized(q, k_cache, v_cache, cache_mask, k_scale,
 
 def flash_decode(q, k_cache, v_cache, cache_mask):
     """Kernel 2 (csrc/flash_decode.cu) on a CUDA tensor, its plain version
-    on a CPU one. q (B, H, 1, D), caches (B, H, C, D) with D ≤ 1024,
-    cache_mask (B, C) truthy. Returns (B, H, 1, D) in q.dtype."""
-    if not q.is_cuda:
-        return _decode_reference(q, k_cache, v_cache, cache_mask)
+    on a CPU one. q (B, H, 1, D), caches (B, H, C, D), cache_mask (B, C)
+    truthy. Returns (B, H, 1, D) in q.dtype. Past D = 1024 it runs
+    `_flash_forward` with one query row instead (`decode_head_dim_plan`),
+    on the card `flash_fwd`, which counts the launch; a row with no valid
+    cache entry comes back zeroed there too."""
     b, h, _, d = q.shape
     c = k_cache.shape[2]
+    wide = decode_head_dim_plan(d) is None
+    if not q.is_cuda and not wide:
+        return _decode_reference(q, k_cache, v_cache, cache_mask)
     if k_cache.shape != (b, h, c, d) or v_cache.shape != k_cache.shape:
         raise ValueError(f"flash_decode: q {tuple(q.shape)} does not match "
                          f"the caches {tuple(k_cache.shape)} / "
                          f"{tuple(v_cache.shape)}")
-    decode_head_dim_plan(d)
+    if wide:
+        return _flash_forward(q, k_cache, v_cache, None,
+                              cache_mask.to(torch.bool), False)[0]
     q, k, v = _operands("flash_decode", (q, k_cache, v_cache))
     mask = _mask_bytes(cache_mask, q.device, "cache_mask")
     out = torch.empty_like(q)
@@ -560,7 +568,11 @@ def decode_cluster_size(b, h, c, d, dtype, device):
     if dtype not in _DTYPE_CODES:
         raise ValueError(f"flash_decode takes float32 or bfloat16, got "
                          f"{dtype}")
-    decode_head_dim_plan(d)
+    if decode_head_dim_plan(d) is None:
+        raise ValueError(
+            f"flash_decode's kernel takes head dims up to "
+            f"{_DECODE_HEAD_DIMS[-1]}; head dim {d} runs through flash_fwd, "
+            "which splits no cache over a cluster")
     return _entry("dl4j_flash_decode_cluster")(
         _DTYPE_CODES[dtype], b * h, c, d, dev.index or 0)
 

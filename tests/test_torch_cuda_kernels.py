@@ -296,10 +296,13 @@ def _attention_cases(card, dtype, d, gen, cases):
                 assert a[lens.index(0)].abs().max() == 0
 
 
-@pytest.mark.parametrize("d", [160, 256, 512])
+@pytest.mark.parametrize("d", [160, 256, 384, 512, 640])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_kernels_past_head_dim_128(card, dtype, d):
-    """The wide kernels (128 columns a block, D = 160 zero-padded to 256):
+    """The wide kernels (D = 160 zero-padded to 256; D = 384 three
+    128-column chunks, split 2 + 1 over the forward's and dQ's two
+    warpgroups; D = 640 past f32's 256 output columns a block, so grid z
+    splits the columns and the scores run twice, and past bf16's 512):
     self-attention with ragged lengths and a fully padded example, causal,
     and the LearnedSelfAttentionLayer's cross shape (Tq = 4) with a key
     mask, each held to its plain version."""
@@ -310,10 +313,12 @@ def test_cuda_flash_kernels_past_head_dim_128(card, dtype, d):
         ((3, 2, 4, 90), [90, 9, 1], False)))
 
 
-def test_cuda_flash_kernels_at_head_dim_1024(card):
-    """D = 1024 (eight 128-column chunks) once at a small shape, f32."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_kernels_at_head_dim_1024(card, dtype):
+    """D = 1024 (eight 128-column chunks: four blocks of output columns in
+    f32, two in bf16) once at a small shape."""
     gen = torch.Generator(device=card).manual_seed(8)
-    _attention_cases(card, torch.float32, 1024, gen, (
+    _attention_cases(card, dtype, 1024, gen, (
         ((1, 1, 128, 128), [100], False),))
 
 
@@ -345,15 +350,49 @@ def test_cuda_flash_decode_at_every_head_dim(card, dtype, atol, d):
     assert tfa.decode_cluster_size(b, h, c, d, dtype, card) in (2, 4, 8)
 
 
+@pytest.mark.parametrize("d", [1032, 1536])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2)])
+def test_cuda_flash_decode_past_head_dim_1024(card, dtype, atol, d):
+    """Past flash_decode's widest instantiation decode runs flash_fwd with
+    one query row (D = 1032 padded to 1152; 1536): one flash_fwd launch a
+    call and none of flash_decode, within atol of the plain version, an
+    empty row exactly zero, bit-identical on a re-run."""
+    gen = torch.Generator(device=card).manual_seed(10)
+    b, h, c = 4, 3, 200
+    lens = [1, 0, c - 1, c // 2 + 3]
+    q, k, v = (torch.randn((b, h, t, d), generator=gen, device=card)
+               .to(dtype) for t in (1, c, c))
+    mask = (torch.arange(c, device=card)[None]
+            < torch.tensor(lens, device=card)[:, None])
+    before = (tfa.flash_fwd.launches, tfa.flash_decode.launches)
+    out = tfa.flash_decode(q, k, v, mask)
+    assert (tfa.flash_fwd.launches, tfa.flash_decode.launches) == (
+        before[0] + 1, before[1])
+    ref = tfa._decode_reference(q, k, v, mask)
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert (out.float() - ref.float()).abs().max() <= atol, d
+    assert out[1].abs().max() == 0
+    assert torch.equal(out, tfa.flash_decode(q, k, v, mask))
+    auto = tfa.flash_attention_decode(q[:, :, 0], k, v, mask)
+    assert torch.equal(auto, out[:, :, 0])
+
+
 def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(card):
     x = torch.zeros((1, 2, 8, 64), device=card)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         tfa.flash_fwd(x.half(), x.half(), x.half())
     # every head dim runs (narrow ones padded, wide ones in 128-column
-    # chunks); decode takes up to 1024
+    # chunks); decode past 1024 runs flash_fwd with one query row, which
+    # checks what it takes as flash_decode does
     wide = torch.zeros((1, 2, 1, 1032), device=card)
-    with pytest.raises(ValueError, match="head dims up to 1024"):
-        tfa.flash_decode(wide, wide, wide, torch.ones(
+    before = tfa.flash_fwd.launches
+    out = tfa.flash_decode(wide, wide, wide, torch.ones(
+        (1, 1), dtype=torch.bool, device=card))
+    assert tfa.flash_fwd.launches == before + 1
+    assert out.shape == wide.shape and out.abs().max() == 0
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tfa.flash_decode(wide.half(), wide.half(), wide.half(), torch.ones(
             (1, 1), dtype=torch.bool, device=card))
     with pytest.raises(ValueError, match="share one device"):
         tfa.flash_decode(x[:, :, :1], x.cpu(), x, torch.ones(

@@ -4,11 +4,13 @@ The port's flash kernels take any head dim on the card: flash_fwd,
 flash_bwd_dq and flash_bwd_dkv have tiles for D = 16, 32, 64 and 128 and
 run a wider D zero-padded to the next multiple of 128, 128 columns a block
 (`head_dim_plan`); flash_decode is instantiated for D = 8 … 1024 and runs
-a D between two in the wider one's geometry, unpadded
-(`decode_head_dim_plan`). Here, where the wrappers run the kernels' plain
-versions:
+a D between two in the wider one's geometry, unpadded, and a wider D
+through the forward with one query row (`decode_head_dim_plan`). Here,
+where the wrappers run the kernels' plain versions:
 
-- both plans over head dims from 1 to 1024;
+- both plans over head dims from 1 to 1024, and past it;
+- decode at D = 1152 (the forward with one query row) against the JAX
+  package's Pallas decode in interpret mode;
 - the plain forward, dQ and dK/dV at D = 8, 160 and 256, on the operands
   the card kernels get (padded to the plan, scale 1/√D of the true D),
   against the JAX package's Pallas kernels in interpret mode (B = 1,
@@ -70,15 +72,45 @@ def test_every_head_dim_has_a_kernel_plan(d):
 
 
 def test_head_dims_the_plans_refuse():
-    """A head dim below 1, and a decode head dim past 1024 (the widest
-    decode instantiation); the forward plan takes any wider D."""
+    """A head dim below 1. Past 1024 (the widest decode instantiation) the
+    decode plan names no instantiation (None: decode runs the forward with
+    one query row, at the forward plan's D), and the forward plan takes any
+    wider D."""
     for plan in (tfa.head_dim_plan, tfa.decode_head_dim_plan):
         with pytest.raises(ValueError, match="at least 1"):
             plan(0)
-    with pytest.raises(ValueError, match="head dims up to 1024"):
-        tfa.decode_head_dim_plan(1025)
+    assert tfa.decode_head_dim_plan(1025) is None
+    assert tfa.decode_head_dim_plan(4000) is None
     assert tfa.head_dim_plan(1025) == 1152
     assert tfa.head_dim_plan(4000) == 4096
+
+
+@pytest.mark.parametrize("rank", [3, 4])
+def test_decode_past_head_dim_1024_matches_the_jax_kernel(rank):
+    """flash_attention_decode(impl="kernel") at D = 1152, past flash_decode's
+    widest instantiation: the forward with one query row (on the CPU its
+    plain version), against the JAX package's impl="pallas" (its forward
+    kernel in interpret mode) and its dense decode, an empty cache row
+    coming back zero."""
+    rng = np.random.default_rng(12)
+    b, h, c, d = 3, 2, 24, 1152
+    q = rng.standard_normal((b, h, d) if rank == 3
+                            else (b, h, 1, d)).astype(np.float32)
+    k, v = (rng.standard_normal((b, h, c, d)).astype(np.float32)
+            for _ in range(2))
+    m = _lens_mask([24, 0, 9], c)
+    jp = jfa.flash_attention_decode(_j(q), _j(k), _j(v), _j(m),
+                                    impl="pallas", block_k=8, interpret=True)
+    jd = jfa.flash_attention_decode(_j(q), _j(k), _j(v), _j(m),
+                                    impl="dense")
+    before = (tfa.flash_fwd.launches, tfa.flash_decode.launches)
+    out = tfa.flash_attention_decode(_t(q), _t(k), _t(v), _t(m),
+                                     impl="kernel")
+    assert (tfa.flash_fwd.launches, tfa.flash_decode.launches) == before
+    assert out.shape == q.shape
+    np.testing.assert_allclose(out.numpy(), np.asarray(jp), **TOL)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jd), **TOL)
+    assert np.all(out.numpy()[1] == 0)
 
 
 #: (causal, key lengths) at B = 1, H = 2, T = 32
